@@ -1,0 +1,250 @@
+"""DiT distributional denoiser for images (PyTorch port, replicated dense path).
+
+Port of ``ddm_tpu/models/dit.py`` as ``ddm_tpu.models.factory.build_model``
+builds it: NHWC images, xi-conditioning by channel concatenation, additive
+sinusoidal time embedding (no AdaLN), pre-LN blocks, learned positional
+embedding, final LayerNorm and unembedding. Each block is two fused ops:
+:func:`~ddm_tpu_torch.ops.attention.fused_attention_block` then
+:func:`~ddm_tpu_torch.ops.mlp_block.fused_mlp_block` over (B*N, D) rows,
+which launch kernels K2 and K1 on CUDA tensors.
+
+Parameters carry the reference checkpoint's ``state_dict`` names and
+layouts (``patch_embed.proj.weight`` (D, C, p, p), ``blocks.{i}.attn.qkv.*``,
+``blocks.{i}.ff.net.0.*``, ``norm.*``, ``unembed.proj.*``), so a reference
+``.pt`` payload loads with ``load_state_dict``. The patch embed is applied
+as a matmul over :func:`patchify_images` tokens (cuDNN convolutions default
+to TF32) and the unembed rows are permuted from the reference's (c, ph, pw)
+order to the token order (ph, pw, c).
+
+dtype plan (the JAX module's): inputs concatenated then cast to the compute
+dtype; ``patch_proj``, ``time_mlp`` and ``unembed`` are compute-dtype
+products; ``h + temb + pos_embed`` is summed in the compute dtype in that
+order; the final LayerNorm is fp32 with eps 1e-6; the output is fp32.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..ops.attention import fused_attention_block
+from ..ops.mlp_block import fused_mlp_block, layer_norm
+
+__all__ = [
+    "sinusoidal_time_embedding",
+    "patchify_images",
+    "DiTBlock",
+    "DDDMDiT",
+    "init_params",
+]
+
+
+def patchify_images(x: torch.Tensor, patch: int) -> torch.Tensor:
+    """NHWC images -> ``(B, N, p*p*C)`` patch tokens, features (ph, pw, c)."""
+    B, H, W, C = x.shape
+    gh, gw = H // patch, W // patch
+    x = x.reshape(B, gh, patch, gw, patch, C).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(B, gh * gw, patch * patch * C)
+
+
+def sinusoidal_time_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0) -> torch.Tensor:
+    """``[sin(t f), cos(t f)]`` with geometric frequencies; odd ``dim`` is
+    zero-padded by one."""
+    t = t.reshape(-1)
+    half = dim // 2
+    exponent = (-math.log(max_period)
+                * torch.arange(half, dtype=t.dtype, device=t.device) / max(half - 1, 1))
+    args = t[:, None] * torch.exp(exponent)[None, :]
+    emb = torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
+    if dim % 2 == 1:
+        emb = nn.functional.pad(emb, (0, 1))
+    return emb
+
+
+def _dense(x: torch.Tensor, p: "_Affine", dtype: torch.dtype) -> torch.Tensor:
+    """Compute-dtype ``x W^T + b`` (the product rounded, then the bias added
+    in the compute dtype, as flax's Dense with a bf16 dtype)."""
+    y = torch.matmul(x.to(dtype), p.weight.to(dtype).t())
+    return y + p.bias.to(dtype)
+
+
+class _Affine(nn.Module):
+    """A ``weight`` and a ``bias`` in the reference layout; the caller
+    applies them. Parameters start uninitialised (see :func:`init_params`)."""
+
+    def __init__(self, weight_shape, bias_shape, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(weight_shape, device=device))
+        self.bias = nn.Parameter(torch.empty(bias_shape, device=device))
+
+
+class _Attn(nn.Module):
+    def __init__(self, dim: int, device=None):
+        super().__init__()
+        self.qkv = _Affine((3 * dim, dim), (3 * dim,), device)
+        self.proj = _Affine((dim, dim), (dim,), device)
+
+
+class _FeedForward(nn.Module):
+    def __init__(self, dim: int, hidden: int, device=None):
+        super().__init__()
+        # keys net.0 / net.2 as the reference's Sequential(Linear, GELU, Linear)
+        self.net = nn.ModuleDict({
+            "0": _Affine((hidden, dim), (hidden,), device),
+            "2": _Affine((dim, hidden), (dim,), device),
+        })
+
+
+class DiTBlock(nn.Module):
+    """Pre-LN block: the attention half-block then the MLP half-block."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, device=None):
+        super().__init__()
+        if dim % num_heads:
+            raise ValueError("dim must be divisible by num_heads")
+        self.num_heads = num_heads
+        hidden = int(dim * mlp_ratio)
+        self.norm1 = _Affine((dim,), (dim,), device)
+        self.attn = _Attn(dim, device)
+        self.norm2 = _Affine((dim,), (dim,), device)
+        self.ff = _FeedForward(dim, hidden, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, N, D = x.shape
+        x = fused_attention_block(
+            x, self.norm1.weight, self.norm1.bias, self.attn.qkv.weight,
+            self.attn.qkv.bias, self.attn.proj.weight, self.attn.proj.bias,
+            self.num_heads,
+        )
+        ff_in, ff_out = self.ff.net["0"], self.ff.net["2"]
+        out = fused_mlp_block(
+            x.reshape(B * N, D), self.norm2.weight, self.norm2.bias,
+            ff_in.weight, ff_in.bias, ff_out.weight, ff_out.bias,
+        )
+        return out.reshape(B, N, D)
+
+
+class DDDMDiT(nn.Module):
+    """Distributional diffusion denoiser with a DiT backbone, NHWC images.
+
+    ``model(xt, t, xi) -> x0_hat`` with ``xt``/``xi`` of identical shape
+    ``(B, H, W, C)`` and ``t`` of shape ``[B]``. ``in_channels`` counts the
+    concatenated [xt, xi] input. Defaults are DiT-S/4 on 32x32 images.
+    """
+
+    def __init__(
+        self,
+        img_size: int = 32,
+        patch_size: int = 4,
+        in_channels: int = 6,
+        out_channels: int = 3,
+        embed_dim: int = 384,
+        depth: int = 8,
+        num_heads: int = 6,
+        time_embed_dim: int = 256,
+        mlp_ratio: float = 4.0,
+        dtype: torch.dtype = torch.float32,
+        device: Optional[torch.device] = None,
+    ):
+        super().__init__()
+        if img_size % patch_size:
+            raise ValueError("Image size must be divisible by patch size")
+        self.img_size, self.patch_size = img_size, patch_size
+        self.in_channels, self.out_channels = in_channels, out_channels
+        self.embed_dim, self.time_embed_dim = embed_dim, time_embed_dim
+        self.dtype = dtype
+        self.num_patches = (img_size // patch_size) ** 2
+        D, p = embed_dim, patch_size
+        self.patch_embed = nn.ModuleDict(
+            {"proj": _Affine((D, in_channels, p, p), (D,), device)})
+        self.pos_embed = nn.Parameter(torch.empty((1, self.num_patches, D), device=device))
+        self.time_mlp = nn.ModuleDict({
+            "0": _Affine((D, time_embed_dim), (D,), device),
+            "2": _Affine((D, D), (D,), device),
+        })
+        self.blocks = nn.ModuleList(
+            [DiTBlock(D, num_heads, mlp_ratio, device) for _ in range(depth)])
+        self.norm = _Affine((D,), (D,), device)
+        self.unembed = nn.ModuleDict(
+            {"proj": _Affine((out_channels * p * p, D), (out_channels * p * p,), device)})
+
+    def _patch_weight(self) -> torch.Tensor:
+        """Conv weight (D, C, p, p) -> (D, p*p*C) over (ph, pw, c) features."""
+        w = self.patch_embed["proj"].weight
+        return w.permute(0, 2, 3, 1).reshape(w.shape[0], -1)
+
+    def embed_tokens(self, xt: torch.Tensor, t: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
+        """``(xt, t, xi) -> (B, N, D)`` tokens in the compute dtype."""
+        if xt.shape != xi.shape:
+            raise ValueError("xt and xi must have the same shape")
+        if xt.dim() != 4:
+            raise ValueError("Expecting image tensors of rank 4")
+        dt = self.dtype
+        x = torch.cat([xt, xi], dim=-1).to(dt)
+        proj = self.patch_embed["proj"]
+        h = torch.matmul(patchify_images(x, self.patch_size), self._patch_weight().to(dt).t())
+        h = h + proj.bias.to(dt)
+        temb = sinusoidal_time_embedding(t.reshape(-1).float(), self.time_embed_dim).to(dt)
+        temb = _dense(nn.functional.silu(_dense(temb, self.time_mlp["0"], dt)),
+                      self.time_mlp["2"], dt)
+        return h + temb[:, None, :] + self.pos_embed.to(dt)
+
+    def head_tokens(self, h: torch.Tensor) -> torch.Tensor:
+        """``(B, N, D) -> (B, N, p*p*C_out)`` fp32 tokens, features (ph, pw, c)."""
+        h = layer_norm(h.float(), self.norm.weight, self.norm.bias).to(self.dtype)
+        u, p, c = self.unembed["proj"], self.patch_size, self.out_channels
+        D = u.weight.shape[1]
+        w = u.weight.reshape(c, p, p, D).permute(1, 2, 0, 3).reshape(p * p * c, D)
+        b = u.bias.reshape(c, p, p).permute(1, 2, 0).reshape(-1)
+        out = torch.matmul(h, w.to(self.dtype).t()) + b.to(self.dtype)
+        return out.float()
+
+    def tokens(self, xt: torch.Tensor, t: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
+        """Denoiser output as patch tokens, ``__call__`` minus the unpatchify."""
+        h = self.embed_tokens(xt, t, xi)
+        for block in self.blocks:
+            h = block(h)
+        return self.head_tokens(h)
+
+    def _unpatchify(self, tokens: torch.Tensor) -> torch.Tensor:
+        B, N, _ = tokens.shape
+        p, g = self.patch_size, self.img_size // self.patch_size
+        if N != g * g:
+            raise ValueError("Token count does not match image dimensions")
+        x = tokens.reshape(B, g, g, p, p, self.out_channels).permute(0, 1, 3, 2, 4, 5)
+        return x.reshape(B, self.img_size, self.img_size, self.out_channels)
+
+    def forward(self, xt: torch.Tensor, t: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
+        return self._unpatchify(self.tokens(xt, t, xi))
+
+
+def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    # flax's lecun_normal: truncated normal (+-2 sd) with variance 1 / fan_in
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
+
+
+@torch.no_grad()
+def init_params(model: DDDMDiT, generator: torch.Generator) -> DDDMDiT:
+    """Fill every parameter from ``generator`` with the JAX package's
+    initialisers: lecun-normal weights, zero biases, unit LayerNorm scales,
+    truncated-normal (0.02) positional embedding. Values are drawn on the
+    CPU (``generator`` is a CPU generator) and copied to the parameters'
+    device, so a seed gives the same weights on every device."""
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        owner = name.rsplit(".", 2)[-2] if "." in name else ""
+        v = torch.empty(p.shape)
+        if name == "pos_embed":
+            nn.init.trunc_normal_(v, std=0.02, a=-0.04, b=0.04, generator=generator)
+        elif owner.startswith("norm"):
+            v.fill_(1.0 if leaf == "weight" else 0.0)
+        elif leaf == "bias":
+            v.zero_()
+        else:
+            _lecun_normal_(v, v[0].numel(), generator)
+        p.copy_(v)
+    return model

@@ -1,0 +1,102 @@
+"""Flagship-model construction for the port: DiT-S/4 defaults and
+:func:`build_model`.
+
+Port of ``ddm_tpu/models/factory.py``. The defaults match the JAX package's
+(and the reference trainer's model flags). The port runs the replicated
+dense path only: every key that selects another path raises
+``NotImplementedError`` naming its ``ROADMAP.md`` item, and none is
+silently ignored.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import torch
+
+from ..ops.attention import supported_tokens
+from .dit import DDDMDiT
+
+__all__ = ["MODEL_DEFAULTS", "SAMPLER_DEFAULTS", "build_model"]
+
+MODEL_DEFAULTS: dict = {
+    "image_size": 32,
+    "patch_size": 4,
+    "embed_dim": 384,
+    "depth": 8,
+    "heads": 6,
+    "time_embed": 256,
+    "mlp_ratio": 4.0,
+    "dtype": "bfloat16",
+    "attention": "auto",
+    "remat": False,
+    "tp": 1,
+    "sp": False,
+    "mlp_persist": 0,
+    "moe_experts": 0,
+    "moe_capacity": 1.25,
+    "moe_group_size": 256,
+    "moe_topk": 1,
+}
+
+SAMPLER_DEFAULTS: dict = {
+    "sample_steps": 20,
+    "eps_churn": 1.0,
+}
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _as_mapping(cfg: Any) -> Mapping:
+    return cfg if isinstance(cfg, Mapping) else vars(cfg)
+
+
+def build_model(cfg: Any, device: torch.device | str = "cpu") -> DDDMDiT:
+    """Construct ``DDDMDiT`` from a config mapping or namespace on ``device``.
+
+    Keys missing from ``cfg`` (or ``None``) take :data:`MODEL_DEFAULTS`.
+    Parameters are left uninitialised: load a ``state_dict`` or call
+    :func:`ddm_tpu_torch.models.dit.init_params`.
+    """
+    m = _as_mapping(cfg)
+
+    def get(key: str):
+        value = m.get(key)
+        return MODEL_DEFAULTS[key] if value is None else value
+
+    unsupported = [
+        (int(get("tp")) > 1, "tp > 1", "Queue 1 item 11 (parallelism)"),
+        (bool(get("sp")), "sp", "Queue 1 item 11 (parallelism)"),
+        (int(get("moe_experts")) > 1, "moe_experts > 1", "Queue 1 item 10 (MoE)"),
+        (bool(get("remat")), "remat", "Queue 1 item 8 (wider DiT configs)"),
+        (int(get("mlp_persist")) > 0, "mlp_persist > 0", "Queue 1 item 8 (wider DiT configs)"),
+        (str(get("attention")) != "auto", f"attention={get('attention')!r}",
+         "Queue 1 item 9 (long sequences)"),
+    ]
+    for bad, what, item in unsupported:
+        if bad:
+            raise NotImplementedError(
+                f"the PyTorch port does not support {what} yet: ROADMAP.md {item}")
+
+    img, patch = int(get("image_size")), int(get("patch_size"))
+    dim, heads = int(get("embed_dim")), int(get("heads"))
+    n_tokens = (img // patch) ** 2
+    if dim % heads or not supported_tokens(n_tokens, dim // heads):
+        raise NotImplementedError(
+            f"image_size={img}, patch_size={patch} gives N={n_tokens} tokens of head "
+            f"width {dim // max(heads, 1)}, outside what kernel K2 takes: "
+            "ROADMAP.md Queue 1 item 9 (long sequences)")
+
+    return DDDMDiT(
+        img_size=img,
+        patch_size=patch,
+        in_channels=3 * 2,  # channel-concat xi
+        out_channels=3,
+        embed_dim=dim,
+        depth=int(get("depth")),
+        num_heads=heads,
+        time_embed_dim=int(get("time_embed")),
+        mlp_ratio=float(get("mlp_ratio")),
+        dtype=_DTYPES[str(get("dtype"))],
+        device=torch.device(device),
+    )

@@ -1,0 +1,83 @@
+"""JAX param tree -> the port's ``state_dict`` (the reference checkpoint layout).
+
+Reimplements the DiT mapping of ``ddm_tpu.utils.convert.
+reference_state_dict_from_dit`` without importing the JAX package:
+
+  * flax ``Dense`` kernels are ``(in, out)``; ``nn.Linear`` weights are
+    ``(out, in)`` -> transpose;
+  * the patch kernel's rows are token features ``(ph, pw, c)``; the conv
+    weight is ``(D, c, ph, pw)``;
+  * the unembed columns are ``(ph, pw, c)``; the reference rows ``(c, ph, pw)``;
+  * LayerNorm ``scale`` -> ``weight``;
+  * a tp>1 tree's separate q/k/v projections re-fuse into one qkv weight
+    (rows ``[q | k | v]``, heads contiguous).
+
+A JAX-trained ``.ckpt`` reaches the port without flax through
+``python scripts/convert_reference_ckpt.py --to-torch run/model_final.ckpt
+model.pt``, which writes the same ``{"model", "config"}`` payload that
+:func:`ddm_tpu_torch.utils.checkpoint.load_params` reads.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+__all__ = ["state_dict_from_jax"]
+
+
+def _np(x) -> np.ndarray:
+    return np.asarray(x, dtype=np.float32)
+
+
+def state_dict_from_jax(
+    variables: Mapping[str, Any],
+    patch_size: int,
+    in_channels: int = 6,
+    out_channels: int = 3,
+) -> Dict[str, torch.Tensor]:
+    """ddm_tpu ``DDDMDiT`` variables (numpy leaves) -> the port's state_dict."""
+    p = variables["params"]
+    ps, ci, co = patch_size, in_channels, out_channels
+    d = _np(p["patch_proj"]["kernel"]).shape[-1]
+
+    def dense(tree, key):
+        return {f"{key}.weight": _np(tree["kernel"]).T, f"{key}.bias": _np(tree["bias"])}
+
+    def ln(tree, key):
+        return {f"{key}.weight": _np(tree["scale"]), f"{key}.bias": _np(tree["bias"])}
+
+    sd: Dict[str, np.ndarray] = {
+        "patch_embed.proj.weight": _np(p["patch_proj"]["kernel"])
+        .reshape(ps, ps, ci, d).transpose(3, 2, 0, 1),
+        "patch_embed.proj.bias": _np(p["patch_proj"]["bias"]),
+        "pos_embed": _np(p["pos_embed"]),
+        **dense(p["time_mlp_0"], "time_mlp.0"),
+        **dense(p["time_mlp_1"], "time_mlp.2"),
+        **ln(p["final_norm"], "norm"),
+        "unembed.proj.weight": _np(p["unembed"]["kernel"])
+        .reshape(d, ps, ps, co).transpose(3, 1, 2, 0).reshape(co * ps * ps, d),
+        "unembed.proj.bias": _np(p["unembed"]["bias"])
+        .reshape(ps, ps, co).transpose(2, 0, 1).reshape(-1),
+    }
+
+    i = 0
+    while f"block_{i}" in p:
+        b, rb = p[f"block_{i}"], f"blocks.{i}"
+        attn = b["attn"]
+        if "qkv" in attn:
+            sd.update(dense(attn["qkv"], f"{rb}.attn.qkv"))
+        else:  # tp>1 canonical tree: separate column-parallel q/k/v
+            sd[f"{rb}.attn.qkv.weight"] = np.concatenate(
+                [_np(attn[k]["kernel"]).T for k in ("q", "k", "v")], axis=0)
+            sd[f"{rb}.attn.qkv.bias"] = np.concatenate(
+                [_np(attn[k]["bias"]) for k in ("q", "k", "v")], axis=0)
+        sd.update(dense(attn["proj"], f"{rb}.attn.proj"))
+        sd.update(ln(b["norm1"], f"{rb}.norm1"))
+        sd.update(ln(b["norm2"], f"{rb}.norm2"))
+        sd.update(dense(b["ff_in"], f"{rb}.ff.net.0"))
+        sd.update(dense(b["ff_out"], f"{rb}.ff.net.2"))
+        i += 1
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C")) for k, v in sd.items()}

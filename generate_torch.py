@@ -1,0 +1,128 @@
+"""Sample images from a DDDM DiT checkpoint with the PyTorch port.
+
+The port's counterpart of ``generate.py``: load a ``.pt`` checkpoint (the
+reference ``{"model", "config"}`` payload), rebuild the model from the
+config embedded in it, run the reverse sampler (paper Algorithm 2) and
+write a PNG grid and/or an NPZ of raw samples. On a CUDA device the DiT
+blocks run the hand-written kernels K1 and K2.
+
+Usage:
+    python generate_torch.py --ckpt model_final.pt --n 64 --out samples.png
+    python generate_torch.py --ckpt out/ --npz samples.npz   # dir -> final/latest
+A checkpoint trained with the JAX package converts first:
+    python scripts/convert_reference_ckpt.py --to-torch run/model_final.ckpt model.pt
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ddm_tpu_torch.models.factory import MODEL_DEFAULTS, SAMPLER_DEFAULTS, build_model
+from ddm_tpu_torch.ops.kernel_config import load_library
+from ddm_tpu_torch.sampling import sample_dddm_batched
+from ddm_tpu_torch.utils import checkpoint as ckpt_lib
+from ddm_tpu_torch.utils.plotting import save_image_grid
+
+
+def _resolve_ckpt(path: str) -> str:
+    if os.path.isdir(path):
+        final = os.path.join(path, "model_final.pt")
+        if os.path.exists(final):
+            return final
+        latest = ckpt_lib.latest_checkpoint(path)
+        if latest is None:
+            raise FileNotFoundError(f"no .pt checkpoints under {path}")
+        return latest
+    return path
+
+
+def _device(name: str) -> torch.device:
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {name}: no CUDA device is available "
+                         "(pass --device cpu to run the plain versions on the CPU)")
+    return device
+
+
+def main(argv: Optional[list] = None) -> dict:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--ckpt", type=str, required=True,
+                   help="checkpoint file, or a training output dir "
+                        "(model_final.pt, else the latest model_epoch*.pt)")
+    p.add_argument("--config", type=str, default=None,
+                   help="config.json overlaid on the ckpt-embedded config")
+    p.add_argument("--n", type=int, default=64, help="number of samples")
+    p.add_argument("--batch", type=int, default=256, help="sampler chunk size")
+    p.add_argument("--steps", type=int, default=None,
+                   help="reverse steps (default: the run's sample_steps)")
+    p.add_argument("--eps-churn", type=float, default=None,
+                   help="bridge churn (default: the run's eps_churn)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--out", type=str, default="samples.png",
+                   help="PNG grid path ('' disables)")
+    p.add_argument("--npz", type=str, default=None,
+                   help="also save raw samples ([-1,1] NHWC float32) as NPZ")
+    p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--fast-gelu", action="store_true",
+                   help="not ported yet (ROADMAP.md, Queue 1)")
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel sampling: not ported yet (ROADMAP.md, Queue 1)")
+    p.add_argument("--ema", action="store_true",
+                   help="sample from EMA params: not ported yet (ROADMAP.md, Queue 1)")
+    args = p.parse_args(argv)
+    for flag, on in (("--fast-gelu", args.fast_gelu), ("--dp > 1", args.dp > 1),
+                     ("--ema", args.ema)):
+        if on:
+            raise NotImplementedError(
+                f"{flag} is not ported to the PyTorch port yet: see ROADMAP.md, Queue 1")
+    if args.n < 1:
+        raise SystemExit("--n must be positive")
+    device = _device(args.device)
+
+    state_dict, config = ckpt_lib.load_params(_resolve_ckpt(args.ckpt))
+    if args.config:
+        with open(args.config, "r", encoding="utf-8") as f:
+            config = {**config, **json.load(f)}
+    cfg = {**SAMPLER_DEFAULTS, **{k: v for k, v in config.items() if v is not None}}
+
+    model = build_model(cfg, device)
+    model.load_state_dict(state_dict)
+    model.eval()
+    steps = args.steps if args.steps is not None else int(cfg["sample_steps"])
+    churn = args.eps_churn if args.eps_churn is not None else float(cfg["eps_churn"])
+    size = int(cfg.get("image_size", MODEL_DEFAULTS["image_size"]))
+    if device.type == "cuda":
+        load_library()  # build the kernels before the timed run
+
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    t0 = time.perf_counter()
+    samples = sample_dddm_batched(
+        model, args.n, steps=steps, eps_churn=churn, data_shape=(size, size, 3),
+        generator=generator, device=device, chunk_size=min(args.batch, args.n),
+    )
+    seconds = time.perf_counter() - t0
+    samples = np.clip(samples, -1.0, 1.0)
+    print(f"Sampled {args.n} in {seconds:.3f} s ({args.n / seconds:.2f} samples/s) "
+          f"on {device}, {steps} steps, eps_churn={churn}")
+
+    if args.out:
+        nrow = 1
+        while nrow * nrow < args.n:
+            nrow += 1
+        save_image_grid((samples + 1.0) / 2.0, args.out, nrow=nrow)
+        print(f"Saved {args.n} samples to {args.out}")
+    if args.npz:
+        np.savez(args.npz, samples=samples.astype(np.float32))
+        print(f"Saved raw samples to {args.npz}")
+    return {"samples": samples, "seconds": seconds}
+
+
+if __name__ == "__main__":
+    main()
