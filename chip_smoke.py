@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's DiT-S/4 sampling path once on one NVIDIA GPU.
+"""Drive the PyTorch port's DiT-S/4 sampling and training paths once on one
+NVIDIA GPU.
 
 Run from the repository root with no arguments:
 
@@ -8,15 +9,29 @@ Phases, each printing its own line(s); any failure raises, so the exit code
 is non-zero and no result line is printed:
 
 1. device: requires CUDA; prints the card's name and power limit;
-2. build: compiles ``ddm_tpu_torch/csrc/*.cu`` with nvcc from the checkout;
-3. kernels: K1 (MLP half-block) at (16384, 384, F=1536) and K2 (attention
+2. build: compiles ``ddm_tpu_torch/csrc/*.cu`` with nvcc from the checkout
+   (one nvcc per source, in parallel);
+3. kernels: K1f (MLP half-block) at (16384, 384, F=1536) and K2f (attention
    half-block) at (256, 64, 384, H=6) in bf16 against their plain PyTorch
    versions on the same seeded inputs, with median times from CUDA events;
+   3b. backward kernels: K1b at (131072, 384, F=1536) and K2b at
+   (2048, 64, 384, H=6), the training shapes, against their plain backward
+   versions, and a second call that must be bit-identical;
+   3c. energy: K3f and K3b at (B=256, m=8, D=3072) fp32, beta 0.1 and 2.0;
 4. model: a full-width DiT-S/4 with seeded weights, one forward through the
    kernels against one through the plain versions;
 5. slice: that model saved as a checkpoint and sampled with
    ``generate_torch.main`` (256 samples, 20 steps), checking the outputs and
-   that each kernel's launch counter rose by exactly 8 blocks x 20 steps.
+   that each forward kernel's launch counter rose by exactly 8 blocks x 20
+   steps;
+6. train step: one training step of the full-width DiT-S/4 (batch 256,
+   m = 8, injected t, eps, xi) through the kernels, twice (bit-identical
+   gradients), against one through the plain versions, within twice bf16's
+   own noise on this step (plain bf16 against plain fp32);
+7. training slice: ``train_cifar10_dit_torch.main`` for one epoch of the
+   2048 synthetic images (8 steps), checking finite losses, the launch
+   counts (8 blocks x 8 steps for K1f/K2f/K1b/K2b, 8 for K3f/K3b) and that
+   ``generate_torch.main`` samples from its ``model_final.pt``.
 
 The second-to-last line is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -24,6 +39,7 @@ The second-to-last line is a JSON summary of the kernels; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -34,10 +50,15 @@ import numpy as np
 import torch
 
 DEPTH, STEPS, N_SAMPLES = 8, 20, 256
+TRAIN_BATCH, TRAIN_M, TRAIN_STEPS = 256, 8, 8  # 2048 synthetic images / 256
 # bf16 outputs: two units in the last place at the largest output magnitude
 # (one rounding of a sum that the kernel and the plain version accumulate in
 # different orders), and a mean error far below one unit.
 KERNEL_MEAN_TOL = 1e-3
+# fp32 weight, bias and LN gradients of the backward kernels: sums over T
+# rows where a flipped bf16 rounding upstream moves single entries
+GRAD_MAX_REL, GRAD_FROB_REL = 1e-2, 1e-3
+ENERGY_RTOL, ENERGY_GRAD_RTOL = 1e-5, 1e-4
 
 
 def _ulp2(ref: torch.Tensor) -> float:
@@ -59,6 +80,10 @@ def _median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def _rel_frob(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float(torch.linalg.norm((a - b).float()) / torch.linalg.norm(b.float()).clamp_min(1e-30))
 
 
 def phase_device():
@@ -95,26 +120,37 @@ def _kernel_args(gen, shape_x, weights):
     return (x,) + tuple(r(*s, scale=sc) + off for s, sc, off in weights)
 
 
+def _mlp_args(gen, T, D, F):
+    return _kernel_args(gen, (T, D), [((D,), 0.1, 1.0), ((D,), 0.1, 0.0),
+                                      ((F, D), D ** -0.5, 0.0), ((F,), 0.1, 0.0),
+                                      ((D, F), F ** -0.5, 0.0), ((D,), 0.1, 0.0)])
+
+
+def _attn_args(gen, B, N, D):
+    return _kernel_args(gen, (B, N, D), [((D,), 0.1, 1.0), ((D,), 0.1, 0.0),
+                                         ((3 * D, D), D ** -0.5, 0.0), ((3 * D,), 0.1, 0.0),
+                                         ((D, D), D ** -0.5, 0.0), ((D,), 0.1, 0.0)])
+
+
+def _entry(name, source, sources, replaces, max_err, ms, plain_ms):
+    return {"name": name, "route": "cuda", "source": source, "sources": sources,
+            "replaces": replaces, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+
+
 def phase_kernels(M, A, smi):
     gen = torch.Generator(device="cuda").manual_seed(0)
     T, D, F, B, N, H = 16384, 384, 1536, 256, 64, 6
     cases = [
-        ("K1_mlp_half_block_fwd", "ddm_tpu_torch/csrc/gemm.cu",
+        ("K1f", "ddm_tpu_torch/csrc/gemm.cu",
          ["ddm_tpu_torch/csrc/gemm.cu", "ddm_tpu_torch/csrc/common.cuh"],
          "ddm_tpu/ops/mlp_block.py:144", M.fused_mlp_block, M.mlp_block_reference,
-         _kernel_args(gen, (T, D), [((D,), 0.1, 1.0), ((D,), 0.1, 0.0),
-                                    ((F, D), D ** -0.5, 0.0), ((F,), 0.1, 0.0),
-                                    ((D, F), F ** -0.5, 0.0), ((D,), 0.1, 0.0)]),
-         (), f"(T={T}, D={D}, F={F})"),
-        ("K2_attention_half_block_fwd", "ddm_tpu_torch/csrc/attention.cu",
+         _mlp_args(gen, T, D, F), (), f"(T={T}, D={D}, F={F})"),
+        ("K2f", "ddm_tpu_torch/csrc/attention.cu",
          ["ddm_tpu_torch/csrc/attention.cu", "ddm_tpu_torch/csrc/gemm.cu",
           "ddm_tpu_torch/csrc/common.cuh"],
          "ddm_tpu/ops/attention.py:341", A.fused_attention_block,
-         A.attention_block_reference,
-         _kernel_args(gen, (B, N, D), [((D,), 0.1, 1.0), ((D,), 0.1, 0.0),
-                                       ((3 * D, D), D ** -0.5, 0.0), ((3 * D,), 0.1, 0.0),
-                                       ((D, D), D ** -0.5, 0.0), ((D,), 0.1, 0.0)]),
-         (H,), f"(B={B}, N={N}, D={D}, H={H})"),
+         A.attention_block_reference, _attn_args(gen, B, N, D), (H,),
+         f"(B={B}, N={N}, D={D}, H={H})"),
     ]
     results = []
     with torch.inference_mode():
@@ -133,31 +169,125 @@ def phase_kernels(M, A, smi):
                   f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20) on {smi}")
             if not (np.isfinite(max_err) and max_err <= tol and mean_err <= KERNEL_MEAN_TOL):
                 raise AssertionError(f"{name} disagrees with its plain version")
-            results.append({"name": name, "route": "cuda", "source": source,
-                            "sources": sources, "replaces": replaces,
-                            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms})
+            results.append(_entry(name, source, sources, replaces, max_err, ms, plain_ms))
     return results
 
 
-def plain_tokens(model, xt, t, xi):
-    """The model's forward with every block through the plain versions."""
-    from ddm_tpu_torch.ops.attention import attention_block_reference
-    from ddm_tpu_torch.ops.mlp_block import mlp_block_reference
+def _check_grads(name, got, want, smi, ms, plain_ms):
+    """dx (bf16) to two units in the last place and a mean below 1e-3; each
+    fp32 gradient to 1e-2 of its largest entry and 1e-3 in Frobenius norm."""
+    labels = ["dx", "dscale", "dbias", "dW_in", "db_in", "dW_out", "db_out"]
+    worst = 0.0
+    parts = []
+    for i, (lab, g, w) in enumerate(zip(labels, got, want)):
+        err = (g.float() - w.float()).abs()
+        max_err, mean_err = float(err.max()), float(err.mean())
+        worst = max(worst, max_err)
+        if i == 0:
+            tol = _ulp2(w)
+            ok = max_err <= tol and mean_err <= KERNEL_MEAN_TOL
+            parts.append(f"{lab} max {max_err:.4g} (tol {tol:.4g}) mean {mean_err:.3g}")
+        else:
+            tol = GRAD_MAX_REL * float(w.abs().max())
+            frob = _rel_frob(g, w)
+            ok = max_err <= tol and frob <= GRAD_FROB_REL
+            parts.append(f"{lab} max {max_err:.4g} (tol {tol:.4g}) mean {mean_err:.3g} "
+                         f"relF {frob:.3g}")
+        if not (np.isfinite(max_err) and ok):
+            raise AssertionError(f"{name} {lab} disagrees with its plain version")
+    print(f"[kernel] {name}: " + "; ".join(parts)
+          + f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20) on {smi}")
+    return worst
 
-    h = model.embed_tokens(xt, t, xi)
-    for blk in model.blocks:
-        B, N, D = h.shape
-        h = attention_block_reference(
-            h, blk.norm1.weight, blk.norm1.bias, blk.attn.qkv.weight, blk.attn.qkv.bias,
-            blk.attn.proj.weight, blk.attn.proj.bias, blk.num_heads)
-        ff_in, ff_out = blk.ff.net["0"], blk.ff.net["2"]
-        h = mlp_block_reference(
-            h.reshape(B * N, D), blk.norm2.weight, blk.norm2.bias, ff_in.weight,
-            ff_in.bias, ff_out.weight, ff_out.bias).reshape(B, N, D)
-    return model.head_tokens(h)
+
+def phase_backward(M, A, smi):
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    D, F, H, N = 384, 1536, 6, 64
+    B = TRAIN_BATCH * TRAIN_M
+    T = B * N
+    mlp = _mlp_args(gen, T, D, F)
+    attn = _attn_args(gen, B, N, D)
+    dout_m = torch.randn(T, D, generator=gen, device="cuda").to(torch.bfloat16)
+    dout_a = torch.randn(B, N, D, generator=gen, device="cuda").to(torch.bfloat16)
+    cases = [
+        ("K1b", "ddm_tpu_torch/csrc/gemm_bwd.cu",
+         ["ddm_tpu_torch/csrc/gemm_bwd.cu", "ddm_tpu_torch/csrc/gemm.cu",
+          "ddm_tpu_torch/csrc/common.cuh"],
+         "ddm_tpu/ops/mlp_block.py:211",
+         lambda: M.mlp_block_bwd(*mlp, dout_m), lambda: M.mlp_block_bwd_reference(*mlp, dout_m),
+         f"(T={T}, D={D}, F={F})"),
+        ("K2b", "ddm_tpu_torch/csrc/attention.cu",
+         ["ddm_tpu_torch/csrc/attention.cu", "ddm_tpu_torch/csrc/gemm_bwd.cu",
+          "ddm_tpu_torch/csrc/gemm.cu", "ddm_tpu_torch/csrc/common.cuh"],
+         "ddm_tpu/ops/attention.py:358",
+         lambda: A.attention_block_bwd(*attn, H, dout_a),
+         lambda: A.attention_block_bwd_reference(*attn, H, dout_a),
+         f"(B={B}, N={N}, D={D}, H={H})"),
+    ]
+    results = []
+    with torch.no_grad():
+        for name, source, sources, replaces, kern, plain, shape in cases:
+            got = kern()
+            again = kern()
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, h) for g, h in zip(got, again)):
+                raise AssertionError(f"{name} is not deterministic: two calls differ")
+            want = plain()
+            ms = _median_ms(kern)
+            plain_ms = _median_ms(plain)
+            worst = _check_grads(f"{name} {shape} bf16 (second call bit-identical)",
+                                 got, want, smi, ms, plain_ms)
+            results.append(_entry(name, source, sources, replaces, worst, ms, plain_ms))
+            del got, again, want
+            torch.cuda.empty_cache()
+    return results
 
 
-def phase_model(cfg):
+def phase_energy(E, smi):
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    B, m, D = TRAIN_BATCH, TRAIN_M, 3072
+    xh = torch.randn(B, m, D, generator=gen, device="cuda")
+    x0 = torch.randn(B, D, generator=gen, device="cuda")
+    gconf, ginter = (torch.tensor(v, device="cuda") for v in (0.7, -0.3))
+    timings = {}
+    worst = {"K3f": 0.0, "K3b": 0.0}
+    for beta in (0.1, 2.0):
+        conf, inter = E.energy_terms(xh, x0, beta)
+        dxh, dx0 = E.energy_terms_bwd(xh, x0, beta, gconf, ginter)
+        torch.cuda.synchronize()
+        want_c, want_i = E.energy_terms_reference(xh, x0, beta)
+        want_dxh, want_dx0 = E.energy_terms_bwd_reference(xh, x0, beta, gconf, ginter)
+        rc = abs(float(conf - want_c)) / abs(float(want_c))
+        ri = abs(float(inter - want_i)) / abs(float(want_i))
+        gx = float((dxh - want_dxh).abs().max()) / float(want_dxh.abs().max())
+        g0 = float((dx0 - want_dx0).abs().max()) / float(want_dx0.abs().max())
+        worst["K3f"] = max(worst["K3f"], abs(float(conf - want_c)), abs(float(inter - want_i)))
+        worst["K3b"] = max(worst["K3b"], float((dxh - want_dxh).abs().max()),
+                           float((dx0 - want_dx0).abs().max()))
+        if beta == 0.1:  # time at the recipe's beta
+            timings = {
+                "K3f": (_median_ms(lambda: E.energy_terms(xh, x0, beta)),
+                        _median_ms(lambda: E.energy_terms_reference(xh, x0, beta))),
+                "K3b": (_median_ms(lambda: E.energy_terms_bwd(xh, x0, beta, gconf, ginter)),
+                        _median_ms(lambda: E.energy_terms_bwd_reference(
+                            xh, x0, beta, gconf, ginter))),
+            }
+        print(f"[kernel] K3 (B={B}, m={m}, D={D}) fp32 beta={beta}: conf rel err {rc:.3g}, "
+              f"inter rel err {ri:.3g} (tol {ENERGY_RTOL:g}); dxh {gx:.3g}, dx0 {g0:.3g} "
+              f"of their max (tol {ENERGY_GRAD_RTOL:g}) on {smi}")
+        if not (rc <= ENERGY_RTOL and ri <= ENERGY_RTOL and gx <= ENERGY_GRAD_RTOL
+                and g0 <= ENERGY_GRAD_RTOL):
+            raise AssertionError(f"K3 disagrees with its plain version at beta={beta}")
+    for name in ("K3f", "K3b"):
+        print(f"[kernel] {name} (B={B}, m={m}, D={D}) beta=0.1: kernel {timings[name][0]:.4f} ms, "
+              f"plain {timings[name][1]:.4f} ms (median of 20) on {smi}")
+    return [_entry(name, "ddm_tpu_torch/csrc/energy.cu",
+                   ["ddm_tpu_torch/csrc/energy.cu", "ddm_tpu_torch/csrc/common.cuh"],
+                   f"ddm_tpu/ops/energy.py:{line}", worst[name], *timings[name])
+            for name, line in (("K3f", 88), ("K3b", 112))]
+
+
+def phase_model(cfg, smi):
     from ddm_tpu_torch.models.dit import init_params
     from ddm_tpu_torch.models.factory import build_model
 
@@ -172,8 +302,9 @@ def phase_model(cfg):
     with torch.inference_mode():
         got = model.tokens(xt, t, xi)
         torch.cuda.synchronize()
-        want = plain_tokens(model, xt, t, xi)
-        want32 = plain_tokens(model32, xt, t, xi)
+        with plain_ops():
+            want = model.tokens(xt, t, xi)
+            want32 = model32.tokens(xt, t, xi)
     err = float((got - want).abs().max())
     # tolerance: bf16's own rounding noise on this model. The plain bf16
     # forward lies within e = max |plain bf16 - plain fp32| of the fp32 one;
@@ -181,13 +312,13 @@ def phase_model(cfg):
     tol = 2.0 * float((want - want32).abs().max())
     print(f"[model] DiT-S/4 forward (B={N_SAMPLES}, depth {DEPTH}, bf16) kernels vs plain: "
           f"max_abs_err={err:.6g} (tol {tol:.6g} = 2 max |plain bf16 - plain fp32|), "
-          f"output max |x| {float(want.abs().max()):.4g}")
+          f"output max |x| {float(want.abs().max()):.4g} on {smi}")
     if not (torch.isfinite(got).all() and err <= tol):
         raise AssertionError("the kernel forward disagrees with the plain forward")
     return model
 
 
-def phase_slice(model, cfg, M, A, name, smi):
+def phase_slice(model, cfg, kc, name, smi):
     import generate_torch
     from ddm_tpu_torch.utils.checkpoint import save_checkpoint
 
@@ -195,13 +326,11 @@ def phase_slice(model, cfg, M, A, name, smi):
         ckpt = os.path.join(tmp, "model_final.pt")
         save_checkpoint(ckpt, model.state_dict(), cfg)
         npz, png = os.path.join(tmp, "samples.npz"), os.path.join(tmp, "samples.png")
-        M.LAUNCHES.reset()
-        A.LAUNCHES.reset()
+        kc.reset_launch_counts()
         result = generate_torch.main([
             "--ckpt", ckpt, "--n", str(N_SAMPLES), "--batch", str(N_SAMPLES),
             "--steps", str(STEPS), "--device", "cuda", "--npz", npz, "--out", png])
-        launches = {"K1_mlp_half_block_fwd": M.LAUNCHES.count,
-                    "K2_attention_half_block_fwd": A.LAUNCHES.count}
+        launches = kc.launch_counts()
         samples = np.load(npz)["samples"]
         if samples.shape != (N_SAMPLES, cfg["image_size"], cfg["image_size"], 3):
             raise AssertionError(f"samples have shape {samples.shape}")
@@ -209,15 +338,160 @@ def phase_slice(model, cfg, M, A, name, smi):
             raise AssertionError("samples are not finite values in [-1, 1]")
         if not os.path.getsize(png):
             raise AssertionError("no PNG written")
-    want = DEPTH * STEPS
-    for k, n in launches.items():
-        if n != want:
-            raise AssertionError(f"{k} launched {n} times in the slice, expected {want}")
+    want = {k: DEPTH * STEPS if k in ("K1f", "K2f") else 0 for k in launches}
+    if launches != want:
+        raise AssertionError(f"sampling launched {launches}, expected {want}")
     rate = N_SAMPLES / result["seconds"]
     print(f"[slice] generate_torch: {N_SAMPLES} samples x {STEPS} steps in "
           f"{result['seconds']:.3f} s = {rate:.2f} samples/s on {name} ({smi}); "
           f"launches {launches}; samples std {float(samples.std()):.4f}")
-    return launches, rate
+    return launches
+
+
+class _Plain(torch.autograd.Function):
+    """A plain forward with its explicit plain backward, on any device."""
+
+    @staticmethod
+    def forward(ctx, fwd, bwd, *tensors):
+        ctx.save_for_backward(*tensors)
+        ctx.bwd = bwd
+        return fwd(*tensors)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, *ctx.bwd(*ctx.saved_tensors, *grads))
+
+
+@contextlib.contextmanager
+def plain_ops():
+    """Route the model's half-blocks and the step's energy score through the
+    plain versions (forward and backward) on the card."""
+    from ddm_tpu_torch import training
+    from ddm_tpu_torch.models import dit
+    from ddm_tpu_torch.ops import attention as A
+    from ddm_tpu_torch.ops import energy as E
+    from ddm_tpu_torch.ops import mlp_block as M
+
+    def mlp(*t):
+        return _Plain.apply(M.mlp_block_reference, M.mlp_block_bwd_reference, *t)
+
+    def attn(*t_and_h):
+        *t, H = t_and_h
+        return _Plain.apply(lambda *a: A.attention_block_reference(*a, H),
+                            lambda *a: A.attention_block_bwd_reference(*a[:7], H, a[7]), *t)
+
+    def energy(xh, x0, beta):
+        return _Plain.apply(lambda *a: E.energy_terms_reference(*a, beta),
+                            lambda xh_, x0_, gc, gi: E.energy_terms_bwd_reference(
+                                xh_, x0_, beta, gc, gi),
+                            xh.float().contiguous(), x0.float().contiguous())
+
+    saved = (dit.fused_mlp_block, dit.fused_attention_block, training.fused_energy_terms)
+    dit.fused_mlp_block, dit.fused_attention_block, training.fused_energy_terms = mlp, attn, energy
+    try:
+        yield
+    finally:
+        dit.fused_mlp_block, dit.fused_attention_block, training.fused_energy_terms = saved
+
+
+def phase_train_step(cfg, smi):
+    from ddm_tpu_torch.data.augment import normalize_images
+    from ddm_tpu_torch.data.cifar10 import CIFAR10DataConfig, build_cifar10_dataloaders
+    from ddm_tpu_torch.models.dit import init_params, patchify_images
+    from ddm_tpu_torch.models.factory import build_model
+    from ddm_tpu_torch.training import distributional_training_step
+
+    beta, size = 0.1, cfg["image_size"]
+    loader, _ = build_cifar10_dataloaders(CIFAR10DataConfig(batch_size=TRAIN_BATCH,
+                                                            synthetic=True))
+    images, _ = next(iter(loader))
+    x0 = normalize_images(torch.from_numpy(images).cuda())
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    t = torch.rand((TRAIN_BATCH,), generator=gen, device="cuda")
+    eps = torch.randn(x0.shape, generator=gen, device="cuda")
+    xi = torch.randn((TRAIN_BATCH, TRAIN_M, size, size, 3), generator=gen, device="cuda")
+
+    def step(dtype):
+        model = init_params(build_model({**cfg, "dtype": dtype}, "cuda"),
+                            torch.Generator().manual_seed(0))
+        loss, metrics = distributional_training_step(
+            model.tokens, x0, m=TRAIN_M, beta=beta, lam=1.0, w_bias=0.0, t=t, eps=eps, xi=xi,
+            target_transform=lambda a: patchify_images(a, cfg["patch_size"]))
+        loss.backward()
+        torch.cuda.synchronize()
+        grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+        return {k: float(v.detach()) for k, v in metrics.items()}, grads
+
+    t0 = time.perf_counter()
+    got, g_got = step("bfloat16")
+    seconds = time.perf_counter() - t0
+    again, g_again = step("bfloat16")
+    if again != got or any(not torch.equal(g_got[k], g_again[k]) for k in g_got):
+        raise AssertionError("two kernel training steps on the same inputs differ")
+    with plain_ops():
+        want, g_want = step("bfloat16")
+        want32, g_want32 = step("float32")
+
+    lines = []
+    for k in ("loss", "confidence", "interaction"):
+        err, tol = abs(got[k] - want[k]), 2.0 * abs(want[k] - want32[k])
+        lines.append(f"{k} {got[k]:.6f} vs plain {want[k]:.6f} (err {err:.3g}, tol {tol:.3g})")
+        if not (np.isfinite(got[k]) and err <= tol):
+            raise AssertionError(f"the kernel step's {k} disagrees with the plain step")
+    worst = ("", 0.0)
+    for k in g_want:
+        err, tol = _rel_frob(g_got[k], g_want[k]), 2.0 * _rel_frob(g_want[k], g_want32[k])
+        if not (torch.isfinite(g_got[k]).all() and err <= tol):
+            raise AssertionError(f"gradient of {k} disagrees: relF {err:.3g} > tol {tol:.3g}")
+        worst = max(worst, (k, err / tol), key=lambda kv: kv[1])
+    print(f"[train-step] DiT-S/4 one step (batch {TRAIN_BATCH} x m {TRAIN_M}, injected t/eps/xi) "
+          f"kernels vs plain (tol = 2 |plain bf16 - plain fp32|): " + "; ".join(lines)
+          + f"; {len(g_want)} parameter gradients within tol (relative Frobenius), "
+          f"tightest {worst[0]} at {worst[1]:.3f} of tol; second kernel step bit-identical; "
+          f"first (cold) step {seconds:.3f} s on {smi}")
+
+
+def phase_train(kc, name, smi):
+    import generate_torch
+    import train_cifar10_dit_torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        kc.reset_launch_counts()
+        result = train_cifar10_dit_torch.main([
+            "--synthetic", "--epochs", "1", "--batch", str(TRAIN_BATCH), "--m", str(TRAIN_M),
+            "--sample-batch", "64", "--log-every", "1", "--device", "cuda", "--out", tmp])
+        total = kc.launch_counts()
+        with open(os.path.join(tmp, "train_metrics.json"), encoding="utf-8") as f:
+            losses = json.load(f)["loss"]
+        if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+            raise AssertionError(f"training losses are not {TRAIN_STEPS} finite values: {losses}")
+        npz = os.path.join(tmp, "s.npz")
+        generate_torch.main(["--ckpt", os.path.join(tmp, "model_final.pt"), "--n", "64",
+                             "--batch", "64", "--device", "cuda", "--npz", npz, "--out", ""])
+        samples = np.load(npz)["samples"]
+        if not (np.isfinite(samples).all() and samples.min() >= -1 and samples.max() <= 1):
+            raise AssertionError("samples from the trained checkpoint are not in [-1, 1]")
+        for art in ("model_epoch001.pt", "config.json", "samples.png", "epoch_metrics.json"):
+            if not os.path.getsize(os.path.join(tmp, art)):
+                raise AssertionError(f"the trainer wrote no {art}")
+    per_block = DEPTH * TRAIN_STEPS
+    want_train = {"K1f": per_block, "K2f": per_block, "K1b": per_block, "K2b": per_block,
+                  "K3f": TRAIN_STEPS, "K3b": TRAIN_STEPS}
+    want_sample = {k: DEPTH * STEPS if k in ("K1f", "K2f") else 0 for k in want_train}
+    train, sample = result["launches"]["train"], result["launches"]["sample"]
+    if train != want_train or sample != want_sample:
+        raise AssertionError(f"training launched {train} and its sampler {sample}, expected "
+                             f"{want_train} and {want_sample}")
+    if total != {k: train[k] + sample[k] for k in train}:
+        raise AssertionError(f"the counts read after the run, {total}, do not add up")
+    ms = 1e3 * result["seconds_per_step"]
+    print(f"[train] train_cifar10_dit_torch: {TRAIN_STEPS} steps (batch {TRAIN_BATCH} x "
+          f"m {TRAIN_M}), losses {[round(v, 6) for v in losses]}; warm step {ms:.2f} ms "
+          f"(median of steps 2-{TRAIN_STEPS}) = {TRAIN_BATCH / ms * 1e3:.2f} img/s, "
+          f"{TRAIN_BATCH * TRAIN_M / ms * 1e3:.2f} denoiser rows/s; epoch incl. first step "
+          f"{result['images_per_sec']:.2f} img/s on {name} ({smi}); launches in training "
+          f"{train}, in its sampler {sample}; model_final.pt sampled by generate_torch")
+    return train
 
 
 def main() -> None:
@@ -227,16 +501,26 @@ def main() -> None:
 
     from ddm_tpu_torch.models.factory import MODEL_DEFAULTS
     from ddm_tpu_torch.ops import attention as A
+    from ddm_tpu_torch.ops import energy as E
     from ddm_tpu_torch.ops import kernel_config as kc
     from ddm_tpu_torch.ops import mlp_block as M
 
     phase_build(kc)
     kernels = phase_kernels(M, A, smi)
+    kernels += phase_backward(M, A, smi)
+    kernels += phase_energy(E, smi)
     cfg = {**MODEL_DEFAULTS, "depth": DEPTH, "sample_steps": STEPS, "eps_churn": 1.0}
-    model = phase_model(cfg)
-    launches, _ = phase_slice(model, cfg, M, A, name, smi)
+    model = phase_model(cfg, smi)
+    sampled = phase_slice(model, cfg, kc, name, smi)
+    del model
+    torch.cuda.empty_cache()
+    phase_train_step(cfg, smi)
+    torch.cuda.empty_cache()
+    trained = phase_train(kc, name, smi)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = trained[k["name"]]
+        if k["name"] in ("K1f", "K2f"):
+            k["sample_launches"] = sampled[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

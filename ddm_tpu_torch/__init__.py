@@ -1,15 +1,19 @@
 """PyTorch / CUDA port of ddm_tpu (Distributional Diffusion Models).
 
-The first slice: the DiT-S/4 sampling path (``generate_torch.py``) on one
-NVIDIA H100, with the DiT block's two half-block forwards as hand-written
-CUDA kernels (K1 MLP, K2 attention). Imports torch and numpy, never JAX.
+Two slices on one NVIDIA H100: the DiT-S/4 sampling path
+(``generate_torch.py``) and the CIFAR-10 training path
+(``train_cifar10_dit_torch.py``). The DiT block's half-blocks and their
+backwards and the energy score are hand-written CUDA kernels (K1f/K1b MLP,
+K2f/K2b attention, K3f/K3b energy). Imports torch and numpy, never JAX.
 """
 
 from .models.dit import DDDMDiT, init_params
 from .models.factory import MODEL_DEFAULTS, SAMPLER_DEFAULTS, build_model
 from .ops.attention import fused_attention_block
+from .ops.energy import fused_energy_terms
 from .ops.mlp_block import fused_mlp_block
 from .sampling import sample_dddm, sample_dddm_batched
+from .training import distributional_training_step, make_optimizer, make_train_step
 from .utils.checkpoint import load_params, save_checkpoint
 
 __all__ = [
@@ -19,9 +23,13 @@ __all__ = [
     "SAMPLER_DEFAULTS",
     "build_model",
     "fused_attention_block",
+    "fused_energy_terms",
     "fused_mlp_block",
     "sample_dddm",
     "sample_dddm_batched",
+    "distributional_training_step",
+    "make_optimizer",
+    "make_train_step",
     "load_params",
     "save_checkpoint",
 ]

@@ -22,6 +22,8 @@ constexpr int kPadH = 8;     // bf16 row padding of shared tiles
 constexpr int kPadF = 4;     // fp32 row padding of shared tiles
 
 using FragA = wmma::fragment<wmma::matrix_a, kFrag, kFrag, kFrag, bf16, wmma::row_major>;
+// A^T read from a row-major tile: element (m, k) at ptr[m + k * ld]
+using FragACol = wmma::fragment<wmma::matrix_a, kFrag, kFrag, kFrag, bf16, wmma::col_major>;
 using FragBCol = wmma::fragment<wmma::matrix_b, kFrag, kFrag, kFrag, bf16, wmma::col_major>;
 using FragBRow = wmma::fragment<wmma::matrix_b, kFrag, kFrag, kFrag, bf16, wmma::row_major>;
 using FragC = wmma::fragment<wmma::accumulator, kFrag, kFrag, kFrag, float>;

@@ -30,6 +30,10 @@
 // bf16 operands with fp32 accumulation, GELU in fp32 (exact erf, where the
 // TPU kernel used a polynomial erf as a Mosaic workaround), the residual
 // added in fp32 and rounded to bf16 once.
+//
+// The backward kernels (gemm_bwd.cu) reuse ddm_ln_gemm for their forward
+// recompute: it can also write the normalised panel y = bf16(LN(x)) and,
+// for the MLP, the fp32 GELU derivative beside the bf16 GELU output.
 #include "common.cuh"
 
 namespace ddm {
@@ -44,6 +48,14 @@ constexpr int CLD = BN + kPadF;
 constexpr int kTilesPerBlock = 4;  // column tiles one LN-prologue block walks
 constexpr float kLnEps = 1e-6f;
 constexpr float kInvSqrt2 = 0.70710678118654752440f;
+constexpr float kInvSqrt2Pi = 0.39894228040143267794f;
+
+// ln_gemm epilogues on h = acc + bias
+enum LnGemmEpi : int {
+  kEpiBias = 0,      // out = bf16(h)
+  kEpiGelu = 1,      // out = bf16(gelu(h))
+  kEpiGeluGrad = 2,  // out = bf16(gelu(h)), out2 = gelu'(h) in fp32
+};
 
 // Copy a (BN x BK) tile of W (Nout x K, row-major: nn.Linear's layout) into
 // shared memory; rows past Nout are zero.
@@ -95,12 +107,14 @@ __device__ __forceinline__ void zero_acc(FragC (&acc)[2][2]) {
     for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
 }
 
-// out[T, Nout] = epi(LN(x)[T, K] @ W^T + bias), epi = identity or GELU.
+// out[T, Nout] = epi(LN(x)[T, K] @ W^T + bias) (see LnGemmEpi); with y_out
+// set, the blocks of the first column group also write y = bf16(LN(x)).
 __global__ void __launch_bounds__(kThreads)
 ln_gemm_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_scale,
                const float* __restrict__ ln_bias, const bf16* __restrict__ w,
-               const float* __restrict__ bias, bf16* __restrict__ out, int T, int K,
-               int Nout, int gelu) {
+               const float* __restrict__ bias, bf16* __restrict__ out,
+               float* __restrict__ out2, bf16* __restrict__ y_out, int T, int K,
+               int Nout, int epi) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int ALD = K + kPadH;
   bf16* As = reinterpret_cast<bf16*>(smem);
@@ -139,6 +153,16 @@ ln_gemm_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_scale,
     }
   }
 
+  if (y_out != nullptr && blockIdx.y == 0) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < BM * kVec; i += kThreads) {
+      const int r = i / kVec, c = i % kVec;
+      if (row0 + r < T)
+        *reinterpret_cast<uint4*>(y_out + (size_t)(row0 + r) * K + c * 8) =
+            *reinterpret_cast<const uint4*>(As + r * ALD + c * 8);
+    }
+  }
+
   const int ntiles = (Nout + BN - 1) / BN;
   const int t_end = min(ntiles, (int)(blockIdx.y + 1) * kTilesPerBlock);
   for (int t = blockIdx.y * kTilesPerBlock; t < t_end; ++t) {
@@ -157,14 +181,22 @@ ln_gemm_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_scale,
       const int r = i / (BN / 2), c = 2 * (i % (BN / 2));
       const int row = row0 + r, col = n0 + c;
       if (row >= T || col >= Nout) continue;
+      const size_t o = (size_t)row * Nout + col;
       float v0 = Cs[r * CLD + c] + bias[col];
       float v1 = Cs[r * CLD + c + 1] + bias[col + 1];
-      if (gelu) {
+      if (epi == kEpiGeluGrad) {
+        // one erf shared by the GELU and its derivative (_act_fwd_bwd)
+        const float e0 = erff(v0 * kInvSqrt2), e1 = erff(v1 * kInvSqrt2);
+        *reinterpret_cast<float2*>(out2 + o) = make_float2(
+            0.5f * (1.0f + e0) + v0 * kInvSqrt2Pi * expf(-0.5f * v0 * v0),
+            0.5f * (1.0f + e1) + v1 * kInvSqrt2Pi * expf(-0.5f * v1 * v1));
+        v0 = 0.5f * v0 * (1.0f + e0);
+        v1 = 0.5f * v1 * (1.0f + e1);
+      } else if (epi == kEpiGelu) {
         v0 = 0.5f * v0 * (1.0f + erff(v0 * kInvSqrt2));
         v1 = 0.5f * v1 * (1.0f + erff(v1 * kInvSqrt2));
       }
-      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * Nout + col) =
-          __floats2bfloat162_rn(v0, v1);
+      *reinterpret_cast<__nv_bfloat162*>(out + o) = __floats2bfloat162_rn(v0, v1);
     }
   }
 }
@@ -220,8 +252,8 @@ gemm_residual_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
 using ddm::bf16;
 
 extern "C" int ddm_ln_gemm(const void* x, const void* ln_scale, const void* ln_bias,
-                           const void* w, const void* bias, void* out, int T, int K,
-                           int Nout, int gelu, void* stream) {
+                           const void* w, const void* bias, void* out, void* out2,
+                           void* y_out, int T, int K, int Nout, int epi, void* stream) {
   using namespace ddm;
   const size_t smem = (size_t)BM * (K + kPadH) * sizeof(bf16) +
                       (size_t)BN * BLD * sizeof(bf16) + (size_t)BM * CLD * sizeof(float);
@@ -232,7 +264,7 @@ extern "C" int ddm_ln_gemm(const void* x, const void* ln_scale, const void* ln_b
   dim3 grid((T + BM - 1) / BM, (ntiles + kTilesPerBlock - 1) / kTilesPerBlock);
   ln_gemm_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const bf16*)x, (const float*)ln_scale, (const float*)ln_bias, (const bf16*)w,
-      (const float*)bias, (bf16*)out, T, K, Nout, gelu);
+      (const float*)bias, (bf16*)out, (float*)out2, (bf16*)y_out, T, K, Nout, epi);
   return (int)cudaGetLastError();
 }
 

@@ -1,0 +1,360 @@
+// GEMMs, LayerNorm backward and fixed-order reductions for the DiT
+// half-block backwards.
+//
+// Replaces, with ddm_ln_gemm (gemm.cu) for the forward recompute and
+// ddm_attention_core / ddm_attention_core_bwd (attention.cu), the two TPU
+// backward kernels that a DiT block runs in training:
+//   * ddm_tpu/ops/mlp_block.py `_bwd_kernel` / `_bwd_body` (K1b);
+//   * ddm_tpu/ops/attention.py `_blk_bwd_kernel` (K2b).
+//
+// The TPU kernels keep the weights and fp32 dW accumulators in VMEM and sum
+// dW across their sequential grid. CUDA blocks run at once and in no order,
+// so each product is its own kernel here:
+//   * NN, out = A . W with W in nn.Linear's (out, in) layout read as
+//     (K, Nout): the dx-side products dO W2, dH W1, dO Wproj and dQKV Wqkv,
+//     with epilogues fp32, bf16, or (MLP) dh = acc * gelu'(h) rounded to
+//     bf16 with per-block column sums of the unrounded dh (db1);
+//   * TN, out = A^T . B contracting over the T token rows: the weight
+//     gradients, as deterministic split-K. Each split writes fp32 partials
+//     (and, for the bias gradients, column sums of A) and a second kernel
+//     sums the splits in a fixed order;
+//   * the LayerNorm backward with the residual, one warp per row, writing
+//     dx and per-block column partials of dscale and dbias.
+// No atomics: every sum has one fixed order, so the same inputs give
+// bit-identical gradients.
+//
+// What bounds it on the H100: at the training shape (T = 131072 rows,
+// D = 384, F = 1536) the MLP backward is ~0.8 TFLOP of bf16 products per
+// block, plus the (T, F) activations that go through device memory (g and
+// dh in bf16, gelu'(h) in fp32: ~1.6 GB per call). The products are WMMA
+// (mma.sync) on synchronously loaded tiles, as in gemm.cu; wgmma, TMA and
+// keeping the hidden activation on chip are later work.
+#include "common.cuh"
+
+namespace ddm {
+namespace {
+
+constexpr int BM = 64;         // rows per block
+constexpr int BN = 128;        // output columns per tile
+constexpr int BK = 64;         // depth per streamed chunk
+constexpr int kThreads = 256;  // 8 warps as 2 (rows) x 4 (cols), 32x32 each
+constexpr int ALD = BK + kPadH;    // A tile, row-major (BM x BK)
+constexpr int WLD = BN + kPadH;    // W / B tile, row-major (BK x BN)
+constexpr int TLD = BM + kPadH;    // TN: A tile, row-major (BK rows of T x BM)
+constexpr int CLD = BN + kPadF;
+constexpr float kLnEps = 1e-6f;
+
+enum NNEpi : int {
+  kNNF32 = 0,     // out (fp32) = acc
+  kNNBf16 = 1,    // out (bf16) = bf16(acc)
+  kNNDGelu = 2,   // dh = acc * dfac; out (bf16) = bf16(dh); colsum partials of dh
+};
+
+__device__ __forceinline__ void zero_acc(FragC (&acc)[2][2]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+}
+
+__device__ __forceinline__ void store_acc(float* Cs, FragC (&acc)[2][2], int wm, int wn) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(Cs + (wm * 32 + i * kFrag) * CLD + wn * 32 + j * kFrag,
+                              acc[i][j], CLD, wmma::mem_row_major);
+}
+
+// Copy rows [r0, r0 + nrows) x cols [c0, c0 + ncols) of a row-major bf16
+// matrix (ld columns) into a shared tile; rows >= rmax or cols >= cmax are 0.
+template <int NROWS, int NCOLS>
+__device__ __forceinline__ void load_tile(bf16* dst, int dld, const bf16* __restrict__ src,
+                                          int ld, int r0, int c0, int rmax, int cmax) {
+  constexpr int kVec = NCOLS / 8;
+  for (int i = threadIdx.x; i < NROWS * kVec; i += kThreads) {
+    const int r = i / kVec, c = (i % kVec) * 8;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (r0 + r < rmax && c0 + c < cmax)
+      v = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * ld + c0 + c);
+    *reinterpret_cast<uint4*>(dst + r * dld + c) = v;
+  }
+}
+
+// out[T, Nout] = epi(A[T, K] . W[K, Nout]), W row-major (nn.Linear's (out, in)
+// weight with out = K).
+__global__ void __launch_bounds__(kThreads)
+gemm_nn_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
+               const float* __restrict__ dfac, void* __restrict__ out,
+               float* __restrict__ colsum, int T, int K, int Nout, int epi) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* As = reinterpret_cast<bf16*>(smem);
+  bf16* Ws = As + BM * ALD;
+  float* Cs = reinterpret_cast<float*>(Ws + BK * WLD);
+
+  const int row0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int warp = threadIdx.x / 32;
+  const int wm = warp / 4, wn = warp % 4;
+
+  FragC acc[2][2];
+  zero_acc(acc);
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    __syncthreads();
+    load_tile<BM, BK>(As, ALD, a, K, row0, k0, T, K);
+    load_tile<BK, BN>(Ws, WLD, w, Nout, k0, n0, K, Nout);
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += kFrag) {
+      FragA fa[2];
+      FragBRow fb[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(fa[i], As + (wm * 32 + i * kFrag) * ALD + kk, ALD);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(fb[j], Ws + kk * WLD + wn * 32 + j * kFrag, WLD);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+    }
+  }
+  store_acc(Cs, acc, wm, wn);
+  __syncthreads();
+
+  for (int i = threadIdx.x; i < BM * BN; i += kThreads) {
+    const int r = i / BN, c = i % BN;
+    const int row = row0 + r, col = n0 + c;
+    if (row >= T || col >= Nout) continue;
+    const size_t o = (size_t)row * Nout + col;
+    const float v = Cs[r * CLD + c];
+    if (epi == kNNF32) {
+      reinterpret_cast<float*>(out)[o] = v;
+    } else if (epi == kNNBf16) {
+      reinterpret_cast<bf16*>(out)[o] = __float2bfloat16(v);
+    } else {
+      const float dh = v * dfac[o];
+      Cs[r * CLD + c] = dh;
+      reinterpret_cast<bf16*>(out)[o] = __float2bfloat16(dh);
+    }
+  }
+  if (epi == kNNDGelu) {
+    __syncthreads();
+    // this block's column sums of the unrounded dh, rows in order
+    for (int c = threadIdx.x; c < BN; c += kThreads) {
+      if (n0 + c >= Nout) continue;
+      float s = 0.f;
+      const int rows = min(BM, T - row0);
+      for (int r = 0; r < rows; ++r) s += Cs[r * CLD + c];
+      colsum[(size_t)blockIdx.x * Nout + n0 + c] = s;
+    }
+  }
+}
+
+// Split-K partials of out[Ma, Nb] = A[T, Ma]^T . B[T, Nb]: split z sums the
+// rows [z * rows, (z + 1) * rows) into ws[z]. With colsum set, the blocks of
+// the first column tile also write the split's column sums of A.
+__global__ void __launch_bounds__(kThreads)
+gemm_tn_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
+               float* __restrict__ ws, float* __restrict__ colsum, int T, int Ma, int Nb,
+               int rows) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* As = reinterpret_cast<bf16*>(smem);     // BK (rows of T) x TLD
+  bf16* Bs = As + BK * TLD;                     // BK x WLD
+  float* Cs = reinterpret_cast<float*>(Bs + BK * WLD);
+
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN, z = blockIdx.z;
+  const int t_begin = z * rows, t_end = min(T, t_begin + rows);
+  const int warp = threadIdx.x / 32;
+  const int wm = warp / 4, wn = warp % 4;
+  const bool sums = colsum != nullptr && blockIdx.y == 0 && threadIdx.x < BM;
+
+  FragC acc[2][2];
+  zero_acc(acc);
+  float csum = 0.f;
+  for (int t0 = t_begin; t0 < t_end; t0 += BK) {
+    __syncthreads();
+    load_tile<BK, BM>(As, TLD, a, Ma, t0, m0, t_end, Ma);
+    load_tile<BK, BN>(Bs, WLD, b, Nb, t0, n0, t_end, Nb);
+    __syncthreads();
+    if (sums)
+      for (int r = 0; r < BK; ++r) csum += __bfloat162float(As[r * TLD + threadIdx.x]);
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += kFrag) {
+      FragACol fa[2];
+      FragBRow fb[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(fa[i], As + kk * TLD + wm * 32 + i * kFrag, TLD);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(fb[j], Bs + kk * WLD + wn * 32 + j * kFrag, WLD);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+    }
+  }
+  store_acc(Cs, acc, wm, wn);
+  __syncthreads();
+  float* dst = ws + (size_t)z * Ma * Nb;
+  for (int i = threadIdx.x; i < BM * BN; i += kThreads) {
+    const int r = i / BN, c = i % BN;
+    if (m0 + r < Ma && n0 + c < Nb) dst[(size_t)(m0 + r) * Nb + n0 + c] = Cs[r * CLD + c];
+  }
+  if (sums && m0 + (int)threadIdx.x < Ma) colsum[(size_t)z * Ma + m0 + threadIdx.x] = csum;
+}
+
+// out[n] = sum over s = 0 .. S-1 of ws[s * N + n], in a fixed order: row
+// group g of the block sums s = g, g + 8, ..., then the groups add in order.
+constexpr int kRedCols = 32, kRedGroups = 8;
+
+__global__ void __launch_bounds__(kRedCols * kRedGroups)
+reduce_rows_kernel(const float* __restrict__ ws, float* __restrict__ out, int S, int N) {
+  __shared__ float part[kRedGroups][kRedCols];
+  const int c = threadIdx.x % kRedCols, g = threadIdx.x / kRedCols;
+  const size_t n = (size_t)blockIdx.x * kRedCols + c;
+  float s = 0.f;
+  if (n < (size_t)N)
+    for (int r = g; r < S; r += kRedGroups) s += ws[(size_t)r * N + n];
+  part[g][c] = s;
+  __syncthreads();
+  if (g == 0 && n < (size_t)N) {
+    float t = part[0][c];
+    for (int k = 1; k < kRedGroups; ++k) t += part[k][c];
+    out[n] = t;
+  }
+}
+
+// LayerNorm backward with the residual over rows of D, one warp per row:
+//   dx = bf16(dres + inv * (dyh - mean(dyh) - xhat * mean(dyh * xhat))),
+//   dyh = dy * scale; per-block column partials of dy * xhat and dy.
+constexpr int kLnRows = 64;
+
+__global__ void __launch_bounds__(kThreads)
+ln_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ dy,
+              const bf16* __restrict__ dres, const float* __restrict__ scale,
+              bf16* __restrict__ dx, float* __restrict__ partial, int T, int D) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int kWarps = kThreads / 32;
+  float* acc = reinterpret_cast<float*>(smem);  // [kWarps][2][D]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* wacc = acc + (size_t)warp * 2 * D;
+  for (int c = lane; c < D; c += 32) wacc[c] = wacc[D + c] = 0.f;
+
+  const int row0 = blockIdx.x * kLnRows;
+  for (int r = warp; r < kLnRows; r += kWarps) {
+    const int row = row0 + r;
+    if (row >= T) break;
+    const bf16* xr = x + (size_t)row * D;
+    const float* dyr = dy + (size_t)row * D;
+    float s = 0.f;
+    for (int c = lane; c < D; c += 32) s += __bfloat162float(xr[c]);
+    const float mu = warp_sum(s) / D;
+    float q = 0.f;
+    for (int c = lane; c < D; c += 32) {
+      const float d = __bfloat162float(xr[c]) - mu;
+      q += d * d;
+    }
+    const float inv = rsqrtf(warp_sum(q) / D + kLnEps);
+    float m1 = 0.f, m2 = 0.f;
+    for (int c = lane; c < D; c += 32) {
+      const float xhat = (__bfloat162float(xr[c]) - mu) * inv;
+      const float g = dyr[c] * scale[c];
+      m1 += g;
+      m2 += g * xhat;
+      wacc[c] += dyr[c] * xhat;
+      wacc[D + c] += dyr[c];
+    }
+    m1 = warp_sum(m1) / D;
+    m2 = warp_sum(m2) / D;
+    for (int c = lane; c < D; c += 32) {
+      const float xhat = (__bfloat162float(xr[c]) - mu) * inv;
+      const float g = dyr[c] * scale[c];
+      const float v = __bfloat162float(dres[(size_t)row * D + c]) + inv * (g - m1 - xhat * m2);
+      dx[(size_t)row * D + c] = __float2bfloat16(v);
+    }
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < 2 * D; c += kThreads) {
+    float t = acc[c];
+    for (int k = 1; k < kWarps; ++k) t += acc[(size_t)k * 2 * D + c];
+    partial[(size_t)blockIdx.x * 2 * D + c] = t;
+  }
+}
+
+cudaError_t reduce_rows(const float* ws, float* out, int S, int N, cudaStream_t stream) {
+  reduce_rows_kernel<<<(N + kRedCols - 1) / kRedCols, kRedCols * kRedGroups, 0, stream>>>(
+      ws, out, S, N);
+  return cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace ddm
+
+using ddm::bf16;
+
+// out = epi(a[T, K] . w[K, Nout]); epi 2 also needs dfac[T, Nout] and writes
+// db = column sums of dh through colsum_ws[ceil(T / 64), Nout].
+extern "C" int ddm_gemm_nn(const void* a, const void* w, const void* dfac, void* out,
+                           void* colsum_ws, void* colsum_out, int T, int K, int Nout,
+                           int epi, void* stream) {
+  using namespace ddm;
+  const size_t smem = (size_t)(BM * ALD + BK * WLD) * sizeof(bf16) +
+                      (size_t)BM * CLD * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(gemm_nn_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int nblk = (T + BM - 1) / BM;
+  dim3 grid(nblk, (Nout + BN - 1) / BN);
+  gemm_nn_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const bf16*)a, (const bf16*)w, (const float*)dfac, out, (float*)colsum_ws, T, K, Nout,
+      epi);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || epi != kNNDGelu) return (int)err;
+  return (int)reduce_rows((const float*)colsum_ws, (float*)colsum_out, nblk, Nout,
+                          (cudaStream_t)stream);
+}
+
+// dw[Ma, Nb] = a[T, Ma]^T . b[T, Nb] in `splits` fixed row ranges of `rows`
+// rows (ws holds splits x Ma x Nb fp32); with colsum_ws set, also
+// colsum_out[Ma] = column sums of a (colsum_ws holds splits x Ma).
+extern "C" int ddm_gemm_tn(const void* a, const void* b, void* ws, void* dw, void* colsum_ws,
+                           void* colsum_out, int T, int Ma, int Nb, int splits, int rows,
+                           void* stream) {
+  using namespace ddm;
+  const size_t smem = (size_t)(BK * TLD + BK * WLD) * sizeof(bf16) +
+                      (size_t)BM * CLD * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(gemm_tn_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((Ma + BM - 1) / BM, (Nb + BN - 1) / BN, splits);
+  gemm_tn_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const bf16*)a, (const bf16*)b, (float*)ws, (float*)colsum_ws, T, Ma, Nb, rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = reduce_rows((const float*)ws, (float*)dw, splits, Ma * Nb, (cudaStream_t)stream);
+  if (err != cudaSuccess || colsum_ws == nullptr) return (int)err;
+  return (int)reduce_rows((const float*)colsum_ws, (float*)colsum_out, splits, Ma,
+                          (cudaStream_t)stream);
+}
+
+// dx = LN backward + residual; dscale_dbias[2, D] = (sum dy * xhat, sum dy)
+// through partial[ceil(T / 64), 2, D].
+extern "C" int ddm_ln_bwd(const void* x, const void* dy, const void* dres, const void* scale,
+                          void* dx, void* partial, void* dscale_dbias, int T, int D,
+                          void* stream) {
+  using namespace ddm;
+  const size_t smem = (size_t)(kThreads / 32) * 2 * D * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(ln_bwd_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int nblk = (T + kLnRows - 1) / kLnRows;
+  ln_bwd_kernel<<<nblk, kThreads, smem, (cudaStream_t)stream>>>(
+      (const bf16*)x, (const float*)dy, (const bf16*)dres, (const float*)scale, (bf16*)dx,
+      (float*)partial, T, D);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)reduce_rows((const float*)partial, (float*)dscale_dbias, nblk, 2 * D,
+                          (cudaStream_t)stream);
+}

@@ -1,1 +1,1 @@
-"""Schedules and the fused DiT half-block ops (kernels K1, K2)."""
+"""Schedules, losses and the fused ops with their CUDA kernels (K1, K2, K3)."""

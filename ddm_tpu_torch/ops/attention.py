@@ -1,11 +1,16 @@
 """Attention half-block ``x + proj(MHA(qkv(LN(x))))`` over (B, N, D) tokens.
 
-Port of ``ddm_tpu/ops/attention.py`` (the half-block forward). On a CUDA
-tensor :func:`fused_attention_block` launches kernel K2, three hand-written
-CUDA kernels: an LN-prologue qkv GEMM (``csrc/gemm.cu``), the attention core
-with one block per (image, head) (``csrc/attention.cu``), and the projection
-GEMM with a ``x + (acc + bproj)`` epilogue (``csrc/gemm.cu``). On a CPU
-tensor it runs :func:`attention_block_reference`, the plain version.
+Port of ``ddm_tpu/ops/attention.py`` (the half-block and its backward).
+:func:`fused_attention_block` is a ``torch.autograd.Function``. On CUDA
+tensors its forward launches kernel K2f, three hand-written CUDA kernels: an
+LN-prologue qkv GEMM (``csrc/gemm.cu``), the attention core with one block
+per (image, head) (``csrc/attention.cu``), and the projection GEMM with a
+``x + (acc + bproj)`` epilogue (``csrc/gemm.cu``). It saves only its inputs,
+and its backward launches K2b, which recomputes the forward and follows the
+TPU's persist-probs backward (``csrc/gemm.cu``, ``csrc/attention.cu``,
+``csrc/gemm_bwd.cu``). On CPU tensors the same Function runs the plain
+versions, :func:`attention_block_reference` and
+:func:`attention_block_bwd_reference`.
 
 Layout: the fused qkv product emits ``[q | k | v]`` with heads contiguous in
 each third, as the JAX package and the reference checkpoint order them.
@@ -16,12 +21,15 @@ Numerics (both versions): fp32 LN with eps 1e-6; qkv accumulated in fp32,
 Dh^-0.5; max-subtracted softmax in fp32; probabilities rounded to the
 compute dtype; P V accumulated in fp32 and rounded; the projection
 accumulated in fp32 and the residual added in fp32 before one rounding.
+The backward keeps the fp32 P for dS, rounds dq, dk, dv and datt to the
+compute dtype, and sums dbqkv over the rounded dqkv.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import gemm
 from .kernel_config import (
     LaunchCounter,
     check_status,
@@ -29,19 +37,35 @@ from .kernel_config import (
     load_library,
     uses_kernel,
 )
-from .mlp_block import layer_norm, matmul_f32
+from .mlp_block import layer_norm, layer_norm_bwd, ln_stats, matmul_f32
 
 __all__ = [
     "attention_reference",
     "attention_block_reference",
+    "attention_block_bwd",
+    "attention_block_bwd_reference",
     "fused_attention_block",
     "LAUNCHES",
+    "BWD_LAUNCHES",
     "MAX_TOKENS",
 ]
 
-LAUNCHES = LaunchCounter()
+LAUNCHES = LaunchCounter("K2f")
+BWD_LAUNCHES = LaunchCounter("K2b")
 MAX_TOKENS = 128  # K2's attention core holds one image's N x N scores in shared memory
 _MAX_SMEM = 232448
+
+
+def _heads(a: torch.Tensor, H: int) -> torch.Tensor:
+    """(B, N, H*Dh) -> (B, H, N, Dh) in fp32."""
+    B, N, D = a.shape
+    return a.reshape(B, N, H, D // H).transpose(1, 2).float()
+
+
+def _merge_heads(a: torch.Tensor) -> torch.Tensor:
+    """(B, H, N, Dh) -> (B, N, H*Dh)."""
+    B, H, N, Dh = a.shape
+    return a.transpose(1, 2).reshape(B, N, H * Dh)
 
 
 def attention_reference(q, k, v, H: int, scale=None):
@@ -51,15 +75,14 @@ def attention_reference(q, k, v, H: int, scale=None):
     if scale is None:
         scale = Dh ** -0.5
     dtype = q.dtype
-    z = lambda a: a.reshape(B, N, H, Dh).transpose(1, 2).float()  # noqa: E731
-    s = torch.matmul(z(q), z(k).transpose(-1, -2))
+    s = torch.matmul(_heads(q, H), _heads(k, H).transpose(-1, -2))
     p = torch.softmax(s * scale, dim=-1).to(dtype)
-    o = torch.matmul(p.float(), z(v)).to(dtype)
-    return o.transpose(1, 2).reshape(B, N, D)
+    o = torch.matmul(p.float(), _heads(v, H)).to(dtype)
+    return _merge_heads(o)
 
 
 def attention_block_reference(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H: int):
-    """Plain PyTorch version of K2 over (B, N, D) tokens in ``x.dtype``."""
+    """Plain PyTorch version of K2f over (B, N, D) tokens in ``x.dtype``."""
     B, N, D = x.shape
     dtype = x.dtype
     xf = x.float()
@@ -71,14 +94,62 @@ def attention_block_reference(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H: i
     return (xf + out).to(dtype)
 
 
+def attention_block_bwd_reference(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H: int,
+                                  dout):
+    """Plain PyTorch version of K2b: the gradients of
+    :func:`fused_attention_block` with respect to ``(x, scale, bias, wqkv,
+    bqkv, wproj, bproj)`` for the cotangent ``dout``, following
+    ``_blk_bwd_kernel``'s rounding plan."""
+    B, N, D = x.shape
+    Dh = D // H
+    scale = Dh ** -0.5
+    dtype = x.dtype
+    rnd = lambda t: t.to(dtype).float()  # noqa: E731
+    xf = x.float().reshape(B * N, D)
+    xhat, inv = ln_stats(xf)
+    y = rnd(xhat * scale_p.float() + bias_p.float())
+    qkv = rnd(y @ rnd(wqkv).t() + bqkv.float()).reshape(B, N, 3 * D)
+    q, k, v = (_heads(t, H) for t in qkv.split(D, dim=-1))
+    p = torch.softmax((q @ k.transpose(-1, -2)) * scale, dim=-1)
+    pb = rnd(p)
+    att = rnd(_merge_heads(pb @ v)).reshape(B * N, D)
+
+    do = dout.float().reshape(B * N, D)
+    dob = rnd(do)
+    dwproj = dob.t() @ att
+    dbproj = do.sum(0)
+    datt = _heads(rnd(dob @ rnd(wproj)).reshape(B, N, D), H)
+    dv = rnd(pb.transpose(-1, -2) @ datt)
+    dp = datt @ v.transpose(-1, -2)
+    ds = rnd(p * (dp - (p * dp).sum(-1, keepdim=True)) * scale)
+    dq = rnd(ds @ k)
+    dk = rnd(ds.transpose(-1, -2) @ q)
+    dqkv = torch.cat([_merge_heads(t) for t in (dq, dk, dv)], dim=-1).reshape(B * N, 3 * D)
+    dwqkv = dqkv.t() @ y
+    dbqkv = dqkv.sum(0)
+    dy = dqkv @ rnd(wqkv)
+    dx, dscale, dbias = layer_norm_bwd(dy, xhat, inv, scale_p, do)
+    return (dx.reshape(B, N, D).to(dtype), dscale, dbias, dwqkv, dbqkv, dwproj, dbproj)
+
+
 def _core_smem(N: int, Dh: int) -> int:
     return 3 * N * (Dh + 8) * 2 + N * (max(N, Dh) + 4) * 4 + N * (N + 8) * 2
 
 
+def _core_bwd_smem(N: int, Dh: int) -> int:
+    return 4 * N * (Dh + 8) * 2 + 2 * N * (max(N, Dh) + 4) * 4 + N * (N + 8) * 2
+
+
 def supported_tokens(N: int, Dh: int) -> bool:
-    """Whether K2's attention core takes N tokens of head width Dh."""
+    """Whether K2f's attention core takes N tokens of head width Dh."""
     return (N % 16 == 0 and 16 <= N <= MAX_TOKENS and Dh % 16 == 0
             and _core_smem(N, Dh) <= _MAX_SMEM)
+
+
+def supported_tokens_bwd(N: int, Dh: int) -> bool:
+    """Whether K2b's attention core backward (which also holds dO and the
+    fp32 dP tile) takes N tokens of head width Dh."""
+    return supported_tokens(N, Dh) and _core_bwd_smem(N, Dh) <= _MAX_SMEM
 
 
 def _check(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H):
@@ -104,42 +175,99 @@ def _check(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H):
                          f"(needs multiples of 16, N <= {MAX_TOKENS})")
     if not x.is_contiguous():
         raise ValueError("K2 needs contiguous activations")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, scale_p, bias_p, wqkv, bqkv, wproj, bproj)):
-        raise NotImplementedError(
-            "K2 has no backward kernel yet (ROADMAP.md, Queue 2: K2b); "
-            "call it under torch.inference_mode() or torch.no_grad()")
+
+
+def _kernel_operands(scale_p, bias_p, wqkv, bqkv, wproj, bproj):
+    bf = lambda t: t.to(torch.bfloat16).contiguous()  # noqa: E731
+    f32 = lambda t: t.float().contiguous()  # noqa: E731
+    return f32(scale_p), f32(bias_p), bf(wqkv), f32(bqkv), bf(wproj), f32(bproj)
+
+
+def _core(qkv, B, N, H, Dh):
+    att = torch.empty((B * N, H * Dh), dtype=torch.bfloat16, device=qkv.device)
+    check_status(load_library().ddm_attention_core(
+        qkv.data_ptr(), att.data_ptr(), B, N, H, Dh, Dh ** -0.5, current_stream(qkv.device)),
+        "K2 attention_core")
+    return att
+
+
+def _k2f(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H):
+    B, N, D = x.shape
+    s, bb, wqkv_b, bqkv_f, wproj_b, bproj_f = _kernel_operands(
+        scale_p, bias_p, wqkv, bqkv, wproj, bproj)
+    x2 = x.reshape(B * N, D)
+    qkv, _, _ = gemm.ln_gemm(x2, s, bb, wqkv_b, bqkv_f, gemm.EPI_BIAS)
+    att = _core(qkv, B, N, H, D // H)
+    out = gemm.gemm_residual(att, wproj_b, bproj_f, x2)
+    LAUNCHES.add()
+    return out.reshape(B, N, D)
+
+
+def _k2b(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H, dout):
+    B, N, D = x.shape
+    Dh = D // H
+    if not supported_tokens_bwd(N, Dh):
+        raise ValueError(f"K2b's attention core backward does not take N={N}, Dh={Dh} "
+                         "(its shared-memory tiles exceed the card's 227 KB)")
+    if dout.shape != x.shape:
+        raise ValueError(f"K2b cotangent must be {tuple(x.shape)}, got {tuple(dout.shape)}")
+    s, bb, wqkv_b, bqkv_f, wproj_b, _ = _kernel_operands(
+        scale_p, bias_p, wqkv, bqkv, wproj, bproj)
+    x2 = x.reshape(B * N, D)
+    dob = dout.to(torch.bfloat16).contiguous().reshape(B * N, D)
+    qkv, _, y = gemm.ln_gemm(x2, s, bb, wqkv_b, bqkv_f, gemm.EPI_BIAS, with_y=True)
+    att = _core(qkv, B, N, H, Dh)
+    dwproj, dbproj = gemm.gemm_tn(dob, att, with_colsum=True)
+    del att
+    datt = gemm.gemm_nn(dob, wproj_b, gemm.NN_BF16)
+    dqkv = torch.empty_like(qkv)
+    check_status(load_library().ddm_attention_core_bwd(
+        qkv.data_ptr(), datt.data_ptr(), dqkv.data_ptr(), B, N, H, Dh, Dh ** -0.5,
+        current_stream(x.device)), "K2b attention_core_bwd")
+    del qkv, datt
+    dwqkv, dbqkv = gemm.gemm_tn(dqkv, y, with_colsum=True)
+    dy = gemm.gemm_nn(dqkv, wqkv_b, gemm.NN_F32)
+    del dqkv
+    dx, dscale, dbias = gemm.ln_bwd(x2, dy, dob, s)
+    BWD_LAUNCHES.add()
+    return dx.reshape(B, N, D), dscale, dbias, dwqkv, dbqkv, dwproj, dbproj
+
+
+def attention_block_bwd(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H: int, dout):
+    """The gradients of :func:`fused_attention_block` for the cotangent
+    ``dout``: K2b on CUDA tensors (or raise),
+    :func:`attention_block_bwd_reference` on CPU tensors."""
+    args = (x, scale_p, bias_p, wqkv, bqkv, wproj, bproj)
+    if not uses_kernel(*args, dout):
+        return attention_block_bwd_reference(*args, H, dout)
+    _check(*args, H)
+    return _k2b(*args, H, dout)
+
+
+class _AttentionBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H):
+        ctx.save_for_backward(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj)
+        ctx.heads = H
+        args = (x, scale_p, bias_p, wqkv, bqkv, wproj, bproj)
+        if not uses_kernel(*args):
+            return attention_block_reference(*args, H)
+        _check(*args, H)
+        return _k2f(*args, H)
+
+    @staticmethod
+    def backward(ctx, dout):
+        args = ctx.saved_tensors
+        grads = attention_block_bwd(*args, ctx.heads, dout)
+        return tuple(g.to(a.dtype) for g, a in zip(grads, args)) + (None,)
 
 
 def fused_attention_block(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H: int):
-    """``x + proj(MHA(qkv(LN(x))))`` over (B, N, D) tokens.
+    """``x + proj(MHA(qkv(LN(x))))`` over (B, N, D) tokens, with its backward.
 
-    CPU tensors take :func:`attention_block_reference`; CUDA tensors launch
-    K2 (bf16 activations, fp32 LN params and biases, weights cast to bf16).
+    CPU tensors take :func:`attention_block_reference` and
+    :func:`attention_block_bwd_reference`; CUDA tensors launch K2f and K2b
+    (bf16 activations, fp32 LN params and biases, weights cast to bf16) or
+    raise.
     """
-    if not uses_kernel(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj):
-        return attention_block_reference(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H)
-    _check(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H)
-    B, N, D = x.shape
-    T = B * N
-    Dh = D // H
-    lib = load_library()
-    wqkv_b = wqkv.to(torch.bfloat16).contiguous()
-    wproj_b = wproj.to(torch.bfloat16).contiguous()
-    s, bb = scale_p.float().contiguous(), bias_p.float().contiguous()
-    bqkv_f, bproj_f = bqkv.float().contiguous(), bproj.float().contiguous()
-    qkv = torch.empty((T, 3 * D), dtype=torch.bfloat16, device=x.device)
-    att = torch.empty((T, D), dtype=torch.bfloat16, device=x.device)
-    out = torch.empty_like(x)
-    stream = current_stream(x.device)
-    check_status(lib.ddm_ln_gemm(x.data_ptr(), s.data_ptr(), bb.data_ptr(), wqkv_b.data_ptr(),
-                                 bqkv_f.data_ptr(), qkv.data_ptr(), T, D, 3 * D, 0, stream),
-                 "K2 ln_gemm")
-    check_status(lib.ddm_attention_core(qkv.data_ptr(), att.data_ptr(), B, N, H, Dh,
-                                        Dh ** -0.5, stream),
-                 "K2 attention_core")
-    check_status(lib.ddm_gemm_residual(att.data_ptr(), wproj_b.data_ptr(), bproj_f.data_ptr(),
-                                       x.data_ptr(), out.data_ptr(), T, D, D, stream),
-                 "K2 gemm_residual")
-    LAUNCHES.add()
-    return out
+    return _AttentionBlock.apply(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H)

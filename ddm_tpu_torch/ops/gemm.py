@@ -1,0 +1,129 @@
+"""ctypes launchers for the half-block GEMMs (``csrc/gemm.cu``,
+``csrc/gemm_bwd.cu``), shared by the MLP and attention wrappers.
+
+Each function takes CUDA tensors that its caller has checked (bf16
+activations and weights, fp32 biases and LN parameters, contiguous),
+allocates its outputs and scratch with ``torch.empty`` on the same device,
+launches on the current stream and raises if a launch was refused. They
+count no launches: the half-block wrappers that call them do.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from .kernel_config import check_status, current_stream, load_library
+
+__all__ = ["ln_gemm", "gemm_residual", "gemm_nn", "gemm_tn", "ln_bwd", "tn_splits"]
+
+# ln_gemm epilogues (csrc/gemm.cu LnGemmEpi)
+EPI_BIAS, EPI_GELU, EPI_GELU_GRAD = 0, 1, 2
+# gemm_nn epilogues (csrc/gemm_bwd.cu NNEpi)
+NN_F32, NN_BF16, NN_DGELU = 0, 1, 2
+_BM, _BN = 64, 128  # the kernels' output tile
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def ln_gemm(x, scale, bias, w, b, epi: int, with_y: bool = False):
+    """``epi(LN(x) w^T + b)`` over (T, K) rows -> ``(out, gelu_grad, y)``:
+    ``out`` bf16 (T, Nout); ``gelu_grad`` fp32 (T, Nout) for
+    ``EPI_GELU_GRAD``, else None; ``y = bf16(LN(x))`` when ``with_y``."""
+    T, K = x.shape
+    Nout = w.shape[0]
+    out = torch.empty((T, Nout), dtype=torch.bfloat16, device=x.device)
+    grad = (torch.empty((T, Nout), dtype=torch.float32, device=x.device)
+            if epi == EPI_GELU_GRAD else None)
+    y = torch.empty_like(x) if with_y else None
+    check_status(load_library().ddm_ln_gemm(
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w.data_ptr(), b.data_ptr(),
+        out.data_ptr(), _ptr(grad), _ptr(y), T, K, Nout, epi, current_stream(x.device)),
+        "ln_gemm")
+    return out, grad, y
+
+
+def gemm_residual(a, w, b, res):
+    """``bf16(res + (a w^T + b))`` over (T, K) rows."""
+    T, K = a.shape
+    Nout = w.shape[0]
+    out = torch.empty((T, Nout), dtype=torch.bfloat16, device=a.device)
+    check_status(load_library().ddm_gemm_residual(
+        a.data_ptr(), w.data_ptr(), b.data_ptr(), res.data_ptr(), out.data_ptr(), T, K, Nout,
+        current_stream(a.device)), "gemm_residual")
+    return out
+
+
+def gemm_nn(a, w, epi: int, dfac=None):
+    """``a (T, K) . w (K, Nout)`` with ``w`` in nn.Linear's (out, in) layout.
+
+    ``NN_F32`` -> fp32 out; ``NN_BF16`` -> bf16 out; ``NN_DGELU`` ->
+    ``(bf16(dh), sum_rows(dh))`` with ``dh = (a . w) * dfac`` in fp32.
+    """
+    T, K = a.shape
+    Nout = w.shape[1]
+    dev = a.device
+    out = torch.empty((T, Nout), dtype=torch.float32 if epi == NN_F32 else torch.bfloat16,
+                      device=dev)
+    ws = colsum = None
+    if epi == NN_DGELU:
+        ws = torch.empty((-(-T // _BM), Nout), dtype=torch.float32, device=dev)
+        colsum = torch.empty((Nout,), dtype=torch.float32, device=dev)
+    check_status(load_library().ddm_gemm_nn(
+        a.data_ptr(), w.data_ptr(), _ptr(dfac), out.data_ptr(), _ptr(ws), _ptr(colsum),
+        T, K, Nout, epi, current_stream(dev)), "gemm_nn")
+    return (out, colsum) if epi == NN_DGELU else out
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def tn_splits(T: int, Ma: int, Nb: int, sms: int) -> Tuple[int, int]:
+    """``(splits, rows)`` of the split-K weight-gradient product: about four
+    blocks per SM, each split a whole number of 64-row chunks. A function of
+    the shapes and the card only, so the sum order never changes."""
+    tiles = -(-Ma // _BM) * -(-Nb // _BN)
+    chunks = -(-T // _BM)
+    want = max(1, min(chunks, round(4 * sms / tiles)))
+    rows = -(-chunks // want) * _BM
+    return -(-T // rows), rows
+
+
+def gemm_tn(a, b, with_colsum: bool = False):
+    """``a (T, Ma)^T . b (T, Nb)`` in fp32 -> ``(dw (Ma, Nb), colsum)``:
+    ``colsum`` = fp32 column sums of ``a`` when ``with_colsum``, else None.
+    Deterministic split-K: fixed row ranges, summed in a fixed order."""
+    T, Ma = a.shape
+    Nb = b.shape[1]
+    dev = a.device
+    splits, rows = tn_splits(T, Ma, Nb, _sm_count(dev.index or 0))
+    ws = torch.empty((splits, Ma, Nb), dtype=torch.float32, device=dev)
+    dw = torch.empty((Ma, Nb), dtype=torch.float32, device=dev)
+    cws = colsum = None
+    if with_colsum:
+        cws = torch.empty((splits, Ma), dtype=torch.float32, device=dev)
+        colsum = torch.empty((Ma,), dtype=torch.float32, device=dev)
+    check_status(load_library().ddm_gemm_tn(
+        a.data_ptr(), b.data_ptr(), ws.data_ptr(), dw.data_ptr(), _ptr(cws), _ptr(colsum),
+        T, Ma, Nb, splits, rows, current_stream(dev)), "gemm_tn")
+    return dw, colsum
+
+
+def ln_bwd(x, dy, dres, scale):
+    """LayerNorm backward plus the residual over (T, D) rows ->
+    ``(dx bf16, dscale fp32, dbias fp32)``."""
+    T, D = x.shape
+    dev = x.device
+    dx = torch.empty_like(x)
+    partial = torch.empty((-(-T // _BM), 2, D), dtype=torch.float32, device=dev)
+    sums = torch.empty((2, D), dtype=torch.float32, device=dev)
+    check_status(load_library().ddm_ln_bwd(
+        x.data_ptr(), dy.data_ptr(), dres.data_ptr(), scale.data_ptr(), dx.data_ptr(),
+        partial.data_ptr(), sums.data_ptr(), T, D, current_stream(dev)), "ln_bwd")
+    return dx, sums[0], sums[1]

@@ -6,9 +6,10 @@ raises. There is no interpret mode and no fallback on a build or launch
 failure.
 
 The kernels are CUDA C++ for ``sm_90a`` in ``ddm_tpu_torch/csrc``. At first
-use they are compiled with ``nvcc`` into one shared library with a plain C
-interface, keyed by a hash of the sources and flags, under
-``ddm_tpu_torch/_build/``, and loaded with ``ctypes``.
+use each source is compiled by its own ``nvcc``, all started together, and
+the objects are linked into one shared library with a plain C interface,
+keyed by a hash of the sources and flags, under ``ddm_tpu_torch/_build/``,
+and loaded with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -26,7 +27,10 @@ import torch
 
 __all__ = [
     "LaunchCounter",
+    "launch_counts",
+    "reset_launch_counts",
     "uses_kernel",
+    "cli_device",
     "load_library",
     "library_path",
     "build_library",
@@ -39,34 +43,62 @@ _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry points of csrc/*.cu: name -> argtypes. Each returns cudaError_t.
 _SIGNATURES = {
-    # x, ln_scale, ln_bias, w, bias, out, T, K, Nout, gelu, stream
-    "ddm_ln_gemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, ln_scale, ln_bias, w, bias, out, out2, y_out, T, K, Nout, epi, stream
+    "ddm_ln_gemm": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # a, w, bias, residual, out, T, K, Nout, stream
     "ddm_gemm_residual": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # qkv, out, B, N, H, Dh, scale, stream
-    "ddm_attention_core": [_P, _P, _I, _I, _I, _I, ctypes.c_float, _P],
+    "ddm_attention_core": [_P, _P, _I, _I, _I, _I, _F, _P],
+    # qkv, datt, dqkv, B, N, H, Dh, scale, stream
+    "ddm_attention_core_bwd": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # a, w, dfac, out, colsum_ws, colsum_out, T, K, Nout, epi, stream
+    "ddm_gemm_nn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # a, b, ws, dw, colsum_ws, colsum_out, T, Ma, Nb, splits, rows, stream
+    "ddm_gemm_tn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, dy, dres, scale, dx, partial, dscale_dbias, T, D, stream
+    "ddm_ln_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # xh, x0, partial, out, B, m, D, beta, stream
+    "ddm_energy_fwd": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
+    # xh, x0, g, dxh, dx0, B, m, D, beta, stream
+    "ddm_energy_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
 }
+
+_COUNTERS: dict = {}
 
 
 class LaunchCounter:
     """Count of kernel launches made by one wrapper (reset by callers that
-    need to prove a run went through the kernel)."""
+    need to prove a run went through the kernel). Each counter registers
+    under its kernel's name for :func:`launch_counts`."""
 
-    def __init__(self):
+    def __init__(self, name: str):
+        self.name = name
         self.count = 0
+        _COUNTERS[name] = self
 
     def add(self) -> None:
         self.count += 1
 
     def reset(self) -> None:
         self.count = 0
+
+
+def launch_counts() -> dict:
+    """``{kernel name: launches}`` of every registered wrapper."""
+    return {name: c.count for name, c in _COUNTERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for c in _COUNTERS.values():
+        c.reset()
 
 
 def uses_kernel(*tensors: torch.Tensor) -> bool:
@@ -78,6 +110,16 @@ def uses_kernel(*tensors: torch.Tensor) -> bool:
     if kinds == {"cuda"}:
         return True
     raise ValueError(f"tensors must all lie on the CPU or all on CUDA, got {sorted(kinds)}")
+
+
+def cli_device(name: str) -> torch.device:
+    """The device an entry point's ``--device`` flag names; exits with a
+    message when it names CUDA and no card is available (no fallback)."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {name}: no CUDA device is available "
+                         "(pass --device cpu to run the plain versions on the CPU)")
+    return device
 
 
 def _sources():
@@ -105,25 +147,43 @@ def library_path() -> Path:
 
 
 def build_library() -> Path:
-    """Compile csrc/*.cu into the shared library unless it is already built."""
+    """Compile csrc/*.cu (one nvcc per source, in parallel) and link the
+    shared library, unless it is already built. The ``-Xptxas -v`` report
+    lands beside the library."""
     path = library_path()
     if path.exists():
         return path
     _BUILD.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
-    os.close(fd)
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp,
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-        (_BUILD / (path.stem + ".ptxas.txt")).write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=_BUILD) as tmp:
+        objs, procs = [], []
+        try:
+            for src in (s for s in _sources() if s.suffix == ".cu"):
+                obj = os.path.join(tmp, src.stem + ".o")
+                objs.append(obj)
+                procs.append((src.name, subprocess.Popen(
+                    [nvcc, *_NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+            logs, failed = [], []
+            for name, proc in procs:
+                out, err = proc.communicate()
+                logs.append(f"== {name}\n{out}{err}")
+                if proc.returncode != 0:
+                    failed.append(f"{name} ({proc.returncode}):\n{out}\n{err}")
+        finally:
+            for _, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        lib = os.path.join(tmp, path.name)
+        link = subprocess.run([nvcc, "-shared", "-o", lib, *objs], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}\n{link.stderr}")
+        (_BUILD / (path.stem + ".ptxas.txt")).write_text("".join(logs))
+        os.replace(lib, path)
     return path
 
 

@@ -1,10 +1,14 @@
 """Transformer-MLP half-block ``x + gelu(LN(x) W1^T + b1) W2^T + b2``.
 
-Port of ``ddm_tpu/ops/mlp_block.py`` (forward only). On a CUDA tensor
-:func:`fused_mlp_block` launches kernel K1, two hand-written CUDA kernels
-(``csrc/gemm.cu``): an LN-prologue GEMM with a ``+b1``/exact-erf GELU
-epilogue, then a GEMM with a ``x + (acc + b2)`` epilogue. On a CPU tensor it
-runs :func:`mlp_block_reference`, the plain version with the same dtype plan.
+Port of ``ddm_tpu/ops/mlp_block.py``. :func:`fused_mlp_block` is a
+``torch.autograd.Function``. On CUDA tensors its forward launches kernel K1f,
+two hand-written CUDA kernels (``csrc/gemm.cu``): an LN-prologue GEMM with a
+``+b1``/exact-erf GELU epilogue, then a GEMM with a ``x + (acc + b2)``
+epilogue. It saves only its inputs, and its backward launches K1b, which
+recomputes the forward as the TPU kernel does (``csrc/gemm.cu``,
+``csrc/gemm_bwd.cu``). On CPU tensors the same Function runs the plain
+versions, :func:`mlp_block_reference` and :func:`mlp_block_bwd_reference`,
+with the same dtype plan.
 
 Weights use ``nn.Linear``'s layout: ``w1`` is (F, D), ``w2`` is (D, F).
 
@@ -13,32 +17,61 @@ operands with fp32 accumulation; exact-erf GELU in fp32, rounded to the
 compute dtype; the residual added in fp32 and rounded once. The JAX
 reference ``mlp_block_reference`` adds the residual after rounding, while
 the TPU kernel adds in fp32 and rounds once; the port follows the kernel.
+The backward follows ``_bwd_body``: dW and bias gradients in fp32, dh
+rounded to bf16 for the products but db1 summed over the unrounded dh.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-from .kernel_config import (
-    LaunchCounter,
-    check_status,
-    current_stream,
-    load_library,
-    uses_kernel,
-)
+from . import gemm
+from .kernel_config import LaunchCounter, uses_kernel
 
-__all__ = ["fused_mlp_block", "mlp_block_reference", "LAUNCHES", "layer_norm"]
+__all__ = [
+    "fused_mlp_block",
+    "mlp_block_reference",
+    "mlp_block_bwd",
+    "mlp_block_bwd_reference",
+    "LAUNCHES",
+    "BWD_LAUNCHES",
+    "layer_norm",
+]
 
 LN_EPS = 1e-6
-LAUNCHES = LaunchCounter()
+LAUNCHES = LaunchCounter("K1f")
+BWD_LAUNCHES = LaunchCounter("K1b")
+_INV_SQRT2 = 1.0 / math.sqrt(2.0)
+_INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
+
+
+def ln_stats(xf: torch.Tensor):
+    """``(xhat, inv)`` of an fp32 LayerNorm over the last axis, eps 1e-6,
+    centred variance."""
+    mu = xf.mean(dim=-1, keepdim=True)
+    xc = xf - mu
+    var = (xc * xc).mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + LN_EPS)
+    return xc * inv, inv
 
 
 def layer_norm(xf: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """fp32 LayerNorm over the last axis, eps 1e-6, centred variance."""
-    mu = xf.mean(dim=-1, keepdim=True)
-    xc = xf - mu
-    var = (xc * xc).mean(dim=-1, keepdim=True)
-    return xc * torch.rsqrt(var + LN_EPS) * scale.float() + bias.float()
+    xhat, _ = ln_stats(xf)
+    return xhat * scale.float() + bias.float()
+
+
+def layer_norm_bwd(dy, xhat, inv, scale, dres):
+    """LayerNorm backward plus the residual cotangent, all fp32:
+    ``(dx, dscale, dbias)`` over rows of the last axis."""
+    dscale = (dy * xhat).sum(0)
+    dbias = dy.sum(0)
+    dxhat = dy * scale.float()
+    m1 = dxhat.mean(dim=-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(dim=-1, keepdim=True)
+    return dres + inv * (dxhat - m1 - xhat * m2), dscale, dbias
 
 
 def matmul_f32(a: torch.Tensor, w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -47,7 +80,7 @@ def matmul_f32(a: torch.Tensor, w: torch.Tensor, dtype: torch.dtype) -> torch.Te
 
 
 def mlp_block_reference(x, scale, bias, w1, b1, w2, b2):
-    """Plain PyTorch version of K1 over (T, D) rows in ``x.dtype``."""
+    """Plain PyTorch version of K1f over (T, D) rows in ``x.dtype``."""
     dtype = x.dtype
     xf = x.float()
     y = layer_norm(xf, scale, bias).to(dtype)
@@ -55,6 +88,38 @@ def mlp_block_reference(x, scale, bias, w1, b1, w2, b2):
     g = torch.nn.functional.gelu(h, approximate="none").to(dtype)
     out = matmul_f32(g, w2, dtype) + b2.float()
     return (xf + out).to(dtype)
+
+
+def _gelu_and_grad(h: torch.Tensor):
+    """``(gelu(h), gelu'(h))`` with one exact erf shared (``_act_fwd_bwd``)."""
+    erf_h = torch.erf(h * _INV_SQRT2)
+    return 0.5 * h * (1.0 + erf_h), 0.5 * (1.0 + erf_h) + h * _INV_SQRT2PI * torch.exp(-0.5 * h * h)
+
+
+def mlp_block_bwd_reference(x, scale, bias, w1, b1, w2, b2, dout):
+    """Plain PyTorch version of K1b: the gradients of :func:`fused_mlp_block`
+    with respect to ``(x, scale, bias, w1, b1, w2, b2)`` for the cotangent
+    ``dout``, following ``_bwd_body``'s rounding plan (products of operands
+    rounded to ``x.dtype``, accumulated in fp32)."""
+    dtype = x.dtype
+    rnd = lambda t: t.to(dtype).float()  # noqa: E731
+    xf = x.float()
+    xhat, inv = ln_stats(xf)
+    y = rnd(xhat * scale.float() + bias.float())
+    h = y @ rnd(w1).t() + b1.float()
+    gf, dfac = _gelu_and_grad(h)
+    g = rnd(gf)
+    do = dout.float()
+    dob = rnd(do)
+    dw2 = dob.t() @ g
+    db2 = do.sum(0)
+    dh = (dob @ rnd(w2)) * dfac
+    dhb = rnd(dh)
+    dw1 = dhb.t() @ y
+    db1 = dh.sum(0)
+    dy = dhb @ rnd(w1)
+    dx, dscale, dbias = layer_norm_bwd(dy, xhat, inv, scale, do)
+    return dx.to(dtype), dscale, dbias, dw1, db1, dw2, db2
 
 
 def _check(x, scale, bias, w1, b1, w2, b2):
@@ -74,37 +139,73 @@ def _check(x, scale, bias, w1, b1, w2, b2):
         raise ValueError(f"K1 needs D and F multiples of 64 and D <= 1024, got D={D}, F={F}")
     if not x.is_contiguous():
         raise ValueError("K1 needs contiguous activations")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, scale, bias, w1, b1, w2, b2)):
-        raise NotImplementedError(
-            "K1 has no backward kernel yet (ROADMAP.md, Queue 2: K1b); "
-            "call it under torch.inference_mode() or torch.no_grad()")
+
+
+def _kernel_operands(scale, bias, w1, b1, w2, b2):
+    bf = lambda t: t.to(torch.bfloat16).contiguous()  # noqa: E731
+    f32 = lambda t: t.float().contiguous()  # noqa: E731
+    return f32(scale), f32(bias), bf(w1), f32(b1), bf(w2), f32(b2)
+
+
+def _k1f(x, scale, bias, w1, b1, w2, b2):
+    s, bb, w1b, b1f, w2b, b2f = _kernel_operands(scale, bias, w1, b1, w2, b2)
+    hidden, _, _ = gemm.ln_gemm(x, s, bb, w1b, b1f, gemm.EPI_GELU)
+    out = gemm.gemm_residual(hidden, w2b, b2f, x)
+    LAUNCHES.add()
+    return out
+
+
+def _k1b(x, scale, bias, w1, b1, w2, b2, dout):
+    if dout.shape != x.shape:
+        raise ValueError(f"K1b cotangent must be {tuple(x.shape)}, got {tuple(dout.shape)}")
+    s, bb, w1b, b1f, w2b, _ = _kernel_operands(scale, bias, w1, b1, w2, b2)
+    dob = dout.to(torch.bfloat16).contiguous()
+    g, dfac, y = gemm.ln_gemm(x, s, bb, w1b, b1f, gemm.EPI_GELU_GRAD, with_y=True)
+    dw2, db2 = gemm.gemm_tn(dob, g, with_colsum=True)
+    del g
+    dhb, db1 = gemm.gemm_nn(dob, w2b, gemm.NN_DGELU, dfac=dfac)
+    del dfac
+    dw1, _ = gemm.gemm_tn(dhb, y)
+    dy = gemm.gemm_nn(dhb, w1b, gemm.NN_F32)
+    del dhb
+    dx, dscale, dbias = gemm.ln_bwd(x, dy, dob, s)
+    BWD_LAUNCHES.add()
+    return dx, dscale, dbias, dw1, db1, dw2, db2
+
+
+def mlp_block_bwd(x, scale, bias, w1, b1, w2, b2, dout):
+    """The gradients of :func:`fused_mlp_block` for the cotangent ``dout``:
+    K1b on CUDA tensors (or raise), :func:`mlp_block_bwd_reference` on CPU
+    tensors."""
+    if not uses_kernel(x, scale, bias, w1, b1, w2, b2, dout):
+        return mlp_block_bwd_reference(x, scale, bias, w1, b1, w2, b2, dout)
+    _check(x, scale, bias, w1, b1, w2, b2)
+    return _k1b(x, scale, bias, w1, b1, w2, b2, dout)
+
+
+class _MLPBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias, w1, b1, w2, b2):
+        ctx.save_for_backward(x, scale, bias, w1, b1, w2, b2)
+        if not uses_kernel(x, scale, bias, w1, b1, w2, b2):
+            return mlp_block_reference(x, scale, bias, w1, b1, w2, b2)
+        _check(x, scale, bias, w1, b1, w2, b2)
+        return _k1f(x, scale, bias, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, dout):
+        args = ctx.saved_tensors
+        grads = mlp_block_bwd(*args, dout)
+        # each gradient in its input's dtype (the weights may be bf16 copies)
+        return tuple(g.to(a.dtype) for g, a in zip(grads, args))
 
 
 def fused_mlp_block(x, scale, bias, w1, b1, w2, b2):
-    """``x + gelu(LN(x) w1^T + b1) w2^T + b2`` over (T, D) rows.
+    """``x + gelu(LN(x) w1^T + b1) w2^T + b2`` over (T, D) rows, with its
+    backward.
 
-    CPU tensors take :func:`mlp_block_reference`; CUDA tensors launch K1
-    (bf16 activations, fp32 LN params and biases, weights cast to bf16).
+    CPU tensors take :func:`mlp_block_reference` and
+    :func:`mlp_block_bwd_reference`; CUDA tensors launch K1f and K1b (bf16
+    activations, fp32 LN params and biases, weights cast to bf16) or raise.
     """
-    if not uses_kernel(x, scale, bias, w1, b1, w2, b2):
-        return mlp_block_reference(x, scale, bias, w1, b1, w2, b2)
-    _check(x, scale, bias, w1, b1, w2, b2)
-    T, D = x.shape
-    F = w1.shape[0]
-    lib = load_library()
-    w1b = w1.to(torch.bfloat16).contiguous()
-    w2b = w2.to(torch.bfloat16).contiguous()
-    s, bb = scale.float().contiguous(), bias.float().contiguous()
-    b1f, b2f = b1.float().contiguous(), b2.float().contiguous()
-    hidden = torch.empty((T, F), dtype=torch.bfloat16, device=x.device)
-    out = torch.empty_like(x)
-    stream = current_stream(x.device)
-    check_status(lib.ddm_ln_gemm(x.data_ptr(), s.data_ptr(), bb.data_ptr(), w1b.data_ptr(),
-                                 b1f.data_ptr(), hidden.data_ptr(), T, D, F, 1, stream),
-                 "K1 ln_gemm")
-    check_status(lib.ddm_gemm_residual(hidden.data_ptr(), w2b.data_ptr(), b2f.data_ptr(),
-                                       x.data_ptr(), out.data_ptr(), T, F, D, stream),
-                 "K1 gemm_residual")
-    LAUNCHES.add()
-    return out
+    return _MLPBlock.apply(x, scale, bias, w1, b1, w2, b2)

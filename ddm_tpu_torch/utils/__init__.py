@@ -1,1 +1,1 @@
-"""Checkpoints, the JAX-tree converter and the PNG grid writer."""
+"""Checkpoints, the JAX-tree converter, the config merge and the PNG grid writer."""

@@ -1,4 +1,4 @@
-"""JAX param tree -> the port's ``state_dict`` (the reference checkpoint layout).
+"""JAX param tree <-> the port's ``state_dict`` (the reference checkpoint layout).
 
 Reimplements the DiT mapping of ``ddm_tpu.utils.convert.
 reference_state_dict_from_dit`` without importing the JAX package:
@@ -25,7 +25,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_jax"]
+__all__ = ["state_dict_from_jax", "jax_tree_from_state_dict"]
 
 
 def _np(x) -> np.ndarray:
@@ -81,3 +81,54 @@ def state_dict_from_jax(
         sd.update(dense(b["ff_out"], f"{rb}.ff.net.2"))
         i += 1
     return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C")) for k, v in sd.items()}
+
+
+def jax_tree_from_state_dict(
+    tensors: Mapping[str, Any],
+    patch_size: int,
+    in_channels: int = 6,
+    out_channels: int = 3,
+) -> Dict[str, Any]:
+    """The inverse of :func:`state_dict_from_jax` for the fused-qkv tree: the
+    port's ``{name: array}`` (parameters or their gradients, as numpy or
+    tensors) -> ``{"params": ...}`` in ``ddm_tpu``'s layout, as numpy fp32.
+    Pure numpy, so ``jax.grad``'s tree and the port's ``.grad`` compare leaf
+    by leaf."""
+    sd = {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else _np(v))
+          for k, v in tensors.items()}
+    ps, ci, co = patch_size, in_channels, out_channels
+    w_patch = _np(sd["patch_embed.proj.weight"])
+    d = w_patch.shape[0]
+
+    def dense(key):
+        return {"kernel": _np(sd[f"{key}.weight"]).T.copy(), "bias": _np(sd[f"{key}.bias"])}
+
+    def ln(key):
+        return {"scale": _np(sd[f"{key}.weight"]), "bias": _np(sd[f"{key}.bias"])}
+
+    p: Dict[str, Any] = {
+        "patch_proj": {"kernel": w_patch.transpose(2, 3, 1, 0).reshape(ps * ps * ci, d).copy(),
+                       "bias": _np(sd["patch_embed.proj.bias"])},
+        "pos_embed": _np(sd["pos_embed"]),
+        "time_mlp_0": dense("time_mlp.0"),
+        "time_mlp_1": dense("time_mlp.2"),
+        "final_norm": ln("norm"),
+        "unembed": {
+            "kernel": _np(sd["unembed.proj.weight"]).reshape(co, ps, ps, d)
+            .transpose(3, 1, 2, 0).reshape(d, ps * ps * co).copy(),
+            "bias": _np(sd["unembed.proj.bias"]).reshape(co, ps, ps)
+            .transpose(1, 2, 0).reshape(-1).copy(),
+        },
+    }
+    i = 0
+    while f"blocks.{i}.norm1.weight" in sd:
+        rb = f"blocks.{i}"
+        p[f"block_{i}"] = {
+            "attn": {"qkv": dense(f"{rb}.attn.qkv"), "proj": dense(f"{rb}.attn.proj")},
+            "norm1": ln(f"{rb}.norm1"),
+            "norm2": ln(f"{rb}.norm2"),
+            "ff_in": dense(f"{rb}.ff.net.0"),
+            "ff_out": dense(f"{rb}.ff.net.2"),
+        }
+        i += 1
+    return {"params": p}

@@ -4,7 +4,8 @@ The port's counterpart of ``generate.py``: load a ``.pt`` checkpoint (the
 reference ``{"model", "config"}`` payload), rebuild the model from the
 config embedded in it, run the reverse sampler (paper Algorithm 2) and
 write a PNG grid and/or an NPZ of raw samples. On a CUDA device the DiT
-blocks run the hand-written kernels K1 and K2.
+blocks run the hand-written kernels K1f and K2f. ``train_cifar10_dit_torch.py``
+writes checkpoints in the payload this script reads.
 
 Usage:
     python generate_torch.py --ckpt model_final.pt --n 64 --out samples.png
@@ -25,7 +26,7 @@ import numpy as np
 import torch
 
 from ddm_tpu_torch.models.factory import MODEL_DEFAULTS, SAMPLER_DEFAULTS, build_model
-from ddm_tpu_torch.ops.kernel_config import load_library
+from ddm_tpu_torch.ops.kernel_config import cli_device, load_library
 from ddm_tpu_torch.sampling import sample_dddm_batched
 from ddm_tpu_torch.utils import checkpoint as ckpt_lib
 from ddm_tpu_torch.utils.plotting import save_image_grid
@@ -41,14 +42,6 @@ def _resolve_ckpt(path: str) -> str:
             raise FileNotFoundError(f"no .pt checkpoints under {path}")
         return latest
     return path
-
-
-def _device(name: str) -> torch.device:
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(f"--device {name}: no CUDA device is available "
-                         "(pass --device cpu to run the plain versions on the CPU)")
-    return device
 
 
 def main(argv: Optional[list] = None) -> dict:
@@ -71,20 +64,20 @@ def main(argv: Optional[list] = None) -> dict:
                    help="also save raw samples ([-1,1] NHWC float32) as NPZ")
     p.add_argument("--device", type=str, default="cuda")
     p.add_argument("--fast-gelu", action="store_true",
-                   help="not ported yet (ROADMAP.md, Queue 1)")
+                   help="not ported yet (ROADMAP.md Queue 1 item 5)")
     p.add_argument("--dp", type=int, default=1,
-                   help="data-parallel sampling: not ported yet (ROADMAP.md, Queue 1)")
+                   help="data-parallel sampling: not ported yet (ROADMAP.md Queue 1 item 6)")
     p.add_argument("--ema", action="store_true",
-                   help="sample from EMA params: not ported yet (ROADMAP.md, Queue 1)")
+                   help="sample from EMA params: not ported yet (ROADMAP.md Queue 1 item 2)")
     args = p.parse_args(argv)
-    for flag, on in (("--fast-gelu", args.fast_gelu), ("--dp > 1", args.dp > 1),
-                     ("--ema", args.ema)):
+    for flag, on, item in (("--fast-gelu", args.fast_gelu, 5), ("--dp > 1", args.dp > 1, 6),
+                           ("--ema", args.ema, 2)):
         if on:
             raise NotImplementedError(
-                f"{flag} is not ported to the PyTorch port yet: see ROADMAP.md, Queue 1")
+                f"{flag} is not ported to the PyTorch port yet: ROADMAP.md Queue 1 item {item}")
     if args.n < 1:
         raise SystemExit("--n must be positive")
-    device = _device(args.device)
+    device = cli_device(args.device)
 
     state_dict, config = ckpt_lib.load_params(_resolve_ckpt(args.ckpt))
     if args.config:

@@ -74,8 +74,13 @@ def test_generate_on_cuda_without_a_gpu_exits(ckpt, monkeypatch):
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, ddm_tpu_torch, generate_torch, chip_smoke\n"
-            "import ddm_tpu_torch.ops.kernel_config, ddm_tpu_torch.utils.plotting\n"
+    code = ("import importlib, pkgutil, sys\n"
+            "import ddm_tpu_torch, generate_torch, chip_smoke, train_cifar10_dit_torch\n"
+            "mods = [m.name for m in pkgutil.walk_packages(ddm_tpu_torch.__path__, "
+            "'ddm_tpu_torch.')]\n"
+            "assert {'ddm_tpu_torch.training', 'ddm_tpu_torch.ops.energy', "
+            "'ddm_tpu_torch.data.augment', 'ddm_tpu_torch.utils.config'} <= set(mods)\n"
+            "for m in mods: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'ddm_tpu'))\n"
             "assert not bad, bad\n")
@@ -87,8 +92,9 @@ def test_port_imports_no_jax():
 def test_port_sources_have_no_jax_import():
     pattern = re.compile(r"^\s*(import|from) (jax|flax|optax|ddm_tpu)\b", re.M)
     files = [*sorted((ROOT / "ddm_tpu_torch").rglob("*.py")),
-             ROOT / "generate_torch.py", ROOT / "chip_smoke.py"]
-    assert len(files) > 10
+             ROOT / "generate_torch.py", ROOT / "chip_smoke.py",
+             ROOT / "train_cifar10_dit_torch.py"]
+    assert len(files) > 20
     for f in files:
         assert not pattern.search(f.read_text()), f
 

@@ -17,6 +17,7 @@ import ddm_tpu.ops.attention as JA  # noqa: E402
 import ddm_tpu.ops.mlp_block as JM  # noqa: E402
 import ddm_tpu.ops.schedules as JS  # noqa: E402
 from ddm_tpu_torch.ops import attention as TA  # noqa: E402
+from ddm_tpu_torch.ops import gemm  # noqa: E402
 from ddm_tpu_torch.ops import kernel_config  # noqa: E402
 from ddm_tpu_torch.ops import mlp_block as TM  # noqa: E402
 from ddm_tpu_torch.ops import schedules as TS  # noqa: E402
@@ -145,6 +146,17 @@ def test_attention_token_gate():
     assert TA.supported_tokens(128, 64)
     assert not TA.supported_tokens(256, 64)  # N > 128: the flash tier (K8)
     assert not TA.supported_tokens(24, 64)   # not a multiple of 16
+    # K2b also holds dO and the fp32 dP tile: 128 x 64 no longer fits 227 KB
+    assert TA.supported_tokens_bwd(64, 64) and TA.supported_tokens_bwd(112, 64)
+    assert not TA.supported_tokens_bwd(128, 64) and TA.supported_tokens_bwd(128, 32)
+
+
+@pytest.mark.parametrize("T,Ma,Nb", [(131072, 1536, 384), (131072, 384, 384), (1000, 128, 512),
+                                     (64, 384, 1152)])
+def test_split_k_plan_covers_every_row_once(T, Ma, Nb):
+    splits, rows = gemm.tn_splits(T, Ma, Nb, sms=132)
+    assert rows % 64 == 0 and splits * rows >= T > (splits - 1) * rows
+    assert gemm.tn_splits(T, Ma, Nb, sms=132) == (splits, rows)  # a fixed sum order
 
 
 @pytest.mark.parametrize("eps_churn", [0.0, 0.5, 1.0])

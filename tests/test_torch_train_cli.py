@@ -1,0 +1,99 @@
+"""``train_cifar10_dit_torch.py`` end to end on the CPU: artifacts, the
+checkpoint that ``generate_torch.py`` samples from, the flags left for later,
+and the CLI defaults against the JAX trainer's."""
+
+import json
+from unittest import mock
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import generate_torch  # noqa: E402
+import train_cifar10_dit as jax_cli  # noqa: E402
+import train_cifar10_dit_torch as cli  # noqa: E402
+from ddm_tpu_torch.models.factory import MODEL_DEFAULTS, SAMPLER_DEFAULTS  # noqa: E402
+from ddm_tpu_torch.ops.kernel_config import launch_counts  # noqa: E402
+
+TINY = ["--synthetic", "--epochs", "1", "--batch", "64", "--m", "2", "--embed-dim", "64",
+        "--depth", "2", "--heads", "2", "--time-embed", "16", "--sample-batch", "4",
+        "--sample-steps", "2", "--log-every", "8", "--device", "cpu"]
+
+
+def test_train_cli_end_to_end_on_cpu(tmp_path):
+    result = cli.main([*TINY, "--out", str(tmp_path)])
+    for artifact in ("model_epoch001.pt", "model_final.pt", "config.json", "samples.png",
+                     "train_metrics.json", "epoch_metrics.json"):
+        assert (tmp_path / artifact).stat().st_size > 0, artifact
+    history = json.loads((tmp_path / "train_metrics.json").read_text())
+    assert history["step"] == list(range(1, 33))  # 2048 synthetic images / 64
+    assert set(history) == {"step", "loss", "confidence", "interaction", "weight"}
+    assert np.isfinite(history["loss"]).all()
+    epochs = json.loads((tmp_path / "epoch_metrics.json").read_text())
+    assert epochs["epoch"] == [1] and epochs["images_per_sec"][0] > 0
+    assert json.loads((tmp_path / "config.json").read_text())["embed_dim"] == 64
+    assert result["metrics"]["loss"] == history["loss"][-1]
+    assert len(result["step_seconds"]) == 32 and result["seconds_per_step"] > 0
+    # CPU tensors: the plain versions, no kernel launched in either phase
+    assert not any(result["launches"]["train"].values())
+    assert not any(result["launches"]["sample"].values())
+    assert set(result["launches"]["train"]) == set(launch_counts())
+
+    npz = tmp_path / "s.npz"
+    out = generate_torch.main(["--ckpt", str(tmp_path / "model_final.pt"), "--n", "3",
+                               "--steps", "2", "--device", "cpu", "--out", "",
+                               "--npz", str(npz)])
+    samples = np.load(npz)["samples"]
+    assert samples.shape == (3, 32, 32, 3) and np.isfinite(samples).all()
+    assert samples.min() >= -1 and samples.max() <= 1
+    np.testing.assert_array_equal(samples, out["samples"])
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--tp", "2"], "item 11"), (["--sp"], "item 11"), (["--pp", "2"], "item 11"),
+    (["--fsdp"], "item 11"), (["--moe-experts", "4"], "item 10"), (["--remat"], "item 8"),
+    (["--mlp-persist", "2"], "item 8"), (["--fast-gelu"], "item 5"),
+    (["--attention", "flash"], "item 9"), (["--grad-accum", "2"], "item 2"),
+    (["--ema-decay", "0.999"], "item 2"), (["--lr-schedule", "cosine"], "item 2"),
+    (["--warmup-steps", "10"], "item 2"), (["--eval-every", "1"], "item 3"),
+    (["--dry-eval"], "item 3"), (["--wandb"], "item 7"), (["--resume"], "item 2"),
+    (["--profile-dir", "prof"], "item 7"), ([], "item 7"),
+])
+def test_train_cli_refuses_flags_left_for_later(tmp_path, flags, item):
+    argv = ["--device", "cpu", "--out", str(tmp_path), *flags]
+    if flags:
+        argv.append("--synthetic")
+    with mock.patch.object(cli, "train") as train:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
+            cli.main(argv)
+    train.assert_not_called()
+
+
+def test_train_cli_defaults_match_the_jax_trainer():
+    ours = vars(cli.build_parser().parse_args([]))
+    theirs = vars(jax_cli.build_parser().parse_args([]))
+    assert set(theirs) <= set(ours)  # every JAX flag exists in the port
+    for key, value in theirs.items():
+        if key != "device":  # tpu there, cuda here
+            assert ours[key] == value, key
+    assert ours["device"] == "cuda"
+    for key, value in {**MODEL_DEFAULTS, **SAMPLER_DEFAULTS}.items():
+        assert ours[key] == value, key
+
+
+def test_train_cli_validates_and_merges_config(tmp_path):
+    with pytest.raises(SystemExit):
+        cli.main(["--synthetic", "--m", "1", "--device", "cpu"])
+    cfg = tmp_path / "run.yaml"
+    cfg.write_text("epochs: 3\nbatch: 32\nlr: 0.001\n")
+    with mock.patch.object(cli, "train") as train:
+        cli.main(["--config", str(cfg), "--synthetic", "--batch", "16", "--device", "cpu"])
+    args = train.call_args[0][0]
+    assert (args.epochs, args.batch, args.lr) == (3, 16, 0.001)
+
+
+def test_train_cli_on_cuda_without_a_gpu_exits(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        cli.main(["--synthetic", "--device", "cuda", "--out", str(tmp_path)])

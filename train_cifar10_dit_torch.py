@@ -1,0 +1,314 @@
+"""Train a DiT-backed Distributional Diffusion Model on CIFAR-10 with the
+PyTorch port (one GPU).
+
+The port's counterpart of ``train_cifar10_dit.py``: the same flags and
+defaults, YAML ``--config`` fill-only-defaults merge, AdamW with optax's
+global-norm clip, the shared distributional training step, per-step and
+per-epoch histories, epoch checkpoints and ``model_final.pt`` in the
+reference ``{"model", "config"}`` payload (``generate_torch.py --ckpt``
+samples from it), ``config.json`` and a ``samples.png`` grid.
+
+Each step: the uint8 batch goes to the device, is augmented there
+(reflect-pad crop + flip), noised to x_t, expanded m-fold through the DiT
+(kernels K2f/K1f on CUDA), scored by the energy score (K3f), differentiated
+(K3b, K1b, K2b), clipped and stepped with AdamW. On ``--device cpu`` the
+same step runs the plain PyTorch versions.
+
+Not written: the ``*_dynamics.png`` plots (they need matplotlib, which the
+GPU machine does not have); the histories are in ``train_metrics.json`` and
+``epoch_metrics.json``. The port reads ``--synthetic`` data only, and every
+flag of a path not ported yet raises ``NotImplementedError`` naming its
+ROADMAP.md item when set away from its default.
+
+Usage:
+    python train_cifar10_dit_torch.py --synthetic --epochs 1 --out run/
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+from collections import defaultdict
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ddm_tpu_torch.data.augment import augment_cifar10, normalize_images
+from ddm_tpu_torch.data.cifar10 import CIFAR10DataConfig, build_cifar10_dataloaders
+from ddm_tpu_torch.models.dit import init_params, patchify_images
+from ddm_tpu_torch.models.factory import MODEL_DEFAULTS, SAMPLER_DEFAULTS, build_model
+from ddm_tpu_torch.ops.kernel_config import cli_device, launch_counts, load_library
+from ddm_tpu_torch.sampling import sample_dddm_batched
+from ddm_tpu_torch.training import make_optimizer, make_train_step, split_generator
+from ddm_tpu_torch.utils.checkpoint import save_checkpoint
+from ddm_tpu_torch.utils.config import apply_config
+from ddm_tpu_torch.utils.plotting import save_image_grid
+
+_PARALLEL = "Queue 1 item 11 (parallelism)"
+_OPTIONS = "Queue 1 item 2 (lr schedules, grad-accum, EMA, resume)"
+_EVAL = "Queue 1 item 3 (eval)"
+_UTILS = "Queue 1 item 7 (data, utils)"
+_MOE = "Queue 1 item 10 (MoE)"
+# flags of paths the port does not run yet: set away from its default, each
+# raises NotImplementedError naming its ROADMAP.md item
+NOT_PORTED = {
+    "tp": _PARALLEL, "sp": _PARALLEL, "pp": _PARALLEL, "pp_microbatches": _PARALLEL,
+    "fsdp": _PARALLEL, "multihost": _PARALLEL,
+    "lr_schedule": _OPTIONS, "warmup_steps": _OPTIONS, "lr_min": _OPTIONS,
+    "grad_accum": _OPTIONS, "ema_decay": _OPTIONS, "resume": _OPTIONS,
+    "eval_every": _EVAL, "dry_eval": _EVAL, "eval_batch": _EVAL, "eval_samples": _EVAL,
+    "fid_samples": _EVAL, "mmd_samples": _EVAL, "mmd_sigma": _EVAL, "fid_bf16": _EVAL,
+    "wandb": _UTILS, "wandb_project": _UTILS, "wandb_name": _UTILS,
+    "profile_dir": _UTILS, "debug_nans": _UTILS,
+    "moe_experts": _MOE, "moe_capacity": _MOE, "moe_group_size": _MOE, "moe_topk": _MOE,
+    "moe_aux_weight": _MOE,
+    "remat": "Queue 1 item 8 (wider DiT configs)",
+    "mlp_persist": "Queue 1 item 8 (wider DiT configs)",
+    "attention": "Queue 1 item 9 (long sequences)",
+    "fast_gelu": "Queue 1 item 5 (fast GELU)",
+}
+METRIC_KEYS = ("loss", "confidence", "interaction", "weight")
+
+
+def _serialize_history(history: Dict[str, list]) -> dict:
+    return {k: [int(v) if k in {"step", "epoch"} else float(v) for v in values]
+            for k, values in history.items()}
+
+
+def _diff(after: dict, before: dict) -> dict:
+    return {k: after[k] - before.get(k, 0) for k in after}
+
+
+def train(args: argparse.Namespace) -> dict:
+    """Run the training loop; returns ``{"step_seconds", "seconds_per_step",
+    "images_per_sec", "metrics", "launches"}``."""
+    device = cli_device(args.device)
+    os.makedirs(args.out, exist_ok=True)
+    root = torch.Generator().manual_seed(args.seed)
+
+    train_loader, _ = build_cifar10_dataloaders(CIFAR10DataConfig(
+        batch_size=args.batch, image_size=args.image_size, synthetic=args.synthetic,
+        seed=args.seed))
+    model = build_model(vars(args), device)
+    init_params(model, split_generator(root, 1)[0])
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"DDDMDiT: {n_params / 1e6:.2f}M params, 1 device ({device})", flush=True)
+    if device.type == "cuda":
+        load_library()  # build the kernels before the first step
+
+    optimizer = make_optimizer(model.parameters(), args.lr, args.weight_decay)
+    augment = not args.no_augment
+
+    def preprocess(batch: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+        return augment_cifar10(batch, generator) if augment else normalize_images(batch)
+
+    step_fn = make_train_step(
+        model, model.tokens, optimizer, m=args.m, beta=args.beta, lam=args.lam,
+        w_bias=args.w_bias, grad_clip=args.grad_clip, preprocess=preprocess,
+        target_transform=lambda x0: patchify_images(x0, args.patch_size))
+
+    train_history: Dict[str, list] = {"step": []}
+    epoch_history: Dict[str, list] = {"epoch": []}
+    step_seconds: list = []
+    global_step = 0
+    img_per_sec = 0.0
+    counts0 = launch_counts()
+    for epoch in range(1, args.epochs + 1):
+        epoch_t0 = time.perf_counter()
+        sums: Dict[str, float] = defaultdict(float)
+        pending: list = []
+        window_t0 = epoch_t0
+        num_batches = 0
+
+        def flush() -> None:
+            # one device sync per log window
+            nonlocal pending, window_t0, num_batches
+            if not pending:
+                return
+            values = torch.stack([torch.stack([m[k] for k in METRIC_KEYS])
+                                  for m in pending]).float().cpu().numpy()
+            now = time.perf_counter()
+            step_seconds.extend([(now - window_t0) / len(pending)] * len(pending))
+            window_t0 = now
+            base = global_step - len(pending)
+            for i, row in enumerate(values):
+                train_history["step"].append(base + i + 1)
+                for k, v in zip(METRIC_KEYS, row):
+                    train_history.setdefault(k, []).append(float(v))
+                    sums[k] += float(v)
+            num_batches += len(pending)
+            pending = []
+
+        train_loader.set_epoch(epoch)
+        for batch_idx, (images, _) in enumerate(train_loader):
+            batch = torch.from_numpy(images).to(device, non_blocking=True)
+            pending.append(step_fn(batch, split_generator(root, 1)[0]))
+            global_step += 1
+            if (batch_idx + 1) % max(args.log_every, 1) == 0:
+                flush()
+        flush()
+
+        num_batches = max(num_batches, 1)
+        avg = {k: sums[k] / num_batches for k in sums}
+        img_per_sec = num_batches * args.batch / (time.perf_counter() - epoch_t0)
+        summary = " ".join(f"{k}={avg[k]:.4f}" for k in sorted(avg))
+        print(f"[epoch {epoch:03d}] {summary} ({img_per_sec:.0f} img/s, "
+              f"{img_per_sec:.0f} img/s/chip)", flush=True)
+        epoch_history["epoch"].append(epoch)
+        for k, v in avg.items():
+            epoch_history.setdefault(k, []).append(v)
+        epoch_history.setdefault("images_per_sec", []).append(img_per_sec)
+        if epoch % args.ckpt_every == 0 or epoch == args.epochs:
+            save_checkpoint(os.path.join(args.out, f"model_epoch{epoch:03d}.pt"),
+                            model.state_dict(), vars(args) | {"epoch": epoch})
+    counts1 = launch_counts()
+
+    save_checkpoint(os.path.join(args.out, "model_final.pt"), model.state_dict(),
+                    vars(args) | {"epoch": args.epochs})
+    with open(os.path.join(args.out, "config.json"), "w", encoding="utf-8") as f:
+        json.dump(vars(args), f, indent=2)
+
+    if args.sample_batch > 0:
+        size = args.image_size
+        samples = sample_dddm_batched(
+            model, args.sample_batch, steps=args.sample_steps, eps_churn=args.eps_churn,
+            data_shape=(size, size, 3), generator=split_generator(root, 1, device)[0],
+            device=device, chunk_size=args.sample_batch)
+        samples = np.clip(samples, -1.0, 1.0)
+        grid_rows = int(args.sample_batch ** 0.5)
+        if grid_rows * grid_rows < args.sample_batch:
+            grid_rows += 1
+        save_image_grid((samples + 1.0) / 2.0, os.path.join(args.out, "samples.png"),
+                        nrow=grid_rows)
+        print(f"Saved samples and checkpoints to {args.out}", flush=True)
+
+    for name, hist in (("train", train_history), ("epoch", epoch_history)):
+        with open(os.path.join(args.out, f"{name}_metrics.json"), "w", encoding="utf-8") as f:
+            json.dump(_serialize_history(hist), f, indent=2)
+
+    warm = step_seconds[1:] or step_seconds
+    return {
+        "step_seconds": step_seconds,
+        "seconds_per_step": float(np.median(warm)) if warm else float("nan"),
+        "images_per_sec": img_per_sec,
+        "metrics": {k: train_history[k][-1] for k in METRIC_KEYS if train_history.get(k)},
+        "launches": {"train": _diff(counts1, counts0), "sample": _diff(launch_counts(), counts1)},
+    }
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The JAX trainer's flags with its defaults (``--device`` defaults to
+    ``cuda``); see :data:`NOT_PORTED` for the flags of paths not ported."""
+    p = argparse.ArgumentParser(
+        description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    later = "not ported yet: ROADMAP.md "
+    p.add_argument("--config", type=str, default=None,
+                   help="Optional YAML config (needs pyyaml)")
+    p.add_argument("--data-dir", type=str, default="./data",
+                   help="real CIFAR-10 is " + later + _UTILS + "; pass --synthetic")
+    p.add_argument("--out", type=str, default="./cifar10_dit_out")
+    p.add_argument("--epochs", type=int, default=10)
+    p.add_argument("--batch", type=int, default=128)
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--lr-schedule", type=str, dest="lr_schedule", default="constant",
+                   choices=["constant", "cosine", "linear"],
+                   help="only constant; " + later + _OPTIONS)
+    p.add_argument("--warmup-steps", type=int, dest="warmup_steps", default=0,
+                   help=later + _OPTIONS)
+    p.add_argument("--lr-min", type=float, dest="lr_min", default=0.0, help=later + _OPTIONS)
+    p.add_argument("--grad-accum", type=int, dest="grad_accum", default=1, help=later + _OPTIONS)
+    p.add_argument("--ema-decay", type=float, dest="ema_decay", default=0.0, help=later + _OPTIONS)
+    p.add_argument("--weight-decay", type=float, default=0.01)
+    p.add_argument("--beta", type=float, default=0.1)
+    p.add_argument("--lam", type=float, default=1.0)
+    p.add_argument("--m", type=int, default=8)
+    p.add_argument("--w-bias", type=float, default=0.0, dest="w_bias")
+    p.add_argument("--grad-clip", type=float, default=1.0,
+                   help="global-norm clip with optax's rule (0 disables)")
+    p.add_argument("--ckpt-every", type=int, default=1)
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (the kernels) or cpu (the plain versions)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--image-size", type=int, default=MODEL_DEFAULTS["image_size"])
+    p.add_argument("--patch-size", type=int, default=MODEL_DEFAULTS["patch_size"])
+    p.add_argument("--embed-dim", type=int, default=MODEL_DEFAULTS["embed_dim"])
+    p.add_argument("--depth", type=int, default=MODEL_DEFAULTS["depth"])
+    p.add_argument("--heads", type=int, default=MODEL_DEFAULTS["heads"])
+    p.add_argument("--time-embed", type=int, default=MODEL_DEFAULTS["time_embed"])
+    p.add_argument("--mlp-ratio", type=float, default=MODEL_DEFAULTS["mlp_ratio"])
+    p.add_argument("--workers", type=int, default=4,
+                   help="accepted for parity; the dataset is memory-resident")
+    p.add_argument("--sample-batch", type=int, default=64)
+    p.add_argument("--sample-steps", type=int, default=SAMPLER_DEFAULTS["sample_steps"])
+    p.add_argument("--eps-churn", type=float, default=SAMPLER_DEFAULTS["eps_churn"])
+    p.add_argument("--no-augment", action="store_true", help="Disable data augmentation")
+    for flag, kind, default in (("--eval-every", int, 0), ("--eval-batch", int, 256),
+                                ("--eval-samples", int, 1024), ("--fid-samples", int, 10000),
+                                ("--mmd-samples", int, 2048), ("--mmd-sigma", float, 1.0)):
+        p.add_argument(flag, type=kind, default=default, help=later + _EVAL)
+    p.add_argument("--wandb", action="store_true", help=later + _UTILS)
+    p.add_argument("--wandb-project", type=str, default="dddm", help=later + _UTILS)
+    p.add_argument("--wandb-name", type=str, default=None, help=later + _UTILS)
+    p.add_argument("--dtype", type=str, default=MODEL_DEFAULTS["dtype"],
+                   choices=["float32", "bfloat16"],
+                   help="compute dtype (the CUDA kernels take bfloat16)")
+    p.add_argument("--tp", type=int, default=MODEL_DEFAULTS["tp"], help=later + _PARALLEL)
+    p.add_argument("--sp", action="store_true", help=later + _PARALLEL)
+    p.add_argument("--attention", type=str, default=MODEL_DEFAULTS["attention"],
+                   choices=["auto", "xla", "flash"],
+                   help="only auto; " + later + NOT_PORTED["attention"])
+    p.add_argument("--synthetic", action="store_true",
+                   help="use synthetic CIFAR-shaped data (the only data the port reads)")
+    p.add_argument("--resume", action="store_true", help=later + _OPTIONS)
+    p.add_argument("--dry-eval", action="store_true", dest="dry_eval", help=later + _EVAL)
+    p.add_argument("--profile-dir", type=str, default=None, help=later + _UTILS)
+    p.add_argument("--log-every", type=int, default=50,
+                   help="metric flush cadence in batches (each flush syncs the device)")
+    p.add_argument("--debug-nans", action="store_true", help=later + _UTILS)
+    p.add_argument("--remat", action="store_true", help=later + NOT_PORTED["remat"])
+    p.add_argument("--moe-experts", type=int, dest="moe_experts",
+                   default=MODEL_DEFAULTS["moe_experts"], help=later + _MOE)
+    p.add_argument("--moe-capacity", type=float, dest="moe_capacity",
+                   default=MODEL_DEFAULTS["moe_capacity"], help=later + _MOE)
+    p.add_argument("--moe-group-size", type=int, dest="moe_group_size",
+                   default=MODEL_DEFAULTS["moe_group_size"], help=later + _MOE)
+    p.add_argument("--fid-bf16", action="store_true", dest="fid_bf16", help=later + _EVAL)
+    p.add_argument("--moe-topk", type=int, dest="moe_topk", default=MODEL_DEFAULTS["moe_topk"],
+                   help=later + _MOE)
+    p.add_argument("--moe-aux-weight", type=float, dest="moe_aux_weight", default=0.01,
+                   help=later + _MOE)
+    p.add_argument("--mlp-persist", type=int, default=MODEL_DEFAULTS["mlp_persist"],
+                   help=later + NOT_PORTED["mlp_persist"])
+    p.add_argument("--fsdp", action="store_true", help=later + _PARALLEL)
+    p.add_argument("--pp", type=int, default=1, help=later + _PARALLEL)
+    p.add_argument("--pp-microbatches", type=int, default=4, dest="pp_microbatches",
+                   help=later + _PARALLEL)
+    p.add_argument("--multihost", action="store_true", help=later + _PARALLEL)
+    p.add_argument("--fast-gelu", action="store_true", help=later + NOT_PORTED["fast_gelu"])
+    return p
+
+
+def main(argv: Optional[list] = None) -> dict:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    apply_config(parser, args)
+    for dest, item in NOT_PORTED.items():
+        if getattr(args, dest) != parser.get_default(dest):
+            raise NotImplementedError(
+                f"--{dest.replace('_', '-')} is not ported to the PyTorch port yet: "
+                f"ROADMAP.md {item}")
+    if not args.synthetic:
+        raise NotImplementedError(
+            f"the PyTorch port reads synthetic data only (pass --synthetic): ROADMAP.md {_UTILS}")
+    if args.m < 2:
+        parser.error("m must be >= 2 for the generalized energy score")
+    if args.batch < 1 or args.epochs < 1 or args.ckpt_every < 1:
+        parser.error("--batch, --epochs and --ckpt-every must be positive")
+    return train(args)
+
+
+if __name__ == "__main__":
+    main()
