@@ -1,5 +1,6 @@
 """Drive the PyTorch port's DiT-S/4 sampling and training paths once on one
-NVIDIA GPU.
+NVIDIA GPU, at 32 px (N = 64 tokens) and at 128 px (N = 1024 tokens, the
+long-sequence path through the flash-attention kernel K8).
 
 Run from the repository root with no arguments:
 
@@ -18,6 +19,12 @@ is non-zero and no result line is printed:
    (2048, 64, 384, H=6), the training shapes, against their plain backward
    versions, and a second call that must be bit-identical;
    3c. energy: K3f and K3b at (B=256, m=8, D=3072) fp32, beta 0.1 and 2.0;
+   3d. flash: K8f and K8b at H = 6, Dh = 64 and (B, N) = (128, 1024) (the
+   128-px training shape), (64, 1024) (sampling), (2, 4096) and (1, 16384)
+   (image sizes 256 and 512), q, k and v read in place from a [q | k | v]
+   buffer, against their plain versions (computed head by head) on the
+   same inputs: o, dq, dk, dv by the bf16 rule below, lse to 1e-5
+   relative; K8b's second call bit-identical;
 4. model: a full-width DiT-S/4 with seeded weights, one forward through the
    kernels against one through the plain versions;
 5. slice: that model saved as a checkpoint and sampled with
@@ -28,10 +35,21 @@ is non-zero and no result line is printed:
    m = 8, injected t, eps, xi) through the kernels, twice (bit-identical
    gradients), against one through the plain versions, within twice bf16's
    own noise on this step (plain bf16 against plain fp32);
+   6b. the same at 128 px: batch 16 x m 8 at full width and depth, whose
+   plain step holds one head's (128, 1024, 1024) fp32 scores (0.5 GB) at a
+   time;
 7. training slice: ``train_cifar10_dit_torch.main`` for one epoch of the
    2048 synthetic images (8 steps), checking finite losses, the launch
    counts (8 blocks x 8 steps for K1f/K2f/K1b/K2b, 8 for K3f/K3b) and that
-   ``generate_torch.main`` samples from its ``model_final.pt``.
+   ``generate_torch.main`` samples from its ``model_final.pt``;
+   7b. the long-sequence slice: ``--image-size 128 --batch 16 --m 8`` for
+   one epoch (128 steps), checking finite losses and the launch counts
+   (8 blocks x 128 steps for K8f/K8b/K1f/K1b, none of K2 or K3: the energy
+   score takes its plain version at D = 49,152, as the JAX gate does), then
+   64 samples of (128, 128, 3) from its ``model_final.pt`` (K8f = 8 x 20).
+
+Every phase runs at full DiT-S/4 width and depth 8; the whole run takes a
+few minutes of the 20 allowed, the kernels' build included.
 
 The second-to-last line is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -59,11 +77,24 @@ KERNEL_MEAN_TOL = 1e-3
 # rows where a flipped bf16 rounding upstream moves single entries
 GRAD_MAX_REL, GRAD_FROB_REL = 1e-2, 1e-3
 ENERGY_RTOL, ENERGY_GRAD_RTOL = 1e-5, 1e-4
+LSE_RTOL = 1e-5
+FLASH_HEADS = 6
+FLASH_SHAPES = [(128, 1024), (64, 1024), (2, 4096), (1, 16384)]  # (B, N); the first is timed
+LONG_SIZE, LONG_BATCH, LONG_M = 128, 16, 8
+LONG_STEPS = 2048 // LONG_BATCH
 
 
 def _ulp2(ref: torch.Tensor) -> float:
     top = float(ref.float().abs().max())
     return 2.0 * 2.0 ** (np.floor(np.log2(max(top, 1e-30))) - 7)
+
+
+def _bf16_errors(got: torch.Tensor, want: torch.Tensor):
+    """``(max_err, mean_err, tol, ok)`` of a bf16 output by the kernel rule."""
+    err = (got.float() - want.float()).abs()
+    max_err, mean_err, tol = float(err.max()), float(err.mean()), _ulp2(want)
+    return max_err, mean_err, tol, np.isfinite(max_err) and max_err <= tol and \
+        mean_err <= KERNEL_MEAN_TOL
 
 
 def _median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -287,6 +318,62 @@ def phase_energy(E, smi):
             for name, line in (("K3f", 88), ("K3b", 112))]
 
 
+def phase_flash(FL, smi):
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    H, D = FLASH_HEADS, FLASH_HEADS * FL.HEAD_DIM
+    worst = {"K8f": 0.0, "K8b": 0.0}
+    shapes = []
+    for B, N in FLASH_SHAPES:
+        qkv = torch.randn(B, N, 3 * D, generator=gen, device="cuda").to(torch.bfloat16)
+        q, k, v = qkv.split(D, dim=-1)  # read in place, row stride 3D
+        do = torch.randn(B, N, D, generator=gen, device="cuda").to(torch.bfloat16)
+        with torch.no_grad():
+            o, lse = FL.flash_attention_fwd(q, k, v, H)
+            grads = FL.flash_attention_bwd(q, k, v, o, lse, do, H)
+            again = FL.flash_attention_bwd(q, k, v, o, lse, do, H)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, h) for g, h in zip(grads, again)):
+                raise AssertionError(f"K8b is not deterministic at (B={B}, N={N})")
+            want_o, want_lse = FL.flash_attention_reference(q, k, v, H)
+            want = FL.flash_attention_bwd_reference(q, k, v, o, lse, do, H)
+            torch.cuda.synchronize()
+        lse_rel = float(((lse - want_lse).abs() / want_lse.abs()).max())
+        parts, ok = [], lse_rel <= LSE_RTOL
+        for label, g, w in zip(("o", "dq", "dk", "dv"), (o, *grads), (want_o, *want)):
+            max_err, mean_err, tol, good = _bf16_errors(g, w)
+            ok = ok and good
+            key = "K8f" if label == "o" else "K8b"
+            worst[key] = max(worst[key], max_err)
+            parts.append(f"{label} max {max_err:.4g} (tol {tol:.4g}) mean {mean_err:.3g}")
+        del grads, again, want, want_o, want_lse
+        times = {"fwd": _median_ms(lambda: FL.flash_attention_fwd(q, k, v, H)),
+                 "plain_fwd": _median_ms(lambda: FL.flash_attention_reference(q, k, v, H)),
+                 "bwd": _median_ms(lambda: FL.flash_attention_bwd(q, k, v, o, lse, do, H)),
+                 "plain_bwd": _median_ms(
+                     lambda: FL.flash_attention_bwd_reference(q, k, v, o, lse, do, H))}
+        print(f"[kernel] K8 (B={B}, N={N}, H={H}, Dh={FL.HEAD_DIM}) bf16: " + "; ".join(parts)
+              + f"; lse max rel err {lse_rel:.3g} (tol {LSE_RTOL:g}); K8b second call "
+              f"bit-identical; K8f {times['fwd']:.4f} ms, plain {times['plain_fwd']:.4f} ms; "
+              f"K8b {times['bwd']:.4f} ms, plain {times['plain_bwd']:.4f} ms (median of 20) "
+              f"on {smi}")
+        if not ok:
+            raise AssertionError(f"K8 disagrees with its plain version at (B={B}, N={N})")
+        shapes.append({"B": B, "N": N, **times})
+        del qkv, q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    srcs = ["ddm_tpu_torch/csrc/flash.cu", "ddm_tpu_torch/csrc/common.cuh"]
+    entries = [_entry("K8f", srcs[0], srcs, "ddm_tpu/ops/flash.py:330", worst["K8f"],
+                      shapes[0]["fwd"], shapes[0]["plain_fwd"]),
+               _entry("K8b", srcs[0], srcs, "ddm_tpu/ops/flash.py:372", worst["K8b"],
+                      shapes[0]["bwd"], shapes[0]["plain_bwd"])]
+    for e in entries:
+        e["shapes"] = [{"B": t["B"], "N": t["N"],
+                        "ms": t["fwd" if e["name"] == "K8f" else "bwd"],
+                        "plain_ms": t["plain_fwd" if e["name"] == "K8f" else "plain_bwd"]}
+                       for t in shapes]
+    return entries
+
+
 def phase_model(cfg, smi):
     from ddm_tpu_torch.models.dit import init_params
     from ddm_tpu_torch.models.factory import build_model
@@ -377,8 +464,10 @@ def plain_ops():
 
     def attn(*t_and_h):
         *t, H = t_and_h
-        return _Plain.apply(lambda *a: A.attention_block_reference(*a, H),
-                            lambda *a: A.attention_block_bwd_reference(*a[:7], H, a[7]), *t)
+        fwd, bwd = ((A.attention_block_reference, A.attention_block_bwd_reference)
+                    if t[0].shape[1] <= A.MAX_TOKENS else
+                    (A.long_attention_block_reference, A.long_attention_block_bwd_reference))
+        return _Plain.apply(lambda *a: fwd(*a, H), lambda *a: bwd(*a[:7], H, a[7]), *t)
 
     def energy(xh, x0, beta):
         return _Plain.apply(lambda *a: E.energy_terms_reference(*a, beta),
@@ -394,7 +483,7 @@ def plain_ops():
         dit.fused_mlp_block, dit.fused_attention_block, training.fused_energy_terms = saved
 
 
-def phase_train_step(cfg, smi):
+def phase_train_step(cfg, smi, batch=TRAIN_BATCH, m=TRAIN_M, label="train-step"):
     from ddm_tpu_torch.data.augment import normalize_images
     from ddm_tpu_torch.data.cifar10 import CIFAR10DataConfig, build_cifar10_dataloaders
     from ddm_tpu_torch.models.dit import init_params, patchify_images
@@ -402,20 +491,22 @@ def phase_train_step(cfg, smi):
     from ddm_tpu_torch.training import distributional_training_step
 
     beta, size = 0.1, cfg["image_size"]
-    loader, _ = build_cifar10_dataloaders(CIFAR10DataConfig(batch_size=TRAIN_BATCH,
-                                                            synthetic=True))
+    data = CIFAR10DataConfig(batch_size=batch, image_size=size, synthetic=True)
+    if size != 32:
+        data.synthetic_size = batch  # resize one batch, not the whole set
+    loader, _ = build_cifar10_dataloaders(data)
     images, _ = next(iter(loader))
     x0 = normalize_images(torch.from_numpy(images).cuda())
     gen = torch.Generator(device="cuda").manual_seed(3)
-    t = torch.rand((TRAIN_BATCH,), generator=gen, device="cuda")
+    t = torch.rand((batch,), generator=gen, device="cuda")
     eps = torch.randn(x0.shape, generator=gen, device="cuda")
-    xi = torch.randn((TRAIN_BATCH, TRAIN_M, size, size, 3), generator=gen, device="cuda")
+    xi = torch.randn((batch, m, size, size, 3), generator=gen, device="cuda")
 
     def step(dtype):
         model = init_params(build_model({**cfg, "dtype": dtype}, "cuda"),
                             torch.Generator().manual_seed(0))
         loss, metrics = distributional_training_step(
-            model.tokens, x0, m=TRAIN_M, beta=beta, lam=1.0, w_bias=0.0, t=t, eps=eps, xi=xi,
+            model.tokens, x0, m=m, beta=beta, lam=1.0, w_bias=0.0, t=t, eps=eps, xi=xi,
             target_transform=lambda a: patchify_images(a, cfg["patch_size"]))
         loss.backward()
         torch.cuda.synchronize()
@@ -444,7 +535,8 @@ def phase_train_step(cfg, smi):
         if not (torch.isfinite(g_got[k]).all() and err <= tol):
             raise AssertionError(f"gradient of {k} disagrees: relF {err:.3g} > tol {tol:.3g}")
         worst = max(worst, (k, err / tol), key=lambda kv: kv[1])
-    print(f"[train-step] DiT-S/4 one step (batch {TRAIN_BATCH} x m {TRAIN_M}, injected t/eps/xi) "
+    print(f"[{label}] DiT-S/4 at {size} px (N = {(size // cfg['patch_size']) ** 2} tokens, "
+          f"depth {cfg['depth']}) one step (batch {batch} x m {m}, injected t/eps/xi) "
           f"kernels vs plain (tol = 2 |plain bf16 - plain fp32|): " + "; ".join(lines)
           + f"; {len(g_want)} parameter gradients within tol (relative Frobenius), "
           f"tightest {worst[0]} at {worst[1]:.3f} of tol; second kernel step bit-identical; "
@@ -475,10 +567,11 @@ def phase_train(kc, name, smi):
             if not os.path.getsize(os.path.join(tmp, art)):
                 raise AssertionError(f"the trainer wrote no {art}")
     per_block = DEPTH * TRAIN_STEPS
-    want_train = {"K1f": per_block, "K2f": per_block, "K1b": per_block, "K2b": per_block,
-                  "K3f": TRAIN_STEPS, "K3b": TRAIN_STEPS}
-    want_sample = {k: DEPTH * STEPS if k in ("K1f", "K2f") else 0 for k in want_train}
     train, sample = result["launches"]["train"], result["launches"]["sample"]
+    want_train = {k: 0 for k in train}  # K8f/K8b: none at 32 px
+    want_train.update({"K1f": per_block, "K2f": per_block, "K1b": per_block, "K2b": per_block,
+                       "K3f": TRAIN_STEPS, "K3b": TRAIN_STEPS})
+    want_sample = {k: DEPTH * STEPS if k in ("K1f", "K2f") else 0 for k in want_train}
     if train != want_train or sample != want_sample:
         raise AssertionError(f"training launched {train} and its sampler {sample}, expected "
                              f"{want_train} and {want_sample}")
@@ -494,6 +587,55 @@ def phase_train(kc, name, smi):
     return train
 
 
+def phase_train_long(kc, name, smi):
+    import generate_torch
+    import train_cifar10_dit_torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        kc.reset_launch_counts()
+        result = train_cifar10_dit_torch.main([
+            "--synthetic", "--image-size", str(LONG_SIZE), "--epochs", "1",
+            "--batch", str(LONG_BATCH), "--m", str(LONG_M), "--sample-batch", "64",
+            "--log-every", "1", "--device", "cuda", "--out", tmp])
+        total = kc.launch_counts()
+        with open(os.path.join(tmp, "train_metrics.json"), encoding="utf-8") as f:
+            losses = json.load(f)["loss"]
+        if len(losses) != LONG_STEPS or not np.isfinite(losses).all():
+            raise AssertionError(f"128-px training losses are not {LONG_STEPS} finite values")
+        npz = os.path.join(tmp, "s.npz")
+        kc.reset_launch_counts()
+        sampled = generate_torch.main([
+            "--ckpt", os.path.join(tmp, "model_final.pt"), "--n", "64", "--batch", "64",
+            "--device", "cuda", "--npz", npz, "--out", ""])
+        generated = kc.launch_counts()
+        samples = np.load(npz)["samples"]
+    if samples.shape != (64, LONG_SIZE, LONG_SIZE, 3):
+        raise AssertionError(f"128-px samples have shape {samples.shape}")
+    if not (np.isfinite(samples).all() and samples.min() >= -1 and samples.max() <= 1):
+        raise AssertionError("128-px samples are not finite values in [-1, 1]")
+    per_block = DEPTH * LONG_STEPS
+    train, sample = result["launches"]["train"], result["launches"]["sample"]
+    want_train = {k: per_block if k in ("K1f", "K1b", "K8f", "K8b") else 0 for k in train}
+    want_sample = {k: DEPTH * STEPS if k in ("K1f", "K8f") else 0 for k in train}
+    if train != want_train or sample != want_sample or generated != want_sample:
+        raise AssertionError(f"the 128-px run launched {train} in training, {sample} in its "
+                             f"sampler and {generated} in generate_torch, expected "
+                             f"{want_train}, {want_sample} and {want_sample}")
+    if total != {k: train[k] + sample[k] for k in train}:
+        raise AssertionError(f"the counts read after the 128-px run, {total}, do not add up")
+    ms = 1e3 * result["seconds_per_step"]
+    print(f"[train-128] train_cifar10_dit_torch --image-size {LONG_SIZE}: {LONG_STEPS} steps "
+          f"(batch {LONG_BATCH} x m {LONG_M}, N = 1024 tokens), losses first "
+          f"{[round(v, 6) for v in losses[:3]]} last {[round(v, 6) for v in losses[-3:]]}; "
+          f"warm step {ms:.2f} ms (median of steps 2-{LONG_STEPS}) = "
+          f"{LONG_BATCH / ms * 1e3:.2f} img/s, {LONG_BATCH * LONG_M / ms * 1e3:.2f} denoiser "
+          f"rows/s; generate_torch 64 samples (128, 128, 3) x {STEPS} steps in "
+          f"{sampled['seconds']:.3f} s = {64 / sampled['seconds']:.2f} samples/s; launches in "
+          f"training {train}, in its sampler {sample}, in generate_torch {generated}; "
+          f"on {name} ({smi})")
+    return train, generated
+
+
 def main() -> None:
     name, smi = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False  # plain fp32 products in full fp32
@@ -502,6 +644,7 @@ def main() -> None:
     from ddm_tpu_torch.models.factory import MODEL_DEFAULTS
     from ddm_tpu_torch.ops import attention as A
     from ddm_tpu_torch.ops import energy as E
+    from ddm_tpu_torch.ops import flash as FL
     from ddm_tpu_torch.ops import kernel_config as kc
     from ddm_tpu_torch.ops import mlp_block as M
 
@@ -509,6 +652,8 @@ def main() -> None:
     kernels = phase_kernels(M, A, smi)
     kernels += phase_backward(M, A, smi)
     kernels += phase_energy(E, smi)
+    flash = phase_flash(FL, smi)
+    torch.cuda.empty_cache()
     cfg = {**MODEL_DEFAULTS, "depth": DEPTH, "sample_steps": STEPS, "eps_churn": 1.0}
     model = phase_model(cfg, smi)
     sampled = phase_slice(model, cfg, kc, name, smi)
@@ -516,11 +661,20 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_train_step(cfg, smi)
     torch.cuda.empty_cache()
+    phase_train_step({**cfg, "image_size": LONG_SIZE}, smi, LONG_BATCH, LONG_M, "train-step-128")
+    torch.cuda.empty_cache()
     trained = phase_train(kc, name, smi)
+    torch.cuda.empty_cache()
+    trained_long, sampled_long = phase_train_long(kc, name, smi)
     for k in kernels:
         k["launches"] = trained[k["name"]]
         if k["name"] in ("K1f", "K2f"):
             k["sample_launches"] = sampled[k["name"]]
+    for k in flash:
+        k["launches"] = trained_long[k["name"]]
+        if k["name"] == "K8f":
+            k["sample_launches"] = sampled_long["K8f"]
+    kernels += flash
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

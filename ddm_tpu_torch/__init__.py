@@ -1,16 +1,19 @@
 """PyTorch / CUDA port of ddm_tpu (Distributional Diffusion Models).
 
-Two slices on one NVIDIA H100: the DiT-S/4 sampling path
-(``generate_torch.py``) and the CIFAR-10 training path
-(``train_cifar10_dit_torch.py``). The DiT block's half-blocks and their
-backwards and the energy score are hand-written CUDA kernels (K1f/K1b MLP,
-K2f/K2b attention, K3f/K3b energy). Imports torch and numpy, never JAX.
+Three slices on one NVIDIA H100: the DiT-S/4 sampling path
+(``generate_torch.py``), the CIFAR-10 training path
+(``train_cifar10_dit_torch.py``) and both at ``--image-size`` 128 to 512
+(N = 1024 to 16384 tokens). The DiT block's half-blocks and their
+backwards, the long-sequence attention core and the energy score are
+hand-written CUDA kernels (K1f/K1b MLP, K2f/K2b attention, K8f/K8b flash
+attention, K3f/K3b energy). Imports torch and numpy, never JAX.
 """
 
 from .models.dit import DDDMDiT, init_params
 from .models.factory import MODEL_DEFAULTS, SAMPLER_DEFAULTS, build_model
 from .ops.attention import fused_attention_block
 from .ops.energy import fused_energy_terms
+from .ops.flash import flash_attention
 from .ops.mlp_block import fused_mlp_block
 from .sampling import sample_dddm, sample_dddm_batched
 from .training import distributional_training_step, make_optimizer, make_train_step
@@ -24,6 +27,7 @@ __all__ = [
     "build_model",
     "fused_attention_block",
     "fused_energy_terms",
+    "flash_attention",
     "fused_mlp_block",
     "sample_dddm",
     "sample_dddm_batched",

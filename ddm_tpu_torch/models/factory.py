@@ -15,6 +15,7 @@ from typing import Any, Mapping
 import torch
 
 from ..ops.attention import supported_tokens
+from ..ops.flash import flash_supported
 from .dit import DDDMDiT
 
 __all__ = ["MODEL_DEFAULTS", "SAMPLER_DEFAULTS", "build_model"]
@@ -81,11 +82,12 @@ def build_model(cfg: Any, device: torch.device | str = "cpu") -> DDDMDiT:
     img, patch = int(get("image_size")), int(get("patch_size"))
     dim, heads = int(get("embed_dim")), int(get("heads"))
     n_tokens = (img // patch) ** 2
-    if dim % heads or not supported_tokens(n_tokens, dim // heads):
+    head = dim // max(heads, 1)
+    if dim % heads or not (supported_tokens(n_tokens, head) or flash_supported(n_tokens, head)):
         raise NotImplementedError(
             f"image_size={img}, patch_size={patch} gives N={n_tokens} tokens of head "
-            f"width {dim // max(heads, 1)}, outside what kernel K2 takes: "
-            "ROADMAP.md Queue 1 item 9 (long sequences)")
+            f"width {head}, outside what kernels K2 (N <= 128) and K8 (N >= 1024, Dh = 64) "
+            "take: ROADMAP.md Queue 1 item 9 (long sequences)")
 
     return DDDMDiT(
         img_size=img,

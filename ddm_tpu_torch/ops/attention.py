@@ -23,13 +23,23 @@ compute dtype; P V accumulated in fp32 and rounded; the projection
 accumulated in fp32 and the residual added in fp32 before one rounding.
 The backward keeps the fp32 P for dS, rounds dq, dk, dv and datt to the
 compute dtype, and sums dbqkv over the rounded dqkv.
+
+Long sequences (N >= 1024, the image sizes 128 to 512 at patch 4) take the
+counterpart of the JAX ladder's rung 3 (``ddm_tpu/ops/attention.py:959-962``
+with ``attention_fn=fused_attention``, which sends N > 512 to the flash
+tier): the same qkv and projection GEMMs around the online-softmax core K8
+(:mod:`ddm_tpu_torch.ops.flash`). Its forward saves ``(x, att, lse)`` as the
+JAX flash VJP saves ``o`` and ``lse``, so the backward recomputes the qkv
+GEMM but not the attention. The weight gradients stay fp32, where JAX's
+XLA autodiff of rung 3 rounds them to bf16 (the VJP of the weights' bf16
+cast).
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import gemm
+from . import flash, gemm
 from .kernel_config import (
     LaunchCounter,
     check_status,
@@ -44,7 +54,10 @@ __all__ = [
     "attention_block_reference",
     "attention_block_bwd",
     "attention_block_bwd_reference",
+    "long_attention_block_reference",
+    "long_attention_block_bwd_reference",
     "fused_attention_block",
+    "supported_tokens",
     "LAUNCHES",
     "BWD_LAUNCHES",
     "MAX_TOKENS",
@@ -81,17 +94,72 @@ def attention_reference(q, k, v, H: int, scale=None):
     return _merge_heads(o)
 
 
-def attention_block_reference(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H: int):
-    """Plain PyTorch version of K2f over (B, N, D) tokens in ``x.dtype``."""
+def _flash_core(q, k, v, H: int):
+    return flash.flash_attention_reference(q, k, v, H)[0]
+
+
+def attention_block_reference(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H: int,
+                              attention_fn=attention_reference):
+    """Plain PyTorch version of K2f over (B, N, D) tokens in ``x.dtype``;
+    ``attention_fn`` is the attention core, as in the JAX function."""
     B, N, D = x.shape
     dtype = x.dtype
     xf = x.float()
     y = layer_norm(xf, scale_p, bias_p).to(dtype)
     qkv = (matmul_f32(y, wqkv, dtype) + bqkv.float()).to(dtype)
     q, k, v = qkv.split(D, dim=-1)
-    o = attention_reference(q, k, v, H)
+    o = attention_fn(q, k, v, H)
     out = matmul_f32(o, wproj, dtype) + bproj.float()
     return (xf + out).to(dtype)
+
+
+def long_attention_block_reference(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H: int):
+    """Plain version of the long-sequence half-block: the plain K8f core."""
+    return attention_block_reference(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H,
+                                      attention_fn=_flash_core)
+
+
+def _core_bwd_reference(q, k, v, att, _, datt, H: int):
+    """K2b's attention core backward: P recomputed, dS from the fp32 P."""
+    dtype = q.dtype
+    scale = (q.shape[-1] // H) ** -0.5
+    rnd = lambda t: t.to(dtype).float()  # noqa: E731
+    q, k, v, datt = (_heads(t, H) for t in (q, k, v, datt))
+    p = torch.softmax((q @ k.transpose(-1, -2)) * scale, dim=-1)
+    dv = (rnd(p).transpose(-1, -2) @ datt).to(dtype)
+    dp = datt @ v.transpose(-1, -2)
+    ds = rnd(p * (dp - (p * dp).sum(-1, keepdim=True)) * scale)
+    return tuple(_merge_heads(t) for t in ((ds @ k).to(dtype),
+                                           (ds.transpose(-1, -2) @ q).to(dtype), dv))
+
+
+def _block_bwd_reference(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H: int, dout,
+                         core, core_bwd):
+    """The half-block's gradients around an attention core: ``core(q, k, v,
+    H) -> (att, saved)`` and ``core_bwd(q, k, v, att, saved, datt, H) ->
+    (dq, dk, dv)``, all (B, N, D) in the compute dtype."""
+    B, N, D = x.shape
+    dtype = x.dtype
+    rnd = lambda t: t.to(dtype).float()  # noqa: E731
+    xf = x.float().reshape(B * N, D)
+    xhat, inv = ln_stats(xf)
+    y = rnd(xhat * scale_p.float() + bias_p.float())
+    qkv = (y @ rnd(wqkv).t() + bqkv.float()).to(dtype).reshape(B, N, 3 * D)
+    q, k, v = qkv.split(D, dim=-1)
+    att, saved = core(q, k, v, H)
+
+    do = dout.float().reshape(B * N, D)
+    dob = rnd(do)
+    dwproj = dob.t() @ att.float().reshape(B * N, D)
+    dbproj = do.sum(0)
+    datt = (dob @ rnd(wproj)).to(dtype).reshape(B, N, D)
+    dqkv = torch.cat(core_bwd(q, k, v, att, saved, datt, H), dim=-1).float()
+    dqkv = dqkv.reshape(B * N, 3 * D)
+    dwqkv = dqkv.t() @ y
+    dbqkv = dqkv.sum(0)
+    dy = dqkv @ rnd(wqkv)
+    dx, dscale, dbias = layer_norm_bwd(dy, xhat, inv, scale_p, do)
+    return (dx.reshape(B, N, D).to(dtype), dscale, dbias, dwqkv, dbqkv, dwproj, dbproj)
 
 
 def attention_block_bwd_reference(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H: int,
@@ -100,36 +168,18 @@ def attention_block_bwd_reference(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, 
     :func:`fused_attention_block` with respect to ``(x, scale, bias, wqkv,
     bqkv, wproj, bproj)`` for the cotangent ``dout``, following
     ``_blk_bwd_kernel``'s rounding plan."""
-    B, N, D = x.shape
-    Dh = D // H
-    scale = Dh ** -0.5
-    dtype = x.dtype
-    rnd = lambda t: t.to(dtype).float()  # noqa: E731
-    xf = x.float().reshape(B * N, D)
-    xhat, inv = ln_stats(xf)
-    y = rnd(xhat * scale_p.float() + bias_p.float())
-    qkv = rnd(y @ rnd(wqkv).t() + bqkv.float()).reshape(B, N, 3 * D)
-    q, k, v = (_heads(t, H) for t in qkv.split(D, dim=-1))
-    p = torch.softmax((q @ k.transpose(-1, -2)) * scale, dim=-1)
-    pb = rnd(p)
-    att = rnd(_merge_heads(pb @ v)).reshape(B * N, D)
+    return _block_bwd_reference(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H, dout,
+                                lambda q, k, v, H: (attention_reference(q, k, v, H), None),
+                                _core_bwd_reference)
 
-    do = dout.float().reshape(B * N, D)
-    dob = rnd(do)
-    dwproj = dob.t() @ att
-    dbproj = do.sum(0)
-    datt = _heads(rnd(dob @ rnd(wproj)).reshape(B, N, D), H)
-    dv = rnd(pb.transpose(-1, -2) @ datt)
-    dp = datt @ v.transpose(-1, -2)
-    ds = rnd(p * (dp - (p * dp).sum(-1, keepdim=True)) * scale)
-    dq = rnd(ds @ k)
-    dk = rnd(ds.transpose(-1, -2) @ q)
-    dqkv = torch.cat([_merge_heads(t) for t in (dq, dk, dv)], dim=-1).reshape(B * N, 3 * D)
-    dwqkv = dqkv.t() @ y
-    dbqkv = dqkv.sum(0)
-    dy = dqkv @ rnd(wqkv)
-    dx, dscale, dbias = layer_norm_bwd(dy, xhat, inv, scale_p, do)
-    return (dx.reshape(B, N, D).to(dtype), dscale, dbias, dwqkv, dbqkv, dwproj, dbproj)
+
+def long_attention_block_bwd_reference(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H: int,
+                                       dout):
+    """Plain version of the long-sequence half-block's backward: the same
+    chain around the plain K8f/K8b core (lse replay, dsum from the bf16 o)."""
+    return _block_bwd_reference(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H, dout,
+                                flash.flash_attention_reference,
+                                flash.flash_attention_bwd_reference)
 
 
 def _core_smem(N: int, Dh: int) -> int:
@@ -152,29 +202,31 @@ def supported_tokens_bwd(N: int, Dh: int) -> bool:
     return supported_tokens(N, Dh) and _core_bwd_smem(N, Dh) <= _MAX_SMEM
 
 
-def _check(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H):
+def _check(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H, kernel="K2"):
+    """Shapes and types the half-block kernels take around K2's attention
+    core or K8's (whose token counts :func:`fused_attention_block` picked)."""
     if x.dtype != torch.bfloat16:
-        raise TypeError(f"K2 takes bf16 activations, got {x.dtype}")
+        raise TypeError(f"{kernel} takes bf16 activations, got {x.dtype}")
     if x.dim() != 3:
-        raise ValueError(f"K2 takes (B, N, D) tokens, got shape {tuple(x.shape)}")
+        raise ValueError(f"{kernel} takes (B, N, D) tokens, got shape {tuple(x.shape)}")
     B, N, D = x.shape
     if D % H:
         raise ValueError(f"D={D} is not divisible by H={H}")
     Dh = D // H
     if wqkv.shape != (3 * D, D) or wproj.shape != (D, D):
-        raise ValueError(f"K2 weights must be (3D, D) and (D, D), got "
+        raise ValueError(f"{kernel} weights must be (3D, D) and (D, D), got "
                          f"{tuple(wqkv.shape)} and {tuple(wproj.shape)}")
     for name, v, n in (("scale", scale_p, D), ("bias", bias_p, D),
                        ("bqkv", bqkv, 3 * D), ("bproj", bproj, D)):
         if v.shape != (n,):
-            raise ValueError(f"K2 {name} must be ({n},), got {tuple(v.shape)}")
+            raise ValueError(f"{kernel} {name} must be ({n},), got {tuple(v.shape)}")
     if D % 64 or D > 1024:
-        raise ValueError(f"K2 needs D a multiple of 64 and D <= 1024, got D={D}")
-    if not supported_tokens(N, Dh):
+        raise ValueError(f"{kernel} needs D a multiple of 64 and D <= 1024, got D={D}")
+    if kernel == "K2" and not supported_tokens(N, Dh):
         raise ValueError(f"K2's attention core does not take N={N}, Dh={Dh} "
                          f"(needs multiples of 16, N <= {MAX_TOKENS})")
     if not x.is_contiguous():
-        raise ValueError("K2 needs contiguous activations")
+        raise ValueError(f"{kernel} needs contiguous activations")
 
 
 def _kernel_operands(scale_p, bias_p, wqkv, bqkv, wproj, bproj):
@@ -183,24 +235,72 @@ def _kernel_operands(scale_p, bias_p, wqkv, bqkv, wproj, bproj):
     return f32(scale_p), f32(bias_p), bf(wqkv), f32(bqkv), bf(wproj), f32(bproj)
 
 
-def _core(qkv, B, N, H, Dh):
-    att = torch.empty((B * N, H * Dh), dtype=torch.bfloat16, device=qkv.device)
+def _fwd_chain(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, core):
+    """The LN-prologue qkv GEMM, ``core(qkv) -> (att, saved)`` on its
+    (B, N, 3D) output, and the projection GEMM with the residual:
+    ``(out, att, saved)``."""
+    B, N, D = x.shape
+    s, bb, wqkv_b, bqkv_f, wproj_b, bproj_f = _kernel_operands(
+        scale_p, bias_p, wqkv, bqkv, wproj, bproj)
+    x2 = x.reshape(B * N, D)
+    qkv, _, _ = gemm.ln_gemm(x2, s, bb, wqkv_b, bqkv_f, gemm.EPI_BIAS)
+    att, saved = core(qkv.view(B, N, 3 * D))
+    out = gemm.gemm_residual(att.view(B * N, D), wproj_b, bproj_f, x2)
+    return out.reshape(B, N, D), att, saved
+
+
+def _bwd_chain(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, dout, att_of, core_bwd):
+    """The half-block backward around an attention core: the qkv GEMM
+    recomputed (it also gives y = bf16(LN(x)) for dWqkv), ``att_of(qkv)``
+    for dWproj, datt, ``core_bwd(qkv, datt) -> dqkv`` (B, N, 3D), then
+    dWqkv, dbqkv, dy and the LN backward with the residual."""
+    B, N, D = x.shape
+    if dout.shape != x.shape:
+        raise ValueError(f"the cotangent must be {tuple(x.shape)}, got {tuple(dout.shape)}")
+    s, bb, wqkv_b, bqkv_f, wproj_b, _ = _kernel_operands(
+        scale_p, bias_p, wqkv, bqkv, wproj, bproj)
+    x2 = x.reshape(B * N, D)
+    dob = dout.to(torch.bfloat16).contiguous().reshape(B * N, D)
+    qkv, _, y = gemm.ln_gemm(x2, s, bb, wqkv_b, bqkv_f, gemm.EPI_BIAS, with_y=True)
+    qkv = qkv.view(B, N, 3 * D)
+    dwproj, dbproj = gemm.gemm_tn(dob, att_of(qkv).view(B * N, D), with_colsum=True)
+    datt = gemm.gemm_nn(dob, wproj_b, gemm.NN_BF16).view(B, N, D)
+    dqkv = core_bwd(qkv, datt).view(B * N, 3 * D)
+    del qkv, datt
+    dwqkv, dbqkv = gemm.gemm_tn(dqkv, y, with_colsum=True)
+    dy = gemm.gemm_nn(dqkv, wqkv_b, gemm.NN_F32)
+    del dqkv
+    dx, dscale, dbias = gemm.ln_bwd(x2, dy, dob, s)
+    return dx.reshape(B, N, D), dscale, dbias, dwqkv, dbqkv, dwproj, dbproj
+
+
+def _k2_core(qkv, H):
+    """K2's attention core on a (B, N, 3D) qkv buffer -> (B, N, D) bf16."""
+    B, N, D3 = qkv.shape
+    Dh = D3 // 3 // H
+    att = torch.empty((B, N, D3 // 3), dtype=torch.bfloat16, device=qkv.device)
     check_status(load_library().ddm_attention_core(
         qkv.data_ptr(), att.data_ptr(), B, N, H, Dh, Dh ** -0.5, current_stream(qkv.device)),
         "K2 attention_core")
     return att
 
 
+def _k2_core_bwd(qkv, datt, H):
+    """K2b's attention core backward -> dqkv (B, N, 3D) bf16."""
+    B, N, D3 = qkv.shape
+    Dh = D3 // 3 // H
+    dqkv = torch.empty_like(qkv)
+    check_status(load_library().ddm_attention_core_bwd(
+        qkv.data_ptr(), datt.data_ptr(), dqkv.data_ptr(), B, N, H, Dh, Dh ** -0.5,
+        current_stream(qkv.device)), "K2b attention_core_bwd")
+    return dqkv
+
+
 def _k2f(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H):
-    B, N, D = x.shape
-    s, bb, wqkv_b, bqkv_f, wproj_b, bproj_f = _kernel_operands(
-        scale_p, bias_p, wqkv, bqkv, wproj, bproj)
-    x2 = x.reshape(B * N, D)
-    qkv, _, _ = gemm.ln_gemm(x2, s, bb, wqkv_b, bqkv_f, gemm.EPI_BIAS)
-    att = _core(qkv, B, N, H, D // H)
-    out = gemm.gemm_residual(att, wproj_b, bproj_f, x2)
+    out, _, _ = _fwd_chain(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj,
+                           lambda qkv: (_k2_core(qkv, H), None))
     LAUNCHES.add()
-    return out.reshape(B, N, D)
+    return out
 
 
 def _k2b(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H, dout):
@@ -209,28 +309,11 @@ def _k2b(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H, dout):
     if not supported_tokens_bwd(N, Dh):
         raise ValueError(f"K2b's attention core backward does not take N={N}, Dh={Dh} "
                          "(its shared-memory tiles exceed the card's 227 KB)")
-    if dout.shape != x.shape:
-        raise ValueError(f"K2b cotangent must be {tuple(x.shape)}, got {tuple(dout.shape)}")
-    s, bb, wqkv_b, bqkv_f, wproj_b, _ = _kernel_operands(
-        scale_p, bias_p, wqkv, bqkv, wproj, bproj)
-    x2 = x.reshape(B * N, D)
-    dob = dout.to(torch.bfloat16).contiguous().reshape(B * N, D)
-    qkv, _, y = gemm.ln_gemm(x2, s, bb, wqkv_b, bqkv_f, gemm.EPI_BIAS, with_y=True)
-    att = _core(qkv, B, N, H, Dh)
-    dwproj, dbproj = gemm.gemm_tn(dob, att, with_colsum=True)
-    del att
-    datt = gemm.gemm_nn(dob, wproj_b, gemm.NN_BF16)
-    dqkv = torch.empty_like(qkv)
-    check_status(load_library().ddm_attention_core_bwd(
-        qkv.data_ptr(), datt.data_ptr(), dqkv.data_ptr(), B, N, H, Dh, Dh ** -0.5,
-        current_stream(x.device)), "K2b attention_core_bwd")
-    del qkv, datt
-    dwqkv, dbqkv = gemm.gemm_tn(dqkv, y, with_colsum=True)
-    dy = gemm.gemm_nn(dqkv, wqkv_b, gemm.NN_F32)
-    del dqkv
-    dx, dscale, dbias = gemm.ln_bwd(x2, dy, dob, s)
+    grads = _bwd_chain(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, dout,
+                       lambda qkv: _k2_core(qkv, H),
+                       lambda qkv, datt: _k2_core_bwd(qkv, datt, H))
     BWD_LAUNCHES.add()
-    return dx.reshape(B, N, D), dscale, dbias, dwqkv, dbqkv, dwproj, dbproj
+    return grads
 
 
 def attention_block_bwd(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H: int, dout):
@@ -262,12 +345,62 @@ class _AttentionBlock(torch.autograd.Function):
         return tuple(g.to(a.dtype) for g, a in zip(grads, args)) + (None,)
 
 
+def _k8_core(qkv, H):
+    """K8f reading q, k and v in place from the (B, N, 3D) qkv buffer."""
+    D = qkv.shape[-1] // 3
+    return flash.launch_k8f(*qkv.split(D, dim=-1), H, (D // H) ** -0.5)
+
+
+def _k8_core_bwd(qkv, datt, att, lse, H):
+    D = qkv.shape[-1] // 3
+    return flash.launch_k8b(*qkv.split(D, dim=-1), att, lse, datt, H, (D // H) ** -0.5)
+
+
+class _LongAttentionBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H):
+        ctx.heads = H
+        args = (x, scale_p, bias_p, wqkv, bqkv, wproj, bproj)
+        if not uses_kernel(*args):
+            ctx.save_for_backward(*args)
+            return long_attention_block_reference(*args, H)
+        _check(*args, H, kernel="K8")
+        out, att, lse = _fwd_chain(*args, lambda qkv: _k8_core(qkv, H))
+        ctx.save_for_backward(*args, att, lse)  # no recompute of the core, as JAX's VJP
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        saved = ctx.saved_tensors
+        args, H = saved[:7], ctx.heads
+        if uses_kernel(*args, dout):
+            att, lse = saved[7:]
+            grads = _bwd_chain(*args, dout, lambda qkv: att,
+                               lambda qkv, datt: _k8_core_bwd(qkv, datt, att, lse, H))
+        else:
+            grads = long_attention_block_bwd_reference(*args, H, dout)
+        return tuple(g.to(a.dtype) for g, a in zip(grads, args)) + (None,)
+
+
 def fused_attention_block(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H: int):
     """``x + proj(MHA(qkv(LN(x))))`` over (B, N, D) tokens, with its backward.
 
-    CPU tensors take :func:`attention_block_reference` and
-    :func:`attention_block_bwd_reference`; CUDA tensors launch K2f and K2b
-    (bf16 activations, fp32 LN params and biases, weights cast to bf16) or
-    raise.
+    The token count picks the path, as the JAX ladder's shape gates do:
+    N <= 128 takes K2 (:func:`attention_block_reference` and
+    :func:`attention_block_bwd_reference` on CPU tensors); N >= 1024 with
+    Dh = 64 takes the long-sequence half-block around K8
+    (:func:`long_attention_block_reference` and
+    :func:`long_attention_block_bwd_reference` on CPU tensors); any other N
+    raises. CUDA tensors launch the kernels (bf16 activations, fp32 LN
+    params and biases, weights cast to bf16) or raise.
     """
-    return _AttentionBlock.apply(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H)
+    N, D = x.shape[-2:]
+    Dh = D // H
+    if N <= MAX_TOKENS:
+        return _AttentionBlock.apply(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H)
+    if flash.flash_supported(N, Dh):
+        return _LongAttentionBlock.apply(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H)
+    raise NotImplementedError(
+        f"N={N} tokens of head width {Dh}: K2 takes N <= {MAX_TOKENS} and the flash tier "
+        f"N >= {flash.MIN_TOKENS} with Dh = {flash.HEAD_DIM}; K2 up to N = 512 (--image-size "
+        "64) is not ported yet: ROADMAP.md Queue 1 item 9 (long sequences)")

@@ -13,7 +13,10 @@ the plain versions, :func:`energy_terms_reference` and
 
 The kernels take 2 <= m <= 16 (the TPU kernel's range). Past that the JAX
 package streams anchor rows through a second kernel (K9); that kernel is not
-ported yet, and a CUDA tensor with m > 16 raises.
+ported yet, and a CUDA tensor with m > 16 raises. Where the JAX package's
+own gate for K3 (:func:`jax_kernel_gate`, its VMEM bound) sends a shape to
+its jnp path, the port runs its plain version on the device too: at
+``--image-size 128`` (B = 16, m = 8, D = 49,152) that is the path both take.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ __all__ = [
     "energy_terms_bwd",
     "energy_terms_reference",
     "energy_terms_bwd_reference",
+    "jax_kernel_gate",
     "FWD_LAUNCHES",
     "BWD_LAUNCHES",
     "M_MAX",
@@ -79,7 +83,23 @@ def energy_terms_bwd_reference(x0hats, x0, beta: float, gconf, ginter):
     return dxh, -g0.sum(1)
 
 
-def _check(x0hats: torch.Tensor, x0: torch.Tensor) -> None:
+def jax_kernel_gate(B: int, m: int, D: int) -> bool:
+    """The JAX package's gate for its K3 kernel, ``_kernel_supported``
+    (ddm_tpu/ops/energy.py:74-85) as written: an image block ``bb`` of 8, 4,
+    2 or 1 dividing B that is a multiple of 8 or all of B, its (bb, m, D)
+    fp32 block within 4 MB of VMEM, 2 <= m <= 16, D a multiple of 128."""
+    bb = 8
+    while B % bb != 0 and bb > 1:
+        bb //= 2
+    return ((bb % 8 == 0 or bb == B) and bb * m * D * 4 <= 4 * 1024 * 1024
+            and 2 <= m <= M_MAX and D % 128 == 0)
+
+
+def _use_kernel(x0hats: torch.Tensor, x0: torch.Tensor, *others: torch.Tensor) -> bool:
+    """True to launch K3; False for the plain version: on CPU tensors, and on
+    CUDA tensors of a shape whose JAX counterpart takes its jnp path."""
+    if not uses_kernel(x0hats, x0, *others):
+        return False
     if x0hats.dim() != 3 or x0.shape != (x0hats.shape[0], x0hats.shape[2]):
         raise ValueError(f"K3 takes (B, m, D) predictions and (B, D) targets, got "
                          f"{tuple(x0hats.shape)} and {tuple(x0.shape)}")
@@ -90,18 +110,21 @@ def _check(x0hats: torch.Tensor, x0: torch.Tensor) -> None:
             "ported yet, see ROADMAP.md Queue 1 item 4")
     if m < 2:
         raise ValueError("m must be >= 2 to form interaction pairs")
+    if not jax_kernel_gate(B, m, D):
+        return False
     if D % 4 or (m + 1) * D * 4 + _STATIC_SMEM > _MAX_SMEM:
         raise ValueError(f"K3 needs D a multiple of 4 with (m + 1) * D fp32 values in "
                          f"shared memory, got m={m}, D={D}")
+    return True
 
 
 def energy_terms(x0hats: torch.Tensor, x0: torch.Tensor,
                  beta: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(conf, inter)`` of fp32 ``(B, m, D)`` predictions and ``(B, D)``
-    targets: K3f on CUDA tensors (or raise), the plain version on CPU."""
-    if not uses_kernel(x0hats, x0):
+    targets: K3f on CUDA tensors (or raise), the plain version on CPU and
+    where :func:`jax_kernel_gate` is False."""
+    if not _use_kernel(x0hats, x0):
         return energy_terms_reference(x0hats, x0, beta)
-    _check(x0hats, x0)
     B, m, D = x0hats.shape
     partial = torch.empty((B, 2), dtype=torch.float32, device=x0hats.device)
     out = torch.empty((2,), dtype=torch.float32, device=x0hats.device)
@@ -114,10 +137,10 @@ def energy_terms(x0hats: torch.Tensor, x0: torch.Tensor,
 
 def energy_terms_bwd(x0hats, x0, beta: float, gconf, ginter):
     """``(dx0hats, dx0)`` for the cotangents of ``(conf, inter)``: K3b on
-    CUDA tensors (or raise), :func:`energy_terms_bwd_reference` on CPU."""
-    if not uses_kernel(x0hats, x0, gconf, ginter):
+    CUDA tensors (or raise), :func:`energy_terms_bwd_reference` on CPU and
+    where :func:`jax_kernel_gate` is False."""
+    if not _use_kernel(x0hats, x0, gconf, ginter):
         return energy_terms_bwd_reference(x0hats, x0, beta, gconf, ginter)
-    _check(x0hats, x0)
     B, m, D = x0hats.shape
     g = torch.stack([gconf / (B * m), ginter / (B * m * (m - 1))]).float().contiguous()
     dxh = torch.empty_like(x0hats)
@@ -148,6 +171,7 @@ def fused_energy_terms(x0hats: torch.Tensor, x0: torch.Tensor,
     and targets ``(B, D)``, differentiable in both.
 
     CPU tensors take the plain versions; CUDA tensors launch K3f/K3b or raise
-    (m > 16 names the unported K9)."""
+    (m > 16 names the unported K9), or take the plain versions on the device
+    where the JAX package's K3 gate sends it to its jnp path."""
     return _EnergyTerms.apply(x0hats.float().contiguous(), x0.float().contiguous(),
                               float(beta))

@@ -69,6 +69,10 @@ _SIGNATURES = {
     "ddm_energy_fwd": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
     # xh, x0, g, dxh, dx0, B, m, D, beta, stream
     "ddm_energy_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    # q, k, v, ld, o, lse, B, N, H, scale, stream
+    "ddm_flash_fwd": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _F, _P],
+    # q, k, v, ld, o, dout, lse, dsum, dqkv, B, N, H, scale, stream
+    "ddm_flash_bwd": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
 }
 
 _COUNTERS: dict = {}

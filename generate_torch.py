@@ -3,9 +3,11 @@
 The port's counterpart of ``generate.py``: load a ``.pt`` checkpoint (the
 reference ``{"model", "config"}`` payload), rebuild the model from the
 config embedded in it, run the reverse sampler (paper Algorithm 2) and
-write a PNG grid and/or an NPZ of raw samples. On a CUDA device the DiT
-blocks run the hand-written kernels K1f and K2f. ``train_cifar10_dit_torch.py``
-writes checkpoints in the payload this script reads.
+write a PNG grid and/or an NPZ of raw samples. The image size is the
+checkpoint's. On a CUDA device the DiT blocks run the hand-written kernels
+K1f and K2f (K1f and K8f at ``image_size`` 128 to 512).
+``train_cifar10_dit_torch.py`` writes checkpoints in the payload this
+script reads.
 
 Usage:
     python generate_torch.py --ckpt model_final.pt --n 64 --out samples.png

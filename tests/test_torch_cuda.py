@@ -1,4 +1,4 @@
-"""The CUDA kernels K1, K2 and K3 against their plain versions, on the card.
+"""The CUDA kernels K1, K2, K3 and K8 against their plain versions, on the card.
 
 Every test here is marked ``cuda`` and skips on a host without a GPU. The
 file imports no JAX (the machine with the card has none), so it runs there
@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 
 from ddm_tpu_torch.ops import attention as TA  # noqa: E402
 from ddm_tpu_torch.ops import energy as TE  # noqa: E402
+from ddm_tpu_torch.ops import flash as TF  # noqa: E402
 from ddm_tpu_torch.ops import mlp_block as TM  # noqa: E402
 
 # bf16 outputs: the kernel and the plain version round at the same points,
@@ -147,7 +148,7 @@ def test_k2_backward_kernel_matches_plain_on_the_card(cuda_device, B, N, D, H):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,m,D", [(256, 8, 3072), (5, 3, 128)])
+@pytest.mark.parametrize("B,m,D", [(256, 8, 3072), (8, 3, 128)])
 @pytest.mark.parametrize("beta", [0.1, 2.0])
 def test_k3_kernels_match_plain_on_the_card(cuda_device, B, m, D, beta):
     r = np.random.default_rng(4)
@@ -185,3 +186,115 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
     xh, x0 = torch.zeros(4, 17, 128, device=cuda_device), torch.zeros(4, 128, device=cuda_device)
     with pytest.raises(NotImplementedError, match="K9"):
         TE.fused_energy_terms(xh, x0, 0.1)
+
+
+@pytest.mark.cuda
+def test_energy_takes_its_plain_version_where_the_jax_gate_does(cuda_device):
+    """(5, 3, 128) fails the JAX K3 gate (an image block of 1 that is neither
+    8 nor B), so the JAX package runs its jnp path and the port its plain
+    version, on the device: no launch."""
+    assert not TE.jax_kernel_gate(5, 3, 128)
+    r = np.random.default_rng(5)
+    xh = _t(r.standard_normal((5, 3, 128)).astype(np.float32)).to(cuda_device)
+    x0 = _t(r.standard_normal((5, 128)).astype(np.float32)).to(cuda_device)
+    before = (TE.FWD_LAUNCHES.count, TE.BWD_LAUNCHES.count)
+    got = TE.fused_energy_terms(xh, x0, 0.1)
+    assert (TE.FWD_LAUNCHES.count, TE.BWD_LAUNCHES.count) == before
+    for g, w in zip(got, TE.energy_terms_reference(xh, x0, 0.1)):
+        assert torch.equal(g, w)
+
+
+def _assert_bf16_rule(got, want):
+    """Two bf16 units in the last place at the largest magnitude of ``want``
+    (one flipped rounding of a sum taken in another order) and a mean error
+    far below one unit."""
+    top = float(want.float().abs().max())
+    err = (got.float() - want.float()).abs()
+    assert float(err.max()) <= 2.0 * 2.0 ** (np.floor(np.log2(max(top, 1e-30))) - 7)
+    assert float(err.mean()) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,H", [(2, 1024, 6), (1, 2048, 3), (3, 128, 2)])
+def test_k8_kernels_match_plain_on_the_card(cuda_device, B, N, H):
+    """K8f and K8b on q, k, v read in place from a [q | k | v] buffer, against
+    the plain versions on the same inputs; the backward twice, bit-identical."""
+    r = np.random.default_rng(6)
+    D = 64 * H
+    qkv = _t(r.standard_normal((B, N, 3 * D)).astype(np.float32)).to(cuda_device)
+    q, k, v = qkv.to(torch.bfloat16).split(D, dim=-1)
+    do = _t(r.standard_normal((B, N, D)).astype(np.float32)).to(cuda_device).to(torch.bfloat16)
+    before = (TF.FWD_LAUNCHES.count, TF.BWD_LAUNCHES.count)
+    o, lse = TF.flash_attention_fwd(q, k, v, H)
+    grads = TF.flash_attention_bwd(q, k, v, o, lse, do, H)
+    again = TF.flash_attention_bwd(q, k, v, o, lse, do, H)
+    torch.cuda.synchronize()
+    assert (TF.FWD_LAUNCHES.count, TF.BWD_LAUNCHES.count) == (before[0] + 1, before[1] + 2)
+    want_o, want_lse = TF.flash_attention_reference(q, k, v, H)
+    _assert_bf16_rule(o, want_o)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=0)
+    want = TF.flash_attention_bwd_reference(q, k, v, o, lse, do, H)
+    for g, h, w in zip(grads, again, want):
+        assert torch.equal(g, h)  # no atomics, fixed loop orders
+        _assert_bf16_rule(g, w)
+
+
+@pytest.mark.cuda
+def test_k8_through_autograd_on_separate_tensors(cuda_device):
+    r = np.random.default_rng(7)
+    q, k, v = (_t(r.standard_normal((2, 1024, 128)).astype(np.float32)).to(cuda_device)
+               .to(torch.bfloat16).requires_grad_() for _ in range(3))
+    do = torch.ones((2, 1024, 128), device=cuda_device, dtype=torch.bfloat16)
+    TF.flash_attention(q, k, v, 2).backward(do)
+    o, lse = TF.flash_attention_reference(q.detach(), k.detach(), v.detach(), 2)
+    want = TF.flash_attention_bwd_reference(q.detach(), k.detach(), v.detach(), o, lse, do, 2)
+    for g, w in zip((q.grad, k.grad, v.grad), want):
+        _assert_bf16_rule(g, w)
+
+
+@pytest.mark.cuda
+def test_long_attention_block_matches_plain_on_the_card(cuda_device):
+    """N = 1024: the qkv GEMM, K8 and the projection GEMM, forward and all
+    seven gradients, against the plain long-sequence half-block."""
+    B, N, D, H = 2, 1024, 384, 6
+    args = _on(cuda_device, _attn_inputs(B, N, D))
+    dout = torch.randn(B, N, D, generator=torch.Generator(device=cuda_device).manual_seed(8),
+                       device=cuda_device).to(torch.bfloat16)
+    before = {n: c.count for n, c in (("K2f", TA.LAUNCHES), ("K2b", TA.BWD_LAUNCHES),
+                                      ("K8f", TF.FWD_LAUNCHES), ("K8b", TF.BWD_LAUNCHES))}
+    with torch.inference_mode():
+        got = TA.fused_attention_block(*args, H)
+    want = TA.long_attention_block_reference(*args, H)
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+    grads = _grads_through_autograd(TA.fused_attention_block, args, (H,), dout)
+    again = _grads_through_autograd(TA.fused_attention_block, args, (H,), dout)
+    torch.cuda.synchronize()
+    after = {n: c.count for n, c in (("K2f", TA.LAUNCHES), ("K2b", TA.BWD_LAUNCHES),
+                                     ("K8f", TF.FWD_LAUNCHES), ("K8b", TF.BWD_LAUNCHES))}
+    assert {n: after[n] - before[n] for n in after} == {"K2f": 0, "K2b": 0, "K8f": 3, "K8b": 2}
+    for g, h in zip(grads, again):
+        assert torch.equal(g, h)
+    # K8f rounds p against a running max where the plain forward uses the
+    # row max, so the saved o (and dsum from it) differ by bf16 noise; each
+    # fp32 gradient lies within twice bf16's own noise of the plain one,
+    # e = |plain bf16 - plain fp32| (relative Frobenius), or within the K2b
+    # bound where it has none (dbproj sums the bf16 cotangent alone).
+    want = TA.long_attention_block_bwd_reference(*args, H, dout)
+    want32 = TA.long_attention_block_bwd_reference(args[0].float(), *args[1:], H, dout.float())
+    torch.testing.assert_close(grads[0].float(), want[0].float(), **BF16_TOL)
+    for i, (g, w, w32) in enumerate(zip(grads[1:], want[1:], want32[1:]), start=1):
+        noise = float(torch.linalg.norm(w - w32) / torch.linalg.norm(w32))
+        assert float(torch.linalg.norm(g - w) / torch.linalg.norm(w)) <= max(
+            2 * noise, GRAD_FROB_REL), i
+
+
+@pytest.mark.cuda
+def test_k8_refuses_what_it_does_not_take(cuda_device):
+    x = torch.zeros(1, 1024, 96, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        TF.flash_attention(x, x, x, 3)  # Dh = 32
+    y = torch.zeros(1, 1000, 128, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        TF.flash_attention(y, y, y, 2)
+    with pytest.raises(TypeError, match="bf16"):
+        TF.flash_attention(y.float(), y.float(), y.float(), 2)

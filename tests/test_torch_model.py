@@ -200,7 +200,7 @@ def test_factory_defaults_match_jax():
 @pytest.mark.parametrize("key,value,item", [
     ("tp", 2, "item 11"), ("sp", True, "item 11"), ("moe_experts", 4, "item 10"),
     ("remat", True, "item 8"), ("mlp_persist", 2, "item 8"), ("attention", "xla", "item 9"),
-    ("image_size", 128, "item 9"),
+    ("image_size", 64, "item 9"),
 ])
 def test_factory_refuses_unported_keys(key, value, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):

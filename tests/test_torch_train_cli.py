@@ -2,6 +2,7 @@
 checkpoint that ``generate_torch.py`` samples from, the flags left for later,
 and the CLI defaults against the JAX trainer's."""
 
+import functools
 import json
 from unittest import mock
 
@@ -13,6 +14,7 @@ torch = pytest.importorskip("torch")
 import generate_torch  # noqa: E402
 import train_cifar10_dit as jax_cli  # noqa: E402
 import train_cifar10_dit_torch as cli  # noqa: E402
+from ddm_tpu_torch.data.cifar10 import CIFAR10DataConfig  # noqa: E402
 from ddm_tpu_torch.models.factory import MODEL_DEFAULTS, SAMPLER_DEFAULTS  # noqa: E402
 from ddm_tpu_torch.ops.kernel_config import launch_counts  # noqa: E402
 
@@ -48,6 +50,37 @@ def test_train_cli_end_to_end_on_cpu(tmp_path):
     assert samples.shape == (3, 32, 32, 3) and np.isfinite(samples).all()
     assert samples.min() >= -1 and samples.max() <= 1
     np.testing.assert_array_equal(samples, out["samples"])
+
+
+def test_train_cli_at_image_size_128_on_cpu(tmp_path, monkeypatch):
+    """--image-size 128 (N = 1024 tokens): the loader resizes, the blocks take
+    the long-sequence half-block's plain versions, and generate_torch samples
+    128 px images from the checkpoint. Eight synthetic images keep it small."""
+    monkeypatch.setattr(cli, "CIFAR10DataConfig",
+                        functools.partial(CIFAR10DataConfig, synthetic_size=8))
+    result = cli.main(["--synthetic", "--image-size", "128", "--epochs", "1", "--batch", "4",
+                       "--m", "2", "--embed-dim", "128", "--depth", "2", "--heads", "2",
+                       "--time-embed", "16", "--sample-batch", "2", "--sample-steps", "2",
+                       "--log-every", "1", "--device", "cpu", "--out", str(tmp_path)])
+    history = json.loads((tmp_path / "train_metrics.json").read_text())
+    assert history["step"] == [1, 2] and np.isfinite(history["loss"]).all()
+    assert json.loads((tmp_path / "config.json").read_text())["image_size"] == 128
+    assert not any(result["launches"]["train"].values())
+    npz = tmp_path / "s.npz"
+    generate_torch.main(["--ckpt", str(tmp_path), "--n", "2", "--steps", "2", "--device", "cpu",
+                         "--out", "", "--npz", str(npz)])
+    samples = np.load(npz)["samples"]
+    assert samples.shape == (2, 128, 128, 3) and np.isfinite(samples).all()
+
+
+def test_train_cli_refuses_image_size_64(tmp_path):
+    """N = 256 is K2's range on the TPU (N <= 512) but not the port's K2
+    (N <= 128) nor K8 (N >= 1024): it raises before any data is made."""
+    with mock.patch.object(cli, "build_cifar10_dataloaders") as loaders:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 9"):
+            cli.main(["--synthetic", "--image-size", "64", "--device", "cpu",
+                      "--out", str(tmp_path)])
+    loaders.assert_not_called()
 
 
 @pytest.mark.parametrize("flags,item", [

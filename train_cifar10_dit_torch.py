@@ -11,8 +11,11 @@ samples from it), ``config.json`` and a ``samples.png`` grid.
 Each step: the uint8 batch goes to the device, is augmented there
 (reflect-pad crop + flip), noised to x_t, expanded m-fold through the DiT
 (kernels K2f/K1f on CUDA), scored by the energy score (K3f), differentiated
-(K3b, K1b, K2b), clipped and stepped with AdamW. On ``--device cpu`` the
-same step runs the plain PyTorch versions.
+(K3b, K1b, K2b), clipped and stepped with AdamW. ``--image-size`` 128, 256
+or 512 (N = 1024 to 16384 tokens at patch 4) resizes the data once and
+runs the attention core through K8f/K8b instead of K2's, and the energy
+score through its plain version, as the JAX package's gate does at that
+size. On ``--device cpu`` the same step runs the plain PyTorch versions.
 
 Not written: the ``*_dynamics.png`` plots (they need matplotlib, which the
 GPU machine does not have); the histories are in ``train_metrics.json`` and
@@ -22,6 +25,8 @@ ROADMAP.md item when set away from its default.
 
 Usage:
     python train_cifar10_dit_torch.py --synthetic --epochs 1 --out run/
+    python train_cifar10_dit_torch.py --synthetic --image-size 128 --batch 16 --m 8 \
+        --epochs 1 --out run128/
 """
 
 from __future__ import annotations
@@ -89,10 +94,10 @@ def train(args: argparse.Namespace) -> dict:
     os.makedirs(args.out, exist_ok=True)
     root = torch.Generator().manual_seed(args.seed)
 
+    model = build_model(vars(args), device)  # raises for a size no kernel takes
     train_loader, _ = build_cifar10_dataloaders(CIFAR10DataConfig(
         batch_size=args.batch, image_size=args.image_size, synthetic=args.synthetic,
         seed=args.seed))
-    model = build_model(vars(args), device)
     init_params(model, split_generator(root, 1)[0])
     n_params = sum(p.numel() for p in model.parameters())
     print(f"DDDMDiT: {n_params / 1e6:.2f}M params, 1 device ({device})", flush=True)
