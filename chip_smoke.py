@@ -1,6 +1,8 @@
 """Drive the PyTorch port's DiT-S/4 sampling and training paths once on one
-NVIDIA GPU, at 32 px (N = 64 tokens) and at 128 px (N = 1024 tokens, the
-long-sequence path through the flash-attention kernel K8).
+NVIDIA GPU, at 32 px (N = 64 tokens), at 128 px (N = 1024 tokens, the
+long-sequence path through the flash-attention kernel K8), and with 8 top-1
+routed experts in every block (the MoE path of configs/cifar10_dit_moe.yaml,
+through kernels K10, K11 and K12).
 
 Run from the repository root with no arguments:
 
@@ -25,7 +27,15 @@ is non-zero and no result line is printed:
    buffer, against their plain versions (computed head by head) on the
    same inputs: o, dq, dk, dv by the bf16 rule below, lse to 1e-5
    relative; K8b's second call bit-identical;
-4. model: a full-width DiT-S/4 with seeded weights, one forward through the
+   3e. MoE: K11f/K11b (dispatch) and K12f/K12b (combine) at the MoE
+   training shape (T = 131,072 rows, D = 384, E = 8, groups of 256), top-1
+   and top-2, and K10f/K10b (expert FFN) on the top-1 dispatch's (8, 20480,
+   384) slot rows with F = 1536, against their plain versions. Routing is
+   discrete: the tokens whose experts differ are counted, each must have
+   its top logits within two bf16 units of yb times max |wr| of each other,
+   and the slot rows, gates and backward outputs are compared on the groups
+   whose routing agrees; slot rows no token holds must be zeros; every
+   backward's second call bit-identical; a full-width DiT-S/4 with seeded weights, one forward through the
    kernels against one through the plain versions;
 5. slice: that model saved as a checkpoint and sampled with
    ``generate_torch.main`` (256 samples, 20 steps), checking the outputs and
@@ -38,6 +48,9 @@ is non-zero and no result line is printed:
    6b. the same at 128 px: batch 16 x m 8 at full width and depth, whose
    plain step holds one head's (128, 1024, 1024) fp32 scores (0.5 GB) at a
    time;
+   6c. the same for the MoE model at 32 px (batch 256 x m 8), moe_aux
+   included; the plain steps replay the kernel step's routing, and the
+   tokens each plain step would route otherwise are counted;
 7. training slice: ``train_cifar10_dit_torch.main`` for one epoch of the
    2048 synthetic images (8 steps), checking finite losses, the launch
    counts (8 blocks x 8 steps for K1f/K2f/K1b/K2b, 8 for K3f/K3b) and that
@@ -46,7 +59,13 @@ is non-zero and no result line is printed:
    one epoch (128 steps), checking finite losses and the launch counts
    (8 blocks x 128 steps for K8f/K8b/K1f/K1b, none of K2 or K3: the energy
    score takes its plain version at D = 49,152, as the JAX gate does), then
-   64 samples of (128, 128, 3) from its ``model_final.pt`` (K8f = 8 x 20).
+   64 samples of (128, 128, 3) from its ``model_final.pt`` (K8f = 8 x 20);
+   7c. the MoE slice: the trainer with ``--moe-experts 8 --moe-capacity
+   1.25 --moe-group-size 256 --moe-topk 1 --moe-aux-weight 0.01`` for one
+   epoch (8 steps), checking finite losses and moe_aux and the launch
+   counts (8 blocks x 8 steps for K2f/K2b/K11f/K11b/K10f/K10b/K12f/K12b, 8
+   for K3f/K3b, none of K1), then 64 samples from its ``model_final.pt``
+   (K2f, K11f, K10f, K12f = 8 x 20 each).
 
 Every phase runs at full DiT-S/4 width and depth 8; the whole run takes a
 few minutes of the 20 allowed, the kernels' build included.
@@ -61,6 +80,7 @@ import contextlib
 import json
 import os
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -82,6 +102,15 @@ FLASH_HEADS = 6
 FLASH_SHAPES = [(128, 1024), (64, 1024), (2, 4096), (1, 16384)]  # (B, N); the first is timed
 LONG_SIZE, LONG_BATCH, LONG_M = 128, 16, 8
 LONG_STEPS = 2048 // LONG_BATCH
+# the MoE path: configs/cifar10_dit_moe.yaml's recipe, 8 top-1 experts per block
+MOE = {"moe_experts": 8, "moe_capacity": 1.25, "moe_group_size": 256, "moe_topk": 1}
+MOE_AUX_WEIGHT = 0.01
+# the router's psum: fp32 sums of the probabilities in another order
+PSUM_RTOL = 1e-5
+# roofline: the published H100 SXM peaks (bf16 tensor cores, fp32 outside
+# them) and the HBM rate; a bound is the larger of bytes / HBM and ops / peak
+PEAK = {"bf16": 989e12, "fp32": 67e12}
+HBM = 3.35e12
 
 
 def _ulp2(ref: torch.Tensor) -> float:
@@ -111,6 +140,20 @@ def _median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _bound(nbytes: float, flops: float, kind: str = "bf16") -> dict:
+    """The least time the card could take: each input read and each output
+    written once at the HBM rate, or the operations at the peak rate for
+    their type, whichever is longer; with the bytes and operations counted."""
+    t_bytes, t_ops = nbytes / HBM, flops / PEAK[kind]
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": int(nbytes), "bound_ops": int(flops), "bound_ops_type": kind}
 
 
 def _rel_frob(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -163,9 +206,10 @@ def _attn_args(gen, B, N, D):
                                          ((D, D), D ** -0.5, 0.0), ((D,), 0.1, 0.0)])
 
 
-def _entry(name, source, sources, replaces, max_err, ms, plain_ms):
+def _entry(name, source, sources, replaces, max_err, ms, plain_ms, bound, library_ms=None):
     return {"name": name, "route": "cuda", "source": source, "sources": sources,
-            "replaces": replaces, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+            "replaces": replaces, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            **bound, "library_ms": library_ms}
 
 
 def phase_kernels(M, A, smi):
@@ -175,17 +219,18 @@ def phase_kernels(M, A, smi):
         ("K1f", "ddm_tpu_torch/csrc/gemm.cu",
          ["ddm_tpu_torch/csrc/gemm.cu", "ddm_tpu_torch/csrc/common.cuh"],
          "ddm_tpu/ops/mlp_block.py:144", M.fused_mlp_block, M.mlp_block_reference,
-         _mlp_args(gen, T, D, F), (), f"(T={T}, D={D}, F={F})"),
+         _mlp_args(gen, T, D, F), (), f"(T={T}, D={D}, F={F})", 4 * T * D * F),
+        # qkv and projection GEMMs, then QK^T and PV per image and head
         ("K2f", "ddm_tpu_torch/csrc/attention.cu",
          ["ddm_tpu_torch/csrc/attention.cu", "ddm_tpu_torch/csrc/gemm.cu",
           "ddm_tpu_torch/csrc/common.cuh"],
          "ddm_tpu/ops/attention.py:341", A.fused_attention_block,
          A.attention_block_reference, _attn_args(gen, B, N, D), (H,),
-         f"(B={B}, N={N}, D={D}, H={H})"),
+         f"(B={B}, N={N}, D={D}, H={H})", 8 * B * N * D * D + 4 * B * N * N * D),
     ]
     results = []
     with torch.inference_mode():
-        for name, source, sources, replaces, kern, plain, args, extra, shape in cases:
+        for name, source, sources, replaces, kern, plain, args, extra, shape, flops in cases:
             got = kern(*args, *extra)
             torch.cuda.synchronize()
             want = plain(*args, *extra)
@@ -200,14 +245,15 @@ def phase_kernels(M, A, smi):
                   f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20) on {smi}")
             if not (np.isfinite(max_err) and max_err <= tol and mean_err <= KERNEL_MEAN_TOL):
                 raise AssertionError(f"{name} disagrees with its plain version")
-            results.append(_entry(name, source, sources, replaces, max_err, ms, plain_ms))
+            results.append(_entry(name, source, sources, replaces, max_err, ms, plain_ms,
+                                  _bound(_nbytes(*args, got), flops)))
     return results
 
 
-def _check_grads(name, got, want, smi, ms, plain_ms):
+def _check_grads(name, got, want, smi, ms, plain_ms,
+                 labels=("dx", "dscale", "dbias", "dW_in", "db_in", "dW_out", "db_out")):
     """dx (bf16) to two units in the last place and a mean below 1e-3; each
     fp32 gradient to 1e-2 of its largest entry and 1e-3 in Frobenius norm."""
-    labels = ["dx", "dscale", "dbias", "dW_in", "db_in", "dW_out", "db_out"]
     worst = 0.0
     parts = []
     for i, (lab, g, w) in enumerate(zip(labels, got, want)):
@@ -246,18 +292,23 @@ def phase_backward(M, A, smi):
           "ddm_tpu_torch/csrc/common.cuh"],
          "ddm_tpu/ops/mlp_block.py:211",
          lambda: M.mlp_block_bwd(*mlp, dout_m), lambda: M.mlp_block_bwd_reference(*mlp, dout_m),
-         f"(T={T}, D={D}, F={F})"),
+         f"(T={T}, D={D}, F={F})", (*mlp, dout_m),
+         # the W1 recompute, dW2, dh, dW1 and dy products
+         10 * T * D * F),
         ("K2b", "ddm_tpu_torch/csrc/attention.cu",
          ["ddm_tpu_torch/csrc/attention.cu", "ddm_tpu_torch/csrc/gemm_bwd.cu",
           "ddm_tpu_torch/csrc/gemm.cu", "ddm_tpu_torch/csrc/common.cuh"],
          "ddm_tpu/ops/attention.py:358",
          lambda: A.attention_block_bwd(*attn, H, dout_a),
          lambda: A.attention_block_bwd_reference(*attn, H, dout_a),
-         f"(B={B}, N={N}, D={D}, H={H})"),
+         f"(B={B}, N={N}, D={D}, H={H})", (*attn, dout_a),
+         # the qkv recompute, dWproj, datt, dWqkv and dx GEMMs; QK^T and PV
+         # recomputed, then dV, dP, dQ and dK per image and head
+         2 * T * D * D * (3 + 1 + 1 + 3 + 3) + 12 * B * N * N * D),
     ]
     results = []
     with torch.no_grad():
-        for name, source, sources, replaces, kern, plain, shape in cases:
+        for name, source, sources, replaces, kern, plain, shape, inputs, flops in cases:
             got = kern()
             again = kern()
             torch.cuda.synchronize()
@@ -268,7 +319,8 @@ def phase_backward(M, A, smi):
             plain_ms = _median_ms(plain)
             worst = _check_grads(f"{name} {shape} bf16 (second call bit-identical)",
                                  got, want, smi, ms, plain_ms)
-            results.append(_entry(name, source, sources, replaces, worst, ms, plain_ms))
+            results.append(_entry(name, source, sources, replaces, worst, ms, plain_ms,
+                                  _bound(_nbytes(*inputs, *got), flops)))
             del got, again, want
             torch.cuda.empty_cache()
     return results
@@ -312,10 +364,31 @@ def phase_energy(E, smi):
     for name in ("K3f", "K3b"):
         print(f"[kernel] {name} (B={B}, m={m}, D={D}) beta=0.1: kernel {timings[name][0]:.4f} ms, "
               f"plain {timings[name][1]:.4f} ms (median of 20) on {smi}")
+    # fp32 work: |xh_i - x0| over the B*m rows and |xh_i - xh_j| over the
+    # B*m(m-1)/2 pairs, a subtract, square and add per element (twice that
+    # in the backward); K3f reads xh and x0, K3b also writes their gradients
+    flops = 3 * B * m * D * (1 + (m - 1) / 2)
+    bounds = {"K3f": _bound(_nbytes(xh, x0, gconf, ginter), flops, "fp32"),
+              "K3b": _bound(2 * _nbytes(xh, x0) + _nbytes(gconf, ginter), 2 * flops, "fp32")}
     return [_entry(name, "ddm_tpu_torch/csrc/energy.cu",
                    ["ddm_tpu_torch/csrc/energy.cu", "ddm_tpu_torch/csrc/common.cuh"],
-                   f"ddm_tpu/ops/energy.py:{line}", worst[name], *timings[name])
+                   f"ddm_tpu/ops/energy.py:{line}", worst[name], *timings[name], bounds[name])
             for name, line in (("K3f", 88), ("K3b", 112))]
+
+
+def _sdpa_ms(q, k, v, do, H):
+    """PyTorch's own attention on the same inputs, copied once into its
+    (B, H, N, Dh) layout: the forward, and the forward with the backward.
+    A yardstick only; the port never calls it."""
+    B, N, D = q.shape
+    qs, ks, vs, dos = (t.reshape(B, N, H, D // H).transpose(1, 2).contiguous()
+                       for t in (q, k, v, do))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    with torch.no_grad():
+        fwd = _median_ms(lambda: sdpa(qs, ks, vs))
+    leaves = [t.detach().requires_grad_() for t in (qs, ks, vs)]
+    both = _median_ms(lambda: torch.autograd.grad(sdpa(*leaves), leaves, dos))
+    return {"K8f": fwd, "K8b": both}
 
 
 def phase_flash(FL, smi):
@@ -358,20 +431,227 @@ def phase_flash(FL, smi):
               f"on {smi}")
         if not ok:
             raise AssertionError(f"K8 disagrees with its plain version at (B={B}, N={N})")
+        if not shapes:  # the training shape: bounds and the library's time
+            core = 2 * B * H * N * N * FL.HEAD_DIM  # one (N x N x Dh) product per image and head
+            bounds = {"K8f": _bound(_nbytes(qkv, o, lse), 2 * core),
+                      # the least backward: S, dV, dP, dQ and dK
+                      "K8b": _bound(_nbytes(qkv, o, lse, do) + _nbytes(qkv), 5 * core)}
+            library = _sdpa_ms(q, k, v, do, H)
+            print(f"[library] torch scaled_dot_product_attention (B={B}, H={H}, N={N}, "
+                  f"Dh={FL.HEAD_DIM}) bf16 in its own layout: forward {library['K8f']:.4f} ms, "
+                  f"forward + backward {library['K8b']:.4f} ms (median of 20) on {smi}")
         shapes.append({"B": B, "N": N, **times})
         del qkv, q, k, v, do, o, lse
         torch.cuda.empty_cache()
     srcs = ["ddm_tpu_torch/csrc/flash.cu", "ddm_tpu_torch/csrc/common.cuh"]
     entries = [_entry("K8f", srcs[0], srcs, "ddm_tpu/ops/flash.py:330", worst["K8f"],
-                      shapes[0]["fwd"], shapes[0]["plain_fwd"]),
+                      shapes[0]["fwd"], shapes[0]["plain_fwd"], bounds["K8f"], library["K8f"]),
                _entry("K8b", srcs[0], srcs, "ddm_tpu/ops/flash.py:372", worst["K8b"],
-                      shapes[0]["bwd"], shapes[0]["plain_bwd"])]
+                      shapes[0]["bwd"], shapes[0]["plain_bwd"], bounds["K8b"], library["K8b"])]
     for e in entries:
         e["shapes"] = [{"B": t["B"], "N": t["N"],
                         "ms": t["fwd" if e["name"] == "K8f" else "bwd"],
                         "plain_ms": t["plain_fwd" if e["name"] == "K8f" else "plain_bwd"]}
                        for t in shapes]
     return entries
+
+
+def _kept(cfg, pos1, pos2) -> int:
+    """Slot rows held by a token: routed choices within capacity."""
+    return sum(int(((p >= 0) & (p < cfg.cap)).sum()) for p in (pos1, pos2))
+
+
+def _routing(MD, ML, cfg, got, want, x, scale, bias, wr, br):
+    """The routing rule: ``(tokens whose experts differ, groups whose slot
+    positions all agree, the largest logit gap among the differing tokens,
+    its tolerance)``. The kernel's LN statistics differ from the plain
+    version's in the last fp32 bits, which can flip the bf16 rounding of a
+    yb entry by one unit and so move a logit by up to ulp(max |yb|) times
+    max |wr|. A token may route otherwise only where its top ``topk + 1``
+    logits (the plain version's) lie within twice that of each other; the
+    same bound holds the gates and router probabilities."""
+    experts = [torch.stack([MD.chosen(p)[0].reshape(-1) for p in out[2:4]]) for out in (got, want)]
+    moved = (experts[0] != experts[1]).any(0)
+    agree = ((got[2] == want[2]) & (got[3] == want[3])).flatten(1).all(1)
+    y = ML.layer_norm(x.float(), scale, bias).to(x.dtype).float()
+    tol = _ulp2(y) * float(wr.abs().max())  # _ulp2: two bf16 units at max |yb|
+    gap = 0.0
+    if moved.any():
+        top = (y[moved] @ wr.float() + br.float()).topk(cfg.topk + 1, dim=-1).values
+        gap = float((top[:, :-1] - top[:, 1:]).min(-1).values.max())
+    return int(moved.sum()), agree, gap, tol
+
+
+def phase_moe_kernels(MD, X, ML, smi):
+    """K11 (dispatch), K12 (combine) and K10 (expert FFN) at the MoE
+    training shape, top-1 and (K11, K12) top-2, against their plain versions."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    T, D, F, E, GS = TRAIN_BATCH * TRAIN_M * 64, 384, 1536, MOE["moe_experts"], 256
+
+    def r(*shape, scale=1.0, off=0.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale + off
+
+    bf = torch.bfloat16
+    x = r(T, D).to(bf)
+    scale, bias, wr, br = r(D, scale=0.1, off=1.0), r(D, scale=0.1), r(D, E, scale=D ** -0.5), \
+        r(E, scale=0.1)
+    moe_src = ["ddm_tpu_torch/csrc/moe.cu", "ddm_tpu_torch/csrc/common.cuh"]
+    entries, timed = {}, {}
+    for topk in (1, 2):
+        cfg, _ = MD.moe_cfg(T, E, GS, MOE["moe_capacity"], topk)
+        G = T // GS
+        shape = f"(T={T}, D={D}, E={E}, gs={GS}, cap={cfg.cap}, top-{topk})"
+        args = (cfg, x, scale, bias, wr, br)
+        with torch.no_grad():
+            got = MD.moe_dispatch_fwd(*args)
+            torch.cuda.synchronize()
+            want = MD.moe_dispatch_reference(*args)
+        xin, gates, pos1, pos2, probs, cnt, psum = got
+        moved, agree, gap, rtol = _routing(MD, ML, cfg, got, want, x, scale, bias, wr, br)
+        slots = lambda t: t.view(E, G, cfg.cpad, D)[:, agree]  # noqa: E731
+        xerr, xmean, xtol, ok = _bf16_errors(slots(xin), slots(want[0]))
+        empty = ~slots(want[0]).any(-1)
+        ok = ok and not slots(xin)[empty].any()  # unheld slot rows are written as zeros
+        router_err = max(float((gates[agree] - want[1][agree]).abs().max()),
+                         float((probs - want[4]).abs().max()))
+        psum_rel = float(((psum - want[6]).abs() / want[6].abs()).max())
+        cnt_err = float((cnt - want[5]).abs().max())
+        ok = ok and router_err <= rtol and psum_rel <= PSUM_RTOL and cnt_err <= moved
+        ok = ok and gap < rtol and int(agree.sum()) >= G - moved
+        ms = _median_ms(lambda: MD.moe_dispatch_fwd(*args))
+        plain_ms = _median_ms(lambda: MD.moe_dispatch_reference(*args))
+        print(f"[kernel] K11f {shape} bf16: {moved} tokens routed otherwise than by the plain "
+              f"version (largest top-logit gap among them {gap:.3g}, tol {rtol:.3g} = one bf16 "
+              f"unit of yb times max |wr|, twice), {int(agree.sum())} of {G} groups agree; on "
+              f"those xin max {xerr:.4g} (tol {xtol:.4g}) mean {xmean:.3g}, unheld slot rows "
+              f"zero; gates/probs max {router_err:.3g} (tol {rtol:.3g}), psum rel {psum_rel:.3g} "
+              f"(tol {PSUM_RTOL:g}), cnt max {cnt_err:g}; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms (median of 20) on {smi}")
+        if not ok:
+            raise AssertionError(f"K11f disagrees with its plain version at top-{topk}")
+        kept = _kept(cfg, pos1, pos2)
+        ln_router = 2 * T * D * E + 8 * T * D  # fp32: the router product and the LN
+        timed[("K11f", topk)] = (xerr, ms, plain_ms, _bound(
+            _nbytes(x, scale, bias, wr, br, *got), ln_router, "fp32"))
+
+        # the backward, both sides on the kernel's routing state
+        dxin, dgates, dpsum, dres = r(*xin.shape).to(bf), r(G, GS, 2), r(E), r(T, D).to(bf)
+        for res in (dres, None):
+            kern = lambda: MD.moe_dispatch_bwd(  # noqa: E731
+                cfg, x, scale, bias, wr, pos1, pos2, probs, dxin, dgates, dpsum, res)
+            plain = lambda: MD.moe_dispatch_bwd_reference(  # noqa: E731
+                cfg, x, scale, bias, wr, pos1, pos2, probs, dxin, dgates, dpsum, res)
+            with torch.no_grad():
+                g1, g2 = kern(), kern()
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(g1, g2)):
+                    raise AssertionError(f"K11b is not deterministic at top-{topk}")
+                ms, plain_ms = _median_ms(kern), _median_ms(plain)
+                worst = _check_grads(
+                    f"K11b {shape}{' thru' if res is not None else ''} bf16 (second call "
+                    "bit-identical)", g1, plain(), smi, ms, plain_ms,
+                    labels=("dx", "dscale", "dbias", "dwr", "dbr"))
+            if res is not None:
+                # dxin read at the held slot rows only; dres read, dx written
+                nbytes = _nbytes(x, scale, bias, wr, pos1, pos2, probs, dgates, dpsum, dres,
+                                 *g1) + kept * D * 2
+                timed[("K11b", topk)] = (worst, ms, plain_ms,
+                                         _bound(nbytes, 2 * ln_router, "fp32"))
+
+        # K12 on the kernel's routing state: forward with and without the
+        # residual, then the backward
+        eout, dpart = r(*xin.shape).to(bf), r(T, D).to(bf)
+        for res in (x, None):
+            with torch.no_grad():
+                part = MD.moe_combine_fwd(cfg, eout, gates, pos1, pos2, res)
+                torch.cuda.synchronize()
+                perr, pmean, ptol, ok = _bf16_errors(
+                    part, MD.moe_combine_reference(cfg, eout, gates, pos1, pos2, res))
+            if not ok:
+                raise AssertionError(f"K12f disagrees with its plain version at top-{topk}")
+            worst_f = perr if res is not None else max(worst_f, perr)
+        ms = _median_ms(lambda: MD.moe_combine_fwd(cfg, eout, gates, pos1, pos2, x))
+        plain_ms = _median_ms(lambda: MD.moe_combine_reference(cfg, eout, gates, pos1, pos2, x))
+        print(f"[kernel] K12f {shape} bf16, with and without the residual: max {worst_f:.4g} "
+              f"(tol {ptol:.4g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20, "
+              f"with the residual) on {smi}")
+        # the held slot rows of eout are read; gates, pos, res read, the tokens written
+        timed[("K12f", topk)] = (worst_f, ms, plain_ms, _bound(
+            _nbytes(gates, pos1, pos2, x, part) + kept * D * 2, 2 * kept * D, "fp32"))
+        with torch.no_grad():
+            kern = lambda: MD.moe_combine_bwd(cfg, eout, gates, pos1, pos2, dpart)  # noqa: E731
+            plain = lambda: MD.moe_combine_bwd_reference(  # noqa: E731
+                cfg, eout, gates, pos1, pos2, dpart)
+            (dout, dg), again = kern(), kern()
+            torch.cuda.synchronize()
+            if not (torch.equal(dout, again[0]) and torch.equal(dg, again[1])):
+                raise AssertionError(f"K12b is not deterministic at top-{topk}")
+            want_dout, want_dg = plain()
+            derr, dmean, dtol, ok = _bf16_errors(dout, want_dout)
+            ok = ok and not dout[~want_dout.any(-1)].any()  # unheld slot rows: zeros
+            gerr = float((dg - want_dg).abs().max())
+            ok = ok and gerr <= ENERGY_GRAD_RTOL * float(want_dg.abs().max())
+            ms, plain_ms = _median_ms(kern), _median_ms(plain)
+        print(f"[kernel] K12b {shape} bf16 (second call bit-identical): dout max {derr:.4g} "
+              f"(tol {dtol:.4g}) mean {dmean:.3g}, unheld slot rows zero; dgates max {gerr:.4g} "
+              f"(tol {ENERGY_GRAD_RTOL:g} of its max); kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms (median of 20) on {smi}")
+        if not ok:
+            raise AssertionError(f"K12b disagrees with its plain version at top-{topk}")
+        timed[("K12b", topk)] = (max(derr, gerr), ms, plain_ms, _bound(
+            _nbytes(gates, pos1, pos2, dpart, dout, dg) + kept * D * 2, 4 * kept * D, "fp32"))
+        if topk == 1:
+            slot_rows = xin
+        del got, want, eout, dpart, dxin, dres
+
+    # K10 on the top-1 dispatch's slot rows (its unheld rows are zeros)
+    w1, b1 = r(E, D, F, scale=D ** -0.5), r(E, F, scale=0.1)
+    w2, b2 = r(E, F, D, scale=F ** -0.5), r(E, D, scale=0.1)
+    dout = r(*slot_rows.shape).to(bf)
+    ffn = (slot_rows, w1, b1, w2, b2)
+    S = slot_rows.shape[1]
+    shape = f"(E={E}, S={S}, D={D}, F={F})"
+    with torch.no_grad():
+        got = X.expert_ffn(*ffn)
+        torch.cuda.synchronize()
+        ferr, fmean, ftol, ok = _bf16_errors(got, X.expert_ffn_reference(*ffn))
+        ms = _median_ms(lambda: X.expert_ffn(*ffn))
+        plain_ms = _median_ms(lambda: X.expert_ffn_reference(*ffn))
+    print(f"[kernel] K10f {shape} bf16: max_abs_err={ferr:.6g} (tol {ftol:.6g}), "
+          f"mean_abs_err={fmean:.6g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20) "
+          f"on {smi}")
+    if not ok:
+        raise AssertionError("K10f disagrees with its plain version")
+    timed[("K10f", 1)] = (ferr, ms, plain_ms, _bound(_nbytes(*ffn, got), 4 * E * S * D * F))
+    del got
+    with torch.no_grad():
+        kern = lambda: X.expert_ffn_bwd(*ffn, dout)  # noqa: E731
+        g1, g2 = kern(), kern()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(g1, g2)):
+            raise AssertionError("K10b is not deterministic")
+        del g2
+        ms, plain_ms = _median_ms(kern), _median_ms(lambda: X.expert_ffn_bwd_reference(*ffn, dout))
+        worst = _check_grads(f"K10b {shape} bf16 (second call bit-identical)", g1,
+                             X.expert_ffn_bwd_reference(*ffn, dout), smi, ms, plain_ms,
+                             labels=("dx", "dW1", "db1", "dW2", "db2"))
+    # the h recompute, dW2, dg, dW1 and dx products
+    timed[("K10b", 1)] = (worst, ms, plain_ms, _bound(_nbytes(*ffn, dout, *g1),
+                                                      10 * E * S * D * F))
+    for name, line, src in (("K10f", "expert_ffn.py:55", "gemm_bwd.cu"),
+                            ("K10b", "expert_ffn.py:63", "gemm_bwd.cu"),
+                            ("K11f", "moe_dispatch.py:150", "moe.cu"),
+                            ("K11b", "moe_dispatch.py:198", "moe.cu"),
+                            ("K12f", "moe_dispatch.py:481", "moe.cu"),
+                            ("K12b", "moe_dispatch.py:510", "moe.cu")):
+        sources = (moe_src if src == "moe.cu" else
+                   ["ddm_tpu_torch/csrc/gemm_bwd.cu", "ddm_tpu_torch/csrc/common.cuh"])
+        entry = _entry(name, sources[0], sources, f"ddm_tpu/ops/{line}", *timed[(name, 1)])
+        if (name, 2) in timed:
+            entry["top2"] = dict(zip(("max_abs_err", "ms", "plain_ms"), timed[(name, 2)][:3]),
+                                 **timed[(name, 2)][3])
+        entries[name] = entry
+    return list(entries.values())
 
 
 def phase_model(cfg, smi):
@@ -449,15 +729,55 @@ class _Plain(torch.autograd.Function):
         return (None, None, *ctx.bwd(*ctx.saved_tensors, *grads))
 
 
+class _PlainDispatch(torch.autograd.Function):
+    """The plain K11 forward and backward on any device, as
+    ``moe_dispatch_thru`` returns them; ``choices`` replays a given routing."""
+
+    @staticmethod
+    def forward(ctx, cfg, n_valid, choices, x, scale, bias, wr, br):
+        from ddm_tpu_torch.ops import moe_dispatch as MD
+
+        xin, gates, pos1, pos2, probs, cnt, psum = MD.moe_dispatch_reference(
+            cfg, x, scale, bias, wr, br, n_valid, choices)
+        ctx.cfg, ctx.n_valid = cfg, n_valid
+        ctx.save_for_backward(x, scale, bias, wr, pos1, pos2, probs)
+        ctx.mark_non_differentiable(pos1, pos2, cnt)
+        return xin, gates, pos1, pos2, cnt, psum, x
+
+    @staticmethod
+    def backward(ctx, dxin, dgates, _dp1, _dp2, _dcnt, dpsum, dthru):
+        from ddm_tpu_torch.ops import moe_dispatch as MD
+
+        return (None, None, None, *MD.moe_dispatch_bwd_reference(
+            ctx.cfg, *ctx.saved_tensors, dxin, dgates, dpsum, dthru, ctx.n_valid))
+
+
 @contextlib.contextmanager
-def plain_ops():
-    """Route the model's half-blocks and the step's energy score through the
-    plain versions (forward and backward) on the card."""
+def _patched(module, **fns):
+    saved = {k: getattr(module, k) for k in fns}
+    for k, v in fns.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(module, k, v)
+
+
+@contextlib.contextmanager
+def plain_ops(replay=None):
+    """Route the model's half-blocks, its MoE layers and the step's energy
+    score through the plain versions (forward and backward) on the card.
+    ``replay``, a list of routings from :func:`record_routes`, makes the
+    MoE layers route as recorded, block by block, in place of their argmax."""
     from ddm_tpu_torch import training
     from ddm_tpu_torch.models import dit
+    from ddm_tpu_torch.models import moe as MM
     from ddm_tpu_torch.ops import attention as A
     from ddm_tpu_torch.ops import energy as E
+    from ddm_tpu_torch.ops import expert_ffn as X
     from ddm_tpu_torch.ops import mlp_block as M
+    from ddm_tpu_torch.ops import moe_dispatch as MD
 
     def mlp(*t):
         return _Plain.apply(M.mlp_block_reference, M.mlp_block_bwd_reference, *t)
@@ -475,22 +795,60 @@ def plain_ops():
                                 xh_, x0_, beta, gc, gi),
                             xh.float().contiguous(), x0.float().contiguous())
 
-    saved = (dit.fused_mlp_block, dit.fused_attention_block, training.fused_energy_terms)
-    dit.fused_mlp_block, dit.fused_attention_block, training.fused_energy_terms = mlp, attn, energy
-    try:
+    routes = iter(replay or ())
+
+    def dispatch(cfg, x, scale, bias, wr, br, n_valid):
+        choices = tuple(next(routes)) if replay else None
+        return _PlainDispatch.apply(cfg, n_valid, choices, x, scale, bias, wr, br)
+
+    def ffn(*t):
+        return _Plain.apply(X.expert_ffn_reference, X.expert_ffn_bwd_reference, *t)
+
+    def combine_res(cfg, out, gates, pos1, pos2, res):
+        return _Plain.apply(
+            lambda *a: MD.moe_combine_reference(cfg, *a),
+            lambda o, g, p1, p2, r, dp: (
+                *MD.moe_combine_bwd_reference(cfg, o, g, p1, p2, dp), None, None, dp),
+            out, gates, pos1, pos2, res)
+
+    with _patched(dit, fused_mlp_block=mlp, fused_attention_block=attn), \
+            _patched(training, fused_energy_terms=energy), \
+            _patched(MM, moe_dispatch_thru=dispatch, expert_ffn=ffn, moe_combine_res=combine_res):
         yield
-    finally:
-        dit.fused_mlp_block, dit.fused_attention_block, training.fused_energy_terms = saved
+
+
+@contextlib.contextmanager
+def record_routes(routes):
+    """Append each MoE layer's routing, in block order, to ``routes``: the
+    expert of every token's first and second choice (-1 for none), (2, T)."""
+    from ddm_tpu_torch.models import moe as MM
+    from ddm_tpu_torch.ops.moe_dispatch import chosen
+
+    real = MM.moe_dispatch_thru
+
+    def dispatch(*args):
+        out = real(*args)
+        routes.append(torch.stack([chosen(p)[0].reshape(-1) for p in out[2:4]]))
+        return out
+
+    with _patched(MM, moe_dispatch_thru=dispatch):
+        yield
+
+
+def _moved(a, b) -> int:
+    """Tokens routed to other experts in two runs' routings, over all blocks."""
+    return sum(int((x != y).any(0).sum()) for x, y in zip(a, b))
 
 
 def phase_train_step(cfg, smi, batch=TRAIN_BATCH, m=TRAIN_M, label="train-step"):
     from ddm_tpu_torch.data.augment import normalize_images
     from ddm_tpu_torch.data.cifar10 import CIFAR10DataConfig, build_cifar10_dataloaders
     from ddm_tpu_torch.models.dit import init_params, patchify_images
-    from ddm_tpu_torch.models.factory import build_model
+    from ddm_tpu_torch.models.factory import build_model, make_tokens_apply
     from ddm_tpu_torch.training import distributional_training_step
 
     beta, size = 0.1, cfg["image_size"]
+    moe = cfg["moe_experts"] > 1
     data = CIFAR10DataConfig(batch_size=batch, image_size=size, synthetic=True)
     if size != 32:
         data.synthetic_size = batch  # resize one batch, not the whole set
@@ -502,29 +860,49 @@ def phase_train_step(cfg, smi, batch=TRAIN_BATCH, m=TRAIN_M, label="train-step")
     eps = torch.randn(x0.shape, generator=gen, device="cuda")
     xi = torch.randn((batch, m, size, size, 3), generator=gen, device="cuda")
 
-    def step(dtype):
+    def step(dtype, routes=None, backward=True):
         model = init_params(build_model({**cfg, "dtype": dtype}, "cuda"),
                             torch.Generator().manual_seed(0))
-        loss, metrics = distributional_training_step(
-            model.tokens, x0, m=m, beta=beta, lam=1.0, w_bias=0.0, t=t, eps=eps, xi=xi,
-            target_transform=lambda a: patchify_images(a, cfg["patch_size"]))
+        with record_routes([] if routes is None else routes), \
+                torch.set_grad_enabled(backward):
+            loss, metrics = distributional_training_step(
+                make_tokens_apply(model, MOE_AUX_WEIGHT), x0, m=m, beta=beta, lam=1.0,
+                w_bias=0.0, t=t, eps=eps, xi=xi,
+                target_transform=lambda a: patchify_images(a, cfg["patch_size"]))
+        if not backward:
+            return None, None
         loss.backward()
         torch.cuda.synchronize()
         grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()}
         return {k: float(v.detach()) for k, v in metrics.items()}, grads
 
     t0 = time.perf_counter()
-    got, g_got = step("bfloat16")
+    routes = []
+    got, g_got = step("bfloat16", routes)
     seconds = time.perf_counter() - t0
     again, g_again = step("bfloat16")
     if again != got or any(not torch.equal(g_got[k], g_again[k]) for k in g_got):
         raise AssertionError("two kernel training steps on the same inputs differ")
-    with plain_ops():
+    routing = ""
+    if moe:
+        # routing is discrete: count the tokens that each plain step, left to
+        # its own argmax, routes otherwise, then give both plain steps the
+        # kernel step's routing so that the yardstick measures arithmetic
+        r16, r32 = [], []
+        with plain_ops():
+            step("bfloat16", r16, backward=False)
+            step("float32", r32, backward=False)
+        routing = (f"; routing over {cfg['depth']} blocks: the plain bf16 step routes "
+                   f"{_moved(routes, r16)} tokens otherwise than the kernel step and the plain "
+                   f"fp32 step {_moved(r16, r32)} otherwise than the plain bf16 one, so both "
+                   "plain steps take the kernel step's routing")
+    with plain_ops(replay=routes if moe else None):
         want, g_want = step("bfloat16")
+    with plain_ops(replay=routes if moe else None):
         want32, g_want32 = step("float32")
 
     lines = []
-    for k in ("loss", "confidence", "interaction"):
+    for k in ("loss", "confidence", "interaction") + (("moe_aux",) if moe else ()):
         err, tol = abs(got[k] - want[k]), 2.0 * abs(want[k] - want32[k])
         lines.append(f"{k} {got[k]:.6f} vs plain {want[k]:.6f} (err {err:.3g}, tol {tol:.3g})")
         if not (np.isfinite(got[k]) and err <= tol):
@@ -535,12 +913,13 @@ def phase_train_step(cfg, smi, batch=TRAIN_BATCH, m=TRAIN_M, label="train-step")
         if not (torch.isfinite(g_got[k]).all() and err <= tol):
             raise AssertionError(f"gradient of {k} disagrees: relF {err:.3g} > tol {tol:.3g}")
         worst = max(worst, (k, err / tol), key=lambda kv: kv[1])
-    print(f"[{label}] DiT-S/4 at {size} px (N = {(size // cfg['patch_size']) ** 2} tokens, "
-          f"depth {cfg['depth']}) one step (batch {batch} x m {m}, injected t/eps/xi) "
-          f"kernels vs plain (tol = 2 |plain bf16 - plain fp32|): " + "; ".join(lines)
+    print(f"[{label}] DiT-S/4{' MoE' if moe else ''} at {size} px "
+          f"(N = {(size // cfg['patch_size']) ** 2} tokens, depth {cfg['depth']}) one step "
+          f"(batch {batch} x m {m}, injected t/eps/xi) kernels vs plain (tol = 2 |plain bf16 - "
+          f"plain fp32|): " + "; ".join(lines)
           + f"; {len(g_want)} parameter gradients within tol (relative Frobenius), "
-          f"tightest {worst[0]} at {worst[1]:.3f} of tol; second kernel step bit-identical; "
-          f"first (cold) step {seconds:.3f} s on {smi}")
+          f"tightest {worst[0]} at {worst[1]:.3f} of tol; second kernel step bit-identical"
+          f"{routing}; first (cold) step {seconds:.3f} s on {smi}")
 
 
 def phase_train(kc, name, smi):
@@ -585,6 +964,63 @@ def phase_train(kc, name, smi):
           f"{result['images_per_sec']:.2f} img/s on {name} ({smi}); launches in training "
           f"{train}, in its sampler {sample}; model_final.pt sampled by generate_torch")
     return train
+
+
+def phase_train_moe(kc, name, smi):
+    """The MoE path end to end: the trainer with configs/cifar10_dit_moe.yaml's
+    flags for one epoch, its sampler, then generate_torch on its checkpoint."""
+    import generate_torch
+    import train_cifar10_dit_torch
+
+    flags = ["--moe-experts", str(MOE["moe_experts"]), "--moe-capacity", str(MOE["moe_capacity"]),
+             "--moe-group-size", str(MOE["moe_group_size"]), "--moe-topk", str(MOE["moe_topk"]),
+             "--moe-aux-weight", str(MOE_AUX_WEIGHT)]
+    with tempfile.TemporaryDirectory() as tmp:
+        kc.reset_launch_counts()
+        result = train_cifar10_dit_torch.main([
+            "--synthetic", "--epochs", "1", "--batch", str(TRAIN_BATCH), "--m", str(TRAIN_M),
+            *flags, "--sample-batch", "64", "--log-every", "1", "--device", "cuda",
+            "--out", tmp])
+        total = kc.launch_counts()
+        with open(os.path.join(tmp, "train_metrics.json"), encoding="utf-8") as f:
+            history = json.load(f)
+        for key in ("loss", "moe_aux"):
+            if len(history[key]) != TRAIN_STEPS or not np.isfinite(history[key]).all():
+                raise AssertionError(f"MoE training {key} is not {TRAIN_STEPS} finite values")
+        npz = os.path.join(tmp, "s.npz")
+        kc.reset_launch_counts()
+        sampled = generate_torch.main(["--ckpt", os.path.join(tmp, "model_final.pt"), "--n", "64",
+                                       "--batch", "64", "--device", "cuda", "--npz", npz,
+                                       "--out", ""])
+        generated = kc.launch_counts()
+        samples = np.load(npz)["samples"]
+    if not (samples.shape == (64, 32, 32, 3) and np.isfinite(samples).all()
+            and samples.min() >= -1 and samples.max() <= 1):
+        raise AssertionError("MoE samples are not 64 finite images in [-1, 1]")
+    per_block = DEPTH * TRAIN_STEPS
+    train, sample = result["launches"]["train"], result["launches"]["sample"]
+    want_train = {k: 0 for k in train}
+    want_train.update({k: per_block for k in ("K2f", "K2b", "K11f", "K11b", "K10f", "K10b",
+                                              "K12f", "K12b")})
+    want_train.update({"K3f": TRAIN_STEPS, "K3b": TRAIN_STEPS})
+    want_sample = {k: DEPTH * STEPS if k in ("K2f", "K11f", "K10f", "K12f") else 0
+                   for k in train}
+    if train != want_train or sample != want_sample or generated != want_sample:
+        raise AssertionError(f"the MoE run launched {train} in training, {sample} in its "
+                             f"sampler and {generated} in generate_torch, expected "
+                             f"{want_train}, {want_sample} and {want_sample}")
+    if total != {k: train[k] + sample[k] for k in train}:
+        raise AssertionError(f"the counts read after the MoE run, {total}, do not add up")
+    ms = 1e3 * result["seconds_per_step"]
+    print(f"[train-moe] train_cifar10_dit_torch {' '.join(flags)}: {TRAIN_STEPS} steps (batch "
+          f"{TRAIN_BATCH} x m {TRAIN_M}), losses {[round(v, 6) for v in history['loss']]}, "
+          f"moe_aux {[round(v, 6) for v in history['moe_aux']]}; warm step {ms:.2f} ms (median "
+          f"of steps 2-{TRAIN_STEPS}) = {TRAIN_BATCH / ms * 1e3:.2f} img/s, "
+          f"{TRAIN_BATCH * TRAIN_M / ms * 1e3:.2f} denoiser rows/s; generate_torch 64 samples x "
+          f"{STEPS} steps in {sampled['seconds']:.3f} s = {64 / sampled['seconds']:.2f} "
+          f"samples/s; launches in training {train}, in its sampler {sample}, in generate_torch "
+          f"{generated}; on {name} ({smi})")
+    return train, generated
 
 
 def phase_train_long(kc, name, smi):
@@ -636,7 +1072,18 @@ def phase_train_long(kc, name, smi):
     return train, generated
 
 
-def main() -> None:
+PHASES = ("kernels", "backward", "energy", "flash", "moe-kernels", "slice", "train-step",
+          "train-step-128", "train-step-moe", "train", "train-128", "train-moe")
+
+
+def main(argv=None) -> None:
+    """Run every phase, or (for debugging) only the phases named in ``argv``;
+    the result lines are printed only after a run of every phase."""
+    only = list(sys.argv[1:] if argv is None else argv)
+    unknown = sorted(set(only) - set(PHASES))
+    if unknown:
+        raise SystemExit(f"chip_smoke: unknown phases {unknown}; the phases are {PHASES}")
+    run = set(only or PHASES)
     name, smi = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False  # plain fp32 products in full fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -644,37 +1091,49 @@ def main() -> None:
     from ddm_tpu_torch.models.factory import MODEL_DEFAULTS
     from ddm_tpu_torch.ops import attention as A
     from ddm_tpu_torch.ops import energy as E
+    from ddm_tpu_torch.ops import expert_ffn as X
     from ddm_tpu_torch.ops import flash as FL
     from ddm_tpu_torch.ops import kernel_config as kc
     from ddm_tpu_torch.ops import mlp_block as M
+    from ddm_tpu_torch.ops import moe_dispatch as MD
 
     phase_build(kc)
-    kernels = phase_kernels(M, A, smi)
-    kernels += phase_backward(M, A, smi)
-    kernels += phase_energy(E, smi)
-    flash = phase_flash(FL, smi)
-    torch.cuda.empty_cache()
     cfg = {**MODEL_DEFAULTS, "depth": DEPTH, "sample_steps": STEPS, "eps_churn": 1.0}
-    model = phase_model(cfg, smi)
-    sampled = phase_slice(model, cfg, kc, name, smi)
-    del model
-    torch.cuda.empty_cache()
-    phase_train_step(cfg, smi)
-    torch.cuda.empty_cache()
-    phase_train_step({**cfg, "image_size": LONG_SIZE}, smi, LONG_BATCH, LONG_M, "train-step-128")
-    torch.cuda.empty_cache()
-    trained = phase_train(kc, name, smi)
-    torch.cuda.empty_cache()
-    trained_long, sampled_long = phase_train_long(kc, name, smi)
-    for k in kernels:
-        k["launches"] = trained[k["name"]]
-        if k["name"] in ("K1f", "K2f"):
-            k["sample_launches"] = sampled[k["name"]]
-    for k in flash:
-        k["launches"] = trained_long[k["name"]]
-        if k["name"] == "K8f":
-            k["sample_launches"] = sampled_long["K8f"]
-    kernels += flash
+    moe_cfg = {**cfg, **MOE}
+    steps = [
+        ("kernels", lambda: phase_kernels(M, A, smi)),
+        ("backward", lambda: phase_backward(M, A, smi)),
+        ("energy", lambda: phase_energy(E, smi)),
+        ("flash", lambda: phase_flash(FL, smi)),
+        ("moe-kernels", lambda: phase_moe_kernels(MD, X, M, smi)),
+        ("slice", lambda: phase_slice(phase_model(cfg, smi), cfg, kc, name, smi)),
+        ("train-step", lambda: phase_train_step(cfg, smi)),
+        ("train-step-128", lambda: phase_train_step(
+            {**cfg, "image_size": LONG_SIZE}, smi, LONG_BATCH, LONG_M, "train-step-128")),
+        ("train-step-moe", lambda: phase_train_step(moe_cfg, smi, label="train-step-moe")),
+        ("train", lambda: phase_train(kc, name, smi)),
+        ("train-128", lambda: phase_train_long(kc, name, smi)),
+        ("train-moe", lambda: phase_train_moe(kc, name, smi)),
+    ]
+    out = {}
+    for phase, fn in steps:
+        if phase in run:
+            out[phase] = fn()
+            torch.cuda.empty_cache()
+    if run != set(PHASES):
+        print(f"chip_smoke: ran only {sorted(run)}; no result line")
+        return
+    # launches: each kernel's count in its path's training run, and in that
+    # path's sampler for the forward kernels
+    paths = [(out["kernels"] + out["backward"] + out["energy"], out["train"], out["slice"]),
+             (out["flash"], *out["train-128"]), (out["moe-kernels"], *out["train-moe"])]
+    kernels = []
+    for entries, trained, sampled in paths:
+        for k in entries:
+            k["launches"] = trained[k["name"]]
+            if k["name"].endswith("f"):
+                k["sample_launches"] = sampled[k["name"]]
+        kernels += entries
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

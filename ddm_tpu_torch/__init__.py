@@ -1,16 +1,19 @@
 """PyTorch / CUDA port of ddm_tpu (Distributional Diffusion Models).
 
-Three slices on one NVIDIA H100: the DiT-S/4 sampling path
+Four slices on one NVIDIA H100: the DiT-S/4 sampling path
 (``generate_torch.py``), the CIFAR-10 training path
-(``train_cifar10_dit_torch.py``) and both at ``--image-size`` 128 to 512
-(N = 1024 to 16384 tokens). The DiT block's half-blocks and their
-backwards, the long-sequence attention core and the energy score are
-hand-written CUDA kernels (K1f/K1b MLP, K2f/K2b attention, K8f/K8b flash
-attention, K3f/K3b energy). Imports torch and numpy, never JAX.
+(``train_cifar10_dit_torch.py``), both at ``--image-size`` 128 to 512
+(N = 1024 to 16384 tokens), and both with routed experts in place of the
+dense MLP halves (``--moe-experts``). The DiT block's half-blocks and their
+backwards, the long-sequence attention core, the MoE layer and the energy
+score are hand-written CUDA kernels (K1f/K1b MLP, K2f/K2b attention,
+K8f/K8b flash attention, K11f/K11b MoE dispatch, K10f/K10b expert FFN,
+K12f/K12b MoE combine, K3f/K3b energy). Imports torch and numpy, never JAX.
 """
 
 from .models.dit import DDDMDiT, init_params
-from .models.factory import MODEL_DEFAULTS, SAMPLER_DEFAULTS, build_model
+from .models.factory import MODEL_DEFAULTS, SAMPLER_DEFAULTS, build_model, make_tokens_apply
+from .models.moe import MoEMLP
 from .ops.attention import fused_attention_block
 from .ops.energy import fused_energy_terms
 from .ops.flash import flash_attention
@@ -25,6 +28,8 @@ __all__ = [
     "MODEL_DEFAULTS",
     "SAMPLER_DEFAULTS",
     "build_model",
+    "make_tokens_apply",
+    "MoEMLP",
     "fused_attention_block",
     "fused_energy_terms",
     "flash_attention",

@@ -40,4 +40,41 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+namespace {
+
+// out[n] = sum over s = 0 .. S-1 of ws[s * N + n], in a fixed order: row
+// group g of the block sums s = g, g + 8, ..., then the groups add in order.
+// blockIdx.y is a batch index: ws advances by S*N, out by N. The second
+// pass of every cross-block sum (split-K weight gradients, per-block and
+// per-group partials): no atomics, so the same inputs give the same bits.
+constexpr int kRedCols = 32, kRedGroups = 8;
+
+__global__ void __launch_bounds__(kRedCols * kRedGroups)
+reduce_rows_kernel(const float* __restrict__ ws, float* __restrict__ out, int S, int N) {
+  __shared__ float part[kRedGroups][kRedCols];
+  ws += (size_t)blockIdx.y * S * N;
+  out += (size_t)blockIdx.y * N;
+  const int c = threadIdx.x % kRedCols, g = threadIdx.x / kRedCols;
+  const size_t n = (size_t)blockIdx.x * kRedCols + c;
+  float s = 0.f;
+  if (n < (size_t)N)
+    for (int r = g; r < S; r += kRedGroups) s += ws[(size_t)r * N + n];
+  part[g][c] = s;
+  __syncthreads();
+  if (g == 0 && n < (size_t)N) {
+    float t = part[0][c];
+    for (int k = 1; k < kRedGroups; ++k) t += part[k][c];
+    out[n] = t;
+  }
+}
+
+cudaError_t reduce_rows(const float* ws, float* out, int S, int N, cudaStream_t stream,
+                        int batch = 1) {
+  dim3 grid((N + kRedCols - 1) / kRedCols, batch);
+  reduce_rows_kernel<<<grid, kRedCols * kRedGroups, 0, stream>>>(ws, out, S, N);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
 }  // namespace ddm

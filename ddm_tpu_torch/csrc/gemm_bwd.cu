@@ -23,6 +23,13 @@
 // No atomics: every sum has one fixed order, so the same inputs give
 // bit-identical gradients.
 //
+// The NN and TN products also run batched over experts for the MoE expert
+// FFN (K10, ddm_tpu/ops/expert_ffn.py `_fwd_kernel` / `_bwd_kernel`):
+// blockIdx.z selects the expert and every operand advances by one
+// expert's contiguous slab, with no-LN epilogues (bias, bias + GELU, and
+// bias + GELU writing gelu'(h) beside it for the backward's recompute).
+// The dense callers run a batch of one.
+//
 // What bounds it on the H100: at the training shape (T = 131072 rows,
 // D = 384, F = 1536) the MLP backward is ~0.8 TFLOP of bf16 products per
 // block, plus the (T, F) activations that go through device memory (g and
@@ -44,10 +51,16 @@ constexpr int TLD = BM + kPadH;    // TN: A tile, row-major (BK rows of T x BM)
 constexpr int CLD = BN + kPadF;
 constexpr float kLnEps = 1e-6f;
 
+constexpr float kInvSqrt2 = 0.70710678118654752440f;
+constexpr float kInvSqrt2Pi = 0.39894228040143267794f;
+
 enum NNEpi : int {
-  kNNF32 = 0,     // out (fp32) = acc
-  kNNBf16 = 1,    // out (bf16) = bf16(acc)
-  kNNDGelu = 2,   // dh = acc * dfac; out (bf16) = bf16(dh); colsum partials of dh
+  kNNF32 = 0,           // out (fp32) = acc
+  kNNBf16 = 1,          // out (bf16) = bf16(acc)
+  kNNDGelu = 2,         // dh = acc * aux; out (bf16) = bf16(dh); colsum partials of dh
+  kNNBias = 3,          // out (bf16) = bf16(acc + bias)
+  kNNBiasGelu = 4,      // out (bf16) = bf16(gelu(acc + bias))
+  kNNBiasGeluGrad = 5,  // as kNNBiasGelu, and aux (fp32) = gelu'(acc + bias)
 };
 
 __device__ __forceinline__ void zero_acc(FragC (&acc)[2][2]) {
@@ -82,17 +95,38 @@ __device__ __forceinline__ void load_tile(bf16* dst, int dld, const bf16* __rest
 }
 
 // out[T, Nout] = epi(A[T, K] . W[K, Nout]), W row-major (nn.Linear's (out, in)
-// weight with out = K).
+// weight with out = K). EPI < 0 is the dense callers' kernel: one slab, the
+// epilogue `epi` (F32, BF16 or DGELU) chosen at run time. EPI >= 0 is the
+// expert-batched kernel for that epilogue: blockIdx.z is the expert, and A,
+// W, out and aux advance by T*K, K*Nout and T*Nout elements, bias by Nout,
+// colsum by one (ceil(T / BM), Nout) slab. Compiled apart: with the batched
+// code in the same kernel, or specialised to one epilogue, the dense shapes
+// ran 10-15% slower (profile_torch_step.py's gemm_nn rows), with no spills.
+template <int EPI>
 __global__ void __launch_bounds__(kThreads)
 gemm_nn_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
-               const float* __restrict__ dfac, void* __restrict__ out,
-               float* __restrict__ colsum, int T, int K, int Nout, int epi) {
+               const float* __restrict__ bias, float* __restrict__ aux,
+               void* __restrict__ out, float* __restrict__ colsum, int T, int K, int Nout,
+               int epi) {
+  constexpr bool kBatched = EPI >= 0;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* As = reinterpret_cast<bf16*>(smem);
   bf16* Ws = As + BM * ALD;
   float* Cs = reinterpret_cast<float*>(Ws + BK * WLD);
 
   const int row0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  if constexpr (kBatched) {
+    epi = EPI;
+    const size_t z = blockIdx.z, tn = (size_t)T * Nout;
+    a += z * T * K;
+    w += z * K * Nout;
+    if (bias != nullptr) bias += z * Nout;
+    if (aux != nullptr) aux += z * tn;
+    if (colsum != nullptr) colsum += z * gridDim.x * Nout;
+    out = EPI == kNNF32 ? (void*)(reinterpret_cast<float*>(out) + z * tn)
+                        : (void*)(reinterpret_cast<bf16*>(out) + z * tn);
+  }
+  const float* __restrict__ dfac = aux;  // read-only in the dgelu epilogue
   const int warp = threadIdx.x / 32;
   const int wm = warp / 4, wn = warp % 4;
 
@@ -132,10 +166,21 @@ gemm_nn_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
       reinterpret_cast<float*>(out)[o] = v;
     } else if (epi == kNNBf16) {
       reinterpret_cast<bf16*>(out)[o] = __float2bfloat16(v);
-    } else {
+    } else if (!kBatched || epi == kNNDGelu) {
       const float dh = v * dfac[o];
       Cs[r * CLD + c] = dh;
       reinterpret_cast<bf16*>(out)[o] = __float2bfloat16(dh);
+    } else if constexpr (kBatched) {
+      const float h = v + bias[col];
+      float g = h;
+      if constexpr (EPI != kNNBias) {
+        // one erf shared by the GELU and its derivative (_act_fwd_bwd)
+        const float e = erff(h * kInvSqrt2);
+        if constexpr (EPI == kNNBiasGeluGrad)
+          aux[o] = 0.5f * (1.0f + e) + h * kInvSqrt2Pi * expf(-0.5f * h * h);
+        g = 0.5f * h * (1.0f + e);
+      }
+      reinterpret_cast<bf16*>(out)[o] = __float2bfloat16(g);
     }
   }
   if (epi == kNNDGelu) {
@@ -151,23 +196,41 @@ gemm_nn_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
   }
 }
 
-// Split-K partials of out[Ma, Nb] = A[T, Ma]^T . B[T, Nb]: split z sums the
-// rows [z * rows, (z + 1) * rows) into ws[z]. With colsum set, the blocks of
-// the first column tile also write the split's column sums of A.
+// Split-K partials of out[Ma, Nb] = A[T, Ma]^T . B[T, Nb]: blockIdx.z =
+// e * splits + s, and split s of batch element e (A and B advance by T*Ma
+// and T*Nb elements) sums the rows [s * rows, (s + 1) * rows) into
+// ws[blockIdx.z]. With colsum set, the blocks of the first column tile also
+// write the split's column sums of A (colsum_of_b = 0) or the blocks of
+// the first row tile those of B (colsum_of_b = 1), at colsum[blockIdx.z].
+// The dense callers' kernel (BATCHED false: one slab, sums of A) is
+// compiled apart, as the NN GEMM's is: one kernel for both left K2b 6%
+// slower (chip_smoke.py, against the kernel before the batch logic).
+template <bool BATCHED>
 __global__ void __launch_bounds__(kThreads)
 gemm_tn_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
                float* __restrict__ ws, float* __restrict__ colsum, int T, int Ma, int Nb,
-               int rows) {
+               int rows, int splits, int colsum_of_b) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* As = reinterpret_cast<bf16*>(smem);     // BK (rows of T) x TLD
   bf16* Bs = As + BK * TLD;                     // BK x WLD
   float* Cs = reinterpret_cast<float*>(Bs + BK * WLD);
 
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN, z = blockIdx.z;
-  const int t_begin = z * rows, t_end = min(T, t_begin + rows);
+  int s = z;
+  if constexpr (BATCHED) {
+    const int e = z / splits;
+    s = z % splits;
+    a += (size_t)e * T * Ma;
+    b += (size_t)e * T * Nb;
+  } else {
+    colsum_of_b = 0;
+  }
+  const int t_begin = s * rows, t_end = min(T, t_begin + rows);
   const int warp = threadIdx.x / 32;
   const int wm = warp / 4, wn = warp % 4;
-  const bool sums = colsum != nullptr && blockIdx.y == 0 && threadIdx.x < BM;
+  const bool sums = colsum != nullptr &&
+                    (colsum_of_b ? blockIdx.x == 0 && threadIdx.x < BN
+                                 : blockIdx.y == 0 && threadIdx.x < BM);
 
   FragC acc[2][2];
   zero_acc(acc);
@@ -177,8 +240,11 @@ gemm_tn_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
     load_tile<BK, BM>(As, TLD, a, Ma, t0, m0, t_end, Ma);
     load_tile<BK, BN>(Bs, WLD, b, Nb, t0, n0, t_end, Nb);
     __syncthreads();
-    if (sums)
-      for (int r = 0; r < BK; ++r) csum += __bfloat162float(As[r * TLD + threadIdx.x]);
+    if (sums) {
+      const bf16* src = colsum_of_b ? Bs + threadIdx.x : As + threadIdx.x;
+      const int ld = colsum_of_b ? WLD : TLD;
+      for (int r = 0; r < BK; ++r) csum += __bfloat162float(src[r * ld]);
+    }
 #pragma unroll
     for (int kk = 0; kk < BK; kk += kFrag) {
       FragACol fa[2];
@@ -202,27 +268,9 @@ gemm_tn_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
     const int r = i / BN, c = i % BN;
     if (m0 + r < Ma && n0 + c < Nb) dst[(size_t)(m0 + r) * Nb + n0 + c] = Cs[r * CLD + c];
   }
-  if (sums && m0 + (int)threadIdx.x < Ma) colsum[(size_t)z * Ma + m0 + threadIdx.x] = csum;
-}
-
-// out[n] = sum over s = 0 .. S-1 of ws[s * N + n], in a fixed order: row
-// group g of the block sums s = g, g + 8, ..., then the groups add in order.
-constexpr int kRedCols = 32, kRedGroups = 8;
-
-__global__ void __launch_bounds__(kRedCols * kRedGroups)
-reduce_rows_kernel(const float* __restrict__ ws, float* __restrict__ out, int S, int N) {
-  __shared__ float part[kRedGroups][kRedCols];
-  const int c = threadIdx.x % kRedCols, g = threadIdx.x / kRedCols;
-  const size_t n = (size_t)blockIdx.x * kRedCols + c;
-  float s = 0.f;
-  if (n < (size_t)N)
-    for (int r = g; r < S; r += kRedGroups) s += ws[(size_t)r * N + n];
-  part[g][c] = s;
-  __syncthreads();
-  if (g == 0 && n < (size_t)N) {
-    float t = part[0][c];
-    for (int k = 1; k < kRedGroups; ++k) t += part[k][c];
-    out[n] = t;
+  if (sums) {
+    const int c0 = colsum_of_b ? n0 : m0, C = colsum_of_b ? Nb : Ma;
+    if (c0 + (int)threadIdx.x < C) colsum[(size_t)z * C + c0 + threadIdx.x] = csum;
   }
 }
 
@@ -283,9 +331,15 @@ ln_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ dy,
   }
 }
 
-cudaError_t reduce_rows(const float* ws, float* out, int S, int N, cudaStream_t stream) {
-  reduce_rows_kernel<<<(N + kRedCols - 1) / kRedCols, kRedCols * kRedGroups, 0, stream>>>(
-      ws, out, S, N);
+template <int EPI>
+cudaError_t launch_nn(dim3 grid, size_t smem, cudaStream_t stream, const bf16* a, const bf16* w,
+                      const float* bias, float* aux, void* out, float* colsum, int T, int K,
+                      int Nout, int epi) {
+  cudaError_t err = cudaFuncSetAttribute(gemm_nn_kernel<EPI>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  gemm_nn_kernel<EPI><<<grid, kThreads, smem, stream>>>(a, w, bias, aux, out, colsum, T, K,
+                                                         Nout, epi);
   return cudaGetLastError();
 }
 
@@ -294,49 +348,63 @@ cudaError_t reduce_rows(const float* ws, float* out, int S, int N, cudaStream_t 
 
 using ddm::bf16;
 
-// out = epi(a[T, K] . w[K, Nout]); epi 2 also needs dfac[T, Nout] and writes
-// db = column sums of dh through colsum_ws[ceil(T / 64), Nout].
-extern "C" int ddm_gemm_nn(const void* a, const void* w, const void* dfac, void* out,
+// out = epi(a[T, K] . w[K, Nout]) for each of `batch` contiguous slabs
+// (a: batch x T x K, w: batch x K x Nout, out and aux: batch x T x Nout,
+// bias: batch x Nout). epi 2 reads aux (gelu'(h)) and writes db = column
+// sums of dh through colsum_ws[batch, ceil(T / 64), Nout] into
+// colsum_out[batch, Nout]; epi 5 writes aux.
+extern "C" int ddm_gemm_nn(const void* a, const void* w, const void* bias, void* aux, void* out,
                            void* colsum_ws, void* colsum_out, int T, int K, int Nout,
-                           int epi, void* stream) {
+                           int epi, int batch, void* stream) {
   using namespace ddm;
   const size_t smem = (size_t)(BM * ALD + BK * WLD) * sizeof(bf16) +
                       (size_t)BM * CLD * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(gemm_nn_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
   const int nblk = (T + BM - 1) / BM;
-  dim3 grid(nblk, (Nout + BN - 1) / BN);
-  gemm_nn_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const bf16*)a, (const bf16*)w, (const float*)dfac, out, (float*)colsum_ws, T, K, Nout,
-      epi);
-  err = cudaGetLastError();
+  const dim3 grid(nblk, (Nout + BN - 1) / BN, batch);
+  decltype(&launch_nn<kNNF32>) launch;
+  switch (batch > 1 || epi > kNNDGelu ? epi : -1) {
+    case -1: launch = launch_nn<-1>; break;
+    case kNNF32: launch = launch_nn<kNNF32>; break;
+    case kNNBf16: launch = launch_nn<kNNBf16>; break;
+    case kNNDGelu: launch = launch_nn<kNNDGelu>; break;
+    case kNNBias: launch = launch_nn<kNNBias>; break;
+    case kNNBiasGelu: launch = launch_nn<kNNBiasGelu>; break;
+    case kNNBiasGeluGrad: launch = launch_nn<kNNBiasGeluGrad>; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  const cudaError_t err = launch(grid, smem, (cudaStream_t)stream, (const bf16*)a,
+                                 (const bf16*)w, (const float*)bias, (float*)aux, out,
+                                 (float*)colsum_ws, T, K, Nout, epi);
   if (err != cudaSuccess || epi != kNNDGelu) return (int)err;
   return (int)reduce_rows((const float*)colsum_ws, (float*)colsum_out, nblk, Nout,
-                          (cudaStream_t)stream);
+                          (cudaStream_t)stream, batch);
 }
 
-// dw[Ma, Nb] = a[T, Ma]^T . b[T, Nb] in `splits` fixed row ranges of `rows`
-// rows (ws holds splits x Ma x Nb fp32); with colsum_ws set, also
-// colsum_out[Ma] = column sums of a (colsum_ws holds splits x Ma).
+// dw[e, Ma, Nb] = a[e, T, Ma]^T . b[e, T, Nb] for each of `batch` slabs, in
+// `splits` fixed row ranges of `rows` rows (ws holds batch x splits x Ma x
+// Nb fp32); with colsum_ws set, also colsum_out[e] = column sums of a
+// (colsum_of_b = 0, length Ma) or of b (1, length Nb), through colsum_ws
+// (batch x splits x that length).
 extern "C" int ddm_gemm_tn(const void* a, const void* b, void* ws, void* dw, void* colsum_ws,
                            void* colsum_out, int T, int Ma, int Nb, int splits, int rows,
-                           void* stream) {
+                           int colsum_of_b, int batch, void* stream) {
   using namespace ddm;
   const size_t smem = (size_t)(BK * TLD + BK * WLD) * sizeof(bf16) +
                       (size_t)BM * CLD * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(gemm_tn_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const auto kernel = batch > 1 || colsum_of_b ? gemm_tn_kernel<true> : gemm_tn_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Ma + BM - 1) / BM, (Nb + BN - 1) / BN, splits);
-  gemm_tn_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const bf16*)a, (const bf16*)b, (float*)ws, (float*)colsum_ws, T, Ma, Nb, rows);
+  dim3 grid((Ma + BM - 1) / BM, (Nb + BN - 1) / BN, splits * batch);
+  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const bf16*)a, (const bf16*)b, (float*)ws, (float*)colsum_ws, T, Ma, Nb, rows, splits,
+      colsum_of_b);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  err = reduce_rows((const float*)ws, (float*)dw, splits, Ma * Nb, (cudaStream_t)stream);
+  err = reduce_rows((const float*)ws, (float*)dw, splits, Ma * Nb, (cudaStream_t)stream, batch);
   if (err != cudaSuccess || colsum_ws == nullptr) return (int)err;
-  return (int)reduce_rows((const float*)colsum_ws, (float*)colsum_out, splits, Ma,
-                          (cudaStream_t)stream);
+  return (int)reduce_rows((const float*)colsum_ws, (float*)colsum_out, splits,
+                          colsum_of_b ? Nb : Ma, (cudaStream_t)stream, batch);
 }
 
 // dx = LN backward + residual; dscale_dbias[2, D] = (sum dy * xhat, sum dy)

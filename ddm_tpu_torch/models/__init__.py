@@ -1,1 +1,1 @@
-"""The DiT denoiser and its factory."""
+"""The DiT denoiser, its MoE layer and its factory."""

@@ -1,4 +1,4 @@
-"""DiT distributional denoiser for images (PyTorch port, replicated dense path).
+"""DiT distributional denoiser for images (PyTorch port, replicated path).
 
 Port of ``ddm_tpu/models/dit.py`` as ``ddm_tpu.models.factory.build_model``
 builds it: NHWC images, xi-conditioning by channel concatenation, additive
@@ -6,7 +6,11 @@ sinusoidal time embedding (no AdaLN), pre-LN blocks, learned positional
 embedding, final LayerNorm and unembedding. Each block is two fused ops:
 :func:`~ddm_tpu_torch.ops.attention.fused_attention_block` then
 :func:`~ddm_tpu_torch.ops.mlp_block.fused_mlp_block` over (B*N, D) rows,
-which launch kernels K2 and K1 on CUDA tensors.
+which launch kernels K2 and K1 on CUDA tensors; with ``moe_experts > 1``
+the MLP half is :class:`~ddm_tpu_torch.models.moe.MoEMLP` (kernels K11,
+K10, K12), with ``norm2`` still owned by the block
+(``ddm_tpu/models/dit.py:297-324``), and :meth:`DDDMDiT.tokens_and_aux`
+hands each block's Switch aux term to the training step.
 
 Parameters carry the reference checkpoint's ``state_dict`` names and
 layouts (``patch_embed.proj.weight`` (D, C, p, p), ``blocks.{i}.attn.qkv.*``,
@@ -32,6 +36,7 @@ from torch import nn
 
 from ..ops.attention import fused_attention_block
 from ..ops.mlp_block import fused_mlp_block, layer_norm
+from .moe import MoEMLP
 
 __all__ = [
     "sinusoidal_time_embedding",
@@ -99,9 +104,12 @@ class _FeedForward(nn.Module):
 
 
 class DiTBlock(nn.Module):
-    """Pre-LN block: the attention half-block then the MLP half-block."""
+    """Pre-LN block: the attention half-block then the MLP half-block, dense
+    or (``moe`` given: ``num_experts``, ``capacity``, ``group_size``,
+    ``topk``) mixture-of-experts."""
 
-    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, device=None):
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, device=None,
+                 moe: Optional[dict] = None):
         super().__init__()
         if dim % num_heads:
             raise ValueError("dim must be divisible by num_heads")
@@ -110,21 +118,29 @@ class DiTBlock(nn.Module):
         self.norm1 = _Affine((dim,), (dim,), device)
         self.attn = _Attn(dim, device)
         self.norm2 = _Affine((dim,), (dim,), device)
-        self.ff = _FeedForward(dim, hidden, device)
+        if moe:
+            self.moe = MoEMLP(dim, hidden, device=device, **moe)
+        else:
+            self.ff = _FeedForward(dim, hidden, device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor):
+        """``(x, aux)``: the block's output and its MoE aux term (None for a
+        dense block)."""
         B, N, D = x.shape
         x = fused_attention_block(
             x, self.norm1.weight, self.norm1.bias, self.attn.qkv.weight,
             self.attn.qkv.bias, self.attn.proj.weight, self.attn.proj.bias,
             self.num_heads,
         )
+        if hasattr(self, "moe"):
+            out, aux = self.moe(x.reshape(B * N, D), self.norm2.weight, self.norm2.bias)
+            return out.reshape(B, N, D), aux
         ff_in, ff_out = self.ff.net["0"], self.ff.net["2"]
         out = fused_mlp_block(
             x.reshape(B * N, D), self.norm2.weight, self.norm2.bias,
             ff_in.weight, ff_in.bias, ff_out.weight, ff_out.bias,
         )
-        return out.reshape(B, N, D)
+        return out.reshape(B, N, D), None
 
 
 class DDDMDiT(nn.Module):
@@ -148,6 +164,10 @@ class DDDMDiT(nn.Module):
         mlp_ratio: float = 4.0,
         dtype: torch.dtype = torch.float32,
         device: Optional[torch.device] = None,
+        moe_experts: int = 0,
+        moe_capacity: float = 1.25,
+        moe_group_size: int = 0,
+        moe_topk: int = 1,
     ):
         super().__init__()
         if img_size % patch_size:
@@ -156,6 +176,7 @@ class DDDMDiT(nn.Module):
         self.in_channels, self.out_channels = in_channels, out_channels
         self.embed_dim, self.time_embed_dim = embed_dim, time_embed_dim
         self.dtype = dtype
+        self.moe_experts = moe_experts
         self.num_patches = (img_size // patch_size) ** 2
         D, p = embed_dim, patch_size
         self.patch_embed = nn.ModuleDict(
@@ -165,8 +186,10 @@ class DDDMDiT(nn.Module):
             "0": _Affine((D, time_embed_dim), (D,), device),
             "2": _Affine((D, D), (D,), device),
         })
+        moe = (dict(num_experts=moe_experts, capacity=moe_capacity, group_size=moe_group_size,
+                    topk=moe_topk) if moe_experts > 1 else None)
         self.blocks = nn.ModuleList(
-            [DiTBlock(D, num_heads, mlp_ratio, device) for _ in range(depth)])
+            [DiTBlock(D, num_heads, mlp_ratio, device, moe) for _ in range(depth)])
         self.norm = _Affine((D,), (D,), device)
         self.unembed = nn.ModuleDict(
             {"proj": _Affine((out_channels * p * p, D), (out_channels * p * p,), device)})
@@ -202,12 +225,21 @@ class DDDMDiT(nn.Module):
         out = torch.matmul(h, w.to(self.dtype).t()) + b.to(self.dtype)
         return out.float()
 
+    def tokens_and_aux(self, xt: torch.Tensor, t: torch.Tensor, xi: torch.Tensor):
+        """``(tokens, aux_terms)``: :meth:`tokens` and the list of the MoE
+        blocks' Switch aux terms (empty for a dense model), the port's
+        counterpart of flax's sown ``"losses"`` collection."""
+        h = self.embed_tokens(xt, t, xi)
+        terms = []
+        for block in self.blocks:
+            h, aux = block(h)
+            if aux is not None:
+                terms.append(aux)
+        return self.head_tokens(h), terms
+
     def tokens(self, xt: torch.Tensor, t: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
         """Denoiser output as patch tokens, ``__call__`` minus the unpatchify."""
-        h = self.embed_tokens(xt, t, xi)
-        for block in self.blocks:
-            h = block(h)
-        return self.head_tokens(h)
+        return self.tokens_and_aux(xt, t, xi)[0]
 
     def _unpatchify(self, tokens: torch.Tensor) -> torch.Tensor:
         B, N, _ = tokens.shape
@@ -231,8 +263,10 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> 
 def init_params(model: DDDMDiT, generator: torch.Generator) -> DDDMDiT:
     """Fill every parameter from ``generator`` with the JAX package's
     initialisers: lecun-normal weights, zero biases, unit LayerNorm scales,
-    truncated-normal (0.02) positional embedding. Values are drawn on the
-    CPU (``generator`` is a CPU generator) and copied to the parameters'
+    truncated-normal (0.02) positional embedding. A 3-D expert weight
+    ``(E, fan_in, fan_out)`` takes flax's fan-in for it, ``E * fan_in``
+    (``ddm_tpu/models/moe.py:229-240``). Values are drawn on the CPU
+    (``generator`` is a CPU generator) and copied to the parameters'
     device, so a seed gives the same weights on every device."""
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
@@ -242,8 +276,10 @@ def init_params(model: DDDMDiT, generator: torch.Generator) -> DDDMDiT:
             nn.init.trunc_normal_(v, std=0.02, a=-0.04, b=0.04, generator=generator)
         elif owner.startswith("norm"):
             v.fill_(1.0 if leaf == "weight" else 0.0)
-        elif leaf == "bias":
+        elif leaf == "bias" or leaf.endswith("_bias"):
             v.zero_()
+        elif leaf.startswith("experts_"):
+            _lecun_normal_(v, v.shape[0] * v.shape[1], generator)
         else:
             _lecun_normal_(v, v[0].numel(), generator)
         p.copy_(v)

@@ -3,9 +3,9 @@
 
 Port of ``ddm_tpu/models/factory.py``. The defaults match the JAX package's
 (and the reference trainer's model flags). The port runs the replicated
-dense path only: every key that selects another path raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item, and none is
-silently ignored.
+path, dense or mixture-of-experts (``moe_experts > 1``): every key that
+selects another path raises ``NotImplementedError`` naming its
+``ROADMAP.md`` item, and none is silently ignored.
 """
 
 from __future__ import annotations
@@ -17,8 +17,9 @@ import torch
 from ..ops.attention import supported_tokens
 from ..ops.flash import flash_supported
 from .dit import DDDMDiT
+from .moe import make_moe_aux_apply
 
-__all__ = ["MODEL_DEFAULTS", "SAMPLER_DEFAULTS", "build_model"]
+__all__ = ["MODEL_DEFAULTS", "SAMPLER_DEFAULTS", "build_model", "make_tokens_apply"]
 
 MODEL_DEFAULTS: dict = {
     "image_size": 32,
@@ -68,7 +69,6 @@ def build_model(cfg: Any, device: torch.device | str = "cpu") -> DDDMDiT:
     unsupported = [
         (int(get("tp")) > 1, "tp > 1", "Queue 1 item 11 (parallelism)"),
         (bool(get("sp")), "sp", "Queue 1 item 11 (parallelism)"),
-        (int(get("moe_experts")) > 1, "moe_experts > 1", "Queue 1 item 10 (MoE)"),
         (bool(get("remat")), "remat", "Queue 1 item 8 (wider DiT configs)"),
         (int(get("mlp_persist")) > 0, "mlp_persist > 0", "Queue 1 item 8 (wider DiT configs)"),
         (str(get("attention")) != "auto", f"attention={get('attention')!r}",
@@ -89,6 +89,9 @@ def build_model(cfg: Any, device: torch.device | str = "cpu") -> DDDMDiT:
             f"width {head}, outside what kernels K2 (N <= 128) and K8 (N >= 1024, Dh = 64) "
             "take: ROADMAP.md Queue 1 item 9 (long sequences)")
 
+    if int(get("moe_experts")) > 1 and int(get("moe_topk")) not in (1, 2):
+        raise ValueError(f"moe_topk must be 1 or 2, got {get('moe_topk')}")
+
     return DDDMDiT(
         img_size=img,
         patch_size=patch,
@@ -101,4 +104,19 @@ def build_model(cfg: Any, device: torch.device | str = "cpu") -> DDDMDiT:
         mlp_ratio=float(get("mlp_ratio")),
         dtype=_DTYPES[str(get("dtype"))],
         device=torch.device(device),
+        moe_experts=int(get("moe_experts")),
+        moe_capacity=float(get("moe_capacity")),
+        moe_group_size=int(get("moe_group_size")),
+        moe_topk=int(get("moe_topk")),
     )
+
+
+def make_tokens_apply(model: DDDMDiT, moe_aux_weight: float = 0.01):
+    """Token-space denoiser apply for the training step: ``model.tokens`` for
+    a dense model, and for an MoE model with a positive aux weight
+    :func:`~ddm_tpu_torch.models.moe.make_moe_aux_apply`, so the Switch
+    load-balance loss reaches the optimizer (``ddm_tpu/models/factory.py``
+    ``make_tokens_apply``)."""
+    if model.moe_experts > 1 and moe_aux_weight > 0:
+        return make_moe_aux_apply(model, moe_aux_weight)
+    return model.tokens

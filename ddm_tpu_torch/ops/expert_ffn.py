@@ -1,0 +1,159 @@
+"""Expert-batched GELU FFN of the MoE half-block (kernel K10).
+
+Port of ``ddm_tpu/ops/expert_ffn.py``. Over per-expert slot rows
+``x (E, S, D)``::
+
+    out[e] = gelu(x[e] @ w1[e] + b1[e]) @ w2[e] + b2[e]
+
+with the JAX layouts ``w1 (E, D, F)``, ``b1 (E, F)``, ``w2 (E, F, D)``,
+``b2 (E, D)``. :func:`expert_ffn` is a ``torch.autograd.Function``. On CUDA
+tensors its forward launches K10f, the batched NN GEMMs of
+``csrc/gemm_bwd.cu`` with ``blockIdx.z`` as the expert (a bias + exact-erf
+GELU epilogue, then a bias epilogue); its backward launches K10b, which
+recomputes h as the TPU kernel does and runs the batched dW (split-K TN,
+fixed-order sums), dh (dgelu epilogue with the db1 column sums) and dx
+products. On CPU tensors the same Function runs the plain versions,
+:func:`expert_ffn_reference` and :func:`expert_ffn_bwd_reference`.
+
+Numerics (both versions): bf16 matmul operands with fp32 accumulation;
+GELU in fp32 with exact erf, rounded to the compute dtype; dW and the bias
+gradients in fp32; dh rounded to bf16 for the products but db1 summed over
+the unrounded dh; dx rounded to the compute dtype (``_bwd_kernel``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import gemm
+from .kernel_config import LaunchCounter, uses_kernel
+from .mlp_block import _gelu_and_grad
+
+__all__ = [
+    "expert_ffn",
+    "expert_ffn_reference",
+    "expert_ffn_bwd",
+    "expert_ffn_bwd_reference",
+    "LAUNCHES",
+    "BWD_LAUNCHES",
+]
+
+LAUNCHES = LaunchCounter("K10f")
+BWD_LAUNCHES = LaunchCounter("K10b")
+
+
+def _bmm(a: torch.Tensor, b: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``a @ b`` per expert on operands rounded to ``dtype``, fp32 sums."""
+    return torch.matmul(a.to(dtype).float(), b.to(dtype).float())
+
+
+def expert_ffn_reference(x, w1, b1, w2, b2):
+    """Plain PyTorch version of K10f over (E, S, D) slot rows in ``x.dtype``."""
+    dtype = x.dtype
+    h = _bmm(x, w1, dtype) + b1.float()[:, None, :]
+    g = torch.nn.functional.gelu(h, approximate="none").to(dtype)
+    return (_bmm(g, w2, dtype) + b2.float()[:, None, :]).to(dtype)
+
+
+def expert_ffn_bwd_reference(x, w1, b1, w2, b2, dout):
+    """Plain PyTorch version of K10b: the gradients of :func:`expert_ffn`
+    with respect to ``(x, w1, b1, w2, b2)`` for the cotangent ``dout``,
+    following ``_bwd_kernel``'s rounding plan."""
+    dtype = x.dtype
+    rnd = lambda t: t.to(dtype).float()  # noqa: E731
+    xf = rnd(x)
+    h = xf @ rnd(w1) + b1.float()[:, None, :]
+    gf, dfac = _gelu_and_grad(h)
+    g = rnd(gf)
+    do = dout.float()
+    dob = rnd(do)
+    dw2 = g.transpose(1, 2) @ dob
+    db2 = do.sum(1)
+    dh = (dob @ rnd(w2).transpose(1, 2)) * dfac
+    dhb = rnd(dh)
+    dw1 = xf.transpose(1, 2) @ dhb
+    db1 = dh.sum(1)
+    dx = (dhb @ rnd(w1).transpose(1, 2)).to(dtype)
+    return dx, dw1, db1, dw2, db2
+
+
+def _check(x, w1, b1, w2, b2):
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"K10 takes bf16 slot rows, got {x.dtype}")
+    if x.dim() != 3:
+        raise ValueError(f"K10 takes (E, S, D) slot rows, got shape {tuple(x.shape)}")
+    E, S, D = x.shape
+    F = w1.shape[-1]
+    if w1.shape != (E, D, F) or w2.shape != (E, F, D):
+        raise ValueError(f"K10 weights must be (E, D, F) and (E, F, D), got "
+                         f"{tuple(w1.shape)} and {tuple(w2.shape)}")
+    if b1.shape != (E, F) or b2.shape != (E, D):
+        raise ValueError(f"K10 biases must be (E, F) and (E, D), got "
+                         f"{tuple(b1.shape)} and {tuple(b2.shape)}")
+    if D % 64 or F % 64:
+        raise ValueError(f"K10 needs D and F multiples of 64, got D={D}, F={F}")
+    if not x.is_contiguous():
+        raise ValueError("K10 needs contiguous slot rows")
+
+
+def _k10f(x, w1, b1, w2, b2):
+    bf = torch.bfloat16
+    g = gemm.gemm_nn(x, w1.to(bf).contiguous(), gemm.NN_BIAS_GELU,
+                     bias=b1.float().contiguous())
+    out = gemm.gemm_nn(g, w2.to(bf).contiguous(), gemm.NN_BIAS, bias=b2.float().contiguous())
+    LAUNCHES.add()
+    return out
+
+
+def _k10b(x, w1, b1, w2, b2, dout):
+    if dout.shape != x.shape:
+        raise ValueError(f"K10b cotangent must be {tuple(x.shape)}, got {tuple(dout.shape)}")
+    bf = torch.bfloat16
+    w1b = w1.to(bf).contiguous()
+    dob = dout.to(bf).contiguous()
+    g, dfac = gemm.gemm_nn(x, w1b, gemm.NN_BIAS_GELU_GRAD, bias=b1.float().contiguous())
+    dw2, db2 = gemm.gemm_tn(g, dob, with_colsum=True, colsum_of_b=True)
+    del g
+    # the dx-side products read W2 and W1 transposed: (E, D, F) and (E, F, D)
+    dhb, db1 = gemm.gemm_nn(dob, w2.to(bf).transpose(1, 2).contiguous(), gemm.NN_DGELU,
+                            dfac=dfac)
+    del dfac
+    dw1, _ = gemm.gemm_tn(x, dhb)
+    dx = gemm.gemm_nn(dhb, w1b.transpose(1, 2).contiguous(), gemm.NN_BF16)
+    BWD_LAUNCHES.add()
+    return dx, dw1, db1, dw2, db2
+
+
+def expert_ffn_bwd(x, w1, b1, w2, b2, dout):
+    """The gradients of :func:`expert_ffn` for the cotangent ``dout``: K10b on
+    CUDA tensors (or raise), :func:`expert_ffn_bwd_reference` on CPU."""
+    if not uses_kernel(x, w1, b1, w2, b2, dout):
+        return expert_ffn_bwd_reference(x, w1, b1, w2, b2, dout)
+    _check(x, w1, b1, w2, b2)
+    return _k10b(x, w1, b1, w2, b2, dout)
+
+
+class _ExpertFFN(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        if not uses_kernel(x, w1, b1, w2, b2):
+            return expert_ffn_reference(x, w1, b1, w2, b2)
+        _check(x, w1, b1, w2, b2)
+        return _k10f(x, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, dout):
+        args = ctx.saved_tensors
+        grads = expert_ffn_bwd(*args, dout.contiguous())
+        return tuple(g.to(a.dtype) for g, a in zip(grads, args))
+
+
+def expert_ffn(x, w1, b1, w2, b2):
+    """Per-expert GELU FFN ``(E, S, D) -> (E, S, D)`` with its backward.
+
+    CPU tensors take :func:`expert_ffn_reference` and
+    :func:`expert_ffn_bwd_reference`; CUDA tensors launch K10f and K10b (bf16
+    slot rows, weights cast to bf16, fp32 biases) or raise.
+    """
+    return _ExpertFFN.apply(x, w1, b1, w2, b2)

@@ -1,5 +1,5 @@
 """ctypes launchers for the half-block GEMMs (``csrc/gemm.cu``,
-``csrc/gemm_bwd.cu``), shared by the MLP and attention wrappers.
+``csrc/gemm_bwd.cu``), shared by the MLP, attention and expert-FFN wrappers.
 
 Each function takes CUDA tensors that its caller has checked (bf16
 activations and weights, fp32 biases and LN parameters, contiguous),
@@ -22,7 +22,7 @@ __all__ = ["ln_gemm", "gemm_residual", "gemm_nn", "gemm_tn", "ln_bwd", "tn_split
 # ln_gemm epilogues (csrc/gemm.cu LnGemmEpi)
 EPI_BIAS, EPI_GELU, EPI_GELU_GRAD = 0, 1, 2
 # gemm_nn epilogues (csrc/gemm_bwd.cu NNEpi)
-NN_F32, NN_BF16, NN_DGELU = 0, 1, 2
+NN_F32, NN_BF16, NN_DGELU, NN_BIAS, NN_BIAS_GELU, NN_BIAS_GELU_GRAD = 0, 1, 2, 3, 4, 5
 _BM, _BN = 64, 128  # the kernels' output tile
 
 
@@ -58,25 +58,37 @@ def gemm_residual(a, w, b, res):
     return out
 
 
-def gemm_nn(a, w, epi: int, dfac=None):
-    """``a (T, K) . w (K, Nout)`` with ``w`` in nn.Linear's (out, in) layout.
+def gemm_nn(a, w, epi: int, dfac=None, bias=None):
+    """``a (T, K) . w (K, Nout)`` with ``w`` in nn.Linear's (out, in) layout,
+    or batched over a leading expert axis: ``a (E, T, K) . w (E, K, Nout)``.
 
     ``NN_F32`` -> fp32 out; ``NN_BF16`` -> bf16 out; ``NN_DGELU`` ->
-    ``(bf16(dh), sum_rows(dh))`` with ``dh = (a . w) * dfac`` in fp32.
+    ``(bf16(dh), sum_rows(dh))`` with ``dh = (a . w) * dfac`` in fp32;
+    ``NN_BIAS`` -> ``bf16(a . w + bias)``; ``NN_BIAS_GELU`` ->
+    ``bf16(gelu(h))``, ``h = a . w + bias``; ``NN_BIAS_GELU_GRAD`` ->
+    ``(bf16(gelu(h)), gelu'(h) fp32)``. ``bias`` is (Nout,) or (E, Nout).
     """
-    T, K = a.shape
-    Nout = w.shape[1]
+    batched = a.dim() == 3
+    E = a.shape[0] if batched else 1
+    T, K = a.shape[-2:]
+    Nout = w.shape[-1]
     dev = a.device
-    out = torch.empty((T, Nout), dtype=torch.float32 if epi == NN_F32 else torch.bfloat16,
+    lead = (E,) if batched else ()
+    out = torch.empty(lead + (T, Nout), dtype=torch.float32 if epi == NN_F32 else torch.bfloat16,
                       device=dev)
+    aux = dfac
+    if epi == NN_BIAS_GELU_GRAD:
+        aux = torch.empty(lead + (T, Nout), dtype=torch.float32, device=dev)
     ws = colsum = None
     if epi == NN_DGELU:
-        ws = torch.empty((-(-T // _BM), Nout), dtype=torch.float32, device=dev)
-        colsum = torch.empty((Nout,), dtype=torch.float32, device=dev)
+        ws = torch.empty((E, -(-T // _BM), Nout), dtype=torch.float32, device=dev)
+        colsum = torch.empty(lead + (Nout,), dtype=torch.float32, device=dev)
     check_status(load_library().ddm_gemm_nn(
-        a.data_ptr(), w.data_ptr(), _ptr(dfac), out.data_ptr(), _ptr(ws), _ptr(colsum),
-        T, K, Nout, epi, current_stream(dev)), "gemm_nn")
-    return (out, colsum) if epi == NN_DGELU else out
+        a.data_ptr(), w.data_ptr(), _ptr(bias), _ptr(aux), out.data_ptr(), _ptr(ws),
+        _ptr(colsum), T, K, Nout, epi, E, current_stream(dev)), "gemm_nn")
+    if epi == NN_DGELU:
+        return out, colsum
+    return (out, aux) if epi == NN_BIAS_GELU_GRAD else out
 
 
 @functools.lru_cache(maxsize=None)
@@ -84,34 +96,40 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def tn_splits(T: int, Ma: int, Nb: int, sms: int) -> Tuple[int, int]:
+def tn_splits(T: int, Ma: int, Nb: int, sms: int, batch: int = 1) -> Tuple[int, int]:
     """``(splits, rows)`` of the split-K weight-gradient product: about four
     blocks per SM, each split a whole number of 64-row chunks. A function of
     the shapes and the card only, so the sum order never changes."""
-    tiles = -(-Ma // _BM) * -(-Nb // _BN)
+    tiles = -(-Ma // _BM) * -(-Nb // _BN) * batch
     chunks = -(-T // _BM)
     want = max(1, min(chunks, round(4 * sms / tiles)))
     rows = -(-chunks // want) * _BM
     return -(-T // rows), rows
 
 
-def gemm_tn(a, b, with_colsum: bool = False):
-    """``a (T, Ma)^T . b (T, Nb)`` in fp32 -> ``(dw (Ma, Nb), colsum)``:
-    ``colsum`` = fp32 column sums of ``a`` when ``with_colsum``, else None.
+def gemm_tn(a, b, with_colsum: bool = False, colsum_of_b: bool = False):
+    """``a (T, Ma)^T . b (T, Nb)`` in fp32 -> ``(dw (Ma, Nb), colsum)``, or
+    batched over a leading expert axis (``a (E, T, Ma)``, ``b (E, T, Nb)``
+    -> ``dw (E, Ma, Nb)``): ``colsum`` = fp32 column sums of ``a`` (or of
+    ``b`` with ``colsum_of_b``) when ``with_colsum``, else None.
     Deterministic split-K: fixed row ranges, summed in a fixed order."""
-    T, Ma = a.shape
-    Nb = b.shape[1]
+    batched = a.dim() == 3
+    E = a.shape[0] if batched else 1
+    T, Ma = a.shape[-2:]
+    Nb = b.shape[-1]
     dev = a.device
-    splits, rows = tn_splits(T, Ma, Nb, _sm_count(dev.index or 0))
-    ws = torch.empty((splits, Ma, Nb), dtype=torch.float32, device=dev)
-    dw = torch.empty((Ma, Nb), dtype=torch.float32, device=dev)
+    lead = (E,) if batched else ()
+    splits, rows = tn_splits(T, Ma, Nb, _sm_count(dev.index or 0), E)
+    ws = torch.empty((E, splits, Ma, Nb), dtype=torch.float32, device=dev)
+    dw = torch.empty(lead + (Ma, Nb), dtype=torch.float32, device=dev)
     cws = colsum = None
     if with_colsum:
-        cws = torch.empty((splits, Ma), dtype=torch.float32, device=dev)
-        colsum = torch.empty((Ma,), dtype=torch.float32, device=dev)
+        C = Nb if colsum_of_b else Ma
+        cws = torch.empty((E, splits, C), dtype=torch.float32, device=dev)
+        colsum = torch.empty(lead + (C,), dtype=torch.float32, device=dev)
     check_status(load_library().ddm_gemm_tn(
         a.data_ptr(), b.data_ptr(), ws.data_ptr(), dw.data_ptr(), _ptr(cws), _ptr(colsum),
-        T, Ma, Nb, splits, rows, current_stream(dev)), "gemm_tn")
+        T, Ma, Nb, splits, rows, int(colsum_of_b), E, current_stream(dev)), "gemm_tn")
     return dw, colsum
 
 

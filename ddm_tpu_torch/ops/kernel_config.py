@@ -59,10 +59,10 @@ _SIGNATURES = {
     "ddm_attention_core": [_P, _P, _I, _I, _I, _I, _F, _P],
     # qkv, datt, dqkv, B, N, H, Dh, scale, stream
     "ddm_attention_core_bwd": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
-    # a, w, dfac, out, colsum_ws, colsum_out, T, K, Nout, epi, stream
-    "ddm_gemm_nn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # a, b, ws, dw, colsum_ws, colsum_out, T, Ma, Nb, splits, rows, stream
-    "ddm_gemm_tn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # a, w, bias, aux, out, colsum_ws, colsum_out, T, K, Nout, epi, batch, stream
+    "ddm_gemm_nn": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # a, b, ws, dw, colsum_ws, colsum_out, T, Ma, Nb, splits, rows, colsum_of_b, batch, stream
+    "ddm_gemm_tn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, dy, dres, scale, dx, partial, dscale_dbias, T, D, stream
     "ddm_ln_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     # xh, x0, partial, out, B, m, D, beta, stream
@@ -73,6 +73,16 @@ _SIGNATURES = {
     "ddm_flash_fwd": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _F, _P],
     # q, k, v, ld, o, dout, lse, dsum, dqkv, B, N, H, scale, stream
     "ddm_flash_bwd": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    # x, scale, bias, wr, br, xin, gates, pos1, pos2, probs, part, cnt_psum,
+    # G, gs, n_valid, D, E, cap, cpad, topk, stream
+    "ddm_moe_dispatch_fwd": [_P] * 12 + [_I] * 8 + [_P],
+    # x, scale, bias, wr, pos1, pos2, probs, dxin, dgates, dpsum, dres, dx, part, sums,
+    # G, gs, n_valid, D, E, cap, cpad, topk, stream
+    "ddm_moe_dispatch_bwd": [_P] * 14 + [_I] * 8 + [_P],
+    # eout, gates, pos1, pos2, res, tok, G, gs, D, E, cap, cpad, topk, stream
+    "ddm_moe_combine_fwd": [_P] * 6 + [_I] * 7 + [_P],
+    # eout, gates, pos1, pos2, dpart, deout, dgates, G, gs, D, E, cap, cpad, topk, stream
+    "ddm_moe_combine_bwd": [_P] * 7 + [_I] * 7 + [_P],
 }
 
 _COUNTERS: dict = {}

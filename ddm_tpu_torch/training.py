@@ -9,7 +9,9 @@ Port of ``ddm_tpu/training.py`` (``distributional_training_step``,
   forward marginal ``x_t``, runs ONE batched denoiser call on ``B * m``
   rows, and combines the energy-score terms (kernel K3 on CUDA tensors)
   with the batch-mean logistic weight: ``loss = w (conf - lam / (2 (m-1))
-  inter)``, metric keys {loss, confidence, interaction, weight};
+  inter)``, metric keys {loss, confidence, interaction, weight}; an
+  ``apply_fn`` that returns ``(x0hat, aux)`` (an MoE model's weighted
+  Switch loss) adds ``aux`` to the loss and reports it as ``moe_aux``;
 * :func:`clip_grads_by_global_norm_` follows optax's rule, not
   ``torch.nn.utils.clip_grad_norm_``: gradients are left alone when
   ``norm < max_norm`` and become ``g / norm * max_norm`` otherwise;
@@ -74,7 +76,9 @@ def distributional_training_step(
     are drawn from ``generator`` in that order unless injected. ``apply_fn``
     may emit any fixed permutation of the data (e.g. ``DDDMDiT.tokens``) as
     long as ``target_transform`` applies the same one to ``x0``: the energy
-    terms reduce over the flattened data axis.
+    terms reduce over the flattened data axis. It may return ``(x0hat,
+    aux)``: ``aux``, an already-weighted scalar, is added to the loss and
+    reported under ``moe_aux`` (``ddm_tpu/training.py:136-190``).
     """
     if m < 2:
         raise ValueError("m must be >= 2 to form interaction pairs")
@@ -95,13 +99,20 @@ def distributional_training_step(
         (batch * m,) + tuple(xt.shape[1:]))
     xi_flat = xi.reshape((batch * m,) + tuple(x0.shape[1:]))
     t_rep = t.repeat_interleave(m)
-    x0hat = apply_fn(xt_rep, t_rep, xi_flat).reshape(batch, m, -1)
+    out = apply_fn(xt_rep, t_rep, xi_flat)
+    x0hat, aux = out if isinstance(out, tuple) else (out, None)
+    x0hat = x0hat.reshape(batch, m, -1)
 
     target = x0 if target_transform is None else target_transform(x0)
     conf, inter = fused_energy_terms(x0hat, target.reshape(batch, -1).float(), beta)
     weight = sigmoid_weight(t.float(), bias=w_bias).mean()
     loss = weight * (conf - (lam / (2.0 * (m - 1))) * inter)
-    return loss, {"loss": loss, "confidence": conf, "interaction": inter, "weight": weight}
+    metrics = {"loss": loss, "confidence": conf, "interaction": inter, "weight": weight}
+    if aux is not None:
+        loss = loss + aux
+        metrics["loss"] = loss
+        metrics["moe_aux"] = aux
+    return loss, metrics
 
 
 def make_loss_fn(apply_fn: Apply, *, m: int, beta: float, lam: float, w_bias: float,

@@ -10,12 +10,21 @@ reference_state_dict_from_dit`` without importing the JAX package:
   * the unembed columns are ``(ph, pw, c)``; the reference rows ``(c, ph, pw)``;
   * LayerNorm ``scale`` -> ``weight``;
   * a tp>1 tree's separate q/k/v projections re-fuse into one qkv weight
-    (rows ``[q | k | v]``, heads contiguous).
+    (rows ``[q | k | v]``, heads contiguous);
+  * an MoE block's ``moe`` leaves (``block_i/moe/{router_kernel,
+    router_bias, experts_in, experts_in_bias, experts_out,
+    experts_out_bias}``) take the port's own keys, since the reference
+    checkpoint has no MoE: ``blocks.{i}.moe.router.weight`` (E, D) in
+    ``nn.Linear``'s layout (the transposed ``router_kernel``),
+    ``blocks.{i}.moe.router.bias`` and ``blocks.{i}.moe.experts_*`` in
+    the JAX layout; ``norm2`` stays the block's own.
 
 A JAX-trained ``.ckpt`` reaches the port without flax through
 ``python scripts/convert_reference_ckpt.py --to-torch run/model_final.ckpt
 model.pt``, which writes the same ``{"model", "config"}`` payload that
-:func:`ddm_tpu_torch.utils.checkpoint.load_params` reads.
+:func:`ddm_tpu_torch.utils.checkpoint.load_params` reads. That script
+predates the port and maps no MoE leaves: a JAX-trained MoE ``.ckpt`` needs
+the msgpack reader of ROADMAP.md Queue 1 item 7.
 """
 
 from __future__ import annotations
@@ -26,6 +35,9 @@ import numpy as np
 import torch
 
 __all__ = ["state_dict_from_jax", "jax_tree_from_state_dict"]
+
+
+_EXPERT_LEAVES = ("experts_in", "experts_in_bias", "experts_out", "experts_out_bias")
 
 
 def _np(x) -> np.ndarray:
@@ -77,8 +89,15 @@ def state_dict_from_jax(
         sd.update(dense(attn["proj"], f"{rb}.attn.proj"))
         sd.update(ln(b["norm1"], f"{rb}.norm1"))
         sd.update(ln(b["norm2"], f"{rb}.norm2"))
-        sd.update(dense(b["ff_in"], f"{rb}.ff.net.0"))
-        sd.update(dense(b["ff_out"], f"{rb}.ff.net.2"))
+        if "moe" in b:
+            moe = b["moe"]
+            sd[f"{rb}.moe.router.weight"] = _np(moe["router_kernel"]).T
+            sd[f"{rb}.moe.router.bias"] = _np(moe["router_bias"])
+            for key in _EXPERT_LEAVES:
+                sd[f"{rb}.moe.{key}"] = _np(moe[key])
+        else:
+            sd.update(dense(b["ff_in"], f"{rb}.ff.net.0"))
+            sd.update(dense(b["ff_out"], f"{rb}.ff.net.2"))
         i += 1
     return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C")) for k, v in sd.items()}
 
@@ -123,12 +142,18 @@ def jax_tree_from_state_dict(
     i = 0
     while f"blocks.{i}.norm1.weight" in sd:
         rb = f"blocks.{i}"
-        p[f"block_{i}"] = {
+        block = {
             "attn": {"qkv": dense(f"{rb}.attn.qkv"), "proj": dense(f"{rb}.attn.proj")},
             "norm1": ln(f"{rb}.norm1"),
             "norm2": ln(f"{rb}.norm2"),
-            "ff_in": dense(f"{rb}.ff.net.0"),
-            "ff_out": dense(f"{rb}.ff.net.2"),
         }
+        if f"{rb}.moe.router.weight" in sd:
+            block["moe"] = {"router_kernel": _np(sd[f"{rb}.moe.router.weight"]).T.copy(),
+                            "router_bias": _np(sd[f"{rb}.moe.router.bias"]),
+                            **{k: _np(sd[f"{rb}.moe.{k}"]) for k in _EXPERT_LEAVES}}
+        else:
+            block["ff_in"] = dense(f"{rb}.ff.net.0")
+            block["ff_out"] = dense(f"{rb}.ff.net.2")
+        p[f"block_{i}"] = block
         i += 1
     return {"params": p}

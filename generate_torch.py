@@ -5,7 +5,8 @@ reference ``{"model", "config"}`` payload), rebuild the model from the
 config embedded in it, run the reverse sampler (paper Algorithm 2) and
 write a PNG grid and/or an NPZ of raw samples. The image size is the
 checkpoint's. On a CUDA device the DiT blocks run the hand-written kernels
-K1f and K2f (K1f and K8f at ``image_size`` 128 to 512).
+K1f and K2f (K1f and K8f at ``image_size`` 128 to 512; K11f, K10f and K12f
+in place of K1f for a checkpoint trained with ``--moe-experts``).
 ``train_cifar10_dit_torch.py`` writes checkpoints in the payload this
 script reads.
 

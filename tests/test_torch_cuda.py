@@ -1,4 +1,4 @@
-"""The CUDA kernels K1, K2, K3 and K8 against their plain versions, on the card.
+"""The CUDA kernels K1, K2, K3, K8 and K10-K12 against their plain versions, on the card.
 
 Every test here is marked ``cuda`` and skips on a host without a GPU. The
 file imports no JAX (the machine with the card has none), so it runs there
@@ -14,8 +14,10 @@ torch = pytest.importorskip("torch")
 
 from ddm_tpu_torch.ops import attention as TA  # noqa: E402
 from ddm_tpu_torch.ops import energy as TE  # noqa: E402
+from ddm_tpu_torch.ops import expert_ffn as TX  # noqa: E402
 from ddm_tpu_torch.ops import flash as TF  # noqa: E402
 from ddm_tpu_torch.ops import mlp_block as TM  # noqa: E402
+from ddm_tpu_torch.ops import moe_dispatch as TD  # noqa: E402
 
 # bf16 outputs: the kernel and the plain version round at the same points,
 # but fp32 sums taken in another order can flip a rounding, which moves an
@@ -298,3 +300,126 @@ def test_k8_refuses_what_it_does_not_take(cuda_device):
         TF.flash_attention(y, y, y, 2)
     with pytest.raises(TypeError, match="bf16"):
         TF.flash_attention(y.float(), y.float(), y.float(), 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,S,D,F", [(8, 20480, 384, 1536), (4, 200, 128, 256)])
+def test_k10_kernels_match_plain_on_the_card(cuda_device, E, S, D, F):
+    """The expert FFN forward and its five gradients through autograd, twice
+    (bit-identical), on slot rows whose tail is empty as the dispatch leaves it."""
+    r = np.random.default_rng(9)
+    x = r.standard_normal((E, S, D)).astype(np.float32)
+    x[:, S - S // 5:] = 0.0
+    args = [_t(x).to(cuda_device).to(torch.bfloat16)] + [_t(a).to(cuda_device) for a in (
+        (D ** -0.5 * r.standard_normal((E, D, F))).astype(np.float32),
+        (0.1 * r.standard_normal((E, F))).astype(np.float32),
+        (F ** -0.5 * r.standard_normal((E, F, D))).astype(np.float32),
+        (0.1 * r.standard_normal((E, D))).astype(np.float32))]
+    dout = _t(r.standard_normal((E, S, D)).astype(np.float32)).to(cuda_device).to(torch.bfloat16)
+    before = (TX.LAUNCHES.count, TX.BWD_LAUNCHES.count)
+    with torch.inference_mode():
+        out = TX.expert_ffn(*args)
+    _assert_bf16_rule(out, TX.expert_ffn_reference(*args))
+    got = _grads_through_autograd(TX.expert_ffn, args, (), dout)
+    again = _grads_through_autograd(TX.expert_ffn, args, (), dout)
+    torch.cuda.synchronize()
+    assert (TX.LAUNCHES.count, TX.BWD_LAUNCHES.count) == (before[0] + 3, before[1] + 2)
+    _assert_grads_close(got, TX.expert_ffn_bwd_reference(*args, dout))
+    for g, h in zip(got, again):
+        assert torch.equal(g, h)
+
+
+def _moe_inputs(device, T, D, E, seed=10):
+    r = np.random.default_rng(seed)
+    a = [r.standard_normal((T, D)), 1 + 0.1 * r.standard_normal(D), 0.1 * r.standard_normal(D),
+         D ** -0.5 * r.standard_normal((D, E)), 0.1 * r.standard_normal(E)]
+    x, *rest = (_t(v.astype(np.float32)).to(device) for v in a)
+    return (x.to(torch.bfloat16), *rest)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("topk", [1, 2])
+@pytest.mark.parametrize("T,D,E,gs,n_valid", [(131072, 384, 8, 256, 131072),
+                                              (512, 128, 4, 64, 450)])
+def test_k11_k12_kernels_match_plain_on_the_card(cuda_device, topk, T, D, E, gs, n_valid):
+    """Dispatch and combine, forward and backward, against their plain
+    versions; the second case pads 62 rows that take no route. The kernel's
+    LN statistics differ from the plain version's in the last fp32 bits,
+    which can flip the bf16 rounding of an LN output entry and so move a
+    logit by one bf16 unit of the largest |yb| times max |wr|: a token may
+    route otherwise only within twice that of a tie, the gates and router
+    probabilities agree to it, and groups whose routing differs are left
+    out of the slot-row comparison."""
+    cfg, _ = TD.moe_cfg(T, E, gs, 1.25, topk)
+    G = T // gs
+    x, scale, bias, wr, br = _moe_inputs(cuda_device, T, D, E)
+    before = {n: c.count for n, c in (("f", TD.DISPATCH_LAUNCHES), ("b", TD.DISPATCH_BWD_LAUNCHES),
+                                      ("cf", TD.COMBINE_LAUNCHES), ("cb", TD.COMBINE_BWD_LAUNCHES))}
+    got = TD.moe_dispatch_fwd(cfg, x, scale, bias, wr, br, n_valid)
+    want = TD.moe_dispatch_reference(cfg, x, scale, bias, wr, br, n_valid)
+    xin, gates, pos1, pos2, probs, cnt, psum = got
+    experts = [torch.stack([TD.chosen(p)[0].reshape(-1) for p in o[2:4]]) for o in (got, want)]
+    moved = (experts[0] != experts[1]).any(0)
+    y = TM.layer_norm(x.float(), scale, bias).to(torch.bfloat16).float()
+    tol = 2.0 * 2.0 ** (np.floor(np.log2(float(y.abs().max()))) - 7) * float(wr.abs().max())
+    if moved.any():  # near ties only
+        top = (y[moved] @ wr + br).topk(topk + 1, dim=-1).values
+        assert float((top[:, :-1] - top[:, 1:]).min(-1).values.max()) < tol
+    agree = ((pos1 == want[2]) & (pos2 == want[3])).flatten(1).all(1)
+    assert int(agree.sum()) >= G - int(moved.sum())
+    slots = lambda t: t.view(E, G, cfg.cpad, D)[:, agree]  # noqa: E731
+    _assert_bf16_rule(slots(xin), slots(want[0]))
+    assert not slots(xin)[~slots(want[0]).any(-1)].any()  # unheld slot rows are zeros
+    assert float((gates[agree] - want[1][agree]).abs().max()) <= tol
+    assert float((probs - want[4]).abs().max()) <= tol
+    assert float((cnt - want[5]).abs().max()) <= int(moved.sum())
+    torch.testing.assert_close(psum, want[6], rtol=1e-5, atol=0)
+    assert not gates.view(-1, 2)[n_valid:].any() and (pos1.view(-1, E)[n_valid:] < 0).all()
+
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    dxin = torch.randn(xin.shape, generator=gen, device=cuda_device).to(torch.bfloat16)
+    dgates = torch.randn(gates.shape, generator=gen, device=cuda_device)
+    dpsum = torch.randn((E,), generator=gen, device=cuda_device)
+    dres = torch.randn(x.shape, generator=gen, device=cuda_device).to(torch.bfloat16)
+    routing = (pos1, pos2, probs)
+    for res in (dres, None):
+        g1 = TD.moe_dispatch_bwd(cfg, x, scale, bias, wr, *routing, dxin, dgates, dpsum, res,
+                                 n_valid)
+        g2 = TD.moe_dispatch_bwd(cfg, x, scale, bias, wr, *routing, dxin, dgates, dpsum, res,
+                                 n_valid)
+        for g, h in zip(g1, g2):
+            assert torch.equal(g, h)
+        _assert_grads_close(g1, TD.moe_dispatch_bwd_reference(
+            cfg, x, scale, bias, wr, *routing, dxin, dgates, dpsum, res, n_valid))
+
+    eout = torch.randn(xin.shape, generator=gen, device=cuda_device).to(torch.bfloat16)
+    dpart = torch.randn(x.shape, generator=gen, device=cuda_device).to(torch.bfloat16)
+    for res in (x, None):
+        _assert_bf16_rule(TD.moe_combine_fwd(cfg, eout, gates, pos1, pos2, res),
+                          TD.moe_combine_reference(cfg, eout, gates, pos1, pos2, res))
+    (dout, dg), again = (TD.moe_combine_bwd(cfg, eout, gates, pos1, pos2, dpart) for _ in range(2))
+    assert torch.equal(dout, again[0]) and torch.equal(dg, again[1])
+    want_dout, want_dg = TD.moe_combine_bwd_reference(cfg, eout, gates, pos1, pos2, dpart)
+    _assert_bf16_rule(dout, want_dout)
+    assert not dout[~want_dout.any(-1)].any()
+    assert float((dg - want_dg).abs().max()) <= 1e-4 * float(want_dg.abs().max())
+    torch.cuda.synchronize()
+    after = {n: c.count for n, c in (("f", TD.DISPATCH_LAUNCHES), ("b", TD.DISPATCH_BWD_LAUNCHES),
+                                     ("cf", TD.COMBINE_LAUNCHES), ("cb", TD.COMBINE_BWD_LAUNCHES))}
+    assert {n: after[n] - before[n] for n in after} == {"f": 1, "b": 4, "cf": 2, "cb": 2}
+
+
+@pytest.mark.cuda
+def test_moe_kernels_refuse_what_they_do_not_take(cuda_device):
+    x, scale, bias, wr, br = _moe_inputs(cuda_device, 200, 128, 4)
+    cfg, _ = TD.moe_cfg(200, 4, 100, 1.25, 1)  # gs = 100 is not a multiple of 8
+    with pytest.raises(ValueError, match="moe_dispatch_ok"):
+        TD.moe_dispatch_fwd(cfg, x, scale, bias, wr, br)
+    cfg, _ = TD.moe_cfg(200, 4, 40, 1.25, 1)
+    with pytest.raises(TypeError, match="bf16"):
+        TD.moe_dispatch_fwd(cfg, x.float(), scale, bias, wr, br)
+    w1 = torch.zeros(4, 128, 256, device=cuda_device)
+    with pytest.raises(TypeError, match="bf16"):
+        TX.expert_ffn(torch.zeros(4, 16, 128, device=cuda_device), w1,
+                      torch.zeros(4, 256, device=cuda_device), w1.transpose(1, 2),
+                      torch.zeros(4, 128, device=cuda_device))

@@ -85,7 +85,8 @@ def test_train_cli_refuses_image_size_64(tmp_path):
 
 @pytest.mark.parametrize("flags,item", [
     (["--tp", "2"], "item 11"), (["--sp"], "item 11"), (["--pp", "2"], "item 11"),
-    (["--fsdp"], "item 11"), (["--moe-experts", "4"], "item 10"), (["--remat"], "item 8"),
+    (["--fsdp"], "item 11"), (["--moe-experts", "4", "--tp", "2"], "item 11"),
+    (["--remat"], "item 8"),
     (["--mlp-persist", "2"], "item 8"), (["--fast-gelu"], "item 5"),
     (["--attention", "flash"], "item 9"), (["--grad-accum", "2"], "item 2"),
     (["--ema-decay", "0.999"], "item 2"), (["--lr-schedule", "cosine"], "item 2"),
@@ -100,6 +101,40 @@ def test_train_cli_refuses_flags_left_for_later(tmp_path, flags, item):
     with mock.patch.object(cli, "train") as train:
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
             cli.main(argv)
+    train.assert_not_called()
+
+
+def test_train_cli_moe_run_on_cpu(tmp_path, monkeypatch):
+    """--moe-experts 4: every MLP half routed to 4 expert FFNs (plain
+    versions on the CPU); the Switch aux joins the loss and is logged as
+    moe_aux, and generate_torch rebuilds the MoE model from the checkpoint,
+    here with a row count (6 images x 16 tokens) that pads to its group."""
+    monkeypatch.setattr(cli, "CIFAR10DataConfig",
+                        functools.partial(CIFAR10DataConfig, synthetic_size=128))
+    result = cli.main([*TINY, "--image-size", "16", "--moe-experts", "4",
+                       "--moe-group-size", "64", "--out", str(tmp_path)])
+    history = json.loads((tmp_path / "train_metrics.json").read_text())
+    assert history["step"] == [1, 2]
+    assert set(history) == {"step", "loss", "confidence", "interaction", "weight", "moe_aux"}
+    assert np.isfinite(history["moe_aux"]).all() and min(history["moe_aux"]) > 0
+    assert result["metrics"]["moe_aux"] == history["moe_aux"][-1]
+    assert not any(result["launches"]["train"].values())
+    state = torch.load(tmp_path / "model_final.pt", weights_only=False)
+    assert state["config"]["moe_experts"] == 4
+    assert state["model"]["blocks.1.moe.experts_in"].shape == (4, 64, 256)
+    npz = tmp_path / "s.npz"
+    generate_torch.main(["--ckpt", str(tmp_path), "--n", "6", "--steps", "2", "--device", "cpu",
+                         "--out", "", "--npz", str(npz)])
+    samples = np.load(npz)["samples"]
+    assert samples.shape == (6, 16, 16, 3) and np.isfinite(samples).all()
+
+
+@pytest.mark.parametrize("flags", [["--moe-topk", "3"], ["--mlp-persist", "2"]])
+def test_train_cli_refuses_what_the_jax_parser_refuses_with_moe(tmp_path, flags):
+    with mock.patch.object(cli, "train") as train:
+        with pytest.raises(SystemExit):
+            cli.main(["--synthetic", "--device", "cpu", "--out", str(tmp_path),
+                      "--moe-experts", "4", *flags])
     train.assert_not_called()
 
 

@@ -15,7 +15,11 @@ Each step: the uint8 batch goes to the device, is augmented there
 or 512 (N = 1024 to 16384 tokens at patch 4) resizes the data once and
 runs the attention core through K8f/K8b instead of K2's, and the energy
 score through its plain version, as the JAX package's gate does at that
-size. On ``--device cpu`` the same step runs the plain PyTorch versions.
+size. ``--moe-experts E`` (> 1) replaces every block's dense MLP half with
+E routed expert FFNs (kernels K11f/K10f/K12f forward, K12b/K10b/K11b
+backward in place of K1f/K1b), whose Switch load-balance loss, times
+``--moe-aux-weight``, joins the loss and is logged as ``moe_aux``. On
+``--device cpu`` the same step runs the plain PyTorch versions.
 
 Not written: the ``*_dynamics.png`` plots (they need matplotlib, which the
 GPU machine does not have); the histories are in ``train_metrics.json`` and
@@ -27,6 +31,8 @@ Usage:
     python train_cifar10_dit_torch.py --synthetic --epochs 1 --out run/
     python train_cifar10_dit_torch.py --synthetic --image-size 128 --batch 16 --m 8 \
         --epochs 1 --out run128/
+    python train_cifar10_dit_torch.py --synthetic --batch 256 --m 8 --moe-experts 8 \
+        --moe-capacity 1.25 --moe-group-size 256 --moe-aux-weight 0.01 --epochs 1 --out moe/
 """
 
 from __future__ import annotations
@@ -44,7 +50,12 @@ import torch
 from ddm_tpu_torch.data.augment import augment_cifar10, normalize_images
 from ddm_tpu_torch.data.cifar10 import CIFAR10DataConfig, build_cifar10_dataloaders
 from ddm_tpu_torch.models.dit import init_params, patchify_images
-from ddm_tpu_torch.models.factory import MODEL_DEFAULTS, SAMPLER_DEFAULTS, build_model
+from ddm_tpu_torch.models.factory import (
+    MODEL_DEFAULTS,
+    SAMPLER_DEFAULTS,
+    build_model,
+    make_tokens_apply,
+)
 from ddm_tpu_torch.ops.kernel_config import cli_device, launch_counts, load_library
 from ddm_tpu_torch.sampling import sample_dddm_batched
 from ddm_tpu_torch.training import make_optimizer, make_train_step, split_generator
@@ -56,7 +67,6 @@ _PARALLEL = "Queue 1 item 11 (parallelism)"
 _OPTIONS = "Queue 1 item 2 (lr schedules, grad-accum, EMA, resume)"
 _EVAL = "Queue 1 item 3 (eval)"
 _UTILS = "Queue 1 item 7 (data, utils)"
-_MOE = "Queue 1 item 10 (MoE)"
 # flags of paths the port does not run yet: set away from its default, each
 # raises NotImplementedError naming its ROADMAP.md item
 NOT_PORTED = {
@@ -68,14 +78,12 @@ NOT_PORTED = {
     "fid_samples": _EVAL, "mmd_samples": _EVAL, "mmd_sigma": _EVAL, "fid_bf16": _EVAL,
     "wandb": _UTILS, "wandb_project": _UTILS, "wandb_name": _UTILS,
     "profile_dir": _UTILS, "debug_nans": _UTILS,
-    "moe_experts": _MOE, "moe_capacity": _MOE, "moe_group_size": _MOE, "moe_topk": _MOE,
-    "moe_aux_weight": _MOE,
     "remat": "Queue 1 item 8 (wider DiT configs)",
     "mlp_persist": "Queue 1 item 8 (wider DiT configs)",
     "attention": "Queue 1 item 9 (long sequences)",
     "fast_gelu": "Queue 1 item 5 (fast GELU)",
 }
-METRIC_KEYS = ("loss", "confidence", "interaction", "weight")
+METRIC_KEYS = ("loss", "confidence", "interaction", "weight", "moe_aux")
 
 
 def _serialize_history(history: Dict[str, list]) -> dict:
@@ -111,7 +119,8 @@ def train(args: argparse.Namespace) -> dict:
         return augment_cifar10(batch, generator) if augment else normalize_images(batch)
 
     step_fn = make_train_step(
-        model, model.tokens, optimizer, m=args.m, beta=args.beta, lam=args.lam,
+        model, make_tokens_apply(model, args.moe_aux_weight), optimizer, m=args.m,
+        beta=args.beta, lam=args.lam,
         w_bias=args.w_bias, grad_clip=args.grad_clip, preprocess=preprocess,
         target_transform=lambda x0: patchify_images(x0, args.patch_size))
 
@@ -133,7 +142,8 @@ def train(args: argparse.Namespace) -> dict:
             nonlocal pending, window_t0, num_batches
             if not pending:
                 return
-            values = torch.stack([torch.stack([m[k] for k in METRIC_KEYS])
+            keys = [k for k in METRIC_KEYS if k in pending[0]]
+            values = torch.stack([torch.stack([m[k] for k in keys])
                                   for m in pending]).float().cpu().numpy()
             now = time.perf_counter()
             step_seconds.extend([(now - window_t0) / len(pending)] * len(pending))
@@ -141,7 +151,7 @@ def train(args: argparse.Namespace) -> dict:
             base = global_step - len(pending)
             for i, row in enumerate(values):
                 train_history["step"].append(base + i + 1)
-                for k, v in zip(METRIC_KEYS, row):
+                for k, v in zip(keys, row):
                     train_history.setdefault(k, []).append(float(v))
                     sums[k] += float(v)
             num_batches += len(pending)
@@ -275,16 +285,23 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--debug-nans", action="store_true", help=later + _UTILS)
     p.add_argument("--remat", action="store_true", help=later + NOT_PORTED["remat"])
     p.add_argument("--moe-experts", type=int, dest="moe_experts",
-                   default=MODEL_DEFAULTS["moe_experts"], help=later + _MOE)
+                   default=MODEL_DEFAULTS["moe_experts"],
+                   help="> 1 replaces every block's dense MLP with this many routed expert "
+                        "FFNs (replicated; excludes --mlp-persist)")
     p.add_argument("--moe-capacity", type=float, dest="moe_capacity",
-                   default=MODEL_DEFAULTS["moe_capacity"], help=later + _MOE)
+                   default=MODEL_DEFAULTS["moe_capacity"],
+                   help="per-expert capacity factor: cap = ceil(group * factor * topk / "
+                        "experts); over-capacity tokens pass through the residual")
     p.add_argument("--moe-group-size", type=int, dest="moe_group_size",
-                   default=MODEL_DEFAULTS["moe_group_size"], help=later + _MOE)
+                   default=MODEL_DEFAULTS["moe_group_size"],
+                   help="routing group size (0 = all rows in one group); ragged row counts "
+                        "pad to the group boundary")
     p.add_argument("--fid-bf16", action="store_true", dest="fid_bf16", help=later + _EVAL)
     p.add_argument("--moe-topk", type=int, dest="moe_topk", default=MODEL_DEFAULTS["moe_topk"],
-                   help=later + _MOE)
+                   help="routed experts per token: 1 (Switch) or 2 (GShard)")
     p.add_argument("--moe-aux-weight", type=float, dest="moe_aux_weight", default=0.01,
-                   help=later + _MOE)
+                   help="weight of the Switch load-balance loss (mean over MoE blocks, added "
+                        "to the loss and logged as moe_aux); 0 disables it")
     p.add_argument("--mlp-persist", type=int, default=MODEL_DEFAULTS["mlp_persist"],
                    help=later + NOT_PORTED["mlp_persist"])
     p.add_argument("--fsdp", action="store_true", help=later + _PARALLEL)
@@ -300,6 +317,14 @@ def main(argv: Optional[list] = None) -> dict:
     parser = build_parser()
     args = parser.parse_args(argv)
     apply_config(parser, args)
+    if args.moe_experts > 1:  # the JAX parser's checks (train_cifar10_dit.py:869-878)
+        if args.moe_experts % args.tp:
+            parser.error("--moe-experts must be divisible by --tp")
+        if args.mlp_persist:
+            parser.error("--mlp-persist applies to the dense MLP half, which --moe-experts "
+                         "replaces")
+        if args.moe_topk not in (1, 2):
+            parser.error("--moe-topk must be 1 or 2")
     for dest, item in NOT_PORTED.items():
         if getattr(args, dest) != parser.get_default(dest):
             raise NotImplementedError(
