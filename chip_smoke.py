@@ -2,7 +2,11 @@
 NVIDIA GPU, at 32 px (N = 64 tokens), at 128 px (N = 1024 tokens, the
 long-sequence path through the flash-attention kernel K8), and with 8 top-1
 routed experts in every block (the MoE path of configs/cifar10_dit_moe.yaml,
-through kernels K10, K11 and K12).
+through kernels K10, K11 and K12); then the wide tiers: DiT-L/4 at full
+width and depth (configs/cifar10_dit_l.yaml's widths: D 1024, depth 24, 16
+heads, through the split attention backward K4 and the F-chunked MLP
+partial K6f) and the MoE recipe at DiT-B/4 width (D 768, depth 12, 12 heads,
+through K4 and the expert FFN's F-chunked partial K10p).
 
 Run from the repository root with no arguments:
 
@@ -67,8 +71,41 @@ is non-zero and no result line is printed:
    for K3f/K3b, none of K1), then 64 samples from its ``model_final.pt``
    (K2f, K11f, K10f, K12f = 8 x 20 each).
 
-Every phase runs at full DiT-S/4 width and depth 8; the whole run takes a
-few minutes of the 20 allowed, the kernels' build included.
+The wide tiers, after every phase above:
+
+3f. K4 at the DiT-B and DiT-L training shapes (2048, 64, 768, H 12) and
+    (2048, 64, 1024, H 16), against the plain backward, the second call
+    bit-identical; K6f, one partial on the second hidden chunk of (131,072 x
+    1024, F 4096) read in place (fp32, relative Frobenius error within 1e-4
+    or twice the plain version's own spread under reordered sums), and the
+    F-chunked half-block at k = 2 (bf16 rule), beside K1f unchunked on the
+    same inputs; K10p at (8, 20480, 768, F 3072): one chunk (fp32, the same
+    rule) and the k = 2 forward (bf16 rule); then (wide-shapes) the earlier
+    slices' kernels at the shapes the wide paths give them, each against its
+    plain version by its own rule above and timed: K2f at DiT-L sampling and
+    training (64 and 2048 images of (64, 1024), H 16), K1b at (131,072 x
+    1024, F 4096), and K11f/K11b, K12f/K12b and K10b at the DiT-B MoE
+    training shape (T 131,072, D 768, F 3072, top-1); the kernels line
+    carries these as each entry's ``shapes``;
+6d. one DiT-L step at full width and depth 24, through the kernels twice
+    (bit-identical gradients), against the plain step within twice bf16's
+    own noise, at batch 16 x m 8 (a plain step at 256 x 8 would keep a
+    2.1 GB fp32 h per block alive for autograd);
+6e. the same for the DiT-B MoE model, moe_aux included, replaying the kernel
+    step's routing as 6c does;
+7d. the DiT-L trainer (``--embed-dim 1024 --depth 24 --heads 16``) for one
+    epoch (8 steps of batch 256 x m 8), its peak memory, then 64 samples from
+    its ``model_final.pt``; launches per step 24 each of K2f, K4 and K1b (the
+    counterpart of the JAX wide tier's XLA backward), 48 of K6f, 1 each of
+    K3f and K3b; per sampler call 480 of K2f and 960 of K6f;
+7e. the DiT-B MoE trainer (``--embed-dim 768 --depth 12 --heads 12`` and the
+    MoE flags) for one epoch, then 64 samples; launches per step 12 each of
+    K2f, K4, K11f, K11b, K10b, K12f, K12b, 24 of K10p, 1 each of K3f, K3b; per
+    sampler call 240 each of K2f, K11f, K12f and 480 of K10p.
+
+The DiT-S phases run at full width and depth 8. PERF.md gives the whole
+run's measured time on the card, the kernels' build included, against the
+20 minutes allowed.
 
 The second-to-last line is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -107,6 +144,17 @@ MOE = {"moe_experts": 8, "moe_capacity": 1.25, "moe_group_size": 256, "moe_topk"
 MOE_AUX_WEIGHT = 0.01
 # the router's psum: fp32 sums of the probabilities in another order
 PSUM_RTOL = 1e-5
+# the wide paths: configs/cifar10_dit_l.yaml's widths, and the MoE recipe at
+# configs/cifar10_dit_b.yaml's widths
+DIT_L = {"embed_dim": 1024, "depth": 24, "heads": 16}
+DIT_B = {"embed_dim": 768, "depth": 12, "heads": 12}
+WIDE_STEP_BATCH = 16  # 6d, 6e: batch 16 x m 8
+# an fp32 partial (K6f, K10p), relative Frobenius error: at least 1e-4, and
+# at least twice the plain version's own spread when its fp32 sums run in
+# another order (the contraction axes permuted): a flipped bf16 rounding of
+# an LN output or hidden entry moves single entries by up to ~1e-3 of the
+# largest, while the bulk agrees to the fp32 sums
+PARTIAL_RTOL = 1e-4
 # roofline: the published H100 SXM peaks (bf16 tensor cores, fp32 outside
 # them) and the HBM rate; a bound is the larger of bytes / HBM and ops / peak
 PEAK = {"bf16": 989e12, "fp32": 67e12}
@@ -212,41 +260,48 @@ def _entry(name, source, sources, replaces, max_err, ms, plain_ms, bound, librar
             **bound, "library_ms": library_ms}
 
 
+def _k1f_case(M, gen, T, D, F):
+    return ("K1f", f"(T={T}, D={D}, F={F})", M.fused_mlp_block, M.mlp_block_reference,
+            _mlp_args(gen, T, D, F), 4 * T * D * F)
+
+
+def _k2f_case(A, gen, B, N, D, H):
+    # qkv and projection GEMMs, then QK^T and PV per image and head
+    return ("K2f", f"(B={B}, N={N}, D={D}, H={H})",
+            lambda *a: A.fused_attention_block(*a, H),
+            lambda *a: A.attention_block_reference(*a, H), _attn_args(gen, B, N, D),
+            8 * B * N * D * D + 4 * B * N * N * D)
+
+
+def _time_forward(case, smi):
+    """A forward kernel against its plain version on the same inputs (bf16
+    rule), both timed: ``(max_abs_err, ms, plain_ms, bound)``."""
+    name, shape, kern, plain, args, flops = case
+    with torch.inference_mode():
+        got = kern(*args)
+        torch.cuda.synchronize()
+        max_err, mean_err, tol, ok = _bf16_errors(got, plain(*args))
+        ms = _median_ms(lambda: kern(*args))
+        plain_ms = _median_ms(lambda: plain(*args))
+    print(f"[kernel] {name} {shape} bf16: max_abs_err={max_err:.6g} (tol {tol:.6g}), "
+          f"mean_abs_err={mean_err:.6g} (tol {KERNEL_MEAN_TOL:g}); "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20) on {smi}")
+    if not ok:
+        raise AssertionError(f"{name} {shape} disagrees with its plain version")
+    return max_err, ms, plain_ms, _bound(_nbytes(*args, got), flops)
+
+
 def phase_kernels(M, A, smi):
     gen = torch.Generator(device="cuda").manual_seed(0)
     T, D, F, B, N, H = 16384, 384, 1536, 256, 64, 6
-    cases = [
-        ("K1f", "ddm_tpu_torch/csrc/gemm.cu",
-         ["ddm_tpu_torch/csrc/gemm.cu", "ddm_tpu_torch/csrc/common.cuh"],
-         "ddm_tpu/ops/mlp_block.py:144", M.fused_mlp_block, M.mlp_block_reference,
-         _mlp_args(gen, T, D, F), (), f"(T={T}, D={D}, F={F})", 4 * T * D * F),
-        # qkv and projection GEMMs, then QK^T and PV per image and head
-        ("K2f", "ddm_tpu_torch/csrc/attention.cu",
-         ["ddm_tpu_torch/csrc/attention.cu", "ddm_tpu_torch/csrc/gemm.cu",
-          "ddm_tpu_torch/csrc/common.cuh"],
-         "ddm_tpu/ops/attention.py:341", A.fused_attention_block,
-         A.attention_block_reference, _attn_args(gen, B, N, D), (H,),
-         f"(B={B}, N={N}, D={D}, H={H})", 8 * B * N * D * D + 4 * B * N * N * D),
-    ]
+    srcs = {"K1f": (["ddm_tpu_torch/csrc/gemm.cu", "ddm_tpu_torch/csrc/common.cuh"],
+                    "ddm_tpu/ops/mlp_block.py:144"),
+            "K2f": (["ddm_tpu_torch/csrc/attention.cu", "ddm_tpu_torch/csrc/gemm.cu",
+                     "ddm_tpu_torch/csrc/common.cuh"], "ddm_tpu/ops/attention.py:341")}
     results = []
-    with torch.inference_mode():
-        for name, source, sources, replaces, kern, plain, args, extra, shape, flops in cases:
-            got = kern(*args, *extra)
-            torch.cuda.synchronize()
-            want = plain(*args, *extra)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs()
-            max_err, mean_err = float(err.max()), float(err.mean())
-            tol = _ulp2(want)
-            ms = _median_ms(lambda: kern(*args, *extra))
-            plain_ms = _median_ms(lambda: plain(*args, *extra))
-            print(f"[kernel] {name} {shape} bf16: max_abs_err={max_err:.6g} (tol {tol:.6g}), "
-                  f"mean_abs_err={mean_err:.6g} (tol {KERNEL_MEAN_TOL:g}); "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20) on {smi}")
-            if not (np.isfinite(max_err) and max_err <= tol and mean_err <= KERNEL_MEAN_TOL):
-                raise AssertionError(f"{name} disagrees with its plain version")
-            results.append(_entry(name, source, sources, replaces, max_err, ms, plain_ms,
-                                  _bound(_nbytes(*args, got), flops)))
+    for case in (_k1f_case(M, gen, T, D, F), _k2f_case(A, gen, B, N, D, H)):
+        sources, replaces = srcs[case[0]]
+        results.append(_entry(case[0], sources[0], sources, replaces, *_time_forward(case, smi)))
     return results
 
 
@@ -277,52 +332,66 @@ def _check_grads(name, got, want, smi, ms, plain_ms,
     return worst
 
 
+def _k1b_case(M, gen, T, D, F):
+    mlp = _mlp_args(gen, T, D, F)
+    dout = torch.randn(T, D, generator=gen, device="cuda").to(torch.bfloat16)
+    return ("K1b", f"(T={T}, D={D}, F={F})", lambda: M.mlp_block_bwd(*mlp, dout),
+            lambda: M.mlp_block_bwd_reference(*mlp, dout), (*mlp, dout),
+            # the W1 recompute, dW2, dh, dW1 and dy products
+            10 * T * D * F)
+
+
+def _attn_bwd_case(A, gen, B, N, D, H, name):
+    attn = _attn_args(gen, B, N, D)
+    dout = torch.randn(B, N, D, generator=gen, device="cuda").to(torch.bfloat16)
+    return (name, f"(B={B}, N={N}, D={D}, H={H})", lambda: A.attention_block_bwd(*attn, H, dout),
+            lambda: A.attention_block_bwd_reference(*attn, H, dout), (*attn, dout),
+            # the qkv recompute, dWproj, datt, dWqkv and dx GEMMs; S, att, dV,
+            # dP, dQ and dK per image and head
+            2 * B * N * D * D * (3 + 1 + 1 + 3 + 3) + 12 * B * N * N * D)
+
+
+def _time_backward(case, smi, counters=None):
+    """A backward kernel twice (bit-identical) against its plain version on
+    the same inputs (:func:`_check_grads`), both timed: ``(worst max_abs_err,
+    ms, plain_ms, bound)``. ``counters`` ``{counter: launches}`` are the
+    launch counts the two checked calls must add."""
+    name, shape, kern, plain, inputs, flops = case
+    before = {c: c.count for c in counters or {}}
+    with torch.no_grad():
+        got, again = kern(), kern()
+        torch.cuda.synchronize()
+        for c, n in (counters or {}).items():
+            if c.count - before[c] != n:
+                raise AssertionError(f"{name} {shape}: {c.name} rose by {c.count - before[c]}, "
+                                     f"not {n}: the tier took another kernel")
+        if not all(torch.equal(g, h) for g, h in zip(got, again)):
+            raise AssertionError(f"{name} {shape} is not deterministic: two calls differ")
+        del again
+        ms, plain_ms = _median_ms(kern), _median_ms(plain)
+        worst = _check_grads(f"{name} {shape} bf16 (second call bit-identical)", got, plain(),
+                             smi, ms, plain_ms)
+    bound = _bound(_nbytes(*inputs, *got), flops)
+    del got
+    torch.cuda.empty_cache()
+    return worst, ms, plain_ms, bound
+
+
 def phase_backward(M, A, smi):
     gen = torch.Generator(device="cuda").manual_seed(1)
     D, F, H, N = 384, 1536, 6, 64
     B = TRAIN_BATCH * TRAIN_M
-    T = B * N
-    mlp = _mlp_args(gen, T, D, F)
-    attn = _attn_args(gen, B, N, D)
-    dout_m = torch.randn(T, D, generator=gen, device="cuda").to(torch.bfloat16)
-    dout_a = torch.randn(B, N, D, generator=gen, device="cuda").to(torch.bfloat16)
-    cases = [
-        ("K1b", "ddm_tpu_torch/csrc/gemm_bwd.cu",
-         ["ddm_tpu_torch/csrc/gemm_bwd.cu", "ddm_tpu_torch/csrc/gemm.cu",
-          "ddm_tpu_torch/csrc/common.cuh"],
-         "ddm_tpu/ops/mlp_block.py:211",
-         lambda: M.mlp_block_bwd(*mlp, dout_m), lambda: M.mlp_block_bwd_reference(*mlp, dout_m),
-         f"(T={T}, D={D}, F={F})", (*mlp, dout_m),
-         # the W1 recompute, dW2, dh, dW1 and dy products
-         10 * T * D * F),
-        ("K2b", "ddm_tpu_torch/csrc/attention.cu",
-         ["ddm_tpu_torch/csrc/attention.cu", "ddm_tpu_torch/csrc/gemm_bwd.cu",
-          "ddm_tpu_torch/csrc/gemm.cu", "ddm_tpu_torch/csrc/common.cuh"],
-         "ddm_tpu/ops/attention.py:358",
-         lambda: A.attention_block_bwd(*attn, H, dout_a),
-         lambda: A.attention_block_bwd_reference(*attn, H, dout_a),
-         f"(B={B}, N={N}, D={D}, H={H})", (*attn, dout_a),
-         # the qkv recompute, dWproj, datt, dWqkv and dx GEMMs; QK^T and PV
-         # recomputed, then dV, dP, dQ and dK per image and head
-         2 * T * D * D * (3 + 1 + 1 + 3 + 3) + 12 * B * N * N * D),
-    ]
+    srcs = {"K1b": (["ddm_tpu_torch/csrc/gemm_bwd.cu", "ddm_tpu_torch/csrc/gemm.cu",
+                     "ddm_tpu_torch/csrc/common.cuh"], "ddm_tpu/ops/mlp_block.py:211"),
+            "K2b": (["ddm_tpu_torch/csrc/attention.cu", "ddm_tpu_torch/csrc/gemm_bwd.cu",
+                     "ddm_tpu_torch/csrc/gemm.cu", "ddm_tpu_torch/csrc/common.cuh"],
+                    "ddm_tpu/ops/attention.py:358")}
     results = []
-    with torch.no_grad():
-        for name, source, sources, replaces, kern, plain, shape, inputs, flops in cases:
-            got = kern()
-            again = kern()
-            torch.cuda.synchronize()
-            if not all(torch.equal(g, h) for g, h in zip(got, again)):
-                raise AssertionError(f"{name} is not deterministic: two calls differ")
-            want = plain()
-            ms = _median_ms(kern)
-            plain_ms = _median_ms(plain)
-            worst = _check_grads(f"{name} {shape} bf16 (second call bit-identical)",
-                                 got, want, smi, ms, plain_ms)
-            results.append(_entry(name, source, sources, replaces, worst, ms, plain_ms,
-                                  _bound(_nbytes(*inputs, *got), flops)))
-            del got, again, want
-            torch.cuda.empty_cache()
+    for case in (_k1b_case(M, gen, B * N, D, F), _attn_bwd_case(A, gen, B, N, D, H, "K2b")):
+        sources, replaces = srcs[case[0]]
+        counters = {A.BWD_LAUNCHES: 2, A.SPLIT_BWD_LAUNCHES: 0} if case[0] == "K2b" else None
+        results.append(_entry(case[0], sources[0], sources, replaces,
+                              *_time_backward(case, smi, counters)))
     return results
 
 
@@ -482,11 +551,12 @@ def _routing(MD, ML, cfg, got, want, x, scale, bias, wr, br):
     return int(moved.sum()), agree, gap, tol
 
 
-def phase_moe_kernels(MD, X, ML, smi):
-    """K11 (dispatch), K12 (combine) and K10 (expert FFN) at the MoE
-    training shape, top-1 and (K11, K12) top-2, against their plain versions."""
+def _moe_kernel_times(MD, X, ML, smi, D, F, topks, k10f=True):
+    """K11 (dispatch), K12 (combine) and K10b (expert FFN backward), with
+    K10f where ``k10f``, at the MoE training shape of width D, against their
+    plain versions: ``{(name, topk): (max_abs_err, ms, plain_ms, bound)}``."""
     gen = torch.Generator(device="cuda").manual_seed(5)
-    T, D, F, E, GS = TRAIN_BATCH * TRAIN_M * 64, 384, 1536, MOE["moe_experts"], 256
+    T, E, GS = TRAIN_BATCH * TRAIN_M * 64, MOE["moe_experts"], 256
 
     def r(*shape, scale=1.0, off=0.0):
         return torch.randn(*shape, generator=gen, device="cuda") * scale + off
@@ -495,9 +565,8 @@ def phase_moe_kernels(MD, X, ML, smi):
     x = r(T, D).to(bf)
     scale, bias, wr, br = r(D, scale=0.1, off=1.0), r(D, scale=0.1), r(D, E, scale=D ** -0.5), \
         r(E, scale=0.1)
-    moe_src = ["ddm_tpu_torch/csrc/moe.cu", "ddm_tpu_torch/csrc/common.cuh"]
-    entries, timed = {}, {}
-    for topk in (1, 2):
+    timed = {}
+    for topk in topks:
         cfg, _ = MD.moe_cfg(T, E, GS, MOE["moe_capacity"], topk)
         G = T // GS
         shape = f"(T={T}, D={D}, E={E}, gs={GS}, cap={cfg.cap}, top-{topk})"
@@ -611,19 +680,20 @@ def phase_moe_kernels(MD, X, ML, smi):
     ffn = (slot_rows, w1, b1, w2, b2)
     S = slot_rows.shape[1]
     shape = f"(E={E}, S={S}, D={D}, F={F})"
-    with torch.no_grad():
-        got = X.expert_ffn(*ffn)
-        torch.cuda.synchronize()
-        ferr, fmean, ftol, ok = _bf16_errors(got, X.expert_ffn_reference(*ffn))
-        ms = _median_ms(lambda: X.expert_ffn(*ffn))
-        plain_ms = _median_ms(lambda: X.expert_ffn_reference(*ffn))
-    print(f"[kernel] K10f {shape} bf16: max_abs_err={ferr:.6g} (tol {ftol:.6g}), "
-          f"mean_abs_err={fmean:.6g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20) "
-          f"on {smi}")
-    if not ok:
-        raise AssertionError("K10f disagrees with its plain version")
-    timed[("K10f", 1)] = (ferr, ms, plain_ms, _bound(_nbytes(*ffn, got), 4 * E * S * D * F))
-    del got
+    if k10f:
+        with torch.no_grad():
+            got = X.expert_ffn(*ffn)
+            torch.cuda.synchronize()
+            ferr, fmean, ftol, ok = _bf16_errors(got, X.expert_ffn_reference(*ffn))
+            ms = _median_ms(lambda: X.expert_ffn(*ffn))
+            plain_ms = _median_ms(lambda: X.expert_ffn_reference(*ffn))
+        print(f"[kernel] K10f {shape} bf16: max_abs_err={ferr:.6g} (tol {ftol:.6g}), "
+              f"mean_abs_err={fmean:.6g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of "
+              f"20) on {smi}")
+        if not ok:
+            raise AssertionError("K10f disagrees with its plain version")
+        timed[("K10f", 1)] = (ferr, ms, plain_ms, _bound(_nbytes(*ffn, got), 4 * E * S * D * F))
+        del got
     with torch.no_grad():
         kern = lambda: X.expert_ffn_bwd(*ffn, dout)  # noqa: E731
         g1, g2 = kern(), kern()
@@ -638,6 +708,15 @@ def phase_moe_kernels(MD, X, ML, smi):
     # the h recompute, dW2, dg, dW1 and dx products
     timed[("K10b", 1)] = (worst, ms, plain_ms, _bound(_nbytes(*ffn, dout, *g1),
                                                       10 * E * S * D * F))
+    return timed
+
+
+def phase_moe_kernels(MD, X, ML, smi):
+    """K11 (dispatch), K12 (combine) and K10 (expert FFN) at the MoE
+    training shape, top-1 and (K11, K12) top-2, against their plain versions."""
+    timed = _moe_kernel_times(MD, X, ML, smi, 384, 1536, (1, 2))
+    moe_src = ["ddm_tpu_torch/csrc/moe.cu", "ddm_tpu_torch/csrc/common.cuh"]
+    entries = {}
     for name, line, src in (("K10f", "expert_ffn.py:55", "gemm_bwd.cu"),
                             ("K10b", "expert_ffn.py:63", "gemm_bwd.cu"),
                             ("K11f", "moe_dispatch.py:150", "moe.cu"),
@@ -778,9 +857,15 @@ def plain_ops(replay=None):
     from ddm_tpu_torch.ops import expert_ffn as X
     from ddm_tpu_torch.ops import mlp_block as M
     from ddm_tpu_torch.ops import moe_dispatch as MD
+    from ddm_tpu_torch.ops import tiers
 
     def mlp(*t):
-        return _Plain.apply(M.mlp_block_reference, M.mlp_block_bwd_reference, *t)
+        # the plain version of the tier the kernels take at these shapes
+        tier = tiers.mlp_tier(*t[0].shape, t[3].shape[0])
+        fwd = M.mlp_block_reference
+        if tier is not None and tier[0] == "fchunked":
+            fwd = lambda *a: M.mlp_block_fchunked_reference(*a, tier[1])  # noqa: E731
+        return _Plain.apply(fwd, M.mlp_block_bwd_reference, *t)
 
     def attn(*t_and_h):
         *t, H = t_and_h
@@ -802,7 +887,11 @@ def plain_ops(replay=None):
         return _PlainDispatch.apply(cfg, n_valid, choices, x, scale, bias, wr, br)
 
     def ffn(*t):
-        return _Plain.apply(X.expert_ffn_reference, X.expert_ffn_bwd_reference, *t)
+        tier = tiers.expert_tier(*t[0].shape, t[1].shape[-1])
+        fwd = X.expert_ffn_reference
+        if tier is not None and tier[1] > 1:
+            fwd = lambda *a: X.expert_ffn_fchunked_reference(*a, tier[1])  # noqa: E731
+        return _Plain.apply(fwd, X.expert_ffn_bwd_reference, *t)
 
     def combine_res(cfg, out, gates, pos1, pos2, res):
         return _Plain.apply(
@@ -840,7 +929,8 @@ def _moved(a, b) -> int:
     return sum(int((x != y).any(0).sum()) for x, y in zip(a, b))
 
 
-def phase_train_step(cfg, smi, batch=TRAIN_BATCH, m=TRAIN_M, label="train-step"):
+def phase_train_step(cfg, smi, batch=TRAIN_BATCH, m=TRAIN_M, label="train-step",
+                     model_name="DiT-S/4"):
     from ddm_tpu_torch.data.augment import normalize_images
     from ddm_tpu_torch.data.cifar10 import CIFAR10DataConfig, build_cifar10_dataloaders
     from ddm_tpu_torch.models.dit import init_params, patchify_images
@@ -859,10 +949,13 @@ def phase_train_step(cfg, smi, batch=TRAIN_BATCH, m=TRAIN_M, label="train-step")
     t = torch.rand((batch,), generator=gen, device="cuda")
     eps = torch.randn(x0.shape, generator=gen, device="cuda")
     xi = torch.randn((batch, m, size, size, 3), generator=gen, device="cuda")
+    # one seeded draw of the weights, loaded into every step's model
+    weights = init_params(build_model({**cfg, "dtype": "float32"}, "meta").to_empty(device="cpu"),
+                          torch.Generator().manual_seed(0)).state_dict()
 
     def step(dtype, routes=None, backward=True):
-        model = init_params(build_model({**cfg, "dtype": dtype}, "cuda"),
-                            torch.Generator().manual_seed(0))
+        model = build_model({**cfg, "dtype": dtype}, "cuda")
+        model.load_state_dict(weights)
         with record_routes([] if routes is None else routes), \
                 torch.set_grad_enabled(backward):
             loss, metrics = distributional_training_step(
@@ -913,7 +1006,7 @@ def phase_train_step(cfg, smi, batch=TRAIN_BATCH, m=TRAIN_M, label="train-step")
         if not (torch.isfinite(g_got[k]).all() and err <= tol):
             raise AssertionError(f"gradient of {k} disagrees: relF {err:.3g} > tol {tol:.3g}")
         worst = max(worst, (k, err / tol), key=lambda kv: kv[1])
-    print(f"[{label}] DiT-S/4{' MoE' if moe else ''} at {size} px "
+    print(f"[{label}] {model_name}{' MoE' if moe else ''} at {size} px "
           f"(N = {(size // cfg['patch_size']) ** 2} tokens, depth {cfg['depth']}) one step "
           f"(batch {batch} x m {m}, injected t/eps/xi) kernels vs plain (tol = 2 |plain bf16 - "
           f"plain fp32|): " + "; ".join(lines)
@@ -1072,8 +1165,253 @@ def phase_train_long(kc, name, smi):
     return train, generated
 
 
+def _wide_flags(widths, moe=False):
+    out = ["--embed-dim", str(widths["embed_dim"]), "--depth", str(widths["depth"]),
+           "--heads", str(widths["heads"])]
+    if moe:
+        out += ["--moe-experts", str(MOE["moe_experts"]), "--moe-capacity",
+                str(MOE["moe_capacity"]), "--moe-group-size", str(MOE["moe_group_size"]),
+                "--moe-topk", str(MOE["moe_topk"]), "--moe-aux-weight", str(MOE_AUX_WEIGHT)]
+    return out
+
+
+def _partial_check(name, shape, got, want, reordered, ms, plain_ms, smi):
+    """An fp32 partial against its plain version: relative Frobenius error
+    within max(PARTIAL_RTOL, 2 relF(plain, plain with its sums reordered))."""
+    err = float((got - want).abs().max())
+    frob, spread = _rel_frob(got, want), _rel_frob(reordered, want)
+    tol = max(PARTIAL_RTOL, 2.0 * spread)
+    print(f"[kernel] {name} {shape} fp32 partial: relF {frob:.3g} (tol {tol:.3g}: the plain "
+          f"version with its sums reordered lies at {spread:.3g}), max_abs_err={err:.6g} of "
+          f"largest entry {float(want.abs().max()):.4g}, mean_abs_err="
+          f"{float((got - want).abs().mean()):.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+          f"(median of 20) on {smi}")
+    if not (np.isfinite(err) and frob <= tol):
+        raise AssertionError(f"{name} disagrees with its plain version")
+    return err
+
+
+def phase_wide_kernels(M, A, X, smi):
+    """3f: K4, K6f and K10p at the wide paths' training shapes."""
+    from ddm_tpu_torch.ops import gemm
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    bf = torch.bfloat16
+    B, N = TRAIN_BATCH * TRAIN_M, 64
+    T = B * N
+    k4 = []
+    for D, H in ((DIT_B["embed_dim"], DIT_B["heads"]), (DIT_L["embed_dim"], DIT_L["heads"])):
+        worst, ms, plain_ms, bound = _time_backward(
+            _attn_bwd_case(A, gen, B, N, D, H, "K4"), smi,
+            {A.SPLIT_BWD_LAUNCHES: 2, A.BWD_LAUNCHES: 0})
+        k4.append({"D": D, "H": H, "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bound})
+
+    # K6f at DiT-L: one partial on the second hidden chunk, read in place
+    # from the bf16 weights, then the F-chunked half-block (k = 2)
+    D, F = DIT_L["embed_dim"], 4 * DIT_L["embed_dim"]
+    mlp = _mlp_args(gen, T, D, F)
+    x, sc, bi, w1, b1, w2, b2 = mlp
+    fc = F // 2
+    part = (x, sc, bi, w1.to(bf)[fc:], b1[fc:], w2.to(bf)[:, fc:])
+    shape = f"(T={T}, D={D}, chunk {fc} of F={F})"
+    got = torch.empty(T, D, device="cuda")
+    with torch.no_grad():
+        one = lambda: M._k6f(*part, gemm.PART_STORE, got)  # noqa: E731
+        one()
+        torch.cuda.synchronize()
+        ms = _median_ms(one)
+        plain_ms = _median_ms(lambda: M.mlp_partial_reference(*part))
+        # the plain version with the D and hidden axes permuted: the same
+        # function, every fp32 sum in another order
+        pd, pf = (torch.randperm(n, generator=gen, device="cuda") for n in (D, fc))
+        x_, s_, b_, w1_, b1_, w2_ = part
+        reordered = M.mlp_partial_reference(
+            x_[:, pd].contiguous(), s_[pd], b_[pd], w1_[pf][:, pd], b1_[pf], w2_[pd][:, pf])
+        reordered = reordered[:, torch.argsort(pd)]
+        err6 = _partial_check("K6f", shape, got, M.mlp_partial_reference(*part), reordered, ms,
+                              plain_ms, smi)
+        del reordered
+    k6f = _entry("K6f", "ddm_tpu_torch/csrc/gemm.cu",
+                 ["ddm_tpu_torch/csrc/gemm.cu", "ddm_tpu_torch/csrc/common.cuh"],
+                 "ddm_tpu/ops/mlp_block.py:559", err6, ms, plain_ms,
+                 _bound(_nbytes(*part, got), 4 * T * D * fc))
+    del got
+    with torch.inference_mode():
+        before = (M.PARTIAL_LAUNCHES.count, M.LAUNCHES.count)
+        got = M.fused_mlp_block(*mlp)
+        torch.cuda.synchronize()
+        if (M.PARTIAL_LAUNCHES.count - before[0], M.LAUNCHES.count - before[1]) != (2, 0):
+            raise AssertionError("the DiT-L MLP half-block did not take two K6f")
+        herr, hmean, htol, ok = _bf16_errors(got, M.mlp_block_fchunked_reference(*mlp, 2))
+        hms = _median_ms(lambda: M.fused_mlp_block(*mlp))
+        hplain = _median_ms(lambda: M.mlp_block_fchunked_reference(*mlp, 2))
+        k1f_ms = _median_ms(lambda: M._k1f(*mlp))  # unchunked, on the same inputs
+    print(f"[kernel] K6f x 2, the F-chunked half-block (T={T}, D={D}, F={F}, k=2) bf16: "
+          f"max_abs_err={herr:.6g} (tol {htol:.6g}), mean_abs_err={hmean:.6g}; kernels "
+          f"{hms:.4f} ms, plain {hplain:.4f} ms, K1f unchunked on the same inputs {k1f_ms:.4f} ms "
+          f"(median of 20) on {smi}")
+    if not ok:
+        raise AssertionError("the F-chunked half-block disagrees with its plain version")
+    k6f["half_block"] = {"k": 2, "max_abs_err": herr, "ms": hms, "plain_ms": hplain,
+                         "k1f_unchunked_ms": k1f_ms, **_bound(_nbytes(*mlp, got), 4 * T * D * F)}
+    del mlp, part, got, x, w1, w2
+    torch.cuda.empty_cache()
+
+    # K10p at DiT-B width: one chunk, then the k = 2 forward, on slot rows
+    # whose tail is empty as the dispatch leaves it
+    E, S, D, F = MOE["moe_experts"], 20480, DIT_B["embed_dim"], 4 * DIT_B["embed_dim"]
+    fc = F // 2
+    x = torch.randn(E, S, D, generator=gen, device="cuda")
+    x[:, S - S // 5:] = 0.0
+    x = x.to(bf)
+    w1 = torch.randn(E, D, F, generator=gen, device="cuda") * D ** -0.5
+    b1 = torch.randn(E, F, generator=gen, device="cuda") * 0.1
+    w2 = torch.randn(E, F, D, generator=gen, device="cuda") * F ** -0.5
+    b2 = torch.randn(E, D, generator=gen, device="cuda") * 0.1
+    ffn = (x, w1, b1, w2, b2)
+    chunk = (x, w1.to(bf)[:, :, :fc], b1[:, :fc], w2.to(bf)[:, :fc])
+    acc = torch.empty(E, S, D, device="cuda")
+    shape = f"(E={E}, S={S}, D={D}, chunk {fc} of F={F})"
+    with torch.no_grad():
+        one = lambda: X._k10p(*chunk, gemm.NN_F32, acc)  # noqa: E731
+        one()
+        torch.cuda.synchronize()
+        ms = _median_ms(one)
+        plain_ms = _median_ms(lambda: X.expert_partial_reference(*chunk))
+        pd, pf = (torch.randperm(n, generator=gen, device="cuda") for n in (D, fc))
+        x_, w1_, b1_, w2_ = chunk
+        reordered = X.expert_partial_reference(x_[:, :, pd].contiguous(), w1_[:, pd][:, :, pf],
+                                               b1_[:, pf], w2_[:, pf][:, :, pd])
+        err10 = _partial_check("K10p", shape, acc, X.expert_partial_reference(*chunk),
+                               reordered[:, :, torch.argsort(pd)], ms, plain_ms, smi)
+        del reordered
+        k10p = _entry("K10p", "ddm_tpu_torch/csrc/gemm_bwd.cu",
+                      ["ddm_tpu_torch/csrc/gemm_bwd.cu", "ddm_tpu_torch/csrc/common.cuh"],
+                      "ddm_tpu/ops/expert_ffn.py:213", err10, ms, plain_ms,
+                      _bound(_nbytes(*chunk, acc), 4 * E * S * D * fc))
+        before = X.PARTIAL_LAUNCHES.count
+        got = X.expert_ffn(*ffn)
+        torch.cuda.synchronize()
+        if X.PARTIAL_LAUNCHES.count != before + 2:
+            raise AssertionError("the DiT-B expert FFN did not take two K10p")
+        ferr, fmean, ftol, ok = _bf16_errors(got, X.expert_ffn_fchunked_reference(*ffn, 2))
+        fms = _median_ms(lambda: X.expert_ffn(*ffn))
+        fplain = _median_ms(lambda: X.expert_ffn_fchunked_reference(*ffn, 2))
+    print(f"[kernel] K10p x 2, the F-chunked expert FFN (E={E}, S={S}, D={D}, F={F}, k=2) bf16: "
+          f"max_abs_err={ferr:.6g} (tol {ftol:.6g}), mean_abs_err={fmean:.6g}; kernels "
+          f"{fms:.4f} ms, plain {fplain:.4f} ms (median of 20) on {smi}")
+    if not ok:
+        raise AssertionError("the F-chunked expert FFN disagrees with its plain version")
+    k10p["forward"] = {"k": 2, "max_abs_err": ferr, "ms": fms, "plain_ms": fplain,
+                       **_bound(_nbytes(*ffn, got), 4 * E * S * D * F)}
+    srcs = ["ddm_tpu_torch/csrc/attention.cu", "ddm_tpu_torch/csrc/gemm_bwd.cu",
+            "ddm_tpu_torch/csrc/gemm.cu", "ddm_tpu_torch/csrc/common.cuh"]
+    last = k4[-1]  # the DiT-L shape, the main path's
+    k4e = _entry("K4", srcs[0], srcs, "ddm_tpu/ops/attention.py:685", last["max_abs_err"],
+                 last["ms"], last["plain_ms"],
+                 {k: v for k, v in last.items() if k.startswith("bound")})
+    k4e["shapes"] = k4
+    return [k4e, k6f, k10p]
+
+
+def phase_wide_shapes(M, A, MD, X, smi):
+    """3f, continued: the kernels of earlier slices at the shapes the wide
+    paths give them, each against its plain version by its own rule: K2f at
+    DiT-L sampling (64 images) and training (2048), K1b at the DiT-L training
+    shape (the F-chunked tier's backward), and K11f/K11b, K12f/K12b and K10b
+    at the DiT-B MoE training shape (D 768, F 3072, top-1). Returns
+    ``{name: [{"path", "shape", "max_abs_err", "ms", "plain_ms", bound...}]}``,
+    which the kernels line carries as each entry's ``shapes``."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    D, H, N, B = DIT_L["embed_dim"], DIT_L["heads"], 64, TRAIN_BATCH * TRAIN_M
+    keys = ("max_abs_err", "ms", "plain_ms")
+    shapes = {}
+    for b in (64, B):
+        case = _k2f_case(A, gen, b, N, D, H)
+        times = _time_forward(case, smi)
+        shapes.setdefault("K2f", []).append(
+            {"path": "dit-l", "shape": case[1], **dict(zip(keys, times)), **times[3]})
+        del case
+        torch.cuda.empty_cache()
+    case = _k1b_case(M, gen, B * N, D, 4 * D)
+    times = _time_backward(case, smi, {M.BWD_LAUNCHES: 2})
+    shapes["K1b"] = [{"path": "dit-l", "shape": case[1], **dict(zip(keys, times)), **times[3]}]
+    del case
+    torch.cuda.empty_cache()
+    D, F = DIT_B["embed_dim"], 4 * DIT_B["embed_dim"]
+    for (name, _), times in _moe_kernel_times(MD, X, M, smi, D, F, (1,), k10f=False).items():
+        shapes[name] = [{"path": "moe-b", "shape": f"(D={D}, F={F}, top-1)",
+                         **dict(zip(keys, times)), **times[3]}]
+    return shapes
+
+
+def phase_train_wide(kc, name, smi, label, flags, per_step, per_sample):
+    """7d / 7e: the trainer with ``flags`` for one epoch (TRAIN_STEPS steps of
+    TRAIN_BATCH x TRAIN_M), its peak memory and launches per step
+    (``per_step``), then generate_torch's 64 samples from its
+    ``model_final.pt`` and the sampler's launches per call (``per_sample``)."""
+    import generate_torch
+    import train_cifar10_dit_torch
+
+    keys = ("loss", "moe_aux") if "--moe-experts" in flags else ("loss",)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.reset_peak_memory_stats()
+        kc.reset_launch_counts()
+        result = train_cifar10_dit_torch.main([
+            "--synthetic", "--epochs", "1", "--batch", str(TRAIN_BATCH), "--m", str(TRAIN_M),
+            *flags, "--sample-batch", "64", "--log-every", "1", "--device", "cuda",
+            "--out", tmp])
+        total = kc.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        with open(os.path.join(tmp, "train_metrics.json"), encoding="utf-8") as f:
+            history = json.load(f)
+        for key in keys:
+            if len(history[key]) != TRAIN_STEPS or not np.isfinite(history[key]).all():
+                raise AssertionError(f"{label}: {key} is not {TRAIN_STEPS} finite values")
+        npz = os.path.join(tmp, "s.npz")
+        kc.reset_launch_counts()
+        sampled = generate_torch.main(["--ckpt", os.path.join(tmp, "model_final.pt"), "--n", "64",
+                                       "--batch", "64", "--device", "cuda", "--npz", npz,
+                                       "--out", ""])
+        generated = kc.launch_counts()
+        samples = np.load(npz)["samples"]
+    if not (samples.shape == (64, 32, 32, 3) and np.isfinite(samples).all()
+            and samples.min() >= -1 and samples.max() <= 1):
+        raise AssertionError(f"{label}: samples are not 64 finite images in [-1, 1]")
+    train, sample = result["launches"]["train"], result["launches"]["sample"]
+    want_train = {k: TRAIN_STEPS * per_step.get(k, 0) for k in train}
+    want_sample = {k: per_sample.get(k, 0) for k in train}
+    if train != want_train or sample != want_sample or generated != want_sample:
+        raise AssertionError(f"{label} launched {train} in training, {sample} in its sampler and "
+                             f"{generated} in generate_torch, expected {want_train}, "
+                             f"{want_sample} and {want_sample}")
+    if total != {k: train[k] + sample[k] for k in train}:
+        raise AssertionError(f"{label}: the counts read after the run, {total}, do not add up")
+    ms = 1e3 * result["seconds_per_step"]
+    print(f"[{label}] train_cifar10_dit_torch {' '.join(flags)}: {TRAIN_STEPS} steps (batch "
+          f"{TRAIN_BATCH} x m {TRAIN_M}), " + "; ".join(
+              f"{k} {[round(v, 6) for v in history[k]]}" for k in keys)
+          + f"; warm step {ms:.2f} ms (median of steps 2-{TRAIN_STEPS}) = "
+          f"{TRAIN_BATCH / ms * 1e3:.2f} img/s; peak memory {peak:.2f} GiB; generate_torch 64 "
+          f"samples x {STEPS} steps in {sampled['seconds']:.3f} s = "
+          f"{64 / sampled['seconds']:.2f} samples/s; launches per training step "
+          f"{ {k: v // TRAIN_STEPS for k, v in train.items() if v} }, per sampler call "
+          f"{ {k: v for k, v in generated.items() if v} }; on {name} ({smi})")
+    return train, generated
+
+
 PHASES = ("kernels", "backward", "energy", "flash", "moe-kernels", "slice", "train-step",
-          "train-step-128", "train-step-moe", "train", "train-128", "train-moe")
+          "train-step-128", "train-step-moe", "train", "train-128", "train-moe", "wide-kernels",
+          "wide-shapes", "train-step-l", "train-step-moe-b", "train-l", "train-moe-b")
+# launches per training step and per 20-step sampler call on the wide paths
+L_STEP = {"K2f": DIT_L["depth"], "K4": DIT_L["depth"], "K1b": DIT_L["depth"],
+          "K6f": 2 * DIT_L["depth"], "K3f": 1, "K3b": 1}
+L_SAMPLE = {"K2f": DIT_L["depth"] * STEPS, "K6f": 2 * DIT_L["depth"] * STEPS}
+MOE_B_STEP = {**{k: DIT_B["depth"] for k in ("K2f", "K4", "K11f", "K11b", "K10b", "K12f",
+                                             "K12b")}, "K10p": 2 * DIT_B["depth"], "K3f": 1,
+              "K3b": 1}
+MOE_B_SAMPLE = {**{k: DIT_B["depth"] * STEPS for k in ("K2f", "K11f", "K12f")},
+                "K10p": 2 * DIT_B["depth"] * STEPS}
 
 
 def main(argv=None) -> None:
@@ -1114,6 +1452,17 @@ def main(argv=None) -> None:
         ("train", lambda: phase_train(kc, name, smi)),
         ("train-128", lambda: phase_train_long(kc, name, smi)),
         ("train-moe", lambda: phase_train_moe(kc, name, smi)),
+        ("wide-kernels", lambda: phase_wide_kernels(M, A, X, smi)),
+        ("wide-shapes", lambda: phase_wide_shapes(M, A, MD, X, smi)),
+        ("train-step-l", lambda: phase_train_step(
+            {**cfg, **DIT_L}, smi, WIDE_STEP_BATCH, TRAIN_M, "train-step-l", "DiT-L/4")),
+        ("train-step-moe-b", lambda: phase_train_step(
+            {**moe_cfg, **DIT_B}, smi, WIDE_STEP_BATCH, TRAIN_M, "train-step-moe-b", "DiT-B/4")),
+        ("train-l", lambda: phase_train_wide(kc, name, smi, "train-l", _wide_flags(DIT_L),
+                                             L_STEP, L_SAMPLE)),
+        ("train-moe-b", lambda: phase_train_wide(
+            kc, name, smi, "train-moe-b", _wide_flags(DIT_B, moe=True), MOE_B_STEP,
+            MOE_B_SAMPLE)),
     ]
     out = {}
     for phase, fn in steps:
@@ -1124,16 +1473,27 @@ def main(argv=None) -> None:
         print(f"chip_smoke: ran only {sorted(run)}; no result line")
         return
     # launches: each kernel's count in its path's training run, and in that
-    # path's sampler for the forward kernels
-    paths = [(out["kernels"] + out["backward"] + out["energy"], out["train"], out["slice"]),
-             (out["flash"], *out["train-128"]), (out["moe-kernels"], *out["train-moe"])]
+    # path's sampler for the forward kernels; and its counts on every path
+    paths = {"dit-s": (out["kernels"] + out["backward"] + out["energy"], out["train"],
+                       out["slice"]),
+             "128px": (out["flash"], *out["train-128"]),
+             "moe": (out["moe-kernels"], *out["train-moe"]),
+             "dit-l": ([e for e in out["wide-kernels"] if e["name"] != "K10p"],
+                       *out["train-l"]),
+             "moe-b": ([e for e in out["wide-kernels"] if e["name"] == "K10p"],
+                       *out["train-moe-b"])}
     kernels = []
-    for entries, trained, sampled in paths:
+    for entries, trained, sampled in paths.values():
         for k in entries:
             k["launches"] = trained[k["name"]]
-            if k["name"].endswith("f"):
+            if k["name"].endswith("f") or k["name"] == "K10p":
                 k["sample_launches"] = sampled[k["name"]]
+            k["launches_by_path"] = {p: {"train": tr[k["name"]], "sample": sa[k["name"]]}
+                                     for p, (_, tr, sa) in paths.items()}
         kernels += entries
+    for k in kernels:  # the earlier slices' kernels at the wide paths' shapes
+        if k["name"] in out["wide-shapes"]:
+            k.setdefault("shapes", []).extend(out["wide-shapes"][k["name"]])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -1,14 +1,17 @@
 """PyTorch / CUDA port of ddm_tpu (Distributional Diffusion Models).
 
-Four slices on one NVIDIA H100: the DiT-S/4 sampling path
+Five slices on one NVIDIA H100: the DiT-S/4 sampling path
 (``generate_torch.py``), the CIFAR-10 training path
 (``train_cifar10_dit_torch.py``), both at ``--image-size`` 128 to 512
-(N = 1024 to 16384 tokens), and both with routed experts in place of the
-dense MLP halves (``--moe-experts``). The DiT block's half-blocks and their
-backwards, the long-sequence attention core, the MoE layer and the energy
-score are hand-written CUDA kernels (K1f/K1b MLP, K2f/K2b attention,
-K8f/K8b flash attention, K11f/K11b MoE dispatch, K10f/K10b expert FFN,
-K12f/K12b MoE combine, K3f/K3b energy). Imports torch and numpy, never JAX.
+(N = 1024 to 16384 tokens), both with routed experts in place of the
+dense MLP halves (``--moe-experts``), and both at the DiT-B and DiT-L widths,
+where each half-block takes the JAX package's kernel tier for its shapes
+(``ops/tiers.py``). The DiT block's half-blocks and their backwards, the
+long-sequence attention core, the MoE layer and the energy score are
+hand-written CUDA kernels (K1f/K1b MLP, K6f its F-chunked partial, K2f/K2b
+attention, K4 its split backward, K8f/K8b flash attention, K11f/K11b MoE
+dispatch, K10f/K10b expert FFN, K10p its F-chunked partial, K12f/K12b MoE
+combine, K3f/K3b energy). Imports torch and numpy, never JAX.
 """
 
 from .models.dit import DDDMDiT, init_params

@@ -24,6 +24,17 @@
 // roundings are the TPU kernel's: dv = bf16(bf16(P)^T dO), dP = dO V^T in
 // fp32, dS = bf16(scale * P * (dP - rowsum(P * dP))) with the fp32 P,
 // dq = bf16(dS K), dk = bf16(dS^T Q).
+//
+// From the one fp32 P it also writes att = bf16(bf16(P) V), the attention
+// output that the projection's weight gradient reads. That makes it the
+// core of the split backward K4 as well, ddm_tpu/ops/attention.py
+// `_blk_bwd_split_kernel` (DiT-B and DiT-L widths), which persists att for
+// XLA's dW products for the same reason; its single loop over the (pack,
+// head) tiles (:753-786) is this block's body. The TPU needs two kernels
+// because of VMEM; on the H100 K2b and K4 share this one, and K2b needs no
+// second launch of the forward core for att. One extra 64 x 64 x 64
+// product per (image, head) and no extra shared memory: O goes through the
+// fp32 tile that dv left, before dP takes it.
 #include "common.cuh"
 
 namespace ddm {
@@ -130,7 +141,8 @@ __device__ __forceinline__ void store_head(bf16* __restrict__ dst, int ld, const
 
 __global__ void __launch_bounds__(kThreads)
 attention_core_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ datt,
-                          bf16* __restrict__ dqkv, int N, int H, int Dh, float scale) {
+                          bf16* __restrict__ att, bf16* __restrict__ dqkv, int N, int H,
+                          int Dh, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int D = H * Dh;
   const int QLD = Dh + kPadH, SLD = max(N, Dh) + kPadF, PLD = N + kPadH;
@@ -217,6 +229,24 @@ attention_core_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__
   store_head(out + 2 * D, 3 * D, F, SLD, N, Dh);
   __syncthreads();
 
+  // att = Pb V (fp32), rounded once, as the forward core computes it
+  for (int t = warp; t < nt * dt; t += nwarps) {
+    const int ti = t / dt, tj = t % dt;
+    FragC acc;
+    wmma::fill_fragment(acc, 0.0f);
+    for (int kk = 0; kk < N; kk += kFrag) {
+      FragA a;
+      FragBRow bv;
+      wmma::load_matrix_sync(a, Pb + ti * kFrag * PLD + kk, PLD);
+      wmma::load_matrix_sync(bv, Vs + kk * QLD + tj * kFrag, QLD);
+      wmma::mma_sync(acc, a, bv, acc);
+    }
+    wmma::store_matrix_sync(F + ti * kFrag * SLD + tj * kFrag, acc, SLD, wmma::mem_row_major);
+  }
+  __syncthreads();
+  store_head(att + (size_t)b * N * D + h * Dh, D, F, SLD, N, Dh);
+  __syncthreads();
+
   // dP = dO V^T (fp32)
   for (int t = warp; t < nt * nt; t += nwarps) {
     const int ti = t / nt, tj = t % nt;
@@ -292,8 +322,11 @@ extern "C" int ddm_attention_core(const void* qkv, void* out, int B, int N, int 
   return (int)cudaGetLastError();
 }
 
-extern "C" int ddm_attention_core_bwd(const void* qkv, const void* datt, void* dqkv, int B,
-                                      int N, int H, int Dh, float scale, void* stream) {
+// K2b's and K4's core: dq, dk, dv into the (B, N, 3D) dqkv rows, and
+// att = bf16(P V) (B, N, H*Dh).
+extern "C" int ddm_attention_core_bwd_att(const void* qkv, const void* datt, void* att,
+                                          void* dqkv, int B, int N, int H, int Dh, float scale,
+                                          void* stream) {
   using namespace ddm;
   const int sld = (N > Dh ? N : Dh) + kPadF;
   const size_t smem = (size_t)4 * N * (Dh + kPadH) * sizeof(bf16) +
@@ -303,6 +336,6 @@ extern "C" int ddm_attention_core_bwd(const void* qkv, const void* datt, void* d
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   attention_core_bwd_kernel<<<B * H, kThreads, smem, (cudaStream_t)stream>>>(
-      (const bf16*)qkv, (const bf16*)datt, (bf16*)dqkv, N, H, Dh, scale);
+      (const bf16*)qkv, (const bf16*)datt, (bf16*)att, (bf16*)dqkv, N, H, Dh, scale);
   return (int)cudaGetLastError();
 }

@@ -31,6 +31,16 @@
 // TPU kernel used a polynomial erf as a Mosaic workaround), the residual
 // added in fp32 and rounded to bf16 once.
 //
+// The F-chunked MLP forward (DiT-L widths) replaces
+// ddm_tpu/ops/mlp_block.py `_partial_fwd_kernel` (K5/K6f, via
+// `_fused_partial_fwd_call`, run k times by `_fchunked_fwd_call`): per hidden
+// chunk, ddm_ln_gemm(gelu=1) on the W1 row chunk and ddm_gemm_partial on the
+// W2 column chunk, read in place (row stride F). The fp32 partials sum in
+// chunk order, acc = p0 + p1 + ..., and the last chunk's epilogue rounds
+// (x + acc) + b2 once, as the JAX package's XLA sum does. The TPU chunked
+// because both weight chunks had to sit in VMEM; here that costs one more
+// LN prologue and one (T, D) fp32 round trip per extra chunk.
+//
 // The backward kernels (gemm_bwd.cu) reuse ddm_ln_gemm for their forward
 // recompute: it can also write the normalised panel y = bf16(LN(x)) and,
 // for the MLP, the fp32 GELU derivative beside the bf16 GELU output.
@@ -57,16 +67,25 @@ enum LnGemmEpi : int {
   kEpiGeluGrad = 2,  // out = bf16(gelu(h)), out2 = gelu'(h) in fp32
 };
 
-// Copy a (BN x BK) tile of W (Nout x K, row-major: nn.Linear's layout) into
-// shared memory; rows past Nout are zero.
+// fp32-partial epilogues of gemm_partial_kernel on sum = a . W^T (the
+// F-chunked MLP forward: one launch per hidden chunk, in chunk order)
+enum PartialEpi : int {
+  kPartStore = 0,     // acc = sum
+  kPartAdd = 1,       // acc = acc + sum
+  kPartFinalRes = 2,  // out = bf16((res + (acc + sum)) + bias)
+};
+
+// Copy a (BN x BK) tile of W (Nout rows of ldw elements, row-major:
+// nn.Linear's layout, or a column chunk of it) into shared memory; rows past
+// Nout are zero.
 __device__ __forceinline__ void load_w_tile(bf16* Bs, const bf16* __restrict__ w,
-                                            int n0, int k0, int K, int Nout) {
+                                            int n0, int k0, int ldw, int Nout) {
   constexpr int kVec = BK / 8;
   for (int i = threadIdx.x; i < BN * kVec; i += kThreads) {
     const int r = i / kVec, c = i % kVec;
     uint4 v = make_uint4(0, 0, 0, 0);
     if (n0 + r < Nout)
-      v = *reinterpret_cast<const uint4*>(w + (size_t)(n0 + r) * K + k0 + c * 8);
+      v = *reinterpret_cast<const uint4*>(w + (size_t)(n0 + r) * ldw + k0 + c * 8);
     *reinterpret_cast<uint4*>(Bs + r * BLD + c * 8) = v;
   }
 }
@@ -105,6 +124,35 @@ __device__ __forceinline__ void zero_acc(FragC (&acc)[2][2]) {
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+}
+
+// Cs[BM, BN] (fp32, row stride CLD) = a[row0 : row0 + BM, :K] @ W[n0 : n0 +
+// BN, :K]^T, a row-major with K columns, W with row stride ldw; rows past T
+// or Nout are zero. Ends with a barrier: Cs is complete.
+__device__ __forceinline__ void gemm_tile(float* Cs, bf16* As, bf16* Bs,
+                                          const bf16* __restrict__ a,
+                                          const bf16* __restrict__ w, int ldw, int row0,
+                                          int n0, int T, int K, int Nout) {
+  const int warp = threadIdx.x / 32;
+  const int wm = warp / 4, wn = warp % 4;
+  FragC acc[2][2];
+  zero_acc(acc);
+  constexpr int kVec = BK / 8;
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < BM * kVec; i += kThreads) {
+      const int r = i / kVec, c = i % kVec;
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (row0 + r < T)
+        v = *reinterpret_cast<const uint4*>(a + (size_t)(row0 + r) * K + k0 + c * 8);
+      *reinterpret_cast<uint4*>(As + r * BLD + c * 8) = v;
+    }
+    load_w_tile(Bs, w, n0, k0, ldw, Nout);
+    __syncthreads();
+    mma_chunk(acc, As, BLD, Bs, wm, wn);
+  }
+  store_acc(Cs, acc, wm, wn);
+  __syncthreads();
 }
 
 // out[T, Nout] = epi(LN(x)[T, K] @ W^T + bias) (see LnGemmEpi); with y_out
@@ -212,27 +260,7 @@ gemm_residual_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
   float* Cs = reinterpret_cast<float*>(Bs + BN * BLD);
 
   const int row0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int warp = threadIdx.x / 32;
-  const int wm = warp / 4, wn = warp % 4;
-
-  FragC acc[2][2];
-  zero_acc(acc);
-  constexpr int kVec = BK / 8;
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < BM * kVec; i += kThreads) {
-      const int r = i / kVec, c = i % kVec;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (row0 + r < T)
-        v = *reinterpret_cast<const uint4*>(a + (size_t)(row0 + r) * K + k0 + c * 8);
-      *reinterpret_cast<uint4*>(As + r * BLD + c * 8) = v;
-    }
-    load_w_tile(Bs, w, n0, k0, K, Nout);
-    __syncthreads();
-    mma_chunk(acc, As, BLD, Bs, wm, wn);
-  }
-  store_acc(Cs, acc, wm, wn);
-  __syncthreads();
+  gemm_tile(Cs, As, Bs, a, w, K, row0, n0, T, K, Nout);
   for (int i = threadIdx.x; i < BM * BN / 2; i += kThreads) {
     const int r = i / (BN / 2), c = 2 * (i % (BN / 2));
     const int row = row0 + r, col = n0 + c;
@@ -246,10 +274,85 @@ gemm_residual_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
   }
 }
 
+// The F-chunked MLP's second product over one hidden chunk: sum[T, Nout] =
+// a[T, K] @ W^T with W the (Nout, K) column chunk of nn.Linear's (Nout, F)
+// weight (row stride ldw = F, read in place), in fp32, then the PartialEpi
+// epilogue EPI against the running fp32 sum acc (T, Nout).
+template <int EPI>
+__global__ void __launch_bounds__(kThreads)
+gemm_partial_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w, int ldw,
+                    float* __restrict__ acc, const float* __restrict__ bias,
+                    const bf16* __restrict__ res, bf16* __restrict__ out, int T, int K,
+                    int Nout) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* As = reinterpret_cast<bf16*>(smem);
+  bf16* Bs = As + BM * BLD;
+  float* Cs = reinterpret_cast<float*>(Bs + BN * BLD);
+
+  const int row0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  gemm_tile(Cs, As, Bs, a, w, ldw, row0, n0, T, K, Nout);
+  for (int i = threadIdx.x; i < BM * BN / 2; i += kThreads) {
+    const int r = i / (BN / 2), c = 2 * (i % (BN / 2));
+    const int row = row0 + r, col = n0 + c;
+    if (row >= T || col >= Nout) continue;
+    const size_t o = (size_t)row * Nout + col;
+    const float s0 = Cs[r * CLD + c], s1 = Cs[r * CLD + c + 1];
+    float2* dst = reinterpret_cast<float2*>(acc + o);
+    if constexpr (EPI == kPartStore) {
+      *dst = make_float2(s0, s1);
+    } else if constexpr (EPI == kPartAdd) {
+      const float2 p = *dst;
+      *dst = make_float2(p.x + s0, p.y + s1);
+    } else {
+      const float2 p = *dst;
+      const __nv_bfloat162 x2 = *reinterpret_cast<const __nv_bfloat162*>(res + o);
+      const float v0 = (__low2float(x2) + (p.x + s0)) + bias[col];
+      const float v1 = (__high2float(x2) + (p.y + s1)) + bias[col + 1];
+      *reinterpret_cast<__nv_bfloat162*>(out + o) = __floats2bfloat162_rn(v0, v1);
+    }
+  }
+}
+
+template <int EPI>
+cudaError_t launch_partial(const void* a, const void* w, int ldw, void* acc, const void* bias,
+                           const void* res, void* out, int T, int K, int Nout,
+                           cudaStream_t stream) {
+  const size_t smem = (size_t)(BM + BN) * BLD * sizeof(bf16) + (size_t)BM * CLD * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(gemm_partial_kernel<EPI>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((T + BM - 1) / BM, (Nout + BN - 1) / BN);
+  gemm_partial_kernel<EPI><<<grid, kThreads, smem, stream>>>(
+      (const bf16*)a, (const bf16*)w, ldw, (float*)acc, (const float*)bias, (const bf16*)res,
+      (bf16*)out, T, K, Nout);
+  return cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace ddm
 
 using ddm::bf16;
+
+// One hidden chunk of the F-chunked MLP forward (K6f's second product):
+// epi 0 acc = a . w^T, epi 1 acc += a . w^T, epi 2 out = bf16((res + (acc +
+// a . w^T)) + bias); a (T, K) bf16, w (Nout, K) bf16 with row stride ldw,
+// acc (T, Nout) fp32, res and out (T, Nout) bf16, bias (Nout,) fp32.
+extern "C" int ddm_gemm_partial(const void* a, const void* w, int ldw, void* acc,
+                                const void* bias, const void* res, void* out, int T, int K,
+                                int Nout, int epi, void* stream) {
+  using namespace ddm;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (epi) {
+    case kPartStore:
+      return (int)launch_partial<kPartStore>(a, w, ldw, acc, bias, res, out, T, K, Nout, st);
+    case kPartAdd:
+      return (int)launch_partial<kPartAdd>(a, w, ldw, acc, bias, res, out, T, K, Nout, st);
+    case kPartFinalRes:
+      return (int)launch_partial<kPartFinalRes>(a, w, ldw, acc, bias, res, out, T, K, Nout, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
 
 extern "C" int ddm_ln_gemm(const void* x, const void* ln_scale, const void* ln_bias,
                            const void* w, const void* bias, void* out, void* out2,

@@ -2,7 +2,7 @@
 // half-block backwards.
 //
 // Replaces, with ddm_ln_gemm (gemm.cu) for the forward recompute and
-// ddm_attention_core / ddm_attention_core_bwd (attention.cu), the two TPU
+// ddm_attention_core / ddm_attention_core_bwd_att (attention.cu), the two TPU
 // backward kernels that a DiT block runs in training:
 //   * ddm_tpu/ops/mlp_block.py `_bwd_kernel` / `_bwd_body` (K1b);
 //   * ddm_tpu/ops/attention.py `_blk_bwd_kernel` (K2b).
@@ -61,6 +61,8 @@ enum NNEpi : int {
   kNNBias = 3,          // out (bf16) = bf16(acc + bias)
   kNNBiasGelu = 4,      // out (bf16) = bf16(gelu(acc + bias))
   kNNBiasGeluGrad = 5,  // as kNNBiasGelu, and aux (fp32) = gelu'(acc + bias)
+  kNNAdd = 6,           // out (fp32) = out + acc
+  kNNFinalBias = 7,     // out (bf16) = bf16((aux + acc) + bias), aux the fp32 sum so far
 };
 
 __device__ __forceinline__ void zero_acc(FragC (&acc)[2][2]) {
@@ -94,11 +96,12 @@ __device__ __forceinline__ void load_tile(bf16* dst, int dld, const bf16* __rest
   }
 }
 
-// out[T, Nout] = epi(A[T, K] . W[K, Nout]), W row-major (nn.Linear's (out, in)
-// weight with out = K). EPI < 0 is the dense callers' kernel: one slab, the
+// out[T, Nout] = epi(A[T, K] . W[K, Nout]), W row-major with row stride ldw
+// (nn.Linear's (out, in) weight with out = K, or a column chunk of a wider
+// matrix read in place). EPI < 0 is the dense callers' kernel: one slab, the
 // epilogue `epi` (F32, BF16 or DGELU) chosen at run time. EPI >= 0 is the
 // expert-batched kernel for that epilogue: blockIdx.z is the expert, and A,
-// W, out and aux advance by T*K, K*Nout and T*Nout elements, bias by Nout,
+// W, out and aux advance by T*K, wstride and T*Nout elements, bias by Nout,
 // colsum by one (ceil(T / BM), Nout) slab. Compiled apart: with the batched
 // code in the same kernel, or specialised to one epilogue, the dense shapes
 // ran 10-15% slower (profile_torch_step.py's gemm_nn rows), with no spills.
@@ -107,7 +110,7 @@ __global__ void __launch_bounds__(kThreads)
 gemm_nn_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
                const float* __restrict__ bias, float* __restrict__ aux,
                void* __restrict__ out, float* __restrict__ colsum, int T, int K, int Nout,
-               int epi) {
+               int ldw, int wstride, int epi) {
   constexpr bool kBatched = EPI >= 0;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* As = reinterpret_cast<bf16*>(smem);
@@ -119,12 +122,12 @@ gemm_nn_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
     epi = EPI;
     const size_t z = blockIdx.z, tn = (size_t)T * Nout;
     a += z * T * K;
-    w += z * K * Nout;
+    w += z * wstride;
     if (bias != nullptr) bias += z * Nout;
     if (aux != nullptr) aux += z * tn;
     if (colsum != nullptr) colsum += z * gridDim.x * Nout;
-    out = EPI == kNNF32 ? (void*)(reinterpret_cast<float*>(out) + z * tn)
-                        : (void*)(reinterpret_cast<bf16*>(out) + z * tn);
+    out = EPI == kNNF32 || EPI == kNNAdd ? (void*)(reinterpret_cast<float*>(out) + z * tn)
+                                         : (void*)(reinterpret_cast<bf16*>(out) + z * tn);
   }
   const float* __restrict__ dfac = aux;  // read-only in the dgelu epilogue
   const int warp = threadIdx.x / 32;
@@ -135,7 +138,7 @@ gemm_nn_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
   for (int k0 = 0; k0 < K; k0 += BK) {
     __syncthreads();
     load_tile<BM, BK>(As, ALD, a, K, row0, k0, T, K);
-    load_tile<BK, BN>(Ws, WLD, w, Nout, k0, n0, K, Nout);
+    load_tile<BK, BN>(Ws, WLD, w, ldw, k0, n0, K, Nout);
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < BK; kk += kFrag) {
@@ -170,6 +173,10 @@ gemm_nn_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
       const float dh = v * dfac[o];
       Cs[r * CLD + c] = dh;
       reinterpret_cast<bf16*>(out)[o] = __float2bfloat16(dh);
+    } else if constexpr (EPI == kNNAdd) {
+      reinterpret_cast<float*>(out)[o] += v;
+    } else if constexpr (EPI == kNNFinalBias) {
+      reinterpret_cast<bf16*>(out)[o] = __float2bfloat16((dfac[o] + v) + bias[col]);
     } else if constexpr (kBatched) {
       const float h = v + bias[col];
       float g = h;
@@ -334,12 +341,12 @@ ln_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ dy,
 template <int EPI>
 cudaError_t launch_nn(dim3 grid, size_t smem, cudaStream_t stream, const bf16* a, const bf16* w,
                       const float* bias, float* aux, void* out, float* colsum, int T, int K,
-                      int Nout, int epi) {
+                      int Nout, int ldw, int wstride, int epi) {
   cudaError_t err = cudaFuncSetAttribute(gemm_nn_kernel<EPI>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   gemm_nn_kernel<EPI><<<grid, kThreads, smem, stream>>>(a, w, bias, aux, out, colsum, T, K,
-                                                         Nout, epi);
+                                                         Nout, ldw, wstride, epi);
   return cudaGetLastError();
 }
 
@@ -348,14 +355,17 @@ cudaError_t launch_nn(dim3 grid, size_t smem, cudaStream_t stream, const bf16* a
 
 using ddm::bf16;
 
-// out = epi(a[T, K] . w[K, Nout]) for each of `batch` contiguous slabs
-// (a: batch x T x K, w: batch x K x Nout, out and aux: batch x T x Nout,
-// bias: batch x Nout). epi 2 reads aux (gelu'(h)) and writes db = column
-// sums of dh through colsum_ws[batch, ceil(T / 64), Nout] into
-// colsum_out[batch, Nout]; epi 5 writes aux.
+// out = epi(a[T, K] . w[K, Nout]) for each of `batch` slabs (a: batch x T
+// x K contiguous; w: K rows of row stride ldw per slab, slabs wstride
+// elements apart; out and aux: batch x T x Nout; bias: batch x Nout). epi 2
+// reads aux (gelu'(h)) and writes db = column sums of dh through
+// colsum_ws[batch, ceil(T / 64), Nout] into colsum_out[batch, Nout]; epi 5
+// writes aux; epi 6 adds into the fp32 out; epi 7 reads the fp32 sum aux.
+// Epilogues 6 and 7 run with epi 0 (fp32 out) before them as the F-chunked
+// expert FFN's partial products (K10p), summed in chunk order.
 extern "C" int ddm_gemm_nn(const void* a, const void* w, const void* bias, void* aux, void* out,
-                           void* colsum_ws, void* colsum_out, int T, int K, int Nout,
-                           int epi, int batch, void* stream) {
+                           void* colsum_ws, void* colsum_out, int T, int K, int Nout, int ldw,
+                           int wstride, int epi, int batch, void* stream) {
   using namespace ddm;
   const size_t smem = (size_t)(BM * ALD + BK * WLD) * sizeof(bf16) +
                       (size_t)BM * CLD * sizeof(float);
@@ -370,11 +380,13 @@ extern "C" int ddm_gemm_nn(const void* a, const void* w, const void* bias, void*
     case kNNBias: launch = launch_nn<kNNBias>; break;
     case kNNBiasGelu: launch = launch_nn<kNNBiasGelu>; break;
     case kNNBiasGeluGrad: launch = launch_nn<kNNBiasGeluGrad>; break;
+    case kNNAdd: launch = launch_nn<kNNAdd>; break;
+    case kNNFinalBias: launch = launch_nn<kNNFinalBias>; break;
     default: return (int)cudaErrorInvalidValue;
   }
   const cudaError_t err = launch(grid, smem, (cudaStream_t)stream, (const bf16*)a,
                                  (const bf16*)w, (const float*)bias, (float*)aux, out,
-                                 (float*)colsum_ws, T, K, Nout, epi);
+                                 (float*)colsum_ws, T, K, Nout, ldw, wstride, epi);
   if (err != cudaSuccess || epi != kNNDGelu) return (int)err;
   return (int)reduce_rows((const float*)colsum_ws, (float*)colsum_out, nblk, Nout,
                           (cudaStream_t)stream, batch);

@@ -47,6 +47,7 @@ SAMPLER_DEFAULTS: dict = {
 }
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_WIDE = "Queue 1 item 8 (remat and mlp_persist at the wide widths)"
 
 
 def _as_mapping(cfg: Any) -> Mapping:
@@ -59,6 +60,11 @@ def build_model(cfg: Any, device: torch.device | str = "cpu") -> DDDMDiT:
     Keys missing from ``cfg`` (or ``None``) take :data:`MODEL_DEFAULTS`.
     Parameters are left uninitialised: load a ``state_dict`` or call
     :func:`ddm_tpu_torch.models.dit.init_params`.
+
+    Any width the kernels take builds (DiT-S/B/L: ``embed_dim`` 384, 768,
+    1024). Each half-block picks its kernel tier per call from its shapes,
+    as the JAX ladder does (:mod:`ddm_tpu_torch.ops.tiers`), and a call on
+    CUDA tensors whose shapes have no tier raises there.
     """
     m = _as_mapping(cfg)
 
@@ -69,8 +75,8 @@ def build_model(cfg: Any, device: torch.device | str = "cpu") -> DDDMDiT:
     unsupported = [
         (int(get("tp")) > 1, "tp > 1", "Queue 1 item 11 (parallelism)"),
         (bool(get("sp")), "sp", "Queue 1 item 11 (parallelism)"),
-        (bool(get("remat")), "remat", "Queue 1 item 8 (wider DiT configs)"),
-        (int(get("mlp_persist")) > 0, "mlp_persist > 0", "Queue 1 item 8 (wider DiT configs)"),
+        (bool(get("remat")), "remat", _WIDE),
+        (int(get("mlp_persist")) > 0, "mlp_persist > 0", _WIDE),
         (str(get("attention")) != "auto", f"attention={get('attention')!r}",
          "Queue 1 item 9 (long sequences)"),
     ]

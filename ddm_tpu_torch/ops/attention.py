@@ -6,11 +6,20 @@ tensors its forward launches kernel K2f, three hand-written CUDA kernels: an
 LN-prologue qkv GEMM (``csrc/gemm.cu``), the attention core with one block
 per (image, head) (``csrc/attention.cu``), and the projection GEMM with a
 ``x + (acc + bproj)`` epilogue (``csrc/gemm.cu``). It saves only its inputs,
-and its backward launches K2b, which recomputes the forward and follows the
-TPU's persist-probs backward (``csrc/gemm.cu``, ``csrc/attention.cu``,
-``csrc/gemm_bwd.cu``). On CPU tensors the same Function runs the plain
-versions, :func:`attention_block_reference` and
-:func:`attention_block_bwd_reference`.
+and its backward recomputes the qkv GEMM and runs one attention core that
+computes the scores once and writes the attention output beside dq, dk and
+dv (``csrc/gemm.cu``, ``csrc/attention.cu``, ``csrc/gemm_bwd.cu``). On CPU
+tensors the same Function runs the plain versions,
+:func:`attention_block_reference` and :func:`attention_block_bwd_reference`.
+
+That backward is the port of two TPU kernels, which the JAX ladder picks
+by the shapes (:func:`ddm_tpu_torch.ops.tiers.attention_tier`): the fused
+backward K2b (``_blk_bwd_kernel``, DiT-S widths) and, at DiT-B and DiT-L
+widths, the split backward K4 (``_blk_bwd_split_kernel``). The TPU splits
+them for VMEM, which the H100 does not need, and they share one rounding
+plan, so one chain serves both, :func:`attention_block_bwd_reference` is
+the plain version of both, and the tier picks only which launch counter
+rises. Shapes with no tier raise on CUDA tensors.
 
 Layout: the fused qkv product emits ``[q | k | v]`` with heads contiguous in
 each third, as the JAX package and the reference checkpoint order them.
@@ -39,7 +48,7 @@ from __future__ import annotations
 
 import torch
 
-from . import flash, gemm
+from . import flash, gemm, tiers
 from .kernel_config import (
     LaunchCounter,
     check_status,
@@ -52,6 +61,7 @@ from .mlp_block import layer_norm, layer_norm_bwd, ln_stats, matmul_f32
 __all__ = [
     "attention_reference",
     "attention_block_reference",
+    "attention_core_bwd_att_reference",
     "attention_block_bwd",
     "attention_block_bwd_reference",
     "long_attention_block_reference",
@@ -60,11 +70,13 @@ __all__ = [
     "supported_tokens",
     "LAUNCHES",
     "BWD_LAUNCHES",
+    "SPLIT_BWD_LAUNCHES",
     "MAX_TOKENS",
 ]
 
 LAUNCHES = LaunchCounter("K2f")
 BWD_LAUNCHES = LaunchCounter("K2b")
+SPLIT_BWD_LAUNCHES = LaunchCounter("K4")
 MAX_TOKENS = 128  # K2's attention core holds one image's N x N scores in shared memory
 _MAX_SMEM = 232448
 
@@ -119,25 +131,30 @@ def long_attention_block_reference(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj,
                                       attention_fn=_flash_core)
 
 
-def _core_bwd_reference(q, k, v, att, _, datt, H: int):
-    """K2b's attention core backward: P recomputed, dS from the fp32 P."""
+def attention_core_bwd_att_reference(q, k, v, datt, H: int):
+    """Plain version of K2b's and K4's attention core: ``(att, dq, dk, dv)``, all (B, N, D) in the compute
+    dtype, from one fp32 P per (image, head): att = bf16(bf16(P) V),
+    dv = bf16(bf16(P)^T datt), dS = bf16(scale * P * (dP - rowsum(P dP)))
+    with dP = datt V^T in fp32, dq = bf16(dS K), dk = bf16(dS^T Q)."""
     dtype = q.dtype
     scale = (q.shape[-1] // H) ** -0.5
     rnd = lambda t: t.to(dtype).float()  # noqa: E731
     q, k, v, datt = (_heads(t, H) for t in (q, k, v, datt))
     p = torch.softmax((q @ k.transpose(-1, -2)) * scale, dim=-1)
-    dv = (rnd(p).transpose(-1, -2) @ datt).to(dtype)
+    pb = rnd(p)
+    att = (pb @ v).to(dtype)
+    dv = (pb.transpose(-1, -2) @ datt).to(dtype)
     dp = datt @ v.transpose(-1, -2)
     ds = rnd(p * (dp - (p * dp).sum(-1, keepdim=True)) * scale)
-    return tuple(_merge_heads(t) for t in ((ds @ k).to(dtype),
+    return tuple(_merge_heads(t) for t in (att, (ds @ k).to(dtype),
                                            (ds.transpose(-1, -2) @ q).to(dtype), dv))
 
 
 def _block_bwd_reference(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H: int, dout,
-                         core, core_bwd):
-    """The half-block's gradients around an attention core: ``core(q, k, v,
-    H) -> (att, saved)`` and ``core_bwd(q, k, v, att, saved, datt, H) ->
-    (dq, dk, dv)``, all (B, N, D) in the compute dtype."""
+                         core_bwd):
+    """The half-block's gradients around an attention core: ``core_bwd(q,
+    k, v, datt, H) -> (att, dq, dk, dv)``, all (B, N, D) in the compute
+    dtype."""
     B, N, D = x.shape
     dtype = x.dtype
     rnd = lambda t: t.to(dtype).float()  # noqa: E731
@@ -146,15 +163,14 @@ def _block_bwd_reference(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H: int, d
     y = rnd(xhat * scale_p.float() + bias_p.float())
     qkv = (y @ rnd(wqkv).t() + bqkv.float()).to(dtype).reshape(B, N, 3 * D)
     q, k, v = qkv.split(D, dim=-1)
-    att, saved = core(q, k, v, H)
 
     do = dout.float().reshape(B * N, D)
     dob = rnd(do)
+    datt = (dob @ rnd(wproj)).to(dtype).reshape(B, N, D)
+    att, *dqkv = core_bwd(q, k, v, datt, H)
     dwproj = dob.t() @ att.float().reshape(B * N, D)
     dbproj = do.sum(0)
-    datt = (dob @ rnd(wproj)).to(dtype).reshape(B, N, D)
-    dqkv = torch.cat(core_bwd(q, k, v, att, saved, datt, H), dim=-1).float()
-    dqkv = dqkv.reshape(B * N, 3 * D)
+    dqkv = torch.cat(dqkv, dim=-1).float().reshape(B * N, 3 * D)
     dwqkv = dqkv.t() @ y
     dbqkv = dqkv.sum(0)
     dy = dqkv @ rnd(wqkv)
@@ -164,13 +180,19 @@ def _block_bwd_reference(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H: int, d
 
 def attention_block_bwd_reference(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H: int,
                                   dout):
-    """Plain PyTorch version of K2b: the gradients of
+    """Plain PyTorch version of K2b and K4: the gradients of
     :func:`fused_attention_block` with respect to ``(x, scale, bias, wqkv,
-    bqkv, wproj, bproj)`` for the cotangent ``dout``, following
-    ``_blk_bwd_kernel``'s rounding plan."""
+    bqkv, wproj, bproj)`` for the cotangent ``dout``, following the rounding
+    plan that ``_blk_bwd_kernel`` and ``_blk_bwd_split_kernel`` share (dW over
+    the bf16 y, att and dqkv, dbproj over the fp32 cotangent, dbqkv over the
+    rounded dqkv)."""
     return _block_bwd_reference(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H, dout,
-                                lambda q, k, v, H: (attention_reference(q, k, v, H), None),
-                                _core_bwd_reference)
+                                attention_core_bwd_att_reference)
+
+
+def _flash_core_bwd(q, k, v, datt, H: int):
+    att, lse = flash.flash_attention_reference(q, k, v, H)
+    return (att, *flash.flash_attention_bwd_reference(q, k, v, att, lse, datt, H))
 
 
 def long_attention_block_bwd_reference(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H: int,
@@ -178,8 +200,7 @@ def long_attention_block_bwd_reference(x, scale_p, bias_p, wqkv, bqkv, wproj, bp
     """Plain version of the long-sequence half-block's backward: the same
     chain around the plain K8f/K8b core (lse replay, dsum from the bf16 o)."""
     return _block_bwd_reference(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H, dout,
-                                flash.flash_attention_reference,
-                                flash.flash_attention_bwd_reference)
+                                _flash_core_bwd)
 
 
 def _core_smem(N: int, Dh: int) -> int:
@@ -249,11 +270,11 @@ def _fwd_chain(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, core):
     return out.reshape(B, N, D), att, saved
 
 
-def _bwd_chain(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, dout, att_of, core_bwd):
+def _bwd_chain(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, dout, core_bwd):
     """The half-block backward around an attention core: the qkv GEMM
-    recomputed (it also gives y = bf16(LN(x)) for dWqkv), ``att_of(qkv)``
-    for dWproj, datt, ``core_bwd(qkv, datt) -> dqkv`` (B, N, 3D), then
-    dWqkv, dbqkv, dy and the LN backward with the residual."""
+    recomputed (it also gives y = bf16(LN(x)) for dWqkv), datt,
+    ``core_bwd(qkv, datt) -> (att (B, N, D), dqkv (B, N, 3D))``, dWproj and
+    dbproj, then dWqkv, dbqkv, dy and the LN backward with the residual."""
     B, N, D = x.shape
     if dout.shape != x.shape:
         raise ValueError(f"the cotangent must be {tuple(x.shape)}, got {tuple(dout.shape)}")
@@ -262,11 +283,12 @@ def _bwd_chain(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, dout, att_of, core_
     x2 = x.reshape(B * N, D)
     dob = dout.to(torch.bfloat16).contiguous().reshape(B * N, D)
     qkv, _, y = gemm.ln_gemm(x2, s, bb, wqkv_b, bqkv_f, gemm.EPI_BIAS, with_y=True)
-    qkv = qkv.view(B, N, 3 * D)
-    dwproj, dbproj = gemm.gemm_tn(dob, att_of(qkv).view(B * N, D), with_colsum=True)
     datt = gemm.gemm_nn(dob, wproj_b, gemm.NN_BF16).view(B, N, D)
-    dqkv = core_bwd(qkv, datt).view(B * N, 3 * D)
+    att, dqkv = core_bwd(qkv.view(B, N, 3 * D), datt)
     del qkv, datt
+    dwproj, dbproj = gemm.gemm_tn(dob, att.view(B * N, D), with_colsum=True)
+    del att
+    dqkv = dqkv.view(B * N, 3 * D)
     dwqkv, dbqkv = gemm.gemm_tn(dqkv, y, with_colsum=True)
     dy = gemm.gemm_nn(dqkv, wqkv_b, gemm.NN_F32)
     del dqkv
@@ -285,15 +307,16 @@ def _k2_core(qkv, H):
     return att
 
 
-def _k2_core_bwd(qkv, datt, H):
-    """K2b's attention core backward -> dqkv (B, N, 3D) bf16."""
+def _core_bwd_att(qkv, datt, H):
+    """K2b's and K4's attention core -> (att (B, N, D), dqkv (B, N, 3D)), bf16."""
     B, N, D3 = qkv.shape
     Dh = D3 // 3 // H
+    att = torch.empty((B, N, D3 // 3), dtype=torch.bfloat16, device=qkv.device)
     dqkv = torch.empty_like(qkv)
-    check_status(load_library().ddm_attention_core_bwd(
-        qkv.data_ptr(), datt.data_ptr(), dqkv.data_ptr(), B, N, H, Dh, Dh ** -0.5,
-        current_stream(qkv.device)), "K2b attention_core_bwd")
-    return dqkv
+    check_status(load_library().ddm_attention_core_bwd_att(
+        qkv.data_ptr(), datt.data_ptr(), att.data_ptr(), dqkv.data_ptr(), B, N, H, Dh,
+        Dh ** -0.5, current_stream(qkv.device)), "attention_core_bwd_att")
+    return att, dqkv
 
 
 def _k2f(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H):
@@ -303,28 +326,43 @@ def _k2f(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H):
     return out
 
 
-def _k2b(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H, dout):
-    B, N, D = x.shape
-    Dh = D // H
+def _check_core_bwd(x, H, name):
+    N, Dh = x.shape[1], x.shape[2] // H
     if not supported_tokens_bwd(N, Dh):
-        raise ValueError(f"K2b's attention core backward does not take N={N}, Dh={Dh} "
+        raise ValueError(f"{name}'s attention core backward does not take N={N}, Dh={Dh} "
                          "(its shared-memory tiles exceed the card's 227 KB)")
+
+
+def _k2b(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H, dout, counter=BWD_LAUNCHES):
+    """The half-block backward on the card. K2b and K4 (the JAX ladder's
+    fused and split backwards) run this one chain; ``counter`` says which
+    tier the ladder picked."""
+    _check_core_bwd(x, H, counter.name)
     grads = _bwd_chain(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, dout,
-                       lambda qkv: _k2_core(qkv, H),
-                       lambda qkv, datt: _k2_core_bwd(qkv, datt, H))
-    BWD_LAUNCHES.add()
+                       lambda qkv, datt: _core_bwd_att(qkv, datt, H))
+    counter.add()
     return grads
+
+
+def _tier(x, H):
+    """The JAX ladder's tier for these tokens; raises where it has none."""
+    B, N, D = x.shape
+    tier = tiers.attention_tier(B, N, D, H)
+    if tier is None:
+        raise tiers.no_kernel("the attention half-block", f"(B={B}, N={N}, D={D}, H={H})")
+    return tier
 
 
 def attention_block_bwd(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H: int, dout):
     """The gradients of :func:`fused_attention_block` for the cotangent
-    ``dout``: K2b on CUDA tensors (or raise),
-    :func:`attention_block_bwd_reference` on CPU tensors."""
+    ``dout``: on CUDA tensors K2b or K4 by the JAX ladder's tier (or raise),
+    on CPU tensors :func:`attention_block_bwd_reference`."""
     args = (x, scale_p, bias_p, wqkv, bqkv, wproj, bproj)
     if not uses_kernel(*args, dout):
         return attention_block_bwd_reference(*args, H, dout)
     _check(*args, H)
-    return _k2b(*args, H, dout)
+    counter = SPLIT_BWD_LAUNCHES if _tier(x, H) == "split" else BWD_LAUNCHES
+    return _k2b(*args, H, dout, counter)
 
 
 class _AttentionBlock(torch.autograd.Function):
@@ -336,6 +374,7 @@ class _AttentionBlock(torch.autograd.Function):
         if not uses_kernel(*args):
             return attention_block_reference(*args, H)
         _check(*args, H)
+        _tier(x, H)
         return _k2f(*args, H)
 
     @staticmethod
@@ -375,8 +414,8 @@ class _LongAttentionBlock(torch.autograd.Function):
         args, H = saved[:7], ctx.heads
         if uses_kernel(*args, dout):
             att, lse = saved[7:]
-            grads = _bwd_chain(*args, dout, lambda qkv: att,
-                               lambda qkv, datt: _k8_core_bwd(qkv, datt, att, lse, H))
+            grads = _bwd_chain(*args, dout,
+                               lambda qkv, datt: (att, _k8_core_bwd(qkv, datt, att, lse, H)))
         else:
             grads = long_attention_block_bwd_reference(*args, H, dout)
         return tuple(g.to(a.dtype) for g, a in zip(grads, args)) + (None,)
@@ -386,7 +425,8 @@ def fused_attention_block(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H: int):
     """``x + proj(MHA(qkv(LN(x))))`` over (B, N, D) tokens, with its backward.
 
     The token count picks the path, as the JAX ladder's shape gates do:
-    N <= 128 takes K2 (:func:`attention_block_reference` and
+    N <= 128 takes K2f and, by :func:`ddm_tpu_torch.ops.tiers.attention_tier`,
+    K2b or K4 (:func:`attention_block_reference` and
     :func:`attention_block_bwd_reference` on CPU tensors); N >= 1024 with
     Dh = 64 takes the long-sequence half-block around K8
     (:func:`long_attention_block_reference` and

@@ -19,27 +19,43 @@ Numerics (both versions): bf16 matmul operands with fp32 accumulation;
 GELU in fp32 with exact erf, rounded to the compute dtype; dW and the bias
 gradients in fp32; dh rounded to bf16 for the products but db1 summed over
 the unrounded dh; dx rounded to the compute dtype (``_bwd_kernel``).
+
+Tiers (:func:`ddm_tpu_torch.ops.tiers.expert_tier`, the JAX ladder's
+``expert_ffn_auto`` from the shapes): ``("fused", 1)`` (DiT-S widths) and
+``("fwdonly", 1)`` run K10f; ``("fwdonly", k > 1)`` (D >= 768) runs the
+forward as k partials K10p over column chunks of the hidden axis
+(``_fwd_call_chunked`` -> ``_fwd_partial_kernel``): per chunk the batched
+NN GEMM with the bias + GELU epilogue on the W1 column chunk, then the
+batched NN GEMM on the W2 row chunk adding into an fp32 sum in chunk order,
+the last one rounding ``sum + b2`` once; both weight chunks are read in
+place. The backward of every tier is K10b's chain, the counterpart of the
+JAX wide tier's XLA backward (which rounds the weight cotangents to bf16
+where K10b keeps fp32). Shapes with no tier raise on CUDA tensors.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import gemm
+from . import gemm, tiers
 from .kernel_config import LaunchCounter, uses_kernel
 from .mlp_block import _gelu_and_grad
 
 __all__ = [
     "expert_ffn",
     "expert_ffn_reference",
+    "expert_ffn_fchunked_reference",
+    "expert_partial_reference",
     "expert_ffn_bwd",
     "expert_ffn_bwd_reference",
     "LAUNCHES",
     "BWD_LAUNCHES",
+    "PARTIAL_LAUNCHES",
 ]
 
 LAUNCHES = LaunchCounter("K10f")
 BWD_LAUNCHES = LaunchCounter("K10b")
+PARTIAL_LAUNCHES = LaunchCounter("K10p")  # one per hidden chunk
 
 
 def _bmm(a: torch.Tensor, b: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -53,6 +69,34 @@ def expert_ffn_reference(x, w1, b1, w2, b2):
     h = _bmm(x, w1, dtype) + b1.float()[:, None, :]
     g = torch.nn.functional.gelu(h, approximate="none").to(dtype)
     return (_bmm(g, w2, dtype) + b2.float()[:, None, :]).to(dtype)
+
+
+def _chunks(w1, b1, w2, k: int):
+    """The k hidden-axis chunks ``(w1 columns, b1, w2 rows)``, as views."""
+    fc = w1.shape[-1] // k
+    return [(w1[:, :, c * fc:(c + 1) * fc], b1[:, c * fc:(c + 1) * fc],
+             w2[:, c * fc:(c + 1) * fc]) for c in range(k)]
+
+
+def expert_partial_reference(x, w1c, b1c, w2c):
+    """Plain version of one K10p launch (``_fwd_partial_kernel``): per expert
+    ``gelu(x w1c + b1c) w2c`` in fp32, for a chunk ``w1c (E, D, Fc)``,
+    ``b1c (E, Fc)``, ``w2c (E, Fc, D)`` of the hidden axis."""
+    dtype = x.dtype
+    h = _bmm(x, w1c, dtype) + b1c.float()[:, None, :]
+    g = torch.nn.functional.gelu(h, approximate="none").to(dtype)
+    return _bmm(g, w2c, dtype)
+
+
+def expert_ffn_fchunked_reference(x, w1, b1, w2, b2, k: int):
+    """Plain version of K10p's chunked forward (``_fwd_call_chunked``): the
+    k fp32 partials summed in chunk order, then ``sum + b2`` rounded once to
+    ``x.dtype``."""
+    acc = None
+    for w1c, b1c, w2c in _chunks(w1, b1, w2, k):
+        part = expert_partial_reference(x, w1c, b1c, w2c)
+        acc = part if acc is None else acc + part
+    return (acc + b2.float()[:, None, :]).to(x.dtype)
 
 
 def expert_ffn_bwd_reference(x, w1, b1, w2, b2, dout):
@@ -105,6 +149,31 @@ def _k10f(x, w1, b1, w2, b2):
     return out
 
 
+def _k10p(x, w1c, b1c, w2c, epi, acc, b2f=None):
+    """One hidden chunk: the batched NN GEMM with bias + GELU on the W1
+    column chunk, then the batched NN GEMM on the W2 row chunk into the fp32
+    sum (``NN_F32``, ``NN_ADD``) or, for the last chunk, ``NN_FINAL_BIAS``."""
+    g = gemm.gemm_nn(x, w1c, gemm.NN_BIAS_GELU, bias=b1c.contiguous())
+    if epi == gemm.NN_FINAL_BIAS:
+        out = gemm.gemm_nn(g, w2c, epi, dfac=acc, bias=b2f)
+    else:
+        out = gemm.gemm_nn(g, w2c, epi, out=acc)
+    PARTIAL_LAUNCHES.add()
+    return out
+
+
+def _k10p_chunked(x, w1, b1, w2, b2, k):
+    bf = torch.bfloat16
+    acc = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    b2f = b2.float().contiguous()
+    last = k - 1
+    for c, (w1c, b1c, w2c) in enumerate(_chunks(w1.to(bf).contiguous(), b1.float(),
+                                                w2.to(bf).contiguous(), k)):
+        epi = gemm.NN_F32 if c == 0 else gemm.NN_FINAL_BIAS if c == last else gemm.NN_ADD
+        out = _k10p(x, w1c, b1c, w2c, epi, acc, b2f)
+    return out
+
+
 def _k10b(x, w1, b1, w2, b2, dout):
     if dout.shape != x.shape:
         raise ValueError(f"K10b cotangent must be {tuple(x.shape)}, got {tuple(dout.shape)}")
@@ -136,11 +205,22 @@ def expert_ffn_bwd(x, w1, b1, w2, b2, dout):
 class _ExpertFFN(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2):
-        ctx.save_for_backward(x, w1, b1, w2, b2)
-        if not uses_kernel(x, w1, b1, w2, b2):
-            return expert_ffn_reference(x, w1, b1, w2, b2)
-        _check(x, w1, b1, w2, b2)
-        return _k10f(x, w1, b1, w2, b2)
+        args = (x, w1, b1, w2, b2)
+        ctx.save_for_backward(*args)
+        E, S, D = x.shape
+        F = w1.shape[-1]
+        tier = tiers.expert_tier(E, S, D, F)
+        chunks = tier[1] if tier is not None else 1
+        if not uses_kernel(*args):
+            if chunks > 1:
+                return expert_ffn_fchunked_reference(*args, chunks)
+            return expert_ffn_reference(*args)
+        _check(*args)
+        if tier is None:
+            raise tiers.no_kernel("the expert FFN", f"(E={E}, S={S}, D={D}, F={F})")
+        if chunks > 1:
+            return _k10p_chunked(*args, chunks)
+        return _k10f(*args)
 
     @staticmethod
     def backward(ctx, dout):
@@ -152,8 +232,10 @@ class _ExpertFFN(torch.autograd.Function):
 def expert_ffn(x, w1, b1, w2, b2):
     """Per-expert GELU FFN ``(E, S, D) -> (E, S, D)`` with its backward.
 
-    CPU tensors take :func:`expert_ffn_reference` and
-    :func:`expert_ffn_bwd_reference`; CUDA tensors launch K10f and K10b (bf16
-    slot rows, weights cast to bf16, fp32 biases) or raise.
+    CPU tensors take :func:`expert_ffn_reference` (or, in a chunked tier,
+    :func:`expert_ffn_fchunked_reference`) and
+    :func:`expert_ffn_bwd_reference`; CUDA tensors launch K10f, or k K10p in
+    a chunked tier, and K10b (bf16 slot rows, weights cast to bf16, fp32
+    biases) or raise.
     """
     return _ExpertFFN.apply(x, w1, b1, w2, b2)

@@ -17,12 +17,16 @@ import torch
 
 from .kernel_config import check_status, current_stream, load_library
 
-__all__ = ["ln_gemm", "gemm_residual", "gemm_nn", "gemm_tn", "ln_bwd", "tn_splits"]
+__all__ = ["ln_gemm", "gemm_residual", "gemm_partial", "gemm_nn", "gemm_tn", "ln_bwd",
+           "tn_splits"]
 
 # ln_gemm epilogues (csrc/gemm.cu LnGemmEpi)
 EPI_BIAS, EPI_GELU, EPI_GELU_GRAD = 0, 1, 2
+# gemm_partial epilogues (csrc/gemm.cu PartialEpi)
+PART_STORE, PART_ADD, PART_FINAL_RES = 0, 1, 2
 # gemm_nn epilogues (csrc/gemm_bwd.cu NNEpi)
 NN_F32, NN_BF16, NN_DGELU, NN_BIAS, NN_BIAS_GELU, NN_BIAS_GELU_GRAD = 0, 1, 2, 3, 4, 5
+NN_ADD, NN_FINAL_BIAS = 6, 7
 _BM, _BN = 64, 128  # the kernels' output tile
 
 
@@ -58,24 +62,50 @@ def gemm_residual(a, w, b, res):
     return out
 
 
-def gemm_nn(a, w, epi: int, dfac=None, bias=None):
+def gemm_partial(a, w, epi: int, acc, bias=None, res=None):
+    """One hidden chunk of the F-chunked MLP: ``s = a (T, K) . w^T`` with
+    ``w (Nout, K)`` a column chunk of nn.Linear's (Nout, F) weight, read in
+    place (unit column stride, any row stride). ``PART_STORE`` writes
+    ``acc = s`` and ``PART_ADD`` ``acc = acc + s`` into the fp32 (T, Nout)
+    ``acc``; ``PART_FINAL_RES`` returns ``bf16((res + (acc + s)) + bias)``."""
+    T, K = a.shape
+    Nout = w.shape[0]
+    if w.stride(1) != 1:
+        raise ValueError("gemm_partial reads w with unit column stride")
+    out = (torch.empty((T, Nout), dtype=torch.bfloat16, device=a.device)
+           if epi == PART_FINAL_RES else None)
+    check_status(load_library().ddm_gemm_partial(
+        a.data_ptr(), w.data_ptr(), w.stride(0), acc.data_ptr(), _ptr(bias), _ptr(res),
+        _ptr(out), T, K, Nout, epi, current_stream(a.device)), "gemm_partial")
+    return out
+
+
+def gemm_nn(a, w, epi: int, dfac=None, bias=None, out=None):
     """``a (T, K) . w (K, Nout)`` with ``w`` in nn.Linear's (out, in) layout,
     or batched over a leading expert axis: ``a (E, T, K) . w (E, K, Nout)``.
+    ``w`` may be a strided view (unit column stride), read in place.
 
     ``NN_F32`` -> fp32 out; ``NN_BF16`` -> bf16 out; ``NN_DGELU`` ->
     ``(bf16(dh), sum_rows(dh))`` with ``dh = (a . w) * dfac`` in fp32;
     ``NN_BIAS`` -> ``bf16(a . w + bias)``; ``NN_BIAS_GELU`` ->
     ``bf16(gelu(h))``, ``h = a . w + bias``; ``NN_BIAS_GELU_GRAD`` ->
     ``(bf16(gelu(h)), gelu'(h) fp32)``. ``bias`` is (Nout,) or (E, Nout).
+    The F-chunked expert FFN's partial sums (batched only): ``NN_F32`` into
+    a given fp32 ``out``, ``NN_ADD`` adds ``a . w`` into it, and
+    ``NN_FINAL_BIAS`` -> ``bf16((dfac + a . w) + bias)`` with ``dfac`` the
+    fp32 sum of the earlier chunks.
     """
     batched = a.dim() == 3
     E = a.shape[0] if batched else 1
     T, K = a.shape[-2:]
     Nout = w.shape[-1]
+    if w.stride(-1) != 1:
+        raise ValueError("gemm_nn reads w with unit column stride")
     dev = a.device
     lead = (E,) if batched else ()
-    out = torch.empty(lead + (T, Nout), dtype=torch.float32 if epi == NN_F32 else torch.bfloat16,
-                      device=dev)
+    if out is None:
+        out = torch.empty(lead + (T, Nout), device=dev,
+                          dtype=torch.float32 if epi in (NN_F32, NN_ADD) else torch.bfloat16)
     aux = dfac
     if epi == NN_BIAS_GELU_GRAD:
         aux = torch.empty(lead + (T, Nout), dtype=torch.float32, device=dev)
@@ -85,7 +115,8 @@ def gemm_nn(a, w, epi: int, dfac=None, bias=None):
         colsum = torch.empty(lead + (Nout,), dtype=torch.float32, device=dev)
     check_status(load_library().ddm_gemm_nn(
         a.data_ptr(), w.data_ptr(), _ptr(bias), _ptr(aux), out.data_ptr(), _ptr(ws),
-        _ptr(colsum), T, K, Nout, epi, E, current_stream(dev)), "gemm_nn")
+        _ptr(colsum), T, K, Nout, w.stride(-2), w.stride(0) if batched else 0, epi, E,
+        current_stream(dev)), "gemm_nn")
     if epi == NN_DGELU:
         return out, colsum
     return (out, aux) if epi == NN_BIAS_GELU_GRAD else out

@@ -57,10 +57,13 @@ _SIGNATURES = {
     "ddm_gemm_residual": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # qkv, out, B, N, H, Dh, scale, stream
     "ddm_attention_core": [_P, _P, _I, _I, _I, _I, _F, _P],
-    # qkv, datt, dqkv, B, N, H, Dh, scale, stream
-    "ddm_attention_core_bwd": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
-    # a, w, bias, aux, out, colsum_ws, colsum_out, T, K, Nout, epi, batch, stream
-    "ddm_gemm_nn": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # qkv, datt, att, dqkv, B, N, H, Dh, scale, stream
+    "ddm_attention_core_bwd_att": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # a, w, ldw, acc, bias, res, out, T, K, Nout, epi, stream
+    "ddm_gemm_partial": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # a, w, bias, aux, out, colsum_ws, colsum_out, T, K, Nout, ldw, wstride, epi, batch,
+    # stream
+    "ddm_gemm_nn": [_P] * 7 + [_I] * 7 + [_P],
     # a, b, ws, dw, colsum_ws, colsum_out, T, Ma, Nb, splits, rows, colsum_of_b, batch, stream
     "ddm_gemm_tn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, dy, dres, scale, dx, partial, dscale_dbias, T, D, stream

@@ -19,6 +19,17 @@ reference ``mlp_block_reference`` adds the residual after rounding, while
 the TPU kernel adds in fp32 and rounds once; the port follows the kernel.
 The backward follows ``_bwd_body``: dW and bias gradients in fp32, dh
 rounded to bf16 for the products but db1 summed over the unrounded dh.
+
+Tiers (:func:`ddm_tpu_torch.ops.tiers.mlp_tier`, the JAX ladder's choice
+from the shapes): ``fused`` (DiT-S widths) is K1f + K1b; ``fwdonly``
+(DiT-B) runs K1f forward; ``fchunked`` (DiT-L) runs the forward as k
+partial products K6f over column chunks of the hidden axis
+(``_partial_fwd_kernel`` on the TPU; :func:`mlp_partial_reference` is its
+plain version),
+summed in fp32 in chunk order and rounded once as ``(x + sum) + b2``. In
+both wide tiers the JAX backward is XLA's autodiff of the plain half-block;
+the port runs K1b's chain there, which keeps dW in fp32 where XLA rounds the
+weight cotangents to bf16. Shapes with no tier raise on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -27,22 +38,26 @@ import math
 
 import torch
 
-from . import gemm
+from . import gemm, tiers
 from .kernel_config import LaunchCounter, uses_kernel
 
 __all__ = [
     "fused_mlp_block",
     "mlp_block_reference",
+    "mlp_block_fchunked_reference",
+    "mlp_partial_reference",
     "mlp_block_bwd",
     "mlp_block_bwd_reference",
     "LAUNCHES",
     "BWD_LAUNCHES",
+    "PARTIAL_LAUNCHES",
     "layer_norm",
 ]
 
 LN_EPS = 1e-6
 LAUNCHES = LaunchCounter("K1f")
 BWD_LAUNCHES = LaunchCounter("K1b")
+PARTIAL_LAUNCHES = LaunchCounter("K6f")  # one per hidden chunk
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 _INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
 
@@ -90,6 +105,35 @@ def mlp_block_reference(x, scale, bias, w1, b1, w2, b2):
     return (xf + out).to(dtype)
 
 
+def mlp_partial_reference(x, scale, bias, w1, b1, w2):
+    """Plain PyTorch version of K5/K6f: ``gelu(LN(x) w1^T + b1) w2^T`` over
+    (T, D) rows in fp32, no output bias, no residual; ``w1 (Fc, D)``, ``w2
+    (D, Fc)`` (a chunk of the hidden axis, or a tensor-parallel shard)."""
+    dtype = x.dtype
+    y = layer_norm(x.float(), scale, bias).to(dtype)
+    h = matmul_f32(y, w1, dtype) + b1.float()
+    g = torch.nn.functional.gelu(h, approximate="none").to(dtype)
+    return matmul_f32(g, w2, dtype)
+
+
+def _chunks(w1, b1, w2, k: int):
+    """The k hidden-axis chunks ``(w1 rows, b1, w2 columns)``, as views."""
+    fc = w1.shape[0] // k
+    return [(w1[c * fc:(c + 1) * fc], b1[c * fc:(c + 1) * fc], w2[:, c * fc:(c + 1) * fc])
+            for c in range(k)]
+
+
+def mlp_block_fchunked_reference(x, scale, bias, w1, b1, w2, b2, k: int):
+    """Plain version of the F-chunked forward (``_fchunked_fwd_call``): the
+    k fp32 partials summed in chunk order, then ``(x + sum) + b2`` rounded
+    once to ``x.dtype``."""
+    acc = None
+    for w1c, b1c, w2c in _chunks(w1, b1, w2, k):
+        part = mlp_partial_reference(x, scale, bias, w1c, b1c, w2c)
+        acc = part if acc is None else acc + part
+    return ((x.float() + acc) + b2.float()).to(x.dtype)
+
+
 def _gelu_and_grad(h: torch.Tensor):
     """``(gelu(h), gelu'(h))`` with one exact erf shared (``_act_fwd_bwd``)."""
     erf_h = torch.erf(h * _INV_SQRT2)
@@ -122,23 +166,24 @@ def mlp_block_bwd_reference(x, scale, bias, w1, b1, w2, b2, dout):
     return dx.to(dtype), dscale, dbias, dw1, db1, dw2, db2
 
 
-def _check(x, scale, bias, w1, b1, w2, b2):
+def _check(x, scale, bias, w1, b1, w2, b2, kernel="K1"):
     if x.dtype != torch.bfloat16:
-        raise TypeError(f"K1 takes bf16 activations, got {x.dtype}")
+        raise TypeError(f"{kernel} takes bf16 activations, got {x.dtype}")
     if x.dim() != 2:
-        raise ValueError(f"K1 takes (T, D) rows, got shape {tuple(x.shape)}")
+        raise ValueError(f"{kernel} takes (T, D) rows, got shape {tuple(x.shape)}")
     T, D = x.shape
     F = w1.shape[0]
     if w1.shape != (F, D) or w2.shape != (D, F):
-        raise ValueError(f"K1 weights must be (F, D) and (D, F), got "
+        raise ValueError(f"{kernel} weights must be (F, D) and (D, F), got "
                          f"{tuple(w1.shape)} and {tuple(w2.shape)}")
     for name, v, n in (("scale", scale, D), ("bias", bias, D), ("b1", b1, F), ("b2", b2, D)):
-        if v.shape != (n,):
-            raise ValueError(f"K1 {name} must be ({n},), got {tuple(v.shape)}")
+        if v is not None and v.shape != (n,):
+            raise ValueError(f"{kernel} {name} must be ({n},), got {tuple(v.shape)}")
     if D % 64 or F % 64 or D > 1024:
-        raise ValueError(f"K1 needs D and F multiples of 64 and D <= 1024, got D={D}, F={F}")
+        raise ValueError(f"{kernel} needs D and F multiples of 64 and D <= 1024, "
+                         f"got D={D}, F={F}")
     if not x.is_contiguous():
-        raise ValueError("K1 needs contiguous activations")
+        raise ValueError(f"{kernel} needs contiguous activations")
 
 
 def _kernel_operands(scale, bias, w1, b1, w2, b2):
@@ -152,6 +197,25 @@ def _k1f(x, scale, bias, w1, b1, w2, b2):
     hidden, _, _ = gemm.ln_gemm(x, s, bb, w1b, b1f, gemm.EPI_GELU)
     out = gemm.gemm_residual(hidden, w2b, b2f, x)
     LAUNCHES.add()
+    return out
+
+
+def _k6f(x, s, bb, w1c, b1c, w2c, epi, acc, b2f=None):
+    """One hidden chunk: the LN-prologue GEMM with bias + GELU on the W1 row
+    chunk, then the fp32-partial GEMM on the W2 column chunk (in place)."""
+    hidden, _, _ = gemm.ln_gemm(x, s, bb, w1c, b1c, gemm.EPI_GELU)
+    out = gemm.gemm_partial(hidden, w2c, epi, acc, b2f, x)
+    PARTIAL_LAUNCHES.add()
+    return out
+
+
+def _k6f_chunked(x, scale, bias, w1, b1, w2, b2, k):
+    s, bb, w1b, b1f, w2b, b2f = _kernel_operands(scale, bias, w1, b1, w2, b2)
+    acc = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    last = k - 1
+    for c, (w1c, b1c, w2c) in enumerate(_chunks(w1b, b1f, w2b, k)):
+        epi = gemm.PART_STORE if c == 0 else gemm.PART_FINAL_RES if c == last else gemm.PART_ADD
+        out = _k6f(x, s, bb, w1c, b1c, w2c, epi, acc, b2f)
     return out
 
 
@@ -186,11 +250,22 @@ def mlp_block_bwd(x, scale, bias, w1, b1, w2, b2, dout):
 class _MLPBlock(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale, bias, w1, b1, w2, b2):
-        ctx.save_for_backward(x, scale, bias, w1, b1, w2, b2)
-        if not uses_kernel(x, scale, bias, w1, b1, w2, b2):
-            return mlp_block_reference(x, scale, bias, w1, b1, w2, b2)
-        _check(x, scale, bias, w1, b1, w2, b2)
-        return _k1f(x, scale, bias, w1, b1, w2, b2)
+        args = (x, scale, bias, w1, b1, w2, b2)
+        ctx.save_for_backward(*args)
+        T, D = x.shape
+        F = w1.shape[0]
+        tier = tiers.mlp_tier(T, D, F)
+        chunks = tier[1] if tier is not None and tier[0] == "fchunked" else 0
+        if not uses_kernel(*args):
+            if chunks:
+                return mlp_block_fchunked_reference(*args, chunks)
+            return mlp_block_reference(*args)
+        _check(*args)
+        if tier is None:
+            raise tiers.no_kernel("the MLP half-block", f"(T={T}, D={D}, F={F})")
+        if chunks:
+            return _k6f_chunked(*args, chunks)
+        return _k1f(*args)
 
     @staticmethod
     def backward(ctx, dout):
@@ -204,8 +279,10 @@ def fused_mlp_block(x, scale, bias, w1, b1, w2, b2):
     """``x + gelu(LN(x) w1^T + b1) w2^T + b2`` over (T, D) rows, with its
     backward.
 
-    CPU tensors take :func:`mlp_block_reference` and
-    :func:`mlp_block_bwd_reference`; CUDA tensors launch K1f and K1b (bf16
-    activations, fp32 LN params and biases, weights cast to bf16) or raise.
+    CPU tensors take :func:`mlp_block_reference` (or, in the ``fchunked``
+    tier, :func:`mlp_block_fchunked_reference`) and
+    :func:`mlp_block_bwd_reference`; CUDA tensors launch K1f, or k K6f in
+    the ``fchunked`` tier, and K1b's chain (bf16 activations, fp32 LN params
+    and biases, weights cast to bf16) or raise.
     """
     return _MLPBlock.apply(x, scale, bias, w1, b1, w2, b2)

@@ -3,11 +3,14 @@ on one NVIDIA GPU: where a warm step's time goes, by phase and by kernel.
 
 Takes the trainer's flags (``train_cifar10_dit_torch.py``; the data is
 always the synthetic set), for example the MoE recipe of
-``configs/cifar10_dit_moe.yaml``:
+``configs/cifar10_dit_moe.yaml``, or DiT-L/4 (``configs/cifar10_dit_l.yaml``'s
+widths):
 
     python3 profile_torch_step.py --batch 256 --m 8 --moe-experts 8 \\
         --moe-capacity 1.25 --moe-group-size 256 --moe-aux-weight 0.01 \\
         --profile-samples 64
+    python3 profile_torch_step.py --batch 256 --m 8 --embed-dim 1024 --depth 24 \\
+        --heads 16 --profile-samples 64
 
 On one seeded model and one batch it runs 3 warm-up steps, then
 
@@ -19,8 +22,8 @@ On one seeded model and one batch it runs 3 warm-up steps, then
   device's busy share (kernel time over the profiled wall time) and the
   peak memory;
 * one more step with CUDA events around each port kernel's launcher (K1f,
-  K10b, ...): the device time from its first kernel's start to its last
-  kernel's end, per step.
+  K10b, ...; K6f and K10p once per hidden chunk): the device time from its
+  first kernel's start to its last kernel's end, per step.
 
 ``--profile-samples N`` then times the sampler on N samples x
 ``--sample-steps`` steps (one warm-up, median of 3) and profiles one call
@@ -39,13 +42,16 @@ import numpy as np
 import torch
 
 WARMUP, TIMED, TOP_ROWS = 3, 10, 24  # steps before timing, steps timed, kernel rows shown
-# the launcher behind each kernel counter: (module, function, label)
+# the launcher behind each kernel counter: (module, function, label); one
+# launcher serves K2b and K4, and its span takes the label whose count rose
 LAUNCHERS = [
     ("mlp_block", "_k1f", "K1f"), ("mlp_block", "_k1b", "K1b"),
-    ("attention", "_k2f", "K2f"), ("attention", "_k2b", "K2b"),
+    ("mlp_block", "_k6f", "K6f"),
+    ("attention", "_k2f", "K2f"), ("attention", "_k2b", ("K2b", "K4")),
     ("energy", "energy_terms", "K3f"), ("energy", "energy_terms_bwd", "K3b"),
     ("flash", "launch_k8f", "K8f"), ("flash", "launch_k8b", "K8b"),
     ("expert_ffn", "_k10f", "K10f"), ("expert_ffn", "_k10b", "K10b"),
+    ("expert_ffn", "_k10p", "K10p"),
     ("moe_dispatch", "_k11f", "K11f"), ("moe_dispatch", "_k11b", "K11b"),
     ("moe_dispatch", "_k12f", "K12f"), ("moe_dispatch", "_k12b", "K12b"),
 ]
@@ -64,15 +70,18 @@ def timed_launchers(spans: dict):
     for mod_name, fn_name, label in LAUNCHERS:
         mod = importlib.import_module(f"ddm_tpu_torch.ops.{mod_name}")
         real = getattr(mod, fn_name)
+        labels = (label,) if isinstance(label, str) else label
 
-        def wrapped(*args, _real=real, _label=label, **kwargs):
+        def wrapped(*args, _real=real, _labels=labels, **kwargs):
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            before = launch_counts()[_label]
+            before = launch_counts()
             start.record()
             out = _real(*args, **kwargs)
             end.record()
-            if launch_counts()[_label] > before:
-                spans.setdefault(_label, []).append((start, end))
+            after = launch_counts()
+            for lab in _labels:
+                if after[lab] > before[lab]:
+                    spans.setdefault(lab, []).append((start, end))
             return out
 
         saved.append((mod, fn_name, real))

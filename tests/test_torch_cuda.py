@@ -1,4 +1,4 @@
-"""The CUDA kernels K1, K2, K3, K8 and K10-K12 against their plain versions, on the card.
+"""The CUDA kernels K1-K4, K6f, K8 and K10-K12 against their plain versions, on the card.
 
 Every test here is marked ``cuda`` and skips on a host without a GPU. The
 file imports no JAX (the machine with the card has none), so it runs there
@@ -18,6 +18,7 @@ from ddm_tpu_torch.ops import expert_ffn as TX  # noqa: E402
 from ddm_tpu_torch.ops import flash as TF  # noqa: E402
 from ddm_tpu_torch.ops import mlp_block as TM  # noqa: E402
 from ddm_tpu_torch.ops import moe_dispatch as TD  # noqa: E402
+from ddm_tpu_torch.ops import tiers as TT  # noqa: E402
 
 # bf16 outputs: the kernel and the plain version round at the same points,
 # but fp32 sums taken in another order can flip a rounding, which moves an
@@ -150,6 +151,21 @@ def test_k2_backward_kernel_matches_plain_on_the_card(cuda_device, B, N, D, H):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,N,H,Dh", [(2048, 64, 6, 64), (64, 64, 16, 64), (3, 16, 2, 64)])
+def test_backward_core_att_is_the_forward_cores_on_the_card(cuda_device, B, N, H, Dh):
+    """K2b and K4 share one attention core, which writes att from its fp32
+    P: bit for bit the forward core's output on the same qkv."""
+    gen = torch.Generator(device=cuda_device).manual_seed(16)
+    qkv = torch.randn(B, N, 3 * H * Dh, generator=gen, device=cuda_device).to(torch.bfloat16)
+    datt = torch.randn(B, N, H * Dh, generator=gen, device=cuda_device).to(torch.bfloat16)
+    att, dqkv = TA._core_bwd_att(qkv, datt, H)
+    assert torch.equal(att, TA._k2_core(qkv, H))
+    want = TA.attention_core_bwd_att_reference(*qkv.split(H * Dh, dim=-1), datt, H)
+    _assert_bf16_rule(att, want[0])
+    _assert_bf16_rule(dqkv, torch.cat(want[1:], dim=-1))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,m,D", [(256, 8, 3072), (8, 3, 128)])
 @pytest.mark.parametrize("beta", [0.1, 2.0])
 def test_k3_kernels_match_plain_on_the_card(cuda_device, B, m, D, beta):
@@ -204,6 +220,21 @@ def test_energy_takes_its_plain_version_where_the_jax_gate_does(cuda_device):
     assert (TE.FWD_LAUNCHES.count, TE.BWD_LAUNCHES.count) == before
     for g, w in zip(got, TE.energy_terms_reference(xh, x0, 0.1)):
         assert torch.equal(g, w)
+
+
+def _assert_partial_rule(got, plain, args, axes):
+    """An fp32 partial (K6f, K10p): relative Frobenius error within 1e-4, or
+    within twice the plain version's own spread when its fp32 sums run in
+    another order. ``axes(args, pd, pf)`` returns the plain version's
+    arguments with the feature axis permuted by ``pd`` and the hidden axis by
+    ``pf``; its output comes back with its last axis permuted by ``pd``."""
+    want = plain(*args)
+    D, F = args[0].shape[-1], args[-1].shape[-2 if args[-1].dim() == 3 else -1]
+    gen = torch.Generator(device=want.device).manual_seed(16)
+    pd, pf = (torch.randperm(n, generator=gen, device=want.device) for n in (D, F))
+    reordered = plain(*axes(args, pd, pf))[..., torch.argsort(pd)]
+    rel = lambda a, b: float(torch.linalg.norm(a - b) / torch.linalg.norm(b))  # noqa: E731
+    assert rel(got, want) <= max(1e-4, 2 * rel(reordered, want))
 
 
 def _assert_bf16_rule(got, want):
@@ -423,3 +454,119 @@ def test_moe_kernels_refuse_what_they_do_not_take(cuda_device):
         TX.expert_ffn(torch.zeros(4, 16, 128, device=cuda_device), w1,
                       torch.zeros(4, 256, device=cuda_device), w1.transpose(1, 2),
                       torch.zeros(4, 128, device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,D,H,forced", [(2048, 64, 1024, 16, False),
+                                            (256, 64, 768, 12, False), (3, 16, 128, 2, True)])
+def test_k4_split_backward_matches_plain_on_the_card(cuda_device, monkeypatch, B, N, D, H,
+                                                     forced):
+    """K4 where the JAX ladder takes it (DiT-L and DiT-B widths) and, forced,
+    at a small shape: all seven gradients through autograd, twice
+    (bit-identical), against the plain backward that K2b shares."""
+    if forced:
+        monkeypatch.setattr(TT, "attention_tier", lambda *a: "split")
+    assert TT.attention_tier(B, N, D, H) == "split"
+    args = _on(cuda_device, _attn_inputs(B, N, D))
+    dout = torch.randn(B, N, D, generator=torch.Generator(device=cuda_device).manual_seed(12),
+                       device=cuda_device).to(torch.bfloat16)
+    before = (TA.SPLIT_BWD_LAUNCHES.count, TA.BWD_LAUNCHES.count)
+    got = _grads_through_autograd(TA.fused_attention_block, args, (H,), dout)
+    again = _grads_through_autograd(TA.fused_attention_block, args, (H,), dout)
+    torch.cuda.synchronize()
+    assert (TA.SPLIT_BWD_LAUNCHES.count - before[0], TA.BWD_LAUNCHES.count - before[1]) == (2, 0)
+    _assert_grads_close(got, TA.attention_block_bwd_reference(*args, H, dout))
+    for g, h in zip(got, again):
+        assert torch.equal(g, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,D,F,forced", [(131072, 1024, 4096, False), (1000, 128, 512, True)])
+def test_k6f_fchunked_mlp_matches_plain_on_the_card(cuda_device, monkeypatch, T, D, F, forced):
+    """One K6f partial on the second hidden chunk, read in place from the
+    bf16 weights (fp32, by the partial rule: single flipped bf16 roundings
+    of LN outputs or hidden entries move single entries by up to ~1e-3 of
+    the largest, the bulk agrees to fp32 sums); the
+    F-chunked half-block at k = 2 by the bf16 rule; its backward (K1b's
+    chain) through autograd, twice, bit-identical."""
+    if forced:
+        monkeypatch.setattr(TT, "mlp_tier", lambda *a: ("fchunked", 2))
+    assert TT.mlp_tier(T, D, F) == ("fchunked", 2)
+    args = _on(cuda_device, _mlp_inputs(T, D, F, seed=13))
+    x, scale, bias, w1, b1, w2, b2 = args
+    fc = F // 2
+    part = (x, scale, bias, w1.to(torch.bfloat16)[fc:], b1[fc:], w2.to(torch.bfloat16)[:, fc:])
+    p = torch.empty(T, D, device=cuda_device)
+    before = (TM.PARTIAL_LAUNCHES.count, TM.LAUNCHES.count)
+    with torch.inference_mode():
+        TM._k6f(*part, TM.gemm.PART_STORE, p)
+        out = TM.fused_mlp_block(*args)
+    torch.cuda.synchronize()
+    assert (TM.PARTIAL_LAUNCHES.count - before[0], TM.LAUNCHES.count - before[1]) == (3, 0)
+    _assert_partial_rule(p, TM.mlp_partial_reference, part, lambda a, pd, pf: (
+        a[0][:, pd].contiguous(), a[1][pd], a[2][pd], a[3][pf][:, pd], a[4][pf], a[5][pd][:, pf]))
+    _assert_bf16_rule(out, TM.mlp_block_fchunked_reference(*args, 2))
+    dout = torch.randn(T, D, generator=torch.Generator(device=cuda_device).manual_seed(14),
+                       device=cuda_device).to(torch.bfloat16)
+    bwd_before = TM.BWD_LAUNCHES.count
+    got = _grads_through_autograd(TM.fused_mlp_block, args, (), dout)
+    again = _grads_through_autograd(TM.fused_mlp_block, args, (), dout)
+    torch.cuda.synchronize()
+    assert TM.BWD_LAUNCHES.count == bwd_before + 2
+    _assert_grads_close(got, TM.mlp_block_bwd_reference(*args, dout))
+    for g, h in zip(got, again):
+        assert torch.equal(g, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,S,D,F,forced", [(8, 20480, 768, 3072, False), (4, 200, 128, 512, True)])
+def test_k10p_matches_plain_on_the_card(cuda_device, monkeypatch, E, S, D, F, forced):
+    """The expert FFN's F-chunked forward (k = 2 K10p) by the bf16 rule, one
+    chunk's fp32 partial by the partial rule, and the five
+    gradients of K10b's chain through autograd, twice, bit-identical."""
+    if forced:
+        monkeypatch.setattr(TT, "expert_tier", lambda *a: ("fwdonly", 2))
+    assert TT.expert_tier(E, S, D, F) == ("fwdonly", 2)
+    r = np.random.default_rng(15)
+    x = r.standard_normal((E, S, D)).astype(np.float32)
+    x[:, S - S // 5:] = 0.0
+    args = [_t(x).to(cuda_device).to(torch.bfloat16)] + [_t(a).to(cuda_device) for a in (
+        (D ** -0.5 * r.standard_normal((E, D, F))).astype(np.float32),
+        (0.1 * r.standard_normal((E, F))).astype(np.float32),
+        (F ** -0.5 * r.standard_normal((E, F, D))).astype(np.float32),
+        (0.1 * r.standard_normal((E, D))).astype(np.float32))]
+    dout = _t(r.standard_normal((E, S, D)).astype(np.float32)).to(cuda_device).to(torch.bfloat16)
+    before = (TX.PARTIAL_LAUNCHES.count, TX.LAUNCHES.count, TX.BWD_LAUNCHES.count)
+    with torch.inference_mode():
+        out = TX.expert_ffn(*args)
+    _assert_bf16_rule(out, TX.expert_ffn_fchunked_reference(*args, 2))
+    fc = F // 2
+    chunk = (args[0], args[1].to(torch.bfloat16)[:, :, fc:], args[2][:, fc:],
+             args[3].to(torch.bfloat16)[:, fc:])
+    acc = torch.empty(E, S, D, device=cuda_device)
+    TX._k10p(*chunk, TX.gemm.NN_F32, acc)
+    _assert_partial_rule(acc, TX.expert_partial_reference, chunk, lambda a, pd, pf: (
+        a[0][:, :, pd].contiguous(), a[1][:, pd][:, :, pf], a[2][:, pf], a[3][:, pf][:, :, pd]))
+    got = _grads_through_autograd(TX.expert_ffn, args, (), dout)
+    again = _grads_through_autograd(TX.expert_ffn, args, (), dout)
+    torch.cuda.synchronize()
+    after = (TX.PARTIAL_LAUNCHES.count, TX.LAUNCHES.count, TX.BWD_LAUNCHES.count)
+    assert tuple(a - b for a, b in zip(after, before)) == (2 + 1 + 2 * 2, 0, 2)
+    _assert_grads_close(got, TX.expert_ffn_bwd_reference(*args, dout))
+    for g, h in zip(got, again):
+        assert torch.equal(g, h)
+
+
+@pytest.mark.cuda
+def test_wide_tiers_refuse_what_they_do_not_take(cuda_device):
+    """Shapes where the JAX ladder has no kernel tier (D = 64: its jnp/XLA
+    reference runs) raise on the card, naming ROADMAP item 8."""
+    bf = torch.bfloat16
+    z = lambda *s, dt=torch.float32: torch.zeros(*s, device=cuda_device, dtype=dt)  # noqa: E731
+    with pytest.raises(NotImplementedError, match="item 8"):
+        TM.fused_mlp_block(z(128, 64, dt=bf), z(64), z(64), z(256, 64), z(256), z(64, 256), z(64))
+    with pytest.raises(NotImplementedError, match="item 8"):
+        TA.fused_attention_block(z(2, 16, 64, dt=bf), z(64), z(64), z(192, 64), z(192),
+                                 z(64, 64), z(64), 1)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        TX.expert_ffn(z(4, 64, 64, dt=bf), z(4, 64, 256), z(4, 256), z(4, 256, 64), z(4, 64))

@@ -18,7 +18,12 @@ score through its plain version, as the JAX package's gate does at that
 size. ``--moe-experts E`` (> 1) replaces every block's dense MLP half with
 E routed expert FFNs (kernels K11f/K10f/K12f forward, K12b/K10b/K11b
 backward in place of K1f/K1b), whose Switch load-balance loss, times
-``--moe-aux-weight``, joins the loss and is logged as ``moe_aux``. On
+``--moe-aux-weight``, joins the loss and is logged as ``moe_aux``. At the
+DiT-B and DiT-L widths (``--embed-dim`` 768 and 1024, the widths of
+``configs/cifar10_dit_b.yaml`` and ``_l.yaml``) each half-block takes the
+JAX package's tier for its shapes: the split attention backward K4 in place
+of K2b, the MLP forward as K1f (DiT-B) or as k F-chunked partials K6f
+(DiT-L), and the expert FFN's forward as k partials K10p. On
 ``--device cpu`` the same step runs the plain PyTorch versions.
 
 Not written: the ``*_dynamics.png`` plots (they need matplotlib, which the
@@ -33,6 +38,8 @@ Usage:
         --epochs 1 --out run128/
     python train_cifar10_dit_torch.py --synthetic --batch 256 --m 8 --moe-experts 8 \
         --moe-capacity 1.25 --moe-group-size 256 --moe-aux-weight 0.01 --epochs 1 --out moe/
+    python train_cifar10_dit_torch.py --synthetic --batch 256 --m 8 --embed-dim 1024 \
+        --depth 24 --heads 16 --epochs 1 --out dit_l/
 """
 
 from __future__ import annotations
@@ -78,8 +85,8 @@ NOT_PORTED = {
     "fid_samples": _EVAL, "mmd_samples": _EVAL, "mmd_sigma": _EVAL, "fid_bf16": _EVAL,
     "wandb": _UTILS, "wandb_project": _UTILS, "wandb_name": _UTILS,
     "profile_dir": _UTILS, "debug_nans": _UTILS,
-    "remat": "Queue 1 item 8 (wider DiT configs)",
-    "mlp_persist": "Queue 1 item 8 (wider DiT configs)",
+    "remat": "Queue 1 item 8 (remat and mlp_persist at the wide widths)",
+    "mlp_persist": "Queue 1 item 8 (remat and mlp_persist at the wide widths)",
     "attention": "Queue 1 item 9 (long sequences)",
     "fast_gelu": "Queue 1 item 5 (fast GELU)",
 }
