@@ -1,94 +1,115 @@
-// Multi-head attention core of the DiT attention half-block, one block per
-// (image, head).
+// Multi-head attention cores of the DiT attention half-block, 16 <= N <= 512
+// tokens (N a multiple of 16).
 //
-// Replaces the attention part of ddm_tpu/ops/attention.py `_blk_fwd_kernel`
-// (`_mha_packed_fwd`); gemm.cu holds the LN + qkv product before it and the
-// projection + residual after it.
+// Replace the attention part of ddm_tpu/ops/attention.py `_blk_fwd_kernel`
+// (`_mha_packed_fwd`, K2f) and the per-head cores of the persist-probs
+// backward `_blk_bwd_kernel` (K2b) and of the split backward
+// `_blk_bwd_split_kernel` (K4, DiT-B and DiT-L widths); gemm.cu holds the
+// LN + qkv product before them and the projection + residual after them.
 //
-// What bounds it on the H100: at DiT-S/4 (N = 64 tokens, Dh = 64) one
-// (image, head) pair is 1 MFLOP over 24 KB of q/k/v, so the core is bound by
-// reading qkv and writing the output (~50 MB per call at B = 256), and by
-// latency: the tiles are far too small to fill a tensor core for long. The
-// TPU kernel packed several images into one block-diagonal masked product
-// to fill its 128-wide matrix unit; here one image's N = 64 is already a
-// whole tile, so there is no packing and no mask: Q, K and V (3 x 64 x 64
-// bf16) and the fp32 scores (64 x 64) live in shared memory, the softmax is
-// fp32 and max-subtracted, the probabilities are rounded to bf16, and P V
-// accumulates in fp32 before one rounding to bf16.
+// What bounds them on the H100: at DiT-S/4 (N = 64 tokens, Dh = 64) one
+// (image, head) pair is 1 MFLOP over 24 KB of q/k/v, so a core is bound by
+// reading qkv and writing its outputs (~50 MB per forward call at B = 256),
+// and by latency: the tiles are far too small to fill a tensor core for
+// long. At N = 256 the products grow with N^2 and each (image, head)'s K
+// and V are read again, from L2, by every query tile. The TPU kernels
+// packed several images into one block-diagonal masked product to fill its
+// 128-wide matrix unit; here one image is already a whole tile, so there is
+// no packing and no mask.
 //
-// attention_core_bwd_kernel replaces the per-head core of the persist-probs
-// backward, ddm_tpu/ops/attention.py `_blk_bwd_kernel` (K2b), again one
-// block per (image, head): it recomputes P from Q and K, keeps the fp32 P
-// and dP tiles and Q, K, V, dO in shared memory (81 KB at N = Dh = 64), and
-// writes dq, dk, dv into the [q | k | v] heads-contiguous dqkv rows. The
-// roundings are the TPU kernel's: dv = bf16(bf16(P)^T dO), dP = dO V^T in
-// fp32, dS = bf16(scale * P * (dP - rowsum(P * dP))) with the fp32 P,
-// dq = bf16(dS K), dk = bf16(dS^T Q).
+// The rounding plan is the TPU kernels' everywhere: scores in fp32, a
+// max-subtracted softmax over the whole row, P rounded to bf16 once after
+// normalising (K8's online softmax would round against a running max), P V
+// accumulated in fp32 and rounded once; in the backward dv = bf16(bf16(P)^T
+// dO), dP = dO V^T in fp32, dS = bf16(scale * P * (dP - rowsum(P * dP)))
+// with the fp32 P, dq = bf16(dS K), dk = bf16(dS^T Q), and att =
+// bf16(bf16(P) V), the attention output that the projection's weight
+// gradient reads, from the same fp32 P. The TPU needs two backward kernels
+// because of VMEM; on the H100 K2b and K4 share these cores.
 //
-// From the one fp32 P it also writes att = bf16(bf16(P) V), the attention
-// output that the projection's weight gradient reads. That makes it the
-// core of the split backward K4 as well, ddm_tpu/ops/attention.py
-// `_blk_bwd_split_kernel` (DiT-B and DiT-L widths), which persists att for
-// XLA's dW products for the same reason; its single loop over the (pack,
-// head) tiles (:753-786) is this block's body. The TPU needs two kernels
-// because of VMEM; on the H100 K2b and K4 share this one, and K2b needs no
-// second launch of the forward core for att. One extra 64 x 64 x 64
-// product per (image, head) and no extra shared memory: O goes through the
-// fp32 tile that dv left, before dP takes it.
+// The forward core: one block per (image, head, query tile) holds its QT
+// full score rows in shared memory (K, then V, pass through one N-row
+// buffer). The backward has two designs, picked by N. Where one (image,
+// head)'s fp32 P and dP tiles fit a block (N <= 112 at Dh = 64) one block
+// per (image, head) keeps Q, K, V, dO, P and dP in shared memory (81 KB at
+// N = Dh = 64) and computes the scores once. Past that, two passes with no
+// atomics and a fixed order: pass 1, over query tiles, computes P, att, dP,
+// the row terms rowsum(P dP) and dq, and saves each row's (max, sum,
+// rowsum(P dP)) in fp32; pass 2, over key tiles, walks the query tiles in
+// order, recomputes P from the saved max and sum, and accumulates dv and dk
+// in fp32 in shared memory, rounding once. Every product runs its 16 x 16
+// tiles over the same depth slices in the same order in every design, and
+// the recomputed P is the same expression of the same scores, so where two
+// designs take a shape their outputs agree bit for bit.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace ddm {
 namespace {
 
 constexpr int kThreads = 128;  // 4 warps
+constexpr size_t kMaxSmem = 232448;
 
-__global__ void __launch_bounds__(kThreads)
-attention_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int N, int H,
-                      int Dh, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int D = H * Dh;
-  const int QLD = Dh + kPadH, SLD = max(N, Dh) + kPadF, PLD = N + kPadH;
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + N * QLD;
-  bf16* Vs = Ks + N * QLD;
-  float* S = reinterpret_cast<float*>(Vs + N * QLD);  // scores, then the output
-  bf16* P = reinterpret_cast<bf16*>(S + N * SLD);
-
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int nwarps = kThreads / 32;
-  const bf16* base = qkv + (size_t)b * N * 3 * D + h * Dh;
-
-  const int dVec = Dh / 8;
-  for (int i = threadIdx.x; i < N * dVec; i += kThreads) {
-    const int r = i / dVec, c = (i % dVec) * 8;
-    const bf16* src = base + (size_t)r * 3 * D + c;
-    *reinterpret_cast<uint4*>(Qs + r * QLD + c) = *reinterpret_cast<const uint4*>(src);
-    *reinterpret_cast<uint4*>(Ks + r * QLD + c) = *reinterpret_cast<const uint4*>(src + D);
-    *reinterpret_cast<uint4*>(Vs + r * QLD + c) = *reinterpret_cast<const uint4*>(src + 2 * D);
-  }
-  __syncthreads();
-
-  // S = Q K^T (fp32)
-  const int nt = N / kFrag;
-  for (int t = warp; t < nt * nt; t += nwarps) {
+// C (M x Nc fp32, ldc) = op(A) op(B) over depth K, one 16 x 16 tile per
+// warp at a time, each tile's products in increasing k: op(A) is the
+// row-major A (lda) or, with A_T, the transpose of a row-major (K x M) A;
+// op(B) the row-major (K x Nc) B (ldb) or, with B_T, the transpose of a
+// row-major (Nc x K) B. With ACC a tile starts from C's values.
+template <bool A_T, bool B_T, bool ACC>
+__device__ void mma_tiles(const bf16* A, int lda, const bf16* B, int ldb, float* C, int ldc,
+                          int M, int Nc, int K) {
+  const int warp = threadIdx.x / 32, nwarps = kThreads / 32, nt = Nc / kFrag;
+  for (int t = warp; t < (M / kFrag) * nt; t += nwarps) {
     const int ti = t / nt, tj = t % nt;
+    float* c = C + ti * kFrag * ldc + tj * kFrag;
     FragC acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int kk = 0; kk < Dh; kk += kFrag) {
-      FragA a;
-      FragBCol bk;
-      wmma::load_matrix_sync(a, Qs + ti * kFrag * QLD + kk, QLD);
-      wmma::load_matrix_sync(bk, Ks + tj * kFrag * QLD + kk, QLD);
-      wmma::mma_sync(acc, a, bk, acc);
+    if (ACC)
+      wmma::load_matrix_sync(acc, c, ldc, wmma::mem_row_major);
+    else
+      wmma::fill_fragment(acc, 0.0f);
+    for (int kk = 0; kk < K; kk += kFrag) {
+      typename std::conditional<A_T, FragACol, FragA>::type a;
+      typename std::conditional<B_T, FragBCol, FragBRow>::type bm;
+      wmma::load_matrix_sync(a, A_T ? A + kk * lda + ti * kFrag : A + ti * kFrag * lda + kk, lda);
+      wmma::load_matrix_sync(bm, B_T ? B + tj * kFrag * ldb + kk : B + kk * ldb + tj * kFrag,
+                             ldb);
+      wmma::mma_sync(acc, a, bm, acc);
     }
-    wmma::store_matrix_sync(S + ti * kFrag * SLD + tj * kFrag, acc, SLD, wmma::mem_row_major);
+    wmma::store_matrix_sync(c, acc, ldc, wmma::mem_row_major);
   }
-  __syncthreads();
+}
 
-  // row softmax in fp32: e = exp(s*scale - max), p = bf16(e / sum)
-  for (int r = warp; r < N; r += nwarps) {
-    float* srow = S + r * SLD;
+// rows x Dh bf16 values, row stride src_ld, into a shared tile of stride ld.
+__device__ __forceinline__ void load_head(bf16* dst, int ld, const bf16* __restrict__ src,
+                                          int src_ld, int rows, int Dh) {
+  const int vec = Dh / 8;
+  for (int i = threadIdx.x; i < rows * vec; i += kThreads) {
+    const int r = i / vec, c = (i % vec) * 8;
+    *reinterpret_cast<uint4*>(dst + r * ld + c) =
+        *reinterpret_cast<const uint4*>(src + (size_t)r * src_ld + c);
+  }
+}
+
+// Write a (rows x Dh) fp32 tile as bf16 into the rows of a row-major matrix
+// with ld columns.
+__device__ __forceinline__ void store_head(bf16* __restrict__ dst, int ld, const float* src,
+                                           int sld, int rows, int Dh) {
+  for (int i = threadIdx.x; i < rows * Dh / 2; i += kThreads) {
+    const int r = i / (Dh / 2), c = 2 * (i % (Dh / 2));
+    *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)r * ld + c) =
+        __floats2bfloat162_rn(src[r * sld + c], src[r * sld + c + 1]);
+  }
+}
+
+// Row softmax on rows of fp32 scores S (stride sld): p = exp(s * scale -
+// max) / sum, bf16(p) into Pb; with keep, p kept in S; with stats, each
+// row's (max, sum) saved at stats[3 r], stats[3 r + 1].
+__device__ void softmax_rows(float* S, int sld, bf16* Pb, int pld, int rows, int N, float scale,
+                             bool keep, float* stats) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, nwarps = kThreads / 32;
+  for (int r = warp; r < rows; r += nwarps) {
+    float* srow = S + r * sld;
     float m = -INFINITY;
     for (int c = lane; c < N; c += 32) m = fmaxf(m, srow[c] * scale);
     m = warp_max(m);
@@ -99,46 +120,78 @@ attention_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int 
       sum += e;
     }
     sum = warp_sum(sum);
-    for (int c = lane; c < N; c += 32) P[r * PLD + c] = __float2bfloat16(srow[c] / sum);
-  }
-  __syncthreads();
-
-  // O = P V (fp32), written over the dead scores
-  const int dt = Dh / kFrag;
-  for (int t = warp; t < nt * dt; t += nwarps) {
-    const int ti = t / dt, tj = t % dt;
-    FragC acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int kk = 0; kk < N; kk += kFrag) {
-      FragA a;
-      FragBRow bv;
-      wmma::load_matrix_sync(a, P + ti * kFrag * PLD + kk, PLD);
-      wmma::load_matrix_sync(bv, Vs + kk * QLD + tj * kFrag, QLD);
-      wmma::mma_sync(acc, a, bv, acc);
+    for (int c = lane; c < N; c += 32) {
+      const float p = srow[c] / sum;
+      if (keep) srow[c] = p;
+      Pb[r * pld + c] = __float2bfloat16(p);
     }
-    wmma::store_matrix_sync(S + ti * kFrag * SLD + tj * kFrag, acc, SLD, wmma::mem_row_major);
+    if (stats != nullptr && lane == 0) {
+      stats[3 * r] = m;
+      stats[3 * r + 1] = sum;
+    }
   }
+}
+
+// dS = bf16(scale * P * (dP - rowsum(P * dP))) into Pb, over rows of the
+// fp32 P and dP (stride sld); with stats, rowsum(P * dP) saved at
+// stats[3 r + 2].
+__device__ void ds_rows(const float* P, const float* dP, int sld, bf16* Pb, int pld, int rows,
+                        int N, float scale, float* stats) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, nwarps = kThreads / 32;
+  for (int r = warp; r < rows; r += nwarps) {
+    const float* prow = P + r * sld;
+    const float* drow = dP + r * sld;
+    float s = 0.f;
+    for (int c = lane; c < N; c += 32) s += prow[c] * drow[c];
+    s = warp_sum(s);
+    for (int c = lane; c < N; c += 32)
+      Pb[r * pld + c] = __float2bfloat16(prow[c] * (drow[c] - s) * scale);
+    if (stats != nullptr && lane == 0) stats[3 * r + 2] = s;
+  }
+}
+
+size_t core_smem(int N, int Dh, int QT) {
+  const int QLD = Dh + kPadH, SLD = (N > Dh ? N : Dh) + kPadF;
+  return (size_t)(QT + N) * QLD * sizeof(bf16) + (size_t)QT * SLD * sizeof(float) +
+         (size_t)QT * (N + kPadH) * sizeof(bf16);
+}
+
+// K2f's core: block (b H + h, t) writes rows [t QT, (t + 1) QT) of one
+// (image, head).
+__global__ void __launch_bounds__(kThreads)
+attention_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int N, int H,
+                      int Dh, float scale, int QT) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int D = H * Dh;
+  const int QLD = Dh + kPadH, SLD = max(N, Dh) + kPadF, PLD = N + kPadH;
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* KV = Qs + QT * QLD;
+  float* S = reinterpret_cast<float*>(KV + N * QLD);  // scores, then the output
+  bf16* P = reinterpret_cast<bf16*>(S + QT * SLD);
+
+  const int b = blockIdx.x / H, h = blockIdx.x % H, r0 = blockIdx.y * QT;
+  const bf16* base = qkv + (size_t)b * N * 3 * D + h * Dh;
+  load_head(Qs, QLD, base + (size_t)r0 * 3 * D, 3 * D, QT, Dh);
+  load_head(KV, QLD, base + D, 3 * D, N, Dh);
   __syncthreads();
-
-  bf16* dst = out + (size_t)b * N * D + h * Dh;
-  for (int i = threadIdx.x; i < N * Dh / 2; i += kThreads) {
-    const int r = i / (Dh / 2), c = 2 * (i % (Dh / 2));
-    *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)r * D + c) =
-        __floats2bfloat162_rn(S[r * SLD + c], S[r * SLD + c + 1]);
-  }
+  mma_tiles<false, true, false>(Qs, QLD, KV, QLD, S, SLD, QT, N, Dh);  // S = Q K^T
+  __syncthreads();
+  load_head(KV, QLD, base + 2 * D, 3 * D, N, Dh);  // V over K
+  softmax_rows(S, SLD, P, PLD, QT, N, scale, false, nullptr);
+  __syncthreads();
+  mma_tiles<false, false, false>(P, PLD, KV, QLD, S, SLD, QT, Dh, N);  // O = P V
+  __syncthreads();
+  store_head(out + ((size_t)b * N + r0) * D + h * Dh, D, S, SLD, QT, Dh);
 }
 
-// Write an (N x Dh) fp32 tile as bf16 into columns [col0, col0 + Dh) of the
-// rows of one image in a row-major matrix with ld columns.
-__device__ __forceinline__ void store_head(bf16* __restrict__ dst, int ld, const float* src,
-                                           int sld, int N, int Dh) {
-  for (int i = threadIdx.x; i < N * Dh / 2; i += kThreads) {
-    const int r = i / (Dh / 2), c = 2 * (i % (Dh / 2));
-    *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)r * ld + c) =
-        __floats2bfloat162_rn(src[r * sld + c], src[r * sld + c + 1]);
-  }
+size_t core_bwd_smem(int N, int Dh) {
+  const int SLD = (N > Dh ? N : Dh) + kPadF;
+  return (size_t)4 * N * (Dh + kPadH) * sizeof(bf16) + (size_t)2 * N * SLD * sizeof(float) +
+         (size_t)N * (N + kPadH) * sizeof(bf16);
 }
 
+// The one-block backward: block b H + h holds all N rows of one (image,
+// head) and writes att, dq, dk, dv.
 __global__ void __launch_bounds__(kThreads)
 attention_core_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ datt,
                           bf16* __restrict__ att, bf16* __restrict__ dqkv, int N, int H,
@@ -151,191 +204,228 @@ attention_core_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__
   bf16* Vs = Ks + N * QLD;
   bf16* dOs = Vs + N * QLD;
   float* P = reinterpret_cast<float*>(dOs + N * QLD);  // fp32 P, later dq
-  float* F = P + N * SLD;                              // dv, dP, then dk
+  float* F = P + N * SLD;                              // dv, att, dP, then dk
   bf16* Pb = reinterpret_cast<bf16*>(F + N * SLD);     // bf16 P, then bf16 dS
 
   const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int nwarps = kThreads / 32;
   const bf16* base = qkv + (size_t)b * N * 3 * D + h * Dh;
-  const bf16* dbase = datt + (size_t)b * N * D + h * Dh;
-
-  const int dVec = Dh / 8;
-  for (int i = threadIdx.x; i < N * dVec; i += kThreads) {
-    const int r = i / dVec, c = (i % dVec) * 8;
-    const bf16* src = base + (size_t)r * 3 * D + c;
-    *reinterpret_cast<uint4*>(Qs + r * QLD + c) = *reinterpret_cast<const uint4*>(src);
-    *reinterpret_cast<uint4*>(Ks + r * QLD + c) = *reinterpret_cast<const uint4*>(src + D);
-    *reinterpret_cast<uint4*>(Vs + r * QLD + c) = *reinterpret_cast<const uint4*>(src + 2 * D);
-    *reinterpret_cast<uint4*>(dOs + r * QLD + c) =
-        *reinterpret_cast<const uint4*>(dbase + (size_t)r * D + c);
-  }
+  load_head(Qs, QLD, base, 3 * D, N, Dh);
+  load_head(Ks, QLD, base + D, 3 * D, N, Dh);
+  load_head(Vs, QLD, base + 2 * D, 3 * D, N, Dh);
+  load_head(dOs, QLD, datt + (size_t)b * N * D + h * Dh, D, N, Dh);
   __syncthreads();
-
-  const int nt = N / kFrag, dt = Dh / kFrag;
-  // S = Q K^T
-  for (int t = warp; t < nt * nt; t += nwarps) {
-    const int ti = t / nt, tj = t % nt;
-    FragC acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int kk = 0; kk < Dh; kk += kFrag) {
-      FragA a;
-      FragBCol bk;
-      wmma::load_matrix_sync(a, Qs + ti * kFrag * QLD + kk, QLD);
-      wmma::load_matrix_sync(bk, Ks + tj * kFrag * QLD + kk, QLD);
-      wmma::mma_sync(acc, a, bk, acc);
-    }
-    wmma::store_matrix_sync(P + ti * kFrag * SLD + tj * kFrag, acc, SLD, wmma::mem_row_major);
-  }
+  mma_tiles<false, true, false>(Qs, QLD, Ks, QLD, P, SLD, N, N, Dh);  // S = Q K^T
   __syncthreads();
-
-  // P = softmax(scale * S) in fp32, kept; Pb = bf16(P)
-  for (int r = warp; r < N; r += nwarps) {
-    float* prow = P + r * SLD;
-    float m = -INFINITY;
-    for (int c = lane; c < N; c += 32) m = fmaxf(m, prow[c] * scale);
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int c = lane; c < N; c += 32) {
-      const float e = expf(prow[c] * scale - m);
-      prow[c] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int c = lane; c < N; c += 32) {
-      const float p = prow[c] / sum;
-      prow[c] = p;
-      Pb[r * PLD + c] = __float2bfloat16(p);
-    }
-  }
-  __syncthreads();
-
-  // dv = Pb^T dO
-  for (int t = warp; t < nt * dt; t += nwarps) {
-    const int ti = t / dt, tj = t % dt;
-    FragC acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int kk = 0; kk < N; kk += kFrag) {
-      FragACol a;
-      FragBRow bo;
-      wmma::load_matrix_sync(a, Pb + kk * PLD + ti * kFrag, PLD);
-      wmma::load_matrix_sync(bo, dOs + kk * QLD + tj * kFrag, QLD);
-      wmma::mma_sync(acc, a, bo, acc);
-    }
-    wmma::store_matrix_sync(F + ti * kFrag * SLD + tj * kFrag, acc, SLD, wmma::mem_row_major);
-  }
+  softmax_rows(P, SLD, Pb, PLD, N, N, scale, true, nullptr);
   __syncthreads();
   bf16* out = dqkv + (size_t)b * N * 3 * D + h * Dh;
+  mma_tiles<true, false, false>(Pb, PLD, dOs, QLD, F, SLD, N, Dh, N);  // dv = Pb^T dO
+  __syncthreads();
   store_head(out + 2 * D, 3 * D, F, SLD, N, Dh);
   __syncthreads();
-
-  // att = Pb V (fp32), rounded once, as the forward core computes it
-  for (int t = warp; t < nt * dt; t += nwarps) {
-    const int ti = t / dt, tj = t % dt;
-    FragC acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int kk = 0; kk < N; kk += kFrag) {
-      FragA a;
-      FragBRow bv;
-      wmma::load_matrix_sync(a, Pb + ti * kFrag * PLD + kk, PLD);
-      wmma::load_matrix_sync(bv, Vs + kk * QLD + tj * kFrag, QLD);
-      wmma::mma_sync(acc, a, bv, acc);
-    }
-    wmma::store_matrix_sync(F + ti * kFrag * SLD + tj * kFrag, acc, SLD, wmma::mem_row_major);
-  }
+  mma_tiles<false, false, false>(Pb, PLD, Vs, QLD, F, SLD, N, Dh, N);  // att = Pb V
   __syncthreads();
   store_head(att + (size_t)b * N * D + h * Dh, D, F, SLD, N, Dh);
   __syncthreads();
-
-  // dP = dO V^T (fp32)
-  for (int t = warp; t < nt * nt; t += nwarps) {
-    const int ti = t / nt, tj = t % nt;
-    FragC acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int kk = 0; kk < Dh; kk += kFrag) {
-      FragA a;
-      FragBCol bv;
-      wmma::load_matrix_sync(a, dOs + ti * kFrag * QLD + kk, QLD);
-      wmma::load_matrix_sync(bv, Vs + tj * kFrag * QLD + kk, QLD);
-      wmma::mma_sync(acc, a, bv, acc);
-    }
-    wmma::store_matrix_sync(F + ti * kFrag * SLD + tj * kFrag, acc, SLD, wmma::mem_row_major);
-  }
+  mma_tiles<false, true, false>(dOs, QLD, Vs, QLD, F, SLD, N, N, Dh);  // dP = dO V^T
   __syncthreads();
-
-  // dS = bf16(scale * P * (dP - rowsum(P * dP))), over Pb
-  for (int r = warp; r < N; r += nwarps) {
-    const float* prow = P + r * SLD;
-    const float* drow = F + r * SLD;
-    float s = 0.f;
-    for (int c = lane; c < N; c += 32) s += prow[c] * drow[c];
-    s = warp_sum(s);
-    for (int c = lane; c < N; c += 32)
-      Pb[r * PLD + c] = __float2bfloat16(prow[c] * (drow[c] - s) * scale);
-  }
+  ds_rows(P, F, SLD, Pb, PLD, N, N, scale, nullptr);
   __syncthreads();
-
-  // dq = dS K (into P), dk = dS^T Q (into F)
-  for (int t = warp; t < 2 * nt * dt; t += nwarps) {
-    const bool is_k = t >= nt * dt;
-    const int tt = is_k ? t - nt * dt : t;
-    const int ti = tt / dt, tj = tt % dt;
-    FragC acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int kk = 0; kk < N; kk += kFrag) {
-      FragBRow bm;
-      if (is_k) {
-        FragACol a;
-        wmma::load_matrix_sync(a, Pb + kk * PLD + ti * kFrag, PLD);
-        wmma::load_matrix_sync(bm, Qs + kk * QLD + tj * kFrag, QLD);
-        wmma::mma_sync(acc, a, bm, acc);
-      } else {
-        FragA a;
-        wmma::load_matrix_sync(a, Pb + ti * kFrag * PLD + kk, PLD);
-        wmma::load_matrix_sync(bm, Ks + kk * QLD + tj * kFrag, QLD);
-        wmma::mma_sync(acc, a, bm, acc);
-      }
-    }
-    wmma::store_matrix_sync((is_k ? F : P) + ti * kFrag * SLD + tj * kFrag, acc, SLD,
-                            wmma::mem_row_major);
-  }
+  mma_tiles<false, false, false>(Pb, PLD, Ks, QLD, P, SLD, N, Dh, N);  // dq = dS K
+  mma_tiles<true, false, false>(Pb, PLD, Qs, QLD, F, SLD, N, Dh, N);   // dk = dS^T Q
   __syncthreads();
   store_head(out, 3 * D, P, SLD, N, Dh);
   store_head(out + D, 3 * D, F, SLD, N, Dh);
 }
 
+size_t bwd_rows_smem(int N, int Dh, int QT) {
+  const int QLD = Dh + kPadH, SLD = (N > Dh ? N : Dh) + kPadF;
+  return (size_t)(2 * QT + N) * QLD * sizeof(bf16) + (size_t)2 * QT * SLD * sizeof(float) +
+         (size_t)QT * (N + kPadH) * sizeof(bf16);
+}
+
+// Backward pass 1: block (b H + h, t) takes query rows [r0, r0 + QT): P
+// (fp32, kept), att, dP, dS, dq; each row's (max, sum, rowsum(P dP)) to
+// stats. K, V, then K again pass through one N-row buffer.
+__global__ void __launch_bounds__(kThreads)
+attention_core_bwd_rows_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ datt,
+                               bf16* __restrict__ att, bf16* __restrict__ dqkv,
+                               float* __restrict__ stats, int N, int H, int Dh, float scale,
+                               int QT) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int D = H * Dh;
+  const int QLD = Dh + kPadH, SLD = max(N, Dh) + kPadF, PLD = N + kPadH;
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* dOs = Qs + QT * QLD;
+  bf16* KV = dOs + QT * QLD;
+  float* P = reinterpret_cast<float*>(KV + N * QLD);  // fp32 P, later dq
+  float* F = P + QT * SLD;                            // att, then dP
+  bf16* Pb = reinterpret_cast<bf16*>(F + QT * SLD);   // bf16 P, then bf16 dS
+
+  const int b = blockIdx.x / H, h = blockIdx.x % H, r0 = blockIdx.y * QT;
+  const bf16* base = qkv + (size_t)b * N * 3 * D + h * Dh;
+  float* st = stats + ((size_t)blockIdx.x * N + r0) * 3;
+  load_head(Qs, QLD, base + (size_t)r0 * 3 * D, 3 * D, QT, Dh);
+  load_head(dOs, QLD, datt + ((size_t)b * N + r0) * D + h * Dh, D, QT, Dh);
+  load_head(KV, QLD, base + D, 3 * D, N, Dh);
+  __syncthreads();
+  mma_tiles<false, true, false>(Qs, QLD, KV, QLD, P, SLD, QT, N, Dh);  // S = Q K^T
+  __syncthreads();
+  load_head(KV, QLD, base + 2 * D, 3 * D, N, Dh);  // V over K
+  softmax_rows(P, SLD, Pb, PLD, QT, N, scale, true, st);
+  __syncthreads();
+  mma_tiles<false, false, false>(Pb, PLD, KV, QLD, F, SLD, QT, Dh, N);  // att = Pb V
+  __syncthreads();
+  store_head(att + ((size_t)b * N + r0) * D + h * Dh, D, F, SLD, QT, Dh);
+  __syncthreads();
+  mma_tiles<false, true, false>(dOs, QLD, KV, QLD, F, SLD, QT, N, Dh);  // dP = dO V^T
+  __syncthreads();
+  load_head(KV, QLD, base + D, 3 * D, N, Dh);  // K over V
+  ds_rows(P, F, SLD, Pb, PLD, QT, N, scale, st);
+  __syncthreads();
+  mma_tiles<false, false, false>(Pb, PLD, KV, QLD, P, SLD, QT, Dh, N);  // dq = dS K
+  __syncthreads();
+  store_head(dqkv + ((size_t)b * N + r0) * 3 * D + h * Dh, 3 * D, P, SLD, QT, Dh);
+}
+
+size_t bwd_cols_smem(int Dh, int KT, int QT) {
+  const int QLD = Dh + kPadH, TLD = KT + kPadF, ALD = Dh + kPadF;
+  return (size_t)(2 * KT + 2 * QT) * QLD * sizeof(bf16) +
+         (size_t)(2 * QT * TLD + 2 * KT * ALD + 3 * QT) * sizeof(float) +
+         (size_t)QT * (KT + kPadH) * sizeof(bf16);
+}
+
+// Backward pass 2: block (b H + h, t) takes key rows [c0, c0 + KT) and walks
+// the query tiles in order: S = Q K^T and dP = dO V^T on the tile, P from
+// pass 1's (max, sum), dv += bf16(P)^T dO, dS from pass 1's rowsum(P dP),
+// dk += dS^T Q, with dk and dv in fp32 in shared memory, rounded once.
+__global__ void __launch_bounds__(kThreads)
+attention_core_bwd_cols_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ datt,
+                               const float* __restrict__ stats, bf16* __restrict__ dqkv, int N,
+                               int H, int Dh, float scale, int KT, int QT) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int D = H * Dh;
+  const int QLD = Dh + kPadH, TLD = KT + kPadF, ALD = Dh + kPadF, TPLD = KT + kPadH;
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + KT * QLD;
+  bf16* Qs = Vs + KT * QLD;
+  bf16* dOs = Qs + QT * QLD;
+  float* S = reinterpret_cast<float*>(dOs + QT * QLD);  // scores, then fp32 P
+  float* F = S + QT * TLD;                              // dP
+  float* dV = F + QT * TLD;
+  float* dK = dV + KT * ALD;
+  float* st = dK + KT * ALD;                            // QT x (max, sum, rowsum(P dP))
+  bf16* Pb = reinterpret_cast<bf16*>(st + 3 * QT);      // bf16 P, then bf16 dS
+
+  const int b = blockIdx.x / H, h = blockIdx.x % H, c0 = blockIdx.y * KT;
+  const bf16* base = qkv + (size_t)b * N * 3 * D + h * Dh;
+  const float* sb = stats + (size_t)blockIdx.x * N * 3;
+  load_head(Ks, QLD, base + (size_t)c0 * 3 * D + D, 3 * D, KT, Dh);
+  load_head(Vs, QLD, base + (size_t)c0 * 3 * D + 2 * D, 3 * D, KT, Dh);
+  for (int i = threadIdx.x; i < 2 * KT * ALD; i += kThreads) dV[i] = 0.f;  // dV, dK
+  for (int q0 = 0; q0 < N; q0 += QT) {
+    __syncthreads();
+    load_head(Qs, QLD, base + (size_t)q0 * 3 * D, 3 * D, QT, Dh);
+    load_head(dOs, QLD, datt + ((size_t)b * N + q0) * D + h * Dh, D, QT, Dh);
+    for (int i = threadIdx.x; i < 3 * QT; i += kThreads) st[i] = sb[(size_t)q0 * 3 + i];
+    __syncthreads();
+    mma_tiles<false, true, false>(Qs, QLD, Ks, QLD, S, TLD, QT, KT, Dh);   // S = Q K^T
+    mma_tiles<false, true, false>(dOs, QLD, Vs, QLD, F, TLD, QT, KT, Dh);  // dP = dO V^T
+    __syncthreads();
+    for (int i = threadIdx.x; i < QT * KT; i += kThreads) {
+      const int r = i / KT, c = i % KT;
+      const float p = expf(S[r * TLD + c] * scale - st[3 * r]) / st[3 * r + 1];
+      S[r * TLD + c] = p;
+      Pb[r * TPLD + c] = __float2bfloat16(p);
+    }
+    __syncthreads();
+    mma_tiles<true, false, true>(Pb, TPLD, dOs, QLD, dV, ALD, KT, Dh, QT);  // dv += P^T dO
+    __syncthreads();
+    for (int i = threadIdx.x; i < QT * KT; i += kThreads) {
+      const int r = i / KT, c = i % KT;
+      Pb[r * TPLD + c] =
+          __float2bfloat16(S[r * TLD + c] * (F[r * TLD + c] - st[3 * r + 2]) * scale);
+    }
+    __syncthreads();
+    mma_tiles<true, false, true>(Pb, TPLD, Qs, QLD, dK, ALD, KT, Dh, QT);  // dk += dS^T Q
+  }
+  __syncthreads();
+  bf16* out = dqkv + ((size_t)b * N + c0) * 3 * D + h * Dh;
+  store_head(out + D, 3 * D, dK, ALD, KT, Dh);
+  store_head(out + 2 * D, 3 * D, dV, ALD, KT, Dh);
+}
+
+// The widest of 32 and 16 rows dividing N whose tile fits `limit`; 0 if none.
+template <typename Smem>
+int pick_rows(int N, size_t limit, Smem smem) {
+  for (int t = 32; t >= 16; t /= 2)
+    if (N % t == 0 && smem(t) <= limit) return t;
+  return 0;
+}
+
+cudaError_t set_smem(const void* kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
 }  // namespace
 }  // namespace ddm
 
+// K2f's core: the (B, N, H*Dh) output of the (B, N, 3D) [q | k | v] rows.
 extern "C" int ddm_attention_core(const void* qkv, void* out, int B, int N, int H, int Dh,
                                   float scale, void* stream) {
   using namespace ddm;
-  const int sld = (N > Dh ? N : Dh) + kPadF;
-  const size_t smem = (size_t)3 * N * (Dh + kPadH) * sizeof(bf16) +
-                      (size_t)N * sld * sizeof(float) +
-                      (size_t)N * (N + kPadH) * sizeof(bf16);
-  cudaError_t err = cudaFuncSetAttribute(attention_core_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const int QT = pick_rows(N, kMaxSmem, [&](int t) { return core_smem(N, Dh, t); });
+  if (QT == 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = core_smem(N, Dh, QT);
+  cudaError_t err = set_smem((const void*)attention_core_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  attention_core_kernel<<<B * H, kThreads, smem, (cudaStream_t)stream>>>(
-      (const bf16*)qkv, (bf16*)out, N, H, Dh, scale);
+  attention_core_kernel<<<dim3(B * H, N / QT), kThreads, smem, (cudaStream_t)stream>>>(
+      (const bf16*)qkv, (bf16*)out, N, H, Dh, scale, QT);
   return (int)cudaGetLastError();
 }
 
-// K2b's and K4's core: dq, dk, dv into the (B, N, 3D) dqkv rows, and
-// att = bf16(P V) (B, N, H*Dh).
+// K2b's and K4's core, one block per (image, head): dq, dk, dv into the
+// (B, N, 3D) dqkv rows, and att = bf16(P V) (B, N, H*Dh).
 extern "C" int ddm_attention_core_bwd_att(const void* qkv, const void* datt, void* att,
                                           void* dqkv, int B, int N, int H, int Dh, float scale,
                                           void* stream) {
   using namespace ddm;
-  const int sld = (N > Dh ? N : Dh) + kPadF;
-  const size_t smem = (size_t)4 * N * (Dh + kPadH) * sizeof(bf16) +
-                      (size_t)2 * N * sld * sizeof(float) +
-                      (size_t)N * (N + kPadH) * sizeof(bf16);
-  cudaError_t err = cudaFuncSetAttribute(attention_core_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const size_t smem = core_bwd_smem(N, Dh);
+  cudaError_t err = set_smem((const void*)attention_core_bwd_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   attention_core_bwd_kernel<<<B * H, kThreads, smem, (cudaStream_t)stream>>>(
       (const bf16*)qkv, (const bf16*)datt, (bf16*)att, (bf16*)dqkv, N, H, Dh, scale);
+  return (int)cudaGetLastError();
+}
+
+// K2b's and K4's core in two passes: att, dq, dk, dv as above; stats holds
+// B x H x N x 3 floats of scratch. Pass 1 takes two blocks per SM where its
+// tile allows.
+extern "C" int ddm_attention_core_bwd_tiled(const void* qkv, const void* datt, void* att,
+                                            void* dqkv, void* stats, int B, int N, int H,
+                                            int Dh, float scale, void* stream) {
+  using namespace ddm;
+  cudaStream_t s = (cudaStream_t)stream;
+  auto rows = [&](int t) { return bwd_rows_smem(N, Dh, t); };
+  int QT = pick_rows(N, kMaxSmem / 2, rows);
+  if (QT == 0) QT = pick_rows(N, kMaxSmem, rows);
+  int KT = N % 64 == 0 ? 64 : N % 32 == 0 ? 32 : 16;
+  const int QT2 = N % 32 == 0 ? 32 : 16;
+  while (KT > 16 && bwd_cols_smem(Dh, KT, QT2) > kMaxSmem) KT /= 2;
+  if (QT == 0 || bwd_cols_smem(Dh, KT, QT2) > kMaxSmem) return (int)cudaErrorInvalidValue;
+  size_t smem = rows(QT);
+  cudaError_t err = set_smem((const void*)attention_core_bwd_rows_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  attention_core_bwd_rows_kernel<<<dim3(B * H, N / QT), kThreads, smem, s>>>(
+      (const bf16*)qkv, (const bf16*)datt, (bf16*)att, (bf16*)dqkv, (float*)stats, N, H, Dh,
+      scale, QT);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  smem = bwd_cols_smem(Dh, KT, QT2);
+  err = set_smem((const void*)attention_core_bwd_cols_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  attention_core_bwd_cols_kernel<<<dim3(B * H, N / KT), kThreads, smem, s>>>(
+      (const bf16*)qkv, (const bf16*)datt, (const float*)stats, (bf16*)dqkv, N, H, Dh, scale,
+      KT, QT2);
   return (int)cudaGetLastError();
 }

@@ -62,7 +62,8 @@ def build_model(cfg: Any, device: torch.device | str = "cpu") -> DDDMDiT:
     :func:`ddm_tpu_torch.models.dit.init_params`.
 
     Any width the kernels take builds (DiT-S/B/L: ``embed_dim`` 384, 768,
-    1024). Each half-block picks its kernel tier per call from its shapes,
+    1024), at any image size whose token count K2 (N <= 512: 32 and 64 px at
+    patch 4) or K8 (N >= 1024 at Dh = 64: 128 to 512 px) takes. Each half-block picks its kernel tier per call from its shapes,
     as the JAX ladder does (:mod:`ddm_tpu_torch.ops.tiers`), and a call on
     CUDA tensors whose shapes have no tier raises there.
     """
@@ -92,7 +93,7 @@ def build_model(cfg: Any, device: torch.device | str = "cpu") -> DDDMDiT:
     if dim % heads or not (supported_tokens(n_tokens, head) or flash_supported(n_tokens, head)):
         raise NotImplementedError(
             f"image_size={img}, patch_size={patch} gives N={n_tokens} tokens of head "
-            f"width {head}, outside what kernels K2 (N <= 128) and K8 (N >= 1024, Dh = 64) "
+            f"width {head}, outside what kernels K2 (N <= 512) and K8 (N >= 1024, Dh = 64) "
             "take: ROADMAP.md Queue 1 item 9 (long sequences)")
 
     if int(get("moe_experts")) > 1 and int(get("moe_topk")) not in (1, 2):

@@ -3,14 +3,22 @@
 Port of ``ddm_tpu/ops/attention.py`` (the half-block and its backward).
 :func:`fused_attention_block` is a ``torch.autograd.Function``. On CUDA
 tensors its forward launches kernel K2f, three hand-written CUDA kernels: an
-LN-prologue qkv GEMM (``csrc/gemm.cu``), the attention core with one block
-per (image, head) (``csrc/attention.cu``), and the projection GEMM with a
-``x + (acc + bproj)`` epilogue (``csrc/gemm.cu``). It saves only its inputs,
-and its backward recomputes the qkv GEMM and runs one attention core that
-computes the scores once and writes the attention output beside dq, dk and
-dv (``csrc/gemm.cu``, ``csrc/attention.cu``, ``csrc/gemm_bwd.cu``). On CPU
-tensors the same Function runs the plain versions,
-:func:`attention_block_reference` and :func:`attention_block_bwd_reference`.
+LN-prologue qkv GEMM (``csrc/gemm.cu``), the attention core
+(``csrc/attention.cu``), and the projection GEMM with a ``x + (acc +
+bproj)`` epilogue (``csrc/gemm.cu``). It saves only its inputs, and its
+backward recomputes the qkv GEMM and runs one attention core backward that
+writes the attention output beside dq, dk and dv (``csrc/gemm.cu``,
+``csrc/attention.cu``, ``csrc/gemm_bwd.cu``). On CPU tensors the same
+Function runs the plain versions, :func:`attention_block_reference` and
+:func:`attention_block_bwd_reference`.
+
+The cores take 16 <= N <= 512 (N a multiple of 16, the JAX gate's N <= 512).
+The forward core runs one block per (image, head, query tile) over full
+score rows. The backward core runs one block per (image, head) where its
+fp32 P and dP tiles fit shared memory (N <= 112 at Dh = 64), and past that
+two passes, over query tiles (P, att, dq and the row terms) and over key
+tiles (dk, dv). Both backward designs keep the same rounding plan and agree
+bit for bit where both apply; the one-block design is the faster one there.
 
 That backward is the port of two TPU kernels, which the JAX ladder picks
 by the shapes (:func:`ddm_tpu_torch.ops.tiers.attention_tier`): the fused
@@ -77,7 +85,8 @@ __all__ = [
 LAUNCHES = LaunchCounter("K2f")
 BWD_LAUNCHES = LaunchCounter("K2b")
 SPLIT_BWD_LAUNCHES = LaunchCounter("K4")
-MAX_TOKENS = 128  # K2's attention core holds one image's N x N scores in shared memory
+MAX_TOKENS = 512  # the JAX gate's N <= 512; the flash tier takes N >= 1024
+_SINGLE_MAX_TOKENS = 128  # one backward block per (image, head) at most
 _MAX_SMEM = 232448
 
 
@@ -203,24 +212,39 @@ def long_attention_block_bwd_reference(x, scale_p, bias_p, wqkv, bqkv, wproj, bp
                                 _flash_core_bwd)
 
 
-def _core_smem(N: int, Dh: int) -> int:
-    return 3 * N * (Dh + 8) * 2 + N * (max(N, Dh) + 4) * 4 + N * (N + 8) * 2
+def _core_smem(N: int, Dh: int, QT: int = 16) -> int:
+    """Shared memory of the forward core at QT query rows (16: its least)."""
+    return (QT + N) * (Dh + 8) * 2 + QT * (max(N, Dh) + 4) * 4 + QT * (N + 8) * 2
 
 
 def _core_bwd_smem(N: int, Dh: int) -> int:
+    """Shared memory of the one-block backward core (Q, K, V, dO, fp32 P and dP)."""
     return 4 * N * (Dh + 8) * 2 + 2 * N * (max(N, Dh) + 4) * 4 + N * (N + 8) * 2
 
 
+def _bwd_tiled_smem(N: int, Dh: int) -> int:
+    """The larger of the two backward passes' shared memory at their least
+    tiles (16 query rows; 16 key and 16 query rows)."""
+    rows = (32 + N) * (Dh + 8) * 2 + 32 * (max(N, Dh) + 4) * 4 + 16 * (N + 8) * 2
+    cols = 64 * (Dh + 8) * 2 + (2 * 16 * 20 + 2 * 16 * (Dh + 4) + 48) * 4 + 16 * 24 * 2
+    return max(rows, cols)
+
+
+def _single_block_bwd(N: int, Dh: int) -> bool:
+    return N <= _SINGLE_MAX_TOKENS and _core_bwd_smem(N, Dh) <= _MAX_SMEM
+
+
 def supported_tokens(N: int, Dh: int) -> bool:
-    """Whether K2f's attention core takes N tokens of head width Dh."""
+    """Whether K2f's attention cores take N tokens of head width Dh."""
     return (N % 16 == 0 and 16 <= N <= MAX_TOKENS and Dh % 16 == 0
             and _core_smem(N, Dh) <= _MAX_SMEM)
 
 
 def supported_tokens_bwd(N: int, Dh: int) -> bool:
-    """Whether K2b's attention core backward (which also holds dO and the
-    fp32 dP tile) takes N tokens of head width Dh."""
-    return supported_tokens(N, Dh) and _core_bwd_smem(N, Dh) <= _MAX_SMEM
+    """Whether K2b's (and K4's) attention core backwards take N tokens of
+    head width Dh."""
+    return supported_tokens(N, Dh) and (_single_block_bwd(N, Dh)
+                                        or _bwd_tiled_smem(N, Dh) <= _MAX_SMEM)
 
 
 def _check(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H, kernel="K2"):
@@ -244,8 +268,8 @@ def _check(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H, kernel="K2"):
     if D % 64 or D > 1024:
         raise ValueError(f"{kernel} needs D a multiple of 64 and D <= 1024, got D={D}")
     if kernel == "K2" and not supported_tokens(N, Dh):
-        raise ValueError(f"K2's attention core does not take N={N}, Dh={Dh} "
-                         f"(needs multiples of 16, N <= {MAX_TOKENS})")
+        raise ValueError(f"K2's attention cores do not take N={N}, Dh={Dh} "
+                         f"(need multiples of 16, N <= {MAX_TOKENS})")
     if not x.is_contiguous():
         raise ValueError(f"{kernel} needs contiguous activations")
 
@@ -307,15 +331,26 @@ def _k2_core(qkv, H):
     return att
 
 
-def _core_bwd_att(qkv, datt, H):
-    """K2b's and K4's attention core -> (att (B, N, D), dqkv (B, N, 3D)), bf16."""
+def _core_bwd_att(qkv, datt, H, tiled=None):
+    """K2b's and K4's attention core -> (att (B, N, D), dqkv (B, N, 3D)),
+    bf16: one block per (image, head) where it fits, else the two passes
+    (``tiled`` forces the choice)."""
     B, N, D3 = qkv.shape
     Dh = D3 // 3 // H
+    if tiled is None:
+        tiled = not _single_block_bwd(N, Dh)
     att = torch.empty((B, N, D3 // 3), dtype=torch.bfloat16, device=qkv.device)
     dqkv = torch.empty_like(qkv)
-    check_status(load_library().ddm_attention_core_bwd_att(
-        qkv.data_ptr(), datt.data_ptr(), att.data_ptr(), dqkv.data_ptr(), B, N, H, Dh,
-        Dh ** -0.5, current_stream(qkv.device)), "attention_core_bwd_att")
+    stream = current_stream(qkv.device)
+    if tiled:
+        stats = torch.empty((B, H, N, 3), dtype=torch.float32, device=qkv.device)
+        check_status(load_library().ddm_attention_core_bwd_tiled(
+            qkv.data_ptr(), datt.data_ptr(), att.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
+            B, N, H, Dh, Dh ** -0.5, stream), "attention_core_bwd_tiled")
+    else:
+        check_status(load_library().ddm_attention_core_bwd_att(
+            qkv.data_ptr(), datt.data_ptr(), att.data_ptr(), dqkv.data_ptr(), B, N, H, Dh,
+            Dh ** -0.5, stream), "attention_core_bwd_att")
     return att, dqkv
 
 
@@ -329,8 +364,8 @@ def _k2f(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H):
 def _check_core_bwd(x, H, name):
     N, Dh = x.shape[1], x.shape[2] // H
     if not supported_tokens_bwd(N, Dh):
-        raise ValueError(f"{name}'s attention core backward does not take N={N}, Dh={Dh} "
-                         "(its shared-memory tiles exceed the card's 227 KB)")
+        raise ValueError(f"{name}'s attention core backwards do not take N={N}, Dh={Dh} "
+                         "(their shared-memory tiles exceed the card's 227 KB)")
 
 
 def _k2b(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H, dout, counter=BWD_LAUNCHES):
@@ -425,7 +460,7 @@ def fused_attention_block(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H: int):
     """``x + proj(MHA(qkv(LN(x))))`` over (B, N, D) tokens, with its backward.
 
     The token count picks the path, as the JAX ladder's shape gates do:
-    N <= 128 takes K2f and, by :func:`ddm_tpu_torch.ops.tiers.attention_tier`,
+    N <= 512 takes K2f and, by :func:`ddm_tpu_torch.ops.tiers.attention_tier`,
     K2b or K4 (:func:`attention_block_reference` and
     :func:`attention_block_bwd_reference` on CPU tensors); N >= 1024 with
     Dh = 64 takes the long-sequence half-block around K8
@@ -442,5 +477,6 @@ def fused_attention_block(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H: int):
         return _LongAttentionBlock.apply(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H)
     raise NotImplementedError(
         f"N={N} tokens of head width {Dh}: K2 takes N <= {MAX_TOKENS} and the flash tier "
-        f"N >= {flash.MIN_TOKENS} with Dh = {flash.HEAD_DIM}; K2 up to N = 512 (--image-size "
-        "64) is not ported yet: ROADMAP.md Queue 1 item 9 (long sequences)")
+        f"N >= {flash.MIN_TOKENS} with Dh = {flash.HEAD_DIM}; the JAX package runs K8 there "
+        "(its flash tier takes other N and Dh), which the port does not take yet: ROADMAP.md "
+        "Queue 1 item 9 (long sequences)")

@@ -30,7 +30,9 @@ batched NN GEMM on the W2 row chunk adding into an fp32 sum in chunk order,
 the last one rounding ``sum + b2`` once; both weight chunks are read in
 place. The backward of every tier is K10b's chain, the counterpart of the
 JAX wide tier's XLA backward (which rounds the weight cotangents to bf16
-where K10b keeps fp32). Shapes with no tier raise on CUDA tensors.
+where K10b keeps fp32). Where the ladder has no tier the JAX package runs
+its jnp reference, and the port its plain versions, forward and backward,
+on CUDA tensors too.
 """
 
 from __future__ import annotations
@@ -211,13 +213,12 @@ class _ExpertFFN(torch.autograd.Function):
         F = w1.shape[-1]
         tier = tiers.expert_tier(E, S, D, F)
         chunks = tier[1] if tier is not None else 1
-        if not uses_kernel(*args):
+        ctx.plain = not uses_kernel(*args) or tier is None
+        if ctx.plain:
             if chunks > 1:
                 return expert_ffn_fchunked_reference(*args, chunks)
             return expert_ffn_reference(*args)
         _check(*args)
-        if tier is None:
-            raise tiers.no_kernel("the expert FFN", f"(E={E}, S={S}, D={D}, F={F})")
         if chunks > 1:
             return _k10p_chunked(*args, chunks)
         return _k10f(*args)
@@ -225,7 +226,8 @@ class _ExpertFFN(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         args = ctx.saved_tensors
-        grads = expert_ffn_bwd(*args, dout.contiguous())
+        grads = (expert_ffn_bwd_reference(*args, dout) if ctx.plain else
+                 expert_ffn_bwd(*args, dout.contiguous()))
         return tuple(g.to(a.dtype) for g, a in zip(grads, args))
 
 
@@ -236,6 +238,7 @@ def expert_ffn(x, w1, b1, w2, b2):
     :func:`expert_ffn_fchunked_reference`) and
     :func:`expert_ffn_bwd_reference`; CUDA tensors launch K10f, or k K10p in
     a chunked tier, and K10b (bf16 slot rows, weights cast to bf16, fp32
-    biases) or raise.
+    biases) or raise; where the JAX ladder has no tier, the plain versions on
+    any device.
     """
     return _ExpertFFN.apply(x, w1, b1, w2, b2)

@@ -59,6 +59,8 @@ _SIGNATURES = {
     "ddm_attention_core": [_P, _P, _I, _I, _I, _I, _F, _P],
     # qkv, datt, att, dqkv, B, N, H, Dh, scale, stream
     "ddm_attention_core_bwd_att": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # qkv, datt, att, dqkv, stats, B, N, H, Dh, scale, stream
+    "ddm_attention_core_bwd_tiled": [_P] * 5 + [_I] * 4 + [_F, _P],
     # a, w, ldw, acc, bias, res, out, T, K, Nout, epi, stream
     "ddm_gemm_partial": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # a, w, bias, aux, out, colsum_ws, colsum_out, T, K, Nout, ldw, wstride, epi, batch,
@@ -68,10 +70,10 @@ _SIGNATURES = {
     "ddm_gemm_tn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, dy, dres, scale, dx, partial, dscale_dbias, T, D, stream
     "ddm_ln_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
-    # xh, x0, partial, out, B, m, D, beta, stream
-    "ddm_energy_fwd": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
-    # xh, x0, g, dxh, dx0, B, m, D, beta, stream
-    "ddm_energy_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    # xh, x0, part, partial, out, B, m, D, L, beta, stream
+    "ddm_energy_fwd": [_P] * 5 + [_I] * 4 + [_F, _P],
+    # xh, x0, g, part, coef, dxh, dx0, B, m, D, L, beta, stream
+    "ddm_energy_bwd": [_P] * 7 + [_I] * 4 + [_F, _P],
     # q, k, v, ld, o, lse, B, N, H, scale, stream
     "ddm_flash_fwd": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _F, _P],
     # q, k, v, ld, o, dout, lse, dsum, dqkv, B, N, H, scale, stream
@@ -130,9 +132,11 @@ def uses_kernel(*tensors: torch.Tensor) -> bool:
 
 
 def cli_device(name: str) -> torch.device:
-    """The device an entry point's ``--device`` flag names; exits with a
-    message when it names CUDA and no card is available (no fallback)."""
-    device = torch.device(name)
+    """The device an entry point's ``--device`` flag (or a YAML's ``device``
+    key) names, ``tpu`` meaning the card; exits with a message when it names
+    CUDA and no card is available (no fallback)."""
+    # the JAX package's configs name its accelerator "tpu"; the port's is the card
+    device = torch.device("cuda" if name == "tpu" else name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {name}: no CUDA device is available "
                          "(pass --device cpu to run the plain versions on the CPU)")

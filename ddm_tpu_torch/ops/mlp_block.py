@@ -29,7 +29,9 @@ plain version),
 summed in fp32 in chunk order and rounded once as ``(x + sum) + b2``. In
 both wide tiers the JAX backward is XLA's autodiff of the plain half-block;
 the port runs K1b's chain there, which keeps dW in fp32 where XLA rounds the
-weight cotangents to bf16. Shapes with no tier raise on CUDA tensors.
+weight cotangents to bf16. Where the ladder has no tier the JAX package
+runs its jnp reference, and the port its plain versions, forward and
+backward, on CUDA tensors too.
 """
 
 from __future__ import annotations
@@ -256,13 +258,12 @@ class _MLPBlock(torch.autograd.Function):
         F = w1.shape[0]
         tier = tiers.mlp_tier(T, D, F)
         chunks = tier[1] if tier is not None and tier[0] == "fchunked" else 0
-        if not uses_kernel(*args):
+        ctx.plain = not uses_kernel(*args) or tier is None
+        if ctx.plain:
             if chunks:
                 return mlp_block_fchunked_reference(*args, chunks)
             return mlp_block_reference(*args)
         _check(*args)
-        if tier is None:
-            raise tiers.no_kernel("the MLP half-block", f"(T={T}, D={D}, F={F})")
         if chunks:
             return _k6f_chunked(*args, chunks)
         return _k1f(*args)
@@ -270,7 +271,8 @@ class _MLPBlock(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         args = ctx.saved_tensors
-        grads = mlp_block_bwd(*args, dout)
+        grads = (mlp_block_bwd_reference(*args, dout) if ctx.plain else
+                 mlp_block_bwd(*args, dout))
         # each gradient in its input's dtype (the weights may be bf16 copies)
         return tuple(g.to(a.dtype) for g, a in zip(grads, args))
 
@@ -283,6 +285,7 @@ def fused_mlp_block(x, scale, bias, w1, b1, w2, b2):
     tier, :func:`mlp_block_fchunked_reference`) and
     :func:`mlp_block_bwd_reference`; CUDA tensors launch K1f, or k K6f in
     the ``fchunked`` tier, and K1b's chain (bf16 activations, fp32 LN params
-    and biases, weights cast to bf16) or raise.
+    and biases, weights cast to bf16) or raise; where the JAX ladder has no
+    tier, the plain versions on any device.
     """
     return _MLPBlock.apply(x, scale, bias, w1, b1, w2, b2)

@@ -18,9 +18,12 @@ with ``kernels_enabled()`` taken as true, of:
   and ``expert_ffn_fwd_ok``.
 
 The three choosers return ``None`` where the JAX ladder falls through to
-its jnp/XLA reference; the port then runs its plain version on CPU tensors
-and raises ``NotImplementedError`` on CUDA tensors (:func:`no_kernel`).
-A CPU test holds every function here equal to its JAX original.
+its jnp/XLA reference. There the MLP half-block and the expert FFN run no
+kernel in the JAX package, and the port runs their plain versions, on CUDA
+tensors too. The attention half-block's fallback can still reach a kernel
+(the standalone attention core K7, ``fused_attention``), which the port
+lacks: CUDA tensors raise there (:func:`no_kernel`). A CPU test holds every
+function here equal to its JAX original.
 """
 
 from __future__ import annotations
@@ -209,9 +212,11 @@ def expert_tier(E: int, S: int, D: int, F: int) -> Optional[Tuple[str, int]]:
 
 
 def no_kernel(what: str, shape: str) -> NotImplementedError:
-    """The error a CUDA tensor raises where the JAX ladder has no kernel tier
-    (the JAX package runs its jnp/XLA reference there)."""
+    """The error a CUDA tensor raises where the JAX attention ladder has no
+    half-block tier: the JAX package runs its XLA half-block around
+    ``fused_attention``, whose kernel K7 the port lacks."""
     return NotImplementedError(
-        f"{what} at {shape}: the JAX tier ladder has no kernel for these shapes and runs its "
-        "XLA reference, which the port does not run on the card: ROADMAP.md Queue 1 item 8 "
-        "(wider DiT configs)")
+        f"{what} at {shape}: the JAX tier ladder has no half-block kernel for these shapes and "
+        "runs its XLA half-block around the standalone attention core K7 (ddm_tpu/ops/"
+        "attention.py fused_attention, where that kernel's gate holds), which the port does "
+        "not have yet: ROADMAP.md Queue 1 items 9 and 11 (K7)")

@@ -5,7 +5,8 @@ reference ``{"model", "config"}`` payload), rebuild the model from the
 config embedded in it, run the reverse sampler (paper Algorithm 2) and
 write a PNG grid and/or an NPZ of raw samples. The image size is the
 checkpoint's. On a CUDA device the DiT blocks run the hand-written kernels
-K1f and K2f (K1f and K8f at ``image_size`` 128 to 512; K11f, K10f and K12f
+K1f and K2f (K2f through its query-tile core at ``image_size`` 64, N = 256
+tokens; K1f and K8f at ``image_size`` 128 to 512; K11f, K10f and K12f
 in place of K1f for a checkpoint trained with ``--moe-experts``; K6f, the
 F-chunked MLP partial, in place of K1f at the DiT-L width, and K10p in place
 of K10f for an MoE at D >= 768).

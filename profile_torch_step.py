@@ -11,6 +11,8 @@ widths):
         --profile-samples 64
     python3 profile_torch_step.py --batch 256 --m 8 --embed-dim 1024 --depth 24 \\
         --heads 16 --profile-samples 64
+    python3 profile_torch_step.py --image-size 64 --batch 64 --m 4 --profile-samples 64
+    python3 profile_torch_step.py --batch 256 --m 32 --profile-samples 64
 
 On one seeded model and one batch it runs 3 warm-up steps, then
 
@@ -48,7 +50,7 @@ LAUNCHERS = [
     ("mlp_block", "_k1f", "K1f"), ("mlp_block", "_k1b", "K1b"),
     ("mlp_block", "_k6f", "K6f"),
     ("attention", "_k2f", "K2f"), ("attention", "_k2b", ("K2b", "K4")),
-    ("energy", "energy_terms", "K3f"), ("energy", "energy_terms_bwd", "K3b"),
+    ("energy", "energy_terms", ("K3f", "K9f")), ("energy", "energy_terms_bwd", ("K3b", "K9b")),
     ("flash", "launch_k8f", "K8f"), ("flash", "launch_k8b", "K8b"),
     ("expert_ffn", "_k10f", "K10f"), ("expert_ffn", "_k10b", "K10b"),
     ("expert_ffn", "_k10p", "K10p"),
@@ -61,7 +63,7 @@ LAUNCHERS = [
 def timed_launchers(spans: dict):
     """Record a pair of CUDA events around each call of a kernel launcher
     that launched its kernel (the energy score's takes its plain version
-    where the JAX gate is off), appended to ``spans[label]``."""
+    where the JAX gates are off), appended to ``spans[label]``."""
     import importlib
 
     from ddm_tpu_torch.ops.kernel_config import launch_counts

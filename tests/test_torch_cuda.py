@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K4, K6f, K8 and K10-K12 against their plain versions, on the card.
+"""The CUDA kernels K1-K4, K6f, K8, K9 and K10-K12 against their plain versions, on the card.
 
 Every test here is marked ``cuda`` and skips on a host without a GPU. The
 file imports no JAX (the machine with the card has none), so it runs there
@@ -201,25 +201,64 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
     tokens = torch.zeros(2, 24, 128, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="N=24"):
         TA.fused_attention_block(tokens, vec, vec, wqkv, bqkv, wproj, vec, 2)
-    xh, x0 = torch.zeros(4, 17, 128, device=cuda_device), torch.zeros(4, 128, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="K9"):
+    xh, x0 = torch.zeros(4, 1, 128, device=cuda_device), torch.zeros(4, 128, device=cuda_device)
+    with pytest.raises(ValueError, match="m must be >= 2"):
         TE.fused_energy_terms(xh, x0, 0.1)
 
 
+_ENERGY_COUNTERS = (TE.FWD_LAUNCHES, TE.BWD_LAUNCHES, TE.STREAM_FWD_LAUNCHES,
+                    TE.STREAM_BWD_LAUNCHES)
+
+
 @pytest.mark.cuda
-def test_energy_takes_its_plain_version_where_the_jax_gate_does(cuda_device):
+@pytest.mark.parametrize("B,m,D", [(5, 3, 128), (4, 17, 128), (2, 72, 128)])
+def test_energy_takes_its_plain_version_where_the_jax_gate_does(cuda_device, B, m, D):
     """(5, 3, 128) fails the JAX K3 gate (an image block of 1 that is neither
-    8 nor B), so the JAX package runs its jnp path and the port its plain
-    version, on the device: no launch."""
-    assert not TE.jax_kernel_gate(5, 3, 128)
+    8 nor B), m = 17 and m = 72 both gates: the JAX package runs its jnp path
+    and the port its plain version, on the device: no launch."""
+    assert TE.energy_route(B, m, D) is None
     r = np.random.default_rng(5)
-    xh = _t(r.standard_normal((5, 3, 128)).astype(np.float32)).to(cuda_device)
-    x0 = _t(r.standard_normal((5, 128)).astype(np.float32)).to(cuda_device)
-    before = (TE.FWD_LAUNCHES.count, TE.BWD_LAUNCHES.count)
+    xh = _t(r.standard_normal((B, m, D)).astype(np.float32)).to(cuda_device)
+    x0 = _t(r.standard_normal((B, D)).astype(np.float32)).to(cuda_device)
+    before = [c.count for c in _ENERGY_COUNTERS]
     got = TE.fused_energy_terms(xh, x0, 0.1)
-    assert (TE.FWD_LAUNCHES.count, TE.BWD_LAUNCHES.count) == before
+    assert [c.count for c in _ENERGY_COUNTERS] == before
     for g, w in zip(got, TE.energy_terms_reference(xh, x0, 0.1)):
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,m,D,route", [(256, 32, 3072, "K9"), (4, 24, 128, "K9"),
+                                         (2, 64, 256, "K9"), (64, 4, 12288, "K3"),
+                                         (8, 8, 12288, "K3")])
+@pytest.mark.parametrize("beta", [0.1, 2.0])
+def test_d_tiled_energy_kernels_match_plain_on_the_card(cuda_device, B, m, D, route, beta):
+    """K9f/K9b, and K3 where one image's rows exceed a block's shared memory,
+    against the route's plain versions: the values to 1e-5 relative, the
+    gradients to 1e-4 of their largest entry; a second backward
+    bit-identical."""
+    assert TE.energy_route(B, m, D) == route
+    r = np.random.default_rng(17)
+    xh = _t(r.standard_normal((B, m, D)).astype(np.float32)).to(cuda_device)
+    x0 = _t(r.standard_normal((B, D)).astype(np.float32)).to(cuda_device)
+    gconf, ginter = (torch.tensor(v, device=cuda_device) for v in (0.7, -0.3))
+    before = [c.count for c in _ENERGY_COUNTERS]
+    leaves = [xh.clone().requires_grad_(), x0.clone().requires_grad_()]
+    conf, inter = TE.fused_energy_terms(*leaves, beta)
+    torch.autograd.backward((conf, inter), (gconf, ginter))
+    again = TE.energy_terms_bwd(xh, x0, beta, gconf, ginter)
+    torch.cuda.synchronize()
+    k3 = route == "K3"
+    assert [c.count - n for c, n in zip(_ENERGY_COUNTERS, before)] == (
+        [1, 2, 0, 0] if k3 else [0, 0, 1, 2])
+    assert torch.equal(again[0], leaves[0].grad) and torch.equal(again[1], leaves[1].grad)
+    fwd = TE.energy_terms_reference if k3 else TE.energy_terms_stream_reference
+    bwd = TE.energy_terms_bwd_reference if k3 else TE.energy_terms_stream_bwd_reference
+    want_c, want_i = fwd(xh, x0, beta)
+    torch.testing.assert_close(conf, want_c, rtol=1e-5, atol=0)
+    torch.testing.assert_close(inter, want_i, rtol=1e-5, atol=0)
+    for got, want in zip((leaves[0].grad, leaves[1].grad), bwd(xh, x0, beta, gconf, ginter)):
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
 
 
 def _assert_partial_rule(got, plain, args, axes):
@@ -559,14 +598,78 @@ def test_k10p_matches_plain_on_the_card(cuda_device, monkeypatch, E, S, D, F, fo
 
 @pytest.mark.cuda
 def test_wide_tiers_refuse_what_they_do_not_take(cuda_device):
-    """Shapes where the JAX ladder has no kernel tier (D = 64: its jnp/XLA
-    reference runs) raise on the card, naming ROADMAP item 8."""
+    """Shapes where the JAX ladder has no kernel tier (D = 64): the MLP
+    half-block and the expert FFN run their plain versions on the device, as
+    the JAX package runs its jnp reference there, forward and backward, with
+    no launch; the attention half-block, whose JAX fallback can reach the
+    standalone core K7, raises naming it."""
     bf = torch.bfloat16
-    z = lambda *s, dt=torch.float32: torch.zeros(*s, device=cuda_device, dtype=dt)  # noqa: E731
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TM.fused_mlp_block(z(128, 64, dt=bf), z(64), z(64), z(256, 64), z(256), z(64, 256), z(64))
-    with pytest.raises(NotImplementedError, match="item 8"):
+    r = np.random.default_rng(18)
+    z = lambda *s, dt=torch.float32: _t(  # noqa: E731
+        r.standard_normal(s).astype(np.float32)).to(cuda_device).to(dt)
+    counters = (TM.LAUNCHES, TM.BWD_LAUNCHES, TM.PARTIAL_LAUNCHES, TX.LAUNCHES,
+                TX.BWD_LAUNCHES, TX.PARTIAL_LAUNCHES)
+    before = [c.count for c in counters]
+    mlp = (z(128, 64, dt=bf), z(64), z(64), z(256, 64), z(256), z(64, 256), z(64))
+    dout = z(128, 64, dt=bf)
+    assert torch.equal(TM.fused_mlp_block(*mlp), TM.mlp_block_reference(*mlp))
+    for g, w in zip(_grads_through_autograd(TM.fused_mlp_block, mlp, (), dout),
+                    TM.mlp_block_bwd_reference(*mlp, dout)):
+        assert torch.equal(g, w.to(g.dtype))
+    ffn = (z(4, 64, 64, dt=bf), z(4, 64, 256), z(4, 256), z(4, 256, 64), z(4, 64))
+    dout = z(4, 64, 64, dt=bf)
+    assert torch.equal(TX.expert_ffn(*ffn), TX.expert_ffn_reference(*ffn))
+    for g, w in zip(_grads_through_autograd(TX.expert_ffn, ffn, (), dout),
+                    TX.expert_ffn_bwd_reference(*ffn, dout)):
+        assert torch.equal(g, w.to(g.dtype))
+    assert [c.count for c in counters] == before
+    with pytest.raises(NotImplementedError, match="K7"):
         TA.fused_attention_block(z(2, 16, 64, dt=bf), z(64), z(64), z(192, 64), z(192),
                                  z(64, 64), z(64), 1)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TX.expert_ffn(z(4, 64, 64, dt=bf), z(4, 64, 256), z(4, 256), z(4, 256, 64), z(4, 64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,D,H", [(4, 144, 384, 6), (8, 256, 384, 6), (2, 400, 384, 6),
+                                     (2, 256, 128, 2), (8, 256, 768, 12), (1, 512, 128, 2)])
+def test_k2_cores_past_128_tokens_match_plain_on_the_card(cuda_device, B, N, D, H):
+    """The half-block at N = 144, 256, 400 (the DiT's 48, 64 and 80 px at
+    patch 4) and 512 through the query-tile forward core and the two-pass
+    backward: the forward by the bf16 rule, all seven gradients through
+    autograd twice (bit-identical) against the plain backward; K2b or K4 by
+    the JAX ladder's tier (K4 at DiT-B width)."""
+    tier = TT.attention_tier(B, N, D, H)
+    args = _on(cuda_device, _attn_inputs(B, N, D, seed=19))
+    dout = torch.randn(B, N, D, generator=torch.Generator(device=cuda_device).manual_seed(20),
+                       device=cuda_device).to(torch.bfloat16)
+    counters = (TA.LAUNCHES, TA.BWD_LAUNCHES, TA.SPLIT_BWD_LAUNCHES)
+    before = [c.count for c in counters]
+    with torch.inference_mode():
+        out = TA.fused_attention_block(*args, H)
+    _assert_bf16_rule(out, TA.attention_block_reference(*args, H))
+    got = _grads_through_autograd(TA.fused_attention_block, args, (H,), dout)
+    again = _grads_through_autograd(TA.fused_attention_block, args, (H,), dout)
+    torch.cuda.synchronize()
+    split = tier == "split"
+    assert [c.count - n for c, n in zip(counters, before)] == [3, 0 if split else 2,
+                                                                2 if split else 0]
+    _assert_grads_close(got, TA.attention_block_bwd_reference(*args, H, dout))
+    for g, h in zip(got, again):
+        assert torch.equal(g, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,H,Dh", [(64, 64, 6, 64), (16, 112, 6, 64), (8, 128, 4, 32),
+                                      (4, 48, 2, 128)])
+def test_k2_tiled_cores_agree_with_the_one_block_cores_on_the_card(cuda_device, B, N, H, Dh):
+    """Where both backward designs take a shape, the two passes give the
+    one-block core's bits: the same 16 x 16 products over the same depth
+    slices in the same order, and P recomputed from the saved row max and
+    sum."""
+    gen = torch.Generator(device=cuda_device).manual_seed(21)
+    qkv = torch.randn(B, N, 3 * H * Dh, generator=gen, device=cuda_device).to(torch.bfloat16)
+    datt = torch.randn(B, N, H * Dh, generator=gen, device=cuda_device).to(torch.bfloat16)
+    tiled, single = TA._core_bwd_att(qkv, datt, H, tiled=True), TA._core_bwd_att(
+        qkv, datt, H, tiled=False)
+    assert torch.equal(tiled[0], single[0]) and torch.equal(tiled[1], single[1])
+    want = TA.attention_core_bwd_att_reference(*qkv.split(H * Dh, dim=-1), datt, H)
+    _assert_bf16_rule(tiled[1], torch.cat(want[1:], dim=-1))

@@ -335,7 +335,7 @@ def test_energy_gate_is_the_jax_kernel_gate(B_, m, D):
 
 
 def test_dispatch_by_token_count():
-    """N <= 128 takes K2's path, N >= 1024 at Dh = 64 the long-sequence
+    """N <= 512 takes K2's path, N >= 1024 at Dh = 64 the long-sequence
     path, anything between or another head width raises naming item 9, in
     the half-block and in the factory."""
     assert TF.flash_supported(1024, 64) and TF.flash_supported(16384, 64)
@@ -346,9 +346,14 @@ def test_dispatch_by_token_count():
     w = [a.t().contiguous() if a.dim() == 2 else a for a in w]
     for N in (256, 512):
         x = torch.from_numpy(r.standard_normal((1, N, 128)).astype(np.float32))
+        assert torch.equal(TA.fused_attention_block(x, *w, 2),
+                           TA.attention_block_reference(x, *w, 2))
+    for N in (576, 768):
+        x = torch.from_numpy(r.standard_normal((1, N, 128)).astype(np.float32))
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9"):
             TA.fused_attention_block(x, *w, 2)
-    for size in (64, 96):
+    assert build_model({"image_size": 64}, device="meta").num_patches == 256
+    for size in (96, 112):
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9"):
             build_model({"image_size": size}, device="meta")
     with pytest.raises(NotImplementedError, match="item 9"):

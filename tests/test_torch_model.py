@@ -200,7 +200,7 @@ def test_factory_defaults_match_jax():
 _REFUSED = [
     ({"tp": 2}, "item 11"), ({"sp": True}, "item 11"), ({"moe_experts": 4, "tp": 2}, "item 11"),
     ({"remat": True}, "item 8"), ({"mlp_persist": 2}, "item 8"),
-    ({"attention": "xla"}, "item 9"), ({"image_size": 64}, "item 9"),
+    ({"attention": "xla"}, "item 9"), ({"image_size": 96}, "item 9"),
 ]
 
 
@@ -209,6 +209,19 @@ _REFUSED = [
 def test_factory_refuses_unported_keys(cfg, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
         TF.build_model(cfg, device="meta")
+
+
+def test_factory_builds_64_px_and_runs():
+    """--image-size 64 (N = 256 tokens) builds and runs its forward."""
+    cfg = {"image_size": 64, "embed_dim": 128, "depth": 1, "heads": 2, "time_embed": 32}
+    model = init_params(TF.build_model(cfg), torch.Generator().manual_seed(3))
+    r = np.random.default_rng(4)
+    xt, xi = (torch.from_numpy(r.standard_normal((2, 64, 64, 3)).astype(np.float32))
+              for _ in range(2))
+    with torch.inference_mode():
+        out = model(xt, torch.tensor([0.3, 0.8]), xi)
+    assert model.num_patches == 256 and out.shape == (2, 64, 64, 3)
+    assert torch.isfinite(out.float()).all()
 
 
 def test_init_params_is_seeded_and_device_independent():

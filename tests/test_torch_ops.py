@@ -144,11 +144,15 @@ def test_other_devices_raise_instead_of_falling_back():
 def test_attention_token_gate():
     assert TA.supported_tokens(64, 64)
     assert TA.supported_tokens(128, 64)
-    assert not TA.supported_tokens(256, 64)  # N > 128: the flash tier (K8)
+    assert TA.supported_tokens(256, 64) and TA.supported_tokens(512, 64)  # query-tile core
+    assert not TA.supported_tokens(528, 64)  # N > 512: the flash tier (K8) from N = 1024
     assert not TA.supported_tokens(24, 64)   # not a multiple of 16
-    # K2b also holds dO and the fp32 dP tile: 128 x 64 no longer fits 227 KB
-    assert TA.supported_tokens_bwd(64, 64) and TA.supported_tokens_bwd(112, 64)
-    assert not TA.supported_tokens_bwd(128, 64) and TA.supported_tokens_bwd(128, 32)
+    # the one-block backward also holds dO and the fp32 dP tile: past N = 112
+    # at Dh = 64 the two-pass backward takes over, up to N = 512
+    assert TA._single_block_bwd(112, 64) and not TA._single_block_bwd(128, 64)
+    assert TA._single_block_bwd(128, 32)
+    for N in (64, 112, 128, 144, 256, 400, 512):
+        assert TA.supported_tokens_bwd(N, 64), N
 
 
 @pytest.mark.parametrize("T,Ma,Nb", [(131072, 1536, 384), (131072, 384, 384), (1000, 128, 512),

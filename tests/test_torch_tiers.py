@@ -15,6 +15,7 @@ reach them.
 from pathlib import Path
 from types import SimpleNamespace
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -115,12 +116,67 @@ def test_expert_tier_matches_jax(jax_gates, D):
 
 def test_ladders_fall_through_where_jax_runs_its_reference(jax_gates):
     """D = 64 (the CPU tests' tiny models) has no tier in either package:
-    the JAX package runs its jnp/XLA reference, the port its plain version
-    on the CPU and a NotImplementedError on the card."""
+    the JAX package runs its jnp/XLA reference, and the port its plain MLP
+    and expert FFN on any device; the attention half-block, whose JAX
+    fallback can reach the standalone core K7, raises on the card naming it."""
     assert tiers.attention_tier(8, 16, 64, 2) is None is jax_attention_tier(8, 16, 64, 2)
     assert tiers.mlp_tier(128, 64, 256) is None is jax_mlp_tier(128, 64, 256)
     assert tiers.expert_tier(4, 64, 64, 256) is None is jax_expert_tier(4, 64, 64, 256)
-    assert "ROADMAP.md Queue 1 item 8" in str(tiers.no_kernel("x", "(1,)"))
+    message = str(tiers.no_kernel("x", "(1,)"))
+    assert "K7" in message and "ROADMAP.md Queue 1 items 9 and 11" in message
+
+
+@pytest.mark.parametrize("which", ["mlp", "expert"])
+def test_plain_versions_run_on_the_card_where_jax_has_no_tier(jax_gates, monkeypatch, which):
+    """Where the JAX ladder has no MLP or expert-FFN tier it runs its jnp
+    reference, so the port's Function takes its plain versions there on
+    CUDA tensors too (stood in for by ``uses_kernel`` answering True):
+    forward and backward, no launch and no kernel build. Where JAX has a
+    tier, the same call goes to the kernel."""
+    import ddm_tpu_torch.ops.expert_ffn as TX
+    import ddm_tpu_torch.ops.mlp_block as TM
+
+    r = np.random.default_rng(0)
+
+    def arrays(*shapes):
+        return [torch.from_numpy(r.standard_normal(s).astype(np.float32)) for s in shapes]
+
+    def run(D):
+        F = 4 * D
+        if which == "mlp":
+            module, T = TM, 128
+            assert (tiers.mlp_tier(T, D, F) is None) == (jax_mlp_tier(T, D, F) is None)
+            args = arrays((T, D), (D,), (D,), (F, D), (F,), (D, F), (D,))
+            fn, ref, bwd = TM.fused_mlp_block, TM.mlp_block_reference, TM.mlp_block_bwd_reference
+            counters = (TM.LAUNCHES, TM.BWD_LAUNCHES, TM.PARTIAL_LAUNCHES)
+        else:
+            module, E, S = TX, 4, 64
+            assert (tiers.expert_tier(E, S, D, F) is None) == (
+                jax_expert_tier(E, S, D, F) is None)
+            args = arrays((E, S, D), (E, D, F), (E, F), (E, F, D), (E, D))
+            fn, ref, bwd = TX.expert_ffn, TX.expert_ffn_reference, TX.expert_ffn_bwd_reference
+            counters = (TX.LAUNCHES, TX.BWD_LAUNCHES, TX.PARTIAL_LAUNCHES)
+        args[0] = args[0].to(torch.bfloat16)
+        monkeypatch.setattr(module, "uses_kernel", lambda *t: True)
+        before = [c.count for c in counters]
+        leaves = [a.clone().requires_grad_() for a in args]
+        out = fn(*leaves)
+        dout = torch.ones_like(out)
+        out.backward(dout)
+        assert torch.equal(out, ref(*args))
+        for leaf, w in zip(leaves, bwd(*args, dout)):
+            assert torch.equal(leaf.grad, w.to(leaf.dtype))
+        assert [c.count for c in counters] == before
+
+    run(64)  # no tier in either package: the plain versions
+
+    def kernel(*a):
+        raise LookupError("the kernel path")
+
+    monkeypatch.setattr(TM, "_k1f", kernel)
+    monkeypatch.setattr(TX, "_k10f", kernel)
+    with pytest.raises(LookupError, match="the kernel path"):
+        run(128)  # a tier in both: the kernels
 
 
 # (B * m, D, H, F): the training and sampling shapes of the three widths

@@ -73,12 +73,53 @@ def test_train_cli_at_image_size_128_on_cpu(tmp_path, monkeypatch):
     assert samples.shape == (2, 128, 128, 3) and np.isfinite(samples).all()
 
 
-def test_train_cli_refuses_image_size_64(tmp_path):
-    """N = 256 is K2's range on the TPU (N <= 512) but not the port's K2
-    (N <= 128) nor K8 (N >= 1024): it raises before any data is made."""
+def test_train_cli_at_image_size_64_on_cpu(tmp_path, monkeypatch):
+    """--image-size 64 --m 4 (N = 256 tokens, the 64-px recipe's shape at a
+    tiny width): the loader resizes, the blocks take K2's plain versions,
+    the energy score K3's route at D = 12,288, and generate_torch samples
+    64 px images from the checkpoint. Eight synthetic images keep it small."""
+    monkeypatch.setattr(cli, "CIFAR10DataConfig",
+                        functools.partial(CIFAR10DataConfig, synthetic_size=8))
+    result = cli.main(["--synthetic", "--image-size", "64", "--epochs", "1", "--batch", "4",
+                       "--m", "4", "--embed-dim", "128", "--depth", "2", "--heads", "2",
+                       "--time-embed", "16", "--sample-batch", "2", "--sample-steps", "2",
+                       "--log-every", "1", "--device", "cpu", "--out", str(tmp_path)])
+    history = json.loads((tmp_path / "train_metrics.json").read_text())
+    assert history["step"] == [1, 2] and np.isfinite(history["loss"]).all()
+    assert json.loads((tmp_path / "config.json").read_text())["image_size"] == 64
+    assert not any(result["launches"]["train"].values())
+    npz = tmp_path / "s.npz"
+    generate_torch.main(["--ckpt", str(tmp_path), "--n", "2", "--steps", "2", "--device", "cpu",
+                         "--out", "", "--npz", str(npz)])
+    samples = np.load(npz)["samples"]
+    assert samples.shape == (2, 64, 64, 3) and np.isfinite(samples).all()
+
+
+def test_train_cli_with_m_32_on_cpu(tmp_path, monkeypatch):
+    """--m 32 (the m-sweep point: K9's route at D = 3072) trains on the
+    anchor-streaming plain versions, and generate_torch samples from it."""
+    monkeypatch.setattr(cli, "CIFAR10DataConfig",
+                        functools.partial(CIFAR10DataConfig, synthetic_size=8))
+    result = cli.main([*TINY[:TINY.index("--batch")], "--batch", "4", "--m", "32",
+                       *TINY[TINY.index("--embed-dim"):], "--log-every", "1",
+                       "--out", str(tmp_path)])
+    history = json.loads((tmp_path / "train_metrics.json").read_text())
+    assert history["step"] == [1, 2] and np.isfinite(history["loss"]).all()
+    assert json.loads((tmp_path / "config.json").read_text())["m"] == 32
+    assert not any(result["launches"]["train"].values())
+    npz = tmp_path / "s.npz"
+    generate_torch.main(["--ckpt", str(tmp_path), "--n", "2", "--steps", "2", "--device", "cpu",
+                         "--out", "", "--npz", str(npz)])
+    assert np.isfinite(np.load(npz)["samples"]).all()
+
+
+@pytest.mark.parametrize("size", [96, 112])
+def test_train_cli_refuses_image_sizes_no_kernel_takes(tmp_path, size):
+    """N = 576 and 784 lie between K2's N <= 512 and K8's N >= 1024: the
+    run raises before any data is made."""
     with mock.patch.object(cli, "build_cifar10_dataloaders") as loaders:
         with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 9"):
-            cli.main(["--synthetic", "--image-size", "64", "--device", "cpu",
+            cli.main(["--synthetic", "--image-size", str(size), "--device", "cpu",
                       "--out", str(tmp_path)])
     loaders.assert_not_called()
 

@@ -11,11 +11,14 @@ samples from it), ``config.json`` and a ``samples.png`` grid.
 Each step: the uint8 batch goes to the device, is augmented there
 (reflect-pad crop + flip), noised to x_t, expanded m-fold through the DiT
 (kernels K2f/K1f on CUDA), scored by the energy score (K3f), differentiated
-(K3b, K1b, K2b), clipped and stepped with AdamW. ``--image-size`` 128, 256
-or 512 (N = 1024 to 16384 tokens at patch 4) resizes the data once and
-runs the attention core through K8f/K8b instead of K2's, and the energy
-score through its plain version, as the JAX package's gate does at that
-size. ``--moe-experts E`` (> 1) replaces every block's dense MLP half with
+(K3b, K1b, K2b), clipped and stepped with AdamW. ``--image-size 64`` (N =
+256 tokens) resizes the data once and runs K2's attention cores past 128
+tokens (one block per query tile forward, two passes backward) and K3 in
+its D-tiled design (D = 12,288); 128, 256 or 512 (N = 1024 to 16384) runs
+the attention core through K8f/K8b instead of K2's, and the energy score
+through its plain version, as the JAX package's gate does at that size.
+``--m`` from 17 to 64 (a multiple of 8, e.g. the m-sweep point 32) takes
+the anchor-streaming energy kernels K9f/K9b in place of K3's. ``--moe-experts E`` (> 1) replaces every block's dense MLP half with
 E routed expert FFNs (kernels K11f/K10f/K12f forward, K12b/K10b/K11b
 backward in place of K1f/K1b), whose Switch load-balance loss, times
 ``--moe-aux-weight``, joins the loss and is logged as ``moe_aux``. At the
@@ -34,6 +37,9 @@ ROADMAP.md item when set away from its default.
 
 Usage:
     python train_cifar10_dit_torch.py --synthetic --epochs 1 --out run/
+    python train_cifar10_dit_torch.py --synthetic --image-size 64 --batch 64 --m 4 \
+        --epochs 1 --out run64/
+    python train_cifar10_dit_torch.py --synthetic --m 32 --batch 256 --epochs 1 --out m32/
     python train_cifar10_dit_torch.py --synthetic --image-size 128 --batch 16 --m 8 \
         --epochs 1 --out run128/
     python train_cifar10_dit_torch.py --synthetic --batch 256 --m 8 --moe-experts 8 \
