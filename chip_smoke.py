@@ -10,7 +10,10 @@ through K4 and the expert FFN's F-chunked partial K10p); then the 64-px path
 (``--image-size 64 --batch 64 --m 4``, N = 256 tokens through K2's cores past
 N = 128, the energy score's K3 at D = 12,288), the
 m = 32 energy score (``--m 32``, kernel K9) and dense DiT-B/4
-(configs/cifar10_dit_b.yaml's widths: D 768, depth 12, 12 heads).
+(configs/cifar10_dit_b.yaml's widths: D 768, depth 12, 12 heads); then the
+JAX ladder's third attention rung: DiT-L/4 at 64 px (N = 256, where no
+half-block tier fits) through the standalone attention core K7, K8 at head
+widths 32 and 128, and the plain core at 96 px.
 
 Run from the repository root with no arguments:
 
@@ -145,6 +148,25 @@ The 64-px path, the m = 32 energy score and dense DiT-B, after those:
     K2f, K4, K1f, K1b, 1 each of K3f, K3b; per sampler call 240 each of K2f
     and K1f.
 
+The third rung, after those:
+
+3j. (attention-core) K7f at (256, 256, 1024, H 16), the DiT-L 64-px training
+    shape, and at 64 images (sampling), K7b at 256 images, on q, k, v read in
+    place from a [q | k | v] buffer, against their plain versions by the bf16
+    rule, K7b's second call bit-identical, timed beside SDPA's forward and
+    forward + backward on the same q, k, v; K8f/K8b at (128, 1024) at H 12
+    (Dh 32) and H 3 (Dh 128), D 384, held as 3d holds Dh 64;
+6i. (train-step-l64) one DiT-L/4 step at 64 px, full depth 24, batch 8 x m 4,
+    kernels twice (bit-identical) against the plain step within twice bf16's
+    own noise; the same for a 96-px DiT-S step (N = 576: the third rung's
+    plain core on the card, K1f/K1b counted) and a 128-px step at --heads 3
+    (Dh 128) at depth 2, each with its launches counted;
+7i. (train-l64) the trainer with --embed-dim 1024 --depth 24 --heads 16
+    --image-size 64 --batch 64 --m 4 for one epoch (32 steps), then 64
+    samples; launches per step 24 each of K7f, K7b, K1b, 48 of K6f, 1 each of
+    K3f, K3b, none of K2f, K2b, K4, K1f; per sampler call 480 of K7f and 960
+    of K6f; its peak memory and img/s.
+
 The DiT-S phases run at full width and depth 8. PERF.md gives the whole
 run's measured time on the card, the kernels' build included, against the
 20 minutes allowed.
@@ -195,6 +217,9 @@ WIDE_STEP_BATCH = 16  # 6d, 6e, 6h: batch 16 x m 8
 # the m-sweep point m = 32 at the 32-px recipe's batch
 PX64_SIZE, PX64_BATCH, PX64_M = 64, 64, 4
 M32, M32_STEP_BATCH = 32, 64  # 6g: batch 64 x m 32
+L64_STEP_BATCH, L64_STEP_M = 8, 4  # 6i: the DiT-L 64-px step at batch 8 x m 4
+PX96_SIZE, H3_DEPTH = 96, 2  # 6i: the 96-px DiT-S step; the 128-px --heads 3 step's depth
+K8_WIDE_HEADS = (12, 3)  # 3j: K8 at D 384 over 12 heads (Dh 32) and 3 (Dh 128)
 # an fp32 partial (K6f, K10p), relative Frobenius error: at least 1e-4, and
 # at least twice the plain version's own spread when its fp32 sums run in
 # another order (the contraction axes permuted): a flipped bf16 rounding of
@@ -538,68 +563,89 @@ def _sdpa_ms(q, k, v, do, H):
     return {"K8f": fwd, "K8b": both}
 
 
-def phase_flash(FL, smi):
-    gen = torch.Generator(device="cuda").manual_seed(4)
-    H, D = FLASH_HEADS, FLASH_HEADS * FL.HEAD_DIM
+def _k8_case(FL, smi, gen, B, N, H, Dh, library=False):
+    """K8f and K8b at (B, N) over H heads of width Dh, q, k and v read in
+    place from a [q | k | v] buffer, against their plain versions: o, dq, dk,
+    dv by the bf16 rule, lse to LSE_RTOL, K8b's second call bit-identical;
+    timed, with bounds and (``library``) SDPA's times on the same q, k, v."""
+    D = H * Dh
+    qkv = torch.randn(B, N, 3 * D, generator=gen, device="cuda").to(torch.bfloat16)
+    q, k, v = qkv.split(D, dim=-1)  # read in place, row stride 3D
+    do = torch.randn(B, N, D, generator=gen, device="cuda").to(torch.bfloat16)
+    with torch.no_grad():
+        o, lse = FL.flash_attention_fwd(q, k, v, H)
+        grads = FL.flash_attention_bwd(q, k, v, o, lse, do, H)
+        again = FL.flash_attention_bwd(q, k, v, o, lse, do, H)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, h) for g, h in zip(grads, again)):
+            raise AssertionError(f"K8b is not deterministic at (B={B}, N={N}, Dh={Dh})")
+        want_o, want_lse = FL.flash_attention_reference(q, k, v, H)
+        want = FL.flash_attention_bwd_reference(q, k, v, o, lse, do, H)
+        torch.cuda.synchronize()
+    lse_rel = float(((lse - want_lse).abs() / want_lse.abs()).max())
+    parts, ok = [], lse_rel <= LSE_RTOL
     worst = {"K8f": 0.0, "K8b": 0.0}
-    shapes = []
-    for B, N in FLASH_SHAPES:
-        qkv = torch.randn(B, N, 3 * D, generator=gen, device="cuda").to(torch.bfloat16)
-        q, k, v = qkv.split(D, dim=-1)  # read in place, row stride 3D
-        do = torch.randn(B, N, D, generator=gen, device="cuda").to(torch.bfloat16)
-        with torch.no_grad():
-            o, lse = FL.flash_attention_fwd(q, k, v, H)
-            grads = FL.flash_attention_bwd(q, k, v, o, lse, do, H)
-            again = FL.flash_attention_bwd(q, k, v, o, lse, do, H)
-            torch.cuda.synchronize()
-            if not all(torch.equal(g, h) for g, h in zip(grads, again)):
-                raise AssertionError(f"K8b is not deterministic at (B={B}, N={N})")
-            want_o, want_lse = FL.flash_attention_reference(q, k, v, H)
-            want = FL.flash_attention_bwd_reference(q, k, v, o, lse, do, H)
-            torch.cuda.synchronize()
-        lse_rel = float(((lse - want_lse).abs() / want_lse.abs()).max())
-        parts, ok = [], lse_rel <= LSE_RTOL
-        for label, g, w in zip(("o", "dq", "dk", "dv"), (o, *grads), (want_o, *want)):
-            max_err, mean_err, tol, good = _bf16_errors(g, w)
-            ok = ok and good
-            key = "K8f" if label == "o" else "K8b"
-            worst[key] = max(worst[key], max_err)
-            parts.append(f"{label} max {max_err:.4g} (tol {tol:.4g}) mean {mean_err:.3g}")
-        del grads, again, want, want_o, want_lse
-        times = {"fwd": _median_ms(lambda: FL.flash_attention_fwd(q, k, v, H)),
-                 "plain_fwd": _median_ms(lambda: FL.flash_attention_reference(q, k, v, H)),
-                 "bwd": _median_ms(lambda: FL.flash_attention_bwd(q, k, v, o, lse, do, H)),
-                 "plain_bwd": _median_ms(
-                     lambda: FL.flash_attention_bwd_reference(q, k, v, o, lse, do, H))}
-        print(f"[kernel] K8 (B={B}, N={N}, H={H}, Dh={FL.HEAD_DIM}) bf16: " + "; ".join(parts)
-              + f"; lse max rel err {lse_rel:.3g} (tol {LSE_RTOL:g}); K8b second call "
-              f"bit-identical; K8f {times['fwd']:.4f} ms, plain {times['plain_fwd']:.4f} ms; "
-              f"K8b {times['bwd']:.4f} ms, plain {times['plain_bwd']:.4f} ms (median of 20) "
-              f"on {smi}")
-        if not ok:
-            raise AssertionError(f"K8 disagrees with its plain version at (B={B}, N={N})")
-        if not shapes:  # the training shape: bounds and the library's time
-            core = 2 * B * H * N * N * FL.HEAD_DIM  # one (N x N x Dh) product per image and head
-            bounds = {"K8f": _bound(_nbytes(qkv, o, lse), 2 * core),
-                      # the least backward: S, dV, dP, dQ and dK
-                      "K8b": _bound(_nbytes(qkv, o, lse, do) + _nbytes(qkv), 5 * core)}
-            library = _sdpa_ms(q, k, v, do, H)
-            print(f"[library] torch scaled_dot_product_attention (B={B}, H={H}, N={N}, "
-                  f"Dh={FL.HEAD_DIM}) bf16 in its own layout: forward {library['K8f']:.4f} ms, "
-                  f"forward + backward {library['K8b']:.4f} ms (median of 20) on {smi}")
-        shapes.append({"B": B, "N": N, **times})
-        del qkv, q, k, v, do, o, lse
-        torch.cuda.empty_cache()
+    for label, g, w in zip(("o", "dq", "dk", "dv"), (o, *grads), (want_o, *want)):
+        max_err, mean_err, tol, good = _bf16_errors(g, w)
+        ok = ok and good
+        key = "K8f" if label == "o" else "K8b"
+        worst[key] = max(worst[key], max_err)
+        parts.append(f"{label} max {max_err:.4g} (tol {tol:.4g}) mean {mean_err:.3g}")
+    del grads, again, want, want_o, want_lse
+    times = {"fwd": _median_ms(lambda: FL.flash_attention_fwd(q, k, v, H)),
+             "plain_fwd": _median_ms(lambda: FL.flash_attention_reference(q, k, v, H)),
+             "bwd": _median_ms(lambda: FL.flash_attention_bwd(q, k, v, o, lse, do, H)),
+             "plain_bwd": _median_ms(
+                 lambda: FL.flash_attention_bwd_reference(q, k, v, o, lse, do, H))}
+    print(f"[kernel] K8 (B={B}, N={N}, H={H}, Dh={Dh}) bf16: " + "; ".join(parts)
+          + f"; lse max rel err {lse_rel:.3g} (tol {LSE_RTOL:g}); K8b second call "
+          f"bit-identical; K8f {times['fwd']:.4f} ms, plain {times['plain_fwd']:.4f} ms; "
+          f"K8b {times['bwd']:.4f} ms, plain {times['plain_bwd']:.4f} ms (median of 20) "
+          f"on {smi}")
+    if not ok:
+        raise AssertionError(f"K8 disagrees with its plain version at (B={B}, N={N}, Dh={Dh})")
+    core = 2 * B * H * N * N * Dh  # one (N x N x Dh) product per image and head
+    case = {"B": B, "N": N, "H": H, "Dh": Dh, **times, "max_f": worst["K8f"],
+            "max_b": worst["K8b"], "bound_f": _bound(_nbytes(qkv, o, lse), 2 * core),
+            # the least backward: S, dV, dP, dQ and dK
+            "bound_b": _bound(_nbytes(qkv, o, lse, do) + _nbytes(qkv), 5 * core)}
+    if library:
+        lib = _sdpa_ms(q, k, v, do, H)
+        case["library_f"], case["library_b"] = lib["K8f"], lib["K8b"]
+        print(f"[library] torch scaled_dot_product_attention (B={B}, H={H}, N={N}, Dh={Dh}) "
+              f"bf16 in its own layout: forward {lib['K8f']:.4f} ms, forward + backward "
+              f"{lib['K8b']:.4f} ms (median of 20) on {smi}")
+    del qkv, q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+    return case
+
+
+def _k8_shape(case, name):
+    f = name == "K8f"
+    return {"B": case["B"], "N": case["N"], "H": case["H"], "Dh": case["Dh"],
+            "max_abs_err": case["max_f" if f else "max_b"],
+            "ms": case["fwd" if f else "bwd"], "plain_ms": case["plain_fwd" if f else "plain_bwd"],
+            **case["bound_f" if f else "bound_b"],
+            **({"library_ms": case["library_f" if f else "library_b"]}
+               if "library_f" in case else {})}
+
+
+def phase_flash(FL, smi):
+    """3d: K8 at Dh 64 over the 128-px path's shapes and the larger image
+    sizes'; the first (the training shape) carries the bounds and SDPA."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cases = [_k8_case(FL, smi, gen, B, N, FLASH_HEADS, 64, library=not i)
+             for i, (B, N) in enumerate(FLASH_SHAPES)]
     srcs = ["ddm_tpu_torch/csrc/flash.cu", "ddm_tpu_torch/csrc/common.cuh"]
-    entries = [_entry("K8f", srcs[0], srcs, "ddm_tpu/ops/flash.py:330", worst["K8f"],
-                      shapes[0]["fwd"], shapes[0]["plain_fwd"], bounds["K8f"], library["K8f"]),
-               _entry("K8b", srcs[0], srcs, "ddm_tpu/ops/flash.py:372", worst["K8b"],
-                      shapes[0]["bwd"], shapes[0]["plain_bwd"], bounds["K8b"], library["K8b"])]
+    first = cases[0]
+    entries = [_entry("K8f", srcs[0], srcs, "ddm_tpu/ops/flash.py:330",
+                      max(c["max_f"] for c in cases), first["fwd"], first["plain_fwd"],
+                      first["bound_f"], first["library_f"]),
+               _entry("K8b", srcs[0], srcs, "ddm_tpu/ops/flash.py:372",
+                      max(c["max_b"] for c in cases), first["bwd"], first["plain_bwd"],
+                      first["bound_b"], first["library_b"])]
     for e in entries:
-        e["shapes"] = [{"B": t["B"], "N": t["N"],
-                        "ms": t["fwd" if e["name"] == "K8f" else "bwd"],
-                        "plain_ms": t["plain_fwd" if e["name"] == "K8f" else "plain_bwd"]}
-                       for t in shapes]
+        e["shapes"] = [_k8_shape(c, e["name"]) for c in cases]
     return entries
 
 
@@ -946,11 +992,15 @@ def plain_ops(replay=None):
         return _Plain.apply(fwd, M.mlp_block_bwd_reference, *t)
 
     def attn(*t_and_h):
+        # the plain version of the path the kernels take at these shapes:
+        # K2's half-block where the ladder has a tier, else the third rung
         *t, H = t_and_h
-        fwd, bwd = ((A.attention_block_reference, A.attention_block_bwd_reference)
-                    if t[0].shape[1] <= A.MAX_TOKENS else
-                    (A.long_attention_block_reference, A.long_attention_block_bwd_reference))
-        return _Plain.apply(lambda *a: fwd(*a, H), lambda *a: bwd(*a[:7], H, a[7]), *t)
+        if tiers.attention_tier(*t[0].shape, H) is not None:
+            return _Plain.apply(lambda *a: A.attention_block_reference(*a, H),
+                                lambda *a: A.attention_block_bwd_reference(*a[:7], H, a[7]), *t)
+        core = tiers.core_tier(*t[0].shape, H)
+        return _Plain.apply(lambda *a: A.rung3_block_reference(*a, H, core),
+                            lambda *a: A.rung3_block_bwd_reference(*a[:7], H, a[7], core), *t)
 
     def energy(xh, x0, beta):
         # the plain versions of the route the kernels take at these shapes
@@ -1011,7 +1061,12 @@ def _moved(a, b) -> int:
 
 
 def phase_train_step(cfg, smi, batch=TRAIN_BATCH, m=TRAIN_M, label="train-step",
-                     model_name="DiT-S/4"):
+                     model_name="DiT-S/4", launches=None):
+    """One training step through the kernels, twice (bit-identical), against
+    the plain step within twice bf16's own noise; ``launches`` ``{kernel:
+    count}``, where given, are the first kernel step's launches (every
+    other kernel none)."""
+    from ddm_tpu_torch.ops import kernel_config as kc
     from ddm_tpu_torch.data.augment import normalize_images
     from ddm_tpu_torch.data.cifar10 import CIFAR10DataConfig, build_cifar10_dataloaders
     from ddm_tpu_torch.models.dit import init_params, patchify_images
@@ -1052,8 +1107,12 @@ def phase_train_step(cfg, smi, batch=TRAIN_BATCH, m=TRAIN_M, label="train-step",
 
     t0 = time.perf_counter()
     routes = []
+    kc.reset_launch_counts()
     got, g_got = step("bfloat16", routes)
     seconds = time.perf_counter() - t0
+    counted = {k: v for k, v in kc.launch_counts().items() if v}
+    if launches is not None and counted != launches:
+        raise AssertionError(f"{label}: the kernel step launched {counted}, expected {launches}")
     again, g_again = step("bfloat16")
     if again != got or any(not torch.equal(g_got[k], g_again[k]) for k in g_got):
         raise AssertionError("two kernel training steps on the same inputs differ")
@@ -1101,7 +1160,7 @@ def phase_train_step(cfg, smi, batch=TRAIN_BATCH, m=TRAIN_M, label="train-step",
           + "; ".join(lines)
           + f"; {len(g_want)} parameter gradients against tol (relative Frobenius), "
           f"tightest {worst[0]} at {worst[1]:.3f} of tol; second kernel step bit-identical"
-          f"{routing}; first (cold) step {seconds:.3f} s on {smi}")
+          f"{routing}; launches {counted}; first (cold) step {seconds:.3f} s on {smi}")
     if failed:
         raise AssertionError(f"{label}: " + "; ".join(failed))
 
@@ -1553,6 +1612,107 @@ def phase_m32_kernels(M, A, smi):
                         B * 64, D, 4 * D, [("K2f", B, 64, D, 6), ("K2b", B, 64, D, 6)])
 
 
+def phase_attention_core(A, FL, smi):
+    """3j: the standalone core K7 at the DiT-L 64-px shapes, against its
+    plain versions and beside SDPA, and K8 at head widths 32 and 128.
+    Returns ``([K7f entry, K7b entry], {"K8f": [...], "K8b": [...]})``."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    D, H, N = DIT_L["embed_dim"], DIT_L["heads"], PX64_SIZE ** 2 // 16
+    Dh = D // H
+    srcs = ["ddm_tpu_torch/csrc/attention.cu", "ddm_tpu_torch/csrc/common.cuh"]
+    fwd, bwd = [], None
+    for B in (PX64_BATCH * PX64_M, PX64_BATCH):  # training (256 images), sampling (64)
+        qkv = torch.randn(B, N, 3 * D, generator=gen, device="cuda").to(torch.bfloat16)
+        q, k, v = qkv.split(D, dim=-1)  # read in place, row stride 3D
+        do = torch.randn(B, N, D, generator=gen, device="cuda").to(torch.bfloat16)
+        shape = f"(B={B}, N={N}, D={D}, H={H})"
+        core = 2 * B * H * N * N * Dh  # one (N x N x Dh) product per image and head
+        with torch.no_grad():
+            o = A.attention_core_fwd(q, k, v, H)
+            torch.cuda.synchronize()
+            max_err, mean_err, tol, ok = _bf16_errors(o, A.attention_reference(q, k, v, H))
+            ms = _median_ms(lambda: A.attention_core_fwd(q, k, v, H))
+            plain_ms = _median_ms(lambda: A.attention_reference(q, k, v, H))
+        lib = _sdpa_ms(q, k, v, do, H)
+        print(f"[kernel] K7f {shape} bf16: max_abs_err={max_err:.6g} (tol {tol:.6g}), "
+              f"mean_abs_err={mean_err:.6g} (tol {KERNEL_MEAN_TOL:g}); kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms; torch scaled_dot_product_attention forward "
+              f"{lib['K8f']:.4f} ms on the same q, k, v (median of 20) on {smi}")
+        if not ok:
+            raise AssertionError(f"K7f {shape} disagrees with its plain version")
+        fwd.append({"path": "dit-l64", "shape": shape, "max_abs_err": max_err, "ms": ms,
+                    "plain_ms": plain_ms, **_bound(_nbytes(qkv, o), 2 * core),
+                    "library_ms": lib["K8f"]})
+        if bwd is None:
+            with torch.no_grad():
+                grads = A.attention_core_bwd(q, k, v, do, H)
+                again = A.attention_core_bwd(q, k, v, do, H)
+                torch.cuda.synchronize()
+                if not all(torch.equal(g, h) for g, h in zip(grads, again)):
+                    raise AssertionError(f"K7b {shape} is not deterministic: two calls differ")
+                del again
+                want = A.attention_core_bwd_reference(q, k, v, do, H)
+                parts, worst, ok = [], 0.0, True
+                for label, g, w in zip(("dq", "dk", "dv"), grads, want):
+                    e, mean, tol, good = _bf16_errors(g, w)
+                    ok, worst = ok and good, max(worst, e)
+                    parts.append(f"{label} max {e:.4g} (tol {tol:.4g}) mean {mean:.3g}")
+                del want
+                bms = _median_ms(lambda: A.attention_core_bwd(q, k, v, do, H))
+                bplain = _median_ms(lambda: A.attention_core_bwd_reference(q, k, v, do, H))
+            print(f"[kernel] K7b {shape} bf16 (second call bit-identical): " + "; ".join(parts)
+                  + f"; kernel {bms:.4f} ms, plain {bplain:.4f} ms; torch "
+                  f"scaled_dot_product_attention forward + backward {lib['K8b']:.4f} ms on the "
+                  f"same q, k, v (median of 20) on {smi}")
+            if not ok:
+                raise AssertionError(f"K7b {shape} disagrees with its plain version")
+            # q, k, v and do read, dq, dk and dv written; S, dV, dP, dQ, dK
+            bwd = _entry("K7b", srcs[0], srcs, "ddm_tpu/ops/attention.py:113", worst, bms,
+                         bplain, _bound(_nbytes(qkv, do) + _nbytes(qkv), 5 * core),
+                         lib["K8b"])
+            bwd["shape"] = shape
+            del grads
+        del qkv, q, k, v, do, o
+        torch.cuda.empty_cache()
+    first = fwd[0]
+    k7f = _entry("K7f", srcs[0], srcs, "ddm_tpu/ops/attention.py:89", first["max_abs_err"],
+                 first["ms"], first["plain_ms"],
+                 {k: v for k, v in first.items() if k.startswith("bound")}, first["library_ms"])
+    k7f["shape"], k7f["shapes"] = first["shape"], fwd[1:]
+    k8 = {"K8f": [], "K8b": []}
+    for H8 in K8_WIDE_HEADS:
+        case = _k8_case(FL, smi, gen, 128, 1024, H8, 384 // H8, library=True)
+        for name in k8:
+            k8[name].append({"path": f"128px-dh{case['Dh']}", **_k8_shape(case, name)})
+    return [k7f, bwd], k8
+
+
+def phase_train_step_rung3(cfg, smi):
+    """6i: one DiT-L/4 step at 64 px (K7f/K7b, K6f, K1b), one 96-px DiT-S
+    step (the plain core, K1f/K1b) and one 128-px step at --heads 3 (K8 at
+    Dh 128), each against the plain step, with its launches counted."""
+    from ddm_tpu_torch.ops import energy as E
+
+    def energy(B, m, D):
+        route = E.energy_route(B, m, D)
+        return {f"{route}f": 1, f"{route}b": 1} if route else {}
+
+    depth = DIT_L["depth"]
+    phase_train_step(
+        {**cfg, **DIT_L, "image_size": PX64_SIZE}, smi, L64_STEP_BATCH, L64_STEP_M,
+        "train-step-l64", "DiT-L/4",
+        {"K7f": depth, "K7b": depth, "K6f": 2 * depth, "K1b": depth,
+         **energy(L64_STEP_BATCH, L64_STEP_M, 3 * PX64_SIZE ** 2)})
+    phase_train_step(
+        {**cfg, "image_size": PX96_SIZE}, smi, LONG_BATCH, LONG_M, "train-step-96", "DiT-S/4",
+        {"K1f": DEPTH, "K1b": DEPTH, **energy(LONG_BATCH, LONG_M, 3 * PX96_SIZE ** 2)})
+    phase_train_step(
+        {**cfg, "image_size": LONG_SIZE, "heads": 3, "depth": H3_DEPTH}, smi, LONG_BATCH, LONG_M,
+        "train-step-128-h3", "DiT-S/4 --heads 3",
+        {"K8f": H3_DEPTH, "K8b": H3_DEPTH, "K1f": H3_DEPTH, "K1b": H3_DEPTH,
+         **energy(LONG_BATCH, LONG_M, 3 * LONG_SIZE ** 2)})
+
+
 def phase_train_wide(kc, name, smi, label, flags, per_step, per_sample, batch=TRAIN_BATCH,
                      m=TRAIN_M, size=32):
     """7d-7h: the trainer with ``flags`` for one epoch of the 2048 synthetic
@@ -1617,7 +1777,7 @@ PHASES = ("kernels", "backward", "energy", "flash", "moe-kernels", "slice", "tra
           "train-step-128", "train-step-moe", "train", "train-128", "train-moe", "wide-kernels",
           "wide-shapes", "train-step-l", "train-step-moe-b", "train-l", "train-moe-b",
           "attention-256", "dit-b-kernels", "m32-kernels", "train-step-64", "train-step-m32", "train-step-b",
-          "train-64", "train-m32", "train-b")
+          "train-64", "train-m32", "train-b", "attention-core", "train-step-l64", "train-l64")
 # launches per training step and per 20-step sampler call on the wide paths
 L_STEP = {"K2f": DIT_L["depth"], "K4": DIT_L["depth"], "K1b": DIT_L["depth"],
           "K6f": 2 * DIT_L["depth"], "K3f": 1, "K3b": 1}
@@ -1633,6 +1793,10 @@ M32_STEP = {"K2f": DEPTH, "K2b": DEPTH, "K1f": DEPTH, "K1b": DEPTH, "K9f": 1, "K
 S_SAMPLE = {"K2f": DEPTH * STEPS, "K1f": DEPTH * STEPS}
 B_STEP = {**{k: DIT_B["depth"] for k in ("K2f", "K4", "K1f", "K1b")}, "K3f": 1, "K3b": 1}
 B_SAMPLE = {"K2f": DIT_B["depth"] * STEPS, "K1f": DIT_B["depth"] * STEPS}
+# ... and on DiT-L at 64 px (the third rung: K7, no half-block tier)
+L64_STEP = {"K7f": DIT_L["depth"], "K7b": DIT_L["depth"], "K1b": DIT_L["depth"],
+            "K6f": 2 * DIT_L["depth"], "K3f": 1, "K3b": 1}
+L64_SAMPLE = {"K7f": DIT_L["depth"] * STEPS, "K6f": 2 * DIT_L["depth"] * STEPS}
 
 
 def main(argv=None) -> None:
@@ -1699,6 +1863,11 @@ def main(argv=None) -> None:
                                                S_SAMPLE, TRAIN_BATCH, M32)),
         ("train-b", lambda: phase_train_wide(kc, name, smi, "train-b", _wide_flags(DIT_B),
                                              B_STEP, B_SAMPLE)),
+        ("attention-core", lambda: phase_attention_core(A, FL, smi)),
+        ("train-step-l64", lambda: phase_train_step_rung3(cfg, smi)),
+        ("train-l64", lambda: phase_train_wide(kc, name, smi, "train-l64", _wide_flags(DIT_L),
+                                               L64_STEP, L64_SAMPLE, PX64_BATCH, PX64_M,
+                                               PX64_SIZE)),
     ]
     out = {}
     for phase, fn in steps:
@@ -1721,7 +1890,8 @@ def main(argv=None) -> None:
                        *out["train-moe-b"]),
              "64px": ([], *out["train-64"]),
              "m32": ([energy["K9f"], energy["K9b"]], *out["train-m32"]),
-             "dit-b": ([], *out["train-b"])}
+             "dit-b": ([], *out["train-b"]),
+             "dit-l64": (out["attention-core"][0], *out["train-l64"])}
     kernels = []
     for entries, trained, sampled in paths.values():
         for k in entries:
@@ -1732,8 +1902,9 @@ def main(argv=None) -> None:
                                      for p, (_, tr, sa) in paths.items()}
         kernels += entries
     for k in kernels:  # the kernels at the other paths' shapes
-        for phase in ("wide-shapes", "attention-256", "dit-b-kernels", "m32-kernels"):
-            k.setdefault("shapes", []).extend(out[phase].get(k["name"], []))
+        for shapes in (out["wide-shapes"], out["attention-256"], out["dit-b-kernels"],
+                       out["m32-kernels"], out["attention-core"][1]):
+            k.setdefault("shapes", []).extend(shapes.get(k["name"], []))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

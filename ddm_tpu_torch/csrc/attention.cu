@@ -6,6 +6,13 @@
 // backward `_blk_bwd_kernel` (K2b) and of the split backward
 // `_blk_bwd_split_kernel` (K4, DiT-B and DiT-L widths); gemm.cu holds the
 // LN + qkv product before them and the projection + residual after them.
+// The same cores are the standalone attention core K7, `_fused_fwd_call` ->
+// `_fwd_kernel` and `_fused_bwd` -> `_bwd_kernel`, which the JAX ladder's
+// third rung runs between XLA's GEMMs (DiT-L at N = 256): K7f reads q, k and
+// v as three (B, N, D) operands of one row stride, and K7b writes dq, dk and
+// dv and no att, as JAX's K7 backward does. The TPU kernels packed g images
+// under a -1e30 block mask, which adds exact zeros to every softmax sum, so
+// one image at a time gives the same values.
 //
 // What bounds them on the H100: at DiT-S/4 (N = 64 tokens, Dh = 64) one
 // (image, head) pair is 1 MFLOP over 24 KB of q/k/v, so a core is bound by
@@ -50,6 +57,29 @@ namespace {
 
 constexpr int kThreads = 128;  // 4 warps
 constexpr size_t kMaxSmem = 232448;
+
+// q, k and v of (B, N, H*Dh) rows of stride ld, heads contiguous: the thirds
+// of a (B, N, 3D) [q | k | v] buffer (ld = 3D), or three tensors.
+struct Heads {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  int ld;
+  __device__ const bf16* row(const bf16* t, int b, int N, int r, int h, int Dh) const {
+    return t + ((size_t)b * N + r) * ld + h * Dh;
+  }
+};
+
+// dq, dk and dv, rows of stride ld.
+struct DHeads {
+  bf16* q;
+  bf16* k;
+  bf16* v;
+  int ld;
+  __device__ bf16* row(bf16* t, int b, int N, int r, int h, int Dh) const {
+    return t + ((size_t)b * N + r) * ld + h * Dh;
+  }
+};
 
 // C (M x Nc fp32, ldc) = op(A) op(B) over depth K, one 16 x 16 tile per
 // warp at a time, each tile's products in increasing k: op(A) is the
@@ -156,11 +186,11 @@ size_t core_smem(int N, int Dh, int QT) {
          (size_t)QT * (N + kPadH) * sizeof(bf16);
 }
 
-// K2f's core: block (b H + h, t) writes rows [t QT, (t + 1) QT) of one
-// (image, head).
+// K2f's and K7f's core: block (b H + h, t) writes rows [t QT, (t + 1) QT)
+// of one (image, head).
 __global__ void __launch_bounds__(kThreads)
-attention_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int N, int H,
-                      int Dh, float scale, int QT) {
+attention_core_kernel(Heads in, bf16* __restrict__ out, int N, int H, int Dh, float scale,
+                      int QT) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int D = H * Dh;
   const int QLD = Dh + kPadH, SLD = max(N, Dh) + kPadF, PLD = N + kPadH;
@@ -170,13 +200,12 @@ attention_core_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int 
   bf16* P = reinterpret_cast<bf16*>(S + QT * SLD);
 
   const int b = blockIdx.x / H, h = blockIdx.x % H, r0 = blockIdx.y * QT;
-  const bf16* base = qkv + (size_t)b * N * 3 * D + h * Dh;
-  load_head(Qs, QLD, base + (size_t)r0 * 3 * D, 3 * D, QT, Dh);
-  load_head(KV, QLD, base + D, 3 * D, N, Dh);
+  load_head(Qs, QLD, in.row(in.q, b, N, r0, h, Dh), in.ld, QT, Dh);
+  load_head(KV, QLD, in.row(in.k, b, N, 0, h, Dh), in.ld, N, Dh);
   __syncthreads();
   mma_tiles<false, true, false>(Qs, QLD, KV, QLD, S, SLD, QT, N, Dh);  // S = Q K^T
   __syncthreads();
-  load_head(KV, QLD, base + 2 * D, 3 * D, N, Dh);  // V over K
+  load_head(KV, QLD, in.row(in.v, b, N, 0, h, Dh), in.ld, N, Dh);  // V over K
   softmax_rows(S, SLD, P, PLD, QT, N, scale, false, nullptr);
   __syncthreads();
   mma_tiles<false, false, false>(P, PLD, KV, QLD, S, SLD, QT, Dh, N);  // O = P V
@@ -191,11 +220,10 @@ size_t core_bwd_smem(int N, int Dh) {
 }
 
 // The one-block backward: block b H + h holds all N rows of one (image,
-// head) and writes att, dq, dk, dv.
+// head) and writes dq, dk, dv, and att where att is not null.
 __global__ void __launch_bounds__(kThreads)
-attention_core_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ datt,
-                          bf16* __restrict__ att, bf16* __restrict__ dqkv, int N, int H,
-                          int Dh, float scale) {
+attention_core_bwd_kernel(Heads in, const bf16* __restrict__ datt, bf16* __restrict__ att,
+                          DHeads out, int N, int H, int Dh, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int D = H * Dh;
   const int QLD = Dh + kPadH, SLD = max(N, Dh) + kPadF, PLD = N + kPadH;
@@ -208,25 +236,25 @@ attention_core_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__
   bf16* Pb = reinterpret_cast<bf16*>(F + N * SLD);     // bf16 P, then bf16 dS
 
   const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const bf16* base = qkv + (size_t)b * N * 3 * D + h * Dh;
-  load_head(Qs, QLD, base, 3 * D, N, Dh);
-  load_head(Ks, QLD, base + D, 3 * D, N, Dh);
-  load_head(Vs, QLD, base + 2 * D, 3 * D, N, Dh);
+  load_head(Qs, QLD, in.row(in.q, b, N, 0, h, Dh), in.ld, N, Dh);
+  load_head(Ks, QLD, in.row(in.k, b, N, 0, h, Dh), in.ld, N, Dh);
+  load_head(Vs, QLD, in.row(in.v, b, N, 0, h, Dh), in.ld, N, Dh);
   load_head(dOs, QLD, datt + (size_t)b * N * D + h * Dh, D, N, Dh);
   __syncthreads();
   mma_tiles<false, true, false>(Qs, QLD, Ks, QLD, P, SLD, N, N, Dh);  // S = Q K^T
   __syncthreads();
   softmax_rows(P, SLD, Pb, PLD, N, N, scale, true, nullptr);
   __syncthreads();
-  bf16* out = dqkv + (size_t)b * N * 3 * D + h * Dh;
   mma_tiles<true, false, false>(Pb, PLD, dOs, QLD, F, SLD, N, Dh, N);  // dv = Pb^T dO
   __syncthreads();
-  store_head(out + 2 * D, 3 * D, F, SLD, N, Dh);
+  store_head(out.row(out.v, b, N, 0, h, Dh), out.ld, F, SLD, N, Dh);
   __syncthreads();
-  mma_tiles<false, false, false>(Pb, PLD, Vs, QLD, F, SLD, N, Dh, N);  // att = Pb V
-  __syncthreads();
-  store_head(att + (size_t)b * N * D + h * Dh, D, F, SLD, N, Dh);
-  __syncthreads();
+  if (att != nullptr) {
+    mma_tiles<false, false, false>(Pb, PLD, Vs, QLD, F, SLD, N, Dh, N);  // att = Pb V
+    __syncthreads();
+    store_head(att + (size_t)b * N * D + h * Dh, D, F, SLD, N, Dh);
+    __syncthreads();
+  }
   mma_tiles<false, true, false>(dOs, QLD, Vs, QLD, F, SLD, N, N, Dh);  // dP = dO V^T
   __syncthreads();
   ds_rows(P, F, SLD, Pb, PLD, N, N, scale, nullptr);
@@ -234,8 +262,8 @@ attention_core_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__
   mma_tiles<false, false, false>(Pb, PLD, Ks, QLD, P, SLD, N, Dh, N);  // dq = dS K
   mma_tiles<true, false, false>(Pb, PLD, Qs, QLD, F, SLD, N, Dh, N);   // dk = dS^T Q
   __syncthreads();
-  store_head(out, 3 * D, P, SLD, N, Dh);
-  store_head(out + D, 3 * D, F, SLD, N, Dh);
+  store_head(out.row(out.q, b, N, 0, h, Dh), out.ld, P, SLD, N, Dh);
+  store_head(out.row(out.k, b, N, 0, h, Dh), out.ld, F, SLD, N, Dh);
 }
 
 size_t bwd_rows_smem(int N, int Dh, int QT) {
@@ -245,13 +273,13 @@ size_t bwd_rows_smem(int N, int Dh, int QT) {
 }
 
 // Backward pass 1: block (b H + h, t) takes query rows [r0, r0 + QT): P
-// (fp32, kept), att, dP, dS, dq; each row's (max, sum, rowsum(P dP)) to
-// stats. K, V, then K again pass through one N-row buffer.
+// (fp32, kept), att (where att is not null), dP, dS, dq; each row's (max,
+// sum, rowsum(P dP)) to stats. K, V, then K again pass through one N-row
+// buffer.
 __global__ void __launch_bounds__(kThreads)
-attention_core_bwd_rows_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ datt,
-                               bf16* __restrict__ att, bf16* __restrict__ dqkv,
-                               float* __restrict__ stats, int N, int H, int Dh, float scale,
-                               int QT) {
+attention_core_bwd_rows_kernel(Heads in, const bf16* __restrict__ datt, bf16* __restrict__ att,
+                               DHeads out, float* __restrict__ stats, int N, int H, int Dh,
+                               float scale, int QT) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int D = H * Dh;
   const int QLD = Dh + kPadH, SLD = max(N, Dh) + kPadF, PLD = N + kPadH;
@@ -263,29 +291,30 @@ attention_core_bwd_rows_kernel(const bf16* __restrict__ qkv, const bf16* __restr
   bf16* Pb = reinterpret_cast<bf16*>(F + QT * SLD);   // bf16 P, then bf16 dS
 
   const int b = blockIdx.x / H, h = blockIdx.x % H, r0 = blockIdx.y * QT;
-  const bf16* base = qkv + (size_t)b * N * 3 * D + h * Dh;
   float* st = stats + ((size_t)blockIdx.x * N + r0) * 3;
-  load_head(Qs, QLD, base + (size_t)r0 * 3 * D, 3 * D, QT, Dh);
+  load_head(Qs, QLD, in.row(in.q, b, N, r0, h, Dh), in.ld, QT, Dh);
   load_head(dOs, QLD, datt + ((size_t)b * N + r0) * D + h * Dh, D, QT, Dh);
-  load_head(KV, QLD, base + D, 3 * D, N, Dh);
+  load_head(KV, QLD, in.row(in.k, b, N, 0, h, Dh), in.ld, N, Dh);
   __syncthreads();
   mma_tiles<false, true, false>(Qs, QLD, KV, QLD, P, SLD, QT, N, Dh);  // S = Q K^T
   __syncthreads();
-  load_head(KV, QLD, base + 2 * D, 3 * D, N, Dh);  // V over K
+  load_head(KV, QLD, in.row(in.v, b, N, 0, h, Dh), in.ld, N, Dh);  // V over K
   softmax_rows(P, SLD, Pb, PLD, QT, N, scale, true, st);
   __syncthreads();
-  mma_tiles<false, false, false>(Pb, PLD, KV, QLD, F, SLD, QT, Dh, N);  // att = Pb V
-  __syncthreads();
-  store_head(att + ((size_t)b * N + r0) * D + h * Dh, D, F, SLD, QT, Dh);
-  __syncthreads();
+  if (att != nullptr) {
+    mma_tiles<false, false, false>(Pb, PLD, KV, QLD, F, SLD, QT, Dh, N);  // att = Pb V
+    __syncthreads();
+    store_head(att + ((size_t)b * N + r0) * D + h * Dh, D, F, SLD, QT, Dh);
+    __syncthreads();
+  }
   mma_tiles<false, true, false>(dOs, QLD, KV, QLD, F, SLD, QT, N, Dh);  // dP = dO V^T
   __syncthreads();
-  load_head(KV, QLD, base + D, 3 * D, N, Dh);  // K over V
+  load_head(KV, QLD, in.row(in.k, b, N, 0, h, Dh), in.ld, N, Dh);  // K over V
   ds_rows(P, F, SLD, Pb, PLD, QT, N, scale, st);
   __syncthreads();
   mma_tiles<false, false, false>(Pb, PLD, KV, QLD, P, SLD, QT, Dh, N);  // dq = dS K
   __syncthreads();
-  store_head(dqkv + ((size_t)b * N + r0) * 3 * D + h * Dh, 3 * D, P, SLD, QT, Dh);
+  store_head(out.row(out.q, b, N, r0, h, Dh), out.ld, P, SLD, QT, Dh);
 }
 
 size_t bwd_cols_smem(int Dh, int KT, int QT) {
@@ -300,9 +329,9 @@ size_t bwd_cols_smem(int Dh, int KT, int QT) {
 // pass 1's (max, sum), dv += bf16(P)^T dO, dS from pass 1's rowsum(P dP),
 // dk += dS^T Q, with dk and dv in fp32 in shared memory, rounded once.
 __global__ void __launch_bounds__(kThreads)
-attention_core_bwd_cols_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ datt,
-                               const float* __restrict__ stats, bf16* __restrict__ dqkv, int N,
-                               int H, int Dh, float scale, int KT, int QT) {
+attention_core_bwd_cols_kernel(Heads in, const bf16* __restrict__ datt,
+                               const float* __restrict__ stats, DHeads out, int N, int H, int Dh,
+                               float scale, int KT, int QT) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int D = H * Dh;
   const int QLD = Dh + kPadH, TLD = KT + kPadF, ALD = Dh + kPadF, TPLD = KT + kPadH;
@@ -318,14 +347,13 @@ attention_core_bwd_cols_kernel(const bf16* __restrict__ qkv, const bf16* __restr
   bf16* Pb = reinterpret_cast<bf16*>(st + 3 * QT);      // bf16 P, then bf16 dS
 
   const int b = blockIdx.x / H, h = blockIdx.x % H, c0 = blockIdx.y * KT;
-  const bf16* base = qkv + (size_t)b * N * 3 * D + h * Dh;
   const float* sb = stats + (size_t)blockIdx.x * N * 3;
-  load_head(Ks, QLD, base + (size_t)c0 * 3 * D + D, 3 * D, KT, Dh);
-  load_head(Vs, QLD, base + (size_t)c0 * 3 * D + 2 * D, 3 * D, KT, Dh);
+  load_head(Ks, QLD, in.row(in.k, b, N, c0, h, Dh), in.ld, KT, Dh);
+  load_head(Vs, QLD, in.row(in.v, b, N, c0, h, Dh), in.ld, KT, Dh);
   for (int i = threadIdx.x; i < 2 * KT * ALD; i += kThreads) dV[i] = 0.f;  // dV, dK
   for (int q0 = 0; q0 < N; q0 += QT) {
     __syncthreads();
-    load_head(Qs, QLD, base + (size_t)q0 * 3 * D, 3 * D, QT, Dh);
+    load_head(Qs, QLD, in.row(in.q, b, N, q0, h, Dh), in.ld, QT, Dh);
     load_head(dOs, QLD, datt + ((size_t)b * N + q0) * D + h * Dh, D, QT, Dh);
     for (int i = threadIdx.x; i < 3 * QT; i += kThreads) st[i] = sb[(size_t)q0 * 3 + i];
     __syncthreads();
@@ -350,9 +378,8 @@ attention_core_bwd_cols_kernel(const bf16* __restrict__ qkv, const bf16* __restr
     mma_tiles<true, false, true>(Pb, TPLD, Qs, QLD, dK, ALD, KT, Dh, QT);  // dk += dS^T Q
   }
   __syncthreads();
-  bf16* out = dqkv + ((size_t)b * N + c0) * 3 * D + h * Dh;
-  store_head(out + D, 3 * D, dK, ALD, KT, Dh);
-  store_head(out + 2 * D, 3 * D, dV, ALD, KT, Dh);
+  store_head(out.row(out.k, b, N, c0, h, Dh), out.ld, dK, ALD, KT, Dh);
+  store_head(out.row(out.v, b, N, c0, h, Dh), out.ld, dV, ALD, KT, Dh);
 }
 
 // The widest of 32 and 16 rows dividing N whose tile fits `limit`; 0 if none.
@@ -367,65 +394,91 @@ cudaError_t set_smem(const void* kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-}  // namespace
-}  // namespace ddm
-
-// K2f's core: the (B, N, H*Dh) output of the (B, N, 3D) [q | k | v] rows.
-extern "C" int ddm_attention_core(const void* qkv, void* out, int B, int N, int H, int Dh,
-                                  float scale, void* stream) {
-  using namespace ddm;
+// The forward core over q, k, v into the (B, N, H*Dh) out.
+cudaError_t launch_core(Heads in, bf16* out, int B, int N, int H, int Dh, float scale,
+                        cudaStream_t stream) {
   const int QT = pick_rows(N, kMaxSmem, [&](int t) { return core_smem(N, Dh, t); });
-  if (QT == 0) return (int)cudaErrorInvalidValue;
+  if (QT == 0) return cudaErrorInvalidValue;
   const size_t smem = core_smem(N, Dh, QT);
   cudaError_t err = set_smem((const void*)attention_core_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  attention_core_kernel<<<dim3(B * H, N / QT), kThreads, smem, (cudaStream_t)stream>>>(
-      (const bf16*)qkv, (bf16*)out, N, H, Dh, scale, QT);
-  return (int)cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attention_core_kernel<<<dim3(B * H, N / QT), kThreads, smem, stream>>>(in, out, N, H, Dh,
+                                                                         scale, QT);
+  return cudaGetLastError();
 }
 
-// K2b's and K4's core, one block per (image, head): dq, dk, dv into the
-// (B, N, 3D) dqkv rows, and att = bf16(P V) (B, N, H*Dh).
-extern "C" int ddm_attention_core_bwd_att(const void* qkv, const void* datt, void* att,
-                                          void* dqkv, int B, int N, int H, int Dh, float scale,
-                                          void* stream) {
-  using namespace ddm;
+// The one-block backward: dq, dk, dv, and att where it is not null.
+cudaError_t launch_bwd_one_block(Heads in, const bf16* datt, bf16* att, DHeads out, int B, int N,
+                                 int H, int Dh, float scale, cudaStream_t stream) {
   const size_t smem = core_bwd_smem(N, Dh);
   cudaError_t err = set_smem((const void*)attention_core_bwd_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  attention_core_bwd_kernel<<<B * H, kThreads, smem, (cudaStream_t)stream>>>(
-      (const bf16*)qkv, (const bf16*)datt, (bf16*)att, (bf16*)dqkv, N, H, Dh, scale);
-  return (int)cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attention_core_bwd_kernel<<<B * H, kThreads, smem, stream>>>(in, datt, att, out, N, H, Dh,
+                                                               scale);
+  return cudaGetLastError();
 }
 
-// K2b's and K4's core in two passes: att, dq, dk, dv as above; stats holds
-// B x H x N x 3 floats of scratch. Pass 1 takes two blocks per SM where its
-// tile allows.
-extern "C" int ddm_attention_core_bwd_tiled(const void* qkv, const void* datt, void* att,
-                                            void* dqkv, void* stats, int B, int N, int H,
-                                            int Dh, float scale, void* stream) {
-  using namespace ddm;
-  cudaStream_t s = (cudaStream_t)stream;
+// The two-pass backward: the same outputs; stats holds B x H x N x 3 floats
+// of scratch. Pass 1 takes two blocks per SM where its tile allows.
+cudaError_t launch_bwd_tiled(Heads in, const bf16* datt, bf16* att, DHeads out, float* stats,
+                             int B, int N, int H, int Dh, float scale, cudaStream_t s) {
   auto rows = [&](int t) { return bwd_rows_smem(N, Dh, t); };
   int QT = pick_rows(N, kMaxSmem / 2, rows);
   if (QT == 0) QT = pick_rows(N, kMaxSmem, rows);
   int KT = N % 64 == 0 ? 64 : N % 32 == 0 ? 32 : 16;
   const int QT2 = N % 32 == 0 ? 32 : 16;
   while (KT > 16 && bwd_cols_smem(Dh, KT, QT2) > kMaxSmem) KT /= 2;
-  if (QT == 0 || bwd_cols_smem(Dh, KT, QT2) > kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (QT == 0 || bwd_cols_smem(Dh, KT, QT2) > kMaxSmem) return cudaErrorInvalidValue;
   size_t smem = rows(QT);
   cudaError_t err = set_smem((const void*)attention_core_bwd_rows_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return err;
   attention_core_bwd_rows_kernel<<<dim3(B * H, N / QT), kThreads, smem, s>>>(
-      (const bf16*)qkv, (const bf16*)datt, (bf16*)att, (bf16*)dqkv, (float*)stats, N, H, Dh,
-      scale, QT);
+      in, datt, att, out, stats, N, H, Dh, scale, QT);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return err;
   smem = bwd_cols_smem(Dh, KT, QT2);
   err = set_smem((const void*)attention_core_bwd_cols_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return err;
   attention_core_bwd_cols_kernel<<<dim3(B * H, N / KT), kThreads, smem, s>>>(
-      (const bf16*)qkv, (const bf16*)datt, (const float*)stats, (bf16*)dqkv, N, H, Dh, scale,
-      KT, QT2);
-  return (int)cudaGetLastError();
+      in, datt, stats, out, N, H, Dh, scale, KT, QT2);
+  return cudaGetLastError();
+}
+
+// dq, dk and dv into the thirds of a (B, N, 3D) buffer.
+DHeads dqkv_heads(void* dqkv, int D) {
+  bf16* p = (bf16*)dqkv;
+  return {p, p + D, p + 2 * D, 3 * D};
+}
+
+}  // namespace
+}  // namespace ddm
+
+// The forward core (K2f's, and K7f): the (B, N, H*Dh) output of q, k and v
+// given as (B, N, H*Dh) rows of stride ld (K2f passes the thirds of its
+// [q | k | v] buffer, ld = 3D).
+extern "C" int ddm_attention_core(const void* q, const void* k, const void* v, int ld, void* out,
+                                  int B, int N, int H, int Dh, float scale, void* stream) {
+  using namespace ddm;
+  const Heads in{(const bf16*)q, (const bf16*)k, (const bf16*)v, ld};
+  return (int)launch_core(in, (bf16*)out, B, N, H, Dh, scale, (cudaStream_t)stream);
+}
+
+// The backward core (K2b's and K4's, and K7b): dq, dk and dv of the core over
+// q, k and v (rows of stride ld) for the (B, N, H*Dh) cotangent dout, into the
+// thirds of the (B, N, 3D) dqkv rows, and att = bf16(P V) where att is not
+// null (K7b writes none). One block per (image, head) unless tiled; then
+// stats holds B x H x N x 3 floats of scratch.
+extern "C" int ddm_attention_core_bwd(const void* q, const void* k, const void* v, int ld,
+                                      const void* dout, void* att, void* dqkv, void* stats, int B,
+                                      int N, int H, int Dh, float scale, int tiled,
+                                      void* stream) {
+  using namespace ddm;
+  const Heads in{(const bf16*)q, (const bf16*)k, (const bf16*)v, ld};
+  const DHeads out = dqkv_heads(dqkv, H * Dh);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (tiled)
+    return (int)launch_bwd_tiled(in, (const bf16*)dout, (bf16*)att, out, (float*)stats, B, N, H,
+                                 Dh, scale, s);
+  return (int)launch_bwd_one_block(in, (const bf16*)dout, (bf16*)att, out, B, N, H, Dh, scale,
+                                   s);
 }

@@ -2,7 +2,7 @@
 // half-block backwards.
 //
 // Replaces, with ddm_ln_gemm (gemm.cu) for the forward recompute and
-// ddm_attention_core / ddm_attention_core_bwd_att (attention.cu), the two TPU
+// ddm_attention_core / ddm_attention_core_bwd (attention.cu), the two TPU
 // backward kernels that a DiT block runs in training:
 //   * ddm_tpu/ops/mlp_block.py `_bwd_kernel` / `_bwd_body` (K1b);
 //   * ddm_tpu/ops/attention.py `_blk_bwd_kernel` (K2b).

@@ -6,7 +6,14 @@ sinusoidal time embedding (no AdaLN), pre-LN blocks, learned positional
 embedding, final LayerNorm and unembedding. Each block is two fused ops:
 :func:`~ddm_tpu_torch.ops.attention.fused_attention_block` then
 :func:`~ddm_tpu_torch.ops.mlp_block.fused_mlp_block` over (B*N, D) rows,
-which launch kernels K2 and K1 on CUDA tensors; with ``moe_experts > 1``
+which launch kernels K2 (or the third rung's K7 or K8) and K1 on CUDA
+tensors. ``attention="xla"`` (the JAX model's ``attention_impl='xla'``)
+unfuses the attention half: fp32 LN, the qkv and projection Dense
+products in the compute dtype with their biases, the plain attention
+core, the residual added in the stream dtype, as ``MultiheadSelfAttention``
+(``ddm_tpu/models/dit.py:89-125``) computes it; the MLP half stays fused
+and the parameters are the same. ``"flash"`` is ``"auto"``, as in the JAX
+model (``dit.py:357``). With ``moe_experts > 1``
 the MLP half is :class:`~ddm_tpu_torch.models.moe.MoEMLP` (kernels K11,
 K10, K12), with ``norm2`` still owned by the block
 (``ddm_tpu/models/dit.py:297-324``), and :meth:`DDDMDiT.tokens_and_aux`
@@ -34,7 +41,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..ops.attention import fused_attention_block
+from ..ops.attention import attention_reference, fused_attention_block
 from ..ops.mlp_block import fused_mlp_block, layer_norm
 from .moe import MoEMLP
 
@@ -103,17 +110,24 @@ class _FeedForward(nn.Module):
         })
 
 
+ATTENTION_IMPLS = ("auto", "xla", "flash")
+
+
 class DiTBlock(nn.Module):
-    """Pre-LN block: the attention half-block then the MLP half-block, dense
-    or (``moe`` given: ``num_experts``, ``capacity``, ``group_size``,
-    ``topk``) mixture-of-experts."""
+    """Pre-LN block: the attention half-block (fused, or with ``attention=
+    "xla"`` the unfused one) then the MLP half-block, dense or (``moe``
+    given: ``num_experts``, ``capacity``, ``group_size``, ``topk``)
+    mixture-of-experts."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, device=None,
-                 moe: Optional[dict] = None):
+                 moe: Optional[dict] = None, attention: str = "auto"):
         super().__init__()
         if dim % num_heads:
             raise ValueError("dim must be divisible by num_heads")
+        if attention not in ATTENTION_IMPLS:
+            raise ValueError(f"attention must be one of {ATTENTION_IMPLS}, got {attention!r}")
         self.num_heads = num_heads
+        self.attention = attention
         hidden = int(dim * mlp_ratio)
         self.norm1 = _Affine((dim,), (dim,), device)
         self.attn = _Attn(dim, device)
@@ -123,15 +137,24 @@ class DiTBlock(nn.Module):
         else:
             self.ff = _FeedForward(dim, hidden, device)
 
+    def _unfused_attention(self, x: torch.Tensor) -> torch.Tensor:
+        D, dt = x.shape[-1], x.dtype
+        h = layer_norm(x.float(), self.norm1.weight, self.norm1.bias).to(dt)
+        q, k, v = _dense(h, self.attn.qkv, dt).split(D, dim=-1)
+        return x + _dense(attention_reference(q, k, v, self.num_heads), self.attn.proj, dt)
+
     def forward(self, x: torch.Tensor):
         """``(x, aux)``: the block's output and its MoE aux term (None for a
         dense block)."""
         B, N, D = x.shape
-        x = fused_attention_block(
-            x, self.norm1.weight, self.norm1.bias, self.attn.qkv.weight,
-            self.attn.qkv.bias, self.attn.proj.weight, self.attn.proj.bias,
-            self.num_heads,
-        )
+        if self.attention == "xla":
+            x = self._unfused_attention(x)
+        else:
+            x = fused_attention_block(
+                x, self.norm1.weight, self.norm1.bias, self.attn.qkv.weight,
+                self.attn.qkv.bias, self.attn.proj.weight, self.attn.proj.bias,
+                self.num_heads,
+            )
         if hasattr(self, "moe"):
             out, aux = self.moe(x.reshape(B * N, D), self.norm2.weight, self.norm2.bias)
             return out.reshape(B, N, D), aux
@@ -168,6 +191,7 @@ class DDDMDiT(nn.Module):
         moe_capacity: float = 1.25,
         moe_group_size: int = 0,
         moe_topk: int = 1,
+        attention: str = "auto",
     ):
         super().__init__()
         if img_size % patch_size:
@@ -189,7 +213,7 @@ class DDDMDiT(nn.Module):
         moe = (dict(num_experts=moe_experts, capacity=moe_capacity, group_size=moe_group_size,
                     topk=moe_topk) if moe_experts > 1 else None)
         self.blocks = nn.ModuleList(
-            [DiTBlock(D, num_heads, mlp_ratio, device, moe) for _ in range(depth)])
+            [DiTBlock(D, num_heads, mlp_ratio, device, moe, attention) for _ in range(depth)])
         self.norm = _Affine((D,), (D,), device)
         self.unembed = nn.ModuleDict(
             {"proj": _Affine((out_channels * p * p, D), (out_channels * p * p,), device)})

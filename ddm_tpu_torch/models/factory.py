@@ -14,8 +14,6 @@ from typing import Any, Mapping
 
 import torch
 
-from ..ops.attention import supported_tokens
-from ..ops.flash import flash_supported
 from .dit import DDDMDiT
 from .moe import make_moe_aux_apply
 
@@ -61,11 +59,13 @@ def build_model(cfg: Any, device: torch.device | str = "cpu") -> DDDMDiT:
     Parameters are left uninitialised: load a ``state_dict`` or call
     :func:`ddm_tpu_torch.models.dit.init_params`.
 
-    Any width the kernels take builds (DiT-S/B/L: ``embed_dim`` 384, 768,
-    1024), at any image size whose token count K2 (N <= 512: 32 and 64 px at
-    patch 4) or K8 (N >= 1024 at Dh = 64: 128 to 512 px) takes. Each half-block picks its kernel tier per call from its shapes,
-    as the JAX ladder does (:mod:`ddm_tpu_torch.ops.tiers`), and a call on
-    CUDA tensors whose shapes have no tier raises there.
+    Every width and image size builds. Each half-block picks its kernel
+    tier per call from its shapes, as the JAX ladder does
+    (:mod:`ddm_tpu_torch.ops.tiers`): K2 where the ladder has a half-block
+    tier, else the third rung around K7, K8 or the plain core. A call on
+    CUDA tensors raises only where the JAX package would run a kernel the
+    port lacks (ROADMAP.md Queue 2). ``attention`` is ``"auto"``,
+    ``"flash"`` (the same) or ``"xla"`` (the unfused attention half).
     """
     m = _as_mapping(cfg)
 
@@ -78,35 +78,23 @@ def build_model(cfg: Any, device: torch.device | str = "cpu") -> DDDMDiT:
         (bool(get("sp")), "sp", "Queue 1 item 11 (parallelism)"),
         (bool(get("remat")), "remat", _WIDE),
         (int(get("mlp_persist")) > 0, "mlp_persist > 0", _WIDE),
-        (str(get("attention")) != "auto", f"attention={get('attention')!r}",
-         "Queue 1 item 9 (long sequences)"),
     ]
     for bad, what, item in unsupported:
         if bad:
             raise NotImplementedError(
                 f"the PyTorch port does not support {what} yet: ROADMAP.md {item}")
 
-    img, patch = int(get("image_size")), int(get("patch_size"))
-    dim, heads = int(get("embed_dim")), int(get("heads"))
-    n_tokens = (img // patch) ** 2
-    head = dim // max(heads, 1)
-    if dim % heads or not (supported_tokens(n_tokens, head) or flash_supported(n_tokens, head)):
-        raise NotImplementedError(
-            f"image_size={img}, patch_size={patch} gives N={n_tokens} tokens of head "
-            f"width {head}, outside what kernels K2 (N <= 512) and K8 (N >= 1024, Dh = 64) "
-            "take: ROADMAP.md Queue 1 item 9 (long sequences)")
-
     if int(get("moe_experts")) > 1 and int(get("moe_topk")) not in (1, 2):
         raise ValueError(f"moe_topk must be 1 or 2, got {get('moe_topk')}")
 
     return DDDMDiT(
-        img_size=img,
-        patch_size=patch,
+        img_size=int(get("image_size")),
+        patch_size=int(get("patch_size")),
         in_channels=3 * 2,  # channel-concat xi
         out_channels=3,
-        embed_dim=dim,
+        embed_dim=int(get("embed_dim")),
         depth=int(get("depth")),
-        num_heads=heads,
+        num_heads=int(get("heads")),
         time_embed_dim=int(get("time_embed")),
         mlp_ratio=float(get("mlp_ratio")),
         dtype=_DTYPES[str(get("dtype"))],
@@ -115,6 +103,7 @@ def build_model(cfg: Any, device: torch.device | str = "cpu") -> DDDMDiT:
         moe_capacity=float(get("moe_capacity")),
         moe_group_size=int(get("moe_group_size")),
         moe_topk=int(get("moe_topk")),
+        attention=str(get("attention")),
     )
 
 

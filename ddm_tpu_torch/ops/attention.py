@@ -41,15 +41,27 @@ accumulated in fp32 and the residual added in fp32 before one rounding.
 The backward keeps the fp32 P for dS, rounds dq, dk, dv and datt to the
 compute dtype, and sums dbqkv over the rounded dqkv.
 
-Long sequences (N >= 1024, the image sizes 128 to 512 at patch 4) take the
-counterpart of the JAX ladder's rung 3 (``ddm_tpu/ops/attention.py:959-962``
-with ``attention_fn=fused_attention``, which sends N > 512 to the flash
-tier): the same qkv and projection GEMMs around the online-softmax core K8
-(:mod:`ddm_tpu_torch.ops.flash`). Its forward saves ``(x, att, lse)`` as the
-JAX flash VJP saves ``o`` and ``lse``, so the backward recomputes the qkv
-GEMM but not the attention. The weight gradients stay fp32, where JAX's
-XLA autodiff of rung 3 rounds them to bf16 (the VJP of the weights' bf16
-cast).
+Where the JAX ladder has no half-block tier (``attention_tier`` is None:
+DiT-L at N = 256, N > 512, D not a multiple of 128), it runs its third
+rung (``ddm_tpu/ops/attention.py:959-962``): an XLA half-block around
+``fused_attention``, whose core :func:`ddm_tpu_torch.ops.tiers.core_tier`
+picks. The port runs one Function there, :class:`_Rung3Block`: the same
+qkv GEMM, that core, and the projection GEMM with the residual. The cores:
+
+- K7 (``_fused_fwd_call`` / ``_fused_bwd``), the standalone attention core:
+  K7f is K2f's query-tile core reading q, k and v as three operands of one
+  row stride (:func:`launch_k7f`); K7b is K2b's core backward writing dq, dk
+  and dv and no att (:func:`launch_k7b`). Their plain versions are
+  :func:`attention_reference` and :func:`attention_core_bwd_reference`;
+- K8, the online-softmax core for N >= 1024 (:mod:`ddm_tpu_torch.ops.flash`);
+- none (XLA's ``attention_reference`` in the JAX package): the plain core,
+  on the card too.
+
+The forward saves ``(x, att)``, and K8's ``lse``, as JAX's custom VJPs save
+their outputs, so the backward recomputes the qkv GEMM but not the
+attention output that the projection's weight gradient reads. The weight
+gradients stay fp32, where JAX's XLA autodiff of rung 3 rounds them to bf16
+(the VJP of the weights' bf16 cast).
 """
 
 from __future__ import annotations
@@ -69,22 +81,32 @@ from .mlp_block import layer_norm, layer_norm_bwd, ln_stats, matmul_f32
 __all__ = [
     "attention_reference",
     "attention_block_reference",
+    "attention_core_bwd_reference",
     "attention_core_bwd_att_reference",
+    "attention_core_fwd",
+    "attention_core_bwd",
     "attention_block_bwd",
     "attention_block_bwd_reference",
-    "long_attention_block_reference",
-    "long_attention_block_bwd_reference",
+    "rung3_block_reference",
+    "rung3_block_bwd_reference",
+    "launch_k7f",
+    "launch_k7b",
     "fused_attention_block",
     "supported_tokens",
     "LAUNCHES",
     "BWD_LAUNCHES",
     "SPLIT_BWD_LAUNCHES",
+    "CORE_LAUNCHES",
+    "CORE_BWD_LAUNCHES",
     "MAX_TOKENS",
 ]
 
 LAUNCHES = LaunchCounter("K2f")
 BWD_LAUNCHES = LaunchCounter("K2b")
 SPLIT_BWD_LAUNCHES = LaunchCounter("K4")
+CORE_LAUNCHES = LaunchCounter("K7f")
+CORE_BWD_LAUNCHES = LaunchCounter("K7b")
+_QUEUE2 = "ROADMAP.md Queue 2"
 MAX_TOKENS = 512  # the JAX gate's N <= 512; the flash tier takes N >= 1024
 _SINGLE_MAX_TOKENS = 128  # one backward block per (image, head) at most
 _MAX_SMEM = 232448
@@ -134,10 +156,19 @@ def attention_block_reference(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H: i
     return (xf + out).to(dtype)
 
 
-def long_attention_block_reference(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H: int):
-    """Plain version of the long-sequence half-block: the plain K8f core."""
-    return attention_block_reference(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H,
-                                      attention_fn=_flash_core)
+def _core_bwd(q, k, v, datt, H: int, with_att: bool):
+    dtype = q.dtype
+    scale = (q.shape[-1] // H) ** -0.5
+    rnd = lambda t: t.to(dtype).float()  # noqa: E731
+    q, k, v, datt = (_heads(t, H) for t in (q, k, v, datt.to(dtype)))
+    p = torch.softmax((q @ k.transpose(-1, -2)) * scale, dim=-1)
+    pb = rnd(p)
+    att = (pb @ v).to(dtype) if with_att else None
+    dv = (pb.transpose(-1, -2) @ datt).to(dtype)
+    dp = datt @ v.transpose(-1, -2)
+    ds = rnd(p * (dp - (p * dp).sum(-1, keepdim=True)) * scale)
+    grads = ((ds @ k).to(dtype), (ds.transpose(-1, -2) @ q).to(dtype), dv)
+    return tuple(_merge_heads(t) for t in ((att,) if with_att else ()) + grads)
 
 
 def attention_core_bwd_att_reference(q, k, v, datt, H: int):
@@ -145,18 +176,14 @@ def attention_core_bwd_att_reference(q, k, v, datt, H: int):
     dtype, from one fp32 P per (image, head): att = bf16(bf16(P) V),
     dv = bf16(bf16(P)^T datt), dS = bf16(scale * P * (dP - rowsum(P dP)))
     with dP = datt V^T in fp32, dq = bf16(dS K), dk = bf16(dS^T Q)."""
-    dtype = q.dtype
-    scale = (q.shape[-1] // H) ** -0.5
-    rnd = lambda t: t.to(dtype).float()  # noqa: E731
-    q, k, v, datt = (_heads(t, H) for t in (q, k, v, datt))
-    p = torch.softmax((q @ k.transpose(-1, -2)) * scale, dim=-1)
-    pb = rnd(p)
-    att = (pb @ v).to(dtype)
-    dv = (pb.transpose(-1, -2) @ datt).to(dtype)
-    dp = datt @ v.transpose(-1, -2)
-    ds = rnd(p * (dp - (p * dp).sum(-1, keepdim=True)) * scale)
-    return tuple(_merge_heads(t) for t in (att, (ds @ k).to(dtype),
-                                           (ds.transpose(-1, -2) @ q).to(dtype), dv))
+    return _core_bwd(q, k, v, datt, H, True)
+
+
+def attention_core_bwd_reference(q, k, v, do, H: int):
+    """Plain version of K7b, the standalone core's backward (``_bwd_kernel``):
+    ``(dq, dk, dv)`` for the cotangent ``do`` of :func:`attention_reference`,
+    by the rounding plan of :func:`attention_core_bwd_att_reference`."""
+    return _core_bwd(q, k, v, do, H, False)
 
 
 def _block_bwd_reference(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H: int, dout,
@@ -204,12 +231,27 @@ def _flash_core_bwd(q, k, v, datt, H: int):
     return (att, *flash.flash_attention_bwd_reference(q, k, v, att, lse, datt, H))
 
 
-def long_attention_block_bwd_reference(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H: int,
-                                       dout):
-    """Plain version of the long-sequence half-block's backward: the same
-    chain around the plain K8f/K8b core (lse replay, dsum from the bf16 o)."""
+def _plain_core_bwd(q, k, v, datt, H: int):
+    return (attention_reference(q, k, v, H), *attention_core_bwd_reference(q, k, v, datt, H))
+
+
+def rung3_block_reference(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H: int, core):
+    """Plain version of the third rung's half-block around ``core`` (from
+    :func:`ddm_tpu_torch.ops.tiers.core_tier`): the plain K8f core for
+    ``"K8"``, else :func:`attention_reference` (K7f's plain version, and
+    the plain core where the JAX package runs XLA's)."""
+    return attention_block_reference(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H,
+                                     attention_fn=_flash_core if core == "K8" else
+                                     attention_reference)
+
+
+def rung3_block_bwd_reference(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H: int, dout,
+                              core):
+    """Plain version of the third rung's backward: the half-block chain
+    around the plain K8f/K8b core for ``"K8"`` (lse replay, dsum from the
+    bf16 o), else around :func:`attention_core_bwd_reference`."""
     return _block_bwd_reference(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H, dout,
-                                _flash_core_bwd)
+                                _flash_core_bwd if core == "K8" else _plain_core_bwd)
 
 
 def _core_smem(N: int, Dh: int, QT: int = 16) -> int:
@@ -249,7 +291,7 @@ def supported_tokens_bwd(N: int, Dh: int) -> bool:
 
 def _check(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H, kernel="K2"):
     """Shapes and types the half-block kernels take around K2's attention
-    core or K8's (whose token counts :func:`fused_attention_block` picked)."""
+    core or the third rung's (:func:`fused_attention_block` picked which)."""
     if x.dtype != torch.bfloat16:
         raise TypeError(f"{kernel} takes bf16 activations, got {x.dtype}")
     if x.dim() != 3:
@@ -320,38 +362,55 @@ def _bwd_chain(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, dout, core_bwd):
     return dx.reshape(B, N, D), dscale, dbias, dwqkv, dbqkv, dwproj, dbproj
 
 
+def _launch_core(q, k, v, H):
+    """The forward core on CUDA tensors its caller has checked -> (B, N, D)
+    bf16, q, k and v read in place where they share one row stride (the
+    thirds of a qkv buffer)."""
+    q, k, v, ld = flash._qkv_rows(q, k, v)
+    B, N, D = q.shape
+    Dh = D // H
+    out = torch.empty((B, N, D), dtype=torch.bfloat16, device=q.device)
+    check_status(load_library().ddm_attention_core(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ld, out.data_ptr(), B, N, H, Dh, Dh ** -0.5,
+        current_stream(q.device)), "attention_core")
+    return out
+
+
+def _launch_core_bwd(q, k, v, do, H, with_att, tiled=None):
+    """The backward core -> ``(att or None, dqkv (B, N, 3D))``, bf16: one
+    block per (image, head) where it fits, else the two passes (``tiled``
+    forces the choice)."""
+    q, k, v, ld = flash._qkv_rows(q, k, v)
+    B, N, D = q.shape
+    Dh = D // H
+    if do.shape != q.shape:
+        raise ValueError(f"the core backward takes do of shape {tuple(q.shape)}, got "
+                         f"{tuple(do.shape)}")
+    do = flash._aligned(do.to(torch.bfloat16))
+    if tiled is None:
+        tiled = not _single_block_bwd(N, Dh)
+    empty = lambda *s, dt=torch.bfloat16: torch.empty(s, dtype=dt, device=q.device)  # noqa: E731
+    att = empty(B, N, D) if with_att else None
+    stats = empty(B, H, N, 3, dt=torch.float32) if tiled else None
+    dqkv = empty(B, N, 3 * D)
+    check_status(load_library().ddm_attention_core_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ld, do.data_ptr(),
+        None if att is None else att.data_ptr(), dqkv.data_ptr(),
+        None if stats is None else stats.data_ptr(), B, N, H, Dh, Dh ** -0.5, int(tiled),
+        current_stream(q.device)), "attention_core_bwd")
+    return att, dqkv
+
+
 def _k2_core(qkv, H):
     """K2's attention core on a (B, N, 3D) qkv buffer -> (B, N, D) bf16."""
-    B, N, D3 = qkv.shape
-    Dh = D3 // 3 // H
-    att = torch.empty((B, N, D3 // 3), dtype=torch.bfloat16, device=qkv.device)
-    check_status(load_library().ddm_attention_core(
-        qkv.data_ptr(), att.data_ptr(), B, N, H, Dh, Dh ** -0.5, current_stream(qkv.device)),
-        "K2 attention_core")
-    return att
+    return _launch_core(*qkv.split(qkv.shape[-1] // 3, dim=-1), H)
 
 
 def _core_bwd_att(qkv, datt, H, tiled=None):
     """K2b's and K4's attention core -> (att (B, N, D), dqkv (B, N, 3D)),
     bf16: one block per (image, head) where it fits, else the two passes
     (``tiled`` forces the choice)."""
-    B, N, D3 = qkv.shape
-    Dh = D3 // 3 // H
-    if tiled is None:
-        tiled = not _single_block_bwd(N, Dh)
-    att = torch.empty((B, N, D3 // 3), dtype=torch.bfloat16, device=qkv.device)
-    dqkv = torch.empty_like(qkv)
-    stream = current_stream(qkv.device)
-    if tiled:
-        stats = torch.empty((B, H, N, 3), dtype=torch.float32, device=qkv.device)
-        check_status(load_library().ddm_attention_core_bwd_tiled(
-            qkv.data_ptr(), datt.data_ptr(), att.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
-            B, N, H, Dh, Dh ** -0.5, stream), "attention_core_bwd_tiled")
-    else:
-        check_status(load_library().ddm_attention_core_bwd_att(
-            qkv.data_ptr(), datt.data_ptr(), att.data_ptr(), dqkv.data_ptr(), B, N, H, Dh,
-            Dh ** -0.5, stream), "attention_core_bwd_att")
-    return att, dqkv
+    return _launch_core_bwd(*qkv.split(qkv.shape[-1] // 3, dim=-1), datt, H, True, tiled)
 
 
 def _k2f(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H):
@@ -380,18 +439,20 @@ def _k2b(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H, dout, counter=BWD_LAUN
 
 
 def _tier(x, H):
-    """The JAX ladder's tier for these tokens; raises where it has none."""
+    """The JAX ladder's half-block tier for these tokens; raises where it has
+    none (:func:`fused_attention_block` runs the third rung there)."""
     B, N, D = x.shape
     tier = tiers.attention_tier(B, N, D, H)
     if tier is None:
-        raise tiers.no_kernel("the attention half-block", f"(B={B}, N={N}, D={D}, H={H})")
+        raise ValueError(f"the JAX ladder has no half-block tier at (B={B}, N={N}, D={D}, "
+                         f"H={H}): K2b and K4 do not run there")
     return tier
 
 
 def attention_block_bwd(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H: int, dout):
-    """The gradients of :func:`fused_attention_block` for the cotangent
-    ``dout``: on CUDA tensors K2b or K4 by the JAX ladder's tier (or raise),
-    on CPU tensors :func:`attention_block_bwd_reference`."""
+    """The gradients of :func:`fused_attention_block` where the JAX ladder
+    has a half-block tier, for the cotangent ``dout``: on CUDA tensors K2b or
+    K4 by that tier, on CPU tensors :func:`attention_block_bwd_reference`."""
     args = (x, scale_p, bias_p, wqkv, bqkv, wproj, bproj)
     if not uses_kernel(*args, dout):
         return attention_block_bwd_reference(*args, H, dout)
@@ -409,7 +470,6 @@ class _AttentionBlock(torch.autograd.Function):
         if not uses_kernel(*args):
             return attention_block_reference(*args, H)
         _check(*args, H)
-        _tier(x, H)
         return _k2f(*args, H)
 
     @staticmethod
@@ -419,64 +479,150 @@ class _AttentionBlock(torch.autograd.Function):
         return tuple(g.to(a.dtype) for g, a in zip(grads, args)) + (None,)
 
 
-def _k8_core(qkv, H):
-    """K8f reading q, k and v in place from the (B, N, 3D) qkv buffer."""
+# --- the third rung: the standalone cores K7 and K8, or the plain core ---
+
+def _check_core(q, k, v, H: int) -> None:
+    """Shapes and types K7f and K7b take: bf16 (B, N, H*Dh) q, k and v of one
+    shape, with N and Dh their cores take."""
+    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"K7 takes bf16 q, k and v, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"K7 takes (B, N, H*Dh) q, k and v of one shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, N, D = q.shape
+    if D % H:
+        raise ValueError(f"D={D} is not divisible by H={H}")
+    _refuse_unported_core("K7", N, D // H)
+
+
+def _refuse_unported_core(core, N: int, Dh: int) -> None:
+    """Raise where the JAX gate takes ``core`` and the port's kernel does not."""
+    if core == "K7" and not (supported_tokens(N, Dh) and supported_tokens_bwd(N, Dh)):
+        raise NotImplementedError(
+            f"K7's cores take N and Dh multiples of 16 with N <= {MAX_TOKENS}; got N={N}, "
+            f"Dh={Dh}: {_QUEUE2} (K7 at Dh % 16 != 0)")
+    if core == "K8" and not flash.flash_supported(N, Dh):
+        raise NotImplementedError(
+            f"the JAX gate takes K8 at N={N}, Dh={Dh}; the port's K8 takes N a multiple of "
+            f"{flash.TILE} and Dh in {flash.HEAD_DIMS}: {_QUEUE2} (K8 at other head widths "
+            "and token counts)")
+
+
+def launch_k7f(q, k, v, H: int) -> torch.Tensor:
+    """K7f on CUDA tensors its caller has checked: the (B, N, D) bf16
+    attention output, q, k and v read in place where they share one row
+    stride (the thirds of a qkv buffer)."""
+    out = _launch_core(q, k, v, H)
+    CORE_LAUNCHES.add()
+    return out
+
+
+def launch_k7b(q, k, v, do, H: int) -> torch.Tensor:
+    """K7b on CUDA tensors its caller has checked: dq, dk and dv as the
+    thirds of one (B, N, 3D) bf16 buffer, and no att."""
+    _, dqkv = _launch_core_bwd(q, k, v, do, H, False)
+    CORE_BWD_LAUNCHES.add()
+    return dqkv
+
+
+def attention_core_fwd(q, k, v, H: int) -> torch.Tensor:
+    """The standalone core's forward over (B, N, H*Dh) q, k and v: K7f on
+    CUDA tensors (or raise), :func:`attention_reference` on CPU tensors."""
+    if not uses_kernel(q, k, v):
+        return attention_reference(q, k, v, H)
+    _check_core(q, k, v, H)
+    return launch_k7f(q, k, v, H)
+
+
+def attention_core_bwd(q, k, v, do, H: int):
+    """``(dq, dk, dv)`` of the standalone core for the cotangent ``do``: K7b
+    on CUDA tensors (or raise; the three are views into one (B, N, 3D)
+    buffer), :func:`attention_core_bwd_reference` on CPU tensors."""
+    if not uses_kernel(q, k, v, do):
+        return attention_core_bwd_reference(q, k, v, do, H)
+    _check_core(q, k, v, H)
+    return launch_k7b(q, k, v, do, H).split(q.shape[2], dim=-1)
+
+
+def _check_rung3(x, H: int, core) -> None:
+    """What the third rung's kernels take on the card, beyond :func:`_check`:
+    the GEMM chain's widths, and the core's N and Dh."""
+    B, N, D = x.shape
+    if D % 64 or D > 1024:
+        raise NotImplementedError(
+            f"the half-block GEMMs take D a multiple of 64 up to 1024, got D={D}: {_QUEUE2} "
+            "(the third rung at D > 1024, e.g. DiT-XL)")
+    _refuse_unported_core(core, N, D // H)
+
+
+def _rung3_core(qkv, H: int, core):
+    """The third rung's core on the (B, N, 3D) qkv buffer: ``(att, lse)``,
+    lse for K8 only."""
     D = qkv.shape[-1] // 3
-    return flash.launch_k8f(*qkv.split(D, dim=-1), H, (D // H) ** -0.5)
+    q, k, v = qkv.split(D, dim=-1)
+    if core == "K7":
+        return launch_k7f(q, k, v, H), None
+    if core == "K8":
+        return flash.launch_k8f(q, k, v, H, (D // H) ** -0.5)
+    return attention_reference(q, k, v, H), None
 
 
-def _k8_core_bwd(qkv, datt, att, lse, H):
+def _rung3_core_bwd(qkv, datt, att, lse, H: int, core):
+    """The core's backward: dq, dk and dv as one (B, N, 3D) buffer."""
     D = qkv.shape[-1] // 3
-    return flash.launch_k8b(*qkv.split(D, dim=-1), att, lse, datt, H, (D // H) ** -0.5)
+    q, k, v = qkv.split(D, dim=-1)
+    if core == "K7":
+        return launch_k7b(q, k, v, datt, H)
+    if core == "K8":
+        return flash.launch_k8b(q, k, v, att, lse, datt, H, (D // H) ** -0.5)
+    return torch.cat(attention_core_bwd_reference(q, k, v, datt, H), dim=-1)
 
 
-class _LongAttentionBlock(torch.autograd.Function):
+class _Rung3Block(torch.autograd.Function):
+    """The JAX ladder's third rung: the qkv GEMM, the core ``core``, the
+    projection GEMM with the residual, and its backward around the core's."""
+
     @staticmethod
-    def forward(ctx, x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H):
-        ctx.heads = H
+    def forward(ctx, x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H, core):
+        ctx.heads, ctx.core = H, core
         args = (x, scale_p, bias_p, wqkv, bqkv, wproj, bproj)
         if not uses_kernel(*args):
             ctx.save_for_backward(*args)
-            return long_attention_block_reference(*args, H)
-        _check(*args, H, kernel="K8")
-        out, att, lse = _fwd_chain(*args, lambda qkv: _k8_core(qkv, H))
-        ctx.save_for_backward(*args, att, lse)  # no recompute of the core, as JAX's VJP
+            return rung3_block_reference(*args, H, core)
+        _check_rung3(x, H, core)
+        _check(*args, H, kernel="the third rung")
+        out, att, lse = _fwd_chain(*args, lambda qkv: _rung3_core(qkv, H, core))
+        ctx.save_for_backward(*args, att, lse)  # no recompute of the core, as JAX's VJPs
         return out
 
     @staticmethod
     def backward(ctx, dout):
         saved = ctx.saved_tensors
-        args, H = saved[:7], ctx.heads
+        args, H, core = saved[:7], ctx.heads, ctx.core
         if uses_kernel(*args, dout):
             att, lse = saved[7:]
-            grads = _bwd_chain(*args, dout,
-                               lambda qkv, datt: (att, _k8_core_bwd(qkv, datt, att, lse, H)))
+            grads = _bwd_chain(*args, dout, lambda qkv, datt: (
+                att, _rung3_core_bwd(qkv, datt, att, lse, H, core)))
         else:
-            grads = long_attention_block_bwd_reference(*args, H, dout)
-        return tuple(g.to(a.dtype) for g, a in zip(grads, args)) + (None,)
+            grads = rung3_block_bwd_reference(*args, H, dout, core)
+        return tuple(g.to(a.dtype) for g, a in zip(grads, args)) + (None, None)
 
 
 def fused_attention_block(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H: int):
     """``x + proj(MHA(qkv(LN(x))))`` over (B, N, D) tokens, with its backward.
 
-    The token count picks the path, as the JAX ladder's shape gates do:
-    N <= 512 takes K2f and, by :func:`ddm_tpu_torch.ops.tiers.attention_tier`,
-    K2b or K4 (:func:`attention_block_reference` and
-    :func:`attention_block_bwd_reference` on CPU tensors); N >= 1024 with
-    Dh = 64 takes the long-sequence half-block around K8
-    (:func:`long_attention_block_reference` and
-    :func:`long_attention_block_bwd_reference` on CPU tensors); any other N
-    raises. CUDA tensors launch the kernels (bf16 activations, fp32 LN
-    params and biases, weights cast to bf16) or raise.
+    The shapes pick the path, as the JAX ladder's gates do: where
+    :func:`ddm_tpu_torch.ops.tiers.attention_tier` has a tier, K2f and K2b
+    or K4 (:func:`attention_block_reference` and
+    :func:`attention_block_bwd_reference` on CPU tensors); elsewhere the
+    third rung around the core :func:`ddm_tpu_torch.ops.tiers.core_tier`
+    picks, K7, K8 or the plain core (:func:`rung3_block_reference` and
+    :func:`rung3_block_bwd_reference` on CPU tensors). CUDA tensors launch
+    the kernels (bf16 activations, fp32 LN params and biases, weights cast
+    to bf16) or raise where the port lacks the kernel JAX would run.
     """
-    N, D = x.shape[-2:]
-    Dh = D // H
-    if N <= MAX_TOKENS:
-        return _AttentionBlock.apply(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H)
-    if flash.flash_supported(N, Dh):
-        return _LongAttentionBlock.apply(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H)
-    raise NotImplementedError(
-        f"N={N} tokens of head width {Dh}: K2 takes N <= {MAX_TOKENS} and the flash tier "
-        f"N >= {flash.MIN_TOKENS} with Dh = {flash.HEAD_DIM}; the JAX package runs K8 there "
-        "(its flash tier takes other N and Dh), which the port does not take yet: ROADMAP.md "
-        "Queue 1 item 9 (long sequences)")
+    B, N, D = x.shape
+    args = (x, scale_p, bias_p, wqkv, bqkv, wproj, bproj)
+    if tiers.attention_tier(B, N, D, H) is not None:
+        return _AttentionBlock.apply(*args, H)
+    return _Rung3Block.apply(*args, H, tiers.core_tier(B, N, D, H))

@@ -18,9 +18,11 @@ The TPU takes one k tile (bk = N) up to N = 2048, so its rounding of ``p``
 is against the row max, as here; the CUDA kernel walks 64-key tiles and
 rounds against the running max, which moves ``o`` by bf16 noise.
 
-The kernel takes Dh = 64 (DiT-S, B and L) and N a multiple of 64. The TPU's
-head-pair lane packing and phantom-head pad are 128-lane devices and are
-not carried: any H runs as it is.
+The kernels take Dh = 32, 64 (DiT-S, B and L) and 128, and N a multiple
+of 64. The TPU's head-pair lane packing and phantom-head pad are 128-lane
+devices and are not carried: any H runs as it is. The JAX kernels also take
+Dh = 8, 16 and multiples of 128 above 128; the port raises there
+(ROADMAP.md Queue 2).
 """
 
 from __future__ import annotations
@@ -40,24 +42,24 @@ __all__ = [
     "launch_k8b",
     "FWD_LAUNCHES",
     "BWD_LAUNCHES",
-    "HEAD_DIM",
+    "HEAD_DIMS",
     "TILE",
     "MIN_TOKENS",
 ]
 
 FWD_LAUNCHES = LaunchCounter("K8f")
 BWD_LAUNCHES = LaunchCounter("K8b")
-HEAD_DIM = 64     # the one head width csrc/flash.cu is built for
+HEAD_DIMS = (32, 64, 128)  # the head widths csrc/flash.cu is built for
 TILE = 64         # q rows and k rows per tile of the kernels
 MIN_TOKENS = 1024  # the JAX gate's long-sequence tier (ddm_tpu/ops/flash.py:286)
-_NOT_PORTED = "ROADMAP.md Queue 1 item 9 (long sequences)"
+_NOT_PORTED = "ROADMAP.md Queue 2 (K8 at the head widths and token counts the port lacks)"
 
 
 def flash_supported(N: int, Dh: int) -> bool:
-    """Whether the long-sequence tier takes N tokens of head width Dh:
-    N >= 1024 as the JAX gate has it, N a whole number of 64-row tiles,
-    and the head width K8 is built for."""
-    return N >= MIN_TOKENS and N % TILE == 0 and Dh == HEAD_DIM
+    """Whether the port's K8 takes N tokens of head width Dh: N >= 1024 as
+    the JAX gate has it, N a whole number of 64-row tiles, and a head width
+    the kernels are built for."""
+    return N >= MIN_TOKENS and N % TILE == 0 and Dh in HEAD_DIMS
 
 
 def _heads(a: torch.Tensor, H: int) -> torch.Tensor:
@@ -125,9 +127,9 @@ def _check(q, k, v, H: int) -> None:
     B, N, D = q.shape
     if D % H:
         raise ValueError(f"D={D} is not divisible by H={H}")
-    if D // H != HEAD_DIM:
+    if D // H not in HEAD_DIMS:
         raise NotImplementedError(
-            f"K8 is built for head width {HEAD_DIM}, got Dh={D // H}: {_NOT_PORTED}")
+            f"K8 is built for head widths {HEAD_DIMS}, got Dh={D // H}: {_NOT_PORTED}")
     if N % TILE:
         raise ValueError(f"K8 needs N a multiple of {TILE}, got N={N}")
 
@@ -157,7 +159,7 @@ def launch_k8f(q, k, v, H: int, scale: float):
     lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
     check_status(load_library().ddm_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ld, o.data_ptr(), lse.data_ptr(),
-        B, N, H, scale, current_stream(q.device)), "K8f flash_fwd")
+        B, N, H, D // H, scale, current_stream(q.device)), "K8f flash_fwd")
     FWD_LAUNCHES.add()
     return o, lse
 
@@ -177,7 +179,7 @@ def launch_k8b(q, k, v, o, lse, do, H: int, scale: float) -> torch.Tensor:
     dqkv = torch.empty((B, N, 3 * D), dtype=torch.bfloat16, device=q.device)
     check_status(load_library().ddm_flash_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ld, o.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), dsum.data_ptr(), dqkv.data_ptr(), B, N, H, scale,
+        lse.data_ptr(), dsum.data_ptr(), dqkv.data_ptr(), B, N, H, D // H, scale,
         current_stream(q.device)), "K8b flash_bwd")
     BWD_LAUNCHES.add()
     return dqkv
@@ -221,5 +223,5 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(q, k, v, H: int, scale=None):
     """Multi-head attention over (B, N, H*Dh) inputs with its backward: CPU
     tensors take the plain versions, CUDA tensors launch K8f/K8b (bf16,
-    Dh = 64, N a multiple of 64) or raise."""
+    Dh 32, 64 or 128, N >= 1024 a multiple of 64) or raise."""
     return _FlashAttention.apply(q, k, v, H, scale)

@@ -55,12 +55,10 @@ _SIGNATURES = {
     "ddm_ln_gemm": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # a, w, bias, residual, out, T, K, Nout, stream
     "ddm_gemm_residual": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # qkv, out, B, N, H, Dh, scale, stream
-    "ddm_attention_core": [_P, _P, _I, _I, _I, _I, _F, _P],
-    # qkv, datt, att, dqkv, B, N, H, Dh, scale, stream
-    "ddm_attention_core_bwd_att": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    # qkv, datt, att, dqkv, stats, B, N, H, Dh, scale, stream
-    "ddm_attention_core_bwd_tiled": [_P] * 5 + [_I] * 4 + [_F, _P],
+    # q, k, v, ld, out, B, N, H, Dh, scale, stream
+    "ddm_attention_core": [_P, _P, _P, _I, _P] + [_I] * 4 + [_F, _P],
+    # q, k, v, ld, dout, att, dqkv, stats, B, N, H, Dh, scale, tiled, stream
+    "ddm_attention_core_bwd": [_P, _P, _P, _I, _P, _P, _P, _P] + [_I] * 4 + [_F, _I, _P],
     # a, w, ldw, acc, bias, res, out, T, K, Nout, epi, stream
     "ddm_gemm_partial": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # a, w, bias, aux, out, colsum_ws, colsum_out, T, K, Nout, ldw, wstride, epi, batch,
@@ -74,10 +72,10 @@ _SIGNATURES = {
     "ddm_energy_fwd": [_P] * 5 + [_I] * 4 + [_F, _P],
     # xh, x0, g, part, coef, dxh, dx0, B, m, D, L, beta, stream
     "ddm_energy_bwd": [_P] * 7 + [_I] * 4 + [_F, _P],
-    # q, k, v, ld, o, lse, B, N, H, scale, stream
-    "ddm_flash_fwd": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _F, _P],
-    # q, k, v, ld, o, dout, lse, dsum, dqkv, B, N, H, scale, stream
-    "ddm_flash_bwd": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    # q, k, v, ld, o, lse, B, N, H, Dh, scale, stream
+    "ddm_flash_fwd": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _F, _P],
+    # q, k, v, ld, o, dout, lse, dsum, dqkv, B, N, H, Dh, scale, stream
+    "ddm_flash_bwd": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     # x, scale, bias, wr, br, xin, gates, pos1, pos2, probs, part, cnt_psum,
     # G, gs, n_valid, D, E, cap, cpad, topk, stream
     "ddm_moe_dispatch_fwd": [_P] * 12 + [_I] * 8 + [_P],

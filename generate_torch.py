@@ -9,7 +9,8 @@ K1f and K2f (K2f through its query-tile core at ``image_size`` 64, N = 256
 tokens; K1f and K8f at ``image_size`` 128 to 512; K11f, K10f and K12f
 in place of K1f for a checkpoint trained with ``--moe-experts``; K6f, the
 F-chunked MLP partial, in place of K1f at the DiT-L width, and K10p in place
-of K10f for an MoE at D >= 768).
+of K10f for an MoE at D >= 768; the third rung's K7f at DiT-L and 64 px,
+and the plain attention core at 96 px or with ``attention: xla``).
 ``train_cifar10_dit_torch.py`` writes checkpoints in the payload this
 script reads.
 

@@ -13,6 +13,8 @@ widths):
         --heads 16 --profile-samples 64
     python3 profile_torch_step.py --image-size 64 --batch 64 --m 4 --profile-samples 64
     python3 profile_torch_step.py --batch 256 --m 32 --profile-samples 64
+    python3 profile_torch_step.py --embed-dim 1024 --depth 24 --heads 16 --image-size 64 \
+        --batch 64 --m 4 --profile-samples 64
 
 On one seeded model and one batch it runs 3 warm-up steps, then
 
@@ -51,6 +53,7 @@ LAUNCHERS = [
     ("mlp_block", "_k6f", "K6f"),
     ("attention", "_k2f", "K2f"), ("attention", "_k2b", ("K2b", "K4")),
     ("energy", "energy_terms", ("K3f", "K9f")), ("energy", "energy_terms_bwd", ("K3b", "K9b")),
+    ("attention", "launch_k7f", "K7f"), ("attention", "launch_k7b", "K7b"),
     ("flash", "launch_k8f", "K8f"), ("flash", "launch_k8b", "K8b"),
     ("expert_ffn", "_k10f", "K10f"), ("expert_ffn", "_k10b", "K10b"),
     ("expert_ffn", "_k10p", "K10p"),

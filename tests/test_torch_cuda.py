@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K4, K6f, K8, K9 and K10-K12 against their plain versions, on the card.
+"""The CUDA kernels K1-K4, K6f, K7-K9 and K10-K12 against their plain versions, on the card.
 
 Every test here is marked ``cuda`` and skips on a host without a GPU. The
 file imports no JAX (the machine with the card has none), so it runs there
@@ -199,8 +199,12 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
     wqkv, bqkv = torch.zeros(384, 128, device=cuda_device), torch.zeros(384, device=cuda_device)
     wproj = torch.zeros(128, 128, device=cuda_device)
     tokens = torch.zeros(2, 24, 128, device=cuda_device, dtype=torch.bfloat16)
+    assert TT.attention_tier(2, 24, 128, 2) == "fused"
     with pytest.raises(ValueError, match="N=24"):
         TA.fused_attention_block(tokens, vec, vec, wqkv, bqkv, wproj, vec, 2)
+    q = torch.zeros(2, 24, 128, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="Queue 2"):
+        TA.attention_core_fwd(q, q, q, 2)
     xh, x0 = torch.zeros(4, 1, 128, device=cuda_device), torch.zeros(4, 128, device=cuda_device)
     with pytest.raises(ValueError, match="m must be >= 2"):
         TE.fused_energy_terms(xh, x0, 0.1)
@@ -326,24 +330,27 @@ def test_k8_through_autograd_on_separate_tensors(cuda_device):
 
 @pytest.mark.cuda
 def test_long_attention_block_matches_plain_on_the_card(cuda_device):
-    """N = 1024: the qkv GEMM, K8 and the projection GEMM, forward and all
-    seven gradients, against the plain long-sequence half-block."""
+    """N = 1024: the third rung around K8 (the qkv GEMM, K8 and the
+    projection GEMM), forward and all seven gradients, against its plain
+    version around the plain K8."""
     B, N, D, H = 2, 1024, 384, 6
+    assert TT.core_tier(B, N, D, H) == "K8"
     args = _on(cuda_device, _attn_inputs(B, N, D))
     dout = torch.randn(B, N, D, generator=torch.Generator(device=cuda_device).manual_seed(8),
                        device=cuda_device).to(torch.bfloat16)
-    before = {n: c.count for n, c in (("K2f", TA.LAUNCHES), ("K2b", TA.BWD_LAUNCHES),
-                                      ("K8f", TF.FWD_LAUNCHES), ("K8b", TF.BWD_LAUNCHES))}
+    counters = (("K2f", TA.LAUNCHES), ("K2b", TA.BWD_LAUNCHES), ("K7f", TA.CORE_LAUNCHES),
+                ("K7b", TA.CORE_BWD_LAUNCHES), ("K8f", TF.FWD_LAUNCHES), ("K8b", TF.BWD_LAUNCHES))
+    before = {n: c.count for n, c in counters}
     with torch.inference_mode():
         got = TA.fused_attention_block(*args, H)
-    want = TA.long_attention_block_reference(*args, H)
+    want = TA.rung3_block_reference(*args, H, "K8")
     torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
     grads = _grads_through_autograd(TA.fused_attention_block, args, (H,), dout)
     again = _grads_through_autograd(TA.fused_attention_block, args, (H,), dout)
     torch.cuda.synchronize()
-    after = {n: c.count for n, c in (("K2f", TA.LAUNCHES), ("K2b", TA.BWD_LAUNCHES),
-                                     ("K8f", TF.FWD_LAUNCHES), ("K8b", TF.BWD_LAUNCHES))}
-    assert {n: after[n] - before[n] for n in after} == {"K2f": 0, "K2b": 0, "K8f": 3, "K8b": 2}
+    after = {n: c.count for n, c in counters}
+    assert {n: after[n] - before[n] for n in after} == {"K2f": 0, "K2b": 0, "K7f": 0, "K7b": 0,
+                                                        "K8f": 3, "K8b": 2}
     for g, h in zip(grads, again):
         assert torch.equal(g, h)
     # K8f rounds p against a running max where the plain forward uses the
@@ -351,8 +358,8 @@ def test_long_attention_block_matches_plain_on_the_card(cuda_device):
     # fp32 gradient lies within twice bf16's own noise of the plain one,
     # e = |plain bf16 - plain fp32| (relative Frobenius), or within the K2b
     # bound where it has none (dbproj sums the bf16 cotangent alone).
-    want = TA.long_attention_block_bwd_reference(*args, H, dout)
-    want32 = TA.long_attention_block_bwd_reference(args[0].float(), *args[1:], H, dout.float())
+    want = TA.rung3_block_bwd_reference(*args, H, dout, "K8")
+    want32 = TA.rung3_block_bwd_reference(args[0].float(), *args[1:], H, dout.float(), "K8")
     torch.testing.assert_close(grads[0].float(), want[0].float(), **BF16_TOL)
     for i, (g, w, w32) in enumerate(zip(grads[1:], want[1:], want32[1:]), start=1):
         noise = float(torch.linalg.norm(w - w32) / torch.linalg.norm(w32))
@@ -362,14 +369,112 @@ def test_long_attention_block_matches_plain_on_the_card(cuda_device):
 
 @pytest.mark.cuda
 def test_k8_refuses_what_it_does_not_take(cuda_device):
+    """Head widths JAX's K8 takes and the port's does not raise naming
+    ROADMAP Queue 2; token counts off the 64-row tiles and other types
+    raise."""
     x = torch.zeros(1, 1024, 96, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TF.flash_attention(x, x, x, 3)  # Dh = 32
+    with pytest.raises(NotImplementedError, match="Queue 2"):
+        TF.flash_attention(x, x, x, 6)  # Dh = 16
     y = torch.zeros(1, 1000, 128, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="multiple of 64"):
         TF.flash_attention(y, y, y, 2)
     with pytest.raises(TypeError, match="bf16"):
         TF.flash_attention(y.float(), y.float(), y.float(), 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,H,Dh", [(2, 1024, 12, 32), (2, 1024, 3, 128), (1, 2048, 2, 128),
+                                      (3, 128, 4, 32)])
+def test_k8_at_head_widths_32_and_128_matches_plain_on_the_card(cuda_device, B, N, H, Dh):
+    """K8f and K8b at Dh = 32 and 128 (the templated kernels), q, k, v read
+    in place from a [q | k | v] buffer, against the plain versions; the
+    backward twice, bit-identical."""
+    r = np.random.default_rng(Dh + N)
+    D = H * Dh
+    qkv = _t(r.standard_normal((B, N, 3 * D)).astype(np.float32)).to(cuda_device)
+    q, k, v = qkv.to(torch.bfloat16).split(D, dim=-1)
+    do = _t(r.standard_normal((B, N, D)).astype(np.float32)).to(cuda_device).to(torch.bfloat16)
+    o, lse = TF.flash_attention_fwd(q, k, v, H)
+    grads = TF.flash_attention_bwd(q, k, v, o, lse, do, H)
+    again = TF.flash_attention_bwd(q, k, v, o, lse, do, H)
+    torch.cuda.synchronize()
+    want_o, want_lse = TF.flash_attention_reference(q, k, v, H)
+    _assert_bf16_rule(o, want_o)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=0)
+    for g, h, w in zip(grads, again, TF.flash_attention_bwd_reference(q, k, v, o, lse, do, H)):
+        assert torch.equal(g, h)
+        _assert_bf16_rule(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,H,Dh", [(256, 256, 16, 64), (64, 256, 16, 64), (32, 64, 16, 64),
+                                      (4, 112, 4, 32), (2, 48, 2, 128)])
+def test_k7_kernels_match_plain_on_the_card(cuda_device, B, N, H, Dh):
+    """K7f and K7b on q, k, v read in place from a [q | k | v] buffer (and
+    on three separate tensors), against their plain versions by the bf16
+    rule; K7b twice, bit-identical; and bit for bit the cores that K2f and
+    K2b run on the same qkv (one design behind two entry points)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(22)
+    D = H * Dh
+    qkv = torch.randn(B, N, 3 * D, generator=gen, device=cuda_device).to(torch.bfloat16)
+    do = torch.randn(B, N, D, generator=gen, device=cuda_device).to(torch.bfloat16)
+    q, k, v = qkv.split(D, dim=-1)
+    before = (TA.CORE_LAUNCHES.count, TA.CORE_BWD_LAUNCHES.count)
+    o = TA.attention_core_fwd(q, k, v, H)
+    grads = TA.attention_core_bwd(q, k, v, do, H)
+    again = TA.attention_core_bwd(q, k, v, do, H)
+    apart = TA.attention_core_fwd(*(t.contiguous() for t in (q, k, v)), H)
+    torch.cuda.synchronize()
+    assert (TA.CORE_LAUNCHES.count, TA.CORE_BWD_LAUNCHES.count) == (before[0] + 2, before[1] + 2)
+    assert torch.equal(apart, o)
+    _assert_bf16_rule(o, TA.attention_reference(q, k, v, H))
+    for g, h, w in zip(grads, again, TA.attention_core_bwd_reference(q, k, v, do, H)):
+        assert torch.equal(g, h)
+        _assert_bf16_rule(g, w)
+    assert torch.equal(o, TA._k2_core(qkv, H))
+    att, dqkv = TA._core_bwd_att(qkv, do, H)
+    assert torch.equal(torch.cat(grads, dim=-1), dqkv) and torch.equal(att, o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,D,H,core", [(8, 256, 1024, 16, "K7"), (2, 576, 384, 6, None),
+                                          (2, 1024, 384, 3, "K8")])
+def test_rung3_half_block_matches_plain_on_the_card(cuda_device, B, N, D, H, core):
+    """The JAX ladder's third rung on the card: DiT-L at N = 256 around
+    K7f/K7b, N = 576 around the plain core (JAX runs XLA's attention), and
+    Dh = 128 at N = 1024 around K8; forward by the bf16 rule, all seven
+    gradients through autograd twice (bit-identical) against the plain
+    rung-3 backward, within twice bf16's own noise where K8's online
+    softmax rounds p against a running max."""
+    assert TT.attention_tier(B, N, D, H) is None and TT.core_tier(B, N, D, H) == core
+    args = _on(cuda_device, _attn_inputs(B, N, D, seed=23))
+    dout = torch.randn(B, N, D, generator=torch.Generator(device=cuda_device).manual_seed(24),
+                       device=cuda_device).to(torch.bfloat16)
+    counters = (TA.LAUNCHES, TA.BWD_LAUNCHES, TA.SPLIT_BWD_LAUNCHES, TA.CORE_LAUNCHES,
+                TA.CORE_BWD_LAUNCHES, TF.FWD_LAUNCHES, TF.BWD_LAUNCHES)
+    before = [c.count for c in counters]
+    with torch.inference_mode():
+        out = TA.fused_attention_block(*args, H)
+    want = TA.rung3_block_reference(*args, H, core)
+    got = _grads_through_autograd(TA.fused_attention_block, args, (H,), dout)
+    again = _grads_through_autograd(TA.fused_attention_block, args, (H,), dout)
+    torch.cuda.synchronize()
+    k7, k8 = (3, 2) if core == "K7" else (0, 0), (3, 2) if core == "K8" else (0, 0)
+    assert [c.count - n for c, n in zip(counters, before)] == [0, 0, 0, *k7, *k8]
+    for g, h in zip(got, again):
+        assert torch.equal(g, h)
+    wgrads = TA.rung3_block_bwd_reference(*args, H, dout, core)
+    if core == "K8":
+        torch.testing.assert_close(out.float(), want.float(), **BF16_TOL)
+        want32 = TA.rung3_block_bwd_reference(args[0].float(), *args[1:], H, dout.float(), core)
+        torch.testing.assert_close(got[0].float(), wgrads[0].float(), **BF16_TOL)
+        for i, (g, w, w32) in enumerate(zip(got[1:], wgrads[1:], want32[1:]), start=1):
+            noise = float(torch.linalg.norm(w - w32) / torch.linalg.norm(w32))
+            assert float(torch.linalg.norm(g - w) / torch.linalg.norm(w)) <= max(
+                2 * noise, GRAD_FROB_REL), i
+    else:
+        _assert_bf16_rule(out, want)
+        _assert_grads_close(got, wgrads)
 
 
 @pytest.mark.cuda
@@ -601,8 +706,8 @@ def test_wide_tiers_refuse_what_they_do_not_take(cuda_device):
     """Shapes where the JAX ladder has no kernel tier (D = 64): the MLP
     half-block and the expert FFN run their plain versions on the device, as
     the JAX package runs its jnp reference there, forward and backward, with
-    no launch; the attention half-block, whose JAX fallback can reach the
-    standalone core K7, raises naming it."""
+    no launch; the attention half-block takes the third rung around the
+    plain core (JAX's XLA attention at D % 128 != 0), no K2, K7 or K8."""
     bf = torch.bfloat16
     r = np.random.default_rng(18)
     z = lambda *s, dt=torch.float32: _t(  # noqa: E731
@@ -623,9 +728,16 @@ def test_wide_tiers_refuse_what_they_do_not_take(cuda_device):
                     TX.expert_ffn_bwd_reference(*ffn, dout)):
         assert torch.equal(g, w.to(g.dtype))
     assert [c.count for c in counters] == before
-    with pytest.raises(NotImplementedError, match="K7"):
-        TA.fused_attention_block(z(2, 16, 64, dt=bf), z(64), z(64), z(192, 64), z(192),
-                                 z(64, 64), z(64), 1)
+    attn = (z(2, 16, 64, dt=bf), z(64), z(64), z(192, 64), z(192), z(64, 64), z(64))
+    assert TT.attention_tier(2, 16, 64, 1) is None and TT.core_tier(2, 16, 64, 1) is None
+    counters = (TA.LAUNCHES, TA.BWD_LAUNCHES, TA.CORE_LAUNCHES, TA.CORE_BWD_LAUNCHES,
+                TF.FWD_LAUNCHES, TF.BWD_LAUNCHES)
+    before = [c.count for c in counters]
+    dout = z(2, 16, 64, dt=bf)
+    _assert_bf16_rule(TA.fused_attention_block(*attn, 1), TA.rung3_block_reference(*attn, 1, None))
+    _assert_grads_close(_grads_through_autograd(TA.fused_attention_block, attn, (1,), dout),
+                        TA.rung3_block_bwd_reference(*attn, 1, dout, None))
+    assert [c.count for c in counters] == before
 
 
 @pytest.mark.cuda

@@ -6,6 +6,7 @@ import re
 import subprocess
 import sys
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -56,9 +57,14 @@ def test_generate_resolves_the_latest_epoch_and_config_overlay(tmp_path):
     assert generate_torch._resolve_ckpt(str(tmp_path)).endswith("model_epoch012.pt")
     overlay = tmp_path / "cfg.json"
     overlay.write_text('{"attention": "xla"}')
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        generate_torch.main(["--ckpt", str(tmp_path), "--config", str(overlay),
-                             "--device", "cpu", "--out", ""])
+    built = []
+    real = generate_torch.build_model
+    with mock.patch.object(generate_torch, "build_model",
+                           side_effect=lambda cfg, dev: built.append(real(cfg, dev)) or built[-1]):
+        out = generate_torch.main(["--ckpt", str(tmp_path), "--config", str(overlay),
+                                   "--n", "2", "--steps", "1", "--device", "cpu", "--out", ""])
+    assert built[0].blocks[0].attention == "xla"  # the overlay reached the model
+    assert np.isfinite(out["samples"]).all()
 
 
 @pytest.mark.parametrize("flag", [["--dp", "2"], ["--ema"], ["--fast-gelu"]])

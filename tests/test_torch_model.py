@@ -200,7 +200,6 @@ def test_factory_defaults_match_jax():
 _REFUSED = [
     ({"tp": 2}, "item 11"), ({"sp": True}, "item 11"), ({"moe_experts": 4, "tp": 2}, "item 11"),
     ({"remat": True}, "item 8"), ({"mlp_persist": 2}, "item 8"),
-    ({"attention": "xla"}, "item 9"), ({"image_size": 96}, "item 9"),
 ]
 
 

@@ -117,13 +117,14 @@ def test_expert_tier_matches_jax(jax_gates, D):
 def test_ladders_fall_through_where_jax_runs_its_reference(jax_gates):
     """D = 64 (the CPU tests' tiny models) has no tier in either package:
     the JAX package runs its jnp/XLA reference, and the port its plain MLP
-    and expert FFN on any device; the attention half-block, whose JAX
-    fallback can reach the standalone core K7, raises on the card naming it."""
+    and expert FFN on any device; the attention half-block takes the
+    ladder's third rung, whose core at D = 64 (not a multiple of 128) is
+    XLA's attention in JAX and the plain core in the port."""
     assert tiers.attention_tier(8, 16, 64, 2) is None is jax_attention_tier(8, 16, 64, 2)
     assert tiers.mlp_tier(128, 64, 256) is None is jax_mlp_tier(128, 64, 256)
     assert tiers.expert_tier(4, 64, 64, 256) is None is jax_expert_tier(4, 64, 64, 256)
-    message = str(tiers.no_kernel("x", "(1,)"))
-    assert "K7" in message and "ROADMAP.md Queue 1 items 9 and 11" in message
+    assert tiers.core_tier(8, 16, 64, 2) is None
+    assert tiers.core_tier(8, 16, 128, 2) == "K7"  # D = 128: K7's gate holds
 
 
 @pytest.mark.parametrize("which", ["mlp", "expert"])

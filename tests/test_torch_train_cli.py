@@ -16,6 +16,7 @@ import train_cifar10_dit as jax_cli  # noqa: E402
 import train_cifar10_dit_torch as cli  # noqa: E402
 from ddm_tpu_torch.data.cifar10 import CIFAR10DataConfig  # noqa: E402
 from ddm_tpu_torch.models.factory import MODEL_DEFAULTS, SAMPLER_DEFAULTS  # noqa: E402
+from ddm_tpu_torch.ops import tiers  # noqa: E402
 from ddm_tpu_torch.ops.kernel_config import launch_counts  # noqa: E402
 
 TINY = ["--synthetic", "--epochs", "1", "--batch", "64", "--m", "2", "--embed-dim", "64",
@@ -115,13 +116,19 @@ def test_train_cli_with_m_32_on_cpu(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("size", [96, 112])
 def test_train_cli_refuses_image_sizes_no_kernel_takes(tmp_path, size):
-    """N = 576 and 784 lie between K2's N <= 512 and K8's N >= 1024: the
-    run raises before any data is made."""
-    with mock.patch.object(cli, "build_cifar10_dataloaders") as loaders:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 9"):
+    """N = 576 and 784 lie between K2's N <= 512 and K8's N >= 1024, where
+    no attention kernel of either package runs: the JAX ladder's third rung
+    takes XLA's attention there, and the port's its plain core. The trainer
+    no longer refuses these sizes: it builds the model and goes on to make
+    the data."""
+    with mock.patch.object(cli, "build_cifar10_dataloaders",
+                           side_effect=LookupError("data")) as loaders:
+        with pytest.raises(LookupError, match="data"):
             cli.main(["--synthetic", "--image-size", str(size), "--device", "cpu",
                       "--out", str(tmp_path)])
-    loaders.assert_not_called()
+    loaders.assert_called_once()
+    N = (size // 4) ** 2
+    assert tiers.attention_tier(16, N, 384, 6) is None and tiers.core_tier(16, N, 384, 6) is None
 
 
 @pytest.mark.parametrize("flags,item", [
@@ -129,7 +136,7 @@ def test_train_cli_refuses_image_sizes_no_kernel_takes(tmp_path, size):
     (["--fsdp"], "item 11"), (["--moe-experts", "4", "--tp", "2"], "item 11"),
     (["--remat"], "item 8"),
     (["--mlp-persist", "2"], "item 8"), (["--fast-gelu"], "item 5"),
-    (["--attention", "flash"], "item 9"), (["--grad-accum", "2"], "item 2"),
+    (["--grad-accum", "2"], "item 2"),
     (["--ema-decay", "0.999"], "item 2"), (["--lr-schedule", "cosine"], "item 2"),
     (["--warmup-steps", "10"], "item 2"), (["--eval-every", "1"], "item 3"),
     (["--dry-eval"], "item 3"), (["--wandb"], "item 7"), (["--resume"], "item 2"),

@@ -26,8 +26,14 @@ DiT-B and DiT-L widths (``--embed-dim`` 768 and 1024, the widths of
 ``configs/cifar10_dit_b.yaml`` and ``_l.yaml``) each half-block takes the
 JAX package's tier for its shapes: the split attention backward K4 in place
 of K2b, the MLP forward as K1f (DiT-B) or as k F-chunked partials K6f
-(DiT-L), and the expert FFN's forward as k partials K10p. On
-``--device cpu`` the same step runs the plain PyTorch versions.
+(DiT-L), and the expert FFN's forward as k partials K10p. Where the JAX
+ladder has no half-block tier it runs its third rung, the XLA half-block
+around the standalone core, and so does the port: DiT-L at ``--image-size
+64`` (N = 256) through K7f/K7b, ``--image-size 96`` (N = 576) through the
+plain core (JAX runs XLA's there), and K8 at head widths 32, 64 and 128
+from 128 px. ``--attention xla`` unfuses the attention half as the JAX
+model does (plain attention core, MLP still fused); ``flash`` is ``auto``.
+On ``--device cpu`` the same step runs the plain PyTorch versions.
 
 Not written: the ``*_dynamics.png`` plots (they need matplotlib, which the
 GPU machine does not have); the histories are in ``train_metrics.json`` and
@@ -46,6 +52,8 @@ Usage:
         --moe-capacity 1.25 --moe-group-size 256 --moe-aux-weight 0.01 --epochs 1 --out moe/
     python train_cifar10_dit_torch.py --synthetic --batch 256 --m 8 --embed-dim 1024 \
         --depth 24 --heads 16 --epochs 1 --out dit_l/
+    python train_cifar10_dit_torch.py --synthetic --embed-dim 1024 --depth 24 --heads 16 \
+        --image-size 64 --batch 64 --m 4 --epochs 1 --out dit_l64/
 """
 
 from __future__ import annotations
@@ -93,7 +101,6 @@ NOT_PORTED = {
     "profile_dir": _UTILS, "debug_nans": _UTILS,
     "remat": "Queue 1 item 8 (remat and mlp_persist at the wide widths)",
     "mlp_persist": "Queue 1 item 8 (remat and mlp_persist at the wide widths)",
-    "attention": "Queue 1 item 9 (long sequences)",
     "fast_gelu": "Queue 1 item 5 (fast GELU)",
 }
 METRIC_KEYS = ("loss", "confidence", "interaction", "weight", "moe_aux")
@@ -287,7 +294,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sp", action="store_true", help=later + _PARALLEL)
     p.add_argument("--attention", type=str, default=MODEL_DEFAULTS["attention"],
                    choices=["auto", "xla", "flash"],
-                   help="only auto; " + later + NOT_PORTED["attention"])
+                   help="auto/flash: the fused half-block kernels; xla: the unfused attention "
+                        "half (plain attention core), the MLP half still fused")
     p.add_argument("--synthetic", action="store_true",
                    help="use synthetic CIFAR-shaped data (the only data the port reads)")
     p.add_argument("--resume", action="store_true", help=later + _OPTIONS)
