@@ -13,7 +13,10 @@ m = 32 energy score (``--m 32``, kernel K9) and dense DiT-B/4
 (configs/cifar10_dit_b.yaml's widths: D 768, depth 12, 12 heads); then the
 JAX ladder's third attention rung: DiT-L/4 at 64 px (N = 256, where no
 half-block tier fits) through the standalone attention core K7, K8 at head
-widths 32 and 128, and the plain core at 96 px.
+widths 32 and 128, and the plain core at 96 px; then dense tensor
+parallelism (``--tp 2``): the MLP partial's backward K6b, the TP callers of
+K6f and K7, a two-rank step and trainer on the one card, and sampling the
+TP checkpoint on one card.
 
 Run from the repository root with no arguments:
 
@@ -167,6 +170,36 @@ The third rung, after those:
     K3f, K3b, none of K2f, K2b, K4, K1f; per sampler call 480 of K7f and 960
     of K6f; its peak memory and img/s.
 
+Dense tensor parallelism (``--tp``, Megatron layout), after those:
+
+3k. (tp-kernels) K6f's tensor-parallel entry (``fused_mlp_partial``, one
+    partial in fp32) and K6b (its backward) at the DiT-S ``--tp 2`` shard
+    (131,072 x 384, F 768), K6b at the DiT-B shard (131,072 x 768, F 1536),
+    and K7f/K7b through ``fused_attention`` on three separate q, k, v at
+    (2048, 64, 384) H 6 (the full DiT-S instance's training shape), each
+    against its plain version (K6f by the fp32 partial rule, K6b by the
+    gradient rule and bit-identical on a second call, K7 by the bf16 rule),
+    timed, K7 beside SDPA;
+6j. (train-step-tp) one step of the full tensor-parallel DiT-S instance
+    (the layout a ``--tp`` checkpoint samples with, depth 8, batch 256 x m
+    8) through the kernels twice (bit-identical) against the plain step
+    within twice bf16's own noise; launches 8 each of K7f, K7b, K6f, K6b, 1
+    each of K3f, K3b;
+7j. (train-tp) two ranks on the one card over gloo (NCCL takes one rank
+    per card): (a) one sharded step from the same seeded full weights and
+    injected noise at DiT-S (depth 8) and DiT-B (depth 12) widths, batch 32
+    x m 8, its gathered gradients and loss held to the one-process plain
+    step within twice bf16's noise, each rank launching per step K6f 8, K6b
+    8, K3f 1, K3b 1 and no K7 (DiT-S: the local attention width 192 takes
+    the plain core, as JAX's gate does) and K7f, K7b, K6f, K6b 12 each, K3f,
+    K3b 1 (DiT-B); (b) ``python -m torch.distributed.run --nproc-per-node 2
+    train_cifar10_dit_torch.py --synthetic --tp 2`` at DiT-S depth 8 for one
+    epoch of 8 steps at batch 256 x m 2 (m cut from 8: every step moves four
+    (T, 384) tensors a block through the host), its step time, launches per
+    rank and step, and its rank-0 sampler through the full instance; (c)
+    ``generate_torch`` on its checkpoint (``tp: 2`` in the config), 256 x 20
+    on one card through the full instance: K7f 160, K6f 160.
+
 The DiT-S phases run at full width and depth 8. PERF.md gives the whole
 run's measured time on the card, the kernels' build included, against the
 20 minutes allowed.
@@ -226,6 +259,8 @@ K8_WIDE_HEADS = (12, 3)  # 3j: K8 at D 384 over 12 heads (Dh 32) and 3 (Dh 128)
 # an LN output or hidden entry moves single entries by up to ~1e-3 of the
 # largest, while the bulk agrees to the fp32 sums
 PARTIAL_RTOL = 1e-4
+# tensor parallelism: the two-rank step's batch (7j a) and the trainer's m (7j b)
+TP, TP_STEP_BATCH, TP_TRAIN_M = 2, 32, 2
 # roofline: the published H100 SXM peaks (bf16 tensor cores, fp32 outside
 # them) and the HBM rate; a bound is the larger of bytes / HBM and ops / peak
 PEAK = {"bf16": 989e12, "fp32": 67e12}
@@ -976,6 +1011,7 @@ def plain_ops(replay=None):
     from ddm_tpu_torch import training
     from ddm_tpu_torch.models import dit
     from ddm_tpu_torch.models import moe as MM
+    from ddm_tpu_torch.models.factory import MODEL_DEFAULTS
     from ddm_tpu_torch.ops import attention as A
     from ddm_tpu_torch.ops import energy as E
     from ddm_tpu_torch.ops import expert_ffn as X
@@ -1031,7 +1067,19 @@ def plain_ops(replay=None):
                 *MD.moe_combine_bwd_reference(cfg, o, g, p1, p2, dp), None, None, dp),
             out, gates, pos1, pos2, res)
 
-    with _patched(dit, fused_mlp_block=mlp, fused_attention_block=attn), \
+    def partial(*t):
+        return _Plain.apply(M.mlp_partial_reference, M.mlp_partial_bwd_reference, *t)
+
+    def core(q, k, v, H):
+        # the plain version of the core fused_attention takes at these shapes
+        if tiers.core_tier(*q.shape, H) == "K8":
+            return _Plain.apply(lambda *a: A._flash_core(*a, H),
+                                lambda *a: A._flash_core_bwd(*a, H)[1:], q, k, v)
+        return _Plain.apply(lambda *a: A.attention_reference(*a, H),
+                            lambda *a: A.attention_core_bwd_reference(*a, H), q, k, v)
+
+    with _patched(dit, fused_mlp_block=mlp, fused_attention_block=attn,
+                  fused_mlp_partial=partial, fused_attention=core), \
             _patched(training, fused_energy_terms=energy), \
             _patched(MM, moe_dispatch_thru=dispatch, expert_ffn=ffn, moe_combine_res=combine_res):
         yield
@@ -1773,11 +1821,247 @@ def phase_train_wide(kc, name, smi, label, flags, per_step, per_sample, batch=TR
     return train, generated
 
 
+def phase_tp_kernels(M, A, smi):
+    """3k: K6f's TP entry and K6b at the DiT-S --tp 2 shard, K6b at the DiT-B
+    shard, K7f/K7b through ``fused_attention`` on separate q, k, v. Returns
+    ``([K6b entry], {"K6f": [...], "K7f": [...], "K7b": [...]})``."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    T = TRAIN_BATCH * TRAIN_M * 64
+    shapes = {}
+    D, F = 384, 4 * 384 // TP
+    x, sc, bi, w1, b1, w2, _ = _mlp_args(gen, T, D, F)
+    part = (x, sc, bi, w1, b1, w2)
+    shape = f"(T={T}, D={D}, F={F}) the DiT-S --tp {TP} shard"
+    with torch.no_grad():
+        before = M.PARTIAL_LAUNCHES.count
+        got = M.fused_mlp_partial(*part)
+        torch.cuda.synchronize()
+        if M.PARTIAL_LAUNCHES.count - before != 1:
+            raise AssertionError("fused_mlp_partial did not launch one K6f")
+        pd, pf = (torch.randperm(n, generator=gen, device="cuda") for n in (D, F))
+        reordered = M.mlp_partial_reference(
+            x[:, pd].contiguous(), sc[pd], bi[pd], w1[pf][:, pd], b1[pf], w2[pd][:, pf])
+        reordered = reordered[:, torch.argsort(pd)]
+        ms = _median_ms(lambda: M.fused_mlp_partial(*part))
+        plain_ms = _median_ms(lambda: M.mlp_partial_reference(*part))
+        err = _partial_check("K6f (TP entry)", shape, got, M.mlp_partial_reference(*part),
+                             reordered, ms, plain_ms, smi)
+    shapes["K6f"] = [{"path": "tp", "shape": shape, "max_abs_err": err, "ms": ms,
+                      "plain_ms": plain_ms, **_bound(_nbytes(*part, got), 4 * T * D * F)}]
+    del got, reordered, part, x, w1, w2
+    torch.cuda.empty_cache()
+
+    def k6b_case(D, F):
+        x, sc, bi, w1, b1, w2, _ = _mlp_args(gen, T, D, F)
+        do = torch.randn(T, D, generator=gen, device="cuda")  # fp32: the all-reduced partial's
+        args = (x, sc, bi, w1, b1, w2, do)
+        return ("K6b", f"(T={T}, D={D}, F={F})", lambda: M.mlp_partial_bwd(*args),
+                lambda: M.mlp_partial_bwd_reference(*args), args,
+                # the W1 recompute, dW2, dh, dW1 and dy products
+                10 * T * D * F)
+
+    k6b = []
+    for D, F, path in ((384, 4 * 384 // TP, "tp"), (DIT_B["embed_dim"],
+                                                     4 * DIT_B["embed_dim"] // TP, "tp-dit-b")):
+        case = k6b_case(D, F)
+        times = _time_backward(case, smi, {M.PARTIAL_BWD_LAUNCHES: 2, M.BWD_LAUNCHES: 0})
+        k6b.append(_shape_entry(path, case, times))
+        del case
+        torch.cuda.empty_cache()
+    srcs = ["ddm_tpu_torch/csrc/gemm_bwd.cu", "ddm_tpu_torch/csrc/gemm.cu",
+            "ddm_tpu_torch/csrc/common.cuh"]
+    first = k6b[0]
+    entry = _entry("K6b", srcs[0], srcs, "ddm_tpu/ops/mlp_block.py:218", first["max_abs_err"],
+                   first["ms"], first["plain_ms"],
+                   {k: v for k, v in first.items() if k.startswith("bound")})
+    entry["shape"], entry["shapes"] = first["shape"], k6b[1:]
+
+    # K7 through fused_attention on three separate (B, N, D) tensors
+    B, N, D, H = TRAIN_BATCH * TRAIN_M, 64, 384, 6
+    q, k, v, do = (torch.randn(B, N, D, generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    shape = f"(B={B}, N={N}, D={D}, H={H}) separate q, k, v"
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    before = (A.CORE_LAUNCHES.count, A.CORE_BWD_LAUNCHES.count)
+    o = A.fused_attention(*leaves, H)
+    grads = torch.autograd.grad(o, leaves, do)
+    again = torch.autograd.grad(A.fused_attention(*leaves, H), leaves, do)
+    torch.cuda.synchronize()
+    if (A.CORE_LAUNCHES.count - before[0], A.CORE_BWD_LAUNCHES.count - before[1]) != (2, 2):
+        raise AssertionError(f"fused_attention at {shape} did not take K7f and K7b")
+    if not all(torch.equal(g, h) for g, h in zip(grads, again)):
+        raise AssertionError(f"K7b {shape} is not deterministic: two calls differ")
+    with torch.no_grad():
+        ferr, fmean, ftol, ok = _bf16_errors(o, A.attention_reference(q, k, v, H))
+        parts, berr = [], 0.0
+        for label, g, w in zip(("dq", "dk", "dv"), grads,
+                               A.attention_core_bwd_reference(q, k, v, do, H)):
+            e, mean, tol, good = _bf16_errors(g, w)
+            ok, berr = ok and good, max(berr, e)
+            parts.append(f"{label} max {e:.4g} (tol {tol:.4g}) mean {mean:.3g}")
+        fms = _median_ms(lambda: A.fused_attention(q, k, v, H))
+        fplain = _median_ms(lambda: A.attention_reference(q, k, v, H))
+        bms = _median_ms(lambda: A.attention_core_bwd(q, k, v, do, H))
+        bplain = _median_ms(lambda: A.attention_core_bwd_reference(q, k, v, do, H))
+    lib = _sdpa_ms(q, k, v, do, H)
+    print(f"[kernel] K7f/K7b through fused_attention {shape} bf16: o max_abs_err={ferr:.6g} "
+          f"(tol {ftol:.6g}) mean {fmean:.3g}; " + "; ".join(parts) + f" (second backward "
+          f"bit-identical); K7f {fms:.4f} ms (plain {fplain:.4f}), K7b {bms:.4f} ms (plain "
+          f"{bplain:.4f}); torch scaled_dot_product_attention forward {lib['K8f']:.4f} ms, "
+          f"forward + backward {lib['K8b']:.4f} ms on the same q, k, v (median of 20) on {smi}")
+    if not ok:
+        raise AssertionError(f"K7 through fused_attention {shape} disagrees with its plain version")
+    core = 2 * B * H * N * N * (D // H)
+    shapes["K7f"] = [{"path": "tp", "shape": shape, "max_abs_err": ferr, "ms": fms,
+                      "plain_ms": fplain, **_bound(_nbytes(q, k, v, o), 2 * core),
+                      "library_ms": lib["K8f"]}]
+    shapes["K7b"] = [{"path": "tp", "shape": shape, "max_abs_err": berr, "ms": bms,
+                      "plain_ms": bplain, **_bound(_nbytes(q, k, v, do, *grads), 5 * core),
+                      "library_ms": lib["K8b"]}]
+    return [entry], shapes
+
+
+def _tp_spec(cfg, widths, seed):
+    # no clipped second step: this check holds the gradients and the loss
+    return {"model": {**cfg, **widths, "tp": TP}, "batch": TP_STEP_BATCH, "m": TRAIN_M,
+            "seed": seed, "clip": False}
+
+
+def _tp_parity(cfg, smi, tmp):
+    """7j (a): the two-rank step at DiT-S and DiT-B widths against the
+    one-process plain step, within twice bf16's own noise on it."""
+    from ddm_tpu_torch.parallel import check
+
+    specs = [_tp_spec(cfg, {}, 20), _tp_spec(cfg, DIT_B, 21)]
+    t0 = time.perf_counter()
+    results = check.launch(TP, TP, [{**sp, "model": {**sp["model"], "dtype": "bfloat16"}}
+                                    for sp in specs],
+                           os.path.join(tmp, "tp_step.pt"), os.path.join(tmp, "rdzv"),
+                           device="cuda", timeout=600)
+    seconds = time.perf_counter() - t0
+    for spec, got in zip(specs, results):
+        cfg, depth = spec["model"], spec["model"]["depth"]
+        name = "DiT-S/4" if cfg["embed_dim"] == 384 else "DiT-B/4"
+        weights = check.full_weights(cfg, spec["seed"])
+        inputs = check.step_inputs(cfg, spec["batch"], spec["m"], spec["seed"] + 2)
+        with plain_ops():
+            want = check.oracle_step({**cfg, "dtype": "bfloat16"}, weights, inputs, 1, "cuda")
+            want32 = check.oracle_step({**cfg, "dtype": "float32"}, weights, inputs, 1, "cuda")
+        lines, failed = [], []
+        for k in ("loss", "confidence", "interaction"):
+            g, w, w32 = got["metrics"][k], want["metrics"][k], want32["metrics"][k]
+            err, noise, floor = abs(g - w), 2.0 * abs(w - w32), ENERGY_RTOL * abs(w)
+            tol, rule = max((noise, "noise"), (floor, "floor"))
+            lines.append(f"{k} {g:.6f} vs {w:.6f} (err {err:.3g}, tol {tol:.3g} by {rule})")
+            if not (np.isfinite(g) and err <= tol):
+                failed.append(f"{name}: the two-rank {k} disagrees with the one-process step")
+        worst = ("", 0.0)
+        for k, w in want["grads"].items():
+            err = _rel_frob(got["grads"][k], w)
+            tol = 2.0 * _rel_frob(w, want32["grads"][k])
+            if not (torch.isfinite(got["grads"][k]).all() and err <= tol):
+                failed.append(f"{name}: gradient of {k} disagrees: relF {err:.3g} > tol {tol:.3g}")
+            worst = max(worst, (k, err / tol), key=lambda kv: kv[1])
+        local_d = cfg["embed_dim"] // TP
+        want_launches = {"K6f": depth, "K6b": depth, "K3f": 1, "K3b": 1}
+        if local_d % 128 == 0:  # the JAX gate takes K7 at the local width
+            want_launches.update({"K7f": depth, "K7b": depth})
+        if any(r != want_launches for r in got["launches"]):
+            failed.append(f"{name}: the ranks launched {got['launches']}, each expected "
+                          f"{want_launches}")
+        print(f"[train-tp] {name} two ranks (tp {TP}, gloo, one card) one step (batch "
+              f"{spec['batch']} x m {spec['m']}, depth {depth}, injected t/eps/xi) against the "
+              f"one-process plain step (tol = 2 |plain bf16 - plain fp32|): " + "; ".join(lines)
+              + f"; {len(want['grads'])} gathered gradients, tightest {worst[0]} at "
+              f"{worst[1]:.3f} of tol; launches per rank {got['launches']}; first step "
+              f"{got['first_step_seconds']:.3f} s on {smi}")
+        if failed:
+            raise AssertionError("train-tp: " + "; ".join(failed))
+    return seconds
+
+
+def phase_train_tp(cfg, kc, name, smi):
+    """7j: the two-rank step (a), the trainer through torch.distributed.run
+    (b), and generate_torch on its checkpoint (c). Returns ``(training
+    launches of rank 0, generate_torch's launches)`` for the kernels line."""
+    import generate_torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        parity_s = _tp_parity(cfg, smi, tmp)
+        out = os.path.join(tmp, "run")
+        # "--" ends torch.distributed.run's own options: its parser may take the
+        # trainer's --m for an abbreviation of one of them
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+               str(TP), "--", "train_cifar10_dit_torch.py", "--synthetic", "--tp", str(TP),
+               "--epochs", "1", "--batch", str(TRAIN_BATCH), "--m", str(TP_TRAIN_M),
+               "--sample-batch", "64", "--log-every", "1", "--device", "cuda", "--out", out]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                                start_new_session=True)
+        try:
+            log, _ = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.wait()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"the --tp {TP} trainer exited with {proc.returncode}:\n"
+                                 f"{log[-6000:]}")
+        backend = [ln for ln in log.splitlines() if "torch.distributed backend" in ln]
+        ranks = []
+        for r in range(TP):
+            with open(os.path.join(out, f"result_rank{r}.json"), encoding="utf-8") as f:
+                ranks.append(json.load(f))
+        with open(os.path.join(out, "train_metrics.json"), encoding="utf-8") as f:
+            losses = json.load(f)["loss"]
+        if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+            raise AssertionError(f"--tp {TP} training losses are not {TRAIN_STEPS} finite values")
+        npz = os.path.join(tmp, "s.npz")
+        kc.reset_launch_counts()
+        sampled = generate_torch.main([
+            "--ckpt", os.path.join(out, "model_final.pt"), "--n", str(N_SAMPLES), "--batch",
+            str(N_SAMPLES), "--steps", str(STEPS), "--device", "cuda", "--npz", npz,
+            "--out", ""])
+        generated = kc.launch_counts()
+        samples = np.load(npz)["samples"]
+    if not (samples.shape == (N_SAMPLES, 32, 32, 3) and np.isfinite(samples).all()
+            and samples.min() >= -1 and samples.max() <= 1):
+        raise AssertionError("the TP checkpoint's samples are not finite images in [-1, 1]")
+    per_step = {"K6f": DEPTH, "K6b": DEPTH, "K3f": 1, "K3b": 1}
+    full_sample = {"K7f": DEPTH * STEPS, "K6f": DEPTH * STEPS}
+    failed = []
+    for r, res in enumerate(ranks):
+        train = {k: v for k, v in res["launches"]["train"].items() if v}
+        sample = {k: v for k, v in res["launches"]["sample"].items() if v}
+        want_sample = full_sample if r == 0 else {}  # rank 0 samples 64 through the full instance
+        if train != {k: TRAIN_STEPS * v for k, v in per_step.items()} or sample != want_sample:
+            failed.append(f"rank {r} launched {train} in training and {sample} in its sampler")
+    gen_counts = {k: v for k, v in generated.items() if v}
+    if gen_counts != full_sample:
+        failed.append(f"generate_torch launched {gen_counts}, expected {full_sample}")
+    if failed:
+        raise AssertionError(f"train-tp: {'; '.join(failed)}; expected {per_step} per step and "
+                             f"rank, {full_sample} per sampler call")
+    ms = 1e3 * ranks[0]["seconds_per_step"]
+    rate = N_SAMPLES / sampled["seconds"]
+    print(f"[train-tp] python {' '.join(cmd[1:8])} --tp {TP} --batch {TRAIN_BATCH} --m "
+          f"{TP_TRAIN_M}: {backend}; {TRAIN_STEPS} steps, losses "
+          f"{[round(v, 6) for v in losses]}; warm step {ms:.2f} ms (median of steps "
+          f"2-{TRAIN_STEPS}, rank 0) = {TRAIN_BATCH / ms * 1e3:.2f} img/s on the one card; "
+          f"launches per rank and step {per_step}; the run {seconds:.1f} s, the two-rank step "
+          f"check {parity_s:.1f} s; generate_torch on its checkpoint (tp {TP}): {N_SAMPLES} "
+          f"samples x {STEPS} steps in {sampled['seconds']:.3f} s = {rate:.2f} samples/s through "
+          f"the full instance, launches {gen_counts}; on {name} ({smi})")
+    return {k: ranks[0]["launches"]["train"].get(k, 0) for k in generated}, generated
+
+
 PHASES = ("kernels", "backward", "energy", "flash", "moe-kernels", "slice", "train-step",
           "train-step-128", "train-step-moe", "train", "train-128", "train-moe", "wide-kernels",
           "wide-shapes", "train-step-l", "train-step-moe-b", "train-l", "train-moe-b",
           "attention-256", "dit-b-kernels", "m32-kernels", "train-step-64", "train-step-m32", "train-step-b",
-          "train-64", "train-m32", "train-b", "attention-core", "train-step-l64", "train-l64")
+          "train-64", "train-m32", "train-b", "attention-core", "train-step-l64", "train-l64",
+          "tp-kernels", "train-step-tp", "train-tp")
 # launches per training step and per 20-step sampler call on the wide paths
 L_STEP = {"K2f": DIT_L["depth"], "K4": DIT_L["depth"], "K1b": DIT_L["depth"],
           "K6f": 2 * DIT_L["depth"], "K3f": 1, "K3b": 1}
@@ -1797,6 +2081,8 @@ B_SAMPLE = {"K2f": DIT_B["depth"] * STEPS, "K1f": DIT_B["depth"] * STEPS}
 L64_STEP = {"K7f": DIT_L["depth"], "K7b": DIT_L["depth"], "K1b": DIT_L["depth"],
             "K6f": 2 * DIT_L["depth"], "K3f": 1, "K3b": 1}
 L64_SAMPLE = {"K7f": DIT_L["depth"] * STEPS, "K6f": 2 * DIT_L["depth"] * STEPS}
+# ... and the full tensor-parallel DiT-S instance's step (6j)
+TP_STEP = {"K7f": DEPTH, "K7b": DEPTH, "K6f": DEPTH, "K6b": DEPTH, "K3f": 1, "K3b": 1}
 
 
 def main(argv=None) -> None:
@@ -1868,6 +2154,11 @@ def main(argv=None) -> None:
         ("train-l64", lambda: phase_train_wide(kc, name, smi, "train-l64", _wide_flags(DIT_L),
                                                L64_STEP, L64_SAMPLE, PX64_BATCH, PX64_M,
                                                PX64_SIZE)),
+        ("tp-kernels", lambda: phase_tp_kernels(M, A, smi)),
+        ("train-step-tp", lambda: phase_train_step(
+            {**cfg, "tp": TP}, smi, label="train-step-tp", model_name="DiT-S/4 (full TP instance)",
+            launches=TP_STEP)),
+        ("train-tp", lambda: phase_train_tp(cfg, kc, name, smi)),
     ]
     out = {}
     for phase, fn in steps:
@@ -1891,7 +2182,8 @@ def main(argv=None) -> None:
              "64px": ([], *out["train-64"]),
              "m32": ([energy["K9f"], energy["K9b"]], *out["train-m32"]),
              "dit-b": ([], *out["train-b"]),
-             "dit-l64": (out["attention-core"][0], *out["train-l64"])}
+             "dit-l64": (out["attention-core"][0], *out["train-l64"]),
+             "tp": (out["tp-kernels"][0], *out["train-tp"])}
     kernels = []
     for entries, trained, sampled in paths.values():
         for k in entries:
@@ -1903,7 +2195,7 @@ def main(argv=None) -> None:
         kernels += entries
     for k in kernels:  # the kernels at the other paths' shapes
         for shapes in (out["wide-shapes"], out["attention-256"], out["dit-b-kernels"],
-                       out["m32-kernels"], out["attention-core"][1]):
+                       out["m32-kernels"], out["attention-core"][1], out["tp-kernels"][1]):
             k.setdefault("shapes", []).extend(shapes.get(k["name"], []))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

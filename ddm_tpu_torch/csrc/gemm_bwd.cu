@@ -20,6 +20,13 @@
 //     sums the splits in a fixed order;
 //   * the LayerNorm backward with the residual, one warp per row, writing
 //     dx and per-block column partials of dscale and dbias.
+//
+// K6b, the backward of the tensor-parallel MLP partial (ddm_tpu/ops/
+// mlp_block.py `_partial_bwd_kernel`, `_bwd_body` with no db2 and no
+// residual), is the same chain with three changes: its cotangent arrives
+// in fp32 and one cast kernel rounds it to bf16 for the products (the
+// TPU kernel's `dob`), the dW2 product sums no column (no db2), and the
+// LayerNorm backward runs without the residual term (dres null).
 // No atomics: every sum has one fixed order, so the same inputs give
 // bit-identical gradients.
 //
@@ -36,6 +43,8 @@
 // dh in bf16, gelu'(h) in fp32: ~1.6 GB per call). The products are WMMA
 // (mma.sync) on synchronously loaded tiles, as in gemm.cu; wgmma, TMA and
 // keeping the hidden activation on chip are later work.
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace ddm {
@@ -283,7 +292,8 @@ gemm_tn_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
 
 // LayerNorm backward with the residual over rows of D, one warp per row:
 //   dx = bf16(dres + inv * (dyh - mean(dyh) - xhat * mean(dyh * xhat))),
-//   dyh = dy * scale; per-block column partials of dy * xhat and dy.
+//   dyh = dy * scale; per-block column partials of dy * xhat and dy. A
+//   null dres is K6b's LN backward alone (no residual term).
 constexpr int kLnRows = 64;
 
 __global__ void __launch_bounds__(kThreads)
@@ -326,7 +336,8 @@ ln_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ dy,
     for (int c = lane; c < D; c += 32) {
       const float xhat = (__bfloat162float(xr[c]) - mu) * inv;
       const float g = dyr[c] * scale[c];
-      const float v = __bfloat162float(dres[(size_t)row * D + c]) + inv * (g - m1 - xhat * m2);
+      const float res = dres != nullptr ? __bfloat162float(dres[(size_t)row * D + c]) : 0.f;
+      const float v = res + inv * (g - m1 - xhat * m2);
       dx[(size_t)row * D + c] = __float2bfloat16(v);
     }
   }
@@ -336,6 +347,21 @@ ln_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ dy,
     for (int k = 1; k < kWarps; ++k) t += acc[(size_t)k * 2 * D + c];
     partial[(size_t)blockIdx.x * 2 * D + c] = t;
   }
+}
+
+// dst = bf16(src), four elements a thread per step of a grid-stride loop
+// (src 16-byte and dst 8-byte aligned; the tail one element at a time).
+__global__ void __launch_bounds__(kThreads)
+cast_bf16_kernel(const float* __restrict__ src, bf16* __restrict__ dst, int n) {
+  const int n4 = n / 4;
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < n4; i += gridDim.x * kThreads) {
+    const float4 v = reinterpret_cast<const float4*>(src)[i];
+    __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(dst + 4 * (size_t)i);
+    d[0] = __floats2bfloat162_rn(v.x, v.y);
+    d[1] = __floats2bfloat162_rn(v.z, v.w);
+  }
+  if (blockIdx.x == 0)
+    for (int i = 4 * n4 + threadIdx.x; i < n; i += kThreads) dst[i] = __float2bfloat16(src[i]);
 }
 
 template <int EPI>
@@ -419,8 +445,8 @@ extern "C" int ddm_gemm_tn(const void* a, const void* b, void* ws, void* dw, voi
                           colsum_of_b ? Nb : Ma, (cudaStream_t)stream, batch);
 }
 
-// dx = LN backward + residual; dscale_dbias[2, D] = (sum dy * xhat, sum dy)
-// through partial[ceil(T / 64), 2, D].
+// dx = LN backward + residual (none where dres is null); dscale_dbias[2, D] =
+// (sum dy * xhat, sum dy) through partial[ceil(T / 64), 2, D].
 extern "C" int ddm_ln_bwd(const void* x, const void* dy, const void* dres, const void* scale,
                           void* dx, void* partial, void* dscale_dbias, int T, int D,
                           void* stream) {
@@ -437,4 +463,14 @@ extern "C" int ddm_ln_bwd(const void* x, const void* dy, const void* dres, const
   if (err != cudaSuccess) return (int)err;
   return (int)reduce_rows((const float*)partial, (float*)dscale_dbias, nblk, 2 * D,
                           (cudaStream_t)stream);
+}
+
+// dst[n] = bf16(src[n]): K6b's fp32 cotangent rounded for its products.
+extern "C" int ddm_cast_bf16(const void* src, void* dst, int n, void* stream) {
+  using namespace ddm;
+  const int blocks = (int)std::min<long long>(((long long)n / 4 + kThreads - 1) / kThreads + 1,
+                                              132 * 16);
+  cast_bf16_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>((const float*)src, (bf16*)dst,
+                                                                   n);
+  return (int)cudaGetLastError();
 }

@@ -19,6 +19,23 @@ K10, K12), with ``norm2`` still owned by the block
 (``ddm_tpu/models/dit.py:297-324``), and :meth:`DDDMDiT.tokens_and_aux`
 hands each block's Switch aux term to the training step.
 
+With ``tp > 1`` every block is the JAX model's tensor-parallel block
+(``DiTBlock._tp_call`` and ``_TPAttention``, ``ddm_tpu/models/dit.py:181-249``
+and ``:402-494``, without sequence parallelism), in Megatron's layout: fp32
+LN1 rounded to the compute dtype; f; q, k and v as three compute-dtype
+products with their biases (the rows of the fused ``attn.qkv`` weight,
+``[q | k | v]``); :func:`~ddm_tpu_torch.ops.attention.fused_attention` on
+the rank's heads (K7, K8 or the plain core); the projection in fp32; g;
+``(x + out + bproj)`` rounded once. The MLP half is f on the rows and the
+LN2 parameters,
+:func:`~ddm_tpu_torch.ops.mlp_block.fused_mlp_partial` (K6f, K6b) on the
+rank's hidden shard, g, then ``(x + part + b2)`` rounded once. Given a
+process group (``tp_group``), a block holds only its shard: whole heads of
+q, k and v, rows of ``ff_in``, columns of ``proj`` and ``ff_out``
+(:mod:`ddm_tpu_torch.parallel.sharding`); with none it holds the full
+weights and runs the same code with no collective, the replicated instance
+that sampling uses (JAX's ``tp_axis=None``).
+
 Parameters carry the reference checkpoint's ``state_dict`` names and
 layouts (``patch_embed.proj.weight`` (D, C, p, p), ``blocks.{i}.attn.qkv.*``,
 ``blocks.{i}.ff.net.0.*``, ``norm.*``, ``unembed.proj.*``), so a reference
@@ -41,8 +58,9 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..ops.attention import attention_reference, fused_attention_block
-from ..ops.mlp_block import fused_mlp_block, layer_norm
+from ..ops.attention import attention_reference, fused_attention, fused_attention_block
+from ..ops.mlp_block import fused_mlp_block, fused_mlp_partial, layer_norm, matmul_f32
+from ..parallel.tp import tp_region_enter, tp_region_exit
 from .moe import MoEMLP
 
 __all__ = [
@@ -76,11 +94,15 @@ def sinusoidal_time_embedding(t: torch.Tensor, dim: int, max_period: float = 100
     return emb
 
 
-def _dense(x: torch.Tensor, p: "_Affine", dtype: torch.dtype) -> torch.Tensor:
+def _linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+            dtype: torch.dtype) -> torch.Tensor:
     """Compute-dtype ``x W^T + b`` (the product rounded, then the bias added
     in the compute dtype, as flax's Dense with a bf16 dtype)."""
-    y = torch.matmul(x.to(dtype), p.weight.to(dtype).t())
-    return y + p.bias.to(dtype)
+    return torch.matmul(x.to(dtype), weight.to(dtype).t()) + bias.to(dtype)
+
+
+def _dense(x: torch.Tensor, p: "_Affine", dtype: torch.dtype) -> torch.Tensor:
+    return _linear(x, p.weight, p.bias, dtype)
 
 
 class _Affine(nn.Module):
@@ -94,10 +116,13 @@ class _Affine(nn.Module):
 
 
 class _Attn(nn.Module):
-    def __init__(self, dim: int, device=None):
+    """``qkv`` and ``proj``; ``width`` is the q, k, v width a rank holds."""
+
+    def __init__(self, dim: int, device=None, width: Optional[int] = None):
         super().__init__()
-        self.qkv = _Affine((3 * dim, dim), (3 * dim,), device)
-        self.proj = _Affine((dim, dim), (dim,), device)
+        width = dim if width is None else width
+        self.qkv = _Affine((3 * width, dim), (3 * width,), device)
+        self.proj = _Affine((dim, width), (dim,), device)
 
 
 class _FeedForward(nn.Module):
@@ -117,10 +142,12 @@ class DiTBlock(nn.Module):
     """Pre-LN block: the attention half-block (fused, or with ``attention=
     "xla"`` the unfused one) then the MLP half-block, dense or (``moe``
     given: ``num_experts``, ``capacity``, ``group_size``, ``topk``)
-    mixture-of-experts."""
+    mixture-of-experts; with ``tp > 1`` the tensor-parallel block, holding
+    the shard of ``tp_group``'s rank (the full weights with no group)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, device=None,
-                 moe: Optional[dict] = None, attention: str = "auto"):
+                 moe: Optional[dict] = None, attention: str = "auto", tp: int = 1,
+                 tp_group=None):
         super().__init__()
         if dim % num_heads:
             raise ValueError("dim must be divisible by num_heads")
@@ -128,14 +155,16 @@ class DiTBlock(nn.Module):
             raise ValueError(f"attention must be one of {ATTENTION_IMPLS}, got {attention!r}")
         self.num_heads = num_heads
         self.attention = attention
+        self.tp, self.tp_group = tp, tp_group
+        shards = tp if tp_group is not None else 1
         hidden = int(dim * mlp_ratio)
         self.norm1 = _Affine((dim,), (dim,), device)
-        self.attn = _Attn(dim, device)
+        self.attn = _Attn(dim, device, dim // shards)
         self.norm2 = _Affine((dim,), (dim,), device)
         if moe:
             self.moe = MoEMLP(dim, hidden, device=device, **moe)
         else:
-            self.ff = _FeedForward(dim, hidden, device)
+            self.ff = _FeedForward(dim, hidden // shards, device)
 
     def _unfused_attention(self, x: torch.Tensor) -> torch.Tensor:
         D, dt = x.shape[-1], x.dtype
@@ -143,9 +172,47 @@ class DiTBlock(nn.Module):
         q, k, v = _dense(h, self.attn.qkv, dt).split(D, dim=-1)
         return x + _dense(attention_reference(q, k, v, self.num_heads), self.attn.proj, dt)
 
+    def _tp_attention(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """``_TPAttention``: column-parallel q, k, v on the rank's heads, the
+        core, the row-parallel projection in fp32, g, the bias and the
+        residual added once."""
+        group, dt = self.tp_group, x.dtype
+        heads = self.num_heads // (self.tp if group is not None else 1)
+        if group is not None:
+            h = tp_region_enter(h, group)
+        w, b = self.attn.qkv.weight, self.attn.qkv.bias
+        width = w.shape[0] // 3
+        q, k, v = (_linear(h, w[i * width:(i + 1) * width], b[i * width:(i + 1) * width], dt)
+                   for i in range(3))
+        core = attention_reference if self.attention == "xla" else fused_attention
+        out = matmul_f32(core(q, k, v, heads), self.attn.proj.weight, dt)
+        if group is not None:
+            out = tp_region_exit(out, group)
+        return (x.float() + out + self.attn.proj.bias.float()).to(dt)
+
+    def _tp_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """``DiTBlock._tp_call`` without sequence parallelism."""
+        B, N, D = x.shape
+        group = self.tp_group
+        h = layer_norm(x.float(), self.norm1.weight, self.norm1.bias).to(x.dtype)
+        x = self._tp_attention(h, x)
+        rows = x.reshape(B * N, D)
+        rows_in, s2, b2 = rows, self.norm2.weight, self.norm2.bias
+        if group is not None:
+            # the LayerNorm runs inside the partial on every rank: its input
+            # and parameters get partial cotangents that f sums
+            rows_in, s2, b2 = (tp_region_enter(t, group) for t in (rows, s2, b2))
+        ff_in, ff_out = self.ff.net["0"], self.ff.net["2"]
+        part = fused_mlp_partial(rows_in, s2, b2, ff_in.weight, ff_in.bias, ff_out.weight)
+        if group is not None:
+            part = tp_region_exit(part, group)
+        return (rows.float() + part + ff_out.bias.float()).to(x.dtype).reshape(B, N, D)
+
     def forward(self, x: torch.Tensor):
         """``(x, aux)``: the block's output and its MoE aux term (None for a
         dense block)."""
+        if self.tp > 1:
+            return self._tp_forward(x), None
         B, N, D = x.shape
         if self.attention == "xla":
             x = self._unfused_attention(x)
@@ -172,6 +239,9 @@ class DDDMDiT(nn.Module):
     ``model(xt, t, xi) -> x0_hat`` with ``xt``/``xi`` of identical shape
     ``(B, H, W, C)`` and ``t`` of shape ``[B]``. ``in_channels`` counts the
     concatenated [xt, xi] input. Defaults are DiT-S/4 on 32x32 images.
+    ``tp > 1`` selects the tensor-parallel blocks; ``tp_group``, a process
+    group of ``tp`` ranks, makes this instance one rank's shard (None: the
+    full weights, no collective).
     """
 
     def __init__(
@@ -192,10 +262,23 @@ class DDDMDiT(nn.Module):
         moe_group_size: int = 0,
         moe_topk: int = 1,
         attention: str = "auto",
+        tp: int = 1,
+        tp_group=None,
     ):
         super().__init__()
         if img_size % patch_size:
             raise ValueError("Image size must be divisible by patch size")
+        hidden = int(embed_dim * mlp_ratio)
+        if tp > 1 and (embed_dim % tp or num_heads % tp or hidden % tp):
+            raise ValueError("tp must divide embed_dim, num_heads, and the MLP hidden size (got "
+                             f"tp={tp}, dim={embed_dim}, heads={num_heads}, hidden={hidden})")
+        if tp > 1 and moe_experts > 1:
+            raise NotImplementedError("the PyTorch port does not support tp > 1 with moe_experts "
+                                      "> 1 (expert parallelism) yet: ROADMAP.md Queue 1 item 11")
+        if tp_group is not None and torch.distributed.get_world_size(tp_group) != tp:
+            raise ValueError(f"tp={tp} but the model group has "
+                             f"{torch.distributed.get_world_size(tp_group)} ranks")
+        self.tp, self.tp_group = tp, tp_group
         self.img_size, self.patch_size = img_size, patch_size
         self.in_channels, self.out_channels = in_channels, out_channels
         self.embed_dim, self.time_embed_dim = embed_dim, time_embed_dim
@@ -213,7 +296,8 @@ class DDDMDiT(nn.Module):
         moe = (dict(num_experts=moe_experts, capacity=moe_capacity, group_size=moe_group_size,
                     topk=moe_topk) if moe_experts > 1 else None)
         self.blocks = nn.ModuleList(
-            [DiTBlock(D, num_heads, mlp_ratio, device, moe, attention) for _ in range(depth)])
+            [DiTBlock(D, num_heads, mlp_ratio, device, moe, attention, tp, tp_group)
+             for _ in range(depth)])
         self.norm = _Affine((D,), (D,), device)
         self.unembed = nn.ModuleDict(
             {"proj": _Affine((out_channels * p * p, D), (out_channels * p * p,), device)})

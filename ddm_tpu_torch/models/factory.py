@@ -3,9 +3,11 @@
 
 Port of ``ddm_tpu/models/factory.py``. The defaults match the JAX package's
 (and the reference trainer's model flags). The port runs the replicated
-path, dense or mixture-of-experts (``moe_experts > 1``): every key that
-selects another path raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item, and none is silently ignored.
+path, dense or mixture-of-experts (``moe_experts > 1``), and dense
+tensor parallelism (``tp > 1``: a rank's shard given a model group, else
+the full instance a TP checkpoint samples with): every key that selects
+another path raises ``NotImplementedError`` naming its ``ROADMAP.md`` item,
+and none is silently ignored.
 """
 
 from __future__ import annotations
@@ -52,8 +54,10 @@ def _as_mapping(cfg: Any) -> Mapping:
     return cfg if isinstance(cfg, Mapping) else vars(cfg)
 
 
-def build_model(cfg: Any, device: torch.device | str = "cpu") -> DDDMDiT:
-    """Construct ``DDDMDiT`` from a config mapping or namespace on ``device``.
+def build_model(cfg: Any, device: torch.device | str = "cpu", tp_group=None) -> DDDMDiT:
+    """Construct ``DDDMDiT`` from a config mapping or namespace on ``device``;
+    with ``tp > 1``, the shard of ``tp_group``'s rank (with no group, the
+    full tensor-parallel instance, as JAX's ``tp_axis=None``).
 
     Keys missing from ``cfg`` (or ``None``) take :data:`MODEL_DEFAULTS`.
     Parameters are left uninitialised: load a ``state_dict`` or call
@@ -74,7 +78,6 @@ def build_model(cfg: Any, device: torch.device | str = "cpu") -> DDDMDiT:
         return MODEL_DEFAULTS[key] if value is None else value
 
     unsupported = [
-        (int(get("tp")) > 1, "tp > 1", "Queue 1 item 11 (parallelism)"),
         (bool(get("sp")), "sp", "Queue 1 item 11 (parallelism)"),
         (bool(get("remat")), "remat", _WIDE),
         (int(get("mlp_persist")) > 0, "mlp_persist > 0", _WIDE),
@@ -104,6 +107,8 @@ def build_model(cfg: Any, device: torch.device | str = "cpu") -> DDDMDiT:
         moe_group_size=int(get("moe_group_size")),
         moe_topk=int(get("moe_topk")),
         attention=str(get("attention")),
+        tp=int(get("tp")),  # DDDMDiT refuses tp > 1 with experts (expert parallelism)
+        tp_group=tp_group,
     )
 
 

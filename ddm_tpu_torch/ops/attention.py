@@ -57,6 +57,12 @@ qkv GEMM, that core, and the projection GEMM with the residual. The cores:
 - none (XLA's ``attention_reference`` in the JAX package): the plain core,
   on the card too.
 
+:func:`fused_attention` is ``fused_attention`` of ``ddm_tpu/ops/attention.py:248``
+alone, differentiable over three (B, N, H*Dh) tensors q, k and v (the
+tensor-parallel half-block's three column-parallel products, never packed
+into one buffer): the same core, K7f/K7b (read in place, one row stride
+each), K8, or the plain core on the device.
+
 The forward saves ``(x, att)``, and K8's ``lse``, as JAX's custom VJPs save
 their outputs, so the backward recomputes the qkv GEMM but not the
 attention output that the projection's weight gradient reads. The weight
@@ -91,6 +97,7 @@ __all__ = [
     "rung3_block_bwd_reference",
     "launch_k7f",
     "launch_k7b",
+    "fused_attention",
     "fused_attention_block",
     "supported_tokens",
     "LAUNCHES",
@@ -481,18 +488,20 @@ class _AttentionBlock(torch.autograd.Function):
 
 # --- the third rung: the standalone cores K7 and K8, or the plain core ---
 
-def _check_core(q, k, v, H: int) -> None:
-    """Shapes and types K7f and K7b take: bf16 (B, N, H*Dh) q, k and v of one
-    shape, with N and Dh their cores take."""
+def _check_core(q, k, v, H: int, core="K7") -> None:
+    """Shapes and types the standalone cores take: bf16 (B, N, H*Dh) q, k and
+    v of one shape, with N and Dh the port's ``core`` takes (``None``: the
+    plain core, any)."""
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"K7 takes bf16 q, k and v, got {q.dtype}, {k.dtype}, {v.dtype}")
+        raise TypeError(f"the attention cores take bf16 q, k and v, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
     if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"K7 takes (B, N, H*Dh) q, k and v of one shape, got "
+        raise ValueError(f"the attention cores take (B, N, H*Dh) q, k and v of one shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     B, N, D = q.shape
     if D % H:
         raise ValueError(f"D={D} is not divisible by H={H}")
-    _refuse_unported_core("K7", N, D // H)
+    _refuse_unported_core(core, N, D // H)
 
 
 def _refuse_unported_core(core, N: int, Dh: int) -> None:
@@ -606,6 +615,59 @@ class _Rung3Block(torch.autograd.Function):
         else:
             grads = rung3_block_bwd_reference(*args, H, dout, core)
         return tuple(g.to(a.dtype) for g, a in zip(grads, args)) + (None, None)
+
+
+class _Attention(torch.autograd.Function):
+    """The standalone core that ``tiers.core_tier`` picks, over q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, H, core):
+        ctx.heads, ctx.core = H, core
+        if not uses_kernel(q, k, v):
+            ctx.save_for_backward(q, k, v)
+            return _flash_core(q, k, v, H) if core == "K8" else attention_reference(q, k, v, H)
+        _check_core(q, k, v, H, core)
+        D = q.shape[-1]
+        lse = None
+        if core == "K7":
+            o = launch_k7f(q, k, v, H)
+        elif core == "K8":
+            o, lse = flash.launch_k8f(q, k, v, H, (D // H) ** -0.5)
+        else:
+            o = attention_reference(q, k, v, H)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, *saved = ctx.saved_tensors
+        H, core = ctx.heads, ctx.core
+        D = q.shape[-1]
+        if not uses_kernel(q, k, v, do):
+            grads = (_flash_core_bwd(q, k, v, do, H)[1:] if core == "K8" else
+                     attention_core_bwd_reference(q, k, v, do, H))
+        elif core == "K7":
+            grads = launch_k7b(q, k, v, do, H).split(D, dim=-1)
+        elif core == "K8":
+            o, lse = saved
+            grads = flash.launch_k8b(q, k, v, o, lse, do, H, (D // H) ** -0.5).split(D, dim=-1)
+        else:
+            grads = attention_core_bwd_reference(q, k, v, do, H)
+        return (*(g.to(t.dtype) for g, t in zip(grads, (q, k, v))), None, None)
+
+
+def fused_attention(q, k, v, H: int):
+    """Multi-head attention over (B, N, H*Dh) q, k and v, heads contiguous,
+    with its backward: the core ``tiers.core_tier`` picks from the shapes,
+    as JAX's ``fused_attention`` gates do. CUDA tensors launch K7f/K7b or
+    K8f/K8b (bf16, or raise where the port lacks the kernel JAX would run),
+    or run the plain core where JAX runs XLA's; CPU tensors take the plain
+    versions (:func:`attention_reference` and
+    :func:`attention_core_bwd_reference`, or K8's)."""
+    B, N, D = q.shape
+    if D % H:
+        raise ValueError(f"D={D} is not divisible by H={H}")
+    return _Attention.apply(q, k, v, H, tiers.core_tier(B, N, D, H))
 
 
 def fused_attention_block(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H: int):

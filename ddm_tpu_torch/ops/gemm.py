@@ -18,7 +18,7 @@ import torch
 from .kernel_config import check_status, current_stream, load_library
 
 __all__ = ["ln_gemm", "gemm_residual", "gemm_partial", "gemm_nn", "gemm_tn", "ln_bwd",
-           "tn_splits"]
+           "cast_bf16", "tn_splits"]
 
 # ln_gemm epilogues (csrc/gemm.cu LnGemmEpi)
 EPI_BIAS, EPI_GELU, EPI_GELU_GRAD = 0, 1, 2
@@ -165,14 +165,25 @@ def gemm_tn(a, b, with_colsum: bool = False, colsum_of_b: bool = False):
 
 
 def ln_bwd(x, dy, dres, scale):
-    """LayerNorm backward plus the residual over (T, D) rows ->
-    ``(dx bf16, dscale fp32, dbias fp32)``."""
+    """LayerNorm backward plus the residual ``dres`` (None: the LN backward
+    alone) over (T, D) rows -> ``(dx bf16, dscale fp32, dbias fp32)``."""
     T, D = x.shape
     dev = x.device
     dx = torch.empty_like(x)
     partial = torch.empty((-(-T // _BM), 2, D), dtype=torch.float32, device=dev)
     sums = torch.empty((2, D), dtype=torch.float32, device=dev)
     check_status(load_library().ddm_ln_bwd(
-        x.data_ptr(), dy.data_ptr(), dres.data_ptr(), scale.data_ptr(), dx.data_ptr(),
+        x.data_ptr(), dy.data_ptr(), _ptr(dres), scale.data_ptr(), dx.data_ptr(),
         partial.data_ptr(), sums.data_ptr(), T, D, current_stream(dev)), "ln_bwd")
     return dx, sums[0], sums[1]
+
+
+def cast_bf16(src):
+    """``bf16(src)`` of an fp32 tensor, in a new contiguous tensor."""
+    src = src.contiguous()
+    if src.data_ptr() % 16:
+        src = src.clone()
+    dst = torch.empty(src.shape, dtype=torch.bfloat16, device=src.device)
+    check_status(load_library().ddm_cast_bf16(
+        src.data_ptr(), dst.data_ptr(), src.numel(), current_stream(src.device)), "cast_bf16")
+    return dst

@@ -68,6 +68,8 @@ _SIGNATURES = {
     "ddm_gemm_tn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, dy, dres, scale, dx, partial, dscale_dbias, T, D, stream
     "ddm_ln_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # src, dst, n, stream
+    "ddm_cast_bf16": [_P, _P, _I, _P],
     # xh, x0, part, partial, out, B, m, D, L, beta, stream
     "ddm_energy_fwd": [_P] * 5 + [_I] * 4 + [_F, _P],
     # xh, x0, g, part, coef, dxh, dx0, B, m, D, L, beta, stream

@@ -32,6 +32,20 @@ the port runs K1b's chain there, which keeps dW in fp32 where XLA rounds the
 weight cotangents to bf16. Where the ladder has no tier the JAX package
 runs its jnp reference, and the port its plain versions, forward and
 backward, on CUDA tensors too.
+
+The tensor-parallel partial (``fused_mlp_partial`` of
+``ddm_tpu/ops/mlp_block.py:652``): :func:`fused_mlp_partial` computes
+``gelu(LN(x) w1^T + b1) w2^T`` in fp32 with no output bias and no residual,
+on a rank's shard of the hidden axis; the caller all-reduces it and adds
+``b2`` and the residual once. Its dispatch is the JAX ladder's without the
+F-chunked tier: at ``fused`` and ``fwdonly`` the forward is one K6f
+(:func:`mlp_partial_reference` is its plain version) and the backward is
+K6b (``_partial_bwd_kernel``; :func:`mlp_partial_bwd_reference`), K1b's
+chain with an fp32 cotangent rounded to bf16 for the products, no db2, and
+the LayerNorm backward without the residual. In the ``fwdonly`` tier the
+JAX backward is XLA's autodiff of the plain partial; the port runs K6b
+there, as it runs K1b in the wide tiers. Where the ladder has no tier, both
+directions take the plain versions on any device.
 """
 
 from __future__ import annotations
@@ -48,11 +62,15 @@ __all__ = [
     "mlp_block_reference",
     "mlp_block_fchunked_reference",
     "mlp_partial_reference",
+    "mlp_partial_bwd_reference",
+    "mlp_partial_bwd",
+    "fused_mlp_partial",
     "mlp_block_bwd",
     "mlp_block_bwd_reference",
     "LAUNCHES",
     "BWD_LAUNCHES",
     "PARTIAL_LAUNCHES",
+    "PARTIAL_BWD_LAUNCHES",
     "layer_norm",
 ]
 
@@ -60,6 +78,7 @@ LN_EPS = 1e-6
 LAUNCHES = LaunchCounter("K1f")
 BWD_LAUNCHES = LaunchCounter("K1b")
 PARTIAL_LAUNCHES = LaunchCounter("K6f")  # one per hidden chunk
+PARTIAL_BWD_LAUNCHES = LaunchCounter("K6b")
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 _INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
 
@@ -168,6 +187,28 @@ def mlp_block_bwd_reference(x, scale, bias, w1, b1, w2, b2, dout):
     return dx.to(dtype), dscale, dbias, dw1, db1, dw2, db2
 
 
+def mlp_partial_bwd_reference(x, scale, bias, w1, b1, w2, do):
+    """Plain PyTorch version of K6b: the gradients of
+    :func:`mlp_partial_reference` with respect to ``(x, scale, bias, w1,
+    b1, w2)`` for the fp32 cotangent ``do``, by ``_bwd_body``'s rounding
+    plan with no db2 and no residual: ``do`` rounded to ``x.dtype`` for the
+    products, db1 summed over the unrounded dh, dx the LayerNorm backward
+    alone."""
+    dtype = x.dtype
+    rnd = lambda t: t.to(dtype).float()  # noqa: E731
+    xhat, inv = ln_stats(x.float())
+    y = rnd(xhat * scale.float() + bias.float())
+    h = y @ rnd(w1).t() + b1.float()
+    gf, dfac = _gelu_and_grad(h)
+    dob = rnd(do.float())
+    dw2 = dob.t() @ rnd(gf)
+    dh = (dob @ rnd(w2)) * dfac
+    dhb = rnd(dh)
+    dw1 = dhb.t() @ y
+    dx, dscale, dbias = layer_norm_bwd(dhb @ rnd(w1), xhat, inv, scale, 0.0)
+    return dx.to(dtype), dscale, dbias, dw1, dh.sum(0), dw2
+
+
 def _check(x, scale, bias, w1, b1, w2, b2, kernel="K1"):
     if x.dtype != torch.bfloat16:
         raise TypeError(f"{kernel} takes bf16 activations, got {x.dtype}")
@@ -188,10 +229,10 @@ def _check(x, scale, bias, w1, b1, w2, b2, kernel="K1"):
         raise ValueError(f"{kernel} needs contiguous activations")
 
 
-def _kernel_operands(scale, bias, w1, b1, w2, b2):
+def _kernel_operands(scale, bias, w1, b1, w2, b2=None):
     bf = lambda t: t.to(torch.bfloat16).contiguous()  # noqa: E731
     f32 = lambda t: t.float().contiguous()  # noqa: E731
-    return f32(scale), f32(bias), bf(w1), f32(b1), bf(w2), f32(b2)
+    return f32(scale), f32(bias), bf(w1), f32(b1), bf(w2), None if b2 is None else f32(b2)
 
 
 def _k1f(x, scale, bias, w1, b1, w2, b2):
@@ -237,6 +278,76 @@ def _k1b(x, scale, bias, w1, b1, w2, b2, dout):
     dx, dscale, dbias = gemm.ln_bwd(x, dy, dob, s)
     BWD_LAUNCHES.add()
     return dx, dscale, dbias, dw1, db1, dw2, db2
+
+
+def _k6f_partial(x, scale, bias, w1, b1, w2):
+    """The tensor-parallel partial on the card: one K6f into a new fp32 (T, D)."""
+    s, bb, w1b, b1f, w2b, _ = _kernel_operands(scale, bias, w1, b1, w2)
+    acc = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    _k6f(x, s, bb, w1b, b1f, w2b, gemm.PART_STORE, acc)
+    return acc
+
+
+def _k6b(x, scale, bias, w1, b1, w2, do):
+    if do.shape != x.shape:
+        raise ValueError(f"K6b cotangent must be {tuple(x.shape)}, got {tuple(do.shape)}")
+    s, bb, w1b, b1f, w2b, _ = _kernel_operands(scale, bias, w1, b1, w2)
+    dob = gemm.cast_bf16(do.float())
+    g, dfac, y = gemm.ln_gemm(x, s, bb, w1b, b1f, gemm.EPI_GELU_GRAD, with_y=True)
+    dw2, _ = gemm.gemm_tn(dob, g)
+    del g
+    dhb, db1 = gemm.gemm_nn(dob, w2b, gemm.NN_DGELU, dfac=dfac)
+    del dfac
+    dw1, _ = gemm.gemm_tn(dhb, y)
+    dy = gemm.gemm_nn(dhb, w1b, gemm.NN_F32)
+    del dhb
+    dx, dscale, dbias = gemm.ln_bwd(x, dy, None, s)
+    PARTIAL_BWD_LAUNCHES.add()
+    return dx, dscale, dbias, dw1, db1, dw2
+
+
+def mlp_partial_bwd(x, scale, bias, w1, b1, w2, do):
+    """The gradients of :func:`fused_mlp_partial` for the fp32 cotangent
+    ``do``: K6b on CUDA tensors (or raise), :func:`mlp_partial_bwd_reference`
+    on CPU tensors."""
+    if not uses_kernel(x, scale, bias, w1, b1, w2, do):
+        return mlp_partial_bwd_reference(x, scale, bias, w1, b1, w2, do)
+    _check(x, scale, bias, w1, b1, w2, None, kernel="K6b")
+    return _k6b(x, scale, bias, w1, b1, w2, do)
+
+
+class _MLPPartial(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias, w1, b1, w2):
+        args = (x, scale, bias, w1, b1, w2)
+        ctx.save_for_backward(*args)
+        tier = tiers.mlp_tier(*x.shape, w1.shape[0])
+        ctx.plain = not uses_kernel(*args) or tier is None or tier[0] == "fchunked"
+        if ctx.plain:
+            return mlp_partial_reference(*args)
+        _check(x, scale, bias, w1, b1, w2, None, kernel="K6f")
+        return _k6f_partial(*args)
+
+    @staticmethod
+    def backward(ctx, do):
+        args = ctx.saved_tensors
+        grads = (mlp_partial_bwd_reference(*args, do) if ctx.plain else
+                 mlp_partial_bwd(*args, do))
+        return tuple(g.to(a.dtype) for g, a in zip(grads, args))
+
+
+def fused_mlp_partial(x, scale, bias, w1, b1, w2):
+    """``gelu(LN(x) w1^T + b1) w2^T`` over (T, D) rows in fp32, with its
+    backward: a tensor-parallel rank's partial product before the
+    all-reduce, with no output bias and no residual (``w1 (F_local, D)``,
+    ``w2 (D, F_local)``).
+
+    CUDA tensors launch K6f forward and K6b backward where the JAX ladder
+    has the ``fused`` or ``fwdonly`` tier (or raise); elsewhere, and on CPU
+    tensors, :func:`mlp_partial_reference` and
+    :func:`mlp_partial_bwd_reference`.
+    """
+    return _MLPPartial.apply(x, scale, bias, w1, b1, w2)
 
 
 def mlp_block_bwd(x, scale, bias, w1, b1, w2, b2, dout):

@@ -21,6 +21,13 @@ with ``kernels_enabled()`` taken as true, of:
 - ``ddm_tpu/ops/expert_ffn.py``: ``expert_ffn_ok``, ``_expert_fwd_fchunks``
   and ``expert_ffn_fwd_ok``.
 
+The tensor-parallel MLP partial (``fused_mlp_partial``) takes
+:func:`mlp_tier` without its F-chunked tier, as JAX's does: at ``fused``
+its forward is K6f and its backward K6b, as on the TPU; at ``fwdonly`` JAX
+runs K6f and then XLA's backward, and the port runs K6b there (as it runs
+K1b after the wide tiers' forwards); elsewhere both packages run the plain
+partial.
+
 The three half-block choosers return ``None`` where the JAX ladder falls
 through to its jnp/XLA reference. There the MLP half-block and the expert
 FFN run no kernel in the JAX package, and the port runs their plain

@@ -10,7 +10,13 @@ reference_state_dict_from_dit`` without importing the JAX package:
   * the unembed columns are ``(ph, pw, c)``; the reference rows ``(c, ph, pw)``;
   * LayerNorm ``scale`` -> ``weight``;
   * a tp>1 tree's separate q/k/v projections re-fuse into one qkv weight
-    (rows ``[q | k | v]``, heads contiguous);
+    (rows ``[q | k | v]``, heads contiguous). The port's tensor-parallel
+    model keeps this one fused key (the reference checkpoint's) and splits
+    it by rows into q, k and v, and a rank's shard into each third's heads
+    (:mod:`ddm_tpu_torch.parallel.sharding`), so one ``state_dict`` loads
+    into the replicated and the tensor-parallel model alike;
+    :func:`jax_tree_from_state_dict` with ``tp > 1`` gives JAX's three
+    ``attn/{q,k,v}`` projections back;
   * an MoE block's ``moe`` leaves (``block_i/moe/{router_kernel,
     router_bias, experts_in, experts_in_bias, experts_out,
     experts_out_bias}``) take the port's own keys, since the reference
@@ -107,12 +113,15 @@ def jax_tree_from_state_dict(
     patch_size: int,
     in_channels: int = 6,
     out_channels: int = 3,
+    tp: int = 1,
 ) -> Dict[str, Any]:
-    """The inverse of :func:`state_dict_from_jax` for the fused-qkv tree: the
-    port's ``{name: array}`` (parameters or their gradients, as numpy or
-    tensors) -> ``{"params": ...}`` in ``ddm_tpu``'s layout, as numpy fp32.
-    Pure numpy, so ``jax.grad``'s tree and the port's ``.grad`` compare leaf
-    by leaf."""
+    """The inverse of :func:`state_dict_from_jax`: the port's ``{name:
+    array}`` (parameters or their gradients, as numpy or tensors) ->
+    ``{"params": ...}`` in ``ddm_tpu``'s layout, as numpy fp32: the fused
+    ``attn/qkv`` tree, or with ``tp > 1`` (a tensor-parallel model's full
+    ``state_dict``) the separate ``attn/{q,k,v}`` of JAX's tp>1 tree. Pure
+    numpy, so ``jax.grad``'s tree and the port's ``.grad`` compare leaf by
+    leaf."""
     sd = {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else _np(v))
           for k, v in tensors.items()}
     ps, ci, co = patch_size, in_channels, out_channels
@@ -142,8 +151,15 @@ def jax_tree_from_state_dict(
     i = 0
     while f"blocks.{i}.norm1.weight" in sd:
         rb = f"blocks.{i}"
+        qkv = dense(f"{rb}.attn.qkv")
+        if tp > 1:  # JAX's column-parallel q, k and v: the thirds of [q | k | v]
+            w, b = np.split(qkv["kernel"], 3, axis=1), np.split(qkv["bias"], 3)
+            attn = {n: {"kernel": w[i].copy(), "bias": b[i].copy()}
+                    for i, n in enumerate(("q", "k", "v"))}
+        else:
+            attn = {"qkv": qkv}
         block = {
-            "attn": {"qkv": dense(f"{rb}.attn.qkv"), "proj": dense(f"{rb}.attn.proj")},
+            "attn": {**attn, "proj": dense(f"{rb}.attn.proj")},
             "norm1": ln(f"{rb}.norm1"),
             "norm2": ln(f"{rb}.norm2"),
         }

@@ -10,7 +10,12 @@ tokens; K1f and K8f at ``image_size`` 128 to 512; K11f, K10f and K12f
 in place of K1f for a checkpoint trained with ``--moe-experts``; K6f, the
 F-chunked MLP partial, in place of K1f at the DiT-L width, and K10p in place
 of K10f for an MoE at D >= 768; the third rung's K7f at DiT-L and 64 px,
-and the plain attention core at 96 px or with ``attention: xla``).
+and the plain attention core at 96 px or with ``attention: xla``). A
+checkpoint trained with ``--tp N`` (``tp: N`` in its config) samples on one
+card through the full tensor-parallel instance, as JAX's ``generate.py``
+rebuilds it with ``tp_axis=None``: q, k and v as three products around the
+standalone core (K7f where the JAX gate takes it) and the MLP as the
+partial K6f, whose fp32 sum takes the bias and the residual once.
 ``train_cifar10_dit_torch.py`` writes checkpoints in the payload this
 script reads.
 

@@ -15,6 +15,10 @@ widths):
     python3 profile_torch_step.py --batch 256 --m 32 --profile-samples 64
     python3 profile_torch_step.py --embed-dim 1024 --depth 24 --heads 16 --image-size 64 \
         --batch 64 --m 4 --profile-samples 64
+    python3 profile_torch_step.py --tp 2 --profile-samples 256
+
+(``--tp N`` profiles the full tensor-parallel instance in one process: the
+layout a ``--tp`` checkpoint samples with, K7 and the partial K6f/K6b.)
 
 On one seeded model and one batch it runs 3 warm-up steps, then
 
@@ -50,7 +54,7 @@ WARMUP, TIMED, TOP_ROWS = 3, 10, 24  # steps before timing, steps timed, kernel 
 # launcher serves K2b and K4, and its span takes the label whose count rose
 LAUNCHERS = [
     ("mlp_block", "_k1f", "K1f"), ("mlp_block", "_k1b", "K1b"),
-    ("mlp_block", "_k6f", "K6f"),
+    ("mlp_block", "_k6f", "K6f"), ("mlp_block", "_k6b", "K6b"),
     ("attention", "_k2f", "K2f"), ("attention", "_k2b", ("K2b", "K4")),
     ("energy", "energy_terms", ("K3f", "K9f")), ("energy", "energy_terms_bwd", ("K3b", "K9b")),
     ("attention", "launch_k7f", "K7f"), ("attention", "launch_k7b", "K7b"),

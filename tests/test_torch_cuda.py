@@ -785,3 +785,62 @@ def test_k2_tiled_cores_agree_with_the_one_block_cores_on_the_card(cuda_device, 
     assert torch.equal(tiled[0], single[0]) and torch.equal(tiled[1], single[1])
     want = TA.attention_core_bwd_att_reference(*qkv.split(H * Dh, dim=-1), datt, H)
     _assert_bf16_rule(tiled[1], torch.cat(want[1:], dim=-1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,D,F", [(16384, 384, 768), (1000, 128, 256)])
+def test_k6b_tp_partial_matches_plain_on_the_card(cuda_device, T, D, F):
+    """The tensor-parallel MLP partial through autograd: one K6f forward (fp32,
+    by the partial rule) and K6b backward for an fp32 cotangent, against
+    :func:`mlp_partial_bwd_reference` (dx by the bf16 rule, the fp32
+    gradients by the gradient rule), twice, bit-identical; and K6b called
+    directly gives the same bits."""
+    inputs = _mlp_inputs(T, D, F, seed=31)
+    del inputs["b2"]
+    args = _on(cuda_device, inputs)
+    do = torch.randn(T, D, generator=torch.Generator(device=cuda_device).manual_seed(32),
+                     device=cuda_device)
+    assert TT.mlp_tier(T, D, F)[0] in ("fused", "fwdonly")
+    before = (TM.PARTIAL_LAUNCHES.count, TM.PARTIAL_BWD_LAUNCHES.count, TM.BWD_LAUNCHES.count)
+    with torch.inference_mode():
+        part = TM.fused_mlp_partial(*args)
+    got = _grads_through_autograd(TM.fused_mlp_partial, args, (), do)
+    again = _grads_through_autograd(TM.fused_mlp_partial, args, (), do)
+    direct = TM.mlp_partial_bwd(*args, do)
+    torch.cuda.synchronize()
+    assert (TM.PARTIAL_LAUNCHES.count - before[0], TM.PARTIAL_BWD_LAUNCHES.count - before[1],
+            TM.BWD_LAUNCHES.count - before[2]) == (3, 3, 0)
+    assert part.dtype == torch.float32
+    _assert_partial_rule(part, TM.mlp_partial_reference, args, lambda a, pd, pf: (
+        a[0][:, pd].contiguous(), a[1][pd], a[2][pd], a[3][pf][:, pd], a[4][pf], a[5][pd][:, pf]))
+    _assert_grads_close(got, TM.mlp_partial_bwd_reference(*args, do))
+    for g, h, d in zip(got, again, direct):
+        assert torch.equal(g, h) and torch.equal(g, d.to(g.dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,D,H,core", [(256, 64, 384, 6, "K7"), (4, 64, 192, 3, None)])
+def test_fused_attention_on_separate_tensors_on_the_card(cuda_device, B, N, D, H, core):
+    """``fused_attention`` over three separate q, k, v (the tensor-parallel
+    half-block's products): the core ``core_tier`` picks (K7f/K7b, or the
+    plain core where JAX runs XLA's, as at the DiT-S --tp 2 local width),
+    forward and backward through autograd by the bf16 rule against the plain
+    versions, the backward twice, bit-identical."""
+    assert TT.core_tier(B, N, D, H) == core
+    gen = torch.Generator(device=cuda_device).manual_seed(33)
+    q, k, v, do = (torch.randn(B, N, D, generator=gen, device=cuda_device).to(torch.bfloat16)
+                   for _ in range(4))
+    before = (TA.CORE_LAUNCHES.count, TA.CORE_BWD_LAUNCHES.count)
+    runs = []
+    for _ in range(2):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        o = TA.fused_attention(*leaves, H)
+        o.backward(do)
+        runs.append([o.detach()] + [t.grad for t in leaves])
+    torch.cuda.synchronize()
+    n = 2 if core == "K7" else 0
+    assert (TA.CORE_LAUNCHES.count - before[0], TA.CORE_BWD_LAUNCHES.count - before[1]) == (n, n)
+    want = [TA.attention_reference(q, k, v, H), *TA.attention_core_bwd_reference(q, k, v, do, H)]
+    for g, h, w in zip(*runs, want):
+        assert torch.equal(g, h)
+        _assert_bf16_rule(g, w)

@@ -198,7 +198,8 @@ def test_factory_defaults_match_jax():
 
 
 _REFUSED = [
-    ({"tp": 2}, "item 11"), ({"sp": True}, "item 11"), ({"moe_experts": 4, "tp": 2}, "item 11"),
+    ({"tp": 2, "sp": True}, "item 11"), ({"sp": True}, "item 11"),
+    ({"moe_experts": 4, "tp": 2}, "item 11"),
     ({"remat": True}, "item 8"), ({"mlp_persist": 2}, "item 8"),
 ]
 

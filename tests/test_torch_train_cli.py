@@ -132,7 +132,7 @@ def test_train_cli_refuses_image_sizes_no_kernel_takes(tmp_path, size):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--tp", "2"], "item 11"), (["--sp"], "item 11"), (["--pp", "2"], "item 11"),
+    (["--multihost"], "item 11"), (["--sp"], "item 11"), (["--pp", "2"], "item 11"),
     (["--fsdp"], "item 11"), (["--moe-experts", "4", "--tp", "2"], "item 11"),
     (["--remat"], "item 8"),
     (["--mlp-persist", "2"], "item 8"), (["--fast-gelu"], "item 5"),

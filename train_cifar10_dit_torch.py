@@ -1,5 +1,5 @@
 """Train a DiT-backed Distributional Diffusion Model on CIFAR-10 with the
-PyTorch port (one GPU).
+PyTorch port (one GPU, or a (data, model) grid of ranks with ``--tp``).
 
 The port's counterpart of ``train_cifar10_dit.py``: the same flags and
 defaults, YAML ``--config`` fill-only-defaults merge, AdamW with optax's
@@ -35,6 +35,24 @@ from 128 px. ``--attention xla`` unfuses the attention half as the JAX
 model does (plain attention core, MLP still fused); ``flash`` is ``auto``.
 On ``--device cpu`` the same step runs the plain PyTorch versions.
 
+``--tp N`` is Megatron tensor parallelism with data parallelism beside it,
+over ``world_size = dp x N`` ranks launched by ``python -m
+torch.distributed.run`` (rank r at data index r // N, model index r % N;
+``--batch`` is the global batch, split over the dp data ranks). Each rank
+holds its shard of every block (whole heads of q, k and v, rows of
+``ff_in``, columns of ``proj`` and ``ff_out``) and runs the tensor-parallel
+block: the attention core on its heads (K7f/K7b where the JAX gate takes
+them at the local width, else the plain core), the MLP partial K6f forward
+and K6b backward, and the energy score K3 on its data rank's slice; the
+global-norm clip sums over the model group. The backend is NCCL where each
+rank on a node has a card of its own, and gloo on the CPU and where ranks
+share one card (gloo's CUDA support covers the all-reduces this needs;
+the checkpoint's gathers go through the CPU). Rank 0 gathers the shards
+and writes the full checkpoint, whose config carries ``tp``, and samples
+from the full instance; every rank writes what ``main`` returns (step
+times, metrics, kernel launches) to ``result_rank{r}.json``. ``--tp`` on
+one rank raises, as JAX's mesh does.
+
 Not written: the ``*_dynamics.png`` plots (they need matplotlib, which the
 GPU machine does not have); the histories are in ``train_metrics.json`` and
 ``epoch_metrics.json``. The port reads ``--synthetic`` data only, and every
@@ -54,6 +72,8 @@ Usage:
         --depth 24 --heads 16 --epochs 1 --out dit_l/
     python train_cifar10_dit_torch.py --synthetic --embed-dim 1024 --depth 24 --heads 16 \
         --image-size 64 --batch 64 --m 4 --epochs 1 --out dit_l64/
+    python -m torch.distributed.run --standalone --nproc-per-node 2 -- \
+        train_cifar10_dit_torch.py --synthetic --tp 2 --epochs 1 --out tp2/
 """
 
 from __future__ import annotations
@@ -67,6 +87,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ddm_tpu_torch.data.augment import augment_cifar10, normalize_images
 from ddm_tpu_torch.data.cifar10 import CIFAR10DataConfig, build_cifar10_dataloaders
@@ -78,6 +99,12 @@ from ddm_tpu_torch.models.factory import (
     make_tokens_apply,
 )
 from ddm_tpu_torch.ops.kernel_config import cli_device, launch_counts, load_library
+from ddm_tpu_torch.parallel import (
+    gather_full_state_dict,
+    make_mesh,
+    make_sharded_train_step,
+    shard_state_dict,
+)
 from ddm_tpu_torch.sampling import sample_dddm_batched
 from ddm_tpu_torch.training import make_optimizer, make_train_step, split_generator
 from ddm_tpu_torch.utils.checkpoint import save_checkpoint
@@ -91,7 +118,7 @@ _UTILS = "Queue 1 item 7 (data, utils)"
 # flags of paths the port does not run yet: set away from its default, each
 # raises NotImplementedError naming its ROADMAP.md item
 NOT_PORTED = {
-    "tp": _PARALLEL, "sp": _PARALLEL, "pp": _PARALLEL, "pp_microbatches": _PARALLEL,
+    "sp": _PARALLEL, "pp": _PARALLEL, "pp_microbatches": _PARALLEL,
     "fsdp": _PARALLEL, "multihost": _PARALLEL,
     "lr_schedule": _OPTIONS, "warmup_steps": _OPTIONS, "lr_min": _OPTIONS,
     "grad_accum": _OPTIONS, "ema_decay": _OPTIONS, "resume": _OPTIONS,
@@ -115,10 +142,45 @@ def _diff(after: dict, before: dict) -> dict:
     return {k: after[k] - before.get(k, 0) for k in after}
 
 
+def _distributed(args: argparse.Namespace, device: torch.device):
+    """``(mesh, device)``: the ``(data, model)`` grid of the ranks that
+    ``torch.distributed.run`` started (its environment), with the process
+    group initialised; one rank where none was started (``--tp`` > 1 then
+    raises, as ``make_mesh`` does)."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1:
+        return make_mesh(args.tp), device
+    backend = "gloo"
+    if device.type == "cuda":
+        local, cards = int(os.environ.get("LOCAL_RANK", "0")), torch.cuda.device_count()
+        device = torch.device("cuda", local % cards)
+        torch.cuda.set_device(device)
+        # NCCL takes one rank per card; ranks that share a card talk through gloo
+        if cards >= int(os.environ.get("LOCAL_WORLD_SIZE", str(world))):
+            backend = "nccl"
+    dist.init_process_group(backend, init_method="env://")
+    mesh = make_mesh(args.tp)
+    print(f"[rank {mesh.rank}] torch.distributed backend {backend}, {world} ranks = dp "
+          f"{mesh.dp} x tp {mesh.tp}, data rank {mesh.data_rank}, model rank {mesh.model_rank}, "
+          f"{device}", flush=True)
+    return mesh, device
+
+
 def train(args: argparse.Namespace) -> dict:
     """Run the training loop; returns ``{"step_seconds", "seconds_per_step",
     "images_per_sec", "metrics", "launches"}``."""
     device = cli_device(args.device)
+    mesh, device = _distributed(args, device)
+    try:
+        return _train(args, mesh, device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _train(args: argparse.Namespace, mesh, device: torch.device) -> dict:
+    ranks = mesh.dp * mesh.tp
+    lead = mesh.rank == 0  # writes the files, prints the logs, samples
     os.makedirs(args.out, exist_ok=True)
     root = torch.Generator().manual_seed(args.seed)
 
@@ -128,7 +190,14 @@ def train(args: argparse.Namespace) -> dict:
         seed=args.seed))
     init_params(model, split_generator(root, 1)[0])
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"DDDMDiT: {n_params / 1e6:.2f}M params, 1 device ({device})", flush=True)
+    if mesh.tp > 1:  # every rank drew the full weights from the seed; keep its shard
+        full = model.state_dict()
+        model = build_model(vars(args), device, mesh.model_group)
+        model.load_state_dict(shard_state_dict(full, mesh.tp, mesh.model_rank))
+        del full
+    if lead:
+        print(f"DDDMDiT: {n_params / 1e6:.2f}M params, {ranks} device(s) ({device}; dp "
+              f"{mesh.dp} x tp {mesh.tp})", flush=True)
     if device.type == "cuda":
         load_library()  # build the kernels before the first step
 
@@ -138,11 +207,19 @@ def train(args: argparse.Namespace) -> dict:
     def preprocess(batch: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
         return augment_cifar10(batch, generator) if augment else normalize_images(batch)
 
-    step_fn = make_train_step(
-        model, make_tokens_apply(model, args.moe_aux_weight), optimizer, m=args.m,
-        beta=args.beta, lam=args.lam,
-        w_bias=args.w_bias, grad_clip=args.grad_clip, preprocess=preprocess,
-        target_transform=lambda x0: patchify_images(x0, args.patch_size))
+    hp = dict(m=args.m, beta=args.beta, lam=args.lam, w_bias=args.w_bias,
+              grad_clip=args.grad_clip, preprocess=preprocess,
+              target_transform=lambda x0: patchify_images(x0, args.patch_size))
+    apply_fn = make_tokens_apply(model, args.moe_aux_weight)
+    if ranks > 1:
+        step_fn = make_sharded_train_step(model, apply_fn, optimizer, mesh, **hp)
+    else:
+        step_fn = make_train_step(model, apply_fn, optimizer, **hp)
+
+    def full_state_dict():
+        # a collective over the model group: every rank calls it
+        return (gather_full_state_dict(model.state_dict(), mesh.model_group) if mesh.tp > 1
+                else model.state_dict())
 
     train_history: Dict[str, list] = {"step": []}
     epoch_history: Dict[str, list] = {"epoch": []}
@@ -190,26 +267,35 @@ def train(args: argparse.Namespace) -> dict:
         avg = {k: sums[k] / num_batches for k in sums}
         img_per_sec = num_batches * args.batch / (time.perf_counter() - epoch_t0)
         summary = " ".join(f"{k}={avg[k]:.4f}" for k in sorted(avg))
-        print(f"[epoch {epoch:03d}] {summary} ({img_per_sec:.0f} img/s, "
-              f"{img_per_sec:.0f} img/s/chip)", flush=True)
+        if lead:
+            print(f"[epoch {epoch:03d}] {summary} ({img_per_sec:.0f} img/s, "
+                  f"{img_per_sec / ranks:.0f} img/s/chip)", flush=True)
         epoch_history["epoch"].append(epoch)
         for k, v in avg.items():
             epoch_history.setdefault(k, []).append(v)
         epoch_history.setdefault("images_per_sec", []).append(img_per_sec)
         if epoch % args.ckpt_every == 0 or epoch == args.epochs:
-            save_checkpoint(os.path.join(args.out, f"model_epoch{epoch:03d}.pt"),
-                            model.state_dict(), vars(args) | {"epoch": epoch})
+            state = full_state_dict()
+            if lead:
+                save_checkpoint(os.path.join(args.out, f"model_epoch{epoch:03d}.pt"), state,
+                                vars(args) | {"epoch": epoch})
     counts1 = launch_counts()
 
-    save_checkpoint(os.path.join(args.out, "model_final.pt"), model.state_dict(),
-                    vars(args) | {"epoch": args.epochs})
-    with open(os.path.join(args.out, "config.json"), "w", encoding="utf-8") as f:
-        json.dump(vars(args), f, indent=2)
+    state = full_state_dict()
+    if lead:
+        save_checkpoint(os.path.join(args.out, "model_final.pt"), state,
+                        vars(args) | {"epoch": args.epochs})
+        with open(os.path.join(args.out, "config.json"), "w", encoding="utf-8") as f:
+            json.dump(vars(args), f, indent=2)
 
-    if args.sample_batch > 0:
+    if args.sample_batch > 0 and lead:
         size = args.image_size
+        sampler = model
+        if mesh.tp > 1:  # the full instance, as JAX samples with tp_axis=None
+            sampler = build_model(vars(args), device)
+            sampler.load_state_dict(state)
         samples = sample_dddm_batched(
-            model, args.sample_batch, steps=args.sample_steps, eps_churn=args.eps_churn,
+            sampler, args.sample_batch, steps=args.sample_steps, eps_churn=args.eps_churn,
             data_shape=(size, size, 3), generator=split_generator(root, 1, device)[0],
             device=device, chunk_size=args.sample_batch)
         samples = np.clip(samples, -1.0, 1.0)
@@ -220,18 +306,25 @@ def train(args: argparse.Namespace) -> dict:
                         nrow=grid_rows)
         print(f"Saved samples and checkpoints to {args.out}", flush=True)
 
-    for name, hist in (("train", train_history), ("epoch", epoch_history)):
-        with open(os.path.join(args.out, f"{name}_metrics.json"), "w", encoding="utf-8") as f:
-            json.dump(_serialize_history(hist), f, indent=2)
+    if lead:
+        for name, hist in (("train", train_history), ("epoch", epoch_history)):
+            with open(os.path.join(args.out, f"{name}_metrics.json"), "w",
+                      encoding="utf-8") as f:
+                json.dump(_serialize_history(hist), f, indent=2)
 
     warm = step_seconds[1:] or step_seconds
-    return {
+    result = {
         "step_seconds": step_seconds,
         "seconds_per_step": float(np.median(warm)) if warm else float("nan"),
         "images_per_sec": img_per_sec,
         "metrics": {k: train_history[k][-1] for k in METRIC_KEYS if train_history.get(k)},
         "launches": {"train": _diff(counts1, counts0), "sample": _diff(launch_counts(), counts1)},
     }
+    if ranks > 1:
+        with open(os.path.join(args.out, f"result_rank{mesh.rank}.json"), "w",
+                  encoding="utf-8") as f:
+            json.dump(result, f, indent=2)
+    return result
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -290,7 +383,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", type=str, default=MODEL_DEFAULTS["dtype"],
                    choices=["float32", "bfloat16"],
                    help="compute dtype (the CUDA kernels take bfloat16)")
-    p.add_argument("--tp", type=int, default=MODEL_DEFAULTS["tp"], help=later + _PARALLEL)
+    p.add_argument("--tp", type=int, default=MODEL_DEFAULTS["tp"],
+                   help="tensor-parallel degree over the ranks of torch.distributed.run "
+                        "(dp = ranks / tp); 1 with one rank is the one-device step")
     p.add_argument("--sp", action="store_true", help=later + _PARALLEL)
     p.add_argument("--attention", type=str, default=MODEL_DEFAULTS["attention"],
                    choices=["auto", "xla", "flash"],
@@ -338,7 +433,11 @@ def main(argv: Optional[list] = None) -> dict:
     parser = build_parser()
     args = parser.parse_args(argv)
     apply_config(parser, args)
-    if args.moe_experts > 1:  # the JAX parser's checks (train_cifar10_dit.py:869-878)
+    if args.tp > 1:  # the JAX parser's checks (train_cifar10_dit.py:856-860, :869-878)
+        hidden = int(args.embed_dim * args.mlp_ratio)
+        if args.embed_dim % args.tp or args.heads % args.tp or hidden % args.tp:
+            parser.error("--tp must divide --embed-dim, --heads, and the MLP hidden size")
+    if args.moe_experts > 1:
         if args.moe_experts % args.tp:
             parser.error("--moe-experts must be divisible by --tp")
         if args.mlp_persist:
@@ -351,6 +450,9 @@ def main(argv: Optional[list] = None) -> dict:
             raise NotImplementedError(
                 f"--{dest.replace('_', '-')} is not ported to the PyTorch port yet: "
                 f"ROADMAP.md {item}")
+    if args.tp > 1 and args.moe_experts > 1:
+        raise NotImplementedError("--tp with --moe-experts (expert parallelism) is not ported "
+                                  f"to the PyTorch port yet: ROADMAP.md {_PARALLEL}")
     if not args.synthetic:
         raise NotImplementedError(
             f"the PyTorch port reads synthetic data only (pass --synthetic): ROADMAP.md {_UTILS}")
