@@ -16,7 +16,10 @@ half-block tier fits) through the standalone attention core K7, K8 at head
 widths 32 and 128, and the plain core at 96 px; then dense tensor
 parallelism (``--tp 2``): the MLP partial's backward K6b, the TP callers of
 K6f and K7, a two-rank step and trainer on the one card, and sampling the
-TP checkpoint on one card.
+TP checkpoint on one card; then DiT-XL/4 (D 1152, depth 28, 16 heads of Dh
+72, through K2f/K4 at 32 px and K7f/K7b at 64 px on head tiles padded to 80
+columns, and the F-chunked MLP K6f/K1b at D 1152), DiT-S at Dh 24, and the
+fast GELU (``--fast-gelu``) in K1, K6 and K10.
 
 Run from the repository root with no arguments:
 
@@ -108,11 +111,12 @@ The wide tiers, after every phase above:
     2.1 GB fp32 h per block alive for autograd);
 6e. the same for the DiT-B MoE model, moe_aux included, replaying the kernel
     step's routing as 6c does;
-7d. the DiT-L trainer (``--embed-dim 1024 --depth 24 --heads 16``) for one
-    epoch (8 steps of batch 256 x m 8), its peak memory, then 64 samples from
-    its ``model_final.pt``; launches per step 24 each of K2f, K4 and K1b (the
-    counterpart of the JAX wide tier's XLA backward), 48 of K6f, 1 each of
-    K3f and K3b; per sampler call 480 of K2f and 960 of K6f;
+7d. the DiT-L trainer (``--embed-dim 1024 --depth 12 --heads 16``: depth
+    cut from 24 in PR 9, 7k running the same kernels at DiT-XL's depth 28)
+    for one epoch (8 steps of batch 256 x m 8), its peak memory, then 64
+    samples from its ``model_final.pt``; launches per step 12 each of K2f, K4
+    and K1b (the counterpart of the JAX wide tier's XLA backward), 24 of K6f,
+    1 each of K3f and K3b; per sampler call 240 of K2f and 480 of K6f;
 7e. the DiT-B MoE trainer (``--embed-dim 768 --depth 12 --heads 12`` and the
     MoE flags) for one epoch, then 64 samples; launches per step 12 each of
     K2f, K4, K11f, K11b, K10b, K12f, K12b, 24 of K10p, 1 each of K3f, K3b; per
@@ -164,11 +168,12 @@ The third rung, after those:
     own noise; the same for a 96-px DiT-S step (N = 576: the third rung's
     plain core on the card, K1f/K1b counted) and a 128-px step at --heads 3
     (Dh 128) at depth 2, each with its launches counted;
-7i. (train-l64) the trainer with --embed-dim 1024 --depth 24 --heads 16
+7i. (train-l64) the trainer with --embed-dim 1024 --depth 8 --heads 16
     --image-size 64 --batch 64 --m 4 for one epoch (32 steps), then 64
-    samples; launches per step 24 each of K7f, K7b, K1b, 48 of K6f, 1 each of
-    K3f, K3b, none of K2f, K2b, K4, K1f; per sampler call 480 of K7f and 960
-    of K6f; its peak memory and img/s.
+    samples; launches per step 8 each of K7f, K7b, K1b, 16 of K6f, 1 each of
+    K3f, K3b, none of K2f, K2b, K4, K1f; per sampler call 160 of K7f and 320
+    of K6f; its peak memory and img/s (depth cut from 24 in PR 9 to make
+    room for 7l, which runs the third rung at DiT-XL's full depth 28).
 
 Dense tensor parallelism (``--tp``, Megatron layout), after those:
 
@@ -200,6 +205,32 @@ Dense tensor parallelism (``--tp``, Megatron layout), after those:
     ``generate_torch`` on its checkpoint (``tp: 2`` in the config), 256 x 20
     on one card through the full instance: K7f 160, K6f 160.
 
+DiT-XL/4 and the fast GELU, after those:
+
+3l. (xl-kernels) K2f at 2048 and 256 images of (64, 1152) H 16 and K4 at
+    2048 (DiT-XL at 32 px), K7f at 256 and 64 images of (256, 1152) and K7b at
+    256 beside SDPA (64 px), one K6f partial on a chunk of 2304 of (131,072 x
+    1152, F 4608) and the k = 2 half-block, K1b at (131,072, 1152, 4608); K2f
+    at (256, 64, 384, H 16) and K2b at (2048, 64, 384, H 16) (Dh 24); each by
+    its rule above, every backward's second call bit-identical;
+3m. (fast-gelu-kernels) the seven fast-GELU variants at their rows' shapes
+    against their plain versions with ``fast_gelu``: K1f, K1b, one K6f
+    partial (DiT-L's chunk), K6b (the DiT-S --tp 2 shard), K10f, K10b and one
+    K10p partial (DiT-B width);
+6k. (train-step-xl) one DiT-XL/4 step at full depth 28, batch 16 x m 8 at
+    32 px (K2f, K4, K6f, K1b) and 8 x m 4 at 64 px (K7f, K7b, K6f, K1b),
+    twice (bit-identical) against the plain step within twice bf16's own
+    noise, launches counted;
+6l. (train-step-fast-gelu) the DiT-S and DiT-S MoE steps of 6 and 6c with
+    ``fast_gelu``, against the plain steps with it, launches counted;
+7k. (train-xl) the trainer with ``--embed-dim 1152 --depth 28 --heads 16``
+    for one epoch (8 steps of 256 x m 8), its peak memory, then 64 samples:
+    per step 28 each of K2f, K4, K1b, 56 of K6f, 1 each of K3f, K3b; per
+    sampler call 560 of K2f and 1,120 of K6f;
+7l. (train-xl64) the same at ``--image-size 64 --batch 64 --m 4`` (32 steps):
+    per step 28 each of K7f, K7b, K1b, 56 of K6f, 1 each of K3f, K3b, none of
+    K2f, K2b, K4, K1f; per sampler call 560 of K7f and 1,120 of K6f.
+
 The DiT-S phases run at full width and depth 8. PERF.md gives the whole
 run's measured time on the card, the kernels' build included, against the
 20 minutes allowed.
@@ -211,6 +242,7 @@ The second-to-last line is a JSON summary of the kernels; the last line is
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -259,6 +291,11 @@ K8_WIDE_HEADS = (12, 3)  # 3j: K8 at D 384 over 12 heads (Dh 32) and 3 (Dh 128)
 # an LN output or hidden entry moves single entries by up to ~1e-3 of the
 # largest, while the bulk agrees to the fp32 sums
 PARTIAL_RTOL = 1e-4
+# DiT-XL/4 (Peebles & Xie 2023, Table 1: hidden 1152, depth 28, 16 heads)
+# at patch 4, as flags; its 32-px step check's batch (6k: 16 x m 8; 64 px
+# takes 6i's 8 x m 4); DiT-S's D 384 over 16 heads of Dh 24 (3l)
+DIT_XL = {"embed_dim": 1152, "depth": 28, "heads": 16}
+XL_STEP_BATCH, DH24_HEADS = 16, 16
 # tensor parallelism: the two-rank step's batch (7j a) and the trainer's m (7j b)
 TP, TP_STEP_BATCH, TP_TRAIN_M = 2, 32, 2
 # roofline: the published H100 SXM peaks (bf16 tensor cores, fp32 outside
@@ -366,9 +403,15 @@ def _entry(name, source, sources, replaces, max_err, ms, plain_ms, bound, librar
             **bound, "library_ms": library_ms}
 
 
-def _k1f_case(M, gen, T, D, F):
-    return ("K1f", f"(T={T}, D={D}, F={F})", M.fused_mlp_block, M.mlp_block_reference,
-            _mlp_args(gen, T, D, F), 4 * T * D * F)
+def _fast(fast):
+    return " fast-GELU" if fast else ""
+
+
+def _k1f_case(M, gen, T, D, F, fast=False):
+    return ("K1f", f"(T={T}, D={D}, F={F}){_fast(fast)}",
+            lambda *a: M.fused_mlp_block(*a, fast_gelu=fast),
+            lambda *a: M.mlp_block_reference(*a, fast_gelu=fast), _mlp_args(gen, T, D, F),
+            4 * T * D * F)
 
 
 def _k2f_case(A, gen, B, N, D, H):
@@ -438,11 +481,12 @@ def _check_grads(name, got, want, smi, ms, plain_ms,
     return worst
 
 
-def _k1b_case(M, gen, T, D, F):
+def _k1b_case(M, gen, T, D, F, fast=False):
     mlp = _mlp_args(gen, T, D, F)
     dout = torch.randn(T, D, generator=gen, device="cuda").to(torch.bfloat16)
-    return ("K1b", f"(T={T}, D={D}, F={F})", lambda: M.mlp_block_bwd(*mlp, dout),
-            lambda: M.mlp_block_bwd_reference(*mlp, dout), (*mlp, dout),
+    return ("K1b", f"(T={T}, D={D}, F={F}){_fast(fast)}",
+            lambda: M.mlp_block_bwd(*mlp, dout, fast_gelu=fast),
+            lambda: M.mlp_block_bwd_reference(*mlp, dout, fast_gelu=fast), (*mlp, dout),
             # the W1 recompute, dW2, dh, dW1 and dy products
             10 * T * D * F)
 
@@ -457,7 +501,8 @@ def _attn_bwd_case(A, gen, B, N, D, H, name):
             2 * B * N * D * D * (3 + 1 + 1 + 3 + 3) + 12 * B * N * N * D)
 
 
-def _time_backward(case, smi, counters=None):
+def _time_backward(case, smi, counters=None,
+                   labels=("dx", "dscale", "dbias", "dW_in", "db_in", "dW_out", "db_out")):
     """A backward kernel twice (bit-identical) against its plain version on
     the same inputs (:func:`_check_grads`), both timed: ``(worst max_abs_err,
     ms, plain_ms, bound)``. ``counters`` ``{counter: launches}`` are the
@@ -476,7 +521,7 @@ def _time_backward(case, smi, counters=None):
         del again
         ms, plain_ms = _median_ms(kern), _median_ms(plain)
         worst = _check_grads(f"{name} {shape} bf16 (second call bit-identical)", got, plain(),
-                             smi, ms, plain_ms)
+                             smi, ms, plain_ms, labels)
     bound = _bound(_nbytes(*inputs, *got), flops)
     del got
     torch.cuda.empty_cache()
@@ -1019,13 +1064,14 @@ def plain_ops(replay=None):
     from ddm_tpu_torch.ops import moe_dispatch as MD
     from ddm_tpu_torch.ops import tiers
 
-    def mlp(*t):
+    def mlp(*t_and_fast):
         # the plain version of the tier the kernels take at these shapes
+        *t, fast = t_and_fast
         tier = tiers.mlp_tier(*t[0].shape, t[3].shape[0])
-        fwd = M.mlp_block_reference
+        fwd = lambda *a: M.mlp_block_reference(*a, fast)  # noqa: E731
         if tier is not None and tier[0] == "fchunked":
-            fwd = lambda *a: M.mlp_block_fchunked_reference(*a, tier[1])  # noqa: E731
-        return _Plain.apply(fwd, M.mlp_block_bwd_reference, *t)
+            fwd = lambda *a: M.mlp_block_fchunked_reference(*a, tier[1], fast)  # noqa: E731
+        return _Plain.apply(fwd, lambda *a: M.mlp_block_bwd_reference(*a, fast), *t)
 
     def attn(*t_and_h):
         # the plain version of the path the kernels take at these shapes:
@@ -1053,12 +1099,13 @@ def plain_ops(replay=None):
         choices = tuple(next(routes)) if replay else None
         return _PlainDispatch.apply(cfg, n_valid, choices, x, scale, bias, wr, br)
 
-    def ffn(*t):
+    def ffn(*t_and_fast):
+        *t, fast = t_and_fast
         tier = tiers.expert_tier(*t[0].shape, t[1].shape[-1])
-        fwd = X.expert_ffn_reference
+        fwd = lambda *a: X.expert_ffn_reference(*a, fast)  # noqa: E731
         if tier is not None and tier[1] > 1:
-            fwd = lambda *a: X.expert_ffn_fchunked_reference(*a, tier[1])  # noqa: E731
-        return _Plain.apply(fwd, X.expert_ffn_bwd_reference, *t)
+            fwd = lambda *a: X.expert_ffn_fchunked_reference(*a, tier[1], fast)  # noqa: E731
+        return _Plain.apply(fwd, lambda *a: X.expert_ffn_bwd_reference(*a, fast), *t)
 
     def combine_res(cfg, out, gates, pos1, pos2, res):
         return _Plain.apply(
@@ -1067,8 +1114,10 @@ def plain_ops(replay=None):
                 *MD.moe_combine_bwd_reference(cfg, o, g, p1, p2, dp), None, None, dp),
             out, gates, pos1, pos2, res)
 
-    def partial(*t):
-        return _Plain.apply(M.mlp_partial_reference, M.mlp_partial_bwd_reference, *t)
+    def partial(*t_and_fast):
+        *t, fast = t_and_fast
+        return _Plain.apply(lambda *a: M.mlp_partial_reference(*a, fast),
+                            lambda *a: M.mlp_partial_bwd_reference(*a, fast), *t)
 
     def core(q, k, v, H):
         # the plain version of the core fused_attention takes at these shapes
@@ -1389,12 +1438,109 @@ def _partial_check(name, shape, got, want, reordered, ms, plain_ms, smi):
     return err
 
 
-def phase_wide_kernels(M, A, X, smi):
-    """3f: K4, K6f and K10p at the wide paths' training shapes."""
+def _k6f_partial(M, smi, gen, T, D, F, fast=False):
+    """One K6f on the second hidden chunk of F, read in place from the bf16
+    weights, by the fp32 partial rule: ``(max_abs_err, ms, plain_ms, bound)``."""
     from ddm_tpu_torch.ops import gemm
 
+    x, sc, bi, w1, b1, w2, _ = _mlp_args(gen, T, D, F)
+    fc = F // 2
+    part = (x, sc, bi, w1.to(torch.bfloat16)[fc:], b1[fc:], w2.to(torch.bfloat16)[:, fc:])
+    plain = lambda *a: M.mlp_partial_reference(*a, fast_gelu=fast)  # noqa: E731
+    shape = f"(T={T}, D={D}, chunk {fc} of F={F}){_fast(fast)}"
+    got = torch.empty(T, D, device="cuda")
+    with torch.no_grad():
+        one = lambda: M._k6f(*part, gemm.PART_STORE, got, fast_gelu=fast)  # noqa: E731
+        one()
+        torch.cuda.synchronize()
+        ms = _median_ms(one)
+        plain_ms = _median_ms(lambda: plain(*part))
+        # the plain version with the D and hidden axes permuted: the same
+        # function, every fp32 sum in another order
+        pd, pf = (torch.randperm(n, generator=gen, device="cuda") for n in (D, fc))
+        x_, s_, b_, w1_, b1_, w2_ = part
+        reordered = plain(x_[:, pd].contiguous(), s_[pd], b_[pd], w1_[pf][:, pd], b1_[pf],
+                          w2_[pd][:, pf])[:, torch.argsort(pd)]
+        err = _partial_check("K6f", shape, got, plain(*part), reordered, ms, plain_ms, smi)
+    bound = _bound(_nbytes(*part, got), 4 * T * D * fc)
+    del got, reordered, part, x, w1, w2
+    torch.cuda.empty_cache()
+    return err, ms, plain_ms, bound
+
+
+def _fchunked_half_block(M, smi, gen, T, D, F):
+    """The F-chunked MLP half-block (two K6f) by the bf16 rule, beside K1f
+    unchunked on the same inputs."""
+    mlp = _mlp_args(gen, T, D, F)
+    with torch.inference_mode():
+        before = (M.PARTIAL_LAUNCHES.count, M.LAUNCHES.count)
+        got = M.fused_mlp_block(*mlp)
+        torch.cuda.synchronize()
+        if (M.PARTIAL_LAUNCHES.count - before[0], M.LAUNCHES.count - before[1]) != (2, 0):
+            raise AssertionError(f"the MLP half-block at D={D} did not take two K6f")
+        herr, hmean, htol, ok = _bf16_errors(got, M.mlp_block_fchunked_reference(*mlp, 2))
+        hms = _median_ms(lambda: M.fused_mlp_block(*mlp))
+        hplain = _median_ms(lambda: M.mlp_block_fchunked_reference(*mlp, 2))
+        k1f_ms = _median_ms(lambda: M._k1f(*mlp))  # unchunked, on the same inputs
+    print(f"[kernel] K6f x 2, the F-chunked half-block (T={T}, D={D}, F={F}, k=2) bf16: "
+          f"max_abs_err={herr:.6g} (tol {htol:.6g}), mean_abs_err={hmean:.6g}; kernels "
+          f"{hms:.4f} ms, plain {hplain:.4f} ms, K1f unchunked on the same inputs {k1f_ms:.4f} ms "
+          f"(median of 20) on {smi}")
+    if not ok:
+        raise AssertionError("the F-chunked half-block disagrees with its plain version")
+    out = {"k": 2, "max_abs_err": herr, "ms": hms, "plain_ms": hplain,
+           "k1f_unchunked_ms": k1f_ms, **_bound(_nbytes(*mlp, got), 4 * T * D * F)}
+    del mlp, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def _slot_rows_ffn(gen, E, S, D, F):
+    """Expert FFN operands on (E, S, D) bf16 slot rows whose last fifth is
+    empty, as the dispatch leaves it."""
+    x = torch.randn(E, S, D, generator=gen, device="cuda")
+    x[:, S - S // 5:] = 0.0
+    return (x.to(torch.bfloat16),
+            torch.randn(E, D, F, generator=gen, device="cuda") * D ** -0.5,
+            torch.randn(E, F, generator=gen, device="cuda") * 0.1,
+            torch.randn(E, F, D, generator=gen, device="cuda") * F ** -0.5,
+            torch.randn(E, D, generator=gen, device="cuda") * 0.1)
+
+
+def _k10p_partial(X, smi, gen, ffn, fast=False):
+    """One K10p on the first hidden chunk of ``ffn``'s F by the fp32 partial
+    rule: ``(max_abs_err, ms, plain_ms, bound)``."""
+    from ddm_tpu_torch.ops import gemm
+
+    x, w1, b1, w2, _ = ffn
+    E, S, D = x.shape
+    F = w1.shape[-1]
+    fc, bf = F // 2, torch.bfloat16
+    chunk = (x, w1.to(bf)[:, :, :fc], b1[:, :fc], w2.to(bf)[:, :fc])
+    plain = lambda *a: X.expert_partial_reference(*a, fast_gelu=fast)  # noqa: E731
+    acc = torch.empty(E, S, D, device="cuda")
+    shape = f"(E={E}, S={S}, D={D}, chunk {fc} of F={F}){_fast(fast)}"
+    with torch.no_grad():
+        one = lambda: X._k10p(*chunk, gemm.NN_F32, acc, fast_gelu=fast)  # noqa: E731
+        one()
+        torch.cuda.synchronize()
+        ms = _median_ms(one)
+        plain_ms = _median_ms(lambda: plain(*chunk))
+        pd, pf = (torch.randperm(n, generator=gen, device="cuda") for n in (D, fc))
+        x_, w1_, b1_, w2_ = chunk
+        reordered = plain(x_[:, :, pd].contiguous(), w1_[:, pd][:, :, pf], b1_[:, pf],
+                          w2_[:, pf][:, :, pd])
+        err = _partial_check("K10p", shape, acc, plain(*chunk),
+                             reordered[:, :, torch.argsort(pd)], ms, plain_ms, smi)
+    bound = _bound(_nbytes(*chunk, acc), 4 * E * S * D * fc)
+    del acc, reordered, chunk
+    torch.cuda.empty_cache()
+    return err, ms, plain_ms, bound
+
+
+def phase_wide_kernels(M, A, X, smi):
+    """3f: K4, K6f and K10p at the wide paths' training shapes."""
     gen = torch.Generator(device="cuda").manual_seed(6)
-    bf = torch.bfloat16
     B, N = TRAIN_BATCH * TRAIN_M, 64
     T = B * N
     k4 = []
@@ -1407,86 +1553,20 @@ def phase_wide_kernels(M, A, X, smi):
     # K6f at DiT-L: one partial on the second hidden chunk, read in place
     # from the bf16 weights, then the F-chunked half-block (k = 2)
     D, F = DIT_L["embed_dim"], 4 * DIT_L["embed_dim"]
-    mlp = _mlp_args(gen, T, D, F)
-    x, sc, bi, w1, b1, w2, b2 = mlp
-    fc = F // 2
-    part = (x, sc, bi, w1.to(bf)[fc:], b1[fc:], w2.to(bf)[:, fc:])
-    shape = f"(T={T}, D={D}, chunk {fc} of F={F})"
-    got = torch.empty(T, D, device="cuda")
-    with torch.no_grad():
-        one = lambda: M._k6f(*part, gemm.PART_STORE, got)  # noqa: E731
-        one()
-        torch.cuda.synchronize()
-        ms = _median_ms(one)
-        plain_ms = _median_ms(lambda: M.mlp_partial_reference(*part))
-        # the plain version with the D and hidden axes permuted: the same
-        # function, every fp32 sum in another order
-        pd, pf = (torch.randperm(n, generator=gen, device="cuda") for n in (D, fc))
-        x_, s_, b_, w1_, b1_, w2_ = part
-        reordered = M.mlp_partial_reference(
-            x_[:, pd].contiguous(), s_[pd], b_[pd], w1_[pf][:, pd], b1_[pf], w2_[pd][:, pf])
-        reordered = reordered[:, torch.argsort(pd)]
-        err6 = _partial_check("K6f", shape, got, M.mlp_partial_reference(*part), reordered, ms,
-                              plain_ms, smi)
-        del reordered
     k6f = _entry("K6f", "ddm_tpu_torch/csrc/gemm.cu",
                  ["ddm_tpu_torch/csrc/gemm.cu", "ddm_tpu_torch/csrc/common.cuh"],
-                 "ddm_tpu/ops/mlp_block.py:559", err6, ms, plain_ms,
-                 _bound(_nbytes(*part, got), 4 * T * D * fc))
-    del got
-    with torch.inference_mode():
-        before = (M.PARTIAL_LAUNCHES.count, M.LAUNCHES.count)
-        got = M.fused_mlp_block(*mlp)
-        torch.cuda.synchronize()
-        if (M.PARTIAL_LAUNCHES.count - before[0], M.LAUNCHES.count - before[1]) != (2, 0):
-            raise AssertionError("the DiT-L MLP half-block did not take two K6f")
-        herr, hmean, htol, ok = _bf16_errors(got, M.mlp_block_fchunked_reference(*mlp, 2))
-        hms = _median_ms(lambda: M.fused_mlp_block(*mlp))
-        hplain = _median_ms(lambda: M.mlp_block_fchunked_reference(*mlp, 2))
-        k1f_ms = _median_ms(lambda: M._k1f(*mlp))  # unchunked, on the same inputs
-    print(f"[kernel] K6f x 2, the F-chunked half-block (T={T}, D={D}, F={F}, k=2) bf16: "
-          f"max_abs_err={herr:.6g} (tol {htol:.6g}), mean_abs_err={hmean:.6g}; kernels "
-          f"{hms:.4f} ms, plain {hplain:.4f} ms, K1f unchunked on the same inputs {k1f_ms:.4f} ms "
-          f"(median of 20) on {smi}")
-    if not ok:
-        raise AssertionError("the F-chunked half-block disagrees with its plain version")
-    k6f["half_block"] = {"k": 2, "max_abs_err": herr, "ms": hms, "plain_ms": hplain,
-                         "k1f_unchunked_ms": k1f_ms, **_bound(_nbytes(*mlp, got), 4 * T * D * F)}
-    del mlp, part, got, x, w1, w2
+                 "ddm_tpu/ops/mlp_block.py:559", *_k6f_partial(M, smi, gen, T, D, F))
+    k6f["half_block"] = _fchunked_half_block(M, smi, gen, T, D, F)
     torch.cuda.empty_cache()
 
     # K10p at DiT-B width: one chunk, then the k = 2 forward, on slot rows
     # whose tail is empty as the dispatch leaves it
     E, S, D, F = MOE["moe_experts"], 20480, DIT_B["embed_dim"], 4 * DIT_B["embed_dim"]
-    fc = F // 2
-    x = torch.randn(E, S, D, generator=gen, device="cuda")
-    x[:, S - S // 5:] = 0.0
-    x = x.to(bf)
-    w1 = torch.randn(E, D, F, generator=gen, device="cuda") * D ** -0.5
-    b1 = torch.randn(E, F, generator=gen, device="cuda") * 0.1
-    w2 = torch.randn(E, F, D, generator=gen, device="cuda") * F ** -0.5
-    b2 = torch.randn(E, D, generator=gen, device="cuda") * 0.1
-    ffn = (x, w1, b1, w2, b2)
-    chunk = (x, w1.to(bf)[:, :, :fc], b1[:, :fc], w2.to(bf)[:, :fc])
-    acc = torch.empty(E, S, D, device="cuda")
-    shape = f"(E={E}, S={S}, D={D}, chunk {fc} of F={F})"
+    ffn = _slot_rows_ffn(gen, E, S, D, F)
+    k10p = _entry("K10p", "ddm_tpu_torch/csrc/gemm_bwd.cu",
+                  ["ddm_tpu_torch/csrc/gemm_bwd.cu", "ddm_tpu_torch/csrc/common.cuh"],
+                  "ddm_tpu/ops/expert_ffn.py:213", *_k10p_partial(X, smi, gen, ffn))
     with torch.no_grad():
-        one = lambda: X._k10p(*chunk, gemm.NN_F32, acc)  # noqa: E731
-        one()
-        torch.cuda.synchronize()
-        ms = _median_ms(one)
-        plain_ms = _median_ms(lambda: X.expert_partial_reference(*chunk))
-        pd, pf = (torch.randperm(n, generator=gen, device="cuda") for n in (D, fc))
-        x_, w1_, b1_, w2_ = chunk
-        reordered = X.expert_partial_reference(x_[:, :, pd].contiguous(), w1_[:, pd][:, :, pf],
-                                               b1_[:, pf], w2_[:, pf][:, :, pd])
-        err10 = _partial_check("K10p", shape, acc, X.expert_partial_reference(*chunk),
-                               reordered[:, :, torch.argsort(pd)], ms, plain_ms, smi)
-        del reordered
-        k10p = _entry("K10p", "ddm_tpu_torch/csrc/gemm_bwd.cu",
-                      ["ddm_tpu_torch/csrc/gemm_bwd.cu", "ddm_tpu_torch/csrc/common.cuh"],
-                      "ddm_tpu/ops/expert_ffn.py:213", err10, ms, plain_ms,
-                      _bound(_nbytes(*chunk, acc), 4 * E * S * D * fc))
         before = X.PARTIAL_LAUNCHES.count
         got = X.expert_ffn(*ffn)
         torch.cuda.synchronize()
@@ -1553,6 +1633,20 @@ def _core_inputs(M, attn):
     return qkv
 
 
+def _core_library(M, A, gen, attn, H, backward):
+    """K2's attention core alone (forward, or K2b's and K4's backward) on the
+    half-block's q, k, v, beside PyTorch's SDPA on the same inputs:
+    ``{"core_ms", "library_ms"}``."""
+    qkv = _core_inputs(M, attn)
+    D = qkv.shape[-1] // 3
+    datt = torch.randn(*qkv.shape[:2], D, generator=gen, device="cuda").to(torch.bfloat16)
+    with torch.no_grad():
+        core = (_median_ms(lambda: A._core_bwd_att(qkv, datt, H)) if backward else
+                _median_ms(lambda: A._k2_core(qkv, H)))
+    sdpa = _sdpa_ms(*qkv.split(D, dim=-1), datt, H)["K8b" if backward else "K8f"]
+    return {"core_ms": core, "library_ms": sdpa}
+
+
 def phase_attention_256(M, A, smi):
     """3g: the half-blocks at N = 256 through the query-tile forward core and
     the two-pass backward, with the cores alone timed beside SDPA on the same
@@ -1561,16 +1655,7 @@ def phase_attention_256(M, A, smi):
     N, keys = PX64_SIZE ** 2 // 16, ("max_abs_err", "ms", "plain_ms")
     B = PX64_BATCH * PX64_M  # 256 denoiser images per training step
     shapes = {}
-
-    def library(attn, H, backward):
-        qkv = _core_inputs(M, attn)
-        D = qkv.shape[-1] // 3
-        datt = torch.randn(*qkv.shape[:2], D, generator=gen, device="cuda").to(torch.bfloat16)
-        with torch.no_grad():
-            core = (_median_ms(lambda: A._core_bwd_att(qkv, datt, H)) if backward else
-                    _median_ms(lambda: A._k2_core(qkv, H)))
-        sdpa = _sdpa_ms(*qkv.split(D, dim=-1), datt, H)["K8b" if backward else "K8f"]
-        return {"core_ms": core, "library_ms": sdpa}
+    library = functools.partial(_core_library, M, A, gen)
 
     for b in (PX64_BATCH, B):
         case = _k2f_case(A, gen, b, N, 384, 6)
@@ -1666,8 +1751,31 @@ def phase_attention_core(A, FL, smi):
     Returns ``([K7f entry, K7b entry], {"K8f": [...], "K8b": [...]})``."""
     gen = torch.Generator(device="cuda").manual_seed(11)
     D, H, N = DIT_L["embed_dim"], DIT_L["heads"], PX64_SIZE ** 2 // 16
-    Dh = D // H
     srcs = ["ddm_tpu_torch/csrc/attention.cu", "ddm_tpu_torch/csrc/common.cuh"]
+    fwd, bwd = _k7_shapes(A, smi, gen, "dit-l64", N, D, H)
+    first = fwd[0]
+    k7f = _entry("K7f", srcs[0], srcs, "ddm_tpu/ops/attention.py:89", first["max_abs_err"],
+                 first["ms"], first["plain_ms"],
+                 {k: v for k, v in first.items() if k.startswith("bound")}, first["library_ms"])
+    k7f["shape"], k7f["shapes"] = first["shape"], fwd[1:]
+    k7b = _entry("K7b", srcs[0], srcs, "ddm_tpu/ops/attention.py:113", bwd["max_abs_err"],
+                 bwd["ms"], bwd["plain_ms"],
+                 {k: v for k, v in bwd.items() if k.startswith("bound")}, bwd["library_ms"])
+    k7b["shape"] = bwd["shape"]
+    k8 = {"K8f": [], "K8b": []}
+    for H8 in K8_WIDE_HEADS:
+        case = _k8_case(FL, smi, gen, 128, 1024, H8, 384 // H8, library=True)
+        for name in k8:
+            k8[name].append({"path": f"128px-dh{case['Dh']}", **_k8_shape(case, name)})
+    return [k7f, k7b], k8
+
+
+def _k7_shapes(A, smi, gen, path, N, D, H):
+    """K7f at the 64-px paths' training (256 images) and sampling (64)
+    shapes and K7b at the training one, on q, k, v read in place from a
+    [q | k | v] buffer, against their plain versions by the bf16 rule (K7b's
+    second call bit-identical), beside SDPA: ``([K7f shapes], K7b shape)``."""
+    Dh = D // H
     fwd, bwd = [], None
     for B in (PX64_BATCH * PX64_M, PX64_BATCH):  # training (256 images), sampling (64)
         qkv = torch.randn(B, N, 3 * D, generator=gen, device="cuda").to(torch.bfloat16)
@@ -1688,7 +1796,7 @@ def phase_attention_core(A, FL, smi):
               f"{lib['K8f']:.4f} ms on the same q, k, v (median of 20) on {smi}")
         if not ok:
             raise AssertionError(f"K7f {shape} disagrees with its plain version")
-        fwd.append({"path": "dit-l64", "shape": shape, "max_abs_err": max_err, "ms": ms,
+        fwd.append({"path": path, "shape": shape, "max_abs_err": max_err, "ms": ms,
                     "plain_ms": plain_ms, **_bound(_nbytes(qkv, o), 2 * core),
                     "library_ms": lib["K8f"]})
         if bwd is None:
@@ -1715,50 +1823,41 @@ def phase_attention_core(A, FL, smi):
             if not ok:
                 raise AssertionError(f"K7b {shape} disagrees with its plain version")
             # q, k, v and do read, dq, dk and dv written; S, dV, dP, dQ, dK
-            bwd = _entry("K7b", srcs[0], srcs, "ddm_tpu/ops/attention.py:113", worst, bms,
-                         bplain, _bound(_nbytes(qkv, do) + _nbytes(qkv), 5 * core),
-                         lib["K8b"])
-            bwd["shape"] = shape
+            bwd = {"path": path, "shape": shape, "max_abs_err": worst, "ms": bms,
+                   "plain_ms": bplain, **_bound(_nbytes(qkv, do) + _nbytes(qkv), 5 * core),
+                   "library_ms": lib["K8b"]}
             del grads
         del qkv, q, k, v, do, o
         torch.cuda.empty_cache()
-    first = fwd[0]
-    k7f = _entry("K7f", srcs[0], srcs, "ddm_tpu/ops/attention.py:89", first["max_abs_err"],
-                 first["ms"], first["plain_ms"],
-                 {k: v for k, v in first.items() if k.startswith("bound")}, first["library_ms"])
-    k7f["shape"], k7f["shapes"] = first["shape"], fwd[1:]
-    k8 = {"K8f": [], "K8b": []}
-    for H8 in K8_WIDE_HEADS:
-        case = _k8_case(FL, smi, gen, 128, 1024, H8, 384 // H8, library=True)
-        for name in k8:
-            k8[name].append({"path": f"128px-dh{case['Dh']}", **_k8_shape(case, name)})
-    return [k7f, bwd], k8
+    return fwd, bwd
+
+
+def _energy_launches(B, m, D):
+    """The energy kernels one step at (B, m, D) launches: its route's pair."""
+    from ddm_tpu_torch.ops import energy as E
+
+    route = E.energy_route(B, m, D)
+    return {f"{route}f": 1, f"{route}b": 1} if route else {}
 
 
 def phase_train_step_rung3(cfg, smi):
     """6i: one DiT-L/4 step at 64 px (K7f/K7b, K6f, K1b), one 96-px DiT-S
     step (the plain core, K1f/K1b) and one 128-px step at --heads 3 (K8 at
     Dh 128), each against the plain step, with its launches counted."""
-    from ddm_tpu_torch.ops import energy as E
-
-    def energy(B, m, D):
-        route = E.energy_route(B, m, D)
-        return {f"{route}f": 1, f"{route}b": 1} if route else {}
-
     depth = DIT_L["depth"]
     phase_train_step(
         {**cfg, **DIT_L, "image_size": PX64_SIZE}, smi, L64_STEP_BATCH, L64_STEP_M,
         "train-step-l64", "DiT-L/4",
         {"K7f": depth, "K7b": depth, "K6f": 2 * depth, "K1b": depth,
-         **energy(L64_STEP_BATCH, L64_STEP_M, 3 * PX64_SIZE ** 2)})
+         **_energy_launches(L64_STEP_BATCH, L64_STEP_M, 3 * PX64_SIZE ** 2)})
     phase_train_step(
         {**cfg, "image_size": PX96_SIZE}, smi, LONG_BATCH, LONG_M, "train-step-96", "DiT-S/4",
-        {"K1f": DEPTH, "K1b": DEPTH, **energy(LONG_BATCH, LONG_M, 3 * PX96_SIZE ** 2)})
+        {"K1f": DEPTH, "K1b": DEPTH, **_energy_launches(LONG_BATCH, LONG_M, 3 * PX96_SIZE ** 2)})
     phase_train_step(
         {**cfg, "image_size": LONG_SIZE, "heads": 3, "depth": H3_DEPTH}, smi, LONG_BATCH, LONG_M,
         "train-step-128-h3", "DiT-S/4 --heads 3",
         {"K8f": H3_DEPTH, "K8b": H3_DEPTH, "K1f": H3_DEPTH, "K1b": H3_DEPTH,
-         **energy(LONG_BATCH, LONG_M, 3 * LONG_SIZE ** 2)})
+         **_energy_launches(LONG_BATCH, LONG_M, 3 * LONG_SIZE ** 2)})
 
 
 def phase_train_wide(kc, name, smi, label, flags, per_step, per_sample, batch=TRAIN_BATCH,
@@ -1821,6 +1920,17 @@ def phase_train_wide(kc, name, smi, label, flags, per_step, per_sample, batch=TR
     return train, generated
 
 
+def _k6b_case(M, gen, T, D, F, fast=False):
+    x, sc, bi, w1, b1, w2, _ = _mlp_args(gen, T, D, F)
+    do = torch.randn(T, D, generator=gen, device="cuda")  # fp32: the all-reduced partial's
+    args = (x, sc, bi, w1, b1, w2, do)
+    return ("K6b", f"(T={T}, D={D}, F={F}){_fast(fast)}",
+            lambda: M.mlp_partial_bwd(*args, fast_gelu=fast),
+            lambda: M.mlp_partial_bwd_reference(*args, fast_gelu=fast), args,
+            # the W1 recompute, dW2, dh, dW1 and dy products
+            10 * T * D * F)
+
+
 def phase_tp_kernels(M, A, smi):
     """3k: K6f's TP entry and K6b at the DiT-S --tp 2 shard, K6b at the DiT-B
     shard, K7f/K7b through ``fused_attention`` on separate q, k, v. Returns
@@ -1851,19 +1961,10 @@ def phase_tp_kernels(M, A, smi):
     del got, reordered, part, x, w1, w2
     torch.cuda.empty_cache()
 
-    def k6b_case(D, F):
-        x, sc, bi, w1, b1, w2, _ = _mlp_args(gen, T, D, F)
-        do = torch.randn(T, D, generator=gen, device="cuda")  # fp32: the all-reduced partial's
-        args = (x, sc, bi, w1, b1, w2, do)
-        return ("K6b", f"(T={T}, D={D}, F={F})", lambda: M.mlp_partial_bwd(*args),
-                lambda: M.mlp_partial_bwd_reference(*args), args,
-                # the W1 recompute, dW2, dh, dW1 and dy products
-                10 * T * D * F)
-
     k6b = []
     for D, F, path in ((384, 4 * 384 // TP, "tp"), (DIT_B["embed_dim"],
                                                      4 * DIT_B["embed_dim"] // TP, "tp-dit-b")):
-        case = k6b_case(D, F)
+        case = _k6b_case(M, gen, T, D, F)
         times = _time_backward(case, smi, {M.PARTIAL_BWD_LAUNCHES: 2, M.BWD_LAUNCHES: 0})
         k6b.append(_shape_entry(path, case, times))
         del case
@@ -2056,16 +2157,135 @@ def phase_train_tp(cfg, kc, name, smi):
     return {k: ranks[0]["launches"]["train"].get(k, 0) for k in generated}, generated
 
 
+def phase_train_step_xl(cfg, smi):
+    """6k: one DiT-XL/4 step at full depth 28, at 32 px (batch 16 x m 8: K2f,
+    K4, K6f, K1b) and at 64 px (8 x m 4: K7f, K7b, K6f, K1b), each against
+    the plain step with its launches counted."""
+    depth, size = DIT_XL["depth"], 32
+    phase_train_step(
+        {**cfg, **DIT_XL}, smi, XL_STEP_BATCH, TRAIN_M, "train-step-xl", "DiT-XL/4",
+        {"K2f": depth, "K4": depth, "K6f": 2 * depth, "K1b": depth,
+         **_energy_launches(XL_STEP_BATCH, TRAIN_M, 3 * size ** 2)})
+    phase_train_step(
+        {**cfg, **DIT_XL, "image_size": PX64_SIZE}, smi, L64_STEP_BATCH, L64_STEP_M,
+        "train-step-xl64", "DiT-XL/4",
+        {"K7f": depth, "K7b": depth, "K6f": 2 * depth, "K1b": depth,
+         **_energy_launches(L64_STEP_BATCH, L64_STEP_M, 3 * PX64_SIZE ** 2)})
+
+
+def phase_xl_kernels(M, A, smi):
+    """3l: DiT-XL/4's shapes (D 1152, 16 heads of Dh 72, F 4608) and Dh 24:
+    K2f at 2048 and 256 images of (64, 1152) and K4 at 2048 (the 32-px
+    path), K7f at 256 and 64 images of (256, 1152) and K7b at 256 beside
+    SDPA (the 64-px path), one K6f partial on a chunk of 2304 of (131,072 x
+    1152, F 4608) and the k = 2 half-block, K1b at (131,072, 1152, 4608);
+    K2f at (256, 64, 384, H 16) and K2b at (2048, 64, 384, H 16). Each
+    against its plain version by its rule above, every backward's second
+    call bit-identical. ``{name: [{"path", "shape", ...}]}`` for the kernels
+    line."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    D, H, N = DIT_XL["embed_dim"], DIT_XL["heads"], 64
+    B = TRAIN_BATCH * TRAIN_M
+    T, F = B * N, 4 * D
+    shapes = {}
+
+    def add(path, case, times):
+        shapes.setdefault(case[0], []).append(_shape_entry(path, case, times))
+        torch.cuda.empty_cache()
+
+    for b in (B, N_SAMPLES):
+        case = _k2f_case(A, gen, b, N, D, H)
+        add("dit-xl", case, _time_forward(case, smi))
+        if b == B:  # the training shape's core alone, beside SDPA
+            shapes["K2f"][0].update(_core_library(M, A, gen, case[4], H, False))
+    case = _attn_bwd_case(A, gen, B, N, D, H, "K4")
+    add("dit-xl", case, _time_backward(case, smi, {A.SPLIT_BWD_LAUNCHES: 2, A.BWD_LAUNCHES: 0}))
+    shapes["K4"][0].update(_core_library(M, A, gen, case[4], H, True))
+    for name in ("K2f", "K4"):
+        lib = shapes[name][0]
+        print(f"[library] {name}'s core alone {lib['core_ms']:.4f} ms, torch "
+              f"scaled_dot_product_attention {'forward + backward' if name == 'K4' else 'forward'} "
+              f"{lib['library_ms']:.4f} ms on the same q, k, v {lib['shape']} (median of 20) on "
+              f"{smi}")
+    fwd, bwd = _k7_shapes(A, smi, gen, "dit-xl64", PX64_SIZE ** 2 // 16, D, H)
+    shapes["K7f"], shapes["K7b"] = fwd, [bwd]
+    err, ms, plain_ms, bound = _k6f_partial(M, smi, gen, T, D, F)
+    shapes["K6f"] = [{"path": "dit-xl", "shape": f"(T={T}, D={D}, chunk {F // 2} of F={F})",
+                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound,
+                      "half_block": _fchunked_half_block(M, smi, gen, T, D, F)}]
+    case = _k1b_case(M, gen, T, D, F)
+    add("dit-xl", case, _time_backward(case, smi, {M.BWD_LAUNCHES: 2}))
+    case = _k2f_case(A, gen, N_SAMPLES, N, 384, DH24_HEADS)
+    add("dh24", case, _time_forward(case, smi))
+    case = _attn_bwd_case(A, gen, B, N, 384, DH24_HEADS, "K2b")
+    add("dh24", case, _time_backward(case, smi, {A.BWD_LAUNCHES: 2, A.SPLIT_BWD_LAUNCHES: 0}))
+    return shapes
+
+
+def phase_fast_gelu_kernels(M, X, smi):
+    """3m: the fast-GELU variants (``--fast-gelu``, the GELU epilogues'
+    launch parameter) at their rows' shapes, against their plain versions
+    with ``fast_gelu``, each by its rule above, every backward's second call
+    bit-identical: K1f at (16,384, 384, F 1536), K1b at (131,072, 384, 1536),
+    one K6f partial at DiT-L's (131,072 x 1024, chunk 2048 of F 4096), K6b at
+    the DiT-S --tp 2 shard (131,072, 384, F 768), K10f and K10b at (8,
+    20480, 384, F 1536) and one K10p partial at (8, 20480, 768, chunk 1536 of
+    F 3072), on slot rows whose last fifth is empty. ``{name: [...]}``."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    T = TRAIN_BATCH * TRAIN_M * 64
+    shapes = {}
+
+    def add(case, times):
+        shapes.setdefault(case[0], []).append(_shape_entry("fast-gelu", case, times))
+        torch.cuda.empty_cache()
+
+    def partial(name, shape, times):
+        shapes[name] = [{"path": "fast-gelu", "shape": shape,
+                         **dict(zip(("max_abs_err", "ms", "plain_ms"), times)), **times[3]}]
+
+    case = _k1f_case(M, gen, N_SAMPLES * 64, 384, 1536, fast=True)
+    add(case, _time_forward(case, smi))
+    case = _k1b_case(M, gen, T, 384, 1536, fast=True)
+    add(case, _time_backward(case, smi, {M.BWD_LAUNCHES: 2}))
+    D, F = DIT_L["embed_dim"], 4 * DIT_L["embed_dim"]
+    partial("K6f", f"(T={T}, D={D}, chunk {F // 2} of F={F}) fast-GELU",
+            _k6f_partial(M, smi, gen, T, D, F, fast=True))
+    case = _k6b_case(M, gen, T, 384, 4 * 384 // TP, fast=True)
+    add(case, _time_backward(case, smi, {M.PARTIAL_BWD_LAUNCHES: 2, M.BWD_LAUNCHES: 0}))
+    E, S, D, F = MOE["moe_experts"], 20480, 384, 1536
+    ffn = _slot_rows_ffn(gen, E, S, D, F)
+    dout = torch.randn(E, S, D, generator=gen, device="cuda").to(torch.bfloat16)
+    shape = f"(E={E}, S={S}, D={D}, F={F}) fast-GELU"
+    case = ("K10f", shape, lambda *a: X.expert_ffn(*a, fast_gelu=True),
+            lambda *a: X.expert_ffn_reference(*a, fast_gelu=True), ffn, 4 * E * S * D * F)
+    add(case, _time_forward(case, smi))
+    case = ("K10b", shape, lambda: X.expert_ffn_bwd(*ffn, dout, fast_gelu=True),
+            lambda: X.expert_ffn_bwd_reference(*ffn, dout, fast_gelu=True), (*ffn, dout),
+            # the h recompute, dW2, dg, dW1 and dx products
+            10 * E * S * D * F)
+    add(case, _time_backward(case, smi, {X.BWD_LAUNCHES: 2},
+                             labels=("dx", "dW1", "db1", "dW2", "db2")))
+    del ffn, dout, case
+    torch.cuda.empty_cache()
+    D, F = DIT_B["embed_dim"], 4 * DIT_B["embed_dim"]
+    partial("K10p", f"(E={E}, S={S}, D={D}, chunk {F // 2} of F={F}) fast-GELU",
+            _k10p_partial(X, smi, gen, _slot_rows_ffn(gen, E, S, D, F), fast=True))
+    return shapes
+
+
 PHASES = ("kernels", "backward", "energy", "flash", "moe-kernels", "slice", "train-step",
           "train-step-128", "train-step-moe", "train", "train-128", "train-moe", "wide-kernels",
           "wide-shapes", "train-step-l", "train-step-moe-b", "train-l", "train-moe-b",
           "attention-256", "dit-b-kernels", "m32-kernels", "train-step-64", "train-step-m32", "train-step-b",
           "train-64", "train-m32", "train-b", "attention-core", "train-step-l64", "train-l64",
-          "tp-kernels", "train-step-tp", "train-tp")
-# launches per training step and per 20-step sampler call on the wide paths
-L_STEP = {"K2f": DIT_L["depth"], "K4": DIT_L["depth"], "K1b": DIT_L["depth"],
-          "K6f": 2 * DIT_L["depth"], "K3f": 1, "K3b": 1}
-L_SAMPLE = {"K2f": DIT_L["depth"] * STEPS, "K6f": 2 * DIT_L["depth"] * STEPS}
+          "tp-kernels", "train-step-tp", "train-tp", "xl-kernels", "fast-gelu-kernels",
+          "train-step-xl", "train-step-fast-gelu", "train-xl", "train-xl64")
+# launches per training step and per 20-step sampler call on the wide paths;
+# the DiT-L trainer (7d) runs depth 12 since PR 9 (7k runs its kernels at
+# DiT-XL's full depth 28)
+L_DEPTH = 12
+L_STEP = {"K2f": L_DEPTH, "K4": L_DEPTH, "K1b": L_DEPTH, "K6f": 2 * L_DEPTH, "K3f": 1, "K3b": 1}
+L_SAMPLE = {"K2f": L_DEPTH * STEPS, "K6f": 2 * L_DEPTH * STEPS}
 MOE_B_STEP = {**{k: DIT_B["depth"] for k in ("K2f", "K4", "K11f", "K11b", "K10b", "K12f",
                                              "K12b")}, "K10p": 2 * DIT_B["depth"], "K3f": 1,
               "K3b": 1}
@@ -2077,12 +2297,25 @@ M32_STEP = {"K2f": DEPTH, "K2b": DEPTH, "K1f": DEPTH, "K1b": DEPTH, "K9f": 1, "K
 S_SAMPLE = {"K2f": DEPTH * STEPS, "K1f": DEPTH * STEPS}
 B_STEP = {**{k: DIT_B["depth"] for k in ("K2f", "K4", "K1f", "K1b")}, "K3f": 1, "K3b": 1}
 B_SAMPLE = {"K2f": DIT_B["depth"] * STEPS, "K1f": DIT_B["depth"] * STEPS}
-# ... and on DiT-L at 64 px (the third rung: K7, no half-block tier)
-L64_STEP = {"K7f": DIT_L["depth"], "K7b": DIT_L["depth"], "K1b": DIT_L["depth"],
-            "K6f": 2 * DIT_L["depth"], "K3f": 1, "K3b": 1}
-L64_SAMPLE = {"K7f": DIT_L["depth"] * STEPS, "K6f": 2 * DIT_L["depth"] * STEPS}
+# ... and on DiT-L at 64 px (the third rung: K7, no half-block tier), its
+# trainer cut to depth 8 since PR 9 (7l runs the third rung at full depth)
+L64_DEPTH = 8
+L64_STEP = {"K7f": L64_DEPTH, "K7b": L64_DEPTH, "K1b": L64_DEPTH, "K6f": 2 * L64_DEPTH,
+            "K3f": 1, "K3b": 1}
+L64_SAMPLE = {"K7f": L64_DEPTH * STEPS, "K6f": 2 * L64_DEPTH * STEPS}
 # ... and the full tensor-parallel DiT-S instance's step (6j)
 TP_STEP = {"K7f": DEPTH, "K7b": DEPTH, "K6f": DEPTH, "K6b": DEPTH, "K3f": 1, "K3b": 1}
+# ... and DiT-XL at 32 px (K2f, K4) and at 64 px (the third rung: K7)
+XL_STEP = {"K2f": DIT_XL["depth"], "K4": DIT_XL["depth"], "K1b": DIT_XL["depth"],
+           "K6f": 2 * DIT_XL["depth"], "K3f": 1, "K3b": 1}
+XL_SAMPLE = {"K2f": DIT_XL["depth"] * STEPS, "K6f": 2 * DIT_XL["depth"] * STEPS}
+XL64_STEP = {"K7f": DIT_XL["depth"], "K7b": DIT_XL["depth"], "K1b": DIT_XL["depth"],
+             "K6f": 2 * DIT_XL["depth"], "K3f": 1, "K3b": 1}
+XL64_SAMPLE = {"K7f": DIT_XL["depth"] * STEPS, "K6f": 2 * DIT_XL["depth"] * STEPS}
+# ... and the --fast-gelu steps (6l): DiT-S and its MoE at 256 x m 8
+FAST_STEP = {"K2f": DEPTH, "K2b": DEPTH, "K1f": DEPTH, "K1b": DEPTH, "K3f": 1, "K3b": 1}
+FAST_MOE_STEP = {**{k: DEPTH for k in ("K2f", "K2b", "K11f", "K11b", "K10f", "K10b", "K12f",
+                                       "K12b")}, "K3f": 1, "K3b": 1}
 
 
 def main(argv=None) -> None:
@@ -2129,8 +2362,9 @@ def main(argv=None) -> None:
             {**cfg, **DIT_L}, smi, WIDE_STEP_BATCH, TRAIN_M, "train-step-l", "DiT-L/4")),
         ("train-step-moe-b", lambda: phase_train_step(
             {**moe_cfg, **DIT_B}, smi, WIDE_STEP_BATCH, TRAIN_M, "train-step-moe-b", "DiT-B/4")),
-        ("train-l", lambda: phase_train_wide(kc, name, smi, "train-l", _wide_flags(DIT_L),
-                                             L_STEP, L_SAMPLE)),
+        ("train-l", lambda: phase_train_wide(
+            kc, name, smi, "train-l", _wide_flags({**DIT_L, "depth": L_DEPTH}), L_STEP,
+            L_SAMPLE)),
         ("train-moe-b", lambda: phase_train_wide(
             kc, name, smi, "train-moe-b", _wide_flags(DIT_B, moe=True), MOE_B_STEP,
             MOE_B_SAMPLE)),
@@ -2151,20 +2385,37 @@ def main(argv=None) -> None:
                                              B_STEP, B_SAMPLE)),
         ("attention-core", lambda: phase_attention_core(A, FL, smi)),
         ("train-step-l64", lambda: phase_train_step_rung3(cfg, smi)),
-        ("train-l64", lambda: phase_train_wide(kc, name, smi, "train-l64", _wide_flags(DIT_L),
-                                               L64_STEP, L64_SAMPLE, PX64_BATCH, PX64_M,
-                                               PX64_SIZE)),
+        ("train-l64", lambda: phase_train_wide(
+            kc, name, smi, "train-l64", _wide_flags({**DIT_L, "depth": L64_DEPTH}), L64_STEP,
+            L64_SAMPLE, PX64_BATCH, PX64_M, PX64_SIZE)),
         ("tp-kernels", lambda: phase_tp_kernels(M, A, smi)),
         ("train-step-tp", lambda: phase_train_step(
             {**cfg, "tp": TP}, smi, label="train-step-tp", model_name="DiT-S/4 (full TP instance)",
             launches=TP_STEP)),
         ("train-tp", lambda: phase_train_tp(cfg, kc, name, smi)),
+        ("xl-kernels", lambda: phase_xl_kernels(M, A, smi)),
+        ("fast-gelu-kernels", lambda: phase_fast_gelu_kernels(M, X, smi)),
+        ("train-step-xl", lambda: phase_train_step_xl(cfg, smi)),
+        ("train-step-fast-gelu", lambda: (
+            phase_train_step({**cfg, "fast_gelu": True}, smi, label="train-step-fast-gelu",
+                             model_name="DiT-S/4 --fast-gelu", launches=FAST_STEP),
+            phase_train_step({**moe_cfg, "fast_gelu": True}, smi, label="train-step-moe-fast-gelu",
+                             model_name="DiT-S/4 --fast-gelu", launches=FAST_MOE_STEP))),
+        ("train-xl", lambda: phase_train_wide(kc, name, smi, "train-xl", _wide_flags(DIT_XL),
+                                              XL_STEP, XL_SAMPLE)),
+        ("train-xl64", lambda: phase_train_wide(kc, name, smi, "train-xl64", _wide_flags(DIT_XL),
+                                                XL64_STEP, XL64_SAMPLE, PX64_BATCH, PX64_M,
+                                                PX64_SIZE)),
     ]
     out = {}
+    t_run = time.perf_counter()
     for phase, fn in steps:
         if phase in run:
+            t0 = time.perf_counter()
             out[phase] = fn()
             torch.cuda.empty_cache()
+            print(f"[time] {phase} {time.perf_counter() - t0:.1f} s (run so far "
+                  f"{time.perf_counter() - t_run:.1f} s)", flush=True)
     if run != set(PHASES):
         print(f"chip_smoke: ran only {sorted(run)}; no result line")
         return
@@ -2183,7 +2434,9 @@ def main(argv=None) -> None:
              "m32": ([energy["K9f"], energy["K9b"]], *out["train-m32"]),
              "dit-b": ([], *out["train-b"]),
              "dit-l64": (out["attention-core"][0], *out["train-l64"]),
-             "tp": (out["tp-kernels"][0], *out["train-tp"])}
+             "tp": (out["tp-kernels"][0], *out["train-tp"]),
+             "dit-xl": ([], *out["train-xl"]),
+             "dit-xl64": ([], *out["train-xl64"])}
     kernels = []
     for entries, trained, sampled in paths.values():
         for k in entries:
@@ -2195,7 +2448,8 @@ def main(argv=None) -> None:
         kernels += entries
     for k in kernels:  # the kernels at the other paths' shapes
         for shapes in (out["wide-shapes"], out["attention-256"], out["dit-b-kernels"],
-                       out["m32-kernels"], out["attention-core"][1], out["tp-kernels"][1]):
+                       out["m32-kernels"], out["attention-core"][1], out["tp-kernels"][1],
+                       out["xl-kernels"], out["fast-gelu-kernels"]):
             k.setdefault("shapes", []).extend(shapes.get(k["name"], []))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

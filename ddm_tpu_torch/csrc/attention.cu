@@ -1,5 +1,5 @@
 // Multi-head attention cores of the DiT attention half-block, 16 <= N <= 512
-// tokens (N a multiple of 16).
+// tokens (N a multiple of 16), head widths Dh a multiple of 8.
 //
 // Replace the attention part of ddm_tpu/ops/attention.py `_blk_fwd_kernel`
 // (`_mha_packed_fwd`, K2f) and the per-head cores of the persist-probs
@@ -48,6 +48,16 @@
 // tiles over the same depth slices in the same order in every design, and
 // the recomputed P is the same expression of the same scores, so where two
 // designs take a shape their outputs agree bit for bit.
+//
+// Head widths: the WMMA fragments are 16 deep and 16 wide, and the JAX gates
+// take any Dh % 8 = 0 (DiT-XL's 16 heads of 72, DiT-S at --heads 16: 24).
+// Each head's tile in shared memory is padded to the next multiple of 16
+// (72 -> 80, 24 -> 32) with zero columns: zeros added to q and k leave Q K^T
+// as it is, and the padded columns of P V, dS K and the other products are
+// never written back. A head's columns start at h Dh elements, a multiple
+// of 16 bytes, so the 16-byte loads hold; a head row is Dh / 8 of them (9 at
+// Dh 72). Where Dh % 16 = 0 nothing is padded and the products are the ones
+// before the padding existed.
 #include <type_traits>
 
 #include "common.cuh"
@@ -57,6 +67,11 @@ namespace {
 
 constexpr int kThreads = 128;  // 4 warps
 constexpr size_t kMaxSmem = 232448;
+
+// A head's width in shared memory: Dh up to the next whole fragment.
+__host__ __device__ __forceinline__ int padded(int Dh) {
+  return (Dh + kFrag - 1) / kFrag * kFrag;
+}
 
 // q, k and v of (B, N, H*Dh) rows of stride ld, heads contiguous: the thirds
 // of a (B, N, 3D) [q | k | v] buffer (ld = 3D), or three tensors.
@@ -110,14 +125,16 @@ __device__ void mma_tiles(const bf16* A, int lda, const bf16* B, int ldb, float*
   }
 }
 
-// rows x Dh bf16 values, row stride src_ld, into a shared tile of stride ld.
+// rows x Dh bf16 values, row stride src_ld, into a shared tile of stride ld,
+// each row followed by zeros up to padded(Dh) columns.
 __device__ __forceinline__ void load_head(bf16* dst, int ld, const bf16* __restrict__ src,
                                           int src_ld, int rows, int Dh) {
-  const int vec = Dh / 8;
+  const int vec = padded(Dh) / 8;
   for (int i = threadIdx.x; i < rows * vec; i += kThreads) {
     const int r = i / vec, c = (i % vec) * 8;
-    *reinterpret_cast<uint4*>(dst + r * ld + c) =
-        *reinterpret_cast<const uint4*>(src + (size_t)r * src_ld + c);
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (c < Dh) v = *reinterpret_cast<const uint4*>(src + (size_t)r * src_ld + c);
+    *reinterpret_cast<uint4*>(dst + r * ld + c) = v;
   }
 }
 
@@ -181,6 +198,7 @@ __device__ void ds_rows(const float* P, const float* dP, int sld, bf16* Pb, int 
 }
 
 size_t core_smem(int N, int Dh, int QT) {
+  Dh = padded(Dh);
   const int QLD = Dh + kPadH, SLD = (N > Dh ? N : Dh) + kPadF;
   return (size_t)(QT + N) * QLD * sizeof(bf16) + (size_t)QT * SLD * sizeof(float) +
          (size_t)QT * (N + kPadH) * sizeof(bf16);
@@ -192,8 +210,8 @@ __global__ void __launch_bounds__(kThreads)
 attention_core_kernel(Heads in, bf16* __restrict__ out, int N, int H, int Dh, float scale,
                       int QT) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int D = H * Dh;
-  const int QLD = Dh + kPadH, SLD = max(N, Dh) + kPadF, PLD = N + kPadH;
+  const int D = H * Dh, DP = padded(Dh);
+  const int QLD = DP + kPadH, SLD = max(N, DP) + kPadF, PLD = N + kPadH;
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* KV = Qs + QT * QLD;
   float* S = reinterpret_cast<float*>(KV + N * QLD);  // scores, then the output
@@ -203,17 +221,18 @@ attention_core_kernel(Heads in, bf16* __restrict__ out, int N, int H, int Dh, fl
   load_head(Qs, QLD, in.row(in.q, b, N, r0, h, Dh), in.ld, QT, Dh);
   load_head(KV, QLD, in.row(in.k, b, N, 0, h, Dh), in.ld, N, Dh);
   __syncthreads();
-  mma_tiles<false, true, false>(Qs, QLD, KV, QLD, S, SLD, QT, N, Dh);  // S = Q K^T
+  mma_tiles<false, true, false>(Qs, QLD, KV, QLD, S, SLD, QT, N, DP);  // S = Q K^T
   __syncthreads();
   load_head(KV, QLD, in.row(in.v, b, N, 0, h, Dh), in.ld, N, Dh);  // V over K
   softmax_rows(S, SLD, P, PLD, QT, N, scale, false, nullptr);
   __syncthreads();
-  mma_tiles<false, false, false>(P, PLD, KV, QLD, S, SLD, QT, Dh, N);  // O = P V
+  mma_tiles<false, false, false>(P, PLD, KV, QLD, S, SLD, QT, DP, N);  // O = P V
   __syncthreads();
   store_head(out + ((size_t)b * N + r0) * D + h * Dh, D, S, SLD, QT, Dh);
 }
 
 size_t core_bwd_smem(int N, int Dh) {
+  Dh = padded(Dh);
   const int SLD = (N > Dh ? N : Dh) + kPadF;
   return (size_t)4 * N * (Dh + kPadH) * sizeof(bf16) + (size_t)2 * N * SLD * sizeof(float) +
          (size_t)N * (N + kPadH) * sizeof(bf16);
@@ -225,8 +244,8 @@ __global__ void __launch_bounds__(kThreads)
 attention_core_bwd_kernel(Heads in, const bf16* __restrict__ datt, bf16* __restrict__ att,
                           DHeads out, int N, int H, int Dh, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int D = H * Dh;
-  const int QLD = Dh + kPadH, SLD = max(N, Dh) + kPadF, PLD = N + kPadH;
+  const int D = H * Dh, DP = padded(Dh);
+  const int QLD = DP + kPadH, SLD = max(N, DP) + kPadF, PLD = N + kPadH;
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* Ks = Qs + N * QLD;
   bf16* Vs = Ks + N * QLD;
@@ -241,32 +260,33 @@ attention_core_bwd_kernel(Heads in, const bf16* __restrict__ datt, bf16* __restr
   load_head(Vs, QLD, in.row(in.v, b, N, 0, h, Dh), in.ld, N, Dh);
   load_head(dOs, QLD, datt + (size_t)b * N * D + h * Dh, D, N, Dh);
   __syncthreads();
-  mma_tiles<false, true, false>(Qs, QLD, Ks, QLD, P, SLD, N, N, Dh);  // S = Q K^T
+  mma_tiles<false, true, false>(Qs, QLD, Ks, QLD, P, SLD, N, N, DP);  // S = Q K^T
   __syncthreads();
   softmax_rows(P, SLD, Pb, PLD, N, N, scale, true, nullptr);
   __syncthreads();
-  mma_tiles<true, false, false>(Pb, PLD, dOs, QLD, F, SLD, N, Dh, N);  // dv = Pb^T dO
+  mma_tiles<true, false, false>(Pb, PLD, dOs, QLD, F, SLD, N, DP, N);  // dv = Pb^T dO
   __syncthreads();
   store_head(out.row(out.v, b, N, 0, h, Dh), out.ld, F, SLD, N, Dh);
   __syncthreads();
   if (att != nullptr) {
-    mma_tiles<false, false, false>(Pb, PLD, Vs, QLD, F, SLD, N, Dh, N);  // att = Pb V
+    mma_tiles<false, false, false>(Pb, PLD, Vs, QLD, F, SLD, N, DP, N);  // att = Pb V
     __syncthreads();
     store_head(att + (size_t)b * N * D + h * Dh, D, F, SLD, N, Dh);
     __syncthreads();
   }
-  mma_tiles<false, true, false>(dOs, QLD, Vs, QLD, F, SLD, N, N, Dh);  // dP = dO V^T
+  mma_tiles<false, true, false>(dOs, QLD, Vs, QLD, F, SLD, N, N, DP);  // dP = dO V^T
   __syncthreads();
   ds_rows(P, F, SLD, Pb, PLD, N, N, scale, nullptr);
   __syncthreads();
-  mma_tiles<false, false, false>(Pb, PLD, Ks, QLD, P, SLD, N, Dh, N);  // dq = dS K
-  mma_tiles<true, false, false>(Pb, PLD, Qs, QLD, F, SLD, N, Dh, N);   // dk = dS^T Q
+  mma_tiles<false, false, false>(Pb, PLD, Ks, QLD, P, SLD, N, DP, N);  // dq = dS K
+  mma_tiles<true, false, false>(Pb, PLD, Qs, QLD, F, SLD, N, DP, N);   // dk = dS^T Q
   __syncthreads();
   store_head(out.row(out.q, b, N, 0, h, Dh), out.ld, P, SLD, N, Dh);
   store_head(out.row(out.k, b, N, 0, h, Dh), out.ld, F, SLD, N, Dh);
 }
 
 size_t bwd_rows_smem(int N, int Dh, int QT) {
+  Dh = padded(Dh);
   const int QLD = Dh + kPadH, SLD = (N > Dh ? N : Dh) + kPadF;
   return (size_t)(2 * QT + N) * QLD * sizeof(bf16) + (size_t)2 * QT * SLD * sizeof(float) +
          (size_t)QT * (N + kPadH) * sizeof(bf16);
@@ -281,8 +301,8 @@ attention_core_bwd_rows_kernel(Heads in, const bf16* __restrict__ datt, bf16* __
                                DHeads out, float* __restrict__ stats, int N, int H, int Dh,
                                float scale, int QT) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int D = H * Dh;
-  const int QLD = Dh + kPadH, SLD = max(N, Dh) + kPadF, PLD = N + kPadH;
+  const int D = H * Dh, DP = padded(Dh);
+  const int QLD = DP + kPadH, SLD = max(N, DP) + kPadF, PLD = N + kPadH;
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* dOs = Qs + QT * QLD;
   bf16* KV = dOs + QT * QLD;
@@ -296,28 +316,29 @@ attention_core_bwd_rows_kernel(Heads in, const bf16* __restrict__ datt, bf16* __
   load_head(dOs, QLD, datt + ((size_t)b * N + r0) * D + h * Dh, D, QT, Dh);
   load_head(KV, QLD, in.row(in.k, b, N, 0, h, Dh), in.ld, N, Dh);
   __syncthreads();
-  mma_tiles<false, true, false>(Qs, QLD, KV, QLD, P, SLD, QT, N, Dh);  // S = Q K^T
+  mma_tiles<false, true, false>(Qs, QLD, KV, QLD, P, SLD, QT, N, DP);  // S = Q K^T
   __syncthreads();
   load_head(KV, QLD, in.row(in.v, b, N, 0, h, Dh), in.ld, N, Dh);  // V over K
   softmax_rows(P, SLD, Pb, PLD, QT, N, scale, true, st);
   __syncthreads();
   if (att != nullptr) {
-    mma_tiles<false, false, false>(Pb, PLD, KV, QLD, F, SLD, QT, Dh, N);  // att = Pb V
+    mma_tiles<false, false, false>(Pb, PLD, KV, QLD, F, SLD, QT, DP, N);  // att = Pb V
     __syncthreads();
     store_head(att + ((size_t)b * N + r0) * D + h * Dh, D, F, SLD, QT, Dh);
     __syncthreads();
   }
-  mma_tiles<false, true, false>(dOs, QLD, KV, QLD, F, SLD, QT, N, Dh);  // dP = dO V^T
+  mma_tiles<false, true, false>(dOs, QLD, KV, QLD, F, SLD, QT, N, DP);  // dP = dO V^T
   __syncthreads();
   load_head(KV, QLD, in.row(in.k, b, N, 0, h, Dh), in.ld, N, Dh);  // K over V
   ds_rows(P, F, SLD, Pb, PLD, QT, N, scale, st);
   __syncthreads();
-  mma_tiles<false, false, false>(Pb, PLD, KV, QLD, P, SLD, QT, Dh, N);  // dq = dS K
+  mma_tiles<false, false, false>(Pb, PLD, KV, QLD, P, SLD, QT, DP, N);  // dq = dS K
   __syncthreads();
   store_head(out.row(out.q, b, N, r0, h, Dh), out.ld, P, SLD, QT, Dh);
 }
 
 size_t bwd_cols_smem(int Dh, int KT, int QT) {
+  Dh = padded(Dh);
   const int QLD = Dh + kPadH, TLD = KT + kPadF, ALD = Dh + kPadF;
   return (size_t)(2 * KT + 2 * QT) * QLD * sizeof(bf16) +
          (size_t)(2 * QT * TLD + 2 * KT * ALD + 3 * QT) * sizeof(float) +
@@ -333,8 +354,8 @@ attention_core_bwd_cols_kernel(Heads in, const bf16* __restrict__ datt,
                                const float* __restrict__ stats, DHeads out, int N, int H, int Dh,
                                float scale, int KT, int QT) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int D = H * Dh;
-  const int QLD = Dh + kPadH, TLD = KT + kPadF, ALD = Dh + kPadF, TPLD = KT + kPadH;
+  const int D = H * Dh, DP = padded(Dh);
+  const int QLD = DP + kPadH, TLD = KT + kPadF, ALD = DP + kPadF, TPLD = KT + kPadH;
   bf16* Ks = reinterpret_cast<bf16*>(smem);
   bf16* Vs = Ks + KT * QLD;
   bf16* Qs = Vs + KT * QLD;
@@ -357,8 +378,8 @@ attention_core_bwd_cols_kernel(Heads in, const bf16* __restrict__ datt,
     load_head(dOs, QLD, datt + ((size_t)b * N + q0) * D + h * Dh, D, QT, Dh);
     for (int i = threadIdx.x; i < 3 * QT; i += kThreads) st[i] = sb[(size_t)q0 * 3 + i];
     __syncthreads();
-    mma_tiles<false, true, false>(Qs, QLD, Ks, QLD, S, TLD, QT, KT, Dh);   // S = Q K^T
-    mma_tiles<false, true, false>(dOs, QLD, Vs, QLD, F, TLD, QT, KT, Dh);  // dP = dO V^T
+    mma_tiles<false, true, false>(Qs, QLD, Ks, QLD, S, TLD, QT, KT, DP);   // S = Q K^T
+    mma_tiles<false, true, false>(dOs, QLD, Vs, QLD, F, TLD, QT, KT, DP);  // dP = dO V^T
     __syncthreads();
     for (int i = threadIdx.x; i < QT * KT; i += kThreads) {
       const int r = i / KT, c = i % KT;
@@ -367,7 +388,7 @@ attention_core_bwd_cols_kernel(Heads in, const bf16* __restrict__ datt,
       Pb[r * TPLD + c] = __float2bfloat16(p);
     }
     __syncthreads();
-    mma_tiles<true, false, true>(Pb, TPLD, dOs, QLD, dV, ALD, KT, Dh, QT);  // dv += P^T dO
+    mma_tiles<true, false, true>(Pb, TPLD, dOs, QLD, dV, ALD, KT, DP, QT);  // dv += P^T dO
     __syncthreads();
     for (int i = threadIdx.x; i < QT * KT; i += kThreads) {
       const int r = i / KT, c = i % KT;
@@ -375,7 +396,7 @@ attention_core_bwd_cols_kernel(Heads in, const bf16* __restrict__ datt,
           __float2bfloat16(S[r * TLD + c] * (F[r * TLD + c] - st[3 * r + 2]) * scale);
     }
     __syncthreads();
-    mma_tiles<true, false, true>(Pb, TPLD, Qs, QLD, dK, ALD, KT, Dh, QT);  // dk += dS^T Q
+    mma_tiles<true, false, true>(Pb, TPLD, Qs, QLD, dK, ALD, KT, DP, QT);  // dk += dS^T Q
   }
   __syncthreads();
   store_head(out.row(out.k, b, N, c0, h, Dh), out.ld, dK, ALD, KT, Dh);

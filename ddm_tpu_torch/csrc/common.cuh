@@ -28,6 +28,17 @@ using FragBCol = wmma::fragment<wmma::matrix_b, kFrag, kFrag, kFrag, bf16, wmma:
 using FragBRow = wmma::fragment<wmma::matrix_b, kFrag, kFrag, kFrag, bf16, wmma::row_major>;
 using FragC = wmma::fragment<wmma::accumulator, kFrag, kFrag, kFrag, float>;
 
+// The fast GELU of the JAX package's DDM_TPU_FAST_GELU (ddm_tpu/ops/
+// mlp_block.py `_act`, `_act_fwd_bwd`): g = h s and g' = s (1 + c h (1 - s))
+// with one sigmoid s = sigmoid(c h), c = 1.702, shared by the two. The GELU
+// epilogues take it where their `fast` launch parameter is set, in place of
+// the exact erf.
+constexpr float kFastGeluC = 1.702f;
+
+__device__ __forceinline__ float fast_gelu_sigmoid(float h) {
+  return 1.0f / (1.0f + expf(-kFastGeluC * h));
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

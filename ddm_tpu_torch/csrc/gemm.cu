@@ -19,7 +19,8 @@
 //   * the LayerNorm is a prologue: a block loads its 64-row panel once,
 //     normalises it in fp32 and keeps it in shared memory as bf16 while it
 //     streams weight column tiles past it;
-//   * bias, exact-erf GELU and the residual are epilogues on the fp32
+//   * bias, exact-erf GELU (or, with the launch parameter `fast`, the
+//     sigmoid GELU of --fast-gelu) and the residual are epilogues on the fp32
 //     accumulators, so no fp32 intermediate reaches device memory;
 //   * the (T, F) hidden activation still goes through device memory. An
 //     F-chunked kernel that keeps it on chip is later work, as are wgmma,
@@ -162,7 +163,7 @@ ln_gemm_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_scale,
                const float* __restrict__ ln_bias, const bf16* __restrict__ w,
                const float* __restrict__ bias, bf16* __restrict__ out,
                float* __restrict__ out2, bf16* __restrict__ y_out, int T, int K,
-               int Nout, int epi) {
+               int Nout, int epi, int fast) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int ALD = K + kPadH;
   bf16* As = reinterpret_cast<bf16*>(smem);
@@ -232,7 +233,16 @@ ln_gemm_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_scale,
       const size_t o = (size_t)row * Nout + col;
       float v0 = Cs[r * CLD + c] + bias[col];
       float v1 = Cs[r * CLD + c + 1] + bias[col + 1];
-      if (epi == kEpiGeluGrad) {
+      if (epi != kEpiBias && fast) {
+        // one sigmoid shared by the fast GELU and its derivative
+        const float s0 = fast_gelu_sigmoid(v0), s1 = fast_gelu_sigmoid(v1);
+        if (epi == kEpiGeluGrad)
+          *reinterpret_cast<float2*>(out2 + o) =
+              make_float2(s0 * (1.0f + kFastGeluC * v0 * (1.0f - s0)),
+                          s1 * (1.0f + kFastGeluC * v1 * (1.0f - s1)));
+        v0 *= s0;
+        v1 *= s1;
+      } else if (epi == kEpiGeluGrad) {
         // one erf shared by the GELU and its derivative (_act_fwd_bwd)
         const float e0 = erff(v0 * kInvSqrt2), e1 = erff(v1 * kInvSqrt2);
         *reinterpret_cast<float2*>(out2 + o) = make_float2(
@@ -354,9 +364,12 @@ extern "C" int ddm_gemm_partial(const void* a, const void* w, int ldw, void* acc
   }
 }
 
+// out = epi(LN(x) w^T + bias); with `fast` the GELU epilogues take the
+// sigmoid GELU. The row panel stays resident: K up to 1344 fits a block.
 extern "C" int ddm_ln_gemm(const void* x, const void* ln_scale, const void* ln_bias,
                            const void* w, const void* bias, void* out, void* out2,
-                           void* y_out, int T, int K, int Nout, int epi, void* stream) {
+                           void* y_out, int T, int K, int Nout, int epi, int fast,
+                           void* stream) {
   using namespace ddm;
   const size_t smem = (size_t)BM * (K + kPadH) * sizeof(bf16) +
                       (size_t)BN * BLD * sizeof(bf16) + (size_t)BM * CLD * sizeof(float);
@@ -367,7 +380,7 @@ extern "C" int ddm_ln_gemm(const void* x, const void* ln_scale, const void* ln_b
   dim3 grid((T + BM - 1) / BM, (ntiles + kTilesPerBlock - 1) / kTilesPerBlock);
   ln_gemm_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const bf16*)x, (const float*)ln_scale, (const float*)ln_bias, (const bf16*)w,
-      (const float*)bias, (bf16*)out, (float*)out2, (bf16*)y_out, T, K, Nout, epi);
+      (const float*)bias, (bf16*)out, (float*)out2, (bf16*)y_out, T, K, Nout, epi, fast);
   return (int)cudaGetLastError();
 }
 

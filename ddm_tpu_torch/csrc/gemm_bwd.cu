@@ -34,7 +34,8 @@
 // FFN (K10, ddm_tpu/ops/expert_ffn.py `_fwd_kernel` / `_bwd_kernel`):
 // blockIdx.z selects the expert and every operand advances by one
 // expert's contiguous slab, with no-LN epilogues (bias, bias + GELU, and
-// bias + GELU writing gelu'(h) beside it for the backward's recompute).
+// bias + GELU writing gelu'(h) beside it for the backward's recompute; the
+// GELU exact, or the sigmoid GELU where the launch parameter `fast` is set).
 // The dense callers run a batch of one.
 //
 // What bounds it on the H100: at the training shape (T = 131072 rows,
@@ -119,7 +120,7 @@ __global__ void __launch_bounds__(kThreads)
 gemm_nn_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
                const float* __restrict__ bias, float* __restrict__ aux,
                void* __restrict__ out, float* __restrict__ colsum, int T, int K, int Nout,
-               int ldw, int wstride, int epi) {
+               int ldw, int wstride, int epi, int fast) {
   constexpr bool kBatched = EPI >= 0;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* As = reinterpret_cast<bf16*>(smem);
@@ -190,11 +191,18 @@ gemm_nn_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
       const float h = v + bias[col];
       float g = h;
       if constexpr (EPI != kNNBias) {
-        // one erf shared by the GELU and its derivative (_act_fwd_bwd)
-        const float e = erff(h * kInvSqrt2);
-        if constexpr (EPI == kNNBiasGeluGrad)
-          aux[o] = 0.5f * (1.0f + e) + h * kInvSqrt2Pi * expf(-0.5f * h * h);
-        g = 0.5f * h * (1.0f + e);
+        if (fast) {
+          // one sigmoid shared by the fast GELU and its derivative
+          const float s = fast_gelu_sigmoid(h);
+          if constexpr (EPI == kNNBiasGeluGrad) aux[o] = s * (1.0f + kFastGeluC * h * (1.0f - s));
+          g = h * s;
+        } else {
+          // one erf shared by the GELU and its derivative (_act_fwd_bwd)
+          const float e = erff(h * kInvSqrt2);
+          if constexpr (EPI == kNNBiasGeluGrad)
+            aux[o] = 0.5f * (1.0f + e) + h * kInvSqrt2Pi * expf(-0.5f * h * h);
+          g = 0.5f * h * (1.0f + e);
+        }
       }
       reinterpret_cast<bf16*>(out)[o] = __float2bfloat16(g);
     }
@@ -367,12 +375,12 @@ cast_bf16_kernel(const float* __restrict__ src, bf16* __restrict__ dst, int n) {
 template <int EPI>
 cudaError_t launch_nn(dim3 grid, size_t smem, cudaStream_t stream, const bf16* a, const bf16* w,
                       const float* bias, float* aux, void* out, float* colsum, int T, int K,
-                      int Nout, int ldw, int wstride, int epi) {
+                      int Nout, int ldw, int wstride, int epi, int fast) {
   cudaError_t err = cudaFuncSetAttribute(gemm_nn_kernel<EPI>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   gemm_nn_kernel<EPI><<<grid, kThreads, smem, stream>>>(a, w, bias, aux, out, colsum, T, K,
-                                                         Nout, ldw, wstride, epi);
+                                                         Nout, ldw, wstride, epi, fast);
   return cudaGetLastError();
 }
 
@@ -387,11 +395,12 @@ using ddm::bf16;
 // reads aux (gelu'(h)) and writes db = column sums of dh through
 // colsum_ws[batch, ceil(T / 64), Nout] into colsum_out[batch, Nout]; epi 5
 // writes aux; epi 6 adds into the fp32 out; epi 7 reads the fp32 sum aux.
+// With `fast`, epilogues 4 and 5 take the sigmoid GELU of --fast-gelu.
 // Epilogues 6 and 7 run with epi 0 (fp32 out) before them as the F-chunked
 // expert FFN's partial products (K10p), summed in chunk order.
 extern "C" int ddm_gemm_nn(const void* a, const void* w, const void* bias, void* aux, void* out,
                            void* colsum_ws, void* colsum_out, int T, int K, int Nout, int ldw,
-                           int wstride, int epi, int batch, void* stream) {
+                           int wstride, int epi, int batch, int fast, void* stream) {
   using namespace ddm;
   const size_t smem = (size_t)(BM * ALD + BK * WLD) * sizeof(bf16) +
                       (size_t)BM * CLD * sizeof(float);
@@ -412,7 +421,7 @@ extern "C" int ddm_gemm_nn(const void* a, const void* w, const void* bias, void*
   }
   const cudaError_t err = launch(grid, smem, (cudaStream_t)stream, (const bf16*)a,
                                  (const bf16*)w, (const float*)bias, (float*)aux, out,
-                                 (float*)colsum_ws, T, K, Nout, ldw, wstride, epi);
+                                 (float*)colsum_ws, T, K, Nout, ldw, wstride, epi, fast);
   if (err != cudaSuccess || epi != kNNDGelu) return (int)err;
   return (int)reduce_rows((const float*)colsum_ws, (float*)colsum_out, nblk, Nout,
                           (cudaStream_t)stream, batch);

@@ -13,8 +13,11 @@ products in the compute dtype with their biases, the plain attention
 core, the residual added in the stream dtype, as ``MultiheadSelfAttention``
 (``ddm_tpu/models/dit.py:89-125``) computes it; the MLP half stays fused
 and the parameters are the same. ``"flash"`` is ``"auto"``, as in the JAX
-model (``dit.py:357``). With ``moe_experts > 1``
-the MLP half is :class:`~ddm_tpu_torch.models.moe.MoEMLP` (kernels K11,
+model (``dit.py:357``). ``fast_gelu`` (the JAX package's
+``DDM_TPU_FAST_GELU=1``) takes ``h sigmoid(1.702 h)`` in place of the
+exact-erf GELU in every MLP half-block, dense, mixture-of-experts or
+tensor-parallel, through the kernels and the plain versions alike. With
+``moe_experts > 1`` the MLP half is :class:`~ddm_tpu_torch.models.moe.MoEMLP` (kernels K11,
 K10, K12), with ``norm2`` still owned by the block
 (``ddm_tpu/models/dit.py:297-324``), and :meth:`DDDMDiT.tokens_and_aux`
 hands each block's Switch aux term to the training step.
@@ -147,7 +150,7 @@ class DiTBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, device=None,
                  moe: Optional[dict] = None, attention: str = "auto", tp: int = 1,
-                 tp_group=None):
+                 tp_group=None, fast_gelu: bool = False):
         super().__init__()
         if dim % num_heads:
             raise ValueError("dim must be divisible by num_heads")
@@ -156,13 +159,14 @@ class DiTBlock(nn.Module):
         self.num_heads = num_heads
         self.attention = attention
         self.tp, self.tp_group = tp, tp_group
+        self.fast_gelu = fast_gelu
         shards = tp if tp_group is not None else 1
         hidden = int(dim * mlp_ratio)
         self.norm1 = _Affine((dim,), (dim,), device)
         self.attn = _Attn(dim, device, dim // shards)
         self.norm2 = _Affine((dim,), (dim,), device)
         if moe:
-            self.moe = MoEMLP(dim, hidden, device=device, **moe)
+            self.moe = MoEMLP(dim, hidden, device=device, fast_gelu=fast_gelu, **moe)
         else:
             self.ff = _FeedForward(dim, hidden // shards, device)
 
@@ -203,7 +207,8 @@ class DiTBlock(nn.Module):
             # and parameters get partial cotangents that f sums
             rows_in, s2, b2 = (tp_region_enter(t, group) for t in (rows, s2, b2))
         ff_in, ff_out = self.ff.net["0"], self.ff.net["2"]
-        part = fused_mlp_partial(rows_in, s2, b2, ff_in.weight, ff_in.bias, ff_out.weight)
+        part = fused_mlp_partial(rows_in, s2, b2, ff_in.weight, ff_in.bias, ff_out.weight,
+                                 self.fast_gelu)
         if group is not None:
             part = tp_region_exit(part, group)
         return (rows.float() + part + ff_out.bias.float()).to(x.dtype).reshape(B, N, D)
@@ -228,7 +233,7 @@ class DiTBlock(nn.Module):
         ff_in, ff_out = self.ff.net["0"], self.ff.net["2"]
         out = fused_mlp_block(
             x.reshape(B * N, D), self.norm2.weight, self.norm2.bias,
-            ff_in.weight, ff_in.bias, ff_out.weight, ff_out.bias,
+            ff_in.weight, ff_in.bias, ff_out.weight, ff_out.bias, self.fast_gelu,
         )
         return out.reshape(B, N, D), None
 
@@ -241,7 +246,8 @@ class DDDMDiT(nn.Module):
     concatenated [xt, xi] input. Defaults are DiT-S/4 on 32x32 images.
     ``tp > 1`` selects the tensor-parallel blocks; ``tp_group``, a process
     group of ``tp`` ranks, makes this instance one rank's shard (None: the
-    full weights, no collective).
+    full weights, no collective). ``fast_gelu`` selects the sigmoid GELU in
+    every MLP half-block.
     """
 
     def __init__(
@@ -264,6 +270,7 @@ class DDDMDiT(nn.Module):
         attention: str = "auto",
         tp: int = 1,
         tp_group=None,
+        fast_gelu: bool = False,
     ):
         super().__init__()
         if img_size % patch_size:
@@ -284,6 +291,7 @@ class DDDMDiT(nn.Module):
         self.embed_dim, self.time_embed_dim = embed_dim, time_embed_dim
         self.dtype = dtype
         self.moe_experts = moe_experts
+        self.fast_gelu = fast_gelu
         self.num_patches = (img_size // patch_size) ** 2
         D, p = embed_dim, patch_size
         self.patch_embed = nn.ModuleDict(
@@ -296,7 +304,7 @@ class DDDMDiT(nn.Module):
         moe = (dict(num_experts=moe_experts, capacity=moe_capacity, group_size=moe_group_size,
                     topk=moe_topk) if moe_experts > 1 else None)
         self.blocks = nn.ModuleList(
-            [DiTBlock(D, num_heads, mlp_ratio, device, moe, attention, tp, tp_group)
+            [DiTBlock(D, num_heads, mlp_ratio, device, moe, attention, tp, tp_group, fast_gelu)
              for _ in range(depth)])
         self.norm = _Affine((D,), (D,), device)
         self.unembed = nn.ModuleDict(

@@ -70,6 +70,9 @@ def build_model(cfg: Any, device: torch.device | str = "cpu", tp_group=None) -> 
     CUDA tensors raises only where the JAX package would run a kernel the
     port lacks (ROADMAP.md Queue 2). ``attention`` is ``"auto"``,
     ``"flash"`` (the same) or ``"xla"`` (the unfused attention half).
+    ``fast_gelu`` (default False; an environment switch in the JAX package,
+    ``DDM_TPU_FAST_GELU=1``, so no key of its ``MODEL_DEFAULTS``) takes the
+    sigmoid GELU in every MLP half-block.
     """
     m = _as_mapping(cfg)
 
@@ -109,6 +112,7 @@ def build_model(cfg: Any, device: torch.device | str = "cpu", tp_group=None) -> 
         attention=str(get("attention")),
         tp=int(get("tp")),  # DDDMDiT refuses tp > 1 with experts (expert parallelism)
         tp_group=tp_group,
+        fast_gelu=bool(m.get("fast_gelu") or False),
     )
 
 

@@ -56,12 +56,13 @@ class MoEMLP(nn.Module):
     start uninitialised (see :func:`ddm_tpu_torch.models.dit.init_params`)."""
 
     def __init__(self, dim: int, hidden: int, num_experts: int, capacity: float = 1.25,
-                 group_size: int = 0, topk: int = 1, device=None):
+                 group_size: int = 0, topk: int = 1, device=None, fast_gelu: bool = False):
         super().__init__()
         if topk not in (1, 2):
             raise ValueError(f"topk must be 1 or 2, got {topk}")
         self.num_experts, self.capacity = num_experts, capacity
         self.group_size, self.topk = group_size, topk
+        self.fast_gelu = fast_gelu  # the experts' GELU: exact erf, or the sigmoid GELU
         E = num_experts
         self.router = _Router(dim, E, device)
         self.experts_in = nn.Parameter(torch.empty((E, dim, hidden), device=device))
@@ -83,7 +84,7 @@ class MoEMLP(nn.Module):
             cfg, rows, ln_scale, ln_bias, self.router.weight.t(), self.router.bias, T)
         aux = E * torch.sum((cnt / float(T)) * (psum / float(T)))
         out = expert_ffn(xin, self.experts_in, self.experts_in_bias, self.experts_out,
-                         self.experts_out_bias)
+                         self.experts_out_bias, self.fast_gelu)
         tok = moe_combine_res(cfg, out, gates, pos1, pos2, thru)
         return tok[:T], aux
 
@@ -130,7 +131,7 @@ def moe_mlp_reference(layer: MoEMLP, rows: torch.Tensor, ln_scale: torch.Tensor,
     combine = sum(d * g[..., None, None] for d, g in parts)
     xin = torch.einsum("gtec,gtd->egcd", local.to(dtype), rows_g).reshape(E, G * cap, D)
     out = expert_ffn_reference(xin, layer.experts_in, layer.experts_in_bias,
-                               layer.experts_out, layer.experts_out_bias)
+                               layer.experts_out, layer.experts_out_bias, layer.fast_gelu)
     part = torch.einsum("gtec,egcd->gtd", combine, out.view(E, G, cap, D).float())
     out = part.reshape(T_pad, D)[:T].to(dtype)
     return (rows.float() + out.float()).to(dtype), aux

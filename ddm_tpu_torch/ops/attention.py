@@ -12,7 +12,14 @@ writes the attention output beside dq, dk and dv (``csrc/gemm.cu``,
 Function runs the plain versions, :func:`attention_block_reference` and
 :func:`attention_block_bwd_reference`.
 
-The cores take 16 <= N <= 512 (N a multiple of 16, the JAX gate's N <= 512).
+The cores take 16 <= N <= 512 (N a multiple of 16, the JAX gate's N <= 512)
+and head widths Dh a multiple of 8 (the JAX gate's ``Dh % 8 == 0``: DiT-XL's
+Dh 72, DiT-S at ``--heads 16``'s Dh 24), each head's tile padded in shared
+memory to the next multiple of 16 with zero columns. The half-block GEMMs
+take D a multiple of 64 up to :data:`ddm_tpu_torch.ops.gemm.LN_GEMM_MAX_K`
+(1344: the LN-prologue product's resident row panel in shared memory); a
+shape the JAX ladder sends through a kernel and the port cannot take raises
+``NotImplementedError`` naming ``ROADMAP.md`` Queue 2.
 The forward core runs one block per (image, head, query tile) over full
 score rows. The backward core runs one block per (image, head) where its
 fp32 P and dP tiles fit shared memory (N <= 112 at Dh = 64), and past that
@@ -261,19 +268,27 @@ def rung3_block_bwd_reference(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H: i
                                 _flash_core_bwd if core == "K8" else _plain_core_bwd)
 
 
+def _padded(Dh: int) -> int:
+    """A head's width in the cores' shared tiles: Dh up to a multiple of 16."""
+    return -(-Dh // 16) * 16
+
+
 def _core_smem(N: int, Dh: int, QT: int = 16) -> int:
     """Shared memory of the forward core at QT query rows (16: its least)."""
+    Dh = _padded(Dh)
     return (QT + N) * (Dh + 8) * 2 + QT * (max(N, Dh) + 4) * 4 + QT * (N + 8) * 2
 
 
 def _core_bwd_smem(N: int, Dh: int) -> int:
     """Shared memory of the one-block backward core (Q, K, V, dO, fp32 P and dP)."""
+    Dh = _padded(Dh)
     return 4 * N * (Dh + 8) * 2 + 2 * N * (max(N, Dh) + 4) * 4 + N * (N + 8) * 2
 
 
 def _bwd_tiled_smem(N: int, Dh: int) -> int:
     """The larger of the two backward passes' shared memory at their least
     tiles (16 query rows; 16 key and 16 query rows)."""
+    Dh = _padded(Dh)
     rows = (32 + N) * (Dh + 8) * 2 + 32 * (max(N, Dh) + 4) * 4 + 16 * (N + 8) * 2
     cols = 64 * (Dh + 8) * 2 + (2 * 16 * 20 + 2 * 16 * (Dh + 4) + 48) * 4 + 16 * 24 * 2
     return max(rows, cols)
@@ -285,7 +300,7 @@ def _single_block_bwd(N: int, Dh: int) -> bool:
 
 def supported_tokens(N: int, Dh: int) -> bool:
     """Whether K2f's attention cores take N tokens of head width Dh."""
-    return (N % 16 == 0 and 16 <= N <= MAX_TOKENS and Dh % 16 == 0
+    return (N % 16 == 0 and 16 <= N <= MAX_TOKENS and Dh % 8 == 0
             and _core_smem(N, Dh) <= _MAX_SMEM)
 
 
@@ -314,11 +329,14 @@ def _check(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H, kernel="K2"):
                        ("bqkv", bqkv, 3 * D), ("bproj", bproj, D)):
         if v.shape != (n,):
             raise ValueError(f"{kernel} {name} must be ({n},), got {tuple(v.shape)}")
-    if D % 64 or D > 1024:
-        raise ValueError(f"{kernel} needs D a multiple of 64 and D <= 1024, got D={D}")
+    if D % 64:
+        raise ValueError(f"{kernel} needs D a multiple of 64, got D={D}")
+    gemm.refuse_wide(D, kernel)
     if kernel == "K2" and not supported_tokens(N, Dh):
-        raise ValueError(f"K2's attention cores do not take N={N}, Dh={Dh} "
-                         f"(need multiples of 16, N <= {MAX_TOKENS})")
+        raise NotImplementedError(
+            f"K2's attention cores take N a multiple of 16 up to {MAX_TOKENS} and Dh a multiple "
+            f"of 8 whose tiles fit shared memory; got N={N}, Dh={Dh}: {_QUEUE2} (the K2 and K7 "
+            "cores past 227 KB)")
     if not x.is_contiguous():
         raise ValueError(f"{kernel} needs contiguous activations")
 
@@ -430,8 +448,9 @@ def _k2f(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H):
 def _check_core_bwd(x, H, name):
     N, Dh = x.shape[1], x.shape[2] // H
     if not supported_tokens_bwd(N, Dh):
-        raise ValueError(f"{name}'s attention core backwards do not take N={N}, Dh={Dh} "
-                         "(their shared-memory tiles exceed the card's 227 KB)")
+        raise NotImplementedError(
+            f"{name}'s attention core backwards do not take N={N}, Dh={Dh} (their shared-memory "
+            f"tiles exceed the card's 227 KB): {_QUEUE2} (the K2 and K7 cores past 227 KB)")
 
 
 def _k2b(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H, dout, counter=BWD_LAUNCHES):
@@ -508,8 +527,9 @@ def _refuse_unported_core(core, N: int, Dh: int) -> None:
     """Raise where the JAX gate takes ``core`` and the port's kernel does not."""
     if core == "K7" and not (supported_tokens(N, Dh) and supported_tokens_bwd(N, Dh)):
         raise NotImplementedError(
-            f"K7's cores take N and Dh multiples of 16 with N <= {MAX_TOKENS}; got N={N}, "
-            f"Dh={Dh}: {_QUEUE2} (K7 at Dh % 16 != 0)")
+            f"K7's cores take N a multiple of 16 up to {MAX_TOKENS} and Dh a multiple of 8 whose "
+            f"tiles fit shared memory; got N={N}, Dh={Dh}: {_QUEUE2} (the K2 and K7 cores past "
+            "227 KB)")
     if core == "K8" and not flash.flash_supported(N, Dh):
         raise NotImplementedError(
             f"the JAX gate takes K8 at N={N}, Dh={Dh}; the port's K8 takes N a multiple of "
@@ -557,10 +577,7 @@ def _check_rung3(x, H: int, core) -> None:
     """What the third rung's kernels take on the card, beyond :func:`_check`:
     the GEMM chain's widths, and the core's N and Dh."""
     B, N, D = x.shape
-    if D % 64 or D > 1024:
-        raise NotImplementedError(
-            f"the half-block GEMMs take D a multiple of 64 up to 1024, got D={D}: {_QUEUE2} "
-            "(the third rung at D > 1024, e.g. DiT-XL)")
+    gemm.refuse_wide(D, "the third rung")
     _refuse_unported_core(core, N, D // H)
 
 

@@ -16,7 +16,9 @@ products. On CPU tensors the same Function runs the plain versions,
 :func:`expert_ffn_reference` and :func:`expert_ffn_bwd_reference`.
 
 Numerics (both versions): bf16 matmul operands with fp32 accumulation;
-GELU in fp32 with exact erf, rounded to the compute dtype; dW and the bias
+GELU in fp32 with exact erf (with ``fast_gelu``, ``h sigmoid(1.702 h)`` as
+in :mod:`ddm_tpu_torch.ops.mlp_block`: the epilogues' launch parameter and
+the plain versions alike), rounded to the compute dtype; dW and the bias
 gradients in fp32; dh rounded to bf16 for the products but db1 summed over
 the unrounded dh; dx rounded to the compute dtype (``_bwd_kernel``).
 
@@ -41,7 +43,7 @@ import torch
 
 from . import gemm, tiers
 from .kernel_config import LaunchCounter, uses_kernel
-from .mlp_block import _gelu_and_grad
+from .mlp_block import _gelu_and_grad, gelu
 
 __all__ = [
     "expert_ffn",
@@ -65,11 +67,11 @@ def _bmm(a: torch.Tensor, b: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return torch.matmul(a.to(dtype).float(), b.to(dtype).float())
 
 
-def expert_ffn_reference(x, w1, b1, w2, b2):
+def expert_ffn_reference(x, w1, b1, w2, b2, fast_gelu: bool = False):
     """Plain PyTorch version of K10f over (E, S, D) slot rows in ``x.dtype``."""
     dtype = x.dtype
     h = _bmm(x, w1, dtype) + b1.float()[:, None, :]
-    g = torch.nn.functional.gelu(h, approximate="none").to(dtype)
+    g = gelu(h, fast_gelu).to(dtype)
     return (_bmm(g, w2, dtype) + b2.float()[:, None, :]).to(dtype)
 
 
@@ -80,28 +82,28 @@ def _chunks(w1, b1, w2, k: int):
              w2[:, c * fc:(c + 1) * fc]) for c in range(k)]
 
 
-def expert_partial_reference(x, w1c, b1c, w2c):
+def expert_partial_reference(x, w1c, b1c, w2c, fast_gelu: bool = False):
     """Plain version of one K10p launch (``_fwd_partial_kernel``): per expert
     ``gelu(x w1c + b1c) w2c`` in fp32, for a chunk ``w1c (E, D, Fc)``,
     ``b1c (E, Fc)``, ``w2c (E, Fc, D)`` of the hidden axis."""
     dtype = x.dtype
     h = _bmm(x, w1c, dtype) + b1c.float()[:, None, :]
-    g = torch.nn.functional.gelu(h, approximate="none").to(dtype)
+    g = gelu(h, fast_gelu).to(dtype)
     return _bmm(g, w2c, dtype)
 
 
-def expert_ffn_fchunked_reference(x, w1, b1, w2, b2, k: int):
+def expert_ffn_fchunked_reference(x, w1, b1, w2, b2, k: int, fast_gelu: bool = False):
     """Plain version of K10p's chunked forward (``_fwd_call_chunked``): the
     k fp32 partials summed in chunk order, then ``sum + b2`` rounded once to
     ``x.dtype``."""
     acc = None
     for w1c, b1c, w2c in _chunks(w1, b1, w2, k):
-        part = expert_partial_reference(x, w1c, b1c, w2c)
+        part = expert_partial_reference(x, w1c, b1c, w2c, fast_gelu)
         acc = part if acc is None else acc + part
     return (acc + b2.float()[:, None, :]).to(x.dtype)
 
 
-def expert_ffn_bwd_reference(x, w1, b1, w2, b2, dout):
+def expert_ffn_bwd_reference(x, w1, b1, w2, b2, dout, fast_gelu: bool = False):
     """Plain PyTorch version of K10b: the gradients of :func:`expert_ffn`
     with respect to ``(x, w1, b1, w2, b2)`` for the cotangent ``dout``,
     following ``_bwd_kernel``'s rounding plan."""
@@ -109,7 +111,7 @@ def expert_ffn_bwd_reference(x, w1, b1, w2, b2, dout):
     rnd = lambda t: t.to(dtype).float()  # noqa: E731
     xf = rnd(x)
     h = xf @ rnd(w1) + b1.float()[:, None, :]
-    gf, dfac = _gelu_and_grad(h)
+    gf, dfac = _gelu_and_grad(h, fast_gelu)
     g = rnd(gf)
     do = dout.float()
     dob = rnd(do)
@@ -142,20 +144,20 @@ def _check(x, w1, b1, w2, b2):
         raise ValueError("K10 needs contiguous slot rows")
 
 
-def _k10f(x, w1, b1, w2, b2):
+def _k10f(x, w1, b1, w2, b2, fast_gelu=False):
     bf = torch.bfloat16
     g = gemm.gemm_nn(x, w1.to(bf).contiguous(), gemm.NN_BIAS_GELU,
-                     bias=b1.float().contiguous())
+                     bias=b1.float().contiguous(), fast_gelu=fast_gelu)
     out = gemm.gemm_nn(g, w2.to(bf).contiguous(), gemm.NN_BIAS, bias=b2.float().contiguous())
     LAUNCHES.add()
     return out
 
 
-def _k10p(x, w1c, b1c, w2c, epi, acc, b2f=None):
+def _k10p(x, w1c, b1c, w2c, epi, acc, b2f=None, fast_gelu=False):
     """One hidden chunk: the batched NN GEMM with bias + GELU on the W1
     column chunk, then the batched NN GEMM on the W2 row chunk into the fp32
     sum (``NN_F32``, ``NN_ADD``) or, for the last chunk, ``NN_FINAL_BIAS``."""
-    g = gemm.gemm_nn(x, w1c, gemm.NN_BIAS_GELU, bias=b1c.contiguous())
+    g = gemm.gemm_nn(x, w1c, gemm.NN_BIAS_GELU, bias=b1c.contiguous(), fast_gelu=fast_gelu)
     if epi == gemm.NN_FINAL_BIAS:
         out = gemm.gemm_nn(g, w2c, epi, dfac=acc, bias=b2f)
     else:
@@ -164,7 +166,7 @@ def _k10p(x, w1c, b1c, w2c, epi, acc, b2f=None):
     return out
 
 
-def _k10p_chunked(x, w1, b1, w2, b2, k):
+def _k10p_chunked(x, w1, b1, w2, b2, k, fast_gelu=False):
     bf = torch.bfloat16
     acc = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     b2f = b2.float().contiguous()
@@ -172,17 +174,18 @@ def _k10p_chunked(x, w1, b1, w2, b2, k):
     for c, (w1c, b1c, w2c) in enumerate(_chunks(w1.to(bf).contiguous(), b1.float(),
                                                 w2.to(bf).contiguous(), k)):
         epi = gemm.NN_F32 if c == 0 else gemm.NN_FINAL_BIAS if c == last else gemm.NN_ADD
-        out = _k10p(x, w1c, b1c, w2c, epi, acc, b2f)
+        out = _k10p(x, w1c, b1c, w2c, epi, acc, b2f, fast_gelu)
     return out
 
 
-def _k10b(x, w1, b1, w2, b2, dout):
+def _k10b(x, w1, b1, w2, b2, dout, fast_gelu=False):
     if dout.shape != x.shape:
         raise ValueError(f"K10b cotangent must be {tuple(x.shape)}, got {tuple(dout.shape)}")
     bf = torch.bfloat16
     w1b = w1.to(bf).contiguous()
     dob = dout.to(bf).contiguous()
-    g, dfac = gemm.gemm_nn(x, w1b, gemm.NN_BIAS_GELU_GRAD, bias=b1.float().contiguous())
+    g, dfac = gemm.gemm_nn(x, w1b, gemm.NN_BIAS_GELU_GRAD, bias=b1.float().contiguous(),
+                           fast_gelu=fast_gelu)
     dw2, db2 = gemm.gemm_tn(g, dob, with_colsum=True, colsum_of_b=True)
     del g
     # the dx-side products read W2 and W1 transposed: (E, D, F) and (E, F, D)
@@ -195,20 +198,21 @@ def _k10b(x, w1, b1, w2, b2, dout):
     return dx, dw1, db1, dw2, db2
 
 
-def expert_ffn_bwd(x, w1, b1, w2, b2, dout):
+def expert_ffn_bwd(x, w1, b1, w2, b2, dout, fast_gelu: bool = False):
     """The gradients of :func:`expert_ffn` for the cotangent ``dout``: K10b on
     CUDA tensors (or raise), :func:`expert_ffn_bwd_reference` on CPU."""
     if not uses_kernel(x, w1, b1, w2, b2, dout):
-        return expert_ffn_bwd_reference(x, w1, b1, w2, b2, dout)
+        return expert_ffn_bwd_reference(x, w1, b1, w2, b2, dout, fast_gelu)
     _check(x, w1, b1, w2, b2)
-    return _k10b(x, w1, b1, w2, b2, dout)
+    return _k10b(x, w1, b1, w2, b2, dout, fast_gelu)
 
 
 class _ExpertFFN(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2):
+    def forward(ctx, x, w1, b1, w2, b2, fast_gelu):
         args = (x, w1, b1, w2, b2)
         ctx.save_for_backward(*args)
+        ctx.fast_gelu = fast_gelu
         E, S, D = x.shape
         F = w1.shape[-1]
         tier = tiers.expert_tier(E, S, D, F)
@@ -216,22 +220,22 @@ class _ExpertFFN(torch.autograd.Function):
         ctx.plain = not uses_kernel(*args) or tier is None
         if ctx.plain:
             if chunks > 1:
-                return expert_ffn_fchunked_reference(*args, chunks)
-            return expert_ffn_reference(*args)
+                return expert_ffn_fchunked_reference(*args, chunks, fast_gelu)
+            return expert_ffn_reference(*args, fast_gelu)
         _check(*args)
         if chunks > 1:
-            return _k10p_chunked(*args, chunks)
-        return _k10f(*args)
+            return _k10p_chunked(*args, chunks, fast_gelu)
+        return _k10f(*args, fast_gelu)
 
     @staticmethod
     def backward(ctx, dout):
         args = ctx.saved_tensors
-        grads = (expert_ffn_bwd_reference(*args, dout) if ctx.plain else
-                 expert_ffn_bwd(*args, dout.contiguous()))
-        return tuple(g.to(a.dtype) for g, a in zip(grads, args))
+        grads = (expert_ffn_bwd_reference(*args, dout, ctx.fast_gelu) if ctx.plain else
+                 expert_ffn_bwd(*args, dout.contiguous(), ctx.fast_gelu))
+        return tuple(g.to(a.dtype) for g, a in zip(grads, args)) + (None,)
 
 
-def expert_ffn(x, w1, b1, w2, b2):
+def expert_ffn(x, w1, b1, w2, b2, fast_gelu: bool = False):
     """Per-expert GELU FFN ``(E, S, D) -> (E, S, D)`` with its backward.
 
     CPU tensors take :func:`expert_ffn_reference` (or, in a chunked tier,
@@ -239,6 +243,6 @@ def expert_ffn(x, w1, b1, w2, b2):
     :func:`expert_ffn_bwd_reference`; CUDA tensors launch K10f, or k K10p in
     a chunked tier, and K10b (bf16 slot rows, weights cast to bf16, fp32
     biases) or raise; where the JAX ladder has no tier, the plain versions on
-    any device.
+    any device. ``fast_gelu`` takes the sigmoid GELU in every one of them.
     """
-    return _ExpertFFN.apply(x, w1, b1, w2, b2)
+    return _ExpertFFN.apply(x, w1, b1, w2, b2, fast_gelu)

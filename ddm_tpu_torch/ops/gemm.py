@@ -18,7 +18,7 @@ import torch
 from .kernel_config import check_status, current_stream, load_library
 
 __all__ = ["ln_gemm", "gemm_residual", "gemm_partial", "gemm_nn", "gemm_tn", "ln_bwd",
-           "cast_bf16", "tn_splits"]
+           "cast_bf16", "tn_splits", "ln_gemm_smem", "refuse_wide", "LN_GEMM_MAX_K"]
 
 # ln_gemm epilogues (csrc/gemm.cu LnGemmEpi)
 EPI_BIAS, EPI_GELU, EPI_GELU_GRAD = 0, 1, 2
@@ -27,17 +27,43 @@ PART_STORE, PART_ADD, PART_FINAL_RES = 0, 1, 2
 # gemm_nn epilogues (csrc/gemm_bwd.cu NNEpi)
 NN_F32, NN_BF16, NN_DGELU, NN_BIAS, NN_BIAS_GELU, NN_BIAS_GELU_GRAD = 0, 1, 2, 3, 4, 5
 NN_ADD, NN_FINAL_BIAS = 6, 7
-_BM, _BN = 64, 128  # the kernels' output tile
+_BM, _BN, _BK = 64, 128, 64  # the kernels' output tile and depth chunk
+_MAX_SMEM = 232448  # a block's shared memory on the H100
+
+
+def ln_gemm_smem(K: int) -> int:
+    """Shared memory of the LN-prologue GEMM's block over depth K: the
+    resident bf16 row panel (64 x (K + 8)), one W tile (128 x 72 bf16) and
+    the fp32 C tile (64 x 132)."""
+    return _BM * (K + 8) * 2 + _BN * (_BK + 8) * 2 + _BM * (_BN + 4) * 4
+
+
+# The widest depth (a multiple of 64) whose resident panel fits a block:
+# 1344 (DiT-XL's 1152 takes 200,704 bytes; 1408 would take 233,472). The
+# half-block kernels take D up to it: D is the LN-prologue product's depth.
+LN_GEMM_MAX_K = max(k for k in range(_BK, 4096, _BK) if ln_gemm_smem(k) <= _MAX_SMEM)
+
+
+def refuse_wide(D: int, kernel: str) -> None:
+    """Raise ``NotImplementedError`` naming ROADMAP.md Queue 2 past the
+    widest D the half-blocks' LN-prologue GEMM takes (the JAX ladder runs
+    kernels there, e.g. D 1536 at N = 64)."""
+    if D > LN_GEMM_MAX_K:
+        raise NotImplementedError(
+            f"{kernel}'s LN-prologue GEMM keeps a 64-row panel of D resident in shared memory, "
+            f"D <= {LN_GEMM_MAX_K} on the H100; got D={D}: ROADMAP.md Queue 2 (the half-block "
+            "GEMMs past that width)")
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def ln_gemm(x, scale, bias, w, b, epi: int, with_y: bool = False):
+def ln_gemm(x, scale, bias, w, b, epi: int, with_y: bool = False, fast_gelu: bool = False):
     """``epi(LN(x) w^T + b)`` over (T, K) rows -> ``(out, gelu_grad, y)``:
     ``out`` bf16 (T, Nout); ``gelu_grad`` fp32 (T, Nout) for
-    ``EPI_GELU_GRAD``, else None; ``y = bf16(LN(x))`` when ``with_y``."""
+    ``EPI_GELU_GRAD``, else None; ``y = bf16(LN(x))`` when ``with_y``. With
+    ``fast_gelu`` the GELU epilogues take ``h sigmoid(1.702 h)``."""
     T, K = x.shape
     Nout = w.shape[0]
     out = torch.empty((T, Nout), dtype=torch.bfloat16, device=x.device)
@@ -46,7 +72,8 @@ def ln_gemm(x, scale, bias, w, b, epi: int, with_y: bool = False):
     y = torch.empty_like(x) if with_y else None
     check_status(load_library().ddm_ln_gemm(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w.data_ptr(), b.data_ptr(),
-        out.data_ptr(), _ptr(grad), _ptr(y), T, K, Nout, epi, current_stream(x.device)),
+        out.data_ptr(), _ptr(grad), _ptr(y), T, K, Nout, epi, int(fast_gelu),
+        current_stream(x.device)),
         "ln_gemm")
     return out, grad, y
 
@@ -80,7 +107,7 @@ def gemm_partial(a, w, epi: int, acc, bias=None, res=None):
     return out
 
 
-def gemm_nn(a, w, epi: int, dfac=None, bias=None, out=None):
+def gemm_nn(a, w, epi: int, dfac=None, bias=None, out=None, fast_gelu: bool = False):
     """``a (T, K) . w (K, Nout)`` with ``w`` in nn.Linear's (out, in) layout,
     or batched over a leading expert axis: ``a (E, T, K) . w (E, K, Nout)``.
     ``w`` may be a strided view (unit column stride), read in place.
@@ -93,7 +120,8 @@ def gemm_nn(a, w, epi: int, dfac=None, bias=None, out=None):
     The F-chunked expert FFN's partial sums (batched only): ``NN_F32`` into
     a given fp32 ``out``, ``NN_ADD`` adds ``a . w`` into it, and
     ``NN_FINAL_BIAS`` -> ``bf16((dfac + a . w) + bias)`` with ``dfac`` the
-    fp32 sum of the earlier chunks.
+    fp32 sum of the earlier chunks. With ``fast_gelu`` the GELU epilogues take
+    ``h sigmoid(1.702 h)``.
     """
     batched = a.dim() == 3
     E = a.shape[0] if batched else 1
@@ -116,7 +144,7 @@ def gemm_nn(a, w, epi: int, dfac=None, bias=None, out=None):
     check_status(load_library().ddm_gemm_nn(
         a.data_ptr(), w.data_ptr(), _ptr(bias), _ptr(aux), out.data_ptr(), _ptr(ws),
         _ptr(colsum), T, K, Nout, w.stride(-2), w.stride(0) if batched else 0, epi, E,
-        current_stream(dev)), "gemm_nn")
+        int(fast_gelu), current_stream(dev)), "gemm_nn")
     if epi == NN_DGELU:
         return out, colsum
     return (out, aux) if epi == NN_BIAS_GELU_GRAD else out

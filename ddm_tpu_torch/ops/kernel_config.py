@@ -51,8 +51,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points of csrc/*.cu: name -> argtypes. Each returns cudaError_t.
 _SIGNATURES = {
-    # x, ln_scale, ln_bias, w, bias, out, out2, y_out, T, K, Nout, epi, stream
-    "ddm_ln_gemm": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, ln_scale, ln_bias, w, bias, out, out2, y_out, T, K, Nout, epi, fast, stream
+    "ddm_ln_gemm": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # a, w, bias, residual, out, T, K, Nout, stream
     "ddm_gemm_residual": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # q, k, v, ld, out, B, N, H, Dh, scale, stream
@@ -62,8 +62,8 @@ _SIGNATURES = {
     # a, w, ldw, acc, bias, res, out, T, K, Nout, epi, stream
     "ddm_gemm_partial": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # a, w, bias, aux, out, colsum_ws, colsum_out, T, K, Nout, ldw, wstride, epi, batch,
-    # stream
-    "ddm_gemm_nn": [_P] * 7 + [_I] * 7 + [_P],
+    # fast, stream
+    "ddm_gemm_nn": [_P] * 7 + [_I] * 8 + [_P],
     # a, b, ws, dw, colsum_ws, colsum_out, T, Ma, Nb, splits, rows, colsum_of_b, batch, stream
     "ddm_gemm_tn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, dy, dres, scale, dx, partial, dscale_dbias, T, D, stream

@@ -14,7 +14,14 @@ Weights use ``nn.Linear``'s layout: ``w1`` is (F, D), ``w2`` is (D, F).
 
 Numerics (both versions): LN statistics in fp32 with eps 1e-6; bf16 matmul
 operands with fp32 accumulation; exact-erf GELU in fp32, rounded to the
-compute dtype; the residual added in fp32 and rounded once. The JAX
+compute dtype; the residual added in fp32 and rounded once.
+
+``fast_gelu=True`` (the JAX package's ``DDM_TPU_FAST_GELU=1``, read there at
+trace time; an explicit argument here) takes ``h sigmoid(1.702 h)`` and its
+derivative ``s (1 + 1.702 h (1 - s))`` with one sigmoid shared
+(``_act``/``_act_fwd_bwd``) in place of the erf GELU, in the kernels' GELU
+epilogues (a launch parameter) and in every plain version. With it off
+every path computes what it computed before the switch existed. The JAX
 reference ``mlp_block_reference`` adds the residual after rounding, while
 the TPU kernel adds in fp32 and rounds once; the port follows the kernel.
 The backward follows ``_bwd_body``: dW and bias gradients in fp32, dh
@@ -72,6 +79,7 @@ __all__ = [
     "PARTIAL_LAUNCHES",
     "PARTIAL_BWD_LAUNCHES",
     "layer_norm",
+    "gelu",
 ]
 
 LN_EPS = 1e-6
@@ -81,6 +89,7 @@ PARTIAL_LAUNCHES = LaunchCounter("K6f")  # one per hidden chunk
 PARTIAL_BWD_LAUNCHES = LaunchCounter("K6b")
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 _INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
+_FAST_GELU_C = 1.702  # x sigmoid(1.702 x), Hendrycks & Gimpel (2016) eq. 5
 
 
 def ln_stats(xf: torch.Tensor):
@@ -115,25 +124,33 @@ def matmul_f32(a: torch.Tensor, w: torch.Tensor, dtype: torch.dtype) -> torch.Te
     return torch.matmul(a.to(dtype).float(), w.to(dtype).float().t())
 
 
-def mlp_block_reference(x, scale, bias, w1, b1, w2, b2):
+def gelu(h: torch.Tensor, fast_gelu: bool = False) -> torch.Tensor:
+    """The exact-erf GELU, or with ``fast_gelu`` ``h sigmoid(1.702 h)``
+    (``_act``), in ``h``'s dtype."""
+    if fast_gelu:
+        return h * torch.sigmoid(_FAST_GELU_C * h)
+    return torch.nn.functional.gelu(h, approximate="none")
+
+
+def mlp_block_reference(x, scale, bias, w1, b1, w2, b2, fast_gelu: bool = False):
     """Plain PyTorch version of K1f over (T, D) rows in ``x.dtype``."""
     dtype = x.dtype
     xf = x.float()
     y = layer_norm(xf, scale, bias).to(dtype)
     h = matmul_f32(y, w1, dtype) + b1.float()
-    g = torch.nn.functional.gelu(h, approximate="none").to(dtype)
+    g = gelu(h, fast_gelu).to(dtype)
     out = matmul_f32(g, w2, dtype) + b2.float()
     return (xf + out).to(dtype)
 
 
-def mlp_partial_reference(x, scale, bias, w1, b1, w2):
+def mlp_partial_reference(x, scale, bias, w1, b1, w2, fast_gelu: bool = False):
     """Plain PyTorch version of K5/K6f: ``gelu(LN(x) w1^T + b1) w2^T`` over
     (T, D) rows in fp32, no output bias, no residual; ``w1 (Fc, D)``, ``w2
     (D, Fc)`` (a chunk of the hidden axis, or a tensor-parallel shard)."""
     dtype = x.dtype
     y = layer_norm(x.float(), scale, bias).to(dtype)
     h = matmul_f32(y, w1, dtype) + b1.float()
-    g = torch.nn.functional.gelu(h, approximate="none").to(dtype)
+    g = gelu(h, fast_gelu).to(dtype)
     return matmul_f32(g, w2, dtype)
 
 
@@ -144,24 +161,29 @@ def _chunks(w1, b1, w2, k: int):
             for c in range(k)]
 
 
-def mlp_block_fchunked_reference(x, scale, bias, w1, b1, w2, b2, k: int):
+def mlp_block_fchunked_reference(x, scale, bias, w1, b1, w2, b2, k: int,
+                                 fast_gelu: bool = False):
     """Plain version of the F-chunked forward (``_fchunked_fwd_call``): the
     k fp32 partials summed in chunk order, then ``(x + sum) + b2`` rounded
     once to ``x.dtype``."""
     acc = None
     for w1c, b1c, w2c in _chunks(w1, b1, w2, k):
-        part = mlp_partial_reference(x, scale, bias, w1c, b1c, w2c)
+        part = mlp_partial_reference(x, scale, bias, w1c, b1c, w2c, fast_gelu)
         acc = part if acc is None else acc + part
     return ((x.float() + acc) + b2.float()).to(x.dtype)
 
 
-def _gelu_and_grad(h: torch.Tensor):
-    """``(gelu(h), gelu'(h))`` with one exact erf shared (``_act_fwd_bwd``)."""
+def _gelu_and_grad(h: torch.Tensor, fast_gelu: bool = False):
+    """``(gelu(h), gelu'(h))`` with one exact erf shared, or with
+    ``fast_gelu`` one sigmoid (``_act_fwd_bwd``)."""
+    if fast_gelu:
+        s = torch.sigmoid(_FAST_GELU_C * h)
+        return h * s, s * (1.0 + _FAST_GELU_C * h * (1.0 - s))
     erf_h = torch.erf(h * _INV_SQRT2)
     return 0.5 * h * (1.0 + erf_h), 0.5 * (1.0 + erf_h) + h * _INV_SQRT2PI * torch.exp(-0.5 * h * h)
 
 
-def mlp_block_bwd_reference(x, scale, bias, w1, b1, w2, b2, dout):
+def mlp_block_bwd_reference(x, scale, bias, w1, b1, w2, b2, dout, fast_gelu: bool = False):
     """Plain PyTorch version of K1b: the gradients of :func:`fused_mlp_block`
     with respect to ``(x, scale, bias, w1, b1, w2, b2)`` for the cotangent
     ``dout``, following ``_bwd_body``'s rounding plan (products of operands
@@ -172,7 +194,7 @@ def mlp_block_bwd_reference(x, scale, bias, w1, b1, w2, b2, dout):
     xhat, inv = ln_stats(xf)
     y = rnd(xhat * scale.float() + bias.float())
     h = y @ rnd(w1).t() + b1.float()
-    gf, dfac = _gelu_and_grad(h)
+    gf, dfac = _gelu_and_grad(h, fast_gelu)
     g = rnd(gf)
     do = dout.float()
     dob = rnd(do)
@@ -187,7 +209,7 @@ def mlp_block_bwd_reference(x, scale, bias, w1, b1, w2, b2, dout):
     return dx.to(dtype), dscale, dbias, dw1, db1, dw2, db2
 
 
-def mlp_partial_bwd_reference(x, scale, bias, w1, b1, w2, do):
+def mlp_partial_bwd_reference(x, scale, bias, w1, b1, w2, do, fast_gelu: bool = False):
     """Plain PyTorch version of K6b: the gradients of
     :func:`mlp_partial_reference` with respect to ``(x, scale, bias, w1,
     b1, w2)`` for the fp32 cotangent ``do``, by ``_bwd_body``'s rounding
@@ -199,7 +221,7 @@ def mlp_partial_bwd_reference(x, scale, bias, w1, b1, w2, do):
     xhat, inv = ln_stats(x.float())
     y = rnd(xhat * scale.float() + bias.float())
     h = y @ rnd(w1).t() + b1.float()
-    gf, dfac = _gelu_and_grad(h)
+    gf, dfac = _gelu_and_grad(h, fast_gelu)
     dob = rnd(do.float())
     dw2 = dob.t() @ rnd(gf)
     dh = (dob @ rnd(w2)) * dfac
@@ -222,9 +244,9 @@ def _check(x, scale, bias, w1, b1, w2, b2, kernel="K1"):
     for name, v, n in (("scale", scale, D), ("bias", bias, D), ("b1", b1, F), ("b2", b2, D)):
         if v is not None and v.shape != (n,):
             raise ValueError(f"{kernel} {name} must be ({n},), got {tuple(v.shape)}")
-    if D % 64 or F % 64 or D > 1024:
-        raise ValueError(f"{kernel} needs D and F multiples of 64 and D <= 1024, "
-                         f"got D={D}, F={F}")
+    if D % 64 or F % 64:
+        raise ValueError(f"{kernel} needs D and F multiples of 64, got D={D}, F={F}")
+    gemm.refuse_wide(D, kernel)
     if not x.is_contiguous():
         raise ValueError(f"{kernel} needs contiguous activations")
 
@@ -235,39 +257,40 @@ def _kernel_operands(scale, bias, w1, b1, w2, b2=None):
     return f32(scale), f32(bias), bf(w1), f32(b1), bf(w2), None if b2 is None else f32(b2)
 
 
-def _k1f(x, scale, bias, w1, b1, w2, b2):
+def _k1f(x, scale, bias, w1, b1, w2, b2, fast_gelu=False):
     s, bb, w1b, b1f, w2b, b2f = _kernel_operands(scale, bias, w1, b1, w2, b2)
-    hidden, _, _ = gemm.ln_gemm(x, s, bb, w1b, b1f, gemm.EPI_GELU)
+    hidden, _, _ = gemm.ln_gemm(x, s, bb, w1b, b1f, gemm.EPI_GELU, fast_gelu=fast_gelu)
     out = gemm.gemm_residual(hidden, w2b, b2f, x)
     LAUNCHES.add()
     return out
 
 
-def _k6f(x, s, bb, w1c, b1c, w2c, epi, acc, b2f=None):
+def _k6f(x, s, bb, w1c, b1c, w2c, epi, acc, b2f=None, fast_gelu=False):
     """One hidden chunk: the LN-prologue GEMM with bias + GELU on the W1 row
     chunk, then the fp32-partial GEMM on the W2 column chunk (in place)."""
-    hidden, _, _ = gemm.ln_gemm(x, s, bb, w1c, b1c, gemm.EPI_GELU)
+    hidden, _, _ = gemm.ln_gemm(x, s, bb, w1c, b1c, gemm.EPI_GELU, fast_gelu=fast_gelu)
     out = gemm.gemm_partial(hidden, w2c, epi, acc, b2f, x)
     PARTIAL_LAUNCHES.add()
     return out
 
 
-def _k6f_chunked(x, scale, bias, w1, b1, w2, b2, k):
+def _k6f_chunked(x, scale, bias, w1, b1, w2, b2, k, fast_gelu=False):
     s, bb, w1b, b1f, w2b, b2f = _kernel_operands(scale, bias, w1, b1, w2, b2)
     acc = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     last = k - 1
     for c, (w1c, b1c, w2c) in enumerate(_chunks(w1b, b1f, w2b, k)):
         epi = gemm.PART_STORE if c == 0 else gemm.PART_FINAL_RES if c == last else gemm.PART_ADD
-        out = _k6f(x, s, bb, w1c, b1c, w2c, epi, acc, b2f)
+        out = _k6f(x, s, bb, w1c, b1c, w2c, epi, acc, b2f, fast_gelu)
     return out
 
 
-def _k1b(x, scale, bias, w1, b1, w2, b2, dout):
+def _k1b(x, scale, bias, w1, b1, w2, b2, dout, fast_gelu=False):
     if dout.shape != x.shape:
         raise ValueError(f"K1b cotangent must be {tuple(x.shape)}, got {tuple(dout.shape)}")
     s, bb, w1b, b1f, w2b, _ = _kernel_operands(scale, bias, w1, b1, w2, b2)
     dob = dout.to(torch.bfloat16).contiguous()
-    g, dfac, y = gemm.ln_gemm(x, s, bb, w1b, b1f, gemm.EPI_GELU_GRAD, with_y=True)
+    g, dfac, y = gemm.ln_gemm(x, s, bb, w1b, b1f, gemm.EPI_GELU_GRAD, with_y=True,
+                              fast_gelu=fast_gelu)
     dw2, db2 = gemm.gemm_tn(dob, g, with_colsum=True)
     del g
     dhb, db1 = gemm.gemm_nn(dob, w2b, gemm.NN_DGELU, dfac=dfac)
@@ -280,20 +303,21 @@ def _k1b(x, scale, bias, w1, b1, w2, b2, dout):
     return dx, dscale, dbias, dw1, db1, dw2, db2
 
 
-def _k6f_partial(x, scale, bias, w1, b1, w2):
+def _k6f_partial(x, scale, bias, w1, b1, w2, fast_gelu=False):
     """The tensor-parallel partial on the card: one K6f into a new fp32 (T, D)."""
     s, bb, w1b, b1f, w2b, _ = _kernel_operands(scale, bias, w1, b1, w2)
     acc = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-    _k6f(x, s, bb, w1b, b1f, w2b, gemm.PART_STORE, acc)
+    _k6f(x, s, bb, w1b, b1f, w2b, gemm.PART_STORE, acc, fast_gelu=fast_gelu)
     return acc
 
 
-def _k6b(x, scale, bias, w1, b1, w2, do):
+def _k6b(x, scale, bias, w1, b1, w2, do, fast_gelu=False):
     if do.shape != x.shape:
         raise ValueError(f"K6b cotangent must be {tuple(x.shape)}, got {tuple(do.shape)}")
     s, bb, w1b, b1f, w2b, _ = _kernel_operands(scale, bias, w1, b1, w2)
     dob = gemm.cast_bf16(do.float())
-    g, dfac, y = gemm.ln_gemm(x, s, bb, w1b, b1f, gemm.EPI_GELU_GRAD, with_y=True)
+    g, dfac, y = gemm.ln_gemm(x, s, bb, w1b, b1f, gemm.EPI_GELU_GRAD, with_y=True,
+                              fast_gelu=fast_gelu)
     dw2, _ = gemm.gemm_tn(dob, g)
     del g
     dhb, db1 = gemm.gemm_nn(dob, w2b, gemm.NN_DGELU, dfac=dfac)
@@ -306,37 +330,38 @@ def _k6b(x, scale, bias, w1, b1, w2, do):
     return dx, dscale, dbias, dw1, db1, dw2
 
 
-def mlp_partial_bwd(x, scale, bias, w1, b1, w2, do):
+def mlp_partial_bwd(x, scale, bias, w1, b1, w2, do, fast_gelu: bool = False):
     """The gradients of :func:`fused_mlp_partial` for the fp32 cotangent
     ``do``: K6b on CUDA tensors (or raise), :func:`mlp_partial_bwd_reference`
     on CPU tensors."""
     if not uses_kernel(x, scale, bias, w1, b1, w2, do):
-        return mlp_partial_bwd_reference(x, scale, bias, w1, b1, w2, do)
+        return mlp_partial_bwd_reference(x, scale, bias, w1, b1, w2, do, fast_gelu)
     _check(x, scale, bias, w1, b1, w2, None, kernel="K6b")
-    return _k6b(x, scale, bias, w1, b1, w2, do)
+    return _k6b(x, scale, bias, w1, b1, w2, do, fast_gelu)
 
 
 class _MLPPartial(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, scale, bias, w1, b1, w2):
+    def forward(ctx, x, scale, bias, w1, b1, w2, fast_gelu):
         args = (x, scale, bias, w1, b1, w2)
         ctx.save_for_backward(*args)
+        ctx.fast_gelu = fast_gelu
         tier = tiers.mlp_tier(*x.shape, w1.shape[0])
         ctx.plain = not uses_kernel(*args) or tier is None or tier[0] == "fchunked"
         if ctx.plain:
-            return mlp_partial_reference(*args)
+            return mlp_partial_reference(*args, fast_gelu)
         _check(x, scale, bias, w1, b1, w2, None, kernel="K6f")
-        return _k6f_partial(*args)
+        return _k6f_partial(*args, fast_gelu)
 
     @staticmethod
     def backward(ctx, do):
         args = ctx.saved_tensors
-        grads = (mlp_partial_bwd_reference(*args, do) if ctx.plain else
-                 mlp_partial_bwd(*args, do))
-        return tuple(g.to(a.dtype) for g, a in zip(grads, args))
+        grads = (mlp_partial_bwd_reference(*args, do, ctx.fast_gelu) if ctx.plain else
+                 mlp_partial_bwd(*args, do, ctx.fast_gelu))
+        return tuple(g.to(a.dtype) for g, a in zip(grads, args)) + (None,)
 
 
-def fused_mlp_partial(x, scale, bias, w1, b1, w2):
+def fused_mlp_partial(x, scale, bias, w1, b1, w2, fast_gelu: bool = False):
     """``gelu(LN(x) w1^T + b1) w2^T`` over (T, D) rows in fp32, with its
     backward: a tensor-parallel rank's partial product before the
     all-reduce, with no output bias and no residual (``w1 (F_local, D)``,
@@ -347,24 +372,25 @@ def fused_mlp_partial(x, scale, bias, w1, b1, w2):
     tensors, :func:`mlp_partial_reference` and
     :func:`mlp_partial_bwd_reference`.
     """
-    return _MLPPartial.apply(x, scale, bias, w1, b1, w2)
+    return _MLPPartial.apply(x, scale, bias, w1, b1, w2, fast_gelu)
 
 
-def mlp_block_bwd(x, scale, bias, w1, b1, w2, b2, dout):
+def mlp_block_bwd(x, scale, bias, w1, b1, w2, b2, dout, fast_gelu: bool = False):
     """The gradients of :func:`fused_mlp_block` for the cotangent ``dout``:
     K1b on CUDA tensors (or raise), :func:`mlp_block_bwd_reference` on CPU
     tensors."""
     if not uses_kernel(x, scale, bias, w1, b1, w2, b2, dout):
-        return mlp_block_bwd_reference(x, scale, bias, w1, b1, w2, b2, dout)
+        return mlp_block_bwd_reference(x, scale, bias, w1, b1, w2, b2, dout, fast_gelu)
     _check(x, scale, bias, w1, b1, w2, b2)
-    return _k1b(x, scale, bias, w1, b1, w2, b2, dout)
+    return _k1b(x, scale, bias, w1, b1, w2, b2, dout, fast_gelu)
 
 
 class _MLPBlock(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, scale, bias, w1, b1, w2, b2):
+    def forward(ctx, x, scale, bias, w1, b1, w2, b2, fast_gelu):
         args = (x, scale, bias, w1, b1, w2, b2)
         ctx.save_for_backward(*args)
+        ctx.fast_gelu = fast_gelu
         T, D = x.shape
         F = w1.shape[0]
         tier = tiers.mlp_tier(T, D, F)
@@ -372,23 +398,23 @@ class _MLPBlock(torch.autograd.Function):
         ctx.plain = not uses_kernel(*args) or tier is None
         if ctx.plain:
             if chunks:
-                return mlp_block_fchunked_reference(*args, chunks)
-            return mlp_block_reference(*args)
+                return mlp_block_fchunked_reference(*args, chunks, fast_gelu)
+            return mlp_block_reference(*args, fast_gelu)
         _check(*args)
         if chunks:
-            return _k6f_chunked(*args, chunks)
-        return _k1f(*args)
+            return _k6f_chunked(*args, chunks, fast_gelu)
+        return _k1f(*args, fast_gelu)
 
     @staticmethod
     def backward(ctx, dout):
         args = ctx.saved_tensors
-        grads = (mlp_block_bwd_reference(*args, dout) if ctx.plain else
-                 mlp_block_bwd(*args, dout))
+        grads = (mlp_block_bwd_reference(*args, dout, ctx.fast_gelu) if ctx.plain else
+                 mlp_block_bwd(*args, dout, ctx.fast_gelu))
         # each gradient in its input's dtype (the weights may be bf16 copies)
-        return tuple(g.to(a.dtype) for g, a in zip(grads, args))
+        return tuple(g.to(a.dtype) for g, a in zip(grads, args)) + (None,)
 
 
-def fused_mlp_block(x, scale, bias, w1, b1, w2, b2):
+def fused_mlp_block(x, scale, bias, w1, b1, w2, b2, fast_gelu: bool = False):
     """``x + gelu(LN(x) w1^T + b1) w2^T + b2`` over (T, D) rows, with its
     backward.
 
@@ -397,6 +423,7 @@ def fused_mlp_block(x, scale, bias, w1, b1, w2, b2):
     :func:`mlp_block_bwd_reference`; CUDA tensors launch K1f, or k K6f in
     the ``fchunked`` tier, and K1b's chain (bf16 activations, fp32 LN params
     and biases, weights cast to bf16) or raise; where the JAX ladder has no
-    tier, the plain versions on any device.
+    tier, the plain versions on any device. ``fast_gelu`` takes the sigmoid
+    GELU in every one of them.
     """
-    return _MLPBlock.apply(x, scale, bias, w1, b1, w2, b2)
+    return _MLPBlock.apply(x, scale, bias, w1, b1, w2, b2, fast_gelu)

@@ -92,6 +92,18 @@ def moe_dispatch_ok(gs: int, E: int, cap: int, D: int, topk: int) -> bool:
             and D % 64 == 0 and D <= 1024 and D * E <= 8192 and cap >= 1)
 
 
+def _refuse_unported(gs: int, E: int, cap: int, D: int, topk: int, kernel: str) -> None:
+    """Raise ``NotImplementedError`` where the JAX gate (``moe_dispatch_ok``
+    of ``ddm_tpu/ops/moe_dispatch.py:633``: D % 128 == 0, E >= 2, no bound
+    on D or E) takes K11/K12 and the port's kernels do not."""
+    if (topk in (1, 2) and 0 < gs <= 2048 and gs % 8 == 0 and D % 128 == 0 and E >= 2
+            and cap >= 1 and not moe_dispatch_ok(gs, E, cap, D, topk)):
+        raise NotImplementedError(
+            f"the JAX gate takes {kernel} at D={D}, E={E}; the port's kernels hold a row in "
+            f"registers (D <= 1024) and the router's (D, E) gradient in shared memory "
+            f"(D * E <= 8192): ROADMAP.md Queue 2 (K11/K12 at D > 1024 or D * E > 8192)")
+
+
 def chosen(pos: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(expert, slot)`` of each row's routed choice from ``pos (..., E)``:
     expert -1 where the row takes no route."""
@@ -262,6 +274,7 @@ def _check_dispatch(cfg: MoEDispatchCfg, x, scale, bias, wr, br=None):
         raise TypeError(f"K11 takes bf16 rows, got {x.dtype}")
     Tp, D = x.shape
     E = cfg.num_experts
+    _refuse_unported(cfg.gs, E, cfg.cap, D, cfg.topk, "K11")
     if not moe_dispatch_ok(cfg.gs, E, cfg.cap, D, cfg.topk) or cfg.cpad % 8 or cfg.cpad < cfg.cap:
         raise ValueError(f"K11/K12 do not take gs={cfg.gs}, E={E}, cap={cfg.cap}, "
                          f"cpad={cfg.cpad}, D={D}, topk={cfg.topk} (see moe_dispatch_ok)")
@@ -333,6 +346,7 @@ def _check_combine(cfg, out, gates, pos1, pos2, res):
     if out.dtype != torch.bfloat16 or (res is not None and res.dtype != torch.bfloat16):
         raise TypeError(f"K12 takes bf16 expert outputs and residual, got {out.dtype}")
     E, S, D = out.shape
+    _refuse_unported(cfg.gs, E, cfg.cap, D, cfg.topk, "K12")
     if E != cfg.num_experts or S % cfg.cpad or not moe_dispatch_ok(cfg.gs, E, cfg.cap, D,
                                                                      cfg.topk):
         raise ValueError(f"K12 does not take expert outputs {tuple(out.shape)} with {cfg}")

@@ -11,6 +11,11 @@ in place of K1f for a checkpoint trained with ``--moe-experts``; K6f, the
 F-chunked MLP partial, in place of K1f at the DiT-L width, and K10p in place
 of K10f for an MoE at D >= 768; the third rung's K7f at DiT-L and 64 px,
 and the plain attention core at 96 px or with ``attention: xla``). A
+checkpoint at DiT-XL width runs K2f (32 px) or K7f (64 px) on 16 heads of
+72 and two K6f per block. ``--fast-gelu`` takes the sigmoid GELU in every
+MLP half-block, and only when asked, as ``generate.py`` sets
+``DDM_TPU_FAST_GELU`` only for the flag: a checkpoint trained with it
+samples with the exact-erf GELU unless the flag is given. A
 checkpoint trained with ``--tp N`` (``tp: N`` in its config) samples on one
 card through the full tensor-parallel instance, as JAX's ``generate.py``
 rebuilds it with ``tp_axis=None``: q, k and v as three products around the
@@ -76,14 +81,15 @@ def main(argv: Optional[list] = None) -> dict:
                    help="also save raw samples ([-1,1] NHWC float32) as NPZ")
     p.add_argument("--device", type=str, default="cuda")
     p.add_argument("--fast-gelu", action="store_true",
-                   help="not ported yet (ROADMAP.md Queue 1 item 5)")
+                   help="sigmoid-GELU approximation x sigmoid(1.702 x) in every MLP half-block "
+                        "(generate.py's DDM_TPU_FAST_GELU=1); off, the exact-erf GELU, whatever "
+                        "the checkpoint was trained with")
     p.add_argument("--dp", type=int, default=1,
                    help="data-parallel sampling: not ported yet (ROADMAP.md Queue 1 item 6)")
     p.add_argument("--ema", action="store_true",
                    help="sample from EMA params: not ported yet (ROADMAP.md Queue 1 item 2)")
     args = p.parse_args(argv)
-    for flag, on, item in (("--fast-gelu", args.fast_gelu, 5), ("--dp > 1", args.dp > 1, 6),
-                           ("--ema", args.ema, 2)):
+    for flag, on, item in (("--dp > 1", args.dp > 1, 6), ("--ema", args.ema, 2)):
         if on:
             raise NotImplementedError(
                 f"{flag} is not ported to the PyTorch port yet: ROADMAP.md Queue 1 item {item}")
@@ -95,7 +101,8 @@ def main(argv: Optional[list] = None) -> dict:
     if args.config:
         with open(args.config, "r", encoding="utf-8") as f:
             config = {**config, **json.load(f)}
-    cfg = {**SAMPLER_DEFAULTS, **{k: v for k, v in config.items() if v is not None}}
+    cfg = {**SAMPLER_DEFAULTS, **{k: v for k, v in config.items() if v is not None},
+           "fast_gelu": args.fast_gelu}
 
     model = build_model(cfg, device)
     model.load_state_dict(state_dict)

@@ -1,4 +1,5 @@
-"""The CUDA kernels K1-K4, K6f, K7-K9 and K10-K12 against their plain versions, on the card.
+"""The CUDA kernels K1-K4, K6f, K6b, K7-K9 and K10-K12 against their plain versions, on the
+card, at head widths off 16 (Dh 8, 24, 40, 72), at DiT-XL's D 1152, and with the fast GELU.
 
 Every test here is marked ``cuda`` and skips on a host without a GPU. The
 file imports no JAX (the machine with the card has none), so it runs there
@@ -121,7 +122,9 @@ def test_k1_backward_kernel_matches_plain_on_the_card(cuda_device, T, D, F):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,N,D,H", [(256, 64, 384, 6), (5, 128, 256, 4), (3, 16, 128, 2)])
+@pytest.mark.parametrize("B,N,D,H", [(256, 64, 384, 6), (5, 128, 256, 4), (3, 16, 128, 2),
+                                     (256, 64, 1152, 16), (256, 64, 384, 16),
+                                     (16, 64, 128, 16)])
 def test_k2_kernel_matches_plain_on_the_card(cuda_device, B, N, D, H):
     args = _on(cuda_device, _attn_inputs(B, N, D))
     before = TA.LAUNCHES.count
@@ -134,7 +137,8 @@ def test_k2_kernel_matches_plain_on_the_card(cuda_device, B, N, D, H):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,N,D,H", [(256, 64, 384, 6), (3, 16, 128, 2)])
+@pytest.mark.parametrize("B,N,D,H", [(256, 64, 384, 6), (3, 16, 128, 2), (256, 64, 384, 16),
+                                     (8, 256, 384, 16)])
 def test_k2_backward_kernel_matches_plain_on_the_card(cuda_device, B, N, D, H):
     args = _on(cuda_device, _attn_inputs(B, N, D))
     dout = torch.randn(B, N, D, generator=torch.Generator(device=cuda_device).manual_seed(3),
@@ -200,7 +204,7 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
     wproj = torch.zeros(128, 128, device=cuda_device)
     tokens = torch.zeros(2, 24, 128, device=cuda_device, dtype=torch.bfloat16)
     assert TT.attention_tier(2, 24, 128, 2) == "fused"
-    with pytest.raises(ValueError, match="N=24"):
+    with pytest.raises(NotImplementedError, match="N=24.*Queue 2"):  # the JAX gate takes N % 8
         TA.fused_attention_block(tokens, vec, vec, wqkv, bqkv, wproj, vec, 2)
     q = torch.zeros(2, 24, 128, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="Queue 2"):
@@ -408,7 +412,9 @@ def test_k8_at_head_widths_32_and_128_matches_plain_on_the_card(cuda_device, B, 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,N,H,Dh", [(256, 256, 16, 64), (64, 256, 16, 64), (32, 64, 16, 64),
-                                      (4, 112, 4, 32), (2, 48, 2, 128)])
+                                      (4, 112, 4, 32), (2, 48, 2, 128), (64, 256, 16, 72),
+                                      (32, 64, 16, 72), (8, 256, 16, 24), (4, 112, 4, 40),
+                                      (8, 64, 16, 8)])
 def test_k7_kernels_match_plain_on_the_card(cuda_device, B, N, H, Dh):
     """K7f and K7b on q, k, v read in place from a [q | k | v] buffer (and
     on three separate tensors), against their plain versions by the bf16
@@ -438,7 +444,7 @@ def test_k7_kernels_match_plain_on_the_card(cuda_device, B, N, H, Dh):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,N,D,H,core", [(8, 256, 1024, 16, "K7"), (2, 576, 384, 6, None),
-                                          (2, 1024, 384, 3, "K8")])
+                                          (2, 1024, 384, 3, "K8"), (8, 256, 1152, 16, "K7")])
 def test_rung3_half_block_matches_plain_on_the_card(cuda_device, B, N, D, H, core):
     """The JAX ladder's third rung on the card: DiT-L at N = 256 around
     K7f/K7b, N = 576 around the plain core (JAX runs XLA's attention), and
@@ -602,7 +608,8 @@ def test_moe_kernels_refuse_what_they_do_not_take(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,N,D,H,forced", [(2048, 64, 1024, 16, False),
-                                            (256, 64, 768, 12, False), (3, 16, 128, 2, True)])
+                                            (256, 64, 768, 12, False), (3, 16, 128, 2, True),
+                                            (256, 64, 1152, 16, False)])
 def test_k4_split_backward_matches_plain_on_the_card(cuda_device, monkeypatch, B, N, D, H,
                                                      forced):
     """K4 where the JAX ladder takes it (DiT-L and DiT-B widths) and, forced,
@@ -625,7 +632,8 @@ def test_k4_split_backward_matches_plain_on_the_card(cuda_device, monkeypatch, B
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,D,F,forced", [(131072, 1024, 4096, False), (1000, 128, 512, True)])
+@pytest.mark.parametrize("T,D,F,forced", [(131072, 1024, 4096, False), (1000, 128, 512, True),
+                                         (16384, 1152, 4608, False)])
 def test_k6f_fchunked_mlp_matches_plain_on_the_card(cuda_device, monkeypatch, T, D, F, forced):
     """One K6f partial on the second hidden chunk, read in place from the
     bf16 weights (fp32, by the partial rule: single flipped bf16 roundings
@@ -771,7 +779,7 @@ def test_k2_cores_past_128_tokens_match_plain_on_the_card(cuda_device, B, N, D, 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,N,H,Dh", [(64, 64, 6, 64), (16, 112, 6, 64), (8, 128, 4, 32),
-                                      (4, 48, 2, 128)])
+                                      (4, 48, 2, 128), (64, 64, 16, 72), (16, 112, 16, 24)])
 def test_k2_tiled_cores_agree_with_the_one_block_cores_on_the_card(cuda_device, B, N, H, Dh):
     """Where both backward designs take a shape, the two passes give the
     one-block core's bits: the same 16 x 16 products over the same depth
@@ -844,3 +852,115 @@ def test_fused_attention_on_separate_tensors_on_the_card(cuda_device, B, N, D, H
     for g, h, w in zip(*runs, want):
         assert torch.equal(g, h)
         _assert_bf16_rule(g, w)
+
+
+@pytest.mark.cuda
+def test_half_block_widths_past_1024_on_the_card(cuda_device):
+    """D up to 1344 (the LN-prologue GEMM's resident panel: 200,704 bytes at
+    DiT-XL's 1152) runs: K2f and K4 at D 1280 over 10 heads, K6f at D 1280
+    (F 5120); D 1408 and past raise NotImplementedError naming Queue 2
+    before any launch (the JAX ladder takes D 1536 at N = 64)."""
+    assert TM.gemm.LN_GEMM_MAX_K == 1344 and TM.gemm.ln_gemm_smem(1152) == 200704
+    assert TT.mlp_tier(1024, 1280, 5120) == ("fchunked", 2)
+    args = _on(cuda_device, _mlp_inputs(1024, 1280, 5120, seed=34))
+    with torch.inference_mode():
+        _assert_bf16_rule(TM.fused_mlp_block(*args), TM.mlp_block_fchunked_reference(*args, 2))
+    assert TT.attention_tier(8, 64, 1280, 10) == "split"
+    attn = _on(cuda_device, _attn_inputs(8, 64, 1280, seed=33))
+    dout = torch.randn(8, 64, 1280, generator=torch.Generator(device=cuda_device).manual_seed(3),
+                       device=cuda_device).to(torch.bfloat16)
+    with torch.inference_mode():
+        _assert_bf16_rule(TA.fused_attention_block(*attn, 10),
+                          TA.attention_block_reference(*attn, 10))
+    _assert_grads_close(_grads_through_autograd(TA.fused_attention_block, attn, (10,), dout),
+                        TA.attention_block_bwd_reference(*attn, 10, dout))
+    wide = _on(cuda_device, _attn_inputs(2, 64, 1536, seed=35))
+    assert TT.attention_tier(2048, 64, 1536, 16) is None and TT.core_tier(2, 64, 1536, 16) == "K7"
+    before = [c.count for c in (TA.LAUNCHES, TA.CORE_LAUNCHES)]
+    with pytest.raises(NotImplementedError, match="D=1536.*Queue 2"):
+        TA.fused_attention_block(*wide, 16)
+    assert [c.count for c in (TA.LAUNCHES, TA.CORE_LAUNCHES)] == before
+
+
+def _fast_mlp(cuda_device, T, D, F, seed):
+    """MLP inputs whose h spreads over |h| <= ~6, where the GELUs differ most."""
+    inputs = _mlp_inputs(T, D, F, seed=seed)
+    inputs["w1"] = inputs["w1"] * 2.0
+    return _on(cuda_device, inputs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,D,F,tier", [(16384, 384, 1536, ("fused", 1)),
+                                        (16384, 1024, 4096, ("fchunked", 2))])
+def test_fast_gelu_mlp_kernels_match_plain_on_the_card(cuda_device, T, D, F, tier):
+    """``fast_gelu`` in K1f (or two K6f in the F-chunked tier) and K1b's
+    recompute: the forward by the bf16 rule against the plain version with
+    the sigmoid GELU (and away from the erf one), the seven gradients twice
+    (bit-identical) against the plain backward with it."""
+    assert TT.mlp_tier(T, D, F) == tier
+    args = _fast_mlp(cuda_device, T, D, F, seed=36)
+    with torch.inference_mode():
+        out = TM.fused_mlp_block(*args, fast_gelu=True)
+    plain = (TM.mlp_block_reference(*args, fast_gelu=True) if tier[0] == "fused" else
+             TM.mlp_block_fchunked_reference(*args, 2, fast_gelu=True))
+    _assert_bf16_rule(out, plain)
+    assert float((out.float() - TM.mlp_block_reference(*args).float()).abs().max()) > 0.01
+    dout = torch.randn(T, D, generator=torch.Generator(device=cuda_device).manual_seed(37),
+                       device=cuda_device).to(torch.bfloat16)
+    got = _grads_through_autograd(lambda *a: TM.fused_mlp_block(*a, fast_gelu=True), args, (),
+                                  dout)
+    again = _grads_through_autograd(lambda *a: TM.fused_mlp_block(*a, fast_gelu=True), args, (),
+                                    dout)
+    _assert_grads_close(got, TM.mlp_block_bwd_reference(*args, dout, fast_gelu=True))
+    for g, h in zip(got, again):
+        assert torch.equal(g, h)
+
+
+@pytest.mark.cuda
+def test_fast_gelu_tp_partial_matches_plain_on_the_card(cuda_device):
+    """``fast_gelu`` in K6f's tensor-parallel entry (fp32, the partial rule)
+    and K6b (the gradient rule, twice, bit-identical)."""
+    inputs = _mlp_inputs(16384, 384, 768, seed=38)
+    inputs["w1"] = inputs["w1"] * 2.0
+    del inputs["b2"]
+    args = _on(cuda_device, inputs)
+    do = torch.randn(16384, 384, generator=torch.Generator(device=cuda_device).manual_seed(39),
+                     device=cuda_device)
+    with torch.inference_mode():
+        part = TM.fused_mlp_partial(*args, fast_gelu=True)
+    _assert_partial_rule(part, lambda *a: TM.mlp_partial_reference(*a, fast_gelu=True), args,
+                         lambda a, pd, pf: (a[0][:, pd].contiguous(), a[1][pd], a[2][pd],
+                                            a[3][pf][:, pd], a[4][pf], a[5][pd][:, pf]))
+    fn = lambda *a: TM.fused_mlp_partial(*a, fast_gelu=True)  # noqa: E731
+    got, again = (_grads_through_autograd(fn, args, (), do) for _ in range(2))
+    _assert_grads_close(got, TM.mlp_partial_bwd_reference(*args, do, fast_gelu=True))
+    for g, h in zip(got, again):
+        assert torch.equal(g, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,S,D,F,tier", [(8, 2048, 384, 1536, ("fused", 1)),
+                                          (8, 2048, 768, 3072, ("fwdonly", 2))])
+def test_fast_gelu_expert_kernels_match_plain_on_the_card(cuda_device, E, S, D, F, tier):
+    """``fast_gelu`` in K10f (or two K10p) and K10b's recompute: forward by
+    the bf16 rule, five gradients twice (bit-identical) by the gradient
+    rule, against the plain versions with the sigmoid GELU."""
+    assert TT.expert_tier(E, S, D, F) == tier
+    r = np.random.default_rng(40)
+    x = r.standard_normal((E, S, D)).astype(np.float32)
+    x[:, S - S // 5:] = 0.0
+    args = [_t(x).to(cuda_device).to(torch.bfloat16)] + [_t(a).to(cuda_device) for a in (
+        (2 * D ** -0.5 * r.standard_normal((E, D, F))).astype(np.float32),
+        (0.1 * r.standard_normal((E, F))).astype(np.float32),
+        (F ** -0.5 * r.standard_normal((E, F, D))).astype(np.float32),
+        (0.1 * r.standard_normal((E, D))).astype(np.float32))]
+    dout = _t(r.standard_normal((E, S, D)).astype(np.float32)).to(cuda_device).to(torch.bfloat16)
+    with torch.inference_mode():
+        out = TX.expert_ffn(*args, fast_gelu=True)
+    _assert_bf16_rule(out, TX.expert_ffn_reference(*args, fast_gelu=True) if tier[1] == 1 else
+                      TX.expert_ffn_fchunked_reference(*args, 2, fast_gelu=True))
+    fn = lambda *a: TX.expert_ffn(*a, fast_gelu=True)  # noqa: E731
+    got, again = (_grads_through_autograd(fn, args, (), dout) for _ in range(2))
+    _assert_grads_close(got, TX.expert_ffn_bwd_reference(*args, dout, fast_gelu=True))
+    for g, h in zip(got, again):
+        assert torch.equal(g, h)

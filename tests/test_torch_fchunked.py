@@ -111,7 +111,7 @@ def test_fchunked_mlp_block_matches_jax(interpret, monkeypatch, dtype):
     real = TM.mlp_block_fchunked_reference
     monkeypatch.setattr(tiers, "mlp_tier", lambda *s: ("fchunked", 2))
     monkeypatch.setattr(TM, "mlp_block_fchunked_reference",
-                        lambda *args: calls.append(args[-1]) or real(*args))
+                        lambda *args: calls.append(args[7]) or real(*args))
     tdt = getattr(torch, dtype)
     leaves = [torch.from_numpy(a["x"]).to(tdt)] + [
         torch.from_numpy(a[k].T.copy() if a[k].ndim == 2 else a[k]) for k in NAMES[1:]]
@@ -186,7 +186,7 @@ def test_expert_ffn_fwdonly_tier_matches_jax(interpret, monkeypatch, dtype):
     calls = []
     real = TX.expert_ffn_fchunked_reference
     monkeypatch.setattr(TX, "expert_ffn_fchunked_reference",
-                        lambda *t: calls.append(t[-1]) or real(*t))
+                        lambda *t: calls.append(t[5]) or real(*t))
     tdt = getattr(torch, dtype)
     leaves = [torch.from_numpy(a["x"]).to(tdt)] + [torch.from_numpy(a[n])
                                                    for n in ("w1", "b1", "w2", "b2")]

@@ -67,7 +67,7 @@ def test_generate_resolves_the_latest_epoch_and_config_overlay(tmp_path):
     assert np.isfinite(out["samples"]).all()
 
 
-@pytest.mark.parametrize("flag", [["--dp", "2"], ["--ema"], ["--fast-gelu"]])
+@pytest.mark.parametrize("flag", [["--dp", "2"], ["--ema"], ["--dp", "4"]])
 def test_generate_refuses_unported_flags(ckpt, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         generate_torch.main(["--ckpt", ckpt, "--device", "cpu", "--out", "", *flag])

@@ -477,21 +477,41 @@ def test_trainer_runs_what_it_refused(tmp_path, monkeypatch, flags):
 
 
 def test_card_refuses_only_shapes_listed_in_roadmap(monkeypatch):
-    """On the card (``uses_kernel`` answering True) the third rung raises,
+    """On the card (``uses_kernel`` answering True) the half-block raises,
     before any launch, only where the JAX package runs a kernel the port
-    lacks, naming ROADMAP.md Queue 2: K7 at Dh % 16 != 0 (D 768 over 32
-    heads, Dh 24), K8 at head width 16, D > 1024 (DiT-XL at N = 256)."""
+    lacks, naming ROADMAP.md Queue 2: K8 at head width 16, and the
+    half-block GEMMs past D = 1344 (D 1536 at N = 64, where the ladder runs
+    the third rung with K7). Every other shape passes the port's checks and
+    reaches its first launch: K7 at Dh 24 (D 768 over 32 heads) and at
+    DiT-XL's Dh 72 (D 1152, N = 256), and the half-block tiers at DiT-XL's
+    32-px shapes (split: K2f and K4), at Dh 24 (DiT-S at --heads 16, fused)
+    and at Dh 16 (--heads 24, split). Meta tensors: only shapes are read."""
     monkeypatch.setattr(TA, "uses_kernel", lambda *t: True)
 
+    class Launched(Exception):
+        pass
+
+    def launch(*a):
+        raise Launched
+
+    monkeypatch.setattr(TA, "_fwd_chain", launch)
+
     def block(B, N, D, H):
-        r = np.random.default_rng(0)
-        x = torch.from_numpy(r.standard_normal((B, N, D)).astype(np.float32)).bfloat16()
-        w = [torch.ones(D), torch.zeros(D), torch.zeros(3 * D, D), torch.zeros(3 * D),
-             torch.zeros(D, D), torch.zeros(D)]
+        x = torch.empty((B, N, D), dtype=torch.bfloat16, device="meta")
+        w = [torch.empty(s, device="meta") for s in ((D,), (D,), (3 * D, D), (3 * D,),
+                                                     (D, D), (D,))]
         return TA.fused_attention_block(x, *w, H)
 
-    for B, N, D, H, core in ((2, 256, 768, 32, "K7"), (1, 1024, 256, 16, "K8"),
-                             (16, 256, 1152, 16, "K7")):
-        assert tiers.attention_tier(B, N, D, H) is None and tiers.core_tier(B, N, D, H) == core
-        with pytest.raises(NotImplementedError, match="ROADMAP.md.*Queue 2"):
+    for B, N, D, H, tier, core, outcome in (
+            (2, 256, 768, 32, None, "K7", Launched),
+            (1, 1024, 256, 16, None, "K8", NotImplementedError),
+            (16, 256, 1152, 16, None, "K7", Launched),
+            (2048, 64, 1152, 16, "split", "K7", Launched),
+            (64, 256, 1152, 16, None, "K7", Launched),
+            (8, 64, 384, 16, "fused", "K7", Launched),
+            (2048, 64, 384, 24, "split", "K7", Launched),
+            (2048, 64, 1536, 16, None, "K7", NotImplementedError)):
+        assert tiers.attention_tier(B, N, D, H) == tier and tiers.core_tier(B, N, D, H) == core
+        with pytest.raises(outcome, match="ROADMAP.md.*Queue 2" if outcome is not Launched
+                           else None):
             block(B, N, D, H)

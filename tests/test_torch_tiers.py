@@ -28,7 +28,7 @@ from ddm_tpu_torch.ops import tiers  # noqa: E402
 from ddm_tpu_torch.ops.moe_dispatch import moe_cfg  # noqa: E402
 from ddm_tpu_torch.utils.config import load_yaml_config  # noqa: E402
 
-WIDTHS = [128, 256, 384, 512, 768, 1024]
+WIDTHS = [128, 256, 384, 512, 768, 1024, 1152]
 IMAGES = [16, 64, 256, 2048]  # B * m
 TOKENS = [16, 64, 256]
 ROWS = [64, 4096, 131072]
@@ -192,6 +192,11 @@ PRODUCTION = [
     # DiT-L (configs/cifar10_dit_l.yaml): K4, F-chunked MLP k = 2, K10p k = 4
     (2048, 1024, 16, "split", ("fchunked", 2), ("fwdonly", 4)),
     (64, 1024, 16, "split", ("fchunked", 2), ("fwdonly", 4)),
+    # DiT-XL/4 (D 1152, 16 heads of Dh 72): K4, F-chunked MLP k = 2, K10p k = 4
+    (2048, 1152, 16, "split", ("fchunked", 2), ("fwdonly", 4)),
+    (256, 1152, 16, "split", ("fchunked", 2), ("fwdonly", 4)),
+    # DiT-S at --heads 16 (Dh 24): K2b, fused MLP, K10f
+    (2048, 384, 16, "fused", ("fused", 1), ("fused", 1)),
 ]
 
 
@@ -206,6 +211,36 @@ def test_production_tiers_are_pinned(jax_gates, images, D, H, attn, mlp, expert)
     assert tiers.expert_tier(8, S, D, 4 * D) == expert == jax_expert_tier(8, S, D, 4 * D)
     if D == 1024:  # the pack the half-block kernels use at DiT-L width
         assert tiers._attn_pack(images, N, D, H) == 2
+
+
+@pytest.fixture()
+def jax_core_gates(monkeypatch):
+    """JAX's ``fused_attention`` with markers in place of its three cores."""
+    import ddm_tpu.ops.flash as JF
+
+    monkeypatch.setenv("DDM_TPU_PALLAS_INTERPRET", "1")
+    monkeypatch.setattr(JA, "_fused_attention", lambda *a: "K7")
+    monkeypatch.setattr(JF, "flash_attention_streaming", lambda *a: "K8")
+    monkeypatch.setattr(JA, "attention_reference", lambda *a: None)
+
+
+# (B, N, D, H, half-block tier, core): DiT-XL/4 at 32 px (256 x m 8) and 64
+# px (64 x m 4), DiT-S at --heads 24 (Dh 16) and --heads 16 (Dh 24), D 1536
+# (the first width past the port's half-block GEMMs), Dh 36 (no kernel)
+HEAD_WIDTHS = [
+    (2048, 64, 1152, 16, "split", "K7"), (64, 256, 1152, 16, None, "K7"),
+    (2048, 64, 384, 24, "split", "K7"), (8, 64, 384, 16, "fused", "K7"),
+    (2048, 64, 1536, 16, None, "K7"), (2048, 64, 1152, 32, None, None),
+]
+
+
+@pytest.mark.parametrize("B,N,D,H,attn,core", HEAD_WIDTHS)
+def test_head_width_ladder_matches_jax(jax_gates, jax_core_gates, B, N, D, H, attn, core):
+    """At head widths off 64 and D past 1024 the port's ladder takes JAX's
+    half-block tier and, where there is none, JAX's core."""
+    assert tiers.attention_tier(B, N, D, H) == attn == jax_attention_tier(B, N, D, H)
+    t = SimpleNamespace(shape=(B, N, D))
+    assert tiers.core_tier(B, N, D, H) == core == JA.fused_attention(t, t, t, H)
 
 
 @pytest.mark.parametrize("config,attn,mlp,expert", [

@@ -135,7 +135,7 @@ def test_train_cli_refuses_image_sizes_no_kernel_takes(tmp_path, size):
     (["--multihost"], "item 11"), (["--sp"], "item 11"), (["--pp", "2"], "item 11"),
     (["--fsdp"], "item 11"), (["--moe-experts", "4", "--tp", "2"], "item 11"),
     (["--remat"], "item 8"),
-    (["--mlp-persist", "2"], "item 8"), (["--fast-gelu"], "item 5"),
+    (["--mlp-persist", "2"], "item 8"), (["--lr-min", "0.1"], "item 2"),
     (["--grad-accum", "2"], "item 2"),
     (["--ema-decay", "0.999"], "item 2"), (["--lr-schedule", "cosine"], "item 2"),
     (["--warmup-steps", "10"], "item 2"), (["--eval-every", "1"], "item 3"),

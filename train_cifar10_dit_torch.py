@@ -31,8 +31,14 @@ ladder has no half-block tier it runs its third rung, the XLA half-block
 around the standalone core, and so does the port: DiT-L at ``--image-size
 64`` (N = 256) through K7f/K7b, ``--image-size 96`` (N = 576) through the
 plain core (JAX runs XLA's there), and K8 at head widths 32, 64 and 128
-from 128 px. ``--attention xla`` unfuses the attention half as the JAX
-model does (plain attention core, MLP still fused); ``flash`` is ``auto``.
+from 128 px. DiT-XL/4 (``--embed-dim 1152 --depth 28 --heads 16``: 16 heads
+of Dh 72) runs K2f and K4 at 32 px and K7f/K7b at 64 px, their cores on
+head tiles padded to 80 columns, and the F-chunked MLP (two K6f, K1b) at
+D 1152. ``--fast-gelu`` takes x sigmoid(1.702 x) in place of the exact-erf
+GELU in every MLP half-block's kernels (K1, K6, K10) and plain versions, as
+the JAX trainer's ``DDM_TPU_FAST_GELU=1`` does. ``--attention xla`` unfuses
+the attention half as the JAX model does (plain attention core, MLP still
+fused); ``flash`` is ``auto``.
 On ``--device cpu`` the same step runs the plain PyTorch versions.
 
 ``--tp N`` is Megatron tensor parallelism with data parallelism beside it,
@@ -72,6 +78,9 @@ Usage:
         --depth 24 --heads 16 --epochs 1 --out dit_l/
     python train_cifar10_dit_torch.py --synthetic --embed-dim 1024 --depth 24 --heads 16 \
         --image-size 64 --batch 64 --m 4 --epochs 1 --out dit_l64/
+    python train_cifar10_dit_torch.py --synthetic --batch 256 --m 8 --embed-dim 1152 \
+        --depth 28 --heads 16 --epochs 1 --out dit_xl/
+    python train_cifar10_dit_torch.py --synthetic --fast-gelu --epochs 1 --out fast/
     python -m torch.distributed.run --standalone --nproc-per-node 2 -- \
         train_cifar10_dit_torch.py --synthetic --tp 2 --epochs 1 --out tp2/
 """
@@ -128,7 +137,6 @@ NOT_PORTED = {
     "profile_dir": _UTILS, "debug_nans": _UTILS,
     "remat": "Queue 1 item 8 (remat and mlp_persist at the wide widths)",
     "mlp_persist": "Queue 1 item 8 (remat and mlp_persist at the wide widths)",
-    "fast_gelu": "Queue 1 item 5 (fast GELU)",
 }
 METRIC_KEYS = ("loss", "confidence", "interaction", "weight", "moe_aux")
 
@@ -425,7 +433,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pp-microbatches", type=int, default=4, dest="pp_microbatches",
                    help=later + _PARALLEL)
     p.add_argument("--multihost", action="store_true", help=later + _PARALLEL)
-    p.add_argument("--fast-gelu", action="store_true", help=later + NOT_PORTED["fast_gelu"])
+    p.add_argument("--fast-gelu", action="store_true",
+                   help="sigmoid-GELU approximation x sigmoid(1.702 x) in every MLP half-block "
+                        "(kernel epilogues and plain versions), as the JAX trainer's "
+                        "DDM_TPU_FAST_GELU=1; the checkpoint's config records it")
     return p
 
 
