@@ -18,8 +18,10 @@ parallelism (``--tp 2``): the MLP partial's backward K6b, the TP callers of
 K6f and K7, a two-rank step and trainer on the one card, and sampling the
 TP checkpoint on one card; then DiT-XL/4 (D 1152, depth 28, 16 heads of Dh
 72, through K2f/K4 at 32 px and K7f/K7b at 64 px on head tiles padded to 80
-columns, and the F-chunked MLP K6f/K1b at D 1152), DiT-S at Dh 24, and the
-fast GELU (``--fast-gelu``) in K1, K6 and K10.
+columns, and the F-chunked MLP K6f/K1b at D 1152), DiT-S at Dh 24, the
+fast GELU (``--fast-gelu``) in K1, K6 and K10, and the MoE at DiT-XL/4 width
+(8 experts, top-1 and top-2: K11 and K12 at D 1152, the expert FFN through
+K10p and K10b).
 
 Run from the repository root with no arguments:
 
@@ -169,11 +171,12 @@ The third rung, after those:
     plain core on the card, K1f/K1b counted) and a 128-px step at --heads 3
     (Dh 128) at depth 2, each with its launches counted;
 7i. (train-l64) the trainer with --embed-dim 1024 --depth 8 --heads 16
-    --image-size 64 --batch 64 --m 4 for one epoch (32 steps), then 64
-    samples; launches per step 8 each of K7f, K7b, K1b, 16 of K6f, 1 each of
-    K3f, K3b, none of K2f, K2b, K4, K1f; per sampler call 160 of K7f and 320
-    of K6f; its peak memory and img/s (depth cut from 24 in PR 9 to make
-    room for 7l, which runs the third rung at DiT-XL's full depth 28).
+    --image-size 64 --batch 64 --m 4 for 8 steps (512 images; an epoch of 32
+    steps before PR 10), then 64 samples; launches per step 8 each of K7f,
+    K7b, K1b, 16 of K6f, 1 each of K3f, K3b, none of K2f, K2b, K4, K1f; per
+    sampler call 160 of K7f and 320 of K6f; its peak memory and img/s (depth
+    cut from 24 in PR 9 to make room for 7l, which runs the third rung at
+    DiT-XL's full depth 28).
 
 Dense tensor parallelism (``--tp``, Megatron layout), after those:
 
@@ -224,12 +227,34 @@ DiT-XL/4 and the fast GELU, after those:
 6l. (train-step-fast-gelu) the DiT-S and DiT-S MoE steps of 6 and 6c with
     ``fast_gelu``, against the plain steps with it, launches counted;
 7k. (train-xl) the trainer with ``--embed-dim 1152 --depth 28 --heads 16``
-    for one epoch (8 steps of 256 x m 8), its peak memory, then 64 samples:
+    for 4 steps of 256 x m 8 (an epoch of 8 before PR 10), its peak memory,
+    then 64 samples:
     per step 28 each of K2f, K4, K1b, 56 of K6f, 1 each of K3f, K3b; per
     sampler call 560 of K2f and 1,120 of K6f;
-7l. (train-xl64) the same at ``--image-size 64 --batch 64 --m 4`` (32 steps):
+7l. (train-xl64) the same at ``--image-size 64 --batch 64 --m 4`` (8 steps;
+    32 before PR 10):
     per step 28 each of K7f, K7b, K1b, 56 of K6f, 1 each of K3f, K3b, none of
     K2f, K2b, K4, K1f; per sampler call 560 of K7f and 1,120 of K6f.
+
+The MoE at DiT-XL/4 width (8 experts of F 4608 a block, top-1 and top-2),
+after those:
+
+3n. (moe-xl-kernels) K11f/K11b and K12f/K12b at the XL training shape (T
+    131,072 rows of D 1152, E 8, groups of 256; top-1 cap 40, S 20,480 slot
+    rows an expert; top-2 cap 80, S 40,960), K10b on the top-1 slot rows and
+    one K10p partial on a chunk of 1152 of F 4608; K11/K12 at T 32,768 with
+    E 16 (top-2), D 2048 and D 4096 (E 8) and E 64 at D 384; each by its rule
+    above (routing, rows, partials), every backward's second call
+    bit-identical;
+6n. (train-step-moe-xl) one step of the XL MoE at depth 28, batch 16 x m 8,
+    top-1 and top-2 on one seeded draw of the weights, against the plain
+    step with the kernel step's routing replayed (as 6c), within twice
+    bf16's own noise; launches per step 28 each of K2f, K4, K11f, K11b, K10b,
+    K12f, K12b, 112 of K10p, 1 each of K3f, K3b;
+7m. (train-moe-xl) the trainer at XL MoE width for 4 steps, top-1 at batch
+    256 x m 8 and top-2 at 128 x m 8, its peak memory, then 64 samples from
+    its ``model_final.pt``; launches per step as 6n, per sampler call 560
+    each of K2f, K11f, K12f and 2,240 of K10p.
 
 The DiT-S phases run at full width and depth 8. PERF.md gives the whole
 run's measured time on the card, the kernels' build included, against the
@@ -755,12 +780,14 @@ def _routing(MD, ML, cfg, got, want, x, scale, bias, wr, br):
     return int(moved.sum()), agree, gap, tol
 
 
-def _moe_kernel_times(MD, X, ML, smi, D, F, topks, k10f=True):
-    """K11 (dispatch), K12 (combine) and K10b (expert FFN backward), with
-    K10f where ``k10f``, at the MoE training shape of width D, against their
-    plain versions: ``{(name, topk): (max_abs_err, ms, plain_ms, bound)}``."""
+def _moe_kernel_times(MD, X, ML, smi, D, F, topks, k10f=True, E=MOE["moe_experts"],
+                      T=TRAIN_BATCH * TRAIN_M * 64, k10b=True):
+    """K11 (dispatch), K12 (combine) and, where ``k10b``, K10b (expert FFN
+    backward on the top-1 slot rows), with K10f where ``k10f``, at T rows of
+    width D routed to E experts (the MoE training shape by default), against
+    their plain versions: ``{(name, topk): (max_abs_err, ms, plain_ms, bound)}``."""
     gen = torch.Generator(device="cuda").manual_seed(5)
-    T, E, GS = TRAIN_BATCH * TRAIN_M * 64, MOE["moe_experts"], 256
+    GS = 256
 
     def r(*shape, scale=1.0, off=0.0):
         return torch.randn(*shape, generator=gen, device="cuda") * scale + off
@@ -873,9 +900,12 @@ def _moe_kernel_times(MD, X, ML, smi, D, F, topks, k10f=True):
             raise AssertionError(f"K12b disagrees with its plain version at top-{topk}")
         timed[("K12b", topk)] = (max(derr, gerr), ms, plain_ms, _bound(
             _nbytes(gates, pos1, pos2, dpart, dout, dg) + kept * D * 2, 4 * kept * D, "fp32"))
-        if topk == 1:
+        if topk == 1 and k10b:
             slot_rows = xin
         del got, want, eout, dpart, dxin, dres
+        torch.cuda.empty_cache()
+    if not k10b:
+        return timed
 
     # K10 on the top-1 dispatch's slot rows (its unheld rows are zeros)
     w1, b1 = r(E, D, F, scale=D ** -0.5), r(E, F, scale=0.1)
@@ -1158,15 +1188,16 @@ def _moved(a, b) -> int:
 
 
 def phase_train_step(cfg, smi, batch=TRAIN_BATCH, m=TRAIN_M, label="train-step",
-                     model_name="DiT-S/4", launches=None):
+                     model_name="DiT-S/4", launches=None, weights=None):
     """One training step through the kernels, twice (bit-identical), against
     the plain step within twice bf16's own noise; ``launches`` ``{kernel:
     count}``, where given, are the first kernel step's launches (every
-    other kernel none)."""
+    other kernel none); ``weights``, where given, the fp32 state dict every
+    step's model loads (else one seeded draw)."""
     from ddm_tpu_torch.ops import kernel_config as kc
     from ddm_tpu_torch.data.augment import normalize_images
     from ddm_tpu_torch.data.cifar10 import CIFAR10DataConfig, build_cifar10_dataloaders
-    from ddm_tpu_torch.models.dit import init_params, patchify_images
+    from ddm_tpu_torch.models.dit import patchify_images
     from ddm_tpu_torch.models.factory import build_model, make_tokens_apply
     from ddm_tpu_torch.training import distributional_training_step
 
@@ -1183,8 +1214,8 @@ def phase_train_step(cfg, smi, batch=TRAIN_BATCH, m=TRAIN_M, label="train-step",
     eps = torch.randn(x0.shape, generator=gen, device="cuda")
     xi = torch.randn((batch, m, size, size, 3), generator=gen, device="cuda")
     # one seeded draw of the weights, loaded into every step's model
-    weights = init_params(build_model({**cfg, "dtype": "float32"}, "meta").to_empty(device="cpu"),
-                          torch.Generator().manual_seed(0)).state_dict()
+    if weights is None:
+        weights = _seeded_weights(cfg)
 
     def step(dtype, routes=None, backward=True):
         model = build_model({**cfg, "dtype": dtype}, "cuda")
@@ -1211,7 +1242,9 @@ def phase_train_step(cfg, smi, batch=TRAIN_BATCH, m=TRAIN_M, label="train-step",
     if launches is not None and counted != launches:
         raise AssertionError(f"{label}: the kernel step launched {counted}, expected {launches}")
     again, g_again = step("bfloat16")
-    if again != got or any(not torch.equal(g_got[k], g_again[k]) for k in g_got):
+    same = again == got and all(torch.equal(g_got[k], g_again[k]) for k in g_got)
+    del g_again
+    if not same:
         raise AssertionError("two kernel training steps on the same inputs differ")
     routing = ""
     if moe:
@@ -1260,6 +1293,15 @@ def phase_train_step(cfg, smi, batch=TRAIN_BATCH, m=TRAIN_M, label="train-step",
           f"{routing}; launches {counted}; first (cold) step {seconds:.3f} s on {smi}")
     if failed:
         raise AssertionError(f"{label}: " + "; ".join(failed))
+
+
+def _seeded_weights(cfg):
+    """The fp32 state dict of ``cfg``'s model, drawn on the CPU from seed 0."""
+    from ddm_tpu_torch.models.dit import init_params
+    from ddm_tpu_torch.models.factory import build_model
+
+    return init_params(build_model({**cfg, "dtype": "float32"}, "meta").to_empty(device="cpu"),
+                       torch.Generator().manual_seed(0)).state_dict()
 
 
 def phase_train(kc, name, smi):
@@ -1412,13 +1454,13 @@ def phase_train_long(kc, name, smi):
     return train, generated
 
 
-def _wide_flags(widths, moe=False):
+def _wide_flags(widths, moe=False, topk=MOE["moe_topk"]):
     out = ["--embed-dim", str(widths["embed_dim"]), "--depth", str(widths["depth"]),
            "--heads", str(widths["heads"])]
     if moe:
         out += ["--moe-experts", str(MOE["moe_experts"]), "--moe-capacity",
                 str(MOE["moe_capacity"]), "--moe-group-size", str(MOE["moe_group_size"]),
-                "--moe-topk", str(MOE["moe_topk"]), "--moe-aux-weight", str(MOE_AUX_WEIGHT)]
+                "--moe-topk", str(topk), "--moe-aux-weight", str(MOE_AUX_WEIGHT)]
     return out
 
 
@@ -1507,15 +1549,15 @@ def _slot_rows_ffn(gen, E, S, D, F):
             torch.randn(E, D, generator=gen, device="cuda") * 0.1)
 
 
-def _k10p_partial(X, smi, gen, ffn, fast=False):
-    """One K10p on the first hidden chunk of ``ffn``'s F by the fp32 partial
-    rule: ``(max_abs_err, ms, plain_ms, bound)``."""
+def _k10p_partial(X, smi, gen, ffn, fast=False, k=2):
+    """One K10p on the first of ``k`` hidden chunks of ``ffn``'s F by the
+    fp32 partial rule: ``(max_abs_err, ms, plain_ms, bound)``."""
     from ddm_tpu_torch.ops import gemm
 
     x, w1, b1, w2, _ = ffn
     E, S, D = x.shape
     F = w1.shape[-1]
-    fc, bf = F // 2, torch.bfloat16
+    fc, bf = F // k, torch.bfloat16
     chunk = (x, w1.to(bf)[:, :, :fc], b1[:, :fc], w2.to(bf)[:, :fc])
     plain = lambda *a: X.expert_partial_reference(*a, fast_gelu=fast)  # noqa: E731
     acc = torch.empty(E, S, D, device="cuda")
@@ -1861,17 +1903,20 @@ def phase_train_step_rung3(cfg, smi):
 
 
 def phase_train_wide(kc, name, smi, label, flags, per_step, per_sample, batch=TRAIN_BATCH,
-                     m=TRAIN_M, size=32):
-    """7d-7h: the trainer with ``flags`` for one epoch of the 2048 synthetic
+                     m=TRAIN_M, size=32, images=2048):
+    """7d-7m: the trainer with ``flags`` for one epoch of ``images`` synthetic
     images (batch x m, images of ``size`` px), its peak memory and launches
     per step (``per_step``), then generate_torch's 64 samples from its
     ``model_final.pt`` and the sampler's launches per call (``per_sample``)."""
     import generate_torch
     import train_cifar10_dit_torch
+    from ddm_tpu_torch.data.cifar10 import CIFAR10DataConfig
 
     keys = ("loss", "moe_aux") if "--moe-experts" in flags else ("loss",)
-    steps = 2048 // batch
-    with tempfile.TemporaryDirectory() as tmp:
+    steps = images // batch
+    data = functools.partial(CIFAR10DataConfig, synthetic_size=images)
+    with tempfile.TemporaryDirectory() as tmp, \
+            _patched(train_cifar10_dit_torch, CIFAR10DataConfig=data):
         torch.cuda.reset_peak_memory_stats()
         kc.reset_launch_counts()
         result = train_cifar10_dit_torch.main([
@@ -2273,13 +2318,75 @@ def phase_fast_gelu_kernels(M, X, smi):
     return shapes
 
 
+def phase_moe_xl_kernels(MD, X, ML, smi):
+    """3n: the MoE at DiT-XL/4's width. K11f/K11b and K12f/K12b at the
+    training shape (T 131,072 rows of D 1152, E 8, groups of 256), top-1 (cap
+    40, S 20,480) and top-2 (cap 80, S 40,960), K10b on the top-1 slot rows
+    (F 4608) and one K10p partial on a chunk of 1152 of F 4608 (the tier's
+    k = 4); then K11/K12 at T 32,768 with E 16 (top-2), D 2048 and D 4096 (E
+    8, top-1 and top-2) and E 64 at D 384 (top-1 and top-2). Each against its
+    plain version by its rule above (routing identical but for near ties,
+    rows by the bf16 rule, psum to PSUM_RTOL), every backward's second call
+    bit-identical. ``{name: [{"path", "shape", ...}]}`` for the kernels line."""
+    D, F, E = DIT_XL["embed_dim"], 4 * DIT_XL["embed_dim"], MOE["moe_experts"]
+    T, S = TRAIN_BATCH * TRAIN_M * 64, 20480  # S: the top-1 slot rows an expert
+    keys = ("max_abs_err", "ms", "plain_ms")
+    shapes = {}
+
+    def add(path, timed, T, D, E):
+        for (name, topk), times in timed.items():
+            shape = (f"(E={E}, S={S}, D={D}, F={F})" if name == "K10b" else
+                     f"(T={T}, D={D}, E={E}, gs=256, top-{topk})")
+            shapes.setdefault(name, []).append({"path": path, "shape": shape,
+                                                **dict(zip(keys, times)), **times[3]})
+        torch.cuda.empty_cache()
+
+    add("moe-xl", _moe_kernel_times(MD, X, ML, smi, D, F, (1, 2), k10f=False), T, D, E)
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    err, ms, plain_ms, bound = _k10p_partial(X, smi, gen, _slot_rows_ffn(gen, E, S, D, F), k=4)
+    shapes["K10p"] = [{"path": "moe-xl", "shape": f"(E={E}, S={S}, D={D}, chunk {F // 4} of "
+                       f"F={F})", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound}]
+    torch.cuda.empty_cache()
+    for e, d, topks in MOE_WIDE_SHAPES:
+        add("moe-wide", _moe_kernel_times(MD, X, ML, smi, d, None, topks, k10f=False, E=e,
+                                          T=MOE_WIDE_T, k10b=False), MOE_WIDE_T, d, e)
+    return shapes
+
+
+def phase_train_step_moe_xl(cfg, smi):
+    """6n: one step of the DiT-XL/4 MoE (D 1152, depth 28, 8 experts) at
+    batch 16 x m 8, top-1 and top-2 on one seeded draw of the weights,
+    against the plain step with the kernel step's routing replayed, as 6c
+    does; launches counted."""
+    xl = {**cfg, **MOE, **DIT_XL}
+    weights = _seeded_weights(xl)
+    for topk in (1, 2):
+        phase_train_step(
+            {**xl, "moe_topk": topk}, smi, XL_STEP_BATCH, TRAIN_M, f"train-step-moe-xl-top{topk}",
+            "DiT-XL/4", MOE_XL_STEP, weights)
+
+
+def phase_train_moe_xl(kc, name, smi):
+    """7m: the trainer at DiT-XL/4 MoE width, top-1 and top-2, for a few
+    steps each, its peak memory, then 64 samples from its checkpoint."""
+    out = []
+    for topk in (1, 2):
+        batch = MOE_XL_BATCH[topk]
+        out.append(phase_train_wide(
+            kc, name, smi, f"train-moe-xl-top{topk}",
+            _wide_flags(DIT_XL, moe=True, topk=topk), MOE_XL_STEP, MOE_XL_SAMPLE, batch,
+            images=MOE_XL_STEPS * batch))
+    return out
+
+
 PHASES = ("kernels", "backward", "energy", "flash", "moe-kernels", "slice", "train-step",
           "train-step-128", "train-step-moe", "train", "train-128", "train-moe", "wide-kernels",
           "wide-shapes", "train-step-l", "train-step-moe-b", "train-l", "train-moe-b",
           "attention-256", "dit-b-kernels", "m32-kernels", "train-step-64", "train-step-m32", "train-step-b",
           "train-64", "train-m32", "train-b", "attention-core", "train-step-l64", "train-l64",
           "tp-kernels", "train-step-tp", "train-tp", "xl-kernels", "fast-gelu-kernels",
-          "train-step-xl", "train-step-fast-gelu", "train-xl", "train-xl64")
+          "train-step-xl", "train-step-fast-gelu", "train-xl", "train-xl64", "moe-xl-kernels",
+          "train-step-moe-xl", "train-moe-xl")
 # launches per training step and per 20-step sampler call on the wide paths;
 # the DiT-L trainer (7d) runs depth 12 since PR 9 (7k runs its kernels at
 # DiT-XL's full depth 28)
@@ -2316,6 +2423,23 @@ XL64_SAMPLE = {"K7f": DIT_XL["depth"] * STEPS, "K6f": 2 * DIT_XL["depth"] * STEP
 FAST_STEP = {"K2f": DEPTH, "K2b": DEPTH, "K1f": DEPTH, "K1b": DEPTH, "K3f": 1, "K3b": 1}
 FAST_MOE_STEP = {**{k: DEPTH for k in ("K2f", "K2b", "K11f", "K11b", "K10f", "K10b", "K12f",
                                        "K12b")}, "K3f": 1, "K3b": 1}
+# ... and the DiT-XL/4 MoE (3n, 6n, 7m): the expert FFN takes the F-chunked
+# tier at k = 4 (K10p forward, K10b backward); the trainer runs a few steps,
+# top-1 at the recipe's batch 256 x m 8 and top-2 at 128 x m 8 (at 256 its
+# slot rows alone would take ~20 GiB more: PERF.md §5)
+MOE_XL_STEP = {**{k: DIT_XL["depth"] for k in ("K2f", "K4", "K11f", "K11b", "K10b", "K12f",
+                                               "K12b")}, "K10p": 4 * DIT_XL["depth"],
+               "K3f": 1, "K3b": 1}
+MOE_XL_SAMPLE = {**{k: DIT_XL["depth"] * STEPS for k in ("K2f", "K11f", "K12f")},
+                 "K10p": 4 * DIT_XL["depth"] * STEPS}
+MOE_XL_BATCH, MOE_XL_STEPS = {1: 256, 2: 128}, 4
+# to keep the whole run near its earlier length with 3n, 6n and 7m added
+# (PR 10), the DiT-L 64-px trainer (7i) and the XL trainers (7k, 7l) run 512
+# synthetic images (1024 for 7k: 4 steps of 256), not an epoch of 2048
+SHORT_IMAGES = 512
+# 3n's further K11/K12 shapes at T 32,768: (E, D, top-k)
+MOE_WIDE_T = 32768
+MOE_WIDE_SHAPES = ((16, 1152, (2,)), (8, 2048, (1, 2)), (8, 4096, (1, 2)), (64, 384, (1, 2)))
 
 
 def main(argv=None) -> None:
@@ -2387,7 +2511,7 @@ def main(argv=None) -> None:
         ("train-step-l64", lambda: phase_train_step_rung3(cfg, smi)),
         ("train-l64", lambda: phase_train_wide(
             kc, name, smi, "train-l64", _wide_flags({**DIT_L, "depth": L64_DEPTH}), L64_STEP,
-            L64_SAMPLE, PX64_BATCH, PX64_M, PX64_SIZE)),
+            L64_SAMPLE, PX64_BATCH, PX64_M, PX64_SIZE, images=SHORT_IMAGES)),
         ("tp-kernels", lambda: phase_tp_kernels(M, A, smi)),
         ("train-step-tp", lambda: phase_train_step(
             {**cfg, "tp": TP}, smi, label="train-step-tp", model_name="DiT-S/4 (full TP instance)",
@@ -2402,10 +2526,13 @@ def main(argv=None) -> None:
             phase_train_step({**moe_cfg, "fast_gelu": True}, smi, label="train-step-moe-fast-gelu",
                              model_name="DiT-S/4 --fast-gelu", launches=FAST_MOE_STEP))),
         ("train-xl", lambda: phase_train_wide(kc, name, smi, "train-xl", _wide_flags(DIT_XL),
-                                              XL_STEP, XL_SAMPLE)),
+                                              XL_STEP, XL_SAMPLE, images=2 * SHORT_IMAGES)),
         ("train-xl64", lambda: phase_train_wide(kc, name, smi, "train-xl64", _wide_flags(DIT_XL),
                                                 XL64_STEP, XL64_SAMPLE, PX64_BATCH, PX64_M,
-                                                PX64_SIZE)),
+                                                PX64_SIZE, images=SHORT_IMAGES)),
+        ("moe-xl-kernels", lambda: phase_moe_xl_kernels(MD, X, M, smi)),
+        ("train-step-moe-xl", lambda: phase_train_step_moe_xl(cfg, smi)),
+        ("train-moe-xl", lambda: phase_train_moe_xl(kc, name, smi)),
     ]
     out = {}
     t_run = time.perf_counter()
@@ -2436,7 +2563,9 @@ def main(argv=None) -> None:
              "dit-l64": (out["attention-core"][0], *out["train-l64"]),
              "tp": (out["tp-kernels"][0], *out["train-tp"]),
              "dit-xl": ([], *out["train-xl"]),
-             "dit-xl64": ([], *out["train-xl64"])}
+             "dit-xl64": ([], *out["train-xl64"]),
+             "moe-xl-top1": ([], *out["train-moe-xl"][0]),
+             "moe-xl-top2": ([], *out["train-moe-xl"][1])}
     kernels = []
     for entries, trained, sampled in paths.values():
         for k in entries:
@@ -2449,7 +2578,7 @@ def main(argv=None) -> None:
     for k in kernels:  # the kernels at the other paths' shapes
         for shapes in (out["wide-shapes"], out["attention-256"], out["dit-b-kernels"],
                        out["m32-kernels"], out["attention-core"][1], out["tp-kernels"][1],
-                       out["xl-kernels"], out["fast-gelu-kernels"]):
+                       out["xl-kernels"], out["fast-gelu-kernels"], out["moe-xl-kernels"]):
             k.setdefault("shapes", []).extend(shapes.get(k["name"], []))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

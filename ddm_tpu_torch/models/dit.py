@@ -370,9 +370,14 @@ class DDDMDiT(nn.Module):
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
-    # flax's lecun_normal: truncated normal (+-2 sd) with variance 1 / fan_in
+    # flax's lecun_normal: truncated normal (+-2 sd) with variance 1 / fan_in,
+    # drawn as jax.random.truncated_normal draws it: the inverse normal CDF of
+    # one uniform draw between the bounds' CDF values (nn.init.trunc_normal_
+    # redraws its rejects over the whole tensor, minutes for DiT-XL's experts)
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
+    lo = math.erf(-2.0 / math.sqrt(2.0))
+    w.uniform_(lo, -lo, generator=generator).erfinv_().mul_(std * math.sqrt(2.0))
+    w.clamp_(-2 * std, 2 * std)
 
 
 @torch.no_grad()

@@ -81,9 +81,9 @@ _SIGNATURES = {
     # x, scale, bias, wr, br, xin, gates, pos1, pos2, probs, part, cnt_psum,
     # G, gs, n_valid, D, E, cap, cpad, topk, stream
     "ddm_moe_dispatch_fwd": [_P] * 12 + [_I] * 8 + [_P],
-    # x, scale, bias, wr, pos1, pos2, probs, dxin, dgates, dpsum, dres, dx, part, sums,
+    # x, scale, bias, wr, pos1, pos2, probs, dxin, dgates, dpsum, dres, dx, dl, part, sums,
     # G, gs, n_valid, D, E, cap, cpad, topk, stream
-    "ddm_moe_dispatch_bwd": [_P] * 14 + [_I] * 8 + [_P],
+    "ddm_moe_dispatch_bwd": [_P] * 15 + [_I] * 8 + [_P],
     # eout, gates, pos1, pos2, res, tok, G, gs, D, E, cap, cpad, topk, stream
     "ddm_moe_combine_fwd": [_P] * 6 + [_I] * 7 + [_P],
     # eout, gates, pos1, pos2, dpart, deout, dgates, G, gs, D, E, cap, cpad, topk, stream

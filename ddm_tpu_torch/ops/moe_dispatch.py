@@ -20,7 +20,9 @@ and the rest are padding that takes no route, uses no capacity and adds
 nothing to ``cnt`` or ``psum`` (the JAX package sends that case to its
 einsum path, ``ddm_tpu/models/moe.py:214-222``). On CUDA tensors the ops
 launch the hand-written kernels of ``csrc/moe.cu`` (K11f/K11b, K12f/K12b),
-one routing group per block; on CPU tensors the plain versions here.
+one routing group per block; on CPU tensors, and where the JAX gate runs its
+einsum path instead (D % 128 != 0, gs % 8 != 0 or gs > 2048), the plain
+versions here.
 Routing is in fp32 on the compute-dtype LN output; argmax keeps the first
 index on ties.
 """
@@ -83,25 +85,37 @@ def moe_cfg(T: int, num_experts: int, group_size: int, capacity: float,
     return cfg, -(-T // gs) * gs
 
 
+# the widest shapes K11 and K12 take: a row is staged in shared memory
+# (8 warps x D bf16, 64 KB at the bound), each lane holds two experts
+MOE_MAX_D, MOE_MAX_E = 4096, 64
+
+
 def moe_dispatch_ok(gs: int, E: int, cap: int, D: int, topk: int) -> bool:
     """The shapes K11 and K12 take: one routing group per block of 256
-    threads with gs <= 2048 rows (gs % 8 == 0), one lane per expert
-    (2 <= E <= 32), a row held in registers (D % 64 == 0, D <= 1024), the
-    backward's per-group dwr (D, E) in shared memory (D * E <= 8192)."""
-    return (topk in (1, 2) and 0 < gs <= 2048 and gs % 8 == 0 and 2 <= E <= 32
-            and D % 64 == 0 and D <= 1024 and D * E <= 8192 and cap >= 1)
+    threads with gs <= 2048 rows (gs % 8 == 0), two experts per lane
+    (2 <= E <= 64), a lane-aligned row (D % 128 == 0, as the JAX gate asks)
+    staged in shared memory (D <= 4096); the backward tiles D, so its
+    shared memory does not grow with D * E."""
+    return (topk in (1, 2) and 0 < gs <= 2048 and gs % 8 == 0 and 2 <= E <= MOE_MAX_E
+            and D % 128 == 0 and D <= MOE_MAX_D and cap >= 1)
+
+
+def _jax_takes(gs: int, E: int, cap: int, D: int, topk: int) -> bool:
+    """The JAX gate (``moe_dispatch_ok`` of ``ddm_tpu/ops/moe_dispatch.py:633``:
+    D % 128 == 0, E >= 2, no bound on D or E). Where it refuses, JAX runs
+    its einsum path, and the port its plain versions, on any device."""
+    return (topk in (1, 2) and 0 < gs <= 2048 and gs % 8 == 0 and D % 128 == 0 and E >= 2
+            and cap >= 1)
 
 
 def _refuse_unported(gs: int, E: int, cap: int, D: int, topk: int, kernel: str) -> None:
-    """Raise ``NotImplementedError`` where the JAX gate (``moe_dispatch_ok``
-    of ``ddm_tpu/ops/moe_dispatch.py:633``: D % 128 == 0, E >= 2, no bound
-    on D or E) takes K11/K12 and the port's kernels do not."""
-    if (topk in (1, 2) and 0 < gs <= 2048 and gs % 8 == 0 and D % 128 == 0 and E >= 2
-            and cap >= 1 and not moe_dispatch_ok(gs, E, cap, D, topk)):
+    """Raise ``NotImplementedError`` where the JAX gate takes K11/K12 and
+    the port's kernels do not."""
+    if _jax_takes(gs, E, cap, D, topk) and not moe_dispatch_ok(gs, E, cap, D, topk):
         raise NotImplementedError(
-            f"the JAX gate takes {kernel} at D={D}, E={E}; the port's kernels hold a row in "
-            f"registers (D <= 1024) and the router's (D, E) gradient in shared memory "
-            f"(D * E <= 8192): ROADMAP.md Queue 2 (K11/K12 at D > 1024 or D * E > 8192)")
+            f"the JAX gate takes {kernel} at D={D}, E={E}; the port's kernels stage a row in "
+            f"shared memory (D <= {MOE_MAX_D}) and hold two experts a lane (E <= {MOE_MAX_E}): "
+            f"ROADMAP.md Queue 2 (K11/K12 at D > {MOE_MAX_D} or E > {MOE_MAX_E})")
 
 
 def chosen(pos: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -333,10 +347,11 @@ def _k11b(cfg, x, scale, bias, wr, pos1, pos2, probs, dxin, dgates, dpsum, dres,
            _f32(dgates), _f32(dpsum), None if dres is None else _bf16(dres))
     width = 2 * D + D * E + E
     dx = torch.empty_like(x)
+    dl = torch.empty((Tp, E), dtype=torch.float32, device=dev)  # the rows' dlogits
     part = torch.empty((G, width), dtype=torch.float32, device=dev)
     sums = torch.empty((width,), dtype=torch.float32, device=dev)
     check_status(load_library().ddm_moe_dispatch_bwd(
-        *_ptrs(x, *ins, dx, part, sums), G, gs, n_valid, D, E, cfg.cap, cfg.cpad, cfg.topk,
+        *_ptrs(x, *ins, dx, dl, part, sums), G, gs, n_valid, D, E, cfg.cap, cfg.cpad, cfg.topk,
         current_stream(dev)), "moe_dispatch_bwd")
     DISPATCH_BWD_LAUNCHES.add()
     return dx, sums[:D], sums[D:2 * D], sums[2 * D:2 * D + D * E].view(D, E), sums[2 * D + D * E:]
@@ -387,11 +402,17 @@ def _k12b(cfg, out, gates, pos1, pos2, dpart):
 
 # ---------------------------------------------------------------- dispatch by device
 
+def _einsum_path(cfg: MoEDispatchCfg, D: int) -> bool:
+    """Where the JAX gate refuses K11/K12 and JAX runs its einsum path."""
+    return not _jax_takes(cfg.gs, cfg.num_experts, cfg.cap, D, cfg.topk)
+
+
 def moe_dispatch_fwd(cfg, x, scale, bias, wr, br, n_valid=None):
-    """K11f on CUDA tensors (or raise), :func:`moe_dispatch_reference` on CPU:
-    ``(xin, gates, pos1, pos2, probs, cnt, psum)``."""
+    """K11f on CUDA tensors (or raise), :func:`moe_dispatch_reference` on CPU
+    and where the JAX gate runs no kernel: ``(xin, gates, pos1, pos2, probs,
+    cnt, psum)``."""
     n_valid = x.shape[0] if n_valid is None else n_valid
-    if not uses_kernel(x, scale, bias, wr, br):
+    if not uses_kernel(x, scale, bias, wr, br) or _einsum_path(cfg, x.shape[1]):
         return moe_dispatch_reference(cfg, x, scale, bias, wr, br, n_valid)
     _check_dispatch(cfg, x, scale, bias, wr, br)
     return _k11f(cfg, x, scale, bias, wr, br, n_valid)
@@ -400,9 +421,11 @@ def moe_dispatch_fwd(cfg, x, scale, bias, wr, br, n_valid=None):
 def moe_dispatch_bwd(cfg, x, scale, bias, wr, pos1, pos2, probs, dxin, dgates, dpsum,
                      dres=None, n_valid=None):
     """K11b on CUDA tensors (or raise), :func:`moe_dispatch_bwd_reference` on
-    CPU: ``(dx, dscale, dbias, dwr, dbr)``."""
+    CPU and where the JAX gate runs no kernel: ``(dx, dscale, dbias, dwr,
+    dbr)``."""
     n_valid = x.shape[0] if n_valid is None else n_valid
-    if not uses_kernel(x, scale, bias, wr, dxin, dgates, dpsum):
+    if not uses_kernel(x, scale, bias, wr, dxin, dgates, dpsum) or \
+            _einsum_path(cfg, x.shape[1]):
         return moe_dispatch_bwd_reference(cfg, x, scale, bias, wr, pos1, pos2, probs, dxin,
                                           dgates, dpsum, dres, n_valid)
     _check_dispatch(cfg, x, scale, bias, wr)
@@ -410,8 +433,9 @@ def moe_dispatch_bwd(cfg, x, scale, bias, wr, pos1, pos2, probs, dxin, dgates, d
 
 
 def moe_combine_fwd(cfg, out, gates, pos1, pos2, res=None):
-    """K12f on CUDA tensors (or raise), :func:`moe_combine_reference` on CPU."""
-    if not uses_kernel(out, gates, pos1, pos2):
+    """K12f on CUDA tensors (or raise), :func:`moe_combine_reference` on CPU
+    and where the JAX gate runs no kernel."""
+    if not uses_kernel(out, gates, pos1, pos2) or _einsum_path(cfg, out.shape[-1]):
         return moe_combine_reference(cfg, out, gates, pos1, pos2, res)
     _check_combine(cfg, out, gates, pos1, pos2, res)
     return _k12f(cfg, out, gates, pos1, pos2, res)
@@ -419,8 +443,9 @@ def moe_combine_fwd(cfg, out, gates, pos1, pos2, res=None):
 
 def moe_combine_bwd(cfg, out, gates, pos1, pos2, dpart):
     """K12b on CUDA tensors (or raise), :func:`moe_combine_bwd_reference` on
-    CPU: ``(dout, dgates)``."""
-    if not uses_kernel(out, gates, pos1, pos2, dpart):
+    CPU and where the JAX gate runs no kernel: ``(dout, dgates)``."""
+    if not uses_kernel(out, gates, pos1, pos2, dpart) or \
+            _einsum_path(cfg, out.shape[-1]):
         return moe_combine_bwd_reference(cfg, out, gates, pos1, pos2, dpart)
     _check_combine(cfg, out, gates, pos1, pos2, None)
     return _k12b(cfg, out, gates, pos1, pos2, dpart)

@@ -12,7 +12,7 @@ F-chunked MLP partial, in place of K1f at the DiT-L width, and K10p in place
 of K10f for an MoE at D >= 768; the third rung's K7f at DiT-L and 64 px,
 and the plain attention core at 96 px or with ``attention: xla``). A
 checkpoint at DiT-XL width runs K2f (32 px) or K7f (64 px) on 16 heads of
-72 and two K6f per block. ``--fast-gelu`` takes the sigmoid GELU in every
+72 and two K6f per block, or with ``--moe-experts`` K11f, four K10p and K12f. ``--fast-gelu`` takes the sigmoid GELU in every
 MLP half-block, and only when asked, as ``generate.py`` sets
 ``DDM_TPU_FAST_GELU`` only for the flag: a checkpoint trained with it
 samples with the exact-erf GELU unless the flag is given. A

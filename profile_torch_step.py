@@ -18,6 +18,9 @@ widths):
     python3 profile_torch_step.py --tp 2 --profile-samples 256
     python3 profile_torch_step.py --batch 256 --m 8 --embed-dim 1152 --depth 28 \
         --heads 16 --profile-samples 64
+    python3 profile_torch_step.py --batch 256 --m 8 --embed-dim 1152 --depth 28 \
+        --heads 16 --moe-experts 8 --moe-capacity 1.25 --moe-group-size 256 \
+        --moe-topk 1 --profile-samples 64
 
 (``--tp N`` profiles the full tensor-parallel instance in one process: the
 layout a ``--tp`` checkpoint samples with, K7 and the partial K6f/K6b.)

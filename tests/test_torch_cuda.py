@@ -521,10 +521,16 @@ def _moe_inputs(device, T, D, E, seed=10):
 @pytest.mark.cuda
 @pytest.mark.parametrize("topk", [1, 2])
 @pytest.mark.parametrize("T,D,E,gs,n_valid", [(131072, 384, 8, 256, 131072),
-                                              (512, 128, 4, 64, 450)])
+                                              (512, 128, 4, 64, 450),
+                                              (32768, 1152, 8, 256, 32768),
+                                              (32768, 1152, 16, 256, 32700),
+                                              (16384, 2048, 8, 256, 16384),
+                                              (8192, 384, 64, 256, 8192)])
 def test_k11_k12_kernels_match_plain_on_the_card(cuda_device, topk, T, D, E, gs, n_valid):
     """Dispatch and combine, forward and backward, against their plain
-    versions; the second case pads 62 rows that take no route. The kernel's
+    versions; the second case pads 62 rows that take no route, the next ones
+    are DiT-XL/4's width with 8 and 16 experts (68 padded rows), D 2048 (the
+    backward's column tiles) and 64 experts (two a lane). The kernel's
     LN statistics differ from the plain version's in the last fp32 bits,
     which can flip the bf16 rounding of an LN output entry and so move a
     logit by one bf16 unit of the largest |yb| times max |wr|: a token may
@@ -594,11 +600,22 @@ def test_k11_k12_kernels_match_plain_on_the_card(cuda_device, topk, T, D, E, gs,
 def test_moe_kernels_refuse_what_they_do_not_take(cuda_device):
     x, scale, bias, wr, br = _moe_inputs(cuda_device, 200, 128, 4)
     cfg, _ = TD.moe_cfg(200, 4, 100, 1.25, 1)  # gs = 100 is not a multiple of 8
+    # where the JAX gate takes no kernel (its einsum path), the plain version
+    before = TD.DISPATCH_LAUNCHES.count
+    got = TD.moe_dispatch_fwd(cfg, x, scale, bias, wr, br)
+    assert TD.DISPATCH_LAUNCHES.count == before
+    for g, w in zip(got, TD.moe_dispatch_reference(cfg, x, scale, bias, wr, br)):
+        assert torch.equal(g, w)
     with pytest.raises(ValueError, match="moe_dispatch_ok"):
-        TD.moe_dispatch_fwd(cfg, x, scale, bias, wr, br)
+        TD._check_dispatch(cfg, x, scale, bias, wr, br)
     cfg, _ = TD.moe_cfg(200, 4, 40, 1.25, 1)
     with pytest.raises(TypeError, match="bf16"):
         TD.moe_dispatch_fwd(cfg, x.float(), scale, bias, wr, br)
+    # past the kernels' bounds, where the JAX gate still takes them: Queue 2
+    x, scale, bias, wr, br = _moe_inputs(cuda_device, 256, 128, 72)
+    cfg, _ = TD.moe_cfg(256, 72, 256, 1.25, 1)
+    with pytest.raises(NotImplementedError, match="E=72.*Queue 2"):
+        TD.moe_dispatch_fwd(cfg, x, scale, bias, wr, br)
     w1 = torch.zeros(4, 128, 256, device=cuda_device)
     with pytest.raises(TypeError, match="bf16"):
         TX.expert_ffn(torch.zeros(4, 16, 128, device=cuda_device), w1,

@@ -33,6 +33,8 @@ from ddm_tpu_torch.utils.convert import jax_tree_from_state_dict, state_dict_fro
 D, F, E, GS, AUX_W = 128, 256, 4, 32, 0.01
 LAYER_CASES = {"top1": (1, 1.25), "top2": (2, 1.25), "top1-drops": (1, 0.4)}
 CFG = dict(img=16, patch=4, dim=128, depth=2, heads=2, tdim=32)
+# DiT-XL/4's widths (D 1152, 16 heads of Dh 72, F 4608) at depth 1, 8 experts
+XL_CFG, XL_E = dict(img=16, patch=4, dim=1152, depth=1, heads=16, tdim=32), 8
 B, M, BETA, LAM, W_BIAS = 2, 4, 0.1, 1.0, 0.0
 # fp32: sums over rows taken in another order (the kernel tests' 1e-4,
 # the absolute part scaled by the leaf's largest entry)
@@ -191,33 +193,33 @@ def test_expert_init_follows_flax_fan_in():
         assert not dict(layer.named_parameters())[name].any(), name
 
 
-def _jax_model(dtype, topk=1):
-    return JaxDiT(img_size=CFG["img"], patch_size=CFG["patch"], embed_dim=CFG["dim"],
-                  depth=CFG["depth"], num_heads=CFG["heads"], time_embed_dim=CFG["tdim"],
-                  dtype=dtype, data_format="NHWC", moe_experts=E, moe_capacity=1.25,
+def _jax_model(dtype, topk=1, cfg=CFG, experts=E):
+    return JaxDiT(img_size=cfg["img"], patch_size=cfg["patch"], embed_dim=cfg["dim"],
+                  depth=cfg["depth"], num_heads=cfg["heads"], time_embed_dim=cfg["tdim"],
+                  dtype=dtype, data_format="NHWC", moe_experts=experts, moe_capacity=1.25,
                   moe_group_size=GS, moe_topk=topk)
 
 
-def _jax_variables(seed=0, topk=1, router_gain=1.0):
-    x0 = jnp.zeros((1, CFG["img"], CFG["img"], 3))
-    variables = _jax_model(jnp.float32, topk).init(jax.random.PRNGKey(seed), x0,
-                                                   jnp.zeros((1,)), x0)
+def _jax_variables(seed=0, topk=1, router_gain=1.0, cfg=CFG, experts=E):
+    x0 = jnp.zeros((1, cfg["img"], cfg["img"], 3))
+    variables = _jax_model(jnp.float32, topk, cfg, experts).init(
+        jax.random.PRNGKey(seed), x0, jnp.zeros((1,)), x0)
     r = np.random.default_rng(seed)
     variables = jax.tree.map(
         lambda a: np.asarray(a) + 0.1 * r.standard_normal(a.shape).astype(np.float32),
         variables)
-    for i in range(CFG["depth"]):
+    for i in range(cfg["depth"]):
         moe = variables["params"][f"block_{i}"]["moe"]
         moe["router_kernel"] = moe["router_kernel"] * router_gain
     return variables
 
 
-def _port_model(variables, dtype, topk=1):
-    model = DDDMDiT(img_size=CFG["img"], patch_size=CFG["patch"], embed_dim=CFG["dim"],
-                    depth=CFG["depth"], num_heads=CFG["heads"], time_embed_dim=CFG["tdim"],
-                    dtype=dtype, moe_experts=E, moe_capacity=1.25, moe_group_size=GS,
+def _port_model(variables, dtype, topk=1, cfg=CFG, experts=E):
+    model = DDDMDiT(img_size=cfg["img"], patch_size=cfg["patch"], embed_dim=cfg["dim"],
+                    depth=cfg["depth"], num_heads=cfg["heads"], time_embed_dim=cfg["tdim"],
+                    dtype=dtype, moe_experts=experts, moe_capacity=1.25, moe_group_size=GS,
                     moe_topk=topk)
-    model.load_state_dict(state_dict_from_jax(variables, patch_size=CFG["patch"]))
+    model.load_state_dict(state_dict_from_jax(variables, patch_size=cfg["patch"]))
     return model
 
 
@@ -274,15 +276,21 @@ def _step_inputs(seed=2):
             r.standard_normal((B, M) + shape[1:]).astype(np.float32))
 
 
-@pytest.mark.parametrize("topk", [1, 2])
-def test_moe_training_step_matches_jax_grad(topk):
+@pytest.mark.parametrize("topk,xl", [(1, False), (2, False), (2, True)], ids=["1", "2", "2-xl"])
+def test_moe_training_step_matches_jax_grad(topk, xl):
     """One fp32 step, B = 2 x m = 4 on 16-px images (128 rows, 4 groups),
-    injected t, eps, xi: the loss terms, moe_aux and every gradient leaf
-    against jax.grad of the JAX step (make_tokens_apply with the aux weight
-    0.01, its einsum path)."""
-    variables, (x0, t, eps, xi) = _jax_variables(seed=6, topk=topk), _step_inputs()
-    model = _jax_model(jnp.float32, topk)
+    injected t, eps, xi: the denoiser's output, the loss terms, moe_aux and
+    every gradient leaf against jax.grad of the JAX step (make_tokens_apply
+    with the aux weight 0.01, its einsum path); also at DiT-XL/4's widths
+    (depth 1, 8 experts, top-2)."""
+    cfg, experts = (XL_CFG, XL_E) if xl else (CFG, E)
+    variables, (x0, t, eps, xi) = (_jax_variables(seed=6, topk=topk, cfg=cfg, experts=experts),
+                                   _step_inputs())
+    model = _jax_model(jnp.float32, topk, cfg, experts)
     apply_fn = jax_tokens_apply(model, AUX_W)
+    xt_m, t_m = jnp.repeat(jax_marginal(x0, t, eps), M, axis=0), jnp.repeat(t, M)
+    xi_m = xi.reshape((B * M,) + x0.shape[1:])
+    want_out = np.asarray(model.apply(variables, xt_m, t_m, xi_m))
 
     def loss_fn(params):
         xt = jax_marginal(x0, t, eps)
@@ -298,8 +306,11 @@ def test_moe_training_step_matches_jax_grad(topk):
     want = {jax.tree_util.keystr(p): np.asarray(g, np.float32)
             for p, g in jax.tree_util.tree_leaves_with_path(grads)}
 
-    port = _port_model(variables, torch.float32, topk)
+    port = _port_model(variables, torch.float32, topk, cfg, experts)
     assert TF.make_tokens_apply(port, 0.0) == port.tokens
+    with torch.no_grad():
+        got_out = port(*(torch.from_numpy(np.array(a)) for a in (xt_m, t_m, xi_m))).numpy()
+    np.testing.assert_allclose(got_out, want_out, rtol=1e-4, atol=1e-4)
     _, metrics = distributional_training_step(
         TF.make_tokens_apply(port, AUX_W), *(torch.from_numpy(a) for a in (x0,)), m=M,
         beta=BETA, lam=LAM, w_bias=W_BIAS, t=torch.from_numpy(t), eps=torch.from_numpy(eps),
@@ -312,7 +323,7 @@ def test_moe_training_step_matches_jax_grad(topk):
     for name, p in named.items():
         assert p.grad is not None and float(p.grad.abs().max()) > 0, name
     tree = jax_tree_from_state_dict({k: p.grad for k, p in named.items()},
-                                    patch_size=CFG["patch"])["params"]
+                                    patch_size=cfg["patch"])["params"]
     got = {jax.tree_util.keystr(p): g for p, g in jax.tree_util.tree_leaves_with_path(tree)}
     assert set(got) == set(want) and len(got) == len(named)
     for path, w in want.items():

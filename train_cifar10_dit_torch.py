@@ -34,7 +34,9 @@ plain core (JAX runs XLA's there), and K8 at head widths 32, 64 and 128
 from 128 px. DiT-XL/4 (``--embed-dim 1152 --depth 28 --heads 16``: 16 heads
 of Dh 72) runs K2f and K4 at 32 px and K7f/K7b at 64 px, their cores on
 head tiles padded to 80 columns, and the F-chunked MLP (two K6f, K1b) at
-D 1152. ``--fast-gelu`` takes x sigmoid(1.702 x) in place of the exact-erf
+D 1152; with ``--moe-experts 8`` (top-1 or top-2) its dispatch and combine
+run K11 and K12 at D 1152 (any D % 128 == 0 up to 4096, 2 to 64 experts)
+and its experts' FFN four K10p partials and K10b. ``--fast-gelu`` takes x sigmoid(1.702 x) in place of the exact-erf
 GELU in every MLP half-block's kernels (K1, K6, K10) and plain versions, as
 the JAX trainer's ``DDM_TPU_FAST_GELU=1`` does. ``--attention xla`` unfuses
 the attention half as the JAX model does (plain attention core, MLP still
@@ -80,6 +82,9 @@ Usage:
         --image-size 64 --batch 64 --m 4 --epochs 1 --out dit_l64/
     python train_cifar10_dit_torch.py --synthetic --batch 256 --m 8 --embed-dim 1152 \
         --depth 28 --heads 16 --epochs 1 --out dit_xl/
+    python train_cifar10_dit_torch.py --synthetic --batch 256 --m 8 --embed-dim 1152 \
+        --depth 28 --heads 16 --moe-experts 8 --moe-capacity 1.25 --moe-group-size 256 \
+        --moe-topk 2 --epochs 1 --out moe_xl/
     python train_cifar10_dit_torch.py --synthetic --fast-gelu --epochs 1 --out fast/
     python -m torch.distributed.run --standalone --nproc-per-node 2 -- \
         train_cifar10_dit_torch.py --synthetic --tp 2 --epochs 1 --out tp2/
