@@ -21,7 +21,10 @@ TP checkpoint on one card; then DiT-XL/4 (D 1152, depth 28, 16 heads of Dh
 columns, and the F-chunked MLP K6f/K1b at D 1152), DiT-S at Dh 24, the
 fast GELU (``--fast-gelu``) in K1, K6 and K10, and the MoE at DiT-XL/4 width
 (8 experts, top-1 and top-2: K11 and K12 at D 1152, the expert FFN through
-K10p and K10b).
+K10p and K10b); then K8 at every other head width the JAX gate admits (Dh
+4, 8, 16 and 256-896), DiT-B/4 at ``--heads 3`` (Dh 256) and DiT-S/4 at
+``--heads 24`` (Dh 16) training and sampling at 128 px, and the third
+rung's plain products at D 1472.
 
 Run from the repository root with no arguments:
 
@@ -80,10 +83,11 @@ is non-zero and no result line is printed:
    counts (8 blocks x 8 steps for K1f/K2f/K1b/K2b, 8 for K3f/K3b) and that
    ``generate_torch.main`` samples from its ``model_final.pt``;
    7b. the long-sequence slice: ``--image-size 128 --batch 16 --m 8`` for
-   one epoch (128 steps), checking finite losses and the launch counts
-   (8 blocks x 128 steps for K8f/K8b/K1f/K1b, none of K2 or K3: the energy
-   score takes its plain version at D = 49,152, as the JAX gate does), then
-   64 samples of (128, 128, 3) from its ``model_final.pt`` (K8f = 8 x 20);
+   32 steps (512 synthetic images; an epoch of 128 steps before PR 12),
+   checking finite losses and the launch counts (8 blocks a step for
+   K8f/K8b/K1f/K1b, none of K2 or K3: the energy score takes its plain
+   version at D = 49,152, as the JAX gate does), then 64 samples of (128,
+   128, 3) from its ``model_final.pt`` (K8f = 8 x 20);
    7c. the MoE slice: the trainer with ``--moe-experts 8 --moe-capacity
    1.25 --moe-group-size 256 --moe-topk 1 --moe-aux-weight 0.01`` for one
    epoch (8 steps), checking finite losses and moe_aux and the launch
@@ -256,11 +260,35 @@ after those:
     its ``model_final.pt``; launches per step as 6n, per sampler call 560
     each of K2f, K11f, K12f and 2,240 of K10p.
 
+K8 at every head width the JAX gate admits, after those:
+
+3o. (flash-widths) K8f and K8b against their plain versions at N 1024 for
+    Dh 4, 8 and 16 (D 384 over 96, 48, 24 heads), Dh 256, 384 and 768 (D 768
+    over 3, 2, 1), Dh 512 (D 1024 over 2), Dh 640 and 896 (one head), B 128
+    at Dh 16, 256 and 768 and B 8 elsewhere, then Dh 16 at N 2304 and Dh 256
+    at N 4096 (B 2), each held as 3d holds Dh 64, timed (the plain versions
+    past 32 heads over 5 calls), with its bound, its exp count, and SDPA's
+    forward and forward + backward through its first fused backend that
+    takes the width (named; none where none does);
+6o. (train-step-heads) one step of DiT-B/4 --heads 3 (depth 12) and of
+    DiT-S/4 --heads 24 (depth 8) at 128 px, batch 8 x m 4, through the
+    kernels twice (bit-identical) against the plain step within twice bf16's
+    own noise, launches 12 (8) each of K8f, K8b, K1f, K1b; and one 32-px step
+    at D 1472 over 8 heads, depth 2, batch 16 x m 4, whose attention half
+    runs plain products around the plain core (as JAX runs XLA there),
+    launching only K3f and K3b;
+7n. (train-heads) the trainer at 128 px with --embed-dim 768 --depth 12
+    --heads 3 and with --embed-dim 384 --depth 8 --heads 24, 4 steps of 16 x
+    m 8 each, finite losses, peak memory and img/s, then 64 samples; launches
+    per step 12 (8) each of K8f, K8b, K1f, K1b, per sampler call 240 (160)
+    each of K8f and K1f.
+
 The DiT-S phases run at full width and depth 8. PERF.md gives the whole
 run's measured time on the card, the kernels' build included, against the
 20 minutes allowed.
 
-The second-to-last line is a JSON summary of the kernels; the last line is
+Before the result lines, a line lists the head widths K8 was checked at;
+the second-to-last line is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -292,7 +320,9 @@ LSE_RTOL = 1e-5
 FLASH_HEADS = 6
 FLASH_SHAPES = [(128, 1024), (64, 1024), (2, 4096), (1, 16384)]  # (B, N); the first is timed
 LONG_SIZE, LONG_BATCH, LONG_M = 128, 16, 8
-LONG_STEPS = 2048 // LONG_BATCH
+# 7b's trainer runs 32 steps of 16 x m 8 (512 synthetic images; an epoch of
+# 128 steps before PR 12, cut to make room for 3o, 6o and 7n)
+LONG_IMAGES = 512
 # the MoE path: configs/cifar10_dit_moe.yaml's recipe, 8 top-1 experts per block
 MOE = {"moe_experts": 8, "moe_capacity": 1.25, "moe_group_size": 256, "moe_topk": 1}
 MOE_AUX_WEIGHT = 0.01
@@ -310,6 +340,24 @@ M32, M32_STEP_BATCH = 32, 64  # 6g: batch 64 x m 32
 L64_STEP_BATCH, L64_STEP_M = 8, 4  # 6i: the DiT-L 64-px step at batch 8 x m 4
 PX96_SIZE, H3_DEPTH = 96, 2  # 6i: the 96-px DiT-S step; the 128-px --heads 3 step's depth
 K8_WIDE_HEADS = (12, 3)  # 3j: K8 at D 384 over 12 heads (Dh 32) and 3 (Dh 128)
+# 3o: K8 at the other head widths the JAX gate admits, (B, N, H, Dh): D 384
+# over 96, 48 and 24 heads (Dh 4, 8, 16), D 768 over 3, 2 and 1 (Dh 256, 384,
+# 768), D 1024 over 2 (Dh 512), D 640 and 896 over 1; B 128 (the 128-px
+# training batch) at Dh 16, 256 and 768, the other widths at B 8; then Dh 16
+# at N 2304 (192 px) and Dh 256 at N 4096 (256 px), B 2. The plain versions
+# loop over heads: past FEW_REPS_HEADS heads they are timed over FEW_REPS calls.
+FLASH_WIDTHS = [(8, 1024, 96, 4), (8, 1024, 48, 8), (128, 1024, 24, 16), (128, 1024, 3, 256),
+                (8, 1024, 2, 384), (8, 1024, 2, 512), (8, 1024, 1, 640),
+                (128, 1024, 1, 768), (8, 1024, 1, 896), (2, 2304, 24, 16), (2, 4096, 3, 256)]
+FEW_REPS, FEW_REPS_HEADS = 5, 32
+# 6o and 7n: DiT-B/4 at --heads 3 (Dh 256, full depth 12) and DiT-S/4 at
+# --heads 24 (Dh 16, depth 8) at 128 px; 6o's steps at 6i's batch 8 x m 4,
+# 7n's trainers at 16 x m 8 for HEADS_STEPS steps each; and the third rung's
+# plain products at D 1472 over 8 heads (6o: depth 2, 32 px, batch 16 x m 4)
+B_H3 = {**DIT_B, "heads": 3}
+S_H24 = {"embed_dim": 384, "depth": DEPTH, "heads": 24}
+HEADS_STEPS = 4
+WIDE_PLAIN, WIDE_PLAIN_BATCH = {"embed_dim": 1472, "depth": 2, "heads": 8}, 16
 # an fp32 partial (K6f, K10p), relative Frobenius error: at least 1e-4, and
 # at least twice the plain version's own spread when its fp32 sums run in
 # another order (the contraction axes permuted): a flipped bf16 rounding of
@@ -668,11 +716,44 @@ def _sdpa_ms(q, k, v, do, H):
     return {"K8f": fwd, "K8b": both}
 
 
-def _k8_case(FL, smi, gen, B, N, H, Dh, library=False):
+def _sdpa_backend_ms(q, k, v, do, H):
+    """SDPA's forward and forward + backward on the same q, k, v (copied once
+    into its (B, H, N, Dh) layout) through the first of its fused backends,
+    in its own order of preference, that takes this head width both ways:
+    ``(backend, {"K8f": ms, "K8b": ms})``, or ``("none", None)`` where none
+    does (its plain math backend would hold the N x N scores). A yardstick
+    only; the port never calls it."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    B, N, D = q.shape
+    qs, ks, vs, dos = (t.reshape(B, N, H, D // H).transpose(1, 2).contiguous()
+                       for t in (q, k, v, do))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    leaves = [t.detach().requires_grad_() for t in (qs, ks, vs)]
+    for name, backend in (("flash", SDPBackend.FLASH_ATTENTION),
+                          ("efficient", SDPBackend.EFFICIENT_ATTENTION),
+                          ("cudnn", SDPBackend.CUDNN_ATTENTION)):
+        with sdpa_kernel([backend]):
+            try:
+                torch.autograd.grad(sdpa(*leaves), leaves, dos)
+                torch.cuda.synchronize()
+            except RuntimeError:
+                continue
+            with torch.no_grad():
+                fwd = _median_ms(lambda: sdpa(qs, ks, vs))
+            both = _median_ms(lambda: torch.autograd.grad(sdpa(*leaves), leaves, dos))
+        return name, {"K8f": fwd, "K8b": both}
+    return "none", None
+
+
+def _k8_case(FL, smi, gen, B, N, H, Dh, library=False, plain_reps=20):
     """K8f and K8b at (B, N) over H heads of width Dh, q, k and v read in
     place from a [q | k | v] buffer, against their plain versions: o, dq, dk,
     dv by the bf16 rule, lse to LSE_RTOL, K8b's second call bit-identical;
-    timed, with bounds and (``library``) SDPA's times on the same q, k, v."""
+    timed (the plain versions, which loop over heads, over ``plain_reps``
+    calls), with bounds and (``library``) SDPA's times on the same q, k, v
+    (``library="backend"``: through its first fused backend that takes
+    Dh, named, or none)."""
     D = H * Dh
     qkv = torch.randn(B, N, 3 * D, generator=gen, device="cuda").to(torch.bfloat16)
     q, k, v = qkv.split(D, dim=-1)  # read in place, row stride 3D
@@ -698,23 +779,38 @@ def _k8_case(FL, smi, gen, B, N, H, Dh, library=False):
         parts.append(f"{label} max {max_err:.4g} (tol {tol:.4g}) mean {mean_err:.3g}")
     del grads, again, want, want_o, want_lse
     times = {"fwd": _median_ms(lambda: FL.flash_attention_fwd(q, k, v, H)),
-             "plain_fwd": _median_ms(lambda: FL.flash_attention_reference(q, k, v, H)),
+             "plain_fwd": _median_ms(lambda: FL.flash_attention_reference(q, k, v, H),
+                                     reps=plain_reps),
              "bwd": _median_ms(lambda: FL.flash_attention_bwd(q, k, v, o, lse, do, H)),
              "plain_bwd": _median_ms(
-                 lambda: FL.flash_attention_bwd_reference(q, k, v, o, lse, do, H))}
+                 lambda: FL.flash_attention_bwd_reference(q, k, v, o, lse, do, H),
+                 reps=plain_reps)}
     print(f"[kernel] K8 (B={B}, N={N}, H={H}, Dh={Dh}) bf16: " + "; ".join(parts)
           + f"; lse max rel err {lse_rel:.3g} (tol {LSE_RTOL:g}); K8b second call "
           f"bit-identical; K8f {times['fwd']:.4f} ms, plain {times['plain_fwd']:.4f} ms; "
-          f"K8b {times['bwd']:.4f} ms, plain {times['plain_bwd']:.4f} ms (median of 20) "
-          f"on {smi}")
+          f"K8b {times['bwd']:.4f} ms, plain {times['plain_bwd']:.4f} ms (kernels median of "
+          f"20, plain versions of {plain_reps}) on {smi}")
     if not ok:
         raise AssertionError(f"K8 disagrees with its plain version at (B={B}, N={N}, Dh={Dh})")
     core = 2 * B * H * N * N * Dh  # one (N x N x Dh) product per image and head
+    exps = B * H * N * N  # one exp per score, each way (the backward replays p from lse)
     case = {"B": B, "N": N, "H": H, "Dh": Dh, **times, "max_f": worst["K8f"],
-            "max_b": worst["K8b"], "bound_f": _bound(_nbytes(qkv, o, lse), 2 * core),
+            "max_b": worst["K8b"],
+            "bound_f": {**_bound(_nbytes(qkv, o, lse), 2 * core), "bound_exps": exps},
             # the least backward: S, dV, dP, dQ and dK
-            "bound_b": _bound(_nbytes(qkv, o, lse, do) + _nbytes(qkv), 5 * core)}
-    if library:
+            "bound_b": {**_bound(_nbytes(qkv, o, lse, do) + _nbytes(qkv), 5 * core),
+                        "bound_exps": exps}}
+    if library == "backend":
+        backend, lib = _sdpa_backend_ms(q, k, v, do, H)
+        case["library_f"], case["library_b"] = (lib["K8f"], lib["K8b"]) if lib else (None, None)
+        case["library_backend"] = backend
+        print(f"[library] torch scaled_dot_product_attention (B={B}, H={H}, N={N}, Dh={Dh}) "
+              f"bf16 in its own layout: " + (
+                  f"{backend} backend, forward {lib['K8f']:.4f} ms, forward + backward "
+                  f"{lib['K8b']:.4f} ms (median of 20)" if lib else
+                  "none of its fused backends (flash, efficient, cudnn) takes this head "
+                  "width") + f" on {smi}")
+    elif library:
         lib = _sdpa_ms(q, k, v, do, H)
         case["library_f"], case["library_b"] = lib["K8f"], lib["K8b"]
         print(f"[library] torch scaled_dot_product_attention (B={B}, H={H}, N={N}, Dh={Dh}) "
@@ -732,7 +828,9 @@ def _k8_shape(case, name):
             "ms": case["fwd" if f else "bwd"], "plain_ms": case["plain_fwd" if f else "plain_bwd"],
             **case["bound_f" if f else "bound_b"],
             **({"library_ms": case["library_f" if f else "library_b"]}
-               if "library_f" in case else {})}
+               if "library_f" in case else {}),
+            **({"library_backend": case["library_backend"]} if "library_backend" in case
+               else {})}
 
 
 def phase_flash(FL, smi):
@@ -752,6 +850,25 @@ def phase_flash(FL, smi):
     for e in entries:
         e["shapes"] = [_k8_shape(c, e["name"]) for c in cases]
     return entries
+
+
+def phase_flash_widths(FL, smi):
+    """3o: K8f and K8b at every head width the JAX gate admits beyond 32,
+    64 and 128 (FLASH_WIDTHS), each against its plain versions, timed, with
+    its bound (and exp count) and SDPA's fused backend beside it. Returns
+    ``{"K8f": [...], "K8b": [...]}``."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    out = {"K8f": [], "K8b": []}
+    for B, N, H, Dh in FLASH_WIDTHS:
+        case = _k8_case(FL, smi, gen, B, N, H, Dh, library="backend",
+                        plain_reps=FEW_REPS if H > FEW_REPS_HEADS else 20)
+        for name in out:
+            out[name].append({"path": f"dh{Dh}", **_k8_shape(case, name)})
+    widths = sorted({Dh for *_, Dh in FLASH_WIDTHS} | {32, 64, 128})
+    if widths != sorted(FL.HEAD_DIMS):
+        raise AssertionError(f"3o and 3d/3j checked K8 at Dh {widths}, not at every width the "
+                             f"port takes, {sorted(FL.HEAD_DIMS)}")
+    return out
 
 
 def _kept(cfg, pos1, pos2) -> int:
@@ -1405,55 +1522,6 @@ def phase_train_moe(kc, name, smi):
     return train, generated
 
 
-def phase_train_long(kc, name, smi):
-    import generate_torch
-    import train_cifar10_dit_torch
-
-    with tempfile.TemporaryDirectory() as tmp:
-        kc.reset_launch_counts()
-        result = train_cifar10_dit_torch.main([
-            "--synthetic", "--image-size", str(LONG_SIZE), "--epochs", "1",
-            "--batch", str(LONG_BATCH), "--m", str(LONG_M), "--sample-batch", "64",
-            "--log-every", "1", "--device", "cuda", "--out", tmp])
-        total = kc.launch_counts()
-        with open(os.path.join(tmp, "train_metrics.json"), encoding="utf-8") as f:
-            losses = json.load(f)["loss"]
-        if len(losses) != LONG_STEPS or not np.isfinite(losses).all():
-            raise AssertionError(f"128-px training losses are not {LONG_STEPS} finite values")
-        npz = os.path.join(tmp, "s.npz")
-        kc.reset_launch_counts()
-        sampled = generate_torch.main([
-            "--ckpt", os.path.join(tmp, "model_final.pt"), "--n", "64", "--batch", "64",
-            "--device", "cuda", "--npz", npz, "--out", ""])
-        generated = kc.launch_counts()
-        samples = np.load(npz)["samples"]
-    if samples.shape != (64, LONG_SIZE, LONG_SIZE, 3):
-        raise AssertionError(f"128-px samples have shape {samples.shape}")
-    if not (np.isfinite(samples).all() and samples.min() >= -1 and samples.max() <= 1):
-        raise AssertionError("128-px samples are not finite values in [-1, 1]")
-    per_block = DEPTH * LONG_STEPS
-    train, sample = result["launches"]["train"], result["launches"]["sample"]
-    want_train = {k: per_block if k in ("K1f", "K1b", "K8f", "K8b") else 0 for k in train}
-    want_sample = {k: DEPTH * STEPS if k in ("K1f", "K8f") else 0 for k in train}
-    if train != want_train or sample != want_sample or generated != want_sample:
-        raise AssertionError(f"the 128-px run launched {train} in training, {sample} in its "
-                             f"sampler and {generated} in generate_torch, expected "
-                             f"{want_train}, {want_sample} and {want_sample}")
-    if total != {k: train[k] + sample[k] for k in train}:
-        raise AssertionError(f"the counts read after the 128-px run, {total}, do not add up")
-    ms = 1e3 * result["seconds_per_step"]
-    print(f"[train-128] train_cifar10_dit_torch --image-size {LONG_SIZE}: {LONG_STEPS} steps "
-          f"(batch {LONG_BATCH} x m {LONG_M}, N = 1024 tokens), losses first "
-          f"{[round(v, 6) for v in losses[:3]]} last {[round(v, 6) for v in losses[-3:]]}; "
-          f"warm step {ms:.2f} ms (median of steps 2-{LONG_STEPS}) = "
-          f"{LONG_BATCH / ms * 1e3:.2f} img/s, {LONG_BATCH * LONG_M / ms * 1e3:.2f} denoiser "
-          f"rows/s; generate_torch 64 samples (128, 128, 3) x {STEPS} steps in "
-          f"{sampled['seconds']:.3f} s = {64 / sampled['seconds']:.2f} samples/s; launches in "
-          f"training {train}, in its sampler {sample}, in generate_torch {generated}; "
-          f"on {name} ({smi})")
-    return train, generated
-
-
 def _wide_flags(widths, moe=False, topk=MOE["moe_topk"]):
     out = ["--embed-dim", str(widths["embed_dim"]), "--depth", str(widths["depth"]),
            "--heads", str(widths["heads"])]
@@ -1900,6 +1968,32 @@ def phase_train_step_rung3(cfg, smi):
         "train-step-128-h3", "DiT-S/4 --heads 3",
         {"K8f": H3_DEPTH, "K8b": H3_DEPTH, "K1f": H3_DEPTH, "K1b": H3_DEPTH,
          **_energy_launches(LONG_BATCH, LONG_M, 3 * LONG_SIZE ** 2)})
+
+
+def _k8_launches(depth):
+    """Launches per training step and per 20-step sampler call of a 128-px
+    DiT of ``depth`` blocks at 16 x m 8: K8 and K1 a block (the MLP tier at
+    D 768 is fwdonly, at D 384 fused: K1f and K1b either way), the energy
+    score's plain version at D 49,152."""
+    return ({k: depth for k in ("K8f", "K8b", "K1f", "K1b")},
+            {"K8f": depth * STEPS, "K1f": depth * STEPS})
+
+
+def phase_train_step_heads(cfg, smi):
+    """6o: one step of DiT-B/4 at --heads 3 (Dh 256) and of DiT-S/4 at
+    --heads 24 (Dh 16) at 128 px, through K8 at those widths (and K1), and
+    one 32-px step at D 1472 over 8 heads, depth 2 (no GEMM tier: the third
+    rung's plain products around the plain core, as JAX's XLA), each
+    against the plain step, with its launches counted."""
+    size, energy = LONG_SIZE, _energy_launches(L64_STEP_BATCH, L64_STEP_M, 3 * LONG_SIZE ** 2)
+    for widths, label, model_name in ((B_H3, "train-step-b-h3", "DiT-B/4 --heads 3"),
+                                      (S_H24, "train-step-s-h24", "DiT-S/4 --heads 24")):
+        phase_train_step(
+            {**cfg, **widths, "image_size": size}, smi, L64_STEP_BATCH, L64_STEP_M, label,
+            model_name, {**_k8_launches(widths["depth"])[0], **energy})
+    phase_train_step({**cfg, **WIDE_PLAIN}, smi, WIDE_PLAIN_BATCH, L64_STEP_M, "train-step-d1472",
+                     "DiT --embed-dim 1472 --heads 8",
+                     _energy_launches(WIDE_PLAIN_BATCH, L64_STEP_M, 3 * 32 ** 2))
 
 
 def phase_train_wide(kc, name, smi, label, flags, per_step, per_sample, batch=TRAIN_BATCH,
@@ -2386,7 +2480,7 @@ PHASES = ("kernels", "backward", "energy", "flash", "moe-kernels", "slice", "tra
           "train-64", "train-m32", "train-b", "attention-core", "train-step-l64", "train-l64",
           "tp-kernels", "train-step-tp", "train-tp", "xl-kernels", "fast-gelu-kernels",
           "train-step-xl", "train-step-fast-gelu", "train-xl", "train-xl64", "moe-xl-kernels",
-          "train-step-moe-xl", "train-moe-xl")
+          "train-step-moe-xl", "train-moe-xl", "flash-widths", "train-step-heads", "train-heads")
 # launches per training step and per 20-step sampler call on the wide paths;
 # the DiT-L trainer (7d) runs depth 12 since PR 9 (7k runs its kernels at
 # DiT-XL's full depth 28)
@@ -2478,7 +2572,9 @@ def main(argv=None) -> None:
             {**cfg, "image_size": LONG_SIZE}, smi, LONG_BATCH, LONG_M, "train-step-128")),
         ("train-step-moe", lambda: phase_train_step(moe_cfg, smi, label="train-step-moe")),
         ("train", lambda: phase_train(kc, name, smi)),
-        ("train-128", lambda: phase_train_long(kc, name, smi)),
+        ("train-128", lambda: phase_train_wide(kc, name, smi, "train-128", [],
+                                               *_k8_launches(DEPTH), LONG_BATCH, LONG_M,
+                                               LONG_SIZE, images=LONG_IMAGES)),
         ("train-moe", lambda: phase_train_moe(kc, name, smi)),
         ("wide-kernels", lambda: phase_wide_kernels(M, A, X, smi)),
         ("wide-shapes", lambda: phase_wide_shapes(M, A, MD, X, smi)),
@@ -2533,6 +2629,13 @@ def main(argv=None) -> None:
         ("moe-xl-kernels", lambda: phase_moe_xl_kernels(MD, X, M, smi)),
         ("train-step-moe-xl", lambda: phase_train_step_moe_xl(cfg, smi)),
         ("train-moe-xl", lambda: phase_train_moe_xl(kc, name, smi)),
+        ("flash-widths", lambda: phase_flash_widths(FL, smi)),
+        ("train-step-heads", lambda: phase_train_step_heads(cfg, smi)),
+        ("train-heads", lambda: tuple(
+            phase_train_wide(kc, name, smi, label, _wide_flags(widths),
+                             *_k8_launches(widths["depth"]), LONG_BATCH, LONG_M, LONG_SIZE,
+                             images=LONG_BATCH * HEADS_STEPS)
+            for label, widths in (("train-b-h3", B_H3), ("train-s-h24", S_H24)))),
     ]
     out = {}
     t_run = time.perf_counter()
@@ -2565,7 +2668,9 @@ def main(argv=None) -> None:
              "dit-xl": ([], *out["train-xl"]),
              "dit-xl64": ([], *out["train-xl64"]),
              "moe-xl-top1": ([], *out["train-moe-xl"][0]),
-             "moe-xl-top2": ([], *out["train-moe-xl"][1])}
+             "moe-xl-top2": ([], *out["train-moe-xl"][1]),
+             "128px-b-h3": ([], *out["train-heads"][0]),
+             "128px-s-h24": ([], *out["train-heads"][1])}
     kernels = []
     for entries, trained, sampled in paths.values():
         for k in entries:
@@ -2578,8 +2683,12 @@ def main(argv=None) -> None:
     for k in kernels:  # the kernels at the other paths' shapes
         for shapes in (out["wide-shapes"], out["attention-256"], out["dit-b-kernels"],
                        out["m32-kernels"], out["attention-core"][1], out["tp-kernels"][1],
-                       out["xl-kernels"], out["fast-gelu-kernels"], out["moe-xl-kernels"]):
+                       out["xl-kernels"], out["fast-gelu-kernels"], out["moe-xl-kernels"],
+                       out["flash-widths"]):
             k.setdefault("shapes", []).extend(shapes.get(k["name"], []))
+    k8 = sorted({s["Dh"] for k in kernels if k["name"] == "K8f" for s in k["shapes"]})
+    print(f"[k8-widths] K8f and K8b held against their plain versions on the card at Dh {k8}; "
+          f"the port's K8 takes Dh {list(FL.HEAD_DIMS)}, every width the JAX gate admits")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -53,7 +53,11 @@ DiT-L at N = 256, N > 512, D not a multiple of 128), it runs its third
 rung (``ddm_tpu/ops/attention.py:959-962``): an XLA half-block around
 ``fused_attention``, whose core :func:`ddm_tpu_torch.ops.tiers.core_tier`
 picks. The port runs one Function there, :class:`_Rung3Block`: the same
-qkv GEMM, that core, and the projection GEMM with the residual. The cores:
+qkv GEMM, that core, and the projection GEMM with the residual; where those
+GEMMs do not take D (D % 64 != 0, or past ``gemm.LN_GEMM_MAX_K``: DiT at
+``--embed-dim 480``, 1472 or 1600), plain torch products with
+:func:`rung3_block_reference`'s rounding around the same core, as JAX
+computes them in XLA. The cores:
 
 - K7 (``_fused_fwd_call`` / ``_fused_bwd``), the standalone attention core:
   K7f is K2f's query-tile core reading q, k and v as three operands of one
@@ -530,11 +534,10 @@ def _refuse_unported_core(core, N: int, Dh: int) -> None:
             f"K7's cores take N a multiple of 16 up to {MAX_TOKENS} and Dh a multiple of 8 whose "
             f"tiles fit shared memory; got N={N}, Dh={Dh}: {_QUEUE2} (the K2 and K7 cores past "
             "227 KB)")
-    if core == "K8" and not flash.flash_supported(N, Dh):
+    if core == "K8" and not flash.flash_supported(N, Dh):  # the port's K8 takes every such shape
         raise NotImplementedError(
             f"the JAX gate takes K8 at N={N}, Dh={Dh}; the port's K8 takes N a multiple of "
-            f"{flash.TILE} and Dh in {flash.HEAD_DIMS}: {_QUEUE2} (K8 at other head widths "
-            "and token counts)")
+            f"{flash.TILE} and Dh in {flash.HEAD_DIMS}")
 
 
 def launch_k7f(q, k, v, H: int) -> torch.Tensor:
@@ -573,40 +576,54 @@ def attention_core_bwd(q, k, v, do, H: int):
     return launch_k7b(q, k, v, do, H).split(q.shape[2], dim=-1)
 
 
-def _check_rung3(x, H: int, core) -> None:
-    """What the third rung's kernels take on the card, beyond :func:`_check`:
-    the GEMM chain's widths, and the core's N and Dh."""
-    B, N, D = x.shape
-    gemm.refuse_wide(D, "the third rung")
-    _refuse_unported_core(core, N, D // H)
+def _gemm_chain_takes(D: int) -> bool:
+    """Whether the half-block GEMMs (the LN-prologue qkv product and the
+    projection with the residual) take width D."""
+    return D % 64 == 0 and D <= gemm.LN_GEMM_MAX_K
 
 
-def _rung3_core(qkv, H: int, core):
-    """The third rung's core on the (B, N, 3D) qkv buffer: ``(att, lse)``,
-    lse for K8 only."""
-    D = qkv.shape[-1] // 3
-    q, k, v = qkv.split(D, dim=-1)
+def _rung3_core(q, k, v, H: int, core):
+    """The third rung's core on q, k and v (the thirds of one qkv buffer):
+    ``(att, lse)``, lse for K8 only."""
+    if core is not None:
+        _check_core(q, k, v, H, core)
     if core == "K7":
         return launch_k7f(q, k, v, H), None
     if core == "K8":
-        return flash.launch_k8f(q, k, v, H, (D // H) ** -0.5)
+        return flash.launch_k8f(q, k, v, H, (q.shape[-1] // H) ** -0.5)
     return attention_reference(q, k, v, H), None
 
 
-def _rung3_core_bwd(qkv, datt, att, lse, H: int, core):
+def _rung3_core_bwd(q, k, v, datt, att, lse, H: int, core):
     """The core's backward: dq, dk and dv as one (B, N, 3D) buffer."""
-    D = qkv.shape[-1] // 3
-    q, k, v = qkv.split(D, dim=-1)
     if core == "K7":
         return launch_k7b(q, k, v, datt, H)
     if core == "K8":
-        return flash.launch_k8b(q, k, v, att, lse, datt, H, (D // H) ** -0.5)
+        return flash.launch_k8b(q, k, v, att, lse, datt, H, (q.shape[-1] // H) ** -0.5)
     return torch.cat(attention_core_bwd_reference(q, k, v, datt, H), dim=-1)
+
+
+def _products_fwd(args, H: int, core):
+    """The third rung where the half-block GEMMs do not take D: JAX's XLA
+    LN, qkv and projection (:func:`attention_block_reference`, plain torch
+    products) around the core: ``(out, att, lse)``."""
+    held = []
+
+    def attention_fn(q, k, v, H):
+        held[:] = _rung3_core(q, k, v, H, core)
+        return held[0]
+
+    out = attention_block_reference(*args, H, attention_fn=attention_fn)
+    return (out, *held)
 
 
 class _Rung3Block(torch.autograd.Function):
     """The JAX ladder's third rung: the qkv GEMM, the core ``core``, the
-    projection GEMM with the residual, and its backward around the core's."""
+    projection GEMM with the residual, and its backward around the core's.
+    Where the GEMMs do not take D (D % 64 != 0 or past
+    ``gemm.LN_GEMM_MAX_K``) the products around the core are plain torch
+    ones with :func:`rung3_block_reference`'s rounding, forward and
+    backward (:func:`rung3_block_bwd_reference`'s), as JAX runs them in XLA."""
 
     @staticmethod
     def forward(ctx, x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H, core):
@@ -615,9 +632,15 @@ class _Rung3Block(torch.autograd.Function):
         if not uses_kernel(*args):
             ctx.save_for_backward(*args)
             return rung3_block_reference(*args, H, core)
-        _check_rung3(x, H, core)
-        _check(*args, H, kernel="the third rung")
-        out, att, lse = _fwd_chain(*args, lambda qkv: _rung3_core(qkv, H, core))
+        B, N, D = x.shape
+        _refuse_unported_core(core, N, D // H)  # before any launch
+        ctx.chain = _gemm_chain_takes(D)
+        if ctx.chain:
+            _check(*args, H, kernel="the third rung")
+            out, att, lse = _fwd_chain(
+                *args, lambda qkv: _rung3_core(*qkv.split(D, dim=-1), H, core))
+        else:
+            out, att, lse = _products_fwd(args, H, core)
         ctx.save_for_backward(*args, att, lse)  # no recompute of the core, as JAX's VJPs
         return out
 
@@ -625,12 +648,21 @@ class _Rung3Block(torch.autograd.Function):
     def backward(ctx, dout):
         saved = ctx.saved_tensors
         args, H, core = saved[:7], ctx.heads, ctx.core
-        if uses_kernel(*args, dout):
-            att, lse = saved[7:]
-            grads = _bwd_chain(*args, dout, lambda qkv, datt: (
-                att, _rung3_core_bwd(qkv, datt, att, lse, H, core)))
-        else:
+        D = args[0].shape[-1]
+        if not uses_kernel(*args, dout):
             grads = rung3_block_bwd_reference(*args, H, dout, core)
+        else:
+            att, lse = saved[7:]
+
+            def core_bwd(q, k, v, datt):
+                return _rung3_core_bwd(q, k, v, datt, att, lse, H, core)
+
+            if ctx.chain:
+                grads = _bwd_chain(*args, dout, lambda qkv, datt: (
+                    att, core_bwd(*qkv.split(D, dim=-1), datt)))
+            else:
+                grads = _block_bwd_reference(*args, H, dout, lambda q, k, v, datt, H: (
+                    att, *core_bwd(q, k, v, datt).split(D, dim=-1)))
         return tuple(g.to(a.dtype) for g, a in zip(grads, args)) + (None, None)
 
 

@@ -18,11 +18,15 @@ The TPU takes one k tile (bk = N) up to N = 2048, so its rounding of ``p``
 is against the row max, as here; the CUDA kernel walks 64-key tiles and
 rounds against the running max, which moves ``o`` by bf16 noise.
 
-The kernels take Dh = 32, 64 (DiT-S, B and L) and 128, and N a multiple
-of 64. The TPU's head-pair lane packing and phantom-head pad are 128-lane
-devices and are not carried: any H runs as it is. The JAX kernels also take
-Dh = 8, 16 and multiples of 128 above 128; the port raises there
-(ROADMAP.md Queue 2).
+The kernels take every head width the JAX gate admits (its
+``_heads_per_group`` takes 128 % Dh == 0 or Dh % 128 == 0, and its VMEM
+budget no Dh past 896): Dh = 4, 8 and 16 (one instance on 16-column tiles,
+zero-filled past Dh), 32, 64 (DiT-S, B and L) and 128, and 256 to 896 in
+steps of 128 (kernels that walk a head in 128-column chunks with fp32
+accumulators in shared memory); and N a multiple of 64. The TPU's head-pair
+lane packing and phantom-head pad are 128-lane devices and are not carried:
+any H runs as it is. Dh 1 and 2, which the gate's grouping admits and its
+budget never does, raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -49,10 +53,10 @@ __all__ = [
 
 FWD_LAUNCHES = LaunchCounter("K8f")
 BWD_LAUNCHES = LaunchCounter("K8b")
-HEAD_DIMS = (32, 64, 128)  # the head widths csrc/flash.cu is built for
+# the head widths csrc/flash.cu is built for: every one the JAX gate admits
+HEAD_DIMS = (4, 8, 16, 32, 64, 128, 256, 384, 512, 640, 768, 896)
 TILE = 64         # q rows and k rows per tile of the kernels
 MIN_TOKENS = 1024  # the JAX gate's long-sequence tier (ddm_tpu/ops/flash.py:286)
-_NOT_PORTED = "ROADMAP.md Queue 2 (K8 at the head widths and token counts the port lacks)"
 
 
 def flash_supported(N: int, Dh: int) -> bool:
@@ -129,7 +133,7 @@ def _check(q, k, v, H: int) -> None:
         raise ValueError(f"D={D} is not divisible by H={H}")
     if D // H not in HEAD_DIMS:
         raise NotImplementedError(
-            f"K8 is built for head widths {HEAD_DIMS}, got Dh={D // H}: {_NOT_PORTED}")
+            f"K8 is built for the head widths the JAX gate admits, {HEAD_DIMS}; got Dh={D // H}")
     if N % TILE:
         raise ValueError(f"K8 needs N a multiple of {TILE}, got N={N}")
 
@@ -223,5 +227,5 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(q, k, v, H: int, scale=None):
     """Multi-head attention over (B, N, H*Dh) inputs with its backward: CPU
     tensors take the plain versions, CUDA tensors launch K8f/K8b (bf16,
-    Dh 32, 64 or 128, N >= 1024 a multiple of 64) or raise."""
+    Dh in :data:`HEAD_DIMS`, N >= 1024 a multiple of 64) or raise."""
     return _FlashAttention.apply(q, k, v, H, scale)

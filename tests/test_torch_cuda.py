@@ -373,12 +373,13 @@ def test_long_attention_block_matches_plain_on_the_card(cuda_device):
 
 @pytest.mark.cuda
 def test_k8_refuses_what_it_does_not_take(cuda_device):
-    """Head widths JAX's K8 takes and the port's does not raise naming
-    ROADMAP Queue 2; token counts off the 64-row tiles and other types
-    raise."""
-    x = torch.zeros(1, 1024, 96, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        TF.flash_attention(x, x, x, 6)  # Dh = 16
+    """Head widths the JAX gate never admits raise ``NotImplementedError``;
+    token counts off the 64-row tiles and other types raise."""
+    x = torch.zeros(1, 1024, 144, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="head widths the JAX gate admits"):
+        TF.flash_attention(x, x, x, 6)  # Dh = 24
+    with pytest.raises(NotImplementedError, match="head widths the JAX gate admits"):
+        TF.flash_attention(x[..., :2], x[..., :2], x[..., :2], 1)  # Dh = 2
     y = torch.zeros(1, 1000, 128, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="multiple of 64"):
         TF.flash_attention(y, y, y, 2)
@@ -402,6 +403,35 @@ def test_k8_at_head_widths_32_and_128_matches_plain_on_the_card(cuda_device, B, 
     grads = TF.flash_attention_bwd(q, k, v, o, lse, do, H)
     again = TF.flash_attention_bwd(q, k, v, o, lse, do, H)
     torch.cuda.synchronize()
+    want_o, want_lse = TF.flash_attention_reference(q, k, v, H)
+    _assert_bf16_rule(o, want_o)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=0)
+    for g, h, w in zip(grads, again, TF.flash_attention_bwd_reference(q, k, v, o, lse, do, H)):
+        assert torch.equal(g, h)
+        _assert_bf16_rule(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,Dh", [(32, 4), (3, 4), (16, 8), (8, 16), (3, 16), (3, 256), (2, 384),
+                                  (2, 512), (1, 640), (1, 768), (1, 896)])
+def test_k8_at_every_head_width_the_jax_gate_admits(cuda_device, H, Dh):
+    """K8f and K8b at the narrow widths (Dh 4, 8, 16 on 16-column tiles; an
+    odd head count puts a Dh-4 head on an 8-byte boundary) and the wide
+    ones (256-896, walked in 128-column chunks), B 2 and N 1024, q, k, v
+    read in place from a [q | k | v] buffer, against the plain versions;
+    the backward twice, bit-identical."""
+    B, N, D = 2, 1024, H * Dh
+    gen = torch.Generator(device=cuda_device).manual_seed(Dh + H)
+    qkv = torch.randn(B, N, 3 * D, generator=gen, device=cuda_device).to(torch.bfloat16)
+    q, k, v = qkv.split(D, dim=-1)
+    do = torch.randn(B, N, D, generator=gen, device=cuda_device).to(torch.bfloat16)
+    assert TF.flash_supported(N, Dh)
+    before = (TF.FWD_LAUNCHES.count, TF.BWD_LAUNCHES.count)
+    o, lse = TF.flash_attention_fwd(q, k, v, H)
+    grads = TF.flash_attention_bwd(q, k, v, o, lse, do, H)
+    again = TF.flash_attention_bwd(q, k, v, o, lse, do, H)
+    torch.cuda.synchronize()
+    assert (TF.FWD_LAUNCHES.count, TF.BWD_LAUNCHES.count) == (before[0] + 1, before[1] + 2)
     want_o, want_lse = TF.flash_attention_reference(q, k, v, H)
     _assert_bf16_rule(o, want_o)
     torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=0)
@@ -444,11 +474,16 @@ def test_k7_kernels_match_plain_on_the_card(cuda_device, B, N, H, Dh):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,N,D,H,core", [(8, 256, 1024, 16, "K7"), (2, 576, 384, 6, None),
-                                          (2, 1024, 384, 3, "K8"), (8, 256, 1152, 16, "K7")])
+                                          (2, 1024, 384, 3, "K8"), (8, 256, 1152, 16, "K7"),
+                                          (2, 1024, 384, 24, "K8"), (2, 1024, 768, 3, "K8"),
+                                          (8, 64, 1472, 8, None), (8, 64, 480, 6, None),
+                                          (8, 64, 1536, 16, "K7")])
 def test_rung3_half_block_matches_plain_on_the_card(cuda_device, B, N, D, H, core):
     """The JAX ladder's third rung on the card: DiT-L at N = 256 around
-    K7f/K7b, N = 576 around the plain core (JAX runs XLA's attention), and
-    Dh = 128 at N = 1024 around K8; forward by the bf16 rule, all seven
+    K7f/K7b, N = 576 around the plain core (JAX runs XLA's attention),
+    Dh = 128, 16 and 256 at N = 1024 around K8, and at D 1472 and 480 (no
+    GEMM tier: plain products around the plain core, as JAX's XLA) and D
+    1536 (plain products around K7); forward by the bf16 rule, all seven
     gradients through autograd twice (bit-identical) against the plain
     rung-3 backward, within twice bf16's own noise where K8's online
     softmax rounds p against a running max."""
@@ -875,8 +910,10 @@ def test_fused_attention_on_separate_tensors_on_the_card(cuda_device, B, N, D, H
 def test_half_block_widths_past_1024_on_the_card(cuda_device):
     """D up to 1344 (the LN-prologue GEMM's resident panel: 200,704 bytes at
     DiT-XL's 1152) runs: K2f and K4 at D 1280 over 10 heads, K6f at D 1280
-    (F 5120); D 1408 and past raise NotImplementedError naming Queue 2
-    before any launch (the JAX ladder takes D 1536 at N = 64)."""
+    (F 5120). Past it, at D 1536 (N = 64): the attention half-block takes
+    the third rung's plain products around K7 (JAX runs XLA's there), and
+    the MLP half-block, whose F-chunked tier JAX runs as a kernel, raises
+    NotImplementedError naming Queue 2 before any launch."""
     assert TM.gemm.LN_GEMM_MAX_K == 1344 and TM.gemm.ln_gemm_smem(1152) == 200704
     assert TT.mlp_tier(1024, 1280, 5120) == ("fchunked", 2)
     args = _on(cuda_device, _mlp_inputs(1024, 1280, 5120, seed=34))
@@ -894,9 +931,16 @@ def test_half_block_widths_past_1024_on_the_card(cuda_device):
     wide = _on(cuda_device, _attn_inputs(2, 64, 1536, seed=35))
     assert TT.attention_tier(2048, 64, 1536, 16) is None and TT.core_tier(2, 64, 1536, 16) == "K7"
     before = [c.count for c in (TA.LAUNCHES, TA.CORE_LAUNCHES)]
+    with torch.inference_mode():
+        _assert_bf16_rule(TA.fused_attention_block(*wide, 16),
+                          TA.rung3_block_reference(*wide, 16, "K7"))
+    assert [c.count - n for c, n in zip((TA.LAUNCHES, TA.CORE_LAUNCHES), before)] == [0, 1]
+    assert TT.mlp_tier(128, 1536, 6144) == ("fchunked", 4)
+    mlp = _on(cuda_device, _mlp_inputs(128, 1536, 6144, seed=36))
+    before = [c.count for c in (TM.LAUNCHES, TM.PARTIAL_LAUNCHES)]
     with pytest.raises(NotImplementedError, match="D=1536.*Queue 2"):
-        TA.fused_attention_block(*wide, 16)
-    assert [c.count for c in (TA.LAUNCHES, TA.CORE_LAUNCHES)] == before
+        TM.fused_mlp_block(*mlp)
+    assert [c.count for c in (TM.LAUNCHES, TM.PARTIAL_LAUNCHES)] == before
 
 
 def _fast_mlp(cuda_device, T, D, F, seed):

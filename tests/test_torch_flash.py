@@ -3,8 +3,9 @@ long-sequence attention half-block, a DiT at ``image_size = 128``, the
 energy gate) with the JAX package.
 
 The JAX side runs its flash kernels (``ddm_tpu/ops/flash.py``) in Pallas
-interpret mode, as ``tests/test_flash.py`` does: the single-pass tier at
-N = 1024, the K/V-windowed tiers forced at N = 2048, and the phantom-head
+interpret mode, as ``tests/test_flash.py`` does: the N = 1024 tiers at
+every family of head widths (Dh 4, 8 and 16 packed into lanes, 64, 256
+and 384), the K/V-windowed tiers forced at N = 2048, and the phantom-head
 pad at an odd head count. The port runs the same numpy inputs on CPU
 tensors, i.e. its plain versions; the CUDA kernels are held to those on the
 card by ``tests/test_torch_cuda.py``.
@@ -56,20 +57,20 @@ def windowed_tiers(interpret_kernels, monkeypatch):
     monkeypatch.setattr(JF, "_windowed_bwd_tiles", lambda N, Dh: (512, 512, 128, 256))
 
 
-def _inputs(B, N, H, seed, shift=0.0):
+def _inputs(B, N, H, seed, shift=0.0, Dh=DH):
     r = np.random.default_rng(seed)
-    q, k, v, do = (r.standard_normal((B, N, H * DH)).astype(np.float32) for _ in range(4))
+    q, k, v, do = (r.standard_normal((B, N, H * Dh)).astype(np.float32) for _ in range(4))
     return q + shift, k, v, do
 
 
 def _jax_flash(q, k, v, do, H, dtype):
     """JAX's K8 forward and its custom-VJP backward, called as the VJP
     calls them: ``(o, lse as (B, H, N), (dq, dk, dv))`` in fp32 numpy."""
-    B, N, _ = q.shape
-    scale = DH ** -0.5
+    B, N, D = q.shape
+    scale = (D // H) ** -0.5
     o, res = JF._flash_fwd(*(jnp.asarray(a, dtype) for a in (q, k, v)), H, scale)
     grads = JF._flash_bwd(H, scale, res, jnp.asarray(do, dtype))
-    hp = JF._heads_per_group(DH)  # lse is (B * H / hp, N, hp)
+    hp = JF._heads_per_group(D // H)  # lse is (B * H / hp, N, hp)
     lse = np.asarray(res[4]).reshape(B, H // hp, N, hp).transpose(0, 1, 3, 2).reshape(B, H, N)
     return np.asarray(o, np.float32), lse, [np.asarray(g, np.float32) for g in grads]
 
@@ -110,29 +111,37 @@ def _compare_flash(got, want, dtype):
             _bf16_rule(g, w, name)
 
 
+@pytest.mark.parametrize("Dh,H", [(DH, 2), (4, 32), (8, 16), (16, 8), (256, 1), (384, 1)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_plain_flash_matches_jax_single_pass(interpret_kernels, dtype):
-    """N = 1024: the TPU's single-pass forward (one k tile, bk = N) and
-    single-kernel backward (cq = N)."""
-    assert JF._tile_sizes(1024, DH)[0][2] == 1024 and JF._tile_sizes(1024, DH)[1][0] == 1024
-    arrays = _inputs(1, 1024, 2, seed=0)
-    want = _jax_flash(*arrays, 2, getattr(jnp, dtype))
+def test_plain_flash_matches_jax_single_pass(interpret_kernels, dtype, Dh, H):
+    """N = 1024 at every family of head widths JAX's K8 takes: at Dh 64 its
+    single-pass forward (one k tile, bk = N) and single-kernel backward (cq
+    = N); at Dh 4, 8 and 16 heads packed 32, 16 and 8 to a 128-lane group
+    (Dh 4's backward through the windowed kernels); at Dh 256 and 384 one
+    head a group, its backward in q chunks below N at Dh 384."""
+    assert JF.flash_supported(1, 1024, H * Dh, H) and TF.flash_supported(1024, Dh)
+    if Dh == DH:
+        assert JF._tile_sizes(1024, DH)[0][2] == 1024 and JF._tile_sizes(1024, DH)[1][0] == 1024
+    arrays = _inputs(1, 1024, H, seed=0, Dh=Dh)
+    want = _jax_flash(*arrays, H, getattr(jnp, dtype))
     TF.FWD_LAUNCHES.reset()
     TF.BWD_LAUNCHES.reset()
-    got = _port_flash(*arrays, 2, getattr(torch, dtype))
+    got = _port_flash(*arrays, H, getattr(torch, dtype))
     assert (TF.FWD_LAUNCHES.count, TF.BWD_LAUNCHES.count) == (0, 0)  # CPU: plain versions
     _compare_flash(got, want, dtype)
 
 
+@pytest.mark.parametrize("Dh,H", [(DH, 2), (16, 8)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_plain_flash_matches_jax_windowed_tiers(windowed_tiers, dtype):
+def test_plain_flash_matches_jax_windowed_tiers(windowed_tiers, dtype, Dh, H):
     """N = 2048 through ``_fwd_win_kernel``, ``_bwd_dq_kernel`` and
     ``_bwd_dkv_kernel``: online-softmax state carried across K/V windows,
-    dq and dk/dv summed across windows and q chunks. q is shifted so the
-    windows' maxima differ."""
-    arrays = _inputs(1, 2048, 2, seed=1, shift=2.0)
-    want = _jax_flash(*arrays, 2, getattr(jnp, dtype))
-    _compare_flash(_port_flash(*arrays, 2, getattr(torch, dtype)), want, dtype)
+    dq and dk/dv summed across windows and q chunks; at Dh 64 and at Dh 16
+    (8 heads packed into the lanes). q is shifted so the windows' maxima
+    differ."""
+    arrays = _inputs(1, 2048, H, seed=1, shift=2.0, Dh=Dh)
+    want = _jax_flash(*arrays, H, getattr(jnp, dtype))
+    _compare_flash(_port_flash(*arrays, H, getattr(torch, dtype)), want, dtype)
 
 
 def test_plain_flash_odd_head_count_matches_jax_phantom_pad(interpret_kernels):
@@ -209,12 +218,16 @@ def test_long_attention_half_block_matches_jax(interpret_kernels, monkeypatch):
 
 
 CFG = dict(img=128, patch=4, dim=128, depth=2, heads=2, tdim=32)
+# the 128-px DiTs held to JAX in fp32: CFG (Dh 64), and depth 1 at Dh 16 (D
+# 128 over 8 heads, packed 8 to a lane group in JAX) and Dh 256 (D 256, one head)
+DITS_128 = {"dh64": CFG, "dh16": dict(CFG, depth=1, heads=8),
+            "dh256": dict(CFG, dim=256, depth=1, heads=1)}
 B, M, BETA, LAM = 1, 2, 0.1, 1.0
 
 
-def _jax_model(dtype):
-    return JaxDiT(img_size=CFG["img"], patch_size=CFG["patch"], embed_dim=CFG["dim"],
-                  depth=CFG["depth"], num_heads=CFG["heads"], time_embed_dim=CFG["tdim"],
+def _jax_model(dtype, cfg=CFG):
+    return JaxDiT(img_size=cfg["img"], patch_size=cfg["patch"], embed_dim=cfg["dim"],
+                  depth=cfg["depth"], num_heads=cfg["heads"], time_embed_dim=cfg["tdim"],
                   dtype=dtype, data_format="NHWC")
 
 
@@ -226,10 +239,10 @@ def _dit_inputs():
             r.standard_normal((B, M) + shape[1:]).astype(np.float32))
 
 
-def _jax_step(variables, inputs, dtype):
+def _jax_step(variables, inputs, dtype, cfg=CFG):
     """JAX's loss and gradients of one step, with its flash tier and K3 in
     interpret mode, on injected t, eps and xi."""
-    model = _jax_model(dtype)
+    model = _jax_model(dtype, cfg)
     x0, t, eps, xi = inputs
 
     def loss_fn(params):
@@ -247,9 +260,9 @@ def _jax_step(variables, inputs, dtype):
         for p, g in jax.tree_util.tree_leaves_with_path(grads)}
 
 
-def _port_step(variables, inputs, dtype):
-    model = DDDMDiT(img_size=CFG["img"], patch_size=CFG["patch"], embed_dim=CFG["dim"],
-                    depth=CFG["depth"], num_heads=CFG["heads"], time_embed_dim=CFG["tdim"],
+def _port_step(variables, inputs, dtype, cfg=CFG):
+    model = DDDMDiT(img_size=cfg["img"], patch_size=cfg["patch"], embed_dim=cfg["dim"],
+                    depth=cfg["depth"], num_heads=cfg["heads"], time_embed_dim=cfg["tdim"],
                     dtype=dtype)
     model.load_state_dict(state_dict_from_jax(variables, patch_size=CFG["patch"]))
     outputs = []
@@ -270,19 +283,25 @@ def _port_step(variables, inputs, dtype):
         jax.tree_util.keystr(p): g for p, g in jax.tree_util.tree_leaves_with_path(tree)}
 
 
-@pytest.fixture(scope="module")
-def dit_128_setup():
-    """A depth-2, D = 128 DiT at image_size 128 (N = 1024) with non-trivial
-    LN params and biases, and one step's injected t, eps and xi."""
-    x0 = jnp.zeros((1, CFG["img"], CFG["img"], 3))
-    variables = _jax_model(jnp.float32).init(jax.random.PRNGKey(0), x0, jnp.zeros((1,)), x0)
+def _dit_128_setup(cfg):
+    """A DiT of ``cfg`` at image_size 128 (N = 1024) with non-trivial LN
+    params and biases, and one step's injected t, eps and xi."""
+    x0 = jnp.zeros((1, cfg["img"], cfg["img"], 3))
+    variables = _jax_model(jnp.float32, cfg).init(jax.random.PRNGKey(0), x0, jnp.zeros((1,)),
+                                                  x0)
     r = np.random.default_rng(5)
     variables = jax.tree.map(
         lambda a: np.asarray(a) + 0.1 * r.standard_normal(a.shape).astype(np.float32), variables)
     return variables, _dit_inputs()
 
 
-def _jax_step_through_flash(setup, dtype):
+@pytest.fixture(scope="module")
+def dit_128_setup():
+    """The depth-2, D = 128 DiT (Dh 64)."""
+    return _dit_128_setup(CFG)
+
+
+def _jax_step_through_flash(setup, dtype, cfg=CFG):
     """JAX's loss, token outputs and gradients through its flash tier (its
     XLA attention core raises if reached) and K3, in interpret mode."""
     def boom(*a, **k):
@@ -291,8 +310,8 @@ def _jax_step_through_flash(setup, dtype):
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("DDM_TPU_PALLAS_INTERPRET", "1")
         mp.setattr(JA, "attention_reference", boom)
-        assert JF.flash_supported(B * M, 1024, CFG["dim"], CFG["heads"])
-        return _jax_step(*setup, dtype)
+        assert JF.flash_supported(B * M, 1024, cfg["dim"], cfg["heads"])
+        return _jax_step(*setup, dtype, cfg)
 
 
 @pytest.fixture(scope="module")
@@ -305,9 +324,20 @@ def jax_dit_128_bf16(dit_128_setup):
     return _jax_step_through_flash(dit_128_setup, jnp.bfloat16)
 
 
-def test_dit_128_forward_loss_and_gradients_match_jax_fp32(dit_128_setup, jax_dit_128_fp32):
-    want_loss, want_out, want = jax_dit_128_fp32
-    loss, out, got = _port_step(*dit_128_setup, torch.float32)
+@pytest.mark.parametrize("name", list(DITS_128))
+def test_dit_128_forward_loss_and_gradients_match_jax_fp32(request, name):
+    """The port's step against JAX's through its flash tier, in fp32: the
+    Dh-64 DiT, and depth-1 DiTs at Dh 16 and Dh 256, where the port's
+    ladder also takes K8 (its plain versions here)."""
+    cfg = DITS_128[name]
+    assert tiers.core_tier(B * M, 1024, cfg["dim"], cfg["heads"]) == "K8"
+    if name == "dh64":
+        setup, (want_loss, want_out, want) = (request.getfixturevalue("dit_128_setup"),
+                                              request.getfixturevalue("jax_dit_128_fp32"))
+    else:
+        setup = _dit_128_setup(cfg)
+        want_loss, want_out, want = _jax_step_through_flash(setup, jnp.float32, cfg)
+    loss, out, got = _port_step(*setup, torch.float32, cfg)
     assert out.shape == (B * M, 1024, 16 * 3)
     np.testing.assert_allclose(out, want_out, rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(loss, want_loss, rtol=1e-5)
@@ -332,6 +362,37 @@ def test_dit_128_bf16_lies_within_bf16_noise_of_jax(dit_128_setup, jax_dit_128_f
         assert _rel_frob(got[path], w) <= 2 * noise, path
 
 
+GATE_TOKENS = (1024, 1600, 2304, 4096, 9216, 16384)  # 128, 160, 192, 256, 384, 512 px
+GATE_HEADS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 96)
+
+
+@pytest.mark.parametrize("N", GATE_TOKENS)
+def test_port_k8_takes_every_shape_the_jax_gate_sends_it(interpret_kernels, N):
+    """Over every head width Dh = D / H up to 1152 and head counts from 1 to
+    96 (whole 128-lane groups and JAX's phantom-head pad): the port's ladder
+    picks K8 exactly where JAX's ``flash_supported`` does, and wherever it
+    does, the port's K8 takes the shape, so ``_refuse_unported_core`` never
+    raises for K8."""
+    for Dh in range(1, 1153):
+        for H in GATE_HEADS:
+            jax_k8 = JF.flash_supported(2, N, H * Dh, H)
+            assert (tiers.core_tier(2, N, H * Dh, H) == "K8") == jax_k8, (N, Dh, H)
+            if jax_k8:
+                assert TF.flash_supported(N, Dh), (N, Dh, H)
+                TA._refuse_unported_core("K8", N, Dh)
+
+
+def test_port_k8_admits_no_head_width_the_jax_gate_refuses(interpret_kernels):
+    """The port's K8 takes exactly the head widths the JAX gate admits at
+    some image size: Dh 4, 8, 16, 32, 64, 128 and 256-896 by 128; never 1,
+    2, 1024 or 1152, nor a width off those families."""
+    admitted = {Dh for N in GATE_TOKENS for Dh in range(1, 1153) for H in GATE_HEADS
+                if JF.flash_supported(2, N, H * Dh, H)}
+    assert admitted == set(TF.HEAD_DIMS)
+    assert {Dh for Dh in range(1, 1153) if any(TF.flash_supported(N, Dh)
+                                               for N in GATE_TOKENS)} == admitted
+
+
 @pytest.mark.parametrize("B_,m,D", [
     (16, 8, 49152),   # --image-size 128, batch 16 x m 8: both take the plain path
     (256, 8, 3072),   # the 32-px recipe: K3
@@ -347,11 +408,13 @@ def test_dispatch_by_token_count():
     """Where the JAX ladder has a half-block tier (N <= 512 at these widths)
     the port takes K2's path; elsewhere the third rung around the core that
     JAX's ``fused_attention`` picks: K8 from N = 1024 (the port's K8 at
-    head widths 32, 64 and 128), the plain core between (N = 576, 768),
-    where JAX runs XLA's attention. The factory builds every size."""
+    every head width the JAX gate admits), the plain core between (N = 576,
+    768), where JAX runs XLA's attention. The factory builds every size."""
     assert TF.flash_supported(1024, 64) and TF.flash_supported(16384, 64)
     assert TF.flash_supported(1024, 32) and TF.flash_supported(1024, 128)
-    assert not TF.flash_supported(512, 64) and not TF.flash_supported(1024, 16)
+    assert TF.flash_supported(1024, 16) and TF.flash_supported(1024, 896)
+    assert not TF.flash_supported(512, 64) and not TF.flash_supported(1024, 24)
+    assert not TF.flash_supported(1024, 2) and not TF.flash_supported(1024, 1024)
     assert not TF.flash_supported(1088 + 8, 64)
     r = np.random.default_rng(6)
     w = [torch.from_numpy(a.astype(np.float32)) for a in _attn_inputs(1, 256, 128, 6)[1:7]]

@@ -30,10 +30,13 @@ of K2b, the MLP forward as K1f (DiT-B) or as k F-chunked partials K6f
 ladder has no half-block tier it runs its third rung, the XLA half-block
 around the standalone core, and so does the port: DiT-L at ``--image-size
 64`` (N = 256) through K7f/K7b, ``--image-size 96`` (N = 576) through the
-plain core (JAX runs XLA's there), and K8 at head widths 32, 64 and 128
-from 128 px. DiT-XL/4 (``--embed-dim 1152 --depth 28 --heads 16``: 16 heads
-of Dh 72) runs K2f and K4 at 32 px and K7f/K7b at 64 px, their cores on
-head tiles padded to 80 columns, and the F-chunked MLP (two K6f, K1b) at
+plain core (JAX runs XLA's there), and K8 at every head width the JAX
+gate admits (4, 8, 16, 32, 64, 128 and 256-896) from 128 px; where the
+half-block GEMMs do not take D (D % 64 != 0 or past 1344) the third rung's
+LN, qkv and projection are plain torch products around its core.
+DiT-XL/4 (``--embed-dim 1152 --depth 28 --heads 16``: 16 heads of Dh 72)
+runs K2f and K4 at 32 px and K7f/K7b at 64 px, their cores on head tiles
+padded to 80 columns, and the F-chunked MLP (two K6f, K1b) at
 D 1152; with ``--moe-experts 8`` (top-1 or top-2) its dispatch and combine
 run K11 and K12 at D 1152 (any D % 128 == 0 up to 4096, 2 to 64 experts)
 and its experts' FFN four K10p partials and K10b. ``--fast-gelu`` takes x sigmoid(1.702 x) in place of the exact-erf
