@@ -24,7 +24,9 @@ fast GELU (``--fast-gelu``) in K1, K6 and K10, and the MoE at DiT-XL/4 width
 K10p and K10b); then K8 at every other head width the JAX gate admits (Dh
 4, 8, 16 and 256-896), DiT-B/4 at ``--heads 3`` (Dh 256) and DiT-S/4 at
 ``--heads 24`` (Dh 16) training and sampling at 128 px, and the third
-rung's plain products at D 1472.
+rung's plain products at D 1472; then the MLP half-block past D 1344 (the
+streamed LN-prologue GEMM) and a DiT at SD3-Medium's width (D 1536, depth
+24, 24 heads) training and sampling.
 
 Run from the repository root with no arguments:
 
@@ -283,6 +285,27 @@ K8 at every head width the JAX gate admits, after those:
     per step 12 (8) each of K8f, K8b, K1f, K1b, per sampler call 240 (160)
     each of K8f and K1f.
 
+The MLP half-block past D 1344 and a DiT at Stable Diffusion 3 Medium's
+transformer widths (D 1536, depth 24, 24 heads of 64, F 6144: 683.04M
+parameters), after those:
+
+3p. (wide-mlp-kernels) at the D 1536 training shape (131,072 x 1536, F
+    6144): one K6f on the second 768-column chunk, read in place (fp32
+    partial rule), the k = 8 half-block (bf16 rule, beside K1f unchunked),
+    K1b's chain (gradient rule, second call bit-identical); K1f at (16,384 x
+    1792, F 1792), the fwdonly tier; the streamed LN-prologue GEMM against
+    the resident-panel kernel at D 1152 (K1b's recompute at DiT-XL, F 4608),
+    bit for bit; the 4-warp LayerNorm backward at (32,768, 4096); each timed
+    beside its plain version, with its bound;
+6p. (train-step-1536) one step of that DiT at full depth 24, batch 16 x m 8,
+    through the kernels twice (bit-identical) against the plain step within
+    twice bf16's own noise; launches 192 of K6f, 24 each of K1b, K7f, K7b, 1
+    each of K3f, K3b;
+7o. (train-1536) the trainer with --embed-dim 1536 --depth 24 --heads 24 for
+    3 steps of 256 x m 8, finite losses, peak memory and img/s, then 64
+    samples from its checkpoint; launches per step as 6p, none of K1f, K2f,
+    K2b or K4; per sampler call 3,840 of K6f and 480 of K7f.
+
 The DiT-S phases run at full width and depth 8. PERF.md gives the whole
 run's measured time on the card, the kernels' build included, against the
 20 minutes allowed.
@@ -371,6 +394,16 @@ DIT_XL = {"embed_dim": 1152, "depth": 28, "heads": 16}
 XL_STEP_BATCH, DH24_HEADS = 16, 16
 # tensor parallelism: the two-rank step's batch (7j a) and the trainer's m (7j b)
 TP, TP_STEP_BATCH, TP_TRAIN_M = 2, 32, 2
+# Stable Diffusion 3 Medium's transformer widths (Esser et al. 2024: depth d
+# = 24, hidden 64 d, d heads; its config's num_layers 24, num_attention_heads
+# 24, attention_head_dim 64) at patch 4 and MLP ratio 4 (F 6144), 683.04M
+# parameters: 6p's step at batch 16 x m 8, 7o's trainer for SD3_STEPS steps
+# of 256 x m 8; the F-chunked MLP tier's k at every T they give it. 3p: K1f
+# in the fwdonly tier past D 1344 (T, D, F) and the 4-warp LayerNorm
+# backward (T, D)
+SD3_M = {"embed_dim": 1536, "depth": 24, "heads": 24}
+SD3_STEP_BATCH, SD3_STEPS, SD3_K = 16, 3, 8
+FWDONLY_WIDE, LN_BWD_WIDE = (16384, 1792, 1792), (32768, 4096)
 # roofline: the published H100 SXM peaks (bf16 tensor cores, fp32 outside
 # them) and the HBM rate; a bound is the larger of bytes / HBM and ops / peak
 PEAK = {"bf16": 989e12, "fp32": 67e12}
@@ -1548,14 +1581,16 @@ def _partial_check(name, shape, got, want, reordered, ms, plain_ms, smi):
     return err
 
 
-def _k6f_partial(M, smi, gen, T, D, F, fast=False):
-    """One K6f on the second hidden chunk of F, read in place from the bf16
-    weights, by the fp32 partial rule: ``(max_abs_err, ms, plain_ms, bound)``."""
+def _k6f_partial(M, smi, gen, T, D, F, fast=False, k=2):
+    """One K6f on the second of k hidden chunks of F, read in place from the
+    bf16 weights, by the fp32 partial rule: ``(max_abs_err, ms, plain_ms,
+    bound)``."""
     from ddm_tpu_torch.ops import gemm
 
     x, sc, bi, w1, b1, w2, _ = _mlp_args(gen, T, D, F)
-    fc = F // 2
-    part = (x, sc, bi, w1.to(torch.bfloat16)[fc:], b1[fc:], w2.to(torch.bfloat16)[:, fc:])
+    fc = F // k
+    hid = slice(fc, 2 * fc)
+    part = (x, sc, bi, w1.to(torch.bfloat16)[hid], b1[hid], w2.to(torch.bfloat16)[:, hid])
     plain = lambda *a: M.mlp_partial_reference(*a, fast_gelu=fast)  # noqa: E731
     shape = f"(T={T}, D={D}, chunk {fc} of F={F}){_fast(fast)}"
     got = torch.empty(T, D, device="cuda")
@@ -1578,27 +1613,27 @@ def _k6f_partial(M, smi, gen, T, D, F, fast=False):
     return err, ms, plain_ms, bound
 
 
-def _fchunked_half_block(M, smi, gen, T, D, F):
-    """The F-chunked MLP half-block (two K6f) by the bf16 rule, beside K1f
+def _fchunked_half_block(M, smi, gen, T, D, F, k=2):
+    """The F-chunked MLP half-block (k K6f) by the bf16 rule, beside K1f
     unchunked on the same inputs."""
     mlp = _mlp_args(gen, T, D, F)
     with torch.inference_mode():
         before = (M.PARTIAL_LAUNCHES.count, M.LAUNCHES.count)
         got = M.fused_mlp_block(*mlp)
         torch.cuda.synchronize()
-        if (M.PARTIAL_LAUNCHES.count - before[0], M.LAUNCHES.count - before[1]) != (2, 0):
-            raise AssertionError(f"the MLP half-block at D={D} did not take two K6f")
-        herr, hmean, htol, ok = _bf16_errors(got, M.mlp_block_fchunked_reference(*mlp, 2))
+        if (M.PARTIAL_LAUNCHES.count - before[0], M.LAUNCHES.count - before[1]) != (k, 0):
+            raise AssertionError(f"the MLP half-block at D={D} did not take {k} K6f")
+        herr, hmean, htol, ok = _bf16_errors(got, M.mlp_block_fchunked_reference(*mlp, k))
         hms = _median_ms(lambda: M.fused_mlp_block(*mlp))
-        hplain = _median_ms(lambda: M.mlp_block_fchunked_reference(*mlp, 2))
+        hplain = _median_ms(lambda: M.mlp_block_fchunked_reference(*mlp, k))
         k1f_ms = _median_ms(lambda: M._k1f(*mlp))  # unchunked, on the same inputs
-    print(f"[kernel] K6f x 2, the F-chunked half-block (T={T}, D={D}, F={F}, k=2) bf16: "
+    print(f"[kernel] K6f x {k}, the F-chunked half-block (T={T}, D={D}, F={F}, k={k}) bf16: "
           f"max_abs_err={herr:.6g} (tol {htol:.6g}), mean_abs_err={hmean:.6g}; kernels "
           f"{hms:.4f} ms, plain {hplain:.4f} ms, K1f unchunked on the same inputs {k1f_ms:.4f} ms "
           f"(median of 20) on {smi}")
     if not ok:
         raise AssertionError("the F-chunked half-block disagrees with its plain version")
-    out = {"k": 2, "max_abs_err": herr, "ms": hms, "plain_ms": hplain,
+    out = {"k": k, "max_abs_err": herr, "ms": hms, "plain_ms": hplain,
            "k1f_unchunked_ms": k1f_ms, **_bound(_nbytes(*mlp, got), 4 * T * D * F)}
     del mlp, got
     torch.cuda.empty_cache()
@@ -2473,6 +2508,104 @@ def phase_train_moe_xl(kc, name, smi):
     return out
 
 
+def _streamed_vs_panel(M, smi, gen, T, D, Nout):
+    """The streamed LN-prologue GEMM against the resident-panel kernel at a
+    depth both take (K1b's recompute: GELU, its fp32 derivative and y =
+    bf16(LN(x))), bit for bit, both timed beside the plain version."""
+    from ddm_tpu_torch.ops import gemm
+
+    bf = torch.bfloat16
+    x, sc, bi, w, b = _kernel_args(gen, (T, D), [((D,), 0.1, 1.0), ((D,), 0.1, 0.0),
+                                                ((Nout, D), D ** -0.5, 0.0), ((Nout,), 0.1, 0.0)])
+    w = w.to(bf)
+
+    def run(streamed):
+        return gemm.ln_gemm(x, sc, bi, w, b, gemm.EPI_GELU_GRAD, with_y=True, streamed=streamed)
+
+    def plain():
+        y = M.layer_norm(x.float(), sc, bi).to(bf)
+        return M._gelu_and_grad(M.matmul_f32(y, w, bf) + b)
+
+    with torch.inference_mode():
+        panel, streamed = run(False), run(True)
+        torch.cuda.synchronize()
+        same = all(torch.equal(p, q) for p, q in zip(panel, streamed))
+        nbytes = _nbytes(x, sc, bi, w, b, *streamed)
+        del panel, streamed
+        ms, panel_ms = _median_ms(lambda: run(True)), _median_ms(lambda: run(False))
+        plain_ms = _median_ms(plain)
+    shape = f"(T={T}, K={D}, Nout={Nout}) GELU + gelu' + y"
+    print(f"[kernel] the streamed LN-prologue GEMM {shape} against the resident-panel kernel: "
+          f"out, gelu' and y {'bit-identical' if same else 'DIFFER'}; streamed {ms:.4f} ms, panel "
+          f"{panel_ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20) on {smi}")
+    if not same:
+        raise AssertionError("the streamed LN-prologue GEMM does not give the panel kernel's bits")
+    torch.cuda.empty_cache()
+    return {"path": "streamed-vs-panel", "shape": shape, "max_abs_err": 0.0, "ms": ms,
+            "panel_ms": panel_ms, "plain_ms": plain_ms, **_bound(nbytes, 2 * T * D * Nout)}
+
+
+def phase_wide_mlp_kernels(M, smi):
+    """3p: the MLP half-block past D 1344. At the D 1536 training shape
+    (131,072 x 1536, F 6144): one K6f on the second 768-column chunk (fp32
+    partial rule), the k = 8 half-block (bf16 rule), K1b's chain (gradient
+    rule, second call bit-identical); K1f at (16,384 x 1792, F 1792), the
+    ``fwdonly`` tier; the streamed LN-prologue GEMM against the panel kernel
+    at D 1152, bit for bit; the 4-warp LayerNorm backward at D 4096.
+    ``{name: [{"path", "shape", ...}]}`` for the kernels line."""
+    from ddm_tpu_torch.ops import gemm, tiers
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    D, F = SD3_M["embed_dim"], 4 * SD3_M["embed_dim"]
+    T = TRAIN_BATCH * TRAIN_M * 64
+    if tiers.mlp_tier(T, D, F) != ("fchunked", SD3_K):
+        raise AssertionError(f"the MLP tier at (T={T}, D={D}, F={F}) is not k = {SD3_K}")
+    err, ms, plain_ms, bound = _k6f_partial(M, smi, gen, T, D, F, k=SD3_K)
+    shapes = {"K6f": [{"path": "sd3-m", "shape": f"(T={T}, D={D}, chunk {F // SD3_K} of F={F})",
+                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound,
+                       "half_block": _fchunked_half_block(M, smi, gen, T, D, F, k=SD3_K)}]}
+    torch.cuda.empty_cache()
+    case = _k1b_case(M, gen, T, D, F)
+    shapes["K1b"] = [_shape_entry("sd3-m", case, _time_backward(case, smi, {M.BWD_LAUNCHES: 2}))]
+    del case
+    torch.cuda.empty_cache()
+    T1, D1, F1 = FWDONLY_WIDE
+    if tiers.mlp_tier(T1, D1, F1) != ("fwdonly", 1):
+        raise AssertionError(f"the MLP tier at {FWDONLY_WIDE} is not fwdonly")
+    case = _k1f_case(M, gen, T1, D1, F1)
+    before = (M.LAUNCHES.count, M.PARTIAL_LAUNCHES.count)
+    times = _time_forward(case, smi)
+    if M.LAUNCHES.count == before[0] or M.PARTIAL_LAUNCHES.count != before[1]:
+        raise AssertionError(f"the MLP half-block at {FWDONLY_WIDE} did not take K1f")
+    shapes["K1f"] = [_shape_entry("fwdonly-d1792", case, times)]
+    del case
+    torch.cuda.empty_cache()
+    shapes["K6f"].append(_streamed_vs_panel(M, smi, gen, T, DIT_XL["embed_dim"],
+                                            4 * DIT_XL["embed_dim"]))
+    Tl, Dl = LN_BWD_WIDE
+    x = torch.randn(Tl, Dl, generator=gen, device="cuda").to(torch.bfloat16)
+    dy = torch.randn(Tl, Dl, generator=gen, device="cuda")
+    dres = torch.randn(Tl, Dl, generator=gen, device="cuda").to(torch.bfloat16)
+    sc = 1.0 + 0.1 * torch.randn(Dl, generator=gen, device="cuda")
+    def plain_ln_bwd():  # dx rounded to bf16 as the kernel stores it
+        dx, dscale, dbias = M.layer_norm_bwd(dy, *M.ln_stats(x.float()), sc, dres.float())
+        return dx.to(torch.bfloat16), dscale, dbias
+
+    case = ("K1b", f"(T={Tl}, D={Dl}) LayerNorm backward + residual, 4 warps a block",
+            lambda: gemm.ln_bwd(x, dy, dres, sc), plain_ln_bwd, (x, dy, dres, sc), 12 * Tl * Dl)
+    shapes["K1b"].append(_shape_entry("ln-bwd-d4096", case, _time_backward(
+        case, smi, labels=("dx", "dscale", "dbias"))))
+    return shapes
+
+
+def phase_train_step_1536(cfg, smi):
+    """6p: one step of the DiT at SD3-Medium's width (D 1536, depth 24, 24
+    heads) at batch 16 x m 8 through the kernels (K7f/K7b around plain
+    products, 8 K6f and K1b a block), twice, against the plain step."""
+    phase_train_step({**cfg, **SD3_M}, smi, SD3_STEP_BATCH, TRAIN_M, "train-step-1536",
+                     "DiT at SD3-Medium's width (D 1536, 24 heads)", SD3_STEP)
+
+
 PHASES = ("kernels", "backward", "energy", "flash", "moe-kernels", "slice", "train-step",
           "train-step-128", "train-step-moe", "train", "train-128", "train-moe", "wide-kernels",
           "wide-shapes", "train-step-l", "train-step-moe-b", "train-l", "train-moe-b",
@@ -2480,7 +2613,8 @@ PHASES = ("kernels", "backward", "energy", "flash", "moe-kernels", "slice", "tra
           "train-64", "train-m32", "train-b", "attention-core", "train-step-l64", "train-l64",
           "tp-kernels", "train-step-tp", "train-tp", "xl-kernels", "fast-gelu-kernels",
           "train-step-xl", "train-step-fast-gelu", "train-xl", "train-xl64", "moe-xl-kernels",
-          "train-step-moe-xl", "train-moe-xl", "flash-widths", "train-step-heads", "train-heads")
+          "train-step-moe-xl", "train-moe-xl", "flash-widths", "train-step-heads", "train-heads",
+          "wide-mlp-kernels", "train-step-1536", "train-1536")
 # launches per training step and per 20-step sampler call on the wide paths;
 # the DiT-L trainer (7d) runs depth 12 since PR 9 (7k runs its kernels at
 # DiT-XL's full depth 28)
@@ -2534,6 +2668,11 @@ SHORT_IMAGES = 512
 # 3n's further K11/K12 shapes at T 32,768: (E, D, top-k)
 MOE_WIDE_T = 32768
 MOE_WIDE_SHAPES = ((16, 1152, (2,)), (8, 2048, (1, 2)), (8, 4096, (1, 2)), (64, 384, (1, 2)))
+# ... and the DiT at SD3-Medium's width (3p, 6p, 7o): the F-chunked MLP at k
+# = 8 (K6f, then K1b's chain) and the third rung around K7 a block
+SD3_STEP = {"K7f": SD3_M["depth"], "K7b": SD3_M["depth"], "K1b": SD3_M["depth"],
+            "K6f": SD3_K * SD3_M["depth"], "K3f": 1, "K3b": 1}
+SD3_SAMPLE = {"K7f": SD3_M["depth"] * STEPS, "K6f": SD3_K * SD3_M["depth"] * STEPS}
 
 
 def main(argv=None) -> None:
@@ -2636,6 +2775,11 @@ def main(argv=None) -> None:
                              *_k8_launches(widths["depth"]), LONG_BATCH, LONG_M, LONG_SIZE,
                              images=LONG_BATCH * HEADS_STEPS)
             for label, widths in (("train-b-h3", B_H3), ("train-s-h24", S_H24)))),
+        ("wide-mlp-kernels", lambda: phase_wide_mlp_kernels(M, smi)),
+        ("train-step-1536", lambda: phase_train_step_1536(cfg, smi)),
+        ("train-1536", lambda: phase_train_wide(kc, name, smi, "train-1536", _wide_flags(SD3_M),
+                                                SD3_STEP, SD3_SAMPLE,
+                                                images=SD3_STEPS * TRAIN_BATCH)),
     ]
     out = {}
     t_run = time.perf_counter()
@@ -2670,7 +2814,8 @@ def main(argv=None) -> None:
              "moe-xl-top1": ([], *out["train-moe-xl"][0]),
              "moe-xl-top2": ([], *out["train-moe-xl"][1]),
              "128px-b-h3": ([], *out["train-heads"][0]),
-             "128px-s-h24": ([], *out["train-heads"][1])}
+             "128px-s-h24": ([], *out["train-heads"][1]),
+             "sd3-m": ([], *out["train-1536"])}
     kernels = []
     for entries, trained, sampled in paths.values():
         for k in entries:
@@ -2684,7 +2829,7 @@ def main(argv=None) -> None:
         for shapes in (out["wide-shapes"], out["attention-256"], out["dit-b-kernels"],
                        out["m32-kernels"], out["attention-core"][1], out["tp-kernels"][1],
                        out["xl-kernels"], out["fast-gelu-kernels"], out["moe-xl-kernels"],
-                       out["flash-widths"]):
+                       out["flash-widths"], out["wide-mlp-kernels"]):
             k.setdefault("shapes", []).extend(shapes.get(k["name"], []))
     k8 = sorted({s["Dh"] for k in kernels if k["name"] == "K8f" for s in k["shapes"]})
     print(f"[k8-widths] K8f and K8b held against their plain versions on the card at Dh {k8}; "

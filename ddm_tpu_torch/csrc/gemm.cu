@@ -18,7 +18,10 @@
 // shared memory per block, so that design does not transfer. Here:
 //   * the LayerNorm is a prologue: a block loads its 64-row panel once,
 //     normalises it in fp32 and keeps it in shared memory as bf16 while it
-//     streams weight column tiles past it;
+//     streams weight column tiles past it. Past D 1344 that panel no longer
+//     fits 227 KB; there ln_gemm_stream_kernel keeps only each row's mean
+//     and rstd and normalises 64-column chunks of x as they stream in
+//     beside the weight tiles (the same rounding, so the same bits);
 //   * bias, exact-erf GELU (or, with the launch parameter `fast`, the
 //     sigmoid GELU of --fast-gelu) and the residual are epilogues on the fp32
 //     accumulators, so no fp32 intermediate reaches device memory;
@@ -156,8 +159,48 @@ __device__ __forceinline__ void gemm_tile(float* Cs, bf16* As, bf16* Bs,
   __syncthreads();
 }
 
+// The LN-prologue GEMMs' epilogue on one finished C tile (Cs, BM x BN
+// fp32, output columns n0 .. n0 + BN): out = epi(Cs + bias) (see LnGemmEpi).
+__device__ __forceinline__ void ln_gemm_epilogue(const float* Cs, const float* __restrict__ bias,
+                                                 bf16* __restrict__ out, float* __restrict__ out2,
+                                                 int row0, int n0, int T, int Nout, int epi,
+                                                 int fast) {
+  for (int i = threadIdx.x; i < BM * BN / 2; i += kThreads) {
+    const int r = i / (BN / 2), c = 2 * (i % (BN / 2));
+    const int row = row0 + r, col = n0 + c;
+    if (row >= T || col >= Nout) continue;
+    const size_t o = (size_t)row * Nout + col;
+    float v0 = Cs[r * CLD + c] + bias[col];
+    float v1 = Cs[r * CLD + c + 1] + bias[col + 1];
+    if (epi != kEpiBias && fast) {
+      // one sigmoid shared by the fast GELU and its derivative
+      const float s0 = fast_gelu_sigmoid(v0), s1 = fast_gelu_sigmoid(v1);
+      if (epi == kEpiGeluGrad)
+        *reinterpret_cast<float2*>(out2 + o) =
+            make_float2(s0 * (1.0f + kFastGeluC * v0 * (1.0f - s0)),
+                        s1 * (1.0f + kFastGeluC * v1 * (1.0f - s1)));
+      v0 *= s0;
+      v1 *= s1;
+    } else if (epi == kEpiGeluGrad) {
+      // one erf shared by the GELU and its derivative (_act_fwd_bwd)
+      const float e0 = erff(v0 * kInvSqrt2), e1 = erff(v1 * kInvSqrt2);
+      *reinterpret_cast<float2*>(out2 + o) = make_float2(
+          0.5f * (1.0f + e0) + v0 * kInvSqrt2Pi * expf(-0.5f * v0 * v0),
+          0.5f * (1.0f + e1) + v1 * kInvSqrt2Pi * expf(-0.5f * v1 * v1));
+      v0 = 0.5f * v0 * (1.0f + e0);
+      v1 = 0.5f * v1 * (1.0f + e1);
+    } else if (epi == kEpiGelu) {
+      v0 = 0.5f * v0 * (1.0f + erff(v0 * kInvSqrt2));
+      v1 = 0.5f * v1 * (1.0f + erff(v1 * kInvSqrt2));
+    }
+    *reinterpret_cast<__nv_bfloat162*>(out + o) = __floats2bfloat162_rn(v0, v1);
+  }
+}
+
 // out[T, Nout] = epi(LN(x)[T, K] @ W^T + bias) (see LnGemmEpi); with y_out
 // set, the blocks of the first column group also write y = bf16(LN(x)).
+// The block's 64-row panel of LN(x) stays resident in shared memory: K up
+// to 1344 fits (ln_gemm_stream_kernel takes any K).
 __global__ void __launch_bounds__(kThreads)
 ln_gemm_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_scale,
                const float* __restrict__ ln_bias, const bf16* __restrict__ w,
@@ -226,36 +269,123 @@ ln_gemm_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_scale,
     }
     store_acc(Cs, acc, wm, wn);
     __syncthreads();
-    for (int i = threadIdx.x; i < BM * BN / 2; i += kThreads) {
-      const int r = i / (BN / 2), c = 2 * (i % (BN / 2));
-      const int row = row0 + r, col = n0 + c;
-      if (row >= T || col >= Nout) continue;
-      const size_t o = (size_t)row * Nout + col;
-      float v0 = Cs[r * CLD + c] + bias[col];
-      float v1 = Cs[r * CLD + c + 1] + bias[col + 1];
-      if (epi != kEpiBias && fast) {
-        // one sigmoid shared by the fast GELU and its derivative
-        const float s0 = fast_gelu_sigmoid(v0), s1 = fast_gelu_sigmoid(v1);
-        if (epi == kEpiGeluGrad)
-          *reinterpret_cast<float2*>(out2 + o) =
-              make_float2(s0 * (1.0f + kFastGeluC * v0 * (1.0f - s0)),
-                          s1 * (1.0f + kFastGeluC * v1 * (1.0f - s1)));
-        v0 *= s0;
-        v1 *= s1;
-      } else if (epi == kEpiGeluGrad) {
-        // one erf shared by the GELU and its derivative (_act_fwd_bwd)
-        const float e0 = erff(v0 * kInvSqrt2), e1 = erff(v1 * kInvSqrt2);
-        *reinterpret_cast<float2*>(out2 + o) = make_float2(
-            0.5f * (1.0f + e0) + v0 * kInvSqrt2Pi * expf(-0.5f * v0 * v0),
-            0.5f * (1.0f + e1) + v1 * kInvSqrt2Pi * expf(-0.5f * v1 * v1));
-        v0 = 0.5f * v0 * (1.0f + e0);
-        v1 = 0.5f * v1 * (1.0f + e1);
-      } else if (epi == kEpiGelu) {
-        v0 = 0.5f * v0 * (1.0f + erff(v0 * kInvSqrt2));
-        v1 = 0.5f * v1 * (1.0f + erff(v1 * kInvSqrt2));
-      }
-      *reinterpret_cast<__nv_bfloat162*>(out + o) = __floats2bfloat162_rn(v0, v1);
+    ln_gemm_epilogue(Cs, bias, out, out2, row0, n0, T, Nout, epi, fast);
+  }
+}
+
+// Row statistics of the streamed kernel: each warp stages kStatCols columns
+// of its row (one 16-byte load a lane) and sums them lane-strided, so every
+// lane adds the same elements in the same order as ln_gemm_kernel's lanes.
+constexpr int kStatCols = 32 * 8;
+
+// The LN-prologue GEMM at any depth K % 64 == 0 (D past the resident
+// panel's 1344: the MLP half-block's W1 products at D 1408-4096). Same
+// function, epilogues and bits as ln_gemm_kernel; shared memory ~61 KB
+// whatever K. A block of 64 rows runs two passes:
+//   1. one warp per row reads the row from device memory (16-byte loads,
+//      staged per warp) and keeps mean and rstd: lane-strided sums, warp_sum,
+//      two-pass variance, eps 1e-6, as the panel kernel;
+//   2. for each of its column tiles and each 64-deep chunk it loads the x
+//      chunk, normalises it in fp32 and rounds it to bf16 into the A tile
+//      (the panel kernel's rounding), then loads the W tile and runs
+//      mma_chunk. The blocks of column group 0 write y = bf16(LN(x)) chunk
+//      by chunk on their first tile.
+// The normalised chunk is recomputed for each column tile (up to
+// kTilesPerBlock times); copies are synchronous, as in the other kernels.
+__global__ void __launch_bounds__(kThreads)
+ln_gemm_stream_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_scale,
+                      const float* __restrict__ ln_bias, const bf16* __restrict__ w,
+                      const float* __restrict__ bias, bf16* __restrict__ out,
+                      float* __restrict__ out2, bf16* __restrict__ y_out, int T, int K,
+                      int Nout, int epi, int fast) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* As = reinterpret_cast<bf16*>(smem);
+  bf16* Bs = As + BM * BLD;
+  float* Cs = reinterpret_cast<float*>(Bs + BN * BLD);
+  float* mean = Cs + BM * CLD;
+  float* rstd = mean + BM;
+
+  const int row0 = blockIdx.x * BM;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / 4, wn = warp % 4;
+
+  // pass 1: row statistics; Cs is free until the first tile's epilogue
+  bf16* stage = reinterpret_cast<bf16*>(Cs) + warp * kStatCols;
+  for (int r = warp; r < BM; r += kThreads / 32) {
+    const int row = row0 + r;
+    if (row >= T) {  // rows past T are zero in the A tile and never stored
+      if (lane == 0) mean[r] = rstd[r] = 0.f;
+      continue;
     }
+    const bf16* xr = x + (size_t)row * K;
+    float s = 0.f;
+    for (int c0 = 0; c0 < K; c0 += kStatCols) {
+      const int n = min(kStatCols, K - c0);
+      if (8 * lane < n)
+        *reinterpret_cast<uint4*>(stage + 8 * lane) =
+            *reinterpret_cast<const uint4*>(xr + c0 + 8 * lane);
+      __syncwarp();
+      for (int c = lane; c < n; c += 32) s += __bfloat162float(stage[c]);
+      __syncwarp();
+    }
+    const float mu = warp_sum(s) / K;
+    float q = 0.f;
+    for (int c0 = 0; c0 < K; c0 += kStatCols) {
+      const int n = min(kStatCols, K - c0);
+      if (8 * lane < n)
+        *reinterpret_cast<uint4*>(stage + 8 * lane) =
+            *reinterpret_cast<const uint4*>(xr + c0 + 8 * lane);
+      __syncwarp();
+      for (int c = lane; c < n; c += 32) {
+        const float d = __bfloat162float(stage[c]) - mu;
+        q += d * d;
+      }
+      __syncwarp();
+    }
+    const float inv = rsqrtf(warp_sum(q) / K + kLnEps);
+    if (lane == 0) {
+      mean[r] = mu;
+      rstd[r] = inv;
+    }
+  }
+
+  // pass 2: the column tiles, the normalised x chunk streamed into As
+  constexpr int kVec = BK / 8;
+  const int ntiles = (Nout + BN - 1) / BN;
+  const int t_begin = blockIdx.y * kTilesPerBlock;
+  const int t_end = min(ntiles, t_begin + kTilesPerBlock);
+  for (int t = t_begin; t < t_end; ++t) {
+    const int n0 = t * BN;
+    const bool write_y = y_out != nullptr && t == 0;
+    FragC acc[2][2];
+    zero_acc(acc);
+    for (int k0 = 0; k0 < K; k0 += BK) {
+      __syncthreads();  // statistics done / previous chunk consumed
+      for (int i = threadIdx.x; i < BM * kVec; i += kThreads) {
+        const int r = i / kVec, c = (i % kVec) * 8;
+        const int row = row0 + r;
+        uint4 v = make_uint4(0, 0, 0, 0);
+        if (row < T) {
+          const uint4 raw = *reinterpret_cast<const uint4*>(x + (size_t)row * K + k0 + c);
+          const bf16* xv = reinterpret_cast<const bf16*>(&raw);
+          bf16* yv = reinterpret_cast<bf16*>(&v);
+          const float mu = mean[r], inv = rstd[r];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const float xhat = (__bfloat162float(xv[e]) - mu) * inv;
+            yv[e] = __float2bfloat16(xhat * ln_scale[k0 + c + e] + ln_bias[k0 + c + e]);
+          }
+          if (write_y) *reinterpret_cast<uint4*>(y_out + (size_t)row * K + k0 + c) = v;
+        }
+        *reinterpret_cast<uint4*>(As + r * BLD + c) = v;
+      }
+      load_w_tile(Bs, w, n0, k0, K, Nout);
+      __syncthreads();
+      mma_chunk(acc, As, BLD, Bs, wm, wn);
+    }
+    store_acc(Cs, acc, wm, wn);
+    __syncthreads();
+    ln_gemm_epilogue(Cs, bias, out, out2, row0, n0, T, Nout, epi, fast);
   }
 }
 
@@ -338,6 +468,37 @@ cudaError_t launch_partial(const void* a, const void* w, int ldw, void* acc, con
   return cudaGetLastError();
 }
 
+constexpr size_t kMaxSmem = 232448;  // a block's shared memory on the H100
+
+size_t ln_gemm_panel_smem(int K) {
+  return (size_t)BM * (K + kPadH) * sizeof(bf16) + (size_t)BN * BLD * sizeof(bf16) +
+         (size_t)BM * CLD * sizeof(float);
+}
+
+// The panel kernel where its resident panel fits a block (K <= 1344), else
+// (or with `streamed`) the streamed kernel; one grid for both.
+cudaError_t launch_ln_gemm(bool streamed, const void* x, const void* ln_scale,
+                           const void* ln_bias, const void* w, const void* bias, void* out,
+                           void* out2, void* y_out, int T, int K, int Nout, int epi, int fast,
+                           cudaStream_t stream) {
+  if (K % BK != 0) return cudaErrorInvalidValue;
+  size_t smem = ln_gemm_panel_smem(K);
+  auto kernel = ln_gemm_kernel;
+  if (streamed || smem > kMaxSmem) {
+    kernel = ln_gemm_stream_kernel;
+    smem = (size_t)(BM + BN) * BLD * sizeof(bf16) + (size_t)BM * (CLD + 2) * sizeof(float);
+  }
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  const int ntiles = (Nout + BN - 1) / BN;
+  dim3 grid((T + BM - 1) / BM, (ntiles + kTilesPerBlock - 1) / kTilesPerBlock);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      (const bf16*)x, (const float*)ln_scale, (const float*)ln_bias, (const bf16*)w,
+      (const float*)bias, (bf16*)out, (float*)out2, (bf16*)y_out, T, K, Nout, epi, fast);
+  return cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace ddm
 
@@ -365,23 +526,24 @@ extern "C" int ddm_gemm_partial(const void* a, const void* w, int ldw, void* acc
 }
 
 // out = epi(LN(x) w^T + bias); with `fast` the GELU epilogues take the
-// sigmoid GELU. The row panel stays resident: K up to 1344 fits a block.
+// sigmoid GELU. K up to 1344 runs the resident-panel kernel, any deeper K %
+// 64 == 0 the streamed one.
 extern "C" int ddm_ln_gemm(const void* x, const void* ln_scale, const void* ln_bias,
                            const void* w, const void* bias, void* out, void* out2,
                            void* y_out, int T, int K, int Nout, int epi, int fast,
                            void* stream) {
-  using namespace ddm;
-  const size_t smem = (size_t)BM * (K + kPadH) * sizeof(bf16) +
-                      (size_t)BN * BLD * sizeof(bf16) + (size_t)BM * CLD * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(ln_gemm_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int ntiles = (Nout + BN - 1) / BN;
-  dim3 grid((T + BM - 1) / BM, (ntiles + kTilesPerBlock - 1) / kTilesPerBlock);
-  ln_gemm_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const float*)ln_scale, (const float*)ln_bias, (const bf16*)w,
-      (const float*)bias, (bf16*)out, (float*)out2, (bf16*)y_out, T, K, Nout, epi, fast);
-  return (int)cudaGetLastError();
+  return (int)ddm::launch_ln_gemm(false, x, ln_scale, ln_bias, w, bias, out, out2, y_out, T, K,
+                                  Nout, epi, fast, (cudaStream_t)stream);
+}
+
+// ddm_ln_gemm through the streamed kernel at any K % 64 == 0: the card
+// tests hold it to the panel kernel's bits where both take K.
+extern "C" int ddm_ln_gemm_streamed(const void* x, const void* ln_scale, const void* ln_bias,
+                                    const void* w, const void* bias, void* out, void* out2,
+                                    void* y_out, int T, int K, int Nout, int epi, int fast,
+                                    void* stream) {
+  return (int)ddm::launch_ln_gemm(true, x, ln_scale, ln_bias, w, bias, out, out2, y_out, T, K,
+                                  Nout, epi, fast, (cudaStream_t)stream);
 }
 
 extern "C" int ddm_gemm_residual(const void* a, const void* w, const void* bias,

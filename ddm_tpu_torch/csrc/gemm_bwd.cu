@@ -301,22 +301,25 @@ gemm_tn_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
 // LayerNorm backward with the residual over rows of D, one warp per row:
 //   dx = bf16(dres + inv * (dyh - mean(dyh) - xhat * mean(dyh * xhat))),
 //   dyh = dy * scale; per-block column partials of dy * xhat and dy. A
-//   null dres is K6b's LN backward alone (no residual term).
+//   null dres is K6b's LN backward alone (no residual term). Each of the
+//   WARPS warps keeps its 2 x D fp32 column partials in shared memory: 8
+//   warps up to D 3584 (64 D bytes), 4 past it (up to D 7264), each warp
+//   then walking twice the rows; the sum order at 8 warps is unchanged.
 constexpr int kLnRows = 64;
 
-__global__ void __launch_bounds__(kThreads)
+template <int WARPS>
+__global__ void __launch_bounds__(WARPS * 32)
 ln_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ dy,
               const bf16* __restrict__ dres, const float* __restrict__ scale,
               bf16* __restrict__ dx, float* __restrict__ partial, int T, int D) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int kWarps = kThreads / 32;
-  float* acc = reinterpret_cast<float*>(smem);  // [kWarps][2][D]
+  float* acc = reinterpret_cast<float*>(smem);  // [WARPS][2][D]
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   float* wacc = acc + (size_t)warp * 2 * D;
   for (int c = lane; c < D; c += 32) wacc[c] = wacc[D + c] = 0.f;
 
   const int row0 = blockIdx.x * kLnRows;
-  for (int r = warp; r < kLnRows; r += kWarps) {
+  for (int r = warp; r < kLnRows; r += WARPS) {
     const int row = row0 + r;
     if (row >= T) break;
     const bf16* xr = x + (size_t)row * D;
@@ -350,9 +353,9 @@ ln_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ dy,
     }
   }
   __syncthreads();
-  for (int c = threadIdx.x; c < 2 * D; c += kThreads) {
+  for (int c = threadIdx.x; c < 2 * D; c += WARPS * 32) {
     float t = acc[c];
-    for (int k = 1; k < kWarps; ++k) t += acc[(size_t)k * 2 * D + c];
+    for (int k = 1; k < WARPS; ++k) t += acc[(size_t)k * 2 * D + c];
     partial[(size_t)blockIdx.x * 2 * D + c] = t;
   }
 }
@@ -460,12 +463,16 @@ extern "C" int ddm_ln_bwd(const void* x, const void* dy, const void* dres, const
                           void* dx, void* partial, void* dscale_dbias, int T, int D,
                           void* stream) {
   using namespace ddm;
-  const size_t smem = (size_t)(kThreads / 32) * 2 * D * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(ln_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  constexpr size_t kMaxSmem = 232448;  // a block's shared memory on the H100
+  const bool wide = (size_t)8 * 2 * D * sizeof(float) > kMaxSmem;
+  const int warps = wide ? 4 : 8;
+  const auto kernel = wide ? ln_bwd_kernel<4> : ln_bwd_kernel<8>;
+  const size_t smem = (size_t)warps * 2 * D * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int nblk = (T + kLnRows - 1) / kLnRows;
-  ln_bwd_kernel<<<nblk, kThreads, smem, (cudaStream_t)stream>>>(
+  kernel<<<nblk, warps * 32, smem, (cudaStream_t)stream>>>(
       (const bf16*)x, (const float*)dy, (const bf16*)dres, (const float*)scale, (bf16*)dx,
       (float*)partial, T, D);
   err = cudaGetLastError();

@@ -16,10 +16,11 @@ The cores take 16 <= N <= 512 (N a multiple of 16, the JAX gate's N <= 512)
 and head widths Dh a multiple of 8 (the JAX gate's ``Dh % 8 == 0``: DiT-XL's
 Dh 72, DiT-S at ``--heads 16``'s Dh 24), each head's tile padded in shared
 memory to the next multiple of 16 with zero columns. The half-block GEMMs
-take D a multiple of 64 up to :data:`ddm_tpu_torch.ops.gemm.LN_GEMM_MAX_K`
-(1344: the LN-prologue product's resident row panel in shared memory); a
-shape the JAX ladder sends through a kernel and the port cannot take raises
-``NotImplementedError`` naming ``ROADMAP.md`` Queue 2.
+run D a multiple of 64 up to :data:`ddm_tpu_torch.ops.gemm.LN_GEMM_MAX_K`
+(1344, the resident-panel LN-prologue kernel's bound), the widths of every
+JAX attention half-block tier; a shape the JAX ladder sends through a
+kernel and the port cannot take raises ``NotImplementedError`` naming
+``ROADMAP.md`` Queue 2.
 The forward core runs one block per (image, head, query tile) over full
 score rows. The backward core runs one block per (image, head) where its
 fp32 P and dP tiles fit shared memory (N <= 112 at Dh = 64), and past that
@@ -54,8 +55,8 @@ rung (``ddm_tpu/ops/attention.py:959-962``): an XLA half-block around
 ``fused_attention``, whose core :func:`ddm_tpu_torch.ops.tiers.core_tier`
 picks. The port runs one Function there, :class:`_Rung3Block`: the same
 qkv GEMM, that core, and the projection GEMM with the residual; where those
-GEMMs do not take D (D % 64 != 0, or past ``gemm.LN_GEMM_MAX_K``: DiT at
-``--embed-dim 480``, 1472 or 1600), plain torch products with
+GEMMs do not run D (D % 64 != 0, or past ``gemm.LN_GEMM_MAX_K``: DiT at
+``--embed-dim 480``, 1472, 1536 or 1600), plain torch products with
 :func:`rung3_block_reference`'s rounding around the same core, as JAX
 computes them in XLA. The cores:
 
@@ -577,8 +578,11 @@ def attention_core_bwd(q, k, v, do, H: int):
 
 
 def _gemm_chain_takes(D: int) -> bool:
-    """Whether the half-block GEMMs (the LN-prologue qkv product and the
-    projection with the residual) take width D."""
+    """Whether the third rung runs the half-block GEMMs (the LN-prologue qkv
+    product and the projection with the residual) at width D: up to the
+    resident-panel bound; past it the plain products (JAX's XLA). Whether
+    the streamed LN-prologue kernel should take those widths is ROADMAP
+    item 12's question."""
     return D % 64 == 0 and D <= gemm.LN_GEMM_MAX_K
 
 

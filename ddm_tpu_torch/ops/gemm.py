@@ -32,45 +32,53 @@ _MAX_SMEM = 232448  # a block's shared memory on the H100
 
 
 def ln_gemm_smem(K: int) -> int:
-    """Shared memory of the LN-prologue GEMM's block over depth K: the
-    resident bf16 row panel (64 x (K + 8)), one W tile (128 x 72 bf16) and
-    the fp32 C tile (64 x 132)."""
+    """Shared memory of the resident-panel LN-prologue GEMM's block over
+    depth K: the bf16 row panel (64 x (K + 8)), one W tile (128 x 72 bf16)
+    and the fp32 C tile (64 x 132)."""
     return _BM * (K + 8) * 2 + _BN * (_BK + 8) * 2 + _BM * (_BN + 4) * 4
 
 
 # The widest depth (a multiple of 64) whose resident panel fits a block:
-# 1344 (DiT-XL's 1152 takes 200,704 bytes; 1408 would take 233,472). The
-# half-block kernels take D up to it: D is the LN-prologue product's depth.
+# 1344 (DiT-XL's 1152 takes 200,704 bytes; 1408 would take 233,472). It is
+# the panel kernel's bound, not ``ln_gemm``'s: past it ``ln_gemm`` runs the
+# streamed kernel (``csrc/gemm.cu`` ``ln_gemm_stream_kernel``, ~61 KB at any
+# depth), which gives the panel kernel's bits where both take K.
 LN_GEMM_MAX_K = max(k for k in range(_BK, 4096, _BK) if ln_gemm_smem(k) <= _MAX_SMEM)
 
 
 def refuse_wide(D: int, kernel: str) -> None:
-    """Raise ``NotImplementedError`` naming ROADMAP.md Queue 2 past the
-    widest D the half-blocks' LN-prologue GEMM takes (the JAX ladder runs
-    kernels there, e.g. D 1536 at N = 64)."""
+    """Raise ``NotImplementedError`` past ``LN_GEMM_MAX_K`` for the attention
+    half-block kernels (K2f, K2b, K4), which keep the resident-panel widths:
+    the JAX ladder has no attention half-block tier past them (its third
+    rung runs there, and so does the port's)."""
     if D > LN_GEMM_MAX_K:
         raise NotImplementedError(
-            f"{kernel}'s LN-prologue GEMM keeps a 64-row panel of D resident in shared memory, "
-            f"D <= {LN_GEMM_MAX_K} on the H100; got D={D}: ROADMAP.md Queue 2 (the half-block "
-            "GEMMs past that width)")
+            f"{kernel} runs D <= {LN_GEMM_MAX_K}, the widths of the JAX ladder's attention "
+            f"half-block tiers; got D={D}, where the ladder takes the third rung "
+            "(fused_attention_block runs it)")
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def ln_gemm(x, scale, bias, w, b, epi: int, with_y: bool = False, fast_gelu: bool = False):
-    """``epi(LN(x) w^T + b)`` over (T, K) rows -> ``(out, gelu_grad, y)``:
-    ``out`` bf16 (T, Nout); ``gelu_grad`` fp32 (T, Nout) for
-    ``EPI_GELU_GRAD``, else None; ``y = bf16(LN(x))`` when ``with_y``. With
-    ``fast_gelu`` the GELU epilogues take ``h sigmoid(1.702 h)``."""
+def ln_gemm(x, scale, bias, w, b, epi: int, with_y: bool = False, fast_gelu: bool = False,
+            streamed: bool = False):
+    """``epi(LN(x) w^T + b)`` over (T, K) rows, K % 64 == 0 ->
+    ``(out, gelu_grad, y)``: ``out`` bf16 (T, Nout); ``gelu_grad`` fp32 (T,
+    Nout) for ``EPI_GELU_GRAD``, else None; ``y = bf16(LN(x))`` when
+    ``with_y``. With ``fast_gelu`` the GELU epilogues take ``h sigmoid(1.702
+    h)``. K up to ``LN_GEMM_MAX_K`` runs the resident-panel kernel, deeper K
+    (or any K with ``streamed``) the streamed one."""
     T, K = x.shape
     Nout = w.shape[0]
     out = torch.empty((T, Nout), dtype=torch.bfloat16, device=x.device)
     grad = (torch.empty((T, Nout), dtype=torch.float32, device=x.device)
             if epi == EPI_GELU_GRAD else None)
     y = torch.empty_like(x) if with_y else None
-    check_status(load_library().ddm_ln_gemm(
+    lib = load_library()
+    launch = lib.ddm_ln_gemm_streamed if streamed else lib.ddm_ln_gemm
+    check_status(launch(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w.data_ptr(), b.data_ptr(),
         out.data_ptr(), _ptr(grad), _ptr(y), T, K, Nout, epi, int(fast_gelu),
         current_stream(x.device)),
@@ -194,7 +202,8 @@ def gemm_tn(a, b, with_colsum: bool = False, colsum_of_b: bool = False):
 
 def ln_bwd(x, dy, dres, scale):
     """LayerNorm backward plus the residual ``dres`` (None: the LN backward
-    alone) over (T, D) rows -> ``(dx bf16, dscale fp32, dbias fp32)``."""
+    alone) over (T, D) rows -> ``(dx bf16, dscale fp32, dbias fp32)``; D up
+    to 7264 (8 warps a block up to 3584, 4 past it)."""
     T, D = x.shape
     dev = x.device
     dx = torch.empty_like(x)

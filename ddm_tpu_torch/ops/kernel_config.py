@@ -53,6 +53,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # x, ln_scale, ln_bias, w, bias, out, out2, y_out, T, K, Nout, epi, fast, stream
     "ddm_ln_gemm": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # the same through the streamed kernel at any K % 64 == 0
+    "ddm_ln_gemm_streamed": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # a, w, bias, residual, out, T, K, Nout, stream
     "ddm_gemm_residual": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # q, k, v, ld, out, B, N, H, Dh, scale, stream

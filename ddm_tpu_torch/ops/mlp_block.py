@@ -40,6 +40,15 @@ weight cotangents to bf16. Where the ladder has no tier the JAX package
 runs its jnp reference, and the port its plain versions, forward and
 backward, on CUDA tensors too.
 
+Past D 1344 (D % 128 == 0 up to 4096) the ladder still runs kernels:
+``fchunked`` at k 2-8 (MLP ratio 4 up to D 2560, ratio 2 up to 3584,
+ratio 1 up to 4096; e.g. SD3-Medium's width, D 1536 and F 6144, at k 8),
+and ``fwdonly`` at ratio 1 and D 1408, 1664 and 1792. There the LN-prologue
+products (K1f's and K6f's first GEMM, K1b's recompute) run the streamed
+kernel of ``csrc/gemm.cu`` (:func:`ddm_tpu_torch.ops.gemm.ln_gemm` picks
+it past ``gemm.LN_GEMM_MAX_K``), and K1b's LayerNorm backward takes 4 warps a
+block past D 3584; the rest of each chain is unchanged.
+
 The tensor-parallel partial (``fused_mlp_partial`` of
 ``ddm_tpu/ops/mlp_block.py:652``): :func:`fused_mlp_partial` computes
 ``gelu(LN(x) w1^T + b1) w2^T`` in fp32 with no output bias and no residual,
@@ -246,7 +255,6 @@ def _check(x, scale, bias, w1, b1, w2, b2, kernel="K1"):
             raise ValueError(f"{kernel} {name} must be ({n},), got {tuple(v.shape)}")
     if D % 64 or F % 64:
         raise ValueError(f"{kernel} needs D and F multiples of 64, got D={D}, F={F}")
-    gemm.refuse_wide(D, kernel)
     if not x.is_contiguous():
         raise ValueError(f"{kernel} needs contiguous activations")
 
@@ -423,7 +431,9 @@ def fused_mlp_block(x, scale, bias, w1, b1, w2, b2, fast_gelu: bool = False):
     :func:`mlp_block_bwd_reference`; CUDA tensors launch K1f, or k K6f in
     the ``fchunked`` tier, and K1b's chain (bf16 activations, fp32 LN params
     and biases, weights cast to bf16) or raise; where the JAX ladder has no
-    tier, the plain versions on any device. ``fast_gelu`` takes the sigmoid
-    GELU in every one of them.
+    tier, the plain versions on any device. Every D the ladder sends a tier
+    runs its kernels: past D 1344 (``fwdonly`` at ratio 1 and D 1408-1792,
+    ``fchunked`` up to D 4096) their LN-prologue products take the streamed
+    kernel. ``fast_gelu`` takes the sigmoid GELU in every one of them.
     """
     return _MLPBlock.apply(x, scale, bias, w1, b1, w2, b2, fast_gelu)

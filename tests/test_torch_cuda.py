@@ -1,5 +1,6 @@
 """The CUDA kernels K1-K4, K6f, K6b, K7-K9 and K10-K12 against their plain versions, on the
-card, at head widths off 16 (Dh 8, 24, 40, 72), at DiT-XL's D 1152, and with the fast GELU.
+card, at head widths off 16 (Dh 8, 24, 40, 72), at DiT-XL's D 1152, with the fast GELU, and
+the MLP half-block past D 1344 (the streamed LN-prologue GEMM, D 1408-4096).
 
 Every test here is marked ``cuda`` and skips on a host without a GPU. The
 file imports no JAX (the machine with the card has none), so it runs there
@@ -912,8 +913,8 @@ def test_half_block_widths_past_1024_on_the_card(cuda_device):
     DiT-XL's 1152) runs: K2f and K4 at D 1280 over 10 heads, K6f at D 1280
     (F 5120). Past it, at D 1536 (N = 64): the attention half-block takes
     the third rung's plain products around K7 (JAX runs XLA's there), and
-    the MLP half-block, whose F-chunked tier JAX runs as a kernel, raises
-    NotImplementedError naming Queue 2 before any launch."""
+    the MLP half-block, whose F-chunked tier JAX runs as a kernel, runs four
+    K6f through the streamed LN-prologue GEMM (bf16 rule)."""
     assert TM.gemm.LN_GEMM_MAX_K == 1344 and TM.gemm.ln_gemm_smem(1152) == 200704
     assert TT.mlp_tier(1024, 1280, 5120) == ("fchunked", 2)
     args = _on(cuda_device, _mlp_inputs(1024, 1280, 5120, seed=34))
@@ -938,9 +939,97 @@ def test_half_block_widths_past_1024_on_the_card(cuda_device):
     assert TT.mlp_tier(128, 1536, 6144) == ("fchunked", 4)
     mlp = _on(cuda_device, _mlp_inputs(128, 1536, 6144, seed=36))
     before = [c.count for c in (TM.LAUNCHES, TM.PARTIAL_LAUNCHES)]
-    with pytest.raises(NotImplementedError, match="D=1536.*Queue 2"):
-        TM.fused_mlp_block(*mlp)
-    assert [c.count for c in (TM.LAUNCHES, TM.PARTIAL_LAUNCHES)] == before
+    with torch.inference_mode():
+        _assert_bf16_rule(TM.fused_mlp_block(*mlp), TM.mlp_block_fchunked_reference(*mlp, 4))
+    assert [c.count - n for c, n in zip((TM.LAUNCHES, TM.PARTIAL_LAUNCHES), before)] == [0, 4]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epi", [0, 1, 2])
+@pytest.mark.parametrize("T,D,Nout", [(1000, 1152, 4608), (4096, 1344, 1344 * 3),
+                                      (300, 1344, 704)])
+def test_streamed_ln_gemm_gives_the_panel_kernels_bits(cuda_device, T, D, Nout, epi):
+    """The streamed LN-prologue GEMM (pass 1: row statistics in the panel
+    kernel's order; pass 2: each x chunk normalised and rounded as the panel
+    kernel rounds its panel) against the resident-panel kernel at depths both
+    take: out, the fp32 GELU derivative and y = bf16(LN(x)) equal bit for
+    bit, erf and fast GELU, ragged T and Nout included."""
+    g = TM.gemm
+    assert D <= g.LN_GEMM_MAX_K
+    r = np.random.default_rng(40 + epi)
+    x = _t((1.5 * r.standard_normal((T, D)) + 0.3).astype(np.float32)).to(cuda_device)
+    x = x.to(torch.bfloat16)
+    scale, bias = (_t((a + 0.1 * r.standard_normal(D)).astype(np.float32)).to(cuda_device)
+                   for a in (1.0, 0.0))
+    w = _t((D ** -0.5 * r.standard_normal((Nout, D))).astype(np.float32)).to(cuda_device)
+    w = w.to(torch.bfloat16)
+    b = _t((0.1 * r.standard_normal(Nout)).astype(np.float32)).to(cuda_device)
+    for fast in (False, True):
+        panel = g.ln_gemm(x, scale, bias, w, b, epi, with_y=True, fast_gelu=fast)
+        stream = g.ln_gemm(x, scale, bias, w, b, epi, with_y=True, fast_gelu=fast, streamed=True)
+        torch.cuda.synchronize()
+        for p, q in zip(panel, stream):
+            assert (p is None) == (q is None)
+            if p is not None:
+                assert torch.equal(p, q)
+
+
+# (T, D, F, tier): the MLP half-block past D 1344 at every kind of tier the
+# JAX ladder sends there at T 1024: fwdonly (ratio 1 at D 1408, 1792),
+# fchunked at ratios 4, 2 and 1 (D 1536, 2048; 3072; 4096)
+WIDE_MLP = [(1024, 1408, 1408, ("fwdonly", 1)), (1024, 1536, 6144, ("fchunked", 8)),
+            (1024, 1792, 1792, ("fwdonly", 1)), (1024, 2048, 8192, ("fchunked", 8)),
+            (1024, 3072, 6144, ("fchunked", 8)), (1024, 4096, 4096, ("fchunked", 8))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,D,F,tier", WIDE_MLP)
+def test_mlp_half_block_past_1344_matches_plain_on_the_card(cuda_device, T, D, F, tier):
+    """K1f (``fwdonly``) or k K6f (``fchunked``) forward by the bf16 rule
+    against the plain version of its tier, and K1b's chain through autograd
+    (the streamed recompute; at D 4096 the 4-warp LayerNorm backward) by the
+    gradient rule, twice, bit-identical; each launch counted."""
+    assert TT.mlp_tier(T, D, F) == tier
+    args = _on(cuda_device, _mlp_inputs(T, D, F, seed=41))
+    kind, k = tier
+    counters = (TM.LAUNCHES, TM.PARTIAL_LAUNCHES, TM.BWD_LAUNCHES)
+    before = [c.count for c in counters]
+    with torch.inference_mode():
+        out = TM.fused_mlp_block(*args)
+    plain = (TM.mlp_block_reference(*args) if kind == "fwdonly" else
+             TM.mlp_block_fchunked_reference(*args, k))
+    _assert_bf16_rule(out, plain)
+    dout = torch.randn(T, D, generator=torch.Generator(device=cuda_device).manual_seed(42),
+                       device=cuda_device).to(torch.bfloat16)
+    got, again = (_grads_through_autograd(TM.fused_mlp_block, args, (), dout) for _ in range(2))
+    torch.cuda.synchronize()
+    fwd = (1, 0) if kind == "fwdonly" else (0, k)
+    assert [c.count - n for c, n in zip(counters, before)] == [fwd[0] * 3, fwd[1] * 3, 2]
+    _assert_grads_close(got, TM.mlp_block_bwd_reference(*args, dout))
+    for g, h in zip(got, again):
+        assert torch.equal(g, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [3584, 4096])
+def test_ln_bwd_past_3584_matches_plain_on_the_card(cuda_device, D):
+    """The LayerNorm backward with the residual at D 3584 (8 warps a block,
+    the widest whose 2 x D partials fit) and D 4096 (4 warps): dx by the
+    bf16 rule, dscale and dbias by the gradient rule against
+    ``layer_norm_bwd``, a second call bit-identical."""
+    T = 1000
+    r = np.random.default_rng(43)
+    x = _t(r.standard_normal((T, D)).astype(np.float32)).to(cuda_device).to(torch.bfloat16)
+    dy = _t(r.standard_normal((T, D)).astype(np.float32)).to(cuda_device)
+    dres = _t(r.standard_normal((T, D)).astype(np.float32)).to(cuda_device).to(torch.bfloat16)
+    scale = _t((1 + 0.1 * r.standard_normal(D)).astype(np.float32)).to(cuda_device)
+    got, again = (TM.gemm.ln_bwd(x, dy, dres, scale) for _ in range(2))
+    torch.cuda.synchronize()
+    xhat, inv = TM.ln_stats(x.float())
+    want = TM.layer_norm_bwd(dy, xhat, inv, scale, dres.float())
+    _assert_grads_close(got, want)
+    for g, h in zip(got, again):
+        assert torch.equal(g, h)
 
 
 def _fast_mlp(cuda_device, T, D, F, seed):

@@ -197,6 +197,10 @@ PRODUCTION = [
     (256, 1152, 16, "split", ("fchunked", 2), ("fwdonly", 4)),
     # DiT-S at --heads 16 (Dh 24): K2b, fused MLP, K10f
     (2048, 384, 16, "fused", ("fused", 1), ("fused", 1)),
+    # SD3-Medium's width (D 1536, 24 heads of Dh 64): no attention half-block
+    # tier (the third rung around K7), F-chunked MLP k = 8, K10p k = 8
+    (2048, 1536, 24, None, ("fchunked", 8), ("fwdonly", 8)),
+    (64, 1536, 24, None, ("fchunked", 8), ("fwdonly", 8)),
 ]
 
 

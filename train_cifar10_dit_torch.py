@@ -32,8 +32,12 @@ around the standalone core, and so does the port: DiT-L at ``--image-size
 64`` (N = 256) through K7f/K7b, ``--image-size 96`` (N = 576) through the
 plain core (JAX runs XLA's there), and K8 at every head width the JAX
 gate admits (4, 8, 16, 32, 64, 128 and 256-896) from 128 px; where the
-half-block GEMMs do not take D (D % 64 != 0 or past 1344) the third rung's
-LN, qkv and projection are plain torch products around its core.
+half-block GEMMs do not run D (D % 64 != 0 or past 1344) the third rung's
+LN, qkv and projection are plain torch products around its core. Past D
+1344 the MLP half-block still runs its kernels wherever the JAX ladder
+does (up to D 4096): SD3-Medium's width (``--embed-dim 1536 --depth 24
+--heads 24``) takes eight K6f a block forward and K1b's chain backward,
+their LN-prologue products through the streamed kernel.
 DiT-XL/4 (``--embed-dim 1152 --depth 28 --heads 16``: 16 heads of Dh 72)
 runs K2f and K4 at 32 px and K7f/K7b at 64 px, their cores on head tiles
 padded to 80 columns, and the F-chunked MLP (two K6f, K1b) at
