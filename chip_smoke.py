@@ -61,7 +61,9 @@ is non-zero and no result line is printed:
    discrete: the tokens whose experts differ are counted, each must have
    its top logits within two bf16 units of yb times max |wr| of each other,
    and the slot rows, gates and backward outputs are compared on the groups
-   whose routing agrees; slot rows no token holds must be zeros; every
+   whose routing agrees, the gates and router probabilities relative to
+   their size (a logit shift of d moves a softmax output p by at most
+   p (e^(2d) - 1)); slot rows no token holds must be zeros; every
    backward's second call bit-identical; a full-width DiT-S/4 with seeded weights, one forward through the
    kernels against one through the plain versions;
 5. slice: that model saved as a checkpoint and sampled with
@@ -233,12 +235,12 @@ DiT-XL/4 and the fast GELU, after those:
 6l. (train-step-fast-gelu) the DiT-S and DiT-S MoE steps of 6 and 6c with
     ``fast_gelu``, against the plain steps with it, launches counted;
 7k. (train-xl) the trainer with ``--embed-dim 1152 --depth 28 --heads 16``
-    for 4 steps of 256 x m 8 (an epoch of 8 before PR 10), its peak memory,
+    for 2 steps of 256 x m 8 (not an epoch of 8), its peak memory,
     then 64 samples:
     per step 28 each of K2f, K4, K1b, 56 of K6f, 1 each of K3f, K3b; per
     sampler call 560 of K2f and 1,120 of K6f;
-7l. (train-xl64) the same at ``--image-size 64 --batch 64 --m 4`` (8 steps;
-    32 before PR 10):
+7l. (train-xl64) the same at ``--image-size 64 --batch 64 --m 4`` (4 steps,
+    not an epoch of 32):
     per step 28 each of K7f, K7b, K1b, 56 of K6f, 1 each of K3f, K3b, none of
     K2f, K2b, K4, K1f; per sampler call 560 of K7f and 1,120 of K6f.
 
@@ -257,7 +259,7 @@ after those:
     step with the kernel step's routing replayed (as 6c), within twice
     bf16's own noise; launches per step 28 each of K2f, K4, K11f, K11b, K10b,
     K12f, K12b, 112 of K10p, 1 each of K3f, K3b;
-7m. (train-moe-xl) the trainer at XL MoE width for 4 steps, top-1 at batch
+7m. (train-moe-xl) the trainer at XL MoE width for 2 steps, top-1 at batch
     256 x m 8 and top-2 at 128 x m 8, its peak memory, then 64 samples from
     its ``model_final.pt``; launches per step as 6n, per sampler call 560
     each of K2f, K11f, K12f and 2,240 of K10p.
@@ -302,9 +304,36 @@ parameters), after those:
     twice bf16's own noise; launches 192 of K6f, 24 each of K1b, K7f, K7b, 1
     each of K3f, K3b;
 7o. (train-1536) the trainer with --embed-dim 1536 --depth 24 --heads 24 for
-    3 steps of 256 x m 8, finite losses, peak memory and img/s, then 64
+    2 steps of 256 x m 8, finite losses, peak memory and img/s, then 64
     samples from its checkpoint; launches per step as 6p, none of K1f, K2f,
     K2b or K4; per sampler call 3,840 of K6f and 480 of K7f.
+
+K11 and K12 at every expert count and width the JAX gate admits: DiT-S/4
+with 128 routed experts (Llama 4 Maverick's routed count at top-1, Snowflake
+Arctic's at top-2) and a depth-1 DiT-MoE at Mixtral-8x22B's widths (D 6144,
+48 heads of 128, F 16384, 8 experts top-2), after those:
+
+3q. (moe-128-kernels) K11f/K11b and K12f/K12b at the E-128 training shape
+    (T 131,072 rows of D 384, groups of 256), top-1 (cap 3, Cp 8, S 4,096)
+    and top-2 (cap 5), K10f/K10b on its top-1 slot rows (128 x 4,096 x 384,
+    F 1536); K11/K12 at T 32,768 with 256 and 512 experts at D 384 and with
+    8 experts at D 4224, 6144 and 8192, top-2; each by the 3e rule (routing
+    identical but for near ties, rows by the bf16 rule, psum to PSUM_RTOL,
+    each backward's second call bit-identical), timed beside its plain
+    version, with its bound;
+6q. (train-step-moe-128) one step of DiT-S/4 at 128 experts, top-1 and
+    top-2, batch 16 x m 8, and of the D 6144 model at 8 x m 4, through the
+    kernels twice (bit-identical) against the plain step with the kernel
+    step's routing replayed, as 6c does; launches 8 each of K2f, K2b, K11f,
+    K11b, K10f, K10b, K12f, K12b (1 each of K11 and K12 at D 6144, where the
+    attention and the expert FFN run their plain versions, as JAX runs XLA
+    and jnp there) and 1 each of K3f, K3b;
+7p. (train-moe-128) the trainer with --moe-experts 128 --moe-group-size 256
+    --moe-capacity 1.25, top-1 and top-2, for 2 steps of 256 x m 8 each, and
+    at D 6144 for 2 steps of 64 x m 8 (the largest batch whose plain
+    expert FFN backward, with its fp32 hidden, fits), finite losses,
+    parameter count, peak memory and img/s, then 64 samples from each
+    checkpoint.
 
 The DiT-S phases run at full width and depth 8. PERF.md gives the whole
 run's measured time on the card, the kernels' build included, against the
@@ -402,8 +431,21 @@ TP, TP_STEP_BATCH, TP_TRAIN_M = 2, 32, 2
 # in the fwdonly tier past D 1344 (T, D, F) and the 4-warp LayerNorm
 # backward (T, D)
 SD3_M = {"embed_dim": 1536, "depth": 24, "heads": 24}
-SD3_STEP_BATCH, SD3_STEPS, SD3_K = 16, 3, 8
+SD3_STEP_BATCH, SD3_STEPS, SD3_K = 16, 2, 8
 FWDONLY_WIDE, LN_BWD_WIDE = (16384, 1792, 1792), (32768, 4096)
+# DiT-S/4 with 128 routed experts (3q, 6q, 7p): its 6q step at batch 16 x m
+# 8, its trainers E128_STEPS steps of 256 x m 8; and a depth-1 DiT-MoE at
+# Mixtral-8x22B's widths (hidden 6144, 48 heads of 128, FFN 16384 = int(6144
+# x 2.6667), 8 experts top-2): 6q's step at 8 x m 4, 7p's trainer
+# MIXTRAL_STEPS steps of MIXTRAL_BATCH x m 8; 3q's further K11/K12 shapes at
+# T 32,768: (E, D, top-ks)
+E128, E128_STEP_BATCH, E128_STEPS = 128, 16, 2
+S_WIDTHS = {"embed_dim": 384, "depth": DEPTH, "heads": 6}
+MIXTRAL = {"embed_dim": 6144, "depth": 1, "heads": 48, "mlp_ratio": 2.6667}
+MIXTRAL_F, MIXTRAL_STEP_BATCH, MIXTRAL_STEP_M = 16384, 8, 4
+MIXTRAL_BATCH, MIXTRAL_STEPS = 64, 2  # 72 x m 8 runs out of the card's 80 GB
+MOE_Q_SHAPES = ((256, 384, (2,)), (512, 384, (2,)), (8, 4224, (2,)), (8, 6144, (2,)),
+                (8, 8192, (2,)))
 # roofline: the published H100 SXM peaks (bf16 tensor cores, fp32 outside
 # them) and the HBM rate; a bound is the larger of bytes / HBM and ops / peak
 PEAK = {"bf16": 989e12, "fp32": 67e12}
@@ -917,7 +959,7 @@ def _routing(MD, ML, cfg, got, want, x, scale, bias, wr, br):
     yb entry by one unit and so move a logit by up to ulp(max |yb|) times
     max |wr|. A token may route otherwise only where its top ``topk + 1``
     logits (the plain version's) lie within twice that of each other; the
-    same bound holds the gates and router probabilities."""
+    gates and router probabilities are held to it by :func:`_softmax_excess`."""
     experts = [torch.stack([MD.chosen(p)[0].reshape(-1) for p in out[2:4]]) for out in (got, want)]
     moved = (experts[0] != experts[1]).any(0)
     agree = ((got[2] == want[2]) & (got[3] == want[3])).flatten(1).all(1)
@@ -928,6 +970,19 @@ def _routing(MD, ML, cfg, got, want, x, scale, bias, wr, br):
         top = (y[moved] @ wr.float() + br.float()).topk(cfg.topk + 1, dim=-1).values
         gap = float((top[:, :-1] - top[:, 1:]).min(-1).values.max())
     return int(moved.sum()), agree, gap, tol
+
+
+def _softmax_excess(got, want, tol) -> float:
+    """The largest |got - want| of router probabilities or gates over its
+    bound, where every logit may move by up to ``tol``: a softmax output p
+    (and a top-2 gate, a softmax of two logits) then moves by at most
+    p (e^(2 tol) - 1), plus four fp32 units of p for its own roundings. At
+    most 1 passes. Relative, so that a wrong probability fails at any E,
+    however small 1 / E is."""
+    want = want.float()
+    f32 = torch.finfo(torch.float32)
+    bound = want * (float(np.expm1(2 * tol)) + 4 * f32.eps) + f32.tiny
+    return float(((got.float() - want).abs() / bound).max())
 
 
 def _moe_kernel_times(MD, X, ML, smi, D, F, topks, k10f=True, E=MOE["moe_experts"],
@@ -962,11 +1017,11 @@ def _moe_kernel_times(MD, X, ML, smi, D, F, topks, k10f=True, E=MOE["moe_experts
         xerr, xmean, xtol, ok = _bf16_errors(slots(xin), slots(want[0]))
         empty = ~slots(want[0]).any(-1)
         ok = ok and not slots(xin)[empty].any()  # unheld slot rows are written as zeros
-        router_err = max(float((gates[agree] - want[1][agree]).abs().max()),
-                         float((probs - want[4]).abs().max()))
+        router_err = max(_softmax_excess(gates[agree], want[1][agree], rtol),
+                         _softmax_excess(probs, want[4], rtol))
         psum_rel = float(((psum - want[6]).abs() / want[6].abs()).max())
         cnt_err = float((cnt - want[5]).abs().max())
-        ok = ok and router_err <= rtol and psum_rel <= PSUM_RTOL and cnt_err <= moved
+        ok = ok and router_err <= 1 and psum_rel <= PSUM_RTOL and cnt_err <= moved
         ok = ok and gap < rtol and int(agree.sum()) >= G - moved
         ms = _median_ms(lambda: MD.moe_dispatch_fwd(*args))
         plain_ms = _median_ms(lambda: MD.moe_dispatch_reference(*args))
@@ -974,7 +1029,8 @@ def _moe_kernel_times(MD, X, ML, smi, D, F, topks, k10f=True, E=MOE["moe_experts
               f"version (largest top-logit gap among them {gap:.3g}, tol {rtol:.3g} = one bf16 "
               f"unit of yb times max |wr|, twice), {int(agree.sum())} of {G} groups agree; on "
               f"those xin max {xerr:.4g} (tol {xtol:.4g}) mean {xmean:.3g}, unheld slot rows "
-              f"zero; gates/probs max {router_err:.3g} (tol {rtol:.3g}), psum rel {psum_rel:.3g} "
+              f"zero; gates/probs max {router_err:.3g} of their bound p (e^(2 tol) - 1), "
+              f"psum rel {psum_rel:.3g} "
               f"(tol {PSUM_RTOL:g}), cnt max {cnt_err:g}; kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms (median of 20) on {smi}")
         if not ok:
@@ -1555,11 +1611,13 @@ def phase_train_moe(kc, name, smi):
     return train, generated
 
 
-def _wide_flags(widths, moe=False, topk=MOE["moe_topk"]):
+def _wide_flags(widths, moe=False, topk=MOE["moe_topk"], experts=MOE["moe_experts"]):
     out = ["--embed-dim", str(widths["embed_dim"]), "--depth", str(widths["depth"]),
            "--heads", str(widths["heads"])]
+    if "mlp_ratio" in widths:
+        out += ["--mlp-ratio", str(widths["mlp_ratio"])]
     if moe:
-        out += ["--moe-experts", str(MOE["moe_experts"]), "--moe-capacity",
+        out += ["--moe-experts", str(experts), "--moe-capacity",
                 str(MOE["moe_capacity"]), "--moe-group-size", str(MOE["moe_group_size"]),
                 "--moe-topk", str(topk), "--moe-aux-weight", str(MOE_AUX_WEIGHT)]
     return out
@@ -2447,6 +2505,17 @@ def phase_fast_gelu_kernels(M, X, smi):
     return shapes
 
 
+def _add_moe_shapes(shapes, path, timed, T, D, E, S=None, F=None):
+    """Append ``_moe_kernel_times``'s results to ``shapes`` as the kernels
+    line's per-shape entries of ``path``."""
+    for (name, topk), times in timed.items():
+        shape = (f"(E={E}, S={S}, D={D}, F={F})" if name in ("K10f", "K10b") else
+                 f"(T={T}, D={D}, E={E}, gs=256, top-{topk})")
+        shapes.setdefault(name, []).append({"path": path, "shape": shape, **dict(zip(
+            ("max_abs_err", "ms", "plain_ms"), times)), **times[3]})
+    torch.cuda.empty_cache()
+
+
 def phase_moe_xl_kernels(MD, X, ML, smi):
     """3n: the MoE at DiT-XL/4's width. K11f/K11b and K12f/K12b at the
     training shape (T 131,072 rows of D 1152, E 8, groups of 256), top-1 (cap
@@ -2459,26 +2528,18 @@ def phase_moe_xl_kernels(MD, X, ML, smi):
     bit-identical. ``{name: [{"path", "shape", ...}]}`` for the kernels line."""
     D, F, E = DIT_XL["embed_dim"], 4 * DIT_XL["embed_dim"], MOE["moe_experts"]
     T, S = TRAIN_BATCH * TRAIN_M * 64, 20480  # S: the top-1 slot rows an expert
-    keys = ("max_abs_err", "ms", "plain_ms")
     shapes = {}
-
-    def add(path, timed, T, D, E):
-        for (name, topk), times in timed.items():
-            shape = (f"(E={E}, S={S}, D={D}, F={F})" if name == "K10b" else
-                     f"(T={T}, D={D}, E={E}, gs=256, top-{topk})")
-            shapes.setdefault(name, []).append({"path": path, "shape": shape,
-                                                **dict(zip(keys, times)), **times[3]})
-        torch.cuda.empty_cache()
-
-    add("moe-xl", _moe_kernel_times(MD, X, ML, smi, D, F, (1, 2), k10f=False), T, D, E)
+    _add_moe_shapes(shapes, "moe-xl", _moe_kernel_times(MD, X, ML, smi, D, F, (1, 2),
+                                                        k10f=False), T, D, E, S, F)
     gen = torch.Generator(device="cuda").manual_seed(15)
     err, ms, plain_ms, bound = _k10p_partial(X, smi, gen, _slot_rows_ffn(gen, E, S, D, F), k=4)
     shapes["K10p"] = [{"path": "moe-xl", "shape": f"(E={E}, S={S}, D={D}, chunk {F // 4} of "
                        f"F={F})", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound}]
     torch.cuda.empty_cache()
     for e, d, topks in MOE_WIDE_SHAPES:
-        add("moe-wide", _moe_kernel_times(MD, X, ML, smi, d, None, topks, k10f=False, E=e,
-                                          T=MOE_WIDE_T, k10b=False), MOE_WIDE_T, d, e)
+        _add_moe_shapes(shapes, "moe-wide", _moe_kernel_times(
+            MD, X, ML, smi, d, None, topks, k10f=False, E=e, T=MOE_WIDE_T, k10b=False),
+            MOE_WIDE_T, d, e)
     return shapes
 
 
@@ -2606,6 +2667,73 @@ def phase_train_step_1536(cfg, smi):
                      "DiT at SD3-Medium's width (D 1536, 24 heads)", SD3_STEP)
 
 
+def phase_moe_128_kernels(MD, X, ML, smi):
+    """3q: K11f/K11b and K12f/K12b at DiT-S/4's E-128 training shape (T
+    131,072 rows of D 384, groups of 256), top-1 and top-2, with K10f/K10b on
+    the top-1 slot rows (S 4,096 an expert, F 1536); then K11/K12 at T 32,768
+    at MOE_Q_SHAPES. Each against its plain version by 3e's rule, every
+    backward's second call bit-identical. ``{name: [{"path", "shape", ...}]}``
+    for the kernels line."""
+    D, F, T = 384, 1536, TRAIN_BATCH * TRAIN_M * 64
+    S = T // 256 * 8  # the top-1 slot rows an expert: Cp 8 a group
+    shapes = {}
+    _add_moe_shapes(shapes, "moe-e128", _moe_kernel_times(MD, X, ML, smi, D, F, (1, 2), E=E128),
+                    T, D, E128, S, F)
+    for e, d, topks in MOE_Q_SHAPES:
+        _add_moe_shapes(shapes, "moe-q", _moe_kernel_times(
+            MD, X, ML, smi, d, None, topks, k10f=False, E=e, T=MOE_WIDE_T, k10b=False),
+            MOE_WIDE_T, d, e)
+    return shapes
+
+
+def _param_count(cfg) -> int:
+    from ddm_tpu_torch.models.factory import build_model
+
+    return sum(p.numel() for p in build_model(cfg, "meta").parameters())
+
+
+def phase_train_step_moe_128(cfg, smi):
+    """6q: one step of DiT-S/4 with 128 experts (top-1 and top-2, one seeded
+    draw of the weights) at batch 16 x m 8, and of the depth-1 DiT-MoE at
+    Mixtral-8x22B's widths (top-2) at 8 x m 4, against the plain step with
+    the kernel step's routing replayed, as 6c does; launches counted."""
+    e128 = {**cfg, **MOE, "moe_experts": E128}
+    weights = _seeded_weights(e128)
+    for topk in (1, 2):
+        phase_train_step({**e128, "moe_topk": topk}, smi, E128_STEP_BATCH, TRAIN_M,
+                         f"train-step-moe-e128-top{topk}", "DiT-S/4 (128 experts)", E128_STEP,
+                         weights)
+    del weights
+    mix = {**cfg, **MOE, **MIXTRAL, "moe_topk": 2}
+    if int(MIXTRAL["embed_dim"] * MIXTRAL["mlp_ratio"]) != MIXTRAL_F:
+        raise AssertionError(f"--mlp-ratio {MIXTRAL['mlp_ratio']} does not give F {MIXTRAL_F}")
+    phase_train_step(mix, smi, MIXTRAL_STEP_BATCH, MIXTRAL_STEP_M, "train-step-mixtral",
+                     "DiT-MoE at Mixtral-8x22B's widths (D 6144, 48 heads, F 16384)",
+                     MIXTRAL_STEP)
+
+
+def phase_train_moe_128(kc, name, smi):
+    """7p: the trainer with 128 experts, top-1 and top-2, E128_STEPS steps of
+    256 x m 8 each, and at Mixtral-8x22B's widths for MIXTRAL_STEPS steps of
+    MIXTRAL_BATCH x m 8; each with its parameter count and peak memory, then
+    64 samples from its checkpoint."""
+    out = []
+    runs = [(f"train-moe-e128-top{k}", {**MOE, **S_WIDTHS, "moe_experts": E128, "moe_topk": k},
+             _wide_flags(S_WIDTHS, moe=True, topk=k, experts=E128), E128_STEP, E128_SAMPLE,
+             TRAIN_BATCH, E128_STEPS) for k in (1, 2)]
+    runs.append(("train-mixtral", {**MOE, **MIXTRAL, "moe_topk": 2},
+                 _wide_flags(MIXTRAL, moe=True, topk=2), MIXTRAL_STEP, MIXTRAL_SAMPLE,
+                 MIXTRAL_BATCH, MIXTRAL_STEPS))
+    from ddm_tpu_torch.models.factory import MODEL_DEFAULTS
+
+    for label, widths, flags, per_step, per_sample, batch, steps in runs:
+        torch.cuda.empty_cache()
+        print(f"[{label}] {_param_count({**MODEL_DEFAULTS, **widths}):,} parameters", flush=True)
+        out.append(phase_train_wide(kc, name, smi, label, flags, per_step, per_sample, batch,
+                                    images=steps * batch))
+    return out
+
+
 PHASES = ("kernels", "backward", "energy", "flash", "moe-kernels", "slice", "train-step",
           "train-step-128", "train-step-moe", "train", "train-128", "train-moe", "wide-kernels",
           "wide-shapes", "train-step-l", "train-step-moe-b", "train-l", "train-moe-b",
@@ -2614,7 +2742,8 @@ PHASES = ("kernels", "backward", "energy", "flash", "moe-kernels", "slice", "tra
           "tp-kernels", "train-step-tp", "train-tp", "xl-kernels", "fast-gelu-kernels",
           "train-step-xl", "train-step-fast-gelu", "train-xl", "train-xl64", "moe-xl-kernels",
           "train-step-moe-xl", "train-moe-xl", "flash-widths", "train-step-heads", "train-heads",
-          "wide-mlp-kernels", "train-step-1536", "train-1536")
+          "wide-mlp-kernels", "train-step-1536", "train-1536", "moe-128-kernels",
+          "train-step-moe-128", "train-moe-128")
 # launches per training step and per 20-step sampler call on the wide paths;
 # the DiT-L trainer (7d) runs depth 12 since PR 9 (7k runs its kernels at
 # DiT-XL's full depth 28)
@@ -2660,10 +2789,10 @@ MOE_XL_STEP = {**{k: DIT_XL["depth"] for k in ("K2f", "K4", "K11f", "K11b", "K10
                "K3f": 1, "K3b": 1}
 MOE_XL_SAMPLE = {**{k: DIT_XL["depth"] * STEPS for k in ("K2f", "K11f", "K12f")},
                  "K10p": 4 * DIT_XL["depth"] * STEPS}
-MOE_XL_BATCH, MOE_XL_STEPS = {1: 256, 2: 128}, 4
-# to keep the whole run near its earlier length with 3n, 6n and 7m added
-# (PR 10), the DiT-L 64-px trainer (7i) and the XL trainers (7k, 7l) run 512
-# synthetic images (1024 for 7k: 4 steps of 256), not an epoch of 2048
+MOE_XL_BATCH, MOE_XL_STEPS = {1: 256, 2: 128}, 2
+# to keep the whole run within its time limit, the DiT-L 64-px trainer (7i)
+# runs 512 synthetic images (8 steps of 64), not an epoch of 2048, and the
+# XL trainers 512 (7k: 2 steps of 256) and 256 (7l: 4 steps of 64)
 SHORT_IMAGES = 512
 # 3n's further K11/K12 shapes at T 32,768: (E, D, top-k)
 MOE_WIDE_T = 32768
@@ -2673,6 +2802,15 @@ MOE_WIDE_SHAPES = ((16, 1152, (2,)), (8, 2048, (1, 2)), (8, 4096, (1, 2)), (64, 
 SD3_STEP = {"K7f": SD3_M["depth"], "K7b": SD3_M["depth"], "K1b": SD3_M["depth"],
             "K6f": SD3_K * SD3_M["depth"], "K3f": 1, "K3b": 1}
 SD3_SAMPLE = {"K7f": SD3_M["depth"] * STEPS, "K6f": SD3_K * SD3_M["depth"] * STEPS}
+# ... and the MoE at 128 experts (the expert FFN's fused tier: K10f, K10b)
+# and at Mixtral-8x22B's widths (no attention or expert FFN tier: only K11,
+# K12 and K3 launch)
+E128_STEP = {**{k: DEPTH for k in ("K2f", "K2b", "K11f", "K11b", "K10f", "K10b", "K12f",
+                                   "K12b")}, "K3f": 1, "K3b": 1}
+E128_SAMPLE = {k: DEPTH * STEPS for k in ("K2f", "K11f", "K10f", "K12f")}
+MIXTRAL_STEP = {**{k: MIXTRAL["depth"] for k in ("K11f", "K11b", "K12f", "K12b")},
+                "K3f": 1, "K3b": 1}
+MIXTRAL_SAMPLE = {k: MIXTRAL["depth"] * STEPS for k in ("K11f", "K12f")}
 
 
 def main(argv=None) -> None:
@@ -2761,10 +2899,10 @@ def main(argv=None) -> None:
             phase_train_step({**moe_cfg, "fast_gelu": True}, smi, label="train-step-moe-fast-gelu",
                              model_name="DiT-S/4 --fast-gelu", launches=FAST_MOE_STEP))),
         ("train-xl", lambda: phase_train_wide(kc, name, smi, "train-xl", _wide_flags(DIT_XL),
-                                              XL_STEP, XL_SAMPLE, images=2 * SHORT_IMAGES)),
+                                              XL_STEP, XL_SAMPLE, images=SHORT_IMAGES)),
         ("train-xl64", lambda: phase_train_wide(kc, name, smi, "train-xl64", _wide_flags(DIT_XL),
                                                 XL64_STEP, XL64_SAMPLE, PX64_BATCH, PX64_M,
-                                                PX64_SIZE, images=SHORT_IMAGES)),
+                                                PX64_SIZE, images=SHORT_IMAGES // 2)),
         ("moe-xl-kernels", lambda: phase_moe_xl_kernels(MD, X, M, smi)),
         ("train-step-moe-xl", lambda: phase_train_step_moe_xl(cfg, smi)),
         ("train-moe-xl", lambda: phase_train_moe_xl(kc, name, smi)),
@@ -2780,6 +2918,9 @@ def main(argv=None) -> None:
         ("train-1536", lambda: phase_train_wide(kc, name, smi, "train-1536", _wide_flags(SD3_M),
                                                 SD3_STEP, SD3_SAMPLE,
                                                 images=SD3_STEPS * TRAIN_BATCH)),
+        ("moe-128-kernels", lambda: phase_moe_128_kernels(MD, X, M, smi)),
+        ("train-step-moe-128", lambda: phase_train_step_moe_128(cfg, smi)),
+        ("train-moe-128", lambda: phase_train_moe_128(kc, name, smi)),
     ]
     out = {}
     t_run = time.perf_counter()
@@ -2815,7 +2956,10 @@ def main(argv=None) -> None:
              "moe-xl-top2": ([], *out["train-moe-xl"][1]),
              "128px-b-h3": ([], *out["train-heads"][0]),
              "128px-s-h24": ([], *out["train-heads"][1]),
-             "sd3-m": ([], *out["train-1536"])}
+             "sd3-m": ([], *out["train-1536"]),
+             "moe-e128-top1": ([], *out["train-moe-128"][0]),
+             "moe-e128-top2": ([], *out["train-moe-128"][1]),
+             "mixtral": ([], *out["train-moe-128"][2])}
     kernels = []
     for entries, trained, sampled in paths.values():
         for k in entries:
@@ -2829,7 +2973,7 @@ def main(argv=None) -> None:
         for shapes in (out["wide-shapes"], out["attention-256"], out["dit-b-kernels"],
                        out["m32-kernels"], out["attention-core"][1], out["tp-kernels"][1],
                        out["xl-kernels"], out["fast-gelu-kernels"], out["moe-xl-kernels"],
-                       out["flash-widths"], out["wide-mlp-kernels"]):
+                       out["flash-widths"], out["wide-mlp-kernels"], out["moe-128-kernels"]):
             k.setdefault("shapes", []).extend(shapes.get(k["name"], []))
     k8 = sorted({s["Dh"] for k in kernels if k["name"] == "K8f" for s in k["shapes"]})
     print(f"[k8-widths] K8f and K8b held against their plain versions on the card at Dh {k8}; "

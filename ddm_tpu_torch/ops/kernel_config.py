@@ -80,12 +80,12 @@ _SIGNATURES = {
     "ddm_flash_fwd": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _F, _P],
     # q, k, v, ld, o, dout, lse, dsum, dqkv, B, N, H, Dh, scale, stream
     "ddm_flash_bwd": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    # x, scale, bias, wr, br, xin, gates, pos1, pos2, probs, part, cnt_psum,
+    # x, scale, bias, wrt, br, xin, gates, pos1, pos2, probs, part, cnt_psum,
     # G, gs, n_valid, D, E, cap, cpad, topk, stream
     "ddm_moe_dispatch_fwd": [_P] * 12 + [_I] * 8 + [_P],
-    # x, scale, bias, wr, pos1, pos2, probs, dxin, dgates, dpsum, dres, dx, dl, part, sums,
-    # G, gs, n_valid, D, E, cap, cpad, topk, stream
-    "ddm_moe_dispatch_bwd": [_P] * 15 + [_I] * 8 + [_P],
+    # x, scale, bias, wrt, pos1, pos2, probs, dxin, dgates, dpsum, dres, dx, dl, part, tmp,
+    # sums, G, gs, n_valid, D, E, cap, cpad, topk, slab, stream
+    "ddm_moe_dispatch_bwd": [_P] * 16 + [_I] * 9 + [_P],
     # eout, gates, pos1, pos2, res, tok, G, gs, D, E, cap, cpad, topk, stream
     "ddm_moe_combine_fwd": [_P] * 6 + [_I] * 7 + [_P],
     # eout, gates, pos1, pos2, dpart, deout, dgates, G, gs, D, E, cap, cpad, topk, stream

@@ -85,37 +85,31 @@ def moe_cfg(T: int, num_experts: int, group_size: int, capacity: float,
     return cfg, -(-T // gs) * gs
 
 
-# the widest shapes K11 and K12 take: a row is staged in shared memory
-# (8 warps x D bf16, 64 KB at the bound), each lane holds two experts
-MOE_MAX_D, MOE_MAX_E = 4096, 64
-
-
 def moe_dispatch_ok(gs: int, E: int, cap: int, D: int, topk: int) -> bool:
-    """The shapes K11 and K12 take: one routing group per block of 256
-    threads with gs <= 2048 rows (gs % 8 == 0), two experts per lane
-    (2 <= E <= 64), a lane-aligned row (D % 128 == 0, as the JAX gate asks)
-    staged in shared memory (D <= 4096); the backward tiles D, so its
-    shared memory does not grow with D * E."""
-    return (topk in (1, 2) and 0 < gs <= 2048 and gs % 8 == 0 and 2 <= E <= MOE_MAX_E
-            and D % 128 == 0 and D <= MOE_MAX_D and cap >= 1)
-
-
-def _jax_takes(gs: int, E: int, cap: int, D: int, topk: int) -> bool:
-    """The JAX gate (``moe_dispatch_ok`` of ``ddm_tpu/ops/moe_dispatch.py:633``:
-    D % 128 == 0, E >= 2, no bound on D or E). Where it refuses, JAX runs
-    its einsum path, and the port its plain versions, on any device."""
+    """The shapes K11 and K12 take, the JAX gate's (``moe_dispatch_ok`` of
+    ``ddm_tpu/ops/moe_dispatch.py:633``): one routing group per block of 256
+    threads with gs <= 2048 rows (gs % 8 == 0), E >= 2 experts, a
+    lane-aligned row (D % 128 == 0), top-1 or top-2 and cap >= 1; no bound
+    on D or E. Where it refuses, JAX runs its einsum path, and the port its
+    plain versions, on any device. A shape whose per-row and per-expert
+    state passes the card's shared memory (E past ~2,700 at gs 2048) raises
+    at launch."""
     return (topk in (1, 2) and 0 < gs <= 2048 and gs % 8 == 0 and D % 128 == 0 and E >= 2
             and cap >= 1)
 
 
-def _refuse_unported(gs: int, E: int, cap: int, D: int, topk: int, kernel: str) -> None:
-    """Raise ``NotImplementedError`` where the JAX gate takes K11/K12 and
-    the port's kernels do not."""
-    if _jax_takes(gs, E, cap, D, topk) and not moe_dispatch_ok(gs, E, cap, D, topk):
-        raise NotImplementedError(
-            f"the JAX gate takes {kernel} at D={D}, E={E}; the port's kernels stage a row in "
-            f"shared memory (D <= {MOE_MAX_D}) and hold two experts a lane (E <= {MOE_MAX_E}): "
-            f"ROADMAP.md Queue 2 (K11/K12 at D > {MOE_MAX_D} or E > {MOE_MAX_E})")
+# K11b's per-group partials (G, 2D + D*E + E) fp32 are reduced in column
+# slabs past this many bytes (a slab reruns the backward's first pass)
+MOE_BWD_SCRATCH_BYTES = 1 << 30
+
+
+def _bwd_slab(G: int, D: int, E: int) -> int:
+    """Columns per slab of K11b's partials: all D where they fit in
+    MOE_BWD_SCRATCH_BYTES, else the most multiples of 128 that do (at least 128)."""
+    if G * (2 * D + D * E + E) * 4 <= MOE_BWD_SCRATCH_BYTES:
+        return D
+    per_column = G * (2 + E) * 4
+    return min(D, max(128, (MOE_BWD_SCRATCH_BYTES - G * E * 4) // per_column // 128 * 128))
 
 
 def chosen(pos: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -288,7 +282,6 @@ def _check_dispatch(cfg: MoEDispatchCfg, x, scale, bias, wr, br=None):
         raise TypeError(f"K11 takes bf16 rows, got {x.dtype}")
     Tp, D = x.shape
     E = cfg.num_experts
-    _refuse_unported(cfg.gs, E, cfg.cap, D, cfg.topk, "K11")
     if not moe_dispatch_ok(cfg.gs, E, cfg.cap, D, cfg.topk) or cfg.cpad % 8 or cfg.cpad < cfg.cap:
         raise ValueError(f"K11/K12 do not take gs={cfg.gs}, E={E}, cap={cfg.cap}, "
                          f"cpad={cfg.cpad}, D={D}, topk={cfg.topk} (see moe_dispatch_ok)")
@@ -321,7 +314,7 @@ def _k11f(cfg, x, scale, bias, wr, br, n_valid):
     E, gs = cfg.num_experts, cfg.gs
     G = Tp // gs
     dev = x.device
-    params = (_f32(scale), _f32(bias), _f32(wr), _f32(br))
+    params = (_f32(scale), _f32(bias), _f32(wr.t()), _f32(br))  # wr^T (E, D)
     xin = torch.empty((E, G * cfg.cpad, D), dtype=x.dtype, device=dev)
     gates = torch.empty((G, gs, 2), dtype=torch.float32, device=dev)
     pos1, pos2, probs = (torch.empty((G, gs, E), dtype=torch.float32, device=dev)
@@ -330,7 +323,8 @@ def _k11f(cfg, x, scale, bias, wr, br, n_valid):
     cnt_psum = torch.empty((2, E), dtype=torch.float32, device=dev)
     check_status(load_library().ddm_moe_dispatch_fwd(
         *_ptrs(x, *params, xin, gates, pos1, pos2, probs, part, cnt_psum), G, gs, n_valid, D,
-        E, cfg.cap, cfg.cpad, cfg.topk, current_stream(dev)), "moe_dispatch_fwd")
+        E, cfg.cap, cfg.cpad, cfg.topk, current_stream(dev)),
+        f"moe_dispatch_fwd at gs={gs}, D={D}, E={E}")
     DISPATCH_LAUNCHES.add()
     return xin, gates, pos1, pos2, probs, cnt_psum[0].clone(), cnt_psum[1].clone()
 
@@ -343,16 +337,19 @@ def _k11b(cfg, x, scale, bias, wr, pos1, pos2, probs, dxin, dgates, dpsum, dres,
     if dxin.shape != (E, G * cfg.cpad, D) or dgates.shape != (G, gs, 2) or \
             (dres is not None and dres.shape != x.shape):
         raise ValueError("K11b cotangents must match xin, gates and x")
-    ins = (_f32(scale), _f32(bias), _f32(wr), _f32(pos1), _f32(pos2), _f32(probs), _bf16(dxin),
-           _f32(dgates), _f32(dpsum), None if dres is None else _bf16(dres))
-    width = 2 * D + D * E + E
+    ins = (_f32(scale), _f32(bias), _f32(wr.t()), _f32(pos1), _f32(pos2), _f32(probs),
+           _bf16(dxin), _f32(dgates), _f32(dpsum), None if dres is None else _bf16(dres))
+    slab = _bwd_slab(G, D, E)
+    width = 2 * slab + slab * E + E
     dx = torch.empty_like(x)
     dl = torch.empty((Tp, E), dtype=torch.float32, device=dev)  # the rows' dlogits
     part = torch.empty((G, width), dtype=torch.float32, device=dev)
-    sums = torch.empty((width,), dtype=torch.float32, device=dev)
+    tmp = torch.empty((width,), dtype=torch.float32, device=dev) if slab < D else None
+    sums = torch.empty((2 * D + D * E + E,), dtype=torch.float32, device=dev)
     check_status(load_library().ddm_moe_dispatch_bwd(
-        *_ptrs(x, *ins, dx, dl, part, sums), G, gs, n_valid, D, E, cfg.cap, cfg.cpad, cfg.topk,
-        current_stream(dev)), "moe_dispatch_bwd")
+        *_ptrs(x, *ins, dx, dl, part, tmp, sums), G, gs, n_valid, D, E, cfg.cap, cfg.cpad,
+        cfg.topk, slab, current_stream(dev)),
+        f"moe_dispatch_bwd at gs={gs}, D={D}, E={E}")
     DISPATCH_BWD_LAUNCHES.add()
     return dx, sums[:D], sums[D:2 * D], sums[2 * D:2 * D + D * E].view(D, E), sums[2 * D + D * E:]
 
@@ -361,7 +358,6 @@ def _check_combine(cfg, out, gates, pos1, pos2, res):
     if out.dtype != torch.bfloat16 or (res is not None and res.dtype != torch.bfloat16):
         raise TypeError(f"K12 takes bf16 expert outputs and residual, got {out.dtype}")
     E, S, D = out.shape
-    _refuse_unported(cfg.gs, E, cfg.cap, D, cfg.topk, "K12")
     if E != cfg.num_experts or S % cfg.cpad or not moe_dispatch_ok(cfg.gs, E, cfg.cap, D,
                                                                      cfg.topk):
         raise ValueError(f"K12 does not take expert outputs {tuple(out.shape)} with {cfg}")
@@ -395,7 +391,7 @@ def _k12b(cfg, out, gates, pos1, pos2, dpart):
     dgates = torch.empty((G, cfg.gs, 2), dtype=torch.float32, device=out.device)
     check_status(load_library().ddm_moe_combine_bwd(
         *_ptrs(*ins, dout, dgates), G, cfg.gs, D, E, cfg.cap, cfg.cpad, cfg.topk,
-        current_stream(out.device)), "moe_combine_bwd")
+        current_stream(out.device)), f"moe_combine_bwd at E={E}")
     COMBINE_BWD_LAUNCHES.add()
     return dout, dgates
 
@@ -404,7 +400,7 @@ def _k12b(cfg, out, gates, pos1, pos2, dpart):
 
 def _einsum_path(cfg: MoEDispatchCfg, D: int) -> bool:
     """Where the JAX gate refuses K11/K12 and JAX runs its einsum path."""
-    return not _jax_takes(cfg.gs, cfg.num_experts, cfg.cap, D, cfg.topk)
+    return not moe_dispatch_ok(cfg.gs, cfg.num_experts, cfg.cap, D, cfg.topk)
 
 
 def moe_dispatch_fwd(cfg, x, scale, bias, wr, br, n_valid=None):

@@ -9,6 +9,8 @@ without the JAX test harness:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+import math
+
 import numpy as np
 import pytest
 
@@ -554,6 +556,18 @@ def _moe_inputs(device, T, D, E, seed=10):
     return (x.to(torch.bfloat16), *rest)
 
 
+def _softmax_close(got, want, tol):
+    """Router probabilities or gates against the plain version's, where
+    every logit may move by up to ``tol``: a softmax output p (and a top-2
+    gate, a softmax of two logits) then moves by at most p (e^(2 tol) - 1),
+    plus four fp32 units of p for its own roundings. Relative, so that a
+    wrong probability fails at any E, however small 1 / E is."""
+    want = want.float()
+    f32 = torch.finfo(torch.float32)
+    bound = want * (math.expm1(2 * tol) + 4 * f32.eps) + f32.tiny
+    assert bool(((got.float() - want).abs() <= bound).all())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("topk", [1, 2])
 @pytest.mark.parametrize("T,D,E,gs,n_valid", [(131072, 384, 8, 256, 131072),
@@ -561,18 +575,30 @@ def _moe_inputs(device, T, D, E, seed=10):
                                               (32768, 1152, 8, 256, 32768),
                                               (32768, 1152, 16, 256, 32700),
                                               (16384, 2048, 8, 256, 16384),
-                                              (8192, 384, 64, 256, 8192)])
+                                              (8192, 384, 64, 256, 8192),
+                                              (131072, 384, 128, 256, 131072),
+                                              (32768, 384, 256, 256, 32768),
+                                              (32768, 384, 512, 256, 32700),
+                                              (32768, 4224, 8, 256, 32768),
+                                              (32768, 6144, 8, 256, 32768),
+                                              (32768, 8192, 8, 256, 32768),
+                                              (2048, 11520, 8, 2048, 2048)])
 def test_k11_k12_kernels_match_plain_on_the_card(cuda_device, topk, T, D, E, gs, n_valid):
     """Dispatch and combine, forward and backward, against their plain
     versions; the second case pads 62 rows that take no route, the next ones
     are DiT-XL/4's width with 8 and 16 experts (68 padded rows), D 2048 (the
-    backward's column tiles) and 64 experts (two a lane). The kernel's
+    backward's column tiles), 64 experts (two a lane), DiT-S/4's 128 routed
+    experts at its training shape, 256 and 512 experts (the backward's tile
+    narrowed to fit E), D 4224, 6144 and 8192 past the earlier bound of
+    4096 (Mixtral-8x22B's width among them), and D 11,520 in one group of
+    2048 rows (the most a group takes, its per-row state filling 48 KB of
+    shared memory). The kernel's
     LN statistics differ from the plain version's in the last fp32 bits,
     which can flip the bf16 rounding of an LN output entry and so move a
     logit by one bf16 unit of the largest |yb| times max |wr|: a token may
     route otherwise only within twice that of a tie, the gates and router
-    probabilities agree to it, and groups whose routing differs are left
-    out of the slot-row comparison."""
+    probabilities agree to it as softmax outputs do (:func:`_softmax_close`),
+    and groups whose routing differs are left out of the slot-row comparison."""
     cfg, _ = TD.moe_cfg(T, E, gs, 1.25, topk)
     G = T // gs
     x, scale, bias, wr, br = _moe_inputs(cuda_device, T, D, E)
@@ -593,8 +619,8 @@ def test_k11_k12_kernels_match_plain_on_the_card(cuda_device, topk, T, D, E, gs,
     slots = lambda t: t.view(E, G, cfg.cpad, D)[:, agree]  # noqa: E731
     _assert_bf16_rule(slots(xin), slots(want[0]))
     assert not slots(xin)[~slots(want[0]).any(-1)].any()  # unheld slot rows are zeros
-    assert float((gates[agree] - want[1][agree]).abs().max()) <= tol
-    assert float((probs - want[4]).abs().max()) <= tol
+    _softmax_close(gates[agree], want[1][agree], tol)
+    _softmax_close(probs, want[4], tol)
     assert float((cnt - want[5]).abs().max()) <= int(moved.sum())
     torch.testing.assert_close(psum, want[6], rtol=1e-5, atol=0)
     assert not gates.view(-1, 2)[n_valid:].any() and (pos1.view(-1, E)[n_valid:] < 0).all()
@@ -633,6 +659,34 @@ def test_k11_k12_kernels_match_plain_on_the_card(cuda_device, topk, T, D, E, gs,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("T,D,E,topk,gs,slab", [(8192, 4096, 8, 2, 256, 1024),
+                                                 (8192, 384, 128, 1, 256, 128),
+                                                 (4096, 2048, 64, 2, 256, 640),
+                                                 (2048, 11520, 8, 2, 2048, 1280)])
+def test_k11b_column_slabs_keep_the_bits(cuda_device, monkeypatch, T, D, E, topk, gs, slab):
+    """K11b with its per-group partials reduced in column slabs (a scratch
+    bound lowered until ``_bwd_slab`` gives ``slab``; 640 leaves a short last
+    slab at D 2048, 1280 nine slabs of one 2048-row group at D 11,520):
+    bit-identical to the one-slab launch."""
+    cfg, _ = TD.moe_cfg(T, E, gs, 1.25, topk)
+    G = T // gs
+    x, scale, bias, wr, br = _moe_inputs(cuda_device, T, D, E)
+    xin, gates, pos1, pos2, probs = TD._k11f(cfg, x, scale, bias, wr, br, T)[:5]
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    dxin = torch.randn(xin.shape, generator=gen, device=cuda_device).to(torch.bfloat16)
+    dgates = torch.randn(gates.shape, generator=gen, device=cuda_device)
+    dpsum = torch.randn((E,), generator=gen, device=cuda_device)
+    dres = torch.randn(x.shape, generator=gen, device=cuda_device).to(torch.bfloat16)
+    args = (cfg, x, scale, bias, wr, pos1, pos2, probs, dxin, dgates, dpsum, dres, T)
+    assert TD._bwd_slab(G, D, E) == D  # these shapes take one slab by default
+    one = TD._k11b(*args)
+    monkeypatch.setattr(TD, "MOE_BWD_SCRATCH_BYTES", G * E * 4 + slab * G * (2 + E) * 4)
+    assert TD._bwd_slab(G, D, E) == slab
+    for a, b in zip(one, TD._k11b(*args)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 def test_moe_kernels_refuse_what_they_do_not_take(cuda_device):
     x, scale, bias, wr, br = _moe_inputs(cuda_device, 200, 128, 4)
     cfg, _ = TD.moe_cfg(200, 4, 100, 1.25, 1)  # gs = 100 is not a multiple of 8
@@ -647,11 +701,20 @@ def test_moe_kernels_refuse_what_they_do_not_take(cuda_device):
     cfg, _ = TD.moe_cfg(200, 4, 40, 1.25, 1)
     with pytest.raises(TypeError, match="bf16"):
         TD.moe_dispatch_fwd(cfg, x.float(), scale, bias, wr, br)
-    # past the kernels' bounds, where the JAX gate still takes them: Queue 2
+    # every E the JAX gate takes launches (72: a lane holds three experts) ...
     x, scale, bias, wr, br = _moe_inputs(cuda_device, 256, 128, 72)
     cfg, _ = TD.moe_cfg(256, 72, 256, 1.25, 1)
-    with pytest.raises(NotImplementedError, match="E=72.*Queue 2"):
+    before = TD.DISPATCH_LAUNCHES.count
+    TD.moe_dispatch_fwd(cfg, x, scale, bias, wr, br)
+    assert TD.DISPATCH_LAUNCHES.count == before + 1
+    # ... as far as a block's per-expert state fits the card's shared
+    # memory: past it the launcher raises before any launch, and never
+    # falls back to the plain version
+    x, scale, bias, wr, br = _moe_inputs(cuda_device, 2048, 128, 8192)
+    cfg, _ = TD.moe_cfg(2048, 8192, 2048, 1.25, 1)
+    with pytest.raises(RuntimeError, match="moe_dispatch_fwd at gs=2048, D=128, E=8192"):
         TD.moe_dispatch_fwd(cfg, x, scale, bias, wr, br)
+    assert TD.DISPATCH_LAUNCHES.count == before + 1
     w1 = torch.zeros(4, 128, 256, device=cuda_device)
     with pytest.raises(TypeError, match="bf16"):
         TX.expert_ffn(torch.zeros(4, 16, 128, device=cuda_device), w1,

@@ -31,7 +31,9 @@ from ddm_tpu_torch.training import distributional_training_step  # noqa: E402
 from ddm_tpu_torch.utils.convert import jax_tree_from_state_dict, state_dict_from_jax  # noqa: E402
 
 D, F, E, GS, AUX_W = 128, 256, 4, 32, 0.01
-LAYER_CASES = {"top1": (1, 1.25), "top2": (2, 1.25), "top1-drops": (1, 0.4)}
+# name: (topk, capacity, experts); 128 experts at top-2 (Arctic's count)
+LAYER_CASES = {"top1": (1, 1.25, E), "top2": (2, 1.25, E), "top1-drops": (1, 0.4, E),
+               "e128-top2": (2, 1.25, 128)}
 CFG = dict(img=16, patch=4, dim=128, depth=2, heads=2, tdim=32)
 # DiT-XL/4's widths (D 1152, 16 heads of Dh 72, F 4608) at depth 1, 8 experts
 XL_CFG, XL_E = dict(img=16, patch=4, dim=1152, depth=1, heads=16, tdim=32), 8
@@ -42,12 +44,13 @@ F32_TOL = dict(rtol=1e-4, atol=1e-5)
 LEAVES = ("experts_in", "experts_in_bias", "experts_out", "experts_out_bias")
 
 
-def _layer_setup(topk, capacity, T, seed=0):
+def _layer_setup(topk, capacity, T, seed=0, experts=E):
     r = np.random.default_rng(seed)
     rows = r.standard_normal((T, D)).astype(np.float32)
     s = (1 + 0.1 * r.standard_normal(D)).astype(np.float32)
     b = (0.1 * r.standard_normal(D)).astype(np.float32)
-    mod = JaxMoE(D, F, E, capacity_factor=capacity, group_size=GS, topk=topk, dtype=jnp.float32)
+    mod = JaxMoE(D, F, experts, capacity_factor=capacity, group_size=GS, topk=topk,
+                 dtype=jnp.float32)
     params = mod.init(jax.random.PRNGKey(seed), jnp.asarray(rows), ln_scale=jnp.asarray(s),
                       ln_bias=jnp.asarray(b))
     # non-zero biases, and a router whose logits spread over a few units
@@ -79,7 +82,7 @@ def _port_layer(topk, capacity, params, rows, s, b, cot, aux_only=False, fn=None
     """The port's layer (or ``fn(layer, rows, s, b)``) on the JAX params:
     output, aux and the gradients of ``<out, cot> + AUX_W * aux``."""
     p = params["params"]
-    layer = MoEMLP(D, F, E, capacity=capacity, group_size=GS, topk=topk)
+    layer = MoEMLP(D, F, len(p["router_bias"]), capacity=capacity, group_size=GS, topk=topk)
     layer.load_state_dict({"router.weight": torch.from_numpy(np.asarray(p["router_kernel"]).T
                                                              .copy()),
                            "router.bias": torch.from_numpy(np.asarray(p["router_bias"])),
@@ -110,8 +113,8 @@ def test_moe_layer_matches_jax(monkeypatch, case, kernels):
     """The port's MoEMLP ("rows" residual) against JAX's, its fused Pallas
     chain in interpret mode or its einsum path: output, aux and every
     gradient, router and experts included."""
-    topk, capacity = LAYER_CASES[case]
-    mod, params, rows, s, b, cot = _layer_setup(topk, capacity, T=128)
+    topk, capacity, experts = LAYER_CASES[case]
+    mod, params, rows, s, b, cot = _layer_setup(topk, capacity, T=128, experts=experts)
     calls = []
     if kernels == "interpret":
         monkeypatch.setenv("DDM_TPU_PALLAS_INTERPRET", "1")
@@ -145,8 +148,9 @@ def test_einsum_reference_matches_jax_and_the_fused_chain(case):
     einsum path, against that path (kernels off), and the port's chain of
     K11/K10/K12 plain versions against it: output, aux and every gradient.
     "ragged" is T = 100 rows, padded to 128 in 32-row groups."""
-    topk, capacity = LAYER_CASES.get(case, (1, 1.25))
-    setup = _layer_setup(topk, capacity, T=100 if case == "ragged" else 128, seed=7)
+    topk, capacity, experts = LAYER_CASES.get(case, (1, 1.25, E))
+    setup = _layer_setup(topk, capacity, T=100 if case == "ragged" else 128, seed=7,
+                         experts=experts)
     want_out, want_aux, want = _jax_layer(*setup)
     ref_out, ref_aux, ref = _port_layer(topk, capacity, *setup[1:], fn=moe_mlp_reference)
     np.testing.assert_allclose(ref_out, want_out, rtol=1e-5, atol=1e-5)

@@ -199,6 +199,29 @@ def test_train_cli_moe_top2_16_experts_on_cpu(tmp_path, monkeypatch):
     assert samples.shape == (4, 16, 16, 3) and np.isfinite(samples).all()
 
 
+@pytest.mark.parametrize("topk", [1, 2])
+def test_train_cli_moe_128_experts_on_cpu(tmp_path, monkeypatch, topk):
+    """--moe-experts 128 (DiT-S/4's 128 routed experts, top-1 and top-2, at
+    a tiny width): the port routes every expert count the JAX gate takes;
+    then generate_torch on its checkpoint."""
+    monkeypatch.setattr(cli, "CIFAR10DataConfig",
+                        functools.partial(CIFAR10DataConfig, synthetic_size=128))
+    cli.main([*TINY, "--image-size", "16", "--moe-experts", "128", "--moe-topk", str(topk),
+              "--moe-group-size", "64", "--out", str(tmp_path)])
+    history = json.loads((tmp_path / "train_metrics.json").read_text())
+    assert history["step"] == [1, 2]
+    assert np.isfinite(history["loss"]).all() and np.isfinite(history["moe_aux"]).all()
+    state = torch.load(tmp_path / "model_final.pt", weights_only=False)
+    assert (state["config"]["moe_experts"], state["config"]["moe_topk"]) == (128, topk)
+    assert state["model"]["blocks.0.moe.router.weight"].shape == (128, 64)
+    assert state["model"]["blocks.1.moe.experts_in"].shape == (128, 64, 256)
+    npz = tmp_path / "s.npz"
+    generate_torch.main(["--ckpt", str(tmp_path), "--n", "4", "--steps", "2", "--device", "cpu",
+                         "--out", "", "--npz", str(npz)])
+    samples = np.load(npz)["samples"]
+    assert samples.shape == (4, 16, 16, 3) and np.isfinite(samples).all()
+
+
 @pytest.mark.parametrize("flags", [["--moe-topk", "3"], ["--mlp-persist", "2"]])
 def test_train_cli_refuses_what_the_jax_parser_refuses_with_moe(tmp_path, flags):
     with mock.patch.object(cli, "train") as train:
