@@ -26,7 +26,11 @@ K10p and K10b); then K8 at every other head width the JAX gate admits (Dh
 ``--heads 24`` (Dh 16) training and sampling at 128 px, and the third
 rung's plain products at D 1472; then the MLP half-block past D 1344 (the
 streamed LN-prologue GEMM) and a DiT at SD3-Medium's width (D 1536, depth
-24, 24 heads) training and sampling.
+24, 24 heads) training and sampling; then K11/K12 at 128 experts and at
+Mixtral-8x22B's widths; then the attention cores past the card's 227 KB of
+shared memory (the streamed K2/K4/K7 cores), with DiT-S/4 at ``--heads 1``
+and 64 px, DiT-B/4 at ``--heads 1`` and DiT-L/4 at ``--heads 2`` and 64 px
+training and sampling.
 
 Run from the repository root with no arguments:
 
@@ -259,10 +263,12 @@ after those:
     step with the kernel step's routing replayed (as 6c), within twice
     bf16's own noise; launches per step 28 each of K2f, K4, K11f, K11b, K10b,
     K12f, K12b, 112 of K10p, 1 each of K3f, K3b;
-7m. (train-moe-xl) the trainer at XL MoE width for 2 steps, top-1 at batch
-    256 x m 8 and top-2 at 128 x m 8, its peak memory, then 64 samples from
-    its ``model_final.pt``; launches per step as 6n, per sampler call 560
-    each of K2f, K11f, K12f and 2,240 of K10p.
+7m. (train-moe-xl) the trainer at XL MoE width and depth 8 (28 before PR
+    15; 6n steps the full depth) for 2 steps, top-1 at batch 256 x m 8 and
+    top-2 at 128 x m 8, its peak memory, then 64 samples from its
+    ``model_final.pt``; launches per step 8 each of K2f, K4, K11f, K11b,
+    K10b, K12f, K12b, 32 of K10p, 1 each of K3f, K3b; per sampler call 160
+    each of K2f, K11f, K12f and 640 of K10p.
 
 K8 at every head width the JAX gate admits, after those:
 
@@ -334,6 +340,32 @@ Arctic's at top-2) and a depth-1 DiT-MoE at Mixtral-8x22B's widths (D 6144,
     expert FFN backward, with its fp32 hidden, fits), finite losses,
     parameter count, peak memory and img/s, then 64 samples from each
     checkpoint.
+
+The attention cores past 227 KB of shared memory, after those:
+
+3r. (streamed-kernels) the forward and backward cores, by the library's
+    plan (a whole head where it fits, 64-column chunks elsewhere), at the
+    three paths' training shapes: K2f's and K2b's at (256, 256, H 1, Dh
+    384), K2f's and K4's at (2048, 64, H 1, Dh 768) (att written), K7f and
+    K7b at (256, 256, H 2, Dh 512); then K7f/K7b at the widest head the JAX
+    gates send at N 16, 144, 256 and 400 (Dh 3712, 3328, 1792, 1024; 64
+    images); each against its plain version by the bf16 rule, the backward
+    twice (bit-identical), timed with its plan, bound, the kernels' spill
+    bytes and SDPA's first fused backend that takes the width; then the
+    streamed design forced where a resident one runs, at (64, 64, H 6, Dh
+    64), (64, 256, 4, 256), (16, 512, 2, 64), (64, 256, 4, 72) and (64, 112,
+    6, 64): forward and backward bit for bit the resident design (two
+    passes, or the one-block core), both timed in turns;
+6r. (train-step-heads1) one step of DiT-S/4 --heads 1 at 64 px (64 x m 4),
+    DiT-B/4 --heads 1 (16 x m 8) and DiT-L/4 --heads 2 at 64 px, depth 8 (8
+    x m 4), through the kernels twice (bit-identical) against the plain step
+    within twice bf16's own noise; launches 8 each of K2f, K2b, K1f, K1b;
+    12 each of K2f, K4, K1f, K1b; 8 each of K7f, K7b, K1b and 16 of K6f;
+    1 each of K3f, K3b;
+7q. (train-heads1) the trainer on those three paths (8 steps of 64 x m 4,
+    4 of 256 x m 8, 8 of 64 x m 4), finite losses, peak memory and img/s,
+    then 64 samples each; launches per step as 6r, per sampler call 160
+    each of K2f and K1f, 240 each, and 160 of K7f with 320 of K6f.
 
 The DiT-S phases run at full width and depth 8. PERF.md gives the whole
 run's measured time on the card, the kernels' build included, against the
@@ -1892,13 +1924,14 @@ def phase_attention_256(M, A, smi):
     qkv = torch.randn(B, N, 3 * H * Dh, generator=gen, device="cuda").to(torch.bfloat16)
     datt = torch.randn(B, N, H * Dh, generator=gen, device="cuda").to(torch.bfloat16)
     with torch.no_grad():
-        cores = {tiled: _median_ms(lambda t=tiled: A._core_bwd_att(qkv, datt, H, tiled=t))
-                 for tiled in (False, True, False, True)}
+        cores = {d: _median_ms(lambda d=d: A._core_bwd_att(qkv, datt, H, d))
+                 for d in ("one-block", "two-pass", "one-block", "two-pass")}
     print(f"[kernel] K2b's core at (B={B}, N={N}, H={H}, Dh={Dh}): one block per (image, head) "
-          f"{cores[False]:.4f} ms, two passes {cores[True]:.4f} ms (median of 20, the second of "
-          f"two turns each) on {smi}")
+          f"{cores['one-block']:.4f} ms, two passes {cores['two-pass']:.4f} ms (median of 20, "
+          f"the second of two turns each) on {smi}")
     shapes["K2b"].append({"path": "dit-s", "shape": f"(B={B}, N={N}, H={H}) core only",
-                          "one_block_core_ms": cores[False], "two_pass_core_ms": cores[True]})
+                          "one_block_core_ms": cores["one-block"],
+                          "two_pass_core_ms": cores["two-pass"]})
     return shapes
 
 
@@ -2557,15 +2590,16 @@ def phase_train_step_moe_xl(cfg, smi):
 
 
 def phase_train_moe_xl(kc, name, smi):
-    """7m: the trainer at DiT-XL/4 MoE width, top-1 and top-2, for a few
-    steps each, its peak memory, then 64 samples from its checkpoint."""
+    """7m: the trainer at DiT-XL/4 MoE width, depth MOE_XL_TRAIN_DEPTH, top-1
+    and top-2, for a few steps each, its peak memory, then 64 samples from
+    its checkpoint."""
     out = []
     for topk in (1, 2):
         batch = MOE_XL_BATCH[topk]
         out.append(phase_train_wide(
             kc, name, smi, f"train-moe-xl-top{topk}",
-            _wide_flags(DIT_XL, moe=True, topk=topk), MOE_XL_STEP, MOE_XL_SAMPLE, batch,
-            images=MOE_XL_STEPS * batch))
+            _wide_flags({**DIT_XL, "depth": MOE_XL_TRAIN_DEPTH}, moe=True, topk=topk),
+            MOE_XL_TRAIN_STEP, MOE_XL_TRAIN_SAMPLE, batch, images=MOE_XL_STEPS * batch))
     return out
 
 
@@ -2734,6 +2768,172 @@ def phase_train_moe_128(kc, name, smi):
     return out
 
 
+
+def _core_errors(labels, got, want):
+    """Each bf16 output by the kernel rule: ``(worst max_abs_err, text, ok)``."""
+    parts, worst, ok = [], 0.0, True
+    for label, g, w in zip(labels, got, want):
+        e, mean, tol, good = _bf16_errors(g, w)
+        ok, worst = ok and good, max(worst, e)
+        parts.append(f"{label} max {e:.4g} (tol {tol:.4g}) mean {mean:.3g}")
+    return worst, "; ".join(parts), ok
+
+
+def _streamed_core_case(A, smi, gen, attrs, path, B, N, H, Dh, fname, bname):
+    """The forward core and the backward core (K2b's and K4's writing att;
+    K7b's not) at (B, N) over H heads of Dh, q, k and v read in place from a
+    [q | k | v] buffer, by the library's plan, against their plain versions
+    by the bf16 rule, the backward's second call bit-identical; timed beside
+    SDPA's first fused backend that takes the width. ``{fname: shape,
+    bname: shape}`` for the kernels line."""
+    D = H * Dh
+    qkv = torch.randn(B, N, 3 * D, generator=gen, device="cuda").to(torch.bfloat16)
+    q, k, v = qkv.split(D, dim=-1)
+    do = torch.randn(B, N, D, generator=gen, device="cuda").to(torch.bfloat16)
+    with_att = bname != "K7b"
+    plans = {"forward": A.core_plan(N, Dh), "backward": A.core_plan(N, Dh, backward=True)}
+    shape = f"(B={B}, N={N}, H={H}, Dh={Dh})"
+
+    def bwd():
+        att, dqkv = A._launch_core_bwd(q, k, v, do, H, with_att)
+        return ((att,) if with_att else ()) + tuple(dqkv.split(D, dim=-1))
+
+    plain_b = functools.partial(A.attention_core_bwd_att_reference if with_att else
+                                A.attention_core_bwd_reference, q, k, v, do, H)
+    with torch.no_grad():
+        o = A._launch_core(q, k, v, H)
+        f_err, f_text, f_ok = _core_errors(("o",), (o,), (A.attention_reference(q, k, v, H),))
+        got, again = bwd(), bwd()
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, h) for g, h in zip(got, again)):
+            raise AssertionError(f"{bname}'s core {shape} is not deterministic: two calls differ")
+        if with_att and not torch.equal(got[0], o):
+            raise AssertionError(f"{bname}'s core {shape}: att is not the forward core's output")
+        labels = (("att",) if with_att else ()) + ("dq", "dk", "dv")
+        b_err, b_text, b_ok = _core_errors(labels, got, plain_b())
+        del again
+        times = {"fwd": _median_ms(lambda: A._launch_core(q, k, v, H)),
+                 "plain_fwd": _median_ms(lambda: A.attention_reference(q, k, v, H)),
+                 "bwd": _median_ms(bwd), "plain_bwd": _median_ms(plain_b)}
+    backend, lib = _sdpa_backend_ms(q, k, v, do, H)
+    core = 2 * B * H * N * N * Dh  # one (N x N x Dh) product per image and head
+    bounds = {fname: _bound(_nbytes(qkv, o), 2 * core),
+              # q, k, v and do read, dq, dk, dv (and att) written; S, dV, dP, dQ, dK
+              bname: _bound(_nbytes(qkv, do, *got), 5 * core)}
+    spills = {n: a["local_bytes"] for n, a in attrs.items() if n != "one-block backward"}
+    print(f"[kernel] {fname}/{bname} cores {shape} ({path}) plan {plans} bf16: {f_text}; "
+          f"{b_text}; second backward bit-identical; forward {times['fwd']:.4f} ms (plain "
+          f"{times['plain_fwd']:.4f}, bound {bounds[fname]['bound_ms']:.4f}), backward "
+          f"{times['bwd']:.4f} ms (plain {times['plain_bwd']:.4f}, bound "
+          f"{bounds[bname]['bound_ms']:.4f}); torch scaled_dot_product_attention "
+          + (f"{backend} backend forward {lib['K8f']:.4f} ms, forward + backward "
+             f"{lib['K8b']:.4f} ms" if lib else "none of its fused backends (flash, efficient, "
+             "cudnn) takes this head width") + f"; local (spill) bytes a thread {spills} "
+          f"(median of 20) on {smi}")
+    if not (f_ok and b_ok):
+        raise AssertionError(f"the {fname}/{bname} cores {shape} disagree with their plain "
+                             "versions")
+    out = {}
+    for name, err, ms, plain_ms, lib_key in ((fname, f_err, times["fwd"], times["plain_fwd"],
+                                              "K8f"),
+                                             (bname, b_err, times["bwd"], times["plain_bwd"],
+                                              "K8b")):
+        out[name] = {"path": path, "shape": f"{shape} core only", "plan": plans,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bounds[name],
+                     "library_ms": lib[lib_key] if lib else None, "library_backend": backend,
+                     "local_bytes": spills}
+    del qkv, q, k, v, do, o, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_streamed_kernels(A, smi):
+    """3r: the attention cores past 227 KB of shared memory at the three
+    paths' training shapes and at the widest head the JAX gates send at each
+    N (STREAMED_CORES), each against its plain versions, timed beside SDPA,
+    with its plan and the kernels' spill bytes; then at the shapes where a
+    resident design also runs (STREAMED_BITS) the streamed design forced,
+    bit for bit the resident one (forward, and the backward against the
+    two whole-head passes or the one-block core), every backward twice,
+    both timed in turns. ``{name: [{"path", "shape", ...}]}`` for the
+    kernels line."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    attrs = A.kernel_attrs()
+    print(f"[kernel] attention core kernels, registers and local (spill) bytes a thread: "
+          f"{attrs}")
+    shapes = {}
+    for case in STREAMED_CORES:
+        for name, entry in _streamed_core_case(A, smi, gen, attrs, *case).items():
+            shapes.setdefault(name, []).append(entry)
+    for B, N, H, Dh in STREAMED_BITS:
+        qkv = torch.randn(B, N, 3 * H * Dh, generator=gen, device="cuda").to(torch.bfloat16)
+        do = torch.randn(B, N, H * Dh, generator=gen, device="cuda").to(torch.bfloat16)
+        resident = A.core_plan(N, Dh, backward=True)["design"]
+        shape = f"(B={B}, N={N}, H={H}, Dh={Dh})"
+        with torch.no_grad():
+            fwd = {d: A._k2_core(qkv, H, d) for d in A.FWD_DESIGNS}
+            bwd = {d: (A._core_bwd_att(qkv, do, H, d), A._core_bwd_att(qkv, do, H, d))
+                   for d in (resident, "streamed")}
+            torch.cuda.synchronize()
+            same = torch.equal(fwd["resident"], fwd["streamed"]) and all(
+                torch.equal(a, b) for a, b in zip(bwd[resident][0], bwd["streamed"][0]))
+            again = all(torch.equal(a, b) for first, second in bwd.values()
+                        for a, b in zip(first, second))
+            if not (same and again):
+                raise AssertionError(f"the streamed cores {shape} do not give the {resident} "
+                                     f"design's bits (or a second backward differs)")
+            del fwd, bwd
+            ms = {}
+            for d_f, d_b in (("resident", resident), ("streamed", "streamed"),
+                             ("streamed", "streamed"), ("resident", resident)):
+                ms[d_f] = _median_ms(lambda: A._k2_core(qkv, H, d_f))
+                ms[d_b + " bwd"] = _median_ms(lambda: A._core_bwd_att(qkv, do, H, d_b))
+        print(f"[kernel] K2's cores {shape}: streamed bit-identical to resident (forward) and to "
+              f"{resident} (backward), every backward's second call bit-identical; forward "
+              f"resident {ms['resident']:.4f} ms, streamed {ms['streamed']:.4f} ms; backward "
+              f"{resident} {ms[resident + ' bwd']:.4f} ms, streamed {ms['streamed bwd']:.4f} ms "
+              f"(median of 20, the second of two turns each) on {smi}")
+        shapes.setdefault("K2f", []).append({"path": "bits", "shape": f"{shape} core only",
+                                             "resident_ms": ms["resident"],
+                                             "streamed_ms": ms["streamed"]})
+        shapes.setdefault("K2b", []).append({"path": "bits", "shape": f"{shape} core only",
+                                             f"{resident}_ms": ms[resident + " bwd"],
+                                             "streamed_ms": ms["streamed bwd"]})
+        del qkv, do
+        torch.cuda.empty_cache()
+    return shapes
+
+
+def phase_train_step_heads1(cfg, smi):
+    """6r: one step of DiT-S/4 --heads 1 at 64 px (64 x m 4: K2f, K2b on the
+    streamed cores), DiT-B/4 --heads 1 at 32 px (16 x m 8: K2f, K4) and
+    DiT-L/4 --heads 2 at 64 px, depth L64_DEPTH (8 x m 4: K7f, K7b), each
+    through the kernels twice (bit-identical) against the plain step within
+    twice bf16's own noise, launches counted."""
+    phase_train_step({**cfg, **S_H1, "image_size": PX64_SIZE}, smi, PX64_BATCH, PX64_M,
+                     "train-step-s-h1-64", "DiT-S/4 --heads 1", S_H1_STEP)
+    phase_train_step({**cfg, **B_H1}, smi, WIDE_STEP_BATCH, TRAIN_M, "train-step-b-h1",
+                     "DiT-B/4 --heads 1", B_H1_STEP)
+    phase_train_step({**cfg, **L_H2, "image_size": PX64_SIZE}, smi, L64_STEP_BATCH, L64_STEP_M,
+                     "train-step-l-h2-64", "DiT-L/4 --heads 2", L_H2_STEP)
+
+
+def phase_train_heads1(kc, name, smi):
+    """7q: the trainer and generate_torch on the three paths: DiT-S/4 --heads
+    1 at 64 px (8 steps of 64 x m 4), DiT-B/4 --heads 1 (4 steps of 256 x m
+    8), DiT-L/4 --heads 2 at 64 px, depth L64_DEPTH (8 steps of 64 x m 4),
+    each then 64 samples; launches per step and sampler call as their
+    counterparts at the usual head counts (64 px, DiT-B, DiT-L at 64 px)."""
+    return tuple(phase_train_wide(kc, name, smi, label, _wide_flags(widths), per_step,
+                                  per_sample, batch, m, size, images=images)
+                 for label, widths, per_step, per_sample, batch, m, size, images in (
+                     ("train-s-h1-64", S_H1, S_H1_STEP, S_SAMPLE, PX64_BATCH, PX64_M,
+                      PX64_SIZE, H1_IMAGES),
+                     ("train-b-h1", B_H1, B_H1_STEP, B_SAMPLE, TRAIN_BATCH, TRAIN_M, 32,
+                      2 * H1_IMAGES),
+                     ("train-l-h2-64", L_H2, L_H2_STEP, L64_SAMPLE, PX64_BATCH, PX64_M,
+                      PX64_SIZE, H1_IMAGES)))
+
 PHASES = ("kernels", "backward", "energy", "flash", "moe-kernels", "slice", "train-step",
           "train-step-128", "train-step-moe", "train", "train-128", "train-moe", "wide-kernels",
           "wide-shapes", "train-step-l", "train-step-moe-b", "train-l", "train-moe-b",
@@ -2743,7 +2943,8 @@ PHASES = ("kernels", "backward", "energy", "flash", "moe-kernels", "slice", "tra
           "train-step-xl", "train-step-fast-gelu", "train-xl", "train-xl64", "moe-xl-kernels",
           "train-step-moe-xl", "train-moe-xl", "flash-widths", "train-step-heads", "train-heads",
           "wide-mlp-kernels", "train-step-1536", "train-1536", "moe-128-kernels",
-          "train-step-moe-128", "train-moe-128")
+          "train-step-moe-128", "train-moe-128", "streamed-kernels", "train-step-heads1",
+          "train-heads1")
 # launches per training step and per 20-step sampler call on the wide paths;
 # the DiT-L trainer (7d) runs depth 12 since PR 9 (7k runs its kernels at
 # DiT-XL's full depth 28)
@@ -2790,6 +2991,14 @@ MOE_XL_STEP = {**{k: DIT_XL["depth"] for k in ("K2f", "K4", "K11f", "K11b", "K10
 MOE_XL_SAMPLE = {**{k: DIT_XL["depth"] * STEPS for k in ("K2f", "K11f", "K12f")},
                  "K10p": 4 * DIT_XL["depth"] * STEPS}
 MOE_XL_BATCH, MOE_XL_STEPS = {1: 256, 2: 128}, 2
+# 7m's trainers run depth 8 since PR 15 (28 before; 6n steps the full depth),
+# to make room for 3r, 6r and 7q: the CPU init and the ~10 GB checkpoints of
+# 2.53 B parameters took most of its 160 s
+MOE_XL_TRAIN_DEPTH = 8
+MOE_XL_TRAIN_STEP = {**{k: MOE_XL_TRAIN_DEPTH for k in MOE_XL_STEP},
+                     "K10p": 4 * MOE_XL_TRAIN_DEPTH, "K3f": 1, "K3b": 1}
+MOE_XL_TRAIN_SAMPLE = {k: v // DIT_XL["depth"] * MOE_XL_TRAIN_DEPTH
+                       for k, v in MOE_XL_SAMPLE.items()}
 # to keep the whole run within its time limit, the DiT-L 64-px trainer (7i)
 # runs 512 synthetic images (8 steps of 64), not an epoch of 2048, and the
 # XL trainers 512 (7k: 2 steps of 256) and 256 (7l: 4 steps of 64)
@@ -2811,6 +3020,30 @@ E128_SAMPLE = {k: DEPTH * STEPS for k in ("K2f", "K11f", "K10f", "K12f")}
 MIXTRAL_STEP = {**{k: MIXTRAL["depth"] for k in ("K11f", "K11b", "K12f", "K12b")},
                 "K3f": 1, "K3b": 1}
 MIXTRAL_SAMPLE = {k: MIXTRAL["depth"] * STEPS for k in ("K11f", "K12f")}
+# ... and the paths through the attention cores past 227 KB of shared memory
+# (3r, 6r, 7q): DiT-S/4 --heads 1 at 64 px (N 256, Dh 384: K2f and K2b on
+# the streamed cores), DiT-B/4 --heads 1 at 32 px (N 64, Dh 768: K2f, and K4
+# with pass 1 streamed) and DiT-L/4 --heads 2 at 64 px (N 256, Dh 512: K7),
+# its depth cut as 7i's; each launches what its counterpart at the usual head
+# count does. 7q's trainers run H1_IMAGES images (2 x H1_IMAGES at DiT-B).
+S_H1 = {**S_WIDTHS, "heads": 1}
+B_H1 = {**DIT_B, "heads": 1}
+L_H2 = {**DIT_L, "heads": 2, "depth": L64_DEPTH}
+S_H1_STEP, B_H1_STEP, L_H2_STEP = PX64_STEP, B_STEP, L64_STEP
+H1_IMAGES = 512
+# 3r: (path, B, N, H, Dh, forward core, backward core) at the paths'
+# training shapes, then the widest head the JAX gates send at N 16, 144,
+# 256 and 400 (no path; 64 images); and (B, N, H, Dh) where a resident
+# design also runs: the streamed one forced there, bit for bit
+STREAMED_CORES = [("s-h1-64", PX64_BATCH * PX64_M, 256, 1, 384, "K2f", "K2b"),
+                  ("b-h1", TRAIN_BATCH * TRAIN_M, 64, 1, 768, "K2f", "K4"),
+                  ("l-h2-64", PX64_BATCH * PX64_M, 256, 2, 512, "K7f", "K7b"),
+                  ("widest", 64, 16, 1, 3712, "K7f", "K7b"),
+                  ("widest", 64, 144, 1, 3328, "K7f", "K7b"),
+                  ("widest", 64, 256, 1, 1792, "K7f", "K7b"),
+                  ("widest", 64, 400, 1, 1024, "K7f", "K7b")]
+STREAMED_BITS = [(64, 64, 6, 64), (64, 256, 4, 256), (16, 512, 2, 64), (64, 256, 4, 72),
+                 (64, 112, 6, 64)]
 
 
 def main(argv=None) -> None:
@@ -2921,6 +3154,9 @@ def main(argv=None) -> None:
         ("moe-128-kernels", lambda: phase_moe_128_kernels(MD, X, M, smi)),
         ("train-step-moe-128", lambda: phase_train_step_moe_128(cfg, smi)),
         ("train-moe-128", lambda: phase_train_moe_128(kc, name, smi)),
+        ("streamed-kernels", lambda: phase_streamed_kernels(A, smi)),
+        ("train-step-heads1", lambda: phase_train_step_heads1(cfg, smi)),
+        ("train-heads1", lambda: phase_train_heads1(kc, name, smi)),
     ]
     out = {}
     t_run = time.perf_counter()
@@ -2959,7 +3195,10 @@ def main(argv=None) -> None:
              "sd3-m": ([], *out["train-1536"]),
              "moe-e128-top1": ([], *out["train-moe-128"][0]),
              "moe-e128-top2": ([], *out["train-moe-128"][1]),
-             "mixtral": ([], *out["train-moe-128"][2])}
+             "mixtral": ([], *out["train-moe-128"][2]),
+             "s-h1-64": ([], *out["train-heads1"][0]),
+             "b-h1": ([], *out["train-heads1"][1]),
+             "l-h2-64": ([], *out["train-heads1"][2])}
     kernels = []
     for entries, trained, sampled in paths.values():
         for k in entries:
@@ -2973,7 +3212,8 @@ def main(argv=None) -> None:
         for shapes in (out["wide-shapes"], out["attention-256"], out["dit-b-kernels"],
                        out["m32-kernels"], out["attention-core"][1], out["tp-kernels"][1],
                        out["xl-kernels"], out["fast-gelu-kernels"], out["moe-xl-kernels"],
-                       out["flash-widths"], out["wide-mlp-kernels"], out["moe-128-kernels"]):
+                       out["flash-widths"], out["wide-mlp-kernels"], out["moe-128-kernels"],
+                       out["streamed-kernels"]):
             k.setdefault("shapes", []).extend(shapes.get(k["name"], []))
     k8 = sorted({s["Dh"] for k in kernels if k["name"] == "K8f" for s in k["shapes"]})
     print(f"[k8-widths] K8f and K8b held against their plain versions on the card at Dh {k8}; "

@@ -1,5 +1,6 @@
 // Multi-head attention cores of the DiT attention half-block, 16 <= N <= 512
-// tokens (N a multiple of 16), head widths Dh a multiple of 8.
+// tokens (N a multiple of 16), head widths Dh a multiple of 8: every (N, Dh)
+// the JAX gates send to K2f, K2b, K4 and K7 (Dh up to 3712 at N = 16).
 //
 // Replace the attention part of ddm_tpu/ops/attention.py `_blk_fwd_kernel`
 // (`_mha_packed_fwd`, K2f) and the per-head cores of the persist-probs
@@ -44,10 +45,29 @@
 // the row terms rowsum(P dP) and dq, and saves each row's (max, sum,
 // rowsum(P dP)) in fp32; pass 2, over key tiles, walks the query tiles in
 // order, recomputes P from the saved max and sum, and accumulates dv and dk
-// in fp32 in shared memory, rounding once. Every product runs its 16 x 16
-// tiles over the same depth slices in the same order in every design, and
-// the recomputed P is the same expression of the same scores, so where two
-// designs take a shape their outputs agree bit for bit.
+// in fp32 in shared memory, rounding once.
+//
+// Resident and streamed: the forward core and both passes read a head in
+// column chunks of C. Where a whole head fits (C = the padded Dh, the
+// resident design, compiled as its own instance) each operand is loaded
+// once. Past 227 KB (DiT-S --heads 1 at 64 px: N 256, Dh 384, 246,528 B
+// resident) the streamed design passes the head through kChunk = 64 columns
+// at a time, and only the fp32 score rows (QT x N, 64 KB at most) and the
+// bf16 P rows stay whole: each 16 x 16 score tile (Q K^T, dO V^T) goes on
+// from its fp32 value stored after the last depth slice, which is exactly
+// the value a fragment kept across the slices would hold, and each output
+// (P V, dS K) is one column chunk of independent tiles, summed over the
+// keys as before. Pass 2 takes a grid axis of output column chunks of C2
+// (dk and dv of one key tile, fp32 in shared memory): each of its blocks
+// recomputes S and dP over the whole head in kChunk slices, so the
+// recomputation grows with Dh / C2, which is as large as shared memory
+// allows (the whole head up to Dh ~880). Each pass takes the resident tiles
+// where they fit and the streamed ones elsewhere (core_plan / cols_plan).
+// No online softmax: the softmax is the same code on the same whole row.
+// Every product runs its 16 x 16 tiles over the same depth slices in the
+// same order in every design, and the recomputed P is the same expression
+// of the same scores, so where two designs take a shape their outputs
+// agree bit for bit.
 //
 // Head widths: the WMMA fragments are 16 deep and 16 wide, and the JAX gates
 // take any Dh % 8 = 0 (DiT-XL's 16 heads of 72, DiT-S at --heads 16: 24).
@@ -56,8 +76,10 @@
 // as it is, and the padded columns of P V, dS K and the other products are
 // never written back. A head's columns start at h Dh elements, a multiple
 // of 16 bytes, so the 16-byte loads hold; a head row is Dh / 8 of them (9 at
-// Dh 72). Where Dh % 16 = 0 nothing is padded and the products are the ones
+// Dh 72), and a chunk starts on a multiple of 16 columns, so no chunk splits
+// one. Where Dh % 16 = 0 nothing is padded and the products are the ones
 // before the padding existed.
+#include <algorithm>
 #include <type_traits>
 
 #include "common.cuh"
@@ -67,6 +89,8 @@ namespace {
 
 constexpr int kThreads = 128;  // 4 warps
 constexpr size_t kMaxSmem = 232448;
+constexpr int kChunk = 64;            // the streamed design's column chunk
+constexpr int kOneBlockMaxTokens = 128;  // one backward block per (image, head) at most
 
 // A head's width in shared memory: Dh up to the next whole fragment.
 __host__ __device__ __forceinline__ int padded(int Dh) {
@@ -125,17 +149,34 @@ __device__ void mma_tiles(const bf16* A, int lda, const bf16* B, int ldb, float*
   }
 }
 
-// rows x Dh bf16 values, row stride src_ld, into a shared tile of stride ld,
-// each row followed by zeros up to padded(Dh) columns.
-__device__ __forceinline__ void load_head(bf16* dst, int ld, const bf16* __restrict__ src,
-                                          int src_ld, int rows, int Dh) {
-  const int vec = padded(Dh) / 8;
+// The depth slices after the first of a product taken in chunks go on from
+// the fp32 tile stored after the previous chunk.
+template <bool A_T, bool B_T>
+__device__ __forceinline__ void mma_tiles_from(bool acc, const bf16* A, int lda, const bf16* B,
+                                               int ldb, float* C, int ldc, int M, int Nc, int K) {
+  if (acc)
+    mma_tiles<A_T, B_T, true>(A, lda, B, ldb, C, ldc, M, Nc, K);
+  else
+    mma_tiles<A_T, B_T, false>(A, lda, B, ldb, C, ldc, M, Nc, K);
+}
+
+// Columns [c0, c0 + w) of rows x Dh bf16 values (row stride src_ld) into a
+// shared tile of stride ld; columns at or past Dh are zeros (the padding).
+__device__ __forceinline__ void load_cols(bf16* dst, int ld, const bf16* __restrict__ src,
+                                          int src_ld, int rows, int c0, int w, int Dh) {
+  const int vec = w / 8;
   for (int i = threadIdx.x; i < rows * vec; i += kThreads) {
     const int r = i / vec, c = (i % vec) * 8;
     uint4 v = make_uint4(0, 0, 0, 0);
-    if (c < Dh) v = *reinterpret_cast<const uint4*>(src + (size_t)r * src_ld + c);
+    if (c0 + c < Dh) v = *reinterpret_cast<const uint4*>(src + (size_t)r * src_ld + c0 + c);
     *reinterpret_cast<uint4*>(dst + r * ld + c) = v;
   }
+}
+
+// A whole head: each row followed by zeros up to padded(Dh) columns.
+__device__ __forceinline__ void load_head(bf16* dst, int ld, const bf16* __restrict__ src,
+                                          int src_ld, int rows, int Dh) {
+  load_cols(dst, ld, src, src_ld, rows, 0, padded(Dh), Dh);
 }
 
 // Write a (rows x Dh) fp32 tile as bf16 into the rows of a row-major matrix
@@ -197,38 +238,57 @@ __device__ void ds_rows(const float* P, const float* dP, int sld, bf16* Pb, int 
   }
 }
 
-size_t core_smem(int N, int Dh, int QT) {
-  Dh = padded(Dh);
-  const int QLD = Dh + kPadH, SLD = (N > Dh ? N : Dh) + kPadF;
-  return (size_t)(QT + N) * QLD * sizeof(bf16) + (size_t)QT * SLD * sizeof(float) +
+// The forward core's shared memory at QT query rows and column chunks of C.
+size_t core_smem(int N, int C, int QT) {
+  const int CLD = C + kPadH, SLD = (N > C ? N : C) + kPadF;
+  return (size_t)(QT + N) * CLD * sizeof(bf16) + (size_t)QT * SLD * sizeof(float) +
          (size_t)QT * (N + kPadH) * sizeof(bf16);
 }
 
 // K2f's and K7f's core: block (b H + h, t) writes rows [t QT, (t + 1) QT)
-// of one (image, head).
+// of one (image, head). Q and K pass through in column chunks of C (the
+// depth slices of S = Q K^T in order), then V (O = P V a column chunk at a
+// time); the resident instance (!STREAM: C = padded(Dh)) reads each once.
+template <bool STREAM>
 __global__ void __launch_bounds__(kThreads)
 attention_core_kernel(Heads in, bf16* __restrict__ out, int N, int H, int Dh, float scale,
-                      int QT) {
+                      int QT, int C) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int D = H * Dh, DP = padded(Dh);
-  const int QLD = DP + kPadH, SLD = max(N, DP) + kPadF, PLD = N + kPadH;
+  if (!STREAM) C = DP;
+  const int n = STREAM ? (DP + C - 1) / C : 1;  // column chunks
+  const int CLD = C + kPadH, SLD = max(N, C) + kPadF, PLD = N + kPadH;
   bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* KV = Qs + QT * QLD;
-  float* S = reinterpret_cast<float*>(KV + N * QLD);  // scores, then the output
+  bf16* KV = Qs + QT * CLD;
+  float* S = reinterpret_cast<float*>(KV + N * CLD);  // scores, then an output chunk
   bf16* P = reinterpret_cast<bf16*>(S + QT * SLD);
 
   const int b = blockIdx.x / H, h = blockIdx.x % H, r0 = blockIdx.y * QT;
-  load_head(Qs, QLD, in.row(in.q, b, N, r0, h, Dh), in.ld, QT, Dh);
-  load_head(KV, QLD, in.row(in.k, b, N, 0, h, Dh), in.ld, N, Dh);
-  __syncthreads();
-  mma_tiles<false, true, false>(Qs, QLD, KV, QLD, S, SLD, QT, N, DP);  // S = Q K^T
-  __syncthreads();
-  load_head(KV, QLD, in.row(in.v, b, N, 0, h, Dh), in.ld, N, Dh);  // V over K
+  const bf16* q = in.row(in.q, b, N, r0, h, Dh);
+  const bf16* k = in.row(in.k, b, N, 0, h, Dh);
+  const bf16* v = in.row(in.v, b, N, 0, h, Dh);
+  for (int i = 0; i < n; ++i) {
+    const int c0 = i * C, w = min(C, DP - c0);
+    load_cols(Qs, CLD, q, in.ld, QT, c0, w, Dh);
+    load_cols(KV, CLD, k, in.ld, N, c0, w, Dh);
+    __syncthreads();
+    mma_tiles_from<false, true>(i > 0, Qs, CLD, KV, CLD, S, SLD, QT, N, w);  // S += Q K^T
+    __syncthreads();
+  }
+  load_cols(KV, CLD, v, in.ld, N, 0, min(C, DP), Dh);  // V over K
   softmax_rows(S, SLD, P, PLD, QT, N, scale, false, nullptr);
   __syncthreads();
-  mma_tiles<false, false, false>(P, PLD, KV, QLD, S, SLD, QT, DP, N);  // O = P V
-  __syncthreads();
-  store_head(out + ((size_t)b * N + r0) * D + h * Dh, D, S, SLD, QT, Dh);
+  bf16* o = out + ((size_t)b * N + r0) * D + h * Dh;
+  for (int i = 0; i < n; ++i) {
+    const int c0 = i * C, w = min(C, DP - c0);
+    if (i > 0) {
+      load_cols(KV, CLD, v, in.ld, N, c0, w, Dh);
+      __syncthreads();
+    }
+    mma_tiles<false, false, false>(P, PLD, KV, CLD, S, SLD, QT, w, N);  // O = P V
+    __syncthreads();
+    store_head(o + c0, D, S, SLD, QT, min(w, Dh - c0));
+  }
 }
 
 size_t core_bwd_smem(int N, int Dh) {
@@ -285,82 +345,130 @@ attention_core_bwd_kernel(Heads in, const bf16* __restrict__ datt, bf16* __restr
   store_head(out.row(out.k, b, N, 0, h, Dh), out.ld, F, SLD, N, Dh);
 }
 
-size_t bwd_rows_smem(int N, int Dh, int QT) {
-  Dh = padded(Dh);
-  const int QLD = Dh + kPadH, SLD = (N > Dh ? N : Dh) + kPadF;
-  return (size_t)(2 * QT + N) * QLD * sizeof(bf16) + (size_t)2 * QT * SLD * sizeof(float) +
+// Pass 1's shared memory at QT query rows and column chunks of C.
+size_t bwd_rows_smem(int N, int C, int QT) {
+  const int CLD = C + kPadH, SLD = (N > C ? N : C) + kPadF;
+  return (size_t)(2 * QT + N) * CLD * sizeof(bf16) + (size_t)2 * QT * SLD * sizeof(float) +
          (size_t)QT * (N + kPadH) * sizeof(bf16);
 }
 
 // Backward pass 1: block (b H + h, t) takes query rows [r0, r0 + QT): P
 // (fp32, kept), att (where att is not null), dP, dS, dq; each row's (max,
-// sum, rowsum(P dP)) to stats. K, V, then K again pass through one N-row
-// buffer.
+// sum, rowsum(P dP)) to stats. Column chunks of C of Q and K (S), of V (att,
+// then dP with dO's) and of K (dq) pass through one N-row buffer; the
+// resident instance (!STREAM: C = padded(Dh)) reads each once.
+template <bool STREAM>
 __global__ void __launch_bounds__(kThreads)
 attention_core_bwd_rows_kernel(Heads in, const bf16* __restrict__ datt, bf16* __restrict__ att,
                                DHeads out, float* __restrict__ stats, int N, int H, int Dh,
-                               float scale, int QT) {
+                               float scale, int QT, int C) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int D = H * Dh, DP = padded(Dh);
-  const int QLD = DP + kPadH, SLD = max(N, DP) + kPadF, PLD = N + kPadH;
+  if (!STREAM) C = DP;
+  const int n = STREAM ? (DP + C - 1) / C : 1;  // column chunks
+  const int CLD = C + kPadH, SLD = max(N, C) + kPadF, PLD = N + kPadH;
   bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* dOs = Qs + QT * QLD;
-  bf16* KV = dOs + QT * QLD;
-  float* P = reinterpret_cast<float*>(KV + N * QLD);  // fp32 P, later dq
-  float* F = P + QT * SLD;                            // att, then dP
+  bf16* dOs = Qs + QT * CLD;
+  bf16* KV = dOs + QT * CLD;
+  float* P = reinterpret_cast<float*>(KV + N * CLD);  // fp32 P, later a dq chunk
+  float* F = P + QT * SLD;                            // an att chunk, then dP
   bf16* Pb = reinterpret_cast<bf16*>(F + QT * SLD);   // bf16 P, then bf16 dS
 
   const int b = blockIdx.x / H, h = blockIdx.x % H, r0 = blockIdx.y * QT;
   float* st = stats + ((size_t)blockIdx.x * N + r0) * 3;
-  load_head(Qs, QLD, in.row(in.q, b, N, r0, h, Dh), in.ld, QT, Dh);
-  load_head(dOs, QLD, datt + ((size_t)b * N + r0) * D + h * Dh, D, QT, Dh);
-  load_head(KV, QLD, in.row(in.k, b, N, 0, h, Dh), in.ld, N, Dh);
-  __syncthreads();
-  mma_tiles<false, true, false>(Qs, QLD, KV, QLD, P, SLD, QT, N, DP);  // S = Q K^T
-  __syncthreads();
-  load_head(KV, QLD, in.row(in.v, b, N, 0, h, Dh), in.ld, N, Dh);  // V over K
+  const bf16* q = in.row(in.q, b, N, r0, h, Dh);
+  const bf16* k = in.row(in.k, b, N, 0, h, Dh);
+  const bf16* v = in.row(in.v, b, N, 0, h, Dh);
+  const bf16* dO = datt + ((size_t)b * N + r0) * D + h * Dh;
+  load_cols(dOs, CLD, dO, D, QT, 0, min(C, DP), Dh);
+  for (int i = 0; i < n; ++i) {
+    const int c0 = i * C, w = min(C, DP - c0);
+    load_cols(Qs, CLD, q, in.ld, QT, c0, w, Dh);
+    load_cols(KV, CLD, k, in.ld, N, c0, w, Dh);
+    __syncthreads();
+    mma_tiles_from<false, true>(i > 0, Qs, CLD, KV, CLD, P, SLD, QT, N, w);  // S += Q K^T
+    __syncthreads();
+  }
+  load_cols(KV, CLD, v, in.ld, N, 0, min(C, DP), Dh);  // V over K
   softmax_rows(P, SLD, Pb, PLD, QT, N, scale, true, st);
   __syncthreads();
   if (att != nullptr) {
-    mma_tiles<false, false, false>(Pb, PLD, KV, QLD, F, SLD, QT, DP, N);  // att = Pb V
-    __syncthreads();
-    store_head(att + ((size_t)b * N + r0) * D + h * Dh, D, F, SLD, QT, Dh);
+    bf16* a = att + ((size_t)b * N + r0) * D + h * Dh;
+    for (int i = 0; i < n; ++i) {
+      const int c0 = i * C, w = min(C, DP - c0);
+      if (i > 0) {
+        load_cols(KV, CLD, v, in.ld, N, c0, w, Dh);
+        __syncthreads();
+      }
+      mma_tiles<false, false, false>(Pb, PLD, KV, CLD, F, SLD, QT, w, N);  // att = Pb V
+      __syncthreads();
+      store_head(a + c0, D, F, SLD, QT, min(w, Dh - c0));
+      __syncthreads();
+    }
+  }
+  for (int i = 0; i < n; ++i) {  // V's last chunk is in KV: its first again where n > 1
+    const int c0 = i * C, w = min(C, DP - c0);
+    if (i > 0) load_cols(dOs, CLD, dO, D, QT, c0, w, Dh);
+    if (i > 0 || (att != nullptr && n > 1)) {
+      load_cols(KV, CLD, v, in.ld, N, c0, w, Dh);
+      __syncthreads();
+    }
+    mma_tiles_from<false, true>(i > 0, dOs, CLD, KV, CLD, F, SLD, QT, N, w);  // dP += dO V^T
     __syncthreads();
   }
-  mma_tiles<false, true, false>(dOs, QLD, KV, QLD, F, SLD, QT, N, DP);  // dP = dO V^T
-  __syncthreads();
-  load_head(KV, QLD, in.row(in.k, b, N, 0, h, Dh), in.ld, N, Dh);  // K over V
+  load_cols(KV, CLD, k, in.ld, N, 0, min(C, DP), Dh);  // K over V
   ds_rows(P, F, SLD, Pb, PLD, QT, N, scale, st);
   __syncthreads();
-  mma_tiles<false, false, false>(Pb, PLD, KV, QLD, P, SLD, QT, DP, N);  // dq = dS K
-  __syncthreads();
-  store_head(out.row(out.q, b, N, r0, h, Dh), out.ld, P, SLD, QT, Dh);
+  bf16* dq = out.row(out.q, b, N, r0, h, Dh);
+  for (int i = 0; i < n; ++i) {
+    const int c0 = i * C, w = min(C, DP - c0);
+    if (i > 0) {
+      load_cols(KV, CLD, k, in.ld, N, c0, w, Dh);
+      __syncthreads();
+    }
+    mma_tiles<false, false, false>(Pb, PLD, KV, CLD, P, SLD, QT, w, N);  // dq = dS K
+    __syncthreads();
+    store_head(dq + c0, out.ld, P, SLD, QT, min(w, Dh - c0));
+  }
 }
 
-size_t bwd_cols_smem(int Dh, int KT, int QT) {
-  Dh = padded(Dh);
-  const int QLD = Dh + kPadH, TLD = KT + kPadF, ALD = Dh + kPadF;
-  return (size_t)(2 * KT + 2 * QT) * QLD * sizeof(bf16) +
+// Pass 2's shared memory at KT key rows, QT query rows, depth chunks of C
+// and output column chunks of C2 (C = C2 = padded(Dh): the resident tiles,
+// whose Q and dO serve both).
+size_t bwd_cols_smem(int DP, int KT, int QT, int C, int C2) {
+  const int CLD = C + kPadH, OLD = C2 + kPadH, TLD = KT + kPadF, ALD = C2 + kPadF;
+  const bool whole = C == DP && C2 == DP;
+  return (size_t)(2 * KT + 2 * QT) * CLD * sizeof(bf16) +
+         (whole ? 0 : (size_t)2 * QT * OLD * sizeof(bf16)) +
          (size_t)(2 * QT * TLD + 2 * KT * ALD + 3 * QT) * sizeof(float) +
          (size_t)QT * (KT + kPadH) * sizeof(bf16);
 }
 
-// Backward pass 2: block (b H + h, t) takes key rows [c0, c0 + KT) and walks
-// the query tiles in order: S = Q K^T and dP = dO V^T on the tile, P from
-// pass 1's (max, sum), dv += bf16(P)^T dO, dS from pass 1's rowsum(P dP),
-// dk += dS^T Q, with dk and dv in fp32 in shared memory, rounded once.
+// Backward pass 2: block (b H + h, t, z) takes key rows [c0, c0 + KT) and
+// output columns [e0, e0 + C2) and walks the query tiles in order: S = Q
+// K^T and dP = dO V^T on the tile over the whole head (depth chunks of C),
+// P from pass 1's (max, sum), dv += bf16(P)^T dO, dS from pass 1's
+// rowsum(P dP), dk += dS^T Q, with dk and dv in fp32 in shared memory,
+// rounded once. The resident instance (!STREAM: C = C2 = padded(Dh)) reads
+// the key tile's K and V once and each query tile's Q and dO once, for both.
+template <bool STREAM>
 __global__ void __launch_bounds__(kThreads)
 attention_core_bwd_cols_kernel(Heads in, const bf16* __restrict__ datt,
                                const float* __restrict__ stats, DHeads out, int N, int H, int Dh,
-                               float scale, int KT, int QT) {
+                               float scale, int KT, int QT, int C, int C2) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int D = H * Dh, DP = padded(Dh);
-  const int QLD = DP + kPadH, TLD = KT + kPadF, ALD = DP + kPadF, TPLD = KT + kPadH;
+  if (!STREAM) C = C2 = DP;
+  const int nd = STREAM ? (DP + C - 1) / C : 1;  // depth chunks
+  const int CLD = C + kPadH, OLD = C2 + kPadH, TLD = KT + kPadF, ALD = C2 + kPadF;
+  const int TPLD = KT + kPadH;
   bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + KT * QLD;
-  bf16* Qs = Vs + KT * QLD;
-  bf16* dOs = Qs + QT * QLD;
-  float* S = reinterpret_cast<float*>(dOs + QT * QLD);  // scores, then fp32 P
+  bf16* Vs = Ks + KT * CLD;
+  bf16* Qs = Vs + KT * CLD;
+  bf16* dOs = Qs + QT * CLD;
+  bf16* Qo = STREAM ? dOs + QT * CLD : Qs;  // Q and dO at the output columns
+  bf16* dOo = STREAM ? Qo + QT * OLD : dOs;
+  float* S = reinterpret_cast<float*>(STREAM ? dOo + QT * OLD : dOs + QT * CLD);  // S, then P
   float* F = S + QT * TLD;                              // dP
   float* dV = F + QT * TLD;
   float* dK = dV + KT * ALD;
@@ -368,18 +476,37 @@ attention_core_bwd_cols_kernel(Heads in, const bf16* __restrict__ datt,
   bf16* Pb = reinterpret_cast<bf16*>(st + 3 * QT);      // bf16 P, then bf16 dS
 
   const int b = blockIdx.x / H, h = blockIdx.x % H, c0 = blockIdx.y * KT;
+  const int e0 = blockIdx.z * C2, w2 = min(C2, DP - e0);
   const float* sb = stats + (size_t)blockIdx.x * N * 3;
-  load_head(Ks, QLD, in.row(in.k, b, N, c0, h, Dh), in.ld, KT, Dh);
-  load_head(Vs, QLD, in.row(in.v, b, N, c0, h, Dh), in.ld, KT, Dh);
+  const bf16* k = in.row(in.k, b, N, c0, h, Dh);
+  const bf16* v = in.row(in.v, b, N, c0, h, Dh);
+  if (!STREAM) {  // the key tile's K and V read once
+    load_cols(Ks, CLD, k, in.ld, KT, 0, DP, Dh);
+    load_cols(Vs, CLD, v, in.ld, KT, 0, DP, Dh);
+  }
   for (int i = threadIdx.x; i < 2 * KT * ALD; i += kThreads) dV[i] = 0.f;  // dV, dK
   for (int q0 = 0; q0 < N; q0 += QT) {
     __syncthreads();
-    load_head(Qs, QLD, in.row(in.q, b, N, q0, h, Dh), in.ld, QT, Dh);
-    load_head(dOs, QLD, datt + ((size_t)b * N + q0) * D + h * Dh, D, QT, Dh);
+    const bf16* q = in.row(in.q, b, N, q0, h, Dh);
+    const bf16* dO = datt + ((size_t)b * N + q0) * D + h * Dh;
     for (int i = threadIdx.x; i < 3 * QT; i += kThreads) st[i] = sb[(size_t)q0 * 3 + i];
-    __syncthreads();
-    mma_tiles<false, true, false>(Qs, QLD, Ks, QLD, S, TLD, QT, KT, DP);   // S = Q K^T
-    mma_tiles<false, true, false>(dOs, QLD, Vs, QLD, F, TLD, QT, KT, DP);  // dP = dO V^T
+    for (int i = 0; i < nd; ++i) {
+      const int d0 = i * C, w = min(C, DP - d0);
+      if (i > 0) __syncthreads();
+      if (STREAM) {
+        load_cols(Ks, CLD, k, in.ld, KT, d0, w, Dh);
+        load_cols(Vs, CLD, v, in.ld, KT, d0, w, Dh);
+      }
+      load_cols(Qs, CLD, q, in.ld, QT, d0, w, Dh);
+      load_cols(dOs, CLD, dO, D, QT, d0, w, Dh);
+      __syncthreads();
+      mma_tiles_from<false, true>(i > 0, Qs, CLD, Ks, CLD, S, TLD, QT, KT, w);   // S += Q K^T
+      mma_tiles_from<false, true>(i > 0, dOs, CLD, Vs, CLD, F, TLD, QT, KT, w);  // dP += dO V^T
+    }
+    if (STREAM) {
+      load_cols(Qo, OLD, q, in.ld, QT, e0, w2, Dh);
+      load_cols(dOo, OLD, dO, D, QT, e0, w2, Dh);
+    }
     __syncthreads();
     for (int i = threadIdx.x; i < QT * KT; i += kThreads) {
       const int r = i / KT, c = i % KT;
@@ -388,7 +515,7 @@ attention_core_bwd_cols_kernel(Heads in, const bf16* __restrict__ datt,
       Pb[r * TPLD + c] = __float2bfloat16(p);
     }
     __syncthreads();
-    mma_tiles<true, false, true>(Pb, TPLD, dOs, QLD, dV, ALD, KT, DP, QT);  // dv += P^T dO
+    mma_tiles<true, false, true>(Pb, TPLD, dOo, OLD, dV, ALD, KT, w2, QT);  // dv += P^T dO
     __syncthreads();
     for (int i = threadIdx.x; i < QT * KT; i += kThreads) {
       const int r = i / KT, c = i % KT;
@@ -396,11 +523,12 @@ attention_core_bwd_cols_kernel(Heads in, const bf16* __restrict__ datt,
           __float2bfloat16(S[r * TLD + c] * (F[r * TLD + c] - st[3 * r + 2]) * scale);
     }
     __syncthreads();
-    mma_tiles<true, false, true>(Pb, TPLD, Qs, QLD, dK, ALD, KT, DP, QT);  // dk += dS^T Q
+    mma_tiles<true, false, true>(Pb, TPLD, Qo, OLD, dK, ALD, KT, w2, QT);  // dk += dS^T Q
   }
   __syncthreads();
-  store_head(out.row(out.k, b, N, c0, h, Dh), out.ld, dK, ALD, KT, Dh);
-  store_head(out.row(out.v, b, N, c0, h, Dh), out.ld, dV, ALD, KT, Dh);
+  const int wv = min(w2, Dh - e0);
+  store_head(out.row(out.k, b, N, c0, h, Dh) + e0, out.ld, dK, ALD, KT, wv);
+  store_head(out.row(out.v, b, N, c0, h, Dh) + e0, out.ld, dV, ALD, KT, wv);
 }
 
 // The widest of 32 and 16 rows dividing N whose tile fits `limit`; 0 if none.
@@ -411,21 +539,121 @@ int pick_rows(int N, size_t limit, Smem smem) {
   return 0;
 }
 
+// Which (N, Dh) the cores take: every shape the JAX gates send them.
+bool takes(int N, int Dh) {
+  return N % 16 == 0 && N >= 16 && N <= 512 && Dh % 8 == 0 && Dh > 0;
+}
+
+// The forward core's and pass 1's tiles: QT rows and column chunks of C;
+// QT = 0 where the design does not fit.
+struct RowTiles {
+  int QT, C;
+};
+
+RowTiles core_tiles(int N, int Dh, bool streamed) {
+  const int DP = padded(Dh), C = streamed ? std::min(kChunk, DP) : DP;
+  return {pick_rows(N, kMaxSmem, [&](int t) { return core_smem(N, C, t); }), C};
+}
+
+// Pass 1 takes two blocks per SM where its tile allows.
+RowTiles rows_tiles(int N, int Dh, bool streamed) {
+  const int DP = padded(Dh), C = streamed ? std::min(kChunk, DP) : DP;
+  auto smem = [&](int t) { return bwd_rows_smem(N, C, t); };
+  int QT = pick_rows(N, kMaxSmem / 2, smem);
+  if (QT == 0) QT = pick_rows(N, kMaxSmem, smem);
+  return {QT, C};
+}
+
+// Pass 2's tiles; KT = 0 where the design does not fit. Resident: the whole
+// head, the largest query tile (32, 16) and then key tile (64, 32, 16)
+// that fit. Streamed: depth chunks of kChunk and the fewest output column
+// chunks C2, then the largest tiles.
+struct ColTiles {
+  int KT, QT, C, C2;
+};
+
+ColTiles cols_tiles(int N, int Dh, bool streamed) {
+  const int DP = padded(Dh), C = streamed ? std::min(kChunk, DP) : DP;
+  ColTiles best{0, 0, C, DP};
+  int fewest = streamed ? DP / kFrag + 1 : 2;
+  for (int QT = 32; QT >= 16; QT /= 2) {
+    for (int KT = 64; KT >= 16; KT /= 2) {
+      if (N % KT || N % QT) continue;
+      for (int n = 1; n < fewest; ++n) {
+        const int C2 = (DP / kFrag + n - 1) / n * kFrag;
+        if (bwd_cols_smem(DP, KT, QT, C, C2) <= kMaxSmem) {
+          best = {KT, QT, C, C2};
+          fewest = n;
+          break;
+        }
+      }
+    }
+  }
+  return best;
+}
+
+// The backward's plan: design 0 one block per (image, head), 1 two passes
+// on whole heads, 2 two streamed passes; -1 picks the one-block design
+// where it fits, else each pass resident where its tiles fit and streamed
+// elsewhere. The launcher and ddm_attention_core_plan both read it.
+struct BwdPlan {
+  int design;
+  RowTiles rows;
+  ColTiles cols;
+};
+
+bool one_block_fits(int N, int Dh) {
+  return N <= kOneBlockMaxTokens && core_bwd_smem(N, Dh) <= kMaxSmem;
+}
+
+BwdPlan bwd_plan(int N, int Dh, int design) {
+  BwdPlan p{design, {0, 0}, {0, 0, 0, 0}};
+  if (design == 0 || (design < 0 && one_block_fits(N, Dh))) {
+    p.design = one_block_fits(N, Dh) ? 0 : -1;
+    return p;
+  }
+  p.rows = rows_tiles(N, Dh, design == 2);
+  p.cols = cols_tiles(N, Dh, design == 2);
+  if (design < 0) {
+    if (p.rows.QT == 0) p.rows = rows_tiles(N, Dh, true);
+    if (p.cols.KT == 0) p.cols = cols_tiles(N, Dh, true);
+    p.design = p.rows.C == padded(Dh) && p.cols.C2 == padded(Dh) && p.cols.C == padded(Dh)
+                   ? 1 : 2;
+  }
+  if (p.rows.QT == 0 || p.cols.KT == 0) p.design = -1;
+  return p;
+}
+
+// The forward's: design 0 resident, 1 streamed, -1 resident where it fits.
+RowTiles fwd_plan(int N, int Dh, int design) {
+  RowTiles t = core_tiles(N, Dh, design == 1);
+  if (design < 0 && t.QT == 0) t = core_tiles(N, Dh, true);
+  return t;
+}
+
 cudaError_t set_smem(const void* kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+// Launch `kernel` (an instance of a core kernel) with `smem` bytes of
+// dynamic shared memory.
+template <typename... Params, typename... Args>
+cudaError_t launch(void (*kernel)(Params...), dim3 grid, size_t smem, cudaStream_t s,
+                   Args... args) {
+  cudaError_t err = set_smem((const void*)kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, s>>>(args...);
+  return cudaGetLastError();
+}
+
 // The forward core over q, k, v into the (B, N, H*Dh) out.
 cudaError_t launch_core(Heads in, bf16* out, int B, int N, int H, int Dh, float scale,
-                        cudaStream_t stream) {
-  const int QT = pick_rows(N, kMaxSmem, [&](int t) { return core_smem(N, Dh, t); });
-  if (QT == 0) return cudaErrorInvalidValue;
-  const size_t smem = core_smem(N, Dh, QT);
-  cudaError_t err = set_smem((const void*)attention_core_kernel, smem);
-  if (err != cudaSuccess) return err;
-  attention_core_kernel<<<dim3(B * H, N / QT), kThreads, smem, stream>>>(in, out, N, H, Dh,
-                                                                         scale, QT);
-  return cudaGetLastError();
+                        int design, cudaStream_t stream) {
+  const RowTiles t = fwd_plan(N, Dh, design);
+  if (!takes(N, Dh) || t.QT == 0) return cudaErrorInvalidValue;
+  return launch(t.C < padded(Dh) ? attention_core_kernel<true> : attention_core_kernel<false>,
+                dim3(B * H, N / t.QT), core_smem(N, t.C, t.QT), stream, in, out, N, H, Dh, scale,
+                t.QT, t.C);
 }
 
 // The one-block backward: dq, dk, dv, and att where it is not null.
@@ -440,29 +668,23 @@ cudaError_t launch_bwd_one_block(Heads in, const bf16* datt, bf16* att, DHeads o
 }
 
 // The two-pass backward: the same outputs; stats holds B x H x N x 3 floats
-// of scratch. Pass 1 takes two blocks per SM where its tile allows.
-cudaError_t launch_bwd_tiled(Heads in, const bf16* datt, bf16* att, DHeads out, float* stats,
-                             int B, int N, int H, int Dh, float scale, cudaStream_t s) {
-  auto rows = [&](int t) { return bwd_rows_smem(N, Dh, t); };
-  int QT = pick_rows(N, kMaxSmem / 2, rows);
-  if (QT == 0) QT = pick_rows(N, kMaxSmem, rows);
-  int KT = N % 64 == 0 ? 64 : N % 32 == 0 ? 32 : 16;
-  const int QT2 = N % 32 == 0 ? 32 : 16;
-  while (KT > 16 && bwd_cols_smem(Dh, KT, QT2) > kMaxSmem) KT /= 2;
-  if (QT == 0 || bwd_cols_smem(Dh, KT, QT2) > kMaxSmem) return cudaErrorInvalidValue;
-  size_t smem = rows(QT);
-  cudaError_t err = set_smem((const void*)attention_core_bwd_rows_kernel, smem);
+// of scratch.
+cudaError_t launch_bwd_two_pass(Heads in, const bf16* datt, bf16* att, DHeads out, float* stats,
+                                int B, int N, int H, int Dh, float scale, const BwdPlan& p,
+                                cudaStream_t s) {
+  const RowTiles r = p.rows;
+  const ColTiles c = p.cols;
+  const int DP = padded(Dh);
+  const cudaError_t err = launch(
+      r.C < DP ? attention_core_bwd_rows_kernel<true> : attention_core_bwd_rows_kernel<false>,
+      dim3(B * H, N / r.QT), bwd_rows_smem(N, r.C, r.QT), s, in, datt, att, out, stats, N, H, Dh,
+      scale, r.QT, r.C);
   if (err != cudaSuccess) return err;
-  attention_core_bwd_rows_kernel<<<dim3(B * H, N / QT), kThreads, smem, s>>>(
-      in, datt, att, out, stats, N, H, Dh, scale, QT);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  smem = bwd_cols_smem(Dh, KT, QT2);
-  err = set_smem((const void*)attention_core_bwd_cols_kernel, smem);
-  if (err != cudaSuccess) return err;
-  attention_core_bwd_cols_kernel<<<dim3(B * H, N / KT), kThreads, smem, s>>>(
-      in, datt, stats, out, N, H, Dh, scale, KT, QT2);
-  return cudaGetLastError();
+  const bool whole = c.C == DP && c.C2 == DP;
+  return launch(
+      whole ? attention_core_bwd_cols_kernel<false> : attention_core_bwd_cols_kernel<true>,
+      dim3(B * H, N / c.KT, (DP + c.C2 - 1) / c.C2), bwd_cols_smem(DP, c.KT, c.QT, c.C, c.C2),
+      s, in, datt, stats, out, N, H, Dh, scale, c.KT, c.QT, c.C, c.C2);
 }
 
 // dq, dk and dv into the thirds of a (B, N, 3D) buffer.
@@ -474,32 +696,82 @@ DHeads dqkv_heads(void* dqkv, int D) {
 }  // namespace
 }  // namespace ddm
 
+// The plan the launchers take for (N, Dh) and `design` (-1: their own
+// pick): forward, plan[0..2] = (design, QT, C), design 0 (resident) or 1
+// (streamed); backward, plan[0..6] = (design, pass 1's QT, C, pass 2's KT,
+// QT, C, C2), design 0 (one block: no pass tiles), 1 (two passes on whole
+// heads) or 2 (a pass streamed). A forced design is reported as asked (at
+// Dh <= kChunk the streamed tiles hold the whole head). Returns
+// cudaErrorInvalidValue where no design of that choice takes the shape.
+extern "C" int ddm_attention_core_plan(int N, int Dh, int backward, int design, int* plan) {
+  using namespace ddm;
+  if (!takes(N, Dh)) return (int)cudaErrorInvalidValue;
+  if (!backward) {
+    const RowTiles t = fwd_plan(N, Dh, design);
+    plan[0] = design >= 0 ? design : t.C < padded(Dh) ? 1 : 0;
+    plan[1] = t.QT;
+    plan[2] = t.C;
+    return t.QT ? 0 : (int)cudaErrorInvalidValue;
+  }
+  const BwdPlan p = bwd_plan(N, Dh, design);
+  const int v[7] = {p.design, p.rows.QT, p.rows.C, p.cols.KT, p.cols.QT, p.cols.C, p.cols.C2};
+  for (int i = 0; i < 7; ++i) plan[i] = v[i];
+  return p.design >= 0 ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// Registers and local (spill) bytes a thread of each core kernel takes:
+// attrs[2 i], attrs[2 i + 1] for the forward core (resident, streamed), the
+// one-block backward, pass 1 (resident, streamed) and pass 2 (resident,
+// streamed).
+extern "C" int ddm_attention_kernel_attrs(int* attrs) {
+  using namespace ddm;
+  const void* kernels[7] = {(const void*)attention_core_kernel<false>,
+                            (const void*)attention_core_kernel<true>,
+                            (const void*)attention_core_bwd_kernel,
+                            (const void*)attention_core_bwd_rows_kernel<false>,
+                            (const void*)attention_core_bwd_rows_kernel<true>,
+                            (const void*)attention_core_bwd_cols_kernel<false>,
+                            (const void*)attention_core_bwd_cols_kernel<true>};
+  for (int i = 0; i < 7; ++i) {
+    cudaFuncAttributes a;
+    const cudaError_t err = cudaFuncGetAttributes(&a, kernels[i]);
+    if (err != cudaSuccess) return (int)err;
+    attrs[2 * i] = a.numRegs;
+    attrs[2 * i + 1] = (int)a.localSizeBytes;
+  }
+  return 0;
+}
+
 // The forward core (K2f's, and K7f): the (B, N, H*Dh) output of q, k and v
 // given as (B, N, H*Dh) rows of stride ld (K2f passes the thirds of its
-// [q | k | v] buffer, ld = 3D).
+// [q | k | v] buffer, ld = 3D); design as ddm_attention_core_plan's.
 extern "C" int ddm_attention_core(const void* q, const void* k, const void* v, int ld, void* out,
-                                  int B, int N, int H, int Dh, float scale, void* stream) {
+                                  int B, int N, int H, int Dh, float scale, int design,
+                                  void* stream) {
   using namespace ddm;
   const Heads in{(const bf16*)q, (const bf16*)k, (const bf16*)v, ld};
-  return (int)launch_core(in, (bf16*)out, B, N, H, Dh, scale, (cudaStream_t)stream);
+  return (int)launch_core(in, (bf16*)out, B, N, H, Dh, scale, design, (cudaStream_t)stream);
 }
 
 // The backward core (K2b's and K4's, and K7b): dq, dk and dv of the core over
 // q, k and v (rows of stride ld) for the (B, N, H*Dh) cotangent dout, into the
 // thirds of the (B, N, 3D) dqkv rows, and att = bf16(P V) where att is not
-// null (K7b writes none). One block per (image, head) unless tiled; then
-// stats holds B x H x N x 3 floats of scratch.
+// null (K7b writes none). design as ddm_attention_core_plan's; every design
+// but the one-block one takes stats, B x H x N x 3 floats of scratch.
 extern "C" int ddm_attention_core_bwd(const void* q, const void* k, const void* v, int ld,
                                       const void* dout, void* att, void* dqkv, void* stats, int B,
-                                      int N, int H, int Dh, float scale, int tiled,
+                                      int N, int H, int Dh, float scale, int design,
                                       void* stream) {
   using namespace ddm;
+  if (!takes(N, Dh)) return (int)cudaErrorInvalidValue;
+  const BwdPlan p = bwd_plan(N, Dh, design);
+  if (p.design < 0 || (p.design > 0 && stats == nullptr)) return (int)cudaErrorInvalidValue;
   const Heads in{(const bf16*)q, (const bf16*)k, (const bf16*)v, ld};
   const DHeads out = dqkv_heads(dqkv, H * Dh);
   const cudaStream_t s = (cudaStream_t)stream;
-  if (tiled)
-    return (int)launch_bwd_tiled(in, (const bf16*)dout, (bf16*)att, out, (float*)stats, B, N, H,
-                                 Dh, scale, s);
-  return (int)launch_bwd_one_block(in, (const bf16*)dout, (bf16*)att, out, B, N, H, Dh, scale,
-                                   s);
+  if (p.design == 0)
+    return (int)launch_bwd_one_block(in, (const bf16*)dout, (bf16*)att, out, B, N, H, Dh, scale,
+                                     s);
+  return (int)launch_bwd_two_pass(in, (const bf16*)dout, (bf16*)att, out, (float*)stats, B, N,
+                                  H, Dh, scale, p, s);
 }

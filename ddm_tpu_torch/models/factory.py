@@ -67,8 +67,8 @@ def build_model(cfg: Any, device: torch.device | str = "cpu", tp_group=None) -> 
     tier per call from its shapes, as the JAX ladder does
     (:mod:`ddm_tpu_torch.ops.tiers`): K2 where the ladder has a half-block
     tier, else the third rung around K7, K8 or the plain core. A call on
-    CUDA tensors raises only where the JAX package would run a kernel the
-    port lacks (ROADMAP.md Queue 2). ``attention`` is ``"auto"``,
+    CUDA tensors launches the port's kernel wherever the JAX package runs
+    one: every kernel of the package is ported. ``attention`` is ``"auto"``,
     ``"flash"`` (the same) or ``"xla"`` (the unfused attention half).
     ``fast_gelu`` (default False; an environment switch in the JAX package,
     ``DDM_TPU_FAST_GELU=1``, so no key of its ``MODEL_DEFAULTS``) takes the

@@ -12,21 +12,29 @@ writes the attention output beside dq, dk and dv (``csrc/gemm.cu``,
 Function runs the plain versions, :func:`attention_block_reference` and
 :func:`attention_block_bwd_reference`.
 
-The cores take 16 <= N <= 512 (N a multiple of 16, the JAX gate's N <= 512)
-and head widths Dh a multiple of 8 (the JAX gate's ``Dh % 8 == 0``: DiT-XL's
-Dh 72, DiT-S at ``--heads 16``'s Dh 24), each head's tile padded in shared
-memory to the next multiple of 16 with zero columns. The half-block GEMMs
-run D a multiple of 64 up to :data:`ddm_tpu_torch.ops.gemm.LN_GEMM_MAX_K`
-(1344, the resident-panel LN-prologue kernel's bound), the widths of every
-JAX attention half-block tier; a shape the JAX ladder sends through a
-kernel and the port cannot take raises ``NotImplementedError`` naming
-``ROADMAP.md`` Queue 2.
+The cores take every shape the JAX gates send them: 16 <= N <= 512 (N a
+multiple of 16, the JAX gate's N <= 512) and any head width Dh a multiple
+of 8 (the JAX gate's ``Dh % 8 == 0``: DiT-XL's Dh 72, DiT-S at ``--heads
+16``'s Dh 24, DiT-S/4 at ``--heads 1``'s 384 at 64 px, up to 3712 at N =
+16), each head's tile padded in shared memory to the next multiple of 16
+with zero columns; other shapes raise ``NotImplementedError``. The
+half-block GEMMs run D a multiple of 64 up to
+:data:`ddm_tpu_torch.ops.gemm.LN_GEMM_MAX_K` (1344, the resident-panel
+LN-prologue kernel's bound), the widths of every JAX attention half-block
+tier.
 The forward core runs one block per (image, head, query tile) over full
 score rows. The backward core runs one block per (image, head) where its
 fp32 P and dP tiles fit shared memory (N <= 112 at Dh = 64), and past that
 two passes, over query tiles (P, att, dq and the row terms) and over key
-tiles (dk, dv). Both backward designs keep the same rounding plan and agree
-bit for bit where both apply; the one-block design is the faster one there.
+tiles and output column chunks (dk, dv). The forward core and each pass
+hold a whole head in shared memory where it fits (the resident design) and
+otherwise pass it through in 64-column chunks, keeping only the fp32 score
+rows whole (the streamed design, past the card's 227 KB: DiT-S/4 at
+``--heads 1`` and 64 px, DiT-B/4 at ``--heads 1``, DiT-L/4 at ``--heads 2``
+and 64 px); the library's plan (:func:`core_plan`) picks, and ``design=``
+forces one for the card tests. Every design keeps the same rounding plan
+and the same order of every sum, so they agree bit for bit where two apply;
+the one-block design is the fastest where it fits.
 
 That backward is the port of two TPU kernels, which the JAX ladder picks
 by the shapes (:func:`ddm_tpu_torch.ops.tiers.attention_tier`): the fused
@@ -84,6 +92,8 @@ gradients stay fp32, where JAX's XLA autodiff of rung 3 rounds them to bf16
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import flash, gemm, tiers
@@ -112,6 +122,8 @@ __all__ = [
     "fused_attention",
     "fused_attention_block",
     "supported_tokens",
+    "core_plan",
+    "kernel_attrs",
     "LAUNCHES",
     "BWD_LAUNCHES",
     "SPLIT_BWD_LAUNCHES",
@@ -125,10 +137,13 @@ BWD_LAUNCHES = LaunchCounter("K2b")
 SPLIT_BWD_LAUNCHES = LaunchCounter("K4")
 CORE_LAUNCHES = LaunchCounter("K7f")
 CORE_BWD_LAUNCHES = LaunchCounter("K7b")
-_QUEUE2 = "ROADMAP.md Queue 2"
 MAX_TOKENS = 512  # the JAX gate's N <= 512; the flash tier takes N >= 1024
-_SINGLE_MAX_TOKENS = 128  # one backward block per (image, head) at most
-_MAX_SMEM = 232448
+# the cores' designs (``design=``), in the order of the library's codes
+FWD_DESIGNS = ("resident", "streamed")
+BWD_DESIGNS = ("one-block", "two-pass", "streamed")
+# the core kernels whose registers and spills kernel_attrs reads
+CORE_KERNELS = ("forward", "forward streamed", "one-block backward", "pass 1",
+                "pass 1 streamed", "pass 2", "pass 2 streamed")
 
 
 def _heads(a: torch.Tensor, H: int) -> torch.Tensor:
@@ -273,47 +288,49 @@ def rung3_block_bwd_reference(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H: i
                                 _flash_core_bwd if core == "K8" else _plain_core_bwd)
 
 
-def _padded(Dh: int) -> int:
-    """A head's width in the cores' shared tiles: Dh up to a multiple of 16."""
-    return -(-Dh // 16) * 16
-
-
-def _core_smem(N: int, Dh: int, QT: int = 16) -> int:
-    """Shared memory of the forward core at QT query rows (16: its least)."""
-    Dh = _padded(Dh)
-    return (QT + N) * (Dh + 8) * 2 + QT * (max(N, Dh) + 4) * 4 + QT * (N + 8) * 2
-
-
-def _core_bwd_smem(N: int, Dh: int) -> int:
-    """Shared memory of the one-block backward core (Q, K, V, dO, fp32 P and dP)."""
-    Dh = _padded(Dh)
-    return 4 * N * (Dh + 8) * 2 + 2 * N * (max(N, Dh) + 4) * 4 + N * (N + 8) * 2
-
-
-def _bwd_tiled_smem(N: int, Dh: int) -> int:
-    """The larger of the two backward passes' shared memory at their least
-    tiles (16 query rows; 16 key and 16 query rows)."""
-    Dh = _padded(Dh)
-    rows = (32 + N) * (Dh + 8) * 2 + 32 * (max(N, Dh) + 4) * 4 + 16 * (N + 8) * 2
-    cols = 64 * (Dh + 8) * 2 + (2 * 16 * 20 + 2 * 16 * (Dh + 4) + 48) * 4 + 16 * 24 * 2
-    return max(rows, cols)
-
-
-def _single_block_bwd(N: int, Dh: int) -> bool:
-    return N <= _SINGLE_MAX_TOKENS and _core_bwd_smem(N, Dh) <= _MAX_SMEM
-
-
 def supported_tokens(N: int, Dh: int) -> bool:
-    """Whether K2f's attention cores take N tokens of head width Dh."""
-    return (N % 16 == 0 and 16 <= N <= MAX_TOKENS and Dh % 8 == 0
-            and _core_smem(N, Dh) <= _MAX_SMEM)
+    """Whether the attention cores (K2f, K2b, K4, K7) take N tokens of head
+    width Dh, forward and backward: every shape the JAX gates send them."""
+    return N % 16 == 0 and 16 <= N <= MAX_TOKENS and Dh % 8 == 0 and Dh > 0
 
 
-def supported_tokens_bwd(N: int, Dh: int) -> bool:
-    """Whether K2b's (and K4's) attention core backwards take N tokens of
-    head width Dh."""
-    return supported_tokens(N, Dh) and (_single_block_bwd(N, Dh)
-                                        or _bwd_tiled_smem(N, Dh) <= _MAX_SMEM)
+def _code(design, names) -> int:
+    """A design's code in the library (-1: the library's own pick)."""
+    if design is None:
+        return -1
+    if design not in names:
+        raise ValueError(f"design must be one of {names} or None, got {design!r}")
+    return names.index(design)
+
+
+def core_plan(N: int, Dh: int, backward: bool = False, design=None) -> dict:
+    """The tiles the card's launchers take for N tokens of head width Dh,
+    read from the library (the card's only; it builds the kernels): the
+    forward's ``{"design", "QT", "C"}`` (C: the column chunk, the padded
+    Dh where the design is resident), the backward's ``{"design",
+    "rows": (QT, C), "cols": (KT, QT, C, C2)}`` (pass 2's output column
+    chunk C2; no pass tiles for the one-block design). ``design`` forces one
+    of :data:`FWD_DESIGNS` or :data:`BWD_DESIGNS`; raises where it (or,
+    with None, every design) does not take the shape."""
+    plan = (ctypes.c_int * 7)()
+    names = BWD_DESIGNS if backward else FWD_DESIGNS
+    check_status(load_library().ddm_attention_core_plan(
+        N, Dh, int(backward), _code(design, names), ctypes.addressof(plan)),
+        f"attention core plan at N={N}, Dh={Dh}, design={design}")
+    if not backward:
+        return {"design": FWD_DESIGNS[plan[0]], "QT": plan[1], "C": plan[2]}
+    return {"design": BWD_DESIGNS[plan[0]], "rows": tuple(plan[1:3]), "cols": tuple(plan[3:7])}
+
+
+def kernel_attrs() -> dict:
+    """Registers and local (spill) bytes a thread of each core kernel takes
+    on the card: ``{name: {"registers", "local_bytes"}}`` over
+    :data:`CORE_KERNELS`."""
+    attrs = (ctypes.c_int * (2 * len(CORE_KERNELS)))()
+    check_status(load_library().ddm_attention_kernel_attrs(ctypes.addressof(attrs)),
+                 "attention kernel attributes")
+    return {name: {"registers": attrs[2 * i], "local_bytes": attrs[2 * i + 1]}
+            for i, name in enumerate(CORE_KERNELS)}
 
 
 def _check(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H, kernel="K2"):
@@ -339,9 +356,9 @@ def _check(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H, kernel="K2"):
     gemm.refuse_wide(D, kernel)
     if kernel == "K2" and not supported_tokens(N, Dh):
         raise NotImplementedError(
-            f"K2's attention cores take N a multiple of 16 up to {MAX_TOKENS} and Dh a multiple "
-            f"of 8 whose tiles fit shared memory; got N={N}, Dh={Dh}: {_QUEUE2} (the K2 and K7 "
-            "cores past 227 KB)")
+            f"K2's attention cores take N a multiple of 16 up to {MAX_TOKENS} (every square "
+            f"token count the JAX gate's N % 8 == 0 admits) and Dh a multiple of 8; got N={N}, "
+            f"Dh={Dh}")
     if not x.is_contiguous():
         raise ValueError(f"{kernel} needs contiguous activations")
 
@@ -392,24 +409,25 @@ def _bwd_chain(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, dout, core_bwd):
     return dx.reshape(B, N, D), dscale, dbias, dwqkv, dbqkv, dwproj, dbproj
 
 
-def _launch_core(q, k, v, H):
+def _launch_core(q, k, v, H, design=None):
     """The forward core on CUDA tensors its caller has checked -> (B, N, D)
     bf16, q, k and v read in place where they share one row stride (the
-    thirds of a qkv buffer)."""
+    thirds of a qkv buffer): resident where a head fits, else streamed
+    (``design`` forces one of :data:`FWD_DESIGNS`)."""
     q, k, v, ld = flash._qkv_rows(q, k, v)
     B, N, D = q.shape
     Dh = D // H
     out = torch.empty((B, N, D), dtype=torch.bfloat16, device=q.device)
     check_status(load_library().ddm_attention_core(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ld, out.data_ptr(), B, N, H, Dh, Dh ** -0.5,
-        current_stream(q.device)), "attention_core")
+        _code(design, FWD_DESIGNS), current_stream(q.device)), "attention_core")
     return out
 
 
-def _launch_core_bwd(q, k, v, do, H, with_att, tiled=None):
+def _launch_core_bwd(q, k, v, do, H, with_att, design=None):
     """The backward core -> ``(att or None, dqkv (B, N, 3D))``, bf16: one
-    block per (image, head) where it fits, else the two passes (``tiled``
-    forces the choice)."""
+    block per (image, head) where it fits, else the two passes, each
+    resident or streamed (``design`` forces one of :data:`BWD_DESIGNS`)."""
     q, k, v, ld = flash._qkv_rows(q, k, v)
     B, N, D = q.shape
     Dh = D // H
@@ -417,30 +435,29 @@ def _launch_core_bwd(q, k, v, do, H, with_att, tiled=None):
         raise ValueError(f"the core backward takes do of shape {tuple(q.shape)}, got "
                          f"{tuple(do.shape)}")
     do = flash._aligned(do.to(torch.bfloat16))
-    if tiled is None:
-        tiled = not _single_block_bwd(N, Dh)
+    passes = core_plan(N, Dh, True, design)["design"] != "one-block"
     empty = lambda *s, dt=torch.bfloat16: torch.empty(s, dtype=dt, device=q.device)  # noqa: E731
     att = empty(B, N, D) if with_att else None
-    stats = empty(B, H, N, 3, dt=torch.float32) if tiled else None
+    stats = empty(B, H, N, 3, dt=torch.float32) if passes else None
     dqkv = empty(B, N, 3 * D)
     check_status(load_library().ddm_attention_core_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ld, do.data_ptr(),
         None if att is None else att.data_ptr(), dqkv.data_ptr(),
-        None if stats is None else stats.data_ptr(), B, N, H, Dh, Dh ** -0.5, int(tiled),
-        current_stream(q.device)), "attention_core_bwd")
+        None if stats is None else stats.data_ptr(), B, N, H, Dh, Dh ** -0.5,
+        _code(design, BWD_DESIGNS), current_stream(q.device)), "attention_core_bwd")
     return att, dqkv
 
 
-def _k2_core(qkv, H):
+def _k2_core(qkv, H, design=None):
     """K2's attention core on a (B, N, 3D) qkv buffer -> (B, N, D) bf16."""
-    return _launch_core(*qkv.split(qkv.shape[-1] // 3, dim=-1), H)
+    return _launch_core(*qkv.split(qkv.shape[-1] // 3, dim=-1), H, design)
 
 
-def _core_bwd_att(qkv, datt, H, tiled=None):
+def _core_bwd_att(qkv, datt, H, design=None):
     """K2b's and K4's attention core -> (att (B, N, D), dqkv (B, N, 3D)),
     bf16: one block per (image, head) where it fits, else the two passes
-    (``tiled`` forces the choice)."""
-    return _launch_core_bwd(*qkv.split(qkv.shape[-1] // 3, dim=-1), datt, H, True, tiled)
+    (``design`` forces one of :data:`BWD_DESIGNS`)."""
+    return _launch_core_bwd(*qkv.split(qkv.shape[-1] // 3, dim=-1), datt, H, True, design)
 
 
 def _k2f(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H):
@@ -450,19 +467,10 @@ def _k2f(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H):
     return out
 
 
-def _check_core_bwd(x, H, name):
-    N, Dh = x.shape[1], x.shape[2] // H
-    if not supported_tokens_bwd(N, Dh):
-        raise NotImplementedError(
-            f"{name}'s attention core backwards do not take N={N}, Dh={Dh} (their shared-memory "
-            f"tiles exceed the card's 227 KB): {_QUEUE2} (the K2 and K7 cores past 227 KB)")
-
-
 def _k2b(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H, dout, counter=BWD_LAUNCHES):
     """The half-block backward on the card. K2b and K4 (the JAX ladder's
     fused and split backwards) run this one chain; ``counter`` says which
     tier the ladder picked."""
-    _check_core_bwd(x, H, counter.name)
     grads = _bwd_chain(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, dout,
                        lambda qkv, datt: _core_bwd_att(qkv, datt, H))
     counter.add()
@@ -530,11 +538,10 @@ def _check_core(q, k, v, H: int, core="K7") -> None:
 
 def _refuse_unported_core(core, N: int, Dh: int) -> None:
     """Raise where the JAX gate takes ``core`` and the port's kernel does not."""
-    if core == "K7" and not (supported_tokens(N, Dh) and supported_tokens_bwd(N, Dh)):
+    if core == "K7" and not supported_tokens(N, Dh):  # the port's K7 takes every such shape
         raise NotImplementedError(
-            f"K7's cores take N a multiple of 16 up to {MAX_TOKENS} and Dh a multiple of 8 whose "
-            f"tiles fit shared memory; got N={N}, Dh={Dh}: {_QUEUE2} (the K2 and K7 cores past "
-            "227 KB)")
+            f"K7's cores take N a multiple of 16 up to {MAX_TOKENS} (every square token count "
+            f"the JAX gate's N % 8 == 0 admits) and Dh a multiple of 8; got N={N}, Dh={Dh}")
     if core == "K8" and not flash.flash_supported(N, Dh):  # the port's K8 takes every such shape
         raise NotImplementedError(
             f"the JAX gate takes K8 at N={N}, Dh={Dh}; the port's K8 takes N a multiple of "

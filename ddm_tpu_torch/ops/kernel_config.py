@@ -57,10 +57,14 @@ _SIGNATURES = {
     "ddm_ln_gemm_streamed": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # a, w, bias, residual, out, T, K, Nout, stream
     "ddm_gemm_residual": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # q, k, v, ld, out, B, N, H, Dh, scale, stream
-    "ddm_attention_core": [_P, _P, _P, _I, _P] + [_I] * 4 + [_F, _P],
-    # q, k, v, ld, dout, att, dqkv, stats, B, N, H, Dh, scale, tiled, stream
+    # q, k, v, ld, out, B, N, H, Dh, scale, design, stream
+    "ddm_attention_core": [_P, _P, _P, _I, _P] + [_I] * 4 + [_F, _I, _P],
+    # q, k, v, ld, dout, att, dqkv, stats, B, N, H, Dh, scale, design, stream
     "ddm_attention_core_bwd": [_P, _P, _P, _I, _P, _P, _P, _P] + [_I] * 4 + [_F, _I, _P],
+    # N, Dh, backward, design, plan (int[7])
+    "ddm_attention_core_plan": [_I, _I, _I, _I, _P],
+    # attrs (int[14]: registers and local bytes of the seven core kernels)
+    "ddm_attention_kernel_attrs": [_P],
     # a, w, ldw, acc, bias, res, out, T, K, Nout, epi, stream
     "ddm_gemm_partial": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # a, w, bias, aux, out, colsum_ws, colsum_out, T, K, Nout, ldw, wstride, epi, batch,

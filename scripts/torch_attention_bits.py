@@ -1,0 +1,103 @@
+"""Dump the attention cores' outputs (K2's and K7's forward core, the backward
+core with and without att) for one checkout of the PyTorch port and time
+them, or compare two dumps bit for bit: the check that a change to
+csrc/attention.cu keeps the bits, and the speed, of the designs it did not
+mean to change.
+
+On one card, from the root of each checkout (its package is imported from
+the current directory), on the same seeded inputs, q, k and v read in place
+from a [q | k | v] buffer, at (B, N, H, Dh): (2048, 64, 6, 64) (DiT-S/4's
+training shape, the one-block backward), (256, 256, 6, 64) (64 px, two
+passes), (256, 256, 16, 64) (DiT-L/4 at 64 px, K7) and (256, 64, 16, 72)
+(DiT-XL/4, heads padded to 80 columns):
+
+    PYTHONPATH=. python scripts/torch_attention_bits.py dump /tmp/new.pt
+    cd parent && PYTHONPATH=. python ../scripts/torch_attention_bits.py dump /tmp/old.pt
+    python scripts/torch_attention_bits.py compare /tmp/old.pt /tmp/new.pt
+
+``dump`` prints each core's median time over 20 calls (CUDA events, after 3
+warm-up calls); ``compare`` prints whether every output agrees bit for bit
+and exits non-zero where one does not.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+import numpy as np
+import torch
+
+SHAPES = ((2048, 64, 6, 64), (256, 256, 6, 64), (256, 256, 16, 64), (256, 64, 16, 72))
+
+
+def _median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def dump(path: str) -> None:
+    from ddm_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out, lines = {}, []
+    for B, N, H, Dh in SHAPES:
+        D = H * Dh
+        qkv = torch.randn(B, N, 3 * D, generator=gen, device="cuda").to(torch.bfloat16)
+        do = torch.randn(B, N, D, generator=gen, device="cuda").to(torch.bfloat16)
+        q, k, v = qkv.split(D, dim=-1)
+        calls = {"fwd": lambda: A._launch_core(q, k, v, H),
+                 "bwd_att": lambda: A._launch_core_bwd(q, k, v, do, H, True),
+                 "bwd": lambda: A._launch_core_bwd(q, k, v, do, H, False)}
+        with torch.no_grad():
+            key = f"{B}x{N}x{H}x{Dh}"
+            o = calls["fwd"]()
+            att, dqkv_att = calls["bwd_att"]()
+            _, dqkv = calls["bwd"]()
+            torch.cuda.synchronize()
+            out[key] = {"o": o.cpu(), "att": att.cpu(), "dqkv_att": dqkv_att.cpu(),
+                        "dqkv": dqkv.cpu()}
+            ms = {name: _median_ms(fn) for name, fn in calls.items()}
+        lines.append(f"(B={B}, N={N}, H={H}, Dh={Dh}): " + ", ".join(
+            f"{name} {t:.4f} ms" for name, t in ms.items()))
+    torch.save(out, path)
+    print(f"dumped the attention cores' outputs from {A.__file__} to {path}; median of 20 on "
+          f"{torch.cuda.get_device_name(0)}:\n  " + "\n  ".join(lines))
+
+
+def compare(a: str, b: str) -> bool:
+    x, y = torch.load(a), torch.load(b)
+    same = {f"{shape} {name}": torch.equal(t, y[shape][name])
+            for shape, outs in x.items() for name, t in outs.items()}
+    print("attention core outputs bit for bit: " + ", ".join(
+        f"{n} {'equal' if s else 'DIFFERENT'}" for n, s in same.items()))
+    return all(same.values())
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    sub = p.add_subparsers(dest="cmd", required=True)
+    sub.add_parser("dump").add_argument("path")
+    c = sub.add_parser("compare")
+    c.add_argument("a")
+    c.add_argument("b")
+    args = p.parse_args(argv)
+    if args.cmd == "dump":
+        dump(args.path)
+        return 0
+    return 0 if compare(args.a, args.b) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

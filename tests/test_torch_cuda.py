@@ -1,6 +1,7 @@
 """The CUDA kernels K1-K4, K6f, K6b, K7-K9 and K10-K12 against their plain versions, on the
-card, at head widths off 16 (Dh 8, 24, 40, 72), at DiT-XL's D 1152, with the fast GELU, and
-the MLP half-block past D 1344 (the streamed LN-prologue GEMM, D 1408-4096).
+card, at head widths off 16 (Dh 8, 24, 40, 72), at DiT-XL's D 1152, with the fast GELU, the
+MLP half-block past D 1344 (the streamed LN-prologue GEMM, D 1408-4096), and the streamed
+attention cores past 227 KB of shared memory (Dh up to 3712), bit for bit the resident ones.
 
 Every test here is marked ``cuda`` and skips on a host without a GPU. The
 file imports no JAX (the machine with the card has none), so it runs there
@@ -207,10 +208,12 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
     wproj = torch.zeros(128, 128, device=cuda_device)
     tokens = torch.zeros(2, 24, 128, device=cuda_device, dtype=torch.bfloat16)
     assert TT.attention_tier(2, 24, 128, 2) == "fused"
-    with pytest.raises(NotImplementedError, match="N=24.*Queue 2"):  # the JAX gate takes N % 8
+    # the JAX gate takes N % 8 == 0; the cores take N % 16 == 0, which every
+    # square token count that is a multiple of 8 is (no image gives N = 24)
+    with pytest.raises(NotImplementedError, match="N=24"):
         TA.fused_attention_block(tokens, vec, vec, wqkv, bqkv, wproj, vec, 2)
     q = torch.zeros(2, 24, 128, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="Queue 2"):
+    with pytest.raises(NotImplementedError, match="N=24"):
         TA.attention_core_fwd(q, q, q, 2)
     xh, x0 = torch.zeros(4, 1, 128, device=cuda_device), torch.zeros(4, 128, device=cuda_device)
     with pytest.raises(ValueError, match="m must be >= 2"):
@@ -904,8 +907,8 @@ def test_k2_tiled_cores_agree_with_the_one_block_cores_on_the_card(cuda_device, 
     gen = torch.Generator(device=cuda_device).manual_seed(21)
     qkv = torch.randn(B, N, 3 * H * Dh, generator=gen, device=cuda_device).to(torch.bfloat16)
     datt = torch.randn(B, N, H * Dh, generator=gen, device=cuda_device).to(torch.bfloat16)
-    tiled, single = TA._core_bwd_att(qkv, datt, H, tiled=True), TA._core_bwd_att(
-        qkv, datt, H, tiled=False)
+    tiled, single = TA._core_bwd_att(qkv, datt, H, "two-pass"), TA._core_bwd_att(
+        qkv, datt, H, "one-block")
     assert torch.equal(tiled[0], single[0]) and torch.equal(tiled[1], single[1])
     want = TA.attention_core_bwd_att_reference(*qkv.split(H * Dh, dim=-1), datt, H)
     _assert_bf16_rule(tiled[1], torch.cat(want[1:], dim=-1))
@@ -1177,3 +1180,137 @@ def test_fast_gelu_expert_kernels_match_plain_on_the_card(cuda_device, E, S, D, 
     _assert_grads_close(got, TX.expert_ffn_bwd_reference(*args, dout, fast_gelu=True))
     for g, h in zip(got, again):
         assert torch.equal(g, h)
+
+
+def _core_case(device, B, N, H, Dh, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    qkv = torch.randn(B, N, 3 * H * Dh, generator=gen, device=device).to(torch.bfloat16)
+    do = torch.randn(B, N, H * Dh, generator=gen, device=device).to(torch.bfloat16)
+    return qkv, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,H,Dh,att", [(8, 256, 1, 384, True), (16, 64, 1, 768, True),
+                                          (8, 256, 2, 512, False), (2, 16, 1, 3712, False),
+                                          (2, 144, 1, 3328, False), (2, 256, 1, 1792, False),
+                                          (2, 400, 1, 1024, False)])
+def test_streamed_cores_match_plain_on_the_card(cuda_device, B, N, H, Dh, att):
+    """The cores past 227 KB of shared memory: DiT-S/4 --heads 1 at 64 px and
+    DiT-B/4 --heads 1 (K2b's and K4's core, writing att), DiT-L/4 --heads 2
+    at 64 px (K7b, no att) and the widest head the JAX gates send at each N,
+    forward and backward against their plain versions by the bf16 rule, the
+    backward twice, bit-identical; the plan streams a pass at each."""
+    qkv, do = _core_case(cuda_device, B, N, H, Dh, seed=30)
+    D = H * Dh
+    q, k, v = qkv.split(D, dim=-1)
+    assert TA.core_plan(N, Dh, backward=True)["design"] == "streamed"
+    o = TA.attention_core_fwd(q, k, v, H)
+    _assert_bf16_rule(o, TA.attention_reference(q, k, v, H))
+    if att:
+        got, again = TA._core_bwd_att(qkv, do, H), TA._core_bwd_att(qkv, do, H)
+        want = TA.attention_core_bwd_att_reference(q, k, v, do, H)
+        assert torch.equal(got[0], o)  # att from the fp32 P: the forward's bits
+        got, again = (got[0], *got[1].split(D, dim=-1)), (again[0], *again[1].split(D, dim=-1))
+    else:
+        got, again = TA.attention_core_bwd(q, k, v, do, H), TA.attention_core_bwd(q, k, v, do, H)
+        want = TA.attention_core_bwd_reference(q, k, v, do, H)
+    torch.cuda.synchronize()
+    for g, h, w in zip(got, again, want):
+        assert torch.equal(g, h)
+        _assert_bf16_rule(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,H,Dh", [(64, 64, 6, 64), (8, 256, 4, 256), (4, 512, 2, 64),
+                                      (8, 256, 4, 72), (16, 112, 6, 64)])
+def test_streamed_cores_give_the_resident_bits_on_the_card(cuda_device, B, N, H, Dh):
+    """Where a resident design takes a shape, the streamed one gives its bits:
+    the forward core, and the backward (att, dq, dk, dv) against the two
+    whole-head passes or, at (112, 64), the one-block core; each backward
+    twice, bit-identical. At Dh 256 and 72 (80 padded) the streamed design
+    takes several 64-column chunks."""
+    qkv, do = _core_case(cuda_device, B, N, H, Dh, seed=31)
+    resident = "one-block" if N <= 112 else "two-pass"
+    assert TA.core_plan(N, Dh, backward=True)["design"] == resident
+    assert TA.core_plan(N, Dh)["design"] == "resident"
+    assert torch.equal(TA._k2_core(qkv, H, "streamed"), TA._k2_core(qkv, H, "resident"))
+    outs = {d: [TA._core_bwd_att(qkv, do, H, d) for _ in range(2)] for d in (resident, "streamed")}
+    torch.cuda.synchronize()
+    for first, second in outs.values():
+        assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    (att, dqkv), (satt, sdqkv) = outs[resident][0], outs["streamed"][0]
+    assert torch.equal(att, satt) and torch.equal(dqkv, sdqkv)
+    assert torch.equal(att, TA._k2_core(qkv, H))
+    want = TA.attention_core_bwd_att_reference(*qkv.split(H * Dh, dim=-1), do, H)
+    _assert_bf16_rule(sdqkv, torch.cat(want[1:], dim=-1))
+
+
+@pytest.mark.cuda
+def test_core_plan_on_the_card(cuda_device):
+    """The library's plan, which the launchers take: the one-block backward
+    up to N 112 at Dh 64 (128 at Dh 32), the whole-head designs where they
+    fit, a streamed pass past 227 KB (pass 2 keeps the whole head to Dh
+    ~880), and a refusal where a forced design does not fit."""
+    plan = TA.core_plan
+    assert plan(112, 64, True)["design"] == "one-block"
+    assert plan(128, 64, True)["design"] == "two-pass"
+    assert plan(128, 32, True)["design"] == "one-block"
+    assert plan(256, 64) == {"design": "resident", "QT": 32, "C": 64}
+    assert plan(256, 384) == {"design": "streamed", "QT": 32, "C": 64}
+    assert plan(64, 768)["design"] == "resident"
+    s = plan(256, 384, True)
+    assert s["design"] == "streamed" and s["rows"] == (16, 64) and s["cols"][2:] == (384, 384)
+    assert plan(64, 768, True)["rows"] == (32, 64)
+    assert plan(16, 3712, True)["cols"] == (16, 16, 64, 928)
+    for args in ((256, 384, False, "resident"), (256, 384, True, "two-pass"),
+                 (256, 64, True, "one-block"), (528, 64, False, None), (64, 68, True, None)):
+        with pytest.raises(RuntimeError):
+            plan(*args)
+    attrs = TA.kernel_attrs()
+    assert set(attrs) == set(TA.CORE_KERNELS)
+    assert all(a["registers"] > 0 and a["local_bytes"] >= 0 for a in attrs.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,D,H,tier", [(4, 256, 384, 1, "fused"), (16, 64, 768, 1, "split"),
+                                          (4, 256, 1024, 2, None), (2, 16, 3712, 1, None)])
+def test_half_blocks_around_the_streamed_cores_match_plain_on_the_card(cuda_device, B, N, D, H,
+                                                                      tier):
+    """The half-block where the streamed cores run: DiT-S/4 --heads 1 at 64
+    px (K2f, K2b), DiT-B/4 --heads 1 (K2f, K4), DiT-L/4 --heads 2 at 64 px
+    (the third rung around K7) and Dh 3712 at N 16 (K7 between plain
+    products): the forward by the bf16 rule, all seven gradients through
+    autograd twice (bit-identical), dx by the bf16 tolerance and each fp32
+    gradient within twice bf16's own noise on this step (the plain bf16
+    chain against the plain fp32 one, relative Frobenius) or 1e-3: at one
+    head of 768 a core output's flipped bf16 rounding, which the bf16 rule
+    admits on a few per cent of entries, moves the LN gradients by ~1e-3."""
+    assert TT.attention_tier(B, N, D, H) == tier
+    core = None if tier else TT.core_tier(B, N, D, H)
+    args = _on(cuda_device, _attn_inputs(B, N, D, seed=32))
+    dout = torch.randn(B, N, D, generator=torch.Generator(device=cuda_device).manual_seed(33),
+                       device=cuda_device).to(torch.bfloat16)
+    counters = (TA.LAUNCHES, TA.BWD_LAUNCHES, TA.SPLIT_BWD_LAUNCHES, TA.CORE_LAUNCHES,
+                TA.CORE_BWD_LAUNCHES)
+    before = [c.count for c in counters]
+    with torch.inference_mode():
+        out = TA.fused_attention_block(*args, H)
+    got = _grads_through_autograd(TA.fused_attention_block, args, (H,), dout)
+    again = _grads_through_autograd(TA.fused_attention_block, args, (H,), dout)
+    torch.cuda.synchronize()
+    want = {"fused": [3, 2, 0, 0, 0], "split": [3, 0, 2, 0, 0], None: [0, 0, 0, 3, 2]}[tier]
+    assert [c.count - n for c, n in zip(counters, before)] == want
+    if tier:
+        _assert_bf16_rule(out, TA.attention_block_reference(*args, H))
+        wgrads = TA.attention_block_bwd_reference(*args, H, dout)
+        want32 = TA.attention_block_bwd_reference(args[0].float(), *args[1:], H, dout.float())
+    else:
+        _assert_bf16_rule(out, TA.rung3_block_reference(*args, H, core))
+        wgrads = TA.rung3_block_bwd_reference(*args, H, dout, core)
+        want32 = TA.rung3_block_bwd_reference(args[0].float(), *args[1:], H, dout.float(), core)
+    for g, h in zip(got, again):
+        assert torch.equal(g, h)
+    torch.testing.assert_close(got[0].float(), wgrads[0].float(), **BF16_TOL)
+    rel = lambda a, b: float(torch.linalg.norm(a - b) / torch.linalg.norm(b))  # noqa: E731
+    for i, (g, w, w32) in enumerate(zip(got[1:], wgrads[1:], want32[1:]), start=1):
+        assert rel(g, w) <= max(2 * rel(w, w32), GRAD_FROB_REL), i

@@ -487,7 +487,10 @@ def test_card_refuses_only_shapes_listed_in_roadmap(monkeypatch):
     split); past the half-block GEMMs' widths (D 1536, past 1344) the third
     rung's plain products reach K7, and at D 480, 1472 and 1600 (no GEMM,
     no core: JAX runs XLA alone) they run to their output with no kernel.
-    Meta tensors: only shapes are read."""
+    Past the card's 227 KB of shared memory the streamed cores take them:
+    DiT-S/4 --heads 1 at 64 px (fused), DiT-B/4 --heads 1 (split), DiT-L/4
+    --heads 2 at 64 px (K7), and K7 at Dh 3712 (N 16, plain products
+    around it). Meta tensors: only shapes are read."""
     monkeypatch.setattr(TA, "uses_kernel", lambda *t: True)
 
     class Launched(Exception):
@@ -515,6 +518,10 @@ def test_card_refuses_only_shapes_listed_in_roadmap(monkeypatch):
             (8, 64, 384, 16, "fused", "K7", Launched),
             (2048, 64, 384, 24, "split", "K7", Launched),
             (2048, 64, 1536, 16, None, "K7", Launched),
+            (2, 256, 384, 1, "fused", "K7", Launched),
+            (2, 64, 768, 1, "split", "K7", Launched),
+            (2, 256, 1024, 2, None, "K7", Launched),
+            (2, 16, 3712, 1, None, "K7", Launched),
             (256, 64, 480, 6, None, None, None),
             (256, 64, 1472, 8, None, None, None),
             (256, 64, 1600, 16, None, None, None)):

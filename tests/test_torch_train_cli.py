@@ -96,6 +96,29 @@ def test_train_cli_at_image_size_64_on_cpu(tmp_path, monkeypatch):
     assert samples.shape == (2, 64, 64, 3) and np.isfinite(samples).all()
 
 
+def test_train_cli_at_one_head_and_image_size_64_on_cpu(tmp_path, monkeypatch):
+    """DiT-S/4 at --heads 1 and 64 px (N = 256 tokens, Dh = 384: on the card
+    the streamed attention cores, K2f with K2b), depth 1, one step of two
+    synthetic images on the plain versions; then generate_torch samples."""
+    monkeypatch.setattr(cli, "CIFAR10DataConfig",
+                        functools.partial(CIFAR10DataConfig, synthetic_size=2))
+    result = cli.main(["--synthetic", "--image-size", "64", "--epochs", "1", "--batch", "2",
+                       "--m", "2", "--heads", "1", "--depth", "1", "--time-embed", "16",
+                       "--sample-batch", "2", "--sample-steps", "1", "--log-every", "1",
+                       "--device", "cpu", "--out", str(tmp_path)])
+    history = json.loads((tmp_path / "train_metrics.json").read_text())
+    assert history["step"] == [1] and np.isfinite(history["loss"]).all()
+    cfg = json.loads((tmp_path / "config.json").read_text())
+    assert (cfg["heads"], cfg["embed_dim"], cfg["image_size"]) == (1, 384, 64)
+    assert tiers.attention_tier(4, 256, 384, 1) == "fused"
+    assert not any(result["launches"]["train"].values())
+    npz = tmp_path / "s.npz"
+    generate_torch.main(["--ckpt", str(tmp_path), "--n", "2", "--steps", "1", "--device", "cpu",
+                         "--out", "", "--npz", str(npz)])
+    samples = np.load(npz)["samples"]
+    assert samples.shape == (2, 64, 64, 3) and np.isfinite(samples).all()
+
+
 def test_train_cli_with_m_32_on_cpu(tmp_path, monkeypatch):
     """--m 32 (the m-sweep point: K9's route at D = 3072) trains on the
     anchor-streaming plain versions, and generate_torch samples from it."""
