@@ -30,7 +30,9 @@ streamed LN-prologue GEMM) and a DiT at SD3-Medium's width (D 1536, depth
 Mixtral-8x22B's widths; then the attention cores past the card's 227 KB of
 shared memory (the streamed K2/K4/K7 cores), with DiT-S/4 at ``--heads 1``
 and 64 px, DiT-B/4 at ``--heads 1`` and DiT-L/4 at ``--heads 2`` and 64 px
-training and sampling.
+training and sampling; then the DiT tail's kernel pair X4f/X4b (which every
+path above runs, its launches counted) at each path's shape, and the
+whole-block forward X2f against the K2f -> K1f pair.
 
 Run from the repository root with no arguments:
 
@@ -367,6 +369,27 @@ The attention cores past 227 KB of shared memory, after those:
     then 64 samples each; launches per step as 6r, per sampler call 160
     each of K2f and K1f, 240 each, and 160 of K7f with 320 of K6f.
 
+The DiT tail and the whole-block experiment, after those:
+
+3s. (ln-dense-kernels) X4f and X4b (the final LayerNorm and unembed,
+    ``csrc/ln_dense.cu``) against their plain versions, X4f by the bf16
+    rule and X4b by the gradient rule with its second call bit-identical,
+    at every shape the paths give them: timed at the trainers' tail shapes
+    (LN_DENSE_SHAPES: T 131,072 at D 384, 768, 1024, 1152 and 1536, T
+    65,536 at D 384, 1024 and 1152, T 524,288 and 32,768 at D 384, T 32,768
+    at D 6144, and the sampler's T 16,384 at D 384; K 48), each beside its
+    plain version and the port's old tail (``_old_tail``: the LN, the
+    permuted weight and ``torch.matmul``, forward and forward + backward
+    through autograd), with its bound; then untimed at every other (T, D,
+    K) the phases above launched them at (the samplers' and the step
+    checks' rows, noted by ``record_ln_dense_shapes``). Every step and
+    trainer phase above counts X4f and X4b once a training step and X4f
+    once a sampler step at D % 128 == 0;
+3t. (whole-block) X2f (``csrc/whole_block.cu``) at (B 256, N 64, D 384, H 6,
+    F 1536): torch.equal to the K2f -> K1f pair, the plain version by the
+    bf16 rule, one block and an 8-block chain against the pair in turns
+    (``scripts/torch_exp_whole_block.py``); no path launches it.
+
 The DiT-S phases run at full width and depth 8. PERF.md gives the whole
 run's measured time on the card, the kernels' build included, against the
 20 minutes allowed.
@@ -482,6 +505,20 @@ MOE_Q_SHAPES = ((256, 384, (2,)), (512, 384, (2,)), (8, 4224, (2,)), (8, 6144, (
 # them) and the HBM rate; a bound is the larger of bytes / HBM and ops / peak
 PEAK = {"bf16": 989e12, "fp32": 67e12}
 HBM = 3.35e12
+# 3s: the DiT tail's (path, T, D) on the trainers, timed, K = p*p*C = 48 on
+# every one: DiT-S/4 training (the kernels line's entry) and sampling, the
+# wide paths' training rows (256 x m 8 images of 64 tokens) at D 768-1536,
+# the depth-1 MoE's (64 x m 8) at D 6144, m = 32 (256 x m 32), the 64-px
+# paths (64 x m 4 images of 256 tokens; the DiT-XL MoE's top-2 trainer, 128
+# x m 8, gives the same rows) at D 384, 1024 and 1152, and the two-rank
+# trainer's rows on each rank (256 x m 2), which runs in processes of its
+# own. 3s checks, untimed, every other shape the run's phases launch X4 at.
+LN_DENSE_K = 48
+LN_DENSE_SHAPES = [("dit-s", 131072, 384), ("dit-s sampling", 16384, 384),
+                   ("dit-b", 131072, 768), ("dit-l", 131072, 1024), ("dit-xl", 131072, 1152),
+                   ("sd3-m", 131072, 1536), ("mixtral", 32768, 6144), ("m32", 524288, 384),
+                   ("64px", 65536, 384), ("dit-l64", 65536, 1024), ("dit-xl64", 65536, 1152),
+                   ("tp", 32768, 384)]
 
 
 def _ulp2(ref: torch.Tensor) -> float:
@@ -525,6 +562,17 @@ def _bound(nbytes: float, flops: float, kind: str = "bf16") -> dict:
     return {"bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bound_bytes": int(nbytes), "bound_ops": int(flops), "bound_ops_type": kind}
+
+
+def _head_launches(embed_dim: int, sample: bool = False) -> dict:
+    """The tail's launches (X4f, X4b) a training step, or (``sample``) X4f a
+    20-step sampler call, of a DiT of width ``embed_dim``: one each a model
+    call where the kernels take the width (D % 128 == 0), else none."""
+    from ddm_tpu_torch.ops.ln_dense import ln_dense_takes
+
+    if not ln_dense_takes(1, embed_dim, LN_DENSE_K):
+        return {}
+    return {"X4f": STEPS} if sample else {"X4f": 1, "X4b": 1}
 
 
 def _rel_frob(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -637,7 +685,8 @@ def phase_kernels(M, A, smi):
 def _check_grads(name, got, want, smi, ms, plain_ms,
                  labels=("dx", "dscale", "dbias", "dW_in", "db_in", "dW_out", "db_out")):
     """dx (bf16) to two units in the last place and a mean below 1e-3; each
-    fp32 gradient to 1e-2 of its largest entry and 1e-3 in Frobenius norm."""
+    fp32 gradient to 1e-2 of its largest entry and 1e-3 in Frobenius norm
+    (``ms`` None: an untimed check)."""
     worst = 0.0
     parts = []
     for i, (lab, g, w) in enumerate(zip(labels, got, want)):
@@ -656,8 +705,8 @@ def _check_grads(name, got, want, smi, ms, plain_ms,
                          f"relF {frob:.3g}")
         if not (np.isfinite(max_err) and ok):
             raise AssertionError(f"{name} {lab} disagrees with its plain version")
-    print(f"[kernel] {name}: " + "; ".join(parts)
-          + f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20) on {smi}")
+    times = "" if ms is None else f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20)"
+    print(f"[kernel] {name}: " + "; ".join(parts) + f"{times} on {smi}")
     return worst
 
 
@@ -1257,6 +1306,7 @@ def phase_slice(model, cfg, kc, name, smi):
         if not os.path.getsize(png):
             raise AssertionError("no PNG written")
     want = {k: DEPTH * STEPS if k in ("K1f", "K2f") else 0 for k in launches}
+    want.update(_head_launches(cfg["embed_dim"], sample=True))
     if launches != want:
         raise AssertionError(f"sampling launched {launches}, expected {want}")
     rate = N_SAMPLES / result["seconds"]
@@ -1317,8 +1367,9 @@ def _patched(module, **fns):
 
 @contextlib.contextmanager
 def plain_ops(replay=None):
-    """Route the model's half-blocks, its MoE layers and the step's energy
-    score through the plain versions (forward and backward) on the card.
+    """Route the model's half-blocks, its MoE layers, its tail (X4) and the
+    step's energy score through the plain versions (forward and backward)
+    on the card.
     ``replay``, a list of routings from :func:`record_routes`, makes the
     MoE layers route as recorded, block by block, in place of their argmax."""
     from ddm_tpu_torch import training
@@ -1328,6 +1379,7 @@ def plain_ops(replay=None):
     from ddm_tpu_torch.ops import attention as A
     from ddm_tpu_torch.ops import energy as E
     from ddm_tpu_torch.ops import expert_ffn as X
+    from ddm_tpu_torch.ops import ln_dense as LD
     from ddm_tpu_torch.ops import mlp_block as M
     from ddm_tpu_torch.ops import moe_dispatch as MD
     from ddm_tpu_torch.ops import tiers
@@ -1395,8 +1447,15 @@ def plain_ops(replay=None):
         return _Plain.apply(lambda *a: A.attention_reference(*a, H),
                             lambda *a: A.attention_core_bwd_reference(*a, H), q, k, v)
 
+    def head(x, scale, bias, w, b):
+        # the tail's plain pair on the (T, D) rows
+        out = _Plain.apply(LD.ln_dense_reference,
+                           lambda *a: LD.ln_dense_bwd_reference(*a[:4], a[5]),
+                           x.reshape(-1, x.shape[-1]), scale, bias, w, b)
+        return out.reshape(*x.shape[:-1], out.shape[-1])
+
     with _patched(dit, fused_mlp_block=mlp, fused_attention_block=attn,
-                  fused_mlp_partial=partial, fused_attention=core), \
+                  fused_mlp_partial=partial, fused_attention=core, fused_ln_dense=head), \
             _patched(training, fused_energy_terms=energy), \
             _patched(MM, moe_dispatch_thru=dispatch, expert_ffn=ffn, moe_combine_res=combine_res):
         yield
@@ -1429,9 +1488,10 @@ def phase_train_step(cfg, smi, batch=TRAIN_BATCH, m=TRAIN_M, label="train-step",
                      model_name="DiT-S/4", launches=None, weights=None):
     """One training step through the kernels, twice (bit-identical), against
     the plain step within twice bf16's own noise; ``launches`` ``{kernel:
-    count}``, where given, are the first kernel step's launches (every
-    other kernel none); ``weights``, where given, the fp32 state dict every
-    step's model loads (else one seeded draw)."""
+    count}``, where given, are the first kernel step's launches besides the
+    tail's (X4f and X4b, added here by the width), every other kernel none;
+    ``weights``, where given, the fp32 state dict every step's model loads
+    (else one seeded draw)."""
     from ddm_tpu_torch.ops import kernel_config as kc
     from ddm_tpu_torch.data.augment import normalize_images
     from ddm_tpu_torch.data.cifar10 import CIFAR10DataConfig, build_cifar10_dataloaders
@@ -1477,6 +1537,8 @@ def phase_train_step(cfg, smi, batch=TRAIN_BATCH, m=TRAIN_M, label="train-step",
     got, g_got = step("bfloat16", routes)
     seconds = time.perf_counter() - t0
     counted = {k: v for k, v in kc.launch_counts().items() if v}
+    if launches is not None:
+        launches = {**launches, **_head_launches(cfg["embed_dim"])}
     if launches is not None and counted != launches:
         raise AssertionError(f"{label}: the kernel step launched {counted}, expected {launches}")
     again, g_again = step("bfloat16")
@@ -1569,8 +1631,10 @@ def phase_train(kc, name, smi):
     train, sample = result["launches"]["train"], result["launches"]["sample"]
     want_train = {k: 0 for k in train}  # K8f/K8b: none at 32 px
     want_train.update({"K1f": per_block, "K2f": per_block, "K1b": per_block, "K2b": per_block,
-                       "K3f": TRAIN_STEPS, "K3b": TRAIN_STEPS})
+                       "K3f": TRAIN_STEPS, "K3b": TRAIN_STEPS, "X4f": TRAIN_STEPS,
+                       "X4b": TRAIN_STEPS})
     want_sample = {k: DEPTH * STEPS if k in ("K1f", "K2f") else 0 for k in want_train}
+    want_sample["X4f"] = STEPS
     if train != want_train or sample != want_sample:
         raise AssertionError(f"training launched {train} and its sampler {sample}, expected "
                              f"{want_train} and {want_sample}")
@@ -1622,9 +1686,11 @@ def phase_train_moe(kc, name, smi):
     want_train = {k: 0 for k in train}
     want_train.update({k: per_block for k in ("K2f", "K2b", "K11f", "K11b", "K10f", "K10b",
                                               "K12f", "K12b")})
-    want_train.update({"K3f": TRAIN_STEPS, "K3b": TRAIN_STEPS})
+    want_train.update({"K3f": TRAIN_STEPS, "K3b": TRAIN_STEPS, "X4f": TRAIN_STEPS,
+                       "X4b": TRAIN_STEPS})
     want_sample = {k: DEPTH * STEPS if k in ("K2f", "K11f", "K10f", "K12f") else 0
                    for k in train}
+    want_sample["X4f"] = STEPS
     if train != want_train or sample != want_sample or generated != want_sample:
         raise AssertionError(f"the MoE run launched {train} in training, {sample} in its "
                              f"sampler and {generated} in generate_torch, expected "
@@ -2127,13 +2193,17 @@ def phase_train_wide(kc, name, smi, label, flags, per_step, per_sample, batch=TR
     """7d-7m: the trainer with ``flags`` for one epoch of ``images`` synthetic
     images (batch x m, images of ``size`` px), its peak memory and launches
     per step (``per_step``), then generate_torch's 64 samples from its
-    ``model_final.pt`` and the sampler's launches per call (``per_sample``)."""
+    ``model_final.pt`` and the sampler's launches per call (``per_sample``);
+    the tail's X4f and X4b are added to both by the width."""
     import generate_torch
     import train_cifar10_dit_torch
     from ddm_tpu_torch.data.cifar10 import CIFAR10DataConfig
 
     keys = ("loss", "moe_aux") if "--moe-experts" in flags else ("loss",)
     steps = images // batch
+    width = int(flags[flags.index("--embed-dim") + 1]) if "--embed-dim" in flags else 384
+    per_step = {**per_step, **_head_launches(width)}
+    per_sample = {**per_sample, **_head_launches(width, sample=True)}
     data = functools.partial(CIFAR10DataConfig, synthetic_size=images)
     with tempfile.TemporaryDirectory() as tmp, \
             _patched(train_cifar10_dit_torch, CIFAR10DataConfig=data):
@@ -2329,7 +2399,8 @@ def _tp_parity(cfg, smi, tmp):
                 failed.append(f"{name}: gradient of {k} disagrees: relF {err:.3g} > tol {tol:.3g}")
             worst = max(worst, (k, err / tol), key=lambda kv: kv[1])
         local_d = cfg["embed_dim"] // TP
-        want_launches = {"K6f": depth, "K6b": depth, "K3f": 1, "K3b": 1}
+        want_launches = {"K6f": depth, "K6b": depth, "K3f": 1, "K3b": 1,
+                         **_head_launches(cfg["embed_dim"])}
         if local_d % 128 == 0:  # the JAX gate takes K7 at the local width
             want_launches.update({"K7f": depth, "K7b": depth})
         if any(r != want_launches for r in got["launches"]):
@@ -2394,8 +2465,9 @@ def phase_train_tp(cfg, kc, name, smi):
     if not (samples.shape == (N_SAMPLES, 32, 32, 3) and np.isfinite(samples).all()
             and samples.min() >= -1 and samples.max() <= 1):
         raise AssertionError("the TP checkpoint's samples are not finite images in [-1, 1]")
-    per_step = {"K6f": DEPTH, "K6b": DEPTH, "K3f": 1, "K3b": 1}
-    full_sample = {"K7f": DEPTH * STEPS, "K6f": DEPTH * STEPS}
+    per_step = {"K6f": DEPTH, "K6b": DEPTH, "K3f": 1, "K3b": 1, **_head_launches(384)}
+    full_sample = {"K7f": DEPTH * STEPS, "K6f": DEPTH * STEPS,
+                   **_head_launches(384, sample=True)}
     failed = []
     for r, res in enumerate(ranks):
         train = {k: v for k, v in res["launches"]["train"].items() if v}
@@ -2904,6 +2976,197 @@ def phase_streamed_kernels(A, smi):
     return shapes
 
 
+def _old_tail(x, scale, bias, wu, bu, p=4, c=3):
+    """The port's DiT tail before X4 (``models/dit.py`` ``head_tokens``
+    before it called ``fused_ln_dense``): an fp32 LayerNorm over a copy, a
+    bf16 cast, the unembed weight (K, D) and bias permuted to token order on
+    every call, ``torch.matmul``, the bias add; timed beside X4 as the path
+    it replaced."""
+    from ddm_tpu_torch.ops.mlp_block import layer_norm
+
+    h = layer_norm(x.float(), scale, bias).to(x.dtype)
+    D = wu.shape[1]
+    w = wu.reshape(c, p, p, D).permute(1, 2, 0, 3).reshape(p * p * c, D)
+    b = bu.reshape(c, p, p).permute(1, 2, 0).reshape(-1)
+    return (torch.matmul(h, w.to(x.dtype).t()) + b.to(x.dtype)).float()
+
+
+# (T, D, K) of every X4f and X4b launch of this run's paths, noted by
+# record_ln_dense_shapes; 3s checks those LN_DENSE_SHAPES lacks
+LN_DENSE_SEEN = set()
+
+
+def record_ln_dense_shapes():
+    """Note the (T, D, K) of every X4f and X4b launch from here on in
+    LN_DENSE_SEEN (a wrapper around the launchers; the counts are theirs)."""
+    from ddm_tpu_torch.ops import ln_dense as LD
+
+    def noting(launch):
+        def launch_noted(x, scale, bias, w, *rest):
+            LN_DENSE_SEEN.add((*x.shape, w.shape[1]))
+            return launch(x, scale, bias, w, *rest)
+        return launch_noted
+
+    LD._x4f, LD._x4b = noting(LD._x4f), noting(LD._x4b)
+
+
+def _ln_dense_case(LD, gen, smi, path, T, D, K, timed):
+    """X4f and X4b at (T, D, K) against their plain versions; with ``timed``,
+    each timed beside its plain version and the old tail, with its bound.
+    Returns the X4f and X4b results."""
+    x, scale, bias, w, b = _kernel_args(gen, (T, D), [((D,), 0.1, 1.0), ((D,), 0.1, 0.0),
+                                                      ((D, K), D ** -0.5, 0.0),
+                                                      ((K,), 0.1, 0.0)])
+    wu = w.t().contiguous()  # the unembed weight as the model holds it, (K, D)
+    dout = torch.randn(T, K, generator=gen, device="cuda")
+    args = (x, scale, bias, w, b)
+    shape = f"(T={T}, D={D}, K={K})"
+    with torch.inference_mode():
+        before = LD.FWD_LAUNCHES.count
+        got = LD.fused_ln_dense(*args)
+        torch.cuda.synchronize()
+        if LD.FWD_LAUNCHES.count != before + 1:
+            raise AssertionError(f"X4f {shape}: the kernel did not launch")
+        max_err, mean_err, tol, ok = _bf16_errors(got, LD.ln_dense_reference(*args))
+        if timed:
+            ms = _median_ms(lambda: LD.fused_ln_dense(*args))
+            plain_ms = _median_ms(lambda: LD.ln_dense_reference(*args))
+            old_ms = _median_ms(lambda: _old_tail(x, scale, bias, wu, b))
+    times = (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, the old tail {old_ms:.4f} ms "
+             "(median of 20)") if timed else ""
+    print(f"[kernel] X4f {shape} ({path}) bf16: max_abs_err={max_err:.6g} (tol {tol:.6g}), "
+          f"mean_abs_err={mean_err:.6g}{times} on {smi}")
+    if not ok:
+        raise AssertionError(f"X4f {shape} disagrees with its plain version")
+    bw = _nbytes(scale, bias, b) + D * K * 2  # w read once in bf16
+    fwd = {"path": path, "shape": shape, "max_abs_err": max_err}
+    if timed:
+        fwd.update({"ms": ms, "plain_ms": plain_ms, "old_tail_ms": old_ms,
+                    **_bound(_nbytes(x, got) + bw, 2 * T * D * K), "library_ms": None})
+    del got
+    with torch.no_grad():
+        before = LD.BWD_LAUNCHES.count
+        grads, again = LD.ln_dense_bwd(*args[:4], dout), LD.ln_dense_bwd(*args[:4], dout)
+        torch.cuda.synchronize()
+        if LD.BWD_LAUNCHES.count != before + 2:
+            raise AssertionError(f"X4b {shape}: the kernel did not launch twice")
+        if not all(torch.equal(g, h) for g, h in zip(grads, again)):
+            raise AssertionError(f"X4b {shape} is not deterministic: two calls differ")
+        del again
+        bms = _median_ms(lambda: LD.ln_dense_bwd(*args[:4], dout)) if timed else None
+        bplain = _median_ms(lambda: LD.ln_dense_bwd_reference(*args[:4], dout)) if timed \
+            else None
+        worst = _check_grads(f"X4b {shape} ({path}) bf16 (second call bit-identical)", grads,
+                             LD.ln_dense_bwd_reference(*args[:4], dout), smi, bms, bplain,
+                             ("dx", "dscale", "dbias", "dW", "db"))
+    bwd = {"path": path, "shape": shape, "max_abs_err": worst}
+    if timed:
+        leaves = [t.detach().requires_grad_() for t in (x, scale, bias, wu, b)]
+        old_bwd_ms = _median_ms(
+            lambda: torch.autograd.grad(_old_tail(*leaves), leaves, dout))
+        print(f"[kernel] X4b {shape}: the old tail forward + backward (autograd) "
+              f"{old_bwd_ms:.4f} ms against X4f + X4b {ms + bms:.4f} ms on {smi}")
+        bwd.update({"ms": bms, "plain_ms": bplain, "old_tail_fwd_bwd_ms": old_bwd_ms,
+                    **_bound(_nbytes(x, dout, *grads) + bw, 4 * T * D * K), "library_ms": None})
+        del leaves
+    del grads
+    torch.cuda.empty_cache()
+    return fwd, bwd
+
+
+def phase_ln_dense_kernels(smi):
+    """3s: X4f and X4b at every shape the paths give them against their
+    plain versions (X4f by the bf16 rule, X4b by the gradient rule and
+    bit-identical on a second call): each training shape of LN_DENSE_SHAPES
+    timed beside its plain version and the port's old tail (forward, and
+    forward + backward through autograd), with its bound; then, untimed,
+    every other (T, D, K) this run's phases launched them at (LN_DENSE_SEEN:
+    the sampler calls and the step checks). Returns the X4f and X4b entries
+    (DiT-S/4 training's shape, the other timed ones under ``shapes``, the
+    untimed ones under ``checked``)."""
+    from ddm_tpu_torch.ops import ln_dense as LD
+
+    gen = torch.Generator(device="cuda").manual_seed(60)
+    sources = ["ddm_tpu_torch/csrc/ln_dense.cu", "ddm_tpu_torch/csrc/common.cuh"]
+    table = [(path, T, D, LN_DENSE_K) for path, T, D in LN_DENSE_SHAPES]
+    listed = {case[1:] for case in table}
+    seen = [("seen", *shape) for shape in sorted(LN_DENSE_SEEN - listed)]
+    entries = {}
+    for path, T, D, K in table + seen:
+        timed = (T, D, K) in listed
+        for name, res, line in zip(("X4f", "X4b"), _ln_dense_case(LD, gen, smi, path, T, D, K,
+                                                                    timed), (49, 58)):
+            if name not in entries:
+                entries[name] = {**_entry(name, sources[0], sources,
+                                          f"tools/exp_ln_dense.patch:{line}", res["max_abs_err"],
+                                          res["ms"], res["plain_ms"],
+                                          {k: v for k, v in res.items() if k.startswith("bound")}),
+                                 **{k: v for k, v in res.items() if k.startswith("old_tail")},
+                                 "shapes": [], "checked": []}
+            else:
+                entries[name]["shapes" if timed else "checked"].append(res)
+    print(f"[ln-dense-kernels] {len(listed)} training shapes timed, {len(seen)} further shapes "
+          f"the paths launched X4 at checked: {[case[1:] for case in seen]}")
+    return list(entries.values())
+
+
+def _exp_whole_block():
+    """scripts/torch_exp_whole_block.py, the experiment's harness."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                        "torch_exp_whole_block.py")
+    spec = importlib.util.spec_from_file_location("torch_exp_whole_block", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_whole_block(smi):
+    """3t: X2f at (B 256, N 64, D 384, H 6, F 1536), DiT-S/4's sampling
+    block: bit for bit the K2f -> K1f pair (torch.equal), one block and an
+    8-block chain against the pair in turns (scripts/torch_exp_whole_block.py
+    ``block_times``), and the plain version by the bf16 rule. Returns the X2f
+    entry; no path launches it."""
+    from ddm_tpu_torch.ops import whole_block as W
+
+    exp = _exp_whole_block()
+    B, N, D, H, F = exp.SHAPE
+    shape = f"(B={B}, N={N}, D={D}, H={H}, F={F})"
+    before = W.LAUNCHES.count
+    res = exp.block_times(reps=20, turns=1)
+    if W.LAUNCHES.count == before:
+        raise AssertionError(f"X2f {shape}: the kernel did not launch")
+    if not res["bit_identical"]:
+        raise AssertionError(f"X2f {shape} is not the K2f -> K1f pair bit for bit: max |diff| "
+                             f"{res['max_abs_diff']:.4g}")
+    x, p = exp.block_inputs()
+    with torch.inference_mode():
+        got = exp.merged(x, p, H)
+        max_err, mean_err, tol, ok = _bf16_errors(got, W.whole_block_reference(x, *p, H))
+        if not ok:
+            raise AssertionError(f"X2f {shape} disagrees with its plain version")
+        plain_ms = _median_ms(lambda: W.whole_block_reference(x, *p, H))
+    c8 = f"{exp.CHAIN}blk"
+    mean = {n: {k: float(np.mean(v)) for k, v in res[n].items()} for n in ("1blk", c8)}
+    print(f"[kernel] X2f {shape} bf16: bit for bit the K2f -> K1f pair; against the plain "
+          f"version max_abs_err={max_err:.6g} (tol {tol:.6g}), mean_abs_err={mean_err:.6g}; "
+          f"one block merged {mean['1blk']['merged']:.4f} ms, pair {mean['1blk']['pair']:.4f} "
+          f"ms; {exp.CHAIN}-block chain merged {mean[c8]['merged']:.4f} ms, pair "
+          f"{mean[c8]['pair']:.4f} ms (means of two medians of 20, in turns pair, merged, "
+          f"merged, pair); plain {plain_ms:.4f} ms on {smi}")
+    T = B * N
+    # the qkv, projection, W1 and W2 products and the cores' Q K^T and P V
+    flops = 8 * T * D * D + 4 * T * N * D + 4 * T * D * F
+    # x and out; the four weights in bf16; the LN parameters and biases in fp32
+    nbytes = _nbytes(x, got) + 2 * (4 * D * D + 2 * D * F) + 4 * (9 * D + F)
+    sources = ["ddm_tpu_torch/csrc/whole_block.cu", "ddm_tpu_torch/csrc/common.cuh"]
+    return [{**_entry("X2f", sources[0], sources, "tools/exp_whole_block.py:45", max_err,
+                      mean["1blk"]["merged"], plain_ms, _bound(nbytes, flops)),
+             "pair_ms": mean["1blk"]["pair"], f"chain{exp.CHAIN}_ms": mean[c8]["merged"],
+             f"pair_chain{exp.CHAIN}_ms": mean[c8]["pair"], "bit_identical_to_pair": True}]
+
+
 def phase_train_step_heads1(cfg, smi):
     """6r: one step of DiT-S/4 --heads 1 at 64 px (64 x m 4: K2f, K2b on the
     streamed cores), DiT-B/4 --heads 1 at 32 px (16 x m 8: K2f, K4) and
@@ -2944,7 +3207,7 @@ PHASES = ("kernels", "backward", "energy", "flash", "moe-kernels", "slice", "tra
           "train-step-moe-xl", "train-moe-xl", "flash-widths", "train-step-heads", "train-heads",
           "wide-mlp-kernels", "train-step-1536", "train-1536", "moe-128-kernels",
           "train-step-moe-128", "train-moe-128", "streamed-kernels", "train-step-heads1",
-          "train-heads1")
+          "train-heads1", "ln-dense-kernels", "whole-block")
 # launches per training step and per 20-step sampler call on the wide paths;
 # the DiT-L trainer (7d) runs depth 12 since PR 9 (7k runs its kernels at
 # DiT-XL's full depth 28)
@@ -3066,8 +3329,10 @@ def main(argv=None) -> None:
     from ddm_tpu_torch.ops import kernel_config as kc
     from ddm_tpu_torch.ops import mlp_block as M
     from ddm_tpu_torch.ops import moe_dispatch as MD
+    from ddm_tpu_torch.ops import whole_block  # noqa: F401  (registers X2f's counter)
 
     phase_build(kc)
+    record_ln_dense_shapes()
     cfg = {**MODEL_DEFAULTS, "depth": DEPTH, "sample_steps": STEPS, "eps_churn": 1.0}
     moe_cfg = {**cfg, **MOE}
     steps = [
@@ -3157,6 +3422,8 @@ def main(argv=None) -> None:
         ("streamed-kernels", lambda: phase_streamed_kernels(A, smi)),
         ("train-step-heads1", lambda: phase_train_step_heads1(cfg, smi)),
         ("train-heads1", lambda: phase_train_heads1(kc, name, smi)),
+        ("ln-dense-kernels", lambda: phase_ln_dense_kernels(smi)),
+        ("whole-block", lambda: phase_whole_block(smi)),
     ]
     out = {}
     t_run = time.perf_counter()
@@ -3173,8 +3440,9 @@ def main(argv=None) -> None:
     # launches: each kernel's count in its path's training run, and in that
     # path's sampler for the forward kernels; and its counts on every path
     energy = {e["name"]: e for e in out["energy"]}
-    paths = {"dit-s": (out["kernels"] + out["backward"] + [energy["K3f"], energy["K3b"]],
-                       out["train"], out["slice"]),
+    paths = {"dit-s": (out["kernels"] + out["backward"] + [energy["K3f"], energy["K3b"]]
+                       + out["ln-dense-kernels"] + out["whole-block"], out["train"],
+                       out["slice"]),
              "128px": (out["flash"], *out["train-128"]),
              "moe": (out["moe-kernels"], *out["train-moe"]),
              "dit-l": ([e for e in out["wide-kernels"] if e["name"] != "K10p"],

@@ -50,7 +50,11 @@ order to the token order (ph, pw, c).
 dtype plan (the JAX module's): inputs concatenated then cast to the compute
 dtype; ``patch_proj``, ``time_mlp`` and ``unembed`` are compute-dtype
 products; ``h + temb + pos_embed`` is summed in the compute dtype in that
-order; the final LayerNorm is fp32 with eps 1e-6; the output is fp32.
+order; the final LayerNorm is fp32 with eps 1e-6; the output is fp32. The
+final LayerNorm and the unembed are one op,
+:func:`~ddm_tpu_torch.ops.ln_dense.fused_ln_dense` (kernels X4f and X4b on
+CUDA tensors at D % 128 == 0, the plain versions elsewhere), whose backward
+keeps the unembed's weight gradient in fp32.
 """
 
 from __future__ import annotations
@@ -62,6 +66,7 @@ import torch
 from torch import nn
 
 from ..ops.attention import attention_reference, fused_attention, fused_attention_block
+from ..ops.ln_dense import fused_ln_dense
 from ..ops.mlp_block import fused_mlp_block, fused_mlp_partial, layer_norm, matmul_f32
 from ..parallel.tp import tp_region_enter, tp_region_exit
 from .moe import MoEMLP
@@ -332,14 +337,15 @@ class DDDMDiT(nn.Module):
         return h + temb[:, None, :] + self.pos_embed.to(dt)
 
     def head_tokens(self, h: torch.Tensor) -> torch.Tensor:
-        """``(B, N, D) -> (B, N, p*p*C_out)`` fp32 tokens, features (ph, pw, c)."""
-        h = layer_norm(h.float(), self.norm.weight, self.norm.bias).to(self.dtype)
+        """``(B, N, D) -> (B, N, p*p*C_out)`` fp32 tokens, features (ph, pw, c):
+        the final LayerNorm and the unembed in one :func:`fused_ln_dense`
+        (X4f and X4b on the card), its weight and bias permuted to the token
+        order outside it so that autograd carries their gradients back."""
         u, p, c = self.unembed["proj"], self.patch_size, self.out_channels
         D = u.weight.shape[1]
         w = u.weight.reshape(c, p, p, D).permute(1, 2, 0, 3).reshape(p * p * c, D)
         b = u.bias.reshape(c, p, p).permute(1, 2, 0).reshape(-1)
-        out = torch.matmul(h, w.to(self.dtype).t()) + b.to(self.dtype)
-        return out.float()
+        return fused_ln_dense(h, self.norm.weight, self.norm.bias, w.t(), b)
 
     def tokens_and_aux(self, xt: torch.Tensor, t: torch.Tensor, xi: torch.Tensor):
         """``(tokens, aux_terms)``: :meth:`tokens` and the list of the MoE

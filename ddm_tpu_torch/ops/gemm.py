@@ -18,7 +18,7 @@ import torch
 from .kernel_config import check_status, current_stream, load_library
 
 __all__ = ["ln_gemm", "gemm_residual", "gemm_partial", "gemm_nn", "gemm_tn", "ln_bwd",
-           "cast_bf16", "tn_splits", "ln_gemm_smem", "refuse_wide", "LN_GEMM_MAX_K"]
+           "cast_bf16", "tn_splits", "sm_count", "ln_gemm_smem", "refuse_wide", "LN_GEMM_MAX_K"]
 
 # ln_gemm epilogues (csrc/gemm.cu LnGemmEpi)
 EPI_BIAS, EPI_GELU, EPI_GELU_GRAD = 0, 1, 2
@@ -159,7 +159,8 @@ def gemm_nn(a, w, epi: int, dfac=None, bias=None, out=None, fast_gelu: bool = Fa
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
+def sm_count(index: int) -> int:
+    """The SMs of card ``index`` (the count :func:`tn_splits` plans for)."""
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
@@ -186,7 +187,7 @@ def gemm_tn(a, b, with_colsum: bool = False, colsum_of_b: bool = False):
     Nb = b.shape[-1]
     dev = a.device
     lead = (E,) if batched else ()
-    splits, rows = tn_splits(T, Ma, Nb, _sm_count(dev.index or 0), E)
+    splits, rows = tn_splits(T, Ma, Nb, sm_count(dev.index or 0), E)
     ws = torch.empty((E, splits, Ma, Nb), dtype=torch.float32, device=dev)
     dw = torch.empty(lead + (Ma, Nb), dtype=torch.float32, device=dev)
     cws = colsum = None

@@ -94,6 +94,14 @@ _SIGNATURES = {
     "ddm_moe_combine_fwd": [_P] * 6 + [_I] * 7 + [_P],
     # eout, gates, pos1, pos2, dpart, deout, dgates, G, gs, D, E, cap, cpad, topk, stream
     "ddm_moe_combine_bwd": [_P] * 7 + [_I] * 7 + [_P],
+    # x, ln_scale, ln_bias, w, b, out, T, D, K, stream
+    "ddm_ln_dense_fwd": [_P] * 6 + [_I] * 3 + [_P],
+    # x, ln_scale, ln_bias, w, dout, dx, stats, part_ln, part_db, ws, dscale_dbias, dw, db,
+    # T, D, K, splits, rows, stream
+    "ddm_ln_dense_bwd": [_P] * 13 + [_I] * 5 + [_P],
+    # x, s1, b1, wqkv, bqkv, wproj, bproj, s2, b2, w1, bb1, w2, bb2, out, B, N, D, H, F,
+    # scale, stream
+    "ddm_whole_block_fwd": [_P] * 14 + [_I] * 5 + [_F, _P],
 }
 
 _COUNTERS: dict = {}

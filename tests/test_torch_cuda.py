@@ -1,7 +1,8 @@
 """The CUDA kernels K1-K4, K6f, K6b, K7-K9 and K10-K12 against their plain versions, on the
 card, at head widths off 16 (Dh 8, 24, 40, 72), at DiT-XL's D 1152, with the fast GELU, the
 MLP half-block past D 1344 (the streamed LN-prologue GEMM, D 1408-4096), and the streamed
-attention cores past 227 KB of shared memory (Dh up to 3712), bit for bit the resident ones.
+attention cores past 227 KB of shared memory (Dh up to 3712), bit for bit the resident ones;
+the DiT tail X4f/X4b at every DiT path's width, and X2f bit for bit the K2f -> K1f pair.
 
 Every test here is marked ``cuda`` and skips on a host without a GPU. The
 file imports no JAX (the machine with the card has none), so it runs there
@@ -21,9 +22,11 @@ from ddm_tpu_torch.ops import attention as TA  # noqa: E402
 from ddm_tpu_torch.ops import energy as TE  # noqa: E402
 from ddm_tpu_torch.ops import expert_ffn as TX  # noqa: E402
 from ddm_tpu_torch.ops import flash as TF  # noqa: E402
+from ddm_tpu_torch.ops import ln_dense as TLD  # noqa: E402
 from ddm_tpu_torch.ops import mlp_block as TM  # noqa: E402
 from ddm_tpu_torch.ops import moe_dispatch as TD  # noqa: E402
 from ddm_tpu_torch.ops import tiers as TT  # noqa: E402
+from ddm_tpu_torch.ops import whole_block as TW  # noqa: E402
 
 # bf16 outputs: the kernel and the plain version round at the same points,
 # but fp32 sums taken in another order can flip a rounding, which moves an
@@ -1314,3 +1317,109 @@ def test_half_blocks_around_the_streamed_cores_match_plain_on_the_card(cuda_devi
     rel = lambda a, b: float(torch.linalg.norm(a - b) / torch.linalg.norm(b))  # noqa: E731
     for i, (g, w, w32) in enumerate(zip(got[1:], wgrads[1:], want32[1:]), start=1):
         assert rel(g, w) <= max(2 * rel(w, w32), GRAD_FROB_REL), i
+
+
+def _ln_dense_inputs(T, D, K, seed=40):
+    r = np.random.default_rng(seed)
+    return dict(
+        x=r.standard_normal((T, D)).astype(np.float32),
+        scale=(1 + 0.1 * r.standard_normal(D)).astype(np.float32),
+        bias=(0.1 * r.standard_normal(D)).astype(np.float32),
+        w=(D ** -0.5 * r.standard_normal((D, K))).astype(np.float32),
+        b=(0.1 * r.standard_normal(K)).astype(np.float32),
+    )
+
+
+# the DiT tail's (T, D, K) on the paths (DiT-S/4 training and sampling, the
+# wide paths' training rows at D 768-1536, the depth-1 MoE at D 6144), then
+# T off 64, K off 16 and the largest K
+X4_SHAPES = [(131072, 384, 48), (16384, 384, 48), (131072, 768, 48), (131072, 1024, 48),
+             (131072, 1152, 48), (131072, 1536, 48), (32768, 6144, 48), (1000, 256, 12),
+             (4096, 128, 512), (300, 384, 100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,D,K", X4_SHAPES)
+def test_x4_kernels_match_plain_on_the_card(cuda_device, T, D, K):
+    """X4f by the bf16 rule (two units in the last place at the largest
+    output, mean below 1e-3); X4b through autograd twice, bit-identical, dx
+    by the bf16 rule and each fp32 gradient within 1e-2 of its largest entry
+    and 1e-3 relative Frobenius (PERF.md section 2)."""
+    args = _on(cuda_device, _ln_dense_inputs(T, D, K))
+    dout = torch.randn(T, K, generator=torch.Generator(device=cuda_device).manual_seed(41),
+                       device=cuda_device)
+    before = (TLD.FWD_LAUNCHES.count, TLD.BWD_LAUNCHES.count)
+    with torch.inference_mode():
+        got = TLD.fused_ln_dense(*args)
+    assert got.dtype == torch.float32 and got.shape == (T, K)
+    _assert_bf16_rule(got, TLD.ln_dense_reference(*args))
+    grads = _grads_through_autograd(TLD.fused_ln_dense, args, (), dout)
+    again = _grads_through_autograd(TLD.fused_ln_dense, args, (), dout)
+    torch.cuda.synchronize()
+    assert (TLD.FWD_LAUNCHES.count - before[0], TLD.BWD_LAUNCHES.count - before[1]) == (3, 2)
+    for g, h in zip(grads, again):  # deterministic: fixed-order partials, no atomics
+        assert torch.equal(g, h)
+    want = TLD.ln_dense_bwd_reference(*args[:4], dout)
+    _assert_bf16_rule(grads[0], want[0])
+    for i, (g, w) in enumerate(zip(grads[1:], want[1:]), start=1):
+        assert g.dtype == torch.float32 and g.shape == w.shape, i
+        assert float((g - w).abs().max()) <= GRAD_MAX_REL * float(w.abs().max()), i
+        assert float(torch.linalg.norm(g - w)) <= GRAD_FROB_REL * float(torch.linalg.norm(w)), i
+
+
+@pytest.mark.cuda
+def test_x4_refuses_fp32_and_leaves_refused_shapes_plain_on_the_card(cuda_device):
+    args = _on(cuda_device, _ln_dense_inputs(64, 384, 48))
+    with pytest.raises(TypeError):
+        TLD.fused_ln_dense(args[0].float(), *args[1:])
+    plain = _on(cuda_device, _ln_dense_inputs(64, 320, 48))  # D % 128 != 0: the plain pair
+    before = TLD.FWD_LAUNCHES.count
+    torch.testing.assert_close(TLD.fused_ln_dense(*plain), TLD.ln_dense_reference(*plain))
+    assert TLD.FWD_LAUNCHES.count == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,D,H,F", [(256, 64, 384, 6, 1536), (64, 16, 384, 6, 1536),
+                                       (5, 32, 384, 6, 1536), (7, 48, 256, 4, 1024),
+                                       (16, 64, 128, 2, 512)])
+def test_x2f_is_the_k2f_k1f_pair_bit_for_bit_on_the_card(cuda_device, B, N, D, H, F):
+    """X2f's output equals the port's K2f -> K1f pair's bit for bit (a
+    rounded where the pair writes it, every product's slices in the pair's
+    order, the pair's epilogues and core), and the plain version's by the
+    bf16 rule."""
+    x, *attn = _on(cuda_device, _attn_inputs(B, N, D, seed=50))
+    _, *mlp = _on(cuda_device, _mlp_inputs(8, D, F, seed=51))
+    args = (x, *attn, *mlp)
+    counters = (TA.LAUNCHES, TM.LAUNCHES, TW.LAUNCHES)
+    before = [c.count for c in counters]
+    with torch.inference_mode():
+        a = TA.fused_attention_block(x, *attn, H)
+        want = TM.fused_mlp_block(a.reshape(B * N, D), *mlp).reshape(B, N, D)
+        got = TW.whole_block_fwd(*args, H)
+        torch.cuda.synchronize()
+    assert [c.count - n for c, n in zip(counters, before)] == [1, 1, 1]
+    assert got.dtype == torch.bfloat16 and got.shape == (B, N, D)
+    assert torch.equal(got, want)
+    _assert_bf16_rule(got, TW.whole_block_reference(*args, H))
+
+
+@pytest.mark.cuda
+def test_x2f_refuses_other_shapes_on_the_card(cuda_device):
+    x, *attn = _on(cuda_device, _attn_inputs(2, 64, 768, seed=52))
+    _, *mlp = _on(cuda_device, _mlp_inputs(8, 768, 3072, seed=53))
+    with pytest.raises(NotImplementedError, match="item 14"):
+        TW.whole_block_fwd(x, *attn, *mlp, 12)
+
+
+@pytest.mark.cuda
+def test_dit_s_training_step_through_x4_matches_plain_on_the_card(cuda_device):
+    """One DiT-S/4 step (depth 8, batch 16 x m 8) through the kernels, X4f
+    and X4b included, twice (bit-identical), against the plain step within
+    twice bf16's own noise, as chip_smoke.py's step phases hold it."""
+    import chip_smoke
+    from ddm_tpu_torch.models.factory import MODEL_DEFAULTS
+
+    cfg = {**MODEL_DEFAULTS, "depth": 8, "sample_steps": 20, "eps_churn": 1.0}
+    chip_smoke.phase_train_step(
+        cfg, "card test", 16, 8, "train-step-x4", "DiT-S/4",
+        {"K2f": 8, "K2b": 8, "K1f": 8, "K1b": 8, "K3f": 1, "K3b": 1})
