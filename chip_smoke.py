@@ -32,7 +32,9 @@ shared memory (the streamed K2/K4/K7 cores), with DiT-S/4 at ``--heads 1``
 and 64 px, DiT-B/4 at ``--heads 1`` and DiT-L/4 at ``--heads 2`` and 64 px
 training and sampling; then the DiT tail's kernel pair X4f/X4b (which every
 path above runs, its launches counted) at each path's shape, and the
-whole-block forward X2f against the K2f -> K1f pair.
+whole-block forward X2f against the K2f -> K1f pair; and, last, the two
+experiments on K2's attention cores: X1's phase-batched cores X1f/X1b,
+bit for bit the production ones, and X3's ablations of K2b's chain.
 
 Run from the repository root with no arguments:
 
@@ -389,6 +391,23 @@ The DiT tail and the whole-block experiment, after those:
     F 1536): torch.equal to the K2f -> K1f pair, the plain version by the
     bf16 rule, one block and an 8-block chain against the pair in turns
     (``scripts/torch_exp_whole_block.py``); no path launches it.
+3u. (phase-softmax) X1f and X1b (``csrc/phase_softmax.cu``) at DiT-S/4's
+    training shape (2048, 64, 384, H 6), X1b at every head group that
+    fits: torch.equal to the production cores and the K2f and K2b chains,
+    X1f also at the sampler's B 256 (``scripts/torch_exp_phase_softmax.py``
+    ``bits``); the half-blocks against their plain versions by the bf16 and
+    gradient rules, X1b's second call bit-identical; the cores timed beside
+    the production cores, their plain versions and SDPA (forward, and
+    forward + backward) on the same q, k, v. No path launches them;
+3v. (ablate) X3's eight variants of K2b's chain (``csrc/attention.cu``
+    ``attention_core_bwd_kernel<SKIP>``, ``csrc/gemm_bwd.cu``
+    ``ln_bwd_kernel<8, false>``) at (2048, 64, 384, H 6), each twice
+    (bit-identical) against its plain version within twice bf16's own noise
+    on that variant (plain bf16 against plain fp32, max and Frobenius) and
+    timed once, the all-off one torch.equal to K2b and by the gradient
+    rules; K1f with the identity
+    GELU at (131,072, 384, F 1536) against its plain version. No path
+    launches them.
 
 The DiT-S phases run at full width and depth 8. PERF.md gives the whole
 run's measured time on the card, the kernels' build included, against the
@@ -3110,13 +3129,12 @@ def phase_ln_dense_kernels(smi):
     return list(entries.values())
 
 
-def _exp_whole_block():
-    """scripts/torch_exp_whole_block.py, the experiment's harness."""
+def _script(stem):
+    """scripts/<stem>.py, an experiment's harness, as a module."""
     import importlib.util
 
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
-                        "torch_exp_whole_block.py")
-    spec = importlib.util.spec_from_file_location("torch_exp_whole_block", path)
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", stem + ".py")
+    spec = importlib.util.spec_from_file_location(stem, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
@@ -3130,7 +3148,7 @@ def phase_whole_block(smi):
     entry; no path launches it."""
     from ddm_tpu_torch.ops import whole_block as W
 
-    exp = _exp_whole_block()
+    exp = _script("torch_exp_whole_block")
     B, N, D, H, F = exp.SHAPE
     shape = f"(B={B}, N={N}, D={D}, H={H}, F={F})"
     before = W.LAUNCHES.count
@@ -3165,6 +3183,202 @@ def phase_whole_block(smi):
                       mean["1blk"]["merged"], plain_ms, _bound(nbytes, flops)),
              "pair_ms": mean["1blk"]["pair"], f"chain{exp.CHAIN}_ms": mean[c8]["merged"],
              f"pair_chain{exp.CHAIN}_ms": mean[c8]["pair"], "bit_identical_to_pair": True}]
+
+
+def _x1_entry(name, replaces, max_err, ms, plain_ms, prod_ms, flops, nbytes, sdpa_ms,
+              **extra):
+    sources = ["ddm_tpu_torch/csrc/phase_softmax.cu", "ddm_tpu_torch/csrc/attention_tiles.cuh",
+               "ddm_tpu_torch/csrc/common.cuh"]
+    return {**_entry(name, sources[0], sources, f"tools/exp_phase_softmax.py:{replaces}",
+                     max_err, ms, plain_ms, _bound(nbytes, flops), sdpa_ms),
+            "production_core_ms": prod_ms, **extra}
+
+
+def phase_phase_softmax(A, smi):
+    """3u: X1f and X1b at DiT-S/4's training shape, X1f also at the
+    sampler's B 256: bit for bit the production cores and half-blocks, the
+    plain versions by the kernel rules, the cores timed beside the
+    production cores and SDPA. Returns the X1f and X1b entries; no path
+    launches them."""
+    from ddm_tpu_torch.ops import phase_softmax as X
+
+    exp = _script("torch_exp_phase_softmax")
+    B, N, D, H = shape = exp.SHAPES["dit-s"]
+    label = f"(B={B}, N={N}, D={D}, H={H})"
+    groups = X.library_plan(N, D, H)["groups"]
+    before = (X.LAUNCHES.count, X.BWD_LAUNCHES.count)
+    bits = exp.bits(shape)
+    if (X.LAUNCHES.count - before[0], X.BWD_LAUNCHES.count - before[1]) != (2, 2 * len(groups)):
+        raise AssertionError(f"X1 {label}: the kernels did not launch as asked")
+    if not all(bits.values()):
+        raise AssertionError(f"X1 {label} is not the production cores bit for bit: {bits}")
+    x, p, dout = exp.block_inputs(shape)
+    with torch.no_grad():
+        max_err, mean_err, tol, ok = _bf16_errors(X.phase_attention_block_fwd(x, *p, H),
+                                                  A.attention_block_reference(x, *p, H))
+        if not ok:
+            raise AssertionError(f"X1f {label} half-block disagrees with its plain version")
+        got, again = (X.phase_attention_block_bwd(x, *p, H, dout) for _ in range(2))
+        if not all(torch.equal(g, h) for g, h in zip(got, again)):
+            raise AssertionError(f"X1b {label} is not deterministic: two calls differ")
+        _check_grads(f"X1b half-block {label} bf16 (second call bit-identical)", got,
+                     A.attention_block_bwd_reference(x, *p, H, dout), smi, None, None)
+    del x, p, dout, got, again
+    q, k, v, do = exp.core_inputs(shape)
+    G = groups[-1]
+    with torch.no_grad():
+        f_err = _bf16_errors(X.launch_x1f(q, k, v, H), A.attention_reference(q, k, v, H))
+        att, dqkv = X.launch_x1b(q, k, v, do, H, G)
+        b_errs = [_bf16_errors(g, w) for g, w in zip(
+            (att, *dqkv.split(D, dim=-1)), A.attention_core_bwd_att_reference(q, k, v, do, H))]
+        del att, dqkv
+        if not (f_err[3] and all(e[3] for e in b_errs)):
+            raise AssertionError(f"X1 cores {label} disagree with their plain versions")
+        ms = {"x1f": _median_ms(lambda: X.launch_x1f(q, k, v, H)),
+              "prod_f": _median_ms(lambda: A._launch_core(q, k, v, H)),
+              "plain_f": _median_ms(lambda: A.attention_reference(q, k, v, H)),
+              "prod_b": _median_ms(lambda: A._launch_core_bwd(q, k, v, do, H, True)),
+              "plain_b": _median_ms(lambda: A.attention_core_bwd_att_reference(q, k, v, do, H))}
+        for g in groups:
+            ms[f"x1b_g{g}"] = _median_ms(lambda g=g: X.launch_x1b(q, k, v, do, H, g))
+    sdpa = _sdpa_ms(q, k, v, do, H)
+    one = _nbytes(q)  # one bf16 (B, N, D) tensor
+    del q, k, v, do
+    qs, ks, vs, _ = exp.core_inputs(exp.SAMPLER)
+    Hs = exp.SAMPLER[3]
+    with torch.no_grad():
+        if not torch.equal(X.launch_x1f(qs, ks, vs, Hs), A._launch_core(qs, ks, vs, Hs)):
+            raise AssertionError(f"X1f at the sampler's {exp.SAMPLER} is not the production "
+                                 "core bit for bit")
+        s_ms = {"x1f": _median_ms(lambda: X.launch_x1f(qs, ks, vs, Hs)),
+                "prod": _median_ms(lambda: A._launch_core(qs, ks, vs, Hs))}
+    print(f"[kernel] X1f core {label} bf16: bit for bit the production core (and the K2f chain "
+          f"around it); against the plain core max_abs_err={f_err[0]:.6g} (tol {f_err[2]:.6g}); "
+          f"X1f {ms['x1f']:.4f} ms, production core {ms['prod_f']:.4f} ms, plain "
+          f"{ms['plain_f']:.4f} ms, SDPA {sdpa['K8f']:.4f} ms; at the sampler's "
+          f"{exp.SAMPLER} X1f {s_ms['x1f']:.4f} ms, production {s_ms['prod']:.4f} ms (median "
+          f"of 20) on {smi}")
+    print(f"[kernel] X1b core {label} bf16: bit for bit the one-block core at groups "
+          f"{groups} (and the K2b chain); against the plain core max_abs_err "
+          f"{max(e[0] for e in b_errs):.6g}; " + ", ".join(
+              f"G={g} {ms[f'x1b_g{g}']:.4f} ms" for g in groups)
+          + f"; one-block core {ms['prod_b']:.4f} ms, plain {ms['plain_b']:.4f} ms, SDPA "
+          f"forward + backward {sdpa['K8b']:.4f} ms (median of 20) on {smi}")
+    T = B * N
+    return [_x1_entry("X1f", 57, f_err[0], ms["x1f"], ms["plain_f"],
+                      ms["prod_f"], 4 * T * N * D, 4 * one, sdpa["K8f"],
+                      sampler={"shape": list(exp.SAMPLER), "ms": s_ms["x1f"],
+                               "production_core_ms": s_ms["prod"]}),
+            _x1_entry("X1b", 99, max(e[0] for e in b_errs), ms[f"x1b_g{G}"],
+                      ms["plain_b"], ms["prod_b"], 12 * T * N * D, 8 * one, sdpa["K8b"],
+                      group=G, group_ms={g: ms[f"x1b_g{g}"] for g in groups},
+                      persist_bwd="tools/exp_phase_softmax.py:215 is the production K2b body "
+                                  "line for line: its counterpart is K2b")]
+
+
+def _within_noise(name, got, want, want32):
+    """Each output against its plain version within twice bf16's own noise,
+    ``|plain bf16 - plain fp32|``, in max and in Frobenius norm, never
+    tighter than the gradient rule (GRAD_MAX_REL of the largest entry,
+    GRAD_FROB_REL relative Frobenius: an output the two plain versions give
+    the same bits, such as dbproj over the bf16 cotangent); exact zeros
+    where the plain fp32 output is zero. ``(worst max_abs_err, tightest
+    err / tol)``."""
+    worst, ratio = 0.0, 0.0
+    for i, (g, w, w32) in enumerate(zip(got, want, want32)):
+        g, w, w32 = g.float(), w.float(), w32.float()
+        err = float((g - w).abs().max())
+        worst = max(worst, err)
+        if not w32.any():
+            if g.any():
+                raise AssertionError(f"{name}: output {i} is not the zeros its plain version is")
+            continue
+        tols = (max(2 * float((w - w32).abs().max()), GRAD_MAX_REL * float(w.abs().max())),
+                max(2 * float(torch.linalg.norm(w - w32)),
+                    GRAD_FROB_REL * float(torch.linalg.norm(w))))
+        errs = (err, float(torch.linalg.norm(g - w)))
+        if not all(np.isfinite(e) and e <= t for e, t in zip(errs, tols)):
+            raise AssertionError(f"{name}: output {i} disagrees with its plain version beyond "
+                                 f"twice bf16's noise: {errs} against {tols}")
+        ratio = max(ratio, *(e / t for e, t in zip(errs, tols)))
+    return worst, ratio
+
+
+def phase_ablate(A, M, smi):
+    """3v: X3's eight variants of K2b's chain at DiT-S/4's training shape,
+    each twice (bit-identical) against its plain version within twice bf16's
+    own noise on that variant (:func:`_within_noise`) and timed once,
+    the all-off one torch.equal to K2b; K1f with the identity GELU against
+    its plain version. Returns the X3b and X3m entries; no path launches
+    them."""
+    from ddm_tpu_torch.ops import attention_ablate as X
+
+    exp = _script("torch_kbench_ablate")
+    B, N, D, H = exp.SHAPE
+    label = f"(B={B}, N={N}, D={D}, H={H})"
+    x, p, dout = exp.block_inputs(exp.SHAPE)
+    variants, worst = {}, 0.0
+    with torch.no_grad():
+        k2b = A.attention_block_bwd(x, *p, H, dout)
+        for name, skips in X.VARIANTS:
+            before = X.LAUNCHES.count
+            got, again = (X.attention_block_bwd_ablate(x, *p, H, dout, **skips) for _ in range(2))
+            if X.LAUNCHES.count - before != 2:
+                raise AssertionError(f"X3 {name} {label}: the chain did not launch")
+            if not all(torch.equal(g, h) for g, h in zip(got, again)):
+                raise AssertionError(f"X3 {name} {label} is not deterministic")
+            if not skips and not all(torch.equal(g, w) for g, w in zip(got, k2b)):
+                raise AssertionError(f"X3's all-off variant {label} is not K2b bit for bit")
+            want = X.attention_block_bwd_ablate_reference(x, *p, H, dout, **skips)
+            if not skips:
+                _check_grads(f"X3 {name} {label} bf16 (second call bit-identical, K2b bit for "
+                             "bit)", got, want, smi, None, None)
+            err, ratio = _within_noise(f"X3 {name} {label}", got, want,
+                                       X.attention_block_bwd_ablate_reference(
+                                           x.float(), *p, H, dout.float(), **skips))
+            print(f"[kernel] X3 {name} {label}: within twice bf16's own noise or the gradient "
+                  f"rule (tightest {ratio:.3f} of tol), second call bit-identical")
+            del got, again, want
+            worst = max(worst, err)
+            variants[name] = {"ms": _median_ms(
+                lambda s=skips: X.attention_block_bwd_ablate(x, *p, H, dout, **s)),
+                "max_abs_err": err}
+        k2b_ms = _median_ms(lambda: A.attention_block_bwd(x, *p, H, dout))
+        plain_ms = _median_ms(lambda: X.attention_block_bwd_ablate_reference(x, *p, H, dout))
+    base = variants["baseline"]["ms"]
+    print(f"[kernel] X3 {label}: " + "; ".join(
+        f"{n} {v['ms']:.4f} ms ({base - v['ms']:+.4f})" for n, v in variants.items())
+        + f"; K2b {k2b_ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20) on {smi}")
+    nbytes = _nbytes(x, *p, dout, *k2b)
+    del x, p, dout, k2b
+    args = exp.mlp_inputs()
+    Tm, Dm, Fm = exp.MLP_SHAPE
+    mlp = f"(T={Tm}, D={Dm}, F={Fm})"
+    with torch.inference_mode():
+        before = X.MLP_LAUNCHES.count
+        got = X.mlp_block_fwd_identity_gelu(*args)
+        if X.MLP_LAUNCHES.count - before != 1:
+            raise AssertionError("X3m: the chain did not launch")
+        m_err, m_mean, m_tol, ok = _bf16_errors(got, X.mlp_block_identity_gelu_reference(*args))
+        if not ok:
+            raise AssertionError(f"X3m {mlp} disagrees with its plain version")
+        m_ms = _median_ms(lambda: X.mlp_block_fwd_identity_gelu(*args))
+        m_plain = _median_ms(lambda: X.mlp_block_identity_gelu_reference(*args))
+        k1f_ms = _median_ms(lambda: M.fused_mlp_block(*args))
+    print(f"[kernel] X3m identity-GELU K1f {mlp} bf16: max_abs_err={m_err:.6g} "
+          f"(tol {m_tol:.6g}), mean_abs_err={m_mean:.6g}; {m_ms:.4f} ms, K1f {k1f_ms:.4f} ms, "
+          f"plain {m_plain:.4f} ms (median of 20) on {smi}")
+    src = ["ddm_tpu_torch/csrc/attention.cu", "ddm_tpu_torch/csrc/gemm_bwd.cu",
+           "ddm_tpu_torch/csrc/attention_tiles.cuh", "ddm_tpu_torch/csrc/gemm.cu",
+           "ddm_tpu_torch/csrc/common.cuh"]
+    T = B * N
+    return [{**_entry("X3b", src[0], src, "tools/kbench_ablate.py:82", worst, base, plain_ms,
+                      _bound(nbytes, 2 * T * D * D * 11 + 12 * T * N * D)),
+             "k2b_ms": k2b_ms, "variants": variants},
+            {**_entry("X3m", "ddm_tpu_torch/csrc/gemm.cu",
+                      ["ddm_tpu_torch/csrc/gemm.cu", "ddm_tpu_torch/csrc/common.cuh"],
+                      "tools/kbench_ablate.py:291", m_err, m_ms, m_plain,
+                      _bound(_nbytes(*args, got), 4 * Tm * Dm * Fm)), "k1f_ms": k1f_ms}]
 
 
 def phase_train_step_heads1(cfg, smi):
@@ -3207,7 +3421,7 @@ PHASES = ("kernels", "backward", "energy", "flash", "moe-kernels", "slice", "tra
           "train-step-moe-xl", "train-moe-xl", "flash-widths", "train-step-heads", "train-heads",
           "wide-mlp-kernels", "train-step-1536", "train-1536", "moe-128-kernels",
           "train-step-moe-128", "train-moe-128", "streamed-kernels", "train-step-heads1",
-          "train-heads1", "ln-dense-kernels", "whole-block")
+          "train-heads1", "ln-dense-kernels", "whole-block", "phase-softmax", "ablate")
 # launches per training step and per 20-step sampler call on the wide paths;
 # the DiT-L trainer (7d) runs depth 12 since PR 9 (7k runs its kernels at
 # DiT-XL's full depth 28)
@@ -3329,7 +3543,8 @@ def main(argv=None) -> None:
     from ddm_tpu_torch.ops import kernel_config as kc
     from ddm_tpu_torch.ops import mlp_block as M
     from ddm_tpu_torch.ops import moe_dispatch as MD
-    from ddm_tpu_torch.ops import whole_block  # noqa: F401  (registers X2f's counter)
+    # the experiments register their counters (X2f, X1f, X1b, X3b, X3m); no path launches them
+    from ddm_tpu_torch.ops import attention_ablate, phase_softmax, whole_block  # noqa: F401
 
     phase_build(kc)
     record_ln_dense_shapes()
@@ -3424,6 +3639,8 @@ def main(argv=None) -> None:
         ("train-heads1", lambda: phase_train_heads1(kc, name, smi)),
         ("ln-dense-kernels", lambda: phase_ln_dense_kernels(smi)),
         ("whole-block", lambda: phase_whole_block(smi)),
+        ("phase-softmax", lambda: phase_phase_softmax(A, smi)),
+        ("ablate", lambda: phase_ablate(A, M, smi)),
     ]
     out = {}
     t_run = time.perf_counter()
@@ -3441,7 +3658,8 @@ def main(argv=None) -> None:
     # path's sampler for the forward kernels; and its counts on every path
     energy = {e["name"]: e for e in out["energy"]}
     paths = {"dit-s": (out["kernels"] + out["backward"] + [energy["K3f"], energy["K3b"]]
-                       + out["ln-dense-kernels"] + out["whole-block"], out["train"],
+                       + out["ln-dense-kernels"] + out["whole-block"] + out["phase-softmax"]
+                       + out["ablate"], out["train"],
                        out["slice"]),
              "128px": (out["flash"], *out["train-128"]),
              "moe": (out["moe-kernels"], *out["train-moe"]),

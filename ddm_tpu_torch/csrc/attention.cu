@@ -79,164 +79,10 @@
 // Dh 72), and a chunk starts on a multiple of 16 columns, so no chunk splits
 // one. Where Dh % 16 = 0 nothing is padded and the products are the ones
 // before the padding existed.
-#include <algorithm>
-#include <type_traits>
-
-#include "common.cuh"
+#include "attention_tiles.cuh"
 
 namespace ddm {
 namespace {
-
-constexpr int kThreads = 128;  // 4 warps
-constexpr size_t kMaxSmem = 232448;
-constexpr int kChunk = 64;            // the streamed design's column chunk
-constexpr int kOneBlockMaxTokens = 128;  // one backward block per (image, head) at most
-
-// A head's width in shared memory: Dh up to the next whole fragment.
-__host__ __device__ __forceinline__ int padded(int Dh) {
-  return (Dh + kFrag - 1) / kFrag * kFrag;
-}
-
-// q, k and v of (B, N, H*Dh) rows of stride ld, heads contiguous: the thirds
-// of a (B, N, 3D) [q | k | v] buffer (ld = 3D), or three tensors.
-struct Heads {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  int ld;
-  __device__ const bf16* row(const bf16* t, int b, int N, int r, int h, int Dh) const {
-    return t + ((size_t)b * N + r) * ld + h * Dh;
-  }
-};
-
-// dq, dk and dv, rows of stride ld.
-struct DHeads {
-  bf16* q;
-  bf16* k;
-  bf16* v;
-  int ld;
-  __device__ bf16* row(bf16* t, int b, int N, int r, int h, int Dh) const {
-    return t + ((size_t)b * N + r) * ld + h * Dh;
-  }
-};
-
-// C (M x Nc fp32, ldc) = op(A) op(B) over depth K, one 16 x 16 tile per
-// warp at a time, each tile's products in increasing k: op(A) is the
-// row-major A (lda) or, with A_T, the transpose of a row-major (K x M) A;
-// op(B) the row-major (K x Nc) B (ldb) or, with B_T, the transpose of a
-// row-major (Nc x K) B. With ACC a tile starts from C's values.
-template <bool A_T, bool B_T, bool ACC>
-__device__ void mma_tiles(const bf16* A, int lda, const bf16* B, int ldb, float* C, int ldc,
-                          int M, int Nc, int K) {
-  const int warp = threadIdx.x / 32, nwarps = kThreads / 32, nt = Nc / kFrag;
-  for (int t = warp; t < (M / kFrag) * nt; t += nwarps) {
-    const int ti = t / nt, tj = t % nt;
-    float* c = C + ti * kFrag * ldc + tj * kFrag;
-    FragC acc;
-    if (ACC)
-      wmma::load_matrix_sync(acc, c, ldc, wmma::mem_row_major);
-    else
-      wmma::fill_fragment(acc, 0.0f);
-    for (int kk = 0; kk < K; kk += kFrag) {
-      typename std::conditional<A_T, FragACol, FragA>::type a;
-      typename std::conditional<B_T, FragBCol, FragBRow>::type bm;
-      wmma::load_matrix_sync(a, A_T ? A + kk * lda + ti * kFrag : A + ti * kFrag * lda + kk, lda);
-      wmma::load_matrix_sync(bm, B_T ? B + tj * kFrag * ldb + kk : B + kk * ldb + tj * kFrag,
-                             ldb);
-      wmma::mma_sync(acc, a, bm, acc);
-    }
-    wmma::store_matrix_sync(c, acc, ldc, wmma::mem_row_major);
-  }
-}
-
-// The depth slices after the first of a product taken in chunks go on from
-// the fp32 tile stored after the previous chunk.
-template <bool A_T, bool B_T>
-__device__ __forceinline__ void mma_tiles_from(bool acc, const bf16* A, int lda, const bf16* B,
-                                               int ldb, float* C, int ldc, int M, int Nc, int K) {
-  if (acc)
-    mma_tiles<A_T, B_T, true>(A, lda, B, ldb, C, ldc, M, Nc, K);
-  else
-    mma_tiles<A_T, B_T, false>(A, lda, B, ldb, C, ldc, M, Nc, K);
-}
-
-// Columns [c0, c0 + w) of rows x Dh bf16 values (row stride src_ld) into a
-// shared tile of stride ld; columns at or past Dh are zeros (the padding).
-__device__ __forceinline__ void load_cols(bf16* dst, int ld, const bf16* __restrict__ src,
-                                          int src_ld, int rows, int c0, int w, int Dh) {
-  const int vec = w / 8;
-  for (int i = threadIdx.x; i < rows * vec; i += kThreads) {
-    const int r = i / vec, c = (i % vec) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (c0 + c < Dh) v = *reinterpret_cast<const uint4*>(src + (size_t)r * src_ld + c0 + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = v;
-  }
-}
-
-// A whole head: each row followed by zeros up to padded(Dh) columns.
-__device__ __forceinline__ void load_head(bf16* dst, int ld, const bf16* __restrict__ src,
-                                          int src_ld, int rows, int Dh) {
-  load_cols(dst, ld, src, src_ld, rows, 0, padded(Dh), Dh);
-}
-
-// Write a (rows x Dh) fp32 tile as bf16 into the rows of a row-major matrix
-// with ld columns.
-__device__ __forceinline__ void store_head(bf16* __restrict__ dst, int ld, const float* src,
-                                           int sld, int rows, int Dh) {
-  for (int i = threadIdx.x; i < rows * Dh / 2; i += kThreads) {
-    const int r = i / (Dh / 2), c = 2 * (i % (Dh / 2));
-    *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)r * ld + c) =
-        __floats2bfloat162_rn(src[r * sld + c], src[r * sld + c + 1]);
-  }
-}
-
-// Row softmax on rows of fp32 scores S (stride sld): p = exp(s * scale -
-// max) / sum, bf16(p) into Pb; with keep, p kept in S; with stats, each
-// row's (max, sum) saved at stats[3 r], stats[3 r + 1].
-__device__ void softmax_rows(float* S, int sld, bf16* Pb, int pld, int rows, int N, float scale,
-                             bool keep, float* stats) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, nwarps = kThreads / 32;
-  for (int r = warp; r < rows; r += nwarps) {
-    float* srow = S + r * sld;
-    float m = -INFINITY;
-    for (int c = lane; c < N; c += 32) m = fmaxf(m, srow[c] * scale);
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int c = lane; c < N; c += 32) {
-      const float e = expf(srow[c] * scale - m);
-      srow[c] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int c = lane; c < N; c += 32) {
-      const float p = srow[c] / sum;
-      if (keep) srow[c] = p;
-      Pb[r * pld + c] = __float2bfloat16(p);
-    }
-    if (stats != nullptr && lane == 0) {
-      stats[3 * r] = m;
-      stats[3 * r + 1] = sum;
-    }
-  }
-}
-
-// dS = bf16(scale * P * (dP - rowsum(P * dP))) into Pb, over rows of the
-// fp32 P and dP (stride sld); with stats, rowsum(P * dP) saved at
-// stats[3 r + 2].
-__device__ void ds_rows(const float* P, const float* dP, int sld, bf16* Pb, int pld, int rows,
-                        int N, float scale, float* stats) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, nwarps = kThreads / 32;
-  for (int r = warp; r < rows; r += nwarps) {
-    const float* prow = P + r * sld;
-    const float* drow = dP + r * sld;
-    float s = 0.f;
-    for (int c = lane; c < N; c += 32) s += prow[c] * drow[c];
-    s = warp_sum(s);
-    for (int c = lane; c < N; c += 32)
-      Pb[r * pld + c] = __float2bfloat16(prow[c] * (drow[c] - s) * scale);
-    if (stats != nullptr && lane == 0) stats[3 * r + 2] = s;
-  }
-}
 
 // The forward core's shared memory at QT query rows and column chunks of C.
 size_t core_smem(int N, int C, int QT) {
@@ -298,8 +144,52 @@ size_t core_bwd_smem(int N, int Dh) {
          (size_t)N * (N + kPadH) * sizeof(bf16);
 }
 
+// X3, the ablations of this kernel (tools/kbench_ablate.py
+// `_bwd_kernel_ablate`): compile-time flags, each removing one phase and
+// keeping the rest as it is; the all-off instance (SKIP = 0) is the kernel
+// K2b, K4 and K7b launch, the same code. A time-attribution tool: an
+// instance with a flag set computes something else on purpose.
+constexpr int kSkipSoftmax = 1;    // P = S scale, rounded: no max, exp or sum
+constexpr int kSkipDs = 2;         // dS = bf16(dP scale): no rowsum(P dP)
+constexpr int kSkipCoreMM = 4;     // S, P and att only; dq = dk = dv = datt
+constexpr int kSkipRecompute = 8;  // no att = P V product: att = q
+
+// kSkipSoftmax's pass: P = S scale in place (fp32, kept) and bf16(P) to Pb.
+__device__ void scale_rows(float* S, int sld, bf16* Pb, int pld, int rows, int N, float scale) {
+  for (int i = threadIdx.x; i < rows * N; i += kThreads) {
+    const int r = i / N, c = i % N;
+    const float p = S[r * sld + c] * scale;
+    S[r * sld + c] = p;
+    Pb[r * pld + c] = __float2bfloat16(p);
+  }
+}
+
+// kSkipDs's pass: dS = bf16(dP scale) into Pb.
+__device__ void scale_round_rows(const float* dP, int sld, bf16* Pb, int pld, int rows, int N,
+                                 float scale) {
+  for (int i = threadIdx.x; i < rows * N; i += kThreads) {
+    const int r = i / N, c = i % N;
+    Pb[r * pld + c] = __float2bfloat16(dP[r * sld + c] * scale);
+  }
+}
+
+// A (rows x Dh) bf16 head from rows of stride sld to rows of stride dld, 16
+// bytes at a time (Dh % 8 == 0, rows 16-byte aligned).
+__device__ __forceinline__ void copy_head(bf16* __restrict__ dst, int dld,
+                                          const bf16* __restrict__ src, int sld, int rows,
+                                          int Dh) {
+  const int vec = Dh / 8;
+  for (int i = threadIdx.x; i < rows * vec; i += kThreads) {
+    const int r = i / vec, c = (i % vec) * 8;
+    *reinterpret_cast<uint4*>(dst + (size_t)r * dld + c) =
+        *reinterpret_cast<const uint4*>(src + (size_t)r * sld + c);
+  }
+}
+
 // The one-block backward: block b H + h holds all N rows of one (image,
-// head) and writes dq, dk, dv, and att where att is not null.
+// head) and writes dq, dk, dv, and att where att is not null. SKIP: X3's
+// flags above (0 for every caller but X3).
+template <int SKIP>
 __global__ void __launch_bounds__(kThreads)
 attention_core_bwd_kernel(Heads in, const bf16* __restrict__ datt, bf16* __restrict__ att,
                           DHeads out, int N, int H, int Dh, float scale) {
@@ -318,25 +208,45 @@ attention_core_bwd_kernel(Heads in, const bf16* __restrict__ datt, bf16* __restr
   load_head(Qs, QLD, in.row(in.q, b, N, 0, h, Dh), in.ld, N, Dh);
   load_head(Ks, QLD, in.row(in.k, b, N, 0, h, Dh), in.ld, N, Dh);
   load_head(Vs, QLD, in.row(in.v, b, N, 0, h, Dh), in.ld, N, Dh);
-  load_head(dOs, QLD, datt + (size_t)b * N * D + h * Dh, D, N, Dh);
+  if constexpr (!(SKIP & kSkipCoreMM))
+    load_head(dOs, QLD, datt + (size_t)b * N * D + h * Dh, D, N, Dh);
   __syncthreads();
   mma_tiles<false, true, false>(Qs, QLD, Ks, QLD, P, SLD, N, N, DP);  // S = Q K^T
   __syncthreads();
-  softmax_rows(P, SLD, Pb, PLD, N, N, scale, true, nullptr);
+  if constexpr (SKIP & kSkipSoftmax)
+    scale_rows(P, SLD, Pb, PLD, N, N, scale);
+  else
+    softmax_rows(P, SLD, Pb, PLD, N, N, scale, true, nullptr);
   __syncthreads();
-  mma_tiles<true, false, false>(Pb, PLD, dOs, QLD, F, SLD, N, DP, N);  // dv = Pb^T dO
-  __syncthreads();
-  store_head(out.row(out.v, b, N, 0, h, Dh), out.ld, F, SLD, N, Dh);
-  __syncthreads();
+  if constexpr (!(SKIP & kSkipCoreMM)) {
+    mma_tiles<true, false, false>(Pb, PLD, dOs, QLD, F, SLD, N, DP, N);  // dv = Pb^T dO
+    __syncthreads();
+    store_head(out.row(out.v, b, N, 0, h, Dh), out.ld, F, SLD, N, Dh);
+    __syncthreads();
+  }
   if (att != nullptr) {
-    mma_tiles<false, false, false>(Pb, PLD, Vs, QLD, F, SLD, N, DP, N);  // att = Pb V
-    __syncthreads();
-    store_head(att + (size_t)b * N * D + h * Dh, D, F, SLD, N, Dh);
-    __syncthreads();
+    if constexpr (SKIP & kSkipRecompute) {
+      copy_head(att + (size_t)b * N * D + h * Dh, D, Qs, QLD, N, Dh);  // att = q
+    } else {
+      mma_tiles<false, false, false>(Pb, PLD, Vs, QLD, F, SLD, N, DP, N);  // att = Pb V
+      __syncthreads();
+      store_head(att + (size_t)b * N * D + h * Dh, D, F, SLD, N, Dh);
+      __syncthreads();
+    }
+  }
+  if constexpr (SKIP & kSkipCoreMM) {  // dq = dk = dv = the head's datt
+    const bf16* d = datt + (size_t)b * N * D + h * Dh;
+    copy_head(out.row(out.q, b, N, 0, h, Dh), out.ld, d, D, N, Dh);
+    copy_head(out.row(out.k, b, N, 0, h, Dh), out.ld, d, D, N, Dh);
+    copy_head(out.row(out.v, b, N, 0, h, Dh), out.ld, d, D, N, Dh);
+    return;
   }
   mma_tiles<false, true, false>(dOs, QLD, Vs, QLD, F, SLD, N, N, DP);  // dP = dO V^T
   __syncthreads();
-  ds_rows(P, F, SLD, Pb, PLD, N, N, scale, nullptr);
+  if constexpr (SKIP & kSkipDs)
+    scale_round_rows(F, SLD, Pb, PLD, N, N, scale);
+  else
+    ds_rows(P, F, SLD, Pb, PLD, N, N, scale, nullptr);
   __syncthreads();
   mma_tiles<false, false, false>(Pb, PLD, Ks, QLD, P, SLD, N, DP, N);  // dq = dS K
   mma_tiles<true, false, false>(Pb, PLD, Qs, QLD, F, SLD, N, DP, N);   // dk = dS^T Q
@@ -631,20 +541,6 @@ RowTiles fwd_plan(int N, int Dh, int design) {
   return t;
 }
 
-cudaError_t set_smem(const void* kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
-// Launch `kernel` (an instance of a core kernel) with `smem` bytes of
-// dynamic shared memory.
-template <typename... Params, typename... Args>
-cudaError_t launch(void (*kernel)(Params...), dim3 grid, size_t smem, cudaStream_t s,
-                   Args... args) {
-  cudaError_t err = set_smem((const void*)kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, s>>>(args...);
-  return cudaGetLastError();
-}
 
 // The forward core over q, k, v into the (B, N, H*Dh) out.
 cudaError_t launch_core(Heads in, bf16* out, int B, int N, int H, int Dh, float scale,
@@ -660,10 +556,10 @@ cudaError_t launch_core(Heads in, bf16* out, int B, int N, int H, int Dh, float 
 cudaError_t launch_bwd_one_block(Heads in, const bf16* datt, bf16* att, DHeads out, int B, int N,
                                  int H, int Dh, float scale, cudaStream_t stream) {
   const size_t smem = core_bwd_smem(N, Dh);
-  cudaError_t err = set_smem((const void*)attention_core_bwd_kernel, smem);
+  cudaError_t err = set_smem((const void*)attention_core_bwd_kernel<0>, smem);
   if (err != cudaSuccess) return err;
-  attention_core_bwd_kernel<<<B * H, kThreads, smem, stream>>>(in, datt, att, out, N, H, Dh,
-                                                               scale);
+  attention_core_bwd_kernel<0><<<B * H, kThreads, smem, stream>>>(in, datt, att, out, N, H,
+                                                                  Dh, scale);
   return cudaGetLastError();
 }
 
@@ -727,7 +623,7 @@ extern "C" int ddm_attention_kernel_attrs(int* attrs) {
   using namespace ddm;
   const void* kernels[7] = {(const void*)attention_core_kernel<false>,
                             (const void*)attention_core_kernel<true>,
-                            (const void*)attention_core_bwd_kernel,
+                            (const void*)attention_core_bwd_kernel<0>,
                             (const void*)attention_core_bwd_rows_kernel<false>,
                             (const void*)attention_core_bwd_rows_kernel<true>,
                             (const void*)attention_core_bwd_cols_kernel<false>,
@@ -774,4 +670,31 @@ extern "C" int ddm_attention_core_bwd(const void* q, const void* k, const void* 
                                      s);
   return (int)launch_bwd_two_pass(in, (const bf16*)dout, (bf16*)att, out, (float*)stats, B, N,
                                   H, Dh, scale, p, s);
+}
+
+// X3's instances of the one-block backward (tools/kbench_ablate.py): `skip`
+// holds the kSkip* flags of one of the tool's variants (0: the kernel K2b
+// launches), writing dq, dk and dv into the thirds of the (B, N, 3D) dqkv
+// and att, at the (N, Dh) the one-block design takes. Returns
+// cudaErrorInvalidValue for other shapes and other flag sets.
+extern "C" int ddm_attention_core_bwd_ablate(const void* q, const void* k, const void* v, int ld,
+                                             const void* dout, void* att, void* dqkv, int B,
+                                             int N, int H, int Dh, float scale, int skip,
+                                             void* stream) {
+  using namespace ddm;
+  if (!takes(N, Dh) || !one_block_fits(N, Dh) || att == nullptr)
+    return (int)cudaErrorInvalidValue;
+  decltype(&attention_core_bwd_kernel<0>) kernel;
+  switch (skip) {
+    case 0: kernel = attention_core_bwd_kernel<0>; break;
+    case kSkipSoftmax: kernel = attention_core_bwd_kernel<kSkipSoftmax>; break;
+    case kSkipDs: kernel = attention_core_bwd_kernel<kSkipDs>; break;
+    case kSkipSoftmax | kSkipDs: kernel = attention_core_bwd_kernel<kSkipSoftmax | kSkipDs>; break;
+    case kSkipCoreMM: kernel = attention_core_bwd_kernel<kSkipCoreMM>; break;
+    case kSkipRecompute: kernel = attention_core_bwd_kernel<kSkipRecompute>; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  const Heads in{(const bf16*)q, (const bf16*)k, (const bf16*)v, ld};
+  return (int)launch(kernel, dim3(B * H), core_bwd_smem(N, Dh), (cudaStream_t)stream, in,
+                     (const bf16*)dout, (bf16*)att, dqkv_heads(dqkv, H * Dh), N, H, Dh, scale);
 }

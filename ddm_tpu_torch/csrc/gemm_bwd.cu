@@ -305,13 +305,25 @@ gemm_tn_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
 //   WARPS warps keeps its 2 x D fp32 column partials in shared memory: 8
 //   warps up to D 3584 (64 D bytes), 4 past it (up to D 7264), each warp
 //   then walking twice the rows; the sum order at 8 warps is unchanged.
+//   LN = false is X3's ablation (tools/kbench_ablate.py skip_ln): dx =
+//   bf16(dres + dy), no LN algebra and no partials (x, scale and partial
+//   unread); every other caller takes LN = true.
 constexpr int kLnRows = 64;
 
-template <int WARPS>
+template <int WARPS, bool LN = true>
 __global__ void __launch_bounds__(WARPS * 32)
 ln_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ dy,
               const bf16* __restrict__ dres, const float* __restrict__ scale,
               bf16* __restrict__ dx, float* __restrict__ partial, int T, int D) {
+  if constexpr (!LN) {
+    const int row0 = blockIdx.x * kLnRows, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    for (int r = warp; r < kLnRows && row0 + r < T; r += WARPS) {
+      const size_t o = (size_t)(row0 + r) * D;
+      for (int c = lane; c < D; c += 32)
+        dx[o + c] = __float2bfloat16(__bfloat162float(dres[o + c]) + dy[o + c]);
+    }
+    return;
+  }
   extern __shared__ __align__(128) unsigned char smem[];
   float* acc = reinterpret_cast<float*>(smem);  // [WARPS][2][D]
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -479,6 +491,18 @@ extern "C" int ddm_ln_bwd(const void* x, const void* dy, const void* dres, const
   if (err != cudaSuccess) return (int)err;
   return (int)reduce_rows((const float*)partial, (float*)dscale_dbias, nblk, 2 * D,
                           (cudaStream_t)stream);
+}
+
+// X3's LN-backward ablation: dx = bf16(dres + dy) over (T, D) rows, the
+// instance of ln_bwd_kernel without the LN algebra (dscale = dbias = 0 are
+// the caller's).
+extern "C" int ddm_ln_bwd_residual(const void* dy, const void* dres, void* dx, int T, int D,
+                                   void* stream) {
+  using namespace ddm;
+  const int nblk = (T + kLnRows - 1) / kLnRows;
+  ln_bwd_kernel<8, false><<<nblk, 8 * 32, 0, (cudaStream_t)stream>>>(
+      nullptr, (const float*)dy, (const bf16*)dres, nullptr, (bf16*)dx, nullptr, T, D);
+  return (int)cudaGetLastError();
 }
 
 // dst[n] = bf16(src[n]): K6b's fp32 cotangent rounded for its products.

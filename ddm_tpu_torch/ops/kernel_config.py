@@ -65,6 +65,13 @@ _SIGNATURES = {
     "ddm_attention_core_plan": [_I, _I, _I, _I, _P],
     # attrs (int[14]: registers and local bytes of the seven core kernels)
     "ddm_attention_kernel_attrs": [_P],
+    # X3: q, k, v, ld, dout, att, dqkv, B, N, H, Dh, scale, skip, stream
+    "ddm_attention_core_bwd_ablate": [_P, _P, _P, _I, _P, _P, _P] + [_I] * 4 + [_F, _I, _P],
+    # X1: N, Dh, H, plan (int[5]); the forward core: q, k, v, ld, out, B, N, H, Dh, scale,
+    # stream; the backward: q, k, v, ld, dout, att, dqkv, B, N, H, Dh, scale, G, stream
+    "ddm_attention_phase_plan": [_I, _I, _I, _P],
+    "ddm_phase_attention_core": [_P, _P, _P, _I, _P] + [_I] * 4 + [_F, _P],
+    "ddm_phase_attention_core_bwd": [_P, _P, _P, _I, _P, _P, _P] + [_I] * 4 + [_F, _I, _P],
     # a, w, ldw, acc, bias, res, out, T, K, Nout, epi, stream
     "ddm_gemm_partial": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # a, w, bias, aux, out, colsum_ws, colsum_out, T, K, Nout, ldw, wstride, epi, batch,
@@ -74,6 +81,8 @@ _SIGNATURES = {
     "ddm_gemm_tn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, dy, dres, scale, dx, partial, dscale_dbias, T, D, stream
     "ddm_ln_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # X3: dy, dres, dx, T, D, stream
+    "ddm_ln_bwd_residual": [_P, _P, _P, _I, _I, _P],
     # src, dst, n, stream
     "ddm_cast_bf16": [_P, _P, _I, _P],
     # xh, x0, part, partial, out, B, m, D, L, beta, stream

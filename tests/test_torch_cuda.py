@@ -2,7 +2,8 @@
 card, at head widths off 16 (Dh 8, 24, 40, 72), at DiT-XL's D 1152, with the fast GELU, the
 MLP half-block past D 1344 (the streamed LN-prologue GEMM, D 1408-4096), and the streamed
 attention cores past 227 KB of shared memory (Dh up to 3712), bit for bit the resident ones;
-the DiT tail X4f/X4b at every DiT path's width, and X2f bit for bit the K2f -> K1f pair.
+the DiT tail X4f/X4b at every DiT path's width, X2f bit for bit the K2f -> K1f pair, X1's
+phase-batched cores bit for bit K2's, and X3's ablations of K2b's chain.
 
 Every test here is marked ``cuda`` and skips on a host without a GPU. The
 file imports no JAX (the machine with the card has none), so it runs there
@@ -19,12 +20,14 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from ddm_tpu_torch.ops import attention as TA  # noqa: E402
+from ddm_tpu_torch.ops import attention_ablate as TAB  # noqa: E402
 from ddm_tpu_torch.ops import energy as TE  # noqa: E402
 from ddm_tpu_torch.ops import expert_ffn as TX  # noqa: E402
 from ddm_tpu_torch.ops import flash as TF  # noqa: E402
 from ddm_tpu_torch.ops import ln_dense as TLD  # noqa: E402
 from ddm_tpu_torch.ops import mlp_block as TM  # noqa: E402
 from ddm_tpu_torch.ops import moe_dispatch as TD  # noqa: E402
+from ddm_tpu_torch.ops import phase_softmax as TPS  # noqa: E402
 from ddm_tpu_torch.ops import tiers as TT  # noqa: E402
 from ddm_tpu_torch.ops import whole_block as TW  # noqa: E402
 
@@ -1423,3 +1426,131 @@ def test_dit_s_training_step_through_x4_matches_plain_on_the_card(cuda_device):
     chip_smoke.phase_train_step(
         cfg, "card test", 16, 8, "train-step-x4", "DiT-S/4",
         {"K2f": 8, "K2b": 8, "K1f": 8, "K1b": 8, "K3f": 1, "K3b": 1})
+
+
+# X1 at the tool's shapes (DiT-S/4 and DiT-B/4 training), and at N 48, Dh 40
+# (heads padded to 48 columns, a 16-row query tile); with the library's tiles
+X1_SHAPES = [(2048, 64, 384, 6), (2048, 64, 768, 12), (64, 48, 320, 8)]
+X1_PLANS = [dict(QT=32, most=4, groups=[1, 2, 3]), dict(QT=32, most=4, groups=[1, 2, 3, 4]),
+            dict(QT=16, most=8, groups=[1, 2, 4, 8])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,want", zip(X1_SHAPES, X1_PLANS))
+def test_x1_cores_are_k2s_cores_bit_for_bit_on_the_card(cuda_device, shape, want):
+    """X1f's output is the production forward core's, and X1b's att, dq, dk
+    and dv at every group that fits are the one-block backward's, bit for
+    bit; X1b's second call is bit-identical. The library's tiles: a 32-row
+    query tile where it divides N, and up to 4 heads a backward group at
+    N = Dh = 64 (44 KB a head), the largest dividing H by default."""
+    B, N, D, H = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(60)
+    qkv = torch.randn(B, N, 3 * D, generator=gen, device=cuda_device).to(torch.bfloat16)
+    do = torch.randn(B, N, D, generator=gen, device=cuda_device).to(torch.bfloat16)
+    q, k, v = qkv.split(D, dim=-1)
+    plan = TPS.library_plan(N, D, H)
+    assert {k: plan[k] for k in want} == want and plan["G"] == want["groups"][-1]
+    assert plan["fwd_smem"] <= 232448 and plan["bwd_smem"] <= 232448
+    before = (TPS.LAUNCHES.count, TPS.BWD_LAUNCHES.count)
+    with torch.no_grad():
+        assert torch.equal(TPS.launch_x1f(q, k, v, H), TA._launch_core(q, k, v, H))
+        want = TA._launch_core_bwd(q, k, v, do, H, True)
+        for G in plan["groups"]:
+            got = TPS.launch_x1b(q, k, v, do, H, G)
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), G
+        again = TPS.launch_x1b(q, k, v, do, H)
+        assert all(torch.equal(g, w) for g, w in zip(again, want))
+    torch.cuda.synchronize()
+    assert (TPS.LAUNCHES.count - before[0], TPS.BWD_LAUNCHES.count - before[1]) == (
+        1, len(plan["groups"]) + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,D,H", X1_SHAPES[:2] + [(256, 64, 384, 6)])
+def test_x1_half_blocks_are_k2f_and_k2b_bit_for_bit_on_the_card(cuda_device, B, N, D, H):
+    """K2f's and K2b's chains around X1f and X1b give K2f's output and K2b's
+    seven gradients bit for bit, and the plain versions' by the kernel rules."""
+    args = _on(cuda_device, _attn_inputs(B, N, D, seed=61))
+    dout = torch.randn(B, N, D, generator=torch.Generator(device=cuda_device).manual_seed(62),
+                       device=cuda_device).to(torch.bfloat16)
+    with torch.no_grad():
+        got = TPS.phase_attention_block_fwd(*args, H)
+        assert torch.equal(got, TA.fused_attention_block(*args, H))
+        _assert_bf16_rule(got, TA.attention_block_reference(*args, H))
+        grads = TPS.phase_attention_block_bwd(*args, H, dout)
+        assert all(torch.equal(g, w) for g, w in zip(grads, TA.attention_block_bwd(
+            *args, H, dout)))
+        _assert_grads_close(grads, TA.attention_block_bwd_reference(*args, H, dout))
+
+
+@pytest.mark.cuda
+def test_x1_refuses_other_shapes_on_the_card(cuda_device):
+    args = _on(cuda_device, _attn_inputs(2, 256, 384, seed=63))
+    with pytest.raises(NotImplementedError, match="item 14"):
+        TPS.phase_attention_block_fwd(*args, 6)
+    q = torch.zeros(2, 64, 384, dtype=torch.bfloat16, device=cuda_device)
+    for G in (4, 5, 6):  # 4 and 5 do not divide 6; 6 heads do not fit a block
+        with pytest.raises(RuntimeError, match=f"G={G}"):
+            TPS.launch_x1b(q, q, q, q, 6, G)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", [name for name, _ in TAB.VARIANTS])
+@pytest.mark.parametrize("B,N,D,H", [(256, 64, 384, 6), (64, 48, 320, 8)])
+def test_x3_variants_match_plain_on_the_card(cuda_device, variant, B, N, D, H):
+    """Each of the tool's variants removes the phase it names and nothing
+    else: the kernel chain against its plain version within twice bf16's own
+    noise on that variant (the plain bf16 chain against the plain fp32 one,
+    in max and Frobenius error; without the softmax or the dS algebra the
+    outputs grow to ~300x the baseline's and a flipped bf16 rounding moves
+    them in proportion), never tighter than the gradient rule (dbproj sums
+    the bf16 cotangent, so both plain chains give it the same bits), zeros
+    where the variant zeroes an output; all flags off, K2b bit for bit and
+    the kernel rules."""
+    skips = dict(TAB.VARIANTS)[variant]
+    args = _on(cuda_device, _attn_inputs(B, N, D, seed=64))
+    dout = torch.randn(B, N, D, generator=torch.Generator(device=cuda_device).manual_seed(65),
+                       device=cuda_device).to(torch.bfloat16)
+    before = (TAB.LAUNCHES.count, TA.BWD_LAUNCHES.count)
+    with torch.no_grad():
+        got = TAB.attention_block_bwd_ablate(*args, H, dout, **skips)
+        again = TAB.attention_block_bwd_ablate(*args, H, dout, **skips)
+        torch.cuda.synchronize()
+        assert (TAB.LAUNCHES.count - before[0], TA.BWD_LAUNCHES.count - before[1]) == (2, 0)
+        assert all(torch.equal(g, h) for g, h in zip(got, again))
+        want = TAB.attention_block_bwd_ablate_reference(*args, H, dout, **skips)
+        want32 = TAB.attention_block_bwd_ablate_reference(args[0].float(), *args[1:], H,
+                                                          dout.float(), **skips)
+        for i, (g, w, w32) in enumerate(zip(got, want, want32)):
+            g, w, w32 = g.float(), w.float(), w32.float()
+            if not w32.any():
+                assert not g.any(), i
+                continue
+            top, frob = float(w.abs().max()), float(torch.linalg.norm(w))
+            assert float((g - w).abs().max()) <= max(2 * float((w - w32).abs().max()),
+                                                     GRAD_MAX_REL * top), i
+            assert float(torch.linalg.norm(g - w)) <= max(2 * float(torch.linalg.norm(w - w32)),
+                                                          GRAD_FROB_REL * frob), i
+        if not skips:  # K2b's chain (at D 320 the ladder has no tier to pick its counter)
+            _assert_grads_close(got, want)
+            assert all(torch.equal(g, w) for g, w in zip(got, TA._k2b(*args, H, dout)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,D,F", [(131072, 384, 1536), (1000, 128, 512)])
+def test_x3_identity_gelu_k1f_matches_plain_on_the_card(cuda_device, T, D, F):
+    args = _on(cuda_device, _mlp_inputs(T, D, F, seed=66))
+    before = (TAB.MLP_LAUNCHES.count, TM.LAUNCHES.count)
+    with torch.inference_mode():
+        got = TAB.mlp_block_fwd_identity_gelu(*args)
+        torch.cuda.synchronize()
+        _assert_bf16_rule(got, TAB.mlp_block_identity_gelu_reference(*args))
+        assert not torch.equal(got, TM.fused_mlp_block(*args))  # the GELU is gone
+    assert (TAB.MLP_LAUNCHES.count - before[0], TM.LAUNCHES.count - before[1]) == (1, 1)
+
+
+@pytest.mark.cuda
+def test_x3_refuses_other_shapes_on_the_card(cuda_device):
+    args = _on(cuda_device, _attn_inputs(2, 128, 384, seed=67))
+    with pytest.raises(NotImplementedError, match="item 14"):
+        TAB.attention_block_bwd_ablate(*args, 6, args[0], skip_dw=True)
