@@ -388,13 +388,15 @@ The DiT tail and the whole-block experiment, after those:
     trainer phase above counts X4f and X4b once a training step and X4f
     once a sampler step at D % 128 == 0;
 3t. (whole-block) X2f (``csrc/whole_block.cu``) at (B 256, N 64, D 384, H 6,
-    F 1536): torch.equal to the K2f -> K1f pair, the plain version by the
+    F 1536): torch.equal to the K2f -> K1f pair with the resident core
+    forced (the core X2f reproduces), the plain version by the
     bf16 rule, one block and an 8-block chain against the pair in turns
     (``scripts/torch_exp_whole_block.py``); no path launches it.
 3u. (phase-softmax) X1f and X1b (``csrc/phase_softmax.cu``) at DiT-S/4's
     training shape (2048, 64, 384, H 6), X1b at every head group that
-    fits: torch.equal to the production cores and the K2f and K2b chains,
-    X1f also at the sampler's B 256 (``scripts/torch_exp_phase_softmax.py``
+    fits: torch.equal to the production cores and the K2f and K2b chains
+    (the forward's resident design forced: the core X1f reproduces), X1f
+    also at the sampler's B 256 (``scripts/torch_exp_phase_softmax.py``
     ``bits``); the half-blocks against their plain versions by the bf16 and
     gradient rules, X1b's second call bit-identical; the cores timed beside
     the production cores, their plain versions and SDPA (forward, and
@@ -407,7 +409,17 @@ The DiT tail and the whole-block experiment, after those:
     timed once, the all-off one torch.equal to K2b and by the gradient
     rules; K1f with the identity
     GELU at (131,072, 384, F 1536) against its plain version. No path
-    launches them.
+    launches them;
+3w. (registers-kernels) the registers designs of the forward core
+    (``csrc/attention.cu`` ``attention_core_regs_kernel``, K2f's and K7f's
+    pick at padded heads up to 128 columns) and of K8f at Dh 32, 64, 128
+    (``csrc/flash.cu`` ``flash_fwd_regs_kernel``; ``csrc/mma_frag.cuh``),
+    at REGISTERS_CORES and REGISTERS_K8: each against its plain version (o
+    by the bf16 rule, K8's lse to LSE_RTOL) and within the bf16 rule of the
+    earlier design forced (the resident core, K8f's tiles), timed in turns
+    with it (earlier, registers, registers, earlier) beside the plain
+    version and SDPA's forward on the same q, k, v, with its bound and each
+    instance's registers and spill bytes.
 
 The DiT-S phases run at full width and depth 8. PERF.md gives the whole
 run's measured time on the card, the kernels' build included, against the
@@ -693,7 +705,8 @@ def phase_kernels(M, A, smi):
     srcs = {"K1f": (["ddm_tpu_torch/csrc/gemm.cu", "ddm_tpu_torch/csrc/common.cuh"],
                     "ddm_tpu/ops/mlp_block.py:144"),
             "K2f": (["ddm_tpu_torch/csrc/attention.cu", "ddm_tpu_torch/csrc/gemm.cu",
-                     "ddm_tpu_torch/csrc/common.cuh"], "ddm_tpu/ops/attention.py:341")}
+                     "ddm_tpu_torch/csrc/mma_frag.cuh", "ddm_tpu_torch/csrc/common.cuh"],
+                    "ddm_tpu/ops/attention.py:341")}
     results = []
     for case in (_k1f_case(M, gen, T, D, F), _k2f_case(A, gen, B, N, D, H)):
         sources, replaces = srcs[case[0]]
@@ -1014,7 +1027,8 @@ def phase_flash(FL, smi):
     gen = torch.Generator(device="cuda").manual_seed(4)
     cases = [_k8_case(FL, smi, gen, B, N, FLASH_HEADS, 64, library=not i)
              for i, (B, N) in enumerate(FLASH_SHAPES)]
-    srcs = ["ddm_tpu_torch/csrc/flash.cu", "ddm_tpu_torch/csrc/common.cuh"]
+    srcs = ["ddm_tpu_torch/csrc/flash.cu", "ddm_tpu_torch/csrc/mma_frag.cuh",
+            "ddm_tpu_torch/csrc/common.cuh"]
     first = cases[0]
     entries = [_entry("K8f", srcs[0], srcs, "ddm_tpu/ops/flash.py:330",
                       max(c["max_f"] for c in cases), first["fwd"], first["plain_fwd"],
@@ -2072,7 +2086,8 @@ def phase_attention_core(A, FL, smi):
     Returns ``([K7f entry, K7b entry], {"K8f": [...], "K8b": [...]})``."""
     gen = torch.Generator(device="cuda").manual_seed(11)
     D, H, N = DIT_L["embed_dim"], DIT_L["heads"], PX64_SIZE ** 2 // 16
-    srcs = ["ddm_tpu_torch/csrc/attention.cu", "ddm_tpu_torch/csrc/common.cuh"]
+    srcs = ["ddm_tpu_torch/csrc/attention.cu", "ddm_tpu_torch/csrc/mma_frag.cuh",
+            "ddm_tpu_torch/csrc/common.cuh"]
     fwd, bwd = _k7_shapes(A, smi, gen, "dit-l64", N, D, H)
     first = fwd[0]
     k7f = _entry("K7f", srcs[0], srcs, "ddm_tpu/ops/attention.py:89", first["max_abs_err"],
@@ -2962,7 +2977,7 @@ def phase_streamed_kernels(A, smi):
         resident = A.core_plan(N, Dh, backward=True)["design"]
         shape = f"(B={B}, N={N}, H={H}, Dh={Dh})"
         with torch.no_grad():
-            fwd = {d: A._k2_core(qkv, H, d) for d in A.FWD_DESIGNS}
+            fwd = {d: A._k2_core(qkv, H, d) for d in ("resident", "streamed")}
             bwd = {d: (A._core_bwd_att(qkv, do, H, d), A._core_bwd_att(qkv, do, H, d))
                    for d in (resident, "streamed")}
             torch.cuda.synchronize()
@@ -3142,10 +3157,11 @@ def _script(stem):
 
 def phase_whole_block(smi):
     """3t: X2f at (B 256, N 64, D 384, H 6, F 1536), DiT-S/4's sampling
-    block: bit for bit the K2f -> K1f pair (torch.equal), one block and an
-    8-block chain against the pair in turns (scripts/torch_exp_whole_block.py
-    ``block_times``), and the plain version by the bf16 rule. Returns the X2f
-    entry; no path launches it."""
+    block: bit for bit the K2f -> K1f pair with the resident core forced
+    (torch.equal), one block and an 8-block chain against the pair as the
+    paths run it in turns (scripts/torch_exp_whole_block.py ``block_times``),
+    and the plain version by the bf16 rule. Returns the X2f entry; no path
+    launches it."""
     from ddm_tpu_torch.ops import whole_block as W
 
     exp = _script("torch_exp_whole_block")
@@ -3156,8 +3172,8 @@ def phase_whole_block(smi):
     if W.LAUNCHES.count == before:
         raise AssertionError(f"X2f {shape}: the kernel did not launch")
     if not res["bit_identical"]:
-        raise AssertionError(f"X2f {shape} is not the K2f -> K1f pair bit for bit: max |diff| "
-                             f"{res['max_abs_diff']:.4g}")
+        raise AssertionError(f"X2f {shape} is not the K2f -> K1f pair (resident core) bit for "
+                             f"bit: max |diff| {res['max_abs_diff']:.4g}")
     x, p = exp.block_inputs()
     with torch.inference_mode():
         got = exp.merged(x, p, H)
@@ -3167,7 +3183,8 @@ def phase_whole_block(smi):
         plain_ms = _median_ms(lambda: W.whole_block_reference(x, *p, H))
     c8 = f"{exp.CHAIN}blk"
     mean = {n: {k: float(np.mean(v)) for k, v in res[n].items()} for n in ("1blk", c8)}
-    print(f"[kernel] X2f {shape} bf16: bit for bit the K2f -> K1f pair; against the plain "
+    print(f"[kernel] X2f {shape} bf16: bit for bit the K2f -> K1f pair with the resident "
+          f"core; against the plain "
           f"version max_abs_err={max_err:.6g} (tol {tol:.6g}), mean_abs_err={mean_err:.6g}; "
           f"one block merged {mean['1blk']['merged']:.4f} ms, pair {mean['1blk']['pair']:.4f} "
           f"ms; {exp.CHAIN}-block chain merged {mean[c8]['merged']:.4f} ms, pair "
@@ -3247,14 +3264,16 @@ def phase_phase_softmax(A, smi):
     qs, ks, vs, _ = exp.core_inputs(exp.SAMPLER)
     Hs = exp.SAMPLER[3]
     with torch.no_grad():
-        if not torch.equal(X.launch_x1f(qs, ks, vs, Hs), A._launch_core(qs, ks, vs, Hs)):
-            raise AssertionError(f"X1f at the sampler's {exp.SAMPLER} is not the production "
+        if not torch.equal(X.launch_x1f(qs, ks, vs, Hs),
+                           A._launch_core(qs, ks, vs, Hs, "resident")):
+            raise AssertionError(f"X1f at the sampler's {exp.SAMPLER} is not the resident "
                                  "core bit for bit")
         s_ms = {"x1f": _median_ms(lambda: X.launch_x1f(qs, ks, vs, Hs)),
                 "prod": _median_ms(lambda: A._launch_core(qs, ks, vs, Hs))}
-    print(f"[kernel] X1f core {label} bf16: bit for bit the production core (and the K2f chain "
+    print(f"[kernel] X1f core {label} bf16: bit for bit the resident core (and the K2f chain "
           f"around it); against the plain core max_abs_err={f_err[0]:.6g} (tol {f_err[2]:.6g}); "
-          f"X1f {ms['x1f']:.4f} ms, production core {ms['prod_f']:.4f} ms, plain "
+          f"X1f {ms['x1f']:.4f} ms, production core (the plan's pick, "
+          f"{A.core_plan(N, D // H)['design']}) {ms['prod_f']:.4f} ms, plain "
           f"{ms['plain_f']:.4f} ms, SDPA {sdpa['K8f']:.4f} ms; at the sampler's "
           f"{exp.SAMPLER} X1f {s_ms['x1f']:.4f} ms, production {s_ms['prod']:.4f} ms (median "
           f"of 20) on {smi}")
@@ -3381,6 +3400,111 @@ def phase_ablate(A, M, smi):
                       _bound(_nbytes(*args, got), 4 * Tm * Dm * Fm)), "k1f_ms": k1f_ms}]
 
 
+def _in_turns(fns, names, reps=20):
+    """Median ms of ``fns[name]`` in the order a, b, b, a: ``{name: [ms, ms]}``."""
+    out = {n: [] for n in names}
+    for n in (names[0], names[1], names[1], names[0]):
+        out[n].append(_median_ms(fns[n], reps=reps))
+    return out
+
+
+def phase_registers_kernels(A, FL, smi):
+    """3w: the registers designs of the forward core and of K8f (Dh 32, 64,
+    128) at REGISTERS_CORES and REGISTERS_K8, against their plain versions
+    and the earlier designs, timed in turns with them beside the plain
+    versions and SDPA. ``{name: [{"path", "shape", ...}]}`` for the kernels
+    line (K2f's and K7f's core, K8f)."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    attrs, fattrs = A.kernel_attrs(), FL.kernel_attrs()
+    regs = {k: v for k, v in attrs.items() if "registers" in k}
+    print(f"[kernel] the registers core's instances, registers and local (spill) bytes a "
+          f"thread: {regs}; K8f's: {fattrs}")
+    shapes = {}
+    for path, B, N, H, Dh, name in REGISTERS_CORES:
+        D = H * Dh
+        qkv = torch.randn(B, N, 3 * D, generator=gen, device="cuda").to(torch.bfloat16)
+        q, k, v = qkv.split(D, dim=-1)  # read in place, row stride 3D
+        shape = f"(B={B}, N={N}, H={H}, Dh={Dh}) core"
+        plan = A.core_plan(N, Dh)
+        if plan["design"] != "registers":
+            raise AssertionError(f"the plan takes {plan['design']} at {shape}, not registers")
+        with torch.no_grad():
+            got = A._launch_core(q, k, v, H)
+            earlier = A._launch_core(q, k, v, H, "resident")
+            want = A.attention_reference(q, k, v, H)
+            torch.cuda.synchronize()
+            max_err, mean_err, tol, ok = _bf16_errors(got, want)
+            agree = _bf16_errors(got, earlier)
+            fns = {"resident": lambda: A._launch_core(q, k, v, H, "resident"),
+                   "registers": lambda: A._launch_core(q, k, v, H, "registers")}
+            ms = _in_turns(fns, ("resident", "registers"))
+            plain_ms = _median_ms(lambda: A.attention_reference(q, k, v, H), reps=5)
+        sdpa = _sdpa_ms(q, k, v, torch.zeros_like(q), H)["K8f"]
+        kind = "held" if N <= 128 else "two sweeps" + (" 8 warps" if plan["QT"] == 128 else "")
+        inst = attrs[f"forward registers {plan['C']} {kind}"]
+        bound = _bound(_nbytes(qkv, got), 4 * B * H * N * N * Dh)  # Q K^T and P V
+        print(f"[kernel] {name}'s core, registers design, {shape} ({kind}, {plan['QT']} query "
+              f"rows a block; {inst['registers']} registers, {inst['local_bytes']} B local): "
+              f"against the plain core max_abs_err={max_err:.6g} (tol {tol:.6g}), "
+              f"mean_abs_err={mean_err:.6g}; against the resident design max {agree[0]:.6g} "
+              f"(tol {agree[2]:.6g}); in turns resident {ms['resident'][0]:.4f}, registers "
+              f"{ms['registers'][0]:.4f}, {ms['registers'][1]:.4f}, resident "
+              f"{ms['resident'][1]:.4f} ms; plain {plain_ms:.4f} ms (median of 5); SDPA "
+              f"forward {sdpa:.4f} ms (median of 20); bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']}) on {smi}")
+        if not (ok and agree[3]):
+            raise AssertionError(f"the registers core {shape} disagrees with its plain version "
+                                 "or the resident design")
+        shapes.setdefault(name, []).append({
+            "path": path, "shape": shape, "design": "registers", "max_abs_err": max_err,
+            "ms": float(np.mean(ms["registers"])), "registers_turns_ms": ms["registers"],
+            "parent_design": "resident", "parent_ms": float(np.mean(ms["resident"])),
+            "parent_turns_ms": ms["resident"], "plain_ms": plain_ms, "library_ms": sdpa,
+            **bound, **inst})
+        del qkv, q, k, v, got, earlier, want
+        torch.cuda.empty_cache()
+    for B, N, H, Dh in REGISTERS_K8:
+        D = H * Dh
+        qkv = torch.randn(B, N, 3 * D, generator=gen, device="cuda").to(torch.bfloat16)
+        q, k, v = qkv.split(D, dim=-1)
+        shape = f"(B={B}, N={N}, H={H}, Dh={Dh})"
+        scale = Dh ** -0.5
+        with torch.no_grad():
+            o, lse = FL.flash_attention_fwd(q, k, v, H)
+            tiles = FL.launch_k8f(q, k, v, H, scale, "tiles")
+            want_o, want_lse = FL.flash_attention_reference(q, k, v, H)
+            torch.cuda.synchronize()
+            max_err, mean_err, tol, ok = _bf16_errors(o, want_o)
+            lse_rel = float(((lse - want_lse).abs() / want_lse.abs()).max())
+            agree = _bf16_errors(o, tiles[0])
+            fns = {d: (lambda d=d: FL.launch_k8f(q, k, v, H, scale, d)) for d in FL.FWD_DESIGNS}
+            ms = _in_turns(fns, ("tiles", "registers"))
+            plain_ms = _median_ms(lambda: FL.flash_attention_reference(q, k, v, H), reps=5)
+        sdpa = _sdpa_ms(q, k, v, torch.zeros_like(q), H)["K8f"]
+        inst = fattrs[("registers", Dh)]
+        bound = _bound(_nbytes(qkv, o, lse), 4 * B * H * N * N * Dh)
+        print(f"[kernel] K8f registers design {shape} ({inst['registers']} registers, "
+              f"{inst['local_bytes']} B local): o max_abs_err={max_err:.6g} (tol {tol:.6g}), "
+              f"mean_abs_err={mean_err:.6g}; lse max rel err {lse_rel:.3g} (tol {LSE_RTOL:g}); "
+              f"against the tiles design max {agree[0]:.6g}; in turns tiles "
+              f"{ms['tiles'][0]:.4f}, registers {ms['registers'][0]:.4f}, "
+              f"{ms['registers'][1]:.4f}, tiles {ms['tiles'][1]:.4f} ms; plain {plain_ms:.4f} ms "
+              f"(median of 5); SDPA forward {sdpa:.4f} ms (median of 20); bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}) on {smi}")
+        if not (ok and agree[3] and lse_rel <= LSE_RTOL):
+            raise AssertionError(f"K8f's registers design {shape} disagrees with its plain "
+                                 "version or the tiles design")
+        shapes.setdefault("K8f", []).append({
+            "path": f"registers-dh{Dh}", "shape": shape, "design": "registers", "H": H,
+            "Dh": Dh, "max_abs_err": max_err, "ms": float(np.mean(ms["registers"])),
+            "registers_turns_ms": ms["registers"], "parent_design": "tiles",
+            "parent_ms": float(np.mean(ms["tiles"])), "parent_turns_ms": ms["tiles"],
+            "plain_ms": plain_ms, "library_ms": sdpa, **bound, **inst})
+        del qkv, q, k, v, o, lse, tiles, want_o, want_lse
+        torch.cuda.empty_cache()
+    return shapes
+
+
 def phase_train_step_heads1(cfg, smi):
     """6r: one step of DiT-S/4 --heads 1 at 64 px (64 x m 4: K2f, K2b on the
     streamed cores), DiT-B/4 --heads 1 at 32 px (16 x m 8: K2f, K4) and
@@ -3421,7 +3545,8 @@ PHASES = ("kernels", "backward", "energy", "flash", "moe-kernels", "slice", "tra
           "train-step-moe-xl", "train-moe-xl", "flash-widths", "train-step-heads", "train-heads",
           "wide-mlp-kernels", "train-step-1536", "train-1536", "moe-128-kernels",
           "train-step-moe-128", "train-moe-128", "streamed-kernels", "train-step-heads1",
-          "train-heads1", "ln-dense-kernels", "whole-block", "phase-softmax", "ablate")
+          "train-heads1", "ln-dense-kernels", "whole-block", "phase-softmax", "ablate",
+          "registers-kernels")
 # launches per training step and per 20-step sampler call on the wide paths;
 # the DiT-L trainer (7d) runs depth 12 since PR 9 (7k runs its kernels at
 # DiT-XL's full depth 28)
@@ -3521,6 +3646,19 @@ STREAMED_CORES = [("s-h1-64", PX64_BATCH * PX64_M, 256, 1, 384, "K2f", "K2b"),
                   ("widest", 64, 400, 1, 1024, "K7f", "K7b")]
 STREAMED_BITS = [(64, 64, 6, 64), (64, 256, 4, 256), (16, 512, 2, 64), (64, 256, 4, 72),
                  (64, 112, 6, 64)]
+
+
+# 3w: (path, B, N, H, Dh, counter) for the registers forward core: DiT-S/4's
+# training shape, its 32-px sampler's and 64-px training one (K2f's core),
+# DiT-L/4 and DiT-XL/4 at 64 px (K7f); and (B, N, H, Dh) for K8f's registers
+# design at the 128-px training shape (Dh 64) and at 3 and 12 heads of D 384
+REGISTERS_CORES = [("dit-s", TRAIN_BATCH * TRAIN_M, 64, 6, 64, "K2f"),
+                   ("dit-s sampling", N_SAMPLES, 64, 6, 64, "K2f"),
+                   ("64px", PX64_BATCH * PX64_M, 256, 6, 64, "K2f"),
+                   ("dit-l64", PX64_BATCH * PX64_M, 256, 16, 64, "K7f"),
+                   ("dit-xl64", PX64_BATCH * PX64_M, 256, 16, 72, "K7f")]
+REGISTERS_K8 = [(LONG_BATCH * LONG_M, 1024, 6, 64), (LONG_BATCH * LONG_M, 1024, 3, 128),
+                (LONG_BATCH * LONG_M, 1024, 12, 32)]
 
 
 def main(argv=None) -> None:
@@ -3641,6 +3779,7 @@ def main(argv=None) -> None:
         ("whole-block", lambda: phase_whole_block(smi)),
         ("phase-softmax", lambda: phase_phase_softmax(A, smi)),
         ("ablate", lambda: phase_ablate(A, M, smi)),
+        ("registers-kernels", lambda: phase_registers_kernels(A, FL, smi)),
     ]
     out = {}
     t_run = time.perf_counter()
@@ -3699,7 +3838,7 @@ def main(argv=None) -> None:
                        out["m32-kernels"], out["attention-core"][1], out["tp-kernels"][1],
                        out["xl-kernels"], out["fast-gelu-kernels"], out["moe-xl-kernels"],
                        out["flash-widths"], out["wide-mlp-kernels"], out["moe-128-kernels"],
-                       out["streamed-kernels"]):
+                       out["streamed-kernels"], out["registers-kernels"]):
             k.setdefault("shapes", []).extend(shapes.get(k["name"], []))
     k8 = sorted({s["Dh"] for k in kernels if k["name"] == "K8f" for s in k["shapes"]})
     print(f"[k8-widths] K8f and K8b held against their plain versions on the card at Dh {k8}; "

@@ -79,7 +79,28 @@
 // Dh 72), and a chunk starts on a multiple of 16 columns, so no chunk splits
 // one. Where Dh % 16 = 0 nothing is padded and the products are the ones
 // before the padding existed.
+//
+// The registers design (the forward core's third, at padded(Dh) <= 128, the
+// plan's own pick there): the resident core keeps S, P and O in shared
+// memory as WMMA tiles, reads them back in scalar passes and loads every
+// operand synchronously, so no copy overlaps a product; it is ~10x SDPA.
+// Here one block of 4 warps takes 64 query rows of one (image, head), each
+// warp 16 rows: Q is copied once and held as mma.sync m16n8k16 A fragments,
+// K and V pass through a two-stage cp.async ring of 64-key tiles (B
+// fragments by ldmatrix, .trans for V), and S, P and O stay in registers
+// (mma_frag.cuh). The softmax is still exact over the whole row: where N <=
+// 128 a warp holds all its scores (64 fp32 a lane); past that a first sweep
+// over the key tiles takes each row's max m and sum l (l rescaled as m
+// grows, the four lanes of a row reduced by shuffles), and a second sweep
+// recomputes S and forms P = bf16(exp(s scale - m) / l) straight into A
+// fragments for P V. Keys past a ragged N are masked to -inf, and padded
+// columns are zero-filled as above. The rounding plan is the one above; the
+// sums run in another order than the resident core's (fragment order, four
+// lanes a row, O summed over 16-key steps) and exp is the card's ex2 with
+// log2 e folded into the scale (mma_frag.cuh), so its bits are not the
+// resident core's and the card checks it against the plain version.
 #include "attention_tiles.cuh"
+#include "mma_frag.cuh"
 
 namespace ddm {
 namespace {
@@ -135,6 +156,181 @@ attention_core_kernel(Heads in, bf16* __restrict__ out, int N, int H, int Dh, fl
     __syncthreads();
     store_head(o + c0, D, S, SLD, QT, min(w, Dh - c0));
   }
+}
+
+// The registers design's tiles: keys a ring stage and the widest padded
+// head it takes; a block's query rows are 16 a warp.
+constexpr int kRegKeys = 64;
+constexpr int kRegMaxWidth = 128;
+
+// Q's rows, then two stages of K and two of V.
+size_t regs_smem(int DP, int rows) {
+  return (size_t)(rows + 4 * kRegKeys) * (DP + kPadH) * sizeof(bf16);
+}
+
+// Scores of keys at or past N (the last tile of a ragged N) to -inf.
+__device__ __forceinline__ void mask_keys(float (&s)[8][4], int k0, int N, int t) {
+  if (k0 + kRegKeys <= N) return;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (k0 + 8 * j + 2 * t + (e & 1) >= N) s[j][e] = -INFINITY;
+}
+
+// The largest raw score of rows g (c[0], c[1]) and g + 8 (c[2], c[3]) of
+// one row tile over the key tile: times the scale (> 0) it is the largest
+// scaled score, exactly.
+__device__ __forceinline__ void row_max(const float (&s)[8][4], float (&mx)[2]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+    mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+  }
+}
+
+// e = exp(s scale - m) in place, rows g and g + 8, as 2^(s scale2 - m
+// log2 e) with scale2 = scale log2 e (mma_frag.cuh); adds the lane's part of
+// each row's sum of e to sum.
+__device__ __forceinline__ void exp_rows(float (&s)[8][4], float scale2, const float (&m)[2],
+                                         float (&sum)[2]) {
+  const float m2[2] = {m[0] * kLog2e, m[1] * kLog2e};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = exp2_approx(s[j][e] * scale2 - m2[e / 2]);
+      sum[e / 2] += s[j][e];
+    }
+}
+
+// p = e / l rounded to bf16 once (e times the row's 1 / l), packed into the
+// A fragments of the key tile's four 16-key steps.
+__device__ __forceinline__ void probs_a(uint32_t (&pa)[4][4], float (&e)[8][4],
+                                        const float (&inv_l)[2]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) e[j][c] *= inv_l[c / 2];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) pack_a(pa[kk], e[2 * kk], e[2 * kk + 1]);
+}
+
+// K2f's and K7f's core, the registers design: block (b H + h, t) of WARPS
+// warps, each with 16 query rows, writes rows [R t, R (t + 1)) of one
+// (image, head), R = 16 WARPS. The block walks a list of jobs, each one
+// stage of the ring: jobs 0 .. nt - 1 take K tile j (S), jobs nt .. 2 nt - 1
+// the V tile of key tile j - nt (P V). HOLD > 0 (N <= 64 HOLD): each warp
+// keeps its rows' scores of every key tile, and the V jobs form P from them;
+// HOLD = 0: the K jobs take each row's max and sum, and the V jobs load K
+// again and recompute S. Job j + 1's copy runs while job j computes, into
+// the stage job j - 1 read: every warp has passed job j's barrier, so is
+// done with it. Fragments carry a leading row-tile axis of 1 (mma_frag.cuh).
+template <int DP, int HOLD, int WARPS>
+__global__ void __launch_bounds__(32 * WARPS)
+attention_core_regs_kernel(Heads in, bf16* __restrict__ out, int N, int H, int Dh, float scale) {
+  constexpr int kThr = 32 * WARPS, kRows = 16 * WARPS;
+  constexpr int kLd = DP + kPadH, kTile = kRegKeys * kLd;
+  constexpr int kSlots = HOLD > 0 ? HOLD : 1;  // held score tiles
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Ks = Qs + kRows * kLd;  // two stages
+  bf16* Vs = Ks + 2 * kTile;    // two stages
+  const int b = blockIdx.x / H, h = blockIdx.x % H, r0 = blockIdx.y * kRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t = lane % 4;
+  const int nt = (N + kRegKeys - 1) / kRegKeys;  // key tiles
+  const float scale2 = scale * kLog2e;
+  const bf16* q = in.row(in.q, b, N, 0, h, Dh);
+  const bf16* k = in.row(in.k, b, N, 0, h, Dh);
+  const bf16* v = in.row(in.v, b, N, 0, h, Dh);
+  auto issue = [&](int j) {
+    const int i = j < nt ? j : j - nt, st = j & 1;
+    if (j < nt || HOLD == 0)
+      load_tile_async<kRegKeys, DP, kThr>(Ks + st * kTile, k, in.ld, i * kRegKeys, N, Dh);
+    if (j >= nt)
+      load_tile_async<kRegKeys, DP, kThr>(Vs + st * kTile, v, in.ld, i * kRegKeys, N, Dh);
+    cp_async_commit();
+  };
+  // wait for job j's tiles (and, at job 0, Q's, held from then on); start
+  // job j + 1's copy
+  uint32_t qa[1][DP / 16][4];
+  auto next = [&](int j) {
+    cp_async_wait<0>();
+    __syncthreads();
+    if (j + 1 < 2 * nt) issue(j + 1);
+    if (j == 0) load_a_frags<DP>(qa[0], Qs + warp * 16 * kLd, lane);
+  };
+  float o[1][DP / 8][4];
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) o[0][j][0] = o[0][j][1] = o[0][j][2] = o[0][j][3] = 0.f;
+  // rows g and g + 8
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, inv_l[2];
+  uint32_t pa[1][4][4];
+
+  load_tile_async<kRows, DP, kThr>(Qs, q, in.ld, r0, N, Dh);
+  issue(0);
+  if constexpr (HOLD > 0) {
+    float s[kSlots][1][8][4];
+#pragma unroll
+    for (int i = 0; i < kSlots; ++i) {
+      if (i < nt) {
+        next(i);
+        qk_tile<DP, 1>(s[i], qa, Ks + (i & 1) * kTile, lane);
+        mask_keys(s[i][0], i * kRegKeys, N, t);
+        row_max(s[i][0], m);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          s[i][0][j][0] = s[i][0][j][1] = s[i][0][j][2] = s[i][0][j][3] = -INFINITY;
+      }
+    }
+    // the row's max, then its sum of exp(s scale - max), over every key
+    m[0] = quad_max(m[0]) * scale;
+    m[1] = quad_max(m[1]) * scale;
+#pragma unroll
+    for (int i = 0; i < kSlots; ++i) exp_rows(s[i][0], scale2, m, l);
+    inv_l[0] = 1.f / quad_sum(l[0]);
+    inv_l[1] = 1.f / quad_sum(l[1]);
+#pragma unroll
+    for (int i = 0; i < kSlots; ++i) {
+      if (i < nt) {
+        next(nt + i);
+        probs_a(pa[0], s[i][0], inv_l);
+        pv_tile<DP, 1>(o, pa, Vs + ((nt + i) & 1) * kTile, lane);
+      }
+    }
+  } else {
+    for (int j = 0; j < 2 * nt; ++j) {
+      next(j);
+      const int i = j < nt ? j : j - nt, st = j & 1;
+      float s[1][8][4], sum[2] = {0.f, 0.f};
+      qk_tile<DP, 1>(s, qa, Ks + st * kTile, lane);
+      mask_keys(s[0], i * kRegKeys, N, t);
+      if (j < nt) {
+        float mx[2] = {-INFINITY, -INFINITY};
+        row_max(s[0], mx);
+        const float m_new[2] = {fmaxf(m[0], quad_max(mx[0]) * scale),
+                                fmaxf(m[1], quad_max(mx[1]) * scale)};
+        exp_rows(s[0], scale2, m_new, sum);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          l[r] = l[r] * exp2_approx((m[r] - m_new[r]) * kLog2e) + quad_sum(sum[r]);
+          m[r] = m_new[r];
+        }
+      } else {
+        if (j == nt) {
+          inv_l[0] = 1.f / l[0];
+          inv_l[1] = 1.f / l[1];
+        }
+        exp_rows(s[0], scale2, m, sum);  // l is known: the sums go unused
+        probs_a(pa[0], s[0], inv_l);
+        pv_tile<DP, 1>(o, pa, Vs + st * kTile, lane);
+      }
+    }
+  }
+  const int D = H * Dh;
+  store_rows_bf16<DP>(out + (size_t)b * N * D + h * Dh, D, o[0], 1.f, 1.f, r0 + warp * 16, N, Dh,
+                      lane);
 }
 
 size_t core_bwd_smem(int N, int Dh) {
@@ -534,19 +730,74 @@ BwdPlan bwd_plan(int N, int Dh, int design) {
   return p;
 }
 
-// The forward's: design 0 resident, 1 streamed, -1 resident where it fits.
-RowTiles fwd_plan(int N, int Dh, int design) {
-  RowTiles t = core_tiles(N, Dh, design == 1);
+// The registers design's warps a block for N tokens (16 query rows each): 4
+// where a warp holds its rows' scores (N <= 128); past that the two sweeps,
+// on 8 warps where 128-row query tiles divide N (faster than 4 at N 256, Dh
+// 64 and 72, on the H100), else 4. Two row tiles a warp (each B fragment
+// serving both) measured no faster at N 256.
+int regs_warps(int N) { return N > 2 * kRegKeys && N % 128 == 0 ? 8 : 4; }
+
+// The forward's designs (ddm_attention_core_plan's codes).
+constexpr int kFwdResident = 0, kFwdStreamed = 1, kFwdRegisters = 2;
+
+struct FwdPlan {
+  int design;
+  RowTiles tiles;  // QT = 0 where the design does not take the shape
+};
+
+// -1 picks the registers design where the padded head takes it, else
+// resident where its tile fits, else streamed.
+FwdPlan fwd_plan(int N, int Dh, int design) {
+  const int DP = padded(Dh);
+  if (design == kFwdRegisters || (design < 0 && DP <= kRegMaxWidth))
+    return {kFwdRegisters, {DP <= kRegMaxWidth ? 16 * regs_warps(N) : 0, DP}};
+  RowTiles t = core_tiles(N, Dh, design == kFwdStreamed);
   if (design < 0 && t.QT == 0) t = core_tiles(N, Dh, true);
-  return t;
+  return {design >= 0 ? design : t.C < DP ? kFwdStreamed : kFwdResident, t};
 }
 
+// The registers design's instances: one per padded width, count of held
+// score tiles (0: the two sweeps) and warps a block.
+using RegsKernel = decltype(&attention_core_regs_kernel<16, 0, 4>);
+
+template <int HOLD, int WARPS>
+RegsKernel regs_kernel(int DP) {
+  switch (DP) {
+    case 16: return attention_core_regs_kernel<16, HOLD, WARPS>;
+    case 32: return attention_core_regs_kernel<32, HOLD, WARPS>;
+    case 48: return attention_core_regs_kernel<48, HOLD, WARPS>;
+    case 64: return attention_core_regs_kernel<64, HOLD, WARPS>;
+    case 80: return attention_core_regs_kernel<80, HOLD, WARPS>;
+    case 96: return attention_core_regs_kernel<96, HOLD, WARPS>;
+    case 112: return attention_core_regs_kernel<112, HOLD, WARPS>;
+    case 128: return attention_core_regs_kernel<128, HOLD, WARPS>;
+    default: return nullptr;
+  }
+}
+
+// The instance for N tokens.
+RegsKernel regs_kernel_for(int N, int DP) {
+  if (N <= 2 * kRegKeys) return regs_kernel<2, 4>(DP);
+  return regs_warps(N) == 8 ? regs_kernel<0, 8>(DP) : regs_kernel<0, 4>(DP);
+}
 
 // The forward core over q, k, v into the (B, N, H*Dh) out.
 cudaError_t launch_core(Heads in, bf16* out, int B, int N, int H, int Dh, float scale,
                         int design, cudaStream_t stream) {
-  const RowTiles t = fwd_plan(N, Dh, design);
+  const FwdPlan p = fwd_plan(N, Dh, design);
+  const RowTiles t = p.tiles;
   if (!takes(N, Dh) || t.QT == 0) return cudaErrorInvalidValue;
+  if (p.design == kFwdRegisters) {
+    const int DP = padded(Dh);
+    const RegsKernel kernel = regs_kernel_for(N, DP);
+    const int rows = t.QT;  // 16 a warp
+    const size_t smem = regs_smem(DP, rows);
+    const cudaError_t err = set_smem((const void*)kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3(B * H, (N + rows - 1) / rows), 2 * rows, smem, stream>>>(in, out, N, H, Dh,
+                                                                           scale);
+    return cudaGetLastError();
+  }
   return launch(t.C < padded(Dh) ? attention_core_kernel<true> : attention_core_kernel<false>,
                 dim3(B * H, N / t.QT), core_smem(N, t.C, t.QT), stream, in, out, N, H, Dh, scale,
                 t.QT, t.C);
@@ -593,8 +844,9 @@ DHeads dqkv_heads(void* dqkv, int D) {
 }  // namespace ddm
 
 // The plan the launchers take for (N, Dh) and `design` (-1: their own
-// pick): forward, plan[0..2] = (design, QT, C), design 0 (resident) or 1
-// (streamed); backward, plan[0..6] = (design, pass 1's QT, C, pass 2's KT,
+// pick): forward, plan[0..2] = (design, QT, C), design 0 (resident), 1
+// (streamed) or 2 (registers: QT the block's 64 rows, C the padded head);
+// backward, plan[0..6] = (design, pass 1's QT, C, pass 2's KT,
 // QT, C, C2), design 0 (one block: no pass tiles), 1 (two passes on whole
 // heads) or 2 (a pass streamed). A forced design is reported as asked (at
 // Dh <= kChunk the streamed tiles hold the whole head). Returns
@@ -603,11 +855,11 @@ extern "C" int ddm_attention_core_plan(int N, int Dh, int backward, int design, 
   using namespace ddm;
   if (!takes(N, Dh)) return (int)cudaErrorInvalidValue;
   if (!backward) {
-    const RowTiles t = fwd_plan(N, Dh, design);
-    plan[0] = design >= 0 ? design : t.C < padded(Dh) ? 1 : 0;
-    plan[1] = t.QT;
-    plan[2] = t.C;
-    return t.QT ? 0 : (int)cudaErrorInvalidValue;
+    const FwdPlan p = fwd_plan(N, Dh, design);
+    plan[0] = p.design;
+    plan[1] = p.tiles.QT;
+    plan[2] = p.tiles.C;
+    return p.tiles.QT ? 0 : (int)cudaErrorInvalidValue;
   }
   const BwdPlan p = bwd_plan(N, Dh, design);
   const int v[7] = {p.design, p.rows.QT, p.rows.C, p.cols.KT, p.cols.QT, p.cols.C, p.cols.C2};
@@ -617,18 +869,26 @@ extern "C" int ddm_attention_core_plan(int N, int Dh, int backward, int design, 
 
 // Registers and local (spill) bytes a thread of each core kernel takes:
 // attrs[2 i], attrs[2 i + 1] for the forward core (resident, streamed), the
-// one-block backward, pass 1 (resident, streamed) and pass 2 (resident,
-// streamed).
+// one-block backward, pass 1 (resident, streamed), pass 2 (resident,
+// streamed), then the registers design at padded widths 16, 32, ..., 128,
+// each with two score tiles held (4 warps), in two sweeps on 4 warps and
+// on 8.
 extern "C" int ddm_attention_kernel_attrs(int* attrs) {
   using namespace ddm;
-  const void* kernels[7] = {(const void*)attention_core_kernel<false>,
-                            (const void*)attention_core_kernel<true>,
-                            (const void*)attention_core_bwd_kernel<0>,
-                            (const void*)attention_core_bwd_rows_kernel<false>,
-                            (const void*)attention_core_bwd_rows_kernel<true>,
-                            (const void*)attention_core_bwd_cols_kernel<false>,
-                            (const void*)attention_core_bwd_cols_kernel<true>};
-  for (int i = 0; i < 7; ++i) {
+  const void* kernels[7 + 24] = {(const void*)attention_core_kernel<false>,
+                                 (const void*)attention_core_kernel<true>,
+                                 (const void*)attention_core_bwd_kernel<0>,
+                                 (const void*)attention_core_bwd_rows_kernel<false>,
+                                 (const void*)attention_core_bwd_rows_kernel<true>,
+                                 (const void*)attention_core_bwd_cols_kernel<false>,
+                                 (const void*)attention_core_bwd_cols_kernel<true>};
+  for (int w = 0; w < 8; ++w) {
+    const int DP = 16 * (w + 1);
+    kernels[7 + 3 * w] = (const void*)regs_kernel<2, 4>(DP);
+    kernels[8 + 3 * w] = (const void*)regs_kernel<0, 4>(DP);
+    kernels[9 + 3 * w] = (const void*)regs_kernel<0, 8>(DP);
+  }
+  for (int i = 0; i < 7 + 24; ++i) {
     cudaFuncAttributes a;
     const cudaError_t err = cudaFuncGetAttributes(&a, kernels[i]);
     if (err != cudaSuccess) return (int)err;

@@ -73,6 +73,26 @@
 // o = bf16(O / l) and lse = m + log(l). flash_fwd_wide_kernel does the same
 // on R-query tiles with Q, K and V staged by chunks.
 //
+// flash_fwd_regs_kernel, the forward at Dh 32, 64 and 128 (the "registers"
+// design, the launcher's own pick there; flash_fwd_kernel, the "tiles"
+// design, stays at Dh 4-16 and where forced): flash_fwd_kernel stores S and
+// O to shared memory as WMMA tiles, runs the softmax and O's rescale as
+// scalar loops, and copies every tile synchronously behind four barriers a
+// key tile, so a block of 113 KB at Dh 128 runs alone on its SM. Here the
+// same block (4 warps of 16 query rows) holds Q as mma.sync A fragments, S
+// and P, O (64 fp32 a lane at Dh 128) and each row's running m and l in
+// registers (mma_frag.cuh); K and V pass through a two-stage cp.async ring
+// of 64-key tiles, read by ldmatrix (.trans for V), with one barrier a tile
+// where a stage is handed over and none between S, the softmax and P V.
+// The numerics are the ones above element for element (-1e30 start, p
+// rounded to bf16 for P V, l summing the fp32 p, O rescaled before P V is
+// added, o = bf16(O / l), lse = m + log(l)); the sums over a row's keys run
+// in fragment order, four lanes a row, and exp(s scale - m) is the card's
+// ex2 of s (scale log2 e) - m log2 e (mma_frag.cuh), a few fp32 units in the
+// last place from expf where bf16(p) keeps 8 bits. At Dh 32 a warp takes two
+// row tiles of 16 (128 query rows a block), each K and V fragment read from
+// shared memory serving both.
+//
 // Backward, FlashAttention-2's split, with no atomics: each output element
 // is written by one block, in a fixed loop order, so a second call is
 // bit-identical.
@@ -85,6 +105,7 @@
 // tiles the same p and ds, dv += bf16(p)^T dO, dk += ds^T Q in register
 // fragments (wide: in shared memory); dk and dv are rounded once.
 #include "common.cuh"
+#include "mma_frag.cuh"
 
 namespace ddm {
 namespace {
@@ -279,6 +300,113 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   if (threadIdx.x < kTile)
     lse[((size_t)b * H + h) * N + q0 + threadIdx.x] =
         row_m[threadIdx.x] + logf(row_l[threadIdx.x]);
+}
+
+// Q's 64 MT rows, then two stages of K and two of V, rows of Dh + kPadH.
+template <int Dh, int MT>
+constexpr size_t regs_fwd_smem() {
+  return (size_t)(MT + 4) * kTile * (Dh + kPadH) * sizeof(bf16);
+}
+
+// One block per (64 MT-query tile, head, image): 4 warps, each with MT row
+// tiles of 16 (each B fragment read from shared memory serves all MT).
+template <int Dh, int MT>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_regs_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, int ld, bf16* __restrict__ o,
+                      float* __restrict__ lse, int N, int H, float scale) {
+  static_assert(Dh % 32 == 0 && Dh <= 128, "the registers design is built at Dh 32, 64, 128");
+  constexpr int kRows = kTile * MT, kLd = Dh + kPadH, kT = kTile * kLd;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Ks = Qs + kRows * kLd;  // two stages
+  bf16* Vs = Ks + 2 * kT;       // two stages
+  const int q0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int D = H * Dh, nt = N / kTile;
+  const size_t row0 = (size_t)b * N;
+  const bf16* qh = q + row0 * ld + h * Dh;
+  const bf16* kh = k + row0 * ld + h * Dh;
+  const bf16* vh = v + row0 * ld + h * Dh;
+  const float scale2 = scale * kLog2e;
+  uint32_t qa[MT][Dh / 16][4];
+  float acc[MT][Dh / 8][4];
+  float m[MT][2], l[MT][2];  // rows g and g + 8 of each row tile
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int j = 0; j < Dh / 8; ++j)
+      acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.f;
+    m[mt][0] = m[mt][1] = kNegBig;
+    l[mt][0] = l[mt][1] = 0.f;
+  }
+
+  // tile j + 1's copy runs while tile j computes, into the stage tile j - 1
+  // read: every warp has passed tile j's barrier, so is done with it
+  auto issue = [&](int j) {
+    const int st = j & 1;
+    load_tile_async<kTile, Dh, kThreads>(Ks + st * kT, kh, ld, j * kTile, N, Dh);
+    load_tile_async<kTile, Dh, kThreads>(Vs + st * kT, vh, ld, j * kTile, N, Dh);
+    cp_async_commit();
+  };
+  load_tile_async<kRows, Dh, kThreads>(Qs, qh, ld, q0, N, Dh);
+  issue(0);
+  for (int j = 0; j < nt; ++j) {
+    cp_async_wait<0>();
+    __syncthreads();
+    if (j + 1 < nt) issue(j + 1);
+    if (j == 0) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        load_a_frags<Dh>(qa[mt], Qs + (warp * MT + mt) * 16 * kLd, lane);
+    }
+    const int st = j & 1;
+    float s[MT][8][4];
+    qk_tile<Dh, MT>(s, qa, Ks + st * kT, lane);
+    uint32_t pa[MT][4][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      // online softmax, rows g (s[.][0], s[.][1]) and g + 8 (s[.][2], s[.][3]);
+      // the largest raw score times the scale (> 0) is the largest scaled one
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) mx = fmaxf(mx, fmaxf(s[mt][c][2 * r], s[mt][c][2 * r + 1]));
+        const float m_new = fmaxf(m[mt][r], quad_max(mx) * scale), m2 = m_new * kLog2e;
+        const float corr = exp2_approx(m[mt][r] * kLog2e - m2);
+        float sum = 0.f;
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+#pragma unroll
+          for (int e = 2 * r; e < 2 * r + 2; ++e) {
+            s[mt][c][e] = exp2_approx(s[mt][c][e] * scale2 - m2);
+            sum += s[mt][c][e];
+          }
+        l[mt][r] = l[mt][r] * corr + quad_sum(sum);
+        m[mt][r] = m_new;
+#pragma unroll
+        for (int c = 0; c < Dh / 8; ++c) {
+          acc[mt][c][2 * r] *= corr;
+          acc[mt][c][2 * r + 1] *= corr;
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) pack_a(pa[mt][kk], s[mt][2 * kk], s[mt][2 * kk + 1]);
+    }
+    pv_tile<Dh, MT>(acc, pa, Vs + st * kT, lane);
+  }
+  const int g = lane / 4;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const int r = q0 + (warp * MT + mt) * 16;
+    store_rows_bf16<Dh>(o + row0 * D + h * Dh, D, acc[mt], l[mt][0], l[mt][1], r, N, Dh, lane);
+    if (lane % 4 == 0) {
+      float* dst = lse + ((size_t)b * H + h) * N + r + g;
+      if (r + g < N) dst[0] = m[mt][0] + logf(l[mt][0]);
+      if (r + g + 8 < N) dst[8] = m[mt][1] + logf(l[mt][1]);
+    }
+  }
 }
 
 // p = exp(s * scale - lse) and ds = bf16(p (dp - dsum) scale) for one
@@ -873,6 +1001,22 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// Two row tiles a warp (128 query rows a block) at Dh 32, where they measured
+// faster on the H100; one at Dh 64 (no faster with two) and 128 (two would
+// pass the register file).
+template <int Dh>
+cudaError_t launch_fwd_regs(const void* q, const void* k, const void* v, int ld, void* o,
+                            void* lse, int B, int N, int H, float scale, cudaStream_t stream) {
+  constexpr int MT = Dh == 32 ? 2 : 1;
+  constexpr size_t bytes = regs_fwd_smem<Dh, MT>();
+  cudaError_t err = allow_smem(flash_fwd_regs_kernel<Dh, MT>, bytes);
+  if (err != cudaSuccess) return err;
+  flash_fwd_regs_kernel<Dh, MT><<<dim3((N + kTile * MT - 1) / (kTile * MT), H, B), kThreads,
+                                  bytes, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, ld, (bf16*)o, (float*)lse, N, H, scale);
+  return cudaGetLastError();
+}
+
 template <int Dh>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, int ld, void* o, void* lse,
                        int B, int N, int H, int dh, float scale, cudaStream_t stream) {
@@ -948,10 +1092,27 @@ cudaError_t launch_bwd_wide(const void* q, const void* k, const void* v, int ld,
 #define DDM_FLASH_WIDTHS(X) \
   X(256) X(384) X(512) X(640) X(768) X(896)
 
+// The forward's designs: 0 "tiles" (flash_fwd_kernel, Dh 4-128), 1
+// "registers" (flash_fwd_regs_kernel, Dh 32, 64, 128); -1 registers where it
+// takes Dh, tiles at Dh 4-16, the wide kernel at Dh 256-896 (which no
+// design code forces).
+constexpr int kFwdTiles = 0, kFwdRegisters = 1;
+
 extern "C" int ddm_flash_fwd(const void* q, const void* k, const void* v, int ld, void* o,
-                             void* lse, int B, int N, int H, int Dh, float scale, void* stream) {
+                             void* lse, int B, int N, int H, int Dh, float scale, int design,
+                             void* stream) {
   using namespace ddm;
   const cudaStream_t s = (cudaStream_t)stream;
+  const bool regs = Dh == 32 || Dh == 64 || Dh == 128;
+  if (design == kFwdRegisters || (design < 0 && regs)) {
+    switch (Dh) {
+      case 32: return (int)launch_fwd_regs<32>(q, k, v, ld, o, lse, B, N, H, scale, s);
+      case 64: return (int)launch_fwd_regs<64>(q, k, v, ld, o, lse, B, N, H, scale, s);
+      case 128: return (int)launch_fwd_regs<128>(q, k, v, ld, o, lse, B, N, H, scale, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (design != kFwdTiles && design >= 0) return (int)cudaErrorInvalidValue;
   switch (Dh) {
     case 4:
     case 8:
@@ -960,11 +1121,34 @@ extern "C" int ddm_flash_fwd(const void* q, const void* k, const void* v, int ld
     case 64: return (int)launch_fwd<64>(q, k, v, ld, o, lse, B, N, H, Dh, scale, s);
     case 128: return (int)launch_fwd<128>(q, k, v, ld, o, lse, B, N, H, Dh, scale, s);
 #define DDM_FWD_WIDE(W) \
-    case W: return (int)launch_fwd_wide<W>(q, k, v, ld, o, lse, B, N, H, scale, s);
+    case W:             \
+      return design < 0 ? (int)launch_fwd_wide<W>(q, k, v, ld, o, lse, B, N, H, scale, s) \
+                        : (int)cudaErrorInvalidValue;
     DDM_FLASH_WIDTHS(DDM_FWD_WIDE)
 #undef DDM_FWD_WIDE
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// Registers and local (spill) bytes a thread of each K8f kernel takes:
+// attrs[2 i], attrs[2 i + 1] for the registers design at Dh 32 (two row
+// tiles a warp), 64 and 128, then the tiles design at the same widths.
+extern "C" int ddm_flash_kernel_attrs(int* attrs) {
+  using namespace ddm;
+  const void* kernels[6] = {(const void*)flash_fwd_regs_kernel<32, 2>,
+                            (const void*)flash_fwd_regs_kernel<64, 1>,
+                            (const void*)flash_fwd_regs_kernel<128, 1>,
+                            (const void*)flash_fwd_kernel<32>,
+                            (const void*)flash_fwd_kernel<64>,
+                            (const void*)flash_fwd_kernel<128>};
+  for (int i = 0; i < 6; ++i) {
+    cudaFuncAttributes a;
+    const cudaError_t err = cudaFuncGetAttributes(&a, kernels[i]);
+    if (err != cudaSuccess) return (int)err;
+    attrs[2 * i] = a.numRegs;
+    attrs[2 * i + 1] = (int)a.localSizeBytes;
+  }
+  return 0;
 }
 
 extern "C" int ddm_flash_bwd(const void* q, const void* k, const void* v, int ld, const void* o,

@@ -1,0 +1,229 @@
+// Register-fragment and copy helpers for the tensor-core kernels (sm_90a):
+// mma.sync m16n8k16 (bf16 in, fp32 accumulate), ldmatrix, cp.async. The
+// attention forwards in csrc/attention.cu (the "registers" core) and
+// csrc/flash.cu (K8f at Dh 32, 64, 128) are built from them; the backward
+// cores can take them as they are.
+//
+// Fragment layouts (PTX ISA, "Matrix Fragments for mma.m16n8k16"): lane l of
+// a warp is in row group g = l / 4 with column pair t = l % 4.
+// - A (16 x 16, row-major), four 32-bit registers of two bf16 each: a[0]
+//   row g, columns 2t and 2t + 1; a[1] row g + 8, the same columns; a[2]
+//   row g, columns 2t + 8, 2t + 9; a[3] row g + 8, those columns.
+// - B (16 x 8, k x n), two registers: b[0] rows (k) 2t, 2t + 1 of column g;
+//   b[1] rows 2t + 8, 2t + 9.
+// - C and D (16 x 8, fp32), four floats: c[0], c[1] row g, columns 2t and
+//   2t + 1; c[2], c[3] row g + 8, the same columns.
+// So the accumulators of two neighbouring 16 x 8 tiles of a product, packed
+// to bf16 pairs, are the A fragment of the 16 x 16 tile they make: a score
+// tile S becomes the operand P of P V without leaving the registers
+// (pack_a below).
+//
+// Shared tiles hold rows of a padded width DP (a multiple of 16 columns)
+// followed by kPadH = 8 bf16: a row is 16 (DP / 8 + 1) bytes, an odd number
+// of 16-byte units, so the eight row addresses of every 8 x 8 ldmatrix
+// matrix fall on eight different groups of four banks.
+#pragma once
+
+#include <cstdint>
+
+#include "common.cuh"
+
+namespace ddm {
+namespace {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from device memory into shared memory without passing through
+// registers; where !valid, 16 zero bytes (src is not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8 x 8 bf16 matrices: lanes 8i .. 8i + 7 give the row addresses of
+// matrix i, and lane l receives row l / 4, columns 2 (l % 4) and 2 (l % 4)
+// + 1 of matrix i in r[i] (TRANS: column l / 4, rows 2 (l % 4), + 1).
+template <bool TRANS>
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  if constexpr (TRANS)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_addr(p)));
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_addr(p)));
+}
+
+// d += A B over one 16 x 8 x 16 step, fp32 accumulators.
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two fp32 values rounded to a bf16 pair, lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The A fragment of the 16 x 16 tile whose columns 0-7 are the accumulator
+// c0 and 8-15 the accumulator c1, each value rounded to bf16 once.
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&c0)[4],
+                                       const float (&c1)[4]) {
+  a[0] = pack_bf16(c0[0], c0[1]);
+  a[1] = pack_bf16(c0[2], c0[3]);
+  a[2] = pack_bf16(c1[0], c1[1]);
+  a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// 2^x by the card's special-function unit (ex2.approx: two units in the
+// last place, denormal results flushed to 0; 2^-inf = 0).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// log2(e): exp(x) = 2^(x log2 e). The kernels fold it into the softmax scale,
+// so that exp(s scale - m) is 2^(s (scale log2 e) - m log2 e): one fused
+// multiply-add and one ex2 a score, FlashAttention-2's form, a few fp32 units
+// in the last place from expf where bf16(p) keeps 8 bits.
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The max and the sum over the four lanes that share a row of a fragment.
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// A ROWS x DP bf16 tile (row stride DP + kPadH in shared memory) from rows
+// [r0, r0 + ROWS) of a head (row stride ld, Dh columns), by cp.async, all
+// THREADS threads of the block: rows at or past `rows` and columns at or
+// past Dh are zero-filled (a 16-byte piece is either wholly in the head or
+// wholly padding, Dh % 8 == 0). Commits nothing.
+template <int ROWS, int DP, int THREADS>
+__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* __restrict__ src, size_t ld,
+                                                int r0, int rows, int Dh) {
+  constexpr int kVec = DP / 8, kLd = DP + kPadH, kPieces = ROWS * kVec;
+#pragma unroll
+  for (int n = 0; n < (kPieces + THREADS - 1) / THREADS; ++n) {
+    const int i = threadIdx.x + n * THREADS, r = i / kVec, c = (i % kVec) * 8;
+    if (kPieces % THREADS == 0 || i < kPieces) {
+      const bool valid = r0 + r < rows && c < Dh;
+      cp_async16(dst + r * kLd + c, valid ? src + (size_t)(r0 + r) * ld + c : src, valid);
+    }
+  }
+}
+
+// A warp's 16 rows of Q as A fragments, DP / 16 depth steps, from a shared
+// tile (row stride DP + kPadH) at its first row.
+template <int DP>
+__device__ __forceinline__ void load_a_frags(uint32_t (&a)[DP / 16][4], const bf16* tile,
+                                             int lane) {
+  constexpr int kLd = DP + kPadH;
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk)
+    ldmatrix_x4<false>(a[kk], tile + (lane % 16) * kLd + kk * 16 + (lane / 16) * 8);
+}
+
+// s[m][j] = rows [16 m, 16 m + 16) of the warp's MT x 16 rows of Q times keys
+// [8j, 8j + 8) of a 64-key K tile (shared, row stride DP + kPadH), over the
+// depth DP in increasing order; s starts from zero. Each B fragment read
+// from shared memory serves the warp's MT row tiles.
+template <int DP, int MT>
+__device__ __forceinline__ void qk_tile(float (&s)[MT][8][4],
+                                        const uint32_t (&qa)[MT][DP / 16][4], const bf16* Ks,
+                                        int lane) {
+  constexpr int kLd = DP + kPadH;
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[m][j][0] = s[m][j][1] = s[m][j][2] = s[m][j][3] = 0.f;
+  // matrices: keys n0 .. n0 + 7 at depth kk, kk + 8; keys n0 + 8 .. + 15 at both
+  const int row = (lane % 8) + (lane / 16) * 8, col = ((lane / 8) % 2) * 8;
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      uint32_t b[4];
+      ldmatrix_x4<false>(b, Ks + (n * 16 + row) * kLd + kk * 16 + col);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        mma_16816(s[m][2 * n], qa[m][kk], b[0], b[1]);
+        mma_16816(s[m][2 * n + 1], qa[m][kk], b[2], b[3]);
+      }
+    }
+  }
+}
+
+// o[m][j] += P V for the warp's row tile m: P the A fragments of 64 keys
+// (four 16-key steps, in increasing order), V a 64-key tile (shared, row
+// stride DP + kPadH), o[m][j] columns [8j, 8j + 8) of the head.
+template <int DP, int MT>
+__device__ __forceinline__ void pv_tile(float (&o)[MT][DP / 8][4], const uint32_t (&pa)[MT][4][4],
+                                        const bf16* Vs, int lane) {
+  constexpr int kLd = DP + kPadH;
+  // matrices (transposed): keys k0 .. k0 + 7 and k0 + 8 .. + 15 at columns
+  // d0, then the same keys at d0 + 8
+  const int row = (lane % 8) + ((lane / 8) % 2) * 8, col = (lane / 16) * 8;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int d = 0; d < DP / 16; ++d) {
+      uint32_t b[4];
+      ldmatrix_x4<true>(b, Vs + (kk * 16 + row) * kLd + d * 16 + col);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        mma_16816(o[m][2 * d], pa[m][kk], b[0], b[1]);
+        mma_16816(o[m][2 * d + 1], pa[m][kk], b[2], b[3]);
+      }
+    }
+  }
+}
+
+// Store rows g and g + 8 of a warp's fp32 output fragments o (columns [8j,
+// 8j + 8) in o[j]), each divided by its row's divisor and rounded to bf16
+// once, as 4-byte pairs into rows of stride ld; rows at or past `rows` and
+// columns at or past Dh are not written.
+template <int DP>
+__device__ __forceinline__ void store_rows_bf16(bf16* __restrict__ dst, size_t ld,
+                                                const float (&o)[DP / 8][4], float div_g,
+                                                float div_g8, int r, int rows, int Dh, int lane) {
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) {
+    if (j * 8 >= Dh) break;
+    const int c = j * 8 + 2 * t;
+    if (r + g < rows)
+      *reinterpret_cast<uint32_t*>(dst + (size_t)(r + g) * ld + c) =
+          pack_bf16(o[j][0] / div_g, o[j][1] / div_g);
+    if (r + g + 8 < rows)
+      *reinterpret_cast<uint32_t*>(dst + (size_t)(r + g + 8) * ld + c) =
+          pack_bf16(o[j][2] / div_g8, o[j][3] / div_g8);
+  }
+}
+
+}  // namespace
+}  // namespace ddm

@@ -22,8 +22,18 @@ half-block GEMMs run D a multiple of 64 up to
 :data:`ddm_tpu_torch.ops.gemm.LN_GEMM_MAX_K` (1344, the resident-panel
 LN-prologue kernel's bound), the widths of every JAX attention half-block
 tier.
-The forward core runs one block per (image, head, query tile) over full
-score rows. The backward core runs one block per (image, head) where its
+The forward core has three designs. Where the head, padded to a multiple of
+16, is at most 128 wide (every DiT width but the few-head paths) the plan
+takes the registers design: 64 query rows a block (128 past N 128 where
+they divide N), Q held as tensor-core
+fragments, K and V streamed through a two-stage copy ring, and the scores,
+probabilities and output kept in registers, with the softmax still exact
+over the whole row (the scores held where N <= 128, else a first sweep for
+each row's max and sum). Its sums run in another order than the resident
+core's, so its bits are not the resident core's: the card holds it to the
+plain version. The resident and streamed designs run one block per
+(image, head, query tile) over full score rows in shared memory. The
+backward core runs one block per (image, head) where its
 fp32 P and dP tiles fit shared memory (N <= 112 at Dh = 64), and past that
 two passes, over query tiles (P, att, dq and the row terms) and over key
 tiles and output column chunks (dk, dv). The forward core and each pass
@@ -32,9 +42,10 @@ otherwise pass it through in 64-column chunks, keeping only the fp32 score
 rows whole (the streamed design, past the card's 227 KB: DiT-S/4 at
 ``--heads 1`` and 64 px, DiT-B/4 at ``--heads 1``, DiT-L/4 at ``--heads 2``
 and 64 px); the library's plan (:func:`core_plan`) picks, and ``design=``
-forces one for the card tests. Every design keeps the same rounding plan
-and the same order of every sum, so they agree bit for bit where two apply;
-the one-block design is the fastest where it fits.
+forces one for the card tests. Every design keeps the same rounding plan;
+the resident and streamed designs and the backward's keep the same order
+of every sum, so they agree bit for bit where two apply; the one-block
+design is the fastest where it fits.
 
 That backward is the port of two TPU kernels, which the JAX ladder picks
 by the shapes (:func:`ddm_tpu_torch.ops.tiers.attention_tier`): the fused
@@ -101,6 +112,7 @@ from .kernel_config import (
     LaunchCounter,
     check_status,
     current_stream,
+    design_code,
     load_library,
     uses_kernel,
 )
@@ -139,11 +151,15 @@ CORE_LAUNCHES = LaunchCounter("K7f")
 CORE_BWD_LAUNCHES = LaunchCounter("K7b")
 MAX_TOKENS = 512  # the JAX gate's N <= 512; the flash tier takes N >= 1024
 # the cores' designs (``design=``), in the order of the library's codes
-FWD_DESIGNS = ("resident", "streamed")
+FWD_DESIGNS = ("resident", "streamed", "registers")
 BWD_DESIGNS = ("one-block", "two-pass", "streamed")
+# the padded head widths the registers design is built for (padded(Dh) <= 128)
+REGISTERS_WIDTHS = tuple(range(16, 129, 16))
 # the core kernels whose registers and spills kernel_attrs reads
 CORE_KERNELS = ("forward", "forward streamed", "one-block backward", "pass 1",
-                "pass 1 streamed", "pass 2", "pass 2 streamed")
+                "pass 1 streamed", "pass 2", "pass 2 streamed") + tuple(
+    f"forward registers {dp} {kind}" for dp in REGISTERS_WIDTHS
+    for kind in ("held", "two sweeps", "two sweeps 8 warps"))
 
 
 def _heads(a: torch.Tensor, H: int) -> torch.Tensor:
@@ -294,20 +310,13 @@ def supported_tokens(N: int, Dh: int) -> bool:
     return N % 16 == 0 and 16 <= N <= MAX_TOKENS and Dh % 8 == 0 and Dh > 0
 
 
-def _code(design, names) -> int:
-    """A design's code in the library (-1: the library's own pick)."""
-    if design is None:
-        return -1
-    if design not in names:
-        raise ValueError(f"design must be one of {names} or None, got {design!r}")
-    return names.index(design)
-
-
 def core_plan(N: int, Dh: int, backward: bool = False, design=None) -> dict:
     """The tiles the card's launchers take for N tokens of head width Dh,
     read from the library (the card's only; it builds the kernels): the
     forward's ``{"design", "QT", "C"}`` (C: the column chunk, the padded
-    Dh where the design is resident), the backward's ``{"design",
+    Dh where the design is resident or registers; for the registers design
+    QT is the block's query rows, 64, or 128 past N 128 where they divide
+    N), the backward's ``{"design",
     "rows": (QT, C), "cols": (KT, QT, C, C2)}`` (pass 2's output column
     chunk C2; no pass tiles for the one-block design). ``design`` forces one
     of :data:`FWD_DESIGNS` or :data:`BWD_DESIGNS`; raises where it (or,
@@ -315,7 +324,7 @@ def core_plan(N: int, Dh: int, backward: bool = False, design=None) -> dict:
     plan = (ctypes.c_int * 7)()
     names = BWD_DESIGNS if backward else FWD_DESIGNS
     check_status(load_library().ddm_attention_core_plan(
-        N, Dh, int(backward), _code(design, names), ctypes.addressof(plan)),
+        N, Dh, int(backward), design_code(design, names), ctypes.addressof(plan)),
         f"attention core plan at N={N}, Dh={Dh}, design={design}")
     if not backward:
         return {"design": FWD_DESIGNS[plan[0]], "QT": plan[1], "C": plan[2]}
@@ -412,15 +421,17 @@ def _bwd_chain(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, dout, core_bwd):
 def _launch_core(q, k, v, H, design=None):
     """The forward core on CUDA tensors its caller has checked -> (B, N, D)
     bf16, q, k and v read in place where they share one row stride (the
-    thirds of a qkv buffer): resident where a head fits, else streamed
+    thirds of a qkv buffer): the registers design where the padded head is
+    at most 128 wide, else resident where a head fits, else streamed
     (``design`` forces one of :data:`FWD_DESIGNS`)."""
+    code = design_code(design, FWD_DESIGNS)
     q, k, v, ld = flash._qkv_rows(q, k, v)
     B, N, D = q.shape
     Dh = D // H
     out = torch.empty((B, N, D), dtype=torch.bfloat16, device=q.device)
     check_status(load_library().ddm_attention_core(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ld, out.data_ptr(), B, N, H, Dh, Dh ** -0.5,
-        _code(design, FWD_DESIGNS), current_stream(q.device)), "attention_core")
+        code, current_stream(q.device)), "attention_core")
     return out
 
 
@@ -444,12 +455,13 @@ def _launch_core_bwd(q, k, v, do, H, with_att, design=None):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ld, do.data_ptr(),
         None if att is None else att.data_ptr(), dqkv.data_ptr(),
         None if stats is None else stats.data_ptr(), B, N, H, Dh, Dh ** -0.5,
-        _code(design, BWD_DESIGNS), current_stream(q.device)), "attention_core_bwd")
+        design_code(design, BWD_DESIGNS), current_stream(q.device)), "attention_core_bwd")
     return att, dqkv
 
 
 def _k2_core(qkv, H, design=None):
-    """K2's attention core on a (B, N, 3D) qkv buffer -> (B, N, D) bf16."""
+    """K2's attention core on a (B, N, 3D) qkv buffer -> (B, N, D) bf16
+    (``design`` forces one of :data:`FWD_DESIGNS`)."""
     return _launch_core(*qkv.split(qkv.shape[-1] // 3, dim=-1), H, design)
 
 
@@ -460,9 +472,10 @@ def _core_bwd_att(qkv, datt, H, design=None):
     return _launch_core_bwd(*qkv.split(qkv.shape[-1] // 3, dim=-1), datt, H, True, design)
 
 
-def _k2f(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H):
+def _k2f(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H, design=None):
+    """K2f's chain; ``design`` forces one of the core's :data:`FWD_DESIGNS`."""
     out, _, _ = _fwd_chain(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj,
-                           lambda qkv: (_k2_core(qkv, H), None))
+                           lambda qkv: (_k2_core(qkv, H, design), None))
     LAUNCHES.add()
     return out
 

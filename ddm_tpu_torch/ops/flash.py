@@ -27,13 +27,30 @@ accumulators in shared memory); and N a multiple of 64. The TPU's head-pair
 lane packing and phantom-head pad are 128-lane devices and are not carried:
 any H runs as it is. Dh 1 and 2, which the gate's grouping admits and its
 budget never does, raise ``NotImplementedError``.
+
+K8f has two designs at Dh 32, 64 and 128 (:data:`FWD_DESIGNS`): "registers",
+the launcher's own pick there, holds Q, the scores, the probabilities, the
+output and each row's running max and sum in registers as tensor-core
+fragments and streams K and V through a two-stage copy ring; "tiles", the
+design of Dh 4, 8 and 16 too, stages them in shared memory. Both follow the
+rounding above element for element; the sums over a row's keys run in
+another order, so their bits differ.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from .kernel_config import LaunchCounter, check_status, current_stream, load_library, uses_kernel
+from .kernel_config import (
+    LaunchCounter,
+    check_status,
+    current_stream,
+    design_code,
+    load_library,
+    uses_kernel,
+)
 
 __all__ = [
     "flash_attention",
@@ -42,11 +59,14 @@ __all__ = [
     "flash_attention_reference",
     "flash_attention_bwd_reference",
     "flash_supported",
+    "kernel_attrs",
     "launch_k8f",
     "launch_k8b",
     "FWD_LAUNCHES",
     "BWD_LAUNCHES",
     "HEAD_DIMS",
+    "FWD_DESIGNS",
+    "REGISTERS_DIMS",
     "TILE",
     "MIN_TOKENS",
 ]
@@ -55,6 +75,10 @@ FWD_LAUNCHES = LaunchCounter("K8f")
 BWD_LAUNCHES = LaunchCounter("K8b")
 # the head widths csrc/flash.cu is built for: every one the JAX gate admits
 HEAD_DIMS = (4, 8, 16, 32, 64, 128, 256, 384, 512, 640, 768, 896)
+# K8f's designs (``design=``), in the order of the library's codes, and the
+# head widths the registers design is built for (its own pick there)
+FWD_DESIGNS = ("tiles", "registers")
+REGISTERS_DIMS = (32, 64, 128)
 TILE = 64         # q rows and k rows per tile of the kernels
 MIN_TOKENS = 1024  # the JAX gate's long-sequence tier (ddm_tpu/ops/flash.py:286)
 
@@ -155,17 +179,32 @@ def _qkv_rows(q, k, v):
     return (*(_aligned(t) for t in (q, k, v)), q.shape[2])
 
 
-def launch_k8f(q, k, v, H: int, scale: float):
-    """K8f on CUDA tensors its caller has checked: ``(o, lse)``."""
+def launch_k8f(q, k, v, H: int, scale: float, design=None):
+    """K8f on CUDA tensors its caller has checked: ``(o, lse)``; ``design``
+    forces one of :data:`FWD_DESIGNS` (the library raises where it does not
+    take Dh)."""
+    code = design_code(design, FWD_DESIGNS)
     q, k, v, ld = _qkv_rows(q, k, v)
     B, N, D = q.shape
     o = torch.empty((B, N, D), dtype=torch.bfloat16, device=q.device)
     lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
     check_status(load_library().ddm_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ld, o.data_ptr(), lse.data_ptr(),
-        B, N, H, D // H, scale, current_stream(q.device)), "K8f flash_fwd")
+        B, N, H, D // H, scale, code, current_stream(q.device)), "K8f flash_fwd")
     FWD_LAUNCHES.add()
     return o, lse
+
+
+def kernel_attrs() -> dict:
+    """Registers and local (spill) bytes a thread of each K8f instance at Dh
+    32, 64 and 128 takes on the card: ``{(design, Dh): {"registers",
+    "local_bytes"}}``."""
+    keys = [(d, dh) for d in FWD_DESIGNS[::-1] for dh in REGISTERS_DIMS]
+    attrs = (ctypes.c_int * (2 * len(keys)))()
+    check_status(load_library().ddm_flash_kernel_attrs(ctypes.addressof(attrs)),
+                 "K8f kernel attributes")
+    return {key: {"registers": attrs[2 * i], "local_bytes": attrs[2 * i + 1]}
+            for i, key in enumerate(keys)}
 
 
 def launch_k8b(q, k, v, o, lse, do, H: int, scale: float) -> torch.Tensor:

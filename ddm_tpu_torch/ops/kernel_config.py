@@ -36,6 +36,7 @@ __all__ = [
     "build_library",
     "check_status",
     "current_stream",
+    "design_code",
 ]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -63,7 +64,7 @@ _SIGNATURES = {
     "ddm_attention_core_bwd": [_P, _P, _P, _I, _P, _P, _P, _P] + [_I] * 4 + [_F, _I, _P],
     # N, Dh, backward, design, plan (int[7])
     "ddm_attention_core_plan": [_I, _I, _I, _I, _P],
-    # attrs (int[14]: registers and local bytes of the seven core kernels)
+    # attrs (int[62]: registers and local bytes of the 31 core kernels)
     "ddm_attention_kernel_attrs": [_P],
     # X3: q, k, v, ld, dout, att, dqkv, B, N, H, Dh, scale, skip, stream
     "ddm_attention_core_bwd_ablate": [_P, _P, _P, _I, _P, _P, _P] + [_I] * 4 + [_F, _I, _P],
@@ -89,8 +90,10 @@ _SIGNATURES = {
     "ddm_energy_fwd": [_P] * 5 + [_I] * 4 + [_F, _P],
     # xh, x0, g, part, coef, dxh, dx0, B, m, D, L, beta, stream
     "ddm_energy_bwd": [_P] * 7 + [_I] * 4 + [_F, _P],
-    # q, k, v, ld, o, lse, B, N, H, Dh, scale, stream
-    "ddm_flash_fwd": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _F, _P],
+    # q, k, v, ld, o, lse, B, N, H, Dh, scale, design, stream
+    "ddm_flash_fwd": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    # attrs (int[12]: registers and local bytes of K8f's six instances at Dh 32-128)
+    "ddm_flash_kernel_attrs": [_P],
     # q, k, v, ld, o, dout, lse, dsum, dqkv, B, N, H, Dh, scale, stream
     "ddm_flash_bwd": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     # x, scale, bias, wrt, br, xin, gates, pos1, pos2, probs, part, cnt_psum,
@@ -253,3 +256,13 @@ def check_status(status: int, what: str) -> None:
 
 def current_stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def design_code(design, names) -> int:
+    """A kernel design's code in the library: its index in ``names``, or -1
+    (the library's own pick) for None; raises on any other name."""
+    if design is None:
+        return -1
+    if design not in names:
+        raise ValueError(f"design must be one of {names} or None, got {design!r}")
+    return names.index(design)

@@ -12,11 +12,12 @@ It prints the card's name and power limit, then, on the same seeded inputs
 weights, a normal cotangent) at (B 2048, N 64, D 384, H 6), DiT-S/4's
 training shape, or with ``--dit-b`` (2048, 64, 768, 12):
 
-- whether X1f's core and half-block equal the production core's and K2f's,
-  and X1b's at every head group G that fits and divides H equal the
-  one-block core's and K2b's, bit for bit (``torch.equal``);
+- whether X1f's core and half-block equal the resident forward core's and
+  K2f's around it (the design X1f reproduces, forced), and X1b's at every
+  head group G that fits and divides H equal the one-block core's and
+  K2b's, bit for bit (``torch.equal``);
 - the forward core and the half-block K2f, X1f against the production
-  core, and the backward core and the half-block K2b, X1b at each G
+  core (the plan's pick: the registers design at these widths), and the backward core and the half-block K2b, X1b at each G
   against the one-block core: median ms of ``--reps`` calls by CUDA events,
   taken in turns (production, X1, X1, production, ``--turns`` times);
 - one 20-step DiT-S/4 sampler call's worth of forward cores (8 blocks x 20
@@ -77,7 +78,7 @@ def _equal(a, b) -> bool:
 
 def bits(shape) -> dict:
     """Whether X1f and X1b (at every group) give the production cores' and
-    half-blocks' outputs bit for bit."""
+    half-blocks' outputs bit for bit, the forward's resident design forced."""
     from ddm_tpu_torch.ops import attention as A
     from ddm_tpu_torch.ops import phase_softmax as X
 
@@ -86,9 +87,10 @@ def bits(shape) -> dict:
     x, p, dout = block_inputs(shape)
     groups = X.library_plan(*shape[1:])["groups"]
     with torch.no_grad():
-        res = {"x1f_core": torch.equal(X.launch_x1f(q, k, v, H), A._launch_core(q, k, v, H)),
+        res = {"x1f_core": torch.equal(X.launch_x1f(q, k, v, H),
+                                       A._launch_core(q, k, v, H, "resident")),
                "x1f_block": torch.equal(X.phase_attention_block_fwd(x, *p, H),
-                                        A.fused_attention_block(x, *p, H))}
+                                        A._k2f(x, *p, H, "resident"))}
         want = A._launch_core_bwd(q, k, v, do, H, True)
         for G in groups:
             res[f"x1b_core_g{G}"] = _equal(X.launch_x1b(q, k, v, do, H, G), want)

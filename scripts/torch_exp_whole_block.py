@@ -10,14 +10,18 @@ From the repository root:
 It prints the card's name and power limit, then, on the same seeded inputs
 at (B 256, N 64, D 384, H 6, F 1536), the sampler's block of DiT-S/4:
 
-- the largest |merged - pair| and whether the two agree bit for bit;
+- the largest |merged - pair| and whether the two agree bit for bit, the
+  pair's core forced to the resident design, the core X2f reproduces;
 - one block and an 8-block chain (the block's weights applied 8 times),
   X2f against the pair: median ms of ``--reps`` calls by CUDA events, taken
   in turns (pair, merged, merged, pair, ``--turns`` times);
 - a 20-step DiT-S/4 sampler call (256 samples of 32 px, depth 8, seeded
   random weights) with every block merged (:class:`MergedBlock`) against the
   model as it is, host clock around a synchronised call, in the same turns,
-  and whether the two calls' samples agree bit for bit;
+  and the largest difference of the two calls' samples (the model's blocks
+  run K2f's own pick, the registers core, whose sums run in another order
+  than the resident core's, so the samples agree within bf16 noise, not bit
+  for bit);
 
 and, last, one JSON line with every number.
 """
@@ -67,13 +71,15 @@ def block_params(D: int, F: int, seed: int = 0):
             r(D, scale=0.1))
 
 
-def pair(x, p, H: int):
-    """The port's two half-blocks, as every DiT path runs them (K2f, K1f)."""
-    from ddm_tpu_torch.ops.attention import fused_attention_block
+def pair(x, p, H: int, design=None):
+    """The port's two half-blocks, as every DiT path runs them (K2f, K1f);
+    ``design`` forces K2f's core design (X2f reproduces the resident one)."""
+    from ddm_tpu_torch.ops import attention as A
     from ddm_tpu_torch.ops.mlp_block import fused_mlp_block
 
     B, N, D = x.shape
-    a = fused_attention_block(x, *p[:6], H)
+    a = A.fused_attention_block(x, *p[:6], H) if design is None else A._k2f(
+        x, *p[:6], H, design)
     return fused_mlp_block(a.reshape(B * N, D), *p[6:]).reshape(B, N, D)
 
 
@@ -127,11 +133,13 @@ def block_inputs(shape=SHAPE):
 
 
 def block_times(reps: int, turns: int, shape=SHAPE) -> dict:
-    """The bit check and the 1-block and 8-block times at ``shape``."""
+    """The bit check (against the pair with the resident core) and the
+    1-block and 8-block times (against the pair as the paths run it) at
+    ``shape``."""
     H = shape[3]
     x, p = block_inputs(shape)
     with torch.inference_mode():
-        got, want = merged(x, p, H), pair(x, p, H)
+        got, want = merged(x, p, H), pair(x, p, H, "resident")
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
         res = {"shape": dict(zip("BNDHF", shape)), "max_abs_diff": err,
@@ -165,10 +173,10 @@ def sampler_seconds(turns: int) -> dict:
         torch.cuda.synchronize()
         return time.perf_counter() - t0, x
 
-    samples = {k: run(k)[1] for k in ("pair", "merged")}  # warm-up, and the bit check
+    samples = {k: run(k)[1] for k in ("pair", "merged")}  # warm-up, and the comparison
     times = in_turns(lambda k: run(k)[0], ("pair", "merged"), turns)
-    return {"seconds": times, "samples_bit_identical":
-            bool(torch.equal(samples["pair"], samples["merged"]))}
+    return {"seconds": times, "samples_max_abs_diff":
+            float((samples["pair"] - samples["merged"]).abs().max())}
 
 
 def main(argv=None) -> dict:
@@ -193,7 +201,7 @@ def main(argv=None) -> dict:
     s = sam["seconds"]
     print(f"sampler {N_SAMPLES} x {STEPS} steps: merged {np.mean(s['merged']):.4f} s "
           f"{s['merged']}   pair {np.mean(s['pair']):.4f} s {s['pair']} (samples "
-          f"bit-identical: {sam['samples_bit_identical']})")
+          f"max |merged - pair| {sam['samples_max_abs_diff']:.2e})")
     out = {"device": smi, **res, "sampler": sam}
     print(json.dumps(out))
     return out

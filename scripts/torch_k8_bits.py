@@ -2,6 +2,14 @@
 compare two dumps bit for bit: the check that a change to csrc/flash.cu
 keeps the kernels' bits at a head width it did not mean to change.
 
+K8f's "tiles" design (forced where a checkout has ``design=``, else its
+only one) gives o and lse, and K8b runs on them: these are held bit for bit.
+K8f as the launcher picks it (the "registers" design at Dh 32, 64 and 128,
+whose sums run in another order) and K8b on its o and lse are dumped beside
+the plain versions' outputs, and ``compare`` holds each dump's to them: o,
+dq, dk and dv by the bf16 rule (two units in the last place at the largest
+output, a mean error below 1e-3), lse to 1e-5 relative.
+
 On one card, from the root of each checkout (its package is imported from
 the current directory), on the same seeded inputs: (B, N) = (128, 1024), 6
 heads of Dh = 64 (the 128-px training shape), q, k and v read in place from
@@ -11,18 +19,21 @@ a [q | k | v] buffer:
     cd parent && PYTHONPATH=. python ../scripts/torch_k8_bits.py dump /tmp/old.pt
     python scripts/torch_k8_bits.py compare /tmp/old.pt /tmp/new.pt
 
-``compare`` prints whether o, lse, dq, dk and dv agree bit for bit and
-exits non-zero where one does not.
+``compare`` prints whether o, lse, dq, dk and dv agree bit for bit, and
+whether each pick is within its rule, and exits non-zero where one is not.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import sys
 
+import numpy as np
 import torch
 
 NAMES = ("o", "lse", "dq", "dk", "dv")
+LSE_RTOL = 1e-5
 
 
 def dump(path: str, B: int = 128, N: int = 1024, H: int = 6, Dh: int = 64) -> None:
@@ -33,20 +44,42 @@ def dump(path: str, B: int = 128, N: int = 1024, H: int = 6, Dh: int = 64) -> No
     qkv = torch.randn(B, N, 3 * D, generator=gen, device="cuda").to(torch.bfloat16)
     do = torch.randn(B, N, D, generator=gen, device="cuda").to(torch.bfloat16)
     q, k, v = qkv.split(D, dim=-1)
+    designs = "design" in inspect.signature(flash.launch_k8f).parameters
     with torch.no_grad():
-        o, lse = flash.flash_attention_fwd(q, k, v, H)
+        o, lse = (flash.launch_k8f(q, k, v, H, Dh ** -0.5, "tiles") if designs else
+                  flash.flash_attention_fwd(q, k, v, H))
         grads = flash.flash_attention_bwd(q, k, v, o, lse, do, H)
+        pick = flash.flash_attention_fwd(q, k, v, H)
+        pick_grads = flash.flash_attention_bwd(q, k, v, *pick, do, H)
+        plain = flash.flash_attention_reference(q, k, v, H)
+        plain_grads = flash.flash_attention_bwd_reference(q, k, v, *pick, do, H)
     torch.cuda.synchronize()
-    torch.save({n: t.cpu() for n, t in zip(NAMES, (o, lse, *grads))}, path)
+    out = {n: t.cpu() for n, t in zip(NAMES, (o, lse, *grads))}
+    for tag, ts in (("pick", (*pick, *pick_grads)), ("plain", (*plain, *plain_grads))):
+        out.update({f"{n}_{tag}": t.cpu() for n, t in zip(NAMES, ts)})
+    torch.save(out, path)
     print(f"dumped K8 outputs at (B={B}, N={N}, H={H}, Dh={Dh}) from {flash.__file__} to {path}")
+
+
+def _within_rule(name: str, got: torch.Tensor, want: torch.Tensor) -> bool:
+    if name == "lse":
+        return bool(((got - want).abs() / want.abs()).max() <= LSE_RTOL)
+    top = float(want.float().abs().max())
+    err = (got.float() - want.float()).abs()
+    return bool(float(err.max()) <= 2.0 * 2.0 ** (np.floor(np.log2(max(top, 1e-30))) - 7)
+                and float(err.mean()) <= 1e-3)
 
 
 def compare(a: str, b: str) -> bool:
     x, y = torch.load(a), torch.load(b)
     same = {n: torch.equal(x[n], y[n]) for n in NAMES}
+    rule = {f"{n} ({tag})": _within_rule(n, d[f"{n}_pick"], d[f"{n}_plain"])
+            for tag, d in (("a", x), ("b", y)) for n in NAMES}
     print("K8 outputs bit for bit: " + ", ".join(f"{n} {'equal' if s else 'DIFFERENT'}"
                                                 for n, s in same.items()))
-    return all(same.values())
+    print("K8f as picked, and K8b on it, against the plain versions: " + ", ".join(
+        f"{n} {'within' if s else 'OUTSIDE'}" for n, s in rule.items()))
+    return all(same.values()) and all(rule.values())
 
 
 def main(argv=None) -> int:

@@ -3,7 +3,8 @@ card, at head widths off 16 (Dh 8, 24, 40, 72), at DiT-XL's D 1152, with the fas
 MLP half-block past D 1344 (the streamed LN-prologue GEMM, D 1408-4096), and the streamed
 attention cores past 227 KB of shared memory (Dh up to 3712), bit for bit the resident ones;
 the DiT tail X4f/X4b at every DiT path's width, X2f bit for bit the K2f -> K1f pair, X1's
-phase-batched cores bit for bit K2's, and X3's ablations of K2b's chain.
+phase-batched cores bit for bit K2's, X3's ablations of K2b's chain, and the registers
+designs of the forward core and of K8f.
 
 Every test here is marked ``cuda`` and skips on a host without a GPU. The
 file imports no JAX (the machine with the card has none), so it runs there
@@ -168,12 +169,15 @@ def test_k2_backward_kernel_matches_plain_on_the_card(cuda_device, B, N, D, H):
 @pytest.mark.parametrize("B,N,H,Dh", [(2048, 64, 6, 64), (64, 64, 16, 64), (3, 16, 2, 64)])
 def test_backward_core_att_is_the_forward_cores_on_the_card(cuda_device, B, N, H, Dh):
     """K2b and K4 share one attention core, which writes att from its fp32
-    P: bit for bit the forward core's output on the same qkv."""
+    P: bit for bit the resident forward core's output on the same qkv (the
+    registers design, the plan's pick at these widths, sums in another
+    order: within the bf16 rule of it)."""
     gen = torch.Generator(device=cuda_device).manual_seed(16)
     qkv = torch.randn(B, N, 3 * H * Dh, generator=gen, device=cuda_device).to(torch.bfloat16)
     datt = torch.randn(B, N, H * Dh, generator=gen, device=cuda_device).to(torch.bfloat16)
     att, dqkv = TA._core_bwd_att(qkv, datt, H)
-    assert torch.equal(att, TA._k2_core(qkv, H))
+    assert torch.equal(att, TA._k2_core(qkv, H, "resident"))
+    _assert_bf16_rule(TA._k2_core(qkv, H), att)
     want = TA.attention_core_bwd_att_reference(*qkv.split(H * Dh, dim=-1), datt, H)
     _assert_bf16_rule(att, want[0])
     _assert_bf16_rule(dqkv, torch.cat(want[1:], dim=-1))
@@ -461,7 +465,9 @@ def test_k7_kernels_match_plain_on_the_card(cuda_device, B, N, H, Dh):
     """K7f and K7b on q, k, v read in place from a [q | k | v] buffer (and
     on three separate tensors), against their plain versions by the bf16
     rule; K7b twice, bit-identical; and bit for bit the cores that K2f and
-    K2b run on the same qkv (one design behind two entry points)."""
+    K2b run on the same qkv (one design behind two entry points): K7f the
+    forward core's plan pick, K7b's dq, dk and dv the backward core's, whose
+    att is the resident forward core's."""
     gen = torch.Generator(device=cuda_device).manual_seed(22)
     D = H * Dh
     qkv = torch.randn(B, N, 3 * D, generator=gen, device=cuda_device).to(torch.bfloat16)
@@ -481,7 +487,9 @@ def test_k7_kernels_match_plain_on_the_card(cuda_device, B, N, H, Dh):
         _assert_bf16_rule(g, w)
     assert torch.equal(o, TA._k2_core(qkv, H))
     att, dqkv = TA._core_bwd_att(qkv, do, H)
-    assert torch.equal(torch.cat(grads, dim=-1), dqkv) and torch.equal(att, o)
+    assert torch.equal(torch.cat(grads, dim=-1), dqkv)
+    assert torch.equal(att, TA._k2_core(qkv, H, "resident"))
+    _assert_bf16_rule(o, att)
 
 
 @pytest.mark.cuda
@@ -1234,11 +1242,13 @@ def test_streamed_cores_give_the_resident_bits_on_the_card(cuda_device, B, N, H,
     the forward core, and the backward (att, dq, dk, dv) against the two
     whole-head passes or, at (112, 64), the one-block core; each backward
     twice, bit-identical. At Dh 256 and 72 (80 padded) the streamed design
-    takes several 64-column chunks."""
+    takes several 64-column chunks. The forward's own pick is the resident
+    design where the padded head passes 128 columns, else the registers
+    design."""
     qkv, do = _core_case(cuda_device, B, N, H, Dh, seed=31)
     resident = "one-block" if N <= 112 else "two-pass"
     assert TA.core_plan(N, Dh, backward=True)["design"] == resident
-    assert TA.core_plan(N, Dh)["design"] == "resident"
+    assert TA.core_plan(N, Dh)["design"] == ("resident" if Dh > 128 else "registers")
     assert torch.equal(TA._k2_core(qkv, H, "streamed"), TA._k2_core(qkv, H, "resident"))
     outs = {d: [TA._core_bwd_att(qkv, do, H, d) for _ in range(2)] for d in (resident, "streamed")}
     torch.cuda.synchronize()
@@ -1246,7 +1256,7 @@ def test_streamed_cores_give_the_resident_bits_on_the_card(cuda_device, B, N, H,
         assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
     (att, dqkv), (satt, sdqkv) = outs[resident][0], outs["streamed"][0]
     assert torch.equal(att, satt) and torch.equal(dqkv, sdqkv)
-    assert torch.equal(att, TA._k2_core(qkv, H))
+    assert torch.equal(att, TA._k2_core(qkv, H, "resident"))
     want = TA.attention_core_bwd_att_reference(*qkv.split(H * Dh, dim=-1), do, H)
     _assert_bf16_rule(sdqkv, torch.cat(want[1:], dim=-1))
 
@@ -1254,14 +1264,20 @@ def test_streamed_cores_give_the_resident_bits_on_the_card(cuda_device, B, N, H,
 @pytest.mark.cuda
 def test_core_plan_on_the_card(cuda_device):
     """The library's plan, which the launchers take: the one-block backward
-    up to N 112 at Dh 64 (128 at Dh 32), the whole-head designs where they
-    fit, a streamed pass past 227 KB (pass 2 keeps the whole head to Dh
-    ~880), and a refusal where a forced design does not fit."""
+    up to N 112 at Dh 64 (128 at Dh 32), the forward's registers design up
+    to a padded head of 128 columns (64 query rows a block, 128 past N 128
+    where they divide N), the whole-head designs where they fit, a streamed
+    pass past 227 KB (pass 2 keeps the whole head to Dh ~880), and a
+    refusal where a forced design does not fit."""
     plan = TA.core_plan
     assert plan(112, 64, True)["design"] == "one-block"
     assert plan(128, 64, True)["design"] == "two-pass"
     assert plan(128, 32, True)["design"] == "one-block"
-    assert plan(256, 64) == {"design": "resident", "QT": 32, "C": 64}
+    assert plan(256, 64) == {"design": "registers", "QT": 128, "C": 64}
+    assert plan(64, 72) == {"design": "registers", "QT": 64, "C": 80}
+    assert plan(272, 128) == {"design": "registers", "QT": 64, "C": 128}
+    assert plan(256, 64, False, "resident") == {"design": "resident", "QT": 32, "C": 64}
+    assert plan(256, 136)["design"] == "resident"
     assert plan(256, 384) == {"design": "streamed", "QT": 32, "C": 64}
     assert plan(64, 768)["design"] == "resident"
     s = plan(256, 384, True)
@@ -1269,12 +1285,97 @@ def test_core_plan_on_the_card(cuda_device):
     assert plan(64, 768, True)["rows"] == (32, 64)
     assert plan(16, 3712, True)["cols"] == (16, 16, 64, 928)
     for args in ((256, 384, False, "resident"), (256, 384, True, "two-pass"),
-                 (256, 64, True, "one-block"), (528, 64, False, None), (64, 68, True, None)):
+                 (256, 64, True, "one-block"), (528, 64, False, None), (64, 68, True, None),
+                 (256, 136, False, "registers"), (528, 64, False, "registers")):
         with pytest.raises(RuntimeError):
             plan(*args)
     attrs = TA.kernel_attrs()
     assert set(attrs) == set(TA.CORE_KERNELS)
     assert all(a["registers"] > 0 and a["local_bytes"] >= 0 for a in attrs.values())
+
+
+# The registers design's classes: a warp holds its scores (one key tile at
+# N <= 64, two at N <= 128), else the two sweeps on 4 warps (N % 128 != 0)
+# or on 8 (128-row query tiles); ragged key and query tiles (N % 64 != 0);
+# every padded width 16-128 (Dh 8, 24, 40, 72, 120 padded, 32, 64, 128 not)
+REGISTERS_SHAPES = [(64, 16, 6, 64), (32, 48, 2, 72), (64, 64, 16, 24), (16, 80, 4, 40),
+                    (16, 112, 2, 96), (8, 128, 3, 128), (8, 144, 4, 8), (8, 192, 2, 112),
+                    (4, 272, 2, 120), (64, 256, 6, 64), (16, 256, 16, 72), (4, 400, 3, 32),
+                    (2, 512, 2, 128), (4, 384, 6, 48)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,H,Dh", REGISTERS_SHAPES)
+def test_registers_core_matches_plain_on_the_card(cuda_device, B, N, H, Dh):
+    """The registers forward core, the plan's pick at every padded head up
+    to 128 columns, against its plain version by the bf16 rule, and within
+    the same rule of the resident design forced on the same q, k, v (read in
+    place from a [q | k | v] buffer, and from three tensors)."""
+    qkv, _ = _core_case(cuda_device, B, N, H, Dh, seed=33)
+    q, k, v = qkv.split(H * Dh, dim=-1)
+    assert TA.core_plan(N, Dh)["design"] == "registers"
+    with torch.no_grad():
+        got = TA._launch_core(q, k, v, H)
+        forced = TA._launch_core(q, k, v, H, "registers")
+        apart = TA._launch_core(*(t.contiguous() for t in (q, k, v)), H)
+        resident = TA._launch_core(q, k, v, H, "resident")
+        torch.cuda.synchronize()
+    assert torch.equal(got, forced) and torch.equal(got, apart)
+    _assert_bf16_rule(got, TA.attention_reference(q, k, v, H))
+    _assert_bf16_rule(got, resident)
+
+
+@pytest.mark.cuda
+def test_registers_core_refuses_wider_heads_on_the_card(cuda_device):
+    """Forced past a padded head of 128 columns the registers design raises
+    (no fallback to another design)."""
+    qkv, _ = _core_case(cuda_device, 2, 64, 2, 136, seed=34)
+    with pytest.raises(RuntimeError, match="attention_core"):
+        TA._k2_core(qkv, 2, "registers")
+    assert TA.core_plan(64, 136)["design"] == "resident"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,H,Dh", [(2, 1024, 12, 32), (2, 1024, 6, 64), (2, 1024, 3, 128),
+                                      (1, 4096, 2, 64), (3, 128, 4, 32), (1, 192, 2, 128)])
+def test_k8f_registers_design_matches_plain_on_the_card(cuda_device, B, N, H, Dh):
+    """K8f's registers design (its own pick at Dh 32, 64, 128) against the
+    plain version (o by the bf16 rule, lse to 1e-5 relative) and within the
+    bf16 rule of the tiles design forced on the same q, k, v; K8b on the
+    registers forward's o and lse against its plain version, twice,
+    bit-identical."""
+    gen = torch.Generator(device=cuda_device).manual_seed(35)
+    D = H * Dh
+    qkv = torch.randn(B, N, 3 * D, generator=gen, device=cuda_device).to(torch.bfloat16)
+    q, k, v = qkv.split(D, dim=-1)
+    do = torch.randn(B, N, D, generator=gen, device=cuda_device).to(torch.bfloat16)
+    scale = Dh ** -0.5
+    o, lse = TF.flash_attention_fwd(q, k, v, H)
+    forced = TF.launch_k8f(q, k, v, H, scale, "registers")
+    tiles = TF.launch_k8f(q, k, v, H, scale, "tiles")
+    grads = TF.flash_attention_bwd(q, k, v, o, lse, do, H)
+    again = TF.flash_attention_bwd(q, k, v, o, lse, do, H)
+    torch.cuda.synchronize()
+    assert torch.equal(o, forced[0]) and torch.equal(lse, forced[1])
+    want_o, want_lse = TF.flash_attention_reference(q, k, v, H)
+    _assert_bf16_rule(o, want_o)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=0)
+    _assert_bf16_rule(o, tiles[0])
+    torch.testing.assert_close(lse, tiles[1], rtol=1e-5, atol=0)
+    for g, h, w in zip(grads, again, TF.flash_attention_bwd_reference(q, k, v, o, lse, do, H)):
+        assert torch.equal(g, h)
+        _assert_bf16_rule(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Dh,design", [(16, "registers"), (256, "registers"), (256, "tiles")])
+def test_k8f_refuses_a_design_that_does_not_take_the_width_on_the_card(cuda_device, Dh, design):
+    """A forced K8f design raises where it is not built (the registers
+    design past Dh 32, 64, 128; no design code reaches the wide kernels)."""
+    H = 2
+    q = torch.zeros(1, 1024, H * Dh, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="K8f"):
+        TF.launch_k8f(q, q, q, H, Dh ** -0.5, design)
 
 
 @pytest.mark.cuda
@@ -1386,9 +1487,10 @@ def test_x4_refuses_fp32_and_leaves_refused_shapes_plain_on_the_card(cuda_device
                                        (5, 32, 384, 6, 1536), (7, 48, 256, 4, 1024),
                                        (16, 64, 128, 2, 512)])
 def test_x2f_is_the_k2f_k1f_pair_bit_for_bit_on_the_card(cuda_device, B, N, D, H, F):
-    """X2f's output equals the port's K2f -> K1f pair's bit for bit (a
-    rounded where the pair writes it, every product's slices in the pair's
-    order, the pair's epilogues and core), and the plain version's by the
+    """X2f's output equals the port's K2f -> K1f pair's bit for bit with the
+    resident core forced (a rounded where the pair writes it, every
+    product's slices in the pair's order, the pair's epilogues and the core
+    tools/exp_whole_block.py reproduces), and the plain version's by the
     bf16 rule."""
     x, *attn = _on(cuda_device, _attn_inputs(B, N, D, seed=50))
     _, *mlp = _on(cuda_device, _mlp_inputs(8, D, F, seed=51))
@@ -1396,7 +1498,7 @@ def test_x2f_is_the_k2f_k1f_pair_bit_for_bit_on_the_card(cuda_device, B, N, D, H
     counters = (TA.LAUNCHES, TM.LAUNCHES, TW.LAUNCHES)
     before = [c.count for c in counters]
     with torch.inference_mode():
-        a = TA.fused_attention_block(x, *attn, H)
+        a = TA._k2f(x, *attn, H, "resident")
         want = TM.fused_mlp_block(a.reshape(B * N, D), *mlp).reshape(B, N, D)
         got = TW.whole_block_fwd(*args, H)
         torch.cuda.synchronize()
@@ -1438,9 +1540,9 @@ X1_PLANS = [dict(QT=32, most=4, groups=[1, 2, 3]), dict(QT=32, most=4, groups=[1
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,want", zip(X1_SHAPES, X1_PLANS))
 def test_x1_cores_are_k2s_cores_bit_for_bit_on_the_card(cuda_device, shape, want):
-    """X1f's output is the production forward core's, and X1b's att, dq, dk
-    and dv at every group that fits are the one-block backward's, bit for
-    bit; X1b's second call is bit-identical. The library's tiles: a 32-row
+    """X1f's output is the production resident forward core's, and X1b's
+    att, dq, dk and dv at every group that fits are the one-block
+    backward's, bit for bit; X1b's second call is bit-identical. The library's tiles: a 32-row
     query tile where it divides N, and up to 4 heads a backward group at
     N = Dh = 64 (44 KB a head), the largest dividing H by default."""
     B, N, D, H = shape
@@ -1453,7 +1555,7 @@ def test_x1_cores_are_k2s_cores_bit_for_bit_on_the_card(cuda_device, shape, want
     assert plan["fwd_smem"] <= 232448 and plan["bwd_smem"] <= 232448
     before = (TPS.LAUNCHES.count, TPS.BWD_LAUNCHES.count)
     with torch.no_grad():
-        assert torch.equal(TPS.launch_x1f(q, k, v, H), TA._launch_core(q, k, v, H))
+        assert torch.equal(TPS.launch_x1f(q, k, v, H), TA._launch_core(q, k, v, H, "resident"))
         want = TA._launch_core_bwd(q, k, v, do, H, True)
         for G in plan["groups"]:
             got = TPS.launch_x1b(q, k, v, do, H, G)
@@ -1468,14 +1570,15 @@ def test_x1_cores_are_k2s_cores_bit_for_bit_on_the_card(cuda_device, shape, want
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,N,D,H", X1_SHAPES[:2] + [(256, 64, 384, 6)])
 def test_x1_half_blocks_are_k2f_and_k2b_bit_for_bit_on_the_card(cuda_device, B, N, D, H):
-    """K2f's and K2b's chains around X1f and X1b give K2f's output and K2b's
-    seven gradients bit for bit, and the plain versions' by the kernel rules."""
+    """K2f's and K2b's chains around X1f and X1b give K2f's output (its core
+    the resident design) and K2b's seven gradients bit for bit, and the
+    plain versions' by the kernel rules."""
     args = _on(cuda_device, _attn_inputs(B, N, D, seed=61))
     dout = torch.randn(B, N, D, generator=torch.Generator(device=cuda_device).manual_seed(62),
                        device=cuda_device).to(torch.bfloat16)
     with torch.no_grad():
         got = TPS.phase_attention_block_fwd(*args, H)
-        assert torch.equal(got, TA.fused_attention_block(*args, H))
+        assert torch.equal(got, TA._k2f(*args, H, "resident"))
         _assert_bf16_rule(got, TA.attention_block_reference(*args, H))
         grads = TPS.phase_attention_block_bwd(*args, H, dout)
         assert all(torch.equal(g, w) for g, w in zip(grads, TA.attention_block_bwd(
