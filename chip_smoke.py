@@ -406,8 +406,8 @@ The DiT tail and the whole-block experiment, after those:
     ``ln_bwd_kernel<8, false>``) at (2048, 64, 384, H 6), each twice
     (bit-identical) against its plain version within twice bf16's own noise
     on that variant (plain bf16 against plain fp32, max and Frobenius) and
-    timed once, the all-off one torch.equal to K2b and by the gradient
-    rules; K1f with the identity
+    timed once, the all-off one torch.equal to K2b's chain on its one-block
+    core (forced) and by the gradient rules; K1f with the identity
     GELU at (131,072, 384, F 1536) against its plain version. No path
     launches them;
 3w. (registers-kernels) the registers designs of the forward core
@@ -419,7 +419,19 @@ The DiT tail and the whole-block experiment, after those:
     earlier design forced (the resident core, K8f's tiles), timed in turns
     with it (earlier, registers, registers, earlier) beside the plain
     version and SDPA's forward on the same q, k, v, with its bound and each
-    instance's registers and spill bytes.
+    instance's registers and spill bytes;
+3x. (registers-bwd-kernels) the registers designs of the backward core
+    (``csrc/attention.cu``: its dq and dk/dv sides, and the fused block at N
+    <= 64, on ``csrc/attention_bwd_regs.cuh``; K2b's, K4's and K7b's pick at
+    padded heads up to 128 columns) and of K8b at Dh 32, 64, 128
+    (``csrc/flash.cu`` ``flash_bwd_dq_regs_kernel`` and
+    ``flash_bwd_dkv_regs_kernel``), at REGISTERS_BWD_CORES and REGISTERS_K8:
+    each against its plain version and within the bf16 rule of the earlier
+    design forced (the one-block or two-pass core, K8b's tiles), its second
+    call bit-identical, timed in turns with it beside the plain version,
+    SDPA's forward + backward and its backward alone; at N <= 64 the fused
+    block timed in turns with the two sides; its bound and each instance's
+    registers and spill bytes (none at Dh 64, 72 and 24).
 
 The DiT-S phases run at full width and depth 8. PERF.md gives the whole
 run's measured time on the card, the kernels' build included, against the
@@ -796,7 +808,8 @@ def phase_backward(M, A, smi):
     srcs = {"K1b": (["ddm_tpu_torch/csrc/gemm_bwd.cu", "ddm_tpu_torch/csrc/gemm.cu",
                      "ddm_tpu_torch/csrc/common.cuh"], "ddm_tpu/ops/mlp_block.py:211"),
             "K2b": (["ddm_tpu_torch/csrc/attention.cu", "ddm_tpu_torch/csrc/gemm_bwd.cu",
-                     "ddm_tpu_torch/csrc/gemm.cu", "ddm_tpu_torch/csrc/common.cuh"],
+                     "ddm_tpu_torch/csrc/gemm.cu", "ddm_tpu_torch/csrc/attention_bwd_regs.cuh",
+                     "ddm_tpu_torch/csrc/mma_frag.cuh", "ddm_tpu_torch/csrc/common.cuh"],
                     "ddm_tpu/ops/attention.py:358")}
     results = []
     for case in (_k1b_case(M, gen, B * N, D, F), _attn_bwd_case(A, gen, B, N, D, H, "K2b")):
@@ -1027,8 +1040,8 @@ def phase_flash(FL, smi):
     gen = torch.Generator(device="cuda").manual_seed(4)
     cases = [_k8_case(FL, smi, gen, B, N, FLASH_HEADS, 64, library=not i)
              for i, (B, N) in enumerate(FLASH_SHAPES)]
-    srcs = ["ddm_tpu_torch/csrc/flash.cu", "ddm_tpu_torch/csrc/mma_frag.cuh",
-            "ddm_tpu_torch/csrc/common.cuh"]
+    srcs = ["ddm_tpu_torch/csrc/flash.cu", "ddm_tpu_torch/csrc/attention_bwd_regs.cuh",
+            "ddm_tpu_torch/csrc/mma_frag.cuh", "ddm_tpu_torch/csrc/common.cuh"]
     first = cases[0]
     entries = [_entry("K8f", srcs[0], srcs, "ddm_tpu/ops/flash.py:330",
                       max(c["max_f"] for c in cases), first["fwd"], first["plain_fwd"],
@@ -1917,7 +1930,8 @@ def phase_wide_kernels(M, A, X, smi):
     k10p["forward"] = {"k": 2, "max_abs_err": ferr, "ms": fms, "plain_ms": fplain,
                        **_bound(_nbytes(*ffn, got), 4 * E * S * D * F)}
     srcs = ["ddm_tpu_torch/csrc/attention.cu", "ddm_tpu_torch/csrc/gemm_bwd.cu",
-            "ddm_tpu_torch/csrc/gemm.cu", "ddm_tpu_torch/csrc/common.cuh"]
+            "ddm_tpu_torch/csrc/gemm.cu", "ddm_tpu_torch/csrc/attention_bwd_regs.cuh",
+            "ddm_tpu_torch/csrc/mma_frag.cuh", "ddm_tpu_torch/csrc/common.cuh"]
     last = k4[-1]  # the DiT-L shape, the main path's
     k4e = _entry("K4", srcs[0], srcs, "ddm_tpu/ops/attention.py:685", last["max_abs_err"],
                  last["ms"], last["plain_ms"],
@@ -1982,9 +1996,11 @@ def _core_library(M, A, gen, attn, H, backward):
 
 
 def phase_attention_256(M, A, smi):
-    """3g: the half-blocks at N = 256 through the query-tile forward core and
-    the two-pass backward, with the cores alone timed beside SDPA on the same
-    q, k, v. ``{name: [{"path", "shape", ...}]}`` for the kernels line."""
+    """3g: the half-blocks at N = 256 through the cores the plan picks (the
+    registers designs), with the cores alone timed beside SDPA on the same
+    q, k, v, and at the 32-px training shape the one-block and two-pass
+    backward cores forced, in turns. ``{name: [{"path", "shape", ...}]}``
+    for the kernels line."""
     gen = torch.Generator(device="cuda").manual_seed(8)
     N, keys = PX64_SIZE ** 2 // 16, ("max_abs_err", "ms", "plain_ms")
     B = PX64_BATCH * PX64_M  # 256 denoiser images per training step
@@ -2016,9 +2032,9 @@ def phase_attention_256(M, A, smi):
         del case
         torch.cuda.empty_cache()
 
-    # where both backward designs take a shape (N <= 112 at Dh = 64) the
-    # one-block core runs: the two passes timed against it at the 32-px
-    # training shape, in turns
+    # where both earlier backward designs take a shape (N <= 112 at Dh = 64)
+    # the one-block core ran before the registers designs: the two passes
+    # timed against it at the 32-px training shape, in turns
     B, N, H, Dh = TRAIN_BATCH * TRAIN_M, 64, 6, 64
     qkv = torch.randn(B, N, 3 * H * Dh, generator=gen, device="cuda").to(torch.bfloat16)
     datt = torch.randn(B, N, H * Dh, generator=gen, device="cuda").to(torch.bfloat16)
@@ -2086,8 +2102,8 @@ def phase_attention_core(A, FL, smi):
     Returns ``([K7f entry, K7b entry], {"K8f": [...], "K8b": [...]})``."""
     gen = torch.Generator(device="cuda").manual_seed(11)
     D, H, N = DIT_L["embed_dim"], DIT_L["heads"], PX64_SIZE ** 2 // 16
-    srcs = ["ddm_tpu_torch/csrc/attention.cu", "ddm_tpu_torch/csrc/mma_frag.cuh",
-            "ddm_tpu_torch/csrc/common.cuh"]
+    srcs = ["ddm_tpu_torch/csrc/attention.cu", "ddm_tpu_torch/csrc/attention_bwd_regs.cuh",
+            "ddm_tpu_torch/csrc/mma_frag.cuh", "ddm_tpu_torch/csrc/common.cuh"]
     fwd, bwd = _k7_shapes(A, smi, gen, "dit-l64", N, D, H)
     first = fwd[0]
     k7f = _entry("K7f", srcs[0], srcs, "ddm_tpu/ops/attention.py:89", first["max_abs_err"],
@@ -2959,8 +2975,8 @@ def phase_streamed_kernels(A, smi):
     N (STREAMED_CORES), each against its plain versions, timed beside SDPA,
     with its plan and the kernels' spill bytes; then at the shapes where a
     resident design also runs (STREAMED_BITS) the streamed design forced,
-    bit for bit the resident one (forward, and the backward against the
-    two whole-head passes or the one-block core), every backward twice,
+    bit for bit the resident one forced (forward, and the backward against
+    the two whole-head passes or the one-block core), every backward twice,
     both timed in turns. ``{name: [{"path", "shape", ...}]}`` for the
     kernels line."""
     gen = torch.Generator(device="cuda").manual_seed(13)
@@ -2974,7 +2990,7 @@ def phase_streamed_kernels(A, smi):
     for B, N, H, Dh in STREAMED_BITS:
         qkv = torch.randn(B, N, 3 * H * Dh, generator=gen, device="cuda").to(torch.bfloat16)
         do = torch.randn(B, N, H * Dh, generator=gen, device="cuda").to(torch.bfloat16)
-        resident = A.core_plan(N, Dh, backward=True)["design"]
+        resident = _earlier_bwd(A, N, Dh)  # one-block or two-pass, forced
         shape = f"(B={B}, N={N}, H={H}, Dh={Dh})"
         with torch.no_grad():
             fwd = {d: A._k2_core(qkv, H, d) for d in ("resident", "streamed")}
@@ -3255,6 +3271,8 @@ def phase_phase_softmax(A, smi):
               "prod_f": _median_ms(lambda: A._launch_core(q, k, v, H)),
               "plain_f": _median_ms(lambda: A.attention_reference(q, k, v, H)),
               "prod_b": _median_ms(lambda: A._launch_core_bwd(q, k, v, do, H, True)),
+              "one_block_b": _median_ms(lambda: A._launch_core_bwd(q, k, v, do, H, True,
+                                                                   "one-block")),
               "plain_b": _median_ms(lambda: A.attention_core_bwd_att_reference(q, k, v, do, H))}
         for g in groups:
             ms[f"x1b_g{g}"] = _median_ms(lambda g=g: X.launch_x1b(q, k, v, do, H, g))
@@ -3278,11 +3296,13 @@ def phase_phase_softmax(A, smi):
           f"{exp.SAMPLER} X1f {s_ms['x1f']:.4f} ms, production {s_ms['prod']:.4f} ms (median "
           f"of 20) on {smi}")
     print(f"[kernel] X1b core {label} bf16: bit for bit the one-block core at groups "
-          f"{groups} (and the K2b chain); against the plain core max_abs_err "
-          f"{max(e[0] for e in b_errs):.6g}; " + ", ".join(
+          f"{groups} (and the K2b chain around it), both forced; against the plain core "
+          f"max_abs_err {max(e[0] for e in b_errs):.6g}; " + ", ".join(
               f"G={g} {ms[f'x1b_g{g}']:.4f} ms" for g in groups)
-          + f"; one-block core {ms['prod_b']:.4f} ms, plain {ms['plain_b']:.4f} ms, SDPA "
-          f"forward + backward {sdpa['K8b']:.4f} ms (median of 20) on {smi}")
+          + f"; one-block core {ms['one_block_b']:.4f} ms, production core (the plan's pick, "
+          f"{A.core_plan(N, D // H, backward=True)['design']}) {ms['prod_b']:.4f} ms, plain "
+          f"{ms['plain_b']:.4f} ms, SDPA forward + backward {sdpa['K8b']:.4f} ms (median of 20) "
+          f"on {smi}")
     T = B * N
     return [_x1_entry("X1f", 57, f_err[0], ms["x1f"], ms["plain_f"],
                       ms["prod_f"], 4 * T * N * D, 4 * one, sdpa["K8f"],
@@ -3291,6 +3311,7 @@ def phase_phase_softmax(A, smi):
             _x1_entry("X1b", 99, max(e[0] for e in b_errs), ms[f"x1b_g{G}"],
                       ms["plain_b"], ms["prod_b"], 12 * T * N * D, 8 * one, sdpa["K8b"],
                       group=G, group_ms={g: ms[f"x1b_g{g}"] for g in groups},
+                      one_block_core_ms=ms["one_block_b"],
                       persist_bwd="tools/exp_phase_softmax.py:215 is the production K2b body "
                                   "line for line: its counterpart is K2b")]
 
@@ -3326,8 +3347,9 @@ def _within_noise(name, got, want, want32):
 def phase_ablate(A, M, smi):
     """3v: X3's eight variants of K2b's chain at DiT-S/4's training shape,
     each twice (bit-identical) against its plain version within twice bf16's
-    own noise on that variant (:func:`_within_noise`) and timed once,
-    the all-off one torch.equal to K2b; K1f with the identity GELU against
+    own noise on that variant (:func:`_within_noise`) and timed once, the
+    all-off one torch.equal to K2b's chain on its one-block core (forced:
+    the plan picks the registers design); K1f with the identity GELU against
     its plain version. Returns the X3b and X3m entries; no path launches
     them."""
     from ddm_tpu_torch.ops import attention_ablate as X
@@ -3338,7 +3360,7 @@ def phase_ablate(A, M, smi):
     x, p, dout = exp.block_inputs(exp.SHAPE)
     variants, worst = {}, 0.0
     with torch.no_grad():
-        k2b = A.attention_block_bwd(x, *p, H, dout)
+        k2b = A._k2b(x, *p, H, dout, design="one-block")  # the core X3's instances ablate
         for name, skips in X.VARIANTS:
             before = X.LAUNCHES.count
             got, again = (X.attention_block_bwd_ablate(x, *p, H, dout, **skips) for _ in range(2))
@@ -3347,11 +3369,12 @@ def phase_ablate(A, M, smi):
             if not all(torch.equal(g, h) for g, h in zip(got, again)):
                 raise AssertionError(f"X3 {name} {label} is not deterministic")
             if not skips and not all(torch.equal(g, w) for g, w in zip(got, k2b)):
-                raise AssertionError(f"X3's all-off variant {label} is not K2b bit for bit")
+                raise AssertionError(f"X3's all-off variant {label} is not K2b's chain on the "
+                                     "one-block core bit for bit")
             want = X.attention_block_bwd_ablate_reference(x, *p, H, dout, **skips)
             if not skips:
-                _check_grads(f"X3 {name} {label} bf16 (second call bit-identical, K2b bit for "
-                             "bit)", got, want, smi, None, None)
+                _check_grads(f"X3 {name} {label} bf16 (second call bit-identical, K2b's chain "
+                             "on the one-block core bit for bit)", got, want, smi, None, None)
             err, ratio = _within_noise(f"X3 {name} {label}", got, want,
                                        X.attention_block_bwd_ablate_reference(
                                            x.float(), *p, H, dout.float(), **skips))
@@ -3505,6 +3528,178 @@ def phase_registers_kernels(A, FL, smi):
     return shapes
 
 
+def _sdpa_bwd_ms(q, k, v, do, H):
+    """SDPA's backward alone on the same inputs (copied once into its (B, H,
+    N, Dh) layout): the forward runs once before the events start and each
+    timed call replays its graph. A yardstick only; the port never calls it."""
+    B, N, D = q.shape
+    qs, ks, vs, dos = (t.reshape(B, N, H, D // H).transpose(1, 2).contiguous()
+                       for t in (q, k, v, do))
+    leaves = [t.detach().requires_grad_() for t in (qs, ks, vs)]
+    o = torch.nn.functional.scaled_dot_product_attention(*leaves)
+    ms = _median_ms(lambda: torch.autograd.grad(o, leaves, dos, retain_graph=True))
+    del o, leaves, qs, ks, vs, dos
+    return ms
+
+
+def _earlier_bwd(A, N, Dh):
+    """The backward design the plan picked before the registers design."""
+    for design in ("one-block", "two-pass", "streamed"):
+        try:
+            A.core_plan(N, Dh, True, design)
+            return design
+        except RuntimeError:
+            continue
+    raise AssertionError(f"no earlier backward design takes N={N}, Dh={Dh}")
+
+
+def _regs_bwd_instances(attrs, design, Dh, att):
+    """The registers backward's instances a design launches at width Dh."""
+    dp = -(-Dh // 16) * 16
+    kinds = (("fused att" if att else "fused",) if design == "registers-fused" else
+             ("dq att" if att else "dq", "dk dv"))
+    return {k: attrs[f"backward registers {dp} {k}"] for k in kinds}
+
+
+def _spill_free(name, shape, inst):
+    if any(a["local_bytes"] for a in inst.values()):
+        raise AssertionError(f"{name}'s registers backward {shape} spills: {inst}")
+
+
+def phase_registers_bwd_kernels(A, FL, smi):
+    """3x: the registers designs of the backward core (K2b's, K4's, K7b's;
+    REGISTERS_BWD_CORES) and of K8b (Dh 32, 64, 128; REGISTERS_K8), against
+    their plain versions and the earlier designs (the bf16 rule), a second
+    call bit-identical, timed in turns with the earlier design (earlier,
+    registers, registers, earlier) beside the plain version, SDPA's forward +
+    backward and its backward alone; at N <= 64 the fused block timed in
+    turns with the dq and dk/dv kernels. Each instance's registers and spill
+    bytes (none allowed at the paths' Dh 64, 72, 24). ``{name: [{"path",
+    "shape", ...}]}`` for the kernels line."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    attrs, fattrs = A.kernel_attrs(), FL.kernel_attrs()
+    print(f"[kernel] the registers backward's instances, registers and local (spill) bytes a "
+          f"thread: { {k: v for k, v in attrs.items() if k.startswith('backward registers')} }; "
+          f"K8b's: { {k: v for k, v in fattrs.items() if ' d' in k[0]} }")
+    shapes = {}
+    for path, B, N, H, Dh, name in REGISTERS_BWD_CORES:
+        D = H * Dh
+        qkv = torch.randn(B, N, 3 * D, generator=gen, device="cuda").to(torch.bfloat16)
+        q, k, v = qkv.split(D, dim=-1)  # read in place, row stride 3D
+        if path == "tp":  # the shard's three column-parallel products
+            q, k, v = (t.contiguous() for t in (q, k, v))
+        do = torch.randn(B, N, D, generator=gen, device="cuda").to(torch.bfloat16)
+        att = name != "K7b"
+        shape = f"(B={B}, N={N}, H={H}, Dh={Dh}) core" + (", separate q, k, v" if path == "tp"
+                                                          else "")
+        pick = A.core_plan(N, Dh, backward=True)["design"]
+        if not pick.startswith("registers"):
+            raise AssertionError(f"the plan takes {pick} at {shape}, not a registers design")
+        earlier = _earlier_bwd(A, N, Dh)
+
+        def run(design=None):
+            a, dqkv = A._launch_core_bwd(q, k, v, do, H, att, design)
+            return ((a,) if att else ()) + tuple(dqkv.split(D, dim=-1))
+
+        plain = functools.partial(A.attention_core_bwd_att_reference if att else
+                                  A.attention_core_bwd_reference, q, k, v, do, H)
+        with torch.no_grad():
+            got, again, old = run(), run(), run(earlier)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, h) for g, h in zip(got, again)):
+                raise AssertionError(f"{name}'s registers backward {shape} is not deterministic")
+            labels = (("att",) if att else ()) + ("dq", "dk", "dv")
+            err, text, ok = _core_errors(labels, got, plain())
+            agree = _core_errors(labels, got, old)
+            del again, old
+            fns = {d: (lambda d=d: run(d)) for d in (earlier, pick)}
+            ms = _in_turns(fns, (earlier, pick))
+            alt = {}
+            if N <= 64:  # the fused block against the two sides
+                other = "registers" if pick == "registers-fused" else "registers-fused"
+                fns[other] = lambda: run(other)
+                alt = _in_turns(fns, (pick, other))
+            plain_ms = _median_ms(plain, reps=5)
+        sdpa = _sdpa_ms(q, k, v, do, H)["K8b"]
+        sdpa_bwd = _sdpa_bwd_ms(q, k, v, do, H)
+        inst = _regs_bwd_instances(attrs, pick, Dh, att)
+        products = 2 * B * H * N * N * Dh  # one (N x N x Dh) product per image and head
+        bound = _bound(_nbytes(q, k, v, do, *got), (5 + att) * products)  # S, dP, dV, dQ, dK, att
+        print(f"[kernel] {name}'s core, {pick} design, {shape} ({inst}): {text}; against the "
+              f"{earlier} design {agree[1]}; second call bit-identical; in turns {earlier} "
+              f"{ms[earlier][0]:.4f}, {pick} {ms[pick][0]:.4f}, {ms[pick][1]:.4f}, {earlier} "
+              f"{ms[earlier][1]:.4f} ms" + (
+                  f"; {pick} {alt[pick][0]:.4f}, {other} {alt[other][0]:.4f}, "
+                  f"{alt[other][1]:.4f}, {pick} {alt[pick][1]:.4f} ms" if alt else "")
+              + f"; plain {plain_ms:.4f} ms (median of 5); SDPA forward + backward {sdpa:.4f} ms, "
+              f"backward alone {sdpa_bwd:.4f} ms; bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']}) on {smi}")
+        if not (ok and agree[2]):
+            raise AssertionError(f"{name}'s registers backward {shape} disagrees with its plain "
+                                 f"version or the {earlier} design")
+        if Dh in (24, 64, 72):
+            _spill_free(name, shape, inst)
+        entry = {"path": path, "shape": shape, "design": pick, "max_abs_err": err,
+                 "ms": float(np.mean(ms[pick])), "registers_turns_ms": ms[pick],
+                 "parent_design": earlier, "parent_ms": float(np.mean(ms[earlier])),
+                 "parent_turns_ms": ms[earlier], "plain_ms": plain_ms, "library_ms": sdpa,
+                 "sdpa_bwd_ms": sdpa_bwd, **bound, "instances": inst}
+        if alt:
+            entry["alternative_turns_ms"] = {d: alt[d] for d in alt}
+        shapes.setdefault(name, []).append(entry)
+        del qkv, q, k, v, do, got
+        torch.cuda.empty_cache()
+    for B, N, H, Dh in REGISTERS_K8:
+        D = H * Dh
+        qkv = torch.randn(B, N, 3 * D, generator=gen, device="cuda").to(torch.bfloat16)
+        q, k, v = qkv.split(D, dim=-1)
+        do = torch.randn(B, N, D, generator=gen, device="cuda").to(torch.bfloat16)
+        shape = f"(B={B}, N={N}, H={H}, Dh={Dh})"
+        scale = Dh ** -0.5
+        with torch.no_grad():
+            o, lse = FL.flash_attention_fwd(q, k, v, H)
+            got, again, old = (FL.launch_k8b(q, k, v, o, lse, do, H, scale, d)
+                               for d in (None, None, "tiles"))
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"K8b's registers design {shape} is not deterministic")
+            labels = ("dq", "dk", "dv")
+            err, text, ok = _core_errors(labels, got.split(D, dim=-1),
+                                         FL.flash_attention_bwd_reference(q, k, v, o, lse, do, H))
+            agree = _core_errors(labels, got.split(D, dim=-1), old.split(D, dim=-1))
+            del again, old
+            fns = {d: (lambda d=d: FL.launch_k8b(q, k, v, o, lse, do, H, scale, d))
+                   for d in FL.BWD_DESIGNS}
+            ms = _in_turns(fns, ("tiles", "registers"))
+            plain_ms = _median_ms(lambda: FL.flash_attention_bwd_reference(q, k, v, o, lse, do, H),
+                                  reps=5)
+        sdpa = _sdpa_ms(q, k, v, do, H)["K8b"]
+        sdpa_bwd = _sdpa_bwd_ms(q, k, v, do, H)
+        inst = {side: fattrs[(f"registers {side}", Dh)] for side in ("dq", "dk dv")}
+        bound = _bound(_nbytes(qkv, o, lse, do, got), 5 * 2 * B * H * N * N * Dh)
+        print(f"[kernel] K8b registers design {shape} ({inst}): {text}; against the tiles design "
+              f"{agree[1]}; second call bit-identical; in turns tiles {ms['tiles'][0]:.4f}, "
+              f"registers {ms['registers'][0]:.4f}, {ms['registers'][1]:.4f}, tiles "
+              f"{ms['tiles'][1]:.4f} ms; plain {plain_ms:.4f} ms (median of 5); SDPA forward + "
+              f"backward {sdpa:.4f} ms, backward alone {sdpa_bwd:.4f} ms; bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}) on {smi}")
+        if not (ok and agree[2]):
+            raise AssertionError(f"K8b's registers design {shape} disagrees with its plain "
+                                 "version or the tiles design")
+        if Dh == 64:
+            _spill_free("K8b", shape, inst)
+        shapes.setdefault("K8b", []).append({
+            "path": f"registers-dh{Dh}", "shape": shape, "design": "registers", "H": H,
+            "Dh": Dh, "max_abs_err": err, "ms": float(np.mean(ms["registers"])),
+            "registers_turns_ms": ms["registers"], "parent_design": "tiles",
+            "parent_ms": float(np.mean(ms["tiles"])), "parent_turns_ms": ms["tiles"],
+            "plain_ms": plain_ms, "library_ms": sdpa, "sdpa_bwd_ms": sdpa_bwd, **bound,
+            "instances": inst})
+        del qkv, q, k, v, do, o, lse, got
+        torch.cuda.empty_cache()
+    return shapes
+
+
 def phase_train_step_heads1(cfg, smi):
     """6r: one step of DiT-S/4 --heads 1 at 64 px (64 x m 4: K2f, K2b on the
     streamed cores), DiT-B/4 --heads 1 at 32 px (16 x m 8: K2f, K4) and
@@ -3546,7 +3741,7 @@ PHASES = ("kernels", "backward", "energy", "flash", "moe-kernels", "slice", "tra
           "wide-mlp-kernels", "train-step-1536", "train-1536", "moe-128-kernels",
           "train-step-moe-128", "train-moe-128", "streamed-kernels", "train-step-heads1",
           "train-heads1", "ln-dense-kernels", "whole-block", "phase-softmax", "ablate",
-          "registers-kernels")
+          "registers-kernels", "registers-bwd-kernels")
 # launches per training step and per 20-step sampler call on the wide paths;
 # the DiT-L trainer (7d) runs depth 12 since PR 9 (7k runs its kernels at
 # DiT-XL's full depth 28)
@@ -3659,6 +3854,17 @@ REGISTERS_CORES = [("dit-s", TRAIN_BATCH * TRAIN_M, 64, 6, 64, "K2f"),
                    ("dit-xl64", PX64_BATCH * PX64_M, 256, 16, 72, "K7f")]
 REGISTERS_K8 = [(LONG_BATCH * LONG_M, 1024, 6, 64), (LONG_BATCH * LONG_M, 1024, 3, 128),
                 (LONG_BATCH * LONG_M, 1024, 12, 32)]
+# 3x: (path, B, N, H, Dh, counter) for the backward core's registers design:
+# DiT-S/4's training shape and 64 px (K2b's core), DiT-B/4 at 64 px (K4's),
+# DiT-L/4 and DiT-XL/4 at 64 px (K7b), the --tp 2 shard's K7b (three
+# tensors) and DiT-S/4 --heads 16 (Dh 24, K2b's); K8b at REGISTERS_K8
+REGISTERS_BWD_CORES = [("dit-s", TRAIN_BATCH * TRAIN_M, 64, 6, 64, "K2b"),
+                       ("64px", PX64_BATCH * PX64_M, 256, 6, 64, "K2b"),
+                       ("dit-b64", PX64_BATCH * PX64_M, 256, 12, 64, "K4"),
+                       ("dit-l64", PX64_BATCH * PX64_M, 256, 16, 64, "K7b"),
+                       ("dit-xl64", PX64_BATCH * PX64_M, 256, 16, 72, "K7b"),
+                       ("tp", TRAIN_BATCH * TRAIN_M, 64, 6, 64, "K7b"),
+                       ("heads16", TRAIN_BATCH * TRAIN_M, 64, 16, 24, "K2b")]
 
 
 def main(argv=None) -> None:
@@ -3780,6 +3986,7 @@ def main(argv=None) -> None:
         ("phase-softmax", lambda: phase_phase_softmax(A, smi)),
         ("ablate", lambda: phase_ablate(A, M, smi)),
         ("registers-kernels", lambda: phase_registers_kernels(A, FL, smi)),
+        ("registers-bwd-kernels", lambda: phase_registers_bwd_kernels(A, FL, smi)),
     ]
     out = {}
     t_run = time.perf_counter()
@@ -3838,7 +4045,8 @@ def main(argv=None) -> None:
                        out["m32-kernels"], out["attention-core"][1], out["tp-kernels"][1],
                        out["xl-kernels"], out["fast-gelu-kernels"], out["moe-xl-kernels"],
                        out["flash-widths"], out["wide-mlp-kernels"], out["moe-128-kernels"],
-                       out["streamed-kernels"], out["registers-kernels"]):
+                       out["streamed-kernels"], out["registers-kernels"],
+                       out["registers-bwd-kernels"]):
             k.setdefault("shapes", []).extend(shapes.get(k["name"], []))
     k8 = sorted({s["Dh"] for k in kernels if k["name"] == "K8f" for s in k["shapes"]})
     print(f"[k8-widths] K8f and K8b held against their plain versions on the card at Dh {k8}; "

@@ -37,8 +37,10 @@
 //
 // The forward core: one block per (image, head, query tile) holds its QT
 // full score rows in shared memory (K, then V, pass through one N-row
-// buffer). The backward has two designs, picked by N. Where one (image,
-// head)'s fp32 P and dP tiles fit a block (N <= 112 at Dh = 64) one block
+// buffer). The backward's earlier designs (the registers design below is
+// the plan's pick wherever the padded head is at most 128 columns wide):
+// where one (image, head)'s fp32 P and dP tiles fit a block (N <= 112 at
+// Dh = 64) one block
 // per (image, head) keeps Q, K, V, dO, P and dP in shared memory (81 KB at
 // N = Dh = 64) and computes the scores once. Past that, two passes with no
 // atomics and a fixed order: pass 1, over query tiles, computes P, att, dP,
@@ -99,6 +101,25 @@
 // lanes a row, O summed over 16-key steps) and exp is the card's ex2 with
 // log2 e folded into the scale (mma_frag.cuh), so its bits are not the
 // resident core's and the card checks it against the plain version.
+//
+// The backward's registers design (the plan's pick at padded(Dh) <= 128):
+// the one-block core and the two passes keep P, dP and dS in shared memory
+// as fp32 WMMA tiles, run scalar softmax and dS passes over them behind
+// about ten barriers and load every operand synchronously; ~8x SDPA's
+// forward and backward. Here (attention_bwd_regs.cuh, shared with K8b)
+// every product is mma.sync on register fragments. Past N 64 two kernels:
+// the dq side, 64 query rows a block, sweeps the key tiles twice, the first
+// for each row's max, sum and u = sum e dP (dsum = u / l is rowsum(P dP) of
+// the fp32 P and dP, the rounding plan above up to the order of the sums),
+// the second for P, att, dS and dq, and saves (m, l, dsum) to stats; the
+// dk/dv side, 64 key rows a block, recomputes S^T and dP^T (keys x queries)
+// over the query tiles in order and accumulates dv and dk in registers. At
+// N <= 64 one block per (image, head) does all of it (the fused design): S
+// and dP once, bf16 P and dS through shared memory to the warps that own
+// dk's and dv's key rows. No atomics; each output written once, so a
+// second call is bit-identical. Its sums run in another order than the
+// earlier designs', so checks of their bits force them by name.
+#include "attention_bwd_regs.cuh"
 #include "attention_tiles.cuh"
 #include "mma_frag.cuh"
 
@@ -166,27 +187,6 @@ constexpr int kRegMaxWidth = 128;
 // Q's rows, then two stages of K and two of V.
 size_t regs_smem(int DP, int rows) {
   return (size_t)(rows + 4 * kRegKeys) * (DP + kPadH) * sizeof(bf16);
-}
-
-// Scores of keys at or past N (the last tile of a ragged N) to -inf.
-__device__ __forceinline__ void mask_keys(float (&s)[8][4], int k0, int N, int t) {
-  if (k0 + kRegKeys <= N) return;
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (k0 + 8 * j + 2 * t + (e & 1) >= N) s[j][e] = -INFINITY;
-}
-
-// The largest raw score of rows g (c[0], c[1]) and g + 8 (c[2], c[3]) of
-// one row tile over the key tile: times the scale (> 0) it is the largest
-// scaled score, exactly.
-__device__ __forceinline__ void row_max(const float (&s)[8][4], float (&mx)[2]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
-    mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
-  }
 }
 
 // e = exp(s scale - m) in place, rows g and g + 8, as 2^(s scale2 - m
@@ -637,6 +637,189 @@ attention_core_bwd_cols_kernel(Heads in, const bf16* __restrict__ datt,
   store_head(out.row(out.v, b, N, c0, h, Dh) + e0, out.ld, dV, ALD, KT, wv);
 }
 
+// The ring tiles of the backward's registers design at padded width DP: 64
+// rows, fewer where a side's accumulators (dq and att, or dk and dv) leave
+// too few of a thread's 255 registers for two fp32 score tiles of 64 rows
+// (ptxas's -v report on the H100 showed spills there). Its kernels declare
+// one block an SM, so that ptxas may take all 255 (left to itself it held
+// the padded-80 dk/dv kernel to 168 and spilled).
+__host__ __device__ constexpr int core_dq_tile(int DP, bool att) {
+  return !att || DP <= 96 ? kBwdTile : DP <= 112 ? 32 : 16;
+}
+
+__host__ __device__ constexpr int core_dkv_tile(int DP) {
+  return DP <= 64 ? kBwdTile : DP <= 96 ? 32 : 16;
+}
+
+// The backward's registers design (attention_bwd_regs.cuh), at padded
+// widths up to kRegMaxWidth. The dq side: each row's (m, l, dsum) to stats;
+// att = bf16(bf16(P) V) where ATT (K2b, K4), none for K7b.
+template <int DP, int WARPS, bool ATT>
+__global__ void __launch_bounds__(32 * WARPS, 1)
+attention_core_bwd_dq_regs_kernel(Heads in, const bf16* __restrict__ datt, bf16* __restrict__ att,
+                                  DHeads out, float* __restrict__ stats, int N, int H, int Dh,
+                                  float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int b = blockIdx.x / H, h = blockIdx.x % H, D = H * Dh;
+  const size_t head = (size_t)b * N * D + h * Dh;
+  bwd_dq_body<DP, WARPS, core_dq_tile(DP, ATT), true, ATT>(
+      smem, in.row(in.q, b, N, 0, h, Dh), in.row(in.k, b, N, 0, h, Dh),
+      in.row(in.v, b, N, 0, h, Dh), in.ld, datt + head, D, out.row(out.q, b, N, 0, h, Dh), out.ld,
+      ATT ? att + head : nullptr, D, stats + (size_t)blockIdx.x * N * 3, N, Dh, scale,
+      blockIdx.y * 16 * WARPS, [](int, int, const bf16*, int, RowTerms&) {});
+}
+
+// The dk/dv side, P and dS from the dq side's (m, l, dsum).
+struct CoreTerms {
+  const float* stats;  // the head's row 0
+  int N;
+  __device__ __forceinline__ void operator()(int c, float& a, float& b, float& dsum) const {
+    if (c < N) {
+      a = stats[3 * c] * kLog2e;
+      b = 1.f / stats[3 * c + 1];
+      dsum = stats[3 * c + 2];
+    } else {
+      a = b = dsum = 0.f;
+    }
+  }
+};
+
+template <int DP, int WARPS>
+__global__ void __launch_bounds__(32 * WARPS, 1)
+attention_core_bwd_dkv_regs_kernel(Heads in, const bf16* __restrict__ datt,
+                                   const float* __restrict__ stats, DHeads out, int N, int H,
+                                   int Dh, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int b = blockIdx.x / H, h = blockIdx.x % H, D = H * Dh;
+  bwd_dkv_body<DP, WARPS, core_dkv_tile(DP)>(
+      smem, in.row(in.q, b, N, 0, h, Dh), in.row(in.k, b, N, 0, h, Dh),
+      in.row(in.v, b, N, 0, h, Dh), in.ld, datt + (size_t)b * N * D + h * Dh, D,
+      out.row(out.k, b, N, 0, h, Dh), out.row(out.v, b, N, 0, h, Dh), out.ld, N, Dh, scale,
+      blockIdx.y * 16 * WARPS, CoreTerms{stats + (size_t)blockIdx.x * N * 3, N});
+}
+
+// The registers design in one block per (image, head) at N <= 64 (the
+// "registers-fused" design): Q, K, V and dO copied once; warp w computes
+// rows [16w, 16w + 16) of S, P (exact: one key tile holds the whole row),
+// att, dP, dsum = rowsum(P dP), dS and dq in registers, and puts bf16 P and
+// bf16 dS in shared memory; after one barrier it takes key rows [16w,
+// 16w + 16) of dv = P^T dO and dk = dS^T Q, reading P^T and dS^T as A
+// fragments by ldmatrix .trans. No stats, no recomputed S or dP.
+template <int DP>
+constexpr size_t fused_bwd_smem() {
+  return (size_t)4 * kBwdTile * (DP + kPadH) * sizeof(bf16) +
+         (size_t)2 * kBwdTile * (kBwdTile + kPadH) * sizeof(bf16);
+}
+
+// rows [r, r + 16) of a 16 x 64 bf16 tile in A fragments pa into a shared
+// tile of row stride ld
+__device__ __forceinline__ void put_tile(bf16* dst, int ld, const uint32_t (&pa)[4][4], int lane) {
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t* lo = reinterpret_cast<uint32_t*>(dst + g * ld + 16 * kk + 2 * t);
+    uint32_t* hi = reinterpret_cast<uint32_t*>(dst + (g + 8) * ld + 16 * kk + 2 * t);
+    lo[0] = pa[kk][0];
+    hi[0] = pa[kk][1];
+    lo[4] = pa[kk][2];
+    hi[4] = pa[kk][3];
+  }
+}
+
+// The transpose of 64 rows x columns [c, c + 16) of a shared bf16 tile (row
+// stride ld) as the A fragments of a 16 x 64 operand.
+__device__ __forceinline__ void get_tile_t(uint32_t (&pa)[4][4], const bf16* src, int ld, int c,
+                                           int lane) {
+  const int row = (lane % 8) + (lane / 16) * 8, col = c + ((lane / 8) % 2) * 8;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) ldmatrix_x4<true>(pa[kk], src + (16 * kk + row) * ld + col);
+}
+
+template <int DP, bool ATT>
+__global__ void __launch_bounds__(kThreads, 1)
+attention_core_bwd_fused_kernel(Heads in, const bf16* __restrict__ datt, bf16* __restrict__ att,
+                                DHeads out, int N, int H, int Dh, float scale) {
+  constexpr int kLd = DP + kPadH, kT = kBwdTile * kLd, kPld = kBwdTile + kPadH;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Ks = Qs + kT;
+  bf16* Vs = Ks + kT;
+  bf16* dOs = Vs + kT;
+  bf16* Ps = dOs + kT;
+  bf16* dSs = Ps + kBwdTile * kPld;
+  const int b = blockIdx.x / H, h = blockIdx.x % H, D = H * Dh;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t = lane % 4;
+  const int r = warp * 16;  // the warp's query rows, then its key rows
+  const size_t head = (size_t)b * N * D + h * Dh;
+  load_tile_async<kBwdTile, DP, kThreads>(Qs, in.row(in.q, b, N, 0, h, Dh), in.ld, 0, N, Dh);
+  load_tile_async<kBwdTile, DP, kThreads>(Ks, in.row(in.k, b, N, 0, h, Dh), in.ld, 0, N, Dh);
+  load_tile_async<kBwdTile, DP, kThreads>(Vs, in.row(in.v, b, N, 0, h, Dh), in.ld, 0, N, Dh);
+  load_tile_async<kBwdTile, DP, kThreads>(dOs, datt + head, D, 0, N, Dh);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  {
+    ARows<DP, kLd, false> qa, da;
+    qa.init(Qs + r * kLd, lane);
+    da.init(dOs + r * kLd, lane);
+    float s[8][4], dp[8][4], mx[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    abt<DP, kLd, kBwdTile>(s, qa, Ks, lane);
+    mask_keys(s, 0, N, t);
+    row_max(s, mx);
+    const float m2[2] = {quad_max(mx[0]) * scale * kLog2e, quad_max(mx[1]) * scale * kLog2e};
+    const float scale2 = scale * kLog2e;
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[c][e] = exp2_approx(s[c][e] * scale2 - m2[e / 2]);
+        l[e / 2] += s[c][e];
+      }
+    const float inv_l[2] = {1.f / quad_sum(l[0]), 1.f / quad_sum(l[1])};
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[c][e] *= inv_l[e / 2];
+    uint32_t pa[4][4];
+    pack_tile(pa, s);
+    put_tile(Ps + r * kPld, kPld, pa, lane);
+    if constexpr (ATT) {
+      float o[DP / 8][4];
+      zero_acc<DP>(o);
+      ab<DP, kLd, kBwdTile>(o, pa, Vs, lane);
+      store_acc<DP>(att + head, D, o, r, N, Dh, lane);
+    }
+    abt<DP, kLd, kBwdTile>(dp, da, Vs, lane);
+    float su[2] = {0.f, 0.f};
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) su[e / 2] += s[c][e] * dp[c][e];
+    const float dsum[2] = {quad_sum(su[0]), quad_sum(su[1])};
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[c][e] = s[c][e] * (dp[c][e] - dsum[e / 2]) * scale;
+    pack_tile(pa, s);
+    put_tile(dSs + r * kPld, kPld, pa, lane);
+    float dq[DP / 8][4];
+    zero_acc<DP>(dq);
+    ab<DP, kLd, kBwdTile>(dq, pa, Ks, lane);
+    store_acc<DP>(out.row(out.q, b, N, 0, h, Dh), out.ld, dq, r, N, Dh, lane);
+  }
+  __syncthreads();
+  uint32_t pa[4][4];
+  float acc[DP / 8][4];
+  get_tile_t(pa, Ps, kPld, r, lane);
+  zero_acc<DP>(acc);
+  ab<DP, kLd, kBwdTile>(acc, pa, dOs, lane);  // dv = bf16(P)^T dO
+  store_acc<DP>(out.row(out.v, b, N, 0, h, Dh), out.ld, acc, r, N, Dh, lane);
+  get_tile_t(pa, dSs, kPld, r, lane);
+  zero_acc<DP>(acc);
+  ab<DP, kLd, kBwdTile>(acc, pa, Qs, lane);  // dk = dS^T Q
+  store_acc<DP>(out.row(out.k, b, N, 0, h, Dh), out.ld, acc, r, N, Dh, lane);
+}
+
 // The widest of 32 and 16 rows dividing N whose tile fits `limit`; 0 if none.
 template <typename Smem>
 int pick_rows(int N, size_t limit, Smem smem) {
@@ -698,10 +881,20 @@ ColTiles cols_tiles(int N, int Dh, bool streamed) {
   return best;
 }
 
-// The backward's plan: design 0 one block per (image, head), 1 two passes
-// on whole heads, 2 two streamed passes; -1 picks the one-block design
-// where it fits, else each pass resident where its tiles fit and streamed
-// elsewhere. The launcher and ddm_attention_core_plan both read it.
+// The backward's designs (ddm_attention_core_plan's codes): one block per
+// (image, head), two passes on whole heads, two streamed passes, and the
+// registers design as its dq and dk/dv sides or in one block per (image,
+// head) at N <= 64.
+constexpr int kBwdOneBlock = 0, kBwdTwoPass = 1, kBwdStreamed = 2, kBwdRegisters = 3,
+              kBwdRegistersFused = 4;
+
+// The backward's plan: -1 picks the registers design where the padded head
+// takes it (fused at N <= 64), else the one-block design where it fits,
+// else each pass resident where its tiles fit and streamed elsewhere. The
+// launcher and ddm_attention_core_plan both read it; a registers plan's
+// rows are the dq side's (query rows a block, the padded head) and its cols
+// the dk/dv side's (key rows a block, query rows a stage, the padded head
+// twice).
 struct BwdPlan {
   int design;
   RowTiles rows;
@@ -714,17 +907,27 @@ bool one_block_fits(int N, int Dh) {
 
 BwdPlan bwd_plan(int N, int Dh, int design) {
   BwdPlan p{design, {0, 0}, {0, 0, 0, 0}};
-  if (design == 0 || (design < 0 && one_block_fits(N, Dh))) {
-    p.design = one_block_fits(N, Dh) ? 0 : -1;
+  const int DP = padded(Dh);
+  if (design == kBwdRegisters || design == kBwdRegistersFused ||
+      (design < 0 && DP <= kRegMaxWidth)) {
+    const bool fused = design == kBwdRegistersFused || (design < 0 && N <= kBwdTile);
+    if (DP > kRegMaxWidth || (fused && N > kBwdTile)) {
+      p.design = -1;
+      return p;
+    }
+    return {fused ? kBwdRegistersFused : kBwdRegisters, {kBwdTile, DP},
+            {kBwdTile, fused ? kBwdTile : core_dkv_tile(DP), DP, DP}};
+  }
+  if (design == kBwdOneBlock || (design < 0 && one_block_fits(N, Dh))) {
+    p.design = one_block_fits(N, Dh) ? kBwdOneBlock : -1;
     return p;
   }
-  p.rows = rows_tiles(N, Dh, design == 2);
-  p.cols = cols_tiles(N, Dh, design == 2);
+  p.rows = rows_tiles(N, Dh, design == kBwdStreamed);
+  p.cols = cols_tiles(N, Dh, design == kBwdStreamed);
   if (design < 0) {
     if (p.rows.QT == 0) p.rows = rows_tiles(N, Dh, true);
     if (p.cols.KT == 0) p.cols = cols_tiles(N, Dh, true);
-    p.design = p.rows.C == padded(Dh) && p.cols.C2 == padded(Dh) && p.cols.C == padded(Dh)
-                   ? 1 : 2;
+    p.design = p.rows.C == DP && p.cols.C2 == DP && p.cols.C == DP ? kBwdTwoPass : kBwdStreamed;
   }
   if (p.rows.QT == 0 || p.cols.KT == 0) p.design = -1;
   return p;
@@ -834,6 +1037,44 @@ cudaError_t launch_bwd_two_pass(Heads in, const bf16* datt, bf16* att, DHeads ou
       s, in, datt, stats, out, N, H, Dh, scale, c.KT, c.QT, c.C, c.C2);
 }
 
+// The backward's registers design at padded width DP: the dq side, then
+// the dk/dv side (stats: B x H x N x 3 floats), or the fused block.
+template <int DP>
+cudaError_t launch_bwd_regs_at(Heads in, const bf16* datt, bf16* att, DHeads out, float* stats,
+                               int B, int N, int H, int Dh, float scale, bool fused,
+                               cudaStream_t s) {
+  const int tiles = (N + kBwdTile - 1) / kBwdTile;
+  if (fused)
+    return launch(att ? attention_core_bwd_fused_kernel<DP, true>
+                      : attention_core_bwd_fused_kernel<DP, false>,
+                  dim3(B * H), fused_bwd_smem<DP>(), s, in, datt, att, out, N, H, Dh, scale);
+  const cudaError_t err =
+      att ? launch(attention_core_bwd_dq_regs_kernel<DP, 4, true>, dim3(B * H, tiles),
+                   bwd_dq_smem<DP, 4, core_dq_tile(DP, true)>(), s, in, datt, att, out, stats, N, H,
+                   Dh, scale)
+          : launch(attention_core_bwd_dq_regs_kernel<DP, 4, false>, dim3(B * H, tiles),
+                   bwd_dq_smem<DP, 4, core_dq_tile(DP, false)>(), s, in, datt, att, out, stats, N,
+                   H, Dh, scale);
+  if (err != cudaSuccess) return err;
+  return launch(attention_core_bwd_dkv_regs_kernel<DP, 4>, dim3(B * H, tiles),
+                bwd_dkv_smem<DP, 4, core_dkv_tile(DP)>(), s, in, datt, (const float*)stats, out, N,
+                H, Dh, scale);
+}
+
+#define DDM_REGS_WIDTHS(X) X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128)
+
+cudaError_t launch_bwd_regs(Heads in, const bf16* datt, bf16* att, DHeads out, float* stats,
+                            int B, int N, int H, int Dh, float scale, bool fused,
+                            cudaStream_t s) {
+  switch (padded(Dh)) {
+#define DDM_BWD_REGS(W) \
+    case W: return launch_bwd_regs_at<W>(in, datt, att, out, stats, B, N, H, Dh, scale, fused, s);
+    DDM_REGS_WIDTHS(DDM_BWD_REGS)
+#undef DDM_BWD_REGS
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // dq, dk and dv into the thirds of a (B, N, 3D) buffer.
 DHeads dqkv_heads(void* dqkv, int D) {
   bf16* p = (bf16*)dqkv;
@@ -848,7 +1089,10 @@ DHeads dqkv_heads(void* dqkv, int D) {
 // (streamed) or 2 (registers: QT the block's 64 rows, C the padded head);
 // backward, plan[0..6] = (design, pass 1's QT, C, pass 2's KT,
 // QT, C, C2), design 0 (one block: no pass tiles), 1 (two passes on whole
-// heads) or 2 (a pass streamed). A forced design is reported as asked (at
+// heads), 2 (a pass streamed), 3 (registers: the dq side's rows a block and
+// padded head, the dk/dv side's keys a block, queries a stage and padded
+// head twice) or 4 (registers, one block per (image, head): the same
+// tiles). A forced design is reported as asked (at
 // Dh <= kChunk the streamed tiles hold the whole head). Returns
 // cudaErrorInvalidValue where no design of that choice takes the shape.
 extern "C" int ddm_attention_core_plan(int N, int Dh, int backward, int design, int* plan) {
@@ -870,25 +1114,37 @@ extern "C" int ddm_attention_core_plan(int N, int Dh, int backward, int design, 
 // Registers and local (spill) bytes a thread of each core kernel takes:
 // attrs[2 i], attrs[2 i + 1] for the forward core (resident, streamed), the
 // one-block backward, pass 1 (resident, streamed), pass 2 (resident,
-// streamed), then the registers design at padded widths 16, 32, ..., 128,
-// each with two score tiles held (4 warps), in two sweeps on 4 warps and
-// on 8.
+// streamed), then the forward's registers design at padded widths 16, 32,
+// ..., 128, each with two score tiles held (4 warps), in two sweeps on 4
+// warps and on 8, then the backward's registers design at the same widths,
+// each its dq side with att and without, its dk/dv side, and the fused
+// block with att and without.
 extern "C" int ddm_attention_kernel_attrs(int* attrs) {
   using namespace ddm;
-  const void* kernels[7 + 24] = {(const void*)attention_core_kernel<false>,
-                                 (const void*)attention_core_kernel<true>,
-                                 (const void*)attention_core_bwd_kernel<0>,
-                                 (const void*)attention_core_bwd_rows_kernel<false>,
-                                 (const void*)attention_core_bwd_rows_kernel<true>,
-                                 (const void*)attention_core_bwd_cols_kernel<false>,
-                                 (const void*)attention_core_bwd_cols_kernel<true>};
+  constexpr int kN = 7 + 24 + 40;
+  const void* kernels[kN] = {(const void*)attention_core_kernel<false>,
+                             (const void*)attention_core_kernel<true>,
+                             (const void*)attention_core_bwd_kernel<0>,
+                             (const void*)attention_core_bwd_rows_kernel<false>,
+                             (const void*)attention_core_bwd_rows_kernel<true>,
+                             (const void*)attention_core_bwd_cols_kernel<false>,
+                             (const void*)attention_core_bwd_cols_kernel<true>};
   for (int w = 0; w < 8; ++w) {
     const int DP = 16 * (w + 1);
     kernels[7 + 3 * w] = (const void*)regs_kernel<2, 4>(DP);
     kernels[8 + 3 * w] = (const void*)regs_kernel<0, 4>(DP);
     kernels[9 + 3 * w] = (const void*)regs_kernel<0, 8>(DP);
   }
-  for (int i = 0; i < 7 + 24; ++i) {
+  int i = 31;
+#define DDM_BWD_REGS_ATTRS(W)                                               \
+  kernels[i++] = (const void*)attention_core_bwd_dq_regs_kernel<W, 4, true>;  \
+  kernels[i++] = (const void*)attention_core_bwd_dq_regs_kernel<W, 4, false>; \
+  kernels[i++] = (const void*)attention_core_bwd_dkv_regs_kernel<W, 4>;       \
+  kernels[i++] = (const void*)attention_core_bwd_fused_kernel<W, true>;       \
+  kernels[i++] = (const void*)attention_core_bwd_fused_kernel<W, false>;
+  DDM_REGS_WIDTHS(DDM_BWD_REGS_ATTRS)
+#undef DDM_BWD_REGS_ATTRS
+  for (i = 0; i < kN; ++i) {
     cudaFuncAttributes a;
     const cudaError_t err = cudaFuncGetAttributes(&a, kernels[i]);
     if (err != cudaSuccess) return (int)err;
@@ -913,7 +1169,8 @@ extern "C" int ddm_attention_core(const void* q, const void* k, const void* v, i
 // q, k and v (rows of stride ld) for the (B, N, H*Dh) cotangent dout, into the
 // thirds of the (B, N, 3D) dqkv rows, and att = bf16(P V) where att is not
 // null (K7b writes none). design as ddm_attention_core_plan's; every design
-// but the one-block one takes stats, B x H x N x 3 floats of scratch.
+// but the one-block one takes stats, B x H x N x 3 floats of scratch (the
+// fused registers block leaves it untouched).
 extern "C" int ddm_attention_core_bwd(const void* q, const void* k, const void* v, int ld,
                                       const void* dout, void* att, void* dqkv, void* stats, int B,
                                       int N, int H, int Dh, float scale, int design,
@@ -925,9 +1182,12 @@ extern "C" int ddm_attention_core_bwd(const void* q, const void* k, const void* 
   const Heads in{(const bf16*)q, (const bf16*)k, (const bf16*)v, ld};
   const DHeads out = dqkv_heads(dqkv, H * Dh);
   const cudaStream_t s = (cudaStream_t)stream;
-  if (p.design == 0)
+  if (p.design == kBwdOneBlock)
     return (int)launch_bwd_one_block(in, (const bf16*)dout, (bf16*)att, out, B, N, H, Dh, scale,
                                      s);
+  if (p.design == kBwdRegisters || p.design == kBwdRegistersFused)
+    return (int)launch_bwd_regs(in, (const bf16*)dout, (bf16*)att, out, (float*)stats, B, N, H,
+                                Dh, scale, p.design == kBwdRegistersFused, s);
   return (int)launch_bwd_two_pass(in, (const bf16*)dout, (bf16*)att, out, (float*)stats, B, N,
                                   H, Dh, scale, p, s);
 }

@@ -104,6 +104,7 @@
 // flash_bwd_dkv_kernel, one block per (k tile, head, image): over the q
 // tiles the same p and ds, dv += bf16(p)^T dO, dk += ds^T Q in register
 // fragments (wide: in shared memory); dk and dv are rounded once.
+#include "attention_bwd_regs.cuh"
 #include "common.cuh"
 #include "mma_frag.cuh"
 
@@ -593,6 +594,84 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_tile<Dh>(out + 2 * D, 3 * D, dP, dh);
 }
 
+// K8b's registers design at Dh 32, 64, 128 (attention_bwd_regs.cuh): a dq
+// block of 64 query rows and a dk/dv block of 64 key rows, as the tiles
+// design's, with p = exp(s scale - lse) from the forward's lse. The dq side
+// takes 64-key tiles; the dk/dv side 32-query tiles at Dh 128, where dk and
+// dv take 128 of a thread's registers.
+__host__ __device__ constexpr int flash_dkv_tile(int Dh) { return Dh <= 64 ? kBwdTile : 32; }
+//
+// The dq side's row terms: lse, and dsum = rowsum(fp32(do) fp32(o)) of the
+// warp's 16 rows by row_dot (the tiles design's order, so the same bits),
+// written out for the dk/dv side.
+template <int Dh>
+struct FlashRows {
+  const bf16* o;  // the head's row 0, row stride ld
+  int ld;
+  const float* lse;  // the head's row 0
+  float* dsum;
+  __device__ __forceinline__ void operator()(int r, int lane, const bf16* dOs, int sld,
+                                             RowTerms& w) const {
+    const int g = lane / 4;
+#pragma unroll 1
+    for (int i = 0; i < 16; ++i) {
+      const float d = row_dot<Dh>(dOs + i * sld, o + (size_t)(r + i) * ld, lane);
+      if (i == g) w.dsum[0] = d;
+      if (i == g + 8) w.dsum[1] = d;
+      if (lane == 0) dsum[r + i] = d;
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      w.a[e] = lse[r + g + 8 * e] * kLog2e;
+      w.b[e] = 1.f;
+    }
+  }
+};
+
+template <int Dh>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_regs_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, int ld, const bf16* __restrict__ o,
+                         const bf16* __restrict__ dout, const float* __restrict__ lse,
+                         float* __restrict__ dsum, bf16* __restrict__ dqkv, int N, int H,
+                         float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int h = blockIdx.y, b = blockIdx.z, D = H * Dh;
+  const size_t row0 = (size_t)b * N, stat0 = ((size_t)b * H + h) * N;
+  bwd_dq_body<Dh, kWarps, kBwdTile, false, false>(
+      smem, q + row0 * ld + h * Dh, k + row0 * ld + h * Dh, v + row0 * ld + h * Dh, ld,
+      dout + row0 * D + h * Dh, D, dqkv + row0 * 3 * D + h * Dh, 3 * D, nullptr, 0, nullptr, N,
+      Dh, scale, blockIdx.x * kTile,
+      FlashRows<Dh>{o + row0 * D + h * Dh, D, lse + stat0, dsum + stat0});
+}
+
+// The dk/dv side's query terms: (lse log2 e, 1, dsum).
+struct FlashCols {
+  const float* lse;  // the head's row 0
+  const float* dsum;
+  __device__ __forceinline__ void operator()(int c, float& a, float& b, float& d) const {
+    a = lse[c] * kLog2e;
+    b = 1.f;
+    d = dsum[c];
+  }
+};
+
+template <int Dh>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_regs_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, int ld, const bf16* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ dsum,
+                          bf16* __restrict__ dqkv, int N, int H, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int h = blockIdx.y, b = blockIdx.z, D = H * Dh;
+  const size_t row0 = (size_t)b * N, stat0 = ((size_t)b * H + h) * N;
+  bf16* out = dqkv + row0 * 3 * D + h * Dh;
+  bwd_dkv_body<Dh, kWarps, flash_dkv_tile(Dh)>(
+      smem, q + row0 * ld + h * Dh, k + row0 * ld + h * Dh, v + row0 * ld + h * Dh, ld,
+      dout + row0 * D + h * Dh, D, out + D, out + 2 * D, 3 * D, N, Dh, scale, blockIdx.x * kTile,
+      FlashCols{lse + stat0, dsum + stat0});
+}
+
 // ---- wide heads: Dh = 256 ... 896, walked in 128-column chunks ----
 
 constexpr int kChunk = 128;           // head columns staged at a time
@@ -1050,6 +1129,30 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, int ld, cons
   return cudaGetLastError();
 }
 
+// The registers design's two kernels: the dq kernel writes dsum, which the
+// dk/dv kernel reads (same stream, in order).
+template <int Dh>
+cudaError_t launch_bwd_regs(const void* q, const void* k, const void* v, int ld, const void* o,
+                            const void* dout, const void* lse, void* dsum, void* dqkv, int B,
+                            int N, int H, float scale, cudaStream_t stream) {
+  constexpr size_t dq_bytes = bwd_dq_smem<Dh, kWarps, kBwdTile>(),
+                   dkv_bytes = bwd_dkv_smem<Dh, kWarps, flash_dkv_tile(Dh)>();
+  cudaError_t err = allow_smem(flash_bwd_dq_regs_kernel<Dh>, dq_bytes);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(flash_bwd_dkv_regs_kernel<Dh>, dkv_bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(N / kTile, H, B);
+  flash_bwd_dq_regs_kernel<Dh><<<grid, kThreads, dq_bytes, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, ld, (const bf16*)o, (const bf16*)dout,
+      (const float*)lse, (float*)dsum, (bf16*)dqkv, N, H, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkv_regs_kernel<Dh><<<grid, kThreads, dkv_bytes, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, ld, (const bf16*)dout, (const float*)lse,
+      (const float*)dsum, (bf16*)dqkv, N, H, scale);
+  return cudaGetLastError();
+}
+
 template <int Dh>
 cudaError_t launch_fwd_wide(const void* q, const void* k, const void* v, int ld, void* o,
                             void* lse, int B, int N, int H, float scale, cudaStream_t stream) {
@@ -1130,18 +1233,32 @@ extern "C" int ddm_flash_fwd(const void* q, const void* k, const void* v, int ld
   }
 }
 
-// Registers and local (spill) bytes a thread of each K8f kernel takes:
-// attrs[2 i], attrs[2 i + 1] for the registers design at Dh 32 (two row
-// tiles a warp), 64 and 128, then the tiles design at the same widths.
+// Registers and local (spill) bytes a thread of each K8 kernel at Dh 32, 64
+// and 128 takes: attrs[2 i], attrs[2 i + 1] for K8f's registers design (two
+// row tiles a warp at Dh 32), then its tiles design, then K8b's registers
+// design's dq kernels, its dk/dv kernels, the tiles design's dq kernels and
+// its dk/dv kernels.
 extern "C" int ddm_flash_kernel_attrs(int* attrs) {
   using namespace ddm;
-  const void* kernels[6] = {(const void*)flash_fwd_regs_kernel<32, 2>,
-                            (const void*)flash_fwd_regs_kernel<64, 1>,
-                            (const void*)flash_fwd_regs_kernel<128, 1>,
-                            (const void*)flash_fwd_kernel<32>,
-                            (const void*)flash_fwd_kernel<64>,
-                            (const void*)flash_fwd_kernel<128>};
-  for (int i = 0; i < 6; ++i) {
+  const void* kernels[18] = {(const void*)flash_fwd_regs_kernel<32, 2>,
+                             (const void*)flash_fwd_regs_kernel<64, 1>,
+                             (const void*)flash_fwd_regs_kernel<128, 1>,
+                             (const void*)flash_fwd_kernel<32>,
+                             (const void*)flash_fwd_kernel<64>,
+                             (const void*)flash_fwd_kernel<128>,
+                             (const void*)flash_bwd_dq_regs_kernel<32>,
+                             (const void*)flash_bwd_dq_regs_kernel<64>,
+                             (const void*)flash_bwd_dq_regs_kernel<128>,
+                             (const void*)flash_bwd_dkv_regs_kernel<32>,
+                             (const void*)flash_bwd_dkv_regs_kernel<64>,
+                             (const void*)flash_bwd_dkv_regs_kernel<128>,
+                             (const void*)flash_bwd_dq_kernel<32>,
+                             (const void*)flash_bwd_dq_kernel<64>,
+                             (const void*)flash_bwd_dq_kernel<128>,
+                             (const void*)flash_bwd_dkv_kernel<32>,
+                             (const void*)flash_bwd_dkv_kernel<64>,
+                             (const void*)flash_bwd_dkv_kernel<128>};
+  for (int i = 0; i < 18; ++i) {
     cudaFuncAttributes a;
     const cudaError_t err = cudaFuncGetAttributes(&a, kernels[i]);
     if (err != cudaSuccess) return (int)err;
@@ -1151,11 +1268,29 @@ extern "C" int ddm_flash_kernel_attrs(int* attrs) {
   return 0;
 }
 
+// K8b's designs, as K8f's: 0 "tiles" (flash_bwd_dq_kernel and
+// flash_bwd_dkv_kernel, Dh 4-128), 1 "registers" (Dh 32, 64, 128); -1
+// registers where it takes Dh, tiles at Dh 4-16, the wide kernels at Dh
+// 256-896 (which no design code forces).
 extern "C" int ddm_flash_bwd(const void* q, const void* k, const void* v, int ld, const void* o,
                              const void* dout, const void* lse, void* dsum, void* dqkv, int B,
-                             int N, int H, int Dh, float scale, void* stream) {
+                             int N, int H, int Dh, float scale, int design, void* stream) {
   using namespace ddm;
   const cudaStream_t s = (cudaStream_t)stream;
+  const bool regs = Dh == 32 || Dh == 64 || Dh == 128;
+  if (design == kFwdRegisters || (design < 0 && regs)) {
+    switch (Dh) {
+      case 32:
+        return (int)launch_bwd_regs<32>(q, k, v, ld, o, dout, lse, dsum, dqkv, B, N, H, scale, s);
+      case 64:
+        return (int)launch_bwd_regs<64>(q, k, v, ld, o, dout, lse, dsum, dqkv, B, N, H, scale, s);
+      case 128:
+        return (int)launch_bwd_regs<128>(q, k, v, ld, o, dout, lse, dsum, dqkv, B, N, H, scale,
+                                         s);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (design != kFwdTiles && design >= 0) return (int)cudaErrorInvalidValue;
   switch (Dh) {
     case 4:
     case 8:
@@ -1170,8 +1305,9 @@ extern "C" int ddm_flash_bwd(const void* q, const void* k, const void* v, int ld
       return (int)launch_bwd<128>(q, k, v, ld, o, dout, lse, dsum, dqkv, B, N, H, Dh, scale, s);
 #define DDM_BWD_WIDE(W)                                                                    \
     case W:                                                                                \
-      return (int)launch_bwd_wide<W>(q, k, v, ld, o, dout, lse, dsum, dqkv, B, N, H, scale, \
-                                     s);
+      return design < 0 ? (int)launch_bwd_wide<W>(q, k, v, ld, o, dout, lse, dsum, dqkv, B, \
+                                                  N, H, scale, s)                           \
+                        : (int)cudaErrorInvalidValue;
     DDM_FLASH_WIDTHS(DDM_BWD_WIDE)
 #undef DDM_BWD_WIDE
     default: return (int)cudaErrorInvalidValue;

@@ -1,8 +1,8 @@
 // Register-fragment and copy helpers for the tensor-core kernels (sm_90a):
 // mma.sync m16n8k16 (bf16 in, fp32 accumulate), ldmatrix, cp.async. The
 // attention forwards in csrc/attention.cu (the "registers" core) and
-// csrc/flash.cu (K8f at Dh 32, 64, 128) are built from them; the backward
-// cores can take them as they are.
+// csrc/flash.cu (K8f at Dh 32, 64, 128) are built from them, and so are the
+// two backwards (attention_bwd_regs.cuh).
 //
 // Fragment layouts (PTX ISA, "Matrix Fragments for mma.m16n8k16"): lane l of
 // a warp is in row group g = l / 4 with column pair t = l % 4.

@@ -33,19 +33,27 @@ each row's max and sum). Its sums run in another order than the resident
 core's, so its bits are not the resident core's: the card holds it to the
 plain version. The resident and streamed designs run one block per
 (image, head, query tile) over full score rows in shared memory. The
-backward core runs one block per (image, head) where its
-fp32 P and dP tiles fit shared memory (N <= 112 at Dh = 64), and past that
-two passes, over query tiles (P, att, dq and the row terms) and over key
-tiles and output column chunks (dk, dv). The forward core and each pass
-hold a whole head in shared memory where it fits (the resident design) and
-otherwise pass it through in 64-column chunks, keeping only the fp32 score
-rows whole (the streamed design, past the card's 227 KB: DiT-S/4 at
-``--heads 1`` and 64 px, DiT-B/4 at ``--heads 1``, DiT-L/4 at ``--heads 2``
-and 64 px); the library's plan (:func:`core_plan`) picks, and ``design=``
+backward core has the same registers design at the same widths
+(:data:`BWD_DESIGNS` "registers" and "registers-fused"): P, dP, dS and the
+gradients as tensor-core fragments in registers, with a dq side (two
+sweeps over the key tiles: each row's max, sum and sum of e dP, then P,
+att, dS and dq) and a dk/dv side (the transposed score tiles over the query
+tiles) past N 64, and one block per (image, head) at N <= 64 (the fused
+design, the main path's). Elsewhere the backward core runs one block per
+(image, head) where its fp32 P and dP tiles fit shared memory (N <= 112 at
+Dh = 64), and past that two passes, over query tiles (P, att, dq and the
+row terms) and over key tiles and output column chunks (dk, dv). The
+forward core and each pass hold a whole head in shared memory where it
+fits (the resident design) and otherwise pass it through in 64-column
+chunks, keeping only the fp32 score rows whole (the streamed design, past
+the card's 227 KB: DiT-S/4 at ``--heads 1`` and 64 px, DiT-B/4 at
+``--heads 1``, DiT-L/4 at ``--heads 2`` and 64 px); the library's plan
+(:func:`core_plan`) picks, and ``design=``
 forces one for the card tests. Every design keeps the same rounding plan;
-the resident and streamed designs and the backward's keep the same order
-of every sum, so they agree bit for bit where two apply; the one-block
-design is the fastest where it fits.
+the resident and streamed designs and the backward's earlier ones keep the
+same order of every sum, so they agree bit for bit where two apply; the
+registers designs sum in another order, and the card holds them to the
+plain versions and to the earlier designs by the bf16 rule.
 
 That backward is the port of two TPU kernels, which the JAX ladder picks
 by the shapes (:func:`ddm_tpu_torch.ops.tiers.attention_tier`): the fused
@@ -152,14 +160,16 @@ CORE_BWD_LAUNCHES = LaunchCounter("K7b")
 MAX_TOKENS = 512  # the JAX gate's N <= 512; the flash tier takes N >= 1024
 # the cores' designs (``design=``), in the order of the library's codes
 FWD_DESIGNS = ("resident", "streamed", "registers")
-BWD_DESIGNS = ("one-block", "two-pass", "streamed")
-# the padded head widths the registers design is built for (padded(Dh) <= 128)
+BWD_DESIGNS = ("one-block", "two-pass", "streamed", "registers", "registers-fused")
+# the padded head widths the registers designs are built for (padded(Dh) <= 128)
 REGISTERS_WIDTHS = tuple(range(16, 129, 16))
 # the core kernels whose registers and spills kernel_attrs reads
 CORE_KERNELS = ("forward", "forward streamed", "one-block backward", "pass 1",
                 "pass 1 streamed", "pass 2", "pass 2 streamed") + tuple(
     f"forward registers {dp} {kind}" for dp in REGISTERS_WIDTHS
-    for kind in ("held", "two sweeps", "two sweeps 8 warps"))
+    for kind in ("held", "two sweeps", "two sweeps 8 warps")) + tuple(
+    f"backward registers {dp} {kind}" for dp in REGISTERS_WIDTHS
+    for kind in ("dq att", "dq", "dk dv", "fused att", "fused"))
 
 
 def _heads(a: torch.Tensor, H: int) -> torch.Tensor:
@@ -436,9 +446,11 @@ def _launch_core(q, k, v, H, design=None):
 
 
 def _launch_core_bwd(q, k, v, do, H, with_att, design=None):
-    """The backward core -> ``(att or None, dqkv (B, N, 3D))``, bf16: one
-    block per (image, head) where it fits, else the two passes, each
-    resident or streamed (``design`` forces one of :data:`BWD_DESIGNS`)."""
+    """The backward core -> ``(att or None, dqkv (B, N, 3D))``, bf16: the
+    registers design where the padded head is at most 128 wide (one block
+    per (image, head) at N <= 64), else one block per (image, head) where it
+    fits, else the two passes, each resident or streamed (``design`` forces
+    one of :data:`BWD_DESIGNS`)."""
     q, k, v, ld = flash._qkv_rows(q, k, v)
     B, N, D = q.shape
     Dh = D // H
@@ -467,8 +479,8 @@ def _k2_core(qkv, H, design=None):
 
 def _core_bwd_att(qkv, datt, H, design=None):
     """K2b's and K4's attention core -> (att (B, N, D), dqkv (B, N, 3D)),
-    bf16: one block per (image, head) where it fits, else the two passes
-    (``design`` forces one of :data:`BWD_DESIGNS`)."""
+    bf16, by the plan of :func:`_launch_core_bwd` (``design`` forces one of
+    :data:`BWD_DESIGNS`)."""
     return _launch_core_bwd(*qkv.split(qkv.shape[-1] // 3, dim=-1), datt, H, True, design)
 
 
@@ -480,12 +492,14 @@ def _k2f(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H, design=None):
     return out
 
 
-def _k2b(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H, dout, counter=BWD_LAUNCHES):
+def _k2b(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H, dout, counter=BWD_LAUNCHES,
+         design=None):
     """The half-block backward on the card. K2b and K4 (the JAX ladder's
     fused and split backwards) run this one chain; ``counter`` says which
-    tier the ladder picked."""
+    tier the ladder picked; ``design`` forces one of the core's
+    :data:`BWD_DESIGNS`."""
     grads = _bwd_chain(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, dout,
-                       lambda qkv, datt: _core_bwd_att(qkv, datt, H))
+                       lambda qkv, datt: _core_bwd_att(qkv, datt, H, design))
     counter.add()
     return grads
 
@@ -570,10 +584,11 @@ def launch_k7f(q, k, v, H: int) -> torch.Tensor:
     return out
 
 
-def launch_k7b(q, k, v, do, H: int) -> torch.Tensor:
+def launch_k7b(q, k, v, do, H: int, design=None) -> torch.Tensor:
     """K7b on CUDA tensors its caller has checked: dq, dk and dv as the
-    thirds of one (B, N, 3D) bf16 buffer, and no att."""
-    _, dqkv = _launch_core_bwd(q, k, v, do, H, False)
+    thirds of one (B, N, 3D) bf16 buffer, and no att (``design`` forces one
+    of :data:`BWD_DESIGNS`)."""
+    _, dqkv = _launch_core_bwd(q, k, v, do, H, False, design)
     CORE_BWD_LAUNCHES.add()
     return dqkv
 

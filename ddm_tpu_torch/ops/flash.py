@@ -34,7 +34,13 @@ output and each row's running max and sum in registers as tensor-core
 fragments and streams K and V through a two-stage copy ring; "tiles", the
 design of Dh 4, 8 and 16 too, stages them in shared memory. Both follow the
 rounding above element for element; the sums over a row's keys run in
-another order, so their bits differ.
+another order, so their bits differ. K8b has the same two designs
+(:data:`BWD_DESIGNS`): its "registers" design keeps the score, dP,
+probability and dS tiles and the dq, dk and dv accumulators in registers
+(the dk/dv kernel computes the transposed tiles, keys by queries, so that
+P^T and dS^T feed its products as they stand), with Q, dO, K and V through
+the same ring (``csrc/attention_bwd_regs.cuh``, shared with the attention
+core's backward); dsum is the tiles design's bits.
 """
 
 from __future__ import annotations
@@ -66,6 +72,7 @@ __all__ = [
     "BWD_LAUNCHES",
     "HEAD_DIMS",
     "FWD_DESIGNS",
+    "BWD_DESIGNS",
     "REGISTERS_DIMS",
     "TILE",
     "MIN_TOKENS",
@@ -78,6 +85,7 @@ HEAD_DIMS = (4, 8, 16, 32, 64, 128, 256, 384, 512, 640, 768, 896)
 # K8f's designs (``design=``), in the order of the library's codes, and the
 # head widths the registers design is built for (its own pick there)
 FWD_DESIGNS = ("tiles", "registers")
+BWD_DESIGNS = ("tiles", "registers")
 REGISTERS_DIMS = (32, 64, 128)
 TILE = 64         # q rows and k rows per tile of the kernels
 MIN_TOKENS = 1024  # the JAX gate's long-sequence tier (ddm_tpu/ops/flash.py:286)
@@ -196,10 +204,13 @@ def launch_k8f(q, k, v, H: int, scale: float, design=None):
 
 
 def kernel_attrs() -> dict:
-    """Registers and local (spill) bytes a thread of each K8f instance at Dh
-    32, 64 and 128 takes on the card: ``{(design, Dh): {"registers",
-    "local_bytes"}}``."""
-    keys = [(d, dh) for d in FWD_DESIGNS[::-1] for dh in REGISTERS_DIMS]
+    """Registers and local (spill) bytes a thread of each K8 instance at Dh
+    32, 64 and 128 takes on the card: ``{(kernel, Dh): {"registers",
+    "local_bytes"}}``, kernel a K8f design's name (its forward kernel), or
+    ``"<design> dq"`` and ``"<design> dk dv"`` for K8b's two kernels."""
+    keys = [(d, dh) for d in FWD_DESIGNS[::-1] for dh in REGISTERS_DIMS] + [
+        (f"{d} {side}", dh) for d in BWD_DESIGNS[::-1] for side in ("dq", "dk dv")
+        for dh in REGISTERS_DIMS]
     attrs = (ctypes.c_int * (2 * len(keys)))()
     check_status(load_library().ddm_flash_kernel_attrs(ctypes.addressof(attrs)),
                  "K8f kernel attributes")
@@ -207,9 +218,11 @@ def kernel_attrs() -> dict:
             for i, key in enumerate(keys)}
 
 
-def launch_k8b(q, k, v, o, lse, do, H: int, scale: float) -> torch.Tensor:
+def launch_k8b(q, k, v, o, lse, do, H: int, scale: float, design=None) -> torch.Tensor:
     """K8b on CUDA tensors its caller has checked: dq, dk and dv as the
-    thirds of one (B, N, 3D) bf16 buffer."""
+    thirds of one (B, N, 3D) bf16 buffer; ``design`` forces one of
+    :data:`BWD_DESIGNS` (the library raises where it does not take Dh)."""
+    code = design_code(design, BWD_DESIGNS)
     q, k, v, ld = _qkv_rows(q, k, v)
     B, N, D = q.shape
     if o.shape != q.shape or do.shape != q.shape or lse.shape != (B, H, N):
@@ -222,7 +235,7 @@ def launch_k8b(q, k, v, o, lse, do, H: int, scale: float) -> torch.Tensor:
     dqkv = torch.empty((B, N, 3 * D), dtype=torch.bfloat16, device=q.device)
     check_status(load_library().ddm_flash_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ld, o.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), dsum.data_ptr(), dqkv.data_ptr(), B, N, H, D // H, scale,
+        lse.data_ptr(), dsum.data_ptr(), dqkv.data_ptr(), B, N, H, D // H, scale, code,
         current_stream(q.device)), "K8b flash_bwd")
     BWD_LAUNCHES.add()
     return dqkv

@@ -64,7 +64,7 @@ _SIGNATURES = {
     "ddm_attention_core_bwd": [_P, _P, _P, _I, _P, _P, _P, _P] + [_I] * 4 + [_F, _I, _P],
     # N, Dh, backward, design, plan (int[7])
     "ddm_attention_core_plan": [_I, _I, _I, _I, _P],
-    # attrs (int[62]: registers and local bytes of the 31 core kernels)
+    # attrs (int[142]: registers and local bytes of the 71 core kernels)
     "ddm_attention_kernel_attrs": [_P],
     # X3: q, k, v, ld, dout, att, dqkv, B, N, H, Dh, scale, skip, stream
     "ddm_attention_core_bwd_ablate": [_P, _P, _P, _I, _P, _P, _P] + [_I] * 4 + [_F, _I, _P],
@@ -92,10 +92,10 @@ _SIGNATURES = {
     "ddm_energy_bwd": [_P] * 7 + [_I] * 4 + [_F, _P],
     # q, k, v, ld, o, lse, B, N, H, Dh, scale, design, stream
     "ddm_flash_fwd": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _F, _I, _P],
-    # attrs (int[12]: registers and local bytes of K8f's six instances at Dh 32-128)
+    # attrs (int[36]: registers and local bytes of K8's 18 instances at Dh 32-128)
     "ddm_flash_kernel_attrs": [_P],
-    # q, k, v, ld, o, dout, lse, dsum, dqkv, B, N, H, Dh, scale, stream
-    "ddm_flash_bwd": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # q, k, v, ld, o, dout, lse, dsum, dqkv, B, N, H, Dh, scale, design, stream
+    "ddm_flash_bwd": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     # x, scale, bias, wrt, br, xin, gates, pos1, pos2, probs, part, cnt_psum,
     # G, gs, n_valid, D, E, cap, cpad, topk, stream
     "ddm_moe_dispatch_fwd": [_P] * 12 + [_I] * 8 + [_P],

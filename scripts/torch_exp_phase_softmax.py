@@ -14,12 +14,13 @@ training shape, or with ``--dit-b`` (2048, 64, 768, 12):
 
 - whether X1f's core and half-block equal the resident forward core's and
   K2f's around it (the design X1f reproduces, forced), and X1b's at every
-  head group G that fits and divides H equal the one-block core's and
-  K2b's, bit for bit (``torch.equal``);
+  head group G that fits and divides H equal the one-block backward core's
+  and K2b's around it (forced likewise), bit for bit (``torch.equal``);
 - the forward core and the half-block K2f, X1f against the production
-  core (the plan's pick: the registers design at these widths), and the backward core and the half-block K2b, X1b at each G
-  against the one-block core: median ms of ``--reps`` calls by CUDA events,
-  taken in turns (production, X1, X1, production, ``--turns`` times);
+  core, and the backward core and the half-block K2b, X1b at each G against
+  the production backward (the plan's picks: the registers designs at these
+  widths): median ms of ``--reps`` calls by CUDA events, taken in turns
+  (production, X1, X1, production, ``--turns`` times);
 - one 20-step DiT-S/4 sampler call's worth of forward cores (8 blocks x 20
   steps = 160 calls at B 256), X1f against the production core, in the
   same turns;
@@ -78,7 +79,8 @@ def _equal(a, b) -> bool:
 
 def bits(shape) -> dict:
     """Whether X1f and X1b (at every group) give the production cores' and
-    half-blocks' outputs bit for bit, the forward's resident design forced."""
+    half-blocks' outputs bit for bit, the resident forward and the one-block
+    backward forced."""
     from ddm_tpu_torch.ops import attention as A
     from ddm_tpu_torch.ops import phase_softmax as X
 
@@ -91,11 +93,11 @@ def bits(shape) -> dict:
                                        A._launch_core(q, k, v, H, "resident")),
                "x1f_block": torch.equal(X.phase_attention_block_fwd(x, *p, H),
                                         A._k2f(x, *p, H, "resident"))}
-        want = A._launch_core_bwd(q, k, v, do, H, True)
+        want = A._launch_core_bwd(q, k, v, do, H, True, "one-block")
         for G in groups:
             res[f"x1b_core_g{G}"] = _equal(X.launch_x1b(q, k, v, do, H, G), want)
         del want
-        want = A.attention_block_bwd(x, *p, H, dout)
+        want = A._k2b(x, *p, H, dout, design="one-block")
         for G in groups:
             res[f"x1b_block_g{G}"] = _equal(X.phase_attention_block_bwd(x, *p, H, dout, G), want)
     return res

@@ -3,12 +3,15 @@ compare two dumps bit for bit: the check that a change to csrc/flash.cu
 keeps the kernels' bits at a head width it did not mean to change.
 
 K8f's "tiles" design (forced where a checkout has ``design=``, else its
-only one) gives o and lse, and K8b runs on them: these are held bit for bit.
-K8f as the launcher picks it (the "registers" design at Dh 32, 64 and 128,
-whose sums run in another order) and K8b on its o and lse are dumped beside
-the plain versions' outputs, and ``compare`` holds each dump's to them: o,
-dq, dk and dv by the bf16 rule (two units in the last place at the largest
-output, a mean error below 1e-3), lse to 1e-5 relative.
+only one) gives o and lse, and K8b's "tiles" design (forced likewise) runs
+on them: these are held bit for bit. K8f and K8b as the launchers pick them
+(the "registers" designs at Dh 32, 64 and 128, whose sums run in another
+order) are dumped beside the plain versions' outputs, and ``compare`` holds
+each dump's to them: o, dq, dk and dv by the bf16 rule (two units in the
+last place at the largest output, a mean error below 1e-3), lse to 1e-5
+relative. K8b as picked also runs on the tiles forward's o and lse, and
+``compare`` holds the second dump's to the first dump's held K8b by the
+same rule.
 
 On one card, from the root of each checkout (its package is imported from
 the current directory), on the same seeded inputs: (B, N) = (128, 1024), 6
@@ -45,16 +48,20 @@ def dump(path: str, B: int = 128, N: int = 1024, H: int = 6, Dh: int = 64) -> No
     do = torch.randn(B, N, D, generator=gen, device="cuda").to(torch.bfloat16)
     q, k, v = qkv.split(D, dim=-1)
     designs = "design" in inspect.signature(flash.launch_k8f).parameters
+    bwd_designs = "design" in inspect.signature(flash.launch_k8b).parameters
     with torch.no_grad():
         o, lse = (flash.launch_k8f(q, k, v, H, Dh ** -0.5, "tiles") if designs else
                   flash.flash_attention_fwd(q, k, v, H))
-        grads = flash.flash_attention_bwd(q, k, v, o, lse, do, H)
+        grads = (flash.launch_k8b(q, k, v, o, lse, do, H, Dh ** -0.5, "tiles").split(D, dim=-1)
+                 if bwd_designs else flash.flash_attention_bwd(q, k, v, o, lse, do, H))
+        held_pick = flash.flash_attention_bwd(q, k, v, o, lse, do, H)
         pick = flash.flash_attention_fwd(q, k, v, H)
         pick_grads = flash.flash_attention_bwd(q, k, v, *pick, do, H)
         plain = flash.flash_attention_reference(q, k, v, H)
         plain_grads = flash.flash_attention_bwd_reference(q, k, v, *pick, do, H)
     torch.cuda.synchronize()
     out = {n: t.cpu() for n, t in zip(NAMES, (o, lse, *grads))}
+    out.update({f"{n}_held_pick": t.cpu() for n, t in zip(NAMES[2:], held_pick)})
     for tag, ts in (("pick", (*pick, *pick_grads)), ("plain", (*plain, *plain_grads))):
         out.update({f"{n}_{tag}": t.cpu() for n, t in zip(NAMES, ts)})
     torch.save(out, path)
@@ -75,9 +82,12 @@ def compare(a: str, b: str) -> bool:
     same = {n: torch.equal(x[n], y[n]) for n in NAMES}
     rule = {f"{n} ({tag})": _within_rule(n, d[f"{n}_pick"], d[f"{n}_plain"])
             for tag, d in (("a", x), ("b", y)) for n in NAMES}
+    if "dq_held_pick" in y:  # b's K8b as picked on the held forward, against a's held K8b
+        rule.update({f"{n} (b's pick against a's held)": _within_rule(n, y[f"{n}_held_pick"], x[n])
+                     for n in NAMES[2:]})
     print("K8 outputs bit for bit: " + ", ".join(f"{n} {'equal' if s else 'DIFFERENT'}"
                                                 for n, s in same.items()))
-    print("K8f as picked, and K8b on it, against the plain versions: " + ", ".join(
+    print("K8f and K8b as picked against the plain versions and the held K8b: " + ", ".join(
         f"{n} {'within' if s else 'OUTSIDE'}" for n, s in rule.items()))
     return all(same.values()) and all(rule.values())
 

@@ -11,7 +11,8 @@ It prints the card's name and power limit, then, on the same seeded inputs
 (the tool's: bf16 normal x and cotangent, unit LN scale, zero biases, 0.02
 x normal weights):
 
-- whether the all-off variant equals K2b bit for bit (``torch.equal``);
+- whether the all-off variant equals K2b's chain on its one-block core (the
+  core X3's instances ablate, forced by name) bit for bit (``torch.equal``);
 - ``attn-bwd`` rows at (B 2048, N 64, D 384, H 6), DiT-S/4's training
   shape: the tool's eight variants, each timed in turns with the baseline
   (baseline, variant, variant, baseline, ``--turns`` times; median ms of
@@ -19,8 +20,9 @@ x normal weights):
 - ``mlp-fwd`` rows at (T 131,072, D 384, F 1536): K1f and K1f with the
   identity GELU, in the same turns;
 - the per-launch split of K2b's chain at the attention shape: the qkv
-  recompute, datt, the core, dWproj, dWqkv, dy and the LN backward, each
-  timed alone on the chain's own operands, beside the whole chain;
+  recompute, datt, the core (the plan's pick, and the one-block core the
+  variants start from), dWproj, dWqkv, dy and the LN backward, each timed
+  alone on the chain's own operands, beside the whole chain (both cores);
 
 and, last, one JSON line with every number. The variants compute something
 else on purpose; chip_smoke.py and the card tests hold each to its plain
@@ -106,11 +108,14 @@ def chain_split(reps: int) -> dict:
                                                   with_y=True),
             "datt": lambda: gemm.gemm_nn(dob, wproj_b, gemm.NN_BF16),
             "core": lambda: A._core_bwd_att(qkv.view(B, N, 3 * D), datt, H),
+            "core (one-block)": lambda: A._core_bwd_att(qkv.view(B, N, 3 * D), datt, H,
+                                                        "one-block"),
             "dWproj": lambda: gemm.gemm_tn(dob, att.view(B * N, D), with_colsum=True),
             "dWqkv": lambda: gemm.gemm_tn(dqkv, y, with_colsum=True),
             "dy": lambda: gemm.gemm_nn(dqkv, wqkv_b, gemm.NN_F32),
             "ln_bwd": lambda: gemm.ln_bwd(x2, dy, dob, s),
             "chain (K2b)": lambda: A.attention_block_bwd(x, *p, H, dout),
+            "chain (one-block core)": lambda: A._k2b(x, *p, H, dout, design="one-block"),
         }
         return {name: median_ms(fn, reps) for name, fn in launches.items()}
 
@@ -133,9 +138,10 @@ def main(argv=None) -> dict:
     H = SHAPE[3]
     with torch.no_grad():
         same = all(torch.equal(g, w) for g, w in zip(X.attention_block_bwd_ablate(
-            x, *p, H, dout), A.attention_block_bwd(x, *p, H, dout)))
+            x, *p, H, dout), A._k2b(x, *p, H, dout, design="one-block")))
     del x, p, dout
-    print(f"all-off variant bit for bit K2b at (B, N, D, H) = {SHAPE}: {same}")
+    print(f"all-off variant bit for bit K2b's chain on the one-block core at (B, N, D, H) = "
+          f"{SHAPE}: {same}")
     res = {"device": smi, "shape": dict(zip("BNDH", SHAPE)), "baseline_is_k2b": same,
            "attn_bwd": variant_times(args.reps, args.turns)}
     for name, t in res["attn_bwd"].items():
@@ -147,14 +153,16 @@ def main(argv=None) -> dict:
     for name, t in res["mlp_fwd"].items():
         print(f"mlp-fwd {name:14s}: {np.mean(t):.4f} ms {t}")
     res["split"] = chain_split(args.reps)
-    parts = sum(v for k, v in res["split"].items() if k != "chain (K2b)")
+    parts = sum(v for k, v in res["split"].items()
+                if not k.startswith("chain") and k != "core (one-block)")
     for name, ms in res["split"].items():
-        print(f"split {name:14s}: {ms:.4f} ms")
+        print(f"split {name:22s}: {ms:.4f} ms")
     print(f"split sum of launches {parts:.4f} ms against the chain's "
           f"{res['split']['chain (K2b)']:.4f} ms")
     print(json.dumps(res))
     if not same:
-        raise SystemExit("torch_kbench_ablate: the all-off variant is not K2b bit for bit")
+        raise SystemExit("torch_kbench_ablate: the all-off variant is not K2b's chain on the "
+                         "one-block core bit for bit")
     return res
 
 

@@ -169,15 +169,17 @@ def test_k2_backward_kernel_matches_plain_on_the_card(cuda_device, B, N, D, H):
 @pytest.mark.parametrize("B,N,H,Dh", [(2048, 64, 6, 64), (64, 64, 16, 64), (3, 16, 2, 64)])
 def test_backward_core_att_is_the_forward_cores_on_the_card(cuda_device, B, N, H, Dh):
     """K2b and K4 share one attention core, which writes att from its fp32
-    P: bit for bit the resident forward core's output on the same qkv (the
-    registers design, the plan's pick at these widths, sums in another
-    order: within the bf16 rule of it)."""
+    P: the one-block design's (forced) bit for bit the resident forward
+    core's output on the same qkv; the plan's picks, the registers designs
+    at these widths (sums in another order), within the bf16 rule of both."""
     gen = torch.Generator(device=cuda_device).manual_seed(16)
     qkv = torch.randn(B, N, 3 * H * Dh, generator=gen, device=cuda_device).to(torch.bfloat16)
     datt = torch.randn(B, N, H * Dh, generator=gen, device=cuda_device).to(torch.bfloat16)
     att, dqkv = TA._core_bwd_att(qkv, datt, H)
-    assert torch.equal(att, TA._k2_core(qkv, H, "resident"))
+    earlier = TA._core_bwd_att(qkv, datt, H, "one-block")[0]
+    assert torch.equal(earlier, TA._k2_core(qkv, H, "resident"))
     _assert_bf16_rule(TA._k2_core(qkv, H), att)
+    _assert_bf16_rule(att, earlier)
     want = TA.attention_core_bwd_att_reference(*qkv.split(H * Dh, dim=-1), datt, H)
     _assert_bf16_rule(att, want[0])
     _assert_bf16_rule(dqkv, torch.cat(want[1:], dim=-1))
@@ -488,8 +490,10 @@ def test_k7_kernels_match_plain_on_the_card(cuda_device, B, N, H, Dh):
     assert torch.equal(o, TA._k2_core(qkv, H))
     att, dqkv = TA._core_bwd_att(qkv, do, H)
     assert torch.equal(torch.cat(grads, dim=-1), dqkv)
-    assert torch.equal(att, TA._k2_core(qkv, H, "resident"))
+    earlier = TA._core_bwd_att(qkv, do, H, _earlier_bwd(N, Dh))[0]
+    assert torch.equal(earlier, TA._k2_core(qkv, H, "resident"))
     _assert_bf16_rule(o, att)
+    _assert_bf16_rule(att, earlier)
 
 
 @pytest.mark.cuda
@@ -1196,6 +1200,19 @@ def test_fast_gelu_expert_kernels_match_plain_on_the_card(cuda_device, E, S, D, 
         assert torch.equal(g, h)
 
 
+def _earlier_bwd(N, Dh):
+    """The backward design the plan picked before the registers design: one
+    block per (image, head) where it fits, else two whole-head passes, else
+    streamed."""
+    for design in ("one-block", "two-pass", "streamed"):
+        try:
+            TA.core_plan(N, Dh, True, design)
+            return design
+        except RuntimeError:
+            continue
+    raise AssertionError(f"no earlier backward design takes N={N}, Dh={Dh}")
+
+
 def _core_case(device, B, N, H, Dh, seed):
     gen = torch.Generator(device=device).manual_seed(seed)
     qkv = torch.randn(B, N, 3 * H * Dh, generator=gen, device=device).to(torch.bfloat16)
@@ -1242,12 +1259,13 @@ def test_streamed_cores_give_the_resident_bits_on_the_card(cuda_device, B, N, H,
     the forward core, and the backward (att, dq, dk, dv) against the two
     whole-head passes or, at (112, 64), the one-block core; each backward
     twice, bit-identical. At Dh 256 and 72 (80 padded) the streamed design
-    takes several 64-column chunks. The forward's own pick is the resident
-    design where the padded head passes 128 columns, else the registers
-    design."""
+    takes several 64-column chunks. The plan's own picks are the resident
+    designs where the padded head passes 128 columns, else the registers
+    designs (fused at N <= 64)."""
     qkv, do = _core_case(cuda_device, B, N, H, Dh, seed=31)
     resident = "one-block" if N <= 112 else "two-pass"
-    assert TA.core_plan(N, Dh, backward=True)["design"] == resident
+    assert TA.core_plan(N, Dh, backward=True)["design"] == (
+        resident if Dh > 128 else "registers-fused" if N <= 64 else "registers")
     assert TA.core_plan(N, Dh)["design"] == ("resident" if Dh > 128 else "registers")
     assert torch.equal(TA._k2_core(qkv, H, "streamed"), TA._k2_core(qkv, H, "resident"))
     outs = {d: [TA._core_bwd_att(qkv, do, H, d) for _ in range(2)] for d in (resident, "streamed")}
@@ -1263,16 +1281,27 @@ def test_streamed_cores_give_the_resident_bits_on_the_card(cuda_device, B, N, H,
 
 @pytest.mark.cuda
 def test_core_plan_on_the_card(cuda_device):
-    """The library's plan, which the launchers take: the one-block backward
-    up to N 112 at Dh 64 (128 at Dh 32), the forward's registers design up
-    to a padded head of 128 columns (64 query rows a block, 128 past N 128
-    where they divide N), the whole-head designs where they fit, a streamed
-    pass past 227 KB (pass 2 keeps the whole head to Dh ~880), and a
-    refusal where a forced design does not fit."""
+    """The library's plan, which the launchers take: the registers designs up
+    to a padded head of 128 columns (the forward's with 64 query rows a
+    block, 128 past N 128 where they divide N; the backward's fused block
+    at N <= 64, its dq and dk/dv sides past it, 64 rows a block each), the
+    one-block backward forced up to N 112 at Dh 64 (128 at Dh 32), the
+    whole-head designs where they fit, a streamed pass past 227 KB (pass 2
+    keeps the whole head to Dh ~880), and a refusal where a forced design
+    does not fit."""
     plan = TA.core_plan
-    assert plan(112, 64, True)["design"] == "one-block"
-    assert plan(128, 64, True)["design"] == "two-pass"
-    assert plan(128, 32, True)["design"] == "one-block"
+    assert plan(112, 64, True, "one-block")["design"] == "one-block"
+    assert plan(128, 64, True, "two-pass")["design"] == "two-pass"
+    assert plan(128, 32, True, "one-block")["design"] == "one-block"
+    assert plan(112, 64, True) == {"design": "registers", "rows": (64, 64),
+                                   "cols": (64, 64, 64, 64)}
+    assert plan(64, 72, True) == {"design": "registers-fused", "rows": (64, 80),
+                                  "cols": (64, 64, 80, 80)}
+    assert plan(256, 24, True)["design"] == "registers"
+    assert plan(256, 72, True)["cols"] == (64, 32, 80, 80)  # 32-query stages past 64 columns
+    assert plan(64, 64, True, "registers")["design"] == "registers"
+    assert plan(64, 136, True)["design"] == "one-block"
+    assert plan(128, 136, True)["design"] == "two-pass"
     assert plan(256, 64) == {"design": "registers", "QT": 128, "C": 64}
     assert plan(64, 72) == {"design": "registers", "QT": 64, "C": 80}
     assert plan(272, 128) == {"design": "registers", "QT": 64, "C": 128}
@@ -1286,7 +1315,9 @@ def test_core_plan_on_the_card(cuda_device):
     assert plan(16, 3712, True)["cols"] == (16, 16, 64, 928)
     for args in ((256, 384, False, "resident"), (256, 384, True, "two-pass"),
                  (256, 64, True, "one-block"), (528, 64, False, None), (64, 68, True, None),
-                 (256, 136, False, "registers"), (528, 64, False, "registers")):
+                 (256, 136, False, "registers"), (528, 64, False, "registers"),
+                 (64, 136, True, "registers"), (80, 64, True, "registers-fused"),
+                 (64, 136, True, "registers-fused")):
         with pytest.raises(RuntimeError):
             plan(*args)
     attrs = TA.kernel_attrs()
@@ -1376,6 +1407,103 @@ def test_k8f_refuses_a_design_that_does_not_take_the_width_on_the_card(cuda_devi
     q = torch.zeros(1, 1024, H * Dh, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(RuntimeError, match="K8f"):
         TF.launch_k8f(q, q, q, H, Dh ** -0.5, design)
+
+
+# The backward's registers designs: the fused block (N <= 64) and the dq
+# and dk/dv sides, at ragged key and query tiles (N % 64 != 0) and every
+# padded width 16-128 (Dh 8, 24, 40, 72, 120 padded; 32, 64, 128 not)
+REGISTERS_BWD_SHAPES = [(64, 16, 6, 64), (32, 48, 2, 72), (64, 64, 16, 24), (16, 80, 4, 40),
+                        (16, 112, 2, 96), (8, 128, 3, 128), (8, 144, 4, 8), (8, 192, 2, 112),
+                        (4, 272, 2, 120), (64, 256, 6, 64), (16, 256, 16, 72), (4, 400, 3, 32),
+                        (2, 512, 2, 128), (4, 384, 6, 48), (16, 64, 3, 128), (8, 32, 2, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("att", [True, False])
+@pytest.mark.parametrize("B,N,H,Dh", REGISTERS_BWD_SHAPES)
+def test_registers_bwd_core_matches_plain_on_the_card(cuda_device, B, N, H, Dh, att):
+    """The backward core's registers design, the plan's pick at every padded
+    head up to 128 columns (fused at N <= 64), with att (K2b, K4) and
+    without (K7b): against its plain version by the bf16 rule, a second call
+    bit-identical, q, k, v read in place or from three tensors alike; each
+    registers design that takes the shape forced by name, within the bf16
+    rule of the earlier design forced on the same inputs."""
+    qkv, do = _core_case(cuda_device, B, N, H, Dh, seed=36)
+    D = H * Dh
+    q, k, v = qkv.split(D, dim=-1)
+    pick = TA.core_plan(N, Dh, backward=True)["design"]
+    assert pick == ("registers-fused" if N <= 64 else "registers")
+    designs = ("registers", "registers-fused") if N <= 64 else ("registers",)
+
+    def run(design=None, operands=(q, k, v)):
+        att_out, dqkv = TA._launch_core_bwd(*operands, do, H, att, design)
+        return ((att_out,) if att else ()) + tuple(dqkv.split(D, dim=-1))
+
+    with torch.no_grad():
+        got, again = run(), run()
+        apart = run(operands=tuple(t.contiguous() for t in (q, k, v)))
+        forced = {d: run(d) for d in designs}
+        earlier = run(_earlier_bwd(N, Dh))
+        torch.cuda.synchronize()
+    want = (TA.attention_core_bwd_att_reference if att else TA.attention_core_bwd_reference)(
+        q, k, v, do, H)
+    for g, h, a, f in zip(got, again, apart, forced[pick]):
+        assert torch.equal(g, h) and torch.equal(g, a) and torch.equal(g, f)
+    for out in forced.values():
+        for g, w, e in zip(out, want, earlier):
+            _assert_bf16_rule(g, w)
+            _assert_bf16_rule(g, e)
+
+
+@pytest.mark.cuda
+def test_registers_bwd_core_refuses_what_it_does_not_take_on_the_card(cuda_device):
+    """Forced past a padded head of 128 columns, or the fused block past N
+    64, the registers designs raise (no fallback to another design)."""
+    qkv, do = _core_case(cuda_device, 2, 64, 2, 136, seed=37)
+    for design in ("registers", "registers-fused"):
+        with pytest.raises(RuntimeError, match="attention core plan"):
+            TA._core_bwd_att(qkv, do, 2, design)
+    qkv, do = _core_case(cuda_device, 2, 80, 2, 64, seed=38)
+    with pytest.raises(RuntimeError, match="attention core plan"):
+        TA._core_bwd_att(qkv, do, 2, "registers-fused")
+    assert TA.core_plan(64, 136, True)["design"] == "one-block"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,H,Dh", [(2, 1024, 12, 32), (2, 1024, 6, 64), (2, 1024, 3, 128),
+                                      (1, 4096, 2, 64), (3, 128, 4, 32), (1, 192, 2, 128)])
+def test_k8b_registers_design_matches_plain_on_the_card(cuda_device, B, N, H, Dh):
+    """K8b's registers design (its own pick at Dh 32, 64, 128) on the
+    registers forward's o and lse: against the plain version by the bf16
+    rule, a second call and the design forced by name bit-identical, and
+    within the bf16 rule of the tiles design forced on the same inputs."""
+    gen = torch.Generator(device=cuda_device).manual_seed(39)
+    D = H * Dh
+    qkv = torch.randn(B, N, 3 * D, generator=gen, device=cuda_device).to(torch.bfloat16)
+    q, k, v = qkv.split(D, dim=-1)
+    do = torch.randn(B, N, D, generator=gen, device=cuda_device).to(torch.bfloat16)
+    scale = Dh ** -0.5
+    with torch.no_grad():
+        o, lse = TF.flash_attention_fwd(q, k, v, H)
+        got, again, forced, tiles = (TF.launch_k8b(q, k, v, o, lse, do, H, scale, d)
+                                     for d in (None, None, "registers", "tiles"))
+        torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(got, forced)
+    want = TF.flash_attention_bwd_reference(q, k, v, o, lse, do, H)
+    for g, w, e in zip(got.split(D, dim=-1), want, tiles.split(D, dim=-1)):
+        _assert_bf16_rule(g, w)
+        _assert_bf16_rule(g, e)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Dh,design", [(16, "registers"), (256, "registers"), (256, "tiles")])
+def test_k8b_refuses_a_design_that_does_not_take_the_width_on_the_card(cuda_device, Dh, design):
+    """A forced K8b design raises where it is not built, as K8f's."""
+    H = 2
+    q = torch.zeros(1, 1024, H * Dh, device=cuda_device, dtype=torch.bfloat16)
+    lse = torch.zeros(1, H, 1024, device=cuda_device)
+    with pytest.raises(RuntimeError, match="K8b"):
+        TF.launch_k8b(q, q, q, q, lse, q, H, Dh ** -0.5, design)
 
 
 @pytest.mark.cuda
@@ -1556,7 +1684,7 @@ def test_x1_cores_are_k2s_cores_bit_for_bit_on_the_card(cuda_device, shape, want
     before = (TPS.LAUNCHES.count, TPS.BWD_LAUNCHES.count)
     with torch.no_grad():
         assert torch.equal(TPS.launch_x1f(q, k, v, H), TA._launch_core(q, k, v, H, "resident"))
-        want = TA._launch_core_bwd(q, k, v, do, H, True)
+        want = TA._launch_core_bwd(q, k, v, do, H, True, "one-block")
         for G in plan["groups"]:
             got = TPS.launch_x1b(q, k, v, do, H, G)
             assert all(torch.equal(g, w) for g, w in zip(got, want)), G
@@ -1570,9 +1698,9 @@ def test_x1_cores_are_k2s_cores_bit_for_bit_on_the_card(cuda_device, shape, want
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,N,D,H", X1_SHAPES[:2] + [(256, 64, 384, 6)])
 def test_x1_half_blocks_are_k2f_and_k2b_bit_for_bit_on_the_card(cuda_device, B, N, D, H):
-    """K2f's and K2b's chains around X1f and X1b give K2f's output (its core
-    the resident design) and K2b's seven gradients bit for bit, and the
-    plain versions' by the kernel rules."""
+    """K2f's and K2b's chains around X1f and X1b give K2f's output and K2b's
+    seven gradients bit for bit (the cores forced to the resident and
+    one-block designs), and the plain versions' by the kernel rules."""
     args = _on(cuda_device, _attn_inputs(B, N, D, seed=61))
     dout = torch.randn(B, N, D, generator=torch.Generator(device=cuda_device).manual_seed(62),
                        device=cuda_device).to(torch.bfloat16)
@@ -1581,8 +1709,8 @@ def test_x1_half_blocks_are_k2f_and_k2b_bit_for_bit_on_the_card(cuda_device, B, 
         assert torch.equal(got, TA._k2f(*args, H, "resident"))
         _assert_bf16_rule(got, TA.attention_block_reference(*args, H))
         grads = TPS.phase_attention_block_bwd(*args, H, dout)
-        assert all(torch.equal(g, w) for g, w in zip(grads, TA.attention_block_bwd(
-            *args, H, dout)))
+        assert all(torch.equal(g, w) for g, w in zip(grads, TA._k2b(
+            *args, H, dout, design="one-block")))
         _assert_grads_close(grads, TA.attention_block_bwd_reference(*args, H, dout))
 
 
@@ -1634,9 +1762,10 @@ def test_x3_variants_match_plain_on_the_card(cuda_device, variant, B, N, D, H):
                                                      GRAD_MAX_REL * top), i
             assert float(torch.linalg.norm(g - w)) <= max(2 * float(torch.linalg.norm(w - w32)),
                                                           GRAD_FROB_REL * frob), i
-        if not skips:  # K2b's chain (at D 320 the ladder has no tier to pick its counter)
+        if not skips:  # K2b's chain on its one-block core (at D 320 the ladder has no tier)
             _assert_grads_close(got, want)
-            assert all(torch.equal(g, w) for g, w in zip(got, TA._k2b(*args, H, dout)))
+            assert all(torch.equal(g, w) for g, w in zip(got, TA._k2b(*args, H, dout,
+                                                                      design="one-block")))
 
 
 @pytest.mark.cuda

@@ -109,14 +109,18 @@ def test_k8f_refuses_an_unknown_design_before_launching(library, design):
 
 def test_kernel_attrs_name_every_instance(library):
     """``kernel_attrs`` reads one (registers, local bytes) pair per name: the
-    seven resident and streamed kernels, then each registers instance."""
+    seven resident and streamed kernels, then each registers instance of the
+    forward (three a width) and of the backward (five a width); K8's: the
+    forward's two designs, then each backward design's two kernels."""
     attrs = TA.kernel_attrs()
     assert list(attrs) == list(TA.CORE_KERNELS)
-    assert len(TA.CORE_KERNELS) == 7 + 3 * len(TA.REGISTERS_WIDTHS)
+    assert len(TA.CORE_KERNELS) == 7 + (3 + 5) * len(TA.REGISTERS_WIDTHS)
     assert TA.REGISTERS_WIDTHS == (16, 32, 48, 64, 80, 96, 112, 128)
     assert library.calls[0][0] == "ddm_attention_kernel_attrs"
     flash = TF.kernel_attrs()
-    assert list(flash) == [(d, dh) for d in ("registers", "tiles") for dh in (32, 64, 128)]
+    assert list(flash) == [(d, dh) for d in ("registers", "tiles") for dh in (32, 64, 128)] + [
+        (f"{d} {side}", dh) for d in ("registers", "tiles") for side in ("dq", "dk dv")
+        for dh in (32, 64, 128)]
     assert library.calls[1][0] == "ddm_flash_kernel_attrs"
 
 
