@@ -348,13 +348,16 @@ Arctic's at top-2) and a depth-1 DiT-MoE at Mixtral-8x22B's widths (D 6144,
 The attention cores past 227 KB of shared memory, after those:
 
 3r. (streamed-kernels) the forward and backward cores, by the library's
-    plan (a whole head where it fits, 64-column chunks elsewhere), at the
+    plan (the backward, and the forward past a padded head of 896: a whole
+    head where it fits, 64-column chunks elsewhere; the forward up to 896:
+    the wide registers design, 3y), at the
     three paths' training shapes: K2f's and K2b's at (256, 256, H 1, Dh
     384), K2f's and K4's at (2048, 64, H 1, Dh 768) (att written), K7f and
     K7b at (256, 256, H 2, Dh 512); then K7f/K7b at the widest head the JAX
     gates send at N 16, 144, 256 and 400 (Dh 3712, 3328, 1792, 1024; 64
     images); each against its plain version by the bf16 rule, the backward
-    twice (bit-identical), timed with its plan, bound, the kernels' spill
+    twice (bit-identical) and its att bit for bit the resident or streamed
+    forward core forced, timed with its plan, bound, the kernels' spill
     bytes and SDPA's first fused backend that takes the width; then the
     streamed design forced where a resident one runs, at (64, 64, H 6, Dh
     64), (64, 256, 4, 256), (16, 512, 2, 64), (64, 256, 4, 72) and (64, 112,
@@ -431,7 +434,22 @@ The DiT tail and the whole-block experiment, after those:
     call bit-identical, timed in turns with it beside the plain version,
     SDPA's forward + backward and its backward alone; at N <= 64 the fused
     block timed in turns with the two sides; its bound and each instance's
-    registers and spill bytes (none at Dh 64, 72 and 24).
+    registers and spill bytes (none at Dh 64, 72 and 24);
+3y. (wide-registers-kernels) the wide registers designs of K8f at Dh
+    256-896 (``csrc/flash.cu`` ``flash_fwd_wide_regs_kernel``) and of the
+    forward core past a padded head of 128 (``csrc/attention.cu``
+    ``attention_core_wide_kernel``; both on ``csrc/mma_frag.cuh``'s wide
+    helpers), at WIDE_REGISTERS_K8 (every wide FLASH_WIDTHS row) and
+    WIDE_REGISTERS_CORES (the three few-head paths' shapes, DiT-B/4 --heads
+    3 and DiT-L/4 --heads 4 at 64 px, a ragged padded head): each against
+    its plain version (o by the bf16 rule, K8's lse to LSE_RTOL) and within
+    the bf16 rule of the earlier design forced (K8f's chunked tiles kernel,
+    the resident or streamed core), K8b on the new o and lse against its
+    plain version, its second call bit-identical; timed in turns with the
+    earlier design (earlier, registers, registers, earlier) beside the plain
+    version (over FEW_REPS calls), SDPA's forward through its first fused
+    backend that takes the width, the bound, and each instance's registers
+    and spill bytes (none allowed).
 
 The DiT-S phases run at full width and depth 8. PERF.md gives the whole
 run's measured time on the card, the kernels' build included, against the
@@ -2929,7 +2947,10 @@ def _streamed_core_case(A, smi, gen, attrs, path, B, N, H, Dh, fname, bname):
         torch.cuda.synchronize()
         if not all(torch.equal(g, h) for g, h in zip(got, again)):
             raise AssertionError(f"{bname}'s core {shape} is not deterministic: two calls differ")
-        if with_att and not torch.equal(got[0], o):
+        # att is the resident or streamed forward core's output, bit for bit
+        # (the wide registers forward sums in another order)
+        if with_att and not torch.equal(got[0], A._launch_core(q, k, v, H,
+                                                               _earlier_fwd(A, N, Dh))):
             raise AssertionError(f"{bname}'s core {shape}: att is not the forward core's output")
         labels = (("att",) if with_att else ()) + ("dq", "dk", "dv")
         b_err, b_text, b_ok = _core_errors(labels, got, plain_b())
@@ -3700,6 +3721,149 @@ def phase_registers_bwd_kernels(A, FL, smi):
     return shapes
 
 
+def _earlier_fwd(A, N, Dh):
+    """The forward core design the plan picked before the wide registers
+    design: resident where its tile fits, else streamed."""
+    try:
+        A.core_plan(N, Dh, design="resident")
+        return "resident"
+    except RuntimeError:
+        return "streamed"
+
+
+def _wide_instance(attrs, Dh, rows):
+    """The wide registers core's instance at head width Dh and ``rows``
+    query rows a block (32 on 8 warps, 64 on 16), as ``kernel_attrs``
+    names it."""
+    top = -(-(-(-Dh // 16) * 16) // 128) * 128  # the padded head's chunks, in columns
+    name = f"forward registers {top - 112}-{top} {rows} rows"
+    return name, attrs[name]
+
+
+def phase_wide_registers_kernels(A, FL, smi):
+    """3y: the wide registers designs of K8f (Dh 256-896; WIDE_REGISTERS_K8)
+    and of the forward core past a padded head of 128
+    (WIDE_REGISTERS_CORES), against their plain versions and the earlier
+    designs forced (K8f's tiles, the resident or streamed core) by the bf16
+    rule (K8's lse to LSE_RTOL), K8b on the new o and lse against its plain
+    version and twice bit-identical; timed in turns with the earlier design
+    beside the plain version, SDPA's forward and the bound; every instance
+    spill-free. ``{name: [{"path", "shape", ...}]}`` for the kernels line."""
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    attrs, fattrs = A.kernel_attrs(), FL.kernel_attrs()
+    print(f"[kernel] the wide registers instances, registers and local (spill) bytes a thread: "
+          f"core { {k: v for k, v in attrs.items() if ' rows' in k} }; K8f "
+          f"{ {k: v for k, v in fattrs.items() if k[1] > 128} }")
+    shapes = {}
+    for B, N, H, Dh in WIDE_REGISTERS_K8:
+        D = H * Dh
+        qkv = torch.randn(B, N, 3 * D, generator=gen, device="cuda").to(torch.bfloat16)
+        q, k, v = qkv.split(D, dim=-1)  # read in place, row stride 3D
+        do = torch.randn(B, N, D, generator=gen, device="cuda").to(torch.bfloat16)
+        shape = f"(B={B}, N={N}, H={H}, Dh={Dh})"
+        scale = Dh ** -0.5
+        with torch.no_grad():
+            o, lse = FL.flash_attention_fwd(q, k, v, H)
+            tiles = FL.launch_k8f(q, k, v, H, scale, "tiles")
+            want_o, want_lse = FL.flash_attention_reference(q, k, v, H)
+            grads = FL.flash_attention_bwd(q, k, v, o, lse, do, H)
+            again = FL.flash_attention_bwd(q, k, v, o, lse, do, H)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, h) for g, h in zip(grads, again)):
+                raise AssertionError(f"K8b on the wide registers forward {shape} is not "
+                                     "deterministic")
+            del again
+            max_err, mean_err, tol, ok = _bf16_errors(o, want_o)
+            lse_rel = float(((lse - want_lse).abs() / want_lse.abs()).max())
+            agree = _bf16_errors(o, tiles[0])
+            lse_agree = float(((lse - tiles[1]).abs() / tiles[1].abs()).max())
+            del want_o, want_lse, tiles
+            b_err, b_text, b_ok = _core_errors(
+                ("dq", "dk", "dv"), grads,
+                FL.flash_attention_bwd_reference(q, k, v, o, lse, do, H))
+            del grads
+            fns = {d: (lambda d=d: FL.launch_k8f(q, k, v, H, scale, d)) for d in FL.FWD_DESIGNS}
+            ms = _in_turns(fns, ("tiles", "registers"))
+            plain_ms = _median_ms(lambda: FL.flash_attention_reference(q, k, v, H), reps=FEW_REPS,
+                                  warmup=1)
+        backend, lib = _sdpa_backend_ms(q, k, v, do, H)
+        sdpa = lib["K8f"] if lib else None
+        inst = {d: fattrs[(d, Dh)] for d in ("registers", "tiles")}
+        bound = _bound(_nbytes(qkv, o, lse), 4 * B * H * N * N * Dh)
+        print(f"[kernel] K8f wide registers design {shape} ({inst}): o max_abs_err={max_err:.6g} "
+              f"(tol {tol:.6g}), mean_abs_err={mean_err:.6g}; lse max rel err {lse_rel:.3g} (tol "
+              f"{LSE_RTOL:g}); against the tiles design o max {agree[0]:.6g} (tol "
+              f"{agree[2]:.6g}), lse {lse_agree:.3g}; K8b on its o and lse: {b_text}, second "
+              f"call bit-identical; in turns tiles {ms['tiles'][0]:.4f}, registers "
+              f"{ms['registers'][0]:.4f}, {ms['registers'][1]:.4f}, tiles {ms['tiles'][1]:.4f} "
+              f"ms; plain {plain_ms:.4f} ms (median of {FEW_REPS}); SDPA forward "
+              + (f"{backend} {sdpa:.4f} ms" if sdpa is not None else "none of its fused backends")
+              + f" (median of 20); bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}) on "
+              f"{smi}")
+        if not (ok and agree[3] and lse_rel <= LSE_RTOL and lse_agree <= LSE_RTOL and b_ok):
+            raise AssertionError(f"K8f's wide registers design {shape} disagrees with its plain "
+                                 "version or the tiles design, or K8b on its o and lse does")
+        _spill_free("K8f", shape, inst)
+        shapes.setdefault("K8f", []).append({
+            "path": f"wide-registers-dh{Dh}", "shape": shape, "design": "registers", "H": H,
+            "Dh": Dh, "max_abs_err": max_err, "ms": float(np.mean(ms["registers"])),
+            "registers_turns_ms": ms["registers"], "parent_design": "tiles",
+            "parent_ms": float(np.mean(ms["tiles"])), "parent_turns_ms": ms["tiles"],
+            "plain_ms": plain_ms, "library_ms": sdpa, "library_backend": backend,
+            "k8b_max_abs_err": b_err, **bound, "instances": inst})
+        del qkv, q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    for path, B, N, H, Dh, name in WIDE_REGISTERS_CORES:
+        D = H * Dh
+        qkv = torch.randn(B, N, 3 * D, generator=gen, device="cuda").to(torch.bfloat16)
+        q, k, v = qkv.split(D, dim=-1)  # read in place, row stride 3D
+        shape = f"(B={B}, N={N}, H={H}, Dh={Dh}) core"
+        plan = A.core_plan(N, Dh)
+        if plan["design"] != "registers":
+            raise AssertionError(f"the plan takes {plan['design']} at {shape}, not registers")
+        earlier = _earlier_fwd(A, N, Dh)
+        with torch.no_grad():
+            got = A._launch_core(q, k, v, H)
+            old = A._launch_core(q, k, v, H, earlier)
+            want = A.attention_reference(q, k, v, H)
+            torch.cuda.synchronize()
+            max_err, mean_err, tol, ok = _bf16_errors(got, want)
+            agree = _bf16_errors(got, old)
+            del old, want
+            fns = {d: (lambda d=d: A._launch_core(q, k, v, H, d)) for d in (earlier, "registers")}
+            ms = _in_turns(fns, (earlier, "registers"))
+            plain_ms = _median_ms(lambda: A.attention_reference(q, k, v, H), reps=FEW_REPS,
+                                  warmup=1)
+        backend, lib = _sdpa_backend_ms(q, k, v, torch.zeros_like(q), H)
+        sdpa = lib["K8f"] if lib else None
+        label, inst = _wide_instance(attrs, Dh, plan["QT"])
+        bound = _bound(_nbytes(qkv, got), 4 * B * H * N * N * Dh)  # Q K^T and P V
+        print(f"[kernel] {name}'s core, wide registers design, {shape} ({path}; {label}: "
+              f"{inst['registers']} registers, {inst['local_bytes']} B local): against the plain "
+              f"core max_abs_err={max_err:.6g} (tol {tol:.6g}), mean_abs_err={mean_err:.6g}; "
+              f"against the {earlier} design max {agree[0]:.6g} (tol {agree[2]:.6g}); in turns "
+              f"{earlier} {ms[earlier][0]:.4f}, registers {ms['registers'][0]:.4f}, "
+              f"{ms['registers'][1]:.4f}, {earlier} {ms[earlier][1]:.4f} ms; plain "
+              f"{plain_ms:.4f} ms (median of {FEW_REPS}); SDPA forward "
+              + (f"{backend} {sdpa:.4f} ms" if sdpa is not None else "none of its fused backends")
+              + f" (median of 20); bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}) on "
+              f"{smi}")
+        if not (ok and agree[3]):
+            raise AssertionError(f"the wide registers core {shape} disagrees with its plain "
+                                 f"version or the {earlier} design")
+        _spill_free(name, shape, {label: inst})
+        shapes.setdefault(name, []).append({
+            "path": path, "shape": shape, "design": "registers", "instance": label,
+            "max_abs_err": max_err, "ms": float(np.mean(ms["registers"])),
+            "registers_turns_ms": ms["registers"], "parent_design": earlier,
+            "parent_ms": float(np.mean(ms[earlier])), "parent_turns_ms": ms[earlier],
+            "plain_ms": plain_ms, "library_ms": sdpa, "library_backend": backend, **bound,
+            **inst})
+        del qkv, q, k, v, got
+        torch.cuda.empty_cache()
+    return shapes
+
+
 def phase_train_step_heads1(cfg, smi):
     """6r: one step of DiT-S/4 --heads 1 at 64 px (64 x m 4: K2f, K2b on the
     streamed cores), DiT-B/4 --heads 1 at 32 px (16 x m 8: K2f, K4) and
@@ -3741,7 +3905,7 @@ PHASES = ("kernels", "backward", "energy", "flash", "moe-kernels", "slice", "tra
           "wide-mlp-kernels", "train-step-1536", "train-1536", "moe-128-kernels",
           "train-step-moe-128", "train-moe-128", "streamed-kernels", "train-step-heads1",
           "train-heads1", "ln-dense-kernels", "whole-block", "phase-softmax", "ablate",
-          "registers-kernels", "registers-bwd-kernels")
+          "registers-kernels", "registers-bwd-kernels", "wide-registers-kernels")
 # launches per training step and per 20-step sampler call on the wide paths;
 # the DiT-L trainer (7d) runs depth 12 since PR 9 (7k runs its kernels at
 # DiT-XL's full depth 28)
@@ -3865,6 +4029,14 @@ REGISTERS_BWD_CORES = [("dit-s", TRAIN_BATCH * TRAIN_M, 64, 6, 64, "K2b"),
                        ("dit-xl64", PX64_BATCH * PX64_M, 256, 16, 72, "K7b"),
                        ("tp", TRAIN_BATCH * TRAIN_M, 64, 6, 64, "K7b"),
                        ("heads16", TRAIN_BATCH * TRAIN_M, 64, 16, 24, "K2b")]
+# 3y: (B, N, H, Dh) for K8f's wide registers design, every wide FLASH_WIDTHS
+# row; (path, B, N, H, Dh, counter) for the wide registers core: the three
+# few-head paths' training shapes (3r's), DiT-B/4 --heads 3 and DiT-L/4
+# --heads 4 at 64 px (Dh 256; 64 images), and a ragged head padded to 144
+WIDE_REGISTERS_K8 = [row for row in FLASH_WIDTHS if row[3] > 128]
+WIDE_REGISTERS_CORES = [(path, B, N, H, Dh, fname)
+                        for path, B, N, H, Dh, fname, _ in STREAMED_CORES[:3]] + [
+    ("b-h3-64", 64, 256, 4, 256, "K2f"), ("padded", 16, 80, 2, 136, "K2f")]
 
 
 def main(argv=None) -> None:
@@ -3987,6 +4159,7 @@ def main(argv=None) -> None:
         ("ablate", lambda: phase_ablate(A, M, smi)),
         ("registers-kernels", lambda: phase_registers_kernels(A, FL, smi)),
         ("registers-bwd-kernels", lambda: phase_registers_bwd_kernels(A, FL, smi)),
+        ("wide-registers-kernels", lambda: phase_wide_registers_kernels(A, FL, smi)),
     ]
     out = {}
     t_run = time.perf_counter()
@@ -4046,7 +4219,7 @@ def main(argv=None) -> None:
                        out["xl-kernels"], out["fast-gelu-kernels"], out["moe-xl-kernels"],
                        out["flash-widths"], out["wide-mlp-kernels"], out["moe-128-kernels"],
                        out["streamed-kernels"], out["registers-kernels"],
-                       out["registers-bwd-kernels"]):
+                       out["registers-bwd-kernels"], out["wide-registers-kernels"]):
             k.setdefault("shapes", []).extend(shapes.get(k["name"], []))
     k8 = sorted({s["Dh"] for k in kernels if k["name"] == "K8f" for s in k["shapes"]})
     print(f"[k8-widths] K8f and K8b held against their plain versions on the card at Dh {k8}; "

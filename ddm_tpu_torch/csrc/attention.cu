@@ -82,8 +82,9 @@
 // one. Where Dh % 16 = 0 nothing is padded and the products are the ones
 // before the padding existed.
 //
-// The registers design (the forward core's third, at padded(Dh) <= 128, the
-// plan's own pick there): the resident core keeps S, P and O in shared
+// The registers design (the forward core's third, the plan's own pick at
+// padded(Dh) <= 896; attention_core_wide_kernel past 128, described there):
+// at padded(Dh) <= 128 the resident core keeps S, P and O in shared
 // memory as WMMA tiles, reads them back in scalar passes and loads every
 // operand synchronously, so no copy overlaps a product; it is ~10x SDPA.
 // Here one block of 4 warps takes 64 query rows of one (image, head), each
@@ -331,6 +332,182 @@ attention_core_regs_kernel(Heads in, bf16* __restrict__ out, int N, int H, int D
   const int D = H * Dh;
   store_rows_bf16<DP>(out + (size_t)b * N * D + h * Dh, D, o[0], 1.f, 1.f, r0 + warp * 16, N, Dh,
                       lane);
+}
+
+// The registers design past a padded head of 128 (padded widths 144-896,
+// mma_frag.cuh's "wide forwards"): the resident and streamed cores keep QT
+// whole fp32 score rows and the bf16 P rows in shared memory, pass Q, K and
+// V through one N-row buffer by synchronous copies, run every product as
+// WMMA tiles from shared memory and the softmax as a scalar pass. Here one
+// block of WARPS warps takes 4 WARPS query rows of one (image, head): RT
+// row tiles times 4 column groups (wide_core_warps), Q copied once, K and V
+// through the ring of 64-key x 128-column stages. The scores are written
+// once, not recomputed: each warp's 16 x 64 / G slice of every key tile
+// (masked to -inf past a ragged N) goes to the block's fp32 score rows in
+// shared memory (16 x N a row tile, 32 KB at N 512), and the softmax then
+// runs over the whole row: the row's max over the slices and the groups
+// (through shared memory), e = exp(s scale - max) written in place over
+// each warp's own slices with its part of the row's sum, the sum over the
+// groups, and in the P V sweep each warp reads its 16 rows of e of every
+// key tile as P = bf16(e / l) (e times 1 / l, rounded once) in A
+// fragments. The rounding plan is the cores' (fp32 scores, the exact
+// max-subtracted softmax over the whole row, P rounded once, P V in fp32
+// rounded once); the sums run in fragment order and exp is the card's ex2,
+// as in the registers design at 128 and below.
+constexpr int kWideCoreStages = 4, kWideCoreGroups = 4;  // ring stages; column groups
+
+// Q's rows (4 WARPS), the ring, the score rows of every key tile, two
+// exchanges.
+size_t wide_core_smem(int N, int DP, int warps) {
+  const int rows = 16 * warps / kWideCoreGroups;
+  const int sld = (N + kWideKeys - 1) / kWideKeys * kWideKeys + 8;
+  return (size_t)rows * (DP + kPadH) * sizeof(bf16) +
+         (size_t)kWideCoreStages * kWideStage * sizeof(bf16) + (size_t)rows * sld * sizeof(float) +
+         (size_t)2 * warps * 16 * sizeof(float);
+}
+
+// A block's warps: 16 (64 query rows) up to a padded head of 512, where a
+// thread's 128 registers hold its 64 fp32 of O, and where the block's
+// shared memory fits; else 8 (32 rows). Measured on the H100, 16 warps
+// took 0.607 ms at DiT-L/4 --heads 2's (256, 256, 2, 512) against 0.95 on
+// 8, and were 5-7% faster than two column groups of 8 warps (64 rows, 128
+// columns of O a warp) at padded 208, 256 and 384.
+int wide_core_warps(int N, int DP) {
+  return DP <= 512 && wide_core_smem(N, DP, 16) <= kMaxSmem ? 16 : 8;
+}
+
+// NC: the padded head's 128-column chunks (the last may be narrower).
+template <int NC, int WARPS>
+__global__ void __launch_bounds__(32 * WARPS)
+attention_core_wide_kernel(Heads in, bf16* __restrict__ out, int N, int H, int Dh,
+                           float scale) {
+  constexpr int G = kWideCoreGroups, RT = WARPS / G, kRows = 16 * RT, kThr = 32 * WARPS;
+  constexpr int KS = kWideKeys / G, NJ = KS / 8, CW = kWideCols / G, NO = CW / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int DP = padded(Dh), qld = DP + kPadH;
+  const int nt = (N + kWideKeys - 1) / kWideKeys, sld = nt * kWideKeys + 8;
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* ring = Qs + kRows * qld;
+  float* S = reinterpret_cast<float*>(ring + kWideCoreStages * kWideStage);  // scores, then e
+  float* xm = S + kRows * sld;  // 16 rows a warp: raw maxima
+  float* xl = xm + WARPS * 16;  // ... and the parts of the row sums
+  const int b = blockIdx.x / H, h = blockIdx.x % H, r0 = blockIdx.y * kRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int rt = warp / G, grp = warp % G;
+  const int kjobs = nt * NC, jobs = 2 * kjobs;
+  const float scale2 = scale * kLog2e;
+  const bf16* q = in.row(in.q, b, N, 0, h, Dh);
+  const bf16* k = in.row(in.k, b, N, 0, h, Dh);
+  const bf16* v = in.row(in.v, b, N, 0, h, Dh);
+  // jobs 0 .. kjobs - 1: key tile j / NC, K chunk j % NC; then the same of
+  // V; job j's copy is issued at job j - (S - 1) into the stage job j - S
+  // read, S = kWideCoreStages
+  constexpr int kS = kWideCoreStages;
+  auto issue = [&](int j) {
+    if (j < jobs) {
+      const int i = (j % kjobs) / NC, c = j % NC;
+      load_chunk_async<kThr>(ring + (j % kS) * kWideStage, j < kjobs ? k : v, in.ld,
+                             i * kWideKeys, N, c * kWideCols, DP, Dh);
+    }
+    cp_async_commit();
+  };
+  int job = 0;
+  auto next = [&]() {  // wait for the next job's stage; start the copy kS - 1 ahead
+    cp_async_wait<kS - 2>();
+    __syncthreads();
+    issue(job + kS - 1);
+    return ring + (job++ % kS) * kWideStage;
+  };
+  load_rows_async<kRows, kThr>(Qs, qld, q, in.ld, r0, N, DP, Dh);
+#pragma unroll
+  for (int j = 0; j < kS - 1; ++j) issue(j);
+  const bf16* qw = Qs + rt * 16 * qld;
+  float* Sw = S + rt * 16 * sld;  // the row tile's score rows
+  float mx[2] = {-INFINITY, -INFINITY};  // rows g and g + 8
+  for (int i = 0; i < nt; ++i) {
+    float s[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      qk_chunk<NJ>(s, qw + c * kWideCols, qld, next() + grp * KS * kWideLd,
+                   min(kWideCols, DP - c * kWideCols), lane);
+    const int k0 = i * kWideKeys + grp * KS;
+    mask_keys(s, k0, N, t);
+    row_max(s, mx);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      float* dst = Sw + k0 + 8 * j + 2 * t;
+      *reinterpret_cast<float2*>(dst + g * sld) = make_float2(s[j][0], s[j][1]);
+      *reinterpret_cast<float2*>(dst + (g + 8) * sld) = make_float2(s[j][2], s[j][3]);
+    }
+  }
+  // the row's max over its slices and the groups, times the scale (> 0)
+  mx[0] = quad_max(mx[0]);
+  mx[1] = quad_max(mx[1]);
+  if (t == 0) {
+    xm[warp * 16 + g] = mx[0];
+    xm[warp * 16 + g + 8] = mx[1];
+  }
+  __syncthreads();
+  group_max<G>(xm + rt * G * 16, g, mx);
+  const float m2[2] = {mx[0] * scale * kLog2e, mx[1] * scale * kLog2e};
+  // e = exp(s scale - max) over the warp's own slices, in place, and its
+  // part of each row's sum
+  float l[2] = {0.f, 0.f};
+  for (int i = 0; i < nt; ++i) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float2* p = reinterpret_cast<float2*>(Sw + (g + 8 * r) * sld + i * kWideKeys +
+                                              grp * KS + 8 * j + 2 * t);
+        float2 e = *p;
+        e.x = exp2_approx(e.x * scale2 - m2[r]);
+        e.y = exp2_approx(e.y * scale2 - m2[r]);
+        l[r] += e.x + e.y;
+        *p = e;
+      }
+  }
+  l[0] = quad_sum(l[0]);
+  l[1] = quad_sum(l[1]);
+  if (t == 0) {
+    xl[warp * 16 + g] = l[0];
+    xl[warp * 16 + g + 8] = l[1];
+  }
+  __syncthreads();  // every e written; the parts of l
+  group_sum<G>(xl + rt * G * 16, g, l);
+  const float inv_l[2] = {1.f / l[0], 1.f / l[1]};
+  float acc[NC][NO][4];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int j = 0; j < NO; ++j) acc[c][j][0] = acc[c][j][1] = acc[c][j][2] = acc[c][j][3] = 0.f;
+  for (int i = 0; i < nt; ++i) {
+    // P = bf16(e / l) of the warp's 16 rows over the tile's 64 keys
+    uint32_t pa[4][4];
+    const float* e = Sw + i * kWideKeys + 2 * t;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float2 e0 = *reinterpret_cast<const float2*>(e + g * sld + 16 * kk);
+      const float2 e1 = *reinterpret_cast<const float2*>(e + (g + 8) * sld + 16 * kk);
+      const float2 e2 = *reinterpret_cast<const float2*>(e + g * sld + 16 * kk + 8);
+      const float2 e3 = *reinterpret_cast<const float2*>(e + (g + 8) * sld + 16 * kk + 8);
+      pa[kk][0] = pack_bf16(e0.x * inv_l[0], e0.y * inv_l[0]);
+      pa[kk][1] = pack_bf16(e1.x * inv_l[1], e1.y * inv_l[1]);
+      pa[kk][2] = pack_bf16(e2.x * inv_l[0], e2.y * inv_l[0]);
+      pa[kk][3] = pack_bf16(e3.x * inv_l[1], e3.y * inv_l[1]);
+    }
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int w = min(CW, DP - c * kWideCols - grp * CW);  // the group's columns here
+      const bf16* st = next();
+      if (w > 0) pv_chunk<NO>(acc[c], pa, st + grp * CW, w, lane);
+    }
+  }
+  const int D = H * Dh;
+  store_wide<NC, NO>(out + (size_t)b * N * D + h * Dh, D, acc, 1.f, 1.f, r0 + rt * 16, N,
+                     grp * CW, Dh, lane);
 }
 
 size_t core_bwd_smem(int N, int Dh) {
@@ -948,12 +1125,17 @@ struct FwdPlan {
   RowTiles tiles;  // QT = 0 where the design does not take the shape
 };
 
-// -1 picks the registers design where the padded head takes it, else
-// resident where its tile fits, else streamed.
+// -1 picks the registers design where the padded head takes it (up to
+// kWideMaxWidth: the wide kernel past kRegMaxWidth), else resident where
+// its tile fits, else streamed.
 FwdPlan fwd_plan(int N, int Dh, int design) {
   const int DP = padded(Dh);
-  if (design == kFwdRegisters || (design < 0 && DP <= kRegMaxWidth))
-    return {kFwdRegisters, {DP <= kRegMaxWidth ? 16 * regs_warps(N) : 0, DP}};
+  if (design == kFwdRegisters || (design < 0 && DP <= kWideMaxWidth)) {
+    const int rows = DP <= kRegMaxWidth   ? 16 * regs_warps(N)
+                     : DP <= kWideMaxWidth ? 4 * wide_core_warps(N, DP)
+                                           : 0;
+    return {kFwdRegisters, {rows, DP}};
+  }
   RowTiles t = core_tiles(N, Dh, design == kFwdStreamed);
   if (design < 0 && t.QT == 0) t = core_tiles(N, Dh, true);
   return {design >= 0 ? design : t.C < DP ? kFwdStreamed : kFwdResident, t};
@@ -984,12 +1166,41 @@ RegsKernel regs_kernel_for(int N, int DP) {
   return regs_warps(N) == 8 ? regs_kernel<0, 8>(DP) : regs_kernel<0, 4>(DP);
 }
 
+// The wide registers core's instances: one per count of 128-column chunks
+// (2-7: padded widths 144-896) and of warps (8; 16 up to 4 chunks).
+using WideKernel = decltype(&attention_core_wide_kernel<2, 8>);
+
+WideKernel wide_kernel(int DP, int warps) {
+  switch ((DP + kWideCols - 1) / kWideCols * 100 + warps) {
+    case 208: return attention_core_wide_kernel<2, 8>;
+    case 308: return attention_core_wide_kernel<3, 8>;
+    case 408: return attention_core_wide_kernel<4, 8>;
+    case 508: return attention_core_wide_kernel<5, 8>;
+    case 608: return attention_core_wide_kernel<6, 8>;
+    case 708: return attention_core_wide_kernel<7, 8>;
+    case 216: return attention_core_wide_kernel<2, 16>;
+    case 316: return attention_core_wide_kernel<3, 16>;
+    case 416: return attention_core_wide_kernel<4, 16>;
+    default: return nullptr;
+  }
+}
+
 // The forward core over q, k, v into the (B, N, H*Dh) out.
 cudaError_t launch_core(Heads in, bf16* out, int B, int N, int H, int Dh, float scale,
                         int design, cudaStream_t stream) {
   const FwdPlan p = fwd_plan(N, Dh, design);
   const RowTiles t = p.tiles;
   if (!takes(N, Dh) || t.QT == 0) return cudaErrorInvalidValue;
+  if (p.design == kFwdRegisters && padded(Dh) > kRegMaxWidth) {
+    const int DP = padded(Dh), warps = wide_core_warps(N, DP);
+    const size_t smem = wide_core_smem(N, DP, warps);
+    const WideKernel kernel = wide_kernel(DP, warps);
+    const cudaError_t err = set_smem((const void*)kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3(B * H, (N + t.QT - 1) / t.QT), 32 * warps, smem, stream>>>(in, out, N, H, Dh,
+                                                                            scale);
+    return cudaGetLastError();
+  }
   if (p.design == kFwdRegisters) {
     const int DP = padded(Dh);
     const RegsKernel kernel = regs_kernel_for(N, DP);
@@ -1086,7 +1297,8 @@ DHeads dqkv_heads(void* dqkv, int D) {
 
 // The plan the launchers take for (N, Dh) and `design` (-1: their own
 // pick): forward, plan[0..2] = (design, QT, C), design 0 (resident), 1
-// (streamed) or 2 (registers: QT the block's 64 rows, C the padded head);
+// (streamed) or 2 (registers: QT the block's query rows, 64 or 128 up to a
+// padded head of 128 and 64 or 32 past it, C the padded head);
 // backward, plan[0..6] = (design, pass 1's QT, C, pass 2's KT,
 // QT, C, C2), design 0 (one block: no pass tiles), 1 (two passes on whole
 // heads), 2 (a pass streamed), 3 (registers: the dq side's rows a block and
@@ -1118,10 +1330,12 @@ extern "C" int ddm_attention_core_plan(int N, int Dh, int backward, int design, 
 // ..., 128, each with two score tiles held (4 warps), in two sweeps on 4
 // warps and on 8, then the backward's registers design at the same widths,
 // each its dq side with att and without, its dk/dv side, and the fused
-// block with att and without.
+// block with att and without; then the forward's wide registers instances
+// on 8 warps at padded widths 144-256, 272-384, ..., 784-896, and on 16 at
+// 144-256, 272-384 and 400-512.
 extern "C" int ddm_attention_kernel_attrs(int* attrs) {
   using namespace ddm;
-  constexpr int kN = 7 + 24 + 40;
+  constexpr int kN = 7 + 24 + 40 + 9;
   const void* kernels[kN] = {(const void*)attention_core_kernel<false>,
                              (const void*)attention_core_kernel<true>,
                              (const void*)attention_core_bwd_kernel<0>,
@@ -1144,6 +1358,9 @@ extern "C" int ddm_attention_kernel_attrs(int* attrs) {
   kernels[i++] = (const void*)attention_core_bwd_fused_kernel<W, false>;
   DDM_REGS_WIDTHS(DDM_BWD_REGS_ATTRS)
 #undef DDM_BWD_REGS_ATTRS
+  for (const int warps : {8, 16})
+    for (int dp = 256; dp <= (warps == 8 ? 896 : 512); dp += kWideCols)
+      kernels[i++] = (const void*)wide_kernel(dp, warps);
   for (i = 0; i < kN; ++i) {
     cudaFuncAttributes a;
     const cudaError_t err = cudaFuncGetAttributes(&a, kernels[i]);

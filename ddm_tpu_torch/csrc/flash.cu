@@ -24,15 +24,18 @@
 //   the caller's (dh^-0.5). The loads move 8 bytes (4 columns) at a time: a
 //   Dh-4 head starts on an 8-byte boundary only.
 // - Dh = 256 ... 896 (wide): a 64 x Dh tile of q, k or v alone is 33-115 KB
-//   and the register fragments of a 64 x Dh output would not fit. The wide
-//   kernels walk Dh in 128-column chunks (kChunk): S = Q K^T and dP = dO V^T
-//   sum their fp32 partial fragments over the chunks in order (the same
-//   products in the same order as one depth-Dh loop), and P V, dS K, P^T dO
-//   and dS^T Q update one 128-column slice of an fp32 accumulator at a time.
-//   The accumulators O, dQ, dK and dV live in shared memory (fp32), and the
-//   bf16 operands are staged a chunk at a time, so shared memory grows only
-//   with the accumulators: a block takes R rows, the largest of 64, 32, 16
-//   whose bytes fit the card's 227 KB (WideRows below).
+//   and one warp's register fragments of a 16 x Dh output would not fit. The
+//   wide kernels walk Dh in 128-column chunks (kChunk): S = Q K^T and dP =
+//   dO V^T sum their fp32 partial fragments over the chunks in order (the
+//   same products in the same order as one depth-Dh loop), and P V, dS K,
+//   P^T dO and dS^T Q update one 128-column slice of an fp32 accumulator at
+//   a time. In the tiles design (K8f's where forced, K8b's) the
+//   accumulators O, dQ, dK and dV live in shared memory (fp32), and the bf16
+//   operands are staged a chunk at a time, so shared memory grows only with
+//   the accumulators: a block takes R rows, the largest of 64, 32, 16 whose
+//   bytes fit the card's 227 KB (WideRows below). K8f's registers design,
+//   its pick there (flash_fwd_wide_regs_kernel below), splits O's columns
+//   over the warps of a row tile instead and keeps it in registers.
 //
 // Shared memory per block (bytes; Smem and WideSmem below; R the wide
 // kernels' rows a block):
@@ -48,6 +51,11 @@
 //   640     226,816 (R 64)     156,928 (R 32)     142,848 (R 16)
 //   768     138,496 (R 32)     173,312 (R 32)     159,232 (R 16)
 //   896     154,880 (R 32)     189,696 (R 32)     175,616 (R 16)
+//
+// K8f's wide registers design (WideRegs): 96,256 B at Dh 256 (64 rows, 8
+// warps, a 3-stage ring: two blocks an SM), 131,072 and 147,456 at Dh 384
+// and 512 (64 rows, 16 warps), 116,736, 124,928 and 133,120 at Dh 640-896
+// (32 rows, 8 warps).
 //
 // What bounds it on the H100: at DiT-S/4 and --image-size 128 (N = 1024,
 // Dh = 64) one (image, head) is 4 N^2 Dh = 268 MFLOP against 384 KB of
@@ -74,8 +82,9 @@
 // on R-query tiles with Q, K and V staged by chunks.
 //
 // flash_fwd_regs_kernel, the forward at Dh 32, 64 and 128 (the "registers"
-// design, the launcher's own pick there; flash_fwd_kernel, the "tiles"
-// design, stays at Dh 4-16 and where forced): flash_fwd_kernel stores S and
+// design, the launcher's own pick there, as flash_fwd_wide_regs_kernel is
+// at Dh 256-896; flash_fwd_kernel, the "tiles" design, stays at Dh 4-16 and
+// where forced): flash_fwd_kernel stores S and
 // O to shared memory as WMMA tiles, runs the softmax and O's rescale as
 // scalar loops, and copies every tile synchronously behind four barriers a
 // key tile, so a block of 113 KB at Dh 128 runs alone on its SM. Here the
@@ -867,6 +876,174 @@ flash_fwd_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         row_m[threadIdx.x] + logf(row_l[threadIdx.x]);
 }
 
+// K8f's registers design at Dh 256-896 (the launcher's pick there;
+// flash_fwd_wide_kernel, the "tiles" design, stays where forced). The tiles
+// design keeps O (R x Dh fp32) and S in shared memory, 128-227 KB a block of
+// 4 warps, copies Q's chunks again for every key tile, runs the softmax and
+// O's rescale as scalar loops and moves every operand synchronously. Here
+// (mma_frag.cuh, "the wide forwards") one block takes 16 RT query rows of
+// one (image, head): RT row tiles times G column groups (WideRegs below: G
+// = 2 at Dh 256, each warp 64 of every chunk's 128 columns of O, and 4
+// past, 32 columns a chunk), so a lane holds at most 112 fp32 of O. Q is
+// copied once. A key tile is NC = Dh / 128 K stages, each a depth
+// chunk of the warp's 16 x 64 / G slice of scores, then the softmax, then NC
+// V stages, each a column chunk of P V. The row's running max is exchanged
+// over the G groups through shared memory (one barrier a key tile), each
+// warp rescales its own O and keeps its own part of l (the fp32 p of its
+// keys, rescaled as m grows), summed over the groups once at the end; bf16 P
+// goes to the row tile's warps through shared memory, its hand-over barrier
+// the first V stage's. The numerics are flash_fwd_kernel's element for
+// element (-1e30 start, p rounded to bf16 for P V, l summing the fp32 p, O
+// rescaled before P V is added, o = bf16(O / l), lse = m + log(l)), with
+// exp the card's ex2 as flash_fwd_regs_kernel's.
+//
+// A block's layout at Dh: G column groups of WARPS warps, 16 WARPS / G
+// query rows. Measured on the H100 at N 1024: at Dh 256 two groups of 8
+// warps (64 rows, 128 registers a thread) with a three-stage ring, so that
+// two blocks share an SM (1.80 ms at (128, 1024, 3, 256) against 2.49 for
+// four groups of 16 warps); at 384 and 512 four groups of 16 warps (64
+// rows, at most 128 registers a thread: 3-5% faster than two of 8 and four
+// of 8); past 512, where a lane's 80-112 fp32 of O leave no room for 16
+// warps, four groups of 8 (32 rows). Four ring stages but at Dh 256.
+template <int Dh>
+struct WideRegs {
+  static constexpr int G = Dh == 256 ? 2 : 4, WARPS = Dh == 384 || Dh == 512 ? 16 : 8;
+  static constexpr int kRows = 16 * WARPS / G, kStages = Dh == 256 ? 3 : 4;
+  static constexpr size_t kSmem =  // Q, the ring, P of each row tile, two exchanges
+      (size_t)kRows * (Dh + kPadH) * sizeof(bf16) + (size_t)kStages * kWideStage * sizeof(bf16) +
+      (size_t)kRows * (kTile + kPadH) * sizeof(bf16) + (size_t)2 * WARPS * 16 * sizeof(float);
+};
+
+template <int Dh>
+__global__ void __launch_bounds__(32 * WideRegs<Dh>::WARPS)
+flash_fwd_wide_regs_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, int ld, bf16* __restrict__ o,
+                           float* __restrict__ lse, int N, int H, float scale) {
+  using L = WideRegs<Dh>;
+  constexpr int G = L::G, WARPS = L::WARPS, RT = WARPS / G, kRows = L::kRows;
+  constexpr int NC = Dh / kWideCols, kThr = 32 * WARPS;
+  constexpr int KS = kTile / G, NJ = KS / 8, CW = kWideCols / G, NO = CW / 8;
+  constexpr int kQld = Dh + kPadH, kPld = kTile + kPadH, kStages = L::kStages;
+  static_assert(Dh % kWideCols == 0 && NC >= 2 && Dh <= kWideMaxWidth,
+                "the wide registers design is built at Dh 256 ... 896, multiples of 128");
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* ring = Qs + kRows * kQld;
+  bf16* Ps = ring + kStages * kWideStage;  // RT tiles of 16 x 64 bf16 P
+  float* xm = reinterpret_cast<float*>(Ps + kRows * kPld);  // 16 rows a warp: raw maxima
+  float* xl = xm + WARPS * 16;                              // ... and the parts of l
+  const int q0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int rt = warp / G, grp = warp % G;
+  const int D = H * Dh, nt = N / kTile, jobs = 2 * NC * nt;
+  const size_t row0 = (size_t)b * N;
+  const bf16* qh = q + row0 * ld + h * Dh;
+  const bf16* kh = k + row0 * ld + h * Dh;
+  const bf16* vh = v + row0 * ld + h * Dh;
+  const float scale2 = scale * kLog2e;
+  // job j: key tile j / (2 NC), its K chunks then its V chunks; its copy is
+  // issued at job j - (kStages - 1) into the stage job j - kStages read
+  // (every warp has passed job j - kStages + 1's barrier, so is done with it)
+  auto issue = [&](int j) {
+    if (j < jobs) {
+      const int i = j / (2 * NC), c = j % (2 * NC);
+      load_chunk_async<kThr>(ring + (j % kStages) * kWideStage, c < NC ? kh : vh, ld, i * kTile, N,
+                       (c % NC) * kWideCols, Dh, Dh);
+    }
+    cp_async_commit();
+  };
+  int job = 0;
+  auto next = [&]() {  // wait for the next job's stage; start the copy kStages - 1 ahead
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    issue(job + kStages - 1);
+    return ring + (job++ % kStages) * kWideStage;
+  };
+  load_rows_async<kRows, kThr>(Qs, kQld, qh, ld, q0, N, Dh, Dh);
+#pragma unroll
+  for (int j = 0; j < kStages - 1; ++j) issue(j);
+  float acc[NC][NO][4];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int j = 0; j < NO; ++j) acc[c][j][0] = acc[c][j][1] = acc[c][j][2] = acc[c][j][3] = 0.f;
+  float m[2] = {kNegBig, kNegBig}, l[2] = {0.f, 0.f};  // rows g and g + 8
+  const bf16* qw = Qs + rt * 16 * kQld;
+  bf16* pw = Ps + rt * 16 * kPld;
+  for (int i = 0; i < nt; ++i) {
+    float s[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      qk_chunk<NJ>(s, qw + c * kWideCols, kQld, next() + grp * KS * kWideLd, kWideCols, lane);
+    // the row's largest raw score over the G slices (times the scale > 0,
+    // the largest scaled one)
+    float mx[2] = {-INFINITY, -INFINITY};
+    row_max(s, mx);
+    mx[0] = quad_max(mx[0]);
+    mx[1] = quad_max(mx[1]);
+    if (t == 0) {
+      xm[warp * 16 + g] = mx[0];
+      xm[warp * 16 + g + 8] = mx[1];
+    }
+    __syncthreads();
+    group_max<G>(xm + rt * G * 16, g, mx);
+    float m2[2], corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], mx[r] * scale);
+      m2[r] = m_new * kLog2e;
+      corr[r] = exp2_approx(m[r] * kLog2e - m2[r]);
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2_approx(s[j][e] * scale2 - m2[e / 2]);
+        sum[e / 2] += s[j][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + quad_sum(sum[r]);
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int j = 0; j < NO; ++j) {
+        acc[c][j][0] *= corr[0];
+        acc[c][j][1] *= corr[0];
+        acc[c][j][2] *= corr[1];
+        acc[c][j][3] *= corr[1];
+      }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int col = grp * KS + 8 * j + 2 * t;
+      *reinterpret_cast<uint32_t*>(pw + g * kPld + col) = pack_bf16(s[j][0], s[j][1]);
+      *reinterpret_cast<uint32_t*>(pw + (g + 8) * kPld + col) = pack_bf16(s[j][2], s[j][3]);
+    }
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const bf16* st = next();  // at c = 0 its barrier also hands P over
+      if (c == 0) load_a_frags<kTile>(pa, pw, lane);
+      pv_chunk<NO>(acc[c], pa, st + grp * CW, CW, lane);
+    }
+  }
+  if (t == 0) {
+    xl[warp * 16 + g] = l[0];
+    xl[warp * 16 + g + 8] = l[1];
+  }
+  __syncthreads();
+  group_sum<G>(xl + rt * G * 16, g, l);
+  const int r = q0 + rt * 16;
+  store_wide<NC, NO>(o + row0 * D + h * Dh, D, acc, l[0], l[1], r, N, grp * CW, Dh, lane);
+  if (grp == 0 && t == 0) {
+    float* dst = lse + ((size_t)b * H + h) * N + r + g;
+    dst[0] = m[0] + logf(l[0]);
+    dst[8] = m[1] + logf(l[1]);
+  }
+}
+
 // p = exp(s * scale - lse) and ds = bf16(p (dp - dsum) scale) over an
 // M x NC tile of fp32 rows of stride sld, the row terms by row; Pb (bf16 p)
 // is written when non-null. Rows of stride pld.
@@ -1167,6 +1344,19 @@ cudaError_t launch_fwd_wide(const void* q, const void* k, const void* v, int ld,
 }
 
 template <int Dh>
+cudaError_t launch_fwd_wide_regs(const void* q, const void* k, const void* v, int ld, void* o,
+                                 void* lse, int B, int N, int H, float scale,
+                                 cudaStream_t stream) {
+  using L = WideRegs<Dh>;
+  static_assert(L::kSmem <= kMaxSmem, "the wide registers design exceeds the card's shared memory");
+  cudaError_t err = allow_smem(flash_fwd_wide_regs_kernel<Dh>, L::kSmem);
+  if (err != cudaSuccess) return err;
+  flash_fwd_wide_regs_kernel<Dh><<<dim3(N / L::kRows, H, B), 32 * L::WARPS, L::kSmem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, ld, (bf16*)o, (float*)lse, N, H, scale);
+  return cudaGetLastError();
+}
+
+template <int Dh>
 cudaError_t launch_bwd_wide(const void* q, const void* k, const void* v, int ld, const void* o,
                             const void* dout, const void* lse, void* dsum, void* dqkv, int B,
                             int N, int H, float scale, cudaStream_t stream) {
@@ -1195,10 +1385,10 @@ cudaError_t launch_bwd_wide(const void* q, const void* k, const void* v, int ld,
 #define DDM_FLASH_WIDTHS(X) \
   X(256) X(384) X(512) X(640) X(768) X(896)
 
-// The forward's designs: 0 "tiles" (flash_fwd_kernel, Dh 4-128), 1
-// "registers" (flash_fwd_regs_kernel, Dh 32, 64, 128); -1 registers where it
-// takes Dh, tiles at Dh 4-16, the wide kernel at Dh 256-896 (which no
-// design code forces).
+// The forward's designs: 0 "tiles" (flash_fwd_kernel at Dh 4-128,
+// flash_fwd_wide_kernel at Dh 256-896), 1 "registers" (flash_fwd_regs_kernel
+// at Dh 32, 64, 128, flash_fwd_wide_regs_kernel at Dh 256-896); -1
+// registers where it takes Dh, tiles at Dh 4-16.
 constexpr int kFwdTiles = 0, kFwdRegisters = 1;
 
 extern "C" int ddm_flash_fwd(const void* q, const void* k, const void* v, int ld, void* o,
@@ -1206,12 +1396,15 @@ extern "C" int ddm_flash_fwd(const void* q, const void* k, const void* v, int ld
                              void* stream) {
   using namespace ddm;
   const cudaStream_t s = (cudaStream_t)stream;
-  const bool regs = Dh == 32 || Dh == 64 || Dh == 128;
-  if (design == kFwdRegisters || (design < 0 && regs)) {
+  if (design == kFwdRegisters || (design < 0 && Dh >= 32)) {
     switch (Dh) {
       case 32: return (int)launch_fwd_regs<32>(q, k, v, ld, o, lse, B, N, H, scale, s);
       case 64: return (int)launch_fwd_regs<64>(q, k, v, ld, o, lse, B, N, H, scale, s);
       case 128: return (int)launch_fwd_regs<128>(q, k, v, ld, o, lse, B, N, H, scale, s);
+#define DDM_FWD_WIDE_REGS(W) \
+      case W: return (int)launch_fwd_wide_regs<W>(q, k, v, ld, o, lse, B, N, H, scale, s);
+      DDM_FLASH_WIDTHS(DDM_FWD_WIDE_REGS)
+#undef DDM_FWD_WIDE_REGS
       default: return (int)cudaErrorInvalidValue;
     }
   }
@@ -1224,23 +1417,23 @@ extern "C" int ddm_flash_fwd(const void* q, const void* k, const void* v, int ld
     case 64: return (int)launch_fwd<64>(q, k, v, ld, o, lse, B, N, H, Dh, scale, s);
     case 128: return (int)launch_fwd<128>(q, k, v, ld, o, lse, B, N, H, Dh, scale, s);
 #define DDM_FWD_WIDE(W) \
-    case W:             \
-      return design < 0 ? (int)launch_fwd_wide<W>(q, k, v, ld, o, lse, B, N, H, scale, s) \
-                        : (int)cudaErrorInvalidValue;
+    case W: return (int)launch_fwd_wide<W>(q, k, v, ld, o, lse, B, N, H, scale, s);
     DDM_FLASH_WIDTHS(DDM_FWD_WIDE)
 #undef DDM_FWD_WIDE
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// Registers and local (spill) bytes a thread of each K8 kernel at Dh 32, 64
-// and 128 takes: attrs[2 i], attrs[2 i + 1] for K8f's registers design (two
-// row tiles a warp at Dh 32), then its tiles design, then K8b's registers
+// Registers and local (spill) bytes a thread of each K8 kernel takes:
+// attrs[2 i], attrs[2 i + 1] for K8f's registers design at Dh 32 (two row
+// tiles a warp), 64, 128, then its tiles design there, then K8b's registers
 // design's dq kernels, its dk/dv kernels, the tiles design's dq kernels and
-// its dk/dv kernels.
+// its dk/dv kernels at Dh 32, 64, 128; then K8f's registers design at Dh
+// 256, 384, ..., 896 and its tiles design (the chunked kernel) there.
 extern "C" int ddm_flash_kernel_attrs(int* attrs) {
   using namespace ddm;
-  const void* kernels[18] = {(const void*)flash_fwd_regs_kernel<32, 2>,
+  constexpr int kN = 18 + 12;
+  const void* kernels[kN] = {(const void*)flash_fwd_regs_kernel<32, 2>,
                              (const void*)flash_fwd_regs_kernel<64, 1>,
                              (const void*)flash_fwd_regs_kernel<128, 1>,
                              (const void*)flash_fwd_kernel<32>,
@@ -1258,7 +1451,14 @@ extern "C" int ddm_flash_kernel_attrs(int* attrs) {
                              (const void*)flash_bwd_dkv_kernel<32>,
                              (const void*)flash_bwd_dkv_kernel<64>,
                              (const void*)flash_bwd_dkv_kernel<128>};
-  for (int i = 0; i < 18; ++i) {
+  int i = 18;
+#define DDM_WIDE_REGS_ATTRS(W) kernels[i++] = (const void*)flash_fwd_wide_regs_kernel<W>;
+  DDM_FLASH_WIDTHS(DDM_WIDE_REGS_ATTRS)
+#undef DDM_WIDE_REGS_ATTRS
+#define DDM_WIDE_ATTRS(W) kernels[i++] = (const void*)flash_fwd_wide_kernel<W>;
+  DDM_FLASH_WIDTHS(DDM_WIDE_ATTRS)
+#undef DDM_WIDE_ATTRS
+  for (i = 0; i < kN; ++i) {
     cudaFuncAttributes a;
     const cudaError_t err = cudaFuncGetAttributes(&a, kernels[i]);
     if (err != cudaSuccess) return (int)err;

@@ -1,7 +1,7 @@
 // Register-fragment and copy helpers for the tensor-core kernels (sm_90a):
 // mma.sync m16n8k16 (bf16 in, fp32 accumulate), ldmatrix, cp.async. The
 // attention forwards in csrc/attention.cu (the "registers" core) and
-// csrc/flash.cu (K8f at Dh 32, 64, 128) are built from them, and so are the
+// csrc/flash.cu (K8f's registers design) are built from them, and so are the
 // two backwards (attention_bwd_regs.cuh).
 //
 // Fragment layouts (PTX ISA, "Matrix Fragments for mma.m16n8k16"): lane l of
@@ -223,6 +223,160 @@ __device__ __forceinline__ void store_rows_bf16(bf16* __restrict__ dst, size_t l
       *reinterpret_cast<uint32_t*>(dst + (size_t)(r + g + 8) * ld + c) =
           pack_bf16(o[j][2] / div_g8, o[j][3] / div_g8);
   }
+}
+
+
+// ---- the wide forwards: K8f at Dh 256-896, the core past a padded head of 128 ----
+//
+// A 64 x Dh fp32 output tile is 64 Dh registers (49,152 at Dh 768 against
+// the SM's 65,536), so no warp can hold a row tile's whole O. A block of
+// WARPS warps (8 or 16) is RT row tiles of 16 query rows times G column
+// groups (RT G = WARPS): the warps of a row tile split O's columns, group g
+// holding columns [128 c + g 128 / G, 128 c + (g + 1) 128 / G) of every
+// 128-column chunk c as mma.sync accumulators (at most 112 fp32 a lane),
+// and split each 16 x 64 score tile's keys, group g computing keys [g 64 /
+// G, (g + 1) 64 / G) at the full depth, so that every score is one warp's
+// in-order sum over the head. K and V pass through a ring of S stages of
+// 64 keys x 128 columns, copied by cp.async S - 1 stages ahead, with one
+// barrier where a stage is handed over: each K stage is one depth chunk of
+// the score tile, each V stage one column chunk of P V, and every warp
+// works on every stage. Q is copied once and read by ldmatrix at each depth
+// step (a whole head of A fragments would not fit a lane's registers past
+// Dh 128).
+constexpr int kWideKeys = 64;                  // keys a tile
+constexpr int kWideCols = 128;                 // head columns a ring stage
+constexpr int kWideLd = kWideCols + kPadH;     // a stage's row stride
+constexpr int kWideStage = kWideKeys * kWideLd;  // bf16 elements a stage
+constexpr int kWideMaxWidth = 896;             // the widest padded head (7 chunks)
+
+// Rows [r0, r0 + 64) x columns [c0, c0 + 128) of a head (row stride ld, Dh
+// columns, padded to DP) into a ring stage, by cp.async, all THREADS
+// threads of the block: rows at or past `rows` and columns at or past Dh
+// are zeros; columns at or past DP (a last chunk narrower than 128) are not
+// written, and no product reads them. Commits nothing.
+template <int THREADS>
+__device__ __forceinline__ void load_chunk_async(bf16* dst, const bf16* __restrict__ src,
+                                                 size_t ld, int r0, int rows, int c0, int DP,
+                                                 int Dh) {
+  constexpr int kVec = kWideCols / 8;
+  static_assert(kWideKeys * kVec % THREADS == 0, "a stage's pieces split over the threads");
+#pragma unroll
+  for (int n = 0; n < kWideKeys * kVec / THREADS; ++n) {
+    const int i = threadIdx.x + n * THREADS, r = i / kVec, c = (i % kVec) * 8;
+    if (c0 + c < DP) {
+      const bool valid = r0 + r < rows && c0 + c < Dh;
+      cp_async16(dst + r * kWideLd + c, valid ? src + (size_t)(r0 + r) * ld + c0 + c : src,
+                 valid);
+    }
+  }
+}
+
+// ROWS rows of a head from row r0 (row stride ld, Dh columns) into a shared
+// tile of DP columns (row stride dld), by cp.async, all THREADS threads of
+// the block: rows at or past `rows` and columns at or past Dh are zeros.
+template <int ROWS, int THREADS>
+__device__ __forceinline__ void load_rows_async(bf16* dst, int dld, const bf16* __restrict__ src,
+                                                size_t ld, int r0, int rows, int DP, int Dh) {
+  const int vec = DP / 8;
+  for (int i = threadIdx.x; i < ROWS * vec; i += THREADS) {
+    const int r = i / vec, c = (i % vec) * 8;
+    const bool valid = r0 + r < rows && c < Dh;
+    cp_async16(dst + r * dld + c, valid ? src + (size_t)(r0 + r) * ld + c : src, valid);
+  }
+}
+
+// s[j] += the warp's 16 rows of Q (shared, row stride qld, from the chunk's
+// first column) times keys [8j, 8j + 8) of a K stage (from the warp's first
+// key), over the chunk's first w columns (a multiple of 16) in increasing
+// order: the order of qk_tile, one chunk of the depth.
+template <int NJ>
+__device__ __forceinline__ void qk_chunk(float (&s)[NJ][4], const bf16* Qc, int qld,
+                                         const bf16* Kc, int w, int lane) {
+  const bf16* qa = Qc + (lane % 16) * qld + (lane / 16) * 8;
+  const int row = (lane % 8) + (lane / 16) * 8, col = ((lane / 8) % 2) * 8;
+  const bf16* kb = Kc + row * kWideLd + col;
+#pragma unroll
+  for (int kk = 0; kk < kWideCols / 16; ++kk) {
+    if (16 * kk >= w) break;
+    uint32_t a[4];
+    ldmatrix_x4<false>(a, qa + kk * 16);
+#pragma unroll
+    for (int n = 0; n < NJ / 2; ++n) {
+      uint32_t b[4];
+      ldmatrix_x4<false>(b, kb + n * 16 * kWideLd + kk * 16);
+      mma_16816(s[2 * n], a, b[0], b[1]);
+      mma_16816(s[2 * n + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// o[j] += P V over the tile's 64 keys: P the A fragments of its four 16-key
+// steps (in increasing order), V a stage's columns [8j, 8j + 8) from the
+// warp's first column, the first w of them (a multiple of 16; none past).
+template <int NO>
+__device__ __forceinline__ void pv_chunk(float (&o)[NO][4], const uint32_t (&pa)[4][4],
+                                         const bf16* Vc, int w, int lane) {
+  const int row = (lane % 8) + ((lane / 8) % 2) * 8, col = (lane / 16) * 8;
+  const bf16* vb = Vc + row * kWideLd + col;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int d = 0; d < NO / 2; ++d) {
+      if (16 * d >= w) break;
+      uint32_t b[4];
+      ldmatrix_x4<true>(b, vb + kk * 16 * kWideLd + d * 16);
+      mma_16816(o[2 * d], pa[kk], b[0], b[1]);
+      mma_16816(o[2 * d + 1], pa[kk], b[2], b[3]);
+    }
+  }
+}
+
+// The largest of rows g and g + 8 over the G groups of a row tile, from
+// x[w 16 + r] (warp w's value of row r) at the row tile's first warp.
+template <int G>
+__device__ __forceinline__ void group_max(const float* x, int g, float (&m)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    m[r] = x[g + 8 * r];
+#pragma unroll
+    for (int w = 1; w < G; ++w) m[r] = fmaxf(m[r], x[16 * w + g + 8 * r]);
+  }
+}
+
+// The sum of rows g and g + 8 over the G groups, in group order.
+template <int G>
+__device__ __forceinline__ void group_sum(const float* x, int g, float (&l)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = x[g + 8 * r];
+#pragma unroll
+    for (int w = 1; w < G; ++w) l[r] += x[16 * w + g + 8 * r];
+  }
+}
+
+// Rows g and g + 8 of the warp's chunk accumulators (o[c][j]: head columns
+// 128 c + cs + [8j, 8j + 8)), each divided by its row's divisor and rounded
+// to bf16 once, as 4-byte pairs into rows of stride ld from the head's row
+// 0; rows at or past `rows` and columns at or past Dh are not written.
+template <int NC, int NO>
+__device__ __forceinline__ void store_wide(bf16* __restrict__ dst, size_t ld,
+                                           const float (&o)[NC][NO][4], float div_g,
+                                           float div_g8, int r, int rows, int cs, int Dh,
+                                           int lane) {
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      const int col = c * kWideCols + cs + j * 8 + 2 * t;
+      if (col >= Dh) continue;
+      if (r + g < rows)
+        *reinterpret_cast<uint32_t*>(dst + (size_t)(r + g) * ld + col) =
+            pack_bf16(o[c][j][0] / div_g, o[c][j][1] / div_g);
+      if (r + g + 8 < rows)
+        *reinterpret_cast<uint32_t*>(dst + (size_t)(r + g + 8) * ld + col) =
+            pack_bf16(o[c][j][2] / div_g8, o[c][j][3] / div_g8);
+    }
 }
 
 }  // namespace

@@ -23,17 +23,24 @@ half-block GEMMs run D a multiple of 64 up to
 LN-prologue kernel's bound), the widths of every JAX attention half-block
 tier.
 The forward core has three designs. Where the head, padded to a multiple of
-16, is at most 128 wide (every DiT width but the few-head paths) the plan
-takes the registers design: 64 query rows a block (128 past N 128 where
-they divide N), Q held as tensor-core
-fragments, K and V streamed through a two-stage copy ring, and the scores,
-probabilities and output kept in registers, with the softmax still exact
-over the whole row (the scores held where N <= 128, else a first sweep for
-each row's max and sum). Its sums run in another order than the resident
-core's, so its bits are not the resident core's: the card holds it to the
-plain version. The resident and streamed designs run one block per
-(image, head, query tile) over full score rows in shared memory. The
-backward core has the same registers design at the same widths
+16, is at most 896 wide (every shape a DiT path sends) the plan takes the
+registers design. Up to 128 columns: 64 query rows a block (128 past N 128
+where they divide N), Q held as tensor-core fragments, K and V streamed
+through a two-stage copy ring, and the scores, probabilities and output
+kept in registers, with the softmax still exact over the whole row (the
+scores held where N <= 128, else a first sweep for each row's max and
+sum). Past 128 (the few-head paths: DiT-S/4 and DiT-B/4 at ``--heads 1``,
+DiT-L/4 at ``--heads 2``, DiT-B/4 at ``--heads 3``): 64 query rows a block
+of 16 warps up to a padded 512 where their scores fit, else 32 rows on 8
+warps, the four warps of a 16-row tile splitting the output's columns and
+each score tile's keys, K and V through a four-stage ring of 64-key x
+128-column chunks, the fp32 scores written once to shared memory and the
+exact softmax run over the whole row there. Its sums run in another order
+than the resident core's, so its bits are not the resident core's: the
+card holds it to the plain version. The resident and streamed designs run one
+block per (image, head, query tile) over full score rows in shared memory
+(the plan's pick past a padded 896, and where forced). The
+backward core has a registers design at padded widths up to 128
 (:data:`BWD_DESIGNS` "registers" and "registers-fused"): P, dP, dS and the
 gradients as tensor-core fragments in registers, with a dq side (two
 sweeps over the key tiles: each row's max, sum and sum of e dP, then P,
@@ -43,11 +50,11 @@ design, the main path's). Elsewhere the backward core runs one block per
 (image, head) where its fp32 P and dP tiles fit shared memory (N <= 112 at
 Dh = 64), and past that two passes, over query tiles (P, att, dq and the
 row terms) and over key tiles and output column chunks (dk, dv). The
-forward core and each pass hold a whole head in shared memory where it
-fits (the resident design) and otherwise pass it through in 64-column
-chunks, keeping only the fp32 score rows whole (the streamed design, past
-the card's 227 KB: DiT-S/4 at ``--heads 1`` and 64 px, DiT-B/4 at
-``--heads 1``, DiT-L/4 at ``--heads 2`` and 64 px); the library's plan
+forward core's earlier designs and each pass hold a whole head in shared
+memory where it fits (the resident design) and otherwise pass it through
+in 64-column chunks, keeping only the fp32 score rows whole (the streamed
+design, past the card's 227 KB: DiT-S/4 at ``--heads 1`` and 64 px,
+DiT-B/4 at ``--heads 1``, DiT-L/4 at ``--heads 2`` and 64 px); the library's plan
 (:func:`core_plan`) picks, and ``design=``
 forces one for the card tests. Every design keeps the same rounding plan;
 the resident and streamed designs and the backward's earlier ones keep the
@@ -161,15 +168,20 @@ MAX_TOKENS = 512  # the JAX gate's N <= 512; the flash tier takes N >= 1024
 # the cores' designs (``design=``), in the order of the library's codes
 FWD_DESIGNS = ("resident", "streamed", "registers")
 BWD_DESIGNS = ("one-block", "two-pass", "streamed", "registers", "registers-fused")
-# the padded head widths the registers designs are built for (padded(Dh) <= 128)
+# the padded head widths both registers designs are built for (padded(Dh) <=
+# 128), and the forward's wide registers instances past them: padded widths
+# (up to 896) and query rows a block (32 on 8 warps; 64 on 16, up to 512)
 REGISTERS_WIDTHS = tuple(range(16, 129, 16))
+WIDE_REGISTERS = tuple((dp, 32) for dp in range(256, 897, 128)) + tuple(
+    (dp, 64) for dp in range(256, 513, 128))
 # the core kernels whose registers and spills kernel_attrs reads
 CORE_KERNELS = ("forward", "forward streamed", "one-block backward", "pass 1",
                 "pass 1 streamed", "pass 2", "pass 2 streamed") + tuple(
     f"forward registers {dp} {kind}" for dp in REGISTERS_WIDTHS
     for kind in ("held", "two sweeps", "two sweeps 8 warps")) + tuple(
     f"backward registers {dp} {kind}" for dp in REGISTERS_WIDTHS
-    for kind in ("dq att", "dq", "dk dv", "fused att", "fused"))
+    for kind in ("dq att", "dq", "dk dv", "fused att", "fused")) + tuple(
+    f"forward registers {dp - 112}-{dp} {rows} rows" for dp, rows in WIDE_REGISTERS)
 
 
 def _heads(a: torch.Tensor, H: int) -> torch.Tensor:
@@ -325,8 +337,8 @@ def core_plan(N: int, Dh: int, backward: bool = False, design=None) -> dict:
     read from the library (the card's only; it builds the kernels): the
     forward's ``{"design", "QT", "C"}`` (C: the column chunk, the padded
     Dh where the design is resident or registers; for the registers design
-    QT is the block's query rows, 64, or 128 past N 128 where they divide
-    N), the backward's ``{"design",
+    QT is the block's query rows: at a padded Dh up to 128, 64, or 128 past
+    N 128 where they divide N; past it 64 or 32), the backward's ``{"design",
     "rows": (QT, C), "cols": (KT, QT, C, C2)}`` (pass 2's output column
     chunk C2; no pass tiles for the one-block design). ``design`` forces one
     of :data:`FWD_DESIGNS` or :data:`BWD_DESIGNS`; raises where it (or,
@@ -432,7 +444,7 @@ def _launch_core(q, k, v, H, design=None):
     """The forward core on CUDA tensors its caller has checked -> (B, N, D)
     bf16, q, k and v read in place where they share one row stride (the
     thirds of a qkv buffer): the registers design where the padded head is
-    at most 128 wide, else resident where a head fits, else streamed
+    at most 896 wide, else resident where a head fits, else streamed
     (``design`` forces one of :data:`FWD_DESIGNS`)."""
     code = design_code(design, FWD_DESIGNS)
     q, k, v, ld = flash._qkv_rows(q, k, v)

@@ -22,19 +22,24 @@ The kernels take every head width the JAX gate admits (its
 ``_heads_per_group`` takes 128 % Dh == 0 or Dh % 128 == 0, and its VMEM
 budget no Dh past 896): Dh = 4, 8 and 16 (one instance on 16-column tiles,
 zero-filled past Dh), 32, 64 (DiT-S, B and L) and 128, and 256 to 896 in
-steps of 128 (kernels that walk a head in 128-column chunks with fp32
-accumulators in shared memory); and N a multiple of 64. The TPU's head-pair
+steps of 128 (kernels that walk a head in 128-column chunks); and N a
+multiple of 64. The TPU's head-pair
 lane packing and phantom-head pad are 128-lane devices and are not carried:
 any H runs as it is. Dh 1 and 2, which the gate's grouping admits and its
 budget never does, raise ``NotImplementedError``.
 
-K8f has two designs at Dh 32, 64 and 128 (:data:`FWD_DESIGNS`): "registers",
-the launcher's own pick there, holds Q, the scores, the probabilities, the
+K8f has two designs at Dh 32 to 896 (:data:`FWD_DESIGNS`): "registers",
+the launcher's own pick there, holds the scores, the probabilities, the
 output and each row's running max and sum in registers as tensor-core
-fragments and streams K and V through a two-stage copy ring; "tiles", the
-design of Dh 4, 8 and 16 too, stages them in shared memory. Both follow the
-rounding above element for element; the sums over a row's keys run in
-another order, so their bits differ. K8b has the same two designs
+fragments and streams K and V through a copy ring (at Dh 32, 64 and 128 a
+warp holds Q and a 16-row tile's whole output; at Dh 256 to 896,
+:data:`WIDE_DIMS`, two or four warps split each 16-row tile's output
+columns and each score tile's keys, and K and V pass through a ring of
+64-key x 128-column chunks); "tiles", the design of Dh 4, 8 and 16 too,
+stages them in shared memory (at the wide widths the 128-column chunked
+kernel with its fp32 output in shared memory). Both follow the rounding
+above element for element; the sums over a row's keys run in another
+order, so their bits differ. K8b has the same two designs
 (:data:`BWD_DESIGNS`): its "registers" design keeps the score, dP,
 probability and dS tiles and the dq, dk and dv accumulators in registers
 (the dk/dv kernel computes the transposed tiles, keys by queries, so that
@@ -74,6 +79,7 @@ __all__ = [
     "FWD_DESIGNS",
     "BWD_DESIGNS",
     "REGISTERS_DIMS",
+    "WIDE_DIMS",
     "TILE",
     "MIN_TOKENS",
 ]
@@ -82,11 +88,15 @@ FWD_LAUNCHES = LaunchCounter("K8f")
 BWD_LAUNCHES = LaunchCounter("K8b")
 # the head widths csrc/flash.cu is built for: every one the JAX gate admits
 HEAD_DIMS = (4, 8, 16, 32, 64, 128, 256, 384, 512, 640, 768, 896)
-# K8f's designs (``design=``), in the order of the library's codes, and the
-# head widths the registers design is built for (its own pick there)
+# K8's designs (``design=``), in the order of the library's codes; the head
+# widths both registers designs are built for (their own pick there), and
+# the wide widths where K8f's registers design is the wide kernel and its
+# tiles design the 128-column chunked one (K8b runs its chunked kernels there
+# and no design code forces them)
 FWD_DESIGNS = ("tiles", "registers")
 BWD_DESIGNS = ("tiles", "registers")
 REGISTERS_DIMS = (32, 64, 128)
+WIDE_DIMS = (256, 384, 512, 640, 768, 896)
 TILE = 64         # q rows and k rows per tile of the kernels
 MIN_TOKENS = 1024  # the JAX gate's long-sequence tier (ddm_tpu/ops/flash.py:286)
 
@@ -204,13 +214,14 @@ def launch_k8f(q, k, v, H: int, scale: float, design=None):
 
 
 def kernel_attrs() -> dict:
-    """Registers and local (spill) bytes a thread of each K8 instance at Dh
-    32, 64 and 128 takes on the card: ``{(kernel, Dh): {"registers",
-    "local_bytes"}}``, kernel a K8f design's name (its forward kernel), or
-    ``"<design> dq"`` and ``"<design> dk dv"`` for K8b's two kernels."""
+    """Registers and local (spill) bytes a thread of each K8 instance takes
+    on the card: ``{(kernel, Dh): {"registers", "local_bytes"}}``, kernel a
+    K8f design's name (its forward kernel, at Dh 32, 64 and 128 and at
+    :data:`WIDE_DIMS`), or ``"<design> dq"`` and ``"<design> dk dv"`` for
+    K8b's two kernels (at Dh 32, 64 and 128)."""
     keys = [(d, dh) for d in FWD_DESIGNS[::-1] for dh in REGISTERS_DIMS] + [
         (f"{d} {side}", dh) for d in BWD_DESIGNS[::-1] for side in ("dq", "dk dv")
-        for dh in REGISTERS_DIMS]
+        for dh in REGISTERS_DIMS] + [(d, dh) for d in FWD_DESIGNS[::-1] for dh in WIDE_DIMS]
     attrs = (ctypes.c_int * (2 * len(keys)))()
     check_status(load_library().ddm_flash_kernel_attrs(ctypes.addressof(attrs)),
                  "K8f kernel attributes")

@@ -4,13 +4,15 @@ them, or compare two dumps bit for bit: the check that a change to
 csrc/attention.cu keeps the bits, and the speed, of the designs it did not
 mean to change.
 
-Each core is dumped twice. The forward: with the resident design forced
-(``o``, held bit for bit), and as the plan picks it (``o_pick``: the
-registers design where a checkout has it, whose sums run in another order).
-The backward (att, dq, dk, dv): with the earlier design forced (the
-one-block core where it fits, else the two whole-head passes: ``att``,
-``dqkv_att``, ``dqkv``, held bit for bit), and as the plan picks it
-(``*_pick``: the registers designs where a checkout has them). ``compare``
+Each core is dumped twice. The forward: with the earlier design forced
+(the resident design where its tile fits, else the streamed one: ``o``,
+held bit for bit), and as the plan picks it (``o_pick``: the registers
+design where a checkout has it, whose sums run in another order). The
+backward (att, dq, dk, dv): with the earlier design forced (the one-block
+core where it fits, else the two whole-head passes where they fit, else
+the streamed passes: ``att``, ``dqkv_att``, ``dqkv``, held bit for bit),
+and as the plan picks it (``*_pick``: the registers designs where a
+checkout has them). ``compare``
 holds each dump's picks to the plain versions' outputs (``*_plain``), and
 the second dump's picks to the first dump's forced designs, by the bf16
 rule: two units in the last place at the largest output, a mean error below
@@ -21,7 +23,12 @@ the current directory), on the same seeded inputs, q, k and v read in place
 from a [q | k | v] buffer, at (B, N, H, Dh): (2048, 64, 6, 64) (DiT-S/4's
 training shape; the earlier backward one block per (image, head)), (256,
 256, 6, 64) (64 px, two passes), (256, 256, 16, 64) (DiT-L/4 at 64 px, K7)
-and (256, 64, 16, 72) (DiT-XL/4, heads padded to 80 columns):
+and (256, 64, 16, 72) (DiT-XL/4, heads padded to 80 columns); then past a
+padded head of 128 (the wide registers forward): (64, 256, 1, 384)
+(DiT-S/4 at --heads 1 and 64 px), (512, 64, 1, 768) (DiT-B/4 at --heads
+1), (64, 256, 2, 512) (DiT-L/4 at --heads 2 and 64 px, K7), (64, 256, 4,
+256) (DiT-B/4 at --heads 3 and 64 px) and (16, 80, 2, 136) (ragged tiles, a
+head padded to 144 columns):
 
     PYTHONPATH=. python scripts/torch_attention_bits.py dump /tmp/new.pt
     cd parent && PYTHONPATH=. python ../scripts/torch_attention_bits.py dump /tmp/old.pt
@@ -41,7 +48,9 @@ import sys
 import numpy as np
 import torch
 
-SHAPES = ((2048, 64, 6, 64), (256, 256, 6, 64), (256, 256, 16, 64), (256, 64, 16, 72))
+SHAPES = ((2048, 64, 6, 64), (256, 256, 6, 64), (256, 256, 16, 64), (256, 64, 16, 72),
+          (64, 256, 1, 384), (512, 64, 1, 768), (64, 256, 2, 512), (64, 256, 4, 256),
+          (16, 80, 2, 136))
 
 
 def _median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -59,13 +68,25 @@ def _median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+def _first_taken(A, N: int, Dh: int, backward: bool, designs) -> str:
+    """The first of ``designs`` that takes (N, Dh)."""
+    for design in designs:
+        try:
+            A.core_plan(N, Dh, backward, design)
+            return design
+        except RuntimeError:
+            continue
+    raise ValueError(f"none of {designs} takes N={N}, Dh={Dh}")
+
+
+def _earlier_fwd(A, N: int, Dh: int) -> str:
+    """The forward design the plan picked before the registers designs."""
+    return _first_taken(A, N, Dh, False, ("resident", "streamed"))
+
+
 def _earlier_bwd(A, N: int, Dh: int) -> str:
     """The backward design the plan picked before the registers designs."""
-    try:
-        A.core_plan(N, Dh, True, "one-block")
-        return "one-block"
-    except RuntimeError:
-        return "two-pass"
+    return _first_taken(A, N, Dh, True, ("one-block", "two-pass", "streamed"))
 
 
 def dump(path: str) -> None:
@@ -78,8 +99,8 @@ def dump(path: str) -> None:
         qkv = torch.randn(B, N, 3 * D, generator=gen, device="cuda").to(torch.bfloat16)
         do = torch.randn(B, N, D, generator=gen, device="cuda").to(torch.bfloat16)
         q, k, v = qkv.split(D, dim=-1)
-        earlier = _earlier_bwd(A, N, Dh)
-        calls = {"fwd": lambda: A._launch_core(q, k, v, H, "resident"),
+        earlier, earlier_fwd = _earlier_bwd(A, N, Dh), _earlier_fwd(A, N, Dh)
+        calls = {"fwd": lambda: A._launch_core(q, k, v, H, earlier_fwd),
                  "fwd_pick": lambda: A._launch_core(q, k, v, H),
                  "bwd_att": lambda: A._launch_core_bwd(q, k, v, do, H, True, earlier),
                  "bwd": lambda: A._launch_core_bwd(q, k, v, do, H, False, earlier),
@@ -104,7 +125,8 @@ def dump(path: str) -> None:
             ms = {name: _median_ms(fn) for name, fn in calls.items()}
         lines.append(f"(B={B}, N={N}, H={H}, Dh={Dh}, the plan's forward "
                      f"{A.core_plan(N, Dh)['design']}, backward "
-                     f"{A.core_plan(N, Dh, True)['design']}, earlier backward {earlier}): "
+                     f"{A.core_plan(N, Dh, True)['design']}, earlier forward {earlier_fwd}, "
+                     f"backward {earlier}): "
                      + ", ".join(f"{name} {t:.4f} ms" for name, t in ms.items()))
     torch.save(out, path)
     print(f"dumped the attention cores' outputs from {A.__file__} to {path}; median of 20 on "

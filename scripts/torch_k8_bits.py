@@ -3,27 +3,31 @@ compare two dumps bit for bit: the check that a change to csrc/flash.cu
 keeps the kernels' bits at a head width it did not mean to change.
 
 K8f's "tiles" design (forced where a checkout has ``design=``, else its
-only one) gives o and lse, and K8b's "tiles" design (forced likewise) runs
-on them: these are held bit for bit. K8f and K8b as the launchers pick them
-(the "registers" designs at Dh 32, 64 and 128, whose sums run in another
-order) are dumped beside the plain versions' outputs, and ``compare`` holds
-each dump's to them: o, dq, dk and dv by the bf16 rule (two units in the
-last place at the largest output, a mean error below 1e-3), lse to 1e-5
-relative. K8b as picked also runs on the tiles forward's o and lse, and
-``compare`` holds the second dump's to the first dump's held K8b by the
-same rule.
+only one; at Dh 256-896 forced where a checkout has the wide registers
+design, else the chunked kernel it picks there) gives o and lse, and K8b's
+"tiles" design (forced likewise at Dh 64; at Dh 256-896 the chunked
+kernels, which no design code forces) runs on them: these are held bit for
+bit. K8f and K8b as the launchers pick them (the "registers" designs, whose
+sums run in another order) are dumped beside the plain versions' outputs,
+and ``compare`` holds each dump's to them: o, dq, dk and dv by the bf16
+rule (two units in the last place at the largest output, a mean error
+below 1e-3), lse to 1e-5 relative. K8b as picked also runs on the tiles
+forward's o and lse, and ``compare`` holds the second dump's to the first
+dump's held K8b by the same rule.
 
 On one card, from the root of each checkout (its package is imported from
-the current directory), on the same seeded inputs: (B, N) = (128, 1024), 6
-heads of Dh = 64 (the 128-px training shape), q, k and v read in place from
-a [q | k | v] buffer:
+the current directory), on the same seeded inputs, q, k and v read in place
+from a [q | k | v] buffer: (B, N) = (128, 1024) over 6 heads of Dh = 64
+(the 128-px training shape), and at N = 1024 and B = 8 every wide width:
+2 heads of Dh 256, 384 and 512, one of 640, 768 and 896:
 
     PYTHONPATH=. python scripts/torch_k8_bits.py dump /tmp/new.pt
     cd parent && PYTHONPATH=. python ../scripts/torch_k8_bits.py dump /tmp/old.pt
     python scripts/torch_k8_bits.py compare /tmp/old.pt /tmp/new.pt
 
-``compare`` prints whether o, lse, dq, dk and dv agree bit for bit, and
-whether each pick is within its rule, and exits non-zero where one is not.
+``compare`` prints whether o, lse, dq, dk and dv agree bit for bit at each
+shape, and whether each pick is within its rule, and exits non-zero where
+one is not.
 """
 
 from __future__ import annotations
@@ -39,16 +43,19 @@ NAMES = ("o", "lse", "dq", "dk", "dv")
 LSE_RTOL = 1e-5
 
 
-def dump(path: str, B: int = 128, N: int = 1024, H: int = 6, Dh: int = 64) -> None:
-    from ddm_tpu_torch.ops import flash
+SHAPES = ((128, 1024, 6, 64), (8, 1024, 2, 256), (8, 1024, 2, 384), (8, 1024, 2, 512),
+          (8, 1024, 1, 640), (8, 1024, 1, 768), (8, 1024, 1, 896))
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
+
+def _dump_shape(flash, gen, B: int, N: int, H: int, Dh: int) -> dict:
     D = H * Dh
     qkv = torch.randn(B, N, 3 * D, generator=gen, device="cuda").to(torch.bfloat16)
     do = torch.randn(B, N, D, generator=gen, device="cuda").to(torch.bfloat16)
     q, k, v = qkv.split(D, dim=-1)
-    designs = "design" in inspect.signature(flash.launch_k8f).parameters
-    bwd_designs = "design" in inspect.signature(flash.launch_k8b).parameters
+    wide = Dh > 128
+    designs = "design" in inspect.signature(flash.launch_k8f).parameters and (
+        not wide or hasattr(flash, "WIDE_DIMS"))
+    bwd_designs = "design" in inspect.signature(flash.launch_k8b).parameters and not wide
     with torch.no_grad():
         o, lse = (flash.launch_k8f(q, k, v, H, Dh ** -0.5, "tiles") if designs else
                   flash.flash_attention_fwd(q, k, v, H))
@@ -64,8 +71,16 @@ def dump(path: str, B: int = 128, N: int = 1024, H: int = 6, Dh: int = 64) -> No
     out.update({f"{n}_held_pick": t.cpu() for n, t in zip(NAMES[2:], held_pick)})
     for tag, ts in (("pick", (*pick, *pick_grads)), ("plain", (*plain, *plain_grads))):
         out.update({f"{n}_{tag}": t.cpu() for n, t in zip(NAMES, ts)})
+    return out
+
+
+def dump(path: str) -> None:
+    from ddm_tpu_torch.ops import flash
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {f"{B}x{N}x{H}x{Dh}": _dump_shape(flash, gen, B, N, H, Dh) for B, N, H, Dh in SHAPES}
     torch.save(out, path)
-    print(f"dumped K8 outputs at (B={B}, N={N}, H={H}, Dh={Dh}) from {flash.__file__} to {path}")
+    print(f"dumped K8 outputs at (B, N, H, Dh) {list(out)} from {flash.__file__} to {path}")
 
 
 def _within_rule(name: str, got: torch.Tensor, want: torch.Tensor) -> bool:
@@ -79,12 +94,13 @@ def _within_rule(name: str, got: torch.Tensor, want: torch.Tensor) -> bool:
 
 def compare(a: str, b: str) -> bool:
     x, y = torch.load(a), torch.load(b)
-    same = {n: torch.equal(x[n], y[n]) for n in NAMES}
-    rule = {f"{n} ({tag})": _within_rule(n, d[f"{n}_pick"], d[f"{n}_plain"])
-            for tag, d in (("a", x), ("b", y)) for n in NAMES}
-    if "dq_held_pick" in y:  # b's K8b as picked on the held forward, against a's held K8b
-        rule.update({f"{n} (b's pick against a's held)": _within_rule(n, y[f"{n}_held_pick"], x[n])
-                     for n in NAMES[2:]})
+    same = {f"{shape} {n}": torch.equal(x[shape][n], y[shape][n]) for shape in x for n in NAMES}
+    rule = {f"{shape} {n} ({tag})": _within_rule(n, d[shape][f"{n}_pick"], d[shape][f"{n}_plain"])
+            for tag, d in (("a", x), ("b", y)) for shape in d for n in NAMES}
+    # b's K8b as picked on the held forward, against a's held K8b
+    rule.update({f"{shape} {n} (b's pick against a's held)":
+                 _within_rule(n, y[shape][f"{n}_held_pick"], x[shape][n])
+                 for shape in y for n in NAMES[2:]})
     print("K8 outputs bit for bit: " + ", ".join(f"{n} {'equal' if s else 'DIFFERENT'}"
                                                 for n, s in same.items()))
     print("K8f and K8b as picked against the plain versions and the held K8b: " + ", ".join(

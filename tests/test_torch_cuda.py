@@ -1200,6 +1200,16 @@ def test_fast_gelu_expert_kernels_match_plain_on_the_card(cuda_device, E, S, D, 
         assert torch.equal(g, h)
 
 
+def _earlier_fwd(N, Dh):
+    """The forward design the plan picked before the registers designs:
+    resident where its tile fits, else streamed."""
+    try:
+        TA.core_plan(N, Dh, False, "resident")
+        return "resident"
+    except RuntimeError:
+        return "streamed"
+
+
 def _earlier_bwd(N, Dh):
     """The backward design the plan picked before the registers design: one
     block per (image, head) where it fits, else two whole-head passes, else
@@ -1230,7 +1240,10 @@ def test_streamed_cores_match_plain_on_the_card(cuda_device, B, N, H, Dh, att):
     DiT-B/4 --heads 1 (K2b's and K4's core, writing att), DiT-L/4 --heads 2
     at 64 px (K7b, no att) and the widest head the JAX gates send at each N,
     forward and backward against their plain versions by the bf16 rule, the
-    backward twice, bit-identical; the plan streams a pass at each."""
+    backward twice, bit-identical; the plan streams a pass at each. att is
+    the earlier forward core's (resident or streamed, forced) bit for bit;
+    the plan's forward, the wide registers design up to a padded 896, is
+    held to it by the bf16 rule."""
     qkv, do = _core_case(cuda_device, B, N, H, Dh, seed=30)
     D = H * Dh
     q, k, v = qkv.split(D, dim=-1)
@@ -1240,7 +1253,9 @@ def test_streamed_cores_match_plain_on_the_card(cuda_device, B, N, H, Dh, att):
     if att:
         got, again = TA._core_bwd_att(qkv, do, H), TA._core_bwd_att(qkv, do, H)
         want = TA.attention_core_bwd_att_reference(q, k, v, do, H)
-        assert torch.equal(got[0], o)  # att from the fp32 P: the forward's bits
+        earlier = TA._launch_core(q, k, v, H, _earlier_fwd(N, Dh))
+        assert torch.equal(got[0], earlier)  # att from the fp32 P: the earlier forward's bits
+        _assert_bf16_rule(o, earlier)
         got, again = (got[0], *got[1].split(D, dim=-1)), (again[0], *again[1].split(D, dim=-1))
     else:
         got, again = TA.attention_core_bwd(q, k, v, do, H), TA.attention_core_bwd(q, k, v, do, H)
@@ -1260,13 +1275,14 @@ def test_streamed_cores_give_the_resident_bits_on_the_card(cuda_device, B, N, H,
     whole-head passes or, at (112, 64), the one-block core; each backward
     twice, bit-identical. At Dh 256 and 72 (80 padded) the streamed design
     takes several 64-column chunks. The plan's own picks are the resident
-    designs where the padded head passes 128 columns, else the registers
-    designs (fused at N <= 64)."""
+    backward designs where the padded head passes 128 columns, else the
+    registers designs (fused at N <= 64), and the registers forward at
+    every one of these widths (the wide design at Dh 256)."""
     qkv, do = _core_case(cuda_device, B, N, H, Dh, seed=31)
     resident = "one-block" if N <= 112 else "two-pass"
     assert TA.core_plan(N, Dh, backward=True)["design"] == (
         resident if Dh > 128 else "registers-fused" if N <= 64 else "registers")
-    assert TA.core_plan(N, Dh)["design"] == ("resident" if Dh > 128 else "registers")
+    assert TA.core_plan(N, Dh)["design"] == "registers"
     assert torch.equal(TA._k2_core(qkv, H, "streamed"), TA._k2_core(qkv, H, "resident"))
     outs = {d: [TA._core_bwd_att(qkv, do, H, d) for _ in range(2)] for d in (resident, "streamed")}
     torch.cuda.synchronize()
@@ -1285,6 +1301,8 @@ def test_core_plan_on_the_card(cuda_device):
     to a padded head of 128 columns (the forward's with 64 query rows a
     block, 128 past N 128 where they divide N; the backward's fused block
     at N <= 64, its dq and dk/dv sides past it, 64 rows a block each), the
+    forward's wide registers design past it up to 896 (64 query rows a
+    block up to a padded 512 where their scores fit, else 32), the
     one-block backward forced up to N 112 at Dh 64 (128 at Dh 32), the
     whole-head designs where they fit, a streamed pass past 227 KB (pass 2
     keeps the whole head to Dh ~880), and a refusal where a forced design
@@ -1306,16 +1324,23 @@ def test_core_plan_on_the_card(cuda_device):
     assert plan(64, 72) == {"design": "registers", "QT": 64, "C": 80}
     assert plan(272, 128) == {"design": "registers", "QT": 64, "C": 128}
     assert plan(256, 64, False, "resident") == {"design": "resident", "QT": 32, "C": 64}
-    assert plan(256, 136)["design"] == "resident"
-    assert plan(256, 384) == {"design": "streamed", "QT": 32, "C": 64}
-    assert plan(64, 768)["design"] == "resident"
+    assert plan(256, 136) == {"design": "registers", "QT": 64, "C": 144}
+    assert plan(256, 384) == {"design": "registers", "QT": 64, "C": 384}
+    assert plan(256, 512) == {"design": "registers", "QT": 64, "C": 512}
+    assert plan(512, 384) == {"design": "registers", "QT": 32, "C": 384}
+    assert plan(64, 768) == {"design": "registers", "QT": 32, "C": 768}
+    assert plan(512, 896) == {"design": "registers", "QT": 32, "C": 896}
+    assert plan(256, 136, False, "resident")["design"] == "resident"
+    assert plan(256, 384, False, "streamed") == {"design": "streamed", "QT": 32, "C": 64}
+    assert plan(64, 768, False, "resident")["design"] == "resident"
+    assert plan(64, 904)["design"] == "resident"
     s = plan(256, 384, True)
     assert s["design"] == "streamed" and s["rows"] == (16, 64) and s["cols"][2:] == (384, 384)
     assert plan(64, 768, True)["rows"] == (32, 64)
     assert plan(16, 3712, True)["cols"] == (16, 16, 64, 928)
     for args in ((256, 384, False, "resident"), (256, 384, True, "two-pass"),
                  (256, 64, True, "one-block"), (528, 64, False, None), (64, 68, True, None),
-                 (256, 136, False, "registers"), (528, 64, False, "registers"),
+                 (256, 904, False, "registers"), (528, 64, False, "registers"),
                  (64, 136, True, "registers"), (80, 64, True, "registers-fused"),
                  (64, 136, True, "registers-fused")):
         with pytest.raises(RuntimeError):
@@ -1358,12 +1383,13 @@ def test_registers_core_matches_plain_on_the_card(cuda_device, B, N, H, Dh):
 
 @pytest.mark.cuda
 def test_registers_core_refuses_wider_heads_on_the_card(cuda_device):
-    """Forced past a padded head of 128 columns the registers design raises
-    (no fallback to another design)."""
-    qkv, _ = _core_case(cuda_device, 2, 64, 2, 136, seed=34)
+    """Forced past a padded head of 896 columns the registers design raises
+    (no fallback to another design); the plan takes the resident design
+    there."""
+    qkv, _ = _core_case(cuda_device, 2, 64, 1, 904, seed=34)
     with pytest.raises(RuntimeError, match="attention_core"):
-        TA._k2_core(qkv, 2, "registers")
-    assert TA.core_plan(64, 136)["design"] == "resident"
+        TA._k2_core(qkv, 1, "registers")
+    assert TA.core_plan(64, 904)["design"] == "resident"
 
 
 @pytest.mark.cuda
@@ -1399,14 +1425,95 @@ def test_k8f_registers_design_matches_plain_on_the_card(cuda_device, B, N, H, Dh
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Dh,design", [(16, "registers"), (256, "registers"), (256, "tiles")])
+@pytest.mark.parametrize("Dh,design", [(16, "registers"), (8, "registers"), (4, "registers")])
 def test_k8f_refuses_a_design_that_does_not_take_the_width_on_the_card(cuda_device, Dh, design):
-    """A forced K8f design raises where it is not built (the registers
-    design past Dh 32, 64, 128; no design code reaches the wide kernels)."""
+    """A forced K8f design raises where it is not built: the registers
+    design at the narrow widths (Dh 4, 8, 16); both designs take every
+    width from 32 up."""
     H = 2
     q = torch.zeros(1, 1024, H * Dh, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(RuntimeError, match="K8f"):
         TF.launch_k8f(q, q, q, H, Dh ** -0.5, design)
+
+
+# The wide registers core (padded widths 144-896): 64 query rows a block on
+# 16 warps (up to a padded 512, where their scores fit) or 32 on 8; ragged
+# key and query tiles (N % 64 != 0), padded heads (136 -> 144,
+# 200 -> 208, 264 -> 272, 632 -> 640, 904 is past it) and whole ones
+WIDE_REGISTERS_SHAPES = [(4, 16, 1, 896), (8, 48, 2, 136), (16, 80, 2, 136), (16, 64, 1, 768),
+                         (4, 144, 2, 200), (8, 256, 1, 384), (4, 256, 2, 512), (2, 272, 1, 264),
+                         (2, 400, 1, 632), (1, 512, 1, 896), (2, 512, 1, 384), (8, 256, 4, 256),
+                         (4, 112, 3, 152)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,H,Dh", WIDE_REGISTERS_SHAPES)
+def test_wide_registers_core_matches_plain_on_the_card(cuda_device, B, N, H, Dh):
+    """The wide registers forward core, the plan's pick past a padded head
+    of 128 columns, against its plain version by the bf16 rule, and within
+    the same rule of the earlier design forced (resident, or streamed past
+    227 KB) on the same q, k, v (read in place from a [q | k | v] buffer,
+    and from three tensors: the same bits)."""
+    qkv, _ = _core_case(cuda_device, B, N, H, Dh, seed=36)
+    q, k, v = qkv.split(H * Dh, dim=-1)
+    plan = TA.core_plan(N, Dh)
+    assert plan["design"] == "registers" and plan["QT"] in (32, 64)
+    before = TA.CORE_LAUNCHES.count
+    with torch.no_grad():
+        got = TA._launch_core(q, k, v, H)
+        forced = TA._launch_core(q, k, v, H, "registers")
+        apart = TA.attention_core_fwd(*(t.contiguous() for t in (q, k, v)), H)
+        earlier = TA._launch_core(q, k, v, H, _earlier_fwd(N, Dh))
+        torch.cuda.synchronize()
+    assert TA.CORE_LAUNCHES.count == before + 1  # K7f's entry point counts its call
+    assert torch.equal(got, forced) and torch.equal(got, apart)
+    _assert_bf16_rule(got, TA.attention_reference(q, k, v, H))
+    _assert_bf16_rule(got, earlier)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,H,Dh", [(2, 1024, 2, 256), (1, 1024, 2, 384), (1, 1024, 1, 512),
+                                      (1, 1024, 1, 640), (1, 1024, 1, 768), (1, 1024, 1, 896),
+                                      (3, 128, 2, 256), (1, 192, 1, 768), (1, 4096, 1, 256)])
+def test_k8f_wide_registers_design_matches_plain_on_the_card(cuda_device, B, N, H, Dh):
+    """K8f's wide registers design (its own pick at Dh 256-896) against the
+    plain version (o by the bf16 rule, lse to 1e-5 relative) and within the
+    same rules of the tiles design (the chunked kernel) forced on the same
+    q, k, v; K8b (the wide chunked kernels) on the new o and lse against its
+    plain version, twice, bit-identical."""
+    gen = torch.Generator(device=cuda_device).manual_seed(37)
+    D = H * Dh
+    qkv = torch.randn(B, N, 3 * D, generator=gen, device=cuda_device).to(torch.bfloat16)
+    q, k, v = qkv.split(D, dim=-1)
+    do = torch.randn(B, N, D, generator=gen, device=cuda_device).to(torch.bfloat16)
+    scale = Dh ** -0.5
+    o, lse = TF.flash_attention_fwd(q, k, v, H)
+    forced = TF.launch_k8f(q, k, v, H, scale, "registers")
+    tiles = TF.launch_k8f(q, k, v, H, scale, "tiles")
+    grads = TF.flash_attention_bwd(q, k, v, o, lse, do, H)
+    again = TF.flash_attention_bwd(q, k, v, o, lse, do, H)
+    torch.cuda.synchronize()
+    assert torch.equal(o, forced[0]) and torch.equal(lse, forced[1])
+    want_o, want_lse = TF.flash_attention_reference(q, k, v, H)
+    _assert_bf16_rule(o, want_o)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=0)
+    _assert_bf16_rule(o, tiles[0])
+    torch.testing.assert_close(lse, tiles[1], rtol=1e-5, atol=0)
+    for g, h, w in zip(grads, again, TF.flash_attention_bwd_reference(q, k, v, o, lse, do, H)):
+        assert torch.equal(g, h)
+        _assert_bf16_rule(g, w)
+
+
+@pytest.mark.cuda
+def test_wide_registers_kernels_do_not_spill_on_the_card(cuda_device):
+    """No wide registers instance (K8f at Dh 256-896, the core's nine)
+    takes local memory on the card."""
+    wide = {k: v for k, v in TF.kernel_attrs().items() if k[0] == "registers" and k[1] > 128}
+    assert sorted(k[1] for k in wide) == list(TF.WIDE_DIMS)
+    core = {k: v for k, v in TA.kernel_attrs().items() if k.endswith(" rows")}
+    assert len(core) == 9
+    for name, a in {**wide, **core}.items():
+        assert a["local_bytes"] == 0 and 0 < a["registers"] <= 255, name
 
 
 # The backward's registers designs: the fused block (N <= 64) and the dq
