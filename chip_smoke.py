@@ -348,16 +348,17 @@ Arctic's at top-2) and a depth-1 DiT-MoE at Mixtral-8x22B's widths (D 6144,
 The attention cores past 227 KB of shared memory, after those:
 
 3r. (streamed-kernels) the forward and backward cores, by the library's
-    plan (the backward, and the forward past a padded head of 896: a whole
-    head where it fits, 64-column chunks elsewhere; the forward up to 896:
-    the wide registers design, 3y), at the
-    three paths' training shapes: K2f's and K2b's at (256, 256, H 1, Dh
+    plan (past a padded head of 896: a whole head where it fits, 64-column
+    chunks elsewhere; up to 896 the wide registers designs, 3y and 3z), at
+    the three paths' training shapes: K2f's and K2b's at (256, 256, H 1, Dh
     384), K2f's and K4's at (2048, 64, H 1, Dh 768) (att written), K7f and
     K7b at (256, 256, H 2, Dh 512); then K7f/K7b at the widest head the JAX
     gates send at N 16, 144, 256 and 400 (Dh 3712, 3328, 1792, 1024; 64
     images); each against its plain version by the bf16 rule, the backward
-    twice (bit-identical) and its att bit for bit the resident or streamed
-    forward core forced, timed with its plan, bound, the kernels' spill
+    twice (bit-identical) and its att bit for bit the forward core the
+    backward's plan pairs with (the wide registers one at the three paths,
+    else the resident or streamed one forced), timed with its plan, bound,
+    the kernels' spill
     bytes and SDPA's first fused backend that takes the width; then the
     streamed design forced where a resident one runs, at (64, 64, H 6, Dh
     64), (64, 256, 4, 256), (16, 512, 2, 64), (64, 256, 4, 72) and (64, 112,
@@ -449,7 +450,29 @@ The DiT tail and the whole-block experiment, after those:
     earlier design (earlier, registers, registers, earlier) beside the plain
     version (over FEW_REPS calls), SDPA's forward through its first fused
     backend that takes the width, the bound, and each instance's registers
-    and spill bytes (none allowed).
+    and spill bytes (none allowed);
+3z. (wide-registers-bwd-kernels) the wide registers designs of K8b at Dh
+    256-896 (``csrc/flash.cu`` ``flash_bwd_dq_wide_regs_kernel`` and the
+    shared dk/dv side ``attention_bwd_dkv_wide_kernel``) and of the backward
+    core past a padded head of 128 (``csrc/attention.cu``
+    ``attention_core_bwd_dq_wide_kernel``, the same dk/dv side, att by the
+    wide forward core; all on ``csrc/attention_bwd_regs.cuh``'s wide
+    backwards), at WIDE_REGISTERS_K8 (every wide FLASH_WIDTHS row) and
+    WIDE_REGISTERS_BWD_CORES (the three few-head paths' shapes, DiT-B/4
+    --heads 3 as K4 and DiT-L/4 --heads 4 as K7b at 64 px, a ragged padded
+    head): each against its plain version and within the bf16 rule of the
+    earlier design forced (K8b's chunked tiles kernels, the one-block,
+    two-pass or streamed core), a second call bit-identical, att the wide
+    forward core's bits; timed in turns with the earlier design beside the
+    plain version (over FEW_REPS calls), SDPA's forward + backward through
+    its first fused backend that takes the width and its backward alone,
+    the bound, and each instance's registers and spill bytes (none
+    allowed);
+6s. (train-step-dh256) one step of DiT-B/4 --heads 3 at 64 px (depth 12: K2f,
+    K4 on the wide registers cores, K1f, K1b) and of DiT-L/4 --heads 4 at 64
+    px (depth 8: K7f, K7b, K6f, K1b), 8 x m 4, through the kernels twice
+    (bit-identical) against the plain step within twice bf16's own noise,
+    launches counted.
 
 The DiT-S phases run at full width and depth 8. PERF.md gives the whole
 run's measured time on the card, the kernels' build included, against the
@@ -2947,10 +2970,11 @@ def _streamed_core_case(A, smi, gen, attrs, path, B, N, H, Dh, fname, bname):
         torch.cuda.synchronize()
         if not all(torch.equal(g, h) for g, h in zip(got, again)):
             raise AssertionError(f"{bname}'s core {shape} is not deterministic: two calls differ")
-        # att is the resident or streamed forward core's output, bit for bit
-        # (the wide registers forward sums in another order)
-        if with_att and not torch.equal(got[0], A._launch_core(q, k, v, H,
-                                                               _earlier_fwd(A, N, Dh))):
+        # att is the forward core's output, bit for bit: the wide registers
+        # forward's where the plan takes the wide registers backward (up to a
+        # padded 896), else the resident or streamed forward's
+        paired = None if plans["backward"]["design"] == "registers" else _earlier_fwd(A, N, Dh)
+        if with_att and not torch.equal(got[0], A._launch_core(q, k, v, H, paired)):
             raise AssertionError(f"{bname}'s core {shape}: att is not the forward core's output")
         labels = (("att",) if with_att else ()) + ("dq", "dk", "dv")
         b_err, b_text, b_ok = _core_errors(labels, got, plain_b())
@@ -3864,6 +3888,164 @@ def phase_wide_registers_kernels(A, FL, smi):
     return shapes
 
 
+def _wide_bwd_instances(attrs, Dh):
+    """The wide registers backward's instances at head width Dh, its dq and
+    dk/dv sides, as ``kernel_attrs`` names them."""
+    top = -(-(-(-Dh // 16) * 16) // 128) * 128  # the padded head's chunks, in columns
+    names = [f"backward registers {top - 112}-{top} {side}" for side in ("dq", "dk dv")]
+    return {n: attrs[n] for n in names}
+
+
+def phase_wide_registers_bwd_kernels(A, FL, smi):
+    """3z: the wide registers designs of K8b (Dh 256-896; WIDE_REGISTERS_K8)
+    and of the backward core past a padded head of 128
+    (WIDE_REGISTERS_BWD_CORES), against their plain versions and the
+    earlier designs forced (K8b's tiles, the core's one-block, two-pass or
+    streamed design) by the bf16 rule, a second call bit-identical, the
+    core's att the wide forward core's bits; timed in turns with the earlier
+    design (earlier, registers, registers, earlier) beside the plain version
+    (over FEW_REPS calls), SDPA's forward + backward through its first fused
+    backend that takes the width and its backward alone, and the bound;
+    each instance's registers and spill bytes (none allowed). ``{name:
+    [{"path", "shape", ...}]}`` for the kernels line."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    attrs, fattrs = A.kernel_attrs(), FL.kernel_attrs()
+    print(f"[kernel] the wide registers backward's instances, registers and local (spill) bytes a "
+          f"thread: core { {k: v for k, v in attrs.items() if '-' in k and 'backward' in k} }; "
+          f"K8b { {k: v for k, v in fattrs.items() if k[1] > 128 and ' d' in k[0]} }")
+    shapes = {}
+    for B, N, H, Dh in WIDE_REGISTERS_K8:
+        D = H * Dh
+        qkv = torch.randn(B, N, 3 * D, generator=gen, device="cuda").to(torch.bfloat16)
+        q, k, v = qkv.split(D, dim=-1)  # read in place, row stride 3D
+        do = torch.randn(B, N, D, generator=gen, device="cuda").to(torch.bfloat16)
+        shape = f"(B={B}, N={N}, H={H}, Dh={Dh})"
+        scale = Dh ** -0.5
+        with torch.no_grad():
+            o, lse = FL.flash_attention_fwd(q, k, v, H)
+            got, again, old = (FL.launch_k8b(q, k, v, o, lse, do, H, scale, d)
+                               for d in (None, None, "tiles"))
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"K8b's wide registers design {shape} is not deterministic")
+            labels = ("dq", "dk", "dv")
+            err, text, ok = _core_errors(labels, got.split(D, dim=-1),
+                                         FL.flash_attention_bwd_reference(q, k, v, o, lse, do, H))
+            agree = _core_errors(labels, got.split(D, dim=-1), old.split(D, dim=-1))
+            del again, old
+            fns = {d: (lambda d=d: FL.launch_k8b(q, k, v, o, lse, do, H, scale, d))
+                   for d in FL.BWD_DESIGNS}
+            ms = _in_turns(fns, ("tiles", "registers"))
+            plain_ms = _median_ms(lambda: FL.flash_attention_bwd_reference(q, k, v, o, lse, do, H),
+                                  reps=FEW_REPS, warmup=1)
+        backend, lib = _sdpa_backend_ms(q, k, v, do, H)
+        sdpa = lib["K8b"] if lib else None
+        sdpa_bwd = _sdpa_bwd_ms(q, k, v, do, H)
+        inst = {f"{d} {side}": fattrs[(f"{d} {side}", Dh)]
+                for d in ("registers", "tiles") for side in ("dq", "dk dv")}
+        bound = _bound(_nbytes(qkv, o, lse, do, got), 5 * 2 * B * H * N * N * Dh)
+        print(f"[kernel] K8b wide registers design {shape} ({inst}): {text}; against the tiles "
+              f"design {agree[1]}; second call bit-identical; in turns tiles {ms['tiles'][0]:.4f}, "
+              f"registers {ms['registers'][0]:.4f}, {ms['registers'][1]:.4f}, tiles "
+              f"{ms['tiles'][1]:.4f} ms; plain {plain_ms:.4f} ms (median of {FEW_REPS}); SDPA "
+              + (f"{backend} forward + backward {sdpa:.4f} ms" if sdpa is not None else
+                 "none of its fused backends")
+              + f", backward alone {sdpa_bwd:.4f} ms; bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']}) on {smi}")
+        if not (ok and agree[2]):
+            raise AssertionError(f"K8b's wide registers design {shape} disagrees with its plain "
+                                 "version or the tiles design")
+        _spill_free("K8b", shape, {n: a for n, a in inst.items() if n.startswith("registers")})
+        shapes.setdefault("K8b", []).append({
+            "path": f"wide-registers-dh{Dh}", "shape": shape, "design": "registers", "H": H,
+            "Dh": Dh, "max_abs_err": err, "ms": float(np.mean(ms["registers"])),
+            "registers_turns_ms": ms["registers"], "parent_design": "tiles",
+            "parent_ms": float(np.mean(ms["tiles"])), "parent_turns_ms": ms["tiles"],
+            "plain_ms": plain_ms, "library_ms": sdpa, "library_backend": backend,
+            "sdpa_bwd_ms": sdpa_bwd, **bound, "instances": inst})
+        del qkv, q, k, v, do, o, lse, got
+        torch.cuda.empty_cache()
+    for path, B, N, H, Dh, name in WIDE_REGISTERS_BWD_CORES:
+        D = H * Dh
+        qkv = torch.randn(B, N, 3 * D, generator=gen, device="cuda").to(torch.bfloat16)
+        q, k, v = qkv.split(D, dim=-1)  # read in place, row stride 3D
+        do = torch.randn(B, N, D, generator=gen, device="cuda").to(torch.bfloat16)
+        att = name != "K7b"
+        shape = f"(B={B}, N={N}, H={H}, Dh={Dh}) core"
+        plan = A.core_plan(N, Dh, backward=True)
+        if plan["design"] != "registers":
+            raise AssertionError(f"the plan takes {plan['design']} at {shape}, not registers")
+        earlier = _earlier_bwd(A, N, Dh)
+
+        def run(design=None):
+            a, dqkv = A._launch_core_bwd(q, k, v, do, H, att, design)
+            return ((a,) if att else ()) + tuple(dqkv.split(D, dim=-1))
+
+        plain = functools.partial(A.attention_core_bwd_att_reference if att else
+                                  A.attention_core_bwd_reference, q, k, v, do, H)
+        with torch.no_grad():
+            got, again, old = run(), run(), run(earlier)
+            fwd = A._launch_core(q, k, v, H)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, h) for g, h in zip(got, again)):
+                raise AssertionError(f"{name}'s wide registers backward {shape} is not "
+                                     "deterministic")
+            if att and not torch.equal(got[0], fwd):
+                raise AssertionError(f"{name}'s wide registers backward {shape}: att is not the "
+                                     "wide forward core's output")
+            labels = (("att",) if att else ()) + ("dq", "dk", "dv")
+            err, text, ok = _core_errors(labels, got, plain())
+            agree = _core_errors(labels, got, old)
+            del again, old, fwd
+            fns = {d: (lambda d=d: run(d)) for d in (earlier, "registers")}
+            ms = _in_turns(fns, (earlier, "registers"))
+            plain_ms = _median_ms(plain, reps=FEW_REPS, warmup=1)
+        backend, lib = _sdpa_backend_ms(q, k, v, do, H)
+        sdpa = lib["K8b"] if lib else None
+        sdpa_bwd = _sdpa_bwd_ms(q, k, v, do, H)
+        inst = _wide_bwd_instances(attrs, Dh)
+        products = 2 * B * H * N * N * Dh  # one (N x N x Dh) product per image and head
+        bound = _bound(_nbytes(q, k, v, do, *got), (5 + att) * products)  # S, dP, dV, dQ, dK, att
+        print(f"[kernel] {name}'s core, wide registers design, {shape} ({path}; dq side "
+              f"{plan['rows'][0]} query rows a block, dk/dv side {plan['cols'][0]} key rows; "
+              f"{inst}): {text}; against the {earlier} design {agree[1]}; second call "
+              f"bit-identical" + ("; att the wide forward core's bits" if att else "")
+              + f"; in turns {earlier} {ms[earlier][0]:.4f}, registers "
+              f"{ms['registers'][0]:.4f}, {ms['registers'][1]:.4f}, {earlier} "
+              f"{ms[earlier][1]:.4f} ms; plain {plain_ms:.4f} ms (median of {FEW_REPS}); SDPA "
+              + (f"{backend} forward + backward {sdpa:.4f} ms" if sdpa is not None else
+                 "none of its fused backends")
+              + f", backward alone {sdpa_bwd:.4f} ms; bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']}) on {smi}")
+        if not (ok and agree[2]):
+            raise AssertionError(f"{name}'s wide registers backward {shape} disagrees with its "
+                                 f"plain version or the {earlier} design")
+        _spill_free(name, shape, inst)
+        shapes.setdefault(name, []).append({
+            "path": path, "shape": shape, "design": "registers", "max_abs_err": err,
+            "ms": float(np.mean(ms["registers"])), "registers_turns_ms": ms["registers"],
+            "parent_design": earlier, "parent_ms": float(np.mean(ms[earlier])),
+            "parent_turns_ms": ms[earlier], "plain_ms": plain_ms, "library_ms": sdpa,
+            "library_backend": backend, "sdpa_bwd_ms": sdpa_bwd, **bound, "instances": inst,
+            "dq_rows": plan["rows"][0], "dkv_keys": plan["cols"][0]})
+        del qkv, q, k, v, do, got
+        torch.cuda.empty_cache()
+    return shapes
+
+
+def phase_train_step_dh256(cfg, smi):
+    """6s: one step of DiT-B/4 --heads 3 at 64 px (K2f, K4 on the wide
+    registers cores; depth 12) and of DiT-L/4 --heads 4 at 64 px (the third
+    rung around K7; depth L64_DEPTH), at 8 x m 4, each through the kernels
+    twice (bit-identical) against the plain step within twice bf16's own
+    noise, launches counted."""
+    energy = _energy_launches(L64_STEP_BATCH, L64_STEP_M, 3 * PX64_SIZE ** 2)
+    phase_train_step({**cfg, **B_H3, "image_size": PX64_SIZE}, smi, L64_STEP_BATCH, L64_STEP_M,
+                     "train-step-b-h3-64", "DiT-B/4 --heads 3", {**B_H3_64_STEP, **energy})
+    phase_train_step({**cfg, **L_H4, "image_size": PX64_SIZE}, smi, L64_STEP_BATCH, L64_STEP_M,
+                     "train-step-l-h4-64", "DiT-L/4 --heads 4", {**L_H4_STEP, **energy})
+
+
 def phase_train_step_heads1(cfg, smi):
     """6r: one step of DiT-S/4 --heads 1 at 64 px (64 x m 4: K2f, K2b on the
     streamed cores), DiT-B/4 --heads 1 at 32 px (16 x m 8: K2f, K4) and
@@ -3905,7 +4087,8 @@ PHASES = ("kernels", "backward", "energy", "flash", "moe-kernels", "slice", "tra
           "wide-mlp-kernels", "train-step-1536", "train-1536", "moe-128-kernels",
           "train-step-moe-128", "train-moe-128", "streamed-kernels", "train-step-heads1",
           "train-heads1", "ln-dense-kernels", "whole-block", "phase-softmax", "ablate",
-          "registers-kernels", "registers-bwd-kernels", "wide-registers-kernels")
+          "registers-kernels", "registers-bwd-kernels", "wide-registers-kernels",
+          "wide-registers-bwd-kernels", "train-step-dh256")
 # launches per training step and per 20-step sampler call on the wide paths;
 # the DiT-L trainer (7d) runs depth 12 since PR 9 (7k runs its kernels at
 # DiT-XL's full depth 28)
@@ -4037,6 +4220,20 @@ WIDE_REGISTERS_K8 = [row for row in FLASH_WIDTHS if row[3] > 128]
 WIDE_REGISTERS_CORES = [(path, B, N, H, Dh, fname)
                         for path, B, N, H, Dh, fname, _ in STREAMED_CORES[:3]] + [
     ("b-h3-64", 64, 256, 4, 256, "K2f"), ("padded", 16, 80, 2, 136, "K2f")]
+# 3z: K8b's wide registers design at WIDE_REGISTERS_K8; (path, B, N, H, Dh,
+# counter) for the wide registers backward core: the three few-head paths'
+# training shapes (K2b and K4 write att, K7b none), DiT-B/4 --heads 3 (K4)
+# and DiT-L/4 --heads 4 (K7b) at 64 px (64 images), a ragged padded head
+WIDE_REGISTERS_BWD_CORES = [(path, B, N, H, Dh, bname)
+                            for path, B, N, H, Dh, _, bname in STREAMED_CORES[:3]] + [
+    ("b-h3-64", 64, 256, 4, 256, "K4"), ("l-h4-64", 64, 256, 4, 256, "K7b"),
+    ("padded", 16, 80, 2, 136, "K2b")]
+# 6s: the two 64-px paths at Dh 256, DiT-B/4 --heads 3 (K2f, K4, the
+# fwd-only MLP: K1f, K1b) and DiT-L/4 --heads 4 (the third rung: K7, the
+# F-chunked MLP), their depth and batch cut as 6r's
+L_H4 = {**DIT_L, "heads": 4, "depth": L64_DEPTH}
+B_H3_64_STEP = {k: DIT_B["depth"] for k in ("K2f", "K4", "K1f", "K1b")}
+L_H4_STEP = {"K7f": L64_DEPTH, "K7b": L64_DEPTH, "K1b": L64_DEPTH, "K6f": 2 * L64_DEPTH}
 
 
 def main(argv=None) -> None:
@@ -4160,6 +4357,8 @@ def main(argv=None) -> None:
         ("registers-kernels", lambda: phase_registers_kernels(A, FL, smi)),
         ("registers-bwd-kernels", lambda: phase_registers_bwd_kernels(A, FL, smi)),
         ("wide-registers-kernels", lambda: phase_wide_registers_kernels(A, FL, smi)),
+        ("wide-registers-bwd-kernels", lambda: phase_wide_registers_bwd_kernels(A, FL, smi)),
+        ("train-step-dh256", lambda: phase_train_step_dh256(cfg, smi)),
     ]
     out = {}
     t_run = time.perf_counter()
@@ -4219,7 +4418,8 @@ def main(argv=None) -> None:
                        out["xl-kernels"], out["fast-gelu-kernels"], out["moe-xl-kernels"],
                        out["flash-widths"], out["wide-mlp-kernels"], out["moe-128-kernels"],
                        out["streamed-kernels"], out["registers-kernels"],
-                       out["registers-bwd-kernels"], out["wide-registers-kernels"]):
+                       out["registers-bwd-kernels"], out["wide-registers-kernels"],
+                       out["wide-registers-bwd-kernels"]):
             k.setdefault("shapes", []).extend(shapes.get(k["name"], []))
     k8 = sorted({s["Dh"] for k in kernels if k["name"] == "K8f" for s in k["shapes"]})
     print(f"[k8-widths] K8f and K8b held against their plain versions on the card at Dh {k8}; "

@@ -103,7 +103,8 @@
 // log2 e folded into the scale (mma_frag.cuh), so its bits are not the
 // resident core's and the card checks it against the plain version.
 //
-// The backward's registers design (the plan's pick at padded(Dh) <= 128):
+// The backward's registers design (the plan's pick at padded(Dh) <= 896;
+// past 128 the wide design, described at attention_core_bwd_dq_wide_kernel):
 // the one-block core and the two passes keep P, dP and dS in shared memory
 // as fp32 WMMA tiles, run scalar softmax and dS passes over them behind
 // about ten barriers and load every operand synchronously; ~8x SDPA's
@@ -508,6 +509,217 @@ attention_core_wide_kernel(Heads in, bf16* __restrict__ out, int N, int H, int D
   const int D = H * Dh;
   store_wide<NC, NO>(out + (size_t)b * N * D + h * Dh, D, acc, 1.f, 1.f, r0 + rt * 16, N,
                      grp * CW, Dh, lane);
+}
+
+// The backward's registers design past a padded head of 128 (attention_bwd_
+// regs.cuh, "the wide backwards"; ddm_attention_core_bwd's launcher below):
+// the two passes keep P, dP and dS as fp32 WMMA tiles in shared memory
+// behind about ten barriers a tile and copy every operand synchronously,
+// pass 1 reading V twice and pass 2 K and V again for each query tile. Here
+// three kernels: att, where asked, by the wide forward core above (the same
+// scores, the same exact softmax and P = bf16(e / l): the forward's bits,
+// and the dq side keeps one accumulator); the dq side below; the dk/dv side
+// shared with K8b. The dq side: 16 RT query rows a block (32, or 16 where
+// their score rows do not fit) on 4 RT warps, four column groups a row tile
+// as the forward's. Q and dO are copied once. Phase 1 streams each key
+// tile's K chunks (S) and V chunks (dP = dO V^T), each warp 16 of its 64
+// keys at the full depth, and writes both fp32 slices once to shared memory
+// (16 x N each a row tile; keys past N masked to -inf): no sweep is
+// repeated. The row's max over the groups, e = exp(s scale - max) in place
+// with the warp's parts of l = sum e and u = sum e dP, summed over the
+// groups: dsum = u / l, rowsum(P dP) of the fp32 P and dP up to the order
+// of the sums, and (m, l, dsum) to stats for the dk/dv side. Phase 2
+// streams each key tile's K chunks once more: every warp forms the row
+// tile's dS = bf16(P (dP - dsum) scale) from shared memory (P = e / l in
+// fp32) straight into A fragments and adds dS K into its 32 columns of
+// every chunk of dq (at most 112 fp32 a lane).
+constexpr int kWideBwdGroups = 4;
+
+// Q's and dO's rows, the ring, the fp32 score and dP rows, three exchanges.
+size_t wide_bwd_dq_smem(int N, int DP, int rt) {
+  const int rows = 16 * rt, sld = (N + kWideKeys - 1) / kWideKeys * kWideKeys + 8;
+  return (size_t)2 * rows * (DP + kPadH) * sizeof(bf16) +
+         (size_t)kWideCoreStages * kWideStage * sizeof(bf16) +
+         (size_t)2 * rows * sld * sizeof(float) +
+         (size_t)3 * kWideBwdGroups * rows * sizeof(float);
+}
+
+// Row tiles a dq block: two where they fit (every path's shape), else one
+// (N 512 at padded 896 takes 194,816 B).
+int wide_bwd_dq_rt(int N, int DP) { return wide_bwd_dq_smem(N, DP, 2) <= kMaxSmem ? 2 : 1; }
+
+// NC: the padded head's 128-column chunks; 4 RT warps (blockDim).
+template <int NC>
+__global__ void __launch_bounds__(256, 1)
+attention_core_bwd_dq_wide_kernel(Heads in, const bf16* __restrict__ datt, DHeads out,
+                                  float* __restrict__ stats, int N, int H, int Dh, float scale) {
+  constexpr int G = kWideBwdGroups, KS = kWideKeys / G, NJ = KS / 8, CW = kWideCols / G;
+  constexpr int NO = CW / 8, kS = kWideCoreStages;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warps = blockDim.x / 32, rows = 4 * warps;
+  const int DP = padded(Dh), qld = DP + kPadH;
+  const int nt = (N + kWideKeys - 1) / kWideKeys, sld = nt * kWideKeys + 8;
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* dOs = Qs + rows * qld;
+  bf16* ring = dOs + rows * qld;
+  float* S = reinterpret_cast<float*>(ring + kS * kWideStage);  // scores, then e
+  float* dP = S + rows * sld;
+  float* xm = dP + rows * sld;  // 16 rows a warp: raw maxima
+  float* xl = xm + warps * 16;  // ... the parts of l
+  float* xu = xl + warps * 16;  // ... and of u
+  const int b = blockIdx.x / H, h = blockIdx.x % H, r0 = blockIdx.y * rows, D = H * Dh;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int rt = warp / G, grp = warp % G;
+  const int kjobs = 2 * NC * nt, jobs = kjobs + NC * nt;
+  const float scale2 = scale * kLog2e;
+  const bf16* q = in.row(in.q, b, N, 0, h, Dh);
+  const bf16* k = in.row(in.k, b, N, 0, h, Dh);
+  const bf16* v = in.row(in.v, b, N, 0, h, Dh);
+  const bf16* dO = datt + (size_t)b * N * D + h * Dh;
+  // jobs: key tile i's K chunks then V chunks (phase 1), then each key
+  // tile's K chunks (phase 2); issued kS - 1 ahead into the stage job j - kS
+  // read
+  auto issue = [&](int j) {
+    if (j < jobs) {
+      const bool p1 = j < kjobs;
+      const int i = p1 ? j / (2 * NC) : (j - kjobs) / NC;
+      const int c = p1 ? j % (2 * NC) : (j - kjobs) % NC;
+      load_chunk_async_any(ring + (j % kS) * kWideStage, c >= NC ? v : k, in.ld, i * kWideKeys,
+                           N, (c % NC) * kWideCols, DP, Dh);
+    }
+    cp_async_commit();
+  };
+  int job = 0;
+  auto next = [&]() {
+    cp_async_wait<kS - 2>();
+    __syncthreads();
+    issue(job + kS - 1);
+    return ring + (job++ % kS) * kWideStage;
+  };
+  load_rows_async_any(Qs, qld, q, in.ld, r0, rows, N, DP, Dh);
+  load_rows_async_any(dOs, qld, dO, D, r0, rows, N, DP, Dh);
+#pragma unroll
+  for (int j = 0; j < kS - 1; ++j) issue(j);
+  const bf16* qw = Qs + rt * 16 * qld;
+  const bf16* dw = dOs + rt * 16 * qld;
+  float* Sw = S + rt * 16 * sld;  // the row tile's score rows
+  float* dPw = dP + rt * 16 * sld;
+  float mx[2] = {-INFINITY, -INFINITY};  // rows g and g + 8
+  for (int i = 0; i < nt; ++i) {
+    const int k0 = i * kWideKeys + grp * KS;
+    float s[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      qk_chunk<NJ>(s, qw + c * kWideCols, qld, next() + grp * KS * kWideLd,
+                   min(kWideCols, DP - c * kWideCols), lane);
+    mask_keys(s, k0, N, t);
+    row_max(s, mx);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      float* dst = Sw + k0 + 8 * j + 2 * t;
+      *reinterpret_cast<float2*>(dst + g * sld) = make_float2(s[j][0], s[j][1]);
+      *reinterpret_cast<float2*>(dst + (g + 8) * sld) = make_float2(s[j][2], s[j][3]);
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    }
+#pragma unroll
+    for (int c = 0; c < NC; ++c)  // dP = dO V^T
+      qk_chunk<NJ>(s, dw + c * kWideCols, qld, next() + grp * KS * kWideLd,
+                   min(kWideCols, DP - c * kWideCols), lane);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      float* dst = dPw + k0 + 8 * j + 2 * t;
+      *reinterpret_cast<float2*>(dst + g * sld) = make_float2(s[j][0], s[j][1]);
+      *reinterpret_cast<float2*>(dst + (g + 8) * sld) = make_float2(s[j][2], s[j][3]);
+    }
+  }
+  // the row's max over its slices and the groups, times the scale (> 0)
+  mx[0] = quad_max(mx[0]);
+  mx[1] = quad_max(mx[1]);
+  if (t == 0) {
+    xm[warp * 16 + g] = mx[0];
+    xm[warp * 16 + g + 8] = mx[1];
+  }
+  __syncthreads();
+  group_max<G>(xm + rt * G * 16, g, mx);
+  const float m[2] = {mx[0] * scale, mx[1] * scale};
+  const float m2[2] = {m[0] * kLog2e, m[1] * kLog2e};
+  // e = exp(s scale - max) over the warp's own slices, in place, and its
+  // parts of each row's l and u
+  float l[2] = {0.f, 0.f}, u[2] = {0.f, 0.f};
+  for (int i = 0; i < nt; ++i) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int off = (g + 8 * r) * sld + i * kWideKeys + grp * KS + 8 * j + 2 * t;
+        float2* p = reinterpret_cast<float2*>(Sw + off);
+        const float2 d = *reinterpret_cast<const float2*>(dPw + off);
+        float2 e = *p;
+        e.x = exp2_approx(e.x * scale2 - m2[r]);
+        e.y = exp2_approx(e.y * scale2 - m2[r]);
+        l[r] += e.x + e.y;
+        u[r] += e.x * d.x + e.y * d.y;
+        *p = e;
+      }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = quad_sum(l[r]);
+    u[r] = quad_sum(u[r]);
+  }
+  if (t == 0) {
+    xl[warp * 16 + g] = l[0];
+    xl[warp * 16 + g + 8] = l[1];
+    xu[warp * 16 + g] = u[0];
+    xu[warp * 16 + g + 8] = u[1];
+  }
+  __syncthreads();  // every e written; the parts of l and u
+  group_sum<G>(xl + rt * G * 16, g, l);
+  group_sum<G>(xu + rt * G * 16, g, u);
+  const float inv_l[2] = {1.f / l[0], 1.f / l[1]}, dsum[2] = {u[0] / l[0], u[1] / l[1]};
+  const int rw = r0 + rt * 16;
+  if (grp == 0 && t == 0) {
+    float* st = stats + (size_t)blockIdx.x * N * 3;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = rw + g + 8 * r;
+      if (row < N) {
+        st[3 * row] = m[r];
+        st[3 * row + 1] = l[r];
+        st[3 * row + 2] = dsum[r];
+      }
+    }
+  }
+  float acc[NC][NO][4];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int j = 0; j < NO; ++j) acc[c][j][0] = acc[c][j][1] = acc[c][j][2] = acc[c][j][3] = 0.f;
+  for (int i = 0; i < nt; ++i) {
+    // dS = bf16(P (dP - dsum) scale) of the warp's 16 rows over the tile's 64 keys
+    uint32_t da[4][4];
+    const int off = i * kWideKeys + 2 * t;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {  // a[x]: row g + 8 (x % 2), keys 16 kk + 8 (x / 2) + 2t
+        const int r = x % 2, at = (g + 8 * r) * sld + off + 16 * kk + 8 * (x / 2);
+        const float2 e = *reinterpret_cast<const float2*>(Sw + at);
+        const float2 d = *reinterpret_cast<const float2*>(dPw + at);
+        da[kk][x] = pack_bf16(e.x * inv_l[r] * (d.x - dsum[r]) * scale,
+                              e.y * inv_l[r] * (d.y - dsum[r]) * scale);
+      }
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {  // dq += dS K
+      const int w = min(CW, DP - c * kWideCols - grp * CW);  // the group's columns here
+      const bf16* st = next();
+      if (w > 0) pv_chunk<NO>(acc[c], da, st + grp * CW, w, lane);
+    }
+  }
+  store_wide<NC, NO>(out.row(out.q, b, N, 0, h, Dh), out.ld, acc, 1.f, 1.f, rw, N, grp * CW, Dh,
+                     lane);
 }
 
 size_t core_bwd_smem(int N, int Dh) {
@@ -1082,16 +1294,35 @@ bool one_block_fits(int N, int Dh) {
   return N <= kOneBlockMaxTokens && core_bwd_smem(N, Dh) <= kMaxSmem;
 }
 
+// The wide registers design's instances, by 128-column chunks of the padded
+// head (2-7: padded widths 144-896).
+#define DDM_WIDE_CHUNKS(X) X(2) X(3) X(4) X(5) X(6) X(7)
+
+// The dk/dv side's key rows a block at padded width DP (WideDkv).
+int wide_dkv_keys(int DP) {
+  switch ((DP + kWideCols - 1) / kWideCols) {
+#define DDM_DKV_KEYS(NC) \
+    case NC: return WideDkv<NC>::kKeys;
+    DDM_WIDE_CHUNKS(DDM_DKV_KEYS)
+#undef DDM_DKV_KEYS
+    default: return 0;
+  }
+}
+
 BwdPlan bwd_plan(int N, int Dh, int design) {
   BwdPlan p{design, {0, 0}, {0, 0, 0, 0}};
   const int DP = padded(Dh);
   if (design == kBwdRegisters || design == kBwdRegistersFused ||
-      (design < 0 && DP <= kRegMaxWidth)) {
-    const bool fused = design == kBwdRegistersFused || (design < 0 && N <= kBwdTile);
-    if (DP > kRegMaxWidth || (fused && N > kBwdTile)) {
+      (design < 0 && DP <= kWideMaxWidth)) {
+    const bool fused =
+        design == kBwdRegistersFused || (design < 0 && N <= kBwdTile && DP <= kRegMaxWidth);
+    if (DP > (fused ? kRegMaxWidth : kWideMaxWidth) || (fused && N > kBwdTile)) {
       p.design = -1;
       return p;
     }
+    if (DP > kRegMaxWidth)  // the wide design: the dq side's rows, the dk/dv side's keys
+      return {kBwdRegisters, {16 * wide_bwd_dq_rt(N, DP), DP},
+              {wide_dkv_keys(DP), kWideKeys, DP, DP}};
     return {fused ? kBwdRegistersFused : kBwdRegisters, {kBwdTile, DP},
             {kBwdTile, fused ? kBwdTile : core_dkv_tile(DP), DP, DP}};
   }
@@ -1292,7 +1523,77 @@ DHeads dqkv_heads(void* dqkv, int D) {
   return {p, p + D, p + 2 * D, 3 * D};
 }
 
+using WideDqKernel = decltype(&attention_core_bwd_dq_wide_kernel<2>);
+
+WideDqKernel wide_dq_kernel(int DP) {
+  switch ((DP + kWideCols - 1) / kWideCols) {
+#define DDM_WIDE_DQ(NC) \
+    case NC: return attention_core_bwd_dq_wide_kernel<NC>;
+    DDM_WIDE_CHUNKS(DDM_WIDE_DQ)
+#undef DDM_WIDE_DQ
+    default: return nullptr;
+  }
+}
+
+// The wide registers backward (padded widths 144-896): att by the wide
+// forward core where asked, the dq side (stats: B x H x N x 3 floats), then
+// the dk/dv side.
+cudaError_t launch_bwd_wide_regs(Heads in, const bf16* datt, bf16* att, DHeads out, float* stats,
+                                 int B, int N, int H, int Dh, float scale, cudaStream_t s) {
+  const int DP = padded(Dh), rt = wide_bwd_dq_rt(N, DP);
+  cudaError_t err;
+  if (att) {
+    err = launch_core(in, att, B, N, H, Dh, scale, kFwdRegisters, s);
+    if (err != cudaSuccess) return err;
+  }
+  const WideDqKernel kernel = wide_dq_kernel(DP);
+  const size_t smem = wide_bwd_dq_smem(N, DP, rt);
+  err = set_smem((const void*)kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(B * H, (N + 16 * rt - 1) / (16 * rt)), 128 * rt, smem, s>>>(in, datt, out, stats,
+                                                                          N, H, Dh, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_bwd_dkv_wide({in.q, in.k, in.v, in.ld, datt, H * Dh, out.k, out.v, out.ld,
+                              nullptr, nullptr, stats, B, N, H, Dh, scale},
+                             s);
+}
+
+template <int NC>
+cudaError_t launch_dkv_wide_at(const WideDkvArgs& a, cudaStream_t s) {
+  using L = WideDkv<NC>;
+  const size_t smem = L::smem(padded(a.Dh));
+  const cudaError_t err = set_smem((const void*)attention_bwd_dkv_wide_kernel<NC>, smem);
+  if (err != cudaSuccess) return err;
+  attention_bwd_dkv_wide_kernel<NC>
+      <<<dim3((a.N + L::kKeys - 1) / L::kKeys, a.H, a.B), 256, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// The dk/dv side of the wide backwards, K8b's and the core's
+// (attention_bwd_regs.cuh).
+cudaError_t launch_bwd_dkv_wide(const WideDkvArgs& a, cudaStream_t s) {
+  switch ((padded(a.Dh) + kWideCols - 1) / kWideCols) {
+#define DDM_DKV_WIDE(NC) \
+    case NC: return launch_dkv_wide_at<NC>(a, s);
+    DDM_WIDE_CHUNKS(DDM_DKV_WIDE)
+#undef DDM_DKV_WIDE
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+const void* bwd_dkv_wide_kernel(int chunks) {
+  switch (chunks) {
+#define DDM_DKV_KERNEL(NC) \
+    case NC: return (const void*)attention_bwd_dkv_wide_kernel<NC>;
+    DDM_WIDE_CHUNKS(DDM_DKV_KERNEL)
+#undef DDM_DKV_KERNEL
+    default: return nullptr;
+  }
+}
+
 }  // namespace ddm
 
 // The plan the launchers take for (N, Dh) and `design` (-1: their own
@@ -1301,10 +1602,10 @@ DHeads dqkv_heads(void* dqkv, int D) {
 // padded head of 128 and 64 or 32 past it, C the padded head);
 // backward, plan[0..6] = (design, pass 1's QT, C, pass 2's KT,
 // QT, C, C2), design 0 (one block: no pass tiles), 1 (two passes on whole
-// heads), 2 (a pass streamed), 3 (registers: the dq side's rows a block and
-// padded head, the dk/dv side's keys a block, queries a stage and padded
-// head twice) or 4 (registers, one block per (image, head): the same
-// tiles). A forced design is reported as asked (at
+// heads), 2 (a pass streamed), 3 (registers, up to a padded head of 896:
+// the dq side's rows a block and padded head, the dk/dv side's keys a
+// block, queries a stage and padded head twice) or 4 (registers, one block
+// per (image, head), up to 128: the same tiles). A forced design is reported as asked (at
 // Dh <= kChunk the streamed tiles hold the whole head). Returns
 // cudaErrorInvalidValue where no design of that choice takes the shape.
 extern "C" int ddm_attention_core_plan(int N, int Dh, int backward, int design, int* plan) {
@@ -1332,10 +1633,11 @@ extern "C" int ddm_attention_core_plan(int N, int Dh, int backward, int design, 
 // each its dq side with att and without, its dk/dv side, and the fused
 // block with att and without; then the forward's wide registers instances
 // on 8 warps at padded widths 144-256, 272-384, ..., 784-896, and on 16 at
-// 144-256, 272-384 and 400-512.
+// 144-256, 272-384 and 400-512; then the backward's wide registers
+// instances at 144-256, ..., 784-896: the dq side's, then the dk/dv side's.
 extern "C" int ddm_attention_kernel_attrs(int* attrs) {
   using namespace ddm;
-  constexpr int kN = 7 + 24 + 40 + 9;
+  constexpr int kN = 7 + 24 + 40 + 9 + 12;
   const void* kernels[kN] = {(const void*)attention_core_kernel<false>,
                              (const void*)attention_core_kernel<true>,
                              (const void*)attention_core_bwd_kernel<0>,
@@ -1361,6 +1663,9 @@ extern "C" int ddm_attention_kernel_attrs(int* attrs) {
   for (const int warps : {8, 16})
     for (int dp = 256; dp <= (warps == 8 ? 896 : 512); dp += kWideCols)
       kernels[i++] = (const void*)wide_kernel(dp, warps);
+  for (int dp = 256; dp <= kWideMaxWidth; dp += kWideCols)
+    kernels[i++] = (const void*)wide_dq_kernel(dp);
+  for (int nc = 2; nc <= kWideMaxWidth / kWideCols; ++nc) kernels[i++] = bwd_dkv_wide_kernel(nc);
   for (i = 0; i < kN; ++i) {
     cudaFuncAttributes a;
     const cudaError_t err = cudaFuncGetAttributes(&a, kernels[i]);
@@ -1402,6 +1707,9 @@ extern "C" int ddm_attention_core_bwd(const void* q, const void* k, const void* 
   if (p.design == kBwdOneBlock)
     return (int)launch_bwd_one_block(in, (const bf16*)dout, (bf16*)att, out, B, N, H, Dh, scale,
                                      s);
+  if (p.design == kBwdRegisters && padded(Dh) > kRegMaxWidth)
+    return (int)launch_bwd_wide_regs(in, (const bf16*)dout, (bf16*)att, out, (float*)stats, B, N,
+                                     H, Dh, scale, s);
   if (p.design == kBwdRegisters || p.design == kBwdRegistersFused)
     return (int)launch_bwd_regs(in, (const bf16*)dout, (bf16*)att, out, (float*)stats, B, N, H,
                                 Dh, scale, p.design == kBwdRegistersFused, s);

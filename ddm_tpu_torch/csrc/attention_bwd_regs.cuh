@@ -2,7 +2,8 @@
 // (csrc/attention.cu: K2b's, K4's and K7b's, padded head widths 16-128) and
 // K8b's (csrc/flash.cu, Dh 32, 64, 128). One dq side and one dk/dv side
 // serve both; they differ only in where each query row's softmax terms come
-// from.
+// from. Past those widths (padded 144-896, K8b's Dh 256-896) the wide
+// backwards at the end of this file split each tile's columns over warps.
 //
 // The earlier designs keep S, P, dP and dS in shared memory as WMMA tiles,
 // form P and dS in scalar passes over them and load every operand
@@ -413,6 +414,225 @@ __device__ __forceinline__ void bwd_dkv_body(unsigned char* smem, const bf16* __
   const int kw = c0 + warp * 16;
   store_acc<DP>(dk, ldg, dka, kw, N, Dh, lane);
   store_acc<DP>(dv, ldg, dva, kw, N, Dh, lane);
+}
+
+}  // namespace
+
+// ---- the wide backwards: K8b at Dh 256-896, the core past a padded head of 128 ----
+//
+// Past 128 columns a warp cannot hold a 16-row tile's dq, or its dk and dv,
+// for the whole head (64 fp32 a lane per 128 columns of each), so the sides
+// above take the forwards' column split (mma_frag.cuh, "the wide
+// forwards"): a block is RT row tiles of 16 rows times G column groups of
+// warps; group g accumulates columns [128 c + g 128 / G, 128 c + (g + 1) 128
+// / G) of every 128-column chunk c, and each 16 x 64 score tile is split over
+// the groups by its 64 columns (keys on the dq side, queries on the dk/dv
+// side), every score one warp's in-order sum over the head. The operands
+// that are not resident pass through the ring of 64-row x 128-column
+// cp.async stages, one barrier a stage, each stage a depth chunk of a score
+// tile or a column chunk of a gradient. A warp's bf16 slice of P or dS goes
+// to its row tile's warps through shared memory, handed over by the next
+// stage's barrier, and each warp reads the tile's 16 x 64 A fragments from
+// there. The dq sides differ (K8b's in csrc/flash.cu: lse and dsum known;
+// the core's in csrc/attention.cu: each row's softmax over the whole row
+// first); the dk/dv side below is one kernel for both, built in
+// csrc/attention.cu.
+//
+// The dk/dv side: one block per 16 RT key rows of one (image, head); K and V
+// rows copied once; per 64-query tile three rounds of NC stages: Q (S^T = K
+// Q^T, each warp its 64 / G queries; P^T = 2^(s scale log2 e - a) b from the
+// queries' terms), dO (dP^T = V dO^T and dv += bf16(P^T) dO, the same stage
+// serving both), Q again (dk += dS^T Q, dS^T = bf16(P^T (dP^T - dsum)
+// scale)). dk and dv take 128 NC / G fp32 a lane, so G grows with the head
+// (WideDkv).
+
+// The dk/dv side's operands: q, k, v (rows of stride ld) and dO (ldo) at
+// row 0 of image 0, head 0 of (B, N, H*Dh) rows; dk and dv likewise (ldg).
+// Each query's terms: K8b's lse and dsum ((B, H, N) each), or the core's
+// stats ((B, H, N, 3): m, l, dsum) where lse is null.
+struct WideDkvArgs {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  int ld;
+  const bf16* dO;
+  int ldo;
+  bf16* dk;
+  bf16* dv;
+  int ldg;
+  const float* lse;
+  const float* dsum;
+  const float* stats;
+  int B, N, H, Dh;
+  float scale;
+};
+
+// Launch the dk/dv side at the padded head (144-896 columns); the instance
+// for NC 128-column chunks (2-7) for its attributes. csrc/attention.cu.
+cudaError_t launch_bwd_dkv_wide(const WideDkvArgs& a, cudaStream_t stream);
+const void* bwd_dkv_wide_kernel(int chunks);
+
+namespace {
+
+// The dk/dv side's layout at NC chunks: G groups, RT row tiles of 16 keys,
+// 8 warps (all of a thread's 255 registers), four ring stages. dk and dv
+// take 128 NC / G fp32 a lane: 128 at NC 2 (two groups, 64 keys a block),
+// 96-160 at NC 3-5 (four, 32 keys), 96 and 112 at NC 6-7 (eight groups, 16
+// keys: 32 key rows of dk and dv at 768 columns would take 196 KB of the
+// SM's 256 KB register file). Measured on the H100 at K8b's (128, 1024, 3,
+// 256): this side took 5.91 ms on two groups of 8 warps against 7.05 as two
+// blocks of 4 warps (32 keys each), 8.45 on four groups of 8 (32 keys) and
+// 5.45 on four groups of 16, which spills 28 B a thread at 128 registers.
+template <int NC>
+struct WideDkv {
+  static constexpr int G = NC == 2 ? 2 : NC <= 5 ? 4 : 8;
+  static constexpr int RT = 8 / G, kKeys = 16 * RT, kStages = 4;
+  static size_t smem(int DP) {  // K, V, the ring, P^T and dS^T, two stages of terms
+    return (size_t)2 * kKeys * (DP + kPadH) * sizeof(bf16) +
+           (size_t)kStages * kWideStage * sizeof(bf16) +
+           (size_t)2 * kKeys * (kWideKeys + kPadH) * sizeof(bf16) +
+           (size_t)2 * 3 * kWideKeys * sizeof(float);
+  }
+};
+
+template <int NC>
+__global__ void __launch_bounds__(256, 1) attention_bwd_dkv_wide_kernel(WideDkvArgs a) {
+  using L = WideDkv<NC>;
+  constexpr int G = L::G, kRows = L::kKeys, kS = L::kStages, kThr = 256;
+  constexpr int KS = kWideKeys / G, NJ = KS / 8, CW = kWideCols / G, NO = CW / 8;
+  constexpr int kPld = kWideKeys + kPadH, kT = 3 * kWideKeys;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int N = a.N, Dh = a.Dh, DP = (Dh + 15) / 16 * 16, kld = DP + kPadH;
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + kRows * kld;
+  bf16* ring = Vs + kRows * kld;
+  bf16* Pts = ring + kS * kWideStage;  // bf16 P^T of each row tile, 16 x 64
+  bf16* dSts = Pts + kRows * kPld;     // ... and dS^T
+  float* terms = reinterpret_cast<float*>(dSts + kRows * kPld);  // two stages of (a, b, dsum)
+  const int b = blockIdx.z, h = blockIdx.y, c0 = blockIdx.x * kRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int rt = warp / G, grp = warp % G;
+  const int nt = (N + kWideKeys - 1) / kWideKeys, jobs = 3 * NC * nt;
+  const size_t row0 = (size_t)b * N, stat = ((size_t)b * a.H + h) * N;
+  const bf16* q = a.q + row0 * a.ld + h * Dh;
+  const bf16* k = a.k + row0 * a.ld + h * Dh;
+  const bf16* v = a.v + row0 * a.ld + h * Dh;
+  const bf16* dO = a.dO + row0 * a.ldo + h * Dh;
+  const float scale = a.scale, scale2 = scale * kLog2e;
+  // job j: query tile j / (3 NC), its Q chunks, dO chunks, Q chunks again;
+  // issued kS - 1 jobs ahead into the stage job j - kS read
+  auto issue = [&](int j) {
+    if (j < jobs) {
+      const int i = j / (3 * NC), c = j % (3 * NC);
+      const bool o = c >= NC && c < 2 * NC;
+      load_chunk_async<kThr>(ring + (j % kS) * kWideStage, o ? dO : q, o ? a.ldo : a.ld,
+                             i * kWideKeys, N, (c % NC) * kWideCols, DP, Dh);
+    }
+    cp_async_commit();
+  };
+  int job = 0;
+  auto next = [&]() {
+    cp_async_wait<kS - 2>();
+    __syncthreads();
+    issue(job + kS - 1);
+    return ring + (job++ % kS) * kWideStage;
+  };
+  // query c's terms: (lse log2 e, 1, dsum) or (m log2 e, 1 / l, dsum); zeros past N
+  auto terms_of = [&](int c, float& ta, float& tb, float& td) {
+    ta = tb = td = 0.f;
+    if (c >= N) return;
+    if (a.lse) {
+      ta = a.lse[stat + c] * kLog2e;
+      tb = 1.f;
+      td = a.dsum[stat + c];
+    } else {
+      const float* s = a.stats + 3 * (stat + c);
+      ta = s[0] * kLog2e;
+      tb = 1.f / s[1];
+      td = s[2];
+    }
+  };
+  load_rows_async<kRows, kThr>(Ks, kld, k, a.ld, c0, N, DP, Dh);
+  load_rows_async<kRows, kThr>(Vs, kld, v, a.ld, c0, N, DP, Dh);
+#pragma unroll
+  for (int j = 0; j < kS - 1; ++j) issue(j);
+  float ta, tb, td;  // a thread < 64: its query's terms of the next tile
+  if (threadIdx.x < kWideKeys) terms_of(threadIdx.x, ta, tb, td);
+  float dk[NC][NO][4], dv[NC][NO][4];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[c][j][e] = dv[c][j][e] = 0.f;
+  const bf16* kw = Ks + rt * 16 * kld;
+  const bf16* vw = Vs + rt * 16 * kld;
+  bf16* pw = Pts + rt * 16 * kPld;
+  bf16* dsw = dSts + rt * 16 * kPld;
+  for (int i = 0; i < nt; ++i) {
+    // this tile's terms to the stage tile i - 2 read (every warp is past it),
+    // handed over by the next barrier
+    float* tm = terms + (i & 1) * kT;
+    if (threadIdx.x < kWideKeys) {
+      tm[threadIdx.x] = ta;
+      tm[kWideKeys + threadIdx.x] = tb;
+      tm[2 * kWideKeys + threadIdx.x] = td;
+      if (i + 1 < nt) terms_of((i + 1) * kWideKeys + threadIdx.x, ta, tb, td);
+    }
+    float s[NJ][4], dp[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)  // S^T = K Q^T over the depth chunks
+      qk_chunk<NJ>(s, kw + c * kWideCols, kld, next() + grp * KS * kWideLd,
+                   min(kWideCols, DP - c * kWideCols), lane);
+    // P^T, queries by column, to the row tile's warps as bf16
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int col = grp * KS + 8 * j + 2 * t;
+      const float2 qa = *reinterpret_cast<const float2*>(tm + col);
+      const float2 qb = *reinterpret_cast<const float2*>(tm + kWideKeys + col);
+      s[j][0] = exp2_approx(s[j][0] * scale2 - qa.x) * qb.x;
+      s[j][1] = exp2_approx(s[j][1] * scale2 - qa.y) * qb.y;
+      s[j][2] = exp2_approx(s[j][2] * scale2 - qa.x) * qb.x;
+      s[j][3] = exp2_approx(s[j][3] * scale2 - qa.y) * qb.y;
+      *reinterpret_cast<uint32_t*>(pw + g * kPld + col) = pack_bf16(s[j][0], s[j][1]);
+      *reinterpret_cast<uint32_t*>(pw + (g + 8) * kPld + col) = pack_bf16(s[j][2], s[j][3]);
+    }
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {  // dP^T = V dO^T (depth chunk c), dv += P^T dO (columns)
+      const bf16* st = next();  // at c = 0 its barrier also hands P^T over
+      if (c == 0) load_a_frags<kWideKeys>(pa, pw, lane);
+      qk_chunk<NJ>(dp, vw + c * kWideCols, kld, st + grp * KS * kWideLd,
+                   min(kWideCols, DP - c * kWideCols), lane);
+      const int w = min(CW, DP - c * kWideCols - grp * CW);
+      if (w > 0) pv_chunk<NO>(dv[c], pa, st + grp * CW, w, lane);
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int col = grp * KS + 8 * j + 2 * t;
+      const float2 qd = *reinterpret_cast<const float2*>(tm + 2 * kWideKeys + col);
+      *reinterpret_cast<uint32_t*>(dsw + g * kPld + col) =
+          pack_bf16(s[j][0] * (dp[j][0] - qd.x) * scale, s[j][1] * (dp[j][1] - qd.y) * scale);
+      *reinterpret_cast<uint32_t*>(dsw + (g + 8) * kPld + col) =
+          pack_bf16(s[j][2] * (dp[j][2] - qd.x) * scale, s[j][3] * (dp[j][3] - qd.y) * scale);
+    }
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {  // dk += dS^T Q
+      const bf16* st = next();      // at c = 0 its barrier also hands dS^T over
+      if (c == 0) load_a_frags<kWideKeys>(pa, dsw, lane);
+      const int w = min(CW, DP - c * kWideCols - grp * CW);
+      if (w > 0) pv_chunk<NO>(dk[c], pa, st + grp * CW, w, lane);
+    }
+  }
+  const int r = c0 + rt * 16;
+  store_wide<NC, NO>(a.dk + row0 * a.ldg + h * Dh, a.ldg, dk, 1.f, 1.f, r, N, grp * CW, Dh,
+                     lane);
+  store_wide<NC, NO>(a.dv + row0 * a.ldg + h * Dh, a.ldg, dv, 1.f, 1.f, r, N, grp * CW, Dh,
+                     lane);
 }
 
 }  // namespace

@@ -29,13 +29,15 @@
 //   dO V^T sum their fp32 partial fragments over the chunks in order (the
 //   same products in the same order as one depth-Dh loop), and P V, dS K,
 //   P^T dO and dS^T Q update one 128-column slice of an fp32 accumulator at
-//   a time. In the tiles design (K8f's where forced, K8b's) the
-//   accumulators O, dQ, dK and dV live in shared memory (fp32), and the bf16
-//   operands are staged a chunk at a time, so shared memory grows only with
-//   the accumulators: a block takes R rows, the largest of 64, 32, 16 whose
-//   bytes fit the card's 227 KB (WideRows below). K8f's registers design,
-//   its pick there (flash_fwd_wide_regs_kernel below), splits O's columns
-//   over the warps of a row tile instead and keeps it in registers.
+//   a time. In the tiles design (where forced) the accumulators O, dQ, dK
+//   and dV live in shared memory (fp32), and the bf16 operands are staged a
+//   chunk at a time, so shared memory grows only with the accumulators: a
+//   block takes R rows, the largest of 64, 32, 16 whose bytes fit the
+//   card's 227 KB (WideRows below). The registers designs, the launchers'
+//   picks there (flash_fwd_wide_regs_kernel, flash_bwd_dq_wide_regs_kernel
+//   and the shared dk/dv side of attention_bwd_regs.cuh), split O's, dQ's,
+//   or dK's and dV's columns over the warps of a row tile instead and keep
+//   them in registers.
 //
 // Shared memory per block (bytes; Smem and WideSmem below; R the wide
 // kernels' rows a block):
@@ -55,7 +57,13 @@
 // K8f's wide registers design (WideRegs): 96,256 B at Dh 256 (64 rows, 8
 // warps, a 3-stage ring: two blocks an SM), 131,072 and 147,456 at Dh 384
 // and 512 (64 rows, 16 warps), 116,736, 124,928 and 133,120 at Dh 640-896
-// (32 rows, 8 warps).
+// (32 rows, 8 warps). K8b's (WideBwd, then WideDkv in
+// attention_bwd_regs.cuh): the dq side 112,128 B at Dh 256 (64 rows, 8
+// warps, a 2-stage ring: two blocks an SM), 179,712 and 212,480 at 384 and
+// 512 (64 rows, 16 warps), 157,440, 173,824 and 190,208 at 640-896 (32
+// rows, 8 warps); the dk/dv side 157,184 at Dh 256 (64 keys), 130,560,
+// 146,944 and 163,328 at 384-640 (32 keys), 125,440 and 133,632 at 768 and
+// 896 (16 keys), 8 warps each.
 //
 // What bounds it on the H100: at DiT-S/4 and --image-size 128 (N = 1024,
 // Dh = 64) one (image, head) is 4 N^2 Dh = 268 MFLOP against 384 KB of
@@ -109,10 +117,12 @@
 // dsum = rowsum(fp32(do) fp32(o)) from the bf16 o (written out for the
 // second kernel), then over the k tiles p = exp(s * scale - lse),
 // dp = dO V^T, ds = bf16(p (dp - dsum) scale), dq += ds K in register
-// fragments (the wide kernel: in shared memory); dq is rounded once.
+// fragments (the wide tiles kernel: in shared memory); dq is rounded once.
 // flash_bwd_dkv_kernel, one block per (k tile, head, image): over the q
 // tiles the same p and ds, dv += bf16(p)^T dO, dk += ds^T Q in register
-// fragments (wide: in shared memory); dk and dv are rounded once.
+// fragments (wide tiles: in shared memory); dk and dv are rounded once. The
+// registers designs (K8b's pick at Dh 32-896) do the same on mma.sync
+// fragments.
 #include "attention_bwd_regs.cuh"
 #include "common.cuh"
 #include "mma_frag.cuh"
@@ -1044,6 +1054,155 @@ flash_fwd_wide_regs_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   }
 }
 
+// K8b's registers design at Dh 256-896 (the launcher's pick there;
+// flash_bwd_dq_wide_kernel and flash_bwd_dkv_wide_kernel below, the "tiles"
+// design, stay where forced). The tiles design keeps dQ, or dK and dV, as R
+// x Dh fp32 in shared memory (R = 32 or 16), loads and stores each
+// 128-column slice of it by WMMA for every key (or query) tile, stores S and
+// dP to shared memory for a scalar pass, copies Q, dO (and K) again for
+// every tile behind two barriers a chunk, and spills. Here the wide
+// backwards of attention_bwd_regs.cuh: this dq side and the dk/dv side
+// shared with the attention core (csrc/attention.cu). The dq side: 16 RT
+// query rows of one (image, head) on RT row tiles times G column groups
+// (WideBwd), Q and dO copied once; dsum = rowsum(fp32(do) fp32(o)) by
+// row_dot (the tiles design's bits) and lse read once. A key tile is three
+// rounds of NC = Dh / 128 ring stages: K (S, the warp's 64 / G keys at the
+// full depth; p = exp(s scale - lse) in place), V (dP = dO V^T; dS =
+// bf16(p (dP - dsum) scale) to shared memory), K again (each warp adds dS K
+// into its 128 / G columns of every chunk of dq, as mma.sync accumulators).
+// No score crosses warps: p and dS need no exchange, as K8b has lse and
+// dsum. exp is the card's ex2 with log2 e folded into the scale (the
+// registers design at Dh 32-128 does the same).
+//
+// The layout at Dh, as K8f's WideRegs: two groups of 8 warps (64 rows) at
+// Dh 256 with a two-stage ring, 112,128 B, so that two blocks share an SM
+// (64 fp32 of dq a lane within 128 registers); four groups of 16 warps (64
+// rows) at 384 and 512; four of 8 (32 rows, 80-112 fp32 a lane) past 512.
+// Measured on the H100 at (128, 1024, 3, 256), the two blocks took 2.98 ms
+// against 4.07-4.18 for one block of two groups of 8 warps (three stages),
+// four groups of 16, or two blocks of four groups of 8 (32 rows).
+template <int Dh>
+struct WideBwd {
+  static constexpr int G = Dh == 256 ? 2 : 4, WARPS = Dh == 384 || Dh == 512 ? 16 : 8;  // dq
+  static constexpr int kRows = 16 * WARPS / G, kStages = Dh == 256 ? 2 : 4;
+  static constexpr int kBlocks = Dh == 256 ? 2 : 1;  // blocks an SM
+  static constexpr size_t kSmem =  // Q, dO, the ring, dS of each row tile, lse and dsum
+      (size_t)2 * kRows * (Dh + kPadH) * sizeof(bf16) +
+      (size_t)kStages * kWideStage * sizeof(bf16) + (size_t)kRows * (kTile + kPadH) * sizeof(bf16) +
+      (size_t)2 * kRows * sizeof(float);
+};
+
+template <int Dh>
+__global__ void __launch_bounds__(32 * WideBwd<Dh>::WARPS, WideBwd<Dh>::kBlocks)
+flash_bwd_dq_wide_regs_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                              const bf16* __restrict__ v, int ld, const bf16* __restrict__ o,
+                              const bf16* __restrict__ dout, const float* __restrict__ lse,
+                              float* __restrict__ dsum, bf16* __restrict__ dqkv, int N, int H,
+                              float scale) {
+  using L = WideBwd<Dh>;
+  constexpr int G = L::G, WARPS = L::WARPS, kRows = L::kRows, kS = L::kStages;
+  constexpr int NC = Dh / kWideCols, kThr = 32 * WARPS;
+  constexpr int KS = kTile / G, NJ = KS / 8, CW = kWideCols / G, NO = CW / 8;
+  constexpr int kQld = Dh + kPadH, kPld = kTile + kPadH;
+  static_assert(Dh % kWideCols == 0 && NC >= 2 && Dh <= kWideMaxWidth,
+                "the wide registers design is built at Dh 256 ... 896, multiples of 128");
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* dOs = Qs + kRows * kQld;
+  bf16* ring = dOs + kRows * kQld;
+  bf16* dSs = ring + kS * kWideStage;  // RT tiles of 16 x 64 bf16 dS
+  float* row_a = reinterpret_cast<float*>(dSs + kRows * kPld);  // lse log2 e
+  float* row_d = row_a + kRows;                                  // dsum
+  const int q0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int rt = warp / G, grp = warp % G;
+  const int D = H * Dh, nt = N / kTile, jobs = 3 * NC * nt;
+  const size_t row0 = (size_t)b * N, stat0 = ((size_t)b * H + h) * N;
+  const bf16* qh = q + row0 * ld + h * Dh;
+  const bf16* kh = k + row0 * ld + h * Dh;
+  const bf16* vh = v + row0 * ld + h * Dh;
+  const bf16* doh = dout + row0 * D + h * Dh;
+  const float scale2 = scale * kLog2e;
+  // job j: key tile j / (3 NC), its K chunks, V chunks, K chunks again;
+  // issued kS - 1 jobs ahead into the stage job j - kS read
+  auto issue = [&](int j) {
+    if (j < jobs) {
+      const int i = j / (3 * NC), c = j % (3 * NC);
+      load_chunk_async<kThr>(ring + (j % kS) * kWideStage, c >= NC && c < 2 * NC ? vh : kh, ld,
+                             i * kTile, N, (c % NC) * kWideCols, Dh, Dh);
+    }
+    cp_async_commit();
+  };
+  int job = 0;
+  auto next = [&]() {
+    cp_async_wait<kS - 2>();
+    __syncthreads();
+    issue(job + kS - 1);
+    return ring + (job++ % kS) * kWideStage;
+  };
+  load_rows_async<kRows, kThr>(Qs, kQld, qh, ld, q0, N, Dh, Dh);
+  load_rows_async<kRows, kThr>(dOs, kQld, doh, D, q0, N, Dh, Dh);
+#pragma unroll
+  for (int j = 0; j < kS - 1; ++j) issue(j);
+  // dsum from the bf16 o the forward wrote (flash.py:398), one row a warp
+  // at a time; lse; both handed over by the first stage's barrier
+  for (int r = warp; r < kRows; r += WARPS) {
+    const float s = row_dot<Dh>(doh + (size_t)(q0 + r) * D, o + (row0 + q0 + r) * D + h * Dh,
+                                lane);
+    if (lane == 0) {
+      row_d[r] = s;
+      dsum[stat0 + q0 + r] = s;
+    }
+  }
+  if (threadIdx.x < kRows) row_a[threadIdx.x] = lse[stat0 + q0 + threadIdx.x] * kLog2e;
+  float acc[NC][NO][4];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int j = 0; j < NO; ++j) acc[c][j][0] = acc[c][j][1] = acc[c][j][2] = acc[c][j][3] = 0.f;
+  const bf16* qw = Qs + rt * 16 * kQld;
+  const bf16* dw = dOs + rt * 16 * kQld;
+  bf16* dsw = dSs + rt * 16 * kPld;
+  const float* ra = row_a + rt * 16 + g;  // rows g and g + 8 at [0] and [8]
+  const float* rd = row_d + rt * 16 + g;
+  for (int i = 0; i < nt; ++i) {
+    float s[NJ][4], dp[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      qk_chunk<NJ>(s, qw + c * kWideCols, kQld, next() + grp * KS * kWideLd, kWideCols, lane);
+    const float a[2] = {ra[0], ra[8]};  // read again each tile: no registers held
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = exp2_approx(s[j][e] * scale2 - a[e / 2]);
+#pragma unroll
+    for (int c = 0; c < NC; ++c)  // dP = dO V^T
+      qk_chunk<NJ>(dp, dw + c * kWideCols, kQld, next() + grp * KS * kWideLd, kWideCols, lane);
+    const float d[2] = {rd[0], rd[8]};
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int col = grp * KS + 8 * j + 2 * t;
+      *reinterpret_cast<uint32_t*>(dsw + g * kPld + col) =
+          pack_bf16(s[j][0] * (dp[j][0] - d[0]) * scale, s[j][1] * (dp[j][1] - d[0]) * scale);
+      *reinterpret_cast<uint32_t*>(dsw + (g + 8) * kPld + col) =
+          pack_bf16(s[j][2] * (dp[j][2] - d[1]) * scale, s[j][3] * (dp[j][3] - d[1]) * scale);
+    }
+    uint32_t da[4][4];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {  // dq += dS K
+      const bf16* st = next();      // at c = 0 its barrier also hands dS over
+      if (c == 0) load_a_frags<kTile>(da, dsw, lane);
+      pv_chunk<NO>(acc[c], da, st + grp * CW, CW, lane);
+    }
+  }
+  store_wide<NC, NO>(dqkv + row0 * 3 * D + h * Dh, 3 * D, acc, 1.f, 1.f, q0 + rt * 16, N,
+                     grp * CW, Dh, lane);
+}
+
 // p = exp(s * scale - lse) and ds = bf16(p (dp - dsum) scale) over an
 // M x NC tile of fp32 rows of stride sld, the row terms by row; Pb (bf16 p)
 // is written when non-null. Rows of stride pld.
@@ -1356,6 +1515,30 @@ cudaError_t launch_fwd_wide_regs(const void* q, const void* k, const void* v, in
   return cudaGetLastError();
 }
 
+// The wide registers design's two kernels: the dq side writes dsum, which
+// the dk/dv side (csrc/attention.cu) reads (same stream, in order).
+template <int Dh>
+cudaError_t launch_bwd_wide_regs(const void* q, const void* k, const void* v, int ld,
+                                 const void* o, const void* dout, const void* lse, void* dsum,
+                                 void* dqkv, int B, int N, int H, float scale,
+                                 cudaStream_t stream) {
+  using L = WideBwd<Dh>;
+  static_assert(L::kSmem <= kMaxSmem, "the wide backward exceeds the card's shared memory");
+  cudaError_t err = allow_smem(flash_bwd_dq_wide_regs_kernel<Dh>, L::kSmem);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_wide_regs_kernel<Dh><<<dim3(N / L::kRows, H, B), 32 * L::WARPS, L::kSmem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, ld, (const bf16*)o, (const bf16*)dout,
+      (const float*)lse, (float*)dsum, (bf16*)dqkv, N, H, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int D = H * Dh;
+  bf16* g = (bf16*)dqkv;
+  return launch_bwd_dkv_wide({(const bf16*)q, (const bf16*)k, (const bf16*)v, ld,
+                              (const bf16*)dout, D, g + D, g + 2 * D, 3 * D, (const float*)lse,
+                              (const float*)dsum, nullptr, B, N, H, Dh, scale},
+                             stream);
+}
+
 template <int Dh>
 cudaError_t launch_bwd_wide(const void* q, const void* k, const void* v, int ld, const void* o,
                             const void* dout, const void* lse, void* dsum, void* dqkv, int B,
@@ -1429,10 +1612,12 @@ extern "C" int ddm_flash_fwd(const void* q, const void* k, const void* v, int ld
 // tiles a warp), 64, 128, then its tiles design there, then K8b's registers
 // design's dq kernels, its dk/dv kernels, the tiles design's dq kernels and
 // its dk/dv kernels at Dh 32, 64, 128; then K8f's registers design at Dh
-// 256, 384, ..., 896 and its tiles design (the chunked kernel) there.
+// 256, 384, ..., 896 and its tiles design (the chunked kernel) there; then
+// K8b's at Dh 256, ..., 896 in the same order as at Dh 32-128 (its
+// registers dk/dv kernel is the attention core's wide dk/dv side).
 extern "C" int ddm_flash_kernel_attrs(int* attrs) {
   using namespace ddm;
-  constexpr int kN = 18 + 12;
+  constexpr int kN = 18 + 12 + 24;
   const void* kernels[kN] = {(const void*)flash_fwd_regs_kernel<32, 2>,
                              (const void*)flash_fwd_regs_kernel<64, 1>,
                              (const void*)flash_fwd_regs_kernel<128, 1>,
@@ -1458,6 +1643,18 @@ extern "C" int ddm_flash_kernel_attrs(int* attrs) {
 #define DDM_WIDE_ATTRS(W) kernels[i++] = (const void*)flash_fwd_wide_kernel<W>;
   DDM_FLASH_WIDTHS(DDM_WIDE_ATTRS)
 #undef DDM_WIDE_ATTRS
+#define DDM_WIDE_BWD_ATTRS(W) kernels[i++] = (const void*)flash_bwd_dq_wide_regs_kernel<W>;
+  DDM_FLASH_WIDTHS(DDM_WIDE_BWD_ATTRS)
+#undef DDM_WIDE_BWD_ATTRS
+#define DDM_WIDE_DKV_ATTRS(W) kernels[i++] = bwd_dkv_wide_kernel(W / kWideCols);
+  DDM_FLASH_WIDTHS(DDM_WIDE_DKV_ATTRS)
+#undef DDM_WIDE_DKV_ATTRS
+#define DDM_WIDE_TILES_ATTRS(W) kernels[i++] = (const void*)flash_bwd_dq_wide_kernel<W>;
+  DDM_FLASH_WIDTHS(DDM_WIDE_TILES_ATTRS)
+#undef DDM_WIDE_TILES_ATTRS
+#define DDM_WIDE_TILES_DKV_ATTRS(W) kernels[i++] = (const void*)flash_bwd_dkv_wide_kernel<W>;
+  DDM_FLASH_WIDTHS(DDM_WIDE_TILES_DKV_ATTRS)
+#undef DDM_WIDE_TILES_DKV_ATTRS
   for (i = 0; i < kN; ++i) {
     cudaFuncAttributes a;
     const cudaError_t err = cudaFuncGetAttributes(&a, kernels[i]);
@@ -1468,17 +1665,20 @@ extern "C" int ddm_flash_kernel_attrs(int* attrs) {
   return 0;
 }
 
-// K8b's designs, as K8f's: 0 "tiles" (flash_bwd_dq_kernel and
-// flash_bwd_dkv_kernel, Dh 4-128), 1 "registers" (Dh 32, 64, 128); -1
-// registers where it takes Dh, tiles at Dh 4-16, the wide kernels at Dh
-// 256-896 (which no design code forces).
+// K8b's designs, as K8f's, with the same codes: 0 "tiles"
+// (flash_bwd_dq_kernel and flash_bwd_dkv_kernel at Dh 4-128, the chunked
+// flash_bwd_dq_wide_kernel and flash_bwd_dkv_wide_kernel at Dh 256-896), 1
+// "registers" (flash_bwd_dq_regs_kernel and flash_bwd_dkv_regs_kernel at Dh
+// 32, 64, 128, the wide registers design at Dh 256-896); -1 registers where
+// it takes Dh, tiles at Dh 4-16.
+constexpr int kBwdTiles = 0, kBwdRegisters = 1;
+
 extern "C" int ddm_flash_bwd(const void* q, const void* k, const void* v, int ld, const void* o,
                              const void* dout, const void* lse, void* dsum, void* dqkv, int B,
                              int N, int H, int Dh, float scale, int design, void* stream) {
   using namespace ddm;
   const cudaStream_t s = (cudaStream_t)stream;
-  const bool regs = Dh == 32 || Dh == 64 || Dh == 128;
-  if (design == kFwdRegisters || (design < 0 && regs)) {
+  if (design == kBwdRegisters || (design < 0 && Dh >= 32)) {
     switch (Dh) {
       case 32:
         return (int)launch_bwd_regs<32>(q, k, v, ld, o, dout, lse, dsum, dqkv, B, N, H, scale, s);
@@ -1487,10 +1687,16 @@ extern "C" int ddm_flash_bwd(const void* q, const void* k, const void* v, int ld
       case 128:
         return (int)launch_bwd_regs<128>(q, k, v, ld, o, dout, lse, dsum, dqkv, B, N, H, scale,
                                          s);
+#define DDM_BWD_WIDE_REGS(W)                                                                    \
+      case W:                                                                                   \
+        return (int)launch_bwd_wide_regs<W>(q, k, v, ld, o, dout, lse, dsum, dqkv, B, N, H, scale, \
+                                            s);
+      DDM_FLASH_WIDTHS(DDM_BWD_WIDE_REGS)
+#undef DDM_BWD_WIDE_REGS
       default: return (int)cudaErrorInvalidValue;
     }
   }
-  if (design != kFwdTiles && design >= 0) return (int)cudaErrorInvalidValue;
+  if (design != kBwdTiles && design >= 0) return (int)cudaErrorInvalidValue;
   switch (Dh) {
     case 4:
     case 8:
@@ -1503,11 +1709,8 @@ extern "C" int ddm_flash_bwd(const void* q, const void* k, const void* v, int ld
       return (int)launch_bwd<64>(q, k, v, ld, o, dout, lse, dsum, dqkv, B, N, H, Dh, scale, s);
     case 128:
       return (int)launch_bwd<128>(q, k, v, ld, o, dout, lse, dsum, dqkv, B, N, H, Dh, scale, s);
-#define DDM_BWD_WIDE(W)                                                                    \
-    case W:                                                                                \
-      return design < 0 ? (int)launch_bwd_wide<W>(q, k, v, ld, o, dout, lse, dsum, dqkv, B, \
-                                                  N, H, scale, s)                           \
-                        : (int)cudaErrorInvalidValue;
+#define DDM_BWD_WIDE(W) \
+    case W: return (int)launch_bwd_wide<W>(q, k, v, ld, o, dout, lse, dsum, dqkv, B, N, H, scale, s);
     DDM_FLASH_WIDTHS(DDM_BWD_WIDE)
 #undef DDM_BWD_WIDE
     default: return (int)cudaErrorInvalidValue;

@@ -67,6 +67,14 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
                  : "r"(smem_addr(p)));
 }
 
+// Two 8 x 8 bf16 matrices, row addresses from lanes 0-15, as ldmatrix_x4's
+// first two.
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+
 // d += A B over one 16 x 8 x 16 step, fp32 accumulators.
 __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                           uint32_t b1) {
@@ -227,6 +235,7 @@ __device__ __forceinline__ void store_rows_bf16(bf16* __restrict__ dst, size_t l
 
 
 // ---- the wide forwards: K8f at Dh 256-896, the core past a padded head of 128 ----
+// (the wide backwards in attention_bwd_regs.cuh take the same column split)
 //
 // A 64 x Dh fp32 output tile is 64 Dh registers (49,152 at Dh 768 against
 // the SM's 65,536), so no warp can hold a row tile's whole O. A block of
@@ -285,27 +294,62 @@ __device__ __forceinline__ void load_rows_async(bf16* dst, int dld, const bf16* 
   }
 }
 
+// load_chunk_async and load_rows_async (n rows) for a block whose threads
+// are counted at run time.
+__device__ __forceinline__ void load_chunk_async_any(bf16* dst, const bf16* __restrict__ src,
+                                                     size_t ld, int r0, int rows, int c0, int DP,
+                                                     int Dh) {
+  constexpr int kVec = kWideCols / 8;
+  for (int i = threadIdx.x; i < kWideKeys * kVec; i += blockDim.x) {
+    const int r = i / kVec, c = (i % kVec) * 8;
+    if (c0 + c < DP) {
+      const bool valid = r0 + r < rows && c0 + c < Dh;
+      cp_async16(dst + r * kWideLd + c, valid ? src + (size_t)(r0 + r) * ld + c0 + c : src,
+                 valid);
+    }
+  }
+}
+
+__device__ __forceinline__ void load_rows_async_any(bf16* dst, int dld,
+                                                    const bf16* __restrict__ src, size_t ld,
+                                                    int r0, int n, int rows, int DP, int Dh) {
+  const int vec = DP / 8;
+  for (int i = threadIdx.x; i < n * vec; i += blockDim.x) {
+    const int r = i / vec, c = (i % vec) * 8;
+    const bool valid = r0 + r < rows && c < Dh;
+    cp_async16(dst + r * dld + c, valid ? src + (size_t)(r0 + r) * ld + c : src, valid);
+  }
+}
+
 // s[j] += the warp's 16 rows of Q (shared, row stride qld, from the chunk's
 // first column) times keys [8j, 8j + 8) of a K stage (from the warp's first
 // key), over the chunk's first w columns (a multiple of 16) in increasing
-// order: the order of qk_tile, one chunk of the depth.
+// order: the order of qk_tile, one chunk of the depth. At NJ = 1 (8 keys)
+// each B fragment is an ldmatrix_x2.
 template <int NJ>
 __device__ __forceinline__ void qk_chunk(float (&s)[NJ][4], const bf16* Qc, int qld,
                                          const bf16* Kc, int w, int lane) {
   const bf16* qa = Qc + (lane % 16) * qld + (lane / 16) * 8;
   const int row = (lane % 8) + (lane / 16) * 8, col = ((lane / 8) % 2) * 8;
   const bf16* kb = Kc + row * kWideLd + col;
+  const bf16* kb1 = Kc + (lane % 8) * kWideLd + col;  // NJ = 1: keys 0-7, lanes 0-15
 #pragma unroll
   for (int kk = 0; kk < kWideCols / 16; ++kk) {
     if (16 * kk >= w) break;
     uint32_t a[4];
     ldmatrix_x4<false>(a, qa + kk * 16);
+    if constexpr (NJ == 1) {
+      uint32_t b[2];
+      ldmatrix_x2(b, kb1 + kk * 16);
+      mma_16816(s[0], a, b[0], b[1]);
+    } else {
 #pragma unroll
-    for (int n = 0; n < NJ / 2; ++n) {
-      uint32_t b[4];
-      ldmatrix_x4<false>(b, kb + n * 16 * kWideLd + kk * 16);
-      mma_16816(s[2 * n], a, b[0], b[1]);
-      mma_16816(s[2 * n + 1], a, b[2], b[3]);
+      for (int n = 0; n < NJ / 2; ++n) {
+        uint32_t b[4];
+        ldmatrix_x4<false>(b, kb + n * 16 * kWideLd + kk * 16);
+        mma_16816(s[2 * n], a, b[0], b[1]);
+        mma_16816(s[2 * n + 1], a, b[2], b[3]);
+      }
     }
   }
 }

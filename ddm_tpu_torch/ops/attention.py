@@ -40,13 +40,19 @@ than the resident core's, so its bits are not the resident core's: the
 card holds it to the plain version. The resident and streamed designs run one
 block per (image, head, query tile) over full score rows in shared memory
 (the plan's pick past a padded 896, and where forced). The
-backward core has a registers design at padded widths up to 128
-(:data:`BWD_DESIGNS` "registers" and "registers-fused"): P, dP, dS and the
-gradients as tensor-core fragments in registers, with a dq side (two
-sweeps over the key tiles: each row's max, sum and sum of e dP, then P,
-att, dS and dq) and a dk/dv side (the transposed score tiles over the query
-tiles) past N 64, and one block per (image, head) at N <= 64 (the fused
-design, the main path's). Elsewhere the backward core runs one block per
+backward core has a registers design at padded widths up to 896
+(:data:`BWD_DESIGNS` "registers", and "registers-fused" up to 128): P, dP,
+dS and the gradients as tensor-core fragments in registers, with a dq side
+and a dk/dv side (the transposed score tiles over the query tiles). Up to
+128 columns the dq side takes two sweeps over the key tiles (each row's
+max, sum and sum of e dP, then P, att, dS and dq), and at N <= 64 one block
+per (image, head) does all of it (the fused design, the main path's). Past
+128 (the few-head paths) the warps of a 16-row tile split the gradients'
+columns, as in the forward: the dq side, 32 query rows a block (16 where
+their scores do not fit), writes each row's fp32 scores and dP once to
+shared memory and takes the softmax over the whole row there, then dS K;
+att is the wide forward core's output; the dk/dv side (16 to 64 key rows a
+block) is K8b's own at the wide widths. Elsewhere the backward core runs one block per
 (image, head) where its fp32 P and dP tiles fit shared memory (N <= 112 at
 Dh = 64), and past that two passes, over query tiles (P, att, dq and the
 row terms) and over key tiles and output column chunks (dk, dv). The
@@ -170,7 +176,8 @@ FWD_DESIGNS = ("resident", "streamed", "registers")
 BWD_DESIGNS = ("one-block", "two-pass", "streamed", "registers", "registers-fused")
 # the padded head widths both registers designs are built for (padded(Dh) <=
 # 128), and the forward's wide registers instances past them: padded widths
-# (up to 896) and query rows a block (32 on 8 warps; 64 on 16, up to 512)
+# (up to 896) and query rows a block (32 on 8 warps; 64 on 16, up to 512);
+# the backward's wide instances are one a count of 128-column chunks (2-7)
 REGISTERS_WIDTHS = tuple(range(16, 129, 16))
 WIDE_REGISTERS = tuple((dp, 32) for dp in range(256, 897, 128)) + tuple(
     (dp, 64) for dp in range(256, 513, 128))
@@ -181,7 +188,9 @@ CORE_KERNELS = ("forward", "forward streamed", "one-block backward", "pass 1",
     for kind in ("held", "two sweeps", "two sweeps 8 warps")) + tuple(
     f"backward registers {dp} {kind}" for dp in REGISTERS_WIDTHS
     for kind in ("dq att", "dq", "dk dv", "fused att", "fused")) + tuple(
-    f"forward registers {dp - 112}-{dp} {rows} rows" for dp, rows in WIDE_REGISTERS)
+    f"forward registers {dp - 112}-{dp} {rows} rows" for dp, rows in WIDE_REGISTERS) + tuple(
+    f"backward registers {dp - 112}-{dp} {side}" for side in ("dq", "dk dv")
+    for dp in range(256, 897, 128))
 
 
 def _heads(a: torch.Tensor, H: int) -> torch.Tensor:
@@ -340,7 +349,10 @@ def core_plan(N: int, Dh: int, backward: bool = False, design=None) -> dict:
     QT is the block's query rows: at a padded Dh up to 128, 64, or 128 past
     N 128 where they divide N; past it 64 or 32), the backward's ``{"design",
     "rows": (QT, C), "cols": (KT, QT, C, C2)}`` (pass 2's output column
-    chunk C2; no pass tiles for the one-block design). ``design`` forces one
+    chunk C2; no pass tiles for the one-block design; for the registers
+    designs the dq side's query rows a block and the padded head, and the
+    dk/dv side's key rows a block, query rows a stage and the padded head
+    twice). ``design`` forces one
     of :data:`FWD_DESIGNS` or :data:`BWD_DESIGNS`; raises where it (or,
     with None, every design) does not take the shape."""
     plan = (ctypes.c_int * 7)()
@@ -459,10 +471,10 @@ def _launch_core(q, k, v, H, design=None):
 
 def _launch_core_bwd(q, k, v, do, H, with_att, design=None):
     """The backward core -> ``(att or None, dqkv (B, N, 3D))``, bf16: the
-    registers design where the padded head is at most 128 wide (one block
-    per (image, head) at N <= 64), else one block per (image, head) where it
-    fits, else the two passes, each resident or streamed (``design`` forces
-    one of :data:`BWD_DESIGNS`)."""
+    registers design where the padded head is at most 896 wide (one block
+    per (image, head) at N <= 64 up to 128 columns), else one block per
+    (image, head) where it fits, else the two passes, each resident or
+    streamed (``design`` forces one of :data:`BWD_DESIGNS`)."""
     q, k, v, ld = flash._qkv_rows(q, k, v)
     B, N, D = q.shape
     Dh = D // H

@@ -39,13 +39,19 @@ columns and each score tile's keys, and K and V pass through a ring of
 stages them in shared memory (at the wide widths the 128-column chunked
 kernel with its fp32 output in shared memory). Both follow the rounding
 above element for element; the sums over a row's keys run in another
-order, so their bits differ. K8b has the same two designs
-(:data:`BWD_DESIGNS`): its "registers" design keeps the score, dP,
-probability and dS tiles and the dq, dk and dv accumulators in registers
-(the dk/dv kernel computes the transposed tiles, keys by queries, so that
-P^T and dS^T feed its products as they stand), with Q, dO, K and V through
-the same ring (``csrc/attention_bwd_regs.cuh``, shared with the attention
-core's backward); dsum is the tiles design's bits.
+order, so their bits differ. K8b has the same two designs at Dh 32 to 896
+(:data:`BWD_DESIGNS`): its "registers" design, the launcher's own pick
+there, keeps the score, dP, probability and dS tiles and the dq, dk and dv
+accumulators in registers (the dk/dv kernel computes the transposed tiles,
+keys by queries, so that P^T and dS^T feed its products as they stand),
+with Q, dO, K and V through the same kind of ring
+(``csrc/attention_bwd_regs.cuh``, shared with the attention core's
+backward; at the wide widths two to eight warps split each 16-row tile's
+gradient columns and each score tile's keys or queries, and the dk/dv
+kernel is the attention core's own); "tiles", the design of Dh 4, 8 and 16
+too, stages them in shared memory (at the wide widths the 128-column
+chunked kernels with dq, dk and dv in shared memory). dsum is the tiles
+design's bits in both.
 """
 
 from __future__ import annotations
@@ -89,10 +95,9 @@ BWD_LAUNCHES = LaunchCounter("K8b")
 # the head widths csrc/flash.cu is built for: every one the JAX gate admits
 HEAD_DIMS = (4, 8, 16, 32, 64, 128, 256, 384, 512, 640, 768, 896)
 # K8's designs (``design=``), in the order of the library's codes; the head
-# widths both registers designs are built for (their own pick there), and
-# the wide widths where K8f's registers design is the wide kernel and its
-# tiles design the 128-column chunked one (K8b runs its chunked kernels there
-# and no design code forces them)
+# widths the registers designs at Dh <= 128 are built for, and the wide
+# widths where K8f's and K8b's registers designs are the wide kernels (their
+# own pick there) and their tiles designs the 128-column chunked ones
 FWD_DESIGNS = ("tiles", "registers")
 BWD_DESIGNS = ("tiles", "registers")
 REGISTERS_DIMS = (32, 64, 128)
@@ -216,15 +221,16 @@ def launch_k8f(q, k, v, H: int, scale: float, design=None):
 def kernel_attrs() -> dict:
     """Registers and local (spill) bytes a thread of each K8 instance takes
     on the card: ``{(kernel, Dh): {"registers", "local_bytes"}}``, kernel a
-    K8f design's name (its forward kernel, at Dh 32, 64 and 128 and at
-    :data:`WIDE_DIMS`), or ``"<design> dq"`` and ``"<design> dk dv"`` for
-    K8b's two kernels (at Dh 32, 64 and 128)."""
-    keys = [(d, dh) for d in FWD_DESIGNS[::-1] for dh in REGISTERS_DIMS] + [
-        (f"{d} {side}", dh) for d in BWD_DESIGNS[::-1] for side in ("dq", "dk dv")
-        for dh in REGISTERS_DIMS] + [(d, dh) for d in FWD_DESIGNS[::-1] for dh in WIDE_DIMS]
+    K8f design's name (its forward kernel), or ``"<design> dq"`` and
+    ``"<design> dk dv"`` for K8b's two kernels, at Dh 32, 64 and 128 and at
+    :data:`WIDE_DIMS`."""
+    bwd = lambda dims: [(f"{d} {side}", dh) for d in BWD_DESIGNS[::-1]  # noqa: E731
+                        for side in ("dq", "dk dv") for dh in dims]
+    keys = ([(d, dh) for d in FWD_DESIGNS[::-1] for dh in REGISTERS_DIMS] + bwd(REGISTERS_DIMS)
+            + [(d, dh) for d in FWD_DESIGNS[::-1] for dh in WIDE_DIMS] + bwd(WIDE_DIMS))
     attrs = (ctypes.c_int * (2 * len(keys)))()
     check_status(load_library().ddm_flash_kernel_attrs(ctypes.addressof(attrs)),
-                 "K8f kernel attributes")
+                 "K8 kernel attributes")
     return {key: {"registers": attrs[2 * i], "local_bytes": attrs[2 * i + 1]}
             for i, key in enumerate(keys)}
 

@@ -64,7 +64,7 @@ _SIGNATURES = {
     "ddm_attention_core_bwd": [_P, _P, _P, _I, _P, _P, _P, _P] + [_I] * 4 + [_F, _I, _P],
     # N, Dh, backward, design, plan (int[7])
     "ddm_attention_core_plan": [_I, _I, _I, _I, _P],
-    # attrs (int[142]: registers and local bytes of the 71 core kernels)
+    # attrs (int[184]: registers and local bytes of the 92 core kernels)
     "ddm_attention_kernel_attrs": [_P],
     # X3: q, k, v, ld, dout, att, dqkv, B, N, H, Dh, scale, skip, stream
     "ddm_attention_core_bwd_ablate": [_P, _P, _P, _I, _P, _P, _P] + [_I] * 4 + [_F, _I, _P],
@@ -92,7 +92,7 @@ _SIGNATURES = {
     "ddm_energy_bwd": [_P] * 7 + [_I] * 4 + [_F, _P],
     # q, k, v, ld, o, lse, B, N, H, Dh, scale, design, stream
     "ddm_flash_fwd": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _F, _I, _P],
-    # attrs (int[36]: registers and local bytes of K8's 18 instances at Dh 32-128)
+    # attrs (int[108]: registers and local bytes of K8's 54 instances at Dh 32-896)
     "ddm_flash_kernel_attrs": [_P],
     # q, k, v, ld, o, dout, lse, dsum, dqkv, B, N, H, Dh, scale, design, stream
     "ddm_flash_bwd": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],

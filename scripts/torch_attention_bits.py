@@ -24,11 +24,13 @@ from a [q | k | v] buffer, at (B, N, H, Dh): (2048, 64, 6, 64) (DiT-S/4's
 training shape; the earlier backward one block per (image, head)), (256,
 256, 6, 64) (64 px, two passes), (256, 256, 16, 64) (DiT-L/4 at 64 px, K7)
 and (256, 64, 16, 72) (DiT-XL/4, heads padded to 80 columns); then past a
-padded head of 128 (the wide registers forward): (64, 256, 1, 384)
-(DiT-S/4 at --heads 1 and 64 px), (512, 64, 1, 768) (DiT-B/4 at --heads
-1), (64, 256, 2, 512) (DiT-L/4 at --heads 2 and 64 px, K7), (64, 256, 4,
-256) (DiT-B/4 at --heads 3 and 64 px) and (16, 80, 2, 136) (ragged tiles, a
-head padded to 144 columns):
+padded head of 128 (the wide registers forward and backward): (64, 256, 1,
+384) (DiT-S/4 at --heads 1 and 64 px), (512, 64, 1, 768) (DiT-B/4 at
+--heads 1), (64, 256, 2, 512) (DiT-L/4 at --heads 2 and 64 px, K7), (64,
+256, 4, 256) (DiT-B/4 at --heads 3 and DiT-L/4 at --heads 4, 64 px), (16,
+80, 2, 136) (ragged tiles, a head padded to 144 columns) and (4, 512, 1,
+896) (the widest head the wide designs take at the longest N: the
+backward's dq side on 16-row blocks):
 
     PYTHONPATH=. python scripts/torch_attention_bits.py dump /tmp/new.pt
     cd parent && PYTHONPATH=. python ../scripts/torch_attention_bits.py dump /tmp/old.pt
@@ -50,7 +52,7 @@ import torch
 
 SHAPES = ((2048, 64, 6, 64), (256, 256, 6, 64), (256, 256, 16, 64), (256, 64, 16, 72),
           (64, 256, 1, 384), (512, 64, 1, 768), (64, 256, 2, 512), (64, 256, 4, 256),
-          (16, 80, 2, 136))
+          (16, 80, 2, 136), (4, 512, 1, 896))
 
 
 def _median_ms(fn, reps: int = 20, warmup: int = 3) -> float:

@@ -5,9 +5,10 @@ keeps the kernels' bits at a head width it did not mean to change.
 K8f's "tiles" design (forced where a checkout has ``design=``, else its
 only one; at Dh 256-896 forced where a checkout has the wide registers
 design, else the chunked kernel it picks there) gives o and lse, and K8b's
-"tiles" design (forced likewise at Dh 64; at Dh 256-896 the chunked
-kernels, which no design code forces) runs on them: these are held bit for
-bit. K8f and K8b as the launchers pick them (the "registers" designs, whose
+"tiles" design (forced likewise; at Dh 256-896 the chunked kernels, forced
+where a checkout has K8b's wide registers design, else its pick there)
+runs on them: these are held bit for bit. K8f and K8b as the launchers pick
+them (the "registers" designs, whose
 sums run in another order) are dumped beside the plain versions' outputs,
 and ``compare`` holds each dump's to them: o, dq, dk and dv by the bf16
 rule (two units in the last place at the largest output, a mean error
@@ -47,6 +48,20 @@ SHAPES = ((128, 1024, 6, 64), (8, 1024, 2, 256), (8, 1024, 2, 384), (8, 1024, 2,
           (8, 1024, 1, 640), (8, 1024, 1, 768), (8, 1024, 1, 896))
 
 
+def _held_k8b(flash, q, k, v, o, lse, do, H: int):
+    """K8b's tiles design, forced where the checkout has ``design=`` and
+    takes "tiles" at this width; a checkout before the wide registers
+    backward refuses it at Dh 256-896, where its own pick is the chunked
+    tiles kernels."""
+    D, Dh = q.shape[-1], q.shape[-1] // H
+    if "design" in inspect.signature(flash.launch_k8b).parameters:
+        try:
+            return flash.launch_k8b(q, k, v, o, lse, do, H, Dh ** -0.5, "tiles").split(D, dim=-1)
+        except RuntimeError:
+            pass
+    return flash.flash_attention_bwd(q, k, v, o, lse, do, H)
+
+
 def _dump_shape(flash, gen, B: int, N: int, H: int, Dh: int) -> dict:
     D = H * Dh
     qkv = torch.randn(B, N, 3 * D, generator=gen, device="cuda").to(torch.bfloat16)
@@ -55,12 +70,10 @@ def _dump_shape(flash, gen, B: int, N: int, H: int, Dh: int) -> dict:
     wide = Dh > 128
     designs = "design" in inspect.signature(flash.launch_k8f).parameters and (
         not wide or hasattr(flash, "WIDE_DIMS"))
-    bwd_designs = "design" in inspect.signature(flash.launch_k8b).parameters and not wide
     with torch.no_grad():
         o, lse = (flash.launch_k8f(q, k, v, H, Dh ** -0.5, "tiles") if designs else
                   flash.flash_attention_fwd(q, k, v, H))
-        grads = (flash.launch_k8b(q, k, v, o, lse, do, H, Dh ** -0.5, "tiles").split(D, dim=-1)
-                 if bwd_designs else flash.flash_attention_bwd(q, k, v, o, lse, do, H))
+        grads = _held_k8b(flash, q, k, v, o, lse, do, H)
         held_pick = flash.flash_attention_bwd(q, k, v, o, lse, do, H)
         pick = flash.flash_attention_fwd(q, k, v, H)
         pick_grads = flash.flash_attention_bwd(q, k, v, *pick, do, H)

@@ -1240,21 +1240,23 @@ def test_streamed_cores_match_plain_on_the_card(cuda_device, B, N, H, Dh, att):
     DiT-B/4 --heads 1 (K2b's and K4's core, writing att), DiT-L/4 --heads 2
     at 64 px (K7b, no att) and the widest head the JAX gates send at each N,
     forward and backward against their plain versions by the bf16 rule, the
-    backward twice, bit-identical; the plan streams a pass at each. att is
-    the earlier forward core's (resident or streamed, forced) bit for bit;
-    the plan's forward, the wide registers design up to a padded 896, is
-    held to it by the bf16 rule."""
+    backward twice, bit-identical. The plan takes the wide registers
+    backward up to a padded head of 896 (the three paths) and streams a pass
+    past it. att is the forward core's bit for bit: the wide registers
+    forward's up to 896, else the earlier forward's (resident or streamed,
+    forced), which the plan's forward is held to by the bf16 rule."""
     qkv, do = _core_case(cuda_device, B, N, H, Dh, seed=30)
     D = H * Dh
     q, k, v = qkv.split(D, dim=-1)
-    assert TA.core_plan(N, Dh, backward=True)["design"] == "streamed"
+    wide = -(-Dh // 16) * 16 <= 896
+    assert TA.core_plan(N, Dh, backward=True)["design"] == ("registers" if wide else "streamed")
     o = TA.attention_core_fwd(q, k, v, H)
     _assert_bf16_rule(o, TA.attention_reference(q, k, v, H))
     if att:
         got, again = TA._core_bwd_att(qkv, do, H), TA._core_bwd_att(qkv, do, H)
         want = TA.attention_core_bwd_att_reference(q, k, v, do, H)
         earlier = TA._launch_core(q, k, v, H, _earlier_fwd(N, Dh))
-        assert torch.equal(got[0], earlier)  # att from the fp32 P: the earlier forward's bits
+        assert torch.equal(got[0], o if wide else earlier)  # att: the paired forward's bits
         _assert_bf16_rule(o, earlier)
         got, again = (got[0], *got[1].split(D, dim=-1)), (again[0], *again[1].split(D, dim=-1))
     else:
@@ -1274,14 +1276,14 @@ def test_streamed_cores_give_the_resident_bits_on_the_card(cuda_device, B, N, H,
     the forward core, and the backward (att, dq, dk, dv) against the two
     whole-head passes or, at (112, 64), the one-block core; each backward
     twice, bit-identical. At Dh 256 and 72 (80 padded) the streamed design
-    takes several 64-column chunks. The plan's own picks are the resident
-    backward designs where the padded head passes 128 columns, else the
-    registers designs (fused at N <= 64), and the registers forward at
-    every one of these widths (the wide design at Dh 256)."""
+    takes several 64-column chunks. The plan's own picks are the registers
+    designs, forward and backward, at every one of these widths (the fused
+    backward block at N <= 64 up to 128 columns, the wide designs at Dh
+    256)."""
     qkv, do = _core_case(cuda_device, B, N, H, Dh, seed=31)
     resident = "one-block" if N <= 112 else "two-pass"
     assert TA.core_plan(N, Dh, backward=True)["design"] == (
-        resident if Dh > 128 else "registers-fused" if N <= 64 else "registers")
+        "registers-fused" if N <= 64 and Dh <= 128 else "registers")
     assert TA.core_plan(N, Dh)["design"] == "registers"
     assert torch.equal(TA._k2_core(qkv, H, "streamed"), TA._k2_core(qkv, H, "resident"))
     outs = {d: [TA._core_bwd_att(qkv, do, H, d) for _ in range(2)] for d in (resident, "streamed")}
@@ -1301,12 +1303,13 @@ def test_core_plan_on_the_card(cuda_device):
     to a padded head of 128 columns (the forward's with 64 query rows a
     block, 128 past N 128 where they divide N; the backward's fused block
     at N <= 64, its dq and dk/dv sides past it, 64 rows a block each), the
-    forward's wide registers design past it up to 896 (64 query rows a
-    block up to a padded 512 where their scores fit, else 32), the
-    one-block backward forced up to N 112 at Dh 64 (128 at Dh 32), the
-    whole-head designs where they fit, a streamed pass past 227 KB (pass 2
-    keeps the whole head to Dh ~880), and a refusal where a forced design
-    does not fit."""
+    wide registers designs past it up to 896 (the forward's 64 query rows a
+    block up to a padded 512 where their scores fit, else 32; the
+    backward's dq side 32 rows a block, 16 where their scores do not fit,
+    its dk/dv side 64, 32 or 16 key rows by the width), the one-block
+    backward forced up to N 112 at Dh 64 (128 at Dh 32), the whole-head
+    designs where they fit, streamed passes past 227 KB (forced, or past
+    896), and a refusal where a forced design does not fit."""
     plan = TA.core_plan
     assert plan(112, 64, True, "one-block")["design"] == "one-block"
     assert plan(128, 64, True, "two-pass")["design"] == "two-pass"
@@ -1318,8 +1321,15 @@ def test_core_plan_on_the_card(cuda_device):
     assert plan(256, 24, True)["design"] == "registers"
     assert plan(256, 72, True)["cols"] == (64, 32, 80, 80)  # 32-query stages past 64 columns
     assert plan(64, 64, True, "registers")["design"] == "registers"
-    assert plan(64, 136, True)["design"] == "one-block"
-    assert plan(128, 136, True)["design"] == "two-pass"
+    assert plan(64, 136, True) == {"design": "registers", "rows": (32, 144),
+                                   "cols": (64, 64, 144, 144)}
+    assert plan(128, 136, True, "two-pass")["design"] == "two-pass"
+    assert plan(256, 384, True) == {"design": "registers", "rows": (32, 384),
+                                    "cols": (32, 64, 384, 384)}
+    assert plan(64, 768, True) == {"design": "registers", "rows": (32, 768),
+                                   "cols": (16, 64, 768, 768)}
+    assert plan(512, 896, True)["rows"] == (16, 896)  # 32 rows' scores would not fit
+    assert plan(256, 904, True)["design"] == "streamed"
     assert plan(256, 64) == {"design": "registers", "QT": 128, "C": 64}
     assert plan(64, 72) == {"design": "registers", "QT": 64, "C": 80}
     assert plan(272, 128) == {"design": "registers", "QT": 64, "C": 128}
@@ -1334,14 +1344,14 @@ def test_core_plan_on_the_card(cuda_device):
     assert plan(256, 384, False, "streamed") == {"design": "streamed", "QT": 32, "C": 64}
     assert plan(64, 768, False, "resident")["design"] == "resident"
     assert plan(64, 904)["design"] == "resident"
-    s = plan(256, 384, True)
-    assert s["design"] == "streamed" and s["rows"] == (16, 64) and s["cols"][2:] == (384, 384)
-    assert plan(64, 768, True)["rows"] == (32, 64)
+    s = plan(256, 384, True, "streamed")
+    assert s["design"] == "streamed" and s["rows"] == (16, 64) and s["cols"][2] == 64
+    assert plan(64, 768, True, "streamed")["rows"] == (32, 64)
     assert plan(16, 3712, True)["cols"] == (16, 16, 64, 928)
     for args in ((256, 384, False, "resident"), (256, 384, True, "two-pass"),
                  (256, 64, True, "one-block"), (528, 64, False, None), (64, 68, True, None),
                  (256, 904, False, "registers"), (528, 64, False, "registers"),
-                 (64, 136, True, "registers"), (80, 64, True, "registers-fused"),
+                 (64, 904, True, "registers"), (80, 64, True, "registers-fused"),
                  (64, 136, True, "registers-fused")):
         with pytest.raises(RuntimeError):
             plan(*args)
@@ -1479,8 +1489,8 @@ def test_k8f_wide_registers_design_matches_plain_on_the_card(cuda_device, B, N, 
     """K8f's wide registers design (its own pick at Dh 256-896) against the
     plain version (o by the bf16 rule, lse to 1e-5 relative) and within the
     same rules of the tiles design (the chunked kernel) forced on the same
-    q, k, v; K8b (the wide chunked kernels) on the new o and lse against its
-    plain version, twice, bit-identical."""
+    q, k, v; K8b as picked on the new o and lse against its plain version,
+    twice, bit-identical."""
     gen = torch.Generator(device=cuda_device).manual_seed(37)
     D = H * Dh
     qkv = torch.randn(B, N, 3 * D, generator=gen, device=cuda_device).to(torch.bfloat16)
@@ -1564,26 +1574,36 @@ def test_registers_bwd_core_matches_plain_on_the_card(cuda_device, B, N, H, Dh, 
 
 @pytest.mark.cuda
 def test_registers_bwd_core_refuses_what_it_does_not_take_on_the_card(cuda_device):
-    """Forced past a padded head of 128 columns, or the fused block past N
-    64, the registers designs raise (no fallback to another design)."""
-    qkv, do = _core_case(cuda_device, 2, 64, 2, 136, seed=37)
+    """Forced past a padded head of 896 columns (the registers design), or of
+    128 or past N 64 (the fused block), the registers designs raise (no
+    fallback to another design)."""
+    qkv, do = _core_case(cuda_device, 2, 64, 1, 904, seed=37)
     for design in ("registers", "registers-fused"):
         with pytest.raises(RuntimeError, match="attention core plan"):
-            TA._core_bwd_att(qkv, do, 2, design)
+            TA._core_bwd_att(qkv, do, 1, design)
+    qkv, do = _core_case(cuda_device, 2, 64, 2, 136, seed=37)
+    with pytest.raises(RuntimeError, match="attention core plan"):
+        TA._core_bwd_att(qkv, do, 2, "registers-fused")
     qkv, do = _core_case(cuda_device, 2, 80, 2, 64, seed=38)
     with pytest.raises(RuntimeError, match="attention core plan"):
         TA._core_bwd_att(qkv, do, 2, "registers-fused")
-    assert TA.core_plan(64, 136, True)["design"] == "one-block"
+    assert TA.core_plan(64, 136, True)["design"] == "registers"
+    assert TA.core_plan(64, 904, True)["design"] == "streamed"
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,N,H,Dh", [(2, 1024, 12, 32), (2, 1024, 6, 64), (2, 1024, 3, 128),
-                                      (1, 4096, 2, 64), (3, 128, 4, 32), (1, 192, 2, 128)])
+                                      (1, 4096, 2, 64), (3, 128, 4, 32), (1, 192, 2, 128),
+                                      (2, 1024, 2, 256), (1, 1024, 2, 384), (1, 1024, 1, 512),
+                                      (1, 1024, 1, 640), (1, 1024, 1, 768), (1, 1024, 1, 896),
+                                      (3, 128, 2, 256), (1, 192, 1, 768), (1, 4096, 1, 256),
+                                      (2, 64, 3, 384)])
 def test_k8b_registers_design_matches_plain_on_the_card(cuda_device, B, N, H, Dh):
-    """K8b's registers design (its own pick at Dh 32, 64, 128) on the
-    registers forward's o and lse: against the plain version by the bf16
-    rule, a second call and the design forced by name bit-identical, and
-    within the bf16 rule of the tiles design forced on the same inputs."""
+    """K8b's registers design (its own pick at Dh 32-896; the wide design
+    past 128) on the registers forward's o and lse: against the plain
+    version by the bf16 rule, a second call and the design forced by name
+    bit-identical, and within the bf16 rule of the tiles design forced on
+    the same inputs (the chunked kernels past 128)."""
     gen = torch.Generator(device=cuda_device).manual_seed(39)
     D = H * Dh
     qkv = torch.randn(B, N, 3 * D, generator=gen, device=cuda_device).to(torch.bfloat16)
@@ -1603,14 +1623,71 @@ def test_k8b_registers_design_matches_plain_on_the_card(cuda_device, B, N, H, Dh
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Dh,design", [(16, "registers"), (256, "registers"), (256, "tiles")])
+@pytest.mark.parametrize("Dh,design", [(16, "registers"), (8, "registers"), (4, "registers")])
 def test_k8b_refuses_a_design_that_does_not_take_the_width_on_the_card(cuda_device, Dh, design):
-    """A forced K8b design raises where it is not built, as K8f's."""
+    """A forced K8b design raises where it is not built, as K8f's: the
+    registers design at Dh 4-16 ("tiles" takes every width)."""
     H = 2
     q = torch.zeros(1, 1024, H * Dh, device=cuda_device, dtype=torch.bfloat16)
     lse = torch.zeros(1, H, 1024, device=cuda_device)
     with pytest.raises(RuntimeError, match="K8b"):
         TF.launch_k8b(q, q, q, q, lse, q, H, Dh ** -0.5, design)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("att", [True, False])
+@pytest.mark.parametrize("B,N,H,Dh", WIDE_REGISTERS_SHAPES)
+def test_wide_registers_bwd_core_matches_plain_on_the_card(cuda_device, B, N, H, Dh, att):
+    """The backward core's registers design past a padded head of 128 (the
+    plan's pick up to 896: the wide dq side, 32 or 16 query rows a block,
+    and the dk/dv side shared with K8b) at ragged tiles and padded heads:
+    against the plain version by the bf16 rule and within it of the earlier
+    design forced (one block, two passes or streamed); a second call, the
+    design forced by name and q, k, v as three tensors bit-identical; att
+    the wide forward core's output bit for bit."""
+    qkv, do = _core_case(cuda_device, B, N, H, Dh, seed=40)
+    D = H * Dh
+    q, k, v = qkv.split(D, dim=-1)
+    plan = TA.core_plan(N, Dh, backward=True)
+    assert plan["design"] == "registers" and plan["rows"][0] in (16, 32)
+    assert plan["cols"][0] in (16, 32, 64) and plan["cols"][1] == 64
+
+    def run(design=None, operands=(q, k, v)):
+        att_out, dqkv = TA._launch_core_bwd(*operands, do, H, att, design)
+        return ((att_out,) if att else ()) + tuple(dqkv.split(D, dim=-1))
+
+    with torch.no_grad():
+        got, again, forced = run(), run(), run("registers")
+        apart = run(operands=tuple(t.contiguous() for t in (q, k, v)))
+        earlier = run(_earlier_bwd(N, Dh))
+        fwd = TA._launch_core(q, k, v, H)
+        torch.cuda.synchronize()
+    want = (TA.attention_core_bwd_att_reference if att else TA.attention_core_bwd_reference)(
+        q, k, v, do, H)
+    for g, h, a, f in zip(got, again, apart, forced):
+        assert torch.equal(g, h) and torch.equal(g, a) and torch.equal(g, f)
+    if att:
+        assert torch.equal(got[0], fwd)
+    for g, w, e in zip(got, want, earlier):
+        _assert_bf16_rule(g, w)
+        _assert_bf16_rule(g, e)
+
+
+@pytest.mark.cuda
+def test_wide_registers_bwd_kernels_do_not_spill_on_the_card(cuda_device):
+    """No wide backward instance (K8b's registers dq kernel at Dh 256-896,
+    the shared dk/dv side, the core's wide dq side) takes local memory on
+    the card; K8b's dk/dv kernel at each width is the core's instance."""
+    flash = TF.kernel_attrs()
+    wide = {k: v for k, v in flash.items() if k[0].startswith("registers d") and k[1] > 128}
+    assert sorted({k[1] for k in wide}) == list(TF.WIDE_DIMS) and len(wide) == 12
+    core = {k: v for k, v in TA.kernel_attrs().items()
+            if k.startswith("backward registers") and "-" in k}
+    assert len(core) == 12
+    for dh in TF.WIDE_DIMS:
+        assert flash[("registers dk dv", dh)] == core[f"backward registers {dh - 112}-{dh} dk dv"]
+    for name, a in {**wide, **core}.items():
+        assert a["local_bytes"] == 0 and 0 < a["registers"] <= 255, name
 
 
 @pytest.mark.cuda

@@ -115,19 +115,20 @@ def test_kernel_attrs_name_every_instance(library):
     """``kernel_attrs`` reads one (registers, local bytes) pair per name: the
     seven resident and streamed kernels, then each registers instance of the
     forward (three a width) and of the backward (five a width), then the
-    forward's nine wide registers instances; K8's: the forward's two
-    designs, then each backward design's two kernels, then the forward's two
-    designs at the wide widths."""
+    forward's nine wide registers instances, then the backward's wide dq and
+    dk/dv sides (six each); K8's: the forward's two designs, then each
+    backward design's two kernels, then the same at the wide widths."""
     attrs = TA.kernel_attrs()
     assert list(attrs) == list(TA.CORE_KERNELS)
-    assert len(TA.CORE_KERNELS) == 7 + (3 + 5) * len(TA.REGISTERS_WIDTHS) + 9
+    assert len(TA.CORE_KERNELS) == 7 + (3 + 5) * len(TA.REGISTERS_WIDTHS) + 9 + 2 * 6
     assert TA.REGISTERS_WIDTHS == (16, 32, 48, 64, 80, 96, 112, 128)
     assert library.calls[0][0] == "ddm_attention_kernel_attrs"
     flash = TF.kernel_attrs()
-    assert list(flash) == [(d, dh) for d in ("registers", "tiles") for dh in (32, 64, 128)] + [
-        (f"{d} {side}", dh) for d in ("registers", "tiles") for side in ("dq", "dk dv")
-        for dh in (32, 64, 128)] + [(d, dh) for d in ("registers", "tiles")
-                                    for dh in (256, 384, 512, 640, 768, 896)]
+    fwd = lambda dims: [(d, dh) for d in ("registers", "tiles") for dh in dims]  # noqa: E731
+    bwd = lambda dims: [(f"{d} {side}", dh) for d in ("registers", "tiles")  # noqa: E731
+                        for side in ("dq", "dk dv") for dh in dims]
+    wide = (256, 384, 512, 640, 768, 896)
+    assert list(flash) == fwd((32, 64, 128)) + bwd((32, 64, 128)) + fwd(wide) + bwd(wide)
     assert library.calls[1][0] == "ddm_flash_kernel_attrs"
 
 

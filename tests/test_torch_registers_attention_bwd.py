@@ -117,12 +117,14 @@ def test_core_bwd_refuses_an_unknown_design_before_launching(library, design):
 
 
 @pytest.mark.parametrize("design,code", [(None, -1), ("tiles", 0), ("registers", 1)])
-@pytest.mark.parametrize("Dh", TF.REGISTERS_DIMS)
+@pytest.mark.parametrize("Dh", TF.REGISTERS_DIMS + TF.WIDE_DIMS)
 def test_k8b_design_names_reach_the_library_as_its_codes(library, design, code, Dh):
     """``launch_k8b(design=)`` passes ``ddm_flash_bwd`` the code of each
-    name of BWD_DESIGNS (argument 14), and counts the launch."""
+    name of BWD_DESIGNS (argument 14), and counts the launch: at Dh 32-128
+    and at the wide widths, where "registers" is the wide registers design
+    and "tiles" the chunked kernels."""
     assert TF.BWD_DESIGNS == ("tiles", "registers")
-    H, N = 256 // Dh, 1024
+    H, N = max(1, 256 // Dh), 1024
     q, k, v = _qkv(1, N, H * Dh)
     o = do = torch.zeros(1, N, H * Dh, dtype=torch.bfloat16)
     lse = torch.zeros(1, H, N)
