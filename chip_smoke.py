@@ -586,9 +586,17 @@ MIXTRAL_BATCH, MIXTRAL_STEPS = 64, 2  # 72 x m 8 runs out of the card's 80 GB
 MOE_Q_SHAPES = ((256, 384, (2,)), (512, 384, (2,)), (8, 4224, (2,)), (8, 6144, (2,)),
                 (8, 8192, (2,)))
 # roofline: the published H100 SXM peaks (bf16 tensor cores, fp32 outside
-# them) and the HBM rate; a bound is the larger of bytes / HBM and ops / peak
+# them) and the HBM rate; a bound is the larger of bytes / HBM, ops / peak
+# and, for attention, one exponential a score over the special-function
+# units' ex2 rate: EX2_PER_CLOCK a clock on each SM, at the card's SM count
+# and its maximum SM clock (nvidia-smi clocks.max.sm), which phase_device
+# reads. That term is the floor of the special-function units alone: the
+# FMA pipe can evaluate exp2 too (a polynomial, as FlashAttention-4 does),
+# so a kernel that shares its exponentials out could go below it
 PEAK = {"bf16": 989e12, "fp32": 67e12}
 HBM = 3.35e12
+EX2_PER_CLOCK = 16
+EXP_RATE = None  # exponentials a second, set by phase_device
 # 3s: the DiT tail's (path, T, D) on the trainers, timed, K = p*p*C = 48 on
 # every one: DiT-S/4 training (the kernels line's entry) and sampling, the
 # wide paths' training rows (256 x m 8 images of 64 tokens) at D 768-1536,
@@ -638,14 +646,19 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def _bound(nbytes: float, flops: float, kind: str = "bf16") -> dict:
+def _bound(nbytes: float, flops: float, kind: str = "bf16", exps: float = 0) -> dict:
     """The least time the card could take: each input read and each output
-    written once at the HBM rate, or the operations at the peak rate for
-    their type, whichever is longer; with the bytes and operations counted."""
-    t_bytes, t_ops = nbytes / HBM, flops / PEAK[kind]
-    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bound_bytes": int(nbytes), "bound_ops": int(flops), "bound_ops_type": kind}
+    written once at the HBM rate, the operations at the peak rate for their
+    type, or the exponentials at the special-function units' ex2 rate
+    (EXP_RATE), whichever is longest; with the bytes, operations and
+    exponentials counted."""
+    times = {"bytes": nbytes / HBM, "operations": flops / PEAK[kind]}
+    if exps:
+        times["exponentials"] = exps / EXP_RATE
+    by = max(times, key=times.get)
+    return {"bound_ms": 1e3 * times[by], "bound_by": by, "bound_bytes": int(nbytes),
+            "bound_ops": int(flops), "bound_ops_type": kind,
+            **({"bound_exps": int(exps)} if exps else {})}
 
 
 def _head_launches(embed_dim: int, sample: bool = False) -> dict:
@@ -664,16 +677,26 @@ def _rel_frob(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def phase_device():
+    global EXP_RATE
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this script needs an NVIDIA GPU")
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+
+    def query(fields):
+        return subprocess.run(
+            ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60,
+        ).stdout.strip().splitlines()[0]
+
+    smi = query("name,power.limit")
+    clock = query("clocks.max.sm")  # e.g. "1980 MHz"
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    EXP_RATE = EX2_PER_CLOCK * sms * float(clock.split()[0]) * 1e6
     print(f"[device] {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(smi)
+    print(f"[device] max SM clock {clock}, {sms} SMs: the special-function units' ex2 rate "
+          f"{EXP_RATE:.4g} a second ({EX2_PER_CLOCK} a clock an SM) beside {smi}")
     return name, smi
 
 
@@ -988,14 +1011,17 @@ def _sdpa_backend_ms(q, k, v, do, H):
     return "none", None
 
 
-def _k8_case(FL, smi, gen, B, N, H, Dh, library=False, plain_reps=20):
+def _k8_case(FL, smi, gen, B, N, H, Dh, library=False, plain_reps=20, turns=False):
     """K8f and K8b at (B, N) over H heads of width Dh, q, k and v read in
     place from a [q | k | v] buffer, against their plain versions: o, dq, dk,
     dv by the bf16 rule, lse to LSE_RTOL, K8b's second call bit-identical;
     timed (the plain versions, which loop over heads, over ``plain_reps``
     calls), with bounds and (``library``) SDPA's times on the same q, k, v
     (``library="backend"``: through its first fused backend that takes
-    Dh, named, or none)."""
+    Dh, named, or none). ``turns``: the picks (the registers designs) also
+    timed in turns with the tiles design forced (tiles, registers,
+    registers, tiles), whose o, lse, dq, dk and dv are held to the picks'
+    by the same rules."""
     D = H * Dh
     qkv = torch.randn(B, N, 3 * D, generator=gen, device="cuda").to(torch.bfloat16)
     q, k, v = qkv.split(D, dim=-1)  # read in place, row stride 3D
@@ -1019,7 +1045,31 @@ def _k8_case(FL, smi, gen, B, N, H, Dh, library=False, plain_reps=20):
         key = "K8f" if label == "o" else "K8b"
         worst[key] = max(worst[key], max_err)
         parts.append(f"{label} max {max_err:.4g} (tol {tol:.4g}) mean {mean_err:.3g}")
-    del grads, again, want, want_o, want_lse
+    del again, want, want_o, want_lse
+    if turns:
+        scale = Dh ** -0.5
+        with torch.no_grad():
+            t_o, t_lse = FL.launch_k8f(q, k, v, H, scale, "tiles")
+            t_grads = FL.launch_k8b(q, k, v, o, lse, do, H, scale, "tiles").split(D, dim=-1)
+            fwd_fns = {d: (lambda d=d: FL.launch_k8f(q, k, v, H, scale, d)) for d in FL.FWD_DESIGNS}
+            bwd_fns = {d: (lambda d=d: FL.launch_k8b(q, k, v, o, lse, do, H, scale, d))
+                       for d in FL.BWD_DESIGNS}
+            in_turns = {"K8f": _in_turns(fwd_fns, ("tiles", "registers")),
+                        "K8b": _in_turns(bwd_fns, ("tiles", "registers"))}
+        agree = [_bf16_errors(g, w) for g, w in zip((o, *grads), (t_o, *t_grads))]
+        lse_agree = float(((lse - t_lse).abs() / t_lse.abs()).max())
+        print(f"[kernel] K8 (B={B}, N={N}, H={H}, Dh={Dh}) against the tiles design forced: "
+              + ", ".join(f"{n} max {a[0]:.4g} (tol {a[2]:.4g})"
+                          for n, a in zip(("o", "dq", "dk", "dv"), agree))
+              + f", lse {lse_agree:.3g}; in turns " + "; ".join(
+                  f"{k} tiles {t['tiles'][0]:.4f}, registers {t['registers'][0]:.4f}, "
+                  f"{t['registers'][1]:.4f}, tiles {t['tiles'][1]:.4f} ms"
+                  for k, t in in_turns.items()) + f" (median of 20) on {smi}")
+        if not (all(a[3] for a in agree) and lse_agree <= LSE_RTOL):
+            raise AssertionError(f"K8's registers design at (B={B}, N={N}, Dh={Dh}) disagrees "
+                                 "with the tiles design")
+        del t_o, t_lse, t_grads
+    del grads
     times = {"fwd": _median_ms(lambda: FL.flash_attention_fwd(q, k, v, H)),
              "plain_fwd": _median_ms(lambda: FL.flash_attention_reference(q, k, v, H),
                                      reps=plain_reps),
@@ -1035,13 +1085,12 @@ def _k8_case(FL, smi, gen, B, N, H, Dh, library=False, plain_reps=20):
     if not ok:
         raise AssertionError(f"K8 disagrees with its plain version at (B={B}, N={N}, Dh={Dh})")
     core = 2 * B * H * N * N * Dh  # one (N x N x Dh) product per image and head
-    exps = B * H * N * N  # one exp per score, each way (the backward replays p from lse)
+    exps = B * H * N * N  # one exp a score: what the function needs, each way
     case = {"B": B, "N": N, "H": H, "Dh": Dh, **times, "max_f": worst["K8f"],
-            "max_b": worst["K8b"],
-            "bound_f": {**_bound(_nbytes(qkv, o, lse), 2 * core), "bound_exps": exps},
+            "max_b": worst["K8b"], **({"turns": in_turns} if turns else {}),
+            "bound_f": _bound(_nbytes(qkv, o, lse), 2 * core, exps=exps),
             # the least backward: S, dV, dP, dQ and dK
-            "bound_b": {**_bound(_nbytes(qkv, o, lse, do) + _nbytes(qkv), 5 * core),
-                        "bound_exps": exps}}
+            "bound_b": _bound(_nbytes(qkv, o, lse, do) + _nbytes(qkv), 5 * core, exps=exps)}
     if library == "backend":
         backend, lib = _sdpa_backend_ms(q, k, v, do, H)
         case["library_f"], case["library_b"] = (lib["K8f"], lib["K8b"]) if lib else (None, None)
@@ -1065,7 +1114,11 @@ def _k8_case(FL, smi, gen, B, N, H, Dh, library=False, plain_reps=20):
 
 def _k8_shape(case, name):
     f = name == "K8f"
+    turns = case["turns"][name] if "turns" in case else None
     return {"B": case["B"], "N": case["N"], "H": case["H"], "Dh": case["Dh"],
+            **({"design": "registers", "registers_turns_ms": turns["registers"],
+                "parent_design": "tiles", "parent_ms": float(np.mean(turns["tiles"])),
+                "parent_turns_ms": turns["tiles"]} if turns else {}),
             "max_abs_err": case["max_f" if f else "max_b"],
             "ms": case["fwd" if f else "bwd"], "plain_ms": case["plain_fwd" if f else "plain_bwd"],
             **case["bound_f" if f else "bound_b"],
@@ -1098,15 +1151,27 @@ def phase_flash(FL, smi):
 def phase_flash_widths(FL, smi):
     """3o: K8f and K8b at every head width the JAX gate admits beyond 32,
     64 and 128 (FLASH_WIDTHS), each against its plain versions, timed, with
-    its bound (and exp count) and SDPA's fused backend beside it. Returns
-    ``{"K8f": [...], "K8b": [...]}``."""
+    its bound (and exp count) and SDPA's fused backend beside it; at the
+    narrow widths (Dh 4, 8, 16) the picks, the narrow registers designs,
+    also in turns with the tiles design forced, and the narrow instances'
+    registers and local bytes (none allowed in a registers instance).
+    Returns ``{"K8f": [...], "K8b": [...]}``."""
     gen = torch.Generator(device="cuda").manual_seed(12)
+    narrow = {k[0]: a for k, a in FL.kernel_attrs().items() if k[1] == FL.NARROW_DIMS[-1]}
+    print(f"[kernel] K8's instances at Dh 4, 8, 16 (one each on 16-column tiles), registers and "
+          f"local (spill) bytes a thread: {narrow}")
+    _spill_free("K8", "at Dh 4-16", {n: a for n, a in narrow.items() if n.startswith("registers")})
     out = {"K8f": [], "K8b": []}
     for B, N, H, Dh in FLASH_WIDTHS:
         case = _k8_case(FL, smi, gen, B, N, H, Dh, library="backend",
-                        plain_reps=FEW_REPS if H > FEW_REPS_HEADS else 20)
+                        plain_reps=FEW_REPS if H > FEW_REPS_HEADS else 20,
+                        turns=Dh in FL.NARROW_DIMS)
         for name in out:
-            out[name].append({"path": f"dh{Dh}", **_k8_shape(case, name)})
+            out[name].append({"path": f"dh{Dh}", **_k8_shape(case, name),
+                              **({"instances": {n: a for n, a in narrow.items()
+                                                if (n in ("registers", "tiles")) == (
+                                                    name == "K8f")}}
+                                 if Dh in FL.NARROW_DIMS else {})})
     widths = sorted({Dh for *_, Dh in FLASH_WIDTHS} | {32, 64, 128})
     if widths != sorted(FL.HEAD_DIMS):
         raise AssertionError(f"3o and 3d/3j checked K8 at Dh {widths}, not at every width the "
@@ -3550,7 +3615,7 @@ def phase_registers_kernels(A, FL, smi):
             plain_ms = _median_ms(lambda: FL.flash_attention_reference(q, k, v, H), reps=5)
         sdpa = _sdpa_ms(q, k, v, torch.zeros_like(q), H)["K8f"]
         inst = fattrs[("registers", Dh)]
-        bound = _bound(_nbytes(qkv, o, lse), 4 * B * H * N * N * Dh)
+        bound = _bound(_nbytes(qkv, o, lse), 4 * B * H * N * N * Dh, exps=B * H * N * N)
         print(f"[kernel] K8f registers design {shape} ({inst['registers']} registers, "
               f"{inst['local_bytes']} B local): o max_abs_err={max_err:.6g} (tol {tol:.6g}), "
               f"mean_abs_err={mean_err:.6g}; lse max rel err {lse_rel:.3g} (tol {LSE_RTOL:g}); "
@@ -3608,7 +3673,7 @@ def _regs_bwd_instances(attrs, design, Dh, att):
 
 def _spill_free(name, shape, inst):
     if any(a["local_bytes"] for a in inst.values()):
-        raise AssertionError(f"{name}'s registers backward {shape} spills: {inst}")
+        raise AssertionError(f"{name}'s registers design {shape} spills: {inst}")
 
 
 def phase_registers_bwd_kernels(A, FL, smi):
@@ -3721,7 +3786,8 @@ def phase_registers_bwd_kernels(A, FL, smi):
         sdpa = _sdpa_ms(q, k, v, do, H)["K8b"]
         sdpa_bwd = _sdpa_bwd_ms(q, k, v, do, H)
         inst = {side: fattrs[(f"registers {side}", Dh)] for side in ("dq", "dk dv")}
-        bound = _bound(_nbytes(qkv, o, lse, do, got), 5 * 2 * B * H * N * N * Dh)
+        bound = _bound(_nbytes(qkv, o, lse, do, got), 5 * 2 * B * H * N * N * Dh,
+                       exps=B * H * N * N)
         print(f"[kernel] K8b registers design {shape} ({inst}): {text}; against the tiles design "
               f"{agree[1]}; second call bit-identical; in turns tiles {ms['tiles'][0]:.4f}, "
               f"registers {ms['registers'][0]:.4f}, {ms['registers'][1]:.4f}, tiles "
@@ -3813,7 +3879,7 @@ def phase_wide_registers_kernels(A, FL, smi):
         backend, lib = _sdpa_backend_ms(q, k, v, do, H)
         sdpa = lib["K8f"] if lib else None
         inst = {d: fattrs[(d, Dh)] for d in ("registers", "tiles")}
-        bound = _bound(_nbytes(qkv, o, lse), 4 * B * H * N * N * Dh)
+        bound = _bound(_nbytes(qkv, o, lse), 4 * B * H * N * N * Dh, exps=B * H * N * N)
         print(f"[kernel] K8f wide registers design {shape} ({inst}): o max_abs_err={max_err:.6g} "
               f"(tol {tol:.6g}), mean_abs_err={mean_err:.6g}; lse max rel err {lse_rel:.3g} (tol "
               f"{LSE_RTOL:g}); against the tiles design o max {agree[0]:.6g} (tol "
@@ -3943,7 +4009,8 @@ def phase_wide_registers_bwd_kernels(A, FL, smi):
         sdpa_bwd = _sdpa_bwd_ms(q, k, v, do, H)
         inst = {f"{d} {side}": fattrs[(f"{d} {side}", Dh)]
                 for d in ("registers", "tiles") for side in ("dq", "dk dv")}
-        bound = _bound(_nbytes(qkv, o, lse, do, got), 5 * 2 * B * H * N * N * Dh)
+        bound = _bound(_nbytes(qkv, o, lse, do, got), 5 * 2 * B * H * N * N * Dh,
+                       exps=B * H * N * N)
         print(f"[kernel] K8b wide registers design {shape} ({inst}): {text}; against the tiles "
               f"design {agree[1]}; second call bit-identical; in turns tiles {ms['tiles'][0]:.4f}, "
               f"registers {ms['registers'][0]:.4f}, {ms['registers'][1]:.4f}, tiles "

@@ -1,8 +1,9 @@
 // The registers designs of the two attention backwards (sm_90a): the core's
 // (csrc/attention.cu: K2b's, K4's and K7b's, padded head widths 16-128) and
-// K8b's (csrc/flash.cu, Dh 32, 64, 128). One dq side and one dk/dv side
-// serve both; they differ only in where each query row's softmax terms come
-// from. Past those widths (padded 144-896, K8b's Dh 256-896) the wide
+// K8b's (csrc/flash.cu, Dh 32, 64, 128, and Dh 4, 8, 16 at padded width 16,
+// copied in 8-byte pieces). One dq side and one dk/dv side serve both;
+// they differ only in where each query row's softmax terms come from. Past
+// those widths (padded 144-896, K8b's Dh 256-896) the wide
 // backwards at the end of this file split each tile's columns over warps.
 //
 // The earlier designs keep S, P, dP and dS in shared memory as WMMA tiles,
@@ -161,7 +162,8 @@ __device__ __forceinline__ void pack_tile(uint32_t (&pa)[NJ / 2][4], const float
 
 // Rows g and g + 8 of a warp's fp32 accumulators o (NC columns from the
 // row pointer dst) rounded to bf16 as 4-byte pairs into rows of stride ld;
-// rows at or past `rows` and columns at or past `cols` are not written.
+// rows at or past `rows` and columns at or past `cols` (even) are not
+// written.
 template <int NC>
 __device__ __forceinline__ void store_acc(bf16* __restrict__ dst, size_t ld,
                                           const float (&o)[NC / 8][4], int r, int rows, int cols,
@@ -171,6 +173,7 @@ __device__ __forceinline__ void store_acc(bf16* __restrict__ dst, size_t ld,
   for (int j = 0; j < NC / 8; ++j) {
     if (j * 8 >= cols) break;
     const int c = j * 8 + 2 * t;
+    if (c >= cols) continue;
     if (r + g < rows)
       *reinterpret_cast<uint32_t*>(dst + (size_t)(r + g) * ld + c) = pack_bf16(o[j][0], o[j][1]);
     if (r + g + 8 < rows)
@@ -195,11 +198,13 @@ constexpr size_t bwd_dq_smem() {
 // The dq side (see the header): rows [r0, r0 + 16 WARPS) of one head, key
 // tiles of TW (64, or 32 where the accumulators leave no registers for 64);
 // q, k and v at the head's row 0 (row stride ld), dO likewise (ldo), dq and
-// att at their row 0 (ldq, lda). SWEEP: the core's two sweeps, (m, l,
+// att at their row 0 (ldq, lda), copied in PIECE-byte pieces
+// (load_tile_async). SWEEP: the core's two sweeps, (m, l,
 // dsum) of each row < N to stats (the head's row 0, 3 floats a row); else
 // rows(r, lane, dOs, sld, terms) gives the terms of the warp's rows from r
-// (its dO rows in shared memory at dOs, row stride sld).
-template <int DP, int WARPS, int TW, bool SWEEP, bool ATT, class Rows>
+// (its dO rows in shared memory at dOs, row stride sld), whose factor b is
+// 1 (K8b's lse), so p is the exponential alone.
+template <int DP, int WARPS, int TW, bool SWEEP, bool ATT, class Rows, int PIECE = 16>
 __device__ __forceinline__ void bwd_dq_body(unsigned char* smem, const bf16* __restrict__ q,
                                             const bf16* __restrict__ k,
                                             const bf16* __restrict__ v, int ld,
@@ -222,12 +227,12 @@ __device__ __forceinline__ void bwd_dq_body(unsigned char* smem, const bf16* __r
   // copy runs while job j - 1 computes, into the stage job j - 2 read
   auto issue = [&](int j) {
     const int i = j < nt ? j : j - nt, st = j & 1;
-    load_tile_async<TW, DP, kThr>(Ks + st * kT, k, ld, i * TW, N, Dh);
-    load_tile_async<TW, DP, kThr>(Vs + st * kT, v, ld, i * TW, N, Dh);
+    load_tile_async<TW, DP, kThr, PIECE>(Ks + st * kT, k, ld, i * TW, N, Dh);
+    load_tile_async<TW, DP, kThr, PIECE>(Vs + st * kT, v, ld, i * TW, N, Dh);
     cp_async_commit();
   };
-  load_tile_async<kRows, DP, kThr>(Qs, q, ld, r0, N, Dh);
-  load_tile_async<kRows, DP, kThr>(dOs, dO, ldo, r0, N, Dh);
+  load_tile_async<kRows, DP, kThr, PIECE>(Qs, q, ld, r0, N, Dh);
+  load_tile_async<kRows, DP, kThr, PIECE>(dOs, dO, ldo, r0, N, Dh);
   issue(0);
 
   ARows<DP, kLd, kHold> qa, da;
@@ -293,8 +298,10 @@ __device__ __forceinline__ void bwd_dq_body(unsigned char* smem, const bf16* __r
 #pragma unroll
     for (int c = 0; c < NJ; ++c)
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s[c][e] = exp2_approx(s[c][e] * scale2 - w.a[e / 2]) * w.b[e / 2];
+      for (int e = 0; e < 4; ++e) {
+        s[c][e] = exp2_approx(s[c][e] * scale2 - w.a[e / 2]);
+        if constexpr (SWEEP) s[c][e] *= w.b[e / 2];
+      }
     uint32_t pa[NJ / 2][4];
     if constexpr (ATT) {
       pack_tile(pa, s);
@@ -323,8 +330,9 @@ constexpr size_t bwd_dkv_smem() {
 // The dk/dv side (see the header): keys [c0, c0 + 16 WARPS) of one head,
 // query tiles of TW; q, k, v and dO as bwd_dq_body's, dk and dv at the
 // head's row 0 (row stride ldg); cols(c, a, b, dsum) gives query c's terms
-// ((0, 0, 0) past N).
-template <int DP, int WARPS, int TW, class Cols>
+// ((0, 0, 0) past N). UNIT_B: every b is 1 (K8b's lse), so p is the
+// exponential alone.
+template <int DP, int WARPS, int TW, class Cols, int PIECE = 16, bool UNIT_B = false>
 __device__ __forceinline__ void bwd_dkv_body(unsigned char* smem, const bf16* __restrict__ q,
                                              const bf16* __restrict__ k,
                                              const bf16* __restrict__ v, int ld,
@@ -350,8 +358,8 @@ __device__ __forceinline__ void bwd_dkv_body(unsigned char* smem, const bf16* __
   float ta = 0.f, tb = 0.f, td = 0.f;
   auto issue = [&](int j) {
     const int st = j & 1;
-    load_tile_async<TW, DP, kThr>(Qs + st * kT, q, ld, j * TW, N, Dh);
-    load_tile_async<TW, DP, kThr>(dOs + st * kT, dO, ldo, j * TW, N, Dh);
+    load_tile_async<TW, DP, kThr, PIECE>(Qs + st * kT, q, ld, j * TW, N, Dh);
+    load_tile_async<TW, DP, kThr, PIECE>(dOs + st * kT, dO, ldo, j * TW, N, Dh);
     cp_async_commit();
     if (threadIdx.x < TW) cols(j * TW + threadIdx.x, ta, tb, td);
   };
@@ -363,8 +371,8 @@ __device__ __forceinline__ void bwd_dkv_body(unsigned char* smem, const bf16* __
       d[2 * TW] = td;
     }
   };
-  load_tile_async<kRows, DP, kThr>(Ks, k, ld, c0, N, Dh);
-  load_tile_async<kRows, DP, kThr>(Vs, v, ld, c0, N, Dh);
+  load_tile_async<kRows, DP, kThr, PIECE>(Ks, k, ld, c0, N, Dh);
+  load_tile_async<kRows, DP, kThr, PIECE>(Vs, v, ld, c0, N, Dh);
   issue(0);
   keep_terms(0);
 
@@ -389,11 +397,17 @@ __device__ __forceinline__ void bwd_dkv_body(unsigned char* smem, const bf16* __
 #pragma unroll
     for (int c = 0; c < NJ; ++c) {
       const float2 a = *reinterpret_cast<const float2*>(ca + 8 * c + 2 * t);
-      const float2 b = *reinterpret_cast<const float2*>(ca + TW + 8 * c + 2 * t);
-      s[c][0] = exp2_approx(s[c][0] * scale2 - a.x) * b.x;
-      s[c][1] = exp2_approx(s[c][1] * scale2 - a.y) * b.y;
-      s[c][2] = exp2_approx(s[c][2] * scale2 - a.x) * b.x;
-      s[c][3] = exp2_approx(s[c][3] * scale2 - a.y) * b.y;
+      s[c][0] = exp2_approx(s[c][0] * scale2 - a.x);
+      s[c][1] = exp2_approx(s[c][1] * scale2 - a.y);
+      s[c][2] = exp2_approx(s[c][2] * scale2 - a.x);
+      s[c][3] = exp2_approx(s[c][3] * scale2 - a.y);
+      if constexpr (!UNIT_B) {
+        const float2 b = *reinterpret_cast<const float2*>(ca + TW + 8 * c + 2 * t);
+        s[c][0] *= b.x;
+        s[c][1] *= b.y;
+        s[c][2] *= b.x;
+        s[c][3] *= b.y;
+      }
     }
     uint32_t pa[NJ / 2][4];
     pack_tile(pa, s);

@@ -18,11 +18,14 @@
 //   output fragments of a 64 x Dh product in registers. At Dh = 64 every
 //   product, sum and rounding runs in the order it ran before Dh was a
 //   parameter, and Dh 32 and 128 keep their bits too.
-// - Dh = 4, 8, 16 (kNarrow): one instance whose tiles are 16 columns wide,
-//   WMMA's depth. The loads zero-fill columns dh..15 (zero columns add exact
-//   zeros to every product), the stores write dh columns, and the scale is
-//   the caller's (dh^-0.5). The loads move 8 bytes (4 columns) at a time: a
-//   Dh-4 head starts on an 8-byte boundary only.
+// - Dh = 4, 8, 16 (kNarrow): one instance of each kernel whose tiles are 16
+//   columns wide, the depth of one WMMA or mma.sync step. The loads
+//   zero-fill columns dh..15 (zero columns add exact zeros to every
+//   product), the stores write dh columns, and the scale is the caller's
+//   (dh^-0.5). The loads move 8 bytes (4 columns) at a time: a Dh-4 head
+//   starts on an 8-byte boundary only. The registers designs (the
+//   launchers' picks) are instanced there at width 16 too, with 8-byte
+//   cp.async pieces (copy_piece).
 // - Dh = 256 ... 896 (wide): a 64 x Dh tile of q, k or v alone is 33-115 KB
 //   and one warp's register fragments of a 16 x Dh output would not fit. The
 //   wide kernels walk Dh in 128-column chunks (kChunk): S = Q K^T and dP =
@@ -44,6 +47,7 @@
 //
 //   Dh      forward            dq                 dk/dv
 //   4-16    41,472             56,832             66,048      (16-wide tiles)
+//   4-16    18,432             18,432             19,968      (registers)
 //   32      51,712             65,024             74,240
 //   64      72,192             81,408             90,624
 //   128     113,152            130,560            156,160
@@ -73,7 +77,13 @@
 // synchronously into shared memory, no wgmma, TMA or copy pipeline yet.
 // At Dh <= 16 the N^2 exponentials per (image, head) do not shrink with Dh,
 // so the special-function units (~1/256 of the bf16 matmul rate) set the
-// least time, not the tensor cores.
+// least time, not the tensor cores: a 16-row x 8-key score fragment is one
+// m16n8k16 of Q K^T and half of one of P V, 1/4 (Dh 16) to 1/16 (Dh 4) of
+// the tensor work a score costs at Dh 64, while its ex2 (16 a clock an SM)
+// stays. The registers designs there run at 64-key and 64-query tiles, two
+// row tiles a warp in the forward: on the H100, 128-key tiles, 3-4 stage
+// rings and four row tiles a warp were no faster (more registers a thread,
+// fewer warps an SM to hide the ex2 latency).
 //
 // Layouts: q, k and v are read in place from rows of stride `ld` (the
 // (B*N, 3D) [q | k | v] buffer of the qkv GEMM, or plain (B, N, D)
@@ -89,13 +99,13 @@
 // o = bf16(O / l) and lse = m + log(l). flash_fwd_wide_kernel does the same
 // on R-query tiles with Q, K and V staged by chunks.
 //
-// flash_fwd_regs_kernel, the forward at Dh 32, 64 and 128 (the "registers"
-// design, the launcher's own pick there, as flash_fwd_wide_regs_kernel is
-// at Dh 256-896; flash_fwd_kernel, the "tiles" design, stays at Dh 4-16 and
-// where forced): flash_fwd_kernel stores S and
-// O to shared memory as WMMA tiles, runs the softmax and O's rescale as
-// scalar loops, and copies every tile synchronously behind four barriers a
-// key tile, so a block of 113 KB at Dh 128 runs alone on its SM. Here the
+// flash_fwd_regs_kernel, the forward at Dh 4-128 (the "registers" design,
+// the launcher's own pick there, as flash_fwd_wide_regs_kernel is at Dh
+// 256-896; flash_fwd_kernel, the "tiles" design, stays where forced):
+// flash_fwd_kernel stores S and O to shared memory as WMMA tiles, runs the
+// softmax and O's rescale as scalar loops, and copies every tile
+// synchronously behind four barriers a key tile, so a block of 113 KB at Dh
+// 128 runs alone on its SM. Here the
 // same block (4 warps of 16 query rows) holds Q as mma.sync A fragments, S
 // and P, O (64 fp32 a lane at Dh 128) and each row's running m and l in
 // registers (mma_frag.cuh); K and V pass through a two-stage cp.async ring
@@ -106,9 +116,9 @@
 // added, o = bf16(O / l), lse = m + log(l)); the sums over a row's keys run
 // in fragment order, four lanes a row, and exp(s scale - m) is the card's
 // ex2 of s (scale log2 e) - m log2 e (mma_frag.cuh), a few fp32 units in the
-// last place from expf where bf16(p) keeps 8 bits. At Dh 32 a warp takes two
-// row tiles of 16 (128 query rows a block), each K and V fragment read from
-// shared memory serving both.
+// last place from expf where bf16(p) keeps 8 bits. At Dh 4-32 a warp takes
+// two row tiles of 16 (128 query rows a block), each K and V fragment read
+// from shared memory serving both.
 //
 // Backward, FlashAttention-2's split, with no atomics: each output element
 // is written by one block, in a fixed loop order, so a second call is
@@ -121,7 +131,7 @@
 // flash_bwd_dkv_kernel, one block per (k tile, head, image): over the q
 // tiles the same p and ds, dv += bf16(p)^T dO, dk += ds^T Q in register
 // fragments (wide tiles: in shared memory); dk and dv are rounded once. The
-// registers designs (K8b's pick at Dh 32-896) do the same on mma.sync
+// registers designs (K8b's pick at every width) do the same on mma.sync
 // fragments.
 #include "attention_bwd_regs.cuh"
 #include "common.cuh"
@@ -185,6 +195,10 @@ __device__ __forceinline__ int head_cols(int dh) {
   if constexpr (Dh == kNarrow) return dh;
   return Dh;
 }
+
+// The registers designs' cp.async piece (load_tile_async): 8 bytes at the
+// narrow width, where a Dh-4 head starts on an 8-byte boundary only, else 16.
+__host__ __device__ constexpr int copy_piece(int Dh) { return Dh == kNarrow ? 8 : 16; }
 
 // out (64 x 64 fp32) = A B^T for two 64 x Dh bf16 tiles, depth Dh.
 template <int Dh>
@@ -329,25 +343,27 @@ constexpr size_t regs_fwd_smem() {
 }
 
 // One block per (64 MT-query tile, head, image): 4 warps, each with MT row
-// tiles of 16 (each B fragment read from shared memory serves all MT).
+// tiles of 16 (each B fragment read from shared memory serves all MT). Dh
+// is the tiles' width; the head has dh of its columns (head_cols).
 template <int Dh, int MT>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_regs_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, int ld, bf16* __restrict__ o,
-                      float* __restrict__ lse, int N, int H, float scale) {
-  static_assert(Dh % 32 == 0 && Dh <= 128, "the registers design is built at Dh 32, 64, 128");
-  constexpr int kRows = kTile * MT, kLd = Dh + kPadH, kT = kTile * kLd;
+                      float* __restrict__ lse, int N, int H, int dh, float scale) {
+  static_assert(Dh == kNarrow || (Dh % 32 == 0 && Dh <= 128),
+                "the registers design is built at widths 16, 32, 64, 128");
+  constexpr int kRows = kTile * MT, kLd = Dh + kPadH, kT = kTile * kLd, kPiece = copy_piece(Dh);
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* Ks = Qs + kRows * kLd;  // two stages
   bf16* Vs = Ks + 2 * kT;       // two stages
   const int q0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int D = H * Dh, nt = N / kTile;
+  const int cols = head_cols<Dh>(dh), D = H * cols, nt = N / kTile;
   const size_t row0 = (size_t)b * N;
-  const bf16* qh = q + row0 * ld + h * Dh;
-  const bf16* kh = k + row0 * ld + h * Dh;
-  const bf16* vh = v + row0 * ld + h * Dh;
+  const bf16* qh = q + row0 * ld + h * cols;
+  const bf16* kh = k + row0 * ld + h * cols;
+  const bf16* vh = v + row0 * ld + h * cols;
   const float scale2 = scale * kLog2e;
   uint32_t qa[MT][Dh / 16][4];
   float acc[MT][Dh / 8][4];
@@ -365,11 +381,11 @@ flash_fwd_regs_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // read: every warp has passed tile j's barrier, so is done with it
   auto issue = [&](int j) {
     const int st = j & 1;
-    load_tile_async<kTile, Dh, kThreads>(Ks + st * kT, kh, ld, j * kTile, N, Dh);
-    load_tile_async<kTile, Dh, kThreads>(Vs + st * kT, vh, ld, j * kTile, N, Dh);
+    load_tile_async<kTile, Dh, kThreads, kPiece>(Ks + st * kT, kh, ld, j * kTile, N, cols);
+    load_tile_async<kTile, Dh, kThreads, kPiece>(Vs + st * kT, vh, ld, j * kTile, N, cols);
     cp_async_commit();
   };
-  load_tile_async<kRows, Dh, kThreads>(Qs, qh, ld, q0, N, Dh);
+  load_tile_async<kRows, Dh, kThreads, kPiece>(Qs, qh, ld, q0, N, cols);
   issue(0);
   for (int j = 0; j < nt; ++j) {
     cp_async_wait<0>();
@@ -420,7 +436,8 @@ flash_fwd_regs_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
     const int r = q0 + (warp * MT + mt) * 16;
-    store_rows_bf16<Dh>(o + row0 * D + h * Dh, D, acc[mt], l[mt][0], l[mt][1], r, N, Dh, lane);
+    store_rows_bf16<Dh>(o + row0 * D + h * cols, D, acc[mt], l[mt][0], l[mt][1], r, N, cols,
+                        lane);
     if (lane % 4 == 0) {
       float* dst = lse + ((size_t)b * H + h) * N + r + g;
       if (r + g < N) dst[0] = m[mt][0] + logf(l[mt][0]);
@@ -613,11 +630,11 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_tile<Dh>(out + 2 * D, 3 * D, dP, dh);
 }
 
-// K8b's registers design at Dh 32, 64, 128 (attention_bwd_regs.cuh): a dq
-// block of 64 query rows and a dk/dv block of 64 key rows, as the tiles
-// design's, with p = exp(s scale - lse) from the forward's lse. The dq side
-// takes 64-key tiles; the dk/dv side 32-query tiles at Dh 128, where dk and
-// dv take 128 of a thread's registers.
+// K8b's registers design at Dh 4-128 (attention_bwd_regs.cuh, at width 16
+// for Dh 4, 8 and 16): a dq block of 64 query rows and a dk/dv block of 64
+// key rows, as the tiles design's, with p = exp(s scale - lse) from the
+// forward's lse. The dq side takes 64-key tiles; the dk/dv side 32-query
+// tiles at Dh 128, where dk and dv take 128 of a thread's registers.
 __host__ __device__ constexpr int flash_dkv_tile(int Dh) { return Dh <= 64 ? kBwdTile : 32; }
 //
 // The dq side's row terms: lse, and dsum = rowsum(fp32(do) fp32(o)) of the
@@ -629,12 +646,13 @@ struct FlashRows {
   int ld;
   const float* lse;  // the head's row 0
   float* dsum;
+  int dh;  // the head's columns (head_cols)
   __device__ __forceinline__ void operator()(int r, int lane, const bf16* dOs, int sld,
                                              RowTerms& w) const {
     const int g = lane / 4;
 #pragma unroll 1
     for (int i = 0; i < 16; ++i) {
-      const float d = row_dot<Dh>(dOs + i * sld, o + (size_t)(r + i) * ld, lane);
+      const float d = row_dot<Dh>(dOs + i * sld, o + (size_t)(r + i) * ld, lane, dh);
       if (i == g) w.dsum[0] = d;
       if (i == g + 8) w.dsum[1] = d;
       if (lane == 0) dsum[r + i] = d;
@@ -652,16 +670,16 @@ __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_regs_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, int ld, const bf16* __restrict__ o,
                          const bf16* __restrict__ dout, const float* __restrict__ lse,
-                         float* __restrict__ dsum, bf16* __restrict__ dqkv, int N, int H,
+                         float* __restrict__ dsum, bf16* __restrict__ dqkv, int N, int H, int dh,
                          float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int h = blockIdx.y, b = blockIdx.z, D = H * Dh;
+  const int h = blockIdx.y, b = blockIdx.z, cols = head_cols<Dh>(dh), D = H * cols;
   const size_t row0 = (size_t)b * N, stat0 = ((size_t)b * H + h) * N;
-  bwd_dq_body<Dh, kWarps, kBwdTile, false, false>(
-      smem, q + row0 * ld + h * Dh, k + row0 * ld + h * Dh, v + row0 * ld + h * Dh, ld,
-      dout + row0 * D + h * Dh, D, dqkv + row0 * 3 * D + h * Dh, 3 * D, nullptr, 0, nullptr, N,
-      Dh, scale, blockIdx.x * kTile,
-      FlashRows<Dh>{o + row0 * D + h * Dh, D, lse + stat0, dsum + stat0});
+  bwd_dq_body<Dh, kWarps, kBwdTile, false, false, FlashRows<Dh>, copy_piece(Dh)>(
+      smem, q + row0 * ld + h * cols, k + row0 * ld + h * cols, v + row0 * ld + h * cols, ld,
+      dout + row0 * D + h * cols, D, dqkv + row0 * 3 * D + h * cols, 3 * D, nullptr, 0, nullptr,
+      N, cols, scale, blockIdx.x * kTile,
+      FlashRows<Dh>{o + row0 * D + h * cols, D, lse + stat0, dsum + stat0, cols});
 }
 
 // The dk/dv side's query terms: (lse log2 e, 1, dsum).
@@ -680,15 +698,15 @@ __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_regs_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, int ld, const bf16* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ dsum,
-                          bf16* __restrict__ dqkv, int N, int H, float scale) {
+                          bf16* __restrict__ dqkv, int N, int H, int dh, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int h = blockIdx.y, b = blockIdx.z, D = H * Dh;
+  const int h = blockIdx.y, b = blockIdx.z, cols = head_cols<Dh>(dh), D = H * cols;
   const size_t row0 = (size_t)b * N, stat0 = ((size_t)b * H + h) * N;
-  bf16* out = dqkv + row0 * 3 * D + h * Dh;
-  bwd_dkv_body<Dh, kWarps, flash_dkv_tile(Dh)>(
-      smem, q + row0 * ld + h * Dh, k + row0 * ld + h * Dh, v + row0 * ld + h * Dh, ld,
-      dout + row0 * D + h * Dh, D, out + D, out + 2 * D, 3 * D, N, Dh, scale, blockIdx.x * kTile,
-      FlashCols{lse + stat0, dsum + stat0});
+  bf16* out = dqkv + row0 * 3 * D + h * cols;
+  bwd_dkv_body<Dh, kWarps, flash_dkv_tile(Dh), FlashCols, copy_piece(Dh), true>(
+      smem, q + row0 * ld + h * cols, k + row0 * ld + h * cols, v + row0 * ld + h * cols, ld,
+      dout + row0 * D + h * cols, D, out + D, out + 2 * D, 3 * D, N, cols, scale,
+      blockIdx.x * kTile, FlashCols{lse + stat0, dsum + stat0});
 }
 
 // ---- wide heads: Dh = 256 ... 896, walked in 128-column chunks ----
@@ -1416,19 +1434,21 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// Two row tiles a warp (128 query rows a block) at Dh 32, where they measured
-// faster on the H100; one at Dh 64 (no faster with two) and 128 (two would
-// pass the register file).
+// Two row tiles a warp (128 query rows a block) at Dh 4-32, where they
+// measured faster on the H100; one at Dh 64 (no faster with two) and 128
+// (two would pass the register file).
 template <int Dh>
 cudaError_t launch_fwd_regs(const void* q, const void* k, const void* v, int ld, void* o,
-                            void* lse, int B, int N, int H, float scale, cudaStream_t stream) {
-  constexpr int MT = Dh == 32 ? 2 : 1;
+                            void* lse, int B, int N, int H, int dh, float scale,
+                            cudaStream_t stream) {
+  constexpr int MT = Dh <= 32 ? 2 : 1;
   constexpr size_t bytes = regs_fwd_smem<Dh, MT>();
   cudaError_t err = allow_smem(flash_fwd_regs_kernel<Dh, MT>, bytes);
   if (err != cudaSuccess) return err;
   flash_fwd_regs_kernel<Dh, MT><<<dim3((N + kTile * MT - 1) / (kTile * MT), H, B), kThreads,
                                   bytes, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, ld, (bf16*)o, (float*)lse, N, H, scale);
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, ld, (bf16*)o, (float*)lse, N, H, dh,
+      scale);
   return cudaGetLastError();
 }
 
@@ -1470,7 +1490,7 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, int ld, cons
 template <int Dh>
 cudaError_t launch_bwd_regs(const void* q, const void* k, const void* v, int ld, const void* o,
                             const void* dout, const void* lse, void* dsum, void* dqkv, int B,
-                            int N, int H, float scale, cudaStream_t stream) {
+                            int N, int H, int dh, float scale, cudaStream_t stream) {
   constexpr size_t dq_bytes = bwd_dq_smem<Dh, kWarps, kBwdTile>(),
                    dkv_bytes = bwd_dkv_smem<Dh, kWarps, flash_dkv_tile(Dh)>();
   cudaError_t err = allow_smem(flash_bwd_dq_regs_kernel<Dh>, dq_bytes);
@@ -1480,12 +1500,12 @@ cudaError_t launch_bwd_regs(const void* q, const void* k, const void* v, int ld,
   const dim3 grid(N / kTile, H, B);
   flash_bwd_dq_regs_kernel<Dh><<<grid, kThreads, dq_bytes, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, ld, (const bf16*)o, (const bf16*)dout,
-      (const float*)lse, (float*)dsum, (bf16*)dqkv, N, H, scale);
+      (const float*)lse, (float*)dsum, (bf16*)dqkv, N, H, dh, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   flash_bwd_dkv_regs_kernel<Dh><<<grid, kThreads, dkv_bytes, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, ld, (const bf16*)dout, (const float*)lse,
-      (const float*)dsum, (bf16*)dqkv, N, H, scale);
+      (const float*)dsum, (bf16*)dqkv, N, H, dh, scale);
   return cudaGetLastError();
 }
 
@@ -1569,9 +1589,9 @@ cudaError_t launch_bwd_wide(const void* q, const void* k, const void* v, int ld,
   X(256) X(384) X(512) X(640) X(768) X(896)
 
 // The forward's designs: 0 "tiles" (flash_fwd_kernel at Dh 4-128,
-// flash_fwd_wide_kernel at Dh 256-896), 1 "registers" (flash_fwd_regs_kernel
-// at Dh 32, 64, 128, flash_fwd_wide_regs_kernel at Dh 256-896); -1
-// registers where it takes Dh, tiles at Dh 4-16.
+// flash_fwd_wide_kernel at Dh 256-896), 1 "registers"
+// (flash_fwd_regs_kernel at Dh 4-128, flash_fwd_wide_regs_kernel at Dh
+// 256-896); -1 registers, the pick at every width.
 constexpr int kFwdTiles = 0, kFwdRegisters = 1;
 
 extern "C" int ddm_flash_fwd(const void* q, const void* k, const void* v, int ld, void* o,
@@ -1579,11 +1599,14 @@ extern "C" int ddm_flash_fwd(const void* q, const void* k, const void* v, int ld
                              void* stream) {
   using namespace ddm;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (design == kFwdRegisters || (design < 0 && Dh >= 32)) {
+  if (design == kFwdRegisters || design < 0) {
     switch (Dh) {
-      case 32: return (int)launch_fwd_regs<32>(q, k, v, ld, o, lse, B, N, H, scale, s);
-      case 64: return (int)launch_fwd_regs<64>(q, k, v, ld, o, lse, B, N, H, scale, s);
-      case 128: return (int)launch_fwd_regs<128>(q, k, v, ld, o, lse, B, N, H, scale, s);
+      case 4:
+      case 8:
+      case 16: return (int)launch_fwd_regs<kNarrow>(q, k, v, ld, o, lse, B, N, H, Dh, scale, s);
+      case 32: return (int)launch_fwd_regs<32>(q, k, v, ld, o, lse, B, N, H, Dh, scale, s);
+      case 64: return (int)launch_fwd_regs<64>(q, k, v, ld, o, lse, B, N, H, Dh, scale, s);
+      case 128: return (int)launch_fwd_regs<128>(q, k, v, ld, o, lse, B, N, H, Dh, scale, s);
 #define DDM_FWD_WIDE_REGS(W) \
       case W: return (int)launch_fwd_wide_regs<W>(q, k, v, ld, o, lse, B, N, H, scale, s);
       DDM_FLASH_WIDTHS(DDM_FWD_WIDE_REGS)
@@ -1591,7 +1614,7 @@ extern "C" int ddm_flash_fwd(const void* q, const void* k, const void* v, int ld
       default: return (int)cudaErrorInvalidValue;
     }
   }
-  if (design != kFwdTiles && design >= 0) return (int)cudaErrorInvalidValue;
+  if (design != kFwdTiles) return (int)cudaErrorInvalidValue;
   switch (Dh) {
     case 4:
     case 8:
@@ -1614,10 +1637,13 @@ extern "C" int ddm_flash_fwd(const void* q, const void* k, const void* v, int ld
 // its dk/dv kernels at Dh 32, 64, 128; then K8f's registers design at Dh
 // 256, 384, ..., 896 and its tiles design (the chunked kernel) there; then
 // K8b's at Dh 256, ..., 896 in the same order as at Dh 32-128 (its
-// registers dk/dv kernel is the attention core's wide dk/dv side).
+// registers dk/dv kernel is the attention core's wide dk/dv side); then the
+// the instance of each at the narrow widths (Dh 4, 8, 16 on 16-column
+// tiles) in the order of Dh 32-128: K8f's registers and tiles designs, K8b's
+// registers dq and dk/dv kernels, its tiles dq and dk/dv kernels.
 extern "C" int ddm_flash_kernel_attrs(int* attrs) {
   using namespace ddm;
-  constexpr int kN = 18 + 12 + 24;
+  constexpr int kN = 18 + 12 + 24 + 6;
   const void* kernels[kN] = {(const void*)flash_fwd_regs_kernel<32, 2>,
                              (const void*)flash_fwd_regs_kernel<64, 1>,
                              (const void*)flash_fwd_regs_kernel<128, 1>,
@@ -1655,6 +1681,12 @@ extern "C" int ddm_flash_kernel_attrs(int* attrs) {
 #define DDM_WIDE_TILES_DKV_ATTRS(W) kernels[i++] = (const void*)flash_bwd_dkv_wide_kernel<W>;
   DDM_FLASH_WIDTHS(DDM_WIDE_TILES_DKV_ATTRS)
 #undef DDM_WIDE_TILES_DKV_ATTRS
+  kernels[i++] = (const void*)flash_fwd_regs_kernel<kNarrow, 2>;
+  kernels[i++] = (const void*)flash_fwd_kernel<kNarrow>;
+  kernels[i++] = (const void*)flash_bwd_dq_regs_kernel<kNarrow>;
+  kernels[i++] = (const void*)flash_bwd_dkv_regs_kernel<kNarrow>;
+  kernels[i++] = (const void*)flash_bwd_dq_kernel<kNarrow>;
+  kernels[i++] = (const void*)flash_bwd_dkv_kernel<kNarrow>;
   for (i = 0; i < kN; ++i) {
     cudaFuncAttributes a;
     const cudaError_t err = cudaFuncGetAttributes(&a, kernels[i]);
@@ -1669,8 +1701,8 @@ extern "C" int ddm_flash_kernel_attrs(int* attrs) {
 // (flash_bwd_dq_kernel and flash_bwd_dkv_kernel at Dh 4-128, the chunked
 // flash_bwd_dq_wide_kernel and flash_bwd_dkv_wide_kernel at Dh 256-896), 1
 // "registers" (flash_bwd_dq_regs_kernel and flash_bwd_dkv_regs_kernel at Dh
-// 32, 64, 128, the wide registers design at Dh 256-896); -1 registers where
-// it takes Dh, tiles at Dh 4-16.
+// 4-128, the wide registers design at Dh 256-896); -1 registers, the pick at
+// every width.
 constexpr int kBwdTiles = 0, kBwdRegisters = 1;
 
 extern "C" int ddm_flash_bwd(const void* q, const void* k, const void* v, int ld, const void* o,
@@ -1678,15 +1710,22 @@ extern "C" int ddm_flash_bwd(const void* q, const void* k, const void* v, int ld
                              int N, int H, int Dh, float scale, int design, void* stream) {
   using namespace ddm;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (design == kBwdRegisters || (design < 0 && Dh >= 32)) {
+  if (design == kBwdRegisters || design < 0) {
     switch (Dh) {
+      case 4:
+      case 8:
+      case 16:
+        return (int)launch_bwd_regs<kNarrow>(q, k, v, ld, o, dout, lse, dsum, dqkv, B, N, H, Dh,
+                                             scale, s);
       case 32:
-        return (int)launch_bwd_regs<32>(q, k, v, ld, o, dout, lse, dsum, dqkv, B, N, H, scale, s);
+        return (int)launch_bwd_regs<32>(q, k, v, ld, o, dout, lse, dsum, dqkv, B, N, H, Dh, scale,
+                                        s);
       case 64:
-        return (int)launch_bwd_regs<64>(q, k, v, ld, o, dout, lse, dsum, dqkv, B, N, H, scale, s);
+        return (int)launch_bwd_regs<64>(q, k, v, ld, o, dout, lse, dsum, dqkv, B, N, H, Dh, scale,
+                                        s);
       case 128:
-        return (int)launch_bwd_regs<128>(q, k, v, ld, o, dout, lse, dsum, dqkv, B, N, H, scale,
-                                         s);
+        return (int)launch_bwd_regs<128>(q, k, v, ld, o, dout, lse, dsum, dqkv, B, N, H, Dh,
+                                         scale, s);
 #define DDM_BWD_WIDE_REGS(W)                                                                    \
       case W:                                                                                   \
         return (int)launch_bwd_wide_regs<W>(q, k, v, ld, o, dout, lse, dsum, dqkv, B, N, H, scale, \
@@ -1696,7 +1735,7 @@ extern "C" int ddm_flash_bwd(const void* q, const void* k, const void* v, int ld
       default: return (int)cudaErrorInvalidValue;
     }
   }
-  if (design != kBwdTiles && design >= 0) return (int)cudaErrorInvalidValue;
+  if (design != kBwdTiles) return (int)cudaErrorInvalidValue;
   switch (Dh) {
     case 4:
     case 8:

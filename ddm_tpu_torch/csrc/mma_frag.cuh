@@ -42,6 +42,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
                "l"(src), "r"(valid ? 16 : 0));
 }
 
+// 8 bytes likewise, by cp.async.ca (the .cg form moves 16 bytes only): the
+// piece of a head that starts on an 8-byte boundary (K8 at Dh 4).
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 8 : 0));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -128,19 +135,25 @@ __device__ __forceinline__ float quad_sum(float v) {
 
 // A ROWS x DP bf16 tile (row stride DP + kPadH in shared memory) from rows
 // [r0, r0 + ROWS) of a head (row stride ld, Dh columns), by cp.async, all
-// THREADS threads of the block: rows at or past `rows` and columns at or
-// past Dh are zero-filled (a 16-byte piece is either wholly in the head or
-// wholly padding, Dh % 8 == 0). Commits nothing.
-template <int ROWS, int DP, int THREADS>
+// THREADS threads of the block, in pieces of PIECE bytes (16, or 8 where a
+// head starts on an 8-byte boundary only): rows at or past `rows` and
+// columns at or past Dh are zero-filled (a piece is either wholly in the
+// head or wholly padding: Dh a multiple of PIECE / 2). Commits nothing.
+template <int ROWS, int DP, int THREADS, int PIECE = 16>
 __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* __restrict__ src, size_t ld,
                                                 int r0, int rows, int Dh) {
-  constexpr int kVec = DP / 8, kLd = DP + kPadH, kPieces = ROWS * kVec;
+  static_assert(PIECE == 16 || PIECE == 8, "cp.async pieces of 16 or 8 bytes");
+  constexpr int kCols = PIECE / 2, kVec = DP / kCols, kLd = DP + kPadH, kPieces = ROWS * kVec;
 #pragma unroll
   for (int n = 0; n < (kPieces + THREADS - 1) / THREADS; ++n) {
-    const int i = threadIdx.x + n * THREADS, r = i / kVec, c = (i % kVec) * 8;
+    const int i = threadIdx.x + n * THREADS, r = i / kVec, c = (i % kVec) * kCols;
     if (kPieces % THREADS == 0 || i < kPieces) {
       const bool valid = r0 + r < rows && c < Dh;
-      cp_async16(dst + r * kLd + c, valid ? src + (size_t)(r0 + r) * ld + c : src, valid);
+      const bf16* from = valid ? src + (size_t)(r0 + r) * ld + c : src;
+      if constexpr (PIECE == 16)
+        cp_async16(dst + r * kLd + c, from, valid);
+      else
+        cp_async8(dst + r * kLd + c, from, valid);
     }
   }
 }
@@ -214,7 +227,8 @@ __device__ __forceinline__ void pv_tile(float (&o)[MT][DP / 8][4], const uint32_
 // Store rows g and g + 8 of a warp's fp32 output fragments o (columns [8j,
 // 8j + 8) in o[j]), each divided by its row's divisor and rounded to bf16
 // once, as 4-byte pairs into rows of stride ld; rows at or past `rows` and
-// columns at or past Dh are not written.
+// columns at or past Dh (even: at Dh 4 half a fragment's pairs) are not
+// written.
 template <int DP>
 __device__ __forceinline__ void store_rows_bf16(bf16* __restrict__ dst, size_t ld,
                                                 const float (&o)[DP / 8][4], float div_g,
@@ -224,6 +238,7 @@ __device__ __forceinline__ void store_rows_bf16(bf16* __restrict__ dst, size_t l
   for (int j = 0; j < DP / 8; ++j) {
     if (j * 8 >= Dh) break;
     const int c = j * 8 + 2 * t;
+    if (c >= Dh) continue;
     if (r + g < rows)
       *reinterpret_cast<uint32_t*>(dst + (size_t)(r + g) * ld + c) =
           pack_bf16(o[j][0] / div_g, o[j][1] / div_g);

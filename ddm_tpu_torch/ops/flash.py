@@ -20,38 +20,39 @@ rounds against the running max, which moves ``o`` by bf16 noise.
 
 The kernels take every head width the JAX gate admits (its
 ``_heads_per_group`` takes 128 % Dh == 0 or Dh % 128 == 0, and its VMEM
-budget no Dh past 896): Dh = 4, 8 and 16 (one instance on 16-column tiles,
-zero-filled past Dh), 32, 64 (DiT-S, B and L) and 128, and 256 to 896 in
-steps of 128 (kernels that walk a head in 128-column chunks); and N a
-multiple of 64. The TPU's head-pair
-lane packing and phantom-head pad are 128-lane devices and are not carried:
-any H runs as it is. Dh 1 and 2, which the gate's grouping admits and its
-budget never does, raise ``NotImplementedError``.
+budget no Dh past 896): Dh = 4, 8 and 16 (:data:`NARROW_DIMS`: one
+instance of each kernel on 16-column tiles, zero-filled past Dh), 32, 64
+(DiT-S, B and L) and 128, and 256 to 896 in steps of 128 (kernels that
+walk a head in 128-column chunks); and N a multiple of 64. The TPU's
+head-pair lane packing and phantom-head pad are 128-lane devices and are
+not carried: any H runs as it is. Dh 1 and 2, which the gate's grouping
+admits and its budget never does, raise ``NotImplementedError``.
 
-K8f has two designs at Dh 32 to 896 (:data:`FWD_DESIGNS`): "registers",
-the launcher's own pick there, holds the scores, the probabilities, the
-output and each row's running max and sum in registers as tensor-core
-fragments and streams K and V through a copy ring (at Dh 32, 64 and 128 a
-warp holds Q and a 16-row tile's whole output; at Dh 256 to 896,
-:data:`WIDE_DIMS`, two or four warps split each 16-row tile's output
-columns and each score tile's keys, and K and V pass through a ring of
-64-key x 128-column chunks); "tiles", the design of Dh 4, 8 and 16 too,
+K8f has two designs at every width (:data:`FWD_DESIGNS`): "registers", the
+launcher's own pick, holds the scores, the probabilities, the output and
+each row's running max and sum in registers as tensor-core fragments and
+streams K and V through a copy ring (at Dh 4, 8 and 16 a warp holds two
+16-row tiles over 64-key tiles, laid out for the exponential rate that
+bounds it there; at Dh 32, 64 and 128 a warp holds Q and a 16-row tile's
+whole output; at Dh 256 to 896, :data:`WIDE_DIMS`, two or four warps split
+each 16-row tile's output columns and each score tile's keys, and K and V
+pass through a ring of 64-key x 128-column chunks); "tiles", forced only,
 stages them in shared memory (at the wide widths the 128-column chunked
 kernel with its fp32 output in shared memory). Both follow the rounding
 above element for element; the sums over a row's keys run in another
-order, so their bits differ. K8b has the same two designs at Dh 32 to 896
-(:data:`BWD_DESIGNS`): its "registers" design, the launcher's own pick
-there, keeps the score, dP, probability and dS tiles and the dq, dk and dv
+order, so their bits differ. K8b has the same two designs
+(:data:`BWD_DESIGNS`): its "registers" design, the launcher's own pick,
+keeps the score, dP, probability and dS tiles and the dq, dk and dv
 accumulators in registers (the dk/dv kernel computes the transposed tiles,
 keys by queries, so that P^T and dS^T feed its products as they stand),
 with Q, dO, K and V through the same kind of ring
 (``csrc/attention_bwd_regs.cuh``, shared with the attention core's
-backward; at the wide widths two to eight warps split each 16-row tile's
-gradient columns and each score tile's keys or queries, and the dk/dv
-kernel is the attention core's own); "tiles", the design of Dh 4, 8 and 16
-too, stages them in shared memory (at the wide widths the 128-column
-chunked kernels with dq, dk and dv in shared memory). dsum is the tiles
-design's bits in both.
+backward, at a padded width of 16 for the narrow heads; at the wide widths
+two to eight warps split each 16-row tile's gradient columns and each
+score tile's keys or queries, and the dk/dv kernel is the attention core's
+own); "tiles", forced only, stages them in shared memory (at the wide
+widths the 128-column chunked kernels with dq, dk and dv in shared
+memory). dsum is the tiles design's bits in both.
 """
 
 from __future__ import annotations
@@ -84,6 +85,7 @@ __all__ = [
     "HEAD_DIMS",
     "FWD_DESIGNS",
     "BWD_DESIGNS",
+    "NARROW_DIMS",
     "REGISTERS_DIMS",
     "WIDE_DIMS",
     "TILE",
@@ -94,12 +96,15 @@ FWD_LAUNCHES = LaunchCounter("K8f")
 BWD_LAUNCHES = LaunchCounter("K8b")
 # the head widths csrc/flash.cu is built for: every one the JAX gate admits
 HEAD_DIMS = (4, 8, 16, 32, 64, 128, 256, 384, 512, 640, 768, 896)
-# K8's designs (``design=``), in the order of the library's codes; the head
-# widths the registers designs at Dh <= 128 are built for, and the wide
-# widths where K8f's and K8b's registers designs are the wide kernels (their
-# own pick there) and their tiles designs the 128-column chunked ones
+# K8's designs (``design=``), in the order of the library's codes; the
+# narrow widths, where each design is one instance on 16-column tiles (its
+# ``kernel_attrs`` key carries Dh 16); the widths with an instance each up
+# to 128; and the wide widths where K8f's and K8b's registers designs are
+# the wide kernels and their tiles designs the 128-column chunked ones. The
+# registers design is the launchers' pick at every width.
 FWD_DESIGNS = ("tiles", "registers")
 BWD_DESIGNS = ("tiles", "registers")
+NARROW_DIMS = (4, 8, 16)
 REGISTERS_DIMS = (32, 64, 128)
 WIDE_DIMS = (256, 384, 512, 640, 768, 896)
 TILE = 64         # q rows and k rows per tile of the kernels
@@ -222,12 +227,14 @@ def kernel_attrs() -> dict:
     """Registers and local (spill) bytes a thread of each K8 instance takes
     on the card: ``{(kernel, Dh): {"registers", "local_bytes"}}``, kernel a
     K8f design's name (its forward kernel), or ``"<design> dq"`` and
-    ``"<design> dk dv"`` for K8b's two kernels, at Dh 32, 64 and 128 and at
-    :data:`WIDE_DIMS`."""
+    ``"<design> dk dv"`` for K8b's two kernels, at Dh 32, 64 and 128, at
+    :data:`WIDE_DIMS`, and at Dh 16 for the one instance that takes every
+    width of :data:`NARROW_DIMS`."""
+    fwd = lambda dims: [(d, dh) for d in FWD_DESIGNS[::-1] for dh in dims]  # noqa: E731
     bwd = lambda dims: [(f"{d} {side}", dh) for d in BWD_DESIGNS[::-1]  # noqa: E731
                         for side in ("dq", "dk dv") for dh in dims]
-    keys = ([(d, dh) for d in FWD_DESIGNS[::-1] for dh in REGISTERS_DIMS] + bwd(REGISTERS_DIMS)
-            + [(d, dh) for d in FWD_DESIGNS[::-1] for dh in WIDE_DIMS] + bwd(WIDE_DIMS))
+    keys = (fwd(REGISTERS_DIMS) + bwd(REGISTERS_DIMS) + fwd(WIDE_DIMS) + bwd(WIDE_DIMS)
+            + fwd(NARROW_DIMS[-1:]) + bwd(NARROW_DIMS[-1:]))
     attrs = (ctypes.c_int * (2 * len(keys)))()
     check_status(load_library().ddm_flash_kernel_attrs(ctypes.addressof(attrs)),
                  "K8 kernel attributes")

@@ -19,8 +19,10 @@ dump's held K8b by the same rule.
 On one card, from the root of each checkout (its package is imported from
 the current directory), on the same seeded inputs, q, k and v read in place
 from a [q | k | v] buffer: (B, N) = (128, 1024) over 6 heads of Dh = 64
-(the 128-px training shape), and at N = 1024 and B = 8 every wide width:
-2 heads of Dh 256, 384 and 512, one of 640, 768 and 896:
+(the 128-px training shape), and at N = 1024 and B = 8 the narrow widths,
+96 heads of Dh 4, 48 of Dh 8 and 24 of Dh 16 (a checkout before the narrow
+registers designs picks the tiles design there), and every wide width: 2
+heads of Dh 256, 384 and 512, one of 640, 768 and 896:
 
     PYTHONPATH=. python scripts/torch_k8_bits.py dump /tmp/new.pt
     cd parent && PYTHONPATH=. python ../scripts/torch_k8_bits.py dump /tmp/old.pt
@@ -44,7 +46,8 @@ NAMES = ("o", "lse", "dq", "dk", "dv")
 LSE_RTOL = 1e-5
 
 
-SHAPES = ((128, 1024, 6, 64), (8, 1024, 2, 256), (8, 1024, 2, 384), (8, 1024, 2, 512),
+SHAPES = ((128, 1024, 6, 64), (8, 1024, 96, 4), (8, 1024, 48, 8), (8, 1024, 24, 16),
+          (8, 1024, 2, 256), (8, 1024, 2, 384), (8, 1024, 2, 512),
           (8, 1024, 1, 640), (8, 1024, 1, 768), (8, 1024, 1, 896))
 
 
@@ -116,6 +119,12 @@ def compare(a: str, b: str) -> bool:
                  for shape in y for n in NAMES[2:]})
     print("K8 outputs bit for bit: " + ", ".join(f"{n} {'equal' if s else 'DIFFERENT'}"
                                                 for n, s in same.items()))
+    # where both checkouts pick the same design the picks may keep their bits too;
+    # shown, not held (a new design's pick differs by design)
+    picks = {f"{shape} {n}": torch.equal(x[shape][f"{n}_pick"], y[shape][f"{n}_pick"])
+             for shape in x if shape in y for n in NAMES}
+    print("K8f and K8b as picked, a's against b's, bit for bit (not held): " + ", ".join(
+        f"{n} {'equal' if e else 'different'}" for n, e in picks.items()))
     print("K8f and K8b as picked against the plain versions and the held K8b: " + ", ".join(
         f"{n} {'within' if s else 'OUTSIDE'}" for n, s in rule.items()))
     return all(same.values()) and all(rule.values())

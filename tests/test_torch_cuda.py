@@ -4,7 +4,7 @@ MLP half-block past D 1344 (the streamed LN-prologue GEMM, D 1408-4096), and the
 attention cores past 227 KB of shared memory (Dh up to 3712), bit for bit the resident ones;
 the DiT tail X4f/X4b at every DiT path's width, X2f bit for bit the K2f -> K1f pair, X1's
 phase-batched cores bit for bit K2's, X3's ablations of K2b's chain, and the registers
-designs of the forward core and of K8f.
+designs of the forward core and of K8f and K8b, the narrow heads (Dh 4, 8, 16) included.
 
 Every test here is marked ``cuda`` and skips on a host without a GPU. The
 file imports no JAX (the machine with the card has none), so it runs there
@@ -1434,16 +1434,42 @@ def test_k8f_registers_design_matches_plain_on_the_card(cuda_device, B, N, H, Dh
         _assert_bf16_rule(g, w)
 
 
+# K8 at the narrow widths: the 3o rows' head counts (D 384 over 96, 48, 24
+# heads) at fewer images, N 1024 and 2304 (whole 128-query blocks of the
+# forward) and 1600 (its last block half past N)
+NARROW_SHAPES = [(2, 1024, 96, 4), (2, 1024, 48, 8), (2, 1024, 24, 16), (1, 2304, 24, 16),
+                 (1, 2304, 96, 4), (1, 1600, 48, 8), (1, 1600, 24, 16)]
+
+
+def _narrow_case(cuda_device, B, N, H, Dh, seed):
+    gen = torch.Generator(device=cuda_device).manual_seed(seed)
+    D = H * Dh
+    qkv = torch.randn(B, N, 3 * D, generator=gen, device=cuda_device).to(torch.bfloat16)
+    do = torch.randn(B, N, D, generator=gen, device=cuda_device).to(torch.bfloat16)
+    return (*qkv.split(D, dim=-1), do)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("Dh,design", [(16, "registers"), (8, "registers"), (4, "registers")])
-def test_k8f_refuses_a_design_that_does_not_take_the_width_on_the_card(cuda_device, Dh, design):
-    """A forced K8f design raises where it is not built: the registers
-    design at the narrow widths (Dh 4, 8, 16); both designs take every
-    width from 32 up."""
-    H = 2
-    q = torch.zeros(1, 1024, H * Dh, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(RuntimeError, match="K8f"):
-        TF.launch_k8f(q, q, q, H, Dh ** -0.5, design)
+@pytest.mark.parametrize("B,N,H,Dh", NARROW_SHAPES)
+def test_k8f_narrow_registers_design_matches_plain_on_the_card(cuda_device, B, N, H, Dh):
+    """K8f's narrow registers design (its own pick at Dh 4, 8, 16; q, k, v
+    read in place from a [q | k | v] buffer, a Dh-4 head on an 8-byte
+    boundary) against the plain version (o by the bf16 rule, lse to 1e-5
+    relative), the design forced by name bit-identical, and within the
+    bf16 rule of the tiles design forced on the same q, k, v."""
+    q, k, v, _ = _narrow_case(cuda_device, B, N, H, Dh, seed=41)
+    scale = Dh ** -0.5
+    with torch.no_grad():
+        o, lse = TF.flash_attention_fwd(q, k, v, H)
+        forced = TF.launch_k8f(q, k, v, H, scale, "registers")
+        tiles = TF.launch_k8f(q, k, v, H, scale, "tiles")
+        torch.cuda.synchronize()
+    assert torch.equal(o, forced[0]) and torch.equal(lse, forced[1])
+    want_o, want_lse = TF.flash_attention_reference(q, k, v, H)
+    _assert_bf16_rule(o, want_o)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=0)
+    _assert_bf16_rule(o, tiles[0])
+    torch.testing.assert_close(lse, tiles[1], rtol=1e-5, atol=0)
 
 
 # The wide registers core (padded widths 144-896): 64 query rows a block on
@@ -1623,15 +1649,67 @@ def test_k8b_registers_design_matches_plain_on_the_card(cuda_device, B, N, H, Dh
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Dh,design", [(16, "registers"), (8, "registers"), (4, "registers")])
-def test_k8b_refuses_a_design_that_does_not_take_the_width_on_the_card(cuda_device, Dh, design):
-    """A forced K8b design raises where it is not built, as K8f's: the
-    registers design at Dh 4-16 ("tiles" takes every width)."""
-    H = 2
-    q = torch.zeros(1, 1024, H * Dh, device=cuda_device, dtype=torch.bfloat16)
-    lse = torch.zeros(1, H, 1024, device=cuda_device)
-    with pytest.raises(RuntimeError, match="K8b"):
-        TF.launch_k8b(q, q, q, q, lse, q, H, Dh ** -0.5, design)
+@pytest.mark.parametrize("B,N,H,Dh", NARROW_SHAPES)
+def test_k8b_narrow_registers_design_matches_plain_on_the_card(cuda_device, B, N, H, Dh):
+    """K8b's narrow registers design (its own pick at Dh 4, 8, 16) on the
+    narrow registers forward's o and lse: dq, dk and dv against the plain
+    version by the bf16 rule, the design forced by name bit-identical, and
+    within the bf16 rule of the tiles design forced on the same inputs;
+    dsum is the tiles design's bits (row_dot's order in both)."""
+    q, k, v, do = _narrow_case(cuda_device, B, N, H, Dh, seed=42)
+    D, scale = H * Dh, Dh ** -0.5
+    with torch.no_grad():
+        o, lse = TF.flash_attention_fwd(q, k, v, H)
+        got, forced, tiles = (TF.launch_k8b(q, k, v, o, lse, do, H, scale, d)
+                              for d in (None, "registers", "tiles"))
+        torch.cuda.synchronize()
+    assert torch.equal(got, forced)
+    want = TF.flash_attention_bwd_reference(q, k, v, o, lse, do, H)
+    for g, w, e in zip(got.split(D, dim=-1), want, tiles.split(D, dim=-1)):
+        _assert_bf16_rule(g, w)
+        _assert_bf16_rule(g, e)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,H,Dh", NARROW_SHAPES[:3])
+def test_k8b_narrow_second_call_is_bit_identical_on_the_card(cuda_device, B, N, H, Dh):
+    """No atomics: a second K8b call at the narrow widths, through the
+    autograd function as the model calls it, gives the same bits."""
+    q, k, v, do = _narrow_case(cuda_device, B, N, H, Dh, seed=43)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    grads = [torch.autograd.grad(TF.flash_attention(*leaves, H), leaves, do) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,H,Dh", NARROW_SHAPES[:3] + NARROW_SHAPES[-1:])
+def test_k8_tiles_forced_still_runs_at_the_narrow_widths_on_the_card(cuda_device, B, N, H, Dh):
+    """"tiles", forced, still launches the kNarrow tiles kernels at Dh 4-16:
+    o, lse, dq, dk and dv against the plain versions on its own o and lse."""
+    q, k, v, do = _narrow_case(cuda_device, B, N, H, Dh, seed=44)
+    D, scale = H * Dh, Dh ** -0.5
+    with torch.no_grad():
+        o, lse = TF.launch_k8f(q, k, v, H, scale, "tiles")
+        dqkv = TF.launch_k8b(q, k, v, o, lse, do, H, scale, "tiles")
+        torch.cuda.synchronize()
+    want_o, want_lse = TF.flash_attention_reference(q, k, v, H)
+    _assert_bf16_rule(o, want_o)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=0)
+    for g, w in zip(dqkv.split(D, dim=-1), TF.flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                                                             H)):
+        _assert_bf16_rule(g, w)
+
+
+@pytest.mark.cuda
+def test_narrow_registers_kernels_do_not_spill_on_the_card(cuda_device):
+    """The narrow registers instances (K8f's forward, K8b's dq and dk/dv
+    kernels, one each for Dh 4, 8, 16) take no local memory on the card."""
+    attrs = TF.kernel_attrs()
+    narrow = {k: a for k, a in attrs.items() if k[0].startswith("registers") and k[1] == 16}
+    assert sorted(k[0] for k in narrow) == ["registers", "registers dk dv", "registers dq"]
+    for name, a in narrow.items():
+        assert a["local_bytes"] == 0 and 0 < a["registers"] <= 255, name
 
 
 @pytest.mark.cuda

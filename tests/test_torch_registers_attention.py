@@ -87,10 +87,12 @@ def test_core_refuses_an_unknown_design_before_launching(library, design):
 
 
 @pytest.mark.parametrize("design,code", [(None, -1), ("tiles", 0), ("registers", 1)])
-@pytest.mark.parametrize("Dh", TF.REGISTERS_DIMS)
+@pytest.mark.parametrize("Dh", TF.NARROW_DIMS + TF.REGISTERS_DIMS)
 def test_k8f_design_names_reach_the_library_as_its_codes(library, design, code, Dh):
     """``launch_k8f(design=)`` passes ``ddm_flash_fwd`` the code of each
-    name of FWD_DESIGNS (argument 11), and counts the launch."""
+    name of FWD_DESIGNS (argument 11), and counts the launch: at the narrow
+    widths too, where "registers" is the narrow registers design and the
+    launcher's pick."""
     H = 256 // Dh
     q, k, v = _qkv(1, 1024, H * Dh)
     before = TF.FWD_LAUNCHES.count
@@ -111,13 +113,27 @@ def test_k8f_refuses_an_unknown_design_before_launching(library, design):
     assert library.calls == [] and TF.FWD_LAUNCHES.count == before
 
 
+@pytest.mark.parametrize("design", ["register", "narrow", "tiles "])
+@pytest.mark.parametrize("Dh", TF.NARROW_DIMS)
+def test_k8f_refuses_an_unknown_design_at_the_narrow_widths(library, design, Dh):
+    """An unknown name raises before any launch at Dh 4, 8 and 16 as at the
+    other widths (q, k and v read in place from a [q | k | v] buffer)."""
+    H = 384 // Dh
+    q, k, v = _qkv(1, 1024, H * Dh)
+    before = TF.FWD_LAUNCHES.count
+    with pytest.raises(ValueError, match="design must be one of"):
+        TF.launch_k8f(q, k, v, H, Dh ** -0.5, design)
+    assert library.calls == [] and TF.FWD_LAUNCHES.count == before
+
+
 def test_kernel_attrs_name_every_instance(library):
     """``kernel_attrs`` reads one (registers, local bytes) pair per name: the
     seven resident and streamed kernels, then each registers instance of the
     forward (three a width) and of the backward (five a width), then the
     forward's nine wide registers instances, then the backward's wide dq and
     dk/dv sides (six each); K8's: the forward's two designs, then each
-    backward design's two kernels, then the same at the wide widths."""
+    backward design's two kernels, then the same at the wide widths, then at
+    Dh 16 the one instance of each that takes Dh 4, 8 and 16."""
     attrs = TA.kernel_attrs()
     assert list(attrs) == list(TA.CORE_KERNELS)
     assert len(TA.CORE_KERNELS) == 7 + (3 + 5) * len(TA.REGISTERS_WIDTHS) + 9 + 2 * 6
@@ -128,7 +144,9 @@ def test_kernel_attrs_name_every_instance(library):
     bwd = lambda dims: [(f"{d} {side}", dh) for d in ("registers", "tiles")  # noqa: E731
                         for side in ("dq", "dk dv") for dh in dims]
     wide = (256, 384, 512, 640, 768, 896)
-    assert list(flash) == fwd((32, 64, 128)) + bwd((32, 64, 128)) + fwd(wide) + bwd(wide)
+    assert list(flash) == (fwd((32, 64, 128)) + bwd((32, 64, 128)) + fwd(wide) + bwd(wide)
+                           + fwd((16,)) + bwd((16,)))
+    assert TF.NARROW_DIMS == (4, 8, 16)
     assert library.calls[1][0] == "ddm_flash_kernel_attrs"
 
 

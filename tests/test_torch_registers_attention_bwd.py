@@ -117,12 +117,13 @@ def test_core_bwd_refuses_an_unknown_design_before_launching(library, design):
 
 
 @pytest.mark.parametrize("design,code", [(None, -1), ("tiles", 0), ("registers", 1)])
-@pytest.mark.parametrize("Dh", TF.REGISTERS_DIMS + TF.WIDE_DIMS)
+@pytest.mark.parametrize("Dh", TF.NARROW_DIMS + TF.REGISTERS_DIMS + TF.WIDE_DIMS)
 def test_k8b_design_names_reach_the_library_as_its_codes(library, design, code, Dh):
     """``launch_k8b(design=)`` passes ``ddm_flash_bwd`` the code of each
-    name of BWD_DESIGNS (argument 14), and counts the launch: at Dh 32-128
-    and at the wide widths, where "registers" is the wide registers design
-    and "tiles" the chunked kernels."""
+    name of BWD_DESIGNS (argument 14), and counts the launch: at the narrow
+    widths (the narrow registers design), at Dh 32-128 and at the wide
+    widths, where "registers" is the wide registers design and "tiles" the
+    chunked kernels."""
     assert TF.BWD_DESIGNS == ("tiles", "registers")
     H, N = max(1, 256 // Dh), 1024
     q, k, v = _qkv(1, N, H * Dh)
@@ -144,6 +145,20 @@ def test_k8b_refuses_an_unknown_design_before_launching(library, design):
     before = TF.BWD_LAUNCHES.count
     with pytest.raises(ValueError, match="design must be one of"):
         TF.launch_k8b(q, k, v, q, lse, q, 2, 64 ** -0.5, design)
+    assert library.calls == [] and TF.BWD_LAUNCHES.count == before
+
+
+@pytest.mark.parametrize("design", ["register", "narrow", "one-block"])
+@pytest.mark.parametrize("Dh", TF.NARROW_DIMS)
+def test_k8b_refuses_an_unknown_design_at_the_narrow_widths(library, design, Dh):
+    """An unknown name raises before any launch at Dh 4, 8 and 16 as at the
+    other widths."""
+    H = 384 // Dh
+    q, k, v = _qkv(1, 1024, H * Dh)
+    lse = torch.zeros(1, H, 1024)
+    before = TF.BWD_LAUNCHES.count
+    with pytest.raises(ValueError, match="design must be one of"):
+        TF.launch_k8b(q, k, v, q, lse, q, H, Dh ** -0.5, design)
     assert library.calls == [] and TF.BWD_LAUNCHES.count == before
 
 
