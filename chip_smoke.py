@@ -49,9 +49,17 @@ is non-zero and no result line is printed:
 3. kernels: K1f (MLP half-block) at (16384, 384, F=1536) and K2f (attention
    half-block) at (256, 64, 384, H=6) in bf16 against their plain PyTorch
    versions on the same seeded inputs, with median times from CUDA events;
+   K1f also at the training shape (131072, 384, F=1536); at both shapes in
+   turns with the earlier WMMA design and the cuBLAS chain (its products
+   through torch.matmul with plain epilogues: a yardstick the port never
+   calls); the registers and local bytes of K1's 24 wgmma instances from
+   the ptxas log (none may use local memory); the host cost of a TMA
+   descriptor;
    3b. backward kernels: K1b at (131072, 384, F=1536) and K2b at
    (2048, 64, 384, H=6), the training shapes, against their plain backward
-   versions, and a second call that must be bit-identical;
+   versions, and a second call that must be bit-identical; K1b in turns
+   with the cuBLAS chain, then launch by launch (the recompute, dW2, dh,
+   dW1, dy, ln_bwd) beside the earlier WMMA chain's launches;
    3c. energy: K3f and K3b at (B=256, m=8, D=3072) fp32, beta 0.1 and 2.0;
    K3 at (64, 4, 12288) (the 64-px recipe's shape) and K9f/K9b at (256, 32,
    3072) (the m = 32 recipe's), each against its route's plain versions,
@@ -149,8 +157,9 @@ The 64-px path, the m = 32 energy score and dense DiT-B, after those:
     timed beside PyTorch's scaled_dot_product_attention forward and forward
     + backward on the same q, k, v (a yardstick; the port never calls it);
 3h. (dit-b-kernels) K1f and K1b at DiT-B's training shape (131,072 x 768, F
-    3072), K2f at its training and sampling shapes (2048 and 64 images of
-    (64, 768), H 12), against their plain versions;
+    3072), each also in turns with the cuBLAS chain (K1f with the earlier
+    WMMA design too), K2f at its training and sampling shapes (2048 and 64
+    images of (64, 768), H 12), against their plain versions;
 3i. (m32-kernels) the m = 32 path's training shapes (256 x 32 = 8,192
     denoiser images): K1f and K1b at (524,288 x 384, F 1536), K2f and K2b at
     (8192, 64, 384, H 6), against their plain versions, the backwards'
@@ -392,8 +401,9 @@ The DiT tail and the whole-block experiment, after those:
     trainer phase above counts X4f and X4b once a training step and X4f
     once a sampler step at D % 128 == 0;
 3t. (whole-block) X2f (``csrc/whole_block.cu``) at (B 256, N 64, D 384, H 6,
-    F 1536): torch.equal to the K2f -> K1f pair with the resident core
-    forced (the core X2f reproduces), the plain version by the
+    F 1536): torch.equal to the K2f -> MLP pair with the resident core
+    forced and the MLP half on the WMMA products (what X2f reproduces;
+    K1f runs the wgmma products), the plain version by the
     bf16 rule, one block and an 8-block chain against the pair in turns
     (``scripts/torch_exp_whole_block.py``); no path launches it.
 3u. (phase-softmax) X1f and X1b (``csrc/phase_softmax.cu``) at DiT-S/4's
@@ -775,18 +785,135 @@ def _time_forward(case, smi):
     return max_err, ms, plain_ms, _bound(_nbytes(*args, got), flops)
 
 
-def phase_kernels(M, A, smi):
+def _wg_instances(kc):
+    """Each wgmma instance of ``csrc/gemm_wg.cu`` (``wg_gemm_kernel<BN, KIND,
+    EPI>``) with its registers and local bytes (stack frame, spill stores
+    and loads) from the build's ``-Xptxas -v`` log; raises if one reports
+    local memory."""
+    import re
+
+    log = (kc._BUILD / (kc.library_path().stem + ".ptxas.txt")).read_text()
+    kinds = ("ln_gemm", "residual", "nn", "tn")
+    found, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?(?: for|$)",
+                      line)
+        if m:
+            name = m.group(1)
+            continue
+        inst = name and re.search(r"wg_gemm_kernelILi(\d+)ELi(\d)ELi(\d)E", name)
+        if not inst:
+            continue
+        key = f"BN {inst.group(1)} {kinds[int(inst.group(2))]} epi {inst.group(3)}"
+        rec = found.setdefault(key, {"instance": key, "registers": None, "local_bytes": 0})
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            rec["registers"] = int(regs.group(1))
+        local = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if local:
+            rec["local_bytes"] = max(rec["local_bytes"], sum(int(g) for g in local.groups()))
+    insts = sorted(found.values(), key=lambda r: r["instance"])
+    print("[kernel] K1f/K1b wgmma instances (ptxas): " + "; ".join(
+        f"{r['instance']}: {r['registers']} registers, {r['local_bytes']} B local" for r in insts))
+    if len(insts) != 24 or any(r["local_bytes"] or not r["registers"] for r in insts):
+        raise AssertionError("a wgmma instance is missing from the ptxas log or uses local memory")
+    return insts
+
+
+def _turns(fns: dict, reps: int = 20) -> dict:
+    """:func:`_in_turns` over every function of ``fns``: ``{name: the mean
+    of its two medians}``."""
+    return {n: float(np.mean(t)) for n, t in _in_turns(fns, list(fns), reps).items()}
+
+
+def _tma_encode_us(kc, x) -> float:
+    """Host microseconds to encode one TMA descriptor (``csrc/gemm_wg.cu``
+    ``make_map``, mean of 1,000) for the bf16 matrix ``x``: K1f encodes 5 a
+    call, K1b 11, since the pointers change every call."""
+    import ctypes
+
+    us = ctypes.c_float()
+    kc.check_status(kc.load_library().ddm_wg_encode_cost(
+        x.data_ptr(), x.shape[0], x.shape[1], 1000, ctypes.addressof(us)), "ddm_wg_encode_cost")
+    print(f"[kernel] TMA descriptor encoding on the host: {us.value:.4f} us a map (mean of "
+          f"1,000; K1f encodes 5 a call, K1b 11)")
+    return float(us.value)
+
+
+def _bf16_weights(args):
+    """The MLP inputs with the weights cast to bf16 once (the yardstick's)."""
+    x, scale, bias, w1, b1, w2, b2 = args
+    return x, scale, bias, w1.to(torch.bfloat16), b1, w2.to(torch.bfloat16), b2
+
+
+def _k1f_cublas(M, fast=False):
+    """K1f's function with its two products through torch.matmul (cuBLAS,
+    bf16 in and out) and plain epilogues: the chain yardstick, which the port
+    never calls. Takes :func:`_bf16_weights`' operands."""
+    bf = torch.bfloat16
+
+    def run(x, scale, bias, w1, b1, w2, b2):
+        y = M.layer_norm(x.float(), scale, bias).to(bf)
+        g = M.gelu(torch.matmul(y, w1.t()).float() + b1, fast).to(bf)
+        return (x.float() + (torch.matmul(g, w2.t()).float() + b2)).to(bf)
+    return run
+
+
+def _k1f_wmma(G, M):
+    """K1f as the earlier design ran it: the WMMA LN-prologue GEMM, then the
+    WMMA residual GEMM (``gemm.ln_gemm``, ``gemm.gemm_residual``)."""
+    def run(x, scale, bias, w1, b1, w2, b2):
+        s, bb, w1b, b1f, w2b, b2f = M._kernel_operands(scale, bias, w1, b1, w2, b2)
+        hidden, _, _ = G.ln_gemm(x, s, bb, w1b, b1f, G.EPI_GELU)
+        return G.gemm_residual(hidden, w2b, b2f, x)
+    return run
+
+
+def _k1f_yardsticks(G, M, case):
+    """The earlier WMMA design's and the cuBLAS chain's times on K1f's case
+    inputs, in turns with K1f (K1f, WMMA, cuBLAS, cuBLAS, WMMA, K1f; means of
+    two medians of 20). K1f's own time in turns goes under ``turns_ms``: its
+    ``ms`` stays :func:`_time_forward`'s median of 20, as every kernel's."""
+    _, shape, kern, _, args, _ = case
+    cub_args, cub = _bf16_weights(args), _k1f_cublas(M)
+    fns = {"turns_ms": lambda: kern(*args), "wmma_ms": lambda: _k1f_wmma(G, M)(*args),
+           "cublas_chain_ms": lambda: cub(*cub_args)}
+    with torch.inference_mode():
+        got = _turns(fns)
+    print(f"[kernel] K1f {shape}: wgmma {got['turns_ms']:.4f} ms in turns, the earlier WMMA design "
+          f"{got['wmma_ms']:.4f} ms, the cuBLAS chain (torch.matmul, plain epilogues) "
+          f"{got['cublas_chain_ms']:.4f} ms")
+    return got
+
+
+def phase_kernels(M, A, smi, kc):
+    """3: K1f at the sampler's (16,384, 384, F 1536) and the training shape
+    (131,072, 384, F 1536), each beside the earlier WMMA design and the
+    cuBLAS chain in turns, the wgmma instances' registers; K2f."""
+    from ddm_tpu_torch.ops import gemm as G
+
     gen = torch.Generator(device="cuda").manual_seed(0)
     T, D, F, B, N, H = 16384, 384, 1536, 256, 64, 6
-    srcs = {"K1f": (["ddm_tpu_torch/csrc/gemm.cu", "ddm_tpu_torch/csrc/common.cuh"],
-                    "ddm_tpu/ops/mlp_block.py:144"),
+    srcs = {"K1f": (["ddm_tpu_torch/csrc/gemm_wg.cu", "ddm_tpu_torch/csrc/wgmma.cuh",
+                     "ddm_tpu_torch/csrc/common.cuh"], "ddm_tpu/ops/mlp_block.py:144"),
             "K2f": (["ddm_tpu_torch/csrc/attention.cu", "ddm_tpu_torch/csrc/gemm.cu",
                      "ddm_tpu_torch/csrc/mma_frag.cuh", "ddm_tpu_torch/csrc/common.cuh"],
                     "ddm_tpu/ops/attention.py:341")}
+    insts = _wg_instances(kc)
     results = []
     for case in (_k1f_case(M, gen, T, D, F), _k2f_case(A, gen, B, N, D, H)):
         sources, replaces = srcs[case[0]]
         results.append(_entry(case[0], sources[0], sources, replaces, *_time_forward(case, smi)))
+        if case[0] == "K1f":
+            results[-1].update(_k1f_yardsticks(G, M, case), instances=insts,
+                               tma_encode_us=_tma_encode_us(kc, case[4][0]))
+            train = _k1f_case(M, gen, TRAIN_BATCH * TRAIN_M * 64, D, F)
+            entry = _shape_entry("dit-s training", train, _time_forward(train, smi))
+            entry.update(_k1f_yardsticks(G, M, train))
+            results[-1]["train_shape"] = entry
+            del train
+            torch.cuda.empty_cache()
     return results
 
 
@@ -865,12 +992,114 @@ def _time_backward(case, smi, counters=None,
     return worst, ms, plain_ms, bound
 
 
+def _k1b_cublas(M, fast=False):
+    """K1b's function with its five products through torch.matmul (cuBLAS,
+    bf16 in and out) and plain epilogues, the LayerNorm backward in plain
+    torch: the chain yardstick, which the port never calls. Takes
+    :func:`_bf16_weights`' operands and the bf16 cotangent."""
+    bf = torch.bfloat16
+
+    def run(x, scale, bias, w1, b1, w2, b2, dob):
+        xhat, inv = M.ln_stats(x.float())
+        y = (xhat * scale + bias).to(bf)
+        gf, dfac = M._gelu_and_grad(torch.matmul(y, w1.t()).float() + b1, fast)
+        g = gf.to(bf)
+        dw2, db2 = torch.matmul(dob.t(), g), dob.float().sum(0)
+        dh = torch.matmul(dob, w2).float() * dfac
+        dhb = dh.to(bf)
+        dw1, db1 = torch.matmul(dhb.t(), y), dh.sum(0)
+        dx, dscale, dbias = M.layer_norm_bwd(torch.matmul(dhb, w1).float(), xhat, inv, scale,
+                                             dob.float())
+        return dx.to(bf), dscale, dbias, dw1, db1, dw2, db2
+    return run
+
+
+K1B_STEPS = ("recompute", "dW2", "dh", "dW1", "dy", "ln_bwd")
+
+
+def _k1b_wmma(G, M):
+    """K1b as the earlier design ran it, the operand casts included: the WMMA
+    recompute, the TN, NN, TN and NN products, then the LayerNorm backward."""
+    def run(x, scale, bias, w1, b1, w2, b2, dout):
+        s, bb, w1b, b1f, w2b, _ = M._kernel_operands(scale, bias, w1, b1, w2, b2)
+        dob = dout.to(torch.bfloat16).contiguous()
+        g, dfac, y = G.ln_gemm(x, s, bb, w1b, b1f, G.EPI_GELU_GRAD, with_y=True)
+        dw2, db2 = G.gemm_tn(dob, g, with_colsum=True)
+        del g
+        dhb, db1 = G.gemm_nn(dob, w2b, G.NN_DGELU, dfac=dfac)
+        del dfac
+        dw1, _ = G.gemm_tn(dhb, y)
+        dy = G.gemm_nn(dhb, w1b, G.NN_F32)
+        del dhb
+        dx, dscale, dbias = G.ln_bwd(x, dy, dob, s)
+        return dx, dscale, dbias, dw1, db1, dw2, db2
+    return run
+
+
+def _k1b_chain_ms(G, M, args, dout):
+    """K1b's six launches timed one by one, the wgmma chain and the earlier
+    WMMA chain on the same inputs (``{design: {step: ms}}``), each step in
+    turns with its counterpart."""
+    x = args[0]
+    s, bb, w1b, b1f, w2b, _ = M._kernel_operands(*args[1:])
+    dob = dout.to(torch.bfloat16).contiguous()
+    fns = {}
+    for design, ln, tn, nn in (("wgmma", G.ln_gemm_wg, G.gemm_tn_wg, G.gemm_nn_wg),
+                               ("wmma", G.ln_gemm, G.gemm_tn, G.gemm_nn)):
+        g, dfac, y = ln(x, s, bb, w1b, b1f, G.EPI_GELU_GRAD, with_y=True)
+        dhb, _ = nn(dob, w2b, G.NN_DGELU, dfac=dfac)
+        dy = nn(dhb, w1b, G.NN_F32)
+        fns[design] = {
+            "recompute": lambda ln=ln: ln(x, s, bb, w1b, b1f, G.EPI_GELU_GRAD, with_y=True),
+            "dW2": lambda tn=tn, g=g: tn(dob, g, with_colsum=True),
+            "dh": lambda nn=nn, dfac=dfac: nn(dob, w2b, G.NN_DGELU, dfac=dfac),
+            "dW1": lambda tn=tn, dhb=dhb, y=y: tn(dhb, y),
+            "dy": lambda nn=nn, dhb=dhb: nn(dhb, w1b, G.NN_F32),
+            "ln_bwd": lambda dy=dy: G.ln_bwd(x, dy, dob, s)}
+    out = {"wgmma": {}, "wmma": {}}
+    with torch.no_grad():
+        for step in K1B_STEPS:
+            got = _turns({d: fns[d][step] for d in out})
+            for design in out:
+                out[design][step] = got[design]
+    print("[kernel] K1b's chain launch by launch, wgmma (the earlier WMMA design) ms: " +
+          ", ".join(f"{st} {out['wgmma'][st]:.4f} ({out['wmma'][st]:.4f})" for st in K1B_STEPS))
+    del fns
+    torch.cuda.empty_cache()
+    return out
+
+
+def _k1b_yardsticks(G, M, case, chain=False):
+    """The cuBLAS chain's time on K1b's case inputs in turns with K1b (means
+    of two medians of 10); with ``chain``, the earlier WMMA chain as one call
+    in the same turns (``wmma_ms``), then both chains launch by launch
+    (``chain_ms``). K1b's own time in turns goes under ``turns_ms``."""
+    _, shape, kern, _, inputs, _ = case
+    *args, dout = inputs
+    cub_args, cub = (*_bf16_weights(args), dout.to(torch.bfloat16)), _k1b_cublas(M)
+    fns = {"turns_ms": kern, "cublas_chain_ms": lambda: cub(*cub_args)}
+    if chain:
+        wmma = _k1b_wmma(G, M)
+        fns["wmma_ms"] = lambda: wmma(*inputs)
+    with torch.no_grad():
+        got = _turns(fns, reps=10)
+    print(f"[kernel] K1b {shape}: wgmma chain {got['turns_ms']:.4f} ms in turns, " +
+          (f"the earlier WMMA chain {got['wmma_ms']:.4f} ms, " if chain else "") +
+          f"the cuBLAS chain (torch.matmul, plain epilogues) {got['cublas_chain_ms']:.4f} ms")
+    if chain:
+        got["chain_ms"] = _k1b_chain_ms(G, M, args, dout)
+    return got
+
+
 def phase_backward(M, A, smi):
+    from ddm_tpu_torch.ops import gemm as G
+
     gen = torch.Generator(device="cuda").manual_seed(1)
     D, F, H, N = 384, 1536, 6, 64
     B = TRAIN_BATCH * TRAIN_M
-    srcs = {"K1b": (["ddm_tpu_torch/csrc/gemm_bwd.cu", "ddm_tpu_torch/csrc/gemm.cu",
-                     "ddm_tpu_torch/csrc/common.cuh"], "ddm_tpu/ops/mlp_block.py:211"),
+    srcs = {"K1b": (["ddm_tpu_torch/csrc/gemm_wg.cu", "ddm_tpu_torch/csrc/gemm_bwd.cu",
+                     "ddm_tpu_torch/csrc/wgmma.cuh", "ddm_tpu_torch/csrc/common.cuh"],
+                    "ddm_tpu/ops/mlp_block.py:211"),
             "K2b": (["ddm_tpu_torch/csrc/attention.cu", "ddm_tpu_torch/csrc/gemm_bwd.cu",
                      "ddm_tpu_torch/csrc/gemm.cu", "ddm_tpu_torch/csrc/attention_bwd_regs.cuh",
                      "ddm_tpu_torch/csrc/mma_frag.cuh", "ddm_tpu_torch/csrc/common.cuh"],
@@ -881,6 +1110,10 @@ def phase_backward(M, A, smi):
         counters = {A.BWD_LAUNCHES: 2, A.SPLIT_BWD_LAUNCHES: 0} if case[0] == "K2b" else None
         results.append(_entry(case[0], sources[0], sources, replaces,
                               *_time_backward(case, smi, counters)))
+        if case[0] == "K1b":
+            results[-1].update(_k1b_yardsticks(G, M, case, chain=True))
+        del case
+        torch.cuda.empty_cache()
     return results
 
 
@@ -2161,16 +2394,24 @@ def _shape_entry(path, case, times):
             **times[3]}
 
 
-def _path_shapes(M, A, smi, gen, path, T, D, F, attn):
+def _path_shapes(M, A, smi, gen, path, T, D, F, attn, yardsticks=False):
     """K1f and K1b at (T, D, F), then each attention half-block of ``attn``
     ``[(name, B, N, D, H), ...]`` (K2f forward; K2b backward), against its
     plain version by its rule above, the backward's second call
-    bit-identical. ``{name: [{"path", "shape", ...}]}`` for the kernels line."""
+    bit-identical; with ``yardsticks`` K1f and K1b also beside the cuBLAS
+    chain (and K1f the earlier WMMA design) in turns. ``{name: [{"path",
+    "shape", ...}]}`` for the kernels line."""
+    from ddm_tpu_torch.ops import gemm as G
+
     shapes = {}
 
     def check(case, backward, counters):
         times = _time_backward(case, smi, counters) if backward else _time_forward(case, smi)
         shapes.setdefault(case[0], []).append(_shape_entry(path, case, times))
+        if yardsticks and case[0] == "K1f":
+            shapes["K1f"][-1].update(_k1f_yardsticks(G, M, case))
+        if yardsticks and case[0] == "K1b":
+            shapes["K1b"][-1].update(_k1b_yardsticks(G, M, case))
         torch.cuda.empty_cache()
 
     check(_k1f_case(M, gen, T, D, F), False, None)
@@ -2191,7 +2432,8 @@ def phase_dit_b_kernels(M, A, smi):
     D, H = DIT_B["embed_dim"], DIT_B["heads"]
     B = TRAIN_BATCH * TRAIN_M
     return _path_shapes(M, A, smi, torch.Generator(device="cuda").manual_seed(9), "dit-b",
-                        B * 64, D, 4 * D, [("K2f", B, 64, D, H), ("K2f", 64, 64, D, H)])
+                        B * 64, D, 4 * D, [("K2f", B, 64, D, H), ("K2f", 64, 64, D, H)],
+                        yardsticks=True)
 
 
 def phase_m32_kernels(M, A, smi):
@@ -3283,8 +3525,10 @@ def _script(stem):
 
 def phase_whole_block(smi):
     """3t: X2f at (B 256, N 64, D 384, H 6, F 1536), DiT-S/4's sampling
-    block: bit for bit the K2f -> K1f pair with the resident core forced
-    (torch.equal), one block and an 8-block chain against the pair as the
+    block: bit for bit the K2f -> MLP pair it reproduces, the resident core
+    forced and the MLP half on the WMMA products (``gemm.ln_gemm`` +
+    ``gemm.gemm_residual``, which K6f and K2 still launch; K1f runs the
+    wgmma products) (torch.equal), one block and an 8-block chain against the pair as the
     paths run it in turns (scripts/torch_exp_whole_block.py ``block_times``),
     and the plain version by the bf16 rule. Returns the X2f entry; no path
     launches it."""
@@ -3298,8 +3542,8 @@ def phase_whole_block(smi):
     if W.LAUNCHES.count == before:
         raise AssertionError(f"X2f {shape}: the kernel did not launch")
     if not res["bit_identical"]:
-        raise AssertionError(f"X2f {shape} is not the K2f -> K1f pair (resident core) bit for "
-                             f"bit: max |diff| {res['max_abs_diff']:.4g}")
+        raise AssertionError(f"X2f {shape} is not the K2f -> MLP pair (resident core, WMMA "
+                             f"MLP products) bit for bit: max |diff| {res['max_abs_diff']:.4g}")
     x, p = exp.block_inputs()
     with torch.inference_mode():
         got = exp.merged(x, p, H)
@@ -3309,8 +3553,8 @@ def phase_whole_block(smi):
         plain_ms = _median_ms(lambda: W.whole_block_reference(x, *p, H))
     c8 = f"{exp.CHAIN}blk"
     mean = {n: {k: float(np.mean(v)) for k, v in res[n].items()} for n in ("1blk", c8)}
-    print(f"[kernel] X2f {shape} bf16: bit for bit the K2f -> K1f pair with the resident "
-          f"core; against the plain "
+    print(f"[kernel] X2f {shape} bf16: bit for bit the K2f -> MLP pair with the resident "
+          f"core and the WMMA MLP products; against the plain "
           f"version max_abs_err={max_err:.6g} (tol {tol:.6g}), mean_abs_err={mean_err:.6g}; "
           f"one block merged {mean['1blk']['merged']:.4f} ms, pair {mean['1blk']['pair']:.4f} "
           f"ms; {exp.CHAIN}-block chain merged {mean[c8]['merged']:.4f} ms, pair "
@@ -3534,9 +3778,10 @@ def phase_ablate(A, M, smi):
 
 
 def _in_turns(fns, names, reps=20):
-    """Median ms of ``fns[name]`` in the order a, b, b, a: ``{name: [ms, ms]}``."""
+    """Median ms of ``fns[name]`` in the order a, b, ..., ..., b, a: ``{name:
+    [ms, ms]}``."""
     out = {n: [] for n in names}
-    for n in (names[0], names[1], names[1], names[0]):
+    for n in list(names) + list(names)[::-1]:
         out[n].append(_median_ms(fns[n], reps=reps))
     return out
 
@@ -4331,7 +4576,7 @@ def main(argv=None) -> None:
     cfg = {**MODEL_DEFAULTS, "depth": DEPTH, "sample_steps": STEPS, "eps_churn": 1.0}
     moe_cfg = {**cfg, **MOE}
     steps = [
-        ("kernels", lambda: phase_kernels(M, A, smi)),
+        ("kernels", lambda: phase_kernels(M, A, smi, kc)),
         ("backward", lambda: phase_backward(M, A, smi)),
         ("energy", lambda: phase_energy(E, smi)),
         ("flash", lambda: phase_flash(FL, smi)),

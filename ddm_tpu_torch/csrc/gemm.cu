@@ -1,13 +1,14 @@
 // Row-panel GEMMs with fused prologues and epilogues for the DiT half-blocks.
 //
-// Replaces, together with attention.cu, the two TPU forward kernels that a
-// DiT block runs:
-//   * ddm_tpu/ops/mlp_block.py `_fwd_kernel` (via `_fused_fwd_call`):
-//       out = x + gelu(LN(x) W1 + b1) W2 + b2
-//     = ddm_ln_gemm(gelu=1) then ddm_gemm_residual.
-//   * ddm_tpu/ops/attention.py `_blk_fwd_kernel` (via `_fused_block_fwd_call`):
-//       out = x + proj(MHA(qkv(LN(x))))
-//     = ddm_ln_gemm(gelu=0), ddm_attention_core, ddm_gemm_residual.
+// Replaces, together with attention.cu, the TPU attention half-block's
+// forward, ddm_tpu/ops/attention.py `_blk_fwd_kernel` (via
+// `_fused_block_fwd_call`): out = x + proj(MHA(qkv(LN(x)))) =
+// ddm_ln_gemm(gelu=0), ddm_attention_core, ddm_gemm_residual; and the
+// F-chunked MLP forward K6f below. These are the WMMA products that K2f,
+// K2b, K4, K6f, K6b, K7 and K10 launch. The MLP half-block K1f
+// (ddm_tpu/ops/mlp_block.py `_fwd_kernel`, out = x + gelu(LN(x) W1 + b1) W2
+// + b2) and its backward K1b run the wgmma products of gemm_wg.cu; X2f
+// (whole_block.cu) reproduces this file's ln_gemm + gemm_residual pair.
 //
 // What bounds it on the H100: at the DiT-S/4 sampling shape (T = 16384 rows,
 // D = 384, F = 1536) the MLP products are 2 x 19.3 GFLOP against ~12.6 MB of
@@ -25,10 +26,10 @@
 //   * bias, exact-erf GELU (or, with the launch parameter `fast`, the
 //     sigmoid GELU of --fast-gelu) and the residual are epilogues on the fp32
 //     accumulators, so no fp32 intermediate reaches device memory;
-//   * the (T, F) hidden activation still goes through device memory. An
-//     F-chunked kernel that keeps it on chip is later work, as are wgmma,
-//     TMA and a multi-stage copy pipeline: these products are WMMA
-//     (mma.sync) on synchronously loaded tiles.
+//   * the (T, F) hidden activation still goes through device memory.
+//     These products are WMMA (mma.sync) on synchronously loaded tiles;
+//     gemm_wg.cu's wgmma mainloop fed by a TMA ring, which K1f and K1b
+//     run, is what the other chains move onto next.
 //
 // Numerics follow the TPU kernels: LN statistics in fp32 with eps 1e-6,
 // bf16 operands with fp32 accumulation, GELU in fp32 (exact erf, where the

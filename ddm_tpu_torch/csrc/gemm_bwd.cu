@@ -2,10 +2,13 @@
 // half-block backwards.
 //
 // Replaces, with ddm_ln_gemm (gemm.cu) for the forward recompute and
-// ddm_attention_core / ddm_attention_core_bwd (attention.cu), the two TPU
-// backward kernels that a DiT block runs in training:
-//   * ddm_tpu/ops/mlp_block.py `_bwd_kernel` / `_bwd_body` (K1b);
-//   * ddm_tpu/ops/attention.py `_blk_bwd_kernel` (K2b).
+// ddm_attention_core / ddm_attention_core_bwd (attention.cu), the TPU
+// attention half-block's backward, ddm_tpu/ops/attention.py
+// `_blk_bwd_kernel` (K2b, and K4 and K7b around it), and with it the
+// backward of the tensor-parallel MLP partial (K6b) and of the expert FFN
+// (K10b). The MLP half-block's backward K1b (ddm_tpu/ops/mlp_block.py
+// `_bwd_kernel` / `_bwd_body`) runs gemm_wg.cu's wgmma products and this
+// file's LayerNorm backward.
 //
 // The TPU kernels keep the weights and fp32 dW accumulators in VMEM and sum
 // dW across their sequential grid. CUDA blocks run at once and in no order,
@@ -38,12 +41,13 @@
 // GELU exact, or the sigmoid GELU where the launch parameter `fast` is set).
 // The dense callers run a batch of one.
 //
-// What bounds it on the H100: at the training shape (T = 131072 rows,
-// D = 384, F = 1536) the MLP backward is ~0.8 TFLOP of bf16 products per
-// block, plus the (T, F) activations that go through device memory (g and
-// dh in bf16, gelu'(h) in fp32: ~1.6 GB per call). The products are WMMA
-// (mma.sync) on synchronously loaded tiles, as in gemm.cu; wgmma, TMA and
-// keeping the hidden activation on chip are later work.
+// What bounds it on the H100: an MLP backward's products at DiT-S/4's
+// training shape (T = 131072 rows, D = 384, F = 1536; K6b takes a rank's
+// share of F) are ~0.8 TFLOP of bf16 per block, plus
+// the (T, F) activations that go through device memory (g and dh in bf16,
+// gelu'(h) in fp32: ~1.6 GB per call). The products are WMMA (mma.sync) on
+// synchronously loaded tiles, as in gemm.cu; moving them onto gemm_wg.cu's
+// wgmma mainloop, as K1b's are, is the next step.
 #include <algorithm>
 
 #include "common.cuh"

@@ -1,5 +1,8 @@
-"""ctypes launchers for the half-block GEMMs (``csrc/gemm.cu``,
-``csrc/gemm_bwd.cu``), shared by the MLP, attention and expert-FFN wrappers.
+"""ctypes launchers for the half-block GEMMs, shared by the MLP, attention
+and expert-FFN wrappers: the WMMA products of ``csrc/gemm.cu`` and
+``csrc/gemm_bwd.cu`` (K2, K4, K6, K7, K10), and the wgmma products fed by a
+TMA ring of ``csrc/gemm_wg.cu`` (``*_wg``: K1f and K1b), with their tile
+and split plans.
 
 Each function takes CUDA tensors that its caller has checked (bf16
 activations and weights, fp32 biases and LN parameters, contiguous),
@@ -18,7 +21,9 @@ import torch
 from .kernel_config import check_status, current_stream, load_library
 
 __all__ = ["ln_gemm", "gemm_residual", "gemm_partial", "gemm_nn", "gemm_tn", "ln_bwd",
-           "cast_bf16", "tn_splits", "sm_count", "ln_gemm_smem", "refuse_wide", "LN_GEMM_MAX_K"]
+           "cast_bf16", "tn_splits", "sm_count", "ln_gemm_smem", "refuse_wide", "LN_GEMM_MAX_K",
+           "ln_gemm_wg", "gemm_residual_wg", "gemm_nn_wg", "gemm_tn_wg", "wg_block_n",
+           "wg_tile_plan", "wg_split_plan", "wg_smem", "tma_operand"]
 
 # ln_gemm epilogues (csrc/gemm.cu LnGemmEpi)
 EPI_BIAS, EPI_GELU, EPI_GELU_GRAD = 0, 1, 2
@@ -225,3 +230,165 @@ def cast_bf16(src):
     check_status(load_library().ddm_cast_bf16(
         src.data_ptr(), dst.data_ptr(), src.numel(), current_stream(src.device)), "cast_bf16")
     return dst
+
+
+# --- the wgmma products (csrc/gemm_wg.cu): K1f and K1b ---
+
+WG_BM, WG_BK, WG_STAGES = 128, 64, 4  # output rows a tile, depth a stage, ring stages
+
+
+def wg_block_n(N: int) -> int:
+    """The wgmma tile's width for an output of N columns: 192 where it
+    divides N (D 384 is 2 x 192, F 1536 8 x 192), else 256, else 128."""
+    return 192 if N % 192 == 0 else 256 if N % 256 == 0 else 128
+
+
+def wg_smem(kind: str, bn: int, K: int) -> int:
+    """Dynamic shared memory of a wgmma block (``csrc/gemm_wg.cu``
+    ``wg_smem``): 1024 bytes of alignment slack, the ring's stages (a 128 x
+    64 A tile and a bn x 64 B tile, bf16), 128 bytes of barriers, and the
+    kind's tables: the LN-prologue product's mean and rstd a row and its
+    fp32 LN scale and bias over the depth K; the NN product's db1 partials
+    of 8 warps; the TN product's two halves of column sums."""
+    s = 1024 + WG_STAGES * (WG_BM * WG_BK * 2 + bn * WG_BK * 2) + 128
+    extra = {"ln_gemm": 2 * WG_BM + 2 * K, "residual": 0, "nn": 8 * bn, "tn": 2 * WG_BM}
+    return s + 4 * extra[kind]
+
+
+def wg_tile_plan(T: int, N: int, sms: int, most: int = 4) -> Tuple[int, int, Tuple[int, int]]:
+    """``(bn, tiles, grid)`` of a wgmma product with T output rows and N
+    columns: a block takes a 128-row tile and walks ``tiles`` column tiles
+    of ``bn`` (up to ``most``, fewer where the blocks would leave a tenth
+    of the SMs idle; the groups balanced), ``grid`` = (row tiles, column
+    groups). A function of the shapes and the SM count. The LN-prologue
+    product walks up to 8: its first tile normalises the rows, the others
+    reuse them."""
+    bn = wg_block_n(N)
+    mblocks, ntiles = -(-T // WG_BM), -(-N // bn)
+    tiles = min(ntiles, most)
+    while tiles > 1 and mblocks * -(-ntiles // tiles) < 0.9 * sms:
+        tiles -= 1
+    groups = -(-ntiles // tiles)
+    return bn, -(-ntiles // groups), (mblocks, groups)
+
+
+def wg_split_plan(T: int, Ma: int, Nb: int, sms: int) -> Tuple[int, int, int]:
+    """``(bn, splits, rows)`` of the split-K weight-gradient product
+    ``a (T, Ma)^T . b (T, Nb)``: each split a fixed range of ``rows`` rows,
+    a whole number of 64-row tiles, the splits covering T exactly; the
+    fewest splits whose blocks fill the card's waves to 90%, else the
+    fullest waves of up to 64 splits. A function of the shapes and the SM
+    count only, so the sum order never changes."""
+    bn = wg_block_n(Nb)
+    tiles = -(-Ma // WG_BM) * -(-Nb // bn)
+    chunks = -(-T // WG_BK)
+    best, best_eff = 1, 0.0
+    for want in range(1, min(chunks, 64) + 1):
+        blocks = tiles * want
+        eff = blocks / (-(-blocks // sms) * sms)
+        if blocks >= sms and eff >= 0.9:
+            best = want
+            break
+        if eff > best_eff + 1e-9:
+            best, best_eff = want, eff
+    rows = -(-chunks // best) * WG_BK
+    return bn, -(-T // rows), rows
+
+
+def tma_operand(t: torch.Tensor, name: str) -> None:
+    """The TMA rules for a bf16 operand of the wgmma products: 2-D,
+    row-major with unit column stride, its base and row stride 16-byte
+    aligned, at most 2^31 - 1 rows and columns; raises otherwise."""
+    if t.dtype != torch.bfloat16 or t.dim() != 2 or t.stride(1) != 1:
+        raise ValueError(f"{name}: a TMA operand is a 2-D bf16 row-major matrix, got "
+                         f"{t.dtype} {tuple(t.shape)} strides {t.stride()}")
+    if t.data_ptr() % 16 or (t.stride(0) * 2) % 16 or max(t.shape) >= 2 ** 31:
+        raise ValueError(f"{name}: TMA needs a 16-byte-aligned base and row stride, got "
+                         f"address {t.data_ptr()} and row stride {t.stride(0)}")
+
+
+def _sms(dev: torch.device) -> int:
+    return sm_count(dev.index or 0)
+
+
+def ln_gemm_wg(x, scale, bias, w, b, epi: int, with_y: bool = False, fast_gelu: bool = False):
+    """:func:`ln_gemm` (``EPI_GELU`` or ``EPI_GELU_GRAD``) through the
+    wgmma kernel: ``(out, gelu_grad, y)`` of ``epi(LN(x) w^T + b)`` over
+    (T, K) rows, any K % 64 == 0 whose LN tables fit (:func:`wg_smem`),
+    ``epi`` and ``fast_gelu`` selecting one of four compiled epilogues."""
+    T, K = x.shape
+    N = w.shape[0]
+    tma_operand(x, "x")
+    tma_operand(w, "w")
+    bn, tiles, _ = wg_tile_plan(T, N, _sms(x.device), most=8)
+    out = torch.empty((T, N), dtype=torch.bfloat16, device=x.device)
+    grad = (torch.empty((T, N), dtype=torch.float32, device=x.device)
+            if epi == EPI_GELU_GRAD else None)
+    y = torch.empty_like(x)  # written either way: a block's later tiles read it
+    check_status(load_library().ddm_wg_ln_gemm(
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w.data_ptr(), b.data_ptr(),
+        out.data_ptr(), _ptr(grad), y.data_ptr(), T, K, N, epi, int(fast_gelu), bn, tiles,
+        current_stream(x.device)), "ln_gemm_wg")
+    return out, grad, y if with_y else None
+
+
+def gemm_residual_wg(a, w, b, res):
+    """:func:`gemm_residual` through the wgmma kernel: ``bf16(res + (a w^T +
+    b))`` over (T, K) rows."""
+    T, K = a.shape
+    N = w.shape[0]
+    tma_operand(a, "a")
+    tma_operand(w, "w")
+    bn, tiles, _ = wg_tile_plan(T, N, _sms(a.device))
+    out = torch.empty((T, N), dtype=torch.bfloat16, device=a.device)
+    check_status(load_library().ddm_wg_gemm_residual(
+        a.data_ptr(), w.data_ptr(), b.data_ptr(), res.data_ptr(), out.data_ptr(), T, K, N,
+        bn, tiles, current_stream(a.device)), "gemm_residual_wg")
+    return out
+
+
+def gemm_nn_wg(a, w, epi: int, dfac=None):
+    """``a (T, K) . w (K, N)`` with ``w`` nn.Linear's (out, in) weight read as
+    (K, N), through the wgmma kernel: ``NN_F32`` -> fp32 out; ``NN_DGELU``
+    -> ``(bf16(dh), sum_rows(dh))``, ``dh = (a . w) * dfac`` in fp32."""
+    if epi not in (NN_F32, NN_DGELU):
+        raise ValueError(f"gemm_nn_wg takes NN_F32 or NN_DGELU, got {epi}")
+    T, K = a.shape
+    N = w.shape[1]
+    tma_operand(a, "a")
+    tma_operand(w, "w")
+    dev = a.device
+    bn, tiles, grid = wg_tile_plan(T, N, _sms(dev))
+    out = torch.empty((T, N), device=dev,
+                      dtype=torch.float32 if epi == NN_F32 else torch.bfloat16)
+    ws = colsum = None
+    if epi == NN_DGELU:
+        ws = torch.empty((grid[0], N), dtype=torch.float32, device=dev)
+        colsum = torch.empty((N,), dtype=torch.float32, device=dev)
+    check_status(load_library().ddm_wg_gemm_nn(
+        a.data_ptr(), w.data_ptr(), _ptr(dfac), out.data_ptr(), _ptr(ws), _ptr(colsum), T, K,
+        N, epi, bn, tiles, current_stream(dev)), "gemm_nn_wg")
+    return (out, colsum) if epi == NN_DGELU else out
+
+
+def gemm_tn_wg(a, b, with_colsum: bool = False):
+    """``a (T, Ma)^T . b (T, Nb)`` in fp32 through the wgmma kernel ->
+    ``(dw (Ma, Nb), colsum)``: ``colsum`` the fp32 column sums of ``a``
+    when ``with_colsum``, else None. Deterministic split-K
+    (:func:`wg_split_plan`): fixed row ranges, summed in a fixed order."""
+    T, Ma = a.shape
+    Nb = b.shape[1]
+    tma_operand(a, "a")
+    tma_operand(b, "b")
+    dev = a.device
+    bn, splits, rows = wg_split_plan(T, Ma, Nb, _sms(dev))
+    ws = torch.empty((splits, Ma, Nb), dtype=torch.float32, device=dev)
+    dw = torch.empty((Ma, Nb), dtype=torch.float32, device=dev)
+    cws = colsum = None
+    if with_colsum:
+        cws = torch.empty((splits, Ma), dtype=torch.float32, device=dev)
+        colsum = torch.empty((Ma,), dtype=torch.float32, device=dev)
+    check_status(load_library().ddm_wg_gemm_tn(
+        a.data_ptr(), b.data_ptr(), ws.data_ptr(), dw.data_ptr(), _ptr(cws), _ptr(colsum), T,
+        Ma, Nb, splits, rows, bn, current_stream(dev)), "gemm_tn_wg")
+    return dw, colsum

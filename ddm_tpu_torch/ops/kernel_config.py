@@ -80,6 +80,17 @@ _SIGNATURES = {
     "ddm_gemm_nn": [_P] * 7 + [_I] * 8 + [_P],
     # a, b, ws, dw, colsum_ws, colsum_out, T, Ma, Nb, splits, rows, colsum_of_b, batch, stream
     "ddm_gemm_tn": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # the wgmma products (csrc/gemm_wg.cu): x, ln_scale, ln_bias, w, bias, out, out2, y_out,
+    # T, K, N, epi, fast, bn, tiles, stream
+    "ddm_wg_ln_gemm": [_P] * 8 + [_I] * 7 + [_P],
+    # a, w, bias, res, out, T, K, N, bn, tiles, stream
+    "ddm_wg_gemm_residual": [_P] * 5 + [_I] * 5 + [_P],
+    # a, w, dfac, out, ws, colsum, T, K, N, epi, bn, tiles, stream
+    "ddm_wg_gemm_nn": [_P] * 6 + [_I] * 6 + [_P],
+    # a, b, ws, dw, cws, colsum, T, Ma, Nb, splits, rows, bn, stream
+    "ddm_wg_gemm_tn": [_P] * 6 + [_I] * 6 + [_P],
+    # ptr, rows, cols, n, us (float*)
+    "ddm_wg_encode_cost": [_P, _I, _I, _I, _P],
     # x, dy, dres, scale, dx, partial, dscale_dbias, T, D, stream
     "ddm_ln_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     # X3: dy, dres, dx, T, D, stream

@@ -2,13 +2,18 @@
 
 Port of ``ddm_tpu/ops/mlp_block.py``. :func:`fused_mlp_block` is a
 ``torch.autograd.Function``. On CUDA tensors its forward launches kernel K1f,
-two hand-written CUDA kernels (``csrc/gemm.cu``): an LN-prologue GEMM with a
-``+b1``/exact-erf GELU epilogue, then a GEMM with a ``x + (acc + b2)``
-epilogue. It saves only its inputs, and its backward launches K1b, which
-recomputes the forward as the TPU kernel does (``csrc/gemm.cu``,
-``csrc/gemm_bwd.cu``). On CPU tensors the same Function runs the plain
-versions, :func:`mlp_block_reference` and :func:`mlp_block_bwd_reference`,
-with the same dtype plan.
+two hand-written wgmma products fed by a TMA ring (``csrc/gemm_wg.cu``): an
+LN-prologue product with a ``+b1``/exact-erf GELU epilogue, then a product
+with a ``x + (acc + b2)`` epilogue. It saves only its inputs, and its
+backward launches K1b, which recomputes the forward as the TPU kernel does:
+the LN-prologue product writing g, gelu'(h) and y, the dW2, dh, dW1 and dy
+products (``csrc/gemm_wg.cu``; the weight gradients split over T in fixed
+row ranges, summed in a fixed order), then the LayerNorm backward
+(``csrc/gemm_bwd.cu``). The F-chunked forward K6f and the tensor-parallel
+K6b keep the WMMA products of ``csrc/gemm.cu`` and ``csrc/gemm_bwd.cu``. On
+CPU tensors the same Function runs the plain versions,
+:func:`mlp_block_reference` and :func:`mlp_block_bwd_reference`, with the
+same dtype plan.
 
 Weights use ``nn.Linear``'s layout: ``w1`` is (F, D), ``w2`` is (D, F).
 
@@ -43,11 +48,12 @@ backward, on CUDA tensors too.
 Past D 1344 (D % 128 == 0 up to 4096) the ladder still runs kernels:
 ``fchunked`` at k 2-8 (MLP ratio 4 up to D 2560, ratio 2 up to 3584,
 ratio 1 up to 4096; e.g. SD3-Medium's width, D 1536 and F 6144, at k 8),
-and ``fwdonly`` at ratio 1 and D 1408, 1664 and 1792. There the LN-prologue
-products (K1f's and K6f's first GEMM, K1b's recompute) run the streamed
-kernel of ``csrc/gemm.cu`` (:func:`ddm_tpu_torch.ops.gemm.ln_gemm` picks
-it past ``gemm.LN_GEMM_MAX_K``), and K1b's LayerNorm backward takes 4 warps a
-block past D 3584; the rest of each chain is unchanged.
+and ``fwdonly`` at ratio 1 and D 1408, 1664 and 1792. K1f's and K1b's
+LN-prologue product takes any D % 64 == 0 (the x chunks stream through its
+ring); K6f's first GEMM there runs the streamed WMMA kernel of
+``csrc/gemm.cu`` (:func:`ddm_tpu_torch.ops.gemm.ln_gemm` picks it past
+``gemm.LN_GEMM_MAX_K``), and K1b's LayerNorm backward takes 4 warps a
+block past D 3584.
 
 The tensor-parallel partial (``fused_mlp_partial`` of
 ``ddm_tpu/ops/mlp_block.py:652``): :func:`fused_mlp_partial` computes
@@ -267,8 +273,8 @@ def _kernel_operands(scale, bias, w1, b1, w2, b2=None):
 
 def _k1f(x, scale, bias, w1, b1, w2, b2, fast_gelu=False):
     s, bb, w1b, b1f, w2b, b2f = _kernel_operands(scale, bias, w1, b1, w2, b2)
-    hidden, _, _ = gemm.ln_gemm(x, s, bb, w1b, b1f, gemm.EPI_GELU, fast_gelu=fast_gelu)
-    out = gemm.gemm_residual(hidden, w2b, b2f, x)
+    hidden, _, _ = gemm.ln_gemm_wg(x, s, bb, w1b, b1f, gemm.EPI_GELU, fast_gelu=fast_gelu)
+    out = gemm.gemm_residual_wg(hidden, w2b, b2f, x)
     LAUNCHES.add()
     return out
 
@@ -297,14 +303,14 @@ def _k1b(x, scale, bias, w1, b1, w2, b2, dout, fast_gelu=False):
         raise ValueError(f"K1b cotangent must be {tuple(x.shape)}, got {tuple(dout.shape)}")
     s, bb, w1b, b1f, w2b, _ = _kernel_operands(scale, bias, w1, b1, w2, b2)
     dob = dout.to(torch.bfloat16).contiguous()
-    g, dfac, y = gemm.ln_gemm(x, s, bb, w1b, b1f, gemm.EPI_GELU_GRAD, with_y=True,
-                              fast_gelu=fast_gelu)
-    dw2, db2 = gemm.gemm_tn(dob, g, with_colsum=True)
+    g, dfac, y = gemm.ln_gemm_wg(x, s, bb, w1b, b1f, gemm.EPI_GELU_GRAD, with_y=True,
+                                 fast_gelu=fast_gelu)
+    dw2, db2 = gemm.gemm_tn_wg(dob, g, with_colsum=True)
     del g
-    dhb, db1 = gemm.gemm_nn(dob, w2b, gemm.NN_DGELU, dfac=dfac)
+    dhb, db1 = gemm.gemm_nn_wg(dob, w2b, gemm.NN_DGELU, dfac=dfac)
     del dfac
-    dw1, _ = gemm.gemm_tn(dhb, y)
-    dy = gemm.gemm_nn(dhb, w1b, gemm.NN_F32)
+    dw1, _ = gemm.gemm_tn_wg(dhb, y)
+    dy = gemm.gemm_nn_wg(dhb, w1b, gemm.NN_F32)
     del dhb
     dx, dscale, dbias = gemm.ln_bwd(x, dy, dob, s)
     BWD_LAUNCHES.add()

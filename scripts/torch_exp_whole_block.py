@@ -11,7 +11,10 @@ It prints the card's name and power limit, then, on the same seeded inputs
 at (B 256, N 64, D 384, H 6, F 1536), the sampler's block of DiT-S/4:
 
 - the largest |merged - pair| and whether the two agree bit for bit, the
-  pair's core forced to the resident design, the core X2f reproduces;
+  pair's core forced to the resident design and its MLP half run by the
+  WMMA products (``gemm.ln_gemm`` + ``gemm.gemm_residual``), what X2f
+  reproduces (K1f itself runs the wgmma products, whose sums run in
+  another order);
 - one block and an 8-block chain (the block's weights applied 8 times),
   X2f against the pair: median ms of ``--reps`` calls by CUDA events, taken
   in turns (pair, merged, merged, pair, ``--turns`` times);
@@ -71,16 +74,31 @@ def block_params(D: int, F: int, seed: int = 0):
             r(D, scale=0.1))
 
 
+def wmma_mlp(a, scale, bias, w1, b1, w2, b2):
+    """The MLP half-block through the WMMA products that K6f and K2 still
+    launch (the LN-prologue GEMM with the GELU epilogue, then the residual
+    GEMM): the products X2f reproduces bit for bit."""
+    from ddm_tpu_torch.ops import gemm
+    from ddm_tpu_torch.ops.mlp_block import _kernel_operands
+
+    s, bb, w1b, b1f, w2b, b2f = _kernel_operands(scale, bias, w1, b1, w2, b2)
+    hidden, _, _ = gemm.ln_gemm(a, s, bb, w1b, b1f, gemm.EPI_GELU)
+    return gemm.gemm_residual(hidden, w2b, b2f, a)
+
+
 def pair(x, p, H: int, design=None):
     """The port's two half-blocks, as every DiT path runs them (K2f, K1f);
-    ``design`` forces K2f's core design (X2f reproduces the resident one)."""
+    ``design`` forces K2f's core design and runs the MLP half on the WMMA
+    products (:func:`wmma_mlp`): X2f reproduces the resident core and those."""
     from ddm_tpu_torch.ops import attention as A
     from ddm_tpu_torch.ops.mlp_block import fused_mlp_block
 
     B, N, D = x.shape
-    a = A.fused_attention_block(x, *p[:6], H) if design is None else A._k2f(
-        x, *p[:6], H, design)
-    return fused_mlp_block(a.reshape(B * N, D), *p[6:]).reshape(B, N, D)
+    if design is None:
+        a = A.fused_attention_block(x, *p[:6], H)
+        return fused_mlp_block(a.reshape(B * N, D), *p[6:]).reshape(B, N, D)
+    a = A._k2f(x, *p[:6], H, design)
+    return wmma_mlp(a.reshape(B * N, D), *p[6:]).reshape(B, N, D)
 
 
 def merged(x, p, H: int):
@@ -133,9 +151,9 @@ def block_inputs(shape=SHAPE):
 
 
 def block_times(reps: int, turns: int, shape=SHAPE) -> dict:
-    """The bit check (against the pair with the resident core) and the
-    1-block and 8-block times (against the pair as the paths run it) at
-    ``shape``."""
+    """The bit check (against the pair with the resident core and the WMMA
+    MLP products) and the 1-block and 8-block times (against the pair as the
+    paths run it) at ``shape``."""
     H = shape[3]
     x, p = block_inputs(shape)
     with torch.inference_mode():

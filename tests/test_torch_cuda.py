@@ -2,7 +2,8 @@
 card, at head widths off 16 (Dh 8, 24, 40, 72), at DiT-XL's D 1152, with the fast GELU, the
 MLP half-block past D 1344 (the streamed LN-prologue GEMM, D 1408-4096), and the streamed
 attention cores past 227 KB of shared memory (Dh up to 3712), bit for bit the resident ones;
-the DiT tail X4f/X4b at every DiT path's width, X2f bit for bit the K2f -> K1f pair, X1's
+K1f's and K1b's wgmma chains at ragged T and D 64-1536 (y bit for bit the WMMA kernel's),
+the DiT tail X4f/X4b at every DiT path's width, X2f bit for bit the K2f -> MLP pair, X1's
 phase-batched cores bit for bit K2's, X3's ablations of K2b's chain, and the registers
 designs of the forward core and of K8f and K8b, the narrow heads (Dh 4, 8, 16) included.
 
@@ -130,6 +131,53 @@ def test_k1_backward_kernel_matches_plain_on_the_card(cuda_device, T, D, F):
     _assert_grads_close(got, want)
     for g, h in zip(got, again):  # deterministic: no atomics, fixed sum orders
         assert torch.equal(g, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("D,F", [(64, 256), (384, 1536), (768, 3072), (1152, 4608),
+                                 (1536, 6144)])
+@pytest.mark.parametrize("T", [8, 100, 16384 + 37])
+def test_k1_wgmma_chains_match_plain_on_the_card(cuda_device, T, D, F, fast):
+    """K1f's and K1b's chains on the wgmma products (``csrc/gemm_wg.cu``),
+    called directly at any width they take (the tiers send D 1152 and 1536
+    to K6f forward): ragged T, the erf and the sigmoid GELU, against the
+    plain versions by the bf16 and gradient rules; a second K1b call is
+    bit-identical (split-K in fixed row ranges, no atomics)."""
+    args = _on(cuda_device, _mlp_inputs(T, D, F, seed=70))
+    dout = torch.randn(T, D, generator=torch.Generator(device=cuda_device).manual_seed(71),
+                       device=cuda_device).to(torch.bfloat16)
+    before = (TM.LAUNCHES.count, TM.BWD_LAUNCHES.count)
+    with torch.no_grad():
+        got = TM._k1f(*args, fast_gelu=fast)
+        grads = TM._k1b(*args, dout, fast_gelu=fast)
+        again = TM._k1b(*args, dout, fast_gelu=fast)
+        torch.cuda.synchronize()
+    assert (TM.LAUNCHES.count - before[0], TM.BWD_LAUNCHES.count - before[1]) == (1, 2)
+    _assert_bf16_rule(got, TM.mlp_block_reference(*args, fast_gelu=fast))
+    _assert_grads_close(grads, TM.mlp_block_bwd_reference(*args, dout, fast_gelu=fast))
+    for g, h in zip(grads, again):
+        assert torch.equal(g, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,D,F", [(100, 384, 1536), (16384 + 37, 384, 1536),
+                                   (1000, 1152, 4608), (300, 4096, 4096), (513, 1408, 1408)])
+def test_wgmma_ln_product_keeps_ln_gemms_y_on_the_card(cuda_device, T, D, F):
+    """The wgmma LN-prologue product takes the row statistics in ln_gemm's
+    order, so y = bf16(LN(x)) is the WMMA kernel's bit for bit; gelu'(h)
+    agrees with the WMMA kernel's to fp32 sums taken in another order, and g
+    by the bf16 rule."""
+    x, scale, bias, w1, b1, _, _ = _on(cuda_device, _mlp_inputs(T, D, F, seed=72))
+    w1 = w1.to(torch.bfloat16)
+    g = TM.gemm
+    with torch.no_grad():
+        out, grad, y = g.ln_gemm_wg(x, scale, bias, w1, b1, g.EPI_GELU_GRAD, with_y=True)
+        out0, grad0, y0 = g.ln_gemm(x, scale, bias, w1, b1, g.EPI_GELU_GRAD, with_y=True)
+        torch.cuda.synchronize()
+    assert torch.equal(y, y0)
+    _assert_bf16_rule(out, out0)
+    assert float((grad - grad0).abs().max()) <= 1e-4 * float(grad0.abs().max())
 
 
 @pytest.mark.cuda
@@ -1877,22 +1925,26 @@ def test_x4_refuses_fp32_and_leaves_refused_shapes_plain_on_the_card(cuda_device
                                        (5, 32, 384, 6, 1536), (7, 48, 256, 4, 1024),
                                        (16, 64, 128, 2, 512)])
 def test_x2f_is_the_k2f_k1f_pair_bit_for_bit_on_the_card(cuda_device, B, N, D, H, F):
-    """X2f's output equals the port's K2f -> K1f pair's bit for bit with the
-    resident core forced (a rounded where the pair writes it, every
-    product's slices in the pair's order, the pair's epilogues and the core
-    tools/exp_whole_block.py reproduces), and the plain version's by the
-    bf16 rule."""
+    """X2f's output equals the port's K2f -> MLP pair's bit for bit with the
+    resident core forced and the MLP half on the WMMA products that K6f and
+    K2 still launch (``gemm.ln_gemm`` + ``gemm.gemm_residual``; K1f runs the
+    wgmma products, whose sums run in another order): a rounded where the
+    pair writes it, every product's slices in the pair's order, the pair's
+    epilogues and the core tools/exp_whole_block.py reproduces; and the
+    plain version's by the bf16 rule."""
     x, *attn = _on(cuda_device, _attn_inputs(B, N, D, seed=50))
     _, *mlp = _on(cuda_device, _mlp_inputs(8, D, F, seed=51))
     args = (x, *attn, *mlp)
-    counters = (TA.LAUNCHES, TM.LAUNCHES, TW.LAUNCHES)
+    counters = (TA.LAUNCHES, TW.LAUNCHES)
     before = [c.count for c in counters]
     with torch.inference_mode():
-        a = TA._k2f(x, *attn, H, "resident")
-        want = TM.fused_mlp_block(a.reshape(B * N, D), *mlp).reshape(B, N, D)
+        a = TA._k2f(x, *attn, H, "resident").reshape(B * N, D)
+        s, bb, w1b, b1f, w2b, b2f = TM._kernel_operands(*mlp)
+        hidden, _, _ = TM.gemm.ln_gemm(a, s, bb, w1b, b1f, TM.gemm.EPI_GELU)
+        want = TM.gemm.gemm_residual(hidden, w2b, b2f, a).reshape(B, N, D)
         got = TW.whole_block_fwd(*args, H)
         torch.cuda.synchronize()
-    assert [c.count - n for c, n in zip(counters, before)] == [1, 1, 1]
+    assert [c.count - n for c, n in zip(counters, before)] == [1, 1]
     assert got.dtype == torch.bfloat16 and got.shape == (B, N, D)
     assert torch.equal(got, want)
     _assert_bf16_rule(got, TW.whole_block_reference(*args, H))

@@ -12,9 +12,10 @@ in interpret mode on the same numpy inputs:
 - ``state_dict_from_jax`` at D 1536, a depth-1 DiT at that width (forward
   and one training step), and the trainer and sampler CLIs on the CPU;
 - on meta tensors with ``uses_kernel`` answering True (the card's path,
-  shapes only): every MLP tier past D 1344 reaches its first launch, and
-  the attention half at D 1536 still takes the third rung's plain products
-  around K7.
+  shapes only, through a recording stand-in for the kernel library): every
+  MLP tier past D 1344 reaches every launch of its forward and of K1b's
+  chain, and the attention half at D 1536 still takes the third rung's
+  plain products around K7.
 
 The CUDA kernels are held to these plain versions on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py`` 3p, 6p and 7o).
@@ -329,60 +330,112 @@ class Launched(Exception):
     pass
 
 
+class _Library:
+    """Stands in for the kernel library on meta tensors: records each entry
+    point's name and arguments and reports success."""
+
+    def __init__(self):
+        self.calls = []
+
+    @property
+    def names(self):
+        return [name for name, _ in self.calls]
+
+    def ln_products(self):
+        """``(name, T, K, N, epi)`` of each LN-prologue launch, WMMA or wgmma
+        (both take T, K, N and the epilogue code after their eight pointers)."""
+        return [(name, *args[8:12]) for name, args in self.calls
+                if name in ("ddm_ln_gemm", "ddm_wg_ln_gemm")]
+
+    def __getattr__(self, name):
+        def launch(*args):
+            self.calls.append((name, args))
+            return 0
+        return launch
+
+
+@pytest.fixture()
+def card_library(monkeypatch):
+    """``uses_kernel`` answering True and the launchers of ``ops/gemm.py``
+    reaching a recording library: the card's path, shapes only."""
+    lib = _Library()
+    monkeypatch.setattr(TM, "uses_kernel", lambda *t: True)
+    monkeypatch.setattr(TM.gemm, "load_library", lambda: lib)
+    monkeypatch.setattr(TM.gemm, "current_stream", lambda device: 0)
+    monkeypatch.setattr(TM.gemm, "_sms", lambda device: 132)
+    return lib
+
+
+# K1b's chain: the wgmma recompute, dW2 (+ db2), dh (+ db1), dW1, dy, then
+# the LayerNorm backward
+K1B_CHAIN = ["ddm_wg_ln_gemm", "ddm_wg_gemm_tn", "ddm_wg_gemm_nn", "ddm_wg_gemm_tn",
+             "ddm_wg_gemm_nn", "ddm_ln_bwd"]
+
+
+def _forward_chain(tier):
+    """The launches of the card's forward in ``tier``: K1f's two wgmma
+    products, or k K6f chunks of the WMMA LN-prologue GEMM and the partial
+    product."""
+    if tier[0] == "fchunked":
+        return ["ddm_ln_gemm", "ddm_gemm_partial"] * tier[1]
+    return ["ddm_wg_ln_gemm", "ddm_wg_gemm_residual"]
+
+
+def _ln_products(T, D, F, tier):
+    """The LN-prologue launches of the card's forward and backward in
+    ``tier`` as ``(name, T, K, N, epi)``: each K6f chunk takes F // k of
+    the hidden columns with the GELU epilogue, K1f all F, and K1b's
+    recompute all F with the GELU-gradient epilogue."""
+    if tier[0] == "fchunked":
+        fwd = [("ddm_ln_gemm", T, D, F // tier[1], TM.gemm.EPI_GELU)] * tier[1]
+    else:
+        fwd = [("ddm_wg_ln_gemm", T, D, F, TM.gemm.EPI_GELU)]
+    return fwd + [("ddm_wg_ln_gemm", T, D, F, TM.gemm.EPI_GELU_GRAD)]
+
+
 @pytest.mark.parametrize("T,D,F,tier", [
     (4096, 1408, 1408, ("fwdonly", 1)), (131072, 1536, 6144, ("fchunked", 8)),
     (4096, 1536, 6144, ("fchunked", 8)), (131072, 2048, 8192, ("fchunked", 8)),
     (16384, 3072, 6144, ("fchunked", 8)), (131072, 4096, 4096, ("fchunked", 8))])
-def test_card_runs_the_mlp_half_block_past_1344(monkeypatch, T, D, F, tier):
-    """On the card (``uses_kernel`` answering True) the MLP half-block past
-    D 1344 passes the port's checks and reaches its first launch, the
-    LN-prologue GEMM: K1f in the ``fwdonly`` tier, the first K6f chunk in
-    the ``fchunked`` tier, and K1b's chain (the backward of both). No
-    refusal is left. Meta tensors: only shapes are read."""
+def test_card_runs_the_mlp_half_block_past_1344(card_library, T, D, F, tier):
+    """On the card the MLP half-block past D 1344 passes the port's checks
+    and reaches every launch of its chains: K1f's two wgmma products in the
+    ``fwdonly`` tier, the k K6f chunks in the ``fchunked`` tier, and K1b's
+    chain (the backward of both) through its five wgmma products and the
+    LayerNorm backward. No refusal is left. Meta tensors: only shapes are
+    read."""
     assert tiers.mlp_tier(T, D, F) == tier
-    monkeypatch.setattr(TM, "uses_kernel", lambda *t: True)
-    reached = []
-
-    def ln_gemm(x, s, b, w, bb, epi, **kw):
-        reached.append((tuple(x.shape), tuple(w.shape), epi))
-        raise Launched
-
-    monkeypatch.setattr(TM.gemm, "ln_gemm", ln_gemm)
     x = torch.empty((T, D), dtype=torch.bfloat16, device="meta")
     w = [torch.empty(s, device="meta") for s in ((D,), (D,), (F, D), (F,), (D, F), (D,))]
-    with pytest.raises(Launched):
-        TM.fused_mlp_block(x, *w)
-    with pytest.raises(Launched):
-        TM.mlp_block_bwd(x, *w, torch.empty_like(x))
-    Fc = F // tier[1]
-    assert reached == [((T, D), (Fc, D), TM.gemm.EPI_GELU), ((T, D), (F, D), TM.gemm.EPI_GELU_GRAD)]
+    assert TM.fused_mlp_block(x, *w).shape == (T, D)
+    assert card_library.names == _forward_chain(tier)
+    grads = TM.mlp_block_bwd(x, *w, torch.empty_like(x))
+    assert [tuple(g.shape) for g in grads] == [(T, D), (D,), (D,), (F, D), (F,), (D, F), (D,)]
+    assert card_library.names == _forward_chain(tier) + K1B_CHAIN
+    assert card_library.ln_products() == _ln_products(T, D, F, tier)
 
 
 @pytest.mark.parametrize("D", range(1408, 4097, 128))
-def test_card_refuses_no_mlp_tier_past_1344(monkeypatch, D):
+def test_card_refuses_no_mlp_tier_past_1344(card_library, D):
     """At every D % 128 == 0 from 1408 to 4096, MLP ratios 1, 2 and 4 and
     the trainer's and sampler's row counts, wherever the JAX ladder runs a
-    kernel tier the card's forward and K1b's chain reach their first launch
-    (meta tensors, ``uses_kernel`` answering True); where it has none, the
-    plain versions run to their output."""
-    monkeypatch.setattr(TM, "uses_kernel", lambda *t: True)
-
-    def ln_gemm(*a, **kw):
-        raise Launched
-
-    monkeypatch.setattr(TM.gemm, "ln_gemm", ln_gemm)
+    kernel tier the card's forward and K1b's chain reach every launch (meta
+    tensors, ``uses_kernel`` answering True); where it has none, the plain
+    versions run to their output with no launch."""
     for ratio in (1, 2, 4):
         F = ratio * D
         for T in (4096, 16384, 131072):
             x = torch.empty((T, D), dtype=torch.bfloat16, device="meta")
             w = [torch.empty(s, device="meta") for s in ((D,), (D,), (F, D), (F,), (D, F), (D,))]
-            if tiers.mlp_tier(T, D, F) is None:
-                assert TM.fused_mlp_block(x, *w).shape == (T, D)
+            card_library.calls.clear()
+            tier = tiers.mlp_tier(T, D, F)
+            assert TM.fused_mlp_block(x, *w).shape == (T, D)
+            if tier is None:
+                assert card_library.names == []
                 continue
-            with pytest.raises(Launched):
-                TM.fused_mlp_block(x, *w)
-            with pytest.raises(Launched):
-                TM.mlp_block_bwd(x, *w, torch.empty_like(x))
+            TM.mlp_block_bwd(x, *w, torch.empty_like(x))
+            assert card_library.names == _forward_chain(tier) + K1B_CHAIN
+            assert card_library.ln_products() == _ln_products(T, D, F, tier)
 
 
 def test_card_runs_plain_products_around_k7_at_d1536(monkeypatch):
