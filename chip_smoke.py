@@ -49,17 +49,20 @@ is non-zero and no result line is printed:
 3. kernels: K1f (MLP half-block) at (16384, 384, F=1536) and K2f (attention
    half-block) at (256, 64, 384, H=6) in bf16 against their plain PyTorch
    versions on the same seeded inputs, with median times from CUDA events;
-   K1f also at the training shape (131072, 384, F=1536); at both shapes in
-   turns with the earlier WMMA design and the cuBLAS chain (its products
-   through torch.matmul with plain epilogues: a yardstick the port never
-   calls); the registers and local bytes of K1's 24 wgmma instances from
-   the ptxas log (none may use local memory); the host cost of a TMA
-   descriptor;
+   K1f also at the training shape (131072, 384, F=1536), K2f at (2048, 64,
+   384, H=6); at each shape in turns with the earlier WMMA chain and the
+   cuBLAS chain (its products through torch.matmul with plain epilogues,
+   around the same attention core: a yardstick the port never calls); the
+   registers and local bytes of K1's and K2's 30 wgmma instances from the
+   ptxas log, the attention chains' six printed apart (none may use local
+   memory); the host cost of a TMA descriptor;
    3b. backward kernels: K1b at (131072, 384, F=1536) and K2b at
    (2048, 64, 384, H=6), the training shapes, against their plain backward
-   versions, and a second call that must be bit-identical; K1b in turns
-   with the cuBLAS chain, then launch by launch (the recompute, dW2, dh,
-   dW1, dy, ln_bwd) beside the earlier WMMA chain's launches;
+   versions, and a second call that must be bit-identical; each in turns
+   with the earlier WMMA chain and the cuBLAS chain, then launch by launch
+   (K1b: the recompute, dW2, dh, dW1, dy, ln_bwd; K2b: the recompute, datt,
+   the core, dWproj, dWqkv, dy, ln_bwd) beside the earlier WMMA chain's
+   launches;
    3c. energy: K3f and K3b at (B=256, m=8, D=3072) fp32, beta 0.1 and 2.0;
    K3 at (64, 4, 12288) (the 64-px recipe's shape) and K9f/K9b at (256, 32,
    3072) (the m = 32 recipe's), each against its route's plain versions,
@@ -236,11 +239,15 @@ Dense tensor parallelism (``--tp``, Megatron layout), after those:
 DiT-XL/4 and the fast GELU, after those:
 
 3l. (xl-kernels) K2f at 2048 and 256 images of (64, 1152) H 16 and K4 at
-    2048 (DiT-XL at 32 px), K7f at 256 and 64 images of (256, 1152) and K7b at
-    256 beside SDPA (64 px), one K6f partial on a chunk of 2304 of (131,072 x
-    1152, F 4608) and the k = 2 half-block, K1b at (131,072, 1152, 4608); K2f
-    at (256, 64, 384, H 16) and K2b at (2048, 64, 384, H 16) (Dh 24); each by
-    its rule above, every backward's second call bit-identical;
+    2048 (DiT-XL at 32 px), the first and K4 also in turns with the earlier
+    WMMA chain and the cuBLAS chain, K4 launch by launch as K2b in 3b; K7f at
+    256 and 64 images of (256, 1152) and K7b at 256 beside SDPA (64 px), and
+    the third rung's chains around them at 256 images (the wgmma products,
+    forward and backward, held and timed as K2f's and K4's), one
+    K6f partial on a chunk of 2304 of (131,072 x 1152, F 4608) and the k = 2
+    half-block, K1b at (131,072, 1152, 4608); K2f at (256, 64, 384, H 16)
+    and K2b at (2048, 64, 384, H 16) (Dh 24); each by its rule above, every
+    backward's second call bit-identical;
 3m. (fast-gelu-kernels) the seven fast-GELU variants at their rows' shapes
     against their plain versions with ``fast_gelu``: K1f, K1b, one K6f
     partial (DiT-L's chunk), K6b (the DiT-S --tp 2 shard), K10f, K10b and one
@@ -401,10 +408,10 @@ The DiT tail and the whole-block experiment, after those:
     trainer phase above counts X4f and X4b once a training step and X4f
     once a sampler step at D % 128 == 0;
 3t. (whole-block) X2f (``csrc/whole_block.cu``) at (B 256, N 64, D 384, H 6,
-    F 1536): torch.equal to the K2f -> MLP pair with the resident core
-    forced and the MLP half on the WMMA products (what X2f reproduces;
-    K1f runs the wgmma products), the plain version by the
-    bf16 rule, one block and an 8-block chain against the pair in turns
+    F 1536): torch.equal to the K2f -> MLP pair composed from the WMMA
+    products around the resident core (what X2f reproduces; K2f and K1f
+    run the wgmma products), the plain version by the bf16 rule, one block
+    and an 8-block chain against the pair as the paths run it, in turns
     (``scripts/torch_exp_whole_block.py``); no path launches it.
 3u. (phase-softmax) X1f and X1b (``csrc/phase_softmax.cu``) at DiT-S/4's
     training shape (2048, 64, 384, H 6), X1b at every head group that
@@ -420,10 +427,10 @@ The DiT tail and the whole-block experiment, after those:
     ``ln_bwd_kernel<8, false>``) at (2048, 64, 384, H 6), each twice
     (bit-identical) against its plain version within twice bf16's own noise
     on that variant (plain bf16 against plain fp32, max and Frobenius) and
-    timed once, the all-off one torch.equal to K2b's chain on its one-block
-    core (forced) and by the gradient rules; K1f with the identity
-    GELU at (131,072, 384, F 1536) against its plain version. No path
-    launches them;
+    timed once, the all-off one torch.equal to K2b's chain (the same wgmma
+    products) on its one-block core (forced) and by the gradient rules; K1f
+    with the identity GELU (its wgmma chain with the bias epilogue) at
+    (131,072, 384, F 1536) against its plain version. No path launches them;
 3w. (registers-kernels) the registers designs of the forward core
     (``csrc/attention.cu`` ``attention_core_regs_kernel``, K2f's and K7f's
     pick at padded heads up to 128 columns) and of K8f at Dh 32, 64, 128
@@ -814,11 +821,20 @@ def _wg_instances(kc):
         if local:
             rec["local_bytes"] = max(rec["local_bytes"], sum(int(g) for g in local.groups()))
     insts = sorted(found.values(), key=lambda r: r["instance"])
-    print("[kernel] K1f/K1b wgmma instances (ptxas): " + "; ".join(
+    print("[kernel] K1 and K2 wgmma instances (ptxas): " + "; ".join(
         f"{r['instance']}: {r['registers']} registers, {r['local_bytes']} B local" for r in insts))
-    if len(insts) != 24 or any(r["local_bytes"] or not r["registers"] for r in insts):
+    new = [r for r in insts if r["instance"].endswith(WG_ATTENTION_EPILOGUES)]
+    print("[kernel] the attention chains' own wgmma epilogues (qkv's bias alone, datt's bf16 "
+          "store): " + "; ".join(f"{r['instance']}: {r['registers']} registers, "
+                                 f"{r['local_bytes']} B local" for r in new))
+    if len(insts) != 30 or len(new) != 6 or any(r["local_bytes"] or not r["registers"]
+                                                 for r in insts):
         raise AssertionError("a wgmma instance is missing from the ptxas log or uses local memory")
     return insts
+
+
+# the instances K2's chains added to K1's 24 (csrc/gemm_wg.cu kEpiBias, kEpiBf16)
+WG_ATTENTION_EPILOGUES = ("ln_gemm epi 4", "nn epi 2")
 
 
 def _turns(fns: dict, reps: int = 20) -> dict:
@@ -889,17 +905,18 @@ def _k1f_yardsticks(G, M, case):
 
 def phase_kernels(M, A, smi, kc):
     """3: K1f at the sampler's (16,384, 384, F 1536) and the training shape
-    (131,072, 384, F 1536), each beside the earlier WMMA design and the
-    cuBLAS chain in turns, the wgmma instances' registers; K2f."""
+    (131,072, 384, F 1536), K2f at the sampler's (256, 64, 384, H 6) and the
+    training shape (2048, 64, 384, H 6), each beside the earlier WMMA chain
+    and the cuBLAS chain in turns; the wgmma instances' registers."""
     from ddm_tpu_torch.ops import gemm as G
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     T, D, F, B, N, H = 16384, 384, 1536, 256, 64, 6
     srcs = {"K1f": (["ddm_tpu_torch/csrc/gemm_wg.cu", "ddm_tpu_torch/csrc/wgmma.cuh",
                      "ddm_tpu_torch/csrc/common.cuh"], "ddm_tpu/ops/mlp_block.py:144"),
-            "K2f": (["ddm_tpu_torch/csrc/attention.cu", "ddm_tpu_torch/csrc/gemm.cu",
-                     "ddm_tpu_torch/csrc/mma_frag.cuh", "ddm_tpu_torch/csrc/common.cuh"],
-                    "ddm_tpu/ops/attention.py:341")}
+            "K2f": (["ddm_tpu_torch/csrc/attention.cu", "ddm_tpu_torch/csrc/gemm_wg.cu",
+                     "ddm_tpu_torch/csrc/wgmma.cuh", "ddm_tpu_torch/csrc/mma_frag.cuh",
+                     "ddm_tpu_torch/csrc/common.cuh"], "ddm_tpu/ops/attention.py:341")}
     insts = _wg_instances(kc)
     results = []
     for case in (_k1f_case(M, gen, T, D, F), _k2f_case(A, gen, B, N, D, H)):
@@ -911,6 +928,16 @@ def phase_kernels(M, A, smi, kc):
             train = _k1f_case(M, gen, TRAIN_BATCH * TRAIN_M * 64, D, F)
             entry = _shape_entry("dit-s training", train, _time_forward(train, smi))
             entry.update(_k1f_yardsticks(G, M, train))
+            results[-1]["train_shape"] = entry
+            del train
+            torch.cuda.empty_cache()
+        else:
+            core = _k2_core_fns(A, H)[0]
+            results[-1].update(_fwd_yardsticks(M, case, core), instances=[
+                r for r in insts if r["instance"].endswith(WG_ATTENTION_EPILOGUES)])
+            train = _k2f_case(A, gen, TRAIN_BATCH * TRAIN_M, N, D, H)
+            entry = _shape_entry("dit-s training", train, _time_forward(train, smi))
+            entry.update(_fwd_yardsticks(M, train, core))
             results[-1]["train_shape"] = entry
             del train
             torch.cuda.empty_cache()
@@ -1091,6 +1118,213 @@ def _k1b_yardsticks(G, M, case, chain=False):
     return got
 
 
+def _attn_bf16_weights(args):
+    """The attention half-block's inputs with the weights cast to bf16 once
+    (the yardstick's)."""
+    x, scale, bias, wqkv, bqkv, wproj, bproj = args
+    return x, scale, bias, wqkv.to(torch.bfloat16), bqkv, wproj.to(torch.bfloat16), bproj
+
+
+def _cublas_fwd_chain(M, core):
+    """The forward chain's function with its two products through
+    torch.matmul (cuBLAS, bf16 in and out) and plain epilogues around the
+    port's own ``core``: the chain yardstick, which the port never calls.
+    Takes :func:`_attn_bf16_weights`' operands."""
+    bf = torch.bfloat16
+
+    def run(x, scale, bias, wqkv, bqkv, wproj, bproj):
+        B, N, D = x.shape
+        x2 = x.reshape(B * N, D)
+        y = M.layer_norm(x2.float(), scale, bias).to(bf)
+        qkv = (torch.matmul(y, wqkv.t()).float() + bqkv).to(bf)
+        att = core(qkv.view(B, N, 3 * D)).view(B * N, D)
+        return (x2.float() + (torch.matmul(att, wproj.t()).float() + bproj)).to(bf)
+    return run
+
+
+def _fwd_yardsticks(M, case, core):
+    """The earlier WMMA chain's (``scripts/torch_exp_whole_block.py``
+    ``wmma_k2f``) and the cuBLAS chain's times on a forward chain's case
+    inputs around the same ``core``, in turns with the kernel (kernel, WMMA,
+    cuBLAS, cuBLAS, WMMA, kernel; means of two medians of 20). The kernel's
+    own time in turns goes under ``turns_ms``."""
+    name, shape, kern, _, args, _ = case
+    wmma, cub = _script("torch_exp_whole_block").wmma_k2f, _cublas_fwd_chain(M, core)
+    cub_args = _attn_bf16_weights(args)
+    fns = {"turns_ms": lambda: kern(*args), "wmma_ms": lambda: wmma(*args, core),
+           "cublas_chain_ms": lambda: cub(*cub_args)}
+    with torch.inference_mode():
+        got = _turns(fns)
+    print(f"[kernel] {name} {shape}: wgmma chain {got['turns_ms']:.4f} ms in turns, the earlier "
+          f"WMMA chain {got['wmma_ms']:.4f} ms, the cuBLAS chain (torch.matmul, plain epilogues, "
+          f"the same core) {got['cublas_chain_ms']:.4f} ms")
+    return got
+
+
+def _wmma_bwd_chain(G, A, core_bwd):
+    """The attention half-block's backward chain as the earlier design ran
+    it, the operand casts included: the WMMA recompute and datt,
+    ``core_bwd(qkv, datt) -> (att, dqkv)``, the two WMMA TN products and
+    dy, then the LayerNorm backward."""
+    def run(x, scale, bias, wqkv, bqkv, wproj, bproj, dout):
+        B, N, D = x.shape
+        s, bb, wqkv_b, bqkv_f, wproj_b, _ = A._kernel_operands(scale, bias, wqkv, bqkv, wproj,
+                                                               bproj)
+        x2 = x.reshape(B * N, D)
+        dob = dout.to(torch.bfloat16).contiguous().reshape(B * N, D)
+        qkv, _, y = G.ln_gemm(x2, s, bb, wqkv_b, bqkv_f, G.EPI_BIAS, with_y=True)
+        datt = G.gemm_nn(dob, wproj_b, G.NN_BF16).view(B, N, D)
+        att, dqkv = core_bwd(qkv.view(B, N, 3 * D), datt)
+        del qkv, datt
+        dwproj, dbproj = G.gemm_tn(dob, att.view(B * N, D), with_colsum=True)
+        del att
+        dqkv = dqkv.view(B * N, 3 * D)
+        dwqkv, dbqkv = G.gemm_tn(dqkv, y, with_colsum=True)
+        dy = G.gemm_nn(dqkv, wqkv_b, G.NN_F32)
+        del dqkv
+        dx, dscale, dbias = G.ln_bwd(x2, dy, dob, s)
+        return dx.reshape(B, N, D), dscale, dbias, dwqkv, dbqkv, dwproj, dbproj
+    return run
+
+
+def _cublas_bwd_chain(M, core_bwd):
+    """The backward chain's function with its five products through
+    torch.matmul (cuBLAS, bf16 in and out) and plain epilogues around the
+    port's own ``core_bwd``, the LayerNorm backward in plain torch: the chain
+    yardstick, which the port never calls. Takes
+    :func:`_attn_bf16_weights`' operands and the bf16 cotangent."""
+    bf = torch.bfloat16
+
+    def run(x, scale, bias, wqkv, bqkv, wproj, bproj, dob):
+        B, N, D = x.shape
+        xhat, inv = M.ln_stats(x.reshape(B * N, D).float())
+        y = (xhat * scale + bias).to(bf)
+        qkv = (torch.matmul(y, wqkv.t()).float() + bqkv).to(bf)
+        do2 = dob.reshape(B * N, D)
+        att, dqkv = core_bwd(qkv.view(B, N, 3 * D), torch.matmul(do2, wproj).view(B, N, D))
+        dwproj, dbproj = torch.matmul(do2.t(), att.view(B * N, D)), do2.float().sum(0)
+        dqkv = dqkv.view(B * N, 3 * D)
+        dwqkv, dbqkv = torch.matmul(dqkv.t(), y), dqkv.float().sum(0)
+        dx, dscale, dbias = M.layer_norm_bwd(torch.matmul(dqkv, wqkv).float(), xhat, inv, scale,
+                                             do2.float())
+        return dx.to(bf), dscale, dbias, dwqkv, dbqkv, dwproj, dbproj
+    return run
+
+
+K2B_STEPS = ("recompute", "datt", "core", "dWproj", "dWqkv", "dy", "ln_bwd")
+# K2b's and K4's sources: the core, the wgmma products, the LayerNorm backward
+K2B_SOURCES = ["ddm_tpu_torch/csrc/attention.cu", "ddm_tpu_torch/csrc/gemm_wg.cu",
+               "ddm_tpu_torch/csrc/gemm_bwd.cu", "ddm_tpu_torch/csrc/wgmma.cuh",
+               "ddm_tpu_torch/csrc/attention_bwd_regs.cuh", "ddm_tpu_torch/csrc/mma_frag.cuh",
+               "ddm_tpu_torch/csrc/common.cuh"]
+
+
+def _bwd_chain_ms(G, A, name, args, dout, core_bwd):
+    """A backward chain's seven launches timed one by one, the wgmma chain
+    and the earlier WMMA chain on the same inputs (``{design: {step:
+    ms}}``), each step in turns with its counterpart (the core and
+    ``ln_bwd`` are the same launch in both)."""
+    x = args[0]
+    B, N, D = x.shape
+    s, bb, wqkv_b, bqkv_f, wproj_b, _ = A._kernel_operands(*args[1:])
+    x2 = x.reshape(B * N, D)
+    dob = dout.to(torch.bfloat16).contiguous().reshape(B * N, D)
+    fns = {}
+    with torch.no_grad():
+        for design, ln, tn, nn in (("wgmma", G.ln_gemm_wg, G.gemm_tn_wg, G.gemm_nn_wg),
+                                   ("wmma", G.ln_gemm, G.gemm_tn, G.gemm_nn)):
+            qkv, _, y = ln(x2, s, bb, wqkv_b, bqkv_f, G.EPI_BIAS, with_y=True)
+            qkv = qkv.view(B, N, 3 * D)
+            datt = nn(dob, wproj_b, G.NN_BF16).view(B, N, D)
+            att, dqkv = core_bwd(qkv, datt)
+            att, dqkv = att.view(B * N, D), dqkv.view(B * N, 3 * D)
+            dy = nn(dqkv, wqkv_b, G.NN_F32)
+            fns[design] = {
+                "recompute": lambda ln=ln: ln(x2, s, bb, wqkv_b, bqkv_f, G.EPI_BIAS, with_y=True),
+                "datt": lambda nn=nn: nn(dob, wproj_b, G.NN_BF16),
+                "core": lambda qkv=qkv, datt=datt: core_bwd(qkv, datt),
+                "dWproj": lambda tn=tn, att=att: tn(dob, att, with_colsum=True),
+                "dWqkv": lambda tn=tn, dqkv=dqkv, y=y: tn(dqkv, y, with_colsum=True),
+                "dy": lambda nn=nn, dqkv=dqkv: nn(dqkv, wqkv_b, G.NN_F32),
+                "ln_bwd": lambda dy=dy: G.ln_bwd(x2, dy, dob, s)}
+        out = {"wgmma": {}, "wmma": {}}
+        for step in K2B_STEPS:
+            got = _turns({d: fns[d][step] for d in out})
+            for design in out:
+                out[design][step] = got[design]
+    print(f"[kernel] {name}'s chain launch by launch (B={B}, N={N}, D={D}), wgmma (the earlier "
+          "WMMA design) ms: " + ", ".join(
+              f"{st} {out['wgmma'][st]:.4f} ({out['wmma'][st]:.4f})" for st in K2B_STEPS))
+    del fns
+    torch.cuda.empty_cache()
+    return out
+
+
+def _bwd_yardsticks(G, M, A, case, core_bwd):
+    """The earlier WMMA chain (as one call) and the cuBLAS chain around the
+    same ``core_bwd`` on a backward chain's case inputs, in turns with the
+    kernel (means of two medians of 10), then both chains launch by launch
+    (``chain_ms``). The kernel's own time in turns goes under
+    ``turns_ms``."""
+    name, shape, kern, _, inputs, _ = case
+    *args, dout = inputs
+    wmma, cub = _wmma_bwd_chain(G, A, core_bwd), _cublas_bwd_chain(M, core_bwd)
+    cub_args = (*_attn_bf16_weights(args), dout.to(torch.bfloat16))
+    fns = {"turns_ms": kern, "wmma_ms": lambda: wmma(*inputs),
+           "cublas_chain_ms": lambda: cub(*cub_args)}
+    with torch.no_grad():
+        got = _turns(fns, reps=10)
+    print(f"[kernel] {name} {shape}: wgmma chain {got['turns_ms']:.4f} ms in turns, the earlier "
+          f"WMMA chain {got['wmma_ms']:.4f} ms, the cuBLAS chain (torch.matmul, plain epilogues, "
+          f"the same core) {got['cublas_chain_ms']:.4f} ms")
+    got["chain_ms"] = _bwd_chain_ms(G, A, name, args, dout, core_bwd)
+    return got
+
+
+def _k2_core_fns(A, H):
+    """K2's cores as the yardsticks take them: ``(core, core_bwd)``."""
+    return (lambda qkv: A._k2_core(qkv, H)), (lambda qkv, datt: A._core_bwd_att(qkv, datt, H))
+
+
+def _rung3_chain(G, M, A, smi, gen, path, B, N, D, H):
+    """The third rung's half-block around K7 at (B, N, D, H), where the JAX
+    ladder has no half-block tier: the forward (the wgmma qkv product, K7f,
+    the projection product) by the bf16 rule, and the backward (the wgmma
+    chain around K7b, att saved by the forward, as ``_Rung3Block`` runs it)
+    twice (bit-identical) by the gradient rule, against the plain third
+    rung; each beside the earlier WMMA chain and the cuBLAS chain around the
+    same core in turns, the backward also launch by launch: ``(K7f entry,
+    K7b entry)`` for the kernels line's shapes."""
+    from ddm_tpu_torch.ops import tiers
+
+    if tiers.attention_tier(B, N, D, H) is not None or tiers.core_tier(B, N, D, H) != "K7":
+        raise AssertionError(f"(B={B}, N={N}, D={D}, H={H}) is not a third-rung K7 shape")
+    args = _attn_args(gen, B, N, D)
+    dout = torch.randn(B, N, D, generator=gen, device="cuda").to(torch.bfloat16)
+    shape = f"(B={B}, N={N}, D={D}, H={H}) third-rung chain"
+
+    def core(qkv):
+        return A.launch_k7f(*qkv.split(D, dim=-1), H)
+
+    with torch.no_grad():
+        _, att, _ = A._fwd_chain(*args, lambda qkv: (core(qkv), None))
+
+    def core_bwd(qkv, datt):
+        return att, A.launch_k7b(*qkv.split(D, dim=-1), datt, H)
+
+    fcase = ("K7f", shape, lambda *a: A.fused_attention_block(*a, H),
+             lambda *a: A.rung3_block_reference(*a, H, "K7"), args,
+             8 * B * N * D * D + 4 * B * N * N * D)
+    fwd = _shape_entry(path, fcase, _time_forward(fcase, smi))
+    fwd.update(_fwd_yardsticks(M, fcase, core))
+    bcase = ("K7b", shape, lambda: A._bwd_chain(*args, dout, core_bwd),
+             lambda: A.rung3_block_bwd_reference(*args, H, dout, "K7"), (*args, dout),
+             2 * B * N * D * D * 11 + 12 * B * N * N * D)
+    bwd = _shape_entry(path, bcase, _time_backward(bcase, smi, {A.CORE_BWD_LAUNCHES: 2}))
+    bwd.update(_bwd_yardsticks(G, M, A, bcase, core_bwd))
+    return fwd, bwd
+
+
 def phase_backward(M, A, smi):
     from ddm_tpu_torch.ops import gemm as G
 
@@ -1100,10 +1334,7 @@ def phase_backward(M, A, smi):
     srcs = {"K1b": (["ddm_tpu_torch/csrc/gemm_wg.cu", "ddm_tpu_torch/csrc/gemm_bwd.cu",
                      "ddm_tpu_torch/csrc/wgmma.cuh", "ddm_tpu_torch/csrc/common.cuh"],
                     "ddm_tpu/ops/mlp_block.py:211"),
-            "K2b": (["ddm_tpu_torch/csrc/attention.cu", "ddm_tpu_torch/csrc/gemm_bwd.cu",
-                     "ddm_tpu_torch/csrc/gemm.cu", "ddm_tpu_torch/csrc/attention_bwd_regs.cuh",
-                     "ddm_tpu_torch/csrc/mma_frag.cuh", "ddm_tpu_torch/csrc/common.cuh"],
-                    "ddm_tpu/ops/attention.py:358")}
+            "K2b": (K2B_SOURCES, "ddm_tpu/ops/attention.py:358")}
     results = []
     for case in (_k1b_case(M, gen, B * N, D, F), _attn_bwd_case(A, gen, B, N, D, H, "K2b")):
         sources, replaces = srcs[case[0]]
@@ -1112,6 +1343,8 @@ def phase_backward(M, A, smi):
                               *_time_backward(case, smi, counters)))
         if case[0] == "K1b":
             results[-1].update(_k1b_yardsticks(G, M, case, chain=True))
+        else:
+            results[-1].update(_bwd_yardsticks(G, M, A, case, _k2_core_fns(A, H)[1]))
         del case
         torch.cuda.empty_cache()
     return results
@@ -2268,11 +2501,9 @@ def phase_wide_kernels(M, A, X, smi):
         raise AssertionError("the F-chunked expert FFN disagrees with its plain version")
     k10p["forward"] = {"k": 2, "max_abs_err": ferr, "ms": fms, "plain_ms": fplain,
                        **_bound(_nbytes(*ffn, got), 4 * E * S * D * F)}
-    srcs = ["ddm_tpu_torch/csrc/attention.cu", "ddm_tpu_torch/csrc/gemm_bwd.cu",
-            "ddm_tpu_torch/csrc/gemm.cu", "ddm_tpu_torch/csrc/attention_bwd_regs.cuh",
-            "ddm_tpu_torch/csrc/mma_frag.cuh", "ddm_tpu_torch/csrc/common.cuh"]
     last = k4[-1]  # the DiT-L shape, the main path's
-    k4e = _entry("K4", srcs[0], srcs, "ddm_tpu/ops/attention.py:685", last["max_abs_err"],
+    k4e = _entry("K4", K2B_SOURCES[0], K2B_SOURCES, "ddm_tpu/ops/attention.py:685",
+                 last["max_abs_err"],
                  last["ms"], last["plain_ms"],
                  {k: v for k, v in last.items() if k.startswith("bound")})
     k4e["shapes"] = k4
@@ -2916,8 +3147,10 @@ def phase_xl_kernels(M, A, smi):
     1152, F 4608) and the k = 2 half-block, K1b at (131,072, 1152, 4608);
     K2f at (256, 64, 384, H 16) and K2b at (2048, 64, 384, H 16). Each
     against its plain version by its rule above, every backward's second
-    call bit-identical. ``{name: [{"path", "shape", ...}]}`` for the kernels
-    line."""
+    call bit-identical; K2f at 2048 images, K4 and the third rung's chains
+    around K7 at 64 px beside the earlier WMMA chain and the cuBLAS chain in
+    turns, the backwards also launch by launch. ``{name: [{"path", "shape",
+    ...}]}`` for the kernels line."""
     gen = torch.Generator(device="cuda").manual_seed(13)
     D, H, N = DIT_XL["embed_dim"], DIT_XL["heads"], 64
     B = TRAIN_BATCH * TRAIN_M
@@ -2928,14 +3161,18 @@ def phase_xl_kernels(M, A, smi):
         shapes.setdefault(case[0], []).append(_shape_entry(path, case, times))
         torch.cuda.empty_cache()
 
+    from ddm_tpu_torch.ops import gemm as G
+
     for b in (B, N_SAMPLES):
         case = _k2f_case(A, gen, b, N, D, H)
         add("dit-xl", case, _time_forward(case, smi))
-        if b == B:  # the training shape's core alone, beside SDPA
+        if b == B:  # the training shape's core alone, beside SDPA; the chain's yardsticks
             shapes["K2f"][0].update(_core_library(M, A, gen, case[4], H, False))
+            shapes["K2f"][0].update(_fwd_yardsticks(M, case, _k2_core_fns(A, H)[0]))
     case = _attn_bwd_case(A, gen, B, N, D, H, "K4")
     add("dit-xl", case, _time_backward(case, smi, {A.SPLIT_BWD_LAUNCHES: 2, A.BWD_LAUNCHES: 0}))
     shapes["K4"][0].update(_core_library(M, A, gen, case[4], H, True))
+    shapes["K4"][0].update(_bwd_yardsticks(G, M, A, case, _k2_core_fns(A, H)[1]))
     for name in ("K2f", "K4"):
         lib = shapes[name][0]
         print(f"[library] {name}'s core alone {lib['core_ms']:.4f} ms, torch "
@@ -2944,6 +3181,11 @@ def phase_xl_kernels(M, A, smi):
               f"{smi}")
     fwd, bwd = _k7_shapes(A, smi, gen, "dit-xl64", PX64_SIZE ** 2 // 16, D, H)
     shapes["K7f"], shapes["K7b"] = fwd, [bwd]
+    fwd, bwd = _rung3_chain(G, M, A, smi, gen, "dit-xl64", PX64_BATCH * PX64_M,
+                            PX64_SIZE ** 2 // 16, D, H)
+    shapes["K7f"].append(fwd)
+    shapes["K7b"].append(bwd)
+    torch.cuda.empty_cache()
     err, ms, plain_ms, bound = _k6f_partial(M, smi, gen, T, D, F)
     shapes["K6f"] = [{"path": "dit-xl", "shape": f"(T={T}, D={D}, chunk {F // 2} of F={F})",
                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound,
@@ -3525,13 +3767,13 @@ def _script(stem):
 
 def phase_whole_block(smi):
     """3t: X2f at (B 256, N 64, D 384, H 6, F 1536), DiT-S/4's sampling
-    block: bit for bit the K2f -> MLP pair it reproduces, the resident core
-    forced and the MLP half on the WMMA products (``gemm.ln_gemm`` +
-    ``gemm.gemm_residual``, which K6f and K2 still launch; K1f runs the
-    wgmma products) (torch.equal), one block and an 8-block chain against the pair as the
-    paths run it in turns (scripts/torch_exp_whole_block.py ``block_times``),
-    and the plain version by the bf16 rule. Returns the X2f entry; no path
-    launches it."""
+    block: bit for bit the K2f -> MLP pair it reproduces, composed from the
+    WMMA products (``gemm.ln_gemm`` + ``gemm.gemm_residual``, which K6f
+    still launches; K2f and K1f run the wgmma products) around the resident
+    core (torch.equal), one block and an 8-block chain against the pair as
+    the paths run it in turns (scripts/torch_exp_whole_block.py
+    ``block_times``), and the plain version by the bf16 rule. Returns the
+    X2f entry; no path launches it."""
     from ddm_tpu_torch.ops import whole_block as W
 
     exp = _script("torch_exp_whole_block")
@@ -3542,8 +3784,9 @@ def phase_whole_block(smi):
     if W.LAUNCHES.count == before:
         raise AssertionError(f"X2f {shape}: the kernel did not launch")
     if not res["bit_identical"]:
-        raise AssertionError(f"X2f {shape} is not the K2f -> MLP pair (resident core, WMMA "
-                             f"MLP products) bit for bit: max |diff| {res['max_abs_diff']:.4g}")
+        raise AssertionError(f"X2f {shape} is not the K2f -> MLP pair (WMMA products around "
+                             f"the resident core) bit for bit: max |diff| "
+                             f"{res['max_abs_diff']:.4g}")
     x, p = exp.block_inputs()
     with torch.inference_mode():
         got = exp.merged(x, p, H)
@@ -3553,8 +3796,8 @@ def phase_whole_block(smi):
         plain_ms = _median_ms(lambda: W.whole_block_reference(x, *p, H))
     c8 = f"{exp.CHAIN}blk"
     mean = {n: {k: float(np.mean(v)) for k, v in res[n].items()} for n in ("1blk", c8)}
-    print(f"[kernel] X2f {shape} bf16: bit for bit the K2f -> MLP pair with the resident "
-          f"core and the WMMA MLP products; against the plain "
+    print(f"[kernel] X2f {shape} bf16: bit for bit the K2f -> MLP pair composed from the "
+          f"WMMA products around the resident core; against the plain "
           f"version max_abs_err={max_err:.6g} (tol {tol:.6g}), mean_abs_err={mean_err:.6g}; "
           f"one block merged {mean['1blk']['merged']:.4f} ms, pair {mean['1blk']['pair']:.4f} "
           f"ms; {exp.CHAIN}-block chain merged {mean[c8]['merged']:.4f} ms, pair "
@@ -3765,14 +4008,15 @@ def phase_ablate(A, M, smi):
           f"(tol {m_tol:.6g}), mean_abs_err={m_mean:.6g}; {m_ms:.4f} ms, K1f {k1f_ms:.4f} ms, "
           f"plain {m_plain:.4f} ms (median of 20) on {smi}")
     src = ["ddm_tpu_torch/csrc/attention.cu", "ddm_tpu_torch/csrc/gemm_bwd.cu",
-           "ddm_tpu_torch/csrc/attention_tiles.cuh", "ddm_tpu_torch/csrc/gemm.cu",
-           "ddm_tpu_torch/csrc/common.cuh"]
+           "ddm_tpu_torch/csrc/attention_tiles.cuh", "ddm_tpu_torch/csrc/gemm_wg.cu",
+           "ddm_tpu_torch/csrc/wgmma.cuh", "ddm_tpu_torch/csrc/common.cuh"]
     T = B * N
     return [{**_entry("X3b", src[0], src, "tools/kbench_ablate.py:82", worst, base, plain_ms,
                       _bound(nbytes, 2 * T * D * D * 11 + 12 * T * N * D)),
              "k2b_ms": k2b_ms, "variants": variants},
-            {**_entry("X3m", "ddm_tpu_torch/csrc/gemm.cu",
-                      ["ddm_tpu_torch/csrc/gemm.cu", "ddm_tpu_torch/csrc/common.cuh"],
+            {**_entry("X3m", "ddm_tpu_torch/csrc/gemm_wg.cu",
+                      ["ddm_tpu_torch/csrc/gemm_wg.cu", "ddm_tpu_torch/csrc/wgmma.cuh",
+                       "ddm_tpu_torch/csrc/common.cuh"],
                       "tools/kbench_ablate.py:291", m_err, m_ms, m_plain,
                       _bound(_nbytes(*args, got), 4 * Tm * Dm * Fm)), "k1f_ms": k1f_ms}]
 

@@ -1,14 +1,15 @@
 // Row-panel GEMMs with fused prologues and epilogues for the DiT half-blocks.
 //
-// Replaces, together with attention.cu, the TPU attention half-block's
-// forward, ddm_tpu/ops/attention.py `_blk_fwd_kernel` (via
-// `_fused_block_fwd_call`): out = x + proj(MHA(qkv(LN(x)))) =
-// ddm_ln_gemm(gelu=0), ddm_attention_core, ddm_gemm_residual; and the
-// F-chunked MLP forward K6f below. These are the WMMA products that K2f,
-// K2b, K4, K6f, K6b, K7 and K10 launch. The MLP half-block K1f
-// (ddm_tpu/ops/mlp_block.py `_fwd_kernel`, out = x + gelu(LN(x) W1 + b1) W2
-// + b2) and its backward K1b run the wgmma products of gemm_wg.cu; X2f
-// (whole_block.cu) reproduces this file's ln_gemm + gemm_residual pair.
+// The WMMA products of the F-chunked MLP forward K6f below (and, with
+// gemm_bwd.cu, of K6b and K10). Both dense half-blocks left them for the
+// wgmma products of gemm_wg.cu: the MLP half-block K1f and K1b, and the
+// attention half-block (ddm_tpu/ops/attention.py `_blk_fwd_kernel`, out = x
+// + proj(MHA(qkv(LN(x))))), whose chains K2f, K2b, K4 and the third rung's
+// ran ddm_ln_gemm(gelu=0), ddm_attention_core, ddm_gemm_residual here
+// until then. X2f (whole_block.cu) reproduces this file's pair of products
+// for both halves, and its bit check composes them: the WMMA K2f chain
+// (ddm_ln_gemm with the bias epilogue, the resident core,
+// ddm_gemm_residual) and the WMMA MLP half.
 //
 // What bounds it on the H100: at the DiT-S/4 sampling shape (T = 16384 rows,
 // D = 384, F = 1536) the MLP products are 2 x 19.3 GFLOP against ~12.6 MB of
@@ -28,8 +29,8 @@
 //     accumulators, so no fp32 intermediate reaches device memory;
 //   * the (T, F) hidden activation still goes through device memory.
 //     These products are WMMA (mma.sync) on synchronously loaded tiles;
-//     gemm_wg.cu's wgmma mainloop fed by a TMA ring, which K1f and K1b
-//     run, is what the other chains move onto next.
+//     gemm_wg.cu's wgmma mainloop fed by a TMA ring, which K1 and K2 run,
+//     is what K6 and K10 move onto next.
 //
 // Numerics follow the TPU kernels: LN statistics in fp32 with eps 1e-6,
 // bf16 operands with fp32 accumulation, GELU in fp32 (exact erf, where the
@@ -47,8 +48,9 @@
 // LN prologue and one (T, D) fp32 round trip per extra chunk.
 //
 // The backward kernels (gemm_bwd.cu) reuse ddm_ln_gemm for their forward
-// recompute: it can also write the normalised panel y = bf16(LN(x)) and,
-// for the MLP, the fp32 GELU derivative beside the bf16 GELU output.
+// recompute (K6b's): it can also write the normalised panel y =
+// bf16(LN(x)) and, for the MLP, the fp32 GELU derivative beside the bf16
+// GELU output.
 #include "common.cuh"
 
 namespace ddm {

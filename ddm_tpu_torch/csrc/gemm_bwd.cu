@@ -1,21 +1,23 @@
 // GEMMs, LayerNorm backward and fixed-order reductions for the DiT
 // half-block backwards.
 //
-// Replaces, with ddm_ln_gemm (gemm.cu) for the forward recompute and
-// ddm_attention_core / ddm_attention_core_bwd (attention.cu), the TPU
-// attention half-block's backward, ddm_tpu/ops/attention.py
-// `_blk_bwd_kernel` (K2b, and K4 and K7b around it), and with it the
-// backward of the tensor-parallel MLP partial (K6b) and of the expert FFN
-// (K10b). The MLP half-block's backward K1b (ddm_tpu/ops/mlp_block.py
-// `_bwd_kernel` / `_bwd_body`) runs gemm_wg.cu's wgmma products and this
-// file's LayerNorm backward.
+// The WMMA products of the backward of the tensor-parallel MLP partial
+// (K6b) and of the expert FFN (K10, forward and backward), with
+// ddm_ln_gemm (gemm.cu) for K6b's forward recompute; and the LayerNorm
+// backward that every dense half-block backward ends with. The MLP
+// half-block's backward K1b (ddm_tpu/ops/mlp_block.py `_bwd_kernel`) and
+// the attention half-block's, K2b and K4 (ddm_tpu/ops/attention.py
+// `_blk_bwd_kernel`, `_blk_bwd_split_kernel`, and the third rung's chain
+// around K7b or K8b), run gemm_wg.cu's wgmma products and this file's
+// LayerNorm backward; K2b's chain ran this file's NN and TN products until
+// then.
 //
 // The TPU kernels keep the weights and fp32 dW accumulators in VMEM and sum
 // dW across their sequential grid. CUDA blocks run at once and in no order,
 // so each product is its own kernel here:
 //   * NN, out = A . W with W in nn.Linear's (out, in) layout read as
-//     (K, Nout): the dx-side products dO W2, dH W1, dO Wproj and dQKV Wqkv,
-//     with epilogues fp32, bf16, or (MLP) dh = acc * gelu'(h) rounded to
+//     (K, Nout): the dx-side products (dO W2, dH W1), with epilogues fp32,
+//     bf16, or (MLP) dh = acc * gelu'(h) rounded to
 //     bf16 with per-block column sums of the unrounded dh (db1);
 //   * TN, out = A^T . B contracting over the T token rows: the weight
 //     gradients, as deterministic split-K. Each split writes fp32 partials
@@ -46,8 +48,8 @@
 // share of F) are ~0.8 TFLOP of bf16 per block, plus
 // the (T, F) activations that go through device memory (g and dh in bf16,
 // gelu'(h) in fp32: ~1.6 GB per call). The products are WMMA (mma.sync) on
-// synchronously loaded tiles, as in gemm.cu; moving them onto gemm_wg.cu's
-// wgmma mainloop, as K1b's are, is the next step.
+// synchronously loaded tiles, as in gemm.cu; moving K6b's and K10's onto
+// gemm_wg.cu's wgmma mainloop, as K1b's and K2b's are, is the next step.
 #include <algorithm>
 
 #include "common.cuh"

@@ -1,9 +1,9 @@
-// The MLP half-block's products on Hopper's own path: wgmma fed by a TMA
-// ring, epilogues read from the accumulator registers, deterministic split-K
+// The half-blocks' products on Hopper's own path: wgmma fed by a TMA ring,
+// epilogues read from the accumulator registers, deterministic split-K
 // weight gradients.
 //
-// Replaces, for K1f and K1b, the WMMA products of csrc/gemm.cu and
-// csrc/gemm_bwd.cu (which K2, K4, K6, K7 and K10 still launch):
+// Replaces the WMMA products of csrc/gemm.cu and csrc/gemm_bwd.cu (which K6,
+// K10 and X2f's yardstick still launch) for both dense half-blocks:
 //   * K1f, ddm_tpu/ops/mlp_block.py `_fwd_kernel`:
 //       g = bf16(gelu(LN(x) W1^T + b1))   ddm_wg_ln_gemm (was ln_gemm_kernel
 //                                          / ln_gemm_stream_kernel)
@@ -15,15 +15,26 @@
 //     (ddm_wg_gemm_nn), dW1 (ddm_wg_gemm_tn) and dy = dH W1 in fp32
 //     (ddm_wg_gemm_nn); ln_bwd (gemm_bwd.cu) is unchanged. Were gemm_tn_kernel
 //     and gemm_nn_kernel.
+//   * K2f, ddm_tpu/ops/attention.py `_blk_fwd_kernel`, around its attention
+//     core (csrc/attention.cu): qkv = bf16(LN(x) Wqkv^T + bqkv)
+//     (ddm_wg_ln_gemm, the plain-bias epilogue) and out = bf16(x + (att
+//     Wproj^T + bproj)) (ddm_wg_gemm_residual).
+//   * K2b, `_blk_bwd_kernel`, and K4, `_blk_bwd_split_kernel` (one chain in
+//     the port): the qkv recompute with y, datt = bf16(dO Wproj)
+//     (ddm_wg_gemm_nn, the bf16 store), dWproj with dbproj and dWqkv with
+//     dbqkv (ddm_wg_gemm_tn), dy = dqkv Wqkv in fp32 (ddm_wg_gemm_nn); the
+//     core backward and ln_bwd are unchanged. The third attention rung runs
+//     the same two chains around K7 or K8 at D <= 1344.
 //
 // What bounds it on the H100: at DiT-S/4's training shape (T 131,072, D 384,
 // F 1536) K1f's two products are 309 GFLOP (0.31 ms at 989 TFLOP/s) and
 // K1b's five 773 GFLOP (0.78 ms); both chains also move the (T, F) hidden
 // activations through device memory (K1b about 1.3 GB, 0.4 ms at 3.35
-// TB/s). The WMMA kernels ran 11-14x those bounds: mma.sync, which cannot
-// reach the wgmma rate, on tiles copied by all threads between two block
-// barriers, with no copy in flight during a product, and every accumulator
-// through a 33 KB fp32 shared tile before its epilogue.
+// TB/s). K2b's five products there are 464 GFLOP (0.47 ms). The WMMA kernels
+// ran 11-14x those bounds: mma.sync, which cannot reach the wgmma rate, on
+// tiles copied by all threads between two block barriers, with no copy in
+// flight during a product, and every accumulator through a 33 KB fp32
+// shared tile before its epilogue.
 //
 // The design:
 //   * a block is 3 warpgroups: warpgroup 2 is the producer (one thread
@@ -47,16 +58,18 @@
 //     once, not once a column tile. Any D % 64 == 0;
 //   * epilogues read the accumulators in registers and write the output
 //     directly (bias, exact-erf or sigmoid GELU, gelu', residual, dh with
-//     its db1 column partials, fp32), each variant compiled apart, four
+//     its db1 column partials, bf16, fp32), each variant compiled apart, four
 //     8-column blocks' loads issued before their arithmetic;
 //   * the TN products split T into fixed row ranges (a whole number of
 //     64-row tiles each, gemm.py `wg_split_plan`, a function of the shapes
 //     and the SM count), write fp32 partials, and reduce_rows sums them in
 //     a fixed order: no atomics, a second call is bit-identical.
 //
-// Ragged T: TMA fills rows past the tensor with zeros, and stores are
-// masked. The (T, F) hidden activation still goes through device memory:
-// keeping it on chip (the TPU kernel's design) is the next step.
+// Ragged T and ragged columns (the attention products' N = D at D 64, 320,
+// 448, ... on 128-wide tiles): TMA fills rows and columns past the tensor
+// with zeros, and stores are masked. The MLP's (T, F) hidden activation
+// still goes through device memory: keeping it on chip (the TPU kernel's
+// design) is the next step.
 #include <cuda.h>
 
 #include <chrono>
@@ -87,8 +100,8 @@ enum WgKind : int {
   kNN = 2,        // a . W with W (K, N) MN-major: fp32, or dh with db1
   kTN = 3,        // a^T . b, both MN-major, split over the rows
 };
-enum : int { kEpiGeluWg = 1, kEpiGeluGradWg = 2 };  // kLnGemm (gemm.py EPI_*)
-enum : int { kNNF32Wg = 0, kNNDGeluWg = 2 };        // kNN (gemm.py NN_*)
+enum : int { kEpiBiasWg = 0, kEpiGeluWg = 1, kEpiGeluGradWg = 2 };  // kLnGemm (gemm.py EPI_*)
+enum : int { kNNF32Wg = 0, kNNBf16Wg = 1, kNNDGeluWg = 2 };        // kNN (gemm.py NN_*)
 
 struct WgParams {
   const bf16* x;            // kLnGemm: the raw rows (statistics)
@@ -110,8 +123,9 @@ struct WgParams {
 // Each kind's epilogue variants, compiled apart (a run-time switch inside
 // the unrolled epilogue multiplied the kernel's code and made the epilogue
 // the slowest part of the LN product): kLnGemm bit 0 gelu' (EPI_GELU_GRAD),
-// bit 1 the sigmoid GELU; kNN 1 dh.
-constexpr int kEpiGrad = 1, kEpiFast = 2, kEpiDh = 1;
+// bit 1 the sigmoid GELU, 4 the bias alone (EPI_BIAS: the qkv product); kNN
+// 1 dh, 2 the bf16 store (NN_BF16: datt).
+constexpr int kEpiGrad = 1, kEpiFast = 2, kEpiBias = 4, kEpiDh = 1, kEpiBf16 = 2;
 
 // Bytes of one ring stage, and of the block's dynamic shared memory: the
 // ring (1024-aligned), 128 bytes of barriers (a full and an empty one a
@@ -292,7 +306,9 @@ __device__ __forceinline__ void epilogue(const float (&acc)[BN / 2], const WgPar
           if (!ok) continue;
           v0 += b[g].x;
           v1 += b[g].y;
-          if constexpr ((EPI & kEpiFast) != 0) {
+          if constexpr (EPI == kEpiBias) {
+            // qkv: the biased product, rounded once
+          } else if constexpr ((EPI & kEpiFast) != 0) {
             // one sigmoid shared by the fast GELU and its derivative
             const float s0 = fast_gelu_sigmoid(v0), s1 = fast_gelu_sigmoid(v1);
             if constexpr ((EPI & kEpiGrad) != 0)
@@ -327,6 +343,8 @@ __device__ __forceinline__ void epilogue(const float (&acc)[BN / 2], const WgPar
             cs0 += v0;
             cs1 += v1;
           }
+        } else if constexpr (KIND == kNN && EPI == kEpiBf16) {
+          if (ok) *reinterpret_cast<__nv_bfloat162*>(out_h + o) = __floats2bfloat162_rn(v0, v1);
         } else if constexpr (KIND == kNN) {
           if (ok) *reinterpret_cast<float2*>(out_f + o) = make_float2(v0, v1);
         } else {  // kTN: the split's fp32 partial
@@ -606,15 +624,18 @@ WgParams params(int M, int N, int K, int tpb) {
 
 using ddm::bf16;
 
-// out = epi(LN(x) w^T + bias) over (T, K) rows, w (N, K): epi 1 GELU, 2 GELU
-// writing gelu'(h) (fp32) to out2; `fast` the sigmoid GELU; y_out (or null)
-// gets y = bf16(LN(x)). bn and tpb from gemm.py wg_tile_plan.
+// out = epi(LN(x) w^T + bias) over (T, K) rows, w (N, K): epi 0 the bias
+// alone, 1 GELU, 2 GELU writing gelu'(h) (fp32) to out2; `fast` the sigmoid
+// GELU (epi 1 and 2 only); y_out gets y = bf16(LN(x)) (a block's later
+// column tiles read it back). bn and tpb from gemm.py wg_tile_plan.
 extern "C" int ddm_wg_ln_gemm(const void* x, const void* ln_scale, const void* ln_bias,
                               const void* w, const void* bias, void* out, void* out2,
                               void* y_out, int T, int K, int N, int epi, int fast, int bn,
                               int tpb, void* stream) {
   using namespace ddm;
-  if (K % kBK != 0 || (epi != kEpiGeluWg && epi != kEpiGeluGradWg)) return cudaErrorInvalidValue;
+  if (K % kBK != 0 || (epi != kEpiBiasWg && epi != kEpiGeluWg && epi != kEpiGeluGradWg) ||
+      (epi == kEpiBiasWg && fast))
+    return cudaErrorInvalidValue;
   CUtensorMap a, b, y;
   cudaError_t err = make_map(&a, x, T, K, K, kBM);
   if (err == cudaSuccess) err = make_map(&b, w, N, K, K, bn);
@@ -630,6 +651,7 @@ extern "C" int ddm_wg_ln_gemm(const void* x, const void* ln_scale, const void* l
   p.y_out = (bf16*)y_out;
   const dim3 grid = tile_grid(T, N, bn, tpb);
   const cudaStream_t st = (cudaStream_t)stream;
+  if (epi == kEpiBiasWg) return (int)launch_epi<kLnGemm, kEpiBias>(a, b, y, p, bn, grid, st);
   const int code = (epi == kEpiGeluGradWg ? kEpiGrad : 0) | (fast ? kEpiFast : 0);
   switch (code) {
     case 0: return (int)launch_epi<kLnGemm, 0>(a, b, y, p, bn, grid, st);
@@ -658,14 +680,15 @@ extern "C" int ddm_wg_gemm_residual(const void* a, const void* w, const void* bi
 }
 
 // out = a (T, K) . w (K, N), w row-major (nn.Linear's (out, in) weight read
-// as (K, N)): epi 0 fp32 out; epi 2 dh = (a . w) * dfac (fp32 (T, N)) into
-// the bf16 out, and colsum[N] = column sums of the unrounded dh through
-// ws[ceil(T / 128), N].
+// as (K, N)): epi 0 fp32 out; epi 1 bf16 out; epi 2 dh = (a . w) * dfac
+// (fp32 (T, N)) into the bf16 out, and colsum[N] = column sums of the
+// unrounded dh through ws[ceil(T / 128), N].
 extern "C" int ddm_wg_gemm_nn(const void* a, const void* w, const void* dfac, void* out,
                               void* ws, void* colsum, int T, int K, int N, int epi, int bn,
                               int tpb, void* stream) {
   using namespace ddm;
-  if (K % kBK != 0 || (epi != kNNF32Wg && epi != kNNDGeluWg)) return cudaErrorInvalidValue;
+  if (K % kBK != 0 || (epi != kNNF32Wg && epi != kNNBf16Wg && epi != kNNDGeluWg))
+    return cudaErrorInvalidValue;
   CUtensorMap ma, mb;
   cudaError_t err = make_map(&ma, a, T, K, K, kBM);
   if (err == cudaSuccess) err = make_map(&mb, w, K, N, N, 64);
@@ -676,8 +699,9 @@ extern "C" int ddm_wg_gemm_nn(const void* a, const void* w, const void* dfac, vo
   p.ws = (float*)ws;
   const dim3 grid = tile_grid(T, N, bn, tpb);
   const cudaStream_t st = (cudaStream_t)stream;
-  err = epi == kNNDGeluWg ? launch_epi<kNN, kEpiDh>(ma, mb, ma, p, bn, grid, st)
-                          : launch_epi<kNN, 0>(ma, mb, ma, p, bn, grid, st);
+  err = epi == kNNDGeluWg  ? launch_epi<kNN, kEpiDh>(ma, mb, ma, p, bn, grid, st)
+        : epi == kNNBf16Wg ? launch_epi<kNN, kEpiBf16>(ma, mb, ma, p, bn, grid, st)
+                           : launch_epi<kNN, 0>(ma, mb, ma, p, bn, grid, st);
   if (err != cudaSuccess || epi != kNNDGeluWg) return (int)err;
   return (int)reduce_rows((const float*)ws, (float*)colsum, grid.x, N, st);
 }

@@ -3,14 +3,17 @@
 Port of ``ddm_tpu/ops/attention.py`` (the half-block and its backward).
 :func:`fused_attention_block` is a ``torch.autograd.Function``. On CUDA
 tensors its forward launches kernel K2f, three hand-written CUDA kernels: an
-LN-prologue qkv GEMM (``csrc/gemm.cu``), the attention core
-(``csrc/attention.cu``), and the projection GEMM with a ``x + (acc +
-bproj)`` epilogue (``csrc/gemm.cu``). It saves only its inputs, and its
-backward recomputes the qkv GEMM and runs one attention core backward that
-writes the attention output beside dq, dk and dv (``csrc/gemm.cu``,
-``csrc/attention.cu``, ``csrc/gemm_bwd.cu``). On CPU tensors the same
-Function runs the plain versions, :func:`attention_block_reference` and
-:func:`attention_block_bwd_reference`.
+LN-prologue qkv product with a ``+ bqkv`` epilogue, the attention core
+(``csrc/attention.cu``), and the projection product with a ``x + (acc +
+bproj)`` epilogue, the two products ``wgmma`` fed by a TMA ring
+(``csrc/gemm_wg.cu``, K1's kernel with epilogues of their own). It saves
+only its inputs, and its backward recomputes the qkv product (the same
+kernel and plan: the forward's bits), runs one attention core backward that
+writes the attention output beside dq, dk and dv, and the datt, dWproj,
+dWqkv and dy products on the same ring (the weight gradients split over the
+rows in fixed ranges), then the LayerNorm backward (``csrc/gemm_bwd.cu``).
+On CPU tensors the same Function runs the plain versions,
+:func:`attention_block_reference` and :func:`attention_block_bwd_reference`.
 
 The cores take every shape the JAX gates send them: 16 <= N <= 512 (N a
 multiple of 16, the JAX gate's N <= 512) and any head width Dh a multiple
@@ -18,10 +21,9 @@ of 8 (the JAX gate's ``Dh % 8 == 0``: DiT-XL's Dh 72, DiT-S at ``--heads
 16``'s Dh 24, DiT-S/4 at ``--heads 1``'s 384 at 64 px, up to 3712 at N =
 16), each head's tile padded in shared memory to the next multiple of 16
 with zero columns; other shapes raise ``NotImplementedError``. The
-half-block GEMMs run D a multiple of 64 up to
-:data:`ddm_tpu_torch.ops.gemm.LN_GEMM_MAX_K` (1344, the resident-panel
-LN-prologue kernel's bound), the widths of every JAX attention half-block
-tier.
+half-block products run D a multiple of 64 up to
+:data:`ddm_tpu_torch.ops.gemm.LN_GEMM_MAX_K` (1344), the widths of every JAX
+attention half-block tier.
 The forward core has three designs. Where the head, padded to a multiple of
 16, is at most 896 wide (every shape a DiT path sends) the plan takes the
 registers design. Up to 128 columns: 64 query rows a block (128 past N 128
@@ -94,8 +96,9 @@ DiT-L at N = 256, N > 512, D not a multiple of 128), it runs its third
 rung (``ddm_tpu/ops/attention.py:959-962``): an XLA half-block around
 ``fused_attention``, whose core :func:`ddm_tpu_torch.ops.tiers.core_tier`
 picks. The port runs one Function there, :class:`_Rung3Block`: the same
-qkv GEMM, that core, and the projection GEMM with the residual; where those
-GEMMs do not run D (D % 64 != 0, or past ``gemm.LN_GEMM_MAX_K``: DiT at
+wgmma qkv product, that core, and the projection product with the residual,
+and K2b's backward chain around the core's backward; where those products
+do not run D (D % 64 != 0, or past ``gemm.LN_GEMM_MAX_K``: DiT at
 ``--embed-dim 480``, 1472, 1536 or 1600), plain torch products with
 :func:`rung3_block_reference`'s rounding around the same core, as JAX
 computes them in XLA. The cores:
@@ -413,24 +416,27 @@ def _kernel_operands(scale_p, bias_p, wqkv, bqkv, wproj, bproj):
 
 
 def _fwd_chain(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, core):
-    """The LN-prologue qkv GEMM, ``core(qkv) -> (att, saved)`` on its
-    (B, N, 3D) output, and the projection GEMM with the residual:
-    ``(out, att, saved)``."""
+    """The LN-prologue qkv product, ``core(qkv) -> (att, saved)`` on its
+    (B, N, 3D) output, and the projection product with the residual, both
+    on the wgmma TMA ring (``csrc/gemm_wg.cu``): ``(out, att, saved)``."""
     B, N, D = x.shape
     s, bb, wqkv_b, bqkv_f, wproj_b, bproj_f = _kernel_operands(
         scale_p, bias_p, wqkv, bqkv, wproj, bproj)
     x2 = x.reshape(B * N, D)
-    qkv, _, _ = gemm.ln_gemm(x2, s, bb, wqkv_b, bqkv_f, gemm.EPI_BIAS)
+    qkv, _, _ = gemm.ln_gemm_wg(x2, s, bb, wqkv_b, bqkv_f, gemm.EPI_BIAS)
     att, saved = core(qkv.view(B, N, 3 * D))
-    out = gemm.gemm_residual(att.view(B * N, D), wproj_b, bproj_f, x2)
+    out = gemm.gemm_residual_wg(att.view(B * N, D), wproj_b, bproj_f, x2)
     return out.reshape(B, N, D), att, saved
 
 
 def _bwd_chain(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, dout, core_bwd):
-    """The half-block backward around an attention core: the qkv GEMM
-    recomputed (it also gives y = bf16(LN(x)) for dWqkv), datt,
-    ``core_bwd(qkv, datt) -> (att (B, N, D), dqkv (B, N, 3D))``, dWproj and
-    dbproj, then dWqkv, dbqkv, dy and the LN backward with the residual."""
+    """The half-block backward around an attention core, its products on the
+    wgmma TMA ring (``csrc/gemm_wg.cu``): the qkv product recomputed (the
+    forward's kernel and plan, so its bits; it also gives y = bf16(LN(x))
+    for dWqkv), datt, ``core_bwd(qkv, datt) -> (att (B, N, D), dqkv (B, N,
+    3D))``, dWproj and dbproj, then dWqkv, dbqkv, dy and the LN backward
+    with the residual. The weight gradients split T in fixed row ranges,
+    summed in a fixed order: a second call is bit-identical."""
     B, N, D = x.shape
     if dout.shape != x.shape:
         raise ValueError(f"the cotangent must be {tuple(x.shape)}, got {tuple(dout.shape)}")
@@ -438,15 +444,15 @@ def _bwd_chain(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, dout, core_bwd):
         scale_p, bias_p, wqkv, bqkv, wproj, bproj)
     x2 = x.reshape(B * N, D)
     dob = dout.to(torch.bfloat16).contiguous().reshape(B * N, D)
-    qkv, _, y = gemm.ln_gemm(x2, s, bb, wqkv_b, bqkv_f, gemm.EPI_BIAS, with_y=True)
-    datt = gemm.gemm_nn(dob, wproj_b, gemm.NN_BF16).view(B, N, D)
+    qkv, _, y = gemm.ln_gemm_wg(x2, s, bb, wqkv_b, bqkv_f, gemm.EPI_BIAS, with_y=True)
+    datt = gemm.gemm_nn_wg(dob, wproj_b, gemm.NN_BF16).view(B, N, D)
     att, dqkv = core_bwd(qkv.view(B, N, 3 * D), datt)
     del qkv, datt
-    dwproj, dbproj = gemm.gemm_tn(dob, att.view(B * N, D), with_colsum=True)
+    dwproj, dbproj = gemm.gemm_tn_wg(dob, att.view(B * N, D), with_colsum=True)
     del att
     dqkv = dqkv.view(B * N, 3 * D)
-    dwqkv, dbqkv = gemm.gemm_tn(dqkv, y, with_colsum=True)
-    dy = gemm.gemm_nn(dqkv, wqkv_b, gemm.NN_F32)
+    dwqkv, dbqkv = gemm.gemm_tn_wg(dqkv, y, with_colsum=True)
+    dy = gemm.gemm_nn_wg(dqkv, wqkv_b, gemm.NN_F32)
     del dqkv
     dx, dscale, dbias = gemm.ln_bwd(x2, dy, dob, s)
     return dx.reshape(B, N, D), dscale, dbias, dwqkv, dbqkv, dwproj, dbproj
@@ -637,11 +643,11 @@ def attention_core_bwd(q, k, v, do, H: int):
 
 
 def _gemm_chain_takes(D: int) -> bool:
-    """Whether the third rung runs the half-block GEMMs (the LN-prologue qkv
-    product and the projection with the residual) at width D: up to the
-    resident-panel bound; past it the plain products (JAX's XLA). Whether
-    the streamed LN-prologue kernel should take those widths is ROADMAP
-    item 12's question."""
+    """Whether the third rung runs the half-block's wgmma products (the
+    LN-prologue qkv product and the projection with the residual) at width
+    D: up to ``gemm.LN_GEMM_MAX_K``, as K2's chains; past it the plain
+    products (JAX's XLA). Whether the chain should take those widths is
+    ROADMAP item 12's question."""
     return D % 64 == 0 and D <= gemm.LN_GEMM_MAX_K
 
 

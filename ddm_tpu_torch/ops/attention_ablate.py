@@ -24,8 +24,8 @@ baseline is K2b bit for bit):
 - ``skip_recompute_mha``: no att = P V product, att = q;
 - ``skip_ln``: dx = bf16(dout + dy), dscale = dbias = 0 (an instance of
   ``csrc/gemm_bwd.cu`` ``ln_bwd_kernel`` without the LN algebra);
-- ``skip_dw``: the chain skips both weight-gradient products (``gemm_tn``)
-  and returns zeros for dWproj, dbproj, dWqkv and dbqkv.
+- ``skip_dw``: the chain skips both weight-gradient products
+  (``gemm_tn_wg``) and returns zeros for dWproj, dbproj, dWqkv and dbqkv.
 
 The TPU body packs g images under an all-zero mask (``kbench_ablate.py:199``),
 so at g > 1 its queries attend across the images of a pack; the port works
@@ -33,9 +33,10 @@ per image, as K2b does, and computes the tool's function where g = 1 (odd
 B, or N >= 256). :func:`attention_block_bwd_ablate_reference` is the plain
 version, each flag removing the same step from
 :func:`~ddm_tpu_torch.ops.attention.attention_block_bwd_reference`'s
-arithmetic. :func:`mlp_block_fwd_identity_gelu` is K1f's chain with the
-first product's epilogue ``EPI_BIAS`` in place of ``EPI_GELU`` (an existing
-instance: no new kernel). Nothing in ``models/`` calls this module;
+arithmetic. :func:`mlp_block_fwd_identity_gelu` is K1f's chain (the wgmma
+products of ``csrc/gemm_wg.cu``) with the first product's epilogue
+``EPI_BIAS`` in place of ``EPI_GELU`` (the instance K2f's qkv product
+launches: no new kernel). Nothing in ``models/`` calls this module;
 ``scripts/torch_kbench_ablate.py`` times it.
 """
 
@@ -206,16 +207,17 @@ def _ln_bwd_residual(dy, dres):
 
 
 def _ablate_chain(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H, dout, sk, code):
-    """K2b's chain (``ops/attention.py`` ``_bwd_chain``) with X3's core
-    instance and the chain's own removals."""
+    """K2b's chain (``ops/attention.py`` ``_bwd_chain``: the same wgmma
+    products, in its order) with X3's core instance and the chain's own
+    removals."""
     B, N, D = x.shape
     s, bb, wqkv_b, bqkv_f, wproj_b, _ = A._kernel_operands(
         scale_p, bias_p, wqkv, bqkv, wproj, bproj)
     x2 = x.reshape(B * N, D)
     dob = dout.to(torch.bfloat16).contiguous().reshape(B * N, D)
-    qkv, _, y = gemm.ln_gemm(x2, s, bb, wqkv_b, bqkv_f, gemm.EPI_BIAS,
-                             with_y=not sk["skip_dw"])
-    datt = gemm.gemm_nn(dob, wproj_b, gemm.NN_BF16).view(B, N, D)
+    qkv, _, y = gemm.ln_gemm_wg(x2, s, bb, wqkv_b, bqkv_f, gemm.EPI_BIAS,
+                                with_y=not sk["skip_dw"])
+    datt = gemm.gemm_nn_wg(dob, wproj_b, gemm.NN_BF16).view(B, N, D)
     att, dqkv = _launch_core(qkv.view(B, N, 3 * D), datt, H, code)
     del qkv, datt
     zeros = lambda *s: torch.zeros(s, dtype=torch.float32, device=x.device)  # noqa: E731
@@ -223,10 +225,10 @@ def _ablate_chain(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H, dout, sk, cod
     if sk["skip_dw"]:
         dwproj, dbproj, dwqkv, dbqkv = zeros(D, D), zeros(D), zeros(3 * D, D), zeros(3 * D)
     else:
-        dwproj, dbproj = gemm.gemm_tn(dob, att.view(B * N, D), with_colsum=True)
-        dwqkv, dbqkv = gemm.gemm_tn(dqkv, y, with_colsum=True)
+        dwproj, dbproj = gemm.gemm_tn_wg(dob, att.view(B * N, D), with_colsum=True)
+        dwqkv, dbqkv = gemm.gemm_tn_wg(dqkv, y, with_colsum=True)
     del att
-    dy = gemm.gemm_nn(dqkv, wqkv_b, gemm.NN_F32)
+    dy = gemm.gemm_nn_wg(dqkv, wqkv_b, gemm.NN_F32)
     del dqkv
     if sk["skip_ln"]:
         dx, dscale, dbias = _ln_bwd_residual(dy, dob), zeros(D), zeros(D)
@@ -270,15 +272,15 @@ def mlp_block_identity_gelu_reference(x, scale, bias, w1, b1, w2, b2):
 
 
 def mlp_block_fwd_identity_gelu(x, scale, bias, w1, b1, w2, b2):
-    """``x + (LN(x) W1^T + b1) W2^T + b2`` over (T, D) rows: K1f's chain
-    with ``EPI_BIAS`` in place of ``EPI_GELU`` on CUDA tensors,
+    """``x + (LN(x) W1^T + b1) W2^T + b2`` over (T, D) rows: K1f's wgmma
+    chain with ``EPI_BIAS`` in place of ``EPI_GELU`` on CUDA tensors,
     :func:`mlp_block_identity_gelu_reference` on CPU tensors."""
     args = (x, scale, bias, w1, b1, w2, b2)
     if not uses_kernel(*args):
         return mlp_block_identity_gelu_reference(*args)
     M._check(*args)
     s, bb, w1b, b1f, w2b, b2f = M._kernel_operands(scale, bias, w1, b1, w2, b2)
-    hidden, _, _ = gemm.ln_gemm(x, s, bb, w1b, b1f, gemm.EPI_BIAS)
-    out = gemm.gemm_residual(hidden, w2b, b2f, x)
+    hidden, _, _ = gemm.ln_gemm_wg(x, s, bb, w1b, b1f, gemm.EPI_BIAS)
+    out = gemm.gemm_residual_wg(hidden, w2b, b2f, x)
     MLP_LAUNCHES.add()
     return out

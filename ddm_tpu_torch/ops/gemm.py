@@ -1,8 +1,9 @@
 """ctypes launchers for the half-block GEMMs, shared by the MLP, attention
-and expert-FFN wrappers: the WMMA products of ``csrc/gemm.cu`` and
-``csrc/gemm_bwd.cu`` (K2, K4, K6, K7, K10), and the wgmma products fed by a
-TMA ring of ``csrc/gemm_wg.cu`` (``*_wg``: K1f and K1b), with their tile
-and split plans.
+and expert-FFN wrappers: the wgmma products fed by a TMA ring of
+``csrc/gemm_wg.cu`` (``*_wg``: K1f, K1b, and the chains of K2f, K2b, K4
+and the third attention rung at D <= 1344), with their tile and split
+plans, and the WMMA products of ``csrc/gemm.cu`` and ``csrc/gemm_bwd.cu``
+(K6, K10, and the WMMA K2f chain X2f's bit check composes).
 
 Each function takes CUDA tensors that its caller has checked (bf16
 activations and weights, fp32 biases and LN parameters, contiguous),
@@ -232,7 +233,7 @@ def cast_bf16(src):
     return dst
 
 
-# --- the wgmma products (csrc/gemm_wg.cu): K1f and K1b ---
+# --- the wgmma products (csrc/gemm_wg.cu): K1f, K1b and the attention chains ---
 
 WG_BM, WG_BK, WG_STAGES = 128, 64, 4  # output rows a tile, depth a stage, ring stages
 
@@ -312,10 +313,14 @@ def _sms(dev: torch.device) -> int:
 
 
 def ln_gemm_wg(x, scale, bias, w, b, epi: int, with_y: bool = False, fast_gelu: bool = False):
-    """:func:`ln_gemm` (``EPI_GELU`` or ``EPI_GELU_GRAD``) through the
-    wgmma kernel: ``(out, gelu_grad, y)`` of ``epi(LN(x) w^T + b)`` over
-    (T, K) rows, any K % 64 == 0 whose LN tables fit (:func:`wg_smem`),
-    ``epi`` and ``fast_gelu`` selecting one of four compiled epilogues."""
+    """:func:`ln_gemm` through the wgmma kernel: ``(out, gelu_grad, y)`` of
+    ``epi(LN(x) w^T + b)`` over (T, K) rows, any K % 64 == 0 whose LN tables
+    fit (:func:`wg_smem`), ``epi`` and ``fast_gelu`` selecting one of five
+    compiled epilogues: ``EPI_BIAS`` (the attention chains' qkv; no
+    ``fast_gelu``), or ``EPI_GELU`` and ``EPI_GELU_GRAD``, erf or sigmoid."""
+    if epi not in (EPI_BIAS, EPI_GELU, EPI_GELU_GRAD) or (epi == EPI_BIAS and fast_gelu):
+        raise ValueError(f"ln_gemm_wg takes EPI_BIAS, EPI_GELU or EPI_GELU_GRAD (fast_gelu "
+                         f"with the GELU ones only), got {epi} with fast_gelu={fast_gelu}")
     T, K = x.shape
     N = w.shape[0]
     tma_operand(x, "x")
@@ -349,10 +354,11 @@ def gemm_residual_wg(a, w, b, res):
 
 def gemm_nn_wg(a, w, epi: int, dfac=None):
     """``a (T, K) . w (K, N)`` with ``w`` nn.Linear's (out, in) weight read as
-    (K, N), through the wgmma kernel: ``NN_F32`` -> fp32 out; ``NN_DGELU``
-    -> ``(bf16(dh), sum_rows(dh))``, ``dh = (a . w) * dfac`` in fp32."""
-    if epi not in (NN_F32, NN_DGELU):
-        raise ValueError(f"gemm_nn_wg takes NN_F32 or NN_DGELU, got {epi}")
+    (K, N), through the wgmma kernel: ``NN_F32`` -> fp32 out; ``NN_BF16`` ->
+    bf16 out (the attention chains' datt); ``NN_DGELU`` -> ``(bf16(dh),
+    sum_rows(dh))``, ``dh = (a . w) * dfac`` in fp32."""
+    if epi not in (NN_F32, NN_BF16, NN_DGELU):
+        raise ValueError(f"gemm_nn_wg takes NN_F32, NN_BF16 or NN_DGELU, got {epi}")
     T, K = a.shape
     N = w.shape[1]
     tma_operand(a, "a")

@@ -9,7 +9,10 @@ and so does the port: nothing in ``models/`` calls :func:`whole_block_fwd`;
 ``scripts/torch_exp_whole_block.py`` times it against the pair.
 
 On CUDA tensors :func:`whole_block_fwd` launches X2f (``csrc/whole_block.cu``),
-whose output is the port's K2f -> K1f pair's bit for bit; on CPU tensors it
+whose output is bit for bit the K2f -> K1f pair composed from the WMMA
+products around the resident core (the pair before both half-blocks moved
+to the wgmma products, whose sums run in another order: the card test
+composes it); on CPU tensors it
 runs :func:`whole_block_reference`, the pair's plain versions in turn. It is
 forward only, as X2 is. It takes whole images of N <= 64 tokens (N % 16 ==
 0) at D 128, 256 or 384 (DiT-S/4's widths: D 384 over 6 heads, F 1536),
@@ -75,7 +78,8 @@ def whole_block_fwd(x, s1, b1, wqkv, bqkv, wproj, bproj, s2, b2, w1, bb1, w2, bb
     """``a = x + proj(MHA(qkv(LN1 x)))``, then ``a + W2 gelu(W1 LN2 a + b1)
     + b2``, over (B, N, D) tokens, forward only: X2f on CUDA tensors (bf16
     activations; fp32 LN parameters and biases; weights cast to bf16), the
-    K2f -> K1f pair's output bit for bit; :func:`whole_block_reference` on
+    WMMA-composed K2f -> K1f pair's output bit for bit;
+    :func:`whole_block_reference` on
     CPU tensors. Shapes outside :func:`whole_block_takes` raise
     ``NotImplementedError`` on either device."""
     args = (x, s1, b1, wqkv, bqkv, wproj, bproj, s2, b2, w1, bb1, w2, bb2)

@@ -11,10 +11,9 @@ It prints the card's name and power limit, then, on the same seeded inputs
 at (B 256, N 64, D 384, H 6, F 1536), the sampler's block of DiT-S/4:
 
 - the largest |merged - pair| and whether the two agree bit for bit, the
-  pair's core forced to the resident design and its MLP half run by the
-  WMMA products (``gemm.ln_gemm`` + ``gemm.gemm_residual``), what X2f
-  reproduces (K1f itself runs the wgmma products, whose sums run in
-  another order);
+  pair composed from the WMMA products around the resident core
+  (:func:`wmma_k2f`, :func:`wmma_mlp`), what X2f reproduces (K2f and K1f
+  themselves run the wgmma products, whose sums run in another order);
 - one block and an 8-block chain (the block's weights applied 8 times),
   X2f against the pair: median ms of ``--reps`` calls by CUDA events, taken
   in turns (pair, merged, merged, pair, ``--turns`` times);
@@ -75,9 +74,9 @@ def block_params(D: int, F: int, seed: int = 0):
 
 
 def wmma_mlp(a, scale, bias, w1, b1, w2, b2):
-    """The MLP half-block through the WMMA products that K6f and K2 still
-    launch (the LN-prologue GEMM with the GELU epilogue, then the residual
-    GEMM): the products X2f reproduces bit for bit."""
+    """The MLP half-block through the WMMA products that K6f still launches
+    (the LN-prologue GEMM with the GELU epilogue, then the residual GEMM):
+    the products X2f reproduces bit for bit."""
     from ddm_tpu_torch.ops import gemm
     from ddm_tpu_torch.ops.mlp_block import _kernel_operands
 
@@ -86,10 +85,29 @@ def wmma_mlp(a, scale, bias, w1, b1, w2, b2):
     return gemm.gemm_residual(hidden, w2b, b2f, a)
 
 
+def wmma_k2f(x, scale, bias, wqkv, bqkv, wproj, bproj, core):
+    """K2f's chain composed from the WMMA products (the LN-prologue GEMM with
+    the bias epilogue, then the residual GEMM, the operand casts included)
+    around ``core(qkv (B, N, 3D)) -> att (B, N, D)``: with the resident core,
+    the products X2f reproduces bit for bit, which K2f ran before its chain
+    moved to the wgmma products."""
+    from ddm_tpu_torch.ops import attention as A
+    from ddm_tpu_torch.ops import gemm
+
+    B, N, D = x.shape
+    s, bb, wqkv_b, bqkv_f, wproj_b, bproj_f = A._kernel_operands(
+        scale, bias, wqkv, bqkv, wproj, bproj)
+    x2 = x.reshape(B * N, D)
+    qkv, _, _ = gemm.ln_gemm(x2, s, bb, wqkv_b, bqkv_f, gemm.EPI_BIAS)
+    att = core(qkv.view(B, N, 3 * D))
+    return gemm.gemm_residual(att.view(B * N, D), wproj_b, bproj_f, x2).reshape(B, N, D)
+
+
 def pair(x, p, H: int, design=None):
     """The port's two half-blocks, as every DiT path runs them (K2f, K1f);
-    ``design`` forces K2f's core design and runs the MLP half on the WMMA
-    products (:func:`wmma_mlp`): X2f reproduces the resident core and those."""
+    ``design`` composes both from the WMMA products around that core design
+    (:func:`wmma_k2f`, :func:`wmma_mlp`): X2f reproduces the resident core
+    and those."""
     from ddm_tpu_torch.ops import attention as A
     from ddm_tpu_torch.ops.mlp_block import fused_mlp_block
 
@@ -97,7 +115,7 @@ def pair(x, p, H: int, design=None):
     if design is None:
         a = A.fused_attention_block(x, *p[:6], H)
         return fused_mlp_block(a.reshape(B * N, D), *p[6:]).reshape(B, N, D)
-    a = A._k2f(x, *p[:6], H, design)
+    a = wmma_k2f(x, *p[:6], lambda qkv: A._k2_core(qkv, H, design))
     return wmma_mlp(a.reshape(B * N, D), *p[6:]).reshape(B, N, D)
 
 
@@ -151,8 +169,8 @@ def block_inputs(shape=SHAPE):
 
 
 def block_times(reps: int, turns: int, shape=SHAPE) -> dict:
-    """The bit check (against the pair with the resident core and the WMMA
-    MLP products) and the 1-block and 8-block times (against the pair as the
+    """The bit check (against the pair composed from the WMMA products
+    around the resident core) and the 1-block and 8-block times (against the pair as the
     paths run it) at ``shape``."""
     H = shape[3]
     x, p = block_inputs(shape)

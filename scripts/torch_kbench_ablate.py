@@ -87,8 +87,9 @@ def mlp_times(reps: int, turns: int) -> dict:
 
 
 def chain_split(reps: int) -> dict:
-    """K2b's chain (``ops/attention.py`` ``_bwd_chain``) launch by launch on
-    its own operands, and the whole chain: ``{launch: ms}``."""
+    """K2b's chain (``ops/attention.py`` ``_bwd_chain``: the wgmma products,
+    the core backward, ``ln_bwd``) launch by launch on its own operands, and
+    the whole chain: ``{launch: ms}``."""
     from ddm_tpu_torch.ops import attention as A
     from ddm_tpu_torch.ops import gemm
 
@@ -98,21 +99,21 @@ def chain_split(reps: int) -> dict:
     x2 = x.reshape(B * N, D)
     dob = dout.reshape(B * N, D)
     with torch.no_grad():
-        qkv, _, y = gemm.ln_gemm(x2, s, bb, wqkv_b, bqkv_f, gemm.EPI_BIAS, with_y=True)
-        datt = gemm.gemm_nn(dob, wproj_b, gemm.NN_BF16).view(B, N, D)
+        qkv, _, y = gemm.ln_gemm_wg(x2, s, bb, wqkv_b, bqkv_f, gemm.EPI_BIAS, with_y=True)
+        datt = gemm.gemm_nn_wg(dob, wproj_b, gemm.NN_BF16).view(B, N, D)
         att, dqkv = A._core_bwd_att(qkv.view(B, N, 3 * D), datt, H)
         dqkv = dqkv.view(B * N, 3 * D)
-        dy = gemm.gemm_nn(dqkv, wqkv_b, gemm.NN_F32)
+        dy = gemm.gemm_nn_wg(dqkv, wqkv_b, gemm.NN_F32)
         launches = {
-            "qkv recompute": lambda: gemm.ln_gemm(x2, s, bb, wqkv_b, bqkv_f, gemm.EPI_BIAS,
-                                                  with_y=True),
-            "datt": lambda: gemm.gemm_nn(dob, wproj_b, gemm.NN_BF16),
+            "qkv recompute": lambda: gemm.ln_gemm_wg(x2, s, bb, wqkv_b, bqkv_f, gemm.EPI_BIAS,
+                                                     with_y=True),
+            "datt": lambda: gemm.gemm_nn_wg(dob, wproj_b, gemm.NN_BF16),
             "core": lambda: A._core_bwd_att(qkv.view(B, N, 3 * D), datt, H),
             "core (one-block)": lambda: A._core_bwd_att(qkv.view(B, N, 3 * D), datt, H,
                                                         "one-block"),
-            "dWproj": lambda: gemm.gemm_tn(dob, att.view(B * N, D), with_colsum=True),
-            "dWqkv": lambda: gemm.gemm_tn(dqkv, y, with_colsum=True),
-            "dy": lambda: gemm.gemm_nn(dqkv, wqkv_b, gemm.NN_F32),
+            "dWproj": lambda: gemm.gemm_tn_wg(dob, att.view(B * N, D), with_colsum=True),
+            "dWqkv": lambda: gemm.gemm_tn_wg(dqkv, y, with_colsum=True),
+            "dy": lambda: gemm.gemm_nn_wg(dqkv, wqkv_b, gemm.NN_F32),
             "ln_bwd": lambda: gemm.ln_bwd(x2, dy, dob, s),
             "chain (K2b)": lambda: A.attention_block_bwd(x, *p, H, dout),
             "chain (one-block core)": lambda: A._k2b(x, *p, H, dout, design="one-block"),

@@ -3,9 +3,11 @@ card, at head widths off 16 (Dh 8, 24, 40, 72), at DiT-XL's D 1152, with the fas
 MLP half-block past D 1344 (the streamed LN-prologue GEMM, D 1408-4096), and the streamed
 attention cores past 227 KB of shared memory (Dh up to 3712), bit for bit the resident ones;
 K1f's and K1b's wgmma chains at ragged T and D 64-1536 (y bit for bit the WMMA kernel's),
-the DiT tail X4f/X4b at every DiT path's width, X2f bit for bit the K2f -> MLP pair, X1's
-phase-batched cores bit for bit K2's, X3's ablations of K2b's chain, and the registers
-designs of the forward core and of K8f and K8b, the narrow heads (Dh 4, 8, 16) included.
+K2f's and K2b's at D 64-1344 (the recompute's qkv the forward's bits, no WMMA product on
+any attention path), the DiT tail X4f/X4b at every DiT path's width, X2f bit for bit the
+WMMA-composed K2f -> MLP pair, X1's phase-batched cores bit for bit K2's, X3's ablations
+of K2b's chain, and the registers designs of the forward core and of K8f and K8b, the
+narrow heads (Dh 4, 8, 16) included.
 
 Every test here is marked ``cuda`` and skips on a host without a GPU. The
 file imports no JAX (the machine with the card has none), so it runs there
@@ -231,6 +233,107 @@ def test_backward_core_att_is_the_forward_cores_on_the_card(cuda_device, B, N, H
     want = TA.attention_core_bwd_att_reference(*qkv.split(H * Dh, dim=-1), datt, H)
     _assert_bf16_rule(att, want[0])
     _assert_bf16_rule(dqkv, torch.cat(want[1:], dim=-1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,H,Dh", [(2048, 64, 6, 64), (64, 64, 16, 64), (3, 16, 2, 64),
+                                      (256, 64, 16, 24), (64, 64, 16, 72), (64, 48, 8, 40),
+                                      (16, 32, 4, 128)])
+def test_fused_backward_core_att_is_the_registers_forwards_on_the_card(cuda_device, B, N, H,
+                                                                         Dh):
+    """At N <= 64 and padded heads up to 128 the plans pick the fused
+    registers backward and the registers forward; the att the fused block
+    writes (which K2b's dWproj reads) is the forward core's output on the
+    same qkv bit for bit."""
+    assert TA.core_plan(N, Dh, backward=True)["design"] == "registers-fused"
+    assert TA.core_plan(N, Dh)["design"] == "registers"
+    gen = torch.Generator(device=cuda_device).manual_seed(17)
+    qkv = torch.randn(B, N, 3 * H * Dh, generator=gen, device=cuda_device).to(torch.bfloat16)
+    datt = torch.randn(B, N, H * Dh, generator=gen, device=cuda_device).to(torch.bfloat16)
+    assert torch.equal(TA._core_bwd_att(qkv, datt, H)[0], TA._k2_core(qkv, H))
+
+
+# K2's chains on the wgmma products at each width class: ragged column tiles
+# (D 64, 320), DiT-S (384), DiT-B (768), DiT-L (1024: 256-wide tiles), DiT-XL
+# (1152, Dh 72) and the widest (1344); ragged T (B 3 x N 16), N 64 and 256
+K2_WG_WIDTHS = [(64, 1), (320, 5), (384, 6), (768, 12), (1024, 16), (1152, 16), (1344, 21)]
+K2_WG_TOKENS = [(3, 16), (5, 64), (2, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N", K2_WG_TOKENS)
+@pytest.mark.parametrize("D,H", K2_WG_WIDTHS)
+def test_k2_wgmma_chains_match_plain_on_the_card(cuda_device, B, N, D, H):
+    """K2f's and K2b's chains on the wgmma products (``csrc/gemm_wg.cu``),
+    called directly at every width class they take (the tiers send some of
+    these to the third rung, which runs the same chains): against the plain
+    versions by the bf16 and gradient rules; a second K2b call is
+    bit-identical (split-K in fixed row ranges, no atomics)."""
+    args = _on(cuda_device, _attn_inputs(B, N, D, seed=80))
+    dout = torch.randn(B, N, D, generator=torch.Generator(device=cuda_device).manual_seed(81),
+                       device=cuda_device).to(torch.bfloat16)
+    before = (TA.LAUNCHES.count, TA.BWD_LAUNCHES.count)
+    with torch.no_grad():
+        got = TA._k2f(*args, H)
+        grads = TA._k2b(*args, H, dout)
+        again = TA._k2b(*args, H, dout)
+        torch.cuda.synchronize()
+    assert (TA.LAUNCHES.count - before[0], TA.BWD_LAUNCHES.count - before[1]) == (1, 2)
+    _assert_bf16_rule(got, TA.attention_block_reference(*args, H))
+    _assert_grads_close(grads, TA.attention_block_bwd_reference(*args, H, dout))
+    for g, h in zip(grads, again):
+        assert torch.equal(g, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,D,H", [(2048, 64, 384, 6), (3, 16, 320, 5), (64, 64, 1152, 16)])
+def test_k2b_recompute_is_k2fs_qkv_on_the_card(cuda_device, B, N, D, H):
+    """The backward's qkv recompute is the forward's qkv product: the same
+    wgmma kernel and plan (a function of the shapes and the SM count), so
+    the same bits."""
+    args = _on(cuda_device, _attn_inputs(B, N, D, seed=82))
+    dout = torch.randn(B, N, D, generator=torch.Generator(device=cuda_device).manual_seed(83),
+                       device=cuda_device).to(torch.bfloat16)
+    seen = {}
+
+    def core(qkv):
+        seen["forward"] = qkv.clone()
+        return TA._k2_core(qkv, H), None
+
+    def core_bwd(qkv, datt):
+        seen["recompute"] = qkv.clone()
+        return TA._core_bwd_att(qkv, datt, H)
+
+    with torch.no_grad():
+        TA._fwd_chain(*args, core)
+        TA._bwd_chain(*args, dout, core_bwd)
+        torch.cuda.synchronize()
+    assert torch.equal(seen["forward"], seen["recompute"])
+
+
+def _refuse_wmma(*args, **kwargs):
+    raise AssertionError("a WMMA product ran on an attention chain")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["K2", "K4", "rung3 K7", "rung3 K8"])
+def test_attention_paths_launch_no_wmma_product_on_the_card(cuda_device, monkeypatch, path):
+    """With the WMMA launchers of ``ops/gemm.py`` made to raise, K2f and K2b
+    (DiT-S/4), K4 (DiT-L), and the third rung around K7 (DiT-L at N 256) and
+    K8 (N 1024, Dh 64) still pass their card tests: their chains launch only
+    the wgmma products (and the cores and ``ln_bwd``), with no fallback."""
+    for name in ("ln_gemm", "gemm_residual", "gemm_nn", "gemm_tn", "gemm_partial"):
+        monkeypatch.setattr(TA.gemm, name, _refuse_wmma)
+    if path == "K2":
+        test_k2_kernel_matches_plain_on_the_card(cuda_device, 256, 64, 384, 6)
+        test_k2_backward_kernel_matches_plain_on_the_card(cuda_device, 256, 64, 384, 6)
+    elif path == "K4":
+        test_k4_split_backward_matches_plain_on_the_card(cuda_device, monkeypatch, 256, 64,
+                                                         1024, 16, False)
+    elif path == "rung3 K7":
+        test_rung3_half_block_matches_plain_on_the_card(cuda_device, 8, 256, 1024, 16, "K7")
+    else:
+        test_rung3_half_block_matches_plain_on_the_card(cuda_device, 2, 1024, 384, 6, "K8")
 
 
 @pytest.mark.cuda
@@ -1925,26 +2028,33 @@ def test_x4_refuses_fp32_and_leaves_refused_shapes_plain_on_the_card(cuda_device
                                        (5, 32, 384, 6, 1536), (7, 48, 256, 4, 1024),
                                        (16, 64, 128, 2, 512)])
 def test_x2f_is_the_k2f_k1f_pair_bit_for_bit_on_the_card(cuda_device, B, N, D, H, F):
-    """X2f's output equals the port's K2f -> MLP pair's bit for bit with the
-    resident core forced and the MLP half on the WMMA products that K6f and
-    K2 still launch (``gemm.ln_gemm`` + ``gemm.gemm_residual``; K1f runs the
-    wgmma products, whose sums run in another order): a rounded where the
-    pair writes it, every product's slices in the pair's order, the pair's
-    epilogues and the core tools/exp_whole_block.py reproduces; and the
-    plain version's by the bf16 rule."""
+    """X2f's output equals bit for bit the K2f -> MLP pair composed from the
+    WMMA products (``gemm.ln_gemm`` + ``gemm.gemm_residual``, which K6f
+    still launches) around the resident core: the qkv product with the bias
+    epilogue, the core, the projection with the residual, then the MLP
+    half's two products (K2f and K1f run the wgmma products, whose sums run
+    in another order): a rounded where the pair writes it, every product's
+    slices in the pair's order, the pair's epilogues and the core
+    tools/exp_whole_block.py reproduces; and the plain version's by the
+    bf16 rule."""
     x, *attn = _on(cuda_device, _attn_inputs(B, N, D, seed=50))
     _, *mlp = _on(cuda_device, _mlp_inputs(8, D, F, seed=51))
     args = (x, *attn, *mlp)
     counters = (TA.LAUNCHES, TW.LAUNCHES)
     before = [c.count for c in counters]
+    g = TM.gemm
     with torch.inference_mode():
-        a = TA._k2f(x, *attn, H, "resident").reshape(B * N, D)
+        sa, ba, wqkv, bqkv, wproj, bproj = TA._kernel_operands(*attn)
+        x2 = x.reshape(B * N, D)
+        qkv, _, _ = g.ln_gemm(x2, sa, ba, wqkv, bqkv, g.EPI_BIAS)
+        att = TA._k2_core(qkv.view(B, N, 3 * D), H, "resident")
+        a = g.gemm_residual(att.view(B * N, D), wproj, bproj, x2)
         s, bb, w1b, b1f, w2b, b2f = TM._kernel_operands(*mlp)
         hidden, _, _ = TM.gemm.ln_gemm(a, s, bb, w1b, b1f, TM.gemm.EPI_GELU)
         want = TM.gemm.gemm_residual(hidden, w2b, b2f, a).reshape(B, N, D)
         got = TW.whole_block_fwd(*args, H)
         torch.cuda.synchronize()
-    assert [c.count - n for c, n in zip(counters, before)] == [1, 1]
+    assert [c.count - n for c, n in zip(counters, before)] == [0, 1]  # K2f's chain is wgmma
     assert got.dtype == torch.bfloat16 and got.shape == (B, N, D)
     assert torch.equal(got, want)
     _assert_bf16_rule(got, TW.whole_block_reference(*args, H))

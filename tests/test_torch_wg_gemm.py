@@ -1,5 +1,6 @@
 """The Python side of the wgmma products that K1f and K1b launch
-(``ddm_tpu_torch/ops/gemm.py`` ``*_wg``, ``csrc/gemm_wg.cu``), on the CPU:
+(``ddm_tpu_torch/ops/gemm.py`` ``*_wg``, ``csrc/gemm_wg.cu``; the attention
+chains' in ``tests/test_torch_wg_attention.py``), on the CPU:
 
 - the tile plan and the split-K plan are pure functions of the shapes and
   the SM count, each split a whole number of 64-row tiles covering T
@@ -213,8 +214,8 @@ def test_wg_launchers_pass_the_plans(fake_lib):
     name, args = fake_lib.calls[-1]
     bn, splits, rows = G.wg_split_plan(T, D, F, H100_SMS)
     assert name == "ddm_wg_gemm_tn" and args[6:] == (T, D, F, splits, rows, bn, 0)
-    with pytest.raises(ValueError):
-        G.gemm_nn_wg(out, w, G.NN_BF16)
+    with pytest.raises(ValueError):  # NN_BF16 is the attention chains' datt since they moved
+        G.gemm_nn_wg(out, w, G.NN_BIAS)
 
 
 @pytest.mark.parametrize("T,D,F", [(131072, 384, 1536), (16384, 768, 3072), (4096, 1408, 1408),
