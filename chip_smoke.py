@@ -41,7 +41,13 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 Phases, each printing its own line(s); any failure raises, so the exit code
-is non-zero and no result line is printed:
+is non-zero and no result line is printed. Every phase runs with the WMMA
+launchers of ``ops/gemm.py`` made to raise inside K6f and K10b
+(``wmma_refused_in_k6f_k10b``), so every path that steps in this process
+proves their chains reach only the wgmma products (the rank processes of
+7j, which ``parallel.check.launch`` and ``torch.distributed.run`` start,
+are not patched: they run the same ``_k6f``, the TP partial, which 3k and
+6j run in this process under the refusal):
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles ``ddm_tpu_torch/csrc/*.cu`` with nvcc from the checkout
@@ -53,9 +59,10 @@ is non-zero and no result line is printed:
    384, H=6); at each shape in turns with the earlier WMMA chain and the
    cuBLAS chain (its products through torch.matmul with plain epilogues,
    around the same attention core: a yardstick the port never calls); the
-   registers and local bytes of K1's and K2's 30 wgmma instances from the
-   ptxas log, the attention chains' six printed apart (none may use local
-   memory); the host cost of a TMA descriptor;
+   registers and local bytes of the 54 wgmma instances (K1's, K2's, K6f's
+   and K10b's) from the ptxas log, the attention chains' six and K6f's and
+   K10b's 24 printed apart (none may use local memory); the host cost of a
+   TMA descriptor;
    3b. backward kernels: K1b at (131072, 384, F=1536) and K2b at
    (2048, 64, 384, H=6), the training shapes, against their plain backward
    versions, and a second call that must be bit-identical; each in turns
@@ -83,7 +90,11 @@ is non-zero and no result line is printed:
    whose routing agrees, the gates and router probabilities relative to
    their size (a logit shift of d moves a softmax output p by at most
    p (e^(2d) - 1)); slot rows no token holds must be zeros; every
-   backward's second call bit-identical; a full-width DiT-S/4 with seeded weights, one forward through the
+   backward's second call bit-identical; K10b (every shape it is timed at,
+   here and in 3f, 3n and 3q) also in turns with the earlier WMMA chain and
+   the cuBLAS chain, and at slot rows ragged against the 128-row tile (8,
+   1344, 384, F 1536) with the erf and the sigmoid GELU;
+4. model: a full-width DiT-S/4 with seeded weights, one forward through the
    kernels against one through the plain versions;
 5. slice: that model saved as a checkpoint and sampled with
    ``generate_torch.main`` (256 samples, 20 steps), checking the outputs and
@@ -126,7 +137,10 @@ The wide tiers, after every phase above:
     1024, F 4096) read in place (fp32, relative Frobenius error within 1e-4
     or twice the plain version's own spread under reordered sums), and the
     F-chunked half-block at k = 2 (bf16 rule), beside K1f unchunked on the
-    same inputs; K10p at (8, 20480, 768, F 3072): one chunk (fp32, the same
+    same inputs; the chunk (at every shape K6f is timed at, here and in 3k,
+    3l, 3m and 3p) also in turns with the earlier WMMA chain and the cuBLAS
+    chain, with whether the two designs' partials agree bit for bit; K10p at
+    (8, 20480, 768, F 3072): one chunk (fp32, the same
     rule) and the k = 2 forward (bf16 rule); then (wide-shapes) the earlier
     slices' kernels at the shapes the wide paths give them, each against its
     plain version by its own rule above and timed: K2f at DiT-L sampling and
@@ -244,8 +258,9 @@ DiT-XL/4 and the fast GELU, after those:
     256 and 64 images of (256, 1152) and K7b at 256 beside SDPA (64 px), and
     the third rung's chains around them at 256 images (the wgmma products,
     forward and backward, held and timed as K2f's and K4's), one
-    K6f partial on a chunk of 2304 of (131,072 x 1152, F 4608) and the k = 2
-    half-block, K1b at (131,072, 1152, 4608); K2f at (256, 64, 384, H 16)
+    K6f partial on a chunk of 2304 of (131,072 x 1152, F 4608) and of
+    (4,096 x 1152) (the sampler's 64 images) with the k = 2 half-blocks,
+    K1b at (131,072, 1152, 4608); K2f at (256, 64, 384, H 16)
     and K2b at (2048, 64, 384, H 16) (Dh 24); each by its rule above, every
     backward's second call bit-identical;
 3m. (fast-gelu-kernels) the seven fast-GELU variants at their rows' shapes
@@ -321,7 +336,8 @@ parameters), after those:
     6144): one K6f on the second 768-column chunk, read in place (fp32
     partial rule), the k = 8 half-block (bf16 rule, beside K1f unchunked),
     K1b's chain (gradient rule, second call bit-identical); K1f at (16,384 x
-    1792, F 1792), the fwdonly tier; the streamed LN-prologue GEMM against
+    1792, F 1792), the fwdonly tier; K6f past D 2048 (65,536 x 2560, F
+    10240, k 8: a chunk and the half-block); the streamed LN-prologue GEMM against
     the resident-panel kernel at D 1152 (K1b's recompute at DiT-XL, F 4608),
     bit for bit; the 4-warp LayerNorm backward at (32,768, 4096); each timed
     beside its plain version, with its bound;
@@ -577,6 +593,7 @@ PARTIAL_RTOL = 1e-4
 # takes 6i's 8 x m 4); DiT-S's D 384 over 16 heads of Dh 24 (3l)
 DIT_XL = {"embed_dim": 1152, "depth": 28, "heads": 16}
 XL_STEP_BATCH, DH24_HEADS = 16, 16
+N_XL_SAMPLES = 64  # the wide paths' sampler call: 64 images (T 4,096 rows at 32 px)
 # tensor parallelism: the two-rank step's batch (7j a) and the trainer's m (7j b)
 TP, TP_STEP_BATCH, TP_TRAIN_M = 2, 32, 2
 # Stable Diffusion 3 Medium's transformer widths (Esser et al. 2024: depth d
@@ -589,6 +606,8 @@ TP, TP_STEP_BATCH, TP_TRAIN_M = 2, 32, 2
 SD3_M = {"embed_dim": 1536, "depth": 24, "heads": 24}
 SD3_STEP_BATCH, SD3_STEPS, SD3_K = 16, 2, 8
 FWDONLY_WIDE, LN_BWD_WIDE = (16384, 1792, 1792), (32768, 4096)
+# 3p: K6f past D 2048, (T, D, F, k): MLP ratio 4 at D 2560 on a 64-px path's rows
+FCHUNKED_WIDE = (65536, 2560, 10240, 8)
 # DiT-S/4 with 128 routed experts (3q, 6q, 7p): its 6q step at batch 16 x m
 # 8, its trainers E128_STEPS steps of 256 x m 8; and a depth-1 DiT-MoE at
 # Mixtral-8x22B's widths (hidden 6144, 48 heads of 128, FFN 16384 = int(6144
@@ -800,7 +819,7 @@ def _wg_instances(kc):
     import re
 
     log = (kc._BUILD / (kc.library_path().stem + ".ptxas.txt")).read_text()
-    kinds = ("ln_gemm", "residual", "nn", "tn")
+    kinds = ("ln_gemm", "residual", "nn", "tn", "partial", "nt")
     found, name = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?(?: for|$)",
@@ -821,20 +840,30 @@ def _wg_instances(kc):
         if local:
             rec["local_bytes"] = max(rec["local_bytes"], sum(int(g) for g in local.groups()))
     insts = sorted(found.values(), key=lambda r: r["instance"])
-    print("[kernel] K1 and K2 wgmma instances (ptxas): " + "; ".join(
+    print("[kernel] K1, K2, K6f and K10b wgmma instances (ptxas): " + "; ".join(
         f"{r['instance']}: {r['registers']} registers, {r['local_bytes']} B local" for r in insts))
     new = [r for r in insts if r["instance"].endswith(WG_ATTENTION_EPILOGUES)]
     print("[kernel] the attention chains' own wgmma epilogues (qkv's bias alone, datt's bf16 "
           "store): " + "; ".join(f"{r['instance']}: {r['registers']} registers, "
                                  f"{r['local_bytes']} B local" for r in new))
-    if len(insts) != 30 or len(new) != 6 or any(r["local_bytes"] or not r["registers"]
-                                                 for r in insts):
+    wide = [r for r in insts if r["instance"].endswith(WG_WIDE_EPILOGUES)]
+    print("[kernel] K6f's and K10b's own wgmma instances (the partial product's store, add and "
+          "final; the recompute's bias + GELU + gelu', erf and sigmoid; dh and dx on a K-major "
+          "weight; the TN product's column sums of b): " + "; ".join(
+              f"{r['instance']}: {r['registers']} registers, {r['local_bytes']} B local"
+              for r in wide))
+    if len(insts) != 54 or len(new) != 6 or len(wide) != 24 or any(
+            r["local_bytes"] or not r["registers"] for r in insts):
         raise AssertionError("a wgmma instance is missing from the ptxas log or uses local memory")
     return insts
 
 
-# the instances K2's chains added to K1's 24 (csrc/gemm_wg.cu kEpiBias, kEpiBf16)
+# the instances K2's chains added to K1's 24 (csrc/gemm_wg.cu kEpiBias, kEpiBf16), and the
+# 24 K6f's and K10b's chains added (kPartial's three; kNN kEpiAct, kEpiActFast; kNT kEpiDh,
+# kEpiBf16; kTN kEpiColB; each at BN 128, 192 and 256)
 WG_ATTENTION_EPILOGUES = ("ln_gemm epi 4", "nn epi 2")
+WG_WIDE_EPILOGUES = ("partial epi 0", "partial epi 1", "partial epi 2", "nn epi 4", "nn epi 5",
+                     "nt epi 1", "nt epi 2", "tn epi 1")
 
 
 def _turns(fns: dict, reps: int = 20) -> dict:
@@ -845,15 +874,16 @@ def _turns(fns: dict, reps: int = 20) -> dict:
 
 def _tma_encode_us(kc, x) -> float:
     """Host microseconds to encode one TMA descriptor (``csrc/gemm_wg.cu``
-    ``make_map``, mean of 1,000) for the bf16 matrix ``x``: K1f encodes 5 a
-    call, K1b 11, since the pointers change every call."""
+    ``make_map``, mean of 1,000) for the bf16 matrix ``x``, a 3-D map
+    (columns, rows, expert) of one expert as every wgmma launch encodes:
+    K1f encodes 5 a call, K1b 11, since the pointers change every call."""
     import ctypes
 
     us = ctypes.c_float()
     kc.check_status(kc.load_library().ddm_wg_encode_cost(
         x.data_ptr(), x.shape[0], x.shape[1], 1000, ctypes.addressof(us)), "ddm_wg_encode_cost")
-    print(f"[kernel] TMA descriptor encoding on the host: {us.value:.4f} us a map (mean of "
-          f"1,000; K1f encodes 5 a call, K1b 11)")
+    print(f"[kernel] TMA descriptor encoding on the host: {us.value:.4f} us a 3-D map (mean "
+          f"of 1,000; K1f encodes 5 a call, K1b 11)")
     return float(us.value)
 
 
@@ -1071,7 +1101,7 @@ def _k1b_chain_ms(G, M, args, dout):
     s, bb, w1b, b1f, w2b, _ = M._kernel_operands(*args[1:])
     dob = dout.to(torch.bfloat16).contiguous()
     fns = {}
-    for design, ln, tn, nn in (("wgmma", G.ln_gemm_wg, G.gemm_tn_wg, G.gemm_nn_wg),
+    for design, ln, tn, nn in (("wgmma", G.ln_gemm_wg, G.expert_tn_wg, G.expert_nn_wg),
                                ("wmma", G.ln_gemm, G.gemm_tn, G.gemm_nn)):
         g, dfac, y = ln(x, s, bb, w1b, b1f, G.EPI_GELU_GRAD, with_y=True)
         dhb, _ = nn(dob, w2b, G.NN_DGELU, dfac=dfac)
@@ -1231,7 +1261,7 @@ def _bwd_chain_ms(G, A, name, args, dout, core_bwd):
     dob = dout.to(torch.bfloat16).contiguous().reshape(B * N, D)
     fns = {}
     with torch.no_grad():
-        for design, ln, tn, nn in (("wgmma", G.ln_gemm_wg, G.gemm_tn_wg, G.gemm_nn_wg),
+        for design, ln, tn, nn in (("wgmma", G.ln_gemm_wg, G.expert_tn_wg, G.expert_nn_wg),
                                    ("wmma", G.ln_gemm, G.gemm_tn, G.gemm_nn)):
             qkv, _, y = ln(x2, s, bb, wqkv_b, bqkv_f, G.EPI_BIAS, with_y=True)
             qkv = qkv.view(B, N, 3 * D)
@@ -1684,6 +1714,65 @@ def _softmax_excess(got, want, tol) -> float:
     return float(((got.float() - want).abs() / bound).max())
 
 
+def _k10b_wmma(G):
+    """K10b as the earlier design ran it, the weight casts and the two
+    transposed weight copies included: the batched WMMA NN and TN products of
+    ``csrc/gemm_bwd.cu`` with ``blockIdx.z`` as the expert."""
+    bf = torch.bfloat16
+
+    def run(x, w1, b1, w2, b2, dout, fast=False):
+        w1b, dob = w1.to(bf).contiguous(), dout.to(bf).contiguous()
+        g, dfac = G.gemm_nn(x, w1b, G.NN_BIAS_GELU_GRAD, bias=b1.float().contiguous(),
+                            fast_gelu=fast)
+        dw2, db2 = G.gemm_tn(g, dob, with_colsum=True, colsum_of_b=True)
+        del g
+        dhb, db1 = G.gemm_nn(dob, w2.to(bf).transpose(1, 2).contiguous(), G.NN_DGELU,
+                             dfac=dfac)
+        del dfac
+        dw1, _ = G.gemm_tn(x, dhb)
+        dx = G.gemm_nn(dhb, w1b.transpose(1, 2).contiguous(), G.NN_BF16)
+        return dx, dw1, db1, dw2, db2
+    return run
+
+
+def _k10b_cublas(M, fast=False):
+    """K10b's function with its five batched products through torch.matmul
+    (cuBLAS, bf16 in and out) and plain epilogues: the chain yardstick, which
+    the port never calls. Takes bf16 weights cast once and the bf16
+    cotangent."""
+    bf = torch.bfloat16
+
+    def run(x, w1, b1, w2, b2, dob):
+        gf, dfac = M._gelu_and_grad(torch.matmul(x, w1).float() + b1[:, None], fast)
+        g = gf.to(bf)
+        dw2, db2 = torch.matmul(g.transpose(1, 2), dob), dob.float().sum(1)
+        dh = torch.matmul(dob, w2.transpose(1, 2)).float() * dfac
+        dhb = dh.to(bf)
+        dw1, db1 = torch.matmul(x.transpose(1, 2), dhb), dh.sum(1)
+        return torch.matmul(dhb, w1.transpose(1, 2)), dw1, db1, dw2, db2
+    return run
+
+
+def _k10b_yardsticks(G, M, X, ffn, dout, shape, fast=False):
+    """K10b in turns with the earlier WMMA chain and the cuBLAS chain on the
+    same inputs (K10b, WMMA, cuBLAS, cuBLAS, WMMA, K10b; means of two
+    medians of 10)."""
+    bf = torch.bfloat16
+    x, w1, b1, w2, b2 = ffn
+    cub_args, cub, wmma = (x, w1.to(bf), b1, w2.to(bf), b2, dout.to(bf)), _k10b_cublas(M, fast), \
+        _k10b_wmma(G)
+    fns = {"turns_ms": lambda: X.expert_ffn_bwd(*ffn, dout, fast_gelu=fast),
+           "wmma_ms": lambda: wmma(*ffn, dout, fast), "cublas_chain_ms": lambda: cub(*cub_args)}
+    with torch.no_grad():
+        got = _turns(fns, reps=10)
+    print(f"[kernel] K10b {shape}: wgmma chain {got['turns_ms']:.4f} ms in turns, the earlier WMMA "
+          f"chain {got['wmma_ms']:.4f} ms, the cuBLAS chain (torch.matmul, plain epilogues) "
+          f"{got['cublas_chain_ms']:.4f} ms")
+    del cub_args
+    torch.cuda.empty_cache()
+    return got
+
+
 def _moe_kernel_times(MD, X, ML, smi, D, F, topks, k10f=True, E=MOE["moe_experts"],
                       T=TRAIN_BATCH * TRAIN_M * 64, k10b=True):
     """K11 (dispatch), K12 (combine) and, where ``k10b``, K10b (expert FFN
@@ -1845,30 +1934,65 @@ def _moe_kernel_times(MD, X, ML, smi, D, F, topks, k10f=True, E=MOE["moe_experts
                              X.expert_ffn_bwd_reference(*ffn, dout), smi, ms, plain_ms,
                              labels=("dx", "dW1", "db1", "dW2", "db2"))
     # the h recompute, dW2, dg, dW1 and dx products
-    timed[("K10b", 1)] = (worst, ms, plain_ms, _bound(_nbytes(*ffn, dout, *g1),
-                                                      10 * E * S * D * F))
+    bound = _bound(_nbytes(*ffn, dout, *g1), 10 * E * S * D * F)
+    del g1
+    torch.cuda.empty_cache()
+    from ddm_tpu_torch.ops import gemm as G
+
+    bound.update(_k10b_yardsticks(G, ML, X, ffn, dout, shape))
+    timed[("K10b", 1)] = (worst, ms, plain_ms, bound)
     return timed
 
 
-def phase_moe_kernels(MD, X, ML, smi):
+# K10b off the main shape: slot rows ragged against the 128-row tile (E, S, D, F)
+K10B_RAGGED = (8, 1344, 384, 1536)
+WG_SOURCES = ["ddm_tpu_torch/csrc/gemm_wg.cu", "ddm_tpu_torch/csrc/wgmma.cuh",
+              "ddm_tpu_torch/csrc/common.cuh"]
+
+
+def _k10b_ragged(X, smi, gen):
+    """K10b at K10B_RAGGED (S a multiple of 64, not of 128: the expert
+    coordinate's boxes clip at each expert's last slot row) with the erf and
+    the sigmoid GELU, each against its plain version by the gradient rules,
+    the second call bit-identical: shape entries for the kernels line."""
+    E, S, D, F = K10B_RAGGED
+    ffn = _slot_rows_ffn(gen, E, S, D, F)
+    dout = torch.randn(E, S, D, generator=gen, device="cuda").to(torch.bfloat16)
+    out = []
+    for fast in (False, True):
+        case = ("K10b", f"(E={E}, S={S}, D={D}, F={F}){_fast(fast)}",
+                lambda fast=fast: X.expert_ffn_bwd(*ffn, dout, fast_gelu=fast),
+                lambda fast=fast: X.expert_ffn_bwd_reference(*ffn, dout, fast_gelu=fast),
+                (*ffn, dout), 10 * E * S * D * F)
+        out.append(_shape_entry("ragged-s", case, _time_backward(
+            case, smi, {X.BWD_LAUNCHES: 2}, labels=("dx", "dW1", "db1", "dW2", "db2"))))
+    return out
+
+
+def phase_moe_kernels(MD, X, ML, smi, kc):
     """K11 (dispatch), K12 (combine) and K10 (expert FFN) at the MoE
-    training shape, top-1 and (K11, K12) top-2, against their plain versions."""
+    training shape, top-1 and (K11, K12) top-2, against their plain versions;
+    K10b also at slot rows ragged against 128, both GELUs."""
     timed = _moe_kernel_times(MD, X, ML, smi, 384, 1536, (1, 2))
     moe_src = ["ddm_tpu_torch/csrc/moe.cu", "ddm_tpu_torch/csrc/common.cuh"]
     entries = {}
     for name, line, src in (("K10f", "expert_ffn.py:55", "gemm_bwd.cu"),
-                            ("K10b", "expert_ffn.py:63", "gemm_bwd.cu"),
+                            ("K10b", "expert_ffn.py:63", "gemm_wg.cu"),
                             ("K11f", "moe_dispatch.py:150", "moe.cu"),
                             ("K11b", "moe_dispatch.py:198", "moe.cu"),
                             ("K12f", "moe_dispatch.py:481", "moe.cu"),
                             ("K12b", "moe_dispatch.py:510", "moe.cu")):
-        sources = (moe_src if src == "moe.cu" else
+        sources = (moe_src if src == "moe.cu" else WG_SOURCES if src == "gemm_wg.cu" else
                    ["ddm_tpu_torch/csrc/gemm_bwd.cu", "ddm_tpu_torch/csrc/common.cuh"])
         entry = _entry(name, sources[0], sources, f"ddm_tpu/ops/{line}", *timed[(name, 1)])
         if (name, 2) in timed:
             entry["top2"] = dict(zip(("max_abs_err", "ms", "plain_ms"), timed[(name, 2)][:3]),
                                  **timed[(name, 2)][3])
         entries[name] = entry
+    entries["K10b"]["instances"] = [r for r in _wg_instances(kc) if r["instance"].endswith(
+        ("nn epi 4", "nn epi 5", "nt epi 1", "nt epi 2", "tn epi 1"))]
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    entries["K10b"]["shapes"] = _k10b_ragged(X, smi, gen)
     return list(entries.values())
 
 
@@ -1981,6 +2105,42 @@ def _patched(module, **fns):
     finally:
         for k, v in saved.items():
             setattr(module, k, v)
+
+
+# the WMMA launchers of ops/gemm.py: K6b, K10f, K10p and the yardsticks still call them
+WMMA_LAUNCHERS = ("ln_gemm", "gemm_residual", "gemm_partial", "gemm_nn", "gemm_tn")
+
+
+@contextlib.contextmanager
+def wmma_refused_in_k6f_k10b(M, X):
+    """While K6f (``mlp_block._k6f``) or K10b (``expert_ffn._k10b``) runs,
+    every WMMA launcher of ``ops/gemm.py`` raises: a path that steps under
+    this proves that their chains reach only the wgmma products (and no
+    fallback). Outside them the launchers run as they are. The patch holds
+    in this process only: rank processes that a phase starts run unpatched."""
+    from ddm_tpu_torch.ops import gemm as G
+
+    inside = []
+
+    def guarded(fn):
+        def run(*args, **kwargs):
+            inside.append(fn.__name__)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                inside.pop()
+        return run
+
+    def refused(name, fn):
+        def run(*args, **kwargs):
+            if inside:
+                raise AssertionError(f"gemm.{name}, a WMMA product, ran inside {inside[-1]}")
+            return fn(*args, **kwargs)
+        return run
+
+    with _patched(M, _k6f=guarded(M._k6f)), _patched(X, _k10b=guarded(X._k10b)), \
+            _patched(G, **{n: refused(n, getattr(G, n)) for n in WMMA_LAUNCHERS}):
+        yield
 
 
 @contextlib.contextmanager
@@ -2355,10 +2515,100 @@ def _partial_check(name, shape, got, want, reordered, ms, plain_ms, smi):
     return err
 
 
+def _bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    """One bf16 unit in the last place at |v| (fp32)."""
+    return torch.exp2(torch.floor(torch.log2(v.abs().clamp_min(2.0 ** -126))) - 7)
+
+
+def _k6f_stages(M, G, part, got, fast):
+    """K6f's chunk held stage by stage to fp64 references, each within a
+    bound derived from its depth K (u = 2^-24; an fp32 sum of K terms in any
+    order, each addition rounded or truncated, errs by at most 2 K u times
+    the sum of the terms' magnitudes), so neither the LN statistics' order
+    nor the tensor cores' accumulation order can fail it: y, the bf16 LN
+    output that the chunk's first product normalises (``ln_gemm_wg`` returns
+    it), within one bf16 unit at max(|y|, |v|) plus 2^-16 of the fp64 LN v;
+    g, that product's bf16 GELU output, within one bf16 unit at max(|g|,
+    |g64|) plus 1.2 (GELU's largest slope) times 2 D u (|y| |w1|^T) + 8 u
+    (|h| + |b1|) of g64 = gelu(y w1^T + b1) in fp64; the fp32 partial within
+    2 Fc u (|g| |w2|^T) + u |s| of s = g w2^T in fp64. ``(share of y's bound
+    taken, share of y's entries rounded otherwise than bf16(v), share of g's
+    bound, share of the partial's)``."""
+    u, f64 = 2.0 ** -24, torch.float64
+    x, sc, bi, w1c, b1c, w2c = part
+    g, _, y = G.ln_gemm_wg(x, sc, bi, w1c, b1c, G.EPI_GELU, with_y=True, fast_gelu=fast)
+    y, g = y.to(f64), g.to(f64)
+    v = M.layer_norm(x.to(f64), sc.to(f64), bi.to(f64))
+    y_bound = _bf16_ulp(torch.maximum(y.abs(), v.abs())) + 2.0 ** -16
+    y_used = float(((y - v).abs() / y_bound).max())
+    flips = float((y != v.to(torch.bfloat16).to(f64)).to(f64).mean())
+    del v, y_bound
+    w1, b1 = w1c.to(f64), b1c.to(f64)
+    h = y @ w1.T + b1
+    err = 2 * y.shape[1] * u * (y.abs() @ w1.abs().T) + 8 * u * (h.abs() + b1.abs())
+    g64 = M.gelu(h, fast)
+    del h
+    g_used = float(((g - g64).abs() / (_bf16_ulp(torch.maximum(g.abs(), g64.abs()))
+                                        + 1.2 * err)).max())
+    del err, g64, y
+    w2 = w2c.to(f64)
+    s = g @ w2.T
+    p_used = float(((got.to(f64) - s).abs() / (2 * g.shape[1] * u * (g.abs() @ w2.abs().T)
+                                                + u * s.abs())).max())
+    return y_used, flips, g_used, p_used
+
+
+def _k6f_wmma(G):
+    """One K6f chunk as the earlier design ran it: the WMMA LN-prologue GEMM
+    (``gemm.ln_gemm``: the resident panel, the streamed kernel past D 1344),
+    then the WMMA partial GEMM on the W2 column chunk in place."""
+    def run(x, s, bb, w1c, b1c, w2c, acc, fast=False):
+        hidden, _, _ = G.ln_gemm(x, s, bb, w1c, b1c, G.EPI_GELU, fast_gelu=fast)
+        G.gemm_partial(hidden, w2c, G.PART_STORE, acc)
+    return run
+
+
+def _k6f_cublas(M, fast=False):
+    """One K6f chunk's function with its two products through torch.matmul
+    (cuBLAS, bf16 in and out) and plain epilogues, the partial in fp32: the
+    chain yardstick, which the port never calls."""
+    bf = torch.bfloat16
+
+    def run(x, s, bb, w1c, b1c, w2c):
+        y = M.layer_norm(x.float(), s, bb).to(bf)
+        g = M.gelu(torch.matmul(y, w1c.t()).float() + b1c, fast).to(bf)
+        return torch.matmul(g, w2c.t()).float()
+    return run
+
+
+def _k6f_yardsticks(G, M, part, shape, fast=False):
+    """K6f's chunk in turns with the earlier WMMA chain and the cuBLAS chain
+    on the same inputs (K6f, WMMA, cuBLAS, cuBLAS, WMMA, K6f; means of two
+    medians of 20), and whether the two designs' fp32 partials agree bit for
+    bit."""
+    T, D = part[0].shape
+    acc, old = (torch.empty(T, D, device="cuda") for _ in range(2))
+    wmma, cub = _k6f_wmma(G), _k6f_cublas(M, fast)
+    fns = {"turns_ms": lambda: M._k6f(*part, G.PART_STORE, acc, fast_gelu=fast),
+           "wmma_ms": lambda: wmma(*part, old, fast), "cublas_chain_ms": lambda: cub(*part)}
+    with torch.no_grad():
+        got = _turns(fns)
+        torch.cuda.synchronize()
+        got["wmma_bits_equal"] = bool(torch.equal(acc, old))
+    print(f"[kernel] K6f {shape}: wgmma {got['turns_ms']:.4f} ms in turns, the earlier WMMA "
+          f"chain {got['wmma_ms']:.4f} ms (its fp32 partial "
+          f"{'bit for bit' if got['wmma_bits_equal'] else 'not bit for bit'} K6f's), the cuBLAS "
+          f"chain (torch.matmul, plain epilogues) {got['cublas_chain_ms']:.4f} ms")
+    del acc, old
+    return got
+
+
 def _k6f_partial(M, smi, gen, T, D, F, fast=False, k=2):
     """One K6f on the second of k hidden chunks of F, read in place from the
-    bf16 weights, by the fp32 partial rule: ``(max_abs_err, ms, plain_ms,
-    bound)``."""
+    bf16 weights, by the fp32 partial rule and stage by stage
+    (:func:`_k6f_stages`), then in turns with the earlier
+    WMMA chain and the cuBLAS chain (:func:`_k6f_yardsticks`):
+    ``(max_abs_err, ms, plain_ms, bound and the yardsticks' times)``."""
     from ddm_tpu_torch.ops import gemm
 
     x, sc, bi, w1, b1, w2, _ = _mlp_args(gen, T, D, F)
@@ -2381,8 +2631,19 @@ def _k6f_partial(M, smi, gen, T, D, F, fast=False, k=2):
         reordered = plain(x_[:, pd].contiguous(), s_[pd], b_[pd], w1_[pf][:, pd], b1_[pf],
                           w2_[pd][:, pf])[:, torch.argsort(pd)]
         err = _partial_check("K6f", shape, got, plain(*part), reordered, ms, plain_ms, smi)
+        del reordered
+        y_used, flips, g_used, p_used = _k6f_stages(M, gemm, part, got, fast)
+    print(f"[kernel] K6f {shape} by stages against fp64, each within a bound from its depth: "
+          f"y {y_used:.3g} of its bound ({flips:.3g} of its entries rounded otherwise than the "
+          f"fp64 LN's), g {g_used:.3g} of its, the partial {p_used:.3g} of its")
+    if not max(y_used, g_used, p_used) <= 1.0:
+        raise AssertionError("K6f disagrees with its fp64 reference stage by stage")
     bound = _bound(_nbytes(*part, got), 4 * T * D * fc)
-    del got, reordered, part, x, w1, w2
+    bound.update({"y_bound_used": y_used, "y_rounded_otherwise": flips,
+                  "g_bound_used": g_used, "partial_bound_used": p_used})
+    del got
+    bound.update(_k6f_yardsticks(gemm, M, part, shape, fast))
+    del part, x, w1, w2
     torch.cuda.empty_cache()
     return err, ms, plain_ms, bound
 
@@ -2457,8 +2718,9 @@ def _k10p_partial(X, smi, gen, ffn, fast=False, k=2):
     return err, ms, plain_ms, bound
 
 
-def phase_wide_kernels(M, A, X, smi):
-    """3f: K4, K6f and K10p at the wide paths' training shapes."""
+def phase_wide_kernels(M, A, X, smi, kc):
+    """3f: K4, K6f and K10p at the wide paths' training shapes (K6f beside
+    the earlier WMMA chain and the cuBLAS chain, with its wgmma instances)."""
     gen = torch.Generator(device="cuda").manual_seed(6)
     B, N = TRAIN_BATCH * TRAIN_M, 64
     T = B * N
@@ -2472,10 +2734,11 @@ def phase_wide_kernels(M, A, X, smi):
     # K6f at DiT-L: one partial on the second hidden chunk, read in place
     # from the bf16 weights, then the F-chunked half-block (k = 2)
     D, F = DIT_L["embed_dim"], 4 * DIT_L["embed_dim"]
-    k6f = _entry("K6f", "ddm_tpu_torch/csrc/gemm.cu",
-                 ["ddm_tpu_torch/csrc/gemm.cu", "ddm_tpu_torch/csrc/common.cuh"],
-                 "ddm_tpu/ops/mlp_block.py:559", *_k6f_partial(M, smi, gen, T, D, F))
+    k6f = _entry("K6f", WG_SOURCES[0], WG_SOURCES, "ddm_tpu/ops/mlp_block.py:559",
+                 *_k6f_partial(M, smi, gen, T, D, F))
     k6f["half_block"] = _fchunked_half_block(M, smi, gen, T, D, F)
+    k6f["instances"] = [r for r in _wg_instances(kc) if r["instance"].endswith(
+        ("ln_gemm epi 1", "ln_gemm epi 3", "partial epi 0", "partial epi 1", "partial epi 2"))]
     torch.cuda.empty_cache()
 
     # K10p at DiT-B width: one chunk, then the k = 2 forward, on slot rows
@@ -2898,7 +3161,10 @@ def _k6b_case(M, gen, T, D, F, fast=False):
 def phase_tp_kernels(M, A, smi):
     """3k: K6f's TP entry and K6b at the DiT-S --tp 2 shard, K6b at the DiT-B
     shard, K7f/K7b through ``fused_attention`` on separate q, k, v. Returns
-    ``([K6b entry], {"K6f": [...], "K7f": [...], "K7b": [...]})``."""
+    ``([K6b entry], {"K6f": [...], "K7f": [...], "K7b": [...]})``; K6f beside
+    the earlier WMMA chain and the cuBLAS chain."""
+    from ddm_tpu_torch.ops import gemm as G
+
     gen = torch.Generator(device="cuda").manual_seed(12)
     T = TRAIN_BATCH * TRAIN_M * 64
     shapes = {}
@@ -2922,6 +3188,8 @@ def phase_tp_kernels(M, A, smi):
                              reordered, ms, plain_ms, smi)
     shapes["K6f"] = [{"path": "tp", "shape": shape, "max_abs_err": err, "ms": ms,
                       "plain_ms": plain_ms, **_bound(_nbytes(*part, got), 4 * T * D * F)}]
+    s, bb, w1b, b1f, w2b, _ = M._kernel_operands(sc, bi, w1, b1, w2)
+    shapes["K6f"][0].update(_k6f_yardsticks(G, M, (x, s, bb, w1b, b1f, w2b), shape))
     del got, reordered, part, x, w1, w2
     torch.cuda.empty_cache()
 
@@ -3186,10 +3454,12 @@ def phase_xl_kernels(M, A, smi):
     shapes["K7f"].append(fwd)
     shapes["K7b"].append(bwd)
     torch.cuda.empty_cache()
-    err, ms, plain_ms, bound = _k6f_partial(M, smi, gen, T, D, F)
-    shapes["K6f"] = [{"path": "dit-xl", "shape": f"(T={T}, D={D}, chunk {F // 2} of F={F})",
-                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound,
-                      "half_block": _fchunked_half_block(M, smi, gen, T, D, F)}]
+    shapes["K6f"] = []
+    for t, path in ((T, "dit-xl"), (N_XL_SAMPLES * N, "dit-xl sampling")):
+        err, ms, plain_ms, bound = _k6f_partial(M, smi, gen, t, D, F)
+        shapes["K6f"].append({"path": path, "shape": f"(T={t}, D={D}, chunk {F // 2} of F={F})",
+                              "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound,
+                              "half_block": _fchunked_half_block(M, smi, gen, t, D, F)})
     case = _k1b_case(M, gen, T, D, F)
     add("dit-xl", case, _time_backward(case, smi, {M.BWD_LAUNCHES: 2}))
     case = _k2f_case(A, gen, N_SAMPLES, N, 384, DH24_HEADS)
@@ -3386,6 +3656,15 @@ def phase_wide_mlp_kernels(M, smi):
         raise AssertionError(f"the MLP half-block at {FWDONLY_WIDE} did not take K1f")
     shapes["K1f"] = [_shape_entry("fwdonly-d1792", case, times)]
     del case
+    torch.cuda.empty_cache()
+    Tw, Dw, Fw, kw = FCHUNKED_WIDE
+    if tiers.mlp_tier(Tw, Dw, Fw) != ("fchunked", kw):
+        raise AssertionError(f"the MLP tier at {FCHUNKED_WIDE[:3]} is not k = {kw}")
+    err, ms, plain_ms, bound = _k6f_partial(M, smi, gen, Tw, Dw, Fw, k=kw)
+    shapes["K6f"].append({"path": "fchunked-d2560", "shape": f"(T={Tw}, D={Dw}, chunk "
+                          f"{Fw // kw} of F={Fw})", "max_abs_err": err, "ms": ms,
+                          "plain_ms": plain_ms, **bound,
+                          "half_block": _fchunked_half_block(M, smi, gen, Tw, Dw, Fw, k=kw)})
     torch.cuda.empty_cache()
     shapes["K6f"].append(_streamed_vs_panel(M, smi, gen, T, DIT_XL["embed_dim"],
                                             4 * DIT_XL["embed_dim"]))
@@ -4824,7 +5103,7 @@ def main(argv=None) -> None:
         ("backward", lambda: phase_backward(M, A, smi)),
         ("energy", lambda: phase_energy(E, smi)),
         ("flash", lambda: phase_flash(FL, smi)),
-        ("moe-kernels", lambda: phase_moe_kernels(MD, X, M, smi)),
+        ("moe-kernels", lambda: phase_moe_kernels(MD, X, M, smi, kc)),
         ("slice", lambda: phase_slice(phase_model(cfg, smi), cfg, kc, name, smi)),
         ("train-step", lambda: phase_train_step(cfg, smi)),
         ("train-step-128", lambda: phase_train_step(
@@ -4835,7 +5114,7 @@ def main(argv=None) -> None:
                                                *_k8_launches(DEPTH), LONG_BATCH, LONG_M,
                                                LONG_SIZE, images=LONG_IMAGES)),
         ("train-moe", lambda: phase_train_moe(kc, name, smi)),
-        ("wide-kernels", lambda: phase_wide_kernels(M, A, X, smi)),
+        ("wide-kernels", lambda: phase_wide_kernels(M, A, X, smi, kc)),
         ("wide-shapes", lambda: phase_wide_shapes(M, A, MD, X, smi)),
         ("train-step-l", lambda: phase_train_step(
             {**cfg, **DIT_L}, smi, WIDE_STEP_BATCH, TRAIN_M, "train-step-l", "DiT-L/4")),
@@ -4921,7 +5200,8 @@ def main(argv=None) -> None:
     for phase, fn in steps:
         if phase in run:
             t0 = time.perf_counter()
-            out[phase] = fn()
+            with wmma_refused_in_k6f_k10b(M, X):  # every path steps with K6f and K10b on wgmma
+                out[phase] = fn()
             torch.cuda.empty_cache()
             print(f"[time] {phase} {time.perf_counter() - t0:.1f} s (run so far "
                   f"{time.perf_counter() - t_run:.1f} s)", flush=True)

@@ -1,9 +1,10 @@
 // The half-blocks' products on Hopper's own path: wgmma fed by a TMA ring,
 // epilogues read from the accumulator registers, deterministic split-K
-// weight gradients.
+// weight gradients, and an expert coordinate for the expert-batched FFN.
 //
-// Replaces the WMMA products of csrc/gemm.cu and csrc/gemm_bwd.cu (which K6,
-// K10 and X2f's yardstick still launch) for both dense half-blocks:
+// Replaces the WMMA products of csrc/gemm.cu and csrc/gemm_bwd.cu (which K6b,
+// K10f, K10p and X2f's yardstick still launch) for both dense half-blocks,
+// the F-chunked MLP forward and the expert FFN backward:
 //   * K1f, ddm_tpu/ops/mlp_block.py `_fwd_kernel`:
 //       g = bf16(gelu(LN(x) W1^T + b1))   ddm_wg_ln_gemm (was ln_gemm_kernel
 //                                          / ln_gemm_stream_kernel)
@@ -11,9 +12,9 @@
 //                                          gemm_residual_kernel)
 //   * K1b, `_bwd_kernel` / `_bwd_body`: the recompute (ddm_wg_ln_gemm with
 //     the gelu' epilogue, writing g, gelu'(h) in fp32 and y = bf16(LN(x))),
-//     dW2 and db2 (ddm_wg_gemm_tn), dh = bf16((dO W2) gelu') with db1
-//     (ddm_wg_gemm_nn), dW1 (ddm_wg_gemm_tn) and dy = dH W1 in fp32
-//     (ddm_wg_gemm_nn); ln_bwd (gemm_bwd.cu) is unchanged. Were gemm_tn_kernel
+//     dW2 and db2 (ddm_wg_expert_tn), dh = bf16((dO W2) gelu') with db1
+//     (ddm_wg_expert_nn), dW1 (ddm_wg_expert_tn) and dy = dH W1 in fp32
+//     (ddm_wg_expert_nn); ln_bwd (gemm_bwd.cu) is unchanged. Were gemm_tn_kernel
 //     and gemm_nn_kernel.
 //   * K2f, ddm_tpu/ops/attention.py `_blk_fwd_kernel`, around its attention
 //     core (csrc/attention.cu): qkv = bf16(LN(x) Wqkv^T + bqkv)
@@ -21,20 +22,39 @@
 //     Wproj^T + bproj)) (ddm_wg_gemm_residual).
 //   * K2b, `_blk_bwd_kernel`, and K4, `_blk_bwd_split_kernel` (one chain in
 //     the port): the qkv recompute with y, datt = bf16(dO Wproj)
-//     (ddm_wg_gemm_nn, the bf16 store), dWproj with dbproj and dWqkv with
-//     dbqkv (ddm_wg_gemm_tn), dy = dqkv Wqkv in fp32 (ddm_wg_gemm_nn); the
+//     (ddm_wg_expert_nn, the bf16 store), dWproj with dbproj and dWqkv with
+//     dbqkv (ddm_wg_expert_tn), dy = dqkv Wqkv in fp32 (ddm_wg_expert_nn); the
 //     core backward and ln_bwd are unchanged. The third attention rung runs
 //     the same two chains around K7 or K8 at D <= 1344.
+//   * K6f, ddm_tpu/ops/mlp_block.py `_partial_fwd_kernel`, one hidden chunk
+//     c of the F-chunked forward (and the tensor-parallel partial): g_c =
+//     bf16(gelu(LN(x) W1[c]^T + b1[c])) (ddm_wg_ln_gemm on the W1 row chunk)
+//     and s = g_c W2[:, c]^T in fp32 (ddm_wg_gemm_partial, the W2 column
+//     chunk read in place with its row stride F): acc = s on the first
+//     chunk, acc = acc + s on the middle ones, bf16((x + (acc + s)) + b2) on
+//     the last. Was ln_gemm(_stream)_kernel + gemm_partial_kernel.
+//   * K10b, ddm_tpu/ops/expert_ffn.py `_bwd_kernel`, per expert e on the
+//     expert coordinate (blockIdx.z; 3-D maps (expert, rows, columns), so a
+//     box clips at its expert's last slot row): the recompute h = x[e]
+//     w1[e] + b1[e] with bias + GELU + gelu' (ddm_wg_expert_nn, w1[e] (D, F)
+//     read MN-major), dW2 = g^T dO with db2 the column sums of dO
+//     (ddm_wg_expert_tn, b-side sums), dh = bf16((dO w2[e]^T) gelu') with db1
+//     (ddm_wg_expert_nn, w2[e] (F, D) read K-major), dW1 = x^T dh
+//     (ddm_wg_expert_tn) and dx = bf16(dh w1[e]^T) (ddm_wg_expert_nn, w1[e]
+//     read K-major): no transposed weight copy. Was gemm_nn_kernel and
+//     gemm_tn_kernel with blockIdx.z as the expert.
 //
 // What bounds it on the H100: at DiT-S/4's training shape (T 131,072, D 384,
 // F 1536) K1f's two products are 309 GFLOP (0.31 ms at 989 TFLOP/s) and
 // K1b's five 773 GFLOP (0.78 ms); both chains also move the (T, F) hidden
 // activations through device memory (K1b about 1.3 GB, 0.4 ms at 3.35
-// TB/s). K2b's five products there are 464 GFLOP (0.47 ms). The WMMA kernels
-// ran 11-14x those bounds: mma.sync, which cannot reach the wgmma rate, on
-// tiles copied by all threads between two block barriers, with no copy in
-// flight during a product, and every accumulator through a 33 KB fp32
-// shared tile before its epilogue.
+// TB/s). K2b's five products there are 464 GFLOP (0.47 ms). K6f's chunk of
+// 2048 at DiT-L (131,072, 1024) is 1.10 TFLOP (1.11 ms); K10b at (8, 20480,
+// 384, 1536) 966 GFLOP (0.98 ms). The WMMA kernels ran 10-14x those bounds:
+// mma.sync, which cannot reach the wgmma rate, on tiles copied by all
+// threads between two block barriers, with no copy in flight during a
+// product, and every accumulator through a 33 KB fp32 shared tile before
+// its epilogue.
 //
 // The design:
 //   * a block is 3 warpgroups: warpgroup 2 is the producer (one thread
@@ -44,10 +64,15 @@
 //   * a ring of kStages stages, each an A tile (128 x 64) and a B tile (BN x
 //     64) in the 128-byte swizzle, with a full and an empty mbarrier each;
 //     one wgmma group stays in flight while the next stage is prepared;
-//   * K-major operands (the forward's x, g and nn.Linear weights) are one
-//     box a tile; MN-major ones (the weights read as (K, N) by the NN
-//     products, both operands of the TN products) are 64-column boxes read
-//     through the transpose bit;
+//   * K-major operands (the forward's x, g and nn.Linear weights, the
+//     expert weights read transposed) are one box a tile; MN-major ones (the
+//     weights read as (K, N) by the NN products, both operands of the TN
+//     products) are 64-column boxes read through the transpose bit;
+//   * the expert coordinate: every map is 3-D (columns, rows, expert), a
+//     block's expert is blockIdx.z (the TN products: blockIdx.z = expert x
+//     splits + split), and its outputs, biases and partial tables sit at
+//     the expert's offset; a dense launch is the expert 0 of 1, the same
+//     loads and the same arithmetic;
 //   * the LayerNorm prologue: a block first takes each row's mean and rstd
 //     in ln_gemm_kernel's order (one warp a row, lane-strided sums, two-pass
 //     variance, eps 1e-6); on its first column tile it normalises each
@@ -58,18 +83,21 @@
 //     once, not once a column tile. Any D % 64 == 0;
 //   * epilogues read the accumulators in registers and write the output
 //     directly (bias, exact-erf or sigmoid GELU, gelu', residual, dh with
-//     its db1 column partials, bf16, fp32), each variant compiled apart, four
-//     8-column blocks' loads issued before their arithmetic;
+//     its db1 column partials, the fp32 partial sums of the F-chunked MLP,
+//     bf16, fp32), each variant compiled apart, four 8-column blocks' loads
+//     issued before their arithmetic;
 //   * the TN products split T into fixed row ranges (a whole number of
 //     64-row tiles each, gemm.py `wg_split_plan`, a function of the shapes
 //     and the SM count), write fp32 partials, and reduce_rows sums them in
-//     a fixed order: no atomics, a second call is bit-identical.
+//     a fixed order: no atomics, a second call is bit-identical. Their
+//     column sums (db2, dbproj, dbqkv) are taken from the ring's A or B
+//     stages the same way.
 //
 // Ragged T and ragged columns (the attention products' N = D at D 64, 320,
-// 448, ... on 128-wide tiles): TMA fills rows and columns past the tensor
-// with zeros, and stores are masked. The MLP's (T, F) hidden activation
-// still goes through device memory: keeping it on chip (the TPU kernel's
-// design) is the next step.
+// 448, ... on 128-wide tiles; the experts' slot rows S, a multiple of 64):
+// TMA fills rows and columns past the matrix with zeros, and stores are
+// masked. The MLP's (T, F) hidden activation still goes through device
+// memory: keeping it on chip (the TPU kernel's design) is the next step.
 #include <cuda.h>
 
 #include <chrono>
@@ -97,35 +125,48 @@ constexpr float kInvSqrt2PiWg = 0.39894228040143267794f;
 enum WgKind : int {
   kLnGemm = 0,    // epi(LN(x) W^T + b): A = x normalised in place, W K-major
   kResidual = 1,  // bf16(res + (a W^T + b)): both K-major
-  kNN = 2,        // a . W with W (K, N) MN-major: fp32, or dh with db1
+  kNN = 2,        // a . W with W (K, N) MN-major: fp32, bf16, dh with db1, bias + GELU
   kTN = 3,        // a^T . b, both MN-major, split over the rows
+  kPartial = 4,   // the F-chunked MLP's fp32 partial sums of a W^T: both K-major
+  kNT = 5,        // a . W^T with W (N, K) K-major: kNN's dh and bf16 epilogues
 };
 enum : int { kEpiBiasWg = 0, kEpiGeluWg = 1, kEpiGeluGradWg = 2 };  // kLnGemm (gemm.py EPI_*)
-enum : int { kNNF32Wg = 0, kNNBf16Wg = 1, kNNDGeluWg = 2 };        // kNN (gemm.py NN_*)
+// kNN, kNT (gemm.py NN_*)
+enum : int { kNNF32Wg = 0, kNNBf16Wg = 1, kNNDGeluWg = 2, kNNBiasGeluGradWg = 5 };
+enum : int { kPartStoreWg = 0, kPartAddWg = 1, kPartFinalWg = 2 };  // kPartial (gemm.py PART_*)
 
+// Every pointer of an expert-batched launch is its expert 0's: the kernel
+// adds the expert's offset (out, out2, dfac, res, part: e M N; bias: e N;
+// ws and cws: their own layouts below).
 struct WgParams {
   const bf16* x;            // kLnGemm: the raw rows (statistics)
   const float* ln_scale;    // kLnGemm
   const float* ln_bias;     // kLnGemm
-  const float* bias;        // kLnGemm, kResidual
-  const bf16* res;          // kResidual
-  const float* dfac;        // kNN dh: gelu'(h)
-  void* out;                // bf16, or fp32 (kNN F32)
-  float* out2;              // kLnGemm gelu' (fp32)
+  const float* bias;        // kLnGemm, kResidual, kPartial final, kNN bias + GELU: (E, N)
+  const bf16* res;          // kResidual, kPartial final
+  const float* dfac;        // kNN / kNT dh: gelu'(h)
+  const float* part;        // kPartial add and final: the fp32 sum of the earlier chunks
+  void* out;                // bf16, or fp32 (kNN F32, kPartial store and add)
+  float* out2;              // kLnGemm, kNN bias + GELU: gelu' (fp32)
   bf16* y_out;              // kLnGemm y = bf16(LN(x))
-  float* ws;                // kNN dh: (mblocks, N) db1 partials; kTN: (splits, M, N)
-  float* cws;               // kTN: (splits, M) column sums of a, or null
-  int M, N, K;              // output rows, output columns, depth
+  float* ws;                // kNN / kNT dh: (E, mblocks, N) db1 partials; kTN: (E, splits, M, N)
+  float* cws;               // kTN: (E, splits, M) column sums of a, (E, splits, N) of b, or null
+  int M, N, K;              // output rows, output columns, depth (a matrix of one expert)
   int tpb;                  // column tiles a block walks
   int rows;                 // kTN: rows of T a split
+  int splits;               // kTN: splits an expert
 };
 
 // Each kind's epilogue variants, compiled apart (a run-time switch inside
 // the unrolled epilogue multiplied the kernel's code and made the epilogue
 // the slowest part of the LN product): kLnGemm bit 0 gelu' (EPI_GELU_GRAD),
 // bit 1 the sigmoid GELU, 4 the bias alone (EPI_BIAS: the qkv product); kNN
-// 1 dh, 2 the bf16 store (NN_BF16: datt).
+// and kNT 1 dh, 2 the bf16 store (NN_BF16: datt, K10b's dx), kNN 4 and 5
+// bias + GELU writing gelu' (K10b's recompute), erf or sigmoid; kPartial 0
+// store, 1 add, 2 the final sum with the residual and bias; kTN 1 the
+// column sums of b (K10b's db2) where 0 sums a's.
 constexpr int kEpiGrad = 1, kEpiFast = 2, kEpiBias = 4, kEpiDh = 1, kEpiBf16 = 2;
+constexpr int kEpiAct = 4, kEpiActFast = 5, kEpiColB = 1;
 
 // Bytes of one ring stage, and of the block's dynamic shared memory: the
 // ring (1024-aligned), 128 bytes of barriers (a full and an empty one a
@@ -138,7 +179,7 @@ constexpr int kBarrierBytes = 128;
 size_t wg_smem(int kind, int bn, int K) {
   size_t s = kSwizzleAtom + (size_t)kStages * stage_bytes(bn) + kBarrierBytes;
   if (kind == kLnGemm) s += (2 * kBM + 2 * (size_t)K) * sizeof(float);
-  if (kind == kNN) s += 8 * (size_t)bn * sizeof(float);
+  if (kind == kNN || kind == kNT) s += 8 * (size_t)bn * sizeof(float);
   if (kind == kTN) s += 2 * kBM * sizeof(float);
   return s;
 }
@@ -254,19 +295,68 @@ __device__ __forceinline__ float tile_colsum(const unsigned char* tile, float s)
   return s;
 }
 
-// The epilogue of one finished tile, from the accumulators in registers.
-// Four 8-column blocks at a time: their loads (bias, dfac, the residual)
-// first, then the arithmetic and the stores.
+// TN, b-side (kEpiColB): this thread's column n = t of the B stage
+// (MN-major: 64-column boxes, 64 k rows of 128 bytes), its 64 rows in order.
+__device__ __forceinline__ float tile_colsum_b(const unsigned char* tile, float s) {
+  const int n = threadIdx.x;
+  const unsigned char* box = tile + (n / 64) * kBox;
+  const int mm = n % 64;
+#pragma unroll 8
+  for (int k = 0; k < kBK; ++k)
+    s += __bfloat162float(*reinterpret_cast<const bf16*>(
+        box + k * kSwizzleRow + ((mm / 8) ^ (k % 8)) * 16 + (mm % 8) * 2));
+  return s;
+}
+
+// gelu(h) of a pair, writing gelu'(h) to d2 where GRAD: one sigmoid shared
+// by the fast GELU and its derivative, or one erf by the exact one
+// (_act_fwd_bwd).
+template <bool FAST, bool GRAD>
+__device__ __forceinline__ void gelu_pair(float& v0, float& v1, float* d2) {
+  if constexpr (FAST) {
+    const float s0 = fast_gelu_sigmoid(v0), s1 = fast_gelu_sigmoid(v1);
+    if constexpr (GRAD)
+      *reinterpret_cast<float2*>(d2) =
+          make_float2(s0 * (1.0f + kFastGeluC * v0 * (1.0f - s0)),
+                      s1 * (1.0f + kFastGeluC * v1 * (1.0f - s1)));
+    v0 *= s0;
+    v1 *= s1;
+  } else if constexpr (GRAD) {
+    const float e0 = erff(v0 * kInvSqrt2Wg), e1 = erff(v1 * kInvSqrt2Wg);
+    *reinterpret_cast<float2*>(d2) = make_float2(
+        0.5f * (1.0f + e0) + v0 * kInvSqrt2PiWg * expf(-0.5f * v0 * v0),
+        0.5f * (1.0f + e1) + v1 * kInvSqrt2PiWg * expf(-0.5f * v1 * v1));
+    v0 = 0.5f * v0 * (1.0f + e0);
+    v1 = 0.5f * v1 * (1.0f + e1);
+  } else {
+    v0 = gelu_exact(v0);
+    v1 = gelu_exact(v1);
+  }
+}
+
+// The epilogue of one finished tile of expert e, from the accumulators in
+// registers. Four 8-column blocks at a time: their loads (bias, dfac, the
+// residual, the partial sum) first, then the arithmetic and the stores.
 template <int BN, int KIND, int EPI>
-__device__ __forceinline__ void epilogue(const float (&acc)[BN / 2], const WgParams& p, int m0,
-                                         int n0, float* colpart) {
+__device__ __forceinline__ void epilogue(const float (&acc)[BN / 2], const WgParams& p, int e,
+                                         int m0, int n0, float* colpart) {
   constexpr int kGroup = 4;
+  constexpr bool kNNish = KIND == kNN || KIND == kNT;
+  constexpr bool kDh = kNNish && EPI == kEpiDh;
+  constexpr bool kAct = KIND == kNN && (EPI == kEpiAct || EPI == kEpiActFast);
+  constexpr bool kHasBias = KIND == kLnGemm || KIND == kResidual || kAct ||
+                            (KIND == kPartial && EPI == kPartFinalWg);
+  constexpr bool kHasRes = KIND == kResidual || (KIND == kPartial && EPI == kPartFinalWg);
+  constexpr bool kHasPart = KIND == kPartial && EPI != kPartStoreWg;
   const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
   const int row0 = m0 + wg * 64 + warp * 16 + lane / 4;
   const bool row_ok[2] = {row0 < p.M, row0 + 8 < p.M};
   const int c0 = n0 + 2 * (lane % 4);
-  const float* __restrict__ bias = p.bias;
+  // the expert's matrices (kTN's partials are laid out by blockIdx.z instead)
+  const size_t eo = KIND == kTN ? 0 : (size_t)e * p.M * p.N;
+  const float* __restrict__ bias = kHasBias ? p.bias + (size_t)e * p.N : nullptr;
   const float* __restrict__ dfac = p.dfac;
+  const float* __restrict__ part = p.part;
   const bf16* __restrict__ res = p.res;
   bf16* __restrict__ out_h = static_cast<bf16*>(p.out);
   float* __restrict__ out_f = static_cast<float*>(p.out);
@@ -279,15 +369,17 @@ __device__ __forceinline__ void epilogue(const float (&acc)[BN / 2], const WgPar
     for (int g = 0; g < kGroup; ++g) {
       const int col = c0 + 8 * (j0 + g);
       const bool col_ok = col < p.N;
-      if constexpr (KIND == kLnGemm || KIND == kResidual)
+      if constexpr (kHasBias)
         b[g] = col_ok ? *reinterpret_cast<const float2*>(bias + col) : make_float2(0.f, 0.f);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const bool ok = col_ok && row_ok[h];
-        const size_t o = (size_t)(row0 + 8 * h) * p.N + col;
-        if constexpr (KIND == kNN && EPI == kEpiDh)
+        const size_t o = eo + (size_t)(row0 + 8 * h) * p.N + col;
+        if constexpr (kDh)
           f[g][h] = ok ? *reinterpret_cast<const float2*>(dfac + o) : make_float2(0.f, 0.f);
-        if constexpr (KIND == kResidual)
+        if constexpr (kHasPart)
+          f[g][h] = ok ? *reinterpret_cast<const float2*>(part + o) : make_float2(0.f, 0.f);
+        if constexpr (kHasRes)
           xr[g][h] = ok ? *reinterpret_cast<const __nv_bfloat162*>(res + o)
                         : __floats2bfloat162_rn(0.f, 0.f);
       }
@@ -300,42 +392,36 @@ __device__ __forceinline__ void epilogue(const float (&acc)[BN / 2], const WgPar
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const bool ok = col_ok && row_ok[h];
-        const size_t o = (size_t)(row0 + 8 * h) * p.N + col;
+        const size_t o = eo + (size_t)(row0 + 8 * h) * p.N + col;
         float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
         if constexpr (KIND == kLnGemm) {
           if (!ok) continue;
           v0 += b[g].x;
           v1 += b[g].y;
-          if constexpr (EPI == kEpiBias) {
-            // qkv: the biased product, rounded once
-          } else if constexpr ((EPI & kEpiFast) != 0) {
-            // one sigmoid shared by the fast GELU and its derivative
-            const float s0 = fast_gelu_sigmoid(v0), s1 = fast_gelu_sigmoid(v1);
-            if constexpr ((EPI & kEpiGrad) != 0)
-              *reinterpret_cast<float2*>(out2 + o) =
-                  make_float2(s0 * (1.0f + kFastGeluC * v0 * (1.0f - s0)),
-                              s1 * (1.0f + kFastGeluC * v1 * (1.0f - s1)));
-            v0 *= s0;
-            v1 *= s1;
-          } else if constexpr ((EPI & kEpiGrad) != 0) {
-            // one erf shared by the GELU and its derivative (_act_fwd_bwd)
-            const float e0 = erff(v0 * kInvSqrt2Wg), e1 = erff(v1 * kInvSqrt2Wg);
-            *reinterpret_cast<float2*>(out2 + o) = make_float2(
-                0.5f * (1.0f + e0) + v0 * kInvSqrt2PiWg * expf(-0.5f * v0 * v0),
-                0.5f * (1.0f + e1) + v1 * kInvSqrt2PiWg * expf(-0.5f * v1 * v1));
-            v0 = 0.5f * v0 * (1.0f + e0);
-            v1 = 0.5f * v1 * (1.0f + e1);
-          } else {
-            v0 = gelu_exact(v0);
-            v1 = gelu_exact(v1);
-          }
+          if constexpr (EPI != kEpiBias)  // kEpiBias, qkv: the biased product, rounded once
+            gelu_pair<(EPI & kEpiFast) != 0, (EPI & kEpiGrad) != 0>(v0, v1, out2 + o);
+          *reinterpret_cast<__nv_bfloat162*>(out_h + o) = __floats2bfloat162_rn(v0, v1);
+        } else if constexpr (kAct) {
+          if (!ok) continue;
+          v0 += b[g].x;
+          v1 += b[g].y;
+          gelu_pair<EPI == kEpiActFast, true>(v0, v1, out2 + o);
           *reinterpret_cast<__nv_bfloat162*>(out_h + o) = __floats2bfloat162_rn(v0, v1);
         } else if constexpr (KIND == kResidual) {
           if (ok)
             *reinterpret_cast<__nv_bfloat162*>(out_h + o) =
                 __floats2bfloat162_rn(__low2float(xr[g][h]) + (v0 + b[g].x),
                                       __high2float(xr[g][h]) + (v1 + b[g].y));
-        } else if constexpr (KIND == kNN && EPI == kEpiDh) {
+        } else if constexpr (KIND == kPartial && EPI == kPartStoreWg) {
+          if (ok) *reinterpret_cast<float2*>(out_f + o) = make_float2(v0, v1);
+        } else if constexpr (KIND == kPartial && EPI == kPartAddWg) {
+          if (ok) *reinterpret_cast<float2*>(out_f + o) = make_float2(f[g][h].x + v0, f[g][h].y + v1);
+        } else if constexpr (KIND == kPartial) {  // the last chunk: (x + (acc + s)) + b2
+          if (ok)
+            *reinterpret_cast<__nv_bfloat162*>(out_h + o) =
+                __floats2bfloat162_rn((__low2float(xr[g][h]) + (f[g][h].x + v0)) + b[g].x,
+                                      (__high2float(xr[g][h]) + (f[g][h].y + v1)) + b[g].y);
+        } else if constexpr (kDh) {
           if (ok) {
             v0 *= f[g][h].x;
             v1 *= f[g][h].y;
@@ -343,9 +429,9 @@ __device__ __forceinline__ void epilogue(const float (&acc)[BN / 2], const WgPar
             cs0 += v0;
             cs1 += v1;
           }
-        } else if constexpr (KIND == kNN && EPI == kEpiBf16) {
+        } else if constexpr (kNNish && EPI == kEpiBf16) {
           if (ok) *reinterpret_cast<__nv_bfloat162*>(out_h + o) = __floats2bfloat162_rn(v0, v1);
-        } else if constexpr (KIND == kNN) {
+        } else if constexpr (kNNish) {
           if (ok) *reinterpret_cast<float2*>(out_f + o) = make_float2(v0, v1);
         } else {  // kTN: the split's fp32 partial
           if (ok)
@@ -353,7 +439,7 @@ __device__ __forceinline__ void epilogue(const float (&acc)[BN / 2], const WgPar
                 make_float2(v0, v1);
         }
       }
-      if constexpr (KIND == kNN && EPI == kEpiDh) {
+      if constexpr (kDh) {
         // the warp's 16 rows: sum over the 8 row groups (lanes l, l ^ 4, ...)
 #pragma unroll
         for (int o = 4; o < 32; o <<= 1) {
@@ -368,21 +454,22 @@ __device__ __forceinline__ void epilogue(const float (&acc)[BN / 2], const WgPar
       }
     }
   }
-  if constexpr (KIND == kNN && EPI == kEpiDh) {
+  if constexpr (kDh) {
     // db1: the block's column partials of the unrounded dh, warps in order
     named_bar_sync(1, kConsumers);
     for (int c = threadIdx.x; c < BN; c += kConsumers) {
       float s = colpart[c];
 #pragma unroll
       for (int w = 1; w < 8; ++w) s += colpart[w * BN + c];
-      if (n0 + c < p.N) p.ws[(size_t)blockIdx.x * p.N + n0 + c] = s;
+      if (n0 + c < p.N) p.ws[((size_t)e * gridDim.x + blockIdx.x) * p.N + n0 + c] = s;
     }
     named_bar_sync(1, kConsumers);
   }
 }
 
-// One block: row tile blockIdx.x, column tiles blockIdx.y * tpb .. + tpb,
-// (kTN) the row range of split blockIdx.z. kLnGemm: the first column tile
+// One block: row tile blockIdx.x, column tiles blockIdx.y * tpb .. + tpb of
+// expert blockIdx.z (kTN: expert blockIdx.z / splits, the row range of split
+// blockIdx.z % splits). kLnGemm (one expert): the first column tile
 // normalises the x chunks in place and stores y; the later ones load y
 // (tma_y) once the block's y is written.
 template <int BN, int KIND, int EPI>
@@ -392,6 +479,7 @@ wg_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
                const __grid_constant__ CUtensorMap tma_y, const WgParams p) {
   constexpr bool kAMN = KIND == kTN;
   constexpr bool kBMN = KIND == kNN || KIND == kTN;
+  constexpr bool kColB = KIND == kTN && EPI == kEpiColB;
   constexpr int kStage = stage_bytes(BN);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -404,9 +492,10 @@ wg_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
   const int m0 = blockIdx.x * kBM;
   const int ntiles = (p.N + BN - 1) / BN;
   const int t_begin = blockIdx.y * p.tpb, t_end = min(ntiles, t_begin + p.tpb);
-  int k_begin = 0, k_end = p.K;
+  int e = blockIdx.z, k_begin = 0, k_end = p.K;
   if constexpr (KIND == kTN) {
-    k_begin = blockIdx.z * p.rows;
+    e = blockIdx.z / p.splits;
+    k_begin = (blockIdx.z % p.splits) * p.rows;
     k_end = min(p.K, k_begin + p.rows);
   }
   const int ksteps = (k_end - k_begin + kBK - 1) / kBK;
@@ -441,17 +530,17 @@ wg_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
           unsigned char* a = smem + stage * kStage;
           unsigned char* b = a + kTileA;
           if constexpr (kAMN) {
-            tma_load_2d(a, map_a, &full[stage], m0, k);
-            tma_load_2d(a + kBox, map_a, &full[stage], m0 + 64, k);
+            tma_load_3d(a, map_a, &full[stage], m0, k, e);
+            tma_load_3d(a + kBox, map_a, &full[stage], m0 + 64, k, e);
           } else {
-            tma_load_2d(a, map_a, &full[stage], k, m0);
+            tma_load_3d(a, map_a, &full[stage], k, m0, e);
           }
           if constexpr (kBMN) {
 #pragma unroll
             for (int j = 0; j < BN / 64; ++j)
-              tma_load_2d(b + j * kBox, &tma_b, &full[stage], n0 + 64 * j, k);
+              tma_load_3d(b + j * kBox, &tma_b, &full[stage], n0 + 64 * j, k, e);
           } else {
-            tma_load_2d(b, &tma_b, &full[stage], k, n0);
+            tma_load_3d(b, &tma_b, &full[stage], k, n0, e);
           }
           if (++stage == kStages) {
             stage = 0;
@@ -475,7 +564,10 @@ wg_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
       ln_row_stats(p, m0, mean, rstd);
       named_bar_sync(1, kConsumers);
     }
-    const bool sums = KIND == kTN && p.cws != nullptr && blockIdx.y == 0;
+    // kTN column sums: of a by the first column tile's blocks, or (kColB) of
+    // b by the first row tile's, a thread a column
+    const bool sums = KIND == kTN && p.cws != nullptr &&
+                      (kColB ? blockIdx.x == 0 && (int)threadIdx.x < BN : blockIdx.y == 0);
     float csum = 0.f;
 
     // descriptors: the A half of this warpgroup and B, at stage 0, slice 0
@@ -513,7 +605,7 @@ wg_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
               acc, smem_desc(sa + kk * kSliceA, kLboA, kSwizzleAtom),
               smem_desc(sb + kk * kSliceB, kLboB, kSwizzleAtom), 1);
         wgmma_commit();
-        if (sums) csum = tile_colsum(a, csum);
+        if (sums) csum = kColB ? tile_colsum_b(a + kTileA, csum) : tile_colsum(a, csum);
         wgmma_wait<1>();
         fence_operands(acc);
         __syncwarp();
@@ -528,9 +620,12 @@ wg_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
       fence_operands(acc);
       __syncwarp();
       if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
-      epilogue<BN, KIND, EPI>(acc, p, m0, n0, extra);
+      epilogue<BN, KIND, EPI>(acc, p, e, m0, n0, extra);
     }
-    if (sums) {
+    if (kColB && sums) {
+      const int n = t_begin * BN + threadIdx.x;  // kTN walks one column tile
+      if (n < p.N) p.cws[(size_t)blockIdx.z * p.N + n] = csum;
+    } else if (sums) {
       // the two row halves of each column, in order
       extra[threadIdx.x] = csum;
       named_bar_sync(1, kConsumers);
@@ -564,17 +659,21 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// The map of a row-major bf16 (rows, cols) matrix with row stride ld
-// elements, boxes of 64 columns by box_rows rows in the 128-byte swizzle.
+// The map of E row-major bf16 (rows, cols) matrices with row stride ld
+// elements, `estride` elements apart (a single matrix: E 1), boxes of 64
+// columns by box_rows rows of one matrix in the 128-byte swizzle: a box
+// clips at its own matrix's last row and column.
 cudaError_t make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int ld,
-                     int box_rows) {
+                     int box_rows, int E = 1, long long estride = 0) {
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return cudaErrorSymbolNotFound;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * sizeof(bf16)};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+  if (estride <= 0) estride = (long long)rows * ld;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)E};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * sizeof(bf16),
+                                 (cuuint64_t)estride * sizeof(bf16)};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
                          strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -605,9 +704,9 @@ cudaError_t launch_epi(const CUtensorMap& a, const CUtensorMap& b, const CUtenso
   }
 }
 
-dim3 tile_grid(int M, int N, int bn, int tpb) {
+dim3 tile_grid(int M, int N, int bn, int tpb, int E = 1) {
   const int ntiles = (N + bn - 1) / bn;
-  return dim3((M + kBM - 1) / kBM, (ntiles + tpb - 1) / tpb, 1);
+  return dim3((M + kBM - 1) / kBM, (ntiles + tpb - 1) / tpb, E);
 }
 
 WgParams params(int M, int N, int K, int tpb) {
@@ -616,6 +715,7 @@ WgParams params(int M, int N, int K, int tpb) {
   p.N = N;
   p.K = K;
   p.tpb = tpb;
+  p.splits = 1;
   return p;
 }
 
@@ -679,57 +779,111 @@ extern "C" int ddm_wg_gemm_residual(const void* a, const void* w, const void* bi
                                        (cudaStream_t)stream);
 }
 
-// out = a (T, K) . w (K, N), w row-major (nn.Linear's (out, in) weight read
-// as (K, N)): epi 0 fp32 out; epi 1 bf16 out; epi 2 dh = (a . w) * dfac
-// (fp32 (T, N)) into the bf16 out, and colsum[N] = column sums of the
-// unrounded dh through ws[ceil(T / 128), N].
-extern "C" int ddm_wg_gemm_nn(const void* a, const void* w, const void* dfac, void* out,
-                              void* ws, void* colsum, int T, int K, int N, int epi, int bn,
-                              int tpb, void* stream) {
+// One hidden chunk of the F-chunked MLP: s = a (T, K) . w^T in fp32, w (N,
+// K) with row stride ldw (a column chunk of nn.Linear's (N, F) weight, read
+// in place). epi 0: acc = s; 1: acc = acc + s; 2: out = bf16((res + (acc +
+// s)) + bias), res and out (T, N) bf16, bias (N) fp32; acc (T, N) fp32.
+extern "C" int ddm_wg_gemm_partial(const void* a, const void* w, int ldw, void* acc,
+                                   const void* bias, const void* res, void* out, int T, int K,
+                                   int N, int epi, int bn, int tpb, void* stream) {
   using namespace ddm;
-  if (K % kBK != 0 || (epi != kNNF32Wg && epi != kNNBf16Wg && epi != kNNDGeluWg))
-    return cudaErrorInvalidValue;
+  if (K % kBK != 0 || epi < kPartStoreWg || epi > kPartFinalWg) return cudaErrorInvalidValue;
   CUtensorMap ma, mb;
   cudaError_t err = make_map(&ma, a, T, K, K, kBM);
-  if (err == cudaSuccess) err = make_map(&mb, w, K, N, N, 64);
+  if (err == cudaSuccess) err = make_map(&mb, w, N, K, ldw, bn);
   if (err != cudaSuccess) return (int)err;
   WgParams p = params(T, N, K, tpb);
-  p.dfac = (const float*)dfac;
-  p.out = out;
-  p.ws = (float*)ws;
+  p.bias = (const float*)bias;
+  p.res = (const bf16*)res;
+  p.part = (const float*)acc;
+  p.out = epi == kPartFinalWg ? out : acc;
   const dim3 grid = tile_grid(T, N, bn, tpb);
   const cudaStream_t st = (cudaStream_t)stream;
-  err = epi == kNNDGeluWg  ? launch_epi<kNN, kEpiDh>(ma, mb, ma, p, bn, grid, st)
-        : epi == kNNBf16Wg ? launch_epi<kNN, kEpiBf16>(ma, mb, ma, p, bn, grid, st)
-                           : launch_epi<kNN, 0>(ma, mb, ma, p, bn, grid, st);
-  if (err != cudaSuccess || epi != kNNDGeluWg) return (int)err;
-  return (int)reduce_rows((const float*)ws, (float*)colsum, grid.x, N, st);
+  switch (epi) {
+    case kPartStoreWg: return (int)launch_epi<kPartial, kPartStoreWg>(ma, mb, ma, p, bn, grid, st);
+    case kPartAddWg: return (int)launch_epi<kPartial, kPartAddWg>(ma, mb, ma, p, bn, grid, st);
+    default: return (int)launch_epi<kPartial, kPartFinalWg>(ma, mb, ma, p, bn, grid, st);
+  }
 }
 
-// dw (Ma, Nb) = a (T, Ma)^T . b (T, Nb) in fp32, over `splits` row ranges of
-// `rows` rows (ws: splits x Ma x Nb), summed in order; with cws set also
-// colsum (Ma) = column sums of a through cws (splits x Ma).
-extern "C" int ddm_wg_gemm_tn(const void* a, const void* b, void* ws, void* dw, void* cws,
-                              void* colsum, int T, int Ma, int Nb, int splits, int rows, int bn,
-                              void* stream) {
+// out[e] = a[e] (T, K) . w[e] for E experts (a dense product: E 1), a
+// contiguous (E, T, K). w[e] is (K, N) (nn.Linear's (out, in) weight read as
+// (K, N); the expert FFN's w1[e]), or with `wt` (N, K), the product a[e]
+// w[e]^T (K10b's w2[e] and w1[e] read transposed in place); row stride ldw,
+// experts sw elements apart. epi 0 fp32 out; 1 bf16 out; 2 dh = (a . w) *
+// dfac (fp32 (E, T, N)) into the bf16 out, and colsum (E, N) = column sums
+// of the unrounded dh through ws (E, ceil(T / 128), N); 5 (not with wt)
+// h = a . w + bias[e] (bias (E, N)) into out = bf16(gelu(h)) and out2 =
+// gelu'(h) (fp32), `fast` the sigmoid GELU.
+extern "C" int ddm_wg_expert_nn(const void* a, const void* w, const void* bias,
+                                const void* dfac, void* out, void* out2, void* ws, void* colsum,
+                                int E, int T, int K, int N, int ldw, int sw, int epi, int fast,
+                                int wt, int bn, int tpb, void* stream) {
   using namespace ddm;
-  if (rows % kBK != 0 || (long long)splits * rows < T || (long long)(splits - 1) * rows >= T)
+  const bool act = epi == kNNBiasGeluGradWg;
+  if (K % kBK != 0 || E < 1 ||
+      (epi != kNNF32Wg && epi != kNNBf16Wg && epi != kNNDGeluWg && !act) ||
+      (fast && !act) || (wt && epi != kNNBf16Wg && epi != kNNDGeluWg))
     return cudaErrorInvalidValue;
   CUtensorMap ma, mb;
-  cudaError_t err = make_map(&ma, a, T, Ma, Ma, 64);
-  if (err == cudaSuccess) err = make_map(&mb, b, T, Nb, Nb, 64);
+  cudaError_t err = make_map(&ma, a, T, K, K, kBM, E);
+  if (err == cudaSuccess)
+    err = wt ? make_map(&mb, w, N, K, ldw, bn, E, sw) : make_map(&mb, w, K, N, ldw, 64, E, sw);
   if (err != cudaSuccess) return (int)err;
-  WgParams p = params(Ma, Nb, T, 1);
+  WgParams p = params(T, N, K, tpb);
+  p.bias = (const float*)bias;
+  p.dfac = (const float*)dfac;
+  p.out = out;
+  p.out2 = (float*)out2;
   p.ws = (float*)ws;
-  p.cws = (float*)cws;
-  p.rows = rows;
-  dim3 grid = tile_grid(Ma, Nb, bn, 1);
-  grid.z = splits;
+  const dim3 grid = tile_grid(T, N, bn, tpb, E);
   const cudaStream_t st = (cudaStream_t)stream;
-  err = launch_epi<kTN, 0>(ma, mb, ma, p, bn, grid, st);
-  if (err == cudaSuccess) err = reduce_rows((const float*)ws, (float*)dw, splits, Ma * Nb, st);
+  if (wt)
+    err = epi == kNNDGeluWg ? launch_epi<kNT, kEpiDh>(ma, mb, ma, p, bn, grid, st)
+                            : launch_epi<kNT, kEpiBf16>(ma, mb, ma, p, bn, grid, st);
+  else
+    err = act && fast       ? launch_epi<kNN, kEpiActFast>(ma, mb, ma, p, bn, grid, st)
+          : act             ? launch_epi<kNN, kEpiAct>(ma, mb, ma, p, bn, grid, st)
+          : epi == kNNDGeluWg ? launch_epi<kNN, kEpiDh>(ma, mb, ma, p, bn, grid, st)
+          : epi == kNNBf16Wg  ? launch_epi<kNN, kEpiBf16>(ma, mb, ma, p, bn, grid, st)
+                              : launch_epi<kNN, 0>(ma, mb, ma, p, bn, grid, st);
+  if (err != cudaSuccess || epi != kNNDGeluWg) return (int)err;
+  return (int)reduce_rows((const float*)ws, (float*)colsum, grid.x, N, st, E);
+}
+
+// dw[e] (Ma, Nb) = a[e] (T, Ma)^T . b[e] (T, Nb) in fp32 for E experts (a
+// dense product: E 1), a and b contiguous, over `splits` row ranges of
+// `rows` rows an expert (ws: E x splits x Ma x Nb), summed in order; with
+// cws set also colsum[e] = column sums of a[e] (Ma), or with colsum_of_b of
+// b[e] (Nb), through cws (E x splits x Ma, or Nb). One split writes dw and
+// colsum directly (ws unused, may be null): the sum of one is a copy.
+extern "C" int ddm_wg_expert_tn(const void* a, const void* b, void* ws, void* dw, void* cws,
+                                void* colsum, int E, int T, int Ma, int Nb, int splits,
+                                int rows, int colsum_of_b, int bn, void* stream) {
+  using namespace ddm;
+  if (rows % kBK != 0 || E < 1 || (long long)splits * rows < T ||
+      (long long)(splits - 1) * rows >= T || (long long)E * splits > 65535)
+    return cudaErrorInvalidValue;
+  CUtensorMap ma, mb;
+  cudaError_t err = make_map(&ma, a, T, Ma, Ma, 64, E);
+  if (err == cudaSuccess) err = make_map(&mb, b, T, Nb, Nb, 64, E);
+  if (err != cudaSuccess) return (int)err;
+  const bool one = splits == 1;
+  WgParams p = params(Ma, Nb, T, 1);
+  p.ws = (float*)(one ? dw : ws);
+  p.cws = (float*)(one && cws != nullptr ? colsum : cws);
+  p.rows = rows;
+  p.splits = splits;
+  dim3 grid = tile_grid(Ma, Nb, bn, 1);
+  grid.z = E * splits;
+  const cudaStream_t st = (cudaStream_t)stream;
+  err = colsum_of_b ? launch_epi<kTN, kEpiColB>(ma, mb, ma, p, bn, grid, st)
+                    : launch_epi<kTN, 0>(ma, mb, ma, p, bn, grid, st);
+  if (err != cudaSuccess || one) return (int)err;
+  err = reduce_rows((const float*)ws, (float*)dw, splits, Ma * Nb, st, E);
   if (err != cudaSuccess || cws == nullptr) return (int)err;
-  return (int)reduce_rows((const float*)cws, (float*)colsum, splits, Ma, st);
+  return (int)reduce_rows((const float*)cws, (float*)colsum, splits, colsum_of_b ? Nb : Ma, st,
+                          E);
 }
 
 // Host cost of the descriptors: encodes n maps of a (rows, cols) bf16

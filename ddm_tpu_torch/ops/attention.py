@@ -445,14 +445,14 @@ def _bwd_chain(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, dout, core_bwd):
     x2 = x.reshape(B * N, D)
     dob = dout.to(torch.bfloat16).contiguous().reshape(B * N, D)
     qkv, _, y = gemm.ln_gemm_wg(x2, s, bb, wqkv_b, bqkv_f, gemm.EPI_BIAS, with_y=True)
-    datt = gemm.gemm_nn_wg(dob, wproj_b, gemm.NN_BF16).view(B, N, D)
+    datt = gemm.expert_nn_wg(dob, wproj_b, gemm.NN_BF16).view(B, N, D)
     att, dqkv = core_bwd(qkv.view(B, N, 3 * D), datt)
     del qkv, datt
-    dwproj, dbproj = gemm.gemm_tn_wg(dob, att.view(B * N, D), with_colsum=True)
+    dwproj, dbproj = gemm.expert_tn_wg(dob, att.view(B * N, D), with_colsum=True)
     del att
     dqkv = dqkv.view(B * N, 3 * D)
-    dwqkv, dbqkv = gemm.gemm_tn_wg(dqkv, y, with_colsum=True)
-    dy = gemm.gemm_nn_wg(dqkv, wqkv_b, gemm.NN_F32)
+    dwqkv, dbqkv = gemm.expert_tn_wg(dqkv, y, with_colsum=True)
+    dy = gemm.expert_nn_wg(dqkv, wqkv_b, gemm.NN_F32)
     del dqkv
     dx, dscale, dbias = gemm.ln_bwd(x2, dy, dob, s)
     return dx.reshape(B, N, D), dscale, dbias, dwqkv, dbqkv, dwproj, dbproj

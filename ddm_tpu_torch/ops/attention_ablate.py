@@ -25,7 +25,7 @@ baseline is K2b bit for bit):
 - ``skip_ln``: dx = bf16(dout + dy), dscale = dbias = 0 (an instance of
   ``csrc/gemm_bwd.cu`` ``ln_bwd_kernel`` without the LN algebra);
 - ``skip_dw``: the chain skips both weight-gradient products
-  (``gemm_tn_wg``) and returns zeros for dWproj, dbproj, dWqkv and dbqkv.
+  (``expert_tn_wg``) and returns zeros for dWproj, dbproj, dWqkv and dbqkv.
 
 The TPU body packs g images under an all-zero mask (``kbench_ablate.py:199``),
 so at g > 1 its queries attend across the images of a pack; the port works
@@ -217,7 +217,7 @@ def _ablate_chain(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H, dout, sk, cod
     dob = dout.to(torch.bfloat16).contiguous().reshape(B * N, D)
     qkv, _, y = gemm.ln_gemm_wg(x2, s, bb, wqkv_b, bqkv_f, gemm.EPI_BIAS,
                                 with_y=not sk["skip_dw"])
-    datt = gemm.gemm_nn_wg(dob, wproj_b, gemm.NN_BF16).view(B, N, D)
+    datt = gemm.expert_nn_wg(dob, wproj_b, gemm.NN_BF16).view(B, N, D)
     att, dqkv = _launch_core(qkv.view(B, N, 3 * D), datt, H, code)
     del qkv, datt
     zeros = lambda *s: torch.zeros(s, dtype=torch.float32, device=x.device)  # noqa: E731
@@ -225,10 +225,10 @@ def _ablate_chain(x, scale_p, bias_p, wqkv, bqkv, wproj, bproj, H, dout, sk, cod
     if sk["skip_dw"]:
         dwproj, dbproj, dwqkv, dbqkv = zeros(D, D), zeros(D), zeros(3 * D, D), zeros(3 * D)
     else:
-        dwproj, dbproj = gemm.gemm_tn_wg(dob, att.view(B * N, D), with_colsum=True)
-        dwqkv, dbqkv = gemm.gemm_tn_wg(dqkv, y, with_colsum=True)
+        dwproj, dbproj = gemm.expert_tn_wg(dob, att.view(B * N, D), with_colsum=True)
+        dwqkv, dbqkv = gemm.expert_tn_wg(dqkv, y, with_colsum=True)
     del att
-    dy = gemm.gemm_nn_wg(dqkv, wqkv_b, gemm.NN_F32)
+    dy = gemm.expert_nn_wg(dqkv, wqkv_b, gemm.NN_F32)
     del dqkv
     if sk["skip_ln"]:
         dx, dscale, dbias = _ln_bwd_residual(dy, dob), zeros(D), zeros(D)

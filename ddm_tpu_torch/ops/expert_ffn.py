@@ -9,10 +9,14 @@ with the JAX layouts ``w1 (E, D, F)``, ``b1 (E, F)``, ``w2 (E, F, D)``,
 ``b2 (E, D)``. :func:`expert_ffn` is a ``torch.autograd.Function``. On CUDA
 tensors its forward launches K10f, the batched NN GEMMs of
 ``csrc/gemm_bwd.cu`` with ``blockIdx.z`` as the expert (a bias + exact-erf
-GELU epilogue, then a bias epilogue); its backward launches K10b, which
-recomputes h as the TPU kernel does and runs the batched dW (split-K TN,
-fixed-order sums), dh (dgelu epilogue with the db1 column sums) and dx
-products. On CPU tensors the same Function runs the plain versions,
+GELU epilogue, then a bias epilogue); its backward launches K10b, five
+wgmma products fed by a TMA ring on the expert coordinate of
+``csrc/gemm_wg.cu`` (3-D maps, so a tile clips at its expert's last slot
+row): the recompute of h as the TPU kernel does (bias + GELU + gelu'),
+dW2 with db2 (split-K TN within each expert, fixed-order sums, db2 the
+column sums of dO), dh (the dgelu epilogue with the db1 column sums), dW1,
+and dx; the weights are read in both layouts in place, with no transposed
+copy. On CPU tensors the same Function runs the plain versions,
 :func:`expert_ffn_reference` and :func:`expert_ffn_bwd_reference`.
 
 Numerics (both versions): bf16 matmul operands with fp32 accumulation;
@@ -182,18 +186,17 @@ def _k10b(x, w1, b1, w2, b2, dout, fast_gelu=False):
     if dout.shape != x.shape:
         raise ValueError(f"K10b cotangent must be {tuple(x.shape)}, got {tuple(dout.shape)}")
     bf = torch.bfloat16
-    w1b = w1.to(bf).contiguous()
+    w1b, w2b = w1.to(bf).contiguous(), w2.to(bf).contiguous()
     dob = dout.to(bf).contiguous()
-    g, dfac = gemm.gemm_nn(x, w1b, gemm.NN_BIAS_GELU_GRAD, bias=b1.float().contiguous(),
-                           fast_gelu=fast_gelu)
-    dw2, db2 = gemm.gemm_tn(g, dob, with_colsum=True, colsum_of_b=True)
+    g, dfac = gemm.expert_nn_wg(x, w1b, gemm.NN_BIAS_GELU_GRAD, bias=b1.float().contiguous(),
+                                fast_gelu=fast_gelu)
+    dw2, db2 = gemm.expert_tn_wg(g, dob, with_colsum=True, colsum_of_b=True)
     del g
-    # the dx-side products read W2 and W1 transposed: (E, D, F) and (E, F, D)
-    dhb, db1 = gemm.gemm_nn(dob, w2.to(bf).transpose(1, 2).contiguous(), gemm.NN_DGELU,
-                            dfac=dfac)
+    # the dx-side products read w2[e] (F, D) and w1[e] (D, F) K-major: a . w^T
+    dhb, db1 = gemm.expert_nn_wg(dob, w2b, gemm.NN_DGELU, dfac=dfac, transposed=True)
     del dfac
-    dw1, _ = gemm.gemm_tn(x, dhb)
-    dx = gemm.gemm_nn(dhb, w1b.transpose(1, 2).contiguous(), gemm.NN_BF16)
+    dw1, _ = gemm.expert_tn_wg(x, dhb)
+    dx = gemm.expert_nn_wg(dhb, w1b, gemm.NN_BF16, transposed=True)
     BWD_LAUNCHES.add()
     return dx, dw1, db1, dw2, db2
 

@@ -1,9 +1,10 @@
 """ctypes launchers for the half-block GEMMs, shared by the MLP, attention
 and expert-FFN wrappers: the wgmma products fed by a TMA ring of
-``csrc/gemm_wg.cu`` (``*_wg``: K1f, K1b, and the chains of K2f, K2b, K4
-and the third attention rung at D <= 1344), with their tile and split
-plans, and the WMMA products of ``csrc/gemm.cu`` and ``csrc/gemm_bwd.cu``
-(K6, K10, and the WMMA K2f chain X2f's bit check composes).
+``csrc/gemm_wg.cu`` (``*_wg``: K1f, K1b, K6f, K10b, and the chains of K2f,
+K2b, K4 and the third attention rung at D <= 1344; ``expert_*_wg`` on the
+expert coordinate), with their tile and split plans, and the WMMA products
+of ``csrc/gemm.cu`` and ``csrc/gemm_bwd.cu`` (K6b, K10f, K10p, and the WMMA
+K2f chain X2f's bit check composes).
 
 Each function takes CUDA tensors that its caller has checked (bf16
 activations and weights, fp32 biases and LN parameters, contiguous),
@@ -23,12 +24,13 @@ from .kernel_config import check_status, current_stream, load_library
 
 __all__ = ["ln_gemm", "gemm_residual", "gemm_partial", "gemm_nn", "gemm_tn", "ln_bwd",
            "cast_bf16", "tn_splits", "sm_count", "ln_gemm_smem", "refuse_wide", "LN_GEMM_MAX_K",
-           "ln_gemm_wg", "gemm_residual_wg", "gemm_nn_wg", "gemm_tn_wg", "wg_block_n",
-           "wg_tile_plan", "wg_split_plan", "wg_smem", "tma_operand"]
+           "ln_gemm_wg", "gemm_residual_wg", "wg_block_n",
+           "wg_tile_plan", "wg_split_plan", "wg_smem", "tma_operand", "gemm_partial_wg",
+           "expert_nn_wg", "expert_tn_wg"]
 
 # ln_gemm epilogues (csrc/gemm.cu LnGemmEpi)
 EPI_BIAS, EPI_GELU, EPI_GELU_GRAD = 0, 1, 2
-# gemm_partial epilogues (csrc/gemm.cu PartialEpi)
+# gemm_partial epilogues (csrc/gemm.cu PartialEpi; gemm_partial_wg's too)
 PART_STORE, PART_ADD, PART_FINAL_RES = 0, 1, 2
 # gemm_nn epilogues (csrc/gemm_bwd.cu NNEpi)
 NN_F32, NN_BF16, NN_DGELU, NN_BIAS, NN_BIAS_GELU, NN_BIAS_GELU_GRAD = 0, 1, 2, 3, 4, 5
@@ -249,39 +251,43 @@ def wg_smem(kind: str, bn: int, K: int) -> int:
     ``wg_smem``): 1024 bytes of alignment slack, the ring's stages (a 128 x
     64 A tile and a bn x 64 B tile, bf16), 128 bytes of barriers, and the
     kind's tables: the LN-prologue product's mean and rstd a row and its
-    fp32 LN scale and bias over the depth K; the NN product's db1 partials
-    of 8 warps; the TN product's two halves of column sums."""
+    fp32 LN scale and bias over the depth K; the NN products' (``nn``, and
+    ``nt`` with W read K-major) db1 partials of 8 warps; the TN product's two
+    halves of column sums; nothing for K6f's ``partial`` product."""
     s = 1024 + WG_STAGES * (WG_BM * WG_BK * 2 + bn * WG_BK * 2) + 128
-    extra = {"ln_gemm": 2 * WG_BM + 2 * K, "residual": 0, "nn": 8 * bn, "tn": 2 * WG_BM}
+    extra = {"ln_gemm": 2 * WG_BM + 2 * K, "residual": 0, "partial": 0, "nn": 8 * bn,
+             "nt": 8 * bn, "tn": 2 * WG_BM}
     return s + 4 * extra[kind]
 
 
-def wg_tile_plan(T: int, N: int, sms: int, most: int = 4) -> Tuple[int, int, Tuple[int, int]]:
+def wg_tile_plan(T: int, N: int, sms: int, most: int = 4,
+                 batch: int = 1) -> Tuple[int, int, Tuple[int, int]]:
     """``(bn, tiles, grid)`` of a wgmma product with T output rows and N
-    columns: a block takes a 128-row tile and walks ``tiles`` column tiles
-    of ``bn`` (up to ``most``, fewer where the blocks would leave a tenth
-    of the SMs idle; the groups balanced), ``grid`` = (row tiles, column
-    groups). A function of the shapes and the SM count. The LN-prologue
-    product walks up to 8: its first tile normalises the rows, the others
-    reuse them."""
+    columns (of each of ``batch`` experts): a block takes a 128-row tile and
+    walks ``tiles`` column tiles of ``bn`` (up to ``most``, fewer where the
+    blocks would leave a tenth of the SMs idle; the groups balanced),
+    ``grid`` = (row tiles, column groups) an expert. A function of the
+    shapes and the SM count. The LN-prologue product walks up to 8: its
+    first tile normalises the rows, the others reuse them."""
     bn = wg_block_n(N)
     mblocks, ntiles = -(-T // WG_BM), -(-N // bn)
     tiles = min(ntiles, most)
-    while tiles > 1 and mblocks * -(-ntiles // tiles) < 0.9 * sms:
+    while tiles > 1 and batch * mblocks * -(-ntiles // tiles) < 0.9 * sms:
         tiles -= 1
     groups = -(-ntiles // tiles)
     return bn, -(-ntiles // groups), (mblocks, groups)
 
 
-def wg_split_plan(T: int, Ma: int, Nb: int, sms: int) -> Tuple[int, int, int]:
+def wg_split_plan(T: int, Ma: int, Nb: int, sms: int, batch: int = 1) -> Tuple[int, int, int]:
     """``(bn, splits, rows)`` of the split-K weight-gradient product
-    ``a (T, Ma)^T . b (T, Nb)``: each split a fixed range of ``rows`` rows,
-    a whole number of 64-row tiles, the splits covering T exactly; the
-    fewest splits whose blocks fill the card's waves to 90%, else the
-    fullest waves of up to 64 splits. A function of the shapes and the SM
-    count only, so the sum order never changes."""
+    ``a (T, Ma)^T . b (T, Nb)`` (of each of ``batch`` experts): each split a
+    fixed range of ``rows`` rows, a whole number of 64-row tiles, the splits
+    covering T exactly (an expert's T: the splits run within each expert);
+    the fewest splits whose blocks (over all experts) fill the card's waves
+    to 90%, else the fullest waves of up to 64 splits. A function of the
+    shapes and the SM count only, so the sum order never changes."""
     bn = wg_block_n(Nb)
-    tiles = -(-Ma // WG_BM) * -(-Nb // bn)
+    tiles = batch * -(-Ma // WG_BM) * -(-Nb // bn)
     chunks = -(-T // WG_BK)
     best, best_eff = 1, 0.0
     for want in range(1, min(chunks, 64) + 1):
@@ -296,16 +302,21 @@ def wg_split_plan(T: int, Ma: int, Nb: int, sms: int) -> Tuple[int, int, int]:
     return bn, -(-T // rows), rows
 
 
-def tma_operand(t: torch.Tensor, name: str) -> None:
-    """The TMA rules for a bf16 operand of the wgmma products: 2-D,
-    row-major with unit column stride, its base and row stride 16-byte
-    aligned, at most 2^31 - 1 rows and columns; raises otherwise."""
-    if t.dtype != torch.bfloat16 or t.dim() != 2 or t.stride(1) != 1:
-        raise ValueError(f"{name}: a TMA operand is a 2-D bf16 row-major matrix, got "
+def tma_operand(t: torch.Tensor, name: str, batched: bool = False) -> None:
+    """The TMA rules for a bf16 operand of the wgmma products: a 2-D
+    row-major matrix with unit column stride (``batched``: (E, rows, cols),
+    the experts' matrices), its base, row stride and expert stride 16-byte
+    aligned, at most 2^31 - 1 rows, columns, experts and elements between
+    rows or experts; raises otherwise (a view, such as a column chunk of a
+    wider weight, passes as it is)."""
+    dims = 3 if batched else 2
+    if t.dtype != torch.bfloat16 or t.dim() != dims or t.stride(-1) != 1:
+        raise ValueError(f"{name}: a TMA operand is a {dims}-D bf16 row-major tensor, got "
                          f"{t.dtype} {tuple(t.shape)} strides {t.stride()}")
-    if t.data_ptr() % 16 or (t.stride(0) * 2) % 16 or max(t.shape) >= 2 ** 31:
-        raise ValueError(f"{name}: TMA needs a 16-byte-aligned base and row stride, got "
-                         f"address {t.data_ptr()} and row stride {t.stride(0)}")
+    if (t.data_ptr() % 16 or any((s * 2) % 16 for s in t.stride()[:-1])
+            or max(t.shape) >= 2 ** 31 or max(t.stride()) >= 2 ** 31):
+        raise ValueError(f"{name}: TMA needs a 16-byte-aligned base and strides, got "
+                         f"address {t.data_ptr()} and strides {t.stride()}")
 
 
 def _sms(dev: torch.device) -> int:
@@ -352,49 +363,108 @@ def gemm_residual_wg(a, w, b, res):
     return out
 
 
-def gemm_nn_wg(a, w, epi: int, dfac=None):
-    """``a (T, K) . w (K, N)`` with ``w`` nn.Linear's (out, in) weight read as
-    (K, N), through the wgmma kernel: ``NN_F32`` -> fp32 out; ``NN_BF16`` ->
-    bf16 out (the attention chains' datt); ``NN_DGELU`` -> ``(bf16(dh),
-    sum_rows(dh))``, ``dh = (a . w) * dfac`` in fp32."""
-    if epi not in (NN_F32, NN_BF16, NN_DGELU):
-        raise ValueError(f"gemm_nn_wg takes NN_F32, NN_BF16 or NN_DGELU, got {epi}")
+def gemm_partial_wg(a, w, epi: int, acc, bias=None, res=None):
+    """:func:`gemm_partial` through the wgmma kernel (K6f's second product):
+    ``s = a (T, K) . w^T`` in fp32, ``w (N, K)`` a column chunk of
+    nn.Linear's (N, F) weight read in place (its row stride F, its base the
+    chunk's offset). ``PART_STORE`` writes ``acc = s`` and ``PART_ADD`` ``acc
+    = acc + s`` into the fp32 (T, N) ``acc``; ``PART_FINAL_RES`` returns
+    ``bf16((res + (acc + s)) + bias)``. Each a compiled epilogue."""
+    if epi not in (PART_STORE, PART_ADD, PART_FINAL_RES):
+        raise ValueError(f"gemm_partial_wg takes PART_STORE, PART_ADD or PART_FINAL_RES, "
+                         f"got {epi}")
     T, K = a.shape
-    N = w.shape[1]
+    N = w.shape[0]
     tma_operand(a, "a")
     tma_operand(w, "w")
+    bn, tiles, _ = wg_tile_plan(T, N, _sms(a.device))
+    out = (torch.empty((T, N), dtype=torch.bfloat16, device=a.device)
+           if epi == PART_FINAL_RES else None)
+    check_status(load_library().ddm_wg_gemm_partial(
+        a.data_ptr(), w.data_ptr(), w.stride(0), acc.data_ptr(), _ptr(bias), _ptr(res),
+        _ptr(out), T, K, N, epi, bn, tiles, current_stream(a.device)), "gemm_partial_wg")
+    return out
+
+
+def expert_nn_wg(a, w, epi: int, dfac=None, bias=None, fast_gelu: bool = False,
+                 transposed: bool = False):
+    """Per expert e: ``a[e] (T, K) . w[e]`` through the wgmma kernel on the
+    expert coordinate, ``a (E, T, K)`` contiguous; ``w[e]`` (K, N) (the
+    expert FFN's ``w1 (E, D, F)``; nn.Linear's (out, in) weight read as (K,
+    N)), or with ``transposed`` (N, K) and the product ``a[e] . w[e]^T``
+    (``w2 (E, F, D)`` or ``w1`` read in place: no transposed copy); ``w`` may
+    be a view with unit column stride. A dense product passes 2-D ``a (T,
+    K)`` and ``w``: the batch of one, its outputs 2-D (K1b's and the
+    attention chains' dh, datt and dy).
+
+    ``NN_F32`` -> fp32 (E, T, N); ``NN_BF16`` -> bf16; ``NN_DGELU`` ->
+    ``(bf16(dh), sum_rows(dh) (E, N))``, ``dh = (a . w) * dfac`` in fp32;
+    ``NN_BIAS_GELU_GRAD`` (not ``transposed``) -> ``(bf16(gelu(h)), gelu'(h)
+    fp32)``, ``h = a . w + bias[e]`` with ``bias (E, N)``, ``fast_gelu`` the
+    sigmoid GELU."""
+    allowed = (NN_BF16, NN_DGELU) if transposed else (NN_F32, NN_BF16, NN_DGELU,
+                                                      NN_BIAS_GELU_GRAD)
+    if epi not in allowed or (fast_gelu and epi != NN_BIAS_GELU_GRAD):
+        raise ValueError(f"expert_nn_wg takes {allowed} (transposed={transposed}; fast_gelu "
+                         f"with NN_BIAS_GELU_GRAD only), got {epi} with fast_gelu={fast_gelu}")
+    dense = a.dim() == 2
+    tma_operand(a, "a", batched=not dense)
+    tma_operand(w, "w", batched=not dense)
+    if not a.is_contiguous():
+        raise ValueError("expert_nn_wg reads a as contiguous (E, T, K) slot rows")
+    E, T, K = (1, *a.shape) if dense else a.shape
+    N = w.shape[-2] if transposed else w.shape[-1]
+    ldw, sw = (w.stride(0), 0) if dense else (w.stride(1), w.stride(0))
+    lead = () if dense else (E,)
     dev = a.device
-    bn, tiles, grid = wg_tile_plan(T, N, _sms(dev))
-    out = torch.empty((T, N), device=dev,
+    bn, tiles, grid = wg_tile_plan(T, N, _sms(dev), batch=E)
+    out = torch.empty((*lead, T, N), device=dev,
                       dtype=torch.float32 if epi == NN_F32 else torch.bfloat16)
+    out2 = (torch.empty((*lead, T, N), dtype=torch.float32, device=dev)
+            if epi == NN_BIAS_GELU_GRAD else None)
     ws = colsum = None
     if epi == NN_DGELU:
-        ws = torch.empty((grid[0], N), dtype=torch.float32, device=dev)
-        colsum = torch.empty((N,), dtype=torch.float32, device=dev)
-    check_status(load_library().ddm_wg_gemm_nn(
-        a.data_ptr(), w.data_ptr(), _ptr(dfac), out.data_ptr(), _ptr(ws), _ptr(colsum), T, K,
-        N, epi, bn, tiles, current_stream(dev)), "gemm_nn_wg")
-    return (out, colsum) if epi == NN_DGELU else out
+        ws = torch.empty((E, grid[0], N), dtype=torch.float32, device=dev)
+        colsum = torch.empty((*lead, N), dtype=torch.float32, device=dev)
+    check_status(load_library().ddm_wg_expert_nn(
+        a.data_ptr(), w.data_ptr(), _ptr(bias), _ptr(dfac), out.data_ptr(), _ptr(out2),
+        _ptr(ws), _ptr(colsum), E, T, K, N, ldw, sw, epi, int(fast_gelu), int(transposed), bn,
+        tiles, current_stream(dev)), "expert_nn_wg")
+    if epi == NN_DGELU:
+        return out, colsum
+    return (out, out2) if epi == NN_BIAS_GELU_GRAD else out
 
 
-def gemm_tn_wg(a, b, with_colsum: bool = False):
-    """``a (T, Ma)^T . b (T, Nb)`` in fp32 through the wgmma kernel ->
-    ``(dw (Ma, Nb), colsum)``: ``colsum`` the fp32 column sums of ``a``
-    when ``with_colsum``, else None. Deterministic split-K
-    (:func:`wg_split_plan`): fixed row ranges, summed in a fixed order."""
-    T, Ma = a.shape
-    Nb = b.shape[1]
-    tma_operand(a, "a")
-    tma_operand(b, "b")
+def expert_tn_wg(a, b, with_colsum: bool = False, colsum_of_b: bool = False):
+    """Per expert e: ``a[e] (T, Ma)^T . b[e] (T, Nb)`` in fp32 through the
+    wgmma kernel on the expert coordinate, ``a (E, T, Ma)`` and ``b (E, T,
+    Nb)`` contiguous -> ``(dw (E, Ma, Nb), colsum)``: ``colsum`` the fp32
+    column sums of ``a`` (E, Ma), or with ``colsum_of_b`` of ``b`` (E, Nb),
+    when ``with_colsum``, else None. A dense product passes 2-D ``a (T, Ma)``
+    and ``b (T, Nb)``: the batch of one, ``dw (Ma, Nb)`` and ``colsum`` 1-D
+    (K1b's and the attention chains' weight gradients). Deterministic
+    split-K (:func:`wg_split_plan` over the batch): fixed row ranges within
+    each expert, summed in a fixed order (one split writes ``dw``
+    directly)."""
+    dense = a.dim() == 2
+    tma_operand(a, "a", batched=not dense)
+    tma_operand(b, "b", batched=not dense)
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("expert_tn_wg reads a and b as contiguous (E, T, *) rows")
+    E, T, Ma = (1, *a.shape) if dense else a.shape
+    Nb = b.shape[-1]
+    lead = () if dense else (E,)
     dev = a.device
-    bn, splits, rows = wg_split_plan(T, Ma, Nb, _sms(dev))
-    ws = torch.empty((splits, Ma, Nb), dtype=torch.float32, device=dev)
-    dw = torch.empty((Ma, Nb), dtype=torch.float32, device=dev)
+    bn, splits, rows = wg_split_plan(T, Ma, Nb, _sms(dev), batch=E)
+    ws = (torch.empty((E, splits, Ma, Nb), dtype=torch.float32, device=dev)
+          if splits > 1 else None)
+    dw = torch.empty((*lead, Ma, Nb), dtype=torch.float32, device=dev)
     cws = colsum = None
     if with_colsum:
-        cws = torch.empty((splits, Ma), dtype=torch.float32, device=dev)
-        colsum = torch.empty((Ma,), dtype=torch.float32, device=dev)
-    check_status(load_library().ddm_wg_gemm_tn(
-        a.data_ptr(), b.data_ptr(), ws.data_ptr(), dw.data_ptr(), _ptr(cws), _ptr(colsum), T,
-        Ma, Nb, splits, rows, bn, current_stream(dev)), "gemm_tn_wg")
+        C = Nb if colsum_of_b else Ma
+        cws = torch.empty((E, splits, C), dtype=torch.float32, device=dev)
+        colsum = torch.empty((*lead, C), dtype=torch.float32, device=dev)
+    check_status(load_library().ddm_wg_expert_tn(
+        a.data_ptr(), b.data_ptr(), _ptr(ws), dw.data_ptr(), _ptr(cws), _ptr(colsum), E,
+        T, Ma, Nb, splits, rows, int(colsum_of_b), bn, current_stream(dev)), "expert_tn_wg")
     return dw, colsum

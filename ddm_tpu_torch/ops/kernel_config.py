@@ -85,10 +85,13 @@ _SIGNATURES = {
     "ddm_wg_ln_gemm": [_P] * 8 + [_I] * 7 + [_P],
     # a, w, bias, res, out, T, K, N, bn, tiles, stream
     "ddm_wg_gemm_residual": [_P] * 5 + [_I] * 5 + [_P],
-    # a, w, dfac, out, ws, colsum, T, K, N, epi, bn, tiles, stream
-    "ddm_wg_gemm_nn": [_P] * 6 + [_I] * 6 + [_P],
-    # a, b, ws, dw, cws, colsum, T, Ma, Nb, splits, rows, bn, stream
-    "ddm_wg_gemm_tn": [_P] * 6 + [_I] * 6 + [_P],
+    # K6f's chunk product: a, w, ldw, acc, bias, res, out, T, K, N, epi, bn, tiles, stream
+    "ddm_wg_gemm_partial": [_P, _P, _I, _P, _P, _P, _P] + [_I] * 6 + [_P],
+    # the NN and TN products on the expert coordinate (a dense product: E 1): a, w, bias,
+    # dfac, out, out2, ws, colsum, E, T, K, N, ldw, sw, epi, fast, wt, bn, tiles, stream
+    "ddm_wg_expert_nn": [_P] * 8 + [_I] * 11 + [_P],
+    # a, b, ws, dw, cws, colsum, E, T, Ma, Nb, splits, rows, colsum_of_b, bn, stream
+    "ddm_wg_expert_tn": [_P] * 6 + [_I] * 8 + [_P],
     # ptr, rows, cols, n, us (float*)
     "ddm_wg_encode_cost": [_P, _I, _I, _I, _P],
     # x, dy, dres, scale, dx, partial, dscale_dbias, T, D, stream

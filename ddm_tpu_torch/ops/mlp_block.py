@@ -9,8 +9,11 @@ backward launches K1b, which recomputes the forward as the TPU kernel does:
 the LN-prologue product writing g, gelu'(h) and y, the dW2, dh, dW1 and dy
 products (``csrc/gemm_wg.cu``; the weight gradients split over T in fixed
 row ranges, summed in a fixed order), then the LayerNorm backward
-(``csrc/gemm_bwd.cu``). The F-chunked forward K6f and the tensor-parallel
-K6b keep the WMMA products of ``csrc/gemm.cu`` and ``csrc/gemm_bwd.cu``. On
+(``csrc/gemm_bwd.cu``). The F-chunked forward K6f runs on the same ring, two
+products a hidden chunk: the LN-prologue product with the GELU epilogue on
+the W1 row chunk, then the partial product on the W2 column chunk, read in
+place, with an fp32 store, add or final epilogue. The tensor-parallel K6b
+keeps the WMMA products of ``csrc/gemm.cu`` and ``csrc/gemm_bwd.cu``. On
 CPU tensors the same Function runs the plain versions,
 :func:`mlp_block_reference` and :func:`mlp_block_bwd_reference`, with the
 same dtype plan.
@@ -48,12 +51,10 @@ backward, on CUDA tensors too.
 Past D 1344 (D % 128 == 0 up to 4096) the ladder still runs kernels:
 ``fchunked`` at k 2-8 (MLP ratio 4 up to D 2560, ratio 2 up to 3584,
 ratio 1 up to 4096; e.g. SD3-Medium's width, D 1536 and F 6144, at k 8),
-and ``fwdonly`` at ratio 1 and D 1408, 1664 and 1792. K1f's and K1b's
-LN-prologue product takes any D % 64 == 0 (the x chunks stream through its
-ring); K6f's first GEMM there runs the streamed WMMA kernel of
-``csrc/gemm.cu`` (:func:`ddm_tpu_torch.ops.gemm.ln_gemm` picks it past
-``gemm.LN_GEMM_MAX_K``), and K1b's LayerNorm backward takes 4 warps a
-block past D 3584.
+and ``fwdonly`` at ratio 1 and D 1408, 1664 and 1792. The LN-prologue
+product of K1f, K1b and K6f takes any D % 64 == 0 (the x chunks stream
+through its ring; its LN tables fit up to D 4096), and K1b's LayerNorm
+backward takes 4 warps a block past D 3584.
 
 The tensor-parallel partial (``fused_mlp_partial`` of
 ``ddm_tpu/ops/mlp_block.py:652``): :func:`fused_mlp_partial` computes
@@ -280,10 +281,12 @@ def _k1f(x, scale, bias, w1, b1, w2, b2, fast_gelu=False):
 
 
 def _k6f(x, s, bb, w1c, b1c, w2c, epi, acc, b2f=None, fast_gelu=False):
-    """One hidden chunk: the LN-prologue GEMM with bias + GELU on the W1 row
-    chunk, then the fp32-partial GEMM on the W2 column chunk (in place)."""
-    hidden, _, _ = gemm.ln_gemm(x, s, bb, w1c, b1c, gemm.EPI_GELU, fast_gelu=fast_gelu)
-    out = gemm.gemm_partial(hidden, w2c, epi, acc, b2f, x)
+    """One hidden chunk on the wgmma ring: the LN-prologue product with bias
+    + GELU on the W1 row chunk, then the fp32-partial product on the W2
+    column chunk, read in place (``PART_STORE``, ``PART_ADD`` or
+    ``PART_FINAL_RES``)."""
+    hidden, _, _ = gemm.ln_gemm_wg(x, s, bb, w1c, b1c, gemm.EPI_GELU, fast_gelu=fast_gelu)
+    out = gemm.gemm_partial_wg(hidden, w2c, epi, acc, b2f, x)
     PARTIAL_LAUNCHES.add()
     return out
 
@@ -305,12 +308,12 @@ def _k1b(x, scale, bias, w1, b1, w2, b2, dout, fast_gelu=False):
     dob = dout.to(torch.bfloat16).contiguous()
     g, dfac, y = gemm.ln_gemm_wg(x, s, bb, w1b, b1f, gemm.EPI_GELU_GRAD, with_y=True,
                                  fast_gelu=fast_gelu)
-    dw2, db2 = gemm.gemm_tn_wg(dob, g, with_colsum=True)
+    dw2, db2 = gemm.expert_tn_wg(dob, g, with_colsum=True)
     del g
-    dhb, db1 = gemm.gemm_nn_wg(dob, w2b, gemm.NN_DGELU, dfac=dfac)
+    dhb, db1 = gemm.expert_nn_wg(dob, w2b, gemm.NN_DGELU, dfac=dfac)
     del dfac
-    dw1, _ = gemm.gemm_tn_wg(dhb, y)
-    dy = gemm.gemm_nn_wg(dhb, w1b, gemm.NN_F32)
+    dw1, _ = gemm.expert_tn_wg(dhb, y)
+    dy = gemm.expert_nn_wg(dhb, w1b, gemm.NN_F32)
     del dhb
     dx, dscale, dbias = gemm.ln_bwd(x, dy, dob, s)
     BWD_LAUNCHES.add()
@@ -439,7 +442,7 @@ def fused_mlp_block(x, scale, bias, w1, b1, w2, b2, fast_gelu: bool = False):
     and biases, weights cast to bf16) or raise; where the JAX ladder has no
     tier, the plain versions on any device. Every D the ladder sends a tier
     runs its kernels: past D 1344 (``fwdonly`` at ratio 1 and D 1408-1792,
-    ``fchunked`` up to D 4096) their LN-prologue products take the streamed
-    kernel. ``fast_gelu`` takes the sigmoid GELU in every one of them.
+    ``fchunked`` up to D 4096) they run on the same wgmma ring. ``fast_gelu``
+    takes the sigmoid GELU in every one of them.
     """
     return _MLPBlock.apply(x, scale, bias, w1, b1, w2, b2, fast_gelu)

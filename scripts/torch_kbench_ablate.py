@@ -100,20 +100,20 @@ def chain_split(reps: int) -> dict:
     dob = dout.reshape(B * N, D)
     with torch.no_grad():
         qkv, _, y = gemm.ln_gemm_wg(x2, s, bb, wqkv_b, bqkv_f, gemm.EPI_BIAS, with_y=True)
-        datt = gemm.gemm_nn_wg(dob, wproj_b, gemm.NN_BF16).view(B, N, D)
+        datt = gemm.expert_nn_wg(dob, wproj_b, gemm.NN_BF16).view(B, N, D)
         att, dqkv = A._core_bwd_att(qkv.view(B, N, 3 * D), datt, H)
         dqkv = dqkv.view(B * N, 3 * D)
-        dy = gemm.gemm_nn_wg(dqkv, wqkv_b, gemm.NN_F32)
+        dy = gemm.expert_nn_wg(dqkv, wqkv_b, gemm.NN_F32)
         launches = {
             "qkv recompute": lambda: gemm.ln_gemm_wg(x2, s, bb, wqkv_b, bqkv_f, gemm.EPI_BIAS,
                                                      with_y=True),
-            "datt": lambda: gemm.gemm_nn_wg(dob, wproj_b, gemm.NN_BF16),
+            "datt": lambda: gemm.expert_nn_wg(dob, wproj_b, gemm.NN_BF16),
             "core": lambda: A._core_bwd_att(qkv.view(B, N, 3 * D), datt, H),
             "core (one-block)": lambda: A._core_bwd_att(qkv.view(B, N, 3 * D), datt, H,
                                                         "one-block"),
-            "dWproj": lambda: gemm.gemm_tn_wg(dob, att.view(B * N, D), with_colsum=True),
-            "dWqkv": lambda: gemm.gemm_tn_wg(dqkv, y, with_colsum=True),
-            "dy": lambda: gemm.gemm_nn_wg(dqkv, wqkv_b, gemm.NN_F32),
+            "dWproj": lambda: gemm.expert_tn_wg(dob, att.view(B * N, D), with_colsum=True),
+            "dWqkv": lambda: gemm.expert_tn_wg(dqkv, y, with_colsum=True),
+            "dy": lambda: gemm.expert_nn_wg(dqkv, wqkv_b, gemm.NN_F32),
             "ln_bwd": lambda: gemm.ln_bwd(x2, dy, dob, s),
             "chain (K2b)": lambda: A.attention_block_bwd(x, *p, H, dout),
             "chain (one-block core)": lambda: A._k2b(x, *p, H, dout, design="one-block"),

@@ -74,13 +74,13 @@ def products(a):
             lambda: x @ w1.t()),
         "residual": (lambda: G.gemm_residual_wg(g, w2, b2, x),
                      lambda: G.gemm_residual(g, w2, b2, x), lambda: g @ w2.t()),
-        "dh": (lambda: G.gemm_nn_wg(do, w2, G.NN_DGELU, dfac=dfac),
+        "dh": (lambda: G.expert_nn_wg(do, w2, G.NN_DGELU, dfac=dfac),
                lambda: G.gemm_nn(do, w2, G.NN_DGELU, dfac=dfac), lambda: do @ w2),
-        "dy": (lambda: G.gemm_nn_wg(g, w1, G.NN_F32), lambda: G.gemm_nn(g, w1, G.NN_F32),
+        "dy": (lambda: G.expert_nn_wg(g, w1, G.NN_F32), lambda: G.gemm_nn(g, w1, G.NN_F32),
                lambda: g @ w1),
-        "dW2 + db2": (lambda: G.gemm_tn_wg(do, g, with_colsum=True),
+        "dW2 + db2": (lambda: G.expert_tn_wg(do, g, with_colsum=True),
                       lambda: G.gemm_tn(do, g, with_colsum=True), lambda: do.t() @ g),
-        "dW1": (lambda: G.gemm_tn_wg(g, x), lambda: G.gemm_tn(g, x), lambda: g.t() @ x),
+        "dW1": (lambda: G.expert_tn_wg(g, x), lambda: G.gemm_tn(g, x), lambda: g.t() @ x),
     }
 
 

@@ -4,7 +4,10 @@ MLP half-block past D 1344 (the streamed LN-prologue GEMM, D 1408-4096), and the
 attention cores past 227 KB of shared memory (Dh up to 3712), bit for bit the resident ones;
 K1f's and K1b's wgmma chains at ragged T and D 64-1536 (y bit for bit the WMMA kernel's),
 K2f's and K2b's at D 64-1344 (the recompute's qkv the forward's bits, no WMMA product on
-any attention path), the DiT tail X4f/X4b at every DiT path's width, X2f bit for bit the
+any attention path), K6f's chunks (D 1024-4096) and K10b's five products on the wgmma ring's
+expert coordinate (each expert's dW1 and dx the product at one expert's bits; K1b and K2b the
+same bits with their products' operands passed as one expert explicitly), the DiT tail
+X4f/X4b at every DiT path's width, X2f bit for bit the
 WMMA-composed K2f -> MLP pair, X1's phase-batched cores bit for bit K2's, X3's ablations
 of K2b's chain, and the registers designs of the forward core and of K8f and K8b, the
 narrow heads (Dh 4, 8, 16) included.
@@ -312,7 +315,10 @@ def test_k2b_recompute_is_k2fs_qkv_on_the_card(cuda_device, B, N, D, H):
 
 
 def _refuse_wmma(*args, **kwargs):
-    raise AssertionError("a WMMA product ran on an attention chain")
+    raise AssertionError("a WMMA product ran on a wgmma chain")
+
+
+WMMA_LAUNCHERS = ("ln_gemm", "gemm_residual", "gemm_nn", "gemm_tn", "gemm_partial")
 
 
 @pytest.mark.cuda
@@ -322,7 +328,7 @@ def test_attention_paths_launch_no_wmma_product_on_the_card(cuda_device, monkeyp
     (DiT-S/4), K4 (DiT-L), and the third rung around K7 (DiT-L at N 256) and
     K8 (N 1024, Dh 64) still pass their card tests: their chains launch only
     the wgmma products (and the cores and ``ln_bwd``), with no fallback."""
-    for name in ("ln_gemm", "gemm_residual", "gemm_nn", "gemm_tn", "gemm_partial"):
+    for name in WMMA_LAUNCHERS:
         monkeypatch.setattr(TA.gemm, name, _refuse_wmma)
     if path == "K2":
         test_k2_kernel_matches_plain_on_the_card(cuda_device, 256, 64, 384, 6)
@@ -956,6 +962,191 @@ def test_k6f_fchunked_mlp_matches_plain_on_the_card(cuda_device, monkeypatch, T,
     _assert_grads_close(got, TM.mlp_block_bwd_reference(*args, dout))
     for g, h in zip(got, again):
         assert torch.equal(g, h)
+
+
+def _k6f_chunk(args, c, k):
+    """Chunk c of k of the MLP weights as ``_k6f`` reads them: the bf16 W1 row
+    chunk and the W2 column chunk, a view of the whole bf16 weight."""
+    x, scale, bias, w1, b1, w2, _ = args
+    fc = w1.shape[0] // k
+    hid = slice(c * fc, (c + 1) * fc)
+    return (x, scale, bias, w1.to(torch.bfloat16)[hid], b1[hid], w2.to(torch.bfloat16)[:, hid])
+
+
+def _k6f_permuted(a, pd, pf):
+    return (a[0][:, pd].contiguous(), a[1][pd], a[2][pd], a[3][pf][:, pd], a[4][pf],
+            a[5][pd][:, pf])
+
+
+def _assert_k6f_stages(p, part, fast):
+    """K6f's chunk held stage by stage to fp64 references, each within a
+    bound derived from its depth (``chip_smoke._k6f_stages``: y, the bf16 LN
+    output; g, the bf16 GELU output; the fp32 partial p), so the LN
+    statistics' order and the tensor cores' accumulation order both fall
+    inside it."""
+    import chip_smoke
+
+    y_used, _, g_used, p_used = chip_smoke._k6f_stages(TM, TM.gemm, part, p, fast)
+    assert y_used <= 1 and g_used <= 1 and p_used <= 1, (y_used, g_used, p_used)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("T,D,F,k,whole", [(131072, 1024, 4096, 2, True),
+                                           (131072, 1152, 4608, 2, True),
+                                           (131072, 1536, 6144, 8, True),
+                                           (16384, 1536, 6144, 8, False),
+                                           (4040, 4096, 4096, 8, False)])
+def test_k6f_wgmma_chunks_match_plain_on_the_card(cuda_device, monkeypatch, T, D, F, k, whole,
+                                                   fast):
+    """K6f on the wgmma ring (``ln_gemm_wg`` + ``gemm_partial_wg``) at the
+    widths the ladder tiers ``fchunked``: DiT-L, DiT-XL, D 1536 at k 8 (the
+    trainer's rows and the sampler's 16,384) and D 4096 at k 8 (a smaller
+    T, ragged against 128): every chunk's fp32 partial (store epilogue)
+    stage by stage (:func:`_assert_k6f_stages`), the k-chunk half-block
+    (store, add, final) against the plain version by the bf16 rule, with no
+    WMMA product. Where ``whole`` the partial is also held to the plain
+    version from x by the partial rule. That rule fails for both designs at
+    D 1536 on the sampler's rows (relF 1.121e-4 against 1.095e-4) and at D
+    3072-4096 (1.6-1.8e-4 against 1.2e-4): the tensor cores' fp32
+    accumulation in the two products errs more than the plain version's
+    reordered IEEE spread models, growing with D (the LN output y stays
+    within half a bf16 unit of the fp32 LN). There each chunk is also held
+    bit for bit to the earlier WMMA design's partial, which the paths ran at
+    those widths before."""
+    assert TT.mlp_tier(T, D, F) == ("fchunked", k)
+    args = _on(cuda_device, _mlp_inputs(T, D, F, seed=80))
+    wmma_ln, wmma_partial = TM.gemm.ln_gemm, TM.gemm.gemm_partial
+    for name in WMMA_LAUNCHERS:
+        monkeypatch.setattr(TM.gemm, name, _refuse_wmma)
+    before = TM.PARTIAL_LAUNCHES.count
+    with torch.inference_mode():
+        for c in range(k):
+            part = _k6f_chunk(args, c, k)
+            p = torch.empty(T, D, device=cuda_device)
+            TM._k6f(*part, TM.gemm.PART_STORE, p, fast_gelu=fast)
+            torch.cuda.synchronize()
+            _assert_k6f_stages(p, part, fast)
+            if whole:
+                _assert_partial_rule(p, lambda *a: TM.mlp_partial_reference(*a, fast_gelu=fast),
+                                     part, _k6f_permuted)
+            else:
+                hidden, _, _ = wmma_ln(*part[:5], TM.gemm.EPI_GELU, fast_gelu=fast)
+                q = torch.empty_like(p)
+                wmma_partial(hidden, part[5], TM.gemm.PART_STORE, q)
+                torch.cuda.synchronize()
+                assert torch.equal(p, q), c
+                del hidden, q
+            del p
+        out = TM.fused_mlp_block(*args, fast_gelu=fast)
+        torch.cuda.synchronize()
+        _assert_bf16_rule(out, TM.mlp_block_fchunked_reference(*args, k, fast_gelu=fast))
+    assert TM.PARTIAL_LAUNCHES.count == before + 2 * k
+
+
+def _expert_inputs(E, S, D, F, seed):
+    r = np.random.default_rng(seed)
+    x = r.standard_normal((E, S, D)).astype(np.float32)
+    x[:, S - S // 5:] = 0.0  # the dispatch leaves the tail of the slot rows empty
+    return [_t(x).to(torch.bfloat16)] + [_t(a) for a in (
+        (D ** -0.5 * r.standard_normal((E, D, F))).astype(np.float32),
+        (0.1 * r.standard_normal((E, F))).astype(np.float32),
+        (F ** -0.5 * r.standard_normal((E, F, D))).astype(np.float32),
+        (0.1 * r.standard_normal((E, D))).astype(np.float32))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("E,S,D,F", [(8, 20480, 384, 1536), (2, 192, 384, 1536),
+                                     (8, 1344, 768, 3072), (16, 64, 128, 512)])
+def test_k10b_wgmma_chain_matches_plain_on_the_card(cuda_device, monkeypatch, E, S, D, F, fast):
+    """K10b's five products on the expert coordinate (the MoE shape, and S
+    ragged against the 128-row tile: 192, 1344, 64), erf and sigmoid GELU,
+    against the plain backward by the gradient rules; a second call is
+    bit-identical; no transposed weight copy, no WMMA product."""
+    args = [a.to(cuda_device) for a in _expert_inputs(E, S, D, F, seed=81)]
+    for name in WMMA_LAUNCHERS:
+        monkeypatch.setattr(TX.gemm, name, _refuse_wmma)
+    dout = torch.randn(E, S, D, generator=torch.Generator(device=cuda_device).manual_seed(82),
+                       device=cuda_device).to(torch.bfloat16)
+    before = TX.BWD_LAUNCHES.count
+    with torch.no_grad():
+        got = TX.expert_ffn_bwd(*args, dout, fast_gelu=fast)
+        again = TX.expert_ffn_bwd(*args, dout, fast_gelu=fast)
+        torch.cuda.synchronize()
+    assert TX.BWD_LAUNCHES.count == before + 2
+    _assert_grads_close(got, TX.expert_ffn_bwd_reference(*args, dout, fast_gelu=fast))
+    for g, h in zip(got, again):
+        assert torch.equal(g, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,S,D,F", [(8, 1344, 384, 1536), (3, 192, 256, 1024)])
+def test_expert_coordinate_gives_each_experts_dense_bits_on_the_card(cuda_device, monkeypatch,
+                                                                      E, S, D, F):
+    """Expert e's dW1 and dx from the batched products equal, bit for bit,
+    the wgmma products on that expert's slice alone: dW1 from its 2-D
+    operands with the batched split plan, dx through the product at E 1; and
+    the batched products are those ``_k10b`` returns."""
+    G = TX.gemm
+    x, w1, b1, w2, b2 = [a.to(cuda_device) for a in _expert_inputs(E, S, D, F, seed=83)]
+    dout = torch.randn(E, S, D, generator=torch.Generator(device=cuda_device).manual_seed(84),
+                       device=cuda_device).to(torch.bfloat16)
+    w1b, w2b = w1.to(torch.bfloat16), w2.to(torch.bfloat16).contiguous()
+    with torch.no_grad():
+        _, dfac = G.expert_nn_wg(x, w1b, G.NN_BIAS_GELU_GRAD, bias=b1)
+        dhb, _ = G.expert_nn_wg(dout, w2b, G.NN_DGELU, dfac=dfac, transposed=True)
+        dw1, _ = G.expert_tn_wg(x, dhb)
+        dx = G.expert_nn_wg(dhb, w1b, G.NN_BF16, transposed=True)
+        chain = TX._k10b(x, w1, b1, w2, b2, dout)
+        plan = G.wg_split_plan(S, D, F, G.sm_count(0), batch=E)
+        monkeypatch.setattr(G, "wg_split_plan", lambda *a, **kw: plan)
+        for e in range(E):
+            dense_dw1, _ = G.expert_tn_wg(x[e], dhb[e])
+            dense_dx = G.expert_nn_wg(dhb[e:e + 1], w1b[e:e + 1], G.NN_BF16, transposed=True)
+            torch.cuda.synchronize()
+            assert torch.equal(dense_dw1, dw1[e]) and torch.equal(dense_dx[0], dx[e]), e
+    assert torch.equal(chain[0], dx) and torch.equal(chain[1], dw1)
+
+
+def _at_one_expert(fn):
+    """``fn`` (``expert_nn_wg`` or ``expert_tn_wg``) with a dense product's
+    2-D operands passed as one expert, (1, T, *), explicitly."""
+    def run(a, b, *args, **kwargs):
+        if a.dim() == 3:
+            return fn(a, b, *args, **kwargs)
+        if kwargs.get("dfac") is not None:
+            kwargs["dfac"] = kwargs["dfac"][None]
+        got = fn(a[None], b[None], *args, **kwargs)
+        if isinstance(got, tuple):
+            return tuple(None if t is None else t[0] for t in got)
+        return got[0]
+    return run
+
+
+@pytest.mark.cuda
+def test_dense_chains_keep_their_bits_at_one_expert_on_the_card(cuda_device, monkeypatch):
+    """K1b and K2b (DiT-S/4's training rows, ragged T too) are bit-identical
+    between two calls, and equal to the same chains with their NN and TN
+    products' 2-D operands passed to the expert launchers as (1, T, *)."""
+    mlp = _on(cuda_device, _mlp_inputs(16384 + 37, 384, 1536, seed=85))
+    attn = _on(cuda_device, _attn_inputs(256, 64, 384, seed=86))
+    gen = torch.Generator(device=cuda_device).manual_seed(87)
+    dm = torch.randn(mlp[0].shape, generator=gen, device=cuda_device).to(torch.bfloat16)
+    da = torch.randn(attn[0].shape, generator=gen, device=cuda_device).to(torch.bfloat16)
+
+    def run():
+        with torch.no_grad():
+            return TM.mlp_block_bwd(*mlp, dm), TA.attention_block_bwd(*attn, 6, da)
+
+    first, second = run(), run()
+    for name in ("expert_nn_wg", "expert_tn_wg"):
+        monkeypatch.setattr(TM.gemm, name, _at_one_expert(getattr(TM.gemm, name)))
+    explicit = run()
+    torch.cuda.synchronize()
+    for a, b, c in zip(first, second, explicit):
+        for g, h, i in zip(a, b, c):
+            assert torch.equal(g, h) and torch.equal(g, i)
 
 
 @pytest.mark.cuda

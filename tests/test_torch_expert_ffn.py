@@ -1,7 +1,9 @@
 """Parity of the port's expert FFN (K10's plain versions) with the JAX
 package's ``expert_ffn`` Pallas kernel, run in interpret mode: the forward
 and all five gradients on the same numpy inputs, empty (all-zero) slot rows
-included, as the dispatch leaves them."""
+included, as the dispatch leaves them; the gradients also at a slot count
+the JAX gate admits that is not a multiple of 128 (S 192, its 64-row block),
+where the card's 128-row tiles clip at each expert's last slot row."""
 
 import jax
 import jax.numpy as jnp
@@ -22,7 +24,7 @@ def _bf16_ulp(want) -> float:
     return 2.0 ** (np.floor(np.log2(max(top, 1e-30))) - 7)
 
 
-def _inputs(seed=0):
+def _inputs(seed=0, E=E, S=S, D=D, F=F):
     r = np.random.default_rng(seed)
     x = r.standard_normal((E, S, D)).astype(np.float32)
     x[:, S - 24:] = 0.0  # empty slot rows (unfilled capacity)
@@ -96,4 +98,24 @@ def test_expert_ffn_gradients_match_jax(jax_reference, through, dtype):
     else:
         got = TX.expert_ffn_bwd(*args, dout)
     for name, g, w in zip(["dx", "dw1", "db1", "dw2", "db2"], got, ref[dtype][1]):
+        _close(g.float().numpy(), w, dtype, name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 192, 128, 256)])
+def test_expert_ffn_gradients_match_jax_at_ragged_slot_rows(shape, dtype):
+    """The five gradients of :func:`expert_ffn_bwd_reference` against JAX's
+    ``_expert_ffn_bwd`` (interpret mode) at a slot count the JAX gate admits
+    that is not a multiple of 128, by the file's tolerances."""
+    a = _inputs(1, *shape)
+    dt = getattr(jnp, dtype)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("DDM_TPU_PALLAS_INTERPRET", "1")
+        assert JX.expert_ffn_ok(*shape) and shape[1] % 128
+        _, vjp = jax.vjp(JX.expert_ffn, jnp.asarray(a["x"], dt),
+                         *(jnp.asarray(a[k]) for k in ("w1", "b1", "w2", "b2")))
+        want = [np.asarray(g.astype(jnp.float32)) for g in vjp(jnp.asarray(a["dout"], dt))]
+    got = TX.expert_ffn_bwd_reference(*_port_args(a, getattr(torch, dtype)),
+                                      torch.from_numpy(a["dout"]).to(getattr(torch, dtype)))
+    for name, g, w in zip(["dx", "dw1", "db1", "dw2", "db2"], got, want):
         _close(g.float().numpy(), w, dtype, name)

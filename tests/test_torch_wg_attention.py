@@ -29,7 +29,8 @@ SM_COUNTS = (H100_SMS, 114, 78)  # H100 SXM, H100 PCIe, and a smaller part
 ROWS = (48, 16384, 131072)  # B 3 x N 16; the sampler's and the trainer's DiT-S/4 rows
 SMEM = 232448  # a block's shared memory on the H100
 WIDTHS = tuple(range(64, G.LN_GEMM_MAX_K + 1, 64))
-WG_LAUNCHES = ("ddm_wg_ln_gemm", "ddm_wg_gemm_residual", "ddm_wg_gemm_nn", "ddm_wg_gemm_tn")
+WG_LAUNCHES = ("ddm_wg_ln_gemm", "ddm_wg_gemm_residual", "ddm_wg_expert_nn",
+               "ddm_wg_expert_tn")
 WMMA_LAUNCHES = ("ddm_ln_gemm", "ddm_ln_gemm_streamed", "ddm_gemm_residual", "ddm_gemm_nn",
                  "ddm_gemm_tn", "ddm_gemm_partial")
 
@@ -151,16 +152,16 @@ def _assert_backward_products(calls, T, D):
     """The backward chain's five products, in order: the qkv recompute (y
     written and returned), datt (bf16), dWproj + dbproj, dWqkv + dbqkv, dy
     (fp32), each with its plan."""
-    assert [n for n, _ in calls] == ["ddm_wg_ln_gemm", "ddm_wg_gemm_nn", "ddm_wg_gemm_tn",
-                                     "ddm_wg_gemm_tn", "ddm_wg_gemm_nn"]
+    assert [n for n, _ in calls] == ["ddm_wg_ln_gemm", "ddm_wg_expert_nn", "ddm_wg_expert_tn",
+                                     "ddm_wg_expert_tn", "ddm_wg_expert_nn"]
     ln, datt, dwproj, dwqkv, dy = (a for _, a in calls)
     assert ln[8:13] == (T, D, 3 * D, G.EPI_BIAS, 0) and ln[7] is not None
-    assert datt[6:10] == (T, D, D, G.NN_BF16) and datt[10:12] == G.wg_tile_plan(
-        T, D, H100_SMS)[:2] and datt[2] is None and datt[4] is None
+    assert datt[8:17] == (1, T, D, D, D, 0, G.NN_BF16, 0, 0) and datt[17:19] == G.wg_tile_plan(
+        T, D, H100_SMS)[:2] and datt[3] is None and datt[6] is None
     for args, Ma in ((dwproj, D), (dwqkv, 3 * D)):
         bn, splits, rows = G.wg_split_plan(T, Ma, D, H100_SMS)
-        assert args[6:] == (T, Ma, D, splits, rows, bn, 0) and args[4] is not None
-    assert dy[6:10] == (T, 3 * D, D, G.NN_F32)
+        assert args[6:] == (1, T, Ma, D, splits, rows, 0, bn, 0) and args[4] is not None
+    assert dy[8:17] == (1, T, 3 * D, D, D, 0, G.NN_F32, 0, 0)
 
 
 # (B, N, D, H): DiT-S/4 sampling and training (D 384, H 6), DiT-B and DiT-L
@@ -197,8 +198,8 @@ def test_k2_chains_reach_every_wgmma_launch(fake_lib, B, N, D, H):
     grads = bwd()
     assert [tuple(g.shape) for g in grads] == [(B, N, D), (D,), (D,), (3 * D, D), (3 * D,),
                                                (D, D), (D,)]
-    assert fake_lib.names(start) == ["ddm_wg_ln_gemm", "ddm_wg_gemm_nn", "ddm_attention_core_bwd",
-                                     "ddm_wg_gemm_tn", "ddm_wg_gemm_tn", "ddm_wg_gemm_nn",
+    assert fake_lib.names(start) == ["ddm_wg_ln_gemm", "ddm_wg_expert_nn", "ddm_attention_core_bwd",
+                                     "ddm_wg_expert_tn", "ddm_wg_expert_tn", "ddm_wg_expert_nn",
                                      "ddm_ln_bwd"]
     _assert_backward_products(fake_lib.products(start), T, D)
     split = tier == "split"
@@ -231,16 +232,16 @@ def test_rung3_chains_reach_every_wgmma_launch(fake_lib, B, N, D, H, core):
     out.backward(torch.empty_like(out))
     assert x.grad.shape == (B, N, D) and w[2].grad.shape == (3 * D, D)
     core_bwd = {"K7": ["ddm_attention_core_bwd"], "K8": ["ddm_flash_bwd"], None: []}
-    assert fake_lib.names(start) == ["ddm_wg_ln_gemm", "ddm_wg_gemm_nn", *core_bwd[core],
-                                     "ddm_wg_gemm_tn", "ddm_wg_gemm_tn", "ddm_wg_gemm_nn",
+    assert fake_lib.names(start) == ["ddm_wg_ln_gemm", "ddm_wg_expert_nn", *core_bwd[core],
+                                     "ddm_wg_expert_tn", "ddm_wg_expert_tn", "ddm_wg_expert_nn",
                                      "ddm_ln_bwd"]
     _assert_backward_products(fake_lib.products(start), T, D)
 
 
 def test_launchers_take_the_attention_codes_and_refuse_the_rest(fake_lib):
     """``ln_gemm_wg`` takes ``EPI_BIAS`` (without ``fast_gelu``) and
-    ``gemm_nn_wg`` takes ``NN_BF16``, allocating bf16 outputs; every other
-    code raises before a launch."""
+    ``expert_nn_wg`` takes ``NN_BF16`` on a dense (2-D) product, allocating
+    bf16 outputs; every other code raises before a launch."""
     T, D = 48, 320
     x = torch.empty((T, D), dtype=torch.bfloat16, device="meta")
     w = torch.empty((3 * D, D), dtype=torch.bfloat16, device="meta")
@@ -249,7 +250,7 @@ def test_launchers_take_the_attention_codes_and_refuse_the_rest(fake_lib):
                                 with_y=True)
     assert out.dtype == torch.bfloat16 and out.shape == (T, 3 * D) and grad is None
     assert y.shape == (T, D)
-    datt = G.gemm_nn_wg(x, torch.empty((D, D), dtype=torch.bfloat16, device="meta"), G.NN_BF16)
+    datt = G.expert_nn_wg(x, torch.empty((D, D), dtype=torch.bfloat16, device="meta"), G.NN_BF16)
     assert datt.dtype == torch.bfloat16 and datt.shape == (T, D)
     calls = len(fake_lib.calls)
     with pytest.raises(ValueError):
@@ -259,5 +260,5 @@ def test_launchers_take_the_attention_codes_and_refuse_the_rest(fake_lib):
             G.ln_gemm_wg(x, s, s, w, s, epi)
     for epi in (G.NN_BIAS, G.NN_BIAS_GELU, G.NN_ADD, G.NN_FINAL_BIAS):
         with pytest.raises(ValueError):
-            G.gemm_nn_wg(x, w, epi)
+            G.expert_nn_wg(x, w, epi)
     assert len(fake_lib.calls) == calls

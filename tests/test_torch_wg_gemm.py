@@ -204,18 +204,18 @@ def test_wg_launchers_pass_the_plans(fake_lib):
     name, args = fake_lib.calls[-1]
     bn, tiles, _ = G.wg_tile_plan(T, F, H100_SMS, most=8)
     assert name == "ddm_wg_ln_gemm" and args[8:15] == (T, D, F, G.EPI_GELU_GRAD, 0, bn, tiles)
-    dh, db1 = G.gemm_nn_wg(out, w, G.NN_DGELU, dfac=grad)
+    dh, db1 = G.expert_nn_wg(out, w, G.NN_DGELU, dfac=grad)
     assert dh.shape == (T, D) and dh.dtype == torch.bfloat16 and db1.shape == (D,)
     name, args = fake_lib.calls[-1]
-    assert name == "ddm_wg_gemm_nn" and args[6:] == (T, F, D, G.NN_DGELU,
-                                                     *G.wg_tile_plan(T, D, H100_SMS)[:2], 0)
-    dw, cs = G.gemm_tn_wg(x, out, with_colsum=True)
+    assert name == "ddm_wg_expert_nn" and args[8:] == (
+        1, T, F, D, D, 0, G.NN_DGELU, 0, 0, *G.wg_tile_plan(T, D, H100_SMS)[:2], 0)
+    dw, cs = G.expert_tn_wg(x, out, with_colsum=True)
     assert dw.shape == (D, F) and dw.dtype == torch.float32 and cs.shape == (D,)
     name, args = fake_lib.calls[-1]
     bn, splits, rows = G.wg_split_plan(T, D, F, H100_SMS)
-    assert name == "ddm_wg_gemm_tn" and args[6:] == (T, D, F, splits, rows, bn, 0)
+    assert name == "ddm_wg_expert_tn" and args[6:] == (1, T, D, F, splits, rows, 0, bn, 0)
     with pytest.raises(ValueError):  # NN_BF16 is the attention chains' datt since they moved
-        G.gemm_nn_wg(out, w, G.NN_BIAS)
+        G.expert_nn_wg(out, w, G.NN_BIAS)
 
 
 @pytest.mark.parametrize("T,D,F", [(131072, 384, 1536), (16384, 768, 3072), (4096, 1408, 1408),
@@ -232,12 +232,13 @@ def test_k1_chains_reach_every_wgmma_launch(fake_lib, T, D, F):
     assert (TM.LAUNCHES.count - before[0], TM.BWD_LAUNCHES.count - before[1]) == (1, 1)
     names = [n for n, _ in fake_lib.calls]
     assert names == ["ddm_wg_ln_gemm", "ddm_wg_gemm_residual", "ddm_wg_ln_gemm",
-                     "ddm_wg_gemm_tn", "ddm_wg_gemm_nn", "ddm_wg_gemm_tn", "ddm_wg_gemm_nn",
+                     "ddm_wg_expert_tn", "ddm_wg_expert_nn", "ddm_wg_expert_tn", "ddm_wg_expert_nn",
                      "ddm_ln_bwd"]
     ln_f, res, ln_b, tn2, nn_dh, tn1, nn_dy = (a for _, a in fake_lib.calls[:7])
     assert ln_f[8:13] == (T, D, F, G.EPI_GELU, 0) and ln_b[8:12] == (T, D, F, G.EPI_GELU_GRAD)
     assert ln_b[7] is not None and ln_f[7] is not None  # y: the later tiles read it
     assert res[5:8] == (T, F, D) and res[8:10] == G.wg_tile_plan(T, D, H100_SMS)[:2]
-    assert tn2[6:9] == (T, D, F) and tn2[4] is not None  # dW2 with db2
-    assert tn1[6:9] == (T, F, D) and tn1[4] is None
-    assert nn_dh[6:10] == (T, D, F, G.NN_DGELU) and nn_dy[6:10] == (T, F, D, G.NN_F32)
+    assert tn2[6:10] == (1, T, D, F) and tn2[4] is not None  # dW2 with db2
+    assert tn1[6:10] == (1, T, F, D) and tn1[4] is None
+    assert nn_dh[8:12] == (1, T, D, F) and nn_dh[14] == G.NN_DGELU
+    assert nn_dy[8:12] == (1, T, F, D) and nn_dy[14] == G.NN_F32

@@ -368,16 +368,16 @@ def card_library(monkeypatch):
 
 # K1b's chain: the wgmma recompute, dW2 (+ db2), dh (+ db1), dW1, dy, then
 # the LayerNorm backward
-K1B_CHAIN = ["ddm_wg_ln_gemm", "ddm_wg_gemm_tn", "ddm_wg_gemm_nn", "ddm_wg_gemm_tn",
-             "ddm_wg_gemm_nn", "ddm_ln_bwd"]
+K1B_CHAIN = ["ddm_wg_ln_gemm", "ddm_wg_expert_tn", "ddm_wg_expert_nn", "ddm_wg_expert_tn",
+             "ddm_wg_expert_nn", "ddm_ln_bwd"]
 
 
 def _forward_chain(tier):
     """The launches of the card's forward in ``tier``: K1f's two wgmma
-    products, or k K6f chunks of the WMMA LN-prologue GEMM and the partial
-    product."""
+    products, or k K6f chunks of the wgmma LN-prologue product and the
+    partial product."""
     if tier[0] == "fchunked":
-        return ["ddm_ln_gemm", "ddm_gemm_partial"] * tier[1]
+        return ["ddm_wg_ln_gemm", "ddm_wg_gemm_partial"] * tier[1]
     return ["ddm_wg_ln_gemm", "ddm_wg_gemm_residual"]
 
 
@@ -387,7 +387,7 @@ def _ln_products(T, D, F, tier):
     the hidden columns with the GELU epilogue, K1f all F, and K1b's
     recompute all F with the GELU-gradient epilogue."""
     if tier[0] == "fchunked":
-        fwd = [("ddm_ln_gemm", T, D, F // tier[1], TM.gemm.EPI_GELU)] * tier[1]
+        fwd = [("ddm_wg_ln_gemm", T, D, F // tier[1], TM.gemm.EPI_GELU)] * tier[1]
     else:
         fwd = [("ddm_wg_ln_gemm", T, D, F, TM.gemm.EPI_GELU)]
     return fwd + [("ddm_wg_ln_gemm", T, D, F, TM.gemm.EPI_GELU_GRAD)]
