@@ -42,12 +42,14 @@ Run from the repository root with no arguments:
 
 Phases, each printing its own line(s); any failure raises, so the exit code
 is non-zero and no result line is printed. Every phase runs with the WMMA
-launchers of ``ops/gemm.py`` made to raise inside K6f and K10b
-(``wmma_refused_in_k6f_k10b``), so every path that steps in this process
-proves their chains reach only the wgmma products (the rank processes of
-7j, which ``parallel.check.launch`` and ``torch.distributed.run`` start,
-are not patched: they run the same ``_k6f``, the TP partial, which 3k and
-6j run in this process under the refusal):
+launchers of ``ops/gemm.py`` made to raise inside K6f, K6b, K10b and K10p
+(``wmma_refused_in_wgmma_chains``), so every path that steps in this
+process proves their chains reach only the wgmma products; so do 7j's
+trainer ranks, which ``torch.distributed.run`` starts on this script
+(``chip_smoke.py tp-rank <trainer flags>``: the refusal, then the trainer's
+``main``). The ranks of 7j's two-rank step check (``parallel.check.launch``)
+run unpatched the same ``_k6f`` and ``_k6b``, which 3k and 6j run in this
+process under the refusal:
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles ``ddm_tpu_torch/csrc/*.cu`` with nvcc from the checkout
@@ -59,10 +61,10 @@ are not patched: they run the same ``_k6f``, the TP partial, which 3k and
    384, H=6); at each shape in turns with the earlier WMMA chain and the
    cuBLAS chain (its products through torch.matmul with plain epilogues,
    around the same attention core: a yardstick the port never calls); the
-   registers and local bytes of the 54 wgmma instances (K1's, K2's, K6f's
-   and K10b's) from the ptxas log, the attention chains' six and K6f's and
-   K10b's 24 printed apart (none may use local memory); the host cost of a
-   TMA descriptor;
+   registers and local bytes of the 66 wgmma instances (K1's, K2's, K6f's,
+   K10b's and K10p's; K6b runs K1b's) from the ptxas log, the attention
+   chains' six, K6f's and K10b's 24 and K10p's 12 printed apart (none may use
+   local memory); the host cost of a TMA descriptor;
    3b. backward kernels: K1b at (131072, 384, F=1536) and K2b at
    (2048, 64, 384, H=6), the training shapes, against their plain backward
    versions, and a second call that must be bit-identical; each in turns
@@ -140,8 +142,11 @@ The wide tiers, after every phase above:
     same inputs; the chunk (at every shape K6f is timed at, here and in 3k,
     3l, 3m and 3p) also in turns with the earlier WMMA chain and the cuBLAS
     chain, with whether the two designs' partials agree bit for bit; K10p at
-    (8, 20480, 768, F 3072): one chunk (fp32, the same
-    rule) and the k = 2 forward (bf16 rule); then (wide-shapes) the earlier
+    (8, 20480, 768, F 3072): one chunk (fp32, the same rule, and stage by
+    stage against fp64 within bounds from each product's depth; at every
+    shape K10p is timed at, here and in 3m and 3n, in turns with the earlier
+    WMMA chain and the cuBLAS chain) and the k = 2 forward (bf16 rule); then
+    (wide-shapes) the earlier
     slices' kernels at the shapes the wide paths give them, each against its
     plain version by its own rule above and timed: K2f at DiT-L sampling and
     training (64 and 2048 images of (64, 1024), H 16), K1b at (131,072 x
@@ -224,8 +229,10 @@ Dense tensor parallelism (``--tp``, Megatron layout), after those:
 
 3k. (tp-kernels) K6f's tensor-parallel entry (``fused_mlp_partial``, one
     partial in fp32) and K6b (its backward) at the DiT-S ``--tp 2`` shard
-    (131,072 x 384, F 768), K6b at the DiT-B shard (131,072 x 768, F 1536),
-    and K7f/K7b through ``fused_attention`` on three separate q, k, v at
+    (131,072 x 384, F 768), K6b at the DiT-B and DiT-XL shards (131,072 x
+    768, F 1536; 131,072 x 1152, F 2304), each K6b in turns with the earlier
+    WMMA chain and the cuBLAS chain, and K7f/K7b through
+    ``fused_attention`` on three separate q, k, v at
     (2048, 64, 384) H 6 (the full DiT-S instance's training shape), each
     against its plain version (K6f by the fp32 partial rule, K6b by the
     gradient rule and bit-identical on a second call, K7 by the bf16 rule),
@@ -243,7 +250,8 @@ Dense tensor parallelism (``--tp``, Megatron layout), after those:
     8, K3f 1, K3b 1 and no K7 (DiT-S: the local attention width 192 takes
     the plain core, as JAX's gate does) and K7f, K7b, K6f, K6b 12 each, K3f,
     K3b 1 (DiT-B); (b) ``python -m torch.distributed.run --nproc-per-node 2
-    train_cifar10_dit_torch.py --synthetic --tp 2`` at DiT-S depth 8 for one
+    chip_smoke.py tp-rank --synthetic --tp 2`` (each rank the trainer's main
+    with the WMMA launchers refused in K6f and K6b) at DiT-S depth 8 for one
     epoch of 8 steps at batch 256 x m 2 (m cut from 8: every step moves four
     (T, 384) tensors a block through the host), its step time, launches per
     rank and step, and its rank-0 sampler through the full instance; (c)
@@ -289,7 +297,9 @@ after those:
 3n. (moe-xl-kernels) K11f/K11b and K12f/K12b at the XL training shape (T
     131,072 rows of D 1152, E 8, groups of 256; top-1 cap 40, S 20,480 slot
     rows an expert; top-2 cap 80, S 40,960), K10b on the top-1 slot rows and
-    one K10p partial on a chunk of 1152 of F 4608; K11/K12 at T 32,768 with
+    one K10p partial on a chunk of 1152 of F 4608, and one on a chunk of 384
+    at the widest chunked width (8, 4160, 3072, F 3072; k 8, ragged slot
+    rows; by stages alone); K11/K12 at T 32,768 with
     E 16 (top-2), D 2048 and D 4096 (E 8) and E 64 at D 384; each by its rule
     above (routing, rows, partials), every backward's second call
     bit-identical;
@@ -608,6 +618,9 @@ SD3_STEP_BATCH, SD3_STEPS, SD3_K = 16, 2, 8
 FWDONLY_WIDE, LN_BWD_WIDE = (16384, 1792, 1792), (32768, 4096)
 # 3p: K6f past D 2048, (T, D, F, k): MLP ratio 4 at D 2560 on a 64-px path's rows
 FCHUNKED_WIDE = (65536, 2560, 10240, 8)
+# 3n: K10p at the widest width the expert ladder chunks, (E, S, D, F, k): D 3072
+# at ratio 1 and k 8, on slot rows ragged against the 128-row tile
+K10P_WIDEST = (8, 4160, 3072, 3072, 8)
 # DiT-S/4 with 128 routed experts (3q, 6q, 7p): its 6q step at batch 16 x m
 # 8, its trainers E128_STEPS steps of 256 x m 8; and a depth-1 DiT-MoE at
 # Mixtral-8x22B's widths (hidden 6144, 48 heads of 128, FFN 16384 = int(6144
@@ -840,7 +853,7 @@ def _wg_instances(kc):
         if local:
             rec["local_bytes"] = max(rec["local_bytes"], sum(int(g) for g in local.groups()))
     insts = sorted(found.values(), key=lambda r: r["instance"])
-    print("[kernel] K1, K2, K6f and K10b wgmma instances (ptxas): " + "; ".join(
+    print("[kernel] K1, K2, K6f, K6b, K10b and K10p wgmma instances (ptxas): " + "; ".join(
         f"{r['instance']}: {r['registers']} registers, {r['local_bytes']} B local" for r in insts))
     new = [r for r in insts if r["instance"].endswith(WG_ATTENTION_EPILOGUES)]
     print("[kernel] the attention chains' own wgmma epilogues (qkv's bias alone, datt's bf16 "
@@ -852,18 +865,25 @@ def _wg_instances(kc):
           "weight; the TN product's column sums of b): " + "; ".join(
               f"{r['instance']}: {r['registers']} registers, {r['local_bytes']} B local"
               for r in wide))
-    if len(insts) != 54 or len(new) != 6 or len(wide) != 24 or any(
+    k10p = [r for r in insts if r["instance"].endswith(WG_K10P_EPILOGUES)]
+    print("[kernel] K10p's own wgmma instances (the first product's bias + GELU, erf and "
+          "sigmoid; the second's fp32 add and final sum with the expert's bias): " + "; ".join(
+              f"{r['instance']}: {r['registers']} registers, {r['local_bytes']} B local"
+              for r in k10p))
+    if len(insts) != 66 or len(new) != 6 or len(wide) != 24 or len(k10p) != 12 or any(
             r["local_bytes"] or not r["registers"] for r in insts):
         raise AssertionError("a wgmma instance is missing from the ptxas log or uses local memory")
     return insts
 
 
-# the instances K2's chains added to K1's 24 (csrc/gemm_wg.cu kEpiBias, kEpiBf16), and the
-# 24 K6f's and K10b's chains added (kPartial's three; kNN kEpiAct, kEpiActFast; kNT kEpiDh,
-# kEpiBf16; kTN kEpiColB; each at BN 128, 192 and 256)
+# the instances K2's chains added to K1's 24 (csrc/gemm_wg.cu kEpiBias, kEpiBf16), the 24
+# K6f's and K10b's chains added (kPartial's three; kNN kEpiAct, kEpiActFast; kNT kEpiDh,
+# kEpiBf16; kTN kEpiColB), and the 12 K10p's chain added (kNN kEpiActOnly, kEpiActOnlyFast,
+# kEpiAdd, kEpiFinal), each at BN 128, 192 and 256
 WG_ATTENTION_EPILOGUES = ("ln_gemm epi 4", "nn epi 2")
 WG_WIDE_EPILOGUES = ("partial epi 0", "partial epi 1", "partial epi 2", "nn epi 4", "nn epi 5",
                      "nt epi 1", "nt epi 2", "tn epi 1")
+WG_K10P_EPILOGUES = ("nn epi 6", "nn epi 7", "nn epi 8", "nn epi 9")
 
 
 def _turns(fns: dict, reps: int = 20) -> dict:
@@ -2107,17 +2127,19 @@ def _patched(module, **fns):
             setattr(module, k, v)
 
 
-# the WMMA launchers of ops/gemm.py: K6b, K10f, K10p and the yardsticks still call them
+# the WMMA launchers of ops/gemm.py: K10f and the yardsticks still call them
 WMMA_LAUNCHERS = ("ln_gemm", "gemm_residual", "gemm_partial", "gemm_nn", "gemm_tn")
 
 
 @contextlib.contextmanager
-def wmma_refused_in_k6f_k10b(M, X):
-    """While K6f (``mlp_block._k6f``) or K10b (``expert_ffn._k10b``) runs,
-    every WMMA launcher of ``ops/gemm.py`` raises: a path that steps under
-    this proves that their chains reach only the wgmma products (and no
-    fallback). Outside them the launchers run as they are. The patch holds
-    in this process only: rank processes that a phase starts run unpatched."""
+def wmma_refused_in_wgmma_chains(M, X):
+    """While K6f or K6b (``mlp_block._k6f``, ``_k6b``) or K10b or K10p
+    (``expert_ffn._k10b``, ``_k10p``) runs, every WMMA launcher of
+    ``ops/gemm.py`` raises: a path that steps under this proves that their
+    chains reach only the wgmma products (and no fallback). Outside them the
+    launchers run as they are. The patch holds in the process that enters
+    it: 7j's trainer ranks enter it through :func:`tp_rank`, the two-rank
+    step check's ranks (``parallel.check.launch``) run unpatched."""
     from ddm_tpu_torch.ops import gemm as G
 
     inside = []
@@ -2138,9 +2160,27 @@ def wmma_refused_in_k6f_k10b(M, X):
             return fn(*args, **kwargs)
         return run
 
-    with _patched(M, _k6f=guarded(M._k6f)), _patched(X, _k10b=guarded(X._k10b)), \
+    with _patched(M, _k6f=guarded(M._k6f), _k6b=guarded(M._k6b)), \
+            _patched(X, _k10b=guarded(X._k10b), _k10p=guarded(X._k10p)), \
             _patched(G, **{n: refused(n, getattr(G, n)) for n in WMMA_LAUNCHERS}):
         yield
+
+
+TP_RANK = "tp-rank"  # chip_smoke.py's argument that makes it a 7j trainer rank
+
+
+def tp_rank(argv) -> None:
+    """A 7j trainer rank (``torch.distributed.run ... chip_smoke.py tp-rank
+    <trainer flags>``): ``train_cifar10_dit_torch.main`` in this rank's
+    process under :func:`wmma_refused_in_wgmma_chains`, so the ranks' K6f
+    and K6b prove their chains reach no WMMA product, as the smoke's own
+    process does."""
+    import train_cifar10_dit_torch
+    from ddm_tpu_torch.ops import expert_ffn as X
+    from ddm_tpu_torch.ops import mlp_block as M
+
+    with wmma_refused_in_wgmma_chains(M, X):
+        train_cifar10_dit_torch.main(argv)
 
 
 @contextlib.contextmanager
@@ -2520,41 +2560,52 @@ def _bf16_ulp(v: torch.Tensor) -> torch.Tensor:
     return torch.exp2(torch.floor(torch.log2(v.abs().clamp_min(2.0 ** -126))) - 7)
 
 
+def _gelu_partial_stages(gelu, a, w1, b1, g, w2, got, fast):
+    """The two product stages of an F-chunked partial against fp64, each
+    within a bound from its depth (u = 2^-24; an fp32 sum of K terms in any
+    order, each addition rounded or truncated, errs by at most 2 K u times
+    the sum of the terms' magnitudes): g, the first product's bf16 GELU
+    output, within one bf16 unit at max(|g|, |g64|) plus 1.2 (GELU's largest
+    slope) times 2 K u (|a| |w1|) + 8 u (|h| + |b1|) of g64 = gelu(a w1 + b1);
+    the fp32 partial ``got`` within 2 Fc u (|g| |w2|) + u |s| of s = g w2.
+    ``a``, ``w1``, ``b1`` and ``w2`` are fp64, oriented for ``torch.matmul``
+    (batched over experts or not); ``g`` is the kernel's. ``(share of g's
+    bound taken, share of the partial's)``."""
+    u, f64 = 2.0 ** -24, torch.float64
+    g = g.to(f64)
+    h = torch.matmul(a, w1) + b1
+    err = 2 * a.shape[-1] * u * torch.matmul(a.abs(), w1.abs()) + 8 * u * (h.abs() + b1.abs())
+    g64 = gelu(h, fast)
+    del h
+    g_used = float(((g - g64).abs() / (_bf16_ulp(torch.maximum(g.abs(), g64.abs()))
+                                        + 1.2 * err)).max())
+    del err, g64
+    s = torch.matmul(g, w2)
+    p_used = float(((got.to(f64) - s).abs() / (2 * g.shape[-1] * u * torch.matmul(g.abs(), w2.abs())
+                                                + u * s.abs())).max())
+    return g_used, p_used
+
+
 def _k6f_stages(M, G, part, got, fast):
     """K6f's chunk held stage by stage to fp64 references, each within a
-    bound derived from its depth K (u = 2^-24; an fp32 sum of K terms in any
-    order, each addition rounded or truncated, errs by at most 2 K u times
-    the sum of the terms' magnitudes), so neither the LN statistics' order
-    nor the tensor cores' accumulation order can fail it: y, the bf16 LN
-    output that the chunk's first product normalises (``ln_gemm_wg`` returns
-    it), within one bf16 unit at max(|y|, |v|) plus 2^-16 of the fp64 LN v;
-    g, that product's bf16 GELU output, within one bf16 unit at max(|g|,
-    |g64|) plus 1.2 (GELU's largest slope) times 2 D u (|y| |w1|^T) + 8 u
-    (|h| + |b1|) of g64 = gelu(y w1^T + b1) in fp64; the fp32 partial within
-    2 Fc u (|g| |w2|^T) + u |s| of s = g w2^T in fp64. ``(share of y's bound
-    taken, share of y's entries rounded otherwise than bf16(v), share of g's
-    bound, share of the partial's)``."""
-    u, f64 = 2.0 ** -24, torch.float64
+    bound derived from its depth, so neither the LN statistics' order nor the
+    tensor cores' accumulation order can fail it: y, the bf16 LN output that
+    the chunk's first product normalises (``ln_gemm_wg`` returns it), within
+    one bf16 unit at max(|y|, |v|) plus 2^-16 of the fp64 LN v; then g (from
+    y) and the fp32 partial by :func:`_gelu_partial_stages`. ``(share of y's
+    bound taken, share of y's entries rounded otherwise than bf16(v), share
+    of g's bound, share of the partial's)``."""
+    f64 = torch.float64
     x, sc, bi, w1c, b1c, w2c = part
     g, _, y = G.ln_gemm_wg(x, sc, bi, w1c, b1c, G.EPI_GELU, with_y=True, fast_gelu=fast)
-    y, g = y.to(f64), g.to(f64)
+    y = y.to(f64)
     v = M.layer_norm(x.to(f64), sc.to(f64), bi.to(f64))
     y_bound = _bf16_ulp(torch.maximum(y.abs(), v.abs())) + 2.0 ** -16
     y_used = float(((y - v).abs() / y_bound).max())
     flips = float((y != v.to(torch.bfloat16).to(f64)).to(f64).mean())
     del v, y_bound
-    w1, b1 = w1c.to(f64), b1c.to(f64)
-    h = y @ w1.T + b1
-    err = 2 * y.shape[1] * u * (y.abs() @ w1.abs().T) + 8 * u * (h.abs() + b1.abs())
-    g64 = M.gelu(h, fast)
-    del h
-    g_used = float(((g - g64).abs() / (_bf16_ulp(torch.maximum(g.abs(), g64.abs()))
-                                        + 1.2 * err)).max())
-    del err, g64, y
-    w2 = w2c.to(f64)
-    s = g @ w2.T
-    p_used = float(((got.to(f64) - s).abs() / (2 * g.shape[1] * u * (g.abs() @ w2.abs().T)
-                                                + u * s.abs())).max())
+    g_used, p_used = _gelu_partial_stages(M.gelu, y, w1c.to(f64).T, b1c.to(f64), g,
+                                          w2c.to(f64).T, got, fast)
     return y_used, flips, g_used, p_used
 
 
@@ -2687,9 +2738,67 @@ def _slot_rows_ffn(gen, E, S, D, F):
             torch.randn(E, D, generator=gen, device="cuda") * 0.1)
 
 
-def _k10p_partial(X, smi, gen, ffn, fast=False, k=2):
-    """One K10p on the first of ``k`` hidden chunks of ``ffn``'s F by the
-    fp32 partial rule: ``(max_abs_err, ms, plain_ms, bound)``."""
+def _k10p_stages(X, G, chunk, got, fast):
+    """K10p's chunk held stage by stage to fp64 references, expert by expert,
+    by :func:`_gelu_partial_stages`: g, the chunk's first product's bf16 GELU
+    output (its own launch, ``expert_nn_wg`` with ``NN_BIAS_GELU``), against
+    gelu(x w1c + b1c), then the fp32 partial against g w2c. ``(share of g's
+    bound taken, share of the partial's)``."""
+    f64 = torch.float64
+    x, w1c, b1c, w2c = chunk
+    g = G.expert_nn_wg(x, w1c, G.NN_BIAS_GELU, bias=b1c.float().contiguous(), fast_gelu=fast)
+    shares = _gelu_partial_stages(X.gelu, x.to(f64), w1c.to(f64), b1c.to(f64)[:, None, :], g,
+                                  w2c.to(f64), got, fast)
+    torch.cuda.empty_cache()
+    return shares
+
+
+def _k10p_wmma(G):
+    """One K10p chunk as the earlier design ran it: the batched WMMA NN
+    product with the bias + GELU epilogue on the W1 column chunk, then the
+    one writing the fp32 partial on the W2 row chunk, both read in place."""
+    def run(x, w1c, b1c, w2c, fast=False):
+        g = G.gemm_nn(x, w1c, G.NN_BIAS_GELU, bias=b1c.contiguous(), fast_gelu=fast)
+        return G.gemm_nn(g, w2c, G.NN_F32)
+    return run
+
+
+def _k10p_cublas(X, fast=False):
+    """One K10p chunk's function with its two batched products through
+    torch.matmul (cuBLAS, bf16 in and out) and plain epilogues, the partial
+    in fp32: the chain yardstick, which the port never calls."""
+    def run(x, w1c, b1c, w2c):
+        g = X.gelu(torch.matmul(x, w1c).float() + b1c[:, None], fast).to(torch.bfloat16)
+        return torch.matmul(g, w2c).float()
+    return run
+
+
+def _k10p_yardsticks(G, X, chunk, shape, fast=False):
+    """K10p's chunk in turns with the earlier WMMA chain and the cuBLAS chain
+    on the same inputs (K10p, WMMA, cuBLAS, cuBLAS, WMMA, K10p; means of two
+    medians of 20)."""
+    acc = torch.empty(chunk[0].shape, device="cuda")
+    wmma, cub = _k10p_wmma(G), _k10p_cublas(X, fast)
+    fns = {"turns_ms": lambda: X._k10p(*chunk, G.NN_F32, acc, fast_gelu=fast),
+           "wmma_ms": lambda: wmma(*chunk, fast), "cublas_chain_ms": lambda: cub(*chunk)}
+    with torch.no_grad():
+        got = _turns(fns)
+    print(f"[kernel] K10p {shape}: wgmma {got['turns_ms']:.4f} ms in turns, the earlier WMMA "
+          f"chain {got['wmma_ms']:.4f} ms, the cuBLAS chain (torch.matmul, plain epilogues; not "
+          f"one call) {got['cublas_chain_ms']:.4f} ms")
+    del acc
+    torch.cuda.empty_cache()
+    return got
+
+
+def _k10p_partial(X, smi, gen, ffn, fast=False, k=2, rule_from_x=True):
+    """One K10p on the first of ``k`` hidden chunks of ``ffn``'s F, read in
+    place from the bf16 weights, stage by stage (:func:`_k10p_stages`) and,
+    where ``rule_from_x``, by the fp32 partial rule (elsewhere its figures
+    are printed: the tensor cores' fp32 accumulation fails it at D 3072, as
+    K6f's does); then in turns with the earlier WMMA chain and the cuBLAS
+    chain (:func:`_k10p_yardsticks`): ``(max_abs_err, ms, plain_ms, bound
+    and the stages' and yardsticks' figures)``."""
     from ddm_tpu_torch.ops import gemm
 
     x, w1, b1, w2, _ = ffn
@@ -2709,11 +2818,28 @@ def _k10p_partial(X, smi, gen, ffn, fast=False, k=2):
         pd, pf = (torch.randperm(n, generator=gen, device="cuda") for n in (D, fc))
         x_, w1_, b1_, w2_ = chunk
         reordered = plain(x_[:, :, pd].contiguous(), w1_[:, pd][:, :, pf], b1_[:, pf],
-                          w2_[:, pf][:, :, pd])
-        err = _partial_check("K10p", shape, acc, plain(*chunk),
-                             reordered[:, :, torch.argsort(pd)], ms, plain_ms, smi)
+                          w2_[:, pf][:, :, pd])[:, :, torch.argsort(pd)]
+        want = plain(*chunk)
+        if rule_from_x:
+            err = _partial_check("K10p", shape, acc, want, reordered, ms, plain_ms, smi)
+        else:
+            err = float((acc - want).abs().max())
+            print(f"[kernel] K10p {shape} fp32 partial, not held from x: relF "
+                  f"{_rel_frob(acc, want):.3g} against twice the reordered plain spread "
+                  f"{2 * _rel_frob(reordered, want):.3g}, max_abs_err={err:.6g}; kernel {ms:.4f} "
+                  f"ms, plain {plain_ms:.4f} ms (median of 20) on {smi}")
+        del reordered, want
+        g_used, p_used = _k10p_stages(X, gemm, chunk, acc, fast)
+    print(f"[kernel] K10p {shape} by stages against fp64, each within a bound from its depth: "
+          f"g {g_used:.3g} of its bound, the partial {p_used:.3g} of its")
+    if not (np.isfinite(err) and max(g_used, p_used) <= 1.0):
+        raise AssertionError("K10p disagrees with its fp64 reference stage by stage")
     bound = _bound(_nbytes(*chunk, acc), 4 * E * S * D * fc)
-    del acc, reordered, chunk
+    bound.update({"g_bound_used": g_used, "partial_bound_used": p_used,
+                  "rule_from_x": rule_from_x})
+    del acc
+    bound.update(_k10p_yardsticks(gemm, X, chunk, shape, fast))
+    del chunk
     torch.cuda.empty_cache()
     return err, ms, plain_ms, bound
 
@@ -2745,9 +2871,10 @@ def phase_wide_kernels(M, A, X, smi, kc):
     # whose tail is empty as the dispatch leaves it
     E, S, D, F = MOE["moe_experts"], 20480, DIT_B["embed_dim"], 4 * DIT_B["embed_dim"]
     ffn = _slot_rows_ffn(gen, E, S, D, F)
-    k10p = _entry("K10p", "ddm_tpu_torch/csrc/gemm_bwd.cu",
-                  ["ddm_tpu_torch/csrc/gemm_bwd.cu", "ddm_tpu_torch/csrc/common.cuh"],
-                  "ddm_tpu/ops/expert_ffn.py:213", *_k10p_partial(X, smi, gen, ffn))
+    k10p = _entry("K10p", WG_SOURCES[0], WG_SOURCES, "ddm_tpu/ops/expert_ffn.py:213",
+                  *_k10p_partial(X, smi, gen, ffn))
+    k10p["instances"] = [r for r in _wg_instances(kc) if r["instance"].endswith(
+        WG_K10P_EPILOGUES + ("nn epi 0",))]
     with torch.no_grad():
         before = X.PARTIAL_LAUNCHES.count
         got = X.expert_ffn(*ffn)
@@ -3158,11 +3285,77 @@ def _k6b_case(M, gen, T, D, F, fast=False):
             10 * T * D * F)
 
 
+def _k6b_wmma(G, M):
+    """K6b as the earlier design ran it, the operand casts included: the
+    cotangent's cast, the WMMA recompute, the TN, NN, TN and NN products,
+    then the LayerNorm backward without the residual."""
+    def run(x, scale, bias, w1, b1, w2, do):
+        s, bb, w1b, b1f, w2b, _ = M._kernel_operands(scale, bias, w1, b1, w2)
+        dob = G.cast_bf16(do.float())
+        g, dfac, y = G.ln_gemm(x, s, bb, w1b, b1f, G.EPI_GELU_GRAD, with_y=True)
+        dw2, _ = G.gemm_tn(dob, g)
+        del g
+        dhb, db1 = G.gemm_nn(dob, w2b, G.NN_DGELU, dfac=dfac)
+        del dfac
+        dw1, _ = G.gemm_tn(dhb, y)
+        dy = G.gemm_nn(dhb, w1b, G.NN_F32)
+        del dhb
+        dx, dscale, dbias = G.ln_bwd(x, dy, None, s)
+        return dx, dscale, dbias, dw1, db1, dw2
+    return run
+
+
+def _k6b_cublas(M):
+    """K6b's function with its five products through torch.matmul (cuBLAS,
+    bf16 in and out) and plain epilogues, the LayerNorm backward in plain
+    torch: the chain yardstick, which the port never calls. Takes bf16
+    weights cast once and the bf16 cotangent."""
+    bf = torch.bfloat16
+
+    def run(x, scale, bias, w1, b1, w2, dob):
+        xhat, inv = M.ln_stats(x.float())
+        y = (xhat * scale + bias).to(bf)
+        gf, dfac = M._gelu_and_grad(torch.matmul(y, w1.t()).float() + b1)
+        dw2 = torch.matmul(dob.t(), gf.to(bf))
+        dh = torch.matmul(dob, w2).float() * dfac
+        dhb = dh.to(bf)
+        dw1, db1 = torch.matmul(dhb.t(), y), dh.sum(0)
+        dx, dscale, dbias = M.layer_norm_bwd(torch.matmul(dhb, w1).float(), xhat, inv, scale,
+                                             0.0)
+        return dx.to(bf), dscale, dbias, dw1, db1, dw2
+    return run
+
+
+def _k6b_yardsticks(G, M, case):
+    """K6b in turns with the earlier WMMA chain and the cuBLAS chain on its
+    case inputs (K6b, WMMA, cuBLAS, cuBLAS, WMMA, K6b; means of two medians
+    of 10)."""
+    _, shape, kern, _, inputs, _ = case
+    x, sc, bi, w1, b1, w2, do = inputs
+    bf = torch.bfloat16
+    cub_args, cub, wmma = (x, sc, bi, w1.to(bf), b1, w2.to(bf), do.to(bf)), _k6b_cublas(M), \
+        _k6b_wmma(G, M)
+    fns = {"turns_ms": kern, "wmma_ms": lambda: wmma(*inputs),
+           "cublas_chain_ms": lambda: cub(*cub_args)}
+    with torch.no_grad():
+        got = _turns(fns, reps=10)
+    print(f"[kernel] K6b {shape}: wgmma chain {got['turns_ms']:.4f} ms in turns, the earlier WMMA "
+          f"chain {got['wmma_ms']:.4f} ms, the cuBLAS chain (torch.matmul, plain epilogues; not "
+          f"one call) {got['cublas_chain_ms']:.4f} ms")
+    del cub_args
+    torch.cuda.empty_cache()
+    return got
+
+
+# 3k: K6b at the --tp 2 shards of DiT-S (the kernels line's entry), DiT-B and DiT-XL
+K6B_SHARDS = [("tp", 384), ("tp-dit-b", DIT_B["embed_dim"]), ("tp-dit-xl", DIT_XL["embed_dim"])]
+
+
 def phase_tp_kernels(M, A, smi):
     """3k: K6f's TP entry and K6b at the DiT-S --tp 2 shard, K6b at the DiT-B
-    shard, K7f/K7b through ``fused_attention`` on separate q, k, v. Returns
-    ``([K6b entry], {"K6f": [...], "K7f": [...], "K7b": [...]})``; K6f beside
-    the earlier WMMA chain and the cuBLAS chain."""
+    and DiT-XL shards, K7f/K7b through ``fused_attention`` on separate q, k,
+    v. Returns ``([K6b entry], {"K6f": [...], "K7f": [...], "K7b": [...]})``;
+    K6f and K6b beside the earlier WMMA chain and the cuBLAS chain."""
     from ddm_tpu_torch.ops import gemm as G
 
     gen = torch.Generator(device="cuda").manual_seed(12)
@@ -3194,19 +3387,18 @@ def phase_tp_kernels(M, A, smi):
     torch.cuda.empty_cache()
 
     k6b = []
-    for D, F, path in ((384, 4 * 384 // TP, "tp"), (DIT_B["embed_dim"],
-                                                     4 * DIT_B["embed_dim"] // TP, "tp-dit-b")):
-        case = _k6b_case(M, gen, T, D, F)
+    for path, D in K6B_SHARDS:
+        case = _k6b_case(M, gen, T, D, 4 * D // TP)
         times = _time_backward(case, smi, {M.PARTIAL_BWD_LAUNCHES: 2, M.BWD_LAUNCHES: 0})
-        k6b.append(_shape_entry(path, case, times))
+        k6b.append({**_shape_entry(path, case, times), **_k6b_yardsticks(G, M, case)})
         del case
         torch.cuda.empty_cache()
-    srcs = ["ddm_tpu_torch/csrc/gemm_bwd.cu", "ddm_tpu_torch/csrc/gemm.cu",
-            "ddm_tpu_torch/csrc/common.cuh"]
+    srcs = WG_SOURCES[:1] + ["ddm_tpu_torch/csrc/gemm_bwd.cu"] + WG_SOURCES[1:]
     first = k6b[0]
     entry = _entry("K6b", srcs[0], srcs, "ddm_tpu/ops/mlp_block.py:218", first["max_abs_err"],
                    first["ms"], first["plain_ms"],
                    {k: v for k, v in first.items() if k.startswith("bound")})
+    entry.update({k: first[k] for k in ("turns_ms", "wmma_ms", "cublas_chain_ms")})
     entry["shape"], entry["shapes"] = first["shape"], k6b[1:]
 
     # K7 through fused_attention on three separate (B, N, D) tensors
@@ -3325,8 +3517,9 @@ def phase_train_tp(cfg, kc, name, smi):
         out = os.path.join(tmp, "run")
         # "--" ends torch.distributed.run's own options: its parser may take the
         # trainer's --m for an abbreviation of one of them
+        # each rank runs the trainer through tp_rank, the WMMA launchers refused in K6f and K6b
         cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
-               str(TP), "--", "train_cifar10_dit_torch.py", "--synthetic", "--tp", str(TP),
+               str(TP), "--", os.path.abspath(__file__), TP_RANK, "--synthetic", "--tp", str(TP),
                "--epochs", "1", "--batch", str(TRAIN_BATCH), "--m", str(TP_TRAIN_M),
                "--sample-batch", "64", "--log-every", "1", "--device", "cuda", "--out", out]
         t0 = time.perf_counter()
@@ -3380,7 +3573,8 @@ def phase_train_tp(cfg, kc, name, smi):
                              f"rank, {full_sample} per sampler call")
     ms = 1e3 * ranks[0]["seconds_per_step"]
     rate = N_SAMPLES / sampled["seconds"]
-    print(f"[train-tp] python {' '.join(cmd[1:8])} --tp {TP} --batch {TRAIN_BATCH} --m "
+    print(f"[train-tp] python {' '.join(cmd[1:7])} chip_smoke.py {TP_RANK} (the trainer's main, "
+          f"the WMMA launchers refused in K6f and K6b) --tp {TP} --batch {TRAIN_BATCH} --m "
           f"{TP_TRAIN_M}: {backend}; {TRAIN_STEPS} steps, losses "
           f"{[round(v, 6) for v in losses]}; warm step {ms:.2f} ms (median of steps "
           f"2-{TRAIN_STEPS}, rank 0) = {TRAIN_BATCH / ms * 1e3:.2f} img/s on the one card; "
@@ -3536,21 +3730,33 @@ def phase_moe_xl_kernels(MD, X, ML, smi):
     training shape (T 131,072 rows of D 1152, E 8, groups of 256), top-1 (cap
     40, S 20,480) and top-2 (cap 80, S 40,960), K10b on the top-1 slot rows
     (F 4608) and one K10p partial on a chunk of 1152 of F 4608 (the tier's
-    k = 4); then K11/K12 at T 32,768 with E 16 (top-2), D 2048 and D 4096 (E
-    8, top-1 and top-2) and E 64 at D 384 (top-1 and top-2). Each against its
-    plain version by its rule above (routing identical but for near ties,
-    rows by the bf16 rule, psum to PSUM_RTOL), every backward's second call
-    bit-identical. ``{name: [{"path", "shape", ...}]}`` for the kernels line."""
+    k = 4) and on the widest chunked width's (K10P_WIDEST: D 3072 at k 8,
+    ragged slot rows; held by stages alone), each in turns with the earlier
+    WMMA chain and the cuBLAS chain; then K11/K12 at T 32,768 with E 16
+    (top-2), D 2048 and D 4096 (E 8, top-1 and top-2) and E 64 at D 384
+    (top-1 and top-2). Each against its plain version by its rule above
+    (routing identical but for near ties, rows by the bf16 rule, psum to
+    PSUM_RTOL), every backward's second call bit-identical. ``{name:
+    [{"path", "shape", ...}]}`` for the kernels line."""
+    from ddm_tpu_torch.ops import tiers
+
     D, F, E = DIT_XL["embed_dim"], 4 * DIT_XL["embed_dim"], MOE["moe_experts"]
     T, S = TRAIN_BATCH * TRAIN_M * 64, 20480  # S: the top-1 slot rows an expert
     shapes = {}
     _add_moe_shapes(shapes, "moe-xl", _moe_kernel_times(MD, X, ML, smi, D, F, (1, 2),
                                                         k10f=False), T, D, E, S, F)
     gen = torch.Generator(device="cuda").manual_seed(15)
-    err, ms, plain_ms, bound = _k10p_partial(X, smi, gen, _slot_rows_ffn(gen, E, S, D, F), k=4)
-    shapes["K10p"] = [{"path": "moe-xl", "shape": f"(E={E}, S={S}, D={D}, chunk {F // 4} of "
-                       f"F={F})", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound}]
-    torch.cuda.empty_cache()
+    shapes["K10p"] = []
+    for path, (Ep, Sp, Dp, Fp, k), from_x in (("moe-xl", (E, S, D, F, 4), True),
+                                               ("widest", K10P_WIDEST, False)):
+        if tiers.expert_tier(Ep, Sp, Dp, Fp) != ("fwdonly", k):
+            raise AssertionError(f"the expert ladder does not chunk {(Ep, Sp, Dp, Fp)} at k {k}")
+        err, ms, plain_ms, bound = _k10p_partial(X, smi, gen, _slot_rows_ffn(gen, Ep, Sp, Dp, Fp),
+                                                 k=k, rule_from_x=from_x)
+        shapes["K10p"].append({"path": path, "shape": f"(E={Ep}, S={Sp}, D={Dp}, chunk "
+                               f"{Fp // k} of F={Fp})", "max_abs_err": err, "ms": ms,
+                               "plain_ms": plain_ms, **bound})
+        torch.cuda.empty_cache()
     for e, d, topks in MOE_WIDE_SHAPES:
         _add_moe_shapes(shapes, "moe-wide", _moe_kernel_times(
             MD, X, ML, smi, d, None, topks, k10f=False, E=e, T=MOE_WIDE_T, k10b=False),
@@ -5200,7 +5406,7 @@ def main(argv=None) -> None:
     for phase, fn in steps:
         if phase in run:
             t0 = time.perf_counter()
-            with wmma_refused_in_k6f_k10b(M, X):  # every path steps with K6f and K10b on wgmma
+            with wmma_refused_in_wgmma_chains(M, X):  # K6f, K6b, K10b and K10p on wgmma
                 out[phase] = fn()
             torch.cuda.empty_cache()
             print(f"[time] {phase} {time.perf_counter() - t0:.1f} s (run so far "
@@ -5266,4 +5472,7 @@ def main(argv=None) -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == [TP_RANK]:
+        tp_rank(sys.argv[2:])
+    else:
+        main()

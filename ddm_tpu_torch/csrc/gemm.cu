@@ -1,7 +1,8 @@
 // Row-panel GEMMs with fused prologues and epilogues for the DiT half-blocks.
 //
-// The WMMA products of the F-chunked MLP forward K6f below (and, with
-// gemm_bwd.cu, of K6b and K10). Both dense half-blocks left them for the
+// The WMMA products that the F-chunked MLP forward K6f and (with
+// gemm_bwd.cu) K6b ran before gemm_wg.cu's, kept as the earlier designs
+// chip_smoke.py times beside them. Both dense half-blocks left them for the
 // wgmma products of gemm_wg.cu: the MLP half-block K1f and K1b, and the
 // attention half-block (ddm_tpu/ops/attention.py `_blk_fwd_kernel`, out = x
 // + proj(MHA(qkv(LN(x))))), whose chains K2f, K2b, K4 and the third rung's
@@ -47,8 +48,8 @@
 // because both weight chunks had to sit in VMEM; here that costs one more
 // LN prologue and one (T, D) fp32 round trip per extra chunk.
 //
-// The backward kernels (gemm_bwd.cu) reuse ddm_ln_gemm for their forward
-// recompute (K6b's): it can also write the normalised panel y =
+// The earlier K6b chain reused ddm_ln_gemm for its forward recompute: it
+// can also write the normalised panel y =
 // bf16(LN(x)) and, for the MLP, the fp32 GELU derivative beside the bf16
 // GELU output.
 #include "common.cuh"

@@ -1,16 +1,16 @@
 // GEMMs, LayerNorm backward and fixed-order reductions for the DiT
 // half-block backwards.
 //
-// The WMMA products of the backward of the tensor-parallel MLP partial
-// (K6b) and of the expert FFN (K10, forward and backward), with
-// ddm_ln_gemm (gemm.cu) for K6b's forward recompute; and the LayerNorm
+// The WMMA products of the expert FFN's forward K10f, and the LayerNorm
 // backward that every dense half-block backward ends with. The MLP
-// half-block's backward K1b (ddm_tpu/ops/mlp_block.py `_bwd_kernel`) and
-// the attention half-block's, K2b and K4 (ddm_tpu/ops/attention.py
-// `_blk_bwd_kernel`, `_blk_bwd_split_kernel`, and the third rung's chain
-// around K7b or K8b), run gemm_wg.cu's wgmma products and this file's
-// LayerNorm backward; K2b's chain ran this file's NN and TN products until
-// then.
+// half-block's backward K1b (ddm_tpu/ops/mlp_block.py `_bwd_kernel`), the
+// tensor-parallel partial's K6b, the attention half-block's K2b and K4
+// (ddm_tpu/ops/attention.py `_blk_bwd_kernel`, `_blk_bwd_split_kernel`, and
+// the third rung's chain around K7b or K8b), and the expert FFN's K10b and
+// K10p run gemm_wg.cu's wgmma products (the backwards with this file's
+// LayerNorm backward); they ran this file's NN and TN products (with
+// gemm.cu's ddm_ln_gemm) until then, and chip_smoke.py still times those
+// earlier chains beside them.
 //
 // The TPU kernels keep the weights and fp32 dW accumulators in VMEM and sum
 // dW across their sequential grid. CUDA blocks run at once and in no order,
@@ -28,15 +28,16 @@
 //
 // K6b, the backward of the tensor-parallel MLP partial (ddm_tpu/ops/
 // mlp_block.py `_partial_bwd_kernel`, `_bwd_body` with no db2 and no
-// residual), is the same chain with three changes: its cotangent arrives
-// in fp32 and one cast kernel rounds it to bf16 for the products (the
-// TPU kernel's `dob`), the dW2 product sums no column (no db2), and the
-// LayerNorm backward runs without the residual term (dres null).
+// residual), is K1b's chain with three changes: its cotangent arrives in
+// fp32 and this file's cast kernel rounds it to bf16 for the products (the
+// TPU kernel's `dob`), the dW2 product sums no column (no db2), and this
+// file's LayerNorm backward runs without the residual term (dres null).
 // No atomics: every sum has one fixed order, so the same inputs give
 // bit-identical gradients.
 //
-// The NN and TN products also run batched over experts for the MoE expert
-// FFN (K10, ddm_tpu/ops/expert_ffn.py `_fwd_kernel` / `_bwd_kernel`):
+// The NN and TN products also run batched over experts, for the MoE expert
+// FFN's forward K10f (ddm_tpu/ops/expert_ffn.py `_fwd_kernel`) and the
+// earlier K10b and K10p chains:
 // blockIdx.z selects the expert and every operand advances by one
 // expert's contiguous slab, with no-LN epilogues (bias, bias + GELU, and
 // bias + GELU writing gelu'(h) beside it for the backward's recompute; the
@@ -48,8 +49,9 @@
 // share of F) are ~0.8 TFLOP of bf16 per block, plus
 // the (T, F) activations that go through device memory (g and dh in bf16,
 // gelu'(h) in fp32: ~1.6 GB per call). The products are WMMA (mma.sync) on
-// synchronously loaded tiles, as in gemm.cu; moving K6b's and K10's onto
-// gemm_wg.cu's wgmma mainloop, as K1b's and K2b's are, is the next step.
+// synchronously loaded tiles, as in gemm.cu; K10f's are the last a path
+// launches, and moving them onto gemm_wg.cu's wgmma mainloop, as K1b's,
+// K2b's, K6b's, K10b's and K10p's are, is the next step.
 #include <algorithm>
 
 #include "common.cuh"
@@ -77,8 +79,6 @@ enum NNEpi : int {
   kNNBias = 3,          // out (bf16) = bf16(acc + bias)
   kNNBiasGelu = 4,      // out (bf16) = bf16(gelu(acc + bias))
   kNNBiasGeluGrad = 5,  // as kNNBiasGelu, and aux (fp32) = gelu'(acc + bias)
-  kNNAdd = 6,           // out (fp32) = out + acc
-  kNNFinalBias = 7,     // out (bf16) = bf16((aux + acc) + bias), aux the fp32 sum so far
 };
 
 __device__ __forceinline__ void zero_acc(FragC (&acc)[2][2]) {
@@ -142,8 +142,8 @@ gemm_nn_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
     if (bias != nullptr) bias += z * Nout;
     if (aux != nullptr) aux += z * tn;
     if (colsum != nullptr) colsum += z * gridDim.x * Nout;
-    out = EPI == kNNF32 || EPI == kNNAdd ? (void*)(reinterpret_cast<float*>(out) + z * tn)
-                                         : (void*)(reinterpret_cast<bf16*>(out) + z * tn);
+    out = EPI == kNNF32 ? (void*)(reinterpret_cast<float*>(out) + z * tn)
+                        : (void*)(reinterpret_cast<bf16*>(out) + z * tn);
   }
   const float* __restrict__ dfac = aux;  // read-only in the dgelu epilogue
   const int warp = threadIdx.x / 32;
@@ -189,10 +189,6 @@ gemm_nn_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
       const float dh = v * dfac[o];
       Cs[r * CLD + c] = dh;
       reinterpret_cast<bf16*>(out)[o] = __float2bfloat16(dh);
-    } else if constexpr (EPI == kNNAdd) {
-      reinterpret_cast<float*>(out)[o] += v;
-    } else if constexpr (EPI == kNNFinalBias) {
-      reinterpret_cast<bf16*>(out)[o] = __float2bfloat16((dfac[o] + v) + bias[col]);
     } else if constexpr (kBatched) {
       const float h = v + bias[col];
       float g = h;
@@ -415,10 +411,8 @@ using ddm::bf16;
 // elements apart; out and aux: batch x T x Nout; bias: batch x Nout). epi 2
 // reads aux (gelu'(h)) and writes db = column sums of dh through
 // colsum_ws[batch, ceil(T / 64), Nout] into colsum_out[batch, Nout]; epi 5
-// writes aux; epi 6 adds into the fp32 out; epi 7 reads the fp32 sum aux.
-// With `fast`, epilogues 4 and 5 take the sigmoid GELU of --fast-gelu.
-// Epilogues 6 and 7 run with epi 0 (fp32 out) before them as the F-chunked
-// expert FFN's partial products (K10p), summed in chunk order.
+// writes aux. With `fast`, epilogues 4 and 5 take the sigmoid GELU of
+// --fast-gelu.
 extern "C" int ddm_gemm_nn(const void* a, const void* w, const void* bias, void* aux, void* out,
                            void* colsum_ws, void* colsum_out, int T, int K, int Nout, int ldw,
                            int wstride, int epi, int batch, int fast, void* stream) {
@@ -436,8 +430,6 @@ extern "C" int ddm_gemm_nn(const void* a, const void* w, const void* bias, void*
     case kNNBias: launch = launch_nn<kNNBias>; break;
     case kNNBiasGelu: launch = launch_nn<kNNBiasGelu>; break;
     case kNNBiasGeluGrad: launch = launch_nn<kNNBiasGeluGrad>; break;
-    case kNNAdd: launch = launch_nn<kNNAdd>; break;
-    case kNNFinalBias: launch = launch_nn<kNNFinalBias>; break;
     default: return (int)cudaErrorInvalidValue;
   }
   const cudaError_t err = launch(grid, smem, (cudaStream_t)stream, (const bf16*)a,

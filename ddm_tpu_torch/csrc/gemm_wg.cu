@@ -2,9 +2,10 @@
 // epilogues read from the accumulator registers, deterministic split-K
 // weight gradients, and an expert coordinate for the expert-batched FFN.
 //
-// Replaces the WMMA products of csrc/gemm.cu and csrc/gemm_bwd.cu (which K6b,
-// K10f, K10p and X2f's yardstick still launch) for both dense half-blocks,
-// the F-chunked MLP forward and the expert FFN backward:
+// Replaces the WMMA products of csrc/gemm.cu and csrc/gemm_bwd.cu (which K10f
+// and X2f's yardstick still launch) for both dense half-blocks, the F-chunked
+// MLP forward and the tensor-parallel partial's backward, and the expert
+// FFN's backward and F-chunked forward:
 //   * K1f, ddm_tpu/ops/mlp_block.py `_fwd_kernel`:
 //       g = bf16(gelu(LN(x) W1^T + b1))   ddm_wg_ln_gemm (was ln_gemm_kernel
 //                                          / ln_gemm_stream_kernel)
@@ -16,6 +17,10 @@
 //     (ddm_wg_expert_nn), dW1 (ddm_wg_expert_tn) and dy = dH W1 in fp32
 //     (ddm_wg_expert_nn); ln_bwd (gemm_bwd.cu) is unchanged. Were gemm_tn_kernel
 //     and gemm_nn_kernel.
+//   * K6b, ddm_tpu/ops/mlp_block.py `_partial_bwd_kernel`, the tensor-parallel
+//     partial's backward: K1b's chain on a rank's hidden shard, its fp32
+//     cotangent rounded once to bf16 (cast_bf16), dW2 with no column sums
+//     (no db2), and ln_bwd without the residual. Was the WMMA chain.
 //   * K2f, ddm_tpu/ops/attention.py `_blk_fwd_kernel`, around its attention
 //     core (csrc/attention.cu): qkv = bf16(LN(x) Wqkv^T + bqkv)
 //     (ddm_wg_ln_gemm, the plain-bias epilogue) and out = bf16(x + (att
@@ -43,6 +48,15 @@
 //     (ddm_wg_expert_tn) and dx = bf16(dh w1[e]^T) (ddm_wg_expert_nn, w1[e]
 //     read K-major): no transposed weight copy. Was gemm_nn_kernel and
 //     gemm_tn_kernel with blockIdx.z as the expert.
+//   * K10p, ddm_tpu/ops/expert_ffn.py `_fwd_partial_kernel`, one hidden chunk
+//     c of the expert FFN's F-chunked forward, per expert e: g = bf16(gelu(x[e]
+//     w1[e][:, c] + b1[e][c])) (ddm_wg_expert_nn, bias + GELU with no gelu',
+//     the W1 column chunk read MN-major in place: row stride F, its column
+//     extent the chunk's), then s = g w2[e][c, :] in fp32 (ddm_wg_expert_nn on
+//     the W2 row chunk in place): acc = s on the first chunk, acc = acc + s on
+//     the middle ones, bf16((acc + s) + b2[e]) on the last, the fp32 (E, S, D)
+//     sum at each expert's offset, clipped at its last slot row as the
+//     stores are. Was gemm_nn_kernel's bias + GELU and partial epilogues.
 //
 // What bounds it on the H100: at DiT-S/4's training shape (T 131,072, D 384,
 // F 1536) K1f's two products are 309 GFLOP (0.31 ms at 989 TFLOP/s) and
@@ -50,7 +64,9 @@
 // activations through device memory (K1b about 1.3 GB, 0.4 ms at 3.35
 // TB/s). K2b's five products there are 464 GFLOP (0.47 ms). K6f's chunk of
 // 2048 at DiT-L (131,072, 1024) is 1.10 TFLOP (1.11 ms); K10b at (8, 20480,
-// 384, 1536) 966 GFLOP (0.98 ms). The WMMA kernels ran 10-14x those bounds:
+// 384, 1536) 966 GFLOP (0.98 ms); K10p's chunk of 1536 at (8, 20480, 768)
+// 773 GFLOP (0.78 ms); K6b at the DiT-B --tp 2 shard (131,072, 768, F 1536)
+// 1.55 TFLOP (1.56 ms). The WMMA kernels ran 10-14x those bounds:
 // mma.sync, which cannot reach the wgmma rate, on tiles copied by all
 // threads between two block barriers, with no copy in flight during a
 // product, and every accumulator through a 33 KB fp32 shared tile before
@@ -83,9 +99,9 @@
 //     once, not once a column tile. Any D % 64 == 0;
 //   * epilogues read the accumulators in registers and write the output
 //     directly (bias, exact-erf or sigmoid GELU, gelu', residual, dh with
-//     its db1 column partials, the fp32 partial sums of the F-chunked MLP,
-//     bf16, fp32), each variant compiled apart, four 8-column blocks' loads
-//     issued before their arithmetic;
+//     its db1 column partials, the fp32 partial sums of the F-chunked MLP
+//     and expert FFN, bf16, fp32), each variant compiled apart, four 8-column
+//     blocks' loads issued before their arithmetic;
 //   * the TN products split T into fixed row ranges (a whole number of
 //     64-row tiles each, gemm.py `wg_split_plan`, a function of the shapes
 //     and the SM count), write fp32 partials, and reduce_rows sums them in
@@ -125,14 +141,17 @@ constexpr float kInvSqrt2PiWg = 0.39894228040143267794f;
 enum WgKind : int {
   kLnGemm = 0,    // epi(LN(x) W^T + b): A = x normalised in place, W K-major
   kResidual = 1,  // bf16(res + (a W^T + b)): both K-major
-  kNN = 2,        // a . W with W (K, N) MN-major: fp32, bf16, dh with db1, bias + GELU
+  kNN = 2,        // a . W with W (K, N) MN-major: fp32, bf16, dh with db1, bias + GELU, sums
   kTN = 3,        // a^T . b, both MN-major, split over the rows
   kPartial = 4,   // the F-chunked MLP's fp32 partial sums of a W^T: both K-major
   kNT = 5,        // a . W^T with W (N, K) K-major: kNN's dh and bf16 epilogues
 };
 enum : int { kEpiBiasWg = 0, kEpiGeluWg = 1, kEpiGeluGradWg = 2 };  // kLnGemm (gemm.py EPI_*)
 // kNN, kNT (gemm.py NN_*)
-enum : int { kNNF32Wg = 0, kNNBf16Wg = 1, kNNDGeluWg = 2, kNNBiasGeluGradWg = 5 };
+enum : int {
+  kNNF32Wg = 0, kNNBf16Wg = 1, kNNDGeluWg = 2, kNNBiasGeluWg = 4, kNNBiasGeluGradWg = 5,
+  kNNAddWg = 6, kNNFinalBiasWg = 7
+};
 enum : int { kPartStoreWg = 0, kPartAddWg = 1, kPartFinalWg = 2 };  // kPartial (gemm.py PART_*)
 
 // Every pointer of an expert-batched launch is its expert 0's: the kernel
@@ -142,10 +161,10 @@ struct WgParams {
   const bf16* x;            // kLnGemm: the raw rows (statistics)
   const float* ln_scale;    // kLnGemm
   const float* ln_bias;     // kLnGemm
-  const float* bias;        // kLnGemm, kResidual, kPartial final, kNN bias + GELU: (E, N)
+  const float* bias;        // kLnGemm, kResidual, the finals, kNN bias + GELU: (E, N)
   const bf16* res;          // kResidual, kPartial final
   const float* dfac;        // kNN / kNT dh: gelu'(h)
-  const float* part;        // kPartial add and final: the fp32 sum of the earlier chunks
+  const float* part;        // kPartial, kNN add and final: the fp32 sum of the earlier chunks
   void* out;                // bf16, or fp32 (kNN F32, kPartial store and add)
   float* out2;              // kLnGemm, kNN bias + GELU: gelu' (fp32)
   bf16* y_out;              // kLnGemm y = bf16(LN(x))
@@ -162,11 +181,14 @@ struct WgParams {
 // the slowest part of the LN product): kLnGemm bit 0 gelu' (EPI_GELU_GRAD),
 // bit 1 the sigmoid GELU, 4 the bias alone (EPI_BIAS: the qkv product); kNN
 // and kNT 1 dh, 2 the bf16 store (NN_BF16: datt, K10b's dx), kNN 4 and 5
-// bias + GELU writing gelu' (K10b's recompute), erf or sigmoid; kPartial 0
-// store, 1 add, 2 the final sum with the residual and bias; kTN 1 the
-// column sums of b (K10b's db2) where 0 sums a's.
+// bias + GELU writing gelu' (K10b's recompute), erf or sigmoid, 6 and 7
+// bias + GELU alone (K10p's first product), 8 the fp32 add and 9 the final
+// sum with the expert's bias (K10p's second product; 0 stores its first
+// chunk); kPartial 0 store, 1 add, 2 the final sum with the residual and
+// bias; kTN 1 the column sums of b (K10b's db2) where 0 sums a's.
 constexpr int kEpiGrad = 1, kEpiFast = 2, kEpiBias = 4, kEpiDh = 1, kEpiBf16 = 2;
-constexpr int kEpiAct = 4, kEpiActFast = 5, kEpiColB = 1;
+constexpr int kEpiAct = 4, kEpiActFast = 5, kEpiActOnly = 6, kEpiActOnlyFast = 7;
+constexpr int kEpiAdd = 8, kEpiFinal = 9, kEpiColB = 1;
 
 // Bytes of one ring stage, and of the block's dynamic shared memory: the
 // ring (1024-aligned), 128 bytes of barriers (a full and an empty one a
@@ -343,11 +365,15 @@ __device__ __forceinline__ void epilogue(const float (&acc)[BN / 2], const WgPar
   constexpr int kGroup = 4;
   constexpr bool kNNish = KIND == kNN || KIND == kNT;
   constexpr bool kDh = kNNish && EPI == kEpiDh;
-  constexpr bool kAct = KIND == kNN && (EPI == kEpiAct || EPI == kEpiActFast);
-  constexpr bool kHasBias = KIND == kLnGemm || KIND == kResidual || kAct ||
-                            (KIND == kPartial && EPI == kPartFinalWg);
-  constexpr bool kHasRes = KIND == kResidual || (KIND == kPartial && EPI == kPartFinalWg);
-  constexpr bool kHasPart = KIND == kPartial && EPI != kPartStoreWg;
+  constexpr bool kActGrad = KIND == kNN && (EPI == kEpiAct || EPI == kEpiActFast);
+  constexpr bool kAct = kActGrad || (KIND == kNN && (EPI == kEpiActOnly || EPI == kEpiActOnlyFast));
+  // the F-chunked sums: kPartial's (the MLP) and kNN's (the expert FFN)
+  constexpr bool kAdd = (KIND == kPartial && EPI == kPartAddWg) || (KIND == kNN && EPI == kEpiAdd);
+  constexpr bool kFinal =
+      (KIND == kPartial && EPI == kPartFinalWg) || (KIND == kNN && EPI == kEpiFinal);
+  constexpr bool kHasBias = KIND == kLnGemm || KIND == kResidual || kAct || kFinal;
+  constexpr bool kHasRes = KIND == kResidual || (KIND == kPartial && kFinal);
+  constexpr bool kHasPart = kAdd || kFinal;
   const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
   const int row0 = m0 + wg * 64 + warp * 16 + lane / 4;
   const bool row_ok[2] = {row0 < p.M, row0 + 8 < p.M};
@@ -405,22 +431,27 @@ __device__ __forceinline__ void epilogue(const float (&acc)[BN / 2], const WgPar
           if (!ok) continue;
           v0 += b[g].x;
           v1 += b[g].y;
-          gelu_pair<EPI == kEpiActFast, true>(v0, v1, out2 + o);
+          gelu_pair<EPI == kEpiActFast || EPI == kEpiActOnlyFast, kActGrad>(v0, v1, out2 + o);
           *reinterpret_cast<__nv_bfloat162*>(out_h + o) = __floats2bfloat162_rn(v0, v1);
         } else if constexpr (KIND == kResidual) {
           if (ok)
             *reinterpret_cast<__nv_bfloat162*>(out_h + o) =
                 __floats2bfloat162_rn(__low2float(xr[g][h]) + (v0 + b[g].x),
                                       __high2float(xr[g][h]) + (v1 + b[g].y));
-        } else if constexpr (KIND == kPartial && EPI == kPartStoreWg) {
-          if (ok) *reinterpret_cast<float2*>(out_f + o) = make_float2(v0, v1);
-        } else if constexpr (KIND == kPartial && EPI == kPartAddWg) {
+        } else if constexpr (kAdd) {
           if (ok) *reinterpret_cast<float2*>(out_f + o) = make_float2(f[g][h].x + v0, f[g][h].y + v1);
-        } else if constexpr (KIND == kPartial) {  // the last chunk: (x + (acc + s)) + b2
-          if (ok)
+        } else if constexpr (kFinal) {  // the last chunk: (x + (acc + s)) + b2, or (acc + s) + b2[e]
+          if (ok) {
+            float s0 = f[g][h].x + v0, s1 = f[g][h].y + v1;
+            if constexpr (kHasRes) {
+              s0 = __low2float(xr[g][h]) + s0;
+              s1 = __high2float(xr[g][h]) + s1;
+            }
             *reinterpret_cast<__nv_bfloat162*>(out_h + o) =
-                __floats2bfloat162_rn((__low2float(xr[g][h]) + (f[g][h].x + v0)) + b[g].x,
-                                      (__high2float(xr[g][h]) + (f[g][h].y + v1)) + b[g].y);
+                __floats2bfloat162_rn(s0 + b[g].x, s1 + b[g].y);
+          }
+        } else if constexpr (KIND == kPartial) {  // the first chunk's store
+          if (ok) *reinterpret_cast<float2*>(out_f + o) = make_float2(v0, v1);
         } else if constexpr (kDh) {
           if (ok) {
             v0 *= f[g][h].x;
@@ -808,22 +839,28 @@ extern "C" int ddm_wg_gemm_partial(const void* a, const void* w, int ldw, void* 
 
 // out[e] = a[e] (T, K) . w[e] for E experts (a dense product: E 1), a
 // contiguous (E, T, K). w[e] is (K, N) (nn.Linear's (out, in) weight read as
-// (K, N); the expert FFN's w1[e]), or with `wt` (N, K), the product a[e]
-// w[e]^T (K10b's w2[e] and w1[e] read transposed in place); row stride ldw,
-// experts sw elements apart. epi 0 fp32 out; 1 bf16 out; 2 dh = (a . w) *
-// dfac (fp32 (E, T, N)) into the bf16 out, and colsum (E, N) = column sums
-// of the unrounded dh through ws (E, ceil(T / 128), N); 5 (not with wt)
-// h = a . w + bias[e] (bias (E, N)) into out = bf16(gelu(h)) and out2 =
-// gelu'(h) (fp32), `fast` the sigmoid GELU.
+// (K, N); the expert FFN's w1[e], or a chunk of it or of w2[e]), or with `wt`
+// (N, K), the product a[e] w[e]^T (K10b's w2[e] and w1[e] read transposed in
+// place); row stride ldw, experts sw elements apart. epi 0 fp32 out; 1 bf16
+// out; 2 dh = (a . w) * dfac (fp32 (E, T, N)) into the bf16 out, and colsum
+// (E, N) = column sums of the unrounded dh through ws (E, ceil(T / 128), N);
+// the rest not with wt: 4 and 5 h = a . w + bias[e] (bias (E, N)) into out =
+// bf16(gelu(h)), 5 also out2 = gelu'(h) (fp32), `fast` the sigmoid GELU; 6
+// out = dfac + a . w and 7 out = bf16((dfac + a . w) + bias[e]), dfac then
+// the fp32 (E, T, N) sum of the F-chunked forward's earlier chunks (6 may
+// write it in place: out == dfac).
 extern "C" int ddm_wg_expert_nn(const void* a, const void* w, const void* bias,
                                 const void* dfac, void* out, void* out2, void* ws, void* colsum,
                                 int E, int T, int K, int N, int ldw, int sw, int epi, int fast,
                                 int wt, int bn, int tpb, void* stream) {
   using namespace ddm;
-  const bool act = epi == kNNBiasGeluGradWg;
+  const bool act = epi == kNNBiasGeluWg || epi == kNNBiasGeluGradWg;
+  const bool sum = epi == kNNAddWg || epi == kNNFinalBiasWg;
   if (K % kBK != 0 || E < 1 ||
-      (epi != kNNF32Wg && epi != kNNBf16Wg && epi != kNNDGeluWg && !act) ||
-      (fast && !act) || (wt && epi != kNNBf16Wg && epi != kNNDGeluWg))
+      (epi != kNNF32Wg && epi != kNNBf16Wg && epi != kNNDGeluWg && !act && !sum) ||
+      (fast && !act) || (wt && epi != kNNBf16Wg && epi != kNNDGeluWg) ||
+      ((act || epi == kNNFinalBiasWg) && bias == nullptr) ||
+      ((sum || epi == kNNDGeluWg) && dfac == nullptr))
     return cudaErrorInvalidValue;
   CUtensorMap ma, mb;
   cudaError_t err = make_map(&ma, a, T, K, K, kBM, E);
@@ -833,20 +870,32 @@ extern "C" int ddm_wg_expert_nn(const void* a, const void* w, const void* bias,
   WgParams p = params(T, N, K, tpb);
   p.bias = (const float*)bias;
   p.dfac = (const float*)dfac;
+  p.part = (const float*)dfac;
   p.out = out;
   p.out2 = (float*)out2;
   p.ws = (float*)ws;
   const dim3 grid = tile_grid(T, N, bn, tpb, E);
   const cudaStream_t st = (cudaStream_t)stream;
-  if (wt)
+  if (wt) {
     err = epi == kNNDGeluWg ? launch_epi<kNT, kEpiDh>(ma, mb, ma, p, bn, grid, st)
                             : launch_epi<kNT, kEpiBf16>(ma, mb, ma, p, bn, grid, st);
-  else
-    err = act && fast       ? launch_epi<kNN, kEpiActFast>(ma, mb, ma, p, bn, grid, st)
-          : act             ? launch_epi<kNN, kEpiAct>(ma, mb, ma, p, bn, grid, st)
-          : epi == kNNDGeluWg ? launch_epi<kNN, kEpiDh>(ma, mb, ma, p, bn, grid, st)
-          : epi == kNNBf16Wg  ? launch_epi<kNN, kEpiBf16>(ma, mb, ma, p, bn, grid, st)
-                              : launch_epi<kNN, 0>(ma, mb, ma, p, bn, grid, st);
+  } else {
+    switch (epi) {
+      case kNNBiasGeluGradWg:
+        err = fast ? launch_epi<kNN, kEpiActFast>(ma, mb, ma, p, bn, grid, st)
+                   : launch_epi<kNN, kEpiAct>(ma, mb, ma, p, bn, grid, st);
+        break;
+      case kNNBiasGeluWg:
+        err = fast ? launch_epi<kNN, kEpiActOnlyFast>(ma, mb, ma, p, bn, grid, st)
+                   : launch_epi<kNN, kEpiActOnly>(ma, mb, ma, p, bn, grid, st);
+        break;
+      case kNNAddWg: err = launch_epi<kNN, kEpiAdd>(ma, mb, ma, p, bn, grid, st); break;
+      case kNNFinalBiasWg: err = launch_epi<kNN, kEpiFinal>(ma, mb, ma, p, bn, grid, st); break;
+      case kNNDGeluWg: err = launch_epi<kNN, kEpiDh>(ma, mb, ma, p, bn, grid, st); break;
+      case kNNBf16Wg: err = launch_epi<kNN, kEpiBf16>(ma, mb, ma, p, bn, grid, st); break;
+      default: err = launch_epi<kNN, 0>(ma, mb, ma, p, bn, grid, st);
+    }
+  }
   if (err != cudaSuccess || epi != kNNDGeluWg) return (int)err;
   return (int)reduce_rows((const float*)ws, (float*)colsum, grid.x, N, st, E);
 }

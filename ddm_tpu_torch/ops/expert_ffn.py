@@ -9,8 +9,9 @@ with the JAX layouts ``w1 (E, D, F)``, ``b1 (E, F)``, ``w2 (E, F, D)``,
 ``b2 (E, D)``. :func:`expert_ffn` is a ``torch.autograd.Function``. On CUDA
 tensors its forward launches K10f, the batched NN GEMMs of
 ``csrc/gemm_bwd.cu`` with ``blockIdx.z`` as the expert (a bias + exact-erf
-GELU epilogue, then a bias epilogue); its backward launches K10b, five
-wgmma products fed by a TMA ring on the expert coordinate of
+GELU epilogue, then a bias epilogue), or in a chunked tier k K10p on the
+wgmma products of ``csrc/gemm_wg.cu`` (below); its backward launches K10b,
+five wgmma products fed by a TMA ring on the expert coordinate of
 ``csrc/gemm_wg.cu`` (3-D maps, so a tile clips at its expert's last slot
 row): the recompute of h as the TPU kernel does (bias + GELU + gelu'),
 dW2 with db2 (split-K TN within each expert, fixed-order sums, db2 the
@@ -30,11 +31,11 @@ Tiers (:func:`ddm_tpu_torch.ops.tiers.expert_tier`, the JAX ladder's
 ``expert_ffn_auto`` from the shapes): ``("fused", 1)`` (DiT-S widths) and
 ``("fwdonly", 1)`` run K10f; ``("fwdonly", k > 1)`` (D >= 768) runs the
 forward as k partials K10p over column chunks of the hidden axis
-(``_fwd_call_chunked`` -> ``_fwd_partial_kernel``): per chunk the batched
-NN GEMM with the bias + GELU epilogue on the W1 column chunk, then the
-batched NN GEMM on the W2 row chunk adding into an fp32 sum in chunk order,
-the last one rounding ``sum + b2`` once; both weight chunks are read in
-place. The backward of every tier is K10b's chain, the counterpart of the
+(``_fwd_call_chunked`` -> ``_fwd_partial_kernel``): per chunk the wgmma
+product on the expert coordinate with the bias + GELU epilogue (no gelu')
+on the W1 column chunk, then the one on the W2 row chunk storing, then
+adding into an fp32 (E, S, D) sum in chunk order, the last one rounding
+``sum + b2`` once; both weight chunks are read in place. The backward of every tier is K10b's chain, the counterpart of the
 JAX wide tier's XLA backward (which rounds the weight cotangents to bf16
 where K10b keeps fp32). Where the ladder has no tier the JAX package runs
 its jnp reference, and the port its plain versions, forward and backward,
@@ -158,14 +159,13 @@ def _k10f(x, w1, b1, w2, b2, fast_gelu=False):
 
 
 def _k10p(x, w1c, b1c, w2c, epi, acc, b2f=None, fast_gelu=False):
-    """One hidden chunk: the batched NN GEMM with bias + GELU on the W1
-    column chunk, then the batched NN GEMM on the W2 row chunk into the fp32
-    sum (``NN_F32``, ``NN_ADD``) or, for the last chunk, ``NN_FINAL_BIAS``."""
-    g = gemm.gemm_nn(x, w1c, gemm.NN_BIAS_GELU, bias=b1c.contiguous(), fast_gelu=fast_gelu)
-    if epi == gemm.NN_FINAL_BIAS:
-        out = gemm.gemm_nn(g, w2c, epi, dfac=acc, bias=b2f)
-    else:
-        out = gemm.gemm_nn(g, w2c, epi, out=acc)
+    """One hidden chunk on the wgmma ring's expert coordinate: the product
+    with bias + GELU on the W1 column chunk, then the one on the W2 row
+    chunk, both read in place, into the fp32 sum ``acc`` (``NN_F32`` stores,
+    ``NN_ADD`` adds) or, for the last chunk, ``NN_FINAL_BIAS``."""
+    g = gemm.expert_nn_wg(x, w1c, gemm.NN_BIAS_GELU, bias=b1c.contiguous(), fast_gelu=fast_gelu)
+    out = gemm.expert_nn_wg(g, w2c, epi, bias=b2f if epi == gemm.NN_FINAL_BIAS else None,
+                            acc=acc)
     PARTIAL_LAUNCHES.add()
     return out
 

@@ -1,10 +1,11 @@
 """ctypes launchers for the half-block GEMMs, shared by the MLP, attention
 and expert-FFN wrappers: the wgmma products fed by a TMA ring of
-``csrc/gemm_wg.cu`` (``*_wg``: K1f, K1b, K6f, K10b, and the chains of K2f,
-K2b, K4 and the third attention rung at D <= 1344; ``expert_*_wg`` on the
-expert coordinate), with their tile and split plans, and the WMMA products
-of ``csrc/gemm.cu`` and ``csrc/gemm_bwd.cu`` (K6b, K10f, K10p, and the WMMA
-K2f chain X2f's bit check composes).
+``csrc/gemm_wg.cu`` (``*_wg``: K1f, K1b, K6f, K6b, K10b, K10p, and the
+chains of K2f, K2b, K4 and the third attention rung at D <= 1344;
+``expert_*_wg`` on the expert coordinate), with their tile and split plans,
+and the WMMA products of ``csrc/gemm.cu`` and ``csrc/gemm_bwd.cu`` (K10f,
+and the earlier designs that ``chip_smoke.py`` times beside the wgmma
+chains and X2f's bit check composes).
 
 Each function takes CUDA tensors that its caller has checked (bf16
 activations and weights, fp32 biases and LN parameters, contiguous),
@@ -32,9 +33,9 @@ __all__ = ["ln_gemm", "gemm_residual", "gemm_partial", "gemm_nn", "gemm_tn", "ln
 EPI_BIAS, EPI_GELU, EPI_GELU_GRAD = 0, 1, 2
 # gemm_partial epilogues (csrc/gemm.cu PartialEpi; gemm_partial_wg's too)
 PART_STORE, PART_ADD, PART_FINAL_RES = 0, 1, 2
-# gemm_nn epilogues (csrc/gemm_bwd.cu NNEpi)
+# gemm_nn epilogues (csrc/gemm_bwd.cu NNEpi), and expert_nn_wg's (csrc/gemm_wg.cu kNN*Wg)
 NN_F32, NN_BF16, NN_DGELU, NN_BIAS, NN_BIAS_GELU, NN_BIAS_GELU_GRAD = 0, 1, 2, 3, 4, 5
-NN_ADD, NN_FINAL_BIAS = 6, 7
+NN_ADD, NN_FINAL_BIAS = 6, 7  # expert_nn_wg's alone: the F-chunked expert FFN's sums
 _BM, _BN, _BK = 64, 128, 64  # the kernels' output tile and depth chunk
 _MAX_SMEM = 232448  # a block's shared memory on the H100
 
@@ -123,7 +124,7 @@ def gemm_partial(a, w, epi: int, acc, bias=None, res=None):
     return out
 
 
-def gemm_nn(a, w, epi: int, dfac=None, bias=None, out=None, fast_gelu: bool = False):
+def gemm_nn(a, w, epi: int, dfac=None, bias=None, fast_gelu: bool = False):
     """``a (T, K) . w (K, Nout)`` with ``w`` in nn.Linear's (out, in) layout,
     or batched over a leading expert axis: ``a (E, T, K) . w (E, K, Nout)``.
     ``w`` may be a strided view (unit column stride), read in place.
@@ -133,11 +134,7 @@ def gemm_nn(a, w, epi: int, dfac=None, bias=None, out=None, fast_gelu: bool = Fa
     ``NN_BIAS`` -> ``bf16(a . w + bias)``; ``NN_BIAS_GELU`` ->
     ``bf16(gelu(h))``, ``h = a . w + bias``; ``NN_BIAS_GELU_GRAD`` ->
     ``(bf16(gelu(h)), gelu'(h) fp32)``. ``bias`` is (Nout,) or (E, Nout).
-    The F-chunked expert FFN's partial sums (batched only): ``NN_F32`` into
-    a given fp32 ``out``, ``NN_ADD`` adds ``a . w`` into it, and
-    ``NN_FINAL_BIAS`` -> ``bf16((dfac + a . w) + bias)`` with ``dfac`` the
-    fp32 sum of the earlier chunks. With ``fast_gelu`` the GELU epilogues take
-    ``h sigmoid(1.702 h)``.
+    With ``fast_gelu`` the GELU epilogues take ``h sigmoid(1.702 h)``.
     """
     batched = a.dim() == 3
     E = a.shape[0] if batched else 1
@@ -147,9 +144,8 @@ def gemm_nn(a, w, epi: int, dfac=None, bias=None, out=None, fast_gelu: bool = Fa
         raise ValueError("gemm_nn reads w with unit column stride")
     dev = a.device
     lead = (E,) if batched else ()
-    if out is None:
-        out = torch.empty(lead + (T, Nout), device=dev,
-                          dtype=torch.float32 if epi in (NN_F32, NN_ADD) else torch.bfloat16)
+    out = torch.empty(lead + (T, Nout), device=dev,
+                      dtype=torch.float32 if epi == NN_F32 else torch.bfloat16)
     aux = dfac
     if epi == NN_BIAS_GELU_GRAD:
         aux = torch.empty(lead + (T, Nout), dtype=torch.float32, device=dev)
@@ -387,26 +383,34 @@ def gemm_partial_wg(a, w, epi: int, acc, bias=None, res=None):
 
 
 def expert_nn_wg(a, w, epi: int, dfac=None, bias=None, fast_gelu: bool = False,
-                 transposed: bool = False):
+                 transposed: bool = False, acc=None):
     """Per expert e: ``a[e] (T, K) . w[e]`` through the wgmma kernel on the
     expert coordinate, ``a (E, T, K)`` contiguous; ``w[e]`` (K, N) (the
-    expert FFN's ``w1 (E, D, F)``; nn.Linear's (out, in) weight read as (K,
-    N)), or with ``transposed`` (N, K) and the product ``a[e] . w[e]^T``
-    (``w2 (E, F, D)`` or ``w1`` read in place: no transposed copy); ``w`` may
-    be a view with unit column stride. A dense product passes 2-D ``a (T,
-    K)`` and ``w``: the batch of one, its outputs 2-D (K1b's and the
-    attention chains' dh, datt and dy).
+    expert FFN's ``w1 (E, D, F)``, or a hidden chunk of ``w1`` or ``w2``;
+    nn.Linear's (out, in) weight read as (K, N)), or with ``transposed`` (N,
+    K) and the product ``a[e] . w[e]^T`` (``w2 (E, F, D)`` or ``w1`` read in
+    place: no transposed copy); ``w`` may be a view with unit column stride.
+    A dense product passes 2-D ``a (T, K)`` and ``w``: the batch of one, its
+    outputs 2-D (K1b's and the attention chains' dh, datt and dy).
 
     ``NN_F32`` -> fp32 (E, T, N); ``NN_BF16`` -> bf16; ``NN_DGELU`` ->
-    ``(bf16(dh), sum_rows(dh) (E, N))``, ``dh = (a . w) * dfac`` in fp32;
-    ``NN_BIAS_GELU_GRAD`` (not ``transposed``) -> ``(bf16(gelu(h)), gelu'(h)
-    fp32)``, ``h = a . w + bias[e]`` with ``bias (E, N)``, ``fast_gelu`` the
-    sigmoid GELU."""
-    allowed = (NN_BF16, NN_DGELU) if transposed else (NN_F32, NN_BF16, NN_DGELU,
-                                                      NN_BIAS_GELU_GRAD)
-    if epi not in allowed or (fast_gelu and epi != NN_BIAS_GELU_GRAD):
+    ``(bf16(dh), sum_rows(dh) (E, N))``, ``dh = (a . w) * dfac`` in fp32.
+    Not ``transposed``: ``NN_BIAS_GELU_GRAD`` -> ``(bf16(gelu(h)), gelu'(h)
+    fp32)`` and ``NN_BIAS_GELU`` -> ``bf16(gelu(h))``, ``h = a . w +
+    bias[e]`` with ``bias (E, N)``, ``fast_gelu`` the sigmoid GELU; and the
+    F-chunked expert FFN's fp32 sum ``acc`` (E, T, N), contiguous:
+    ``NN_F32`` stores ``a . w`` into it and ``NN_ADD`` adds it (both return
+    ``acc``), ``NN_FINAL_BIAS`` -> ``bf16((acc + a . w) + bias[e])``."""
+    gelu, sums = (NN_BIAS_GELU, NN_BIAS_GELU_GRAD), (NN_ADD, NN_FINAL_BIAS)
+    allowed = (NN_BF16, NN_DGELU) if transposed else (NN_F32, NN_BF16, NN_DGELU, *gelu, *sums)
+    if (epi not in allowed or (fast_gelu and epi not in gelu)
+            or (bias is None and epi in (*gelu, NN_FINAL_BIAS))
+            or (acc is None and epi in sums) or (acc is not None and epi not in (NN_F32, *sums))):
         raise ValueError(f"expert_nn_wg takes {allowed} (transposed={transposed}; fast_gelu "
-                         f"with NN_BIAS_GELU_GRAD only), got {epi} with fast_gelu={fast_gelu}")
+                         f"with the GELU codes only; a bias with the GELU codes and "
+                         f"NN_FINAL_BIAS; acc with NN_ADD and NN_FINAL_BIAS, or NN_F32), got "
+                         f"{epi} with fast_gelu={fast_gelu}, bias {bias is not None}, acc "
+                         f"{acc is not None}")
     dense = a.dim() == 2
     tma_operand(a, "a", batched=not dense)
     tma_operand(w, "w", batched=not dense)
@@ -417,17 +421,26 @@ def expert_nn_wg(a, w, epi: int, dfac=None, bias=None, fast_gelu: bool = False,
     ldw, sw = (w.stride(0), 0) if dense else (w.stride(1), w.stride(0))
     lead = () if dense else (E,)
     dev = a.device
+    if acc is not None and (acc.dtype != torch.float32 or tuple(acc.shape) != (*lead, T, N)
+                            or not acc.is_contiguous()):
+        raise ValueError(f"expert_nn_wg: acc must be a contiguous fp32 {(*lead, T, N)}, got "
+                         f"{acc.dtype} {tuple(acc.shape)}")
     bn, tiles, grid = wg_tile_plan(T, N, _sms(dev), batch=E)
-    out = torch.empty((*lead, T, N), device=dev,
-                      dtype=torch.float32 if epi == NN_F32 else torch.bfloat16)
+    if acc is not None and epi != NN_FINAL_BIAS:
+        out = acc
+    else:
+        out = torch.empty((*lead, T, N), device=dev,
+                          dtype=torch.float32 if epi == NN_F32 else torch.bfloat16)
     out2 = (torch.empty((*lead, T, N), dtype=torch.float32, device=dev)
             if epi == NN_BIAS_GELU_GRAD else None)
     ws = colsum = None
     if epi == NN_DGELU:
         ws = torch.empty((E, grid[0], N), dtype=torch.float32, device=dev)
         colsum = torch.empty((*lead, N), dtype=torch.float32, device=dev)
+    # the add and final epilogues read the earlier chunks' sum where dh reads gelu'
+    part = acc if epi in sums else dfac
     check_status(load_library().ddm_wg_expert_nn(
-        a.data_ptr(), w.data_ptr(), _ptr(bias), _ptr(dfac), out.data_ptr(), _ptr(out2),
+        a.data_ptr(), w.data_ptr(), _ptr(bias), _ptr(part), out.data_ptr(), _ptr(out2),
         _ptr(ws), _ptr(colsum), E, T, K, N, ldw, sw, epi, int(fast_gelu), int(transposed), bn,
         tiles, current_stream(dev)), "expert_nn_wg")
     if epi == NN_DGELU:

@@ -13,10 +13,9 @@ row ranges, summed in a fixed order), then the LayerNorm backward
 products a hidden chunk: the LN-prologue product with the GELU epilogue on
 the W1 row chunk, then the partial product on the W2 column chunk, read in
 place, with an fp32 store, add or final epilogue. The tensor-parallel K6b
-keeps the WMMA products of ``csrc/gemm.cu`` and ``csrc/gemm_bwd.cu``. On
-CPU tensors the same Function runs the plain versions,
-:func:`mlp_block_reference` and :func:`mlp_block_bwd_reference`, with the
-same dtype plan.
+runs K1b's chain on the same ring. On CPU tensors the same Function runs
+the plain versions, :func:`mlp_block_reference` and
+:func:`mlp_block_bwd_reference`, with the same dtype plan.
 
 Weights use ``nn.Linear``'s layout: ``w1`` is (F, D), ``w2`` is (D, F).
 
@@ -301,23 +300,34 @@ def _k6f_chunked(x, scale, bias, w1, b1, w2, b2, k, fast_gelu=False):
     return out
 
 
-def _k1b(x, scale, bias, w1, b1, w2, b2, dout, fast_gelu=False):
-    if dout.shape != x.shape:
-        raise ValueError(f"K1b cotangent must be {tuple(x.shape)}, got {tuple(dout.shape)}")
-    s, bb, w1b, b1f, w2b, _ = _kernel_operands(scale, bias, w1, b1, w2, b2)
-    dob = dout.to(torch.bfloat16).contiguous()
+def _bwd_chain(x, s, bb, w1b, b1f, w2b, dob, residual, fast_gelu):
+    """K1b's chain on the wgmma ring for the bf16 cotangent ``dob``: the
+    recompute (g, gelu'(h) and y), dW2, dh with db1, dW1, dy in fp32, then
+    the LayerNorm backward. With ``residual`` (the half-block, K1b) dW2's
+    product also sums dO's columns (db2) and ``ln_bwd`` adds dO, the
+    residual's cotangent; without it (the tensor-parallel partial, K6b)
+    neither, and db2 is None."""
     g, dfac, y = gemm.ln_gemm_wg(x, s, bb, w1b, b1f, gemm.EPI_GELU_GRAD, with_y=True,
                                  fast_gelu=fast_gelu)
-    dw2, db2 = gemm.expert_tn_wg(dob, g, with_colsum=True)
+    dw2, db2 = gemm.expert_tn_wg(dob, g, with_colsum=residual)
     del g
     dhb, db1 = gemm.expert_nn_wg(dob, w2b, gemm.NN_DGELU, dfac=dfac)
     del dfac
     dw1, _ = gemm.expert_tn_wg(dhb, y)
     dy = gemm.expert_nn_wg(dhb, w1b, gemm.NN_F32)
     del dhb
-    dx, dscale, dbias = gemm.ln_bwd(x, dy, dob, s)
-    BWD_LAUNCHES.add()
+    dx, dscale, dbias = gemm.ln_bwd(x, dy, dob if residual else None, s)
     return dx, dscale, dbias, dw1, db1, dw2, db2
+
+
+def _k1b(x, scale, bias, w1, b1, w2, b2, dout, fast_gelu=False):
+    if dout.shape != x.shape:
+        raise ValueError(f"K1b cotangent must be {tuple(x.shape)}, got {tuple(dout.shape)}")
+    s, bb, w1b, b1f, w2b, _ = _kernel_operands(scale, bias, w1, b1, w2, b2)
+    dob = dout.to(torch.bfloat16).contiguous()
+    grads = _bwd_chain(x, s, bb, w1b, b1f, w2b, dob, True, fast_gelu)
+    BWD_LAUNCHES.add()
+    return grads
 
 
 def _k6f_partial(x, scale, bias, w1, b1, w2, fast_gelu=False):
@@ -333,18 +343,9 @@ def _k6b(x, scale, bias, w1, b1, w2, do, fast_gelu=False):
         raise ValueError(f"K6b cotangent must be {tuple(x.shape)}, got {tuple(do.shape)}")
     s, bb, w1b, b1f, w2b, _ = _kernel_operands(scale, bias, w1, b1, w2)
     dob = gemm.cast_bf16(do.float())
-    g, dfac, y = gemm.ln_gemm(x, s, bb, w1b, b1f, gemm.EPI_GELU_GRAD, with_y=True,
-                              fast_gelu=fast_gelu)
-    dw2, _ = gemm.gemm_tn(dob, g)
-    del g
-    dhb, db1 = gemm.gemm_nn(dob, w2b, gemm.NN_DGELU, dfac=dfac)
-    del dfac
-    dw1, _ = gemm.gemm_tn(dhb, y)
-    dy = gemm.gemm_nn(dhb, w1b, gemm.NN_F32)
-    del dhb
-    dx, dscale, dbias = gemm.ln_bwd(x, dy, None, s)
+    grads = _bwd_chain(x, s, bb, w1b, b1f, w2b, dob, False, fast_gelu)[:-1]
     PARTIAL_BWD_LAUNCHES.add()
-    return dx, dscale, dbias, dw1, db1, dw2
+    return grads
 
 
 def mlp_partial_bwd(x, scale, bias, w1, b1, w2, do, fast_gelu: bool = False):

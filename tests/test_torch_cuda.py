@@ -6,7 +6,9 @@ K1f's and K1b's wgmma chains at ragged T and D 64-1536 (y bit for bit the WMMA k
 K2f's and K2b's at D 64-1344 (the recompute's qkv the forward's bits, no WMMA product on
 any attention path), K6f's chunks (D 1024-4096) and K10b's five products on the wgmma ring's
 expert coordinate (each expert's dW1 and dx the product at one expert's bits; K1b and K2b the
-same bits with their products' operands passed as one expert explicitly), the DiT tail
+same bits with their products' operands passed as one expert explicitly), K10p's chunks (D
+768-3072) and K6b (the --tp 2 shards of DiT-S, DiT-B and DiT-XL) on the same ring with no WMMA
+product, the DiT tail
 X4f/X4b at every DiT path's width, X2f bit for bit the
 WMMA-composed K2f -> MLP pair, X1's phase-batched cores bit for bit K2's, X3's ablations
 of K2b's chain, and the registers designs of the forward core and of K8f and K8b, the
@@ -1149,15 +1151,39 @@ def test_dense_chains_keep_their_bits_at_one_expert_on_the_card(cuda_device, mon
             assert torch.equal(g, h) and torch.equal(g, i)
 
 
+def _assert_k10p_stages(p, chunk, fast):
+    """K10p's chunk held stage by stage to fp64 references, each within a
+    bound derived from its depth (``chip_smoke._k10p_stages``: g, the first
+    product's bf16 GELU output; the fp32 partial p), so the tensor cores'
+    accumulation order falls inside it."""
+    import chip_smoke
+
+    g_used, p_used = chip_smoke._k10p_stages(TX, TX.gemm, chunk, p, fast)
+    assert g_used <= 1 and p_used <= 1, (g_used, p_used)
+
+
+def _k10p_permuted(a, pd, pf):
+    return a[0][:, :, pd].contiguous(), a[1][:, pd][:, :, pf], a[2][:, pf], a[3][:, pf][:, :, pd]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("E,S,D,F,forced", [(8, 20480, 768, 3072, False), (4, 200, 128, 512, True)])
-def test_k10p_matches_plain_on_the_card(cuda_device, monkeypatch, E, S, D, F, forced):
-    """The expert FFN's F-chunked forward (k = 2 K10p) by the bf16 rule, one
-    chunk's fp32 partial by the partial rule, and the five
-    gradients of K10b's chain through autograd, twice, bit-identical."""
+@pytest.mark.parametrize("E,S,D,F,k,forced,fast,whole", [
+    (8, 20480, 768, 3072, 2, False, False, True), (4, 200, 128, 512, 2, True, False, True),
+    (8, 20480, 1152, 4608, 4, False, False, True), (8, 1344, 3072, 3072, 8, False, False, False),
+    (8, 20480, 768, 3072, 2, False, True, True)])
+def test_k10p_matches_plain_on_the_card(cuda_device, monkeypatch, E, S, D, F, k, forced, fast,
+                                        whole):
+    """The expert FFN's F-chunked forward (k K10p on the wgmma ring's expert
+    coordinate) by the bf16 rule: DiT-B's MoE chunks, a forced ragged case,
+    the XL MoE (k 4), the widest chunked width (D 3072 at k 8, S ragged
+    against 128) and the fast GELU; every chunk's fp32 partial stage by
+    stage (:func:`_assert_k10p_stages`) and, where ``whole``, from x by the
+    partial rule, which at D 3072 the tensor cores' fp32 accumulation does
+    not meet (as K6f's at D 3072-4096); and the five gradients of K10b's
+    chain through autograd, twice, bit-identical."""
     if forced:
-        monkeypatch.setattr(TT, "expert_tier", lambda *a: ("fwdonly", 2))
-    assert TT.expert_tier(E, S, D, F) == ("fwdonly", 2)
+        monkeypatch.setattr(TT, "expert_tier", lambda *a: ("fwdonly", k))
+    assert TT.expert_tier(E, S, D, F) == ("fwdonly", k)
     r = np.random.default_rng(15)
     x = r.standard_normal((E, S, D)).astype(np.float32)
     x[:, S - S // 5:] = 0.0
@@ -1169,21 +1195,30 @@ def test_k10p_matches_plain_on_the_card(cuda_device, monkeypatch, E, S, D, F, fo
     dout = _t(r.standard_normal((E, S, D)).astype(np.float32)).to(cuda_device).to(torch.bfloat16)
     before = (TX.PARTIAL_LAUNCHES.count, TX.LAUNCHES.count, TX.BWD_LAUNCHES.count)
     with torch.inference_mode():
-        out = TX.expert_ffn(*args)
-    _assert_bf16_rule(out, TX.expert_ffn_fchunked_reference(*args, 2))
-    fc = F // 2
-    chunk = (args[0], args[1].to(torch.bfloat16)[:, :, fc:], args[2][:, fc:],
-             args[3].to(torch.bfloat16)[:, fc:])
-    acc = torch.empty(E, S, D, device=cuda_device)
-    TX._k10p(*chunk, TX.gemm.NN_F32, acc)
-    _assert_partial_rule(acc, TX.expert_partial_reference, chunk, lambda a, pd, pf: (
-        a[0][:, :, pd].contiguous(), a[1][:, pd][:, :, pf], a[2][:, pf], a[3][:, pf][:, :, pd]))
-    got = _grads_through_autograd(TX.expert_ffn, args, (), dout)
-    again = _grads_through_autograd(TX.expert_ffn, args, (), dout)
+        out = TX.expert_ffn(*args, fast_gelu=fast)
+    _assert_bf16_rule(out, TX.expert_ffn_fchunked_reference(*args, k, fast_gelu=fast))
+    del out
+    fc, bf = F // k, torch.bfloat16
+    w1b, w2b = args[1].to(bf), args[3].to(bf)
+    for c in range(k):
+        hid = slice(c * fc, (c + 1) * fc)
+        chunk = (args[0], w1b[:, :, hid], args[2][:, hid], w2b[:, hid])
+        acc = torch.empty(E, S, D, device=cuda_device)
+        with torch.inference_mode():
+            TX._k10p(*chunk, TX.gemm.NN_F32, acc, fast_gelu=fast)
+        torch.cuda.synchronize()
+        _assert_k10p_stages(acc, chunk, fast)
+        if whole:
+            _assert_partial_rule(acc, lambda *a: TX.expert_partial_reference(*a, fast_gelu=fast),
+                                 chunk, _k10p_permuted)
+        del acc
+    fn = lambda *a: TX.expert_ffn(*a, fast_gelu=fast)  # noqa: E731
+    got = _grads_through_autograd(fn, args, (), dout)
+    again = _grads_through_autograd(fn, args, (), dout)
     torch.cuda.synchronize()
     after = (TX.PARTIAL_LAUNCHES.count, TX.LAUNCHES.count, TX.BWD_LAUNCHES.count)
-    assert tuple(a - b for a, b in zip(after, before)) == (2 + 1 + 2 * 2, 0, 2)
-    _assert_grads_close(got, TX.expert_ffn_bwd_reference(*args, dout))
+    assert tuple(a - b for a, b in zip(after, before)) == (k + k + 2 * k, 0, 2)
+    _assert_grads_close(got, TX.expert_ffn_bwd_reference(*args, dout, fast_gelu=fast))
     for g, h in zip(got, again):
         assert torch.equal(g, h)
 
@@ -1275,11 +1310,15 @@ def test_k2_tiled_cores_agree_with_the_one_block_cores_on_the_card(cuda_device, 
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,D,F", [(16384, 384, 768), (1000, 128, 256)])
-def test_k6b_tp_partial_matches_plain_on_the_card(cuda_device, T, D, F):
-    """The tensor-parallel MLP partial through autograd: one K6f forward (fp32,
-    by the partial rule) and K6b backward for an fp32 cotangent, against
-    :func:`mlp_partial_bwd_reference` (dx by the bf16 rule, the fp32
+@pytest.mark.parametrize("T,D,F,fast", [(16384, 384, 768, False), (1000, 128, 256, False),
+                                        (131072, 768, 1536, False), (131072, 1152, 2304, False),
+                                        (16384, 384, 768, True)])
+def test_k6b_tp_partial_matches_plain_on_the_card(cuda_device, T, D, F, fast):
+    """The tensor-parallel MLP partial through autograd at the ``--tp 2``
+    shards (DiT-S's sampler rows, a small ragged case, DiT-B's and DiT-XL's
+    training rows, the fast GELU): one K6f forward (fp32, by the partial rule)
+    and K6b backward (K1b's chain on the wgmma ring) for an fp32 cotangent,
+    against :func:`mlp_partial_bwd_reference` (dx by the bf16 rule, the fp32
     gradients by the gradient rule), twice, bit-identical; and K6b called
     directly gives the same bits."""
     inputs = _mlp_inputs(T, D, F, seed=31)
@@ -1288,21 +1327,45 @@ def test_k6b_tp_partial_matches_plain_on_the_card(cuda_device, T, D, F):
     do = torch.randn(T, D, generator=torch.Generator(device=cuda_device).manual_seed(32),
                      device=cuda_device)
     assert TT.mlp_tier(T, D, F)[0] in ("fused", "fwdonly")
+    fn = lambda *a: TM.fused_mlp_partial(*a, fast_gelu=fast)  # noqa: E731
     before = (TM.PARTIAL_LAUNCHES.count, TM.PARTIAL_BWD_LAUNCHES.count, TM.BWD_LAUNCHES.count)
     with torch.inference_mode():
-        part = TM.fused_mlp_partial(*args)
-    got = _grads_through_autograd(TM.fused_mlp_partial, args, (), do)
-    again = _grads_through_autograd(TM.fused_mlp_partial, args, (), do)
-    direct = TM.mlp_partial_bwd(*args, do)
+        part = fn(*args)
+    got = _grads_through_autograd(fn, args, (), do)
+    again = _grads_through_autograd(fn, args, (), do)
+    direct = TM.mlp_partial_bwd(*args, do, fast_gelu=fast)
     torch.cuda.synchronize()
     assert (TM.PARTIAL_LAUNCHES.count - before[0], TM.PARTIAL_BWD_LAUNCHES.count - before[1],
             TM.BWD_LAUNCHES.count - before[2]) == (3, 3, 0)
     assert part.dtype == torch.float32
-    _assert_partial_rule(part, TM.mlp_partial_reference, args, lambda a, pd, pf: (
-        a[0][:, pd].contiguous(), a[1][pd], a[2][pd], a[3][pf][:, pd], a[4][pf], a[5][pd][:, pf]))
-    _assert_grads_close(got, TM.mlp_partial_bwd_reference(*args, do))
+    _assert_partial_rule(part, lambda *a: TM.mlp_partial_reference(*a, fast_gelu=fast), args,
+                         lambda a, pd, pf: (a[0][:, pd].contiguous(), a[1][pd], a[2][pd],
+                                            a[3][pf][:, pd], a[4][pf], a[5][pd][:, pf]))
+    del part
+    _assert_grads_close(got, TM.mlp_partial_bwd_reference(*args, do, fast_gelu=fast))
     for g, h, d in zip(got, again, direct):
         assert torch.equal(g, h) and torch.equal(g, d.to(g.dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["K10p", "K10p XL", "K6b", "K6b XL"])
+def test_k10p_and_k6b_launch_no_wmma_product_on_the_card(cuda_device, monkeypatch, path):
+    """With the WMMA launchers of ``ops/gemm.py`` made to raise, K10p's
+    chunked forward (DiT-B's MoE, the XL MoE) and K6b (the DiT-B and DiT-XL
+    shards) still pass their card tests: they launch only the wgmma products
+    (and, for K6b, ``cast_bf16`` and ``ln_bwd``), with no fallback."""
+    for name in WMMA_LAUNCHERS:
+        monkeypatch.setattr(TX.gemm, name, _refuse_wmma)
+    if path == "K10p":
+        test_k10p_matches_plain_on_the_card(cuda_device, monkeypatch, 8, 20480, 768, 3072, 2,
+                                            False, False, True)
+    elif path == "K10p XL":
+        test_k10p_matches_plain_on_the_card(cuda_device, monkeypatch, 8, 20480, 1152, 4608, 4,
+                                            False, False, True)
+    elif path == "K6b":
+        test_k6b_tp_partial_matches_plain_on_the_card(cuda_device, 131072, 768, 1536, False)
+    else:
+        test_k6b_tp_partial_matches_plain_on_the_card(cuda_device, 131072, 1152, 2304, False)
 
 
 @pytest.mark.cuda
